@@ -1,0 +1,501 @@
+# Copyright 2026 Conch-TPU authors.
+# SPDX-License-Identifier: Apache-2.0
+
+"""Smoke run of the PyTorch/CUDA port (``conch_tpu_torch``) on one H100.
+
+    python3 chip_smoke.py
+
+1. prints the card's ``nvidia-smi`` name and power limit;
+2. builds the kernels from ``conch_tpu_torch/csrc`` with ``nvcc``;
+3. kernel phases: holds each hand-written kernel (K2 cache write, K3
+   paged decode attention, K5 RoPE, K7 varlen prefill attention) against
+   its plain PyTorch version on the card, at the main path's shapes
+   (QH 32 / KH 8 / D 128, page 16, a 32-layer pool read at a non-zero
+   layer, decode batch 8 with an idle seq_len-0 row, a 128-row prefill of
+   mixed lengths with a zero-length padding sequence and padding rows,
+   pages shared between sequences, lengths that are not page multiples);
+   times each with CUDA events beside its plain version and its bound;
+4. slice phase: the first-token logits of a 2-layer Llama-3-8B-width
+   ``llama_prefill`` on the card against the plain path on the CPU, then
+   ``LLMEngine`` at full Llama-3-8B width (32 layers, bf16, random weights
+   from a seed) serving 4 greedy requests, with every kernel's launch
+   count read around that run, then the same requests once more under
+   torch.profiler (device time by kernel group, idle share);
+5. prints the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``
+   as the last line.
+
+Any failed check raises, so the script exits non-zero and prints no
+result line. Without a CUDA device it exits non-zero at once.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core peak
+SEED = 0
+NUM_LAYERS_POOL = 32
+LAYER = 17  # a non-zero layer inside the 32-layer pool
+QH, KH, D, PS = 32, 8, 128, 16
+MAX_PAGES_PER_SEQ = 64
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean milliseconds per call, from CUDA events around ``iters`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
+    """Least time on the card: the larger of bytes / HBM rate and ops / bf16 peak."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / BF16_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check(name: str, err: float, tol: float) -> None:
+    print(f"{name}: max_abs_err {err:.3e} (tolerance {tol:.1e})", flush=True)
+    if not err <= tol:
+        msg = f"{name}: max_abs_err {err} exceeds tolerance {tol}"
+        raise AssertionError(msg)
+
+
+def make_pool(gen: torch.Generator, num_pages: int) -> tuple[torch.Tensor, torch.Tensor]:
+    shape = (NUM_LAYERS_POOL, num_pages, KH, PS, D)
+    kc = torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(torch.bfloat16)
+    vc = torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(torch.bfloat16)
+    return kc, vc
+
+
+def paged_layout(rng: np.random.Generator, seq_lens: list[int], num_pages: int, share: tuple[int, int], shared_pages: int):
+    """Block table (B, MAX_PAGES_PER_SEQ) with random distinct pages,
+    entries past each sequence's pages left 0 (page 0 is a real page), and
+    sequence ``share[1]`` reading the first ``shared_pages`` pages of
+    ``share[0]`` (a prefix-cache hit)."""
+    perm = iter(rng.permutation(np.arange(1, num_pages)).tolist())
+    bt = np.zeros((len(seq_lens), MAX_PAGES_PER_SEQ), np.int32)
+    for b, n in enumerate(seq_lens):
+        for p in range(-(-n // PS)):
+            bt[b, p] = next(perm)
+    src, dst = share
+    bt[dst, :shared_pages] = bt[src, :shared_pages]
+    return bt
+
+
+def unique_kv_rows(bt: np.ndarray, kv_lens: list[int]) -> int:
+    """Distinct cached (page, entry) rows that these sequences read."""
+    rows = set()
+    for b, n in enumerate(kv_lens):
+        rows.update((int(bt[b, pos // PS]), pos % PS) for pos in range(n))
+    return len(rows)
+
+
+def kernel_phase_k2(gen, rng) -> dict:
+    from conch_tpu_torch.kernels.cache.reshape_and_cache import (
+        reshape_and_cache_stacked_launcher as launch,
+        reshape_and_cache_stacked_plain as plain,
+    )
+
+    num_pages, batch = 256, 8
+    kc, vc = make_pool(gen, num_pages)
+    # Decode batch of 8 taken from a fused qkv row block (strided k, v);
+    # row 3 is idle (slot -1); rows 5 and 6 write the same page.
+    qkv = torch.randn((batch, (QH + 2 * KH) * D), generator=gen, device="cuda").to(torch.bfloat16)
+    k = qkv[:, QH * D : (QH + KH) * D].view(batch, KH, D)
+    v = qkv[:, (QH + KH) * D :].view(batch, KH, D)
+    pages = rng.permutation(np.arange(num_pages))[:batch]
+    pages[6] = pages[5]
+    entries = np.array([0, 15, 7, 0, 3, 9, 10, 1])
+    slots = (pages * PS + entries).astype(np.int32)
+    slots[3] = -1
+    slot_t = torch.from_numpy(slots).cuda()
+    kc_ref, vc_ref = kc.clone(), vc.clone()
+    plain(k, v, kc_ref, vc_ref, slot_t, LAYER)
+    launch(k, v, kc, vc, slot_t, LAYER)
+    torch.cuda.synchronize()
+    err = max((kc.float() - kc_ref.float()).abs().max().item(), (vc.float() - vc_ref.float()).abs().max().item())
+    check("K2 reshape_and_cache_stacked", err, 0.0)
+    valid = torch.from_numpy(np.nonzero(slots >= 0)[0]).cuda()
+    vp = torch.from_numpy(slots[slots >= 0] // PS).long().cuda()
+    ve = torch.from_numpy(slots[slots >= 0] % PS).long().cuda()
+    kv_valid, vv_valid = k[valid], v[valid]
+
+    def library():
+        kc[LAYER, vp, :, ve] = kv_valid
+        vc[LAYER, vp, :, ve] = vv_valid
+
+    n_valid = int((slots >= 0).sum())
+    bytes_moved = 2 * (2 * n_valid * KH * D * 2) + batch * 4
+    bound_ms, bound_by = bound(bytes_moved, 0)
+    return {
+        "name": "reshape_and_cache_stacked", "route": "cuda", "source": "conch_tpu_torch/csrc/reshape_and_cache.cu",
+        "replaces": "conch_tpu/kernels/cache/reshape_and_cache.py:37", "max_abs_err": err,
+        "ms": time_ms(lambda: launch(k, v, kc, vc, slot_t, LAYER)),
+        "plain_ms": time_ms(lambda: plain(k, v, kc, vc, slot_t, LAYER)),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": time_ms(library),
+    }
+
+
+def kernel_phase_k5(gen, rng) -> dict:
+    from conch_tpu_torch.kernels.embedding.rotary_embedding import (
+        rotary_embedding_launcher as launch,
+        rotary_embedding_plain as plain,
+    )
+    from conch_tpu_torch.reference.embedding.rotary_embedding import compute_cos_sin_cache
+
+    cache = compute_cos_sin_cache(500000.0, D, 8192, device="cuda")
+    err = 0.0
+    timed = {}
+    for tokens in (8, 128):  # a decode step of batch 8, a 128-row prefill chunk
+        qkv = torch.randn((tokens, (QH + 2 * KH) * D), generator=gen, device="cuda").to(torch.bfloat16)
+        q, k = qkv[:, : QH * D], qkv[:, QH * D : (QH + KH) * D]
+        pos = torch.from_numpy(rng.integers(0, 8192, size=tokens).astype(np.int32)).cuda()
+        q_k, k_k = launch(pos, q, k, D, cache)
+        q_p, k_p = plain(pos, q, k, D, cache)
+        torch.cuda.synchronize()
+        err = max(err, (q_k.float() - q_p.float()).abs().max().item(), (k_k.float() - k_p.float()).abs().max().item())
+        timed[tokens] = (q, k, pos)
+    check("K5 rotary_embedding", err, 2e-2)
+    q, k, pos = timed[8]
+    bytes_moved = 2 * 8 * (QH + KH) * D * 2 + 8 * D * 4 + 8 * 4
+    bound_ms, bound_by = bound(bytes_moved, 8 * (QH + KH) * D * 3)
+    return {
+        "name": "rotary_embedding", "route": "cuda", "source": "conch_tpu_torch/csrc/rotary_embedding.cu",
+        "replaces": "conch_tpu/kernels/embedding/rotary_embedding.py:34", "max_abs_err": err,
+        "ms": time_ms(lambda: launch(pos, q, k, D, cache)),
+        "plain_ms": time_ms(lambda: plain(pos, q, k, D, cache)),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+    }
+
+
+def kernel_phase_k3(gen, rng) -> dict:
+    from conch_tpu_torch.kernels.attention.paged_attention import (
+        paged_attention_launcher as launch,
+        paged_attention_plain as plain,
+    )
+
+    num_pages = 512
+    kc, vc = make_pool(gen, num_pages)
+    # Idle row 0 (seq_len 0), lengths off page multiples, and sequence 5
+    # reading the first 4 pages of sequence 4 (a shared 64-token prefix).
+    seq_lens = [0, 1, 17, 64, 200, 333, 511, 540]
+    bt = paged_layout(rng, seq_lens, num_pages, share=(4, 5), shared_pages=4)
+    batch = len(seq_lens)
+    q = torch.randn((batch, QH, D), generator=gen, device="cuda").to(torch.bfloat16)
+    bt_t = torch.from_numpy(bt).cuda()
+    sl_t = torch.tensor(seq_lens, dtype=torch.int32, device="cuda")
+    scale = 1.0 / math.sqrt(D)
+    out_k = launch(q, kc, vc, bt_t, sl_t, scale, LAYER)
+    out_p = plain(q, kc, vc, bt_t, sl_t, scale, LAYER)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out_k).all() or out_k[0].abs().max().item() != 0.0:
+        raise AssertionError("K3: the idle row must come out as finite zeros")
+    err = (out_k.float() - out_p.float()).abs().max().item()
+    check("K3 paged_attention", err, 3e-2)
+    rows = unique_kv_rows(bt, seq_lens)
+    bytes_moved = 2 * q.numel() * 2 + 2 * rows * KH * D * 2 + sum(-(-n // PS) for n in seq_lens) * 4 + batch * 4
+    bound_ms, bound_by = bound(bytes_moved, 4 * QH * D * sum(seq_lens))
+    return {
+        "name": "paged_attention", "route": "cuda", "source": "conch_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "conch_tpu/kernels/attention/paged_attention.py:57", "max_abs_err": err,
+        "ms": time_ms(lambda: launch(q, kc, vc, bt_t, sl_t, scale, LAYER)),
+        "plain_ms": time_ms(lambda: plain(q, kc, vc, bt_t, sl_t, scale, LAYER), iters=5),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+    }
+
+
+def kernel_phase_k7(gen, rng) -> dict:
+    from conch_tpu_torch.kernels.attention.varlen_attention import (
+        varlen_attention_launcher as launch,
+        varlen_attention_plain as plain,
+    )
+
+    num_pages = 512
+    kc, vc = make_pool(gen, num_pages)
+    # A 128-row prefill step as the engine packs it: a mixed-in decode row
+    # (context 300), a fresh 50-token prompt, the last 40-token chunk of a
+    # 340-token prompt, a 30-token chunk whose first 4 pages are shared with
+    # that prompt, then zero-length padding sequences and 7 padding rows.
+    q_lens = [1, 50, 40, 30, 0, 0, 0, 0]
+    seq_lens = [300, 50, 340, 94, 0, 0, 0, 0]
+    total, rows = sum(q_lens), 128
+    bt = paged_layout(rng, seq_lens, num_pages, share=(2, 3), shared_pages=4)
+    cu = np.concatenate([[0], np.cumsum(q_lens)]).astype(np.int32)
+    q = torch.randn((rows, QH, D), generator=gen, device="cuda").to(torch.bfloat16)
+    cu_t = torch.from_numpy(cu).cuda()
+    sl_t = torch.tensor(seq_lens, dtype=torch.int32, device="cuda")
+    bt_t = torch.from_numpy(bt).cuda()
+    scale = 1.0 / math.sqrt(D)
+    out_k = launch(q, kc, vc, cu_t, sl_t, bt_t, scale, True, LAYER)
+    out_p = plain(q, kc, vc, cu_t, sl_t, bt_t, scale, True, LAYER)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out_k).all() or out_k[total:].abs().max().item() != 0.0:
+        raise AssertionError("K7: padding rows must come out as finite zeros")
+    err = (out_k.float() - out_p.float()).abs().max().item()
+    check("K7 varlen_attention", err, 2e-2)
+    kv_rows = unique_kv_rows(bt, seq_lens)
+    row_kv = [s - ql + j + 1 for ql, s in zip(q_lens, seq_lens) for j in range(ql)]
+    bytes_moved = (total + rows) * QH * D * 2 + 2 * kv_rows * KH * D * 2 + bt.size * 4 + (len(cu) + len(seq_lens)) * 4
+    bound_ms, bound_by = bound(bytes_moved, 4 * QH * D * sum(row_kv))
+    return {
+        "name": "varlen_attention", "route": "cuda", "source": "conch_tpu_torch/csrc/varlen_attention.cu",
+        "replaces": "conch_tpu/kernels/attention/varlen_attention.py:247", "max_abs_err": err,
+        "ms": time_ms(lambda: launch(q, kc, vc, cu_t, sl_t, bt_t, scale, True, LAYER)),
+        "plain_ms": time_ms(lambda: plain(q, kc, vc, cu_t, sl_t, bt_t, scale, True, LAYER), iters=5),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+    }
+
+
+def kernel_phases() -> list[dict]:
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
+    rows = [kernel_phase_k2(gen, rng), kernel_phase_k3(gen, rng), kernel_phase_k5(gen, rng), kernel_phase_k7(gen, rng)]
+    for r in rows:
+        print(
+            f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms by "
+            f"{r['bound_by']}, library {r['library_ms']})", flush=True,
+        )
+    torch.cuda.empty_cache()
+    return rows
+
+
+def reset_launch_counts() -> dict:
+    """Set every kernel's launch count to 0; returns the launchers by row name."""
+    from conch_tpu_torch.kernels.attention.paged_attention import paged_attention_launcher
+    from conch_tpu_torch.kernels.attention.varlen_attention import varlen_attention_launcher
+    from conch_tpu_torch.kernels.cache.reshape_and_cache import reshape_and_cache_stacked_launcher
+    from conch_tpu_torch.kernels.embedding.rotary_embedding import rotary_embedding_launcher
+
+    launchers = {
+        "reshape_and_cache_stacked": reshape_and_cache_stacked_launcher,
+        "paged_attention": paged_attention_launcher,
+        "rotary_embedding": rotary_embedding_launcher,
+        "varlen_attention": varlen_attention_launcher,
+    }
+    for fn in launchers.values():
+        fn.launches = 0
+    return launchers
+
+
+def to_device(tree, device: str):
+    """A copy of a param tree on ``device``."""
+    from conch_tpu_torch.models.linear import QuantizedLinear
+
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, QuantizedLinear):
+        return QuantizedLinear(tree.kind, to_device(tree.arrays, device), dict(tree.meta))
+    return tree.to(device)
+
+
+# Tolerances of the 2-layer prefill check, card (kernels) vs CPU (plain
+# versions). f32: the JAX package's f32 attention tolerance (2e-3, atol and
+# rtol); the two sides differ only in summation order. bf16: max |diff| <=
+# 3e-2 * max |logit|, the bf16 attention tolerance relative to the logits'
+# scale. cuBLAS and the CPU round bf16 intermediates differently, and an
+# error in the hidden state reaches every logit in proportion to the
+# logits' scale (about 6 here), not to each logit's own size.
+PREFILL_TOLERANCES = {torch.float32: 2e-3, torch.bfloat16: 3e-2}
+
+
+def check_prefill_logits() -> None:
+    """First-token logits of a 2-layer, full-width Llama-3-8B prefill on the
+    card (kernels) against the same prefill on the CPU (plain versions), in
+    f32 and in bf16 (PREFILL_TOLERANCES)."""
+    import dataclasses
+
+    from conch_tpu_torch.models.llama import (
+        LlamaConfig, fuse_llama_params, init_kv_caches, init_llama_params, llama_prefill,
+    )
+
+    rng = np.random.default_rng(SEED)
+    q_lens, rows, batch, num_pages = [24, 13], 48, 4, 8
+    total = sum(q_lens)
+    vocab = LlamaConfig.llama3_8b().vocab_size
+    tokens = np.zeros(rows, np.int32)
+    tokens[:total] = rng.integers(0, vocab, total)
+    positions = np.zeros(rows, np.int32)
+    positions[:total] = np.concatenate([np.arange(n) for n in q_lens])
+    bt = np.zeros((batch, MAX_PAGES_PER_SEQ), np.int32)
+    bt[0, :2], bt[1, :1] = [5, 0], [3]
+    slots = np.full(rows, -1, np.int32)
+    slots[:total] = [int(bt[b, p // PS]) * PS + p % PS for b, n in enumerate(q_lens) for p in range(n)]
+    cu = np.array([0, q_lens[0], total, total, total], np.int32)
+    seq_lens = np.array(q_lens + [0, 0], np.int32)
+    host = [torch.from_numpy(a) for a in (tokens, positions, cu, seq_lens, bt, slots)]
+
+    for dtype, tol in PREFILL_TOLERANCES.items():
+        cfg = dataclasses.replace(LlamaConfig.llama3_8b(), num_layers=2, dtype=dtype)
+        params = fuse_llama_params(init_llama_params(SEED, cfg, device="cuda"))
+        kc, vc = init_kv_caches(cfg, num_pages, PS, device="cuda")
+        t = [a.cuda() for a in host]
+        logits, _, _ = llama_prefill(params, cfg, t[0], t[1], t[2], rows, t[3], t[4], t[5], kc, vc)
+        logits = logits.cpu()
+        cpu_params = to_device(params, "cpu")
+        del params, kc, vc
+        torch.cuda.empty_cache()
+        kc, vc = init_kv_caches(cfg, num_pages, PS, device="cpu")
+        ref, _, _ = llama_prefill(cpu_params, cfg, host[0], host[1], host[2], rows, host[3], host[4], host[5], kc, vc)
+        if not torch.isfinite(logits).all() or logits.shape != (batch, cfg.vocab_size):
+            raise AssertionError(f"prefill logits: shape {tuple(logits.shape)} or non-finite values")
+        err = (logits - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        if dtype == torch.float32:
+            ok = bool(((logits - ref).abs() <= tol + tol * ref.abs()).all())
+            rule = f"{tol:.0e} + {tol:.0e} * |ref| elementwise"
+        else:
+            ok = err <= tol * scale
+            rule = f"{tol:.0e} * max|ref| = {tol * scale:.3e}"
+        print(f"2-layer prefill logits, {cfg.dtype}, card vs plain path on the CPU: max_abs_err {err:.3e}, "
+              f"max|ref| {scale:.3f}, tolerance {rule}", flush=True)
+        if not ok:
+            raise AssertionError(f"2-layer prefill logits ({dtype}) disagree with the plain path")
+
+
+def serve(card: str) -> dict:
+    """LLMEngine at full Llama-3-8B width (32 layers, bf16, random weights)
+    serving 4 greedy requests; returns each kernel's launch count in that run."""
+    from conch_tpu_torch.models.llama import LlamaConfig, init_llama_params
+    from conch_tpu_torch.serving import EngineConfig, LLMEngine, SamplingParams
+
+    cfg = LlamaConfig.llama3_8b()
+    t0 = time.perf_counter()
+    engine = LLMEngine(
+        init_llama_params(SEED, cfg, device="cuda"), cfg,
+        EngineConfig(page_size=16, num_pages=2048, max_batch_size=8, max_prefill_tokens=128),
+    )
+    torch.cuda.synchronize()
+    print(f"engine ready in {time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated", flush=True)
+    rng = np.random.default_rng(SEED)
+    prefix = rng.integers(0, cfg.vocab_size, 64).tolist()
+    prompts = [
+        rng.integers(0, cfg.vocab_size, 40).tolist(),
+        rng.integers(0, cfg.vocab_size, 128).tolist(),
+        prefix + rng.integers(0, cfg.vocab_size, 236).tolist(),
+        prefix + rng.integers(0, cfg.vocab_size, 436).tolist(),
+    ]
+    max_tokens = 32
+    launchers = reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outputs = engine.generate(prompts, SamplingParams(max_tokens=max_tokens))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in launchers.items()}
+    for out in outputs:
+        if len(out) != max_tokens or not all(0 <= t < cfg.vocab_size for t in out):
+            raise AssertionError(f"request finished with {len(out)} tokens, some outside the vocabulary")
+    print(f"served {len(prompts)} requests (prompts {[len(p) for p in prompts]}, {max_tokens} tokens each) in "
+          f"{seconds:.3f} s: {len(prompts) * max_tokens / seconds:.2f} generated tok/s on {card}", flush=True)
+    print(f"launches in the served run: {launches}", flush=True)
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was never launched on the main path")
+    params = engine.params
+    del engine
+    torch.cuda.empty_cache()
+    profile_served_run(params, cfg, prompts, max_tokens)
+    return launches
+
+
+def profile_served_run(params: dict, cfg, prompts: list, max_tokens: int) -> None:
+    """The same requests on a fresh engine under torch.profiler (not the
+    timed run): device time by kernel group, from the trace's kernel events,
+    and the device's idle share of the wall time."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from conch_tpu_torch.serving import EngineConfig, LLMEngine, SamplingParams
+
+    engine = LLMEngine(params, cfg, EngineConfig(page_size=16, num_pages=2048, max_batch_size=8, max_prefill_tokens=128))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.generate(prompts, SamplingParams(max_tokens=max_tokens))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = f"{tmp}/trace.json"
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not kernels:
+        print("profile: the trace holds no kernel events; device time not measured", flush=True)
+        return
+    groups: dict[str, float] = {}
+    by_name: dict[str, float] = {}
+    for e in kernels:
+        name = e["name"]
+        low = name.lower()
+        # cuBLAS names its Hopper matmul kernels nvjet_*, older ones *gemm*.
+        matmul = any(tag in low for tag in ("nvjet", "gemm", "sm90", "cutlass"))
+        group = "conch kernels" if "conch" in low else "matmul" if matmul else "other"
+        groups[group] = groups.get(group, 0.0) + e["dur"] / 1e3
+        by_name[name[:60]] = by_name.get(name[:60], 0.0) + e["dur"] / 1e3
+    busy = sum(groups.values())
+    window = (max(e["ts"] + e["dur"] for e in kernels) - min(e["ts"] for e in kernels)) / 1e3
+    print(f"profile ({len(kernels)} kernels): wall {wall_ms:.1f} ms, device busy {busy:.1f} ms, "
+          f"idle share of the kernels' window {1 - busy / window:.3f}; "
+          + ", ".join(f"{g} {t:.1f} ms" for g, t in sorted(groups.items(), key=lambda x: -x[1])), flush=True)
+    top = sorted(by_name.items(), key=lambda x: -x[1])[:8]
+    print("profile top kernels: " + "; ".join(f"{n} {t:.1f} ms" for n, t in top), flush=True)
+
+
+def build() -> None:
+    from conch_tpu_torch.kernels.common import BUILD_DIR, kernel_library
+
+    t0 = time.perf_counter()
+    kernel_library()
+    print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
+    for line in (BUILD_DIR / "nvcc.log").read_text().splitlines():
+        if "registers" in line:
+            print("nvcc:", line.strip())
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    card = card_line()
+    print(card, flush=True)
+    build()
+    rows = kernel_phases()
+    check_prefill_logits()
+    launches = serve(card)
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+    print(json.dumps({"kernels": rows}))
+    print(card)
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
+    print(json.dumps({"ok": True, "device": device}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,160 @@
+// Copyright 2026 Conch-TPU authors.
+// SPDX-License-Identifier: Apache-2.0
+//
+// One block's share of paged attention, shared by the decode kernel (K3)
+// and the varlen prefill kernel (K7): the G query heads of one GQA group
+// attend to the first `kv_len` tokens of one KV head, found through the
+// block table. Online softmax over tiles of TILE tokens, f32 throughout.
+//
+//   1. the block resolves the tile's cache rows from the block table,
+//      reading only entries below kv_len (never the table's padding);
+//   2. one warp per token computes the G scores q_g . k (lanes split D);
+//   3. one warp per head rescales the running max and sum;
+//   4. each thread owns D / NTHREADS output columns for all G heads and
+//      accumulates p . V in registers.
+//
+// kv_len <= 0 leaves the sum at 0 and writes zeros: no division by an
+// empty softmax.
+
+#pragma once
+
+#include "common.cuh"
+
+namespace conch {
+
+constexpr int kAttnThreads = 128;
+constexpr int kAttnWarps = kAttnThreads / 32;
+constexpr int kAttnTile = 64;
+constexpr int kMaxGroup = 8;
+constexpr int kMaxHeadSize = 256;
+constexpr int kMaxColsPerThread = kMaxHeadSize / kAttnThreads;
+
+struct PagedKV {
+  const void* k_layer;  // cache base advanced to the layer: (P, KH, ps, D)
+  const void* v_layer;
+  const int32_t* block_table_row;
+  int num_kv_heads;
+  int page_size;
+  int head_size;
+};
+
+template <typename T>
+__device__ void attend_group(const T* __restrict__ q_rows, int64_t q_head_stride, T* __restrict__ out_rows,
+                             int64_t out_head_stride, const PagedKV& kv, int kv_head, int kv_len, int group,
+                             float scale) {
+  __shared__ float q_s[kMaxGroup * kMaxHeadSize];
+  __shared__ float p_s[kMaxGroup * kAttnTile];
+  __shared__ int64_t row_s[kAttnTile];
+  __shared__ float m_s[kMaxGroup];
+  __shared__ float l_s[kMaxGroup];
+  __shared__ float alpha_s[kMaxGroup];
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int d_size = kv.head_size;
+  const T* k_layer = static_cast<const T*>(kv.k_layer);
+  const T* v_layer = static_cast<const T*>(kv.v_layer);
+
+  for (int i = tid; i < group * d_size; i += kAttnThreads) {
+    const int g = i / d_size;
+    q_s[i] = to_float(q_rows[g * q_head_stride + (i - g * d_size)]);
+  }
+  if (tid < group) {
+    m_s[tid] = -INFINITY;
+    l_s[tid] = 0.0f;
+  }
+  float acc[kMaxGroup][kMaxColsPerThread];
+#pragma unroll
+  for (int g = 0; g < kMaxGroup; ++g)
+#pragma unroll
+    for (int c = 0; c < kMaxColsPerThread; ++c) acc[g][c] = 0.0f;
+  __syncthreads();
+
+  for (int start = 0; start < kv_len; start += kAttnTile) {
+    const int n = min(kAttnTile, kv_len - start);
+    for (int j = tid; j < n; j += kAttnThreads) {
+      const int pos = start + j;
+      const int64_t page = kv.block_table_row[pos / kv.page_size];
+      row_s[j] = ((page * kv.num_kv_heads + kv_head) * kv.page_size + pos % kv.page_size) *
+                 static_cast<int64_t>(d_size);
+    }
+    __syncthreads();
+
+    for (int j = warp; j < n; j += kAttnWarps) {
+      const T* k_row = k_layer + row_s[j];
+      float part[kMaxGroup];
+#pragma unroll
+      for (int g = 0; g < kMaxGroup; ++g) part[g] = 0.0f;
+      for (int d = lane; d < d_size; d += 32) {
+        const float kd = to_float(k_row[d]);
+#pragma unroll
+        for (int g = 0; g < kMaxGroup; ++g)
+          if (g < group) part[g] += q_s[g * d_size + d] * kd;
+      }
+#pragma unroll
+      for (int g = 0; g < kMaxGroup; ++g) {
+        if (g < group) {
+          const float s = warp_sum(part[g]);
+          if (lane == 0) p_s[g * kAttnTile + j] = s * scale;
+        }
+      }
+    }
+    __syncthreads();
+
+    for (int g = warp; g < group; g += kAttnWarps) {
+      float mx = -INFINITY;
+      for (int j = lane; j < n; j += 32) mx = fmaxf(mx, p_s[g * kAttnTile + j]);
+      mx = warp_max(mx);
+      const float m_old = m_s[g];
+      const float m_new = fmaxf(m_old, mx);
+      float sum = 0.0f;
+      for (int j = lane; j < n; j += 32) {
+        const float p = __expf(p_s[g * kAttnTile + j] - m_new);
+        p_s[g * kAttnTile + j] = p;
+        sum += p;
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        const float alpha = __expf(m_old - m_new);  // exp(-inf) = 0 on the first tile
+        l_s[g] = l_s[g] * alpha + sum;
+        m_s[g] = m_new;
+        alpha_s[g] = alpha;
+      }
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int c = 0; c < kMaxColsPerThread; ++c) {
+      const int d = tid + c * kAttnThreads;
+      if (d < d_size) {
+#pragma unroll
+        for (int g = 0; g < kMaxGroup; ++g)
+          if (g < group) acc[g][c] *= alpha_s[g];
+        for (int j = 0; j < n; ++j) {
+          const float vd = to_float(v_layer[row_s[j] + d]);
+#pragma unroll
+          for (int g = 0; g < kMaxGroup; ++g)
+            if (g < group) acc[g][c] += p_s[g * kAttnTile + j] * vd;
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int c = 0; c < kMaxColsPerThread; ++c) {
+    const int d = tid + c * kAttnThreads;
+    if (d < d_size) {
+#pragma unroll
+      for (int g = 0; g < kMaxGroup; ++g) {
+        if (g < group) {
+          const float l = l_s[g];
+          out_rows[g * out_head_stride + d] = from_float<T>(l > 0.0f ? acc[g][c] / l : 0.0f);
+        }
+      }
+    }
+  }
+}
+
+}  // namespace conch

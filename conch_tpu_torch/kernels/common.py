@@ -1,0 +1,132 @@
+# Copyright 2026 Conch-TPU authors.
+# SPDX-License-Identifier: Apache-2.0
+
+"""Shared helpers for the hand-written Hopper kernels.
+
+``build_kernels`` compiles every ``conch_tpu_torch/csrc/*.cu`` with one
+``nvcc`` call into ``conch_tpu_torch/_build/`` (listed in ``.gitignore``)
+as a shared library with a plain C interface, and ``kernel_function``
+binds one of its entry points with ``ctypes``. Every entry point launches
+on the stream it is given and returns ``cudaGetLastError()``, which
+``check_launch`` turns into an exception. Nothing is built or loaded when
+a module is imported: the first launch on a CUDA tensor does it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+import subprocess
+from pathlib import Path
+
+import torch
+
+from conch_tpu_torch import envs
+from conch_tpu_torch.platforms.platform import current_platform
+
+_PACKAGE_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = _PACKAGE_DIR / "csrc"
+BUILD_DIR = _PACKAGE_DIR / "_build"
+LIBRARY_NAME = "libconch_kernels.so"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# dtype codes understood by the C entry points (csrc/common.cuh: DType).
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def cdiv(a: int, b: int) -> int:
+    """Ceiling division."""
+    return -(-a // b)
+
+
+def round_up(x: int, multiple: int) -> int:
+    """Round ``x`` up to the nearest multiple of ``multiple``."""
+    return ((x + multiple - 1) // multiple) * multiple
+
+
+def next_power_of_2(x: int) -> int:
+    """Smallest power of two >= x."""
+    return 1 if x <= 1 else 1 << (x - 1).bit_length()
+
+
+def build_kernels() -> Path:
+    """Compile ``csrc/*.cu`` into the shared library, unless it is newer
+    than every source. Returns the library's path.
+
+    One ``nvcc`` call for all sources, ``sm_90a``; its output (``-Xptxas
+    -v``: registers, shared memory, spills per kernel) goes to
+    ``_build/nvcc.log``. The library is written under a temporary name and
+    renamed, so concurrent builders never load a half-written file.
+    """
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    inputs = sources + sorted(CSRC_DIR.glob("*.cuh"))
+    library = BUILD_DIR / LIBRARY_NAME
+    if library.exists() and library.stat().st_mtime >= max(p.stat().st_mtime for p in inputs):
+        return library
+    BUILD_DIR.mkdir(exist_ok=True)
+    partial = BUILD_DIR / f"{LIBRARY_NAME}.{os.getpid()}.partial"
+    cmd = [envs.CONCH_NVCC, *NVCC_FLAGS, "-o", str(partial), *map(str, sources)]
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    (BUILD_DIR / "nvcc.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        msg = f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr}"
+        raise RuntimeError(msg)
+    os.replace(partial, library)
+    return library
+
+
+@functools.cache
+def kernel_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, once per process.
+    Raises on a device that is not Hopper: the library holds sm_90a code only."""
+    platform = current_platform()
+    if not platform.is_hopper():
+        msg = f"the kernels are built for sm_90a (Hopper); device {platform.device_name} has capability {platform.capability}"
+        raise RuntimeError(msg)
+    return ctypes.CDLL(str(build_kernels()))
+
+
+@functools.cache
+def kernel_function(name: str, argtypes: tuple) -> ctypes._CFuncPtr:
+    """One C entry point with its argument types declared (once per name).
+
+    Pointers and the stream must be ``ctypes.c_void_p``: undeclared, ctypes
+    would pass them as 32-bit ints and cut them.
+    """
+    fn = getattr(kernel_library(), name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check_launch(name: str, code: int) -> None:
+    """Raise if a C entry point reported a CUDA error for its launch."""
+    if code != 0:
+        msg = f"{name}: kernel launch failed with cudaError_t {code}"
+        raise RuntimeError(msg)
+
+
+def stream_of(tensor: torch.Tensor) -> int:
+    """The raw handle of PyTorch's current stream on ``tensor``'s device."""
+    return torch.cuda.current_stream(tensor.device).cuda_stream
+
+
+def dtype_code(tensor: torch.Tensor) -> int:
+    """The C entry points' code for ``tensor``'s dtype; raises on others."""
+    code = DTYPE_CODES.get(tensor.dtype)
+    if code is None:
+        msg = f"the CUDA kernels take float32 or bfloat16, got {tensor.dtype}"
+        raise NotImplementedError(msg)
+    return code
+
+
+def require_cuda(*tensors: torch.Tensor) -> None:
+    """Raise unless every tensor lies on one CUDA device."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        msg = f"kernel inputs must share one CUDA device, got {sorted(map(str, devices))}"
+        raise ValueError(msg)

@@ -1,0 +1,356 @@
+# Copyright 2026 Conch-TPU authors.
+# SPDX-License-Identifier: Apache-2.0
+
+"""Llama-family transformer on the port's ops (counterpart of ``conch_tpu/models/llama.py``).
+
+Decoder-only transformer: RMS norm, NeoX RoPE (K5), GQA attention over a
+stacked paged KV pool of shape (L, P, KH, ps, D) (decode: K2 write, K3
+attention; prefill: an indexed write, K7 attention), SwiGLU MLP, dense
+projections through ``QuantizedLinear``. Where the JAX package scans the
+layers with ``lax.scan`` and donates the caches, the port loops over the
+layers in Python and updates the caches IN PLACE; ``llama_prefill`` and
+``llama_decode_step`` still return them, so call sites read alike.
+
+Params are a dict of tensors in the JAX package's layout (per-layer
+weights stacked on a leading layer axis), so ``params_from_jax`` carries
+a JAX param tree across unchanged.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+import torch
+
+from conch_tpu_torch.models.linear import QuantizedLinear
+from conch_tpu_torch.ops.activation import silu_and_mul
+from conch_tpu_torch.ops.attention import paged_attention, varlen_attention
+from conch_tpu_torch.ops.cache import reshape_and_cache, reshape_and_cache_stacked
+from conch_tpu_torch.ops.embedding import rotary_embedding
+from conch_tpu_torch.ops.normalization import rms_norm
+from conch_tpu_torch.platforms import resolve_device
+from conch_tpu_torch.reference.embedding.rotary_embedding import compute_cos_sin_cache
+
+
+@dataclass(frozen=True)
+class LlamaConfig:
+    """Model hyperparameters (defaults: a tiny debug model)."""
+
+    vocab_size: int = 256
+    hidden_size: int = 256
+    intermediate_size: int = 512
+    num_layers: int = 2
+    num_heads: int = 4
+    num_kv_heads: int = 2
+    head_dim: int = 64
+    rope_theta: float = 500000.0
+    rms_norm_eps: float = 1e-5
+    max_position: int = 8192
+    dtype: Any = torch.bfloat16
+    attention_bias: bool = False  # Qwen2-style q/k/v biases: not ported yet
+    sliding_window: int = 0
+    kv_ring_pages: int = 0
+    rope_scaling: tuple | None = None
+
+    def rope_scaling_dict(self) -> dict | None:
+        return dict(self.rope_scaling) if self.rope_scaling else None
+
+    @staticmethod
+    def qwen2_7b() -> LlamaConfig:
+        return LlamaConfig(
+            vocab_size=152064, hidden_size=3584, intermediate_size=18944, num_layers=28, num_heads=28,
+            num_kv_heads=4, head_dim=128, rope_theta=1e6, rms_norm_eps=1e-6, max_position=32768,
+            attention_bias=True,
+        )
+
+    @staticmethod
+    def llama3_8b() -> LlamaConfig:
+        return LlamaConfig(
+            vocab_size=128256, hidden_size=4096, intermediate_size=14336, num_layers=32, num_heads=32,
+            num_kv_heads=8, head_dim=128, rope_theta=500000.0, rms_norm_eps=1e-5, max_position=8192,
+        )
+
+    @staticmethod
+    def llama31_8b() -> LlamaConfig:
+        return dataclasses.replace(
+            LlamaConfig.llama3_8b(),
+            max_position=131072,
+            rope_scaling=(
+                ("rope_type", "llama3"), ("factor", 8.0), ("low_freq_factor", 1.0),
+                ("high_freq_factor", 4.0), ("original_max_position_embeddings", 8192),
+            ),
+        )
+
+    @staticmethod
+    def llama3_70b() -> LlamaConfig:
+        return LlamaConfig(
+            vocab_size=128256, hidden_size=8192, intermediate_size=28672, num_layers=80, num_heads=64,
+            num_kv_heads=8, head_dim=128, rope_theta=500000.0, rms_norm_eps=1e-5, max_position=8192,
+        )
+
+    @staticmethod
+    def tiny(**overrides) -> LlamaConfig:
+        return LlamaConfig(**overrides)
+
+
+def _cos_sin_cache(config: LlamaConfig, device: torch.device) -> torch.Tensor:
+    return compute_cos_sin_cache(
+        config.rope_theta, config.head_dim, config.max_position,
+        rope_scaling=config.rope_scaling_dict(), device=device,
+    )
+
+
+def init_llama_params(
+    seed: int, config: LlamaConfig, quant_mode: str = "bf16", device: str | torch.device | None = None
+) -> dict:
+    """Random-initialize Llama params on ``device`` (None: CUDA).
+
+    Weights are drawn on the device from a ``torch.Generator`` seeded with
+    ``seed`` (normal, std 0.02), one layer at a time, so a full-width model
+    never passes through the host. Projections are bf16 dense, stacked on a
+    leading layer axis; norms and the embedding are in ``config.dtype``.
+    Only ``quant_mode="bf16"`` is ported.
+    """
+    _check_config(config)
+    if quant_mode not in ("bf16", "dense", "none"):
+        msg = f"quant_mode {quant_mode!r} needs the quantized GEMM kernels, which are not ported yet"
+        raise NotImplementedError(msg)
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    h, inter, n_layers = config.hidden_size, config.intermediate_size, config.num_layers
+    q_dim = config.num_heads * config.head_dim
+    kv_dim = config.num_kv_heads * config.head_dim
+
+    def normal(*shape: int, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+        return (torch.randn(shape, generator=gen, device=device, dtype=torch.float32) * 0.02).to(dtype)
+
+    def stacked(k_dim: int, n_dim: int) -> QuantizedLinear:
+        w = torch.empty((n_layers, k_dim, n_dim), dtype=torch.bfloat16, device=device)
+        for layer in range(n_layers):
+            w[layer] = normal(k_dim, n_dim)
+        return QuantizedLinear.dense(w)
+
+    layers = {
+        "wq": stacked(h, q_dim),
+        "wk": stacked(h, kv_dim),
+        "wv": stacked(h, kv_dim),
+        "wo": stacked(q_dim, h),
+        "w_gate": stacked(h, inter),
+        "w_up": stacked(h, inter),
+        "w_down": stacked(inter, h),
+        "input_norm": torch.ones((n_layers, h), dtype=config.dtype, device=device),
+        "post_attn_norm": torch.ones((n_layers, h), dtype=config.dtype, device=device),
+    }
+    return {
+        "embedding": normal(config.vocab_size, h, dtype=config.dtype),
+        "layers": layers,
+        "final_norm": torch.ones((h,), dtype=config.dtype, device=device),
+        "lm_head": QuantizedLinear.dense(normal(h, config.vocab_size)),
+        "cos_sin_cache": _cos_sin_cache(config, device),
+    }
+
+
+def _tensor_from_numpy(a: Any, device: torch.device) -> torch.Tensor:
+    """numpy -> torch; bfloat16 (ml_dtypes) or uint16 arrays carry bf16 bits."""
+    a = np.array(a)  # a writable copy
+    if a.dtype.name == "bfloat16" or a.dtype == np.uint16:
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def params_from_jax(numpy_tree: dict, config: LlamaConfig, device: str | torch.device | None = None) -> dict:
+    """Carry a JAX param tree (``conch_tpu.models.llama.init_llama_params``
+    output, arrays turned into numpy) over to the port's params.
+
+    The nesting is kept; a projection is any object with ``kind``,
+    ``arrays`` and ``meta`` attributes (the JAX ``QuantizedLinear``).
+    bf16 arrays travel as their 16-bit patterns
+    (dtype ``bfloat16`` from ml_dtypes, or ``uint16``), because numpy has
+    no bf16 of its own, and arrive bit for bit as ``torch.bfloat16``.
+    """
+    _check_config(config)
+    device = resolve_device(device)
+
+    def convert(node: Any) -> Any:
+        if hasattr(node, "kind") and hasattr(node, "arrays"):
+            arrays = {k: _tensor_from_numpy(v, device) for k, v in node.arrays.items()}
+            return QuantizedLinear(node.kind, arrays, dict(node.meta))
+        if isinstance(node, dict):
+            return {k: convert(v) for k, v in node.items()}
+        return _tensor_from_numpy(node, device)
+
+    params = convert(numpy_tree)
+    if params["cos_sin_cache"].shape != (config.max_position, config.head_dim):
+        msg = f"cos_sin_cache {tuple(params['cos_sin_cache'].shape)} does not match the config"
+        raise ValueError(msg)
+    return params
+
+
+def init_kv_caches(
+    config: LlamaConfig, num_pages: int, page_size: int, cache_dtype: torch.dtype | None = None,
+    device: str | torch.device | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Allocate stacked (L, P, KH, ps, D) key/value caches on ``device``."""
+    cache_dtype = cache_dtype or config.dtype
+    shape = (config.num_layers, num_pages, config.num_kv_heads, page_size, config.head_dim)
+    device = resolve_device(device)
+    return torch.zeros(shape, dtype=cache_dtype, device=device), torch.zeros(shape, dtype=cache_dtype, device=device)
+
+
+_FUSION_GROUPS = (("wqkv", ("wq", "wk", "wv")), ("w_gateup", ("w_gate", "w_up")))
+
+
+def fuse_llama_params(params: dict) -> dict:
+    """Fuse QKV and gate|up into single wide-N projections (one-time).
+
+    Returns a new params dict whose layer stack holds ``wqkv`` =
+    [wq|wk|wv] and ``w_gateup`` = [w_gate|w_up]; the layer step slices the
+    product instead. Pieces that cannot fuse are left as they are.
+    """
+    layers = dict(params["layers"])
+    for fused_name, parts in _FUSION_GROUPS:
+        if not all(isinstance(layers.get(p), QuantizedLinear) for p in parts):
+            continue
+        try:
+            fused = QuantizedLinear.concat_n([layers[p] for p in parts])
+        except ValueError:
+            continue
+        layers[fused_name] = fused
+        for p in parts:
+            del layers[p]
+    return {**params, "layers": layers}
+
+
+def _check_config(config: LlamaConfig) -> None:
+    if config.sliding_window or config.kv_ring_pages or config.attention_bias:
+        msg = "sliding-window attention, rolling KV and attention biases are not ported yet"
+        raise NotImplementedError(msg)
+
+
+def _check_unported(config: LlamaConfig, k_caches: torch.Tensor, tp_axis, lora) -> None:
+    _check_config(config)
+    if tp_axis is not None or lora is not None:
+        msg = "tensor parallelism and LoRA are not ported yet"
+        raise NotImplementedError(msg)
+    if k_caches.dtype != config.dtype:
+        msg = f"KV caches of {k_caches.dtype} (int8/fp8) are not ported yet; use {config.dtype}"
+        raise NotImplementedError(msg)
+
+
+def _forward_layers(
+    params: dict,
+    config: LlamaConfig,
+    hidden: torch.Tensor,
+    positions: torch.Tensor,
+    slot_mapping: torch.Tensor,
+    k_caches: torch.Tensor,
+    v_caches: torch.Tensor,
+    attn_fn,
+    decode: bool,
+) -> torch.Tensor:
+    """Run every layer on ``hidden`` (T, H); writes each layer's K/V into the
+    caches in place (decode: the K2 kernel; prefill: an indexed write, as
+    the JAX package's XLA scatter) before ``attn_fn`` reads them."""
+    layers = params["layers"]
+    eps = config.rms_norm_eps
+    t = hidden.shape[0]
+    head_dim = config.head_dim
+    num_kv_heads = k_caches.shape[2]
+    q_dim = config.num_heads * head_dim
+    kv_dim = num_kv_heads * head_dim
+    for layer in range(k_caches.shape[0]):
+        attn_in = rms_norm(hidden, layers["input_norm"][layer], eps)
+        if "wqkv" in layers:
+            qkv = layers["wqkv"].apply_stacked(attn_in, layer)
+            q, k, v = qkv[:, :q_dim], qkv[:, q_dim : q_dim + kv_dim], qkv[:, q_dim + kv_dim :]
+        else:
+            q, k, v = (layers[n].apply_stacked(attn_in, layer) for n in ("wq", "wk", "wv"))
+        q, k = rotary_embedding(positions, q, k, head_dim, params["cos_sin_cache"])
+        k = k.view(t, num_kv_heads, head_dim)
+        v = v.view(t, num_kv_heads, head_dim)
+        if decode:
+            reshape_and_cache_stacked(k, v, k_caches, v_caches, slot_mapping, layer)
+        else:
+            reshape_and_cache(k, v, k_caches[layer], v_caches[layer], slot_mapping)
+        attn_out = attn_fn(q.view(t, config.num_heads, head_dim), k_caches, v_caches, layer)
+        hidden = hidden + layers["wo"].apply_stacked(attn_out.reshape(t, q_dim), layer)
+
+        mlp_in = rms_norm(hidden, layers["post_attn_norm"][layer], eps)
+        if "w_gateup" in layers:
+            gate_up = layers["w_gateup"].apply_stacked(mlp_in, layer)
+        else:
+            gate_up = torch.cat([layers[n].apply_stacked(mlp_in, layer) for n in ("w_gate", "w_up")], dim=-1)
+        hidden = hidden + layers["w_down"].apply_stacked(silu_and_mul(gate_up), layer)
+    return hidden
+
+
+def _logits(params: dict, config: LlamaConfig, hidden: torch.Tensor) -> torch.Tensor:
+    hidden = rms_norm(hidden, params["final_norm"], config.rms_norm_eps)
+    return params["lm_head"].apply(hidden).float()
+
+
+def llama_prefill(
+    params: dict,
+    config: LlamaConfig,
+    token_ids: torch.Tensor,  # (total_tokens,)
+    positions: torch.Tensor,  # (total_tokens,) int32
+    cu_seqlens_q: torch.Tensor,  # (batch+1,) int32
+    max_seqlen_q: int,
+    seq_lens: torch.Tensor,  # (batch,) int32
+    block_tables: torch.Tensor,  # (batch, max_pages) int32
+    slot_mapping: torch.Tensor,  # (total_tokens,) int32, -1 = padding
+    k_caches: torch.Tensor,  # (L, P, KH, ps, D), updated in place
+    v_caches: torch.Tensor,
+    tp_axis: str | None = None,
+    lora: dict | None = None,
+    lora_ids: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Prefill (or chunked-prefill) forward pass.
+
+    Returns (last-token logits per sequence (batch, vocab) f32, k_caches,
+    v_caches); the caches are the arguments, updated in place.
+    """
+    _check_unported(config, k_caches, tp_axis, lora)
+    hidden = params["embedding"][token_ids.long()]
+
+    def attn_fn(q, kc, vc, layer):
+        return varlen_attention(
+            q, kc, vc, cu_seqlens_q, max_seqlen_q, seq_lens, max_seqlen_q, block_tables,
+            causal=True, layer_idx=layer,
+        )
+
+    hidden = _forward_layers(params, config, hidden, positions, slot_mapping, k_caches, v_caches, attn_fn, False)
+    last_rows = (cu_seqlens_q[1:] - 1).long()
+    return _logits(params, config, hidden[last_rows]), k_caches, v_caches
+
+
+def llama_decode_step(
+    params: dict,
+    config: LlamaConfig,
+    token_ids: torch.Tensor,  # (batch,)
+    positions: torch.Tensor,  # (batch,) int32
+    seq_lens: torch.Tensor,  # (batch,) int32, lengths INCLUDING the new token; 0 = idle row
+    block_tables: torch.Tensor,  # (batch, max_pages) int32
+    slot_mapping: torch.Tensor,  # (batch,) int32, -1 = no write
+    k_caches: torch.Tensor,  # updated in place
+    v_caches: torch.Tensor,
+    tp_axis: str | None = None,
+    lora: dict | None = None,
+    lora_ids: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One decode step for a batch of sequences.
+
+    Returns (logits (batch, vocab) f32, k_caches, v_caches); the caches
+    are the arguments, updated in place.
+    """
+    _check_unported(config, k_caches, tp_axis, lora)
+    hidden = params["embedding"][token_ids.long()]
+
+    def attn_fn(q, kc, vc, layer):
+        return paged_attention(q, kc, vc, block_tables, seq_lens, layer_idx=layer)
+
+    hidden = _forward_layers(params, config, hidden, positions, slot_mapping, k_caches, v_caches, attn_fn, True)
+    return _logits(params, config, hidden), k_caches, v_caches

@@ -1,0 +1,6 @@
+# Copyright 2026 Conch-TPU authors.
+# SPDX-License-Identifier: Apache-2.0
+
+from conch_tpu_torch.ops.cache.reshape_and_cache import reshape_and_cache, reshape_and_cache_stacked
+
+__all__ = ["reshape_and_cache", "reshape_and_cache_stacked"]

@@ -1,0 +1,75 @@
+# Copyright 2026 Conch-TPU authors.
+# SPDX-License-Identifier: Apache-2.0
+
+"""reshape_and_cache public ops (counterpart of ``conch_tpu/ops/cache/reshape_and_cache.py``).
+
+The caches are updated in place, and returned so call sites read like the
+JAX package's (which donates them and returns the new buffers).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from conch_tpu_torch.kernels.cache.reshape_and_cache import (
+    reshape_and_cache_launcher,
+    reshape_and_cache_stacked_launcher,
+)
+
+
+def _check_kv_cache_dtype(kv_cache_dtype: str) -> None:
+    if kv_cache_dtype != "auto":
+        msg = f"kv_cache_dtype {kv_cache_dtype!r}: int8/fp8 caches are not ported yet"
+        raise NotImplementedError(msg)
+
+
+def _validate_sizes(key, value, key_cache, value_cache, slot_mapping) -> None:
+    if key.shape != value.shape or key.dim() != 3:
+        msg = f"key {tuple(key.shape)} and value {tuple(value.shape)} must be equal (T, KH, D)"
+        raise ValueError(msg)
+    if key_cache.shape != value_cache.shape:
+        msg = f"key_cache {tuple(key_cache.shape)} does not match value_cache {tuple(value_cache.shape)}"
+        raise ValueError(msg)
+    if key_cache.shape[-3] != key.shape[1] or key_cache.shape[-1] != key.shape[2]:
+        msg = f"key (T, KH, D) = {tuple(key.shape)} does not fit cache {tuple(key_cache.shape)}"
+        raise ValueError(msg)
+    if slot_mapping.dim() != 1 or slot_mapping.shape[0] != key.shape[0]:
+        msg = f"slot_mapping {tuple(slot_mapping.shape)} must be ({key.shape[0]},)"
+        raise ValueError(msg)
+
+
+def reshape_and_cache(
+    key: torch.Tensor,
+    value: torch.Tensor,
+    key_cache: torch.Tensor,
+    value_cache: torch.Tensor,
+    slot_mapping: torch.Tensor,
+    kv_cache_dtype: str = "auto",
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Write key/value (T, KH, D) into (P, KH, ps, D) caches at the mapped
+    slots, in place; negative slots are skipped."""
+    _check_kv_cache_dtype(kv_cache_dtype)
+    _validate_sizes(key, value, key_cache, value_cache, slot_mapping)
+    reshape_and_cache_launcher(key, value, key_cache, value_cache, slot_mapping)
+    return key_cache, value_cache
+
+
+def reshape_and_cache_stacked(
+    key: torch.Tensor,
+    value: torch.Tensor,
+    key_caches: torch.Tensor,
+    value_caches: torch.Tensor,
+    slot_mapping: torch.Tensor,
+    layer_idx: int,
+    kv_cache_dtype: str = "auto",
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Write key/value into layer ``layer_idx`` of the stacked
+    (L, P, KH, ps, D) caches, in place (K2 on CUDA)."""
+    _check_kv_cache_dtype(kv_cache_dtype)
+    _validate_sizes(key, value, key_caches, value_caches, slot_mapping)
+    reshape_and_cache_stacked_launcher(key, value, key_caches, value_caches, slot_mapping, int(layer_idx))
+    return key_caches, value_caches

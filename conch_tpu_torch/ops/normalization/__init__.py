@@ -1,0 +1,6 @@
+# Copyright 2026 Conch-TPU authors.
+# SPDX-License-Identifier: Apache-2.0
+
+from conch_tpu_torch.ops.normalization.rms_norm import rms_norm
+
+__all__ = ["rms_norm"]

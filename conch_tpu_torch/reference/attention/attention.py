@@ -1,0 +1,88 @@
+# Copyright 2026 Conch-TPU authors.
+# SPDX-License-Identifier: Apache-2.0
+
+"""Golden attention over paged KV caches.
+
+Counterpart of ``conch_tpu/reference/attention/attention.py``: gather one
+sequence's pages back into contiguous K/V, then a plain masked softmax in
+f32 (no online softmax), one sequence at a time. Cache layout
+(num_pages, num_kv_heads, page_size, head_size). A sequence with no
+cached tokens, and a query row that belongs to no sequence, yield zeros.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def gather_cache_for_sequence(cache: torch.Tensor, block_table_row: torch.Tensor, seq_len: int) -> torch.Tensor:
+    """One sequence's (seq_len, num_kv_heads, head_size) rows."""
+    _, num_kv_heads, page_size, head_size = cache.shape
+    num_needed = -(-seq_len // page_size)
+    pages = cache[block_table_row[:num_needed].long()]  # (n, KH, ps, D)
+    contiguous = pages.transpose(1, 2).reshape(num_needed * page_size, num_kv_heads, head_size)
+    return contiguous[:seq_len]
+
+
+def masked_attention(
+    q: torch.Tensor,  # (q_len, QH, D)
+    k: torch.Tensor,  # (k_len, KH, D)
+    v: torch.Tensor,
+    scale: float,
+    causal: bool,
+) -> torch.Tensor:
+    """Plain f32 softmax attention for one sequence (GQA-aware)."""
+    q_len, num_q_heads, head_size = q.shape
+    k_len, num_kv_heads, _ = k.shape
+    if k_len == 0:
+        return torch.zeros(q_len, num_q_heads, head_size, dtype=torch.float32, device=q.device)
+    group = num_q_heads // num_kv_heads
+    qf = q.float()
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    s = torch.einsum("qhd,khd->hqk", qf, kf) * scale
+    if causal:
+        q_pos = k_len - q_len + torch.arange(q_len, device=q.device)
+        mask = torch.arange(k_len, device=q.device)[None, :] <= q_pos[:, None]
+        s = s.masked_fill(~mask[None], float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("hqk,khd->qhd", p, vf)
+
+
+def paged_attention(
+    query: torch.Tensor,  # (B, QH, D)
+    key_cache: torch.Tensor,
+    value_cache: torch.Tensor,
+    block_table: torch.Tensor,
+    seq_lens: torch.Tensor,
+    scale: float,
+) -> torch.Tensor:
+    """Golden decode attention: one query token per sequence. f32 output."""
+    outs = []
+    for b, seq_len in enumerate(seq_lens.tolist()):
+        k = gather_cache_for_sequence(key_cache, block_table[b], seq_len)
+        v = gather_cache_for_sequence(value_cache, block_table[b], seq_len)
+        outs.append(masked_attention(query[b : b + 1], k, v, scale, causal=False)[0])
+    return torch.stack(outs)
+
+
+def varlen_attention(
+    query: torch.Tensor,  # (total_q, QH, D), rows past cu_seqlens_q[-1] are padding
+    key_cache: torch.Tensor,
+    value_cache: torch.Tensor,
+    cu_seqlens_q: torch.Tensor,
+    seq_lens: torch.Tensor,
+    block_table: torch.Tensor,
+    scale: float,
+    causal: bool,
+) -> torch.Tensor:
+    """Golden varlen attention over ragged queries. f32 output."""
+    out = torch.zeros(query.shape, dtype=torch.float32, device=query.device)
+    cu = cu_seqlens_q.tolist()
+    for b, seq_len in enumerate(seq_lens.tolist()):
+        if cu[b + 1] == cu[b]:
+            continue
+        k = gather_cache_for_sequence(key_cache, block_table[b], seq_len)
+        v = gather_cache_for_sequence(value_cache, block_table[b], seq_len)
+        out[cu[b] : cu[b + 1]] = masked_attention(query[cu[b] : cu[b + 1]], k, v, scale, causal)
+    return out

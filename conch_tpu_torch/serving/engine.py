@@ -1,0 +1,563 @@
+# Copyright 2026 Conch-TPU authors.
+# SPDX-License-Identifier: Apache-2.0
+
+"""Continuous-batching LLM serving engine over paged KV caches (counterpart
+of ``conch_tpu/serving/engine.py``, single device).
+
+Host-side scheduling in plain Python around device steps of fixed row
+counts, as in the JAX package:
+
+- decode: (max_batch_size,) rows; idle rows run with seq_len 0 and slot
+  -1 (no cache write, zero attention output);
+- prefill: token counts padded to power-of-two buckets, long prompts
+  chunk-prefilled across steps (varlen attention with q_len < seq_len),
+  padding rows with slot -1 and zero-length padding sequences;
+- mixed batching: running decodes join a prefill step, one token each;
+- automatic prefix caching of full prompt pages, LIFO preemption with
+  recompute, and admission gated on free pages;
+- multi-step greedy decode: K decode steps per dispatch with on-device
+  argmax feedback, the host applying eos/stop/max_tokens afterwards and
+  discarding overshoot.
+
+The KV pool is one stacked (L, P, KH, ps, D) tensor pair updated in place
+by the model (the JAX engine donates it through its jitted steps).
+
+Later slices port LoRA, tensor parallelism, speculative decoding, rolling
+KV, parallel sampling (n > 1), guided decoding, logprobs, repetition
+penalty, logit bias, beam search and the HTTP server; asking for any of
+them raises. Every step runs at most 128 rows, since rms_norm (K4) and
+silu_and_mul (K6) are not ported for more.
+"""
+
+from __future__ import annotations
+
+import enum
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from conch_tpu_torch.models.llama import fuse_llama_params, llama_decode_step, llama_prefill
+from conch_tpu_torch.ops.common import SMALL_OP_TOKEN_THRESHOLD
+from conch_tpu_torch.platforms import resolve_device
+from conch_tpu_torch.serving.block_allocator import BlockAllocator
+from conch_tpu_torch.serving.sampling import SamplingParams, sample_tokens
+
+
+class RequestState(enum.Enum):
+    WAITING = "waiting"
+    PREFILLING = "prefilling"
+    RUNNING = "running"
+    FINISHED = "finished"
+
+
+@dataclass
+class Request:
+    request_id: int
+    prompt: list[int]
+    sampling: SamplingParams
+    state: RequestState = RequestState.WAITING
+    pages: list[int] = field(default_factory=list)
+    num_computed: int = 0  # tokens already prefilled (incl. recompute after preemption)
+    output_tokens: list[int] = field(default_factory=list)
+    num_preemptions: int = 0
+
+    @property
+    def total_len(self) -> int:
+        return len(self.prompt) + len(self.output_tokens)
+
+    def token_at(self, pos: int) -> int:
+        """Token at an absolute position, over prompt + generated tokens
+        (generated tokens are re-prefilled after a preemption)."""
+        if pos < len(self.prompt):
+            return self.prompt[pos]
+        return self.output_tokens[pos - len(self.prompt)]
+
+
+@dataclass
+class EngineConfig:
+    page_size: int = 16
+    num_pages: int = 512
+    max_batch_size: int = 8
+    max_pages_per_seq: int = 64
+    # At most 128 here: larger steps need the rms_norm (K4) and
+    # silu_and_mul (K6) kernels, which are not ported yet.
+    max_prefill_tokens: int = 128
+    eos_token_id: int | None = None
+    seed: int = 0
+    # Full prompt pages are registered by their token prefix and shared
+    # (refcounted) across requests; finished requests' prefix pages stay in
+    # an LRU pool and are evicted only under memory pressure.
+    enable_prefix_caching: bool = True
+    num_speculative_tokens: int = 0  # not ported yet: must stay 0
+    # Running decodes join prefill steps (one token each, first from the
+    # token budget), so they keep streaming while long prompts chunk.
+    mixed_batching: bool = True
+    # K greedy decode steps per dispatch when every running request is
+    # plain greedy; finish rules are applied on the host afterwards and
+    # overshoot is discarded (its KV sits past the rewound seq_len). 1
+    # disables.
+    multi_step_decode: int = 8
+    rolling_kv: bool = False  # not ported yet: must stay False
+
+    def __post_init__(self) -> None:
+        if self.num_speculative_tokens or self.rolling_kv:
+            msg = "speculative decoding and rolling KV are not ported yet"
+            raise NotImplementedError(msg)
+        for name in ("max_prefill_tokens", "max_batch_size"):
+            if getattr(self, name) > SMALL_OP_TOKEN_THRESHOLD:
+                msg = (
+                    f"{name}={getattr(self, name)}: steps of more than {SMALL_OP_TOKEN_THRESHOLD} rows need the "
+                    "rms_norm (K4) and silu_and_mul (K6) kernels, which are not ported yet"
+                )
+                raise NotImplementedError(msg)
+
+
+def _bucket(n: int, floor: int = 16) -> int:
+    b = floor
+    while b < n:
+        b *= 2
+    return b
+
+
+class LLMEngine:
+    """Continuous-batching engine serving Llama on one device.
+
+    ``params`` come from ``init_llama_params`` or ``params_from_jax`` and
+    must lie on ``device`` (None: CUDA; without a CUDA device the engine
+    raises unless ``device="cpu"``). QKV and gate|up are fused once here.
+    """
+
+    def __init__(
+        self,
+        params: dict,
+        model_config,
+        engine_config: EngineConfig,
+        cache_dtype: torch.dtype | None = None,
+        prefill_fn=None,
+        decode_fn=None,
+        verify_fn=None,
+        mesh=None,
+        lora=None,
+        device: str | torch.device | None = None,
+    ):
+        if any(x is not None for x in (prefill_fn, decode_fn, verify_fn, mesh, lora)):
+            msg = "custom model functions, tensor-parallel meshes and LoRA are not ported yet"
+            raise NotImplementedError(msg)
+        self.device = resolve_device(device)
+        if params["embedding"].device.type != self.device.type:
+            msg = f"params lie on {params['embedding'].device}, the engine runs on {self.device}"
+            raise ValueError(msg)
+        self.config = model_config
+        self.ecfg = engine_config
+        self.params = fuse_llama_params(params)
+        self.allocator = BlockAllocator(engine_config.num_pages)
+        self._page_cap = engine_config.max_pages_per_seq
+        cache_shape = (
+            model_config.num_layers, engine_config.num_pages, model_config.num_kv_heads,
+            engine_config.page_size, model_config.head_dim,
+        )
+        dtype = cache_dtype or model_config.dtype
+        self.k_caches = torch.zeros(cache_shape, dtype=dtype, device=self.device)
+        self.v_caches = torch.zeros(cache_shape, dtype=dtype, device=self.device)
+        self.waiting: list[Request] = []
+        self.running: list[Request] = []
+        self._next_id = 0
+        self._generator = torch.Generator(device=self.device).manual_seed(engine_config.seed)
+        # Prefix cache: full-page token prefix -> page id, the reverse map,
+        # and the LRU order of cache-held pages (the cache owns one reference).
+        self._prefix_map: dict[tuple[int, ...], int] = {}
+        self._page_key: dict[int, tuple[int, ...]] = {}
+        self._cached_lru: dict[int, None] = {}
+        self.prefix_cache_hits = 0  # tokens served from cache (stats)
+
+    # -- public API --------------------------------------------------------
+
+    def add_request(self, prompt: list[int], sampling: SamplingParams | None = None, lora_id: int | None = None) -> int:
+        if lora_id is not None:
+            msg = "LoRA adapters are not ported yet"
+            raise NotImplementedError(msg)
+        ps = self.ecfg.page_size
+        cap_pages = min(self.ecfg.max_pages_per_seq, self.ecfg.num_pages)
+        if len(prompt) + 1 > cap_pages * ps:
+            msg = (
+                f"prompt of {len(prompt)} tokens can never fit: engine caps a "
+                f"sequence at {cap_pages} pages x {ps} slots"
+            )
+            raise ValueError(msg)
+        rid = self._next_id
+        self._next_id += 1
+        self.waiting.append(Request(rid, list(prompt), sampling or SamplingParams()))
+        return rid
+
+    def generate(
+        self, prompts: list[list[int]], sampling: SamplingParams | None = None, lora_ids: list | None = None
+    ) -> list[list[int]]:
+        """Offline batch generation: one output token list per prompt."""
+        if lora_ids is not None and any(x is not None for x in lora_ids):
+            msg = "LoRA adapters are not ported yet"
+            raise NotImplementedError(msg)
+        ids = [self.add_request(p, sampling) for p in prompts]
+        results: dict[int, list[int]] = {}
+        while self.waiting or self.running:
+            for req in self.step():
+                results[req.request_id] = req.output_tokens
+        return [results[i] for i in ids]
+
+    def step(self) -> list[Request]:
+        """Run one engine step; returns the requests that finished in it."""
+        self._admit()
+        if not self.running:
+            return []
+        prefilling = [r for r in self.running if r.state == RequestState.PREFILLING]
+        if prefilling:
+            batch = prefilling
+            if self.ecfg.mixed_batching:
+                decodes = self._ensure_decode_pages([r for r in self.running if r.state == RequestState.RUNNING])
+                # Page growth may have preempted a prefilling request.
+                batch = decodes + [r for r in prefilling if r.state == RequestState.PREFILLING]
+            self._run_prefill(batch)
+        else:
+            decodable = [r for r in self.running if r.state == RequestState.RUNNING]
+            all_plain_greedy = all(
+                r.sampling.temperature <= 0.0 and len(r.output_tokens) >= r.sampling.min_tokens for r in decodable
+            )
+            k = self.ecfg.multi_step_decode
+            if k > 1 and all_plain_greedy:
+                self._run_multi_step_decode(decodable, k)
+            else:
+                self._run_decode(self._ensure_decode_pages(decodable))
+
+        finished = [r for r in self.running if r.state == RequestState.FINISHED]
+        for req in finished:
+            for page in req.pages:
+                self.allocator.free(page)
+            req.pages = []
+        self.running = [r for r in self.running if r.state != RequestState.FINISHED]
+        return finished
+
+    # -- scheduling --------------------------------------------------------
+
+    def _prefix_lookup(self, req: Request) -> list[int]:
+        """Longest chain of cached full-prefix pages usable by ``req``
+        (always leaving >= 1 token to prefill so logits are produced)."""
+        if not self.ecfg.enable_prefix_caching:
+            return []
+        ps = self.ecfg.page_size
+        shared: list[int] = []
+        for k in range(1, min((req.total_len - 1) // ps, self.ecfg.max_pages_per_seq) + 1):
+            page = self._prefix_map.get(tuple(req.token_at(p) for p in range(k * ps)))
+            if page is None:
+                break
+            shared.append(page)
+        return shared
+
+    def _register_prefix_pages(self, req: Request) -> None:
+        """Publish ``req``'s computed full prompt pages into the prefix cache
+        (the cache takes one reference per page)."""
+        if not self.ecfg.enable_prefix_caching:
+            return
+        ps = self.ecfg.page_size
+        for k in range(1, len(req.prompt) // ps + 1):
+            page = req.pages[k - 1]
+            key = tuple(req.prompt[: k * ps])
+            if key in self._prefix_map:
+                continue
+            self._prefix_map[key] = page
+            self._page_key[page] = key
+            self.allocator.fork(page)
+            self._cached_lru[page] = None
+
+    def _reclaim(self, n: int) -> None:
+        """Evict LRU prefix-cache pages until ``n`` pages are allocatable."""
+        while not self.allocator.can_allocate(n) and self._cached_lru:
+            page = next(iter(self._cached_lru))
+            del self._cached_lru[page]
+            del self._prefix_map[self._page_key.pop(page)]
+            self.allocator.free(page)
+
+    def _admit(self) -> None:
+        # Reserve pages for the tokens to prefill (prompt, plus generated
+        # tokens recomputed after a preemption) + one page of decode
+        # headroom; decode growth allocates page by page. Cached full-prefix
+        # pages are shared instead of recomputed.
+        ps = self.ecfg.page_size
+        while self.waiting and len(self.running) < self.ecfg.max_batch_size:
+            req = self.waiting[0]
+            pages_needed = min(-(-(req.total_len + 1) // ps), self._page_cap)
+            if pages_needed > self.ecfg.num_pages:
+                # Grew past the whole pool (preempted, can never recompute).
+                self.waiting.pop(0)
+                req.state = RequestState.FINISHED
+                self.running.append(req)
+                continue
+            shared = self._prefix_lookup(req)
+            fresh_needed = pages_needed - len(shared)
+            # Hold the shared pages BEFORE reclaiming, or _reclaim could
+            # evict the very pages the lookup returned.
+            for page in shared:
+                self.allocator.fork(page)
+                if page in self._cached_lru:
+                    self._cached_lru[page] = self._cached_lru.pop(page)  # LRU touch
+            self._reclaim(fresh_needed)
+            if not self.allocator.can_allocate(fresh_needed):
+                for page in shared:
+                    self.allocator.free(page)
+                break
+            self.waiting.pop(0)
+            req.pages = shared + [self.allocator.allocate() for _ in range(fresh_needed)]
+            req.num_computed = len(shared) * ps
+            self.prefix_cache_hits += req.num_computed
+            req.state = RequestState.PREFILLING
+            self.running.append(req)
+
+    def _preempt_one(self) -> bool:
+        """Preempt the youngest live request: free its pages and requeue it
+        at the front of the waiting queue for recompute."""
+        for victim in reversed(self.running):
+            if victim.state in (RequestState.RUNNING, RequestState.PREFILLING):
+                for page in victim.pages:
+                    self.allocator.free(page)
+                victim.pages = []
+                victim.num_computed = 0
+                victim.num_preemptions += 1
+                victim.state = RequestState.WAITING
+                self.running.remove(victim)
+                self.waiting.insert(0, victim)
+                return True
+        return False
+
+    def _ensure_decode_pages(self, reqs: list[Request], extra: dict[int, int] | None = None) -> list[Request]:
+        """Grow each sequence's pages to cover its next KV write (plus
+        ``extra`` slots); preempt younger requests when the pool runs dry.
+        Returns the requests that still hold enough pages to step."""
+        ps = self.ecfg.page_size
+        extra = extra or {}
+        ready = []
+        for r in reqs:
+            if r.state != RequestState.RUNNING:
+                continue  # preempted by an earlier request's growth in this pass
+            needed = -(-(r.total_len + extra.get(r.request_id, 0)) // ps)
+            ok = True
+            while len(r.pages) < min(needed, self._page_cap):
+                self._reclaim(1)
+                if self.allocator.can_allocate(1):
+                    r.pages.append(self.allocator.allocate())
+                    continue
+                if not self._preempt_one() or r.state == RequestState.WAITING:
+                    ok = False
+                    break
+            if ok and r.state == RequestState.RUNNING:
+                ready.append(r)
+        # A request ready early may have been preempted later in the pass;
+        # coverage clamps at the page cap so a capped request still steps
+        # (and finishes at_cap) instead of being filtered forever.
+        cap_tokens = self._page_cap * ps
+        return [
+            r for r in ready
+            if r.state == RequestState.RUNNING
+            and len(r.pages) * ps >= min(r.total_len + extra.get(r.request_id, 0), cap_tokens)
+        ]
+
+    def _slot(self, req: Request, pos: int) -> int:
+        return req.pages[pos // self.ecfg.page_size] * self.ecfg.page_size + pos % self.ecfg.page_size
+
+    def _block_table(self, reqs: list[Request]) -> np.ndarray:
+        """(max_batch_size, max_pages_per_seq) table; rows and entries past
+        the requests' pages are 0."""
+        bt = np.zeros((self.ecfg.max_batch_size, self.ecfg.max_pages_per_seq), dtype=np.int32)
+        for i, r in enumerate(reqs):
+            bt[i, : len(r.pages)] = r.pages
+        return bt
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
+
+    # -- device steps ------------------------------------------------------
+
+    def _run_prefill(self, reqs: list[Request]) -> None:
+        budget = self.ecfg.max_prefill_tokens
+        batch: list[tuple[Request, int]] = []  # (request, chunk_len)
+        for r in reqs:
+            take = min(r.total_len - r.num_computed, budget)
+            if take <= 0:
+                continue
+            batch.append((r, take))
+            budget -= take
+            if budget <= 0:
+                break
+        if not batch:
+            return
+
+        tokens, positions, slots, q_lens, seq_lens = [], [], [], [], []
+        for r, take in batch:
+            start = r.num_computed
+            tokens.extend(r.token_at(p) for p in range(start, start + take))
+            positions.extend(range(start, start + take))
+            slots.extend(self._slot(r, p) for p in range(start, start + take))
+            q_lens.append(take)
+            seq_lens.append(start + take)
+
+        total = len(tokens)
+        total_pad = _bucket(total)
+        bpad = self.ecfg.max_batch_size
+        tokens_arr = np.zeros(total_pad, dtype=np.int32)
+        tokens_arr[:total] = tokens
+        positions_arr = np.zeros(total_pad, dtype=np.int32)
+        positions_arr[:total] = positions
+        slots_arr = np.full(total_pad, -1, dtype=np.int32)
+        slots_arr[:total] = slots
+        cu = np.zeros(bpad + 1, dtype=np.int32)
+        cu[1 : len(batch) + 1] = np.cumsum(q_lens)
+        cu[len(batch) + 1 :] = total  # zero-length padding sequences
+        sl = np.zeros(bpad, dtype=np.int32)
+        sl[: len(batch)] = seq_lens
+
+        logits, _, _ = llama_prefill(
+            self.params, self.config,
+            token_ids=self._tensor(tokens_arr),
+            positions=self._tensor(positions_arr),
+            cu_seqlens_q=self._tensor(cu),
+            max_seqlen_q=_bucket(max(q_lens)),
+            seq_lens=self._tensor(sl),
+            block_tables=self._tensor(self._block_table([r for r, _ in batch])),
+            slot_mapping=self._tensor(slots_arr),
+            k_caches=self.k_caches,
+            v_caches=self.v_caches,
+        )
+
+        # Advance chunk progress; sample for requests whose tokens are all
+        # computed (a completed prompt, or a mixed-in decode row).
+        done_rows, fresh_prompt_rows = [], set()
+        for i, (r, take) in enumerate(batch):
+            was_prefilling = r.state == RequestState.PREFILLING
+            r.num_computed += take
+            if r.num_computed >= r.total_len:
+                done_rows.append(i)
+                if was_prefilling:
+                    fresh_prompt_rows.add(i)
+        if done_rows:
+            sampled = self._sample(logits, [batch[i][0] for i in done_rows], rows=done_rows)
+            for i, tok in zip(done_rows, sampled):
+                r = batch[i][0]
+                if i in fresh_prompt_rows:  # not mixed-in decode rows
+                    self._register_prefix_pages(r)
+                r.output_tokens.append(int(tok))
+                r.state = RequestState.RUNNING
+                self._maybe_finish(r)
+
+    def _run_decode(self, reqs: list[Request]) -> None:
+        if not reqs:
+            return
+        bpad = self.ecfg.max_batch_size
+        tokens = np.zeros(bpad, dtype=np.int32)
+        positions = np.zeros(bpad, dtype=np.int32)
+        seq_lens = np.zeros(bpad, dtype=np.int32)
+        slots = np.full(bpad, -1, dtype=np.int32)
+        for i, r in enumerate(reqs):
+            pos = r.total_len - 1  # position of the newest (already sampled) token
+            tokens[i] = r.output_tokens[-1]
+            positions[i] = pos
+            seq_lens[i] = r.total_len
+            slots[i] = self._slot(r, pos)
+        logits, _, _ = llama_decode_step(
+            self.params, self.config,
+            token_ids=self._tensor(tokens),
+            positions=self._tensor(positions),
+            seq_lens=self._tensor(seq_lens),
+            block_tables=self._tensor(self._block_table(reqs)),
+            slot_mapping=self._tensor(slots),
+            k_caches=self.k_caches,
+            v_caches=self.v_caches,
+        )
+        sampled = self._sample(logits, reqs, rows=list(range(len(reqs))))
+        for r, tok in zip(reqs, sampled):
+            r.output_tokens.append(int(tok))
+            r.num_computed = r.total_len - 1  # KV covers all but the new token
+            self._maybe_finish(r)
+
+    def _multi_step_greedy(
+        self, tokens: torch.Tensor, positions: torch.Tensor, active: torch.Tensor, limit: torch.Tensor,
+        bt: torch.Tensor, k: int,
+    ) -> torch.Tensor:
+        """K greedy decode steps with on-device argmax feedback; (k, batch)
+        tokens. Same masking as the JAX package's ``make_multi_step_scan``:
+        seq_lens clamp at each row's owned pages (``limit``), writes past
+        them get slot -1, and idle rows run with seq_len 0 and slot -1."""
+        ps = self.ecfg.page_size
+        rows = torch.arange(bt.shape[0], device=bt.device)
+        out = []
+        for _ in range(k):
+            seq_lens = torch.where(active, torch.minimum(positions + 1, limit), 0).to(torch.int32)
+            page_idx = (positions // ps).clamp(max=bt.shape[1] - 1).long()
+            slots = bt[rows, page_idx] * ps + positions % ps
+            slots = torch.where(active & (positions < limit), slots, -1).to(torch.int32)
+            logits, _, _ = llama_decode_step(
+                self.params, self.config, tokens, positions, seq_lens, bt, slots, self.k_caches, self.v_caches
+            )
+            tokens = logits.argmax(dim=-1).to(torch.int32)
+            positions = positions + 1
+            out.append(tokens)
+        return torch.stack(out)
+
+    def _run_multi_step_decode(self, reqs: list[Request], k: int) -> None:
+        """K greedy decode steps in one dispatch; the host applies finish
+        rules per token and discards overshoot (KV past a finish sits beyond
+        the rewound seq_len: masked by attention, overwritten later)."""
+        reqs = self._ensure_decode_pages(reqs, extra={r.request_id: k - 1 for r in reqs})
+        if not reqs:
+            return
+        bpad = self.ecfg.max_batch_size
+        tokens = np.zeros(bpad, dtype=np.int32)
+        positions = np.zeros(bpad, dtype=np.int32)
+        active = np.zeros(bpad, dtype=bool)
+        limit = np.zeros(bpad, dtype=np.int32)
+        for i, r in enumerate(reqs):
+            tokens[i] = r.output_tokens[-1]
+            positions[i] = r.total_len - 1
+            active[i] = True
+            limit[i] = len(r.pages) * self.ecfg.page_size
+        toks = self._multi_step_greedy(
+            self._tensor(tokens), self._tensor(positions), self._tensor(active), self._tensor(limit),
+            self._tensor(self._block_table(reqs)), k,
+        ).cpu().numpy()
+        for i, r in enumerate(reqs):
+            for step in range(k):
+                r.output_tokens.append(int(toks[step, i]))
+                self._maybe_finish(r)
+                if r.state == RequestState.FINISHED:
+                    break
+            r.num_computed = r.total_len - 1
+
+    def _sample(self, logits: torch.Tensor, reqs: list[Request], rows: list[int]) -> np.ndarray:
+        temps = np.zeros(logits.shape[0], dtype=np.float32)
+        top_ks = np.zeros(logits.shape[0], dtype=np.int64)
+        top_ps = np.ones(logits.shape[0], dtype=np.float32)
+        suppress_rows, suppress_cols = [], []
+        eos = self.ecfg.eos_token_id
+        for row, r in zip(rows, reqs):
+            temps[row] = r.sampling.temperature
+            top_ks[row] = r.sampling.top_k
+            top_ps[row] = r.sampling.top_p
+            if len(r.output_tokens) < r.sampling.min_tokens:
+                for tok in ({eos} if eos is not None else set()) | set(r.sampling.stop_token_ids):
+                    suppress_rows.append(row)
+                    suppress_cols.append(tok)
+        if suppress_rows:
+            logits = logits.clone()
+            logits[self._tensor(np.asarray(suppress_rows)), self._tensor(np.asarray(suppress_cols))] = float("-inf")
+        toks = sample_tokens(
+            logits, self._generator, self._tensor(temps), top_k=self._tensor(top_ks), top_p=self._tensor(top_ps)
+        )
+        return toks.cpu().numpy()[rows]
+
+    def _maybe_finish(self, req: Request) -> None:
+        eos = self.ecfg.eos_token_id
+        last = req.output_tokens[-1] if req.output_tokens else None
+        hit_stop = last is not None and (last == eos or last in req.sampling.stop_token_ids)
+        if hit_stop and len(req.output_tokens) < req.sampling.min_tokens:
+            hit_stop = False  # suppressed at sampling; belt and braces here
+        out_of_len = len(req.output_tokens) >= req.sampling.max_tokens
+        at_cap = req.total_len >= self.ecfg.max_pages_per_seq * self.ecfg.page_size
+        if hit_stop or out_of_len or at_cap:
+            req.state = RequestState.FINISHED

@@ -1,0 +1,81 @@
+# Copyright 2026 Conch-TPU authors.
+# SPDX-License-Identifier: Apache-2.0
+
+"""Token sampling: greedy, temperature, top-k, top-p (counterpart of
+``conch_tpu/serving/sampling.py``), drawn from an explicit ``torch.Generator``.
+
+The JAX package draws with ``jax.random`` keys; the two give different
+numbers from one seed, so only greedy outputs compare token for token.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+
+@dataclass(frozen=True)
+class SamplingParams:
+    """Per-request sampling configuration.
+
+    ``n > 1``, ``repetition_penalty``, ``logit_bias``, ``logprobs`` and
+    ``guided`` are fields of the JAX package that later slices port; they
+    raise when set.
+    """
+
+    temperature: float = 0.0  # 0 => greedy
+    top_k: int = 0  # 0 => disabled
+    top_p: float = 1.0
+    n: int = 1
+    max_tokens: int = 64
+    min_tokens: int = 0  # eos/stop tokens are suppressed until this many
+    stop_token_ids: tuple[int, ...] = ()
+    repetition_penalty: float = 1.0
+    logit_bias: tuple[tuple[int, float], ...] = ()
+    logprobs: bool = False
+    guided: object | None = None
+
+    def __post_init__(self) -> None:
+        if self.n != 1:
+            msg = "parallel sampling (n > 1) is not ported yet"
+            raise NotImplementedError(msg)
+        if self.repetition_penalty != 1.0 or self.logit_bias or self.logprobs or self.guided is not None:
+            msg = "repetition_penalty, logit_bias, logprobs and guided decoding are not ported yet"
+            raise NotImplementedError(msg)
+
+
+def sample_tokens(
+    logits: torch.Tensor,  # (batch, vocab) f32
+    generator: torch.Generator,
+    temperature: torch.Tensor,  # (batch,) 0 => greedy
+    top_k: torch.Tensor | int = 0,
+    top_p: torch.Tensor | float | None = None,
+) -> torch.Tensor:
+    """Sample next tokens (batch,) int32; temperature-0 rows take the argmax.
+
+    ``top_k``/``top_p`` are per-row (scalars broadcast); 0 / 1.0 disable
+    the filter for that row.
+    """
+    batch, vocab = logits.shape
+    device = logits.device
+    top_k = torch.as_tensor(top_k, dtype=torch.int64, device=device).expand(batch)
+    top_p = torch.as_tensor(1.0 if top_p is None else top_p, dtype=torch.float32, device=device).expand(batch)
+    temperature = temperature.to(device=device, dtype=torch.float32)
+    greedy = logits.argmax(dim=-1)
+
+    scaled = logits / temperature.clamp_min(1e-6)[:, None]
+    # One descending sort serves the top-k threshold and the top-p cutoff.
+    sorted_desc = scaled.sort(dim=-1, descending=True).values
+    k = torch.where(top_k > 0, top_k, vocab)
+    kth = sorted_desc.gather(-1, (k - 1).clamp(0, vocab - 1)[:, None])
+    scaled = scaled.masked_fill(scaled < kth, float("-inf"))
+    sorted_desc = sorted_desc.masked_fill(sorted_desc < kth, float("-inf"))
+    cumprobs = torch.softmax(sorted_desc, dim=-1).cumsum(dim=-1)
+    # Keep the smallest prefix with cumulative probability >= top_p.
+    cutoff_idx = (cumprobs < top_p[:, None]).sum(dim=-1).clamp(max=vocab - 1)
+    cutoff_val = sorted_desc.gather(-1, cutoff_idx[:, None])
+    scaled = scaled.masked_fill(scaled < cutoff_val, float("-inf"))
+
+    sampled = torch.multinomial(torch.softmax(scaled, dim=-1), 1, generator=generator)[:, 0]
+    return torch.where(temperature <= 0.0, greedy, sampled).to(torch.int32)
