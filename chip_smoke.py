@@ -6,23 +6,36 @@
     python3 chip_smoke.py
 
 1. prints the card's ``nvidia-smi`` name and power limit;
-2. builds the kernels from ``conch_tpu_torch/csrc`` with ``nvcc``;
-3. kernel phases: holds each hand-written kernel (K2 cache write, K3
-   paged decode attention, K5 RoPE, K7 varlen prefill attention) against
-   its plain PyTorch version on the card, at the main path's shapes
-   (QH 32 / KH 8 / D 128, page 16, a 32-layer pool read at a non-zero
-   layer, decode batch 8 with an idle seq_len-0 row, a 128-row prefill of
-   mixed lengths with a zero-length padding sequence and padding rows,
-   pages shared between sequences, lengths that are not page multiples);
-   times each with CUDA events beside its plain version and its bound;
-4. slice phase: the first-token logits of a 2-layer Llama-3-8B-width
-   ``llama_prefill`` on the card against the plain path on the CPU, then
-   ``LLMEngine`` at full Llama-3-8B width (32 layers, bf16, random weights
-   from a seed) serving 4 greedy requests, with every kernel's launch
-   count read around that run, then the same requests once more under
-   torch.profiler (device time by kernel group, idle share);
-5. prints the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``
-   as the last line.
+2. builds the kernels from ``conch_tpu_torch/csrc`` (one ``nvcc`` per
+   source, all at once, then one link);
+3. kernel phases: holds each hand-written kernel against its plain
+   PyTorch version on the card, at the main path's shapes, and times it
+   (device time with the stream pre-filled, and paced by the host) beside
+   its plain version, its bound and, where one exists, one PyTorch call
+   computing the same function:
+   - K1 int4 magic GEMM at the engine's four (K, N) at M 8 and 512, read
+     from layer 17 of a 32-layer stack (tolerance 1e-2 x max |ref|);
+   - K2 cache write, K3 paged decode attention, K5 RoPE, K7 varlen prefill
+     attention (QH 32 / KH 8 / D 128, page 16, a 32-layer pool read at a
+     non-zero layer, decode batch 8 with an idle seq_len-0 row, a 128-row
+     prefill of mixed lengths with a zero-length padding sequence and
+     padding rows, pages shared between sequences);
+   - K4 rms_norm at 8 and 512 rows x 4096, K6 silu_and_mul on fused
+     halves at 8 and 512 rows x 2 * 14336 and on parts;
+4. slice phases: the first-token logits of a 2-layer Llama-3-8B-width
+   ``llama_prefill`` on the card against the plain path on the CPU (bf16
+   weights in f32 and bf16, int4 weights in bf16); then ``LLMEngine`` at
+   full Llama-3-8B width (32 layers, random weights from a seed) serving
+   greedy requests, with every kernel's launch count read around the run
+   and the same requests repeated under torch.profiler (device time by
+   kernel group, idle share):
+   - bf16: 4 requests, ``EngineConfig(num_pages=2048, max_batch_size=8,
+     max_prefill_tokens=128)``;
+   - int4, the README's example and this slice's main path: 16 requests
+     of 40 to 900 tokens, ``EngineConfig(num_pages=4096,
+     max_batch_size=32)`` (512-row prefill steps);
+5. prints the ``kernels`` JSON line (launches from the int4 run), the
+   card line, then ``{"ok": true, "device": ...}`` as the last line.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. Without a CUDA device it exits non-zero at once.
@@ -30,6 +43,7 @@ result line. Without a CUDA device it exits non-zero at once.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import subprocess
@@ -56,8 +70,36 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+SM_CYCLES_PER_S = 2.0e9  # above the H100's top SM clock, so a sleep of n cycles lasts at least n / 2e9 s
+
+
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean milliseconds per call, from CUDA events around ``iters`` calls."""
+    """Mean device milliseconds per call, from CUDA events around ``iters``
+    calls. A sleep kernel first holds the stream for twice the host time
+    of the calls, so all of them are queued before the first one runs:
+    the events time the device's work back to back, not the host's
+    launch cost (``paced_ms`` times that)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * iters * host_s * SM_CYCLES_PER_S))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def paced_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean milliseconds per call as a caller sees it when the device waits
+    on the host: CUDA events around ``iters`` calls issued one after the
+    other from Python (wrapper, checks and launch included)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -155,6 +197,7 @@ def kernel_phase_k2(gen, rng) -> dict:
         "name": "reshape_and_cache_stacked", "route": "cuda", "source": "conch_tpu_torch/csrc/reshape_and_cache.cu",
         "replaces": "conch_tpu/kernels/cache/reshape_and_cache.py:37", "max_abs_err": err,
         "ms": time_ms(lambda: launch(k, v, kc, vc, slot_t, LAYER)),
+        "paced_ms": paced_ms(lambda: launch(k, v, kc, vc, slot_t, LAYER)),
         "plain_ms": time_ms(lambda: plain(k, v, kc, vc, slot_t, LAYER)),
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": time_ms(library),
     }
@@ -187,6 +230,7 @@ def kernel_phase_k5(gen, rng) -> dict:
         "name": "rotary_embedding", "route": "cuda", "source": "conch_tpu_torch/csrc/rotary_embedding.cu",
         "replaces": "conch_tpu/kernels/embedding/rotary_embedding.py:34", "max_abs_err": err,
         "ms": time_ms(lambda: launch(pos, q, k, D, cache)),
+        "paced_ms": paced_ms(lambda: launch(pos, q, k, D, cache)),
         "plain_ms": time_ms(lambda: plain(pos, q, k, D, cache)),
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
     }
@@ -223,6 +267,7 @@ def kernel_phase_k3(gen, rng) -> dict:
         "name": "paged_attention", "route": "cuda", "source": "conch_tpu_torch/csrc/paged_attention.cu",
         "replaces": "conch_tpu/kernels/attention/paged_attention.py:57", "max_abs_err": err,
         "ms": time_ms(lambda: launch(q, kc, vc, bt_t, sl_t, scale, LAYER)),
+        "paced_ms": paced_ms(lambda: launch(q, kc, vc, bt_t, sl_t, scale, LAYER)),
         "plain_ms": time_ms(lambda: plain(q, kc, vc, bt_t, sl_t, scale, LAYER), iters=5),
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
     }
@@ -265,40 +310,199 @@ def kernel_phase_k7(gen, rng) -> dict:
         "name": "varlen_attention", "route": "cuda", "source": "conch_tpu_torch/csrc/varlen_attention.cu",
         "replaces": "conch_tpu/kernels/attention/varlen_attention.py:247", "max_abs_err": err,
         "ms": time_ms(lambda: launch(q, kc, vc, cu_t, sl_t, bt_t, scale, True, LAYER)),
+        "paced_ms": paced_ms(lambda: launch(q, kc, vc, cu_t, sl_t, bt_t, scale, True, LAYER)),
         "plain_ms": time_ms(lambda: plain(q, kc, vc, cu_t, sl_t, bt_t, scale, True, LAYER), iters=5),
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
     }
 
 
+# Engine shapes of K1 (K, N): fused wqkv, wo, fused gate|up, w_down.
+K1_SHAPES = ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096))
+GROUP = 128
+HIDDEN, INTER = 4096, 14336
+
+
+def _kernel_row(name: str, source: str, replaces: str, err: float, timed: dict, bound_ms: float, bound_by: str) -> dict:
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces, "max_abs_err": err,
+        "ms": timed["ms"], "paced_ms": timed["paced_ms"], "plain_ms": timed["plain_ms"], "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": timed["library_ms"],
+    }
+
+
+def kernel_phase_k1(gen) -> dict:
+    """K1 at the engine's four (K, N) at M = 8 (decode) and M = 512 (a
+    prefill chunk), read from layer 17 of a 32-layer stack. The row's
+    numbers are the sums over the four shapes at M = 8 (one layer's
+    projections in a decode step); ``detail`` has every shape."""
+    from conch_tpu_torch.kernels.quantization.gemm import (
+        dequantize_magic,
+        mixed_gemm_magic_launcher as launch,
+        mixed_gemm_magic_plain as plain,
+    )
+
+    err, detail = 0.0, []
+    for k, n in K1_SHAPES:
+        packed = torch.randint(-(2**31), 2**31 - 1, (NUM_LAYERS_POOL, k // 8, n), generator=gen, device="cuda",
+                               dtype=torch.int32)
+        scales = (torch.rand((NUM_LAYERS_POOL, k // GROUP, n), generator=gen, device="cuda") * 4e-3 + 1e-4).to(
+            torch.bfloat16)
+        # Timed calls walk the 32 layers (library: 3 dense copies), so the
+        # weights come from HBM as in a model step, not from the 50 MB L2.
+        dense = [dequantize_magic(packed[i], scales[i], k, GROUP, 8).to(torch.bfloat16) for i in (LAYER, 0, 31)]
+        layers, copies = itertools.cycle(range(NUM_LAYERS_POOL)), itertools.cycle(dense)
+        for m in (8, 512):
+            x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+            out_k = launch(x, packed, scales, GROUP, 8, LAYER)
+            out_p = plain(x, packed, scales, GROUP, 8, LAYER)
+            torch.cuda.synchronize()
+            scale = out_p.float().abs().max().item()
+            e = (out_k.float() - out_p.float()).abs().max().item()
+            check(f"K1 mixed_gemm_magic M={m} K={k} N={n} (max|ref| {scale:.3f})", e, 1e-2 * scale)
+            err = max(err, e)
+            bytes_moved = m * k * 2 + k * n // 2 + (k // GROUP) * n * 2 + m * n * 2
+            b_ms, b_by = bound(bytes_moved, 2 * m * n * k)
+            detail.append({
+                "m": m, "k": k, "n": n, "max_abs_err": e, "bound_ms": b_ms, "bound_by": b_by,
+                "ms": time_ms(lambda: launch(x, packed, scales, GROUP, 8, next(layers))),
+                "paced_ms": paced_ms(lambda: launch(x, packed, scales, GROUP, 8, next(layers))),
+                "plain_ms": time_ms(lambda: plain(x, packed, scales, GROUP, 8, next(layers)), iters=5),
+                "library_ms": time_ms(lambda: torch.matmul(x, next(copies))),
+            })
+        del packed, scales, dense
+        torch.cuda.empty_cache()
+    for d in detail:
+        print(f"K1 M={d['m']} K={d['k']} N={d['n']}: {d['ms']:.4f} ms (paced {d['paced_ms']:.4f}, plain "
+              f"{d['plain_ms']:.4f}, bf16 matmul {d['library_ms']:.4f}, bound {d['bound_ms']:.5f} by {d['bound_by']})",
+              flush=True)
+    decode = [d for d in detail if d["m"] == 8]
+    timed = {key: sum(d[key] for d in decode) for key in ("ms", "paced_ms", "plain_ms", "library_ms")}
+    row = _kernel_row(
+        "mixed_gemm_magic", "conch_tpu_torch/csrc/mixed_gemm_magic.cu", "conch_tpu/kernels/quantization/gemm.py:658",
+        err, timed, sum(d["bound_ms"] for d in decode), "bytes",
+    )
+    row["detail"] = detail
+    return row
+
+
+def kernel_phase_k4(gen) -> dict:
+    """K4 at 8 and 512 rows x 4096; the row has the 8-row (decode) numbers."""
+    from conch_tpu_torch.kernels.normalization.rms_norm import rms_norm_launcher as launch, rms_norm_plain as plain
+
+    eps = 1e-5
+    w = (1.0 + 0.1 * torch.randn((HIDDEN,), generator=gen, device="cuda")).to(torch.bfloat16)
+    lib = getattr(torch.nn.functional, "rms_norm", None)
+    err, detail = 0.0, []
+    for rows in (8, 512):
+        x = torch.randn((rows, HIDDEN), generator=gen, device="cuda").to(torch.bfloat16)
+        e = (launch(x, w, eps).float() - plain(x, w, eps).float()).abs().max().item()
+        check(f"K4 rms_norm rows={rows}", e, 2e-2)
+        err = max(err, e)
+        b_ms, b_by = bound(2 * rows * HIDDEN * 2 + HIDDEN * 2, 4 * rows * HIDDEN)
+        detail.append({
+            "rows": rows, "max_abs_err": e, "bound_ms": b_ms, "bound_by": b_by,
+            "ms": time_ms(lambda: launch(x, w, eps)),
+            "paced_ms": paced_ms(lambda: launch(x, w, eps)),
+            "plain_ms": time_ms(lambda: plain(x, w, eps)),
+            "library_ms": time_ms(lambda: lib(x, (HIDDEN,), w, eps)) if lib else None,
+        })
+    for d in detail:
+        print(f"K4 rows={d['rows']}: {d['ms']:.4f} ms (paced {d['paced_ms']:.4f}, plain {d['plain_ms']:.4f}, "
+              f"F.rms_norm {d['library_ms']}, bound {d['bound_ms']:.5f} by {d['bound_by']})", flush=True)
+    row = _kernel_row(
+        "rms_norm", "conch_tpu_torch/csrc/rms_norm.cu", "conch_tpu/kernels/normalization/rms_norm.py:34", err,
+        detail[0], detail[0]["bound_ms"], detail[0]["bound_by"],
+    )
+    row["detail"] = detail
+    return row
+
+
+def kernel_phase_k6(gen) -> dict:
+    """K6 on fused halves at 8 and 512 rows x 2*14336, and on parts once;
+    the row has the 8-row halves (decode) numbers."""
+    from conch_tpu_torch.kernels.activation.silu_and_mul import (
+        silu_and_mul_launcher as launch,
+        silu_and_mul_parts_launcher as launch_parts,
+        silu_and_mul_parts_plain as plain_parts,
+        silu_and_mul_plain as plain,
+    )
+
+    err, detail = 0.0, []
+    for rows in (8, 512):
+        x = torch.randn((rows, 2 * INTER), generator=gen, device="cuda").to(torch.bfloat16)
+        e = (launch(x).float() - plain(x).float()).abs().max().item()
+        check(f"K6 silu_and_mul halves rows={rows}", e, 1e-2)
+        err = max(err, e)
+        b_ms, b_by = bound(rows * INTER * 3 * 2, 6 * rows * INTER)
+        detail.append({
+            "rows": rows, "max_abs_err": e, "bound_ms": b_ms, "bound_by": b_by,
+            "ms": time_ms(lambda: launch(x)),
+            "paced_ms": paced_ms(lambda: launch(x)),
+            "plain_ms": time_ms(lambda: plain(x)), "library_ms": None,
+        })
+    gate, up = x[:, :INTER], x[:, INTER:]  # row-strided parts of the last input
+    e = (launch_parts(gate, up).float() - plain_parts(gate, up).float()).abs().max().item()
+    check("K6 silu_and_mul parts rows=512", e, 1e-2)
+    err = max(err, e)
+    for d in detail:
+        print(f"K6 halves rows={d['rows']}: {d['ms']:.4f} ms (paced {d['paced_ms']:.4f}, plain {d['plain_ms']:.4f}, "
+              f"bound {d['bound_ms']:.5f} by {d['bound_by']})", flush=True)
+    row = _kernel_row(
+        "silu_and_mul", "conch_tpu_torch/csrc/silu_and_mul.cu", "conch_tpu/kernels/activation/silu_and_mul.py:27",
+        err, detail[0], detail[0]["bound_ms"], detail[0]["bound_by"],
+    )
+    row["detail"] = detail
+    return row
+
+
 def kernel_phases() -> list[dict]:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rng = np.random.default_rng(SEED)
-    rows = [kernel_phase_k2(gen, rng), kernel_phase_k3(gen, rng), kernel_phase_k5(gen, rng), kernel_phase_k7(gen, rng)]
+    rows = [
+        kernel_phase_k1(gen), kernel_phase_k2(gen, rng), kernel_phase_k3(gen, rng), kernel_phase_k4(gen),
+        kernel_phase_k5(gen, rng), kernel_phase_k6(gen), kernel_phase_k7(gen, rng),
+    ]
     for r in rows:
         print(
-            f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms by "
+            f"{r['name']}: {r['ms']:.4f} ms (paced {r['paced_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.5f} ms by "
             f"{r['bound_by']}, library {r['library_ms']})", flush=True,
         )
     torch.cuda.empty_cache()
     return rows
 
 
-def reset_launch_counts() -> dict:
-    """Set every kernel's launch count to 0; returns the launchers by row name."""
+# Each kernel row's launchers: K6's one kernel has two entry points.
+def _launchers() -> dict:
+    from conch_tpu_torch.kernels.activation.silu_and_mul import silu_and_mul_launcher, silu_and_mul_parts_launcher
     from conch_tpu_torch.kernels.attention.paged_attention import paged_attention_launcher
     from conch_tpu_torch.kernels.attention.varlen_attention import varlen_attention_launcher
     from conch_tpu_torch.kernels.cache.reshape_and_cache import reshape_and_cache_stacked_launcher
     from conch_tpu_torch.kernels.embedding.rotary_embedding import rotary_embedding_launcher
+    from conch_tpu_torch.kernels.normalization.rms_norm import rms_norm_launcher
+    from conch_tpu_torch.kernels.quantization.gemm import mixed_gemm_magic_launcher
 
-    launchers = {
-        "reshape_and_cache_stacked": reshape_and_cache_stacked_launcher,
-        "paged_attention": paged_attention_launcher,
-        "rotary_embedding": rotary_embedding_launcher,
-        "varlen_attention": varlen_attention_launcher,
+    return {
+        "mixed_gemm_magic": (mixed_gemm_magic_launcher,),
+        "reshape_and_cache_stacked": (reshape_and_cache_stacked_launcher,),
+        "paged_attention": (paged_attention_launcher,),
+        "rms_norm": (rms_norm_launcher,),
+        "rotary_embedding": (rotary_embedding_launcher,),
+        "silu_and_mul": (silu_and_mul_launcher, silu_and_mul_parts_launcher),
+        "varlen_attention": (varlen_attention_launcher,),
     }
-    for fn in launchers.values():
-        fn.launches = 0
-    return launchers
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    for fns in _launchers().values():
+        for fn in fns:
+            fn.launches = 0
+
+
+def read_launch_counts() -> dict:
+    """Each kernel row's launches since the last reset."""
+    return {name: sum(fn.launches for fn in fns) for name, fns in _launchers().items()}
 
 
 def to_device(tree, device: str):
@@ -324,8 +528,9 @@ PREFILL_TOLERANCES = {torch.float32: 2e-3, torch.bfloat16: 3e-2}
 
 def check_prefill_logits() -> None:
     """First-token logits of a 2-layer, full-width Llama-3-8B prefill on the
-    card (kernels) against the same prefill on the CPU (plain versions), in
-    f32 and in bf16 (PREFILL_TOLERANCES)."""
+    card (kernels) against the same prefill on the CPU (plain versions):
+    bf16 weights in f32 and in bf16, then int4 weights (K1) in bf16, the
+    only activation dtype K1 takes on the card (PREFILL_TOLERANCES)."""
     import dataclasses
 
     from conch_tpu_torch.models.llama import (
@@ -348,9 +553,11 @@ def check_prefill_logits() -> None:
     seq_lens = np.array(q_lens + [0, 0], np.int32)
     host = [torch.from_numpy(a) for a in (tokens, positions, cu, seq_lens, bt, slots)]
 
-    for dtype, tol in PREFILL_TOLERANCES.items():
+    cases = [("bf16", torch.float32), ("bf16", torch.bfloat16), ("int4", torch.bfloat16)]
+    for quant_mode, dtype in cases:
+        tol = PREFILL_TOLERANCES[dtype]
         cfg = dataclasses.replace(LlamaConfig.llama3_8b(), num_layers=2, dtype=dtype)
-        params = fuse_llama_params(init_llama_params(SEED, cfg, device="cuda"))
+        params = fuse_llama_params(init_llama_params(SEED, cfg, quant_mode=quant_mode, device="cuda"))
         kc, vc = init_kv_caches(cfg, num_pages, PS, device="cuda")
         t = [a.cuda() for a in host]
         logits, _, _ = llama_prefill(params, cfg, t[0], t[1], t[2], rows, t[3], t[4], t[5], kc, vc)
@@ -370,59 +577,88 @@ def check_prefill_logits() -> None:
         else:
             ok = err <= tol * scale
             rule = f"{tol:.0e} * max|ref| = {tol * scale:.3e}"
-        print(f"2-layer prefill logits, {cfg.dtype}, card vs plain path on the CPU: max_abs_err {err:.3e}, "
-              f"max|ref| {scale:.3f}, tolerance {rule}", flush=True)
+        print(f"2-layer prefill logits, {quant_mode} weights, {cfg.dtype}, card vs plain path on the CPU: "
+              f"max_abs_err {err:.3e}, max|ref| {scale:.3f}, tolerance {rule}", flush=True)
         if not ok:
-            raise AssertionError(f"2-layer prefill logits ({dtype}) disagree with the plain path")
+            raise AssertionError(f"2-layer prefill logits ({quant_mode}, {dtype}) disagree with the plain path")
 
 
-def serve(card: str) -> dict:
-    """LLMEngine at full Llama-3-8B width (32 layers, bf16, random weights)
-    serving 4 greedy requests; returns each kernel's launch count in that run."""
+def bf16_prompts(rng: np.random.Generator, vocab: int) -> list[list[int]]:
+    """4 prompts of 40/128/300/500 tokens; the last two share 64 tokens."""
+    prefix = rng.integers(0, vocab, 64).tolist()
+    return [
+        rng.integers(0, vocab, 40).tolist(),
+        rng.integers(0, vocab, 128).tolist(),
+        prefix + rng.integers(0, vocab, 236).tolist(),
+        prefix + rng.integers(0, vocab, 436).tolist(),
+    ]
+
+
+# The README's serving example: 16 prompts of 40 to 900 tokens, two of
+# them sharing a 128-token prefix (a prefix-cache hit).
+INT4_PROMPT_LENS = (40, 900, 64, 300, 700, 96, 450, 800, 150, 600, 256, 520, 380, 60)
+INT4_SHARED_TAILS = (72, 372)
+
+
+def int4_prompts(rng: np.random.Generator, vocab: int) -> list[list[int]]:
+    prefix = rng.integers(0, vocab, 128).tolist()
+    prompts = [rng.integers(0, vocab, n).tolist() for n in INT4_PROMPT_LENS]
+    return prompts + [prefix + rng.integers(0, vocab, n).tolist() for n in INT4_SHARED_TAILS]
+
+
+# Launches a model step makes at 32 layers, with wqkv and gate|up fused:
+# K1 4 per layer, K4 2 per layer plus the final norm, K6 1 per layer.
+PER_STEP_LAUNCHES = {"mixed_gemm_magic": 4 * 32, "rms_norm": 2 * 32 + 1, "silu_and_mul": 32}
+
+
+def serve(card: str, quant_mode: str, engine_kwargs: dict, make_prompts, expect: tuple[str, ...]) -> dict:
+    """LLMEngine at full Llama-3-8B width (32 layers, random weights from
+    the seed, ``quant_mode`` projections) serving greedy requests of 32
+    tokens; returns each kernel's launch count in that run and fails
+    unless every kernel in ``expect`` launched."""
     from conch_tpu_torch.models.llama import LlamaConfig, init_llama_params
     from conch_tpu_torch.serving import EngineConfig, LLMEngine, SamplingParams
 
     cfg = LlamaConfig.llama3_8b()
     t0 = time.perf_counter()
-    engine = LLMEngine(
-        init_llama_params(SEED, cfg, device="cuda"), cfg,
-        EngineConfig(page_size=16, num_pages=2048, max_batch_size=8, max_prefill_tokens=128),
-    )
+    params = init_llama_params(SEED, cfg, quant_mode=quant_mode, device="cuda")
+    engine = LLMEngine(params, cfg, EngineConfig(**engine_kwargs))
+    del params
     torch.cuda.synchronize()
-    print(f"engine ready in {time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated", flush=True)
-    rng = np.random.default_rng(SEED)
-    prefix = rng.integers(0, cfg.vocab_size, 64).tolist()
-    prompts = [
-        rng.integers(0, cfg.vocab_size, 40).tolist(),
-        rng.integers(0, cfg.vocab_size, 128).tolist(),
-        prefix + rng.integers(0, cfg.vocab_size, 236).tolist(),
-        prefix + rng.integers(0, cfg.vocab_size, 436).tolist(),
-    ]
+    print(f"{quant_mode} engine ready in {time.perf_counter() - t0:.1f} s ({engine.ecfg}), "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated", flush=True)
+    prompts = make_prompts(np.random.default_rng(SEED), cfg.vocab_size)
     max_tokens = 32
-    launchers = reset_launch_counts()
+    reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     outputs = engine.generate(prompts, SamplingParams(max_tokens=max_tokens))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in launchers.items()}
+    launches = read_launch_counts()
     for out in outputs:
         if len(out) != max_tokens or not all(0 <= t < cfg.vocab_size for t in out):
             raise AssertionError(f"request finished with {len(out)} tokens, some outside the vocabulary")
-    print(f"served {len(prompts)} requests (prompts {[len(p) for p in prompts]}, {max_tokens} tokens each) in "
-          f"{seconds:.3f} s: {len(prompts) * max_tokens / seconds:.2f} generated tok/s on {card}", flush=True)
-    print(f"launches in the served run: {launches}", flush=True)
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} was never launched on the main path")
-    params = engine.params
+    print(f"{quant_mode}: served {len(prompts)} requests (prompts {[len(p) for p in prompts]}, {max_tokens} tokens "
+          f"each) in {seconds:.3f} s: {len(prompts) * max_tokens / seconds:.2f} generated tok/s on {card}; "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB peak allocated; prefix-cache hits "
+          f"{engine.prefix_cache_hits} tokens", flush=True)
+    # K7 runs once per layer of a prefill step, K3 once per layer of a decode step.
+    steps = (launches["varlen_attention"] + launches["paged_attention"]) // cfg.num_layers
+    print(f"{quant_mode}: launches in the served run ({steps} model steps): {launches}", flush=True)
+    for name in expect:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was never launched on the {quant_mode} path")
+        if name in PER_STEP_LAUNCHES and launches[name] != PER_STEP_LAUNCHES[name] * steps:
+            raise AssertionError(f"{name}: {launches[name]} launches, expected {PER_STEP_LAUNCHES[name]} x {steps} steps")
+    engine_params, ecfg = engine.params, engine.ecfg
     del engine
     torch.cuda.empty_cache()
-    profile_served_run(params, cfg, prompts, max_tokens)
+    profile_served_run(engine_params, cfg, ecfg, prompts, max_tokens, quant_mode)
     return launches
 
 
-def profile_served_run(params: dict, cfg, prompts: list, max_tokens: int) -> None:
+def profile_served_run(params: dict, cfg, ecfg, prompts: list, max_tokens: int, label: str) -> None:
     """The same requests on a fresh engine under torch.profiler (not the
     timed run): device time by kernel group, from the trace's kernel events,
     and the device's idle share of the wall time."""
@@ -430,9 +666,9 @@ def profile_served_run(params: dict, cfg, prompts: list, max_tokens: int) -> Non
 
     from torch.profiler import ProfilerActivity, profile
 
-    from conch_tpu_torch.serving import EngineConfig, LLMEngine, SamplingParams
+    from conch_tpu_torch.serving import LLMEngine, SamplingParams
 
-    engine = LLMEngine(params, cfg, EngineConfig(page_size=16, num_pages=2048, max_batch_size=8, max_prefill_tokens=128))
+    engine = LLMEngine(params, cfg, ecfg)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -446,7 +682,7 @@ def profile_served_run(params: dict, cfg, prompts: list, max_tokens: int) -> Non
             events = json.load(f)["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
     if not kernels:
-        print("profile: the trace holds no kernel events; device time not measured", flush=True)
+        print(f"{label} profile: the trace holds no kernel events; device time not measured", flush=True)
         return
     groups: dict[str, float] = {}
     by_name: dict[str, float] = {}
@@ -454,17 +690,17 @@ def profile_served_run(params: dict, cfg, prompts: list, max_tokens: int) -> Non
         name = e["name"]
         low = name.lower()
         # cuBLAS names its Hopper matmul kernels nvjet_*, older ones *gemm*.
-        matmul = any(tag in low for tag in ("nvjet", "gemm", "sm90", "cutlass"))
+        matmul = "conch" not in low and any(tag in low for tag in ("nvjet", "gemm", "sm90", "cutlass"))
         group = "conch kernels" if "conch" in low else "matmul" if matmul else "other"
         groups[group] = groups.get(group, 0.0) + e["dur"] / 1e3
         by_name[name[:60]] = by_name.get(name[:60], 0.0) + e["dur"] / 1e3
     busy = sum(groups.values())
     window = (max(e["ts"] + e["dur"] for e in kernels) - min(e["ts"] for e in kernels)) / 1e3
-    print(f"profile ({len(kernels)} kernels): wall {wall_ms:.1f} ms, device busy {busy:.1f} ms, "
+    print(f"{label} profile ({len(kernels)} kernels): wall {wall_ms:.1f} ms, device busy {busy:.1f} ms, "
           f"idle share of the kernels' window {1 - busy / window:.3f}; "
           + ", ".join(f"{g} {t:.1f} ms" for g, t in sorted(groups.items(), key=lambda x: -x[1])), flush=True)
     top = sorted(by_name.items(), key=lambda x: -x[1])[:8]
-    print("profile top kernels: " + "; ".join(f"{n} {t:.1f} ms" for n, t in top), flush=True)
+    print(f"{label} profile top kernels: " + "; ".join(f"{n} {t:.1f} ms" for n, t in top), flush=True)
 
 
 def build() -> None:
@@ -474,8 +710,14 @@ def build() -> None:
     kernel_library()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
     for line in (BUILD_DIR / "nvcc.log").read_text().splitlines():
-        if "registers" in line:
+        if "registers" in line or ("spill" in line and " 0 bytes spill stores" not in line):
             print("nvcc:", line.strip())
+
+
+ALL_KERNELS = (
+    "mixed_gemm_magic", "reshape_and_cache_stacked", "paged_attention", "rms_norm", "rotary_embedding",
+    "silu_and_mul", "varlen_attention",
+)
 
 
 def main() -> int:
@@ -487,7 +729,12 @@ def main() -> int:
     build()
     rows = kernel_phases()
     check_prefill_logits()
-    launches = serve(card)
+    serve(
+        card, "bf16", {"page_size": 16, "num_pages": 2048, "max_batch_size": 8, "max_prefill_tokens": 128},
+        bf16_prompts, tuple(k for k in ALL_KERNELS if k != "mixed_gemm_magic"),
+    )
+    # The main path of this slice: the README's int4 example.
+    launches = serve(card, "int4", {"num_pages": 4096, "max_batch_size": 32}, int4_prompts, ALL_KERNELS)
     for row in rows:
         row["launches"] = launches[row["name"]]
     print(json.dumps({"kernels": rows}))

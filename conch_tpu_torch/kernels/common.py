@@ -3,9 +3,10 @@
 
 """Shared helpers for the hand-written Hopper kernels.
 
-``build_kernels`` compiles every ``conch_tpu_torch/csrc/*.cu`` with one
-``nvcc`` call into ``conch_tpu_torch/_build/`` (listed in ``.gitignore``)
-as a shared library with a plain C interface, and ``kernel_function``
+``build_kernels`` compiles every ``conch_tpu_torch/csrc/*.cu`` with its
+own ``nvcc`` process, all started together, and links the objects into
+one shared library with a plain C interface under
+``conch_tpu_torch/_build/`` (listed in ``.gitignore``); ``kernel_function``
 binds one of its entry points with ``ctypes``. Every entry point launches
 on the stream it is given and returns ``cudaGetLastError()``, which
 ``check_launch`` turns into an exception. Nothing is built or loaded when
@@ -29,10 +30,8 @@ _PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PACKAGE_DIR / "csrc"
 BUILD_DIR = _PACKAGE_DIR / "_build"
 LIBRARY_NAME = "libconch_kernels.so"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # dtype codes understood by the C entry points (csrc/common.cuh: DType).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -57,10 +56,11 @@ def build_kernels() -> Path:
     """Compile ``csrc/*.cu`` into the shared library, unless it is newer
     than every source. Returns the library's path.
 
-    One ``nvcc`` call for all sources, ``sm_90a``; its output (``-Xptxas
-    -v``: registers, shared memory, spills per kernel) goes to
-    ``_build/nvcc.log``. The library is written under a temporary name and
-    renamed, so concurrent builders never load a half-written file.
+    One ``nvcc -c`` per source, all running at once (``sm_90a``), then one
+    link. Their output (``-Xptxas -v``: registers, shared memory, spills
+    per kernel) goes to ``_build/nvcc.log``. The library is written under
+    a temporary name and renamed, so concurrent builders never load a
+    half-written file.
     """
     sources = sorted(CSRC_DIR.glob("*.cu"))
     inputs = sources + sorted(CSRC_DIR.glob("*.cuh"))
@@ -68,12 +68,30 @@ def build_kernels() -> Path:
     if library.exists() and library.stat().st_mtime >= max(p.stat().st_mtime for p in inputs):
         return library
     BUILD_DIR.mkdir(exist_ok=True)
-    partial = BUILD_DIR / f"{LIBRARY_NAME}.{os.getpid()}.partial"
-    cmd = [envs.CONCH_NVCC, *NVCC_FLAGS, "-o", str(partial), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    (BUILD_DIR / "nvcc.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        msg = f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr}"
+    tag = os.getpid()
+    objects = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+    compiles = [
+        [envs.CONCH_NVCC, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(sources, objects)
+    ]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for cmd in compiles]
+    log, failed = [], []
+    for cmd, proc in zip(compiles, procs):
+        out, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} (exit code {proc.returncode}):\n{out}")
+    if not failed:
+        partial = BUILD_DIR / f"{LIBRARY_NAME}.{tag}.partial"
+        link = [envs.CONCH_NVCC, *ARCH_FLAGS, "-shared", "-o", str(partial), *map(str, objects)]
+        proc = subprocess.run(link, capture_output=True, text=True, check=False)
+        log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link (exit code {proc.returncode}):\n{proc.stderr}")
+    (BUILD_DIR / "nvcc.log").write_text("\n".join(log))
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    if failed:
+        msg = "nvcc failed:\n" + "\n".join(failed)
         raise RuntimeError(msg)
     os.replace(partial, library)
     return library

@@ -3,13 +3,14 @@
 
 """Llama-family transformer on the port's ops (counterpart of ``conch_tpu/models/llama.py``).
 
-Decoder-only transformer: RMS norm, NeoX RoPE (K5), GQA attention over a
-stacked paged KV pool of shape (L, P, KH, ps, D) (decode: K2 write, K3
-attention; prefill: an indexed write, K7 attention), SwiGLU MLP, dense
-projections through ``QuantizedLinear``. Where the JAX package scans the
-layers with ``lax.scan`` and donates the caches, the port loops over the
-layers in Python and updates the caches IN PLACE; ``llama_prefill`` and
-``llama_decode_step`` still return them, so call sites read alike.
+Decoder-only transformer: RMS norm (K4), NeoX RoPE (K5), GQA attention
+over a stacked paged KV pool of shape (L, P, KH, ps, D) (decode: K2 write,
+K3 attention; prefill: an indexed write, K7 attention), SwiGLU MLP (K6),
+projections through ``QuantizedLinear`` (bf16 dense: ``torch.matmul``;
+int4: K1). Where the JAX package scans the layers with ``lax.scan`` and
+donates the caches, the port loops over the layers in Python and updates
+the caches IN PLACE; ``llama_prefill`` and ``llama_decode_step`` still
+return them, so call sites read alike.
 
 Params are a dict of tensors in the JAX package's layout (per-layer
 weights stacked on a leading layer axis), so ``params_from_jax`` carries
@@ -25,8 +26,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from conch_tpu_torch.models.linear import QuantizedLinear
-from conch_tpu_torch.ops.activation import silu_and_mul
+from conch_tpu_torch.models.linear import QuantizedLinear, quantize_linear
+from conch_tpu_torch.ops.activation import silu_and_mul, silu_and_mul_parts
 from conch_tpu_torch.ops.attention import paged_attention, varlen_attention
 from conch_tpu_torch.ops.cache import reshape_and_cache, reshape_and_cache_stacked
 from conch_tpu_torch.ops.embedding import rotary_embedding
@@ -104,19 +105,23 @@ def _cos_sin_cache(config: LlamaConfig, device: torch.device) -> torch.Tensor:
 
 
 def init_llama_params(
-    seed: int, config: LlamaConfig, quant_mode: str = "bf16", device: str | torch.device | None = None
+    seed: int, config: LlamaConfig, quant_mode: str = "bf16", group_size: int = 128,
+    device: str | torch.device | None = None,
 ) -> dict:
     """Random-initialize Llama params on ``device`` (None: CUDA).
 
     Weights are drawn on the device from a ``torch.Generator`` seeded with
     ``seed`` (normal, std 0.02), one layer at a time, so a full-width model
-    never passes through the host. Projections are bf16 dense, stacked on a
-    leading layer axis; norms and the embedding are in ``config.dtype``.
-    Only ``quant_mode="bf16"`` is ported.
+    never passes through the host. Projections are stacked on a leading
+    layer axis: bf16 dense for ``quant_mode="bf16"``, or for ``"int4"``
+    quantized on the device from the float32 draw (uint4b8, ``group_size``,
+    magic packing, as ``QuantizedLinear.int4_from_dense``). ``lm_head``
+    stays bf16 dense in both, as in the JAX package. Norms and the
+    embedding are in ``config.dtype``.
     """
     _check_config(config)
-    if quant_mode not in ("bf16", "dense", "none"):
-        msg = f"quant_mode {quant_mode!r} needs the quantized GEMM kernels, which are not ported yet"
+    if quant_mode not in ("bf16", "dense", "none", "int4"):
+        msg = f"quant_mode {quant_mode!r} needs the quantized GEMM kernels (K1b/K1c/K8), which are not ported yet"
         raise NotImplementedError(msg)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -127,11 +132,21 @@ def init_llama_params(
     def normal(*shape: int, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
         return (torch.randn(shape, generator=gen, device=device, dtype=torch.float32) * 0.02).to(dtype)
 
+    quant_kwargs = {"group_size": group_size} if quant_mode == "int4" else {}
+
+    def projection(k_dim: int, n_dim: int) -> QuantizedLinear:
+        return quantize_linear(normal(k_dim, n_dim, dtype=torch.float32), quant_mode, **quant_kwargs)
+
     def stacked(k_dim: int, n_dim: int) -> QuantizedLinear:
-        w = torch.empty((n_layers, k_dim, n_dim), dtype=torch.bfloat16, device=device)
+        first = projection(k_dim, n_dim)
+        arrays = {
+            name: torch.empty((n_layers, *a.shape), dtype=a.dtype, device=device) for name, a in first.arrays.items()
+        }
         for layer in range(n_layers):
-            w[layer] = normal(k_dim, n_dim)
-        return QuantizedLinear.dense(w)
+            piece = first if layer == 0 else projection(k_dim, n_dim)
+            for name, a in piece.arrays.items():
+                arrays[name][layer] = a
+        return QuantizedLinear(first.kind, arrays, first.meta)
 
     layers = {
         "wq": stacked(h, q_dim),
@@ -280,10 +295,10 @@ def _forward_layers(
 
         mlp_in = rms_norm(hidden, layers["post_attn_norm"][layer], eps)
         if "w_gateup" in layers:
-            gate_up = layers["w_gateup"].apply_stacked(mlp_in, layer)
+            act = silu_and_mul(layers["w_gateup"].apply_stacked(mlp_in, layer))
         else:
-            gate_up = torch.cat([layers[n].apply_stacked(mlp_in, layer) for n in ("w_gate", "w_up")], dim=-1)
-        hidden = hidden + layers["w_down"].apply_stacked(silu_and_mul(gate_up), layer)
+            act = silu_and_mul_parts(*(layers[n].apply_stacked(mlp_in, layer) for n in ("w_gate", "w_up")))
+        hidden = hidden + layers["w_down"].apply_stacked(act, layer)
     return hidden
 
 

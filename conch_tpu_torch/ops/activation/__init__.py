@@ -1,6 +1,6 @@
 # Copyright 2026 Conch-TPU authors.
 # SPDX-License-Identifier: Apache-2.0
 
-from conch_tpu_torch.ops.activation.silu_and_mul import silu_and_mul
+from conch_tpu_torch.ops.activation.silu_and_mul import silu_and_mul, silu_and_mul_parts
 
-__all__ = ["silu_and_mul"]
+__all__ = ["silu_and_mul", "silu_and_mul_parts"]

@@ -3,22 +3,24 @@
 
 """RMS norm public op (counterpart of ``conch_tpu/ops/normalization/rms_norm.py``).
 
-Up to 128 rows this is plain PyTorch, as the JAX package computes it
-outside any kernel on a chip; above that the K4 kernel is needed and the
-op raises.
+Every call goes to K4 (``kernels/normalization/rms_norm.py``): the CUDA
+kernel for CUDA tensors at any row count, its plain version on the CPU.
+The JAX package sends calls of up to 128 rows to its jnp reference so
+that XLA can fuse them on a TPU; the port has no such route, and launch
+cost is left to a CUDA graph of the step.
 """
 
 from __future__ import annotations
 
 import torch
 
-from conch_tpu_torch.ops.common import check_small_op
+from conch_tpu_torch.kernels.normalization.rms_norm import rms_norm_launcher
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, epsilon: float) -> torch.Tensor:
-    """``x * rsqrt(mean(x^2) + eps)`` in f32, cast to x's dtype, times the weight."""
+    """``x * rsqrt(mean(x^2) + eps)`` in f32, cast to x's dtype, times the weight.
+
+    x is (..., hidden); the result has x's shape and dtype.
+    """
     hidden_size = x.shape[-1]
-    check_small_op(x.numel() // hidden_size, "rms_norm", "K4, conch_tpu/kernels/normalization/rms_norm.py:_rms_norm_kernel")
-    xf = x.float()
-    normalized = (xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + epsilon)).to(x.dtype)
-    return normalized * weight.to(x.dtype)
+    return rms_norm_launcher(x.reshape(-1, hidden_size), weight, epsilon).reshape(x.shape)

@@ -25,8 +25,7 @@ by the model (the JAX engine donates it through its jitted steps).
 Later slices port LoRA, tensor parallelism, speculative decoding, rolling
 KV, parallel sampling (n > 1), guided decoding, logprobs, repetition
 penalty, logit bias, beam search and the HTTP server; asking for any of
-them raises. Every step runs at most 128 rows, since rms_norm (K4) and
-silu_and_mul (K6) are not ported for more.
+them raises.
 """
 
 from __future__ import annotations
@@ -38,7 +37,6 @@ import numpy as np
 import torch
 
 from conch_tpu_torch.models.llama import fuse_llama_params, llama_decode_step, llama_prefill
-from conch_tpu_torch.ops.common import SMALL_OP_TOKEN_THRESHOLD
 from conch_tpu_torch.platforms import resolve_device
 from conch_tpu_torch.serving.block_allocator import BlockAllocator
 from conch_tpu_torch.serving.sampling import SamplingParams, sample_tokens
@@ -80,9 +78,7 @@ class EngineConfig:
     num_pages: int = 512
     max_batch_size: int = 8
     max_pages_per_seq: int = 64
-    # At most 128 here: larger steps need the rms_norm (K4) and
-    # silu_and_mul (K6) kernels, which are not ported yet.
-    max_prefill_tokens: int = 128
+    max_prefill_tokens: int = 512
     eos_token_id: int | None = None
     seed: int = 0
     # Full prompt pages are registered by their token prefix and shared
@@ -104,13 +100,6 @@ class EngineConfig:
         if self.num_speculative_tokens or self.rolling_kv:
             msg = "speculative decoding and rolling KV are not ported yet"
             raise NotImplementedError(msg)
-        for name in ("max_prefill_tokens", "max_batch_size"):
-            if getattr(self, name) > SMALL_OP_TOKEN_THRESHOLD:
-                msg = (
-                    f"{name}={getattr(self, name)}: steps of more than {SMALL_OP_TOKEN_THRESHOLD} rows need the "
-                    "rms_norm (K4) and silu_and_mul (K6) kernels, which are not ported yet"
-                )
-                raise NotImplementedError(msg)
 
 
 def _bucket(n: int, floor: int = 16) -> int:

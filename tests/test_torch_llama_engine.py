@@ -122,7 +122,7 @@ def test_sampling_is_seeded_and_unported_options_raise():
     for kwargs in ({"n": 2}, {"logprobs": True}, {"repetition_penalty": 1.2}, {"logit_bias": ((1, 1.0),)}):
         with pytest.raises(NotImplementedError):
             SamplingParams(**kwargs)
-    for kwargs in ({"max_prefill_tokens": 256}, {"max_batch_size": 129}, {"num_speculative_tokens": 2}, {"rolling_kv": True}):
+    for kwargs in ({"num_speculative_tokens": 2}, {"rolling_kv": True}):
         with pytest.raises(NotImplementedError):
             EngineConfig(**kwargs)
     with pytest.raises(NotImplementedError):
