@@ -9,32 +9,43 @@
 2. builds the kernels from ``conch_tpu_torch/csrc`` (one ``nvcc`` per
    source, all at once, then one link);
 3. kernel phases: holds each hand-written kernel against its plain
-   PyTorch version on the card, at the main path's shapes, and times it
+   PyTorch version on the card, at the main paths' shapes, and times it
    (device time with the stream pre-filled, and paced by the host) beside
    its plain version, its bound and, where one exists, one PyTorch call
    computing the same function:
    - K1 int4 magic GEMM at the engine's four (K, N) at M 8 and 512, read
      from layer 17 of a 32-layer stack (tolerance 1e-2 x max |ref|);
    - K2 cache write, K3 paged decode attention, K5 RoPE, K7 varlen prefill
-     attention (QH 32 / KH 8 / D 128, page 16, a 32-layer pool read at a
-     non-zero layer, decode batch 8 with an idle seq_len-0 row, a 128-row
-     prefill of mixed lengths with a zero-length padding sequence and
-     padding rows, pages shared between sequences);
+     attention at Llama-3-8B's shapes (QH 32 / KH 8 / D 128, page 16, a
+     32-layer pool read at a non-zero layer, decode batch 8 with an idle
+     seq_len-0 row, a 128-row prefill of mixed lengths with a zero-length
+     padding sequence and padding rows, pages shared between sequences),
+     and again at Gemma-2-2B's (QH 8 / KH 4 / D 256, a 26-layer pool; K3
+     and K7 with softcap 50 and scale 1/16, with and without the 4096
+     window, at lengths past it, queries scaled so the logits reach the cap);
    - K4 rms_norm at 8 and 512 rows x 4096, K6 silu_and_mul on fused
      halves at 8 and 512 rows x 2 * 14336 and on parts;
-4. slice phases: the first-token logits of a 2-layer Llama-3-8B-width
-   ``llama_prefill`` on the card against the plain path on the CPU (bf16
-   weights in f32 and bf16, int4 weights in bf16); then ``LLMEngine`` at
-   full Llama-3-8B width (32 layers, random weights from a seed) serving
-   greedy requests, with every kernel's launch count read around the run
-   and the same requests repeated under torch.profiler (device time by
-   kernel group, idle share):
-   - bf16: 4 requests, ``EngineConfig(num_pages=2048, max_batch_size=8,
-     max_prefill_tokens=128)``;
-   - int4, the README's example and this slice's main path: 16 requests
-     of 40 to 900 tokens, ``EngineConfig(num_pages=4096,
-     max_batch_size=32)`` (512-row prefill steps);
-5. prints the ``kernels`` JSON line (launches from the int4 run), the
+   - K10a gemma_rms_norm at 8 and 512 rows x 2304, K10b gelu_tanh_and_mul
+     at 8 and 512 rows x 2 * 9216 (halves and parts), f32 and bf16;
+4. slice phases: the first-token logits of 2-layer full-width prefills on
+   the card against the plain path on the CPU (Llama-3-8B: bf16 weights in
+   f32 and bf16, int4 weights in bf16; Gemma-2-2B: f32 and bf16, random
+   norm weights); then ``LLMEngine`` at full width (random weights from a
+   seed) serving greedy requests of 32 tokens, with every kernel's launch
+   count and the model steps read around the run, and the same requests
+   repeated under torch.profiler (device time by kernel group, idle
+   share):
+   - Llama-3-8B bf16: 4 requests, ``EngineConfig(num_pages=2048,
+     max_batch_size=8, max_prefill_tokens=128)``;
+   - Llama-3-8B int4, the README's example: 16 requests of 40 to 900
+     tokens, ``EngineConfig(num_pages=4096, max_batch_size=32)`` (512-row
+     prefill steps);
+   - Gemma-2-2B bf16 (26 layers): 8 requests of 40
+     to 4600 tokens, ``EngineConfig(num_pages=4096, max_batch_size=16,
+     max_pages_per_seq=320)``, through ``gemma_prefill`` and
+     ``gemma_decode_step``;
+5. prints the ``kernels`` JSON line (launches from the Gemma run, or from
+   the int4 run for K1, K4 and K6; every path's counts beside them), the
    card line, then ``{"ok": true, "device": ...}`` as the last line.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -126,20 +137,38 @@ def check(name: str, err: float, tol: float) -> None:
         raise AssertionError(msg)
 
 
-def make_pool(gen: torch.Generator, num_pages: int) -> tuple[torch.Tensor, torch.Tensor]:
-    shape = (NUM_LAYERS_POOL, num_pages, KH, PS, D)
+def check_close(name: str, out: torch.Tensor, ref: torch.Tensor, tol: float) -> float:
+    """Hold ``out`` to ``ref`` elementwise at ``|out - ref| <= tol + tol * |ref|``
+    (the JAX tests' assert_allclose with atol = rtol = tol); returns the
+    max abs error."""
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    print(f"{name}: max_abs_err {err:.3e} (tolerance {tol:.0e} + {tol:.0e} * |ref|)", flush=True)
+    if not bool((diff <= tol + tol * ref.float().abs()).all()):
+        msg = f"{name}: outside {tol} + {tol} * |ref| (max_abs_err {err})"
+        raise AssertionError(msg)
+    return err
+
+
+def make_pool(
+    gen: torch.Generator, num_pages: int, layers: int = NUM_LAYERS_POOL, kh: int = KH, d: int = D
+) -> tuple[torch.Tensor, torch.Tensor]:
+    shape = (layers, num_pages, kh, PS, d)
     kc = torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(torch.bfloat16)
     vc = torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(torch.bfloat16)
     return kc, vc
 
 
-def paged_layout(rng: np.random.Generator, seq_lens: list[int], num_pages: int, share: tuple[int, int], shared_pages: int):
-    """Block table (B, MAX_PAGES_PER_SEQ) with random distinct pages,
+def paged_layout(
+    rng: np.random.Generator, seq_lens: list[int], num_pages: int, share: tuple[int, int], shared_pages: int,
+    max_pages: int = MAX_PAGES_PER_SEQ,
+):
+    """Block table (B, max_pages) with random distinct pages,
     entries past each sequence's pages left 0 (page 0 is a real page), and
     sequence ``share[1]`` reading the first ``shared_pages`` pages of
     ``share[0]`` (a prefix-cache hit)."""
     perm = iter(rng.permutation(np.arange(1, num_pages)).tolist())
-    bt = np.zeros((len(seq_lens), MAX_PAGES_PER_SEQ), np.int32)
+    bt = np.zeros((len(seq_lens), max_pages), np.int32)
     for b, n in enumerate(seq_lens):
         for p in range(-(-n // PS)):
             bt[b, p] = next(perm)
@@ -148,27 +177,29 @@ def paged_layout(rng: np.random.Generator, seq_lens: list[int], num_pages: int, 
     return bt
 
 
-def unique_kv_rows(bt: np.ndarray, kv_lens: list[int]) -> int:
-    """Distinct cached (page, entry) rows that these sequences read."""
+def unique_kv_rows(bt: np.ndarray, kv_lens: list[int], starts: list[int] | None = None) -> int:
+    """Distinct cached (page, entry) rows that these sequences read: positions
+    ``starts[b]`` (default 0) to ``kv_lens[b] - 1`` of each."""
     rows = set()
     for b, n in enumerate(kv_lens):
-        rows.update((int(bt[b, pos // PS]), pos % PS) for pos in range(n))
+        start = starts[b] if starts else 0
+        rows.update((int(bt[b, pos // PS]), pos % PS) for pos in range(start, n))
     return len(rows)
 
 
-def kernel_phase_k2(gen, rng) -> dict:
+def kernel_phase_k2(gen, rng, qh: int = QH, kh: int = KH, d: int = D, layers: int = NUM_LAYERS_POOL) -> dict:
     from conch_tpu_torch.kernels.cache.reshape_and_cache import (
         reshape_and_cache_stacked_launcher as launch,
         reshape_and_cache_stacked_plain as plain,
     )
 
     num_pages, batch = 256, 8
-    kc, vc = make_pool(gen, num_pages)
+    kc, vc = make_pool(gen, num_pages, layers, kh, d)
     # Decode batch of 8 taken from a fused qkv row block (strided k, v);
     # row 3 is idle (slot -1); rows 5 and 6 write the same page.
-    qkv = torch.randn((batch, (QH + 2 * KH) * D), generator=gen, device="cuda").to(torch.bfloat16)
-    k = qkv[:, QH * D : (QH + KH) * D].view(batch, KH, D)
-    v = qkv[:, (QH + KH) * D :].view(batch, KH, D)
+    qkv = torch.randn((batch, (qh + 2 * kh) * d), generator=gen, device="cuda").to(torch.bfloat16)
+    k = qkv[:, qh * d : (qh + kh) * d].view(batch, kh, d)
+    v = qkv[:, (qh + kh) * d :].view(batch, kh, d)
     pages = rng.permutation(np.arange(num_pages))[:batch]
     pages[6] = pages[5]
     entries = np.array([0, 15, 7, 0, 3, 9, 10, 1])
@@ -180,7 +211,7 @@ def kernel_phase_k2(gen, rng) -> dict:
     launch(k, v, kc, vc, slot_t, LAYER)
     torch.cuda.synchronize()
     err = max((kc.float() - kc_ref.float()).abs().max().item(), (vc.float() - vc_ref.float()).abs().max().item())
-    check("K2 reshape_and_cache_stacked", err, 0.0)
+    check(f"K2 reshape_and_cache_stacked KH={kh} D={d}", err, 0.0)
     valid = torch.from_numpy(np.nonzero(slots >= 0)[0]).cuda()
     vp = torch.from_numpy(slots[slots >= 0] // PS).long().cuda()
     ve = torch.from_numpy(slots[slots >= 0] % PS).long().cuda()
@@ -191,7 +222,7 @@ def kernel_phase_k2(gen, rng) -> dict:
         vc[LAYER, vp, :, ve] = vv_valid
 
     n_valid = int((slots >= 0).sum())
-    bytes_moved = 2 * (2 * n_valid * KH * D * 2) + batch * 4
+    bytes_moved = 2 * (2 * n_valid * kh * d * 2) + batch * 4
     bound_ms, bound_by = bound(bytes_moved, 0)
     return {
         "name": "reshape_and_cache_stacked", "route": "cuda", "source": "conch_tpu_torch/csrc/reshape_and_cache.cu",
@@ -203,35 +234,35 @@ def kernel_phase_k2(gen, rng) -> dict:
     }
 
 
-def kernel_phase_k5(gen, rng) -> dict:
+def kernel_phase_k5(gen, rng, qh: int = QH, kh: int = KH, d: int = D, theta: float = 500000.0) -> dict:
     from conch_tpu_torch.kernels.embedding.rotary_embedding import (
         rotary_embedding_launcher as launch,
         rotary_embedding_plain as plain,
     )
     from conch_tpu_torch.reference.embedding.rotary_embedding import compute_cos_sin_cache
 
-    cache = compute_cos_sin_cache(500000.0, D, 8192, device="cuda")
+    cache = compute_cos_sin_cache(theta, d, 8192, device="cuda")
     err = 0.0
     timed = {}
     for tokens in (8, 128):  # a decode step of batch 8, a 128-row prefill chunk
-        qkv = torch.randn((tokens, (QH + 2 * KH) * D), generator=gen, device="cuda").to(torch.bfloat16)
-        q, k = qkv[:, : QH * D], qkv[:, QH * D : (QH + KH) * D]
+        qkv = torch.randn((tokens, (qh + 2 * kh) * d), generator=gen, device="cuda").to(torch.bfloat16)
+        q, k = qkv[:, : qh * d], qkv[:, qh * d : (qh + kh) * d]
         pos = torch.from_numpy(rng.integers(0, 8192, size=tokens).astype(np.int32)).cuda()
-        q_k, k_k = launch(pos, q, k, D, cache)
-        q_p, k_p = plain(pos, q, k, D, cache)
+        q_k, k_k = launch(pos, q, k, d, cache)
+        q_p, k_p = plain(pos, q, k, d, cache)
         torch.cuda.synchronize()
         err = max(err, (q_k.float() - q_p.float()).abs().max().item(), (k_k.float() - k_p.float()).abs().max().item())
         timed[tokens] = (q, k, pos)
-    check("K5 rotary_embedding", err, 2e-2)
+    check(f"K5 rotary_embedding QH={qh} KH={kh} D={d}", err, 2e-2)
     q, k, pos = timed[8]
-    bytes_moved = 2 * 8 * (QH + KH) * D * 2 + 8 * D * 4 + 8 * 4
-    bound_ms, bound_by = bound(bytes_moved, 8 * (QH + KH) * D * 3)
+    bytes_moved = 2 * 8 * (qh + kh) * d * 2 + 8 * d * 4 + 8 * 4
+    bound_ms, bound_by = bound(bytes_moved, 8 * (qh + kh) * d * 3)
     return {
         "name": "rotary_embedding", "route": "cuda", "source": "conch_tpu_torch/csrc/rotary_embedding.cu",
         "replaces": "conch_tpu/kernels/embedding/rotary_embedding.py:34", "max_abs_err": err,
-        "ms": time_ms(lambda: launch(pos, q, k, D, cache)),
-        "paced_ms": paced_ms(lambda: launch(pos, q, k, D, cache)),
-        "plain_ms": time_ms(lambda: plain(pos, q, k, D, cache)),
+        "ms": time_ms(lambda: launch(pos, q, k, d, cache)),
+        "paced_ms": paced_ms(lambda: launch(pos, q, k, d, cache)),
+        "plain_ms": time_ms(lambda: plain(pos, q, k, d, cache)),
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
     }
 
@@ -455,13 +486,208 @@ def kernel_phase_k6(gen) -> dict:
     return row
 
 
+# Gemma-2-2B (GemmaConfig.gemma2_2b()): hidden 2304, intermediate 9216, 8
+# query heads over 4 KV heads of 256, 26 layers, softcap 50 on the
+# attention logits, scale 256 ** -0.5, a 4096-token window on even layers.
+G_QH, G_KH, G_D, G_LAYERS = 8, 4, 256, 26
+G_HIDDEN, G_INTER = 2304, 9216
+G_SOFTCAP, G_WINDOW, G_SCALE = 50.0, 4096, 256.0**-0.5
+G_Q_GAIN = 12.0  # query scale in the K3/K7 checks, so the logits reach the softcap
+
+
+def kernel_phase_k10a(gen) -> dict:
+    """K10a at 8 and 512 rows x 2304 in bf16 (timed) and f32, weights
+    random (so a kernel that dropped the (1 + w) would fail); tolerances
+    of tests/gemma_rms_norm_test.py:15. The row has the 8-row numbers."""
+    from conch_tpu_torch.kernels.normalization.gemma_rms_norm import (
+        gemma_rms_norm_launcher as launch,
+        gemma_rms_norm_plain as plain,
+    )
+
+    eps = 1e-6
+    lib = getattr(torch.nn.functional, "rms_norm", None)
+    err, detail = 0.0, []
+    for rows in (8, 512):
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+            w = (0.5 * torch.randn((G_HIDDEN,), generator=gen, device="cuda")).to(dtype)
+            x = torch.randn((rows, G_HIDDEN), generator=gen, device="cuda").to(dtype)
+            got, ref = launch(x, w, eps), plain(x, w, eps)
+            err = max(err, check_close(f"K10a gemma_rms_norm rows={rows} {dtype}", got, ref, tol))
+        # One library call computes the same function given the weight 1 + w.
+        w1 = (1.0 + w.float()).to(torch.bfloat16)
+        b_ms, b_by = bound(2 * rows * G_HIDDEN * 2 + G_HIDDEN * 2, 5 * rows * G_HIDDEN)
+        detail.append({
+            "rows": rows, "bound_ms": b_ms, "bound_by": b_by,
+            "ms": time_ms(lambda: launch(x, w, eps)),
+            "paced_ms": paced_ms(lambda: launch(x, w, eps)),
+            "plain_ms": time_ms(lambda: plain(x, w, eps)),
+            "library_ms": time_ms(lambda: lib(x, (G_HIDDEN,), w1, eps)) if lib else None,
+        })
+    for d in detail:
+        print(f"K10a rows={d['rows']}: {d['ms']:.4f} ms (paced {d['paced_ms']:.4f}, plain {d['plain_ms']:.4f}, "
+              f"F.rms_norm(1+w) {d['library_ms']}, bound {d['bound_ms']:.5f} by {d['bound_by']})", flush=True)
+    row = _kernel_row(
+        "gemma_rms_norm", "conch_tpu_torch/csrc/gemma_rms_norm.cu",
+        "conch_tpu/kernels/normalization/gemma_rms_norm.py:26", err, detail[0], detail[0]["bound_ms"],
+        detail[0]["bound_by"],
+    )
+    row["detail"] = detail
+    return row
+
+
+def kernel_phase_k10b(gen) -> dict:
+    """K10b on fused halves at 8 and 512 rows x 2*9216 in bf16 (timed) and
+    f32, and on row-strided parts; tolerances of tests/activation_test.py:16.
+    The row has the 8-row halves numbers."""
+    from conch_tpu_torch.kernels.activation.gelu_tanh_and_mul import (
+        gelu_tanh_and_mul_launcher as launch,
+        gelu_tanh_and_mul_parts_launcher as launch_parts,
+        gelu_tanh_and_mul_parts_plain as plain_parts,
+        gelu_tanh_and_mul_plain as plain,
+    )
+
+    err, detail = 0.0, []
+    for rows in (8, 512):
+        for dtype, tol in ((torch.float32, 1e-6), (torch.bfloat16, 1e-2)):
+            x = (2.0 * torch.randn((rows, 2 * G_INTER), generator=gen, device="cuda")).to(dtype)
+            err = max(err, check_close(f"K10b gelu_tanh_and_mul halves rows={rows} {dtype}", launch(x), plain(x), tol))
+            gate, up = x[:, :G_INTER], x[:, G_INTER:]  # row-strided parts
+            err = max(err, check_close(
+                f"K10b gelu_tanh_and_mul parts rows={rows} {dtype}", launch_parts(gate, up), plain_parts(gate, up), tol
+            ))
+        b_ms, b_by = bound(rows * G_INTER * 3 * 2, 10 * rows * G_INTER)
+        detail.append({
+            "rows": rows, "bound_ms": b_ms, "bound_by": b_by,
+            "ms": time_ms(lambda: launch(x)),
+            "paced_ms": paced_ms(lambda: launch(x)),
+            "plain_ms": time_ms(lambda: plain(x)), "library_ms": None,
+        })
+    for d in detail:
+        print(f"K10b halves rows={d['rows']}: {d['ms']:.4f} ms (paced {d['paced_ms']:.4f}, plain "
+              f"{d['plain_ms']:.4f}, bound {d['bound_ms']:.5f} by {d['bound_by']})", flush=True)
+    row = _kernel_row(
+        "gelu_tanh_and_mul", "conch_tpu_torch/csrc/gelu_tanh_and_mul.cu",
+        "conch_tpu/kernels/activation/gelu_tanh_and_mul.py:31", err, detail[0], detail[0]["bound_ms"],
+        detail[0]["bound_by"],
+    )
+    row["detail"] = detail
+    return row
+
+
+def gemma_attention_phases(gen, rng) -> dict[str, list[dict]]:
+    """K3 and K7 at Gemma-2-2B's shapes (QH 8 / KH 4 / D 256, a 26-layer pool
+    read at layer 17, softcap 50, scale 1/16), on a global layer (no window)
+    and a local one (window 4096), with lengths past the window:
+    - K3: a decode batch of 8 with lengths 1 to 6000 and an idle row that is
+      not first (tolerance 3e-2, tests/paged_attention_test.py:21);
+    - K7: a 512-row prefill step as the engine packs it: a mixed-in decode
+      row at context 4200, a 7-token prompt, the last 400-token chunk of a
+      4600-token prompt, zero-length padding sequences (16 in all, the
+      served run's batch) and 104 padding rows (tolerance 2e-2,
+      tests/varlen_attention_test.py:25).
+    Queries are N(0, G_Q_GAIN^2), so the scaled logits have a standard
+    deviation of about 12 and reach the cap: softcap 50 bends them by tens
+    of percent, and the softmax is sharp enough that the rows come out of
+    order 1, not averages near 0. Both kernels are held elementwise at
+    ``tol + tol * |ref|``, as the JAX tests hold them. A kernel that drops
+    the softcap, caps before the scale, or ignores the window fails these
+    checks (``python3 -m conch_tpu_torch.tools.attention_mutants``).
+    Returns detail entries (timed, with bounds) for each kernel's row."""
+    from conch_tpu_torch.kernels.attention.paged_attention import (
+        paged_attention_launcher as k3,
+        paged_attention_plain as k3_plain,
+    )
+    from conch_tpu_torch.kernels.attention.varlen_attention import (
+        varlen_attention_launcher as k7,
+        varlen_attention_plain as k7_plain,
+    )
+
+    max_pages = 384
+    dec_lens = [4600, 1, 17, 0, 300, 4096, 4097, 6000]
+    pre_q = [1, 7, 400] + [0] * 13
+    pre_k = [4200, 7, 4600] + [0] * 13
+    num_pages = sum(-(-n // PS) for n in dec_lens + pre_k) + 1
+    kc, vc = make_pool(gen, num_pages, G_LAYERS, G_KH, G_D)
+    # Pages are drawn for both steps from one permutation, so decode and
+    # prefill read disjoint pages of the same pool.
+    bt_all = paged_layout(rng, dec_lens + pre_k, num_pages, share=(0, 5), shared_pages=8, max_pages=max_pages)
+    bt_dec, bt_pre = bt_all[: len(dec_lens)], bt_all[len(dec_lens) :]
+    q_dec = (G_Q_GAIN * torch.randn((len(dec_lens), G_QH, G_D), generator=gen, device="cuda")).to(torch.bfloat16)
+    rows, total = 512, sum(pre_q)
+    q_pre = (G_Q_GAIN * torch.randn((rows, G_QH, G_D), generator=gen, device="cuda")).to(torch.bfloat16)
+    dec = [torch.from_numpy(bt_dec).cuda(), torch.tensor(dec_lens, dtype=torch.int32, device="cuda")]
+    cu = np.concatenate([[0], np.cumsum(pre_q)]).astype(np.int32)
+    pre = [torch.from_numpy(cu).cuda(), torch.tensor(pre_k, dtype=torch.int32, device="cuda"),
+           torch.from_numpy(bt_pre).cuda()]
+    out: dict[str, list[dict]] = {"paged_attention": [], "varlen_attention": []}
+    for window in (0, G_WINDOW):
+        tag = f"gemma2 softcap {G_SOFTCAP:g} window {window}"
+        args = (q_dec, kc, vc, *dec, G_SCALE, LAYER, G_SOFTCAP, window)
+        got, ref = k3(*args), k3_plain(*args)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all() or got[3].abs().max().item() != 0.0:
+            raise AssertionError(f"K3 ({tag}): the idle row must come out as finite zeros")
+        err = check_close(f"K3 paged_attention {tag}", got, ref, 3e-2)
+        starts = [max(n - window, 0) if window else 0 for n in dec_lens]
+        visible = sum(n - a for n, a in zip(dec_lens, starts))
+        bytes_moved = (2 * q_dec.numel() * 2 + 2 * unique_kv_rows(bt_dec, dec_lens, starts) * G_KH * G_D * 2
+                       + sum(-(-n // PS) for n in dec_lens) * 4 + len(dec_lens) * 4)
+        b_ms, b_by = bound(bytes_moved, 4 * G_QH * G_D * visible)
+        out["paged_attention"].append({
+            "case": tag, "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+            "ms": time_ms(lambda: k3(*args)), "paced_ms": paced_ms(lambda: k3(*args)),
+            "plain_ms": time_ms(lambda: k3_plain(*args), iters=5), "library_ms": None,
+        })
+
+        args = (q_pre, kc, vc, *pre, G_SCALE, True, LAYER, G_SOFTCAP, window)
+        got, ref = k7(*args), k7_plain(*args)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all() or got[total:].abs().max().item() != 0.0:
+            raise AssertionError(f"K7 ({tag}): padding rows must come out as finite zeros")
+        err = check_close(f"K7 varlen_attention {tag}", got, ref, 2e-2)
+        row_pos = [s - ql + j for ql, s in zip(pre_q, pre_k) for j in range(ql)]
+        row_start = [max(p - window + 1, 0) if window else 0 for p in row_pos]
+        # A sequence's first row has the earliest window start.
+        starts = [max(s - ql - window + 1, 0) if window else 0 for ql, s in zip(pre_q, pre_k)]
+        bytes_moved = ((total + rows) * G_QH * G_D * 2 + 2 * unique_kv_rows(bt_pre, pre_k, starts) * G_KH * G_D * 2
+                       + bt_pre.size * 4 + (len(cu) + len(pre_k)) * 4)
+        b_ms, b_by = bound(bytes_moved, 4 * G_QH * G_D * sum(p + 1 - a for p, a in zip(row_pos, row_start)))
+        out["varlen_attention"].append({
+            "case": tag, "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+            "ms": time_ms(lambda: k7(*args)), "paced_ms": paced_ms(lambda: k7(*args)),
+            "plain_ms": time_ms(lambda: k7_plain(*args), iters=5), "library_ms": None,
+        })
+    del kc, vc
+    torch.cuda.empty_cache()
+    for name, cases in out.items():
+        for d in cases:
+            print(f"{name} ({d['case']}): {d['ms']:.4f} ms (paced {d['paced_ms']:.4f}, plain {d['plain_ms']:.4f}, "
+                  f"bound {d['bound_ms']:.5f} by {d['bound_by']})", flush=True)
+    return out
+
+
 def kernel_phases() -> list[dict]:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rng = np.random.default_rng(SEED)
     rows = [
         kernel_phase_k1(gen), kernel_phase_k2(gen, rng), kernel_phase_k3(gen, rng), kernel_phase_k4(gen),
-        kernel_phase_k5(gen, rng), kernel_phase_k6(gen), kernel_phase_k7(gen, rng),
+        kernel_phase_k5(gen, rng), kernel_phase_k6(gen), kernel_phase_k7(gen, rng), kernel_phase_k10a(gen),
+        kernel_phase_k10b(gen),
     ]
+    # The Gemma-2-2B shapes of K2, K3, K5 and K7 go into their rows' detail
+    # beside the Llama-3-8B numbers the rows keep.
+    by_name = {r["name"]: r for r in rows}
+    gemma = gemma_attention_phases(gen, rng)
+    gemma["reshape_and_cache_stacked"] = [kernel_phase_k2(gen, rng, G_QH, G_KH, G_D, G_LAYERS)]
+    gemma["rotary_embedding"] = [kernel_phase_k5(gen, rng, G_QH, G_KH, G_D, 10000.0)]
+    for name, cases in gemma.items():
+        for case in cases:
+            kept = {k: v for k, v in case.items() if k not in ("name", "route", "source", "replaces")}
+            entry = {"case": f"gemma2 KH {G_KH} D {G_D}", **kept}
+            by_name[name].setdefault("detail", []).append(entry)
+            if name in ("reshape_and_cache_stacked", "rotary_embedding"):
+                print(f"{name} (gemma2 KH {G_KH} D {G_D}): {case['ms']:.4f} ms (paced {case['paced_ms']:.4f}, plain "
+                      f"{case['plain_ms']:.4f}, bound {case['bound_ms']:.5f} by {case['bound_by']})", flush=True)
     for r in rows:
         print(
             f"{r['name']}: {r['ms']:.4f} ms (paced {r['paced_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
@@ -472,13 +698,18 @@ def kernel_phases() -> list[dict]:
     return rows
 
 
-# Each kernel row's launchers: K6's one kernel has two entry points.
+# Each kernel row's launchers: K6's and K10b's kernels have two entry points.
 def _launchers() -> dict:
+    from conch_tpu_torch.kernels.activation.gelu_tanh_and_mul import (
+        gelu_tanh_and_mul_launcher,
+        gelu_tanh_and_mul_parts_launcher,
+    )
     from conch_tpu_torch.kernels.activation.silu_and_mul import silu_and_mul_launcher, silu_and_mul_parts_launcher
     from conch_tpu_torch.kernels.attention.paged_attention import paged_attention_launcher
     from conch_tpu_torch.kernels.attention.varlen_attention import varlen_attention_launcher
     from conch_tpu_torch.kernels.cache.reshape_and_cache import reshape_and_cache_stacked_launcher
     from conch_tpu_torch.kernels.embedding.rotary_embedding import rotary_embedding_launcher
+    from conch_tpu_torch.kernels.normalization.gemma_rms_norm import gemma_rms_norm_launcher
     from conch_tpu_torch.kernels.normalization.rms_norm import rms_norm_launcher
     from conch_tpu_torch.kernels.quantization.gemm import mixed_gemm_magic_launcher
 
@@ -490,6 +721,8 @@ def _launchers() -> dict:
         "rotary_embedding": (rotary_embedding_launcher,),
         "silu_and_mul": (silu_and_mul_launcher, silu_and_mul_parts_launcher),
         "varlen_attention": (varlen_attention_launcher,),
+        "gemma_rms_norm": (gemma_rms_norm_launcher,),
+        "gelu_tanh_and_mul": (gelu_tanh_and_mul_launcher, gelu_tanh_and_mul_parts_launcher),
     }
 
 
@@ -526,13 +759,26 @@ def to_device(tree, device: str):
 PREFILL_TOLERANCES = {torch.float32: 2e-3, torch.bfloat16: 3e-2}
 
 
+def random_norm_weights(params: dict, gen: torch.Generator) -> dict:
+    """Gemma params with every norm weight drawn at random (std 0.3), in
+    place: the init's zeros make ``(1 + w)`` 1, where a dropped weight
+    would pass."""
+    for tensor in [params["final_norm"], *(w for n, w in params["layers"].items() if n.endswith("_norm"))]:
+        tensor.copy_(0.3 * torch.randn(tensor.shape, generator=gen, device=tensor.device))
+    return params
+
+
 def check_prefill_logits() -> None:
-    """First-token logits of a 2-layer, full-width Llama-3-8B prefill on the
-    card (kernels) against the same prefill on the CPU (plain versions):
-    bf16 weights in f32 and in bf16, then int4 weights (K1) in bf16, the
-    only activation dtype K1 takes on the card (PREFILL_TOLERANCES)."""
+    """First-token logits of a 2-layer, full-width prefill on the card
+    (kernels) against the same prefill on the CPU (plain versions), for
+    Llama-3-8B (bf16 weights in f32 and in bf16, then int4 weights (K1) in
+    bf16, the only activation dtype K1 takes on the card) and Gemma-2-2B
+    (bf16 weights in f32 and bf16, random norm weights, the window cut to
+    16 so that layer 0's mask bites in these 24- and 13-token prompts);
+    PREFILL_TOLERANCES."""
     import dataclasses
 
+    from conch_tpu_torch.models.gemma import GemmaConfig, gemma_prefill, init_gemma_params
     from conch_tpu_torch.models.llama import (
         LlamaConfig, fuse_llama_params, init_kv_caches, init_llama_params, llama_prefill,
     )
@@ -540,7 +786,7 @@ def check_prefill_logits() -> None:
     rng = np.random.default_rng(SEED)
     q_lens, rows, batch, num_pages = [24, 13], 48, 4, 8
     total = sum(q_lens)
-    vocab = LlamaConfig.llama3_8b().vocab_size
+    vocab = min(LlamaConfig.llama3_8b().vocab_size, GemmaConfig.gemma2_2b().vocab_size)
     tokens = np.zeros(rows, np.int32)
     tokens[:total] = rng.integers(0, vocab, total)
     positions = np.zeros(rows, np.int32)
@@ -553,34 +799,48 @@ def check_prefill_logits() -> None:
     seq_lens = np.array(q_lens + [0, 0], np.int32)
     host = [torch.from_numpy(a) for a in (tokens, positions, cu, seq_lens, bt, slots)]
 
-    cases = [("bf16", torch.float32), ("bf16", torch.bfloat16), ("int4", torch.bfloat16)]
-    for quant_mode, dtype in cases:
-        tol = PREFILL_TOLERANCES[dtype]
+    def llama(quant_mode, dtype):
         cfg = dataclasses.replace(LlamaConfig.llama3_8b(), num_layers=2, dtype=dtype)
-        params = fuse_llama_params(init_llama_params(SEED, cfg, quant_mode=quant_mode, device="cuda"))
+        return f"Llama-3-8B, {quant_mode} weights", cfg, llama_prefill, lambda: fuse_llama_params(
+            init_llama_params(SEED, cfg, quant_mode=quant_mode, device="cuda"))
+
+    def gemma(dtype):
+        cfg = dataclasses.replace(GemmaConfig.gemma2_2b(), num_layers=2, sliding_window=16, dtype=dtype)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        return "Gemma-2-2B, bf16 weights", cfg, gemma_prefill, lambda: fuse_llama_params(
+            random_norm_weights(init_gemma_params(SEED, cfg, device="cuda"), gen))
+
+    cases = [
+        llama("bf16", torch.float32), llama("bf16", torch.bfloat16), llama("int4", torch.bfloat16),
+        gemma(torch.float32), gemma(torch.bfloat16),
+    ]
+    for label, cfg, prefill, make_params in cases:
+        tol = PREFILL_TOLERANCES[cfg.dtype]
+        params = make_params()
         kc, vc = init_kv_caches(cfg, num_pages, PS, device="cuda")
         t = [a.cuda() for a in host]
-        logits, _, _ = llama_prefill(params, cfg, t[0], t[1], t[2], rows, t[3], t[4], t[5], kc, vc)
+        logits, _, _ = prefill(params, cfg, t[0], t[1], t[2], rows, t[3], t[4], t[5], kc, vc)
         logits = logits.cpu()
         cpu_params = to_device(params, "cpu")
         del params, kc, vc
         torch.cuda.empty_cache()
         kc, vc = init_kv_caches(cfg, num_pages, PS, device="cpu")
-        ref, _, _ = llama_prefill(cpu_params, cfg, host[0], host[1], host[2], rows, host[3], host[4], host[5], kc, vc)
+        ref, _, _ = prefill(cpu_params, cfg, host[0], host[1], host[2], rows, host[3], host[4], host[5], kc, vc)
+        del cpu_params
         if not torch.isfinite(logits).all() or logits.shape != (batch, cfg.vocab_size):
             raise AssertionError(f"prefill logits: shape {tuple(logits.shape)} or non-finite values")
         err = (logits - ref).abs().max().item()
         scale = ref.abs().max().item()
-        if dtype == torch.float32:
+        if cfg.dtype == torch.float32:
             ok = bool(((logits - ref).abs() <= tol + tol * ref.abs()).all())
             rule = f"{tol:.0e} + {tol:.0e} * |ref| elementwise"
         else:
             ok = err <= tol * scale
             rule = f"{tol:.0e} * max|ref| = {tol * scale:.3e}"
-        print(f"2-layer prefill logits, {quant_mode} weights, {cfg.dtype}, card vs plain path on the CPU: "
+        print(f"2-layer prefill logits, {label}, {cfg.dtype}, card vs plain path on the CPU: "
               f"max_abs_err {err:.3e}, max|ref| {scale:.3f}, tolerance {rule}", flush=True)
         if not ok:
-            raise AssertionError(f"2-layer prefill logits ({quant_mode}, {dtype}) disagree with the plain path")
+            raise AssertionError(f"2-layer prefill logits ({label}, {cfg.dtype}) disagree with the plain path")
 
 
 def bf16_prompts(rng: np.random.Generator, vocab: int) -> list[list[int]]:
@@ -606,29 +866,62 @@ def int4_prompts(rng: np.random.Generator, vocab: int) -> list[list[int]]:
     return prompts + [prefix + rng.integers(0, vocab, n).tolist() for n in INT4_SHARED_TAILS]
 
 
-# Launches a model step makes at 32 layers, with wqkv and gate|up fused:
-# K1 4 per layer, K4 2 per layer plus the final norm, K6 1 per layer.
-PER_STEP_LAUNCHES = {"mixed_gemm_magic": 4 * 32, "rms_norm": 2 * 32 + 1, "silu_and_mul": 32}
+def gemma_prompts(rng: np.random.Generator, vocab: int) -> list[list[int]]:
+    """8 prompts of 40 to 4600 tokens; the longest crosses the 4096 window
+    of the local layers, in prefill (K7) and in decode (K3)."""
+    return [rng.integers(0, vocab, n).tolist() for n in (40, 64, 128, 300, 600, 900, 2000, 4600)]
 
 
-def serve(card: str, quant_mode: str, engine_kwargs: dict, make_prompts, expect: tuple[str, ...]) -> dict:
-    """LLMEngine at full Llama-3-8B width (32 layers, random weights from
-    the seed, ``quant_mode`` projections) serving greedy requests of 32
-    tokens; returns each kernel's launch count in that run and fails
-    unless every kernel in ``expect`` launched."""
-    from conch_tpu_torch.models.llama import LlamaConfig, init_llama_params
+ATTENTION = ("varlen_attention", "paged_attention")  # K7 once per layer of a prefill step, K3 of a decode step
+
+# Launches a model step makes, with wqkv and gate|up fused. Llama-3-8B, 32
+# layers: K1 4 per layer, K4 2 per layer plus the final norm, K6 1 per
+# layer, attention 1 per layer. Gemma-2-2B, 26 layers: K10a 4 per layer
+# (input, post-attention, pre- and post-feedforward) plus the final norm,
+# K10b 1 per layer, attention 1 per layer.
+LLAMA_PER_STEP = {"mixed_gemm_magic": 4 * 32, "rms_norm": 2 * 32 + 1, "silu_and_mul": 32, ATTENTION: 32}
+GEMMA_PER_STEP = {"gemma_rms_norm": 4 * 26 + 1, "gelu_tanh_and_mul": 26, ATTENTION: 26}
+
+
+def count_steps(engine) -> list[int]:
+    """Wrap the engine's model step functions so that each call adds one to
+    the returned counter: the model steps of a run, counted apart from the
+    kernels' launches."""
+    counter = [0]
+
+    def counted(fn):
+        def step(*args, **kwargs):
+            counter[0] += 1
+            return fn(*args, **kwargs)
+
+        return step
+
+    engine._prefill_fn, engine._decode_fn = counted(engine._prefill_fn), counted(engine._decode_fn)
+    return counter
+
+
+def serve(
+    card: str, label: str, cfg, make_params, model_fns: dict, engine_kwargs: dict, make_prompts,
+    expect: tuple[str, ...], per_step: dict,
+) -> dict:
+    """LLMEngine at full width (random weights from the seed) serving greedy
+    requests of 32 tokens through ``model_fns`` (Llama's by default);
+    returns each kernel's launch count in that run. Fails unless every
+    kernel in ``expect`` launched, and launched ``per_step`` times in each
+    model step (attention: K3 and K7 together)."""
     from conch_tpu_torch.serving import EngineConfig, LLMEngine, SamplingParams
 
-    cfg = LlamaConfig.llama3_8b()
     t0 = time.perf_counter()
-    params = init_llama_params(SEED, cfg, quant_mode=quant_mode, device="cuda")
-    engine = LLMEngine(params, cfg, EngineConfig(**engine_kwargs))
+    params = make_params(cfg)
+    engine = LLMEngine(params, cfg, EngineConfig(**engine_kwargs), **model_fns)
     del params
     torch.cuda.synchronize()
-    print(f"{quant_mode} engine ready in {time.perf_counter() - t0:.1f} s ({engine.ecfg}), "
+    print(f"{label} engine ready in {time.perf_counter() - t0:.1f} s ({engine.ecfg}), "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated", flush=True)
     prompts = make_prompts(np.random.default_rng(SEED), cfg.vocab_size)
     max_tokens = 32
+    steps = count_steps(engine)
+    torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -639,26 +932,27 @@ def serve(card: str, quant_mode: str, engine_kwargs: dict, make_prompts, expect:
     for out in outputs:
         if len(out) != max_tokens or not all(0 <= t < cfg.vocab_size for t in out):
             raise AssertionError(f"request finished with {len(out)} tokens, some outside the vocabulary")
-    print(f"{quant_mode}: served {len(prompts)} requests (prompts {[len(p) for p in prompts]}, {max_tokens} tokens "
+    print(f"{label}: served {len(prompts)} requests (prompts {[len(p) for p in prompts]}, {max_tokens} tokens "
           f"each) in {seconds:.3f} s: {len(prompts) * max_tokens / seconds:.2f} generated tok/s on {card}; "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB peak allocated; prefix-cache hits "
           f"{engine.prefix_cache_hits} tokens", flush=True)
-    # K7 runs once per layer of a prefill step, K3 once per layer of a decode step.
-    steps = (launches["varlen_attention"] + launches["paged_attention"]) // cfg.num_layers
-    print(f"{quant_mode}: launches in the served run ({steps} model steps): {launches}", flush=True)
+    n_steps = steps[0]
+    print(f"{label}: launches in the served run ({n_steps} model steps): {launches}", flush=True)
     for name in expect:
         if launches[name] <= 0:
-            raise AssertionError(f"{name} was never launched on the {quant_mode} path")
-        if name in PER_STEP_LAUNCHES and launches[name] != PER_STEP_LAUNCHES[name] * steps:
-            raise AssertionError(f"{name}: {launches[name]} launches, expected {PER_STEP_LAUNCHES[name]} x {steps} steps")
+            raise AssertionError(f"{name} was never launched on the {label} path")
+    for names, per in per_step.items():
+        got = sum(launches[n] for n in ((names,) if isinstance(names, str) else names))
+        if got != per * n_steps:
+            raise AssertionError(f"{names}: {got} launches on the {label} path, expected {per} x {n_steps} steps")
     engine_params, ecfg = engine.params, engine.ecfg
     del engine
     torch.cuda.empty_cache()
-    profile_served_run(engine_params, cfg, ecfg, prompts, max_tokens, quant_mode)
+    profile_served_run(engine_params, cfg, ecfg, model_fns, prompts, max_tokens, label)
     return launches
 
 
-def profile_served_run(params: dict, cfg, ecfg, prompts: list, max_tokens: int, label: str) -> None:
+def profile_served_run(params: dict, cfg, ecfg, model_fns: dict, prompts: list, max_tokens: int, label: str) -> None:
     """The same requests on a fresh engine under torch.profiler (not the
     timed run): device time by kernel group, from the trace's kernel events,
     and the device's idle share of the wall time."""
@@ -668,7 +962,7 @@ def profile_served_run(params: dict, cfg, ecfg, prompts: list, max_tokens: int, 
 
     from conch_tpu_torch.serving import LLMEngine, SamplingParams
 
-    engine = LLMEngine(params, cfg, ecfg)
+    engine = LLMEngine(params, cfg, ecfg, **model_fns)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -714,9 +1008,13 @@ def build() -> None:
             print("nvcc:", line.strip())
 
 
-ALL_KERNELS = (
+LLAMA_KERNELS = (
     "mixed_gemm_magic", "reshape_and_cache_stacked", "paged_attention", "rms_norm", "rotary_embedding",
     "silu_and_mul", "varlen_attention",
+)
+GEMMA_KERNELS = (
+    "reshape_and_cache_stacked", "paged_attention", "rotary_embedding", "varlen_attention", "gemma_rms_norm",
+    "gelu_tanh_and_mul",
 )
 
 
@@ -729,14 +1027,40 @@ def main() -> int:
     build()
     rows = kernel_phases()
     check_prefill_logits()
-    serve(
-        card, "bf16", {"page_size": 16, "num_pages": 2048, "max_batch_size": 8, "max_prefill_tokens": 128},
-        bf16_prompts, tuple(k for k in ALL_KERNELS if k != "mixed_gemm_magic"),
-    )
-    # The main path of this slice: the README's int4 example.
-    launches = serve(card, "int4", {"num_pages": 4096, "max_batch_size": 32}, int4_prompts, ALL_KERNELS)
+
+    from conch_tpu_torch.models.gemma import GemmaConfig, gemma_decode_step, gemma_prefill, init_gemma_params
+    from conch_tpu_torch.models.llama import LlamaConfig, init_llama_params
+
+    def llama(quant_mode):
+        return lambda cfg: init_llama_params(SEED, cfg, quant_mode=quant_mode, device="cuda")
+
+    llama_cfg = LlamaConfig.llama3_8b()
+    launches = {
+        "llama3_8b_bf16": serve(
+            card, "bf16", llama_cfg, llama("bf16"), {},
+            {"page_size": 16, "num_pages": 2048, "max_batch_size": 8, "max_prefill_tokens": 128}, bf16_prompts,
+            tuple(k for k in LLAMA_KERNELS if k != "mixed_gemm_magic"),
+            {k: v for k, v in LLAMA_PER_STEP.items() if k != "mixed_gemm_magic"},
+        ),
+        # The README's int4 example.
+        "llama3_8b_int4": serve(
+            card, "int4", llama_cfg, llama("int4"), {}, {"num_pages": 4096, "max_batch_size": 32}, int4_prompts,
+            LLAMA_KERNELS, LLAMA_PER_STEP,
+        ),
+        # Gemma-2-2B at its published config, 26 layers.
+        "gemma2_2b_bf16": serve(
+            card, "gemma2-2b", GemmaConfig.gemma2_2b(), lambda cfg: init_gemma_params(SEED, cfg, device="cuda"),
+            {"prefill_fn": gemma_prefill, "decode_fn": gemma_decode_step},
+            {"num_pages": 4096, "max_batch_size": 16, "max_pages_per_seq": 320}, gemma_prompts, GEMMA_KERNELS,
+            GEMMA_PER_STEP,
+        ),
+    }
+    # ``launches``: the Gemma run for the kernels it runs, the int4 run for
+    # K1, K4 and K6, which only Llama runs; every path's count beside it.
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        by_path = {path: counts[row["name"]] for path, counts in launches.items()}
+        row["launches"] = by_path["gemma2_2b_bf16"] or by_path["llama3_8b_int4"]
+        row["launches_by_path"] = by_path
     print(json.dumps({"kernels": rows}))
     print(card)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

@@ -2,19 +2,26 @@
 // SPDX-License-Identifier: Apache-2.0
 //
 // One block's share of paged attention, shared by the decode kernel (K3)
-// and the varlen prefill kernel (K7): the G query heads of one GQA group
-// attend to the first `kv_len` tokens of one KV head, found through the
-// block table. Online softmax over tiles of TILE tokens, f32 throughout.
+// and the varlen prefill kernel (K7): the G query heads of one GQA group,
+// all at one query position, attend to the tokens kv_start..kv_len-1 of
+// one KV head, found through the block table. Online softmax over tiles of
+// TILE tokens, f32 throughout.
 //
 //   1. the block resolves the tile's cache rows from the block table,
-//      reading only entries below kv_len (never the table's padding);
-//   2. one warp per token computes the G scores q_g . k (lanes split D);
+//      reading only entries in [kv_start, kv_len) (never the table's
+//      padding, never a page wholly before a sliding window);
+//   2. one warp per token computes the G scores q_g . k (lanes split D),
+//      times the scale, then softcap * tanh(s / softcap) when SOFTCAP (a
+//      template flag, so the loop without softcap compiles as before it);
 //   3. one warp per head rescales the running max and sum;
 //   4. each thread owns D / NTHREADS output columns for all G heads and
 //      accumulates p . V in registers.
 //
-// kv_len <= 0 leaves the sum at 0 and writes zeros: no division by an
-// empty softmax.
+// The caller turns causality and a sliding window into the range: every
+// key in it is visible, so each tile holds at least one visible key, the
+// running max is finite after the first tile, and no mask is needed.
+// kv_start >= kv_len leaves the sum at 0 and writes zeros: no division by
+// an empty softmax.
 
 #pragma once
 
@@ -38,10 +45,10 @@ struct PagedKV {
   int head_size;
 };
 
-template <typename T>
+template <typename T, bool SOFTCAP>
 __device__ void attend_group(const T* __restrict__ q_rows, int64_t q_head_stride, T* __restrict__ out_rows,
-                             int64_t out_head_stride, const PagedKV& kv, int kv_head, int kv_len, int group,
-                             float scale) {
+                             int64_t out_head_stride, const PagedKV& kv, int kv_head, int kv_start, int kv_len,
+                             int group, float scale, float softcap) {
   __shared__ float q_s[kMaxGroup * kMaxHeadSize];
   __shared__ float p_s[kMaxGroup * kAttnTile];
   __shared__ int64_t row_s[kAttnTile];
@@ -71,7 +78,7 @@ __device__ void attend_group(const T* __restrict__ q_rows, int64_t q_head_stride
     for (int c = 0; c < kMaxColsPerThread; ++c) acc[g][c] = 0.0f;
   __syncthreads();
 
-  for (int start = 0; start < kv_len; start += kAttnTile) {
+  for (int start = kv_start; start < kv_len; start += kAttnTile) {
     const int n = min(kAttnTile, kv_len - start);
     for (int j = tid; j < n; j += kAttnThreads) {
       const int pos = start + j;
@@ -95,8 +102,9 @@ __device__ void attend_group(const T* __restrict__ q_rows, int64_t q_head_stride
 #pragma unroll
       for (int g = 0; g < kMaxGroup; ++g) {
         if (g < group) {
-          const float s = warp_sum(part[g]);
-          if (lane == 0) p_s[g * kAttnTile + j] = s * scale;
+          float s = warp_sum(part[g]) * scale;
+          if constexpr (SOFTCAP) s = softcap * tanhf(s / softcap);
+          if (lane == 0) p_s[g * kAttnTile + j] = s;
         }
       }
     }

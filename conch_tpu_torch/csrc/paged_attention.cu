@@ -12,35 +12,42 @@
 // once for the whole GQA group of G query heads; online softmax in f32
 // (attention_common.cuh). The TPU kernel's chunked page DMAs become a
 // loop over 64-token tiles inside the block. Idle rows (seq_len 0) write
-// zeros.
+// zeros. Softcap (> 0) caps the scaled logits; a sliding window (> 0)
+// starts the walk at seq_len - window, the first key the query sees, so
+// the pages before it are never read (the TPU kernel skips those chunks).
 
 #include "attention_common.cuh"
 
 namespace conch {
 
-template <typename T>
+template <typename T, bool SOFTCAP>
 __global__ void paged_decode_kernel(const T* __restrict__ query, T* __restrict__ out, const void* k_layer,
                                     const void* v_layer, const int32_t* __restrict__ block_table,
                                     const int32_t* __restrict__ seq_lens, int max_pages, int num_q_heads,
-                                    int num_kv_heads, int page_size, int head_size, float scale) {
+                                    int num_kv_heads, int page_size, int head_size, float scale, float softcap,
+                                    int window) {
   const int b = blockIdx.x;
   const int kv_head = blockIdx.y;
   const int group = num_q_heads / num_kv_heads;
   const PagedKV kv{k_layer, v_layer, block_table + static_cast<int64_t>(b) * max_pages, num_kv_heads, page_size,
                    head_size};
   const int64_t row = (static_cast<int64_t>(b) * num_q_heads + kv_head * group) * head_size;
-  attend_group<T>(query + row, head_size, out + row, head_size, kv, kv_head, seq_lens[b], group, scale);
+  const int seq_len = seq_lens[b];
+  const int kv_start = window > 0 ? max(seq_len - window, 0) : 0;
+  attend_group<T, SOFTCAP>(query + row, head_size, out + row, head_size, kv, kv_head, kv_start, seq_len, group,
+                           scale, softcap);
 }
 
 template <typename T>
 void launch_paged(const void* query, void* out, const void* k_layer, const void* v_layer, const void* block_table,
                   const void* seq_lens, int batch, int max_pages, int num_q_heads, int num_kv_heads, int page_size,
-                  int head_size, float scale, cudaStream_t stream) {
+                  int head_size, float scale, float softcap, int window, cudaStream_t stream) {
   dim3 grid(batch, num_kv_heads);
-  paged_decode_kernel<T><<<grid, kAttnThreads, 0, stream>>>(
+  auto kernel = softcap > 0.0f ? paged_decode_kernel<T, true> : paged_decode_kernel<T, false>;
+  kernel<<<grid, kAttnThreads, 0, stream>>>(
       static_cast<const T*>(query), static_cast<T*>(out), k_layer, v_layer,
       static_cast<const int32_t*>(block_table), static_cast<const int32_t*>(seq_lens), max_pages, num_q_heads,
-      num_kv_heads, page_size, head_size, scale);
+      num_kv_heads, page_size, head_size, scale, softcap, window);
 }
 
 }  // namespace conch
@@ -48,7 +55,7 @@ void launch_paged(const void* query, void* out, const void* k_layer, const void*
 extern "C" int conch_paged_attention(const void* query, void* out, const void* k_layer, const void* v_layer,
                                      const void* block_table, const void* seq_lens, int batch, int max_pages,
                                      int num_q_heads, int num_kv_heads, int page_size, int head_size, float scale,
-                                     int dtype, void* stream) {
+                                     float softcap, int window, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (batch == 0) return static_cast<int>(cudaSuccess);
   if (num_q_heads % num_kv_heads != 0 || num_q_heads / num_kv_heads > conch::kMaxGroup ||
@@ -57,10 +64,10 @@ extern "C" int conch_paged_attention(const void* query, void* out, const void* k
   }
   if (dtype == conch::kBFloat16) {
     conch::launch_paged<__nv_bfloat16>(query, out, k_layer, v_layer, block_table, seq_lens, batch, max_pages,
-                                       num_q_heads, num_kv_heads, page_size, head_size, scale, s);
+                                       num_q_heads, num_kv_heads, page_size, head_size, scale, softcap, window, s);
   } else if (dtype == conch::kFloat32) {
     conch::launch_paged<float>(query, out, k_layer, v_layer, block_table, seq_lens, batch, max_pages, num_q_heads,
-                               num_kv_heads, page_size, head_size, scale, s);
+                               num_kv_heads, page_size, head_size, scale, softcap, window, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

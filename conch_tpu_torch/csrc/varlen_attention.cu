@@ -18,17 +18,20 @@
 // tiling several query rows per block to share each K/V load is the
 // obvious next step. Rows past cu_seqlens_q[batch] (padding, slot -1)
 // write zeros and read no cache; zero-length sequences own no rows.
+// Softcap (> 0) caps the scaled logits. A sliding window (> 0) anchors at
+// the row's own position q_pos, causal or not: the row sees keys from
+// q_pos - window + 1, and its walk starts there.
 
 #include "attention_common.cuh"
 
 namespace conch {
 
-template <typename T>
+template <typename T, bool SOFTCAP>
 __global__ void varlen_prefill_kernel(const T* __restrict__ query, T* __restrict__ out, const void* k_layer,
                                       const void* v_layer, const int32_t* __restrict__ cu_seqlens_q,
                                       const int32_t* __restrict__ seq_lens, const int32_t* __restrict__ block_table,
                                       int batch, int max_pages, int num_q_heads, int num_kv_heads, int page_size,
-                                      int head_size, float scale, int causal) {
+                                      int head_size, float scale, float softcap, int window, int causal) {
   const int t = blockIdx.x;
   const int kv_head = blockIdx.y;
   const int group = num_q_heads / num_kv_heads;
@@ -45,29 +48,32 @@ __global__ void varlen_prefill_kernel(const T* __restrict__ query, T* __restrict
       }
     }
   }
-  int kv_len = 0;
+  int kv_start = 0, kv_len = 0;
   const int32_t* bt_row = block_table;
   if (b >= 0) {
     const int q_len = cu_seqlens_q[b + 1] - cu_seqlens_q[b];
     const int q_pos = seq_lens[b] - q_len + (t - cu_seqlens_q[b]);
     kv_len = causal ? q_pos + 1 : seq_lens[b];
+    if (window > 0) kv_start = max(q_pos - window + 1, 0);
     bt_row = block_table + static_cast<int64_t>(b) * max_pages;
   }
   const PagedKV kv{k_layer, v_layer, bt_row, num_kv_heads, page_size, head_size};
-  attend_group<T>(query + row, head_size, out + row, head_size, kv, kv_head, kv_len, group, scale);
+  attend_group<T, SOFTCAP>(query + row, head_size, out + row, head_size, kv, kv_head, kv_start, kv_len, group,
+                           scale, softcap);
 }
 
 template <typename T>
 void launch_varlen(const void* query, void* out, const void* k_layer, const void* v_layer, const void* cu_seqlens_q,
                    const void* seq_lens, const void* block_table, int total_q, int batch, int max_pages,
-                   int num_q_heads, int num_kv_heads, int page_size, int head_size, float scale, int causal,
-                   cudaStream_t stream) {
+                   int num_q_heads, int num_kv_heads, int page_size, int head_size, float scale, float softcap,
+                   int window, int causal, cudaStream_t stream) {
   dim3 grid(total_q, num_kv_heads);
-  varlen_prefill_kernel<T><<<grid, kAttnThreads, 0, stream>>>(
+  auto kernel = softcap > 0.0f ? varlen_prefill_kernel<T, true> : varlen_prefill_kernel<T, false>;
+  kernel<<<grid, kAttnThreads, 0, stream>>>(
       static_cast<const T*>(query), static_cast<T*>(out), k_layer, v_layer,
       static_cast<const int32_t*>(cu_seqlens_q), static_cast<const int32_t*>(seq_lens),
       static_cast<const int32_t*>(block_table), batch, max_pages, num_q_heads, num_kv_heads, page_size, head_size,
-      scale, causal);
+      scale, softcap, window, causal);
 }
 
 }  // namespace conch
@@ -75,8 +81,8 @@ void launch_varlen(const void* query, void* out, const void* k_layer, const void
 extern "C" int conch_varlen_attention(const void* query, void* out, const void* k_layer, const void* v_layer,
                                       const void* cu_seqlens_q, const void* seq_lens, const void* block_table,
                                       int total_q, int batch, int max_pages, int num_q_heads, int num_kv_heads,
-                                      int page_size, int head_size, float scale, int causal, int dtype,
-                                      void* stream) {
+                                      int page_size, int head_size, float scale, float softcap, int window,
+                                      int causal, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (total_q == 0) return static_cast<int>(cudaSuccess);
   if (num_q_heads % num_kv_heads != 0 || num_q_heads / num_kv_heads > conch::kMaxGroup ||
@@ -86,10 +92,11 @@ extern "C" int conch_varlen_attention(const void* query, void* out, const void* 
   if (dtype == conch::kBFloat16) {
     conch::launch_varlen<__nv_bfloat16>(query, out, k_layer, v_layer, cu_seqlens_q, seq_lens, block_table, total_q,
                                         batch, max_pages, num_q_heads, num_kv_heads, page_size, head_size, scale,
-                                        causal, s);
+                                        softcap, window, causal, s);
   } else if (dtype == conch::kFloat32) {
     conch::launch_varlen<float>(query, out, k_layer, v_layer, cu_seqlens_q, seq_lens, block_table, total_q, batch,
-                                max_pages, num_q_heads, num_kv_heads, page_size, head_size, scale, causal, s);
+                                max_pages, num_q_heads, num_kv_heads, page_size, head_size, scale, softcap,
+                                window, causal, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

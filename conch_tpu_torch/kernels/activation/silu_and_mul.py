@@ -22,7 +22,7 @@ import ctypes
 
 import torch
 
-from conch_tpu_torch.kernels.common import check_launch, dtype_code, kernel_function, require_cuda, stream_of
+from conch_tpu_torch.kernels.common import check_launch, check_rows, dtype_code, kernel_function, stream_of
 
 
 def silu_and_mul_parts_plain(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
@@ -37,18 +37,11 @@ def silu_and_mul_plain(x: torch.Tensor) -> torch.Tensor:
     return silu_and_mul_parts_plain(x[..., :d], x[..., d:])
 
 
-def _check_rows(name: str, *tensors: torch.Tensor) -> None:
-    require_cuda(*tensors)
-    if any(t.stride(1) != 1 for t in tensors) or len({t.dtype for t in tensors}) != 1:
-        msg = f"{name} kernel: rows must be contiguous and of one dtype"
-        raise ValueError(msg)
-
-
 def silu_and_mul_launcher(x: torch.Tensor) -> torch.Tensor:
     """SwiGLU over a 2D (T, 2d) input; returns (T, d)."""
     if x.device.type == "cpu":
         return silu_and_mul_plain(x)
-    _check_rows("silu_and_mul", x)
+    check_rows("silu_and_mul", x)
     rows, two_d = x.shape
     if two_d % 2:
         msg = f"silu_and_mul kernel: the last axis ({two_d}) must be even"
@@ -70,7 +63,7 @@ def silu_and_mul_parts_launcher(gate: torch.Tensor, up: torch.Tensor) -> torch.T
         raise ValueError(msg)
     if gate.device.type == "cpu":
         return silu_and_mul_parts_plain(gate, up)
-    _check_rows("silu_and_mul_parts", gate, up)
+    check_rows("silu_and_mul_parts", gate, up)
     rows, d = gate.shape
     out = torch.empty((rows, d), dtype=gate.dtype, device=gate.device)
     fn = kernel_function("conch_silu_and_mul_parts", (

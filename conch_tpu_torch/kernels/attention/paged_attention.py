@@ -7,6 +7,8 @@ The kernel is ``csrc/paged_attention.cu``; it replaces
 ``conch_tpu/kernels/attention/paged_attention.py:_paged_allheads_kernel``
 (and the per-head ``_paged_attention_kernel``, same function). It reads
 one layer of the stacked (L, P, KH, ps, D) pool through a pointer offset.
+Softcap and a sliding window are run-time arguments (0 disables each), so
+one build serves Llama and Gemma-2's local and global layers.
 ``paged_attention_launcher`` takes the plain version for CPU tensors
 only; on CUDA it launches the kernel or raises.
 """
@@ -39,10 +41,14 @@ def paged_attention_plain(
     seq_lens: torch.Tensor,
     scale: float,
     layer_idx: int,
+    softcap: float = 0.0,
+    window_size: int = 0,
 ) -> torch.Tensor:
     """Plain PyTorch version of K3 on any device: gather each sequence's
     pages and take an f32 softmax. Output in the query's dtype."""
-    out = _paged_reference(query, key_caches[layer_idx], value_caches[layer_idx], block_table, seq_lens, scale)
+    out = _paged_reference(
+        query, key_caches[layer_idx], value_caches[layer_idx], block_table, seq_lens, scale, softcap, window_size
+    )
     return out.to(query.dtype)
 
 
@@ -75,7 +81,7 @@ def layer_pointers(key_caches: torch.Tensor, value_caches: torch.Tensor, layer_i
     return key_caches[layer_idx].data_ptr(), value_caches[layer_idx].data_ptr()
 
 
-def _paged_cuda(query, key_caches, value_caches, block_table, seq_lens, scale: float, layer_idx: int) -> torch.Tensor:
+def _paged_cuda(query, key_caches, value_caches, block_table, seq_lens, scale, layer_idx, softcap, window_size):
     require_cuda(query, key_caches, value_caches, block_table, seq_lens)
     check_kernel_shapes(query, key_caches, value_caches)
     if block_table.dtype != torch.int32 or seq_lens.dtype != torch.int32:
@@ -90,11 +96,11 @@ def _paged_cuda(query, key_caches, value_caches, block_table, seq_lens, scale: f
     fn = kernel_function("conch_paged_attention", (
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ))
     code = fn(
         query.data_ptr(), out.data_ptr(), k_layer, v_layer, block_table.data_ptr(), seq_lens.data_ptr(),
-        batch, block_table.shape[1], num_q_heads, num_kv_heads, page_size, head_size, scale,
+        batch, block_table.shape[1], num_q_heads, num_kv_heads, page_size, head_size, scale, softcap, window_size,
         dtype_code(query), stream_of(query),
     )
     check_launch("conch_paged_attention", code)
@@ -110,14 +116,18 @@ def paged_attention_launcher(
     seq_lens: torch.Tensor,  # (B,) int32; 0 = idle row, output zeros
     scale: float,
     layer_idx: int,
+    softcap: float = 0.0,  # > 0: logits capped at softcap * tanh(s / softcap)
+    window_size: int = 0,  # > 0: only the last window_size cached tokens are seen
 ) -> torch.Tensor:
     """Decode attention of one query token per sequence over layer
-    ``layer_idx``. Only the first ``seq_lens[b]`` cached tokens are read;
-    block-table entries past them are never touched. ``launches`` counts
-    kernel launches."""
+    ``layer_idx``. Only the first ``seq_lens[b]`` cached tokens are read
+    (with a window, only the last ``window_size`` of them); block-table
+    entries past them are never touched. ``launches`` counts kernel
+    launches."""
+    args = (query, key_caches, value_caches, block_table, seq_lens, scale, layer_idx, softcap, window_size)
     if query.device.type == "cpu":
-        return paged_attention_plain(query, key_caches, value_caches, block_table, seq_lens, scale, layer_idx)
-    return _paged_cuda(query, key_caches, value_caches, block_table, seq_lens, scale, layer_idx)
+        return paged_attention_plain(*args)
+    return _paged_cuda(*args)
 
 
 paged_attention_launcher.launches = 0

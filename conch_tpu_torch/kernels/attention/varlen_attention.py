@@ -37,15 +37,21 @@ def varlen_attention_plain(
     scale: float,
     causal: bool,
     layer_idx: int,
+    softcap: float = 0.0,
+    window_size: int = 0,
 ) -> torch.Tensor:
     """Plain PyTorch version of K7 on any device. Padding rows are zeros."""
     out = _varlen_reference(
-        query, key_caches[layer_idx], value_caches[layer_idx], cu_seqlens_q, seq_lens, block_table, scale, causal
+        query, key_caches[layer_idx], value_caches[layer_idx], cu_seqlens_q, seq_lens, block_table, scale, causal,
+        softcap, window_size,
     )
     return out.to(query.dtype)
 
 
-def _varlen_cuda(query, key_caches, value_caches, cu_seqlens_q, seq_lens, block_table, scale, causal, layer_idx):
+def _varlen_cuda(
+    query, key_caches, value_caches, cu_seqlens_q, seq_lens, block_table, scale, causal, layer_idx, softcap,
+    window_size,
+):
     require_cuda(query, key_caches, value_caches, cu_seqlens_q, seq_lens, block_table)
     check_kernel_shapes(query, key_caches, value_caches)
     if any(t.dtype != torch.int32 for t in (cu_seqlens_q, seq_lens, block_table)):
@@ -61,13 +67,13 @@ def _varlen_cuda(query, key_caches, value_caches, cu_seqlens_q, seq_lens, block_
     fn = kernel_function("conch_varlen_attention", (
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p,
     ))
     code = fn(
         query.data_ptr(), out.data_ptr(), k_layer, v_layer, cu_seqlens_q.data_ptr(), seq_lens.data_ptr(),
         block_table.data_ptr(), total_q, seq_lens.shape[0], block_table.shape[1], num_q_heads, num_kv_heads,
-        page_size, head_size, scale, int(causal), dtype_code(query), stream_of(query),
+        page_size, head_size, scale, softcap, window_size, int(causal), dtype_code(query), stream_of(query),
     )
     check_launch("conch_varlen_attention", code)
     varlen_attention_launcher.launches += 1
@@ -84,6 +90,8 @@ def varlen_attention_launcher(
     scale: float,
     causal: bool,
     layer_idx: int,
+    softcap: float = 0.0,  # > 0: logits capped at softcap * tanh(s / softcap)
+    window_size: int = 0,  # > 0: row at position p sees keys from p - window_size + 1
 ) -> torch.Tensor:
     """Attention of ragged queries over layer ``layer_idx`` of the pool.
 
@@ -92,11 +100,13 @@ def varlen_attention_launcher(
     ``seq_lens[b] - q_len[b] + j``. Rows past ``cu_seqlens_q[B]`` are
     padding and come out zero. ``launches`` counts kernel launches.
     """
+    args = (
+        query, key_caches, value_caches, cu_seqlens_q, seq_lens, block_table, scale, causal, layer_idx, softcap,
+        window_size,
+    )
     if query.device.type == "cpu":
-        return varlen_attention_plain(
-            query, key_caches, value_caches, cu_seqlens_q, seq_lens, block_table, scale, causal, layer_idx
-        )
-    return _varlen_cuda(query, key_caches, value_caches, cu_seqlens_q, seq_lens, block_table, scale, causal, layer_idx)
+        return varlen_attention_plain(*args)
+    return _varlen_cuda(*args)
 
 
 varlen_attention_launcher.launches = 0

@@ -148,3 +148,12 @@ def require_cuda(*tensors: torch.Tensor) -> None:
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
         msg = f"kernel inputs must share one CUDA device, got {sorted(map(str, devices))}"
         raise ValueError(msg)
+
+
+def check_rows(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless the 2-D tensors lie on one CUDA device, share a dtype,
+    and have contiguous rows (any row stride)."""
+    require_cuda(*tensors)
+    if any(t.stride(1) != 1 for t in tensors) or len({t.dtype for t in tensors}) != 1:
+        msg = f"{name} kernel: rows must be contiguous and of one dtype"
+        raise ValueError(msg)

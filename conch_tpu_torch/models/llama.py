@@ -20,6 +20,7 @@ a JAX param tree across unchanged.
 from __future__ import annotations
 
 import dataclasses
+from collections.abc import Callable
 from dataclasses import dataclass
 from typing import Any
 
@@ -134,19 +135,10 @@ def init_llama_params(
 
     quant_kwargs = {"group_size": group_size} if quant_mode == "int4" else {}
 
-    def projection(k_dim: int, n_dim: int) -> QuantizedLinear:
-        return quantize_linear(normal(k_dim, n_dim, dtype=torch.float32), quant_mode, **quant_kwargs)
-
     def stacked(k_dim: int, n_dim: int) -> QuantizedLinear:
-        first = projection(k_dim, n_dim)
-        arrays = {
-            name: torch.empty((n_layers, *a.shape), dtype=a.dtype, device=device) for name, a in first.arrays.items()
-        }
-        for layer in range(n_layers):
-            piece = first if layer == 0 else projection(k_dim, n_dim)
-            for name, a in piece.arrays.items():
-                arrays[name][layer] = a
-        return QuantizedLinear(first.kind, arrays, first.meta)
+        return stack_layers(
+            lambda: quantize_linear(normal(k_dim, n_dim, dtype=torch.float32), quant_mode, **quant_kwargs), n_layers
+        )
 
     layers = {
         "wq": stacked(h, q_dim),
@@ -168,6 +160,21 @@ def init_llama_params(
     }
 
 
+def stack_layers(make: Callable[[], QuantizedLinear], n_layers: int) -> QuantizedLinear:
+    """Stack ``n_layers`` projections drawn one at a time from ``make()`` on
+    a leading layer axis (so a full-width model holds one layer's draw at a
+    time beside the stack)."""
+    first = make()
+    arrays = {
+        name: torch.empty((n_layers, *a.shape), dtype=a.dtype, device=a.device) for name, a in first.arrays.items()
+    }
+    for layer in range(n_layers):
+        piece = first if layer == 0 else make()
+        for name, a in piece.arrays.items():
+            arrays[name][layer] = a
+    return QuantizedLinear(first.kind, arrays, first.meta)
+
+
 def _tensor_from_numpy(a: Any, device: torch.device) -> torch.Tensor:
     """numpy -> torch; bfloat16 (ml_dtypes) or uint16 arrays carry bf16 bits."""
     a = np.array(a)  # a writable copy
@@ -176,9 +183,9 @@ def _tensor_from_numpy(a: Any, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def params_from_jax(numpy_tree: dict, config: LlamaConfig, device: str | torch.device | None = None) -> dict:
-    """Carry a JAX param tree (``conch_tpu.models.llama.init_llama_params``
-    output, arrays turned into numpy) over to the port's params.
+def tree_from_jax(numpy_tree: dict, device: str | torch.device | None = None) -> dict:
+    """Carry a JAX param tree (arrays turned into numpy) over to tensors on
+    ``device``, any model family.
 
     The nesting is kept; a projection is any object with ``kind``,
     ``arrays`` and ``meta`` attributes (the JAX ``QuantizedLinear``).
@@ -186,7 +193,6 @@ def params_from_jax(numpy_tree: dict, config: LlamaConfig, device: str | torch.d
     (dtype ``bfloat16`` from ml_dtypes, or ``uint16``), because numpy has
     no bf16 of its own, and arrive bit for bit as ``torch.bfloat16``.
     """
-    _check_config(config)
     device = resolve_device(device)
 
     def convert(node: Any) -> Any:
@@ -197,7 +203,15 @@ def params_from_jax(numpy_tree: dict, config: LlamaConfig, device: str | torch.d
             return {k: convert(v) for k, v in node.items()}
         return _tensor_from_numpy(node, device)
 
-    params = convert(numpy_tree)
+    return convert(numpy_tree)
+
+
+def params_from_jax(numpy_tree: dict, config: LlamaConfig, device: str | torch.device | None = None) -> dict:
+    """Carry a JAX param tree (``conch_tpu.models.llama.init_llama_params``
+    output, arrays turned into numpy) over to the port's params, bit for
+    bit (``tree_from_jax``)."""
+    _check_config(config)
+    params = tree_from_jax(numpy_tree, device)
     if params["cos_sin_cache"].shape != (config.max_position, config.head_dim):
         msg = f"cos_sin_cache {tuple(params['cos_sin_cache'].shape)} does not match the config"
         raise ValueError(msg)
@@ -255,6 +269,56 @@ def _check_unported(config: LlamaConfig, k_caches: torch.Tensor, tp_axis, lora) 
         raise NotImplementedError(msg)
 
 
+def attention_block(
+    params: dict,
+    layer: int,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    slot_mapping: torch.Tensor,
+    k_caches: torch.Tensor,
+    v_caches: torch.Tensor,
+    attn_fn,
+    decode: bool,
+    num_heads: int,
+    head_dim: int,
+) -> torch.Tensor:
+    """One layer's attention on its normed input ``x`` (T, H), before the
+    residual add: q/k/v (fused ``wqkv`` or separate), NeoX RoPE (K5), the
+    layer's K/V written into the caches in place (decode: the K2 kernel;
+    prefill: an indexed write, as the JAX package's XLA scatter), then
+    ``attn_fn(q, k_caches, v_caches, layer)`` and ``wo``."""
+    layers = params["layers"]
+    t = x.shape[0]
+    num_kv_heads = k_caches.shape[2]
+    q_dim = num_heads * head_dim
+    kv_dim = num_kv_heads * head_dim
+    if "wqkv" in layers:
+        qkv = layers["wqkv"].apply_stacked(x, layer)
+        q, k, v = qkv[:, :q_dim], qkv[:, q_dim : q_dim + kv_dim], qkv[:, q_dim + kv_dim :]
+    else:
+        q, k, v = (layers[n].apply_stacked(x, layer) for n in ("wq", "wk", "wv"))
+    q, k = rotary_embedding(positions, q, k, head_dim, params["cos_sin_cache"])
+    k = k.view(t, num_kv_heads, head_dim)
+    v = v.view(t, num_kv_heads, head_dim)
+    if decode:
+        reshape_and_cache_stacked(k, v, k_caches, v_caches, slot_mapping, layer)
+    else:
+        reshape_and_cache(k, v, k_caches[layer], v_caches[layer], slot_mapping)
+    attn_out = attn_fn(q.view(t, num_heads, head_dim), k_caches, v_caches, layer)
+    return layers["wo"].apply_stacked(attn_out.reshape(t, q_dim), layer)
+
+
+def mlp_block(layers: dict, layer: int, x: torch.Tensor, act_fused, act_parts) -> torch.Tensor:
+    """One layer's gated MLP on ``x``: ``w_down(act(gate, up))``, gate|up
+    fused (``w_gateup``, the activation reads the halves in place) or
+    separate."""
+    if "w_gateup" in layers:
+        act = act_fused(layers["w_gateup"].apply_stacked(x, layer))
+    else:
+        act = act_parts(*(layers[n].apply_stacked(x, layer) for n in ("w_gate", "w_up")))
+    return layers["w_down"].apply_stacked(act, layer)
+
+
 def _forward_layers(
     params: dict,
     config: LlamaConfig,
@@ -266,39 +330,17 @@ def _forward_layers(
     attn_fn,
     decode: bool,
 ) -> torch.Tensor:
-    """Run every layer on ``hidden`` (T, H); writes each layer's K/V into the
-    caches in place (decode: the K2 kernel; prefill: an indexed write, as
-    the JAX package's XLA scatter) before ``attn_fn`` reads them."""
+    """Run every layer on ``hidden`` (T, H), the caches updated in place."""
     layers = params["layers"]
     eps = config.rms_norm_eps
-    t = hidden.shape[0]
-    head_dim = config.head_dim
-    num_kv_heads = k_caches.shape[2]
-    q_dim = config.num_heads * head_dim
-    kv_dim = num_kv_heads * head_dim
     for layer in range(k_caches.shape[0]):
         attn_in = rms_norm(hidden, layers["input_norm"][layer], eps)
-        if "wqkv" in layers:
-            qkv = layers["wqkv"].apply_stacked(attn_in, layer)
-            q, k, v = qkv[:, :q_dim], qkv[:, q_dim : q_dim + kv_dim], qkv[:, q_dim + kv_dim :]
-        else:
-            q, k, v = (layers[n].apply_stacked(attn_in, layer) for n in ("wq", "wk", "wv"))
-        q, k = rotary_embedding(positions, q, k, head_dim, params["cos_sin_cache"])
-        k = k.view(t, num_kv_heads, head_dim)
-        v = v.view(t, num_kv_heads, head_dim)
-        if decode:
-            reshape_and_cache_stacked(k, v, k_caches, v_caches, slot_mapping, layer)
-        else:
-            reshape_and_cache(k, v, k_caches[layer], v_caches[layer], slot_mapping)
-        attn_out = attn_fn(q.view(t, config.num_heads, head_dim), k_caches, v_caches, layer)
-        hidden = hidden + layers["wo"].apply_stacked(attn_out.reshape(t, q_dim), layer)
-
+        hidden = hidden + attention_block(
+            params, layer, attn_in, positions, slot_mapping, k_caches, v_caches, attn_fn, decode,
+            config.num_heads, config.head_dim,
+        )
         mlp_in = rms_norm(hidden, layers["post_attn_norm"][layer], eps)
-        if "w_gateup" in layers:
-            act = silu_and_mul(layers["w_gateup"].apply_stacked(mlp_in, layer))
-        else:
-            act = silu_and_mul_parts(*(layers[n].apply_stacked(mlp_in, layer) for n in ("w_gate", "w_up")))
-        hidden = hidden + layers["w_down"].apply_stacked(act, layer)
+        hidden = hidden + mlp_block(layers, layer, mlp_in, silu_and_mul, silu_and_mul_parts)
     return hidden
 
 

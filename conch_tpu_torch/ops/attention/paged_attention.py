@@ -12,13 +12,13 @@ import torch
 from conch_tpu_torch.kernels.attention.paged_attention import paged_attention_launcher
 
 
-def check_unported_options(kv_cache_dtype: str, softcap: float, window_size: int, ring_pages: int) -> None:
+def check_unported_options(kv_cache_dtype: str, ring_pages: int) -> None:
     """Raise for attention options that later slices port."""
     if kv_cache_dtype != "auto":
         msg = f"kv_cache_dtype {kv_cache_dtype!r}: int8/fp8 caches are not ported yet"
         raise NotImplementedError(msg)
-    if softcap != 0.0 or window_size != 0 or ring_pages != 0:
-        msg = "softcap, sliding windows and ring pages are not ported yet"
+    if ring_pages != 0:
+        msg = "ring pages (rolling KV) are not ported yet"
         raise NotImplementedError(msg)
 
 
@@ -59,11 +59,14 @@ def paged_attention(
         block_table: (batch, max_pages_per_seq) int32 physical page ids.
         seq_lens: (batch,) int32 lengths; 0 marks an idle row (zeros out).
         scale: softmax scale; defaults to 1/sqrt(head_size).
+        softcap: > 0 caps each scaled logit s at ``softcap * tanh(s / softcap)``.
+        window_size: > 0 limits each sequence to its last ``window_size``
+            cached tokens (Gemma-2's local layers).
 
     Returns:
         (batch, num_q_heads, head_size) in the query's dtype.
     """
-    check_unported_options(kv_cache_dtype, softcap, window_size, ring_pages)
+    check_unported_options(kv_cache_dtype, ring_pages)
     key_caches, value_caches, layer = stacked_view(key_cache, value_cache, layer_idx)
     if query.dim() != 3 or key_caches.shape != value_caches.shape:
         msg = f"query {tuple(query.shape)} must be (B, QH, D) and the caches equal"
@@ -76,4 +79,6 @@ def paged_attention(
         raise ValueError(msg)
     if scale is None:
         scale = 1.0 / math.sqrt(query.shape[-1])
-    return paged_attention_launcher(query, key_caches, value_caches, block_table, seq_lens, scale, layer)
+    return paged_attention_launcher(
+        query, key_caches, value_caches, block_table, seq_lens, scale, layer, float(softcap), int(window_size)
+    )

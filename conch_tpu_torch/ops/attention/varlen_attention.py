@@ -48,11 +48,14 @@ def varlen_attention(
         block_table: (batch, max_pages) int32.
         causal: apply causal masking.
         scale: softmax scale; defaults to 1/sqrt(head_size).
+        softcap: > 0 caps each scaled logit s at ``softcap * tanh(s / softcap)``.
+        window_size: > 0: the query at position p sees keys from
+            ``p - window_size + 1`` on (Gemma-2's local layers).
 
     Returns:
         (total_num_q, num_q_heads, head_size) in the query's dtype.
     """
-    check_unported_options(kv_cache_dtype, softcap, window_size, ring_pages)
+    check_unported_options(kv_cache_dtype, ring_pages)
     key_caches, value_caches, layer = stacked_view(key_cache, value_cache, layer_idx)
     batch = cu_seqlens_q.shape[0] - 1
     if block_table.shape[0] != batch or seq_lens.shape != (batch,):
@@ -64,5 +67,6 @@ def varlen_attention(
     if scale is None:
         scale = 1.0 / math.sqrt(query.shape[-1])
     return varlen_attention_launcher(
-        query, key_caches, value_caches, cu_seqlens_q, seq_lens, block_table, scale, causal, layer
+        query, key_caches, value_caches, cu_seqlens_q, seq_lens, block_table, scale, causal, layer, float(softcap),
+        int(window_size),
     )

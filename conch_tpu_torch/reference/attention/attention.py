@@ -8,6 +8,11 @@ sequence's pages back into contiguous K/V, then a plain masked softmax in
 f32 (no online softmax), one sequence at a time. Cache layout
 (num_pages, num_kv_heads, page_size, head_size). A sequence with no
 cached tokens, and a query row that belongs to no sequence, yield zeros.
+
+Options, as in the JAX reference: ``softcap > 0`` maps each scaled
+logit s to ``softcap * tanh(s / softcap)`` before the mask; a sliding
+``window_size > 0`` lets query position p see keys ``k > p - window_size``
+(decode: the last ``window_size`` cached tokens).
 """
 
 from __future__ import annotations
@@ -30,8 +35,11 @@ def masked_attention(
     v: torch.Tensor,
     scale: float,
     causal: bool,
+    softcap: float = 0.0,
+    window_size: int = 0,
 ) -> torch.Tensor:
-    """Plain f32 softmax attention for one sequence (GQA-aware)."""
+    """Plain f32 softmax attention for one sequence (GQA-aware). Query row
+    j sits at position ``k_len - q_len + j``."""
     q_len, num_q_heads, head_size = q.shape
     k_len, num_kv_heads, _ = k.shape
     if k_len == 0:
@@ -41,9 +49,16 @@ def masked_attention(
     kf = k.float().repeat_interleave(group, dim=1)
     vf = v.float().repeat_interleave(group, dim=1)
     s = torch.einsum("qhd,khd->hqk", qf, kf) * scale
+    if softcap > 0.0:
+        s = softcap * torch.tanh(s / softcap)
+    q_pos = k_len - q_len + torch.arange(q_len, device=q.device)
+    k_pos = torch.arange(k_len, device=q.device)
+    mask = torch.ones((q_len, k_len), dtype=torch.bool, device=q.device)
     if causal:
-        q_pos = k_len - q_len + torch.arange(q_len, device=q.device)
-        mask = torch.arange(k_len, device=q.device)[None, :] <= q_pos[:, None]
+        mask &= k_pos[None, :] <= q_pos[:, None]
+    if window_size > 0:
+        mask &= k_pos[None, :] > q_pos[:, None] - window_size
+    if causal or window_size > 0:
         s = s.masked_fill(~mask[None], float("-inf"))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("hqk,khd->qhd", p, vf)
@@ -56,13 +71,15 @@ def paged_attention(
     block_table: torch.Tensor,
     seq_lens: torch.Tensor,
     scale: float,
+    softcap: float = 0.0,
+    window_size: int = 0,
 ) -> torch.Tensor:
     """Golden decode attention: one query token per sequence. f32 output."""
     outs = []
     for b, seq_len in enumerate(seq_lens.tolist()):
         k = gather_cache_for_sequence(key_cache, block_table[b], seq_len)
         v = gather_cache_for_sequence(value_cache, block_table[b], seq_len)
-        outs.append(masked_attention(query[b : b + 1], k, v, scale, causal=False)[0])
+        outs.append(masked_attention(query[b : b + 1], k, v, scale, False, softcap, window_size)[0])
     return torch.stack(outs)
 
 
@@ -75,6 +92,8 @@ def varlen_attention(
     block_table: torch.Tensor,
     scale: float,
     causal: bool,
+    softcap: float = 0.0,
+    window_size: int = 0,
 ) -> torch.Tensor:
     """Golden varlen attention over ragged queries. f32 output."""
     out = torch.zeros(query.shape, dtype=torch.float32, device=query.device)
@@ -84,5 +103,7 @@ def varlen_attention(
             continue
         k = gather_cache_for_sequence(key_cache, block_table[b], seq_len)
         v = gather_cache_for_sequence(value_cache, block_table[b], seq_len)
-        out[cu[b] : cu[b + 1]] = masked_attention(query[cu[b] : cu[b + 1]], k, v, scale, causal)
+        out[cu[b] : cu[b + 1]] = masked_attention(
+            query[cu[b] : cu[b + 1]], k, v, scale, causal, softcap, window_size
+        )
     return out

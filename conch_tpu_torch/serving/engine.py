@@ -20,7 +20,10 @@ counts, as in the JAX package:
   discarding overshoot.
 
 The KV pool is one stacked (L, P, KH, ps, D) tensor pair updated in place
-by the model (the JAX engine donates it through its jitted steps).
+by the model (the JAX engine donates it through its jitted steps). The
+model is Llama by default; ``prefill_fn``/``decode_fn`` swap the family
+(``models.gemma.gemma_prefill``/``gemma_decode_step``), as in the JAX
+engine.
 
 Later slices port LoRA, tensor parallelism, speculative decoding, rolling
 KV, parallel sampling (n > 1), guided decoding, logprobs, repetition
@@ -110,11 +113,16 @@ def _bucket(n: int, floor: int = 16) -> int:
 
 
 class LLMEngine:
-    """Continuous-batching engine serving Llama on one device.
+    """Continuous-batching engine serving one model on one device.
 
-    ``params`` come from ``init_llama_params`` or ``params_from_jax`` and
-    must lie on ``device`` (None: CUDA; without a CUDA device the engine
-    raises unless ``device="cpu"``). QKV and gate|up are fused once here.
+    ``params`` come from ``init_llama_params``/``params_from_jax`` (or the
+    Gemma counterparts, with ``prefill_fn=gemma_prefill`` and
+    ``decode_fn=gemma_decode_step``) and must lie on ``device`` (None: CUDA;
+    without a CUDA device the engine raises unless ``device="cpu"``). The
+    model functions take ``(params, config, ...)`` with the Llama steps'
+    arguments. QKV and gate|up are fused once here (``fuse_llama_params``:
+    both families share the layer schema, and pieces that cannot fuse stay
+    as they are).
     """
 
     def __init__(
@@ -130,8 +138,8 @@ class LLMEngine:
         lora=None,
         device: str | torch.device | None = None,
     ):
-        if any(x is not None for x in (prefill_fn, decode_fn, verify_fn, mesh, lora)):
-            msg = "custom model functions, tensor-parallel meshes and LoRA are not ported yet"
+        if any(x is not None for x in (verify_fn, mesh, lora)):
+            msg = "speculative decoding (verify_fn), tensor-parallel meshes and LoRA are not ported yet"
             raise NotImplementedError(msg)
         self.device = resolve_device(device)
         if params["embedding"].device.type != self.device.type:
@@ -140,6 +148,8 @@ class LLMEngine:
         self.config = model_config
         self.ecfg = engine_config
         self.params = fuse_llama_params(params)
+        self._prefill_fn = prefill_fn or llama_prefill
+        self._decode_fn = decode_fn or llama_decode_step
         self.allocator = BlockAllocator(engine_config.num_pages)
         self._page_cap = engine_config.max_pages_per_seq
         cache_shape = (
@@ -402,7 +412,7 @@ class LLMEngine:
         sl = np.zeros(bpad, dtype=np.int32)
         sl[: len(batch)] = seq_lens
 
-        logits, _, _ = llama_prefill(
+        logits, _, _ = self._prefill_fn(
             self.params, self.config,
             token_ids=self._tensor(tokens_arr),
             positions=self._tensor(positions_arr),
@@ -449,7 +459,7 @@ class LLMEngine:
             positions[i] = pos
             seq_lens[i] = r.total_len
             slots[i] = self._slot(r, pos)
-        logits, _, _ = llama_decode_step(
+        logits, _, _ = self._decode_fn(
             self.params, self.config,
             token_ids=self._tensor(tokens),
             positions=self._tensor(positions),
@@ -481,7 +491,7 @@ class LLMEngine:
             page_idx = (positions // ps).clamp(max=bt.shape[1] - 1).long()
             slots = bt[rows, page_idx] * ps + positions % ps
             slots = torch.where(active & (positions < limit), slots, -1).to(torch.int32)
-            logits, _, _ = llama_decode_step(
+            logits, _, _ = self._decode_fn(
                 self.params, self.config, tokens, positions, seq_lens, bt, slots, self.k_caches, self.v_caches
             )
             tokens = logits.argmax(dim=-1).to(torch.int32)

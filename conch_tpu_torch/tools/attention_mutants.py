@@ -1,0 +1,101 @@
+# Copyright 2026 Conch-TPU authors.
+# SPDX-License-Identifier: Apache-2.0
+
+"""Show that the card checks of K3/K7's softcap and window can fail.
+
+    python3 -m conch_tpu_torch.tools.attention_mutants
+
+Run from the checkout's root on one Hopper card. For each fault below, the
+tool copies the package to ``conch_tpu_torch/_build/mutants/<name>/``,
+puts the fault into the copy's CUDA source, and runs
+``chip_smoke.gemma_attention_phases`` (K3 and K7 at Gemma-2-2B's shapes,
+held against the plain versions) on the copy in a subprocess, which builds
+the copy's kernels. The unchanged package must pass and every faulty copy
+must fail a check; the tool prints each run's check lines and exits
+non-zero otherwise.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+from conch_tpu_torch.kernels.common import BUILD_DIR
+
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+REPO_ROOT = PACKAGE_DIR.parent
+SCALE_THEN_CAP = (
+    "float s = warp_sum(part[g]) * scale;\n"
+    "          if constexpr (SOFTCAP) s = softcap * tanhf(s / softcap);"
+)
+# name -> (source file under csrc/, text, faulty text)
+MUTANTS = {
+    "softcap_dropped": ("attention_common.cuh", SCALE_THEN_CAP, "float s = warp_sum(part[g]) * scale;"),
+    "cap_before_scale": (
+        "attention_common.cuh", SCALE_THEN_CAP,
+        "float s = warp_sum(part[g]);\n"
+        "          if constexpr (SOFTCAP) s = softcap * tanhf(s / softcap);\n"
+        "          s *= scale;",
+    ),
+    "k3_window_ignored": (
+        "paged_attention.cu", "const int kv_start = window > 0 ? max(seq_len - window, 0) : 0;",
+        "const int kv_start = 0;",
+    ),
+    "k7_window_ignored": ("varlen_attention.cu", "if (window > 0) kv_start = max(q_pos - window + 1, 0);", ""),
+}
+PHASES = (
+    "import numpy as np, torch, chip_smoke, conch_tpu_torch\n"
+    "print('package:', conch_tpu_torch.__file__, flush=True)\n"
+    "gen = torch.Generator(device='cuda').manual_seed(chip_smoke.SEED)\n"
+    "chip_smoke.build()\n"
+    "chip_smoke.gemma_attention_phases(gen, np.random.default_rng(chip_smoke.SEED))\n"
+)
+
+
+def copy_package(name: str, mutant: tuple[str, str, str] | None) -> Path:
+    """The package copied to ``_build/mutants/<name>``, with the fault put in."""
+    root = BUILD_DIR / "mutants" / name
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(PACKAGE_DIR, root / PACKAGE_DIR.name, ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    if mutant is not None:
+        source, text, faulty = mutant
+        path = root / PACKAGE_DIR.name / "csrc" / source
+        code = path.read_text()
+        if code.count(text) != 1:
+            msg = f"{name}: the text to change is not in {source} exactly once"
+            raise RuntimeError(msg)
+        path.write_text(code.replace(text, faulty))
+    return root
+
+
+def run_phases(root: Path) -> tuple[int, str]:
+    """Run the Gemma attention checks with ``root``'s package first on the path."""
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(root), str(REPO_ROOT)])}
+    proc = subprocess.run(
+        [sys.executable, "-c", PHASES], cwd=root, env=env, capture_output=True, text=True, check=False
+    )
+    return proc.returncode, proc.stdout + proc.stderr
+
+
+def main() -> int:
+    ok = True
+    for name, mutant in {"unchanged": None, **MUTANTS}.items():
+        code, out = run_phases(copy_package(name, mutant))
+        lines = [ln for ln in out.splitlines() if "package:" in ln or "max_abs_err" in ln or "Error" in ln]
+        # A faulty copy must fail a check, not its build or launch.
+        failed_check = code != 0 and "AssertionError" in out and "nvcc failed" not in out
+        expected = code == 0 if mutant is None else failed_check
+        ok &= expected
+        print(f"{name}: exit code {code}, {'as expected' if expected else 'NOT as expected'}", flush=True)
+        for line in lines if expected else out.splitlines()[-40:]:
+            print("   ", line, flush=True)
+    shutil.rmtree(BUILD_DIR / "mutants", ignore_errors=True)
+    print("every fault was caught" if ok else "a fault was not caught, or the unchanged package failed", flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

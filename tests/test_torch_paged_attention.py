@@ -100,6 +100,6 @@ def test_paged_attention_reads_the_named_layer_only():
 def test_paged_attention_unported_options_raise():
     rng = np.random.default_rng(23)
     q, kc, vc, bt, sl = map(torch.from_numpy, make_inputs(rng, [5, 20, 33], 4, 1, 128))
-    for kwargs in ({"softcap": 30.0}, {"window_size": 8}, {"kv_cache_dtype": "fp8"}):
+    for kwargs in ({"ring_pages": 4}, {"kv_cache_dtype": "fp8"}):
         with pytest.raises(NotImplementedError):
             paged_attention(q, kc, vc, bt, sl, layer_idx=1, **kwargs)
