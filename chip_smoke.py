@@ -15,6 +15,16 @@
    computing the same function:
    - K1 int4 magic GEMM at the engine's four (K, N) at M 8 and 512, read
      from layer 17 of a 32-layer stack (tolerance 1e-2 x max |ref|);
+   - K1b int8 planar GEMM and K8 int8 scaled GEMM at the int8 / w8a8
+     engine's four fused (K, N) and lm_head (4096 x 128256), K1c NF4
+     codebook GEMM at the nf4 engine's unfused shapes and lm_head, each at
+     M 8 and 512 from layer 17 of a 32-layer stack, with random codes over
+     the full range (K8: row scales 10x apart end to end), tolerance
+     1e-2 x max |ref|; plus small cases of the options the served path
+     does not use (K1b 4-bit with per-group and scalar zero-points, K1c
+     8-bit rows with zero-points and the FP4 codebook, K8 float8_e4m3fn);
+   - K12q NF4/FP4 encode on every weight the nf4 init quantizes (with an
+     all-zero block), byte for byte;
    - K2 cache write, K3 paged decode attention, K5 RoPE, K7 varlen prefill
      attention at Llama-3-8B's shapes (QH 32 / KH 8 / D 128, page 16, a
      32-layer pool read at a non-zero layer, decode batch 8 with an idle
@@ -29,24 +39,29 @@
      at 8 and 512 rows x 2 * 9216 (halves and parts), f32 and bf16;
 4. slice phases: the first-token logits of 2-layer full-width prefills on
    the card against the plain path on the CPU (Llama-3-8B: bf16 weights in
-   f32 and bf16, int4 weights in bf16; Gemma-2-2B: f32 and bf16, random
-   norm weights); then ``LLMEngine`` at full width (random weights from a
-   seed) serving greedy requests of 32 tokens, with every kernel's launch
-   count and the model steps read around the run, and the same requests
-   repeated under torch.profiler (device time by kernel group, idle
-   share):
+   f32 and bf16, int4, int8, nf4 and w8a8 weights in bf16; Gemma-2-2B: f32
+   and bf16, random norm weights); then ``LLMEngine`` at full width (random
+   weights from a seed) serving greedy requests of 32 tokens, with every
+   kernel's launch count and the model steps read around the run, and the
+   same requests repeated under torch.profiler (device time by kernel
+   group, idle share):
    - Llama-3-8B bf16: 4 requests, ``EngineConfig(num_pages=2048,
      max_batch_size=8, max_prefill_tokens=128)``;
    - Llama-3-8B int4, the README's example: 16 requests of 40 to 900
      tokens, ``EngineConfig(num_pages=4096, max_batch_size=32)`` (512-row
      prefill steps);
+   - Llama-3-8B int8 (K1b), nf4 (K1c; K12q during the init) and w8a8 (K8),
+     32 layers, every projection and lm_head in the mode: 8 requests of 40
+     to 900 tokens each, ``EngineConfig(num_pages=4096, max_batch_size=32)``;
    - Gemma-2-2B bf16 (26 layers): 8 requests of 40
      to 4600 tokens, ``EngineConfig(num_pages=4096, max_batch_size=16,
      max_pages_per_seq=320)``, through ``gemma_prefill`` and
      ``gemma_decode_step``;
-5. prints the ``kernels`` JSON line (launches from the Gemma run, or from
-   the int4 run for K1, K4 and K6; every path's counts beside them), the
-   card line, then ``{"ok": true, "device": ...}`` as the last line.
+5. prints the ``kernels`` JSON line (each row's launches from its main
+   run: Gemma for the kernels it runs, int4 for K1, K4 and K6, int8, nf4
+   and w8a8 for K1b, K1c and K8, the nf4 init for K12q; every path's counts
+   beside them), the card line, then ``{"ok": true, "device": ...}`` as the
+   last line.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. Without a CUDA device it exits non-zero at once.
@@ -66,6 +81,8 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core peak
+INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core peak
+F32_OPS_PER_S = 67e12  # f32 outside the tensor cores
 SEED = 0
 NUM_LAYERS_POOL = 32
 LAYER = 17  # a non-zero layer inside the 32-layer pool
@@ -123,10 +140,11 @@ def paced_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
-    """Least time on the card: the larger of bytes / HBM rate and ops / bf16 peak."""
+def bound(bytes_moved: float, ops: float, ops_per_s: float = BF16_OPS_PER_S) -> tuple[float, str]:
+    """Least time on the card: the larger of bytes / HBM rate and ops / the
+    peak rate of their type (bf16 tensor cores unless given)."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / BF16_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -416,6 +434,301 @@ def kernel_phase_k1(gen) -> dict:
     return row
 
 
+# Engine shapes (K, N) of the quantized modes at Llama-3-8B, with the
+# count of each in one layer: int8 (K1b) and w8a8 (K8) fuse wqkv and
+# gate|up; nf4 (K1c) stays unfused (its ``shape`` meta refuses concat_n,
+# as in the JAX package). lm_head (4096 x 128256) is timed apart.
+FUSED_LAYER_SHAPES = {(4096, 6144): 1, (4096, 4096): 1, (4096, 28672): 1, (14336, 4096): 1}
+NF4_LAYER_SHAPES = {(4096, 4096): 2, (4096, 1024): 2, (4096, 14336): 2, (14336, 4096): 1}
+LM_HEAD = (4096, 128256)
+NF4_BLOCK = 64
+
+
+def _time_case(launch, plain, library, m: int, k: int, n: int, err: float, bytes_moved: float, ops: float,
+               ops_per_s: float = BF16_OPS_PER_S, **extra) -> dict:
+    b_ms, b_by = bound(bytes_moved, ops, ops_per_s)
+    return {
+        "m": m, "k": k, "n": n, "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+        "ms": time_ms(launch), "paced_ms": paced_ms(launch), "plain_ms": time_ms(plain, iters=3, warmup=1),
+        "library_ms": None if library is None else time_ms(library), **extra,
+    }
+
+
+def _layer_row(name: str, source: str, replaces: str, err: float, detail: list, counts: dict) -> dict:
+    """A kernel row whose numbers are one layer's GEMMs at M = 8 (each shape
+    times its count in a layer); ``detail`` keeps every case."""
+    decode = [d for d in detail if d["m"] == 8 and (d["k"], d["n"]) in counts]
+    timed = {
+        key: sum(d[key] * counts[(d["k"], d["n"])] for d in decode)
+        for key in ("ms", "paced_ms", "plain_ms", "library_ms") if all(d[key] is not None for d in decode)
+    }
+    timed.setdefault("library_ms", None)
+    bound_ms = sum(d["bound_ms"] * counts[(d["k"], d["n"])] for d in decode)
+    row = _kernel_row(name, source, replaces, err, timed, bound_ms, "bytes")
+    row["detail"] = detail
+    for d in detail:
+        print(f"{name} M={d['m']} K={d['k']} N={d['n']}: {d['ms']:.4f} ms (paced {d['paced_ms']:.4f}, plain "
+              f"{d['plain_ms']:.4f}, library {d['library_ms']}, bound {d['bound_ms']:.5f} by {d['bound_by']})",
+              flush=True)
+    return row
+
+
+def _stack_cycle(n_layers: int = NUM_LAYERS_POOL):
+    """Timed calls walk the layers of a stack, so its weights come from HBM
+    as in a model step, not from the 50 MB L2."""
+    return itertools.cycle(range(n_layers))
+
+
+def kernel_phase_k1b(gen) -> dict:
+    """K1b (int8 planar, uint8b128, group 128, bf16 scales) at the int8
+    engine's shapes, M = 8 and 512, layer 17 of a 32-layer stack (lm_head
+    unstacked), random codes over the full range; plus 4-bit with per-group
+    and with scalar zero-points. Tolerance 1e-2 x max |ref|. Library: a bf16
+    matmul on the dequantized weight."""
+    from conch_tpu_torch.kernels.quantization.gemm import (
+        mixed_gemm_planar_launcher as launch,
+        mixed_gemm_planar_plain as plain,
+    )
+    from conch_tpu_torch.utils.quant_utils import unpack_rows_planar
+
+    def dequant(packed, scales, k, bits, bias, zp=None):
+        codes = unpack_rows_planar(packed, bits, k, GROUP).float()
+        z = float(bias) if zp is None else (zp.reshape(()) if zp.numel() == 1 else zp.repeat_interleave(GROUP, 0))
+        return ((codes - z) * scales.float().repeat_interleave(GROUP, 0)).to(torch.bfloat16)
+
+    err, detail = 0.0, []
+    for (k, n) in (*FUSED_LAYER_SHAPES, LM_HEAD):
+        layers = NUM_LAYERS_POOL if (k, n) != LM_HEAD else None
+        lead = () if layers is None else (layers,)
+        packed = torch.randint(-(2**31), 2**31 - 1, (*lead, k // 4, n), generator=gen, device="cuda", dtype=torch.int32)
+        scales = (torch.rand((*lead, k // GROUP, n), generator=gen, device="cuda") * 4e-3 + 1e-4).to(torch.bfloat16)
+        li = None if layers is None else LAYER
+        cyc = _stack_cycle() if layers else itertools.repeat(None)
+        one = packed if layers is None else packed[LAYER]
+        dense = dequant(one, scales if layers is None else scales[LAYER], k, 8, 128)
+        for m in (8, 512):
+            x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+            out_k = launch(x, packed, scales, None, 8, 128, GROUP, li)
+            out_p = plain(x, packed, scales, None, 8, 128, GROUP, li)
+            torch.cuda.synchronize()
+            scale = out_p.float().abs().max().item()
+            e = (out_k.float() - out_p.float()).abs().max().item()
+            check(f"K1b mixed_gemm_planar int8 M={m} K={k} N={n} (max|ref| {scale:.3f})", e, 1e-2 * scale)
+            err = max(err, e)
+            bytes_moved = m * k * 2 + k * n + (k // GROUP) * n * 2 + m * n * 2
+            detail.append(_time_case(
+                lambda: launch(x, packed, scales, None, 8, 128, GROUP, next(cyc)),
+                lambda: plain(x, packed, scales, None, 8, 128, GROUP, li),
+                lambda: torch.matmul(x, dense), m, k, n, e, bytes_moved, 2 * m * n * k,
+            ))
+        del packed, scales, dense
+        torch.cuda.empty_cache()
+    # Options the served path does not use: 4-bit planar with per-group and
+    # with scalar zero-points (which replace the bias, as in the TPU kernel).
+    k, n = 1024, 512
+    packed = torch.randint(-(2**31), 2**31 - 1, (3, k // 8, n), generator=gen, device="cuda", dtype=torch.int32)
+    scales = (torch.rand((3, k // GROUP, n), generator=gen, device="cuda") * 4e-3 + 1e-4).to(torch.bfloat16)
+    zps = {
+        "per-group": torch.randint(0, 16, (3, k // GROUP, n), generator=gen, device="cuda").float(),
+        "scalar": torch.tensor([7.0], device="cuda"),
+    }
+    for label, zp in zps.items():
+        for m in (8, 40):
+            x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+            out_k, out_p = launch(x, packed, scales, zp, 4, 8, GROUP, 1), plain(x, packed, scales, zp, 4, 8, GROUP, 1)
+            scale = out_p.float().abs().max().item()
+            e = (out_k.float() - out_p.float()).abs().max().item()
+            check(f"K1b mixed_gemm_planar 4-bit {label} zero-points M={m} (max|ref| {scale:.3f})", e, 1e-2 * scale)
+            err = max(err, e)
+    return _layer_row(
+        "mixed_gemm_planar", "conch_tpu_torch/csrc/mixed_gemm_planar.cu", "conch_tpu/kernels/quantization/gemm.py:582",
+        err, detail, FUSED_LAYER_SHAPES,
+    )
+
+
+def kernel_phase_k1c(gen) -> dict:
+    """K1c (NF4 codebook over GPTQ rows, f32 absmax per 64 rows) at the nf4
+    engine's unfused shapes, M = 8 and 512, layer 17 of a 32-layer stack
+    (lm_head unstacked), random codes; plus 8-bit GPTQ rows with per-group
+    zero-points and the FP4 codebook. Tolerance 1e-2 x max |ref|. Library:
+    a bf16 matmul on the dequantized weight."""
+    from conch_tpu_torch.kernels.quantization.bitsandbytes.blockwise import FP4_MAGNITUDE_CODE, NF4_CODE
+    from conch_tpu_torch.kernels.quantization.gemm import (
+        dequantize_rows,
+        mixed_gemm_rows_launcher as launch,
+        mixed_gemm_rows_plain as plain,
+    )
+
+    err, detail = 0.0, []
+    for (k, n) in (*NF4_LAYER_SHAPES, LM_HEAD):
+        layers = NUM_LAYERS_POOL if (k, n) != LM_HEAD else None
+        lead = () if layers is None else (layers,)
+        packed = torch.randint(-(2**31), 2**31 - 1, (*lead, k // 8, n), generator=gen, device="cuda", dtype=torch.int32)
+        absmax = torch.rand((*lead, k // NF4_BLOCK, n), generator=gen, device="cuda") * 0.09 + 0.01
+        li = None if layers is None else LAYER
+        cyc = _stack_cycle() if layers else itertools.repeat(None)
+        one = (packed, absmax) if layers is None else (packed[LAYER], absmax[LAYER])
+        dense = dequantize_rows(*one, None, k, 4, 0, NF4_BLOCK, NF4_CODE).to(torch.bfloat16)
+        for m in (8, 512):
+            x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+            out_k = launch(x, packed, absmax, None, 4, 0, NF4_BLOCK, NF4_CODE, li)
+            out_p = plain(x, packed, absmax, None, 4, 0, NF4_BLOCK, NF4_CODE, li)
+            torch.cuda.synchronize()
+            scale = out_p.float().abs().max().item()
+            e = (out_k.float() - out_p.float()).abs().max().item()
+            check(f"K1c mixed_gemm_rows nf4 M={m} K={k} N={n} (max|ref| {scale:.3f})", e, 1e-2 * scale)
+            err = max(err, e)
+            bytes_moved = m * k * 2 + k * n // 2 + (k // NF4_BLOCK) * n * 4 + m * n * 2
+            detail.append(_time_case(
+                lambda: launch(x, packed, absmax, None, 4, 0, NF4_BLOCK, NF4_CODE, next(cyc)),
+                lambda: plain(x, packed, absmax, None, 4, 0, NF4_BLOCK, NF4_CODE, li),
+                lambda: torch.matmul(x, dense), m, k, n, e, bytes_moved, 2 * m * n * k,
+            ))
+        del packed, absmax, dense
+        torch.cuda.empty_cache()
+    # Options the served path does not use: 8-bit GPTQ rows (uint8b128) with
+    # per-group zero-points, and the FP4 codebook (sign bit 3).
+    fp4 = tuple(FP4_MAGNITUDE_CODE) + tuple(-v for v in FP4_MAGNITUDE_CODE)
+    k, n = 1024, 512
+    cases = {
+        "8-bit per-group zero-points": (8, 128, None, torch.randint(-8, 8, (3, k // 64, n), generator=gen,
+                                                                    device="cuda").float()),
+        "fp4 codebook": (4, 0, fp4, None),
+    }
+    for label, (bits, bias, book, zp) in cases.items():
+        packed = torch.randint(-(2**31), 2**31 - 1, (3, k * bits // 32, n), generator=gen, device="cuda",
+                               dtype=torch.int32)
+        scales = (torch.rand((3, k // 64, n), generator=gen, device="cuda") * 4e-3 + 1e-4).to(torch.bfloat16)
+        for m in (8, 40):
+            x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+            out_k = launch(x, packed, scales, zp, bits, bias, 64, book, 2)
+            out_p = plain(x, packed, scales, zp, bits, bias, 64, book, 2)
+            scale = out_p.float().abs().max().item()
+            e = (out_k.float() - out_p.float()).abs().max().item()
+            check(f"K1c mixed_gemm_rows {label} M={m} (max|ref| {scale:.3f})", e, 1e-2 * scale)
+            err = max(err, e)
+    return _layer_row(
+        "mixed_gemm_rows", "conch_tpu_torch/csrc/mixed_gemm_rows.cu", "conch_tpu/kernels/quantization/gemm.py:129",
+        err, detail, NF4_LAYER_SHAPES,
+    )
+
+
+def _int_mm_library(m: int, k: int, n: int, gen) -> tuple:
+    """``torch._int_mm`` (int8 x int8 -> int32, no epilogue) at the smallest
+    M from ``m`` up that it takes: (M timed at, callable)."""
+    b = torch.randint(-127, 128, (k, n), generator=gen, device="cuda", dtype=torch.int8)
+    for mm in (m, 17, 24, 32):
+        a = torch.randint(-127, 128, (mm, k), generator=gen, device="cuda", dtype=torch.int8)
+        try:
+            torch._int_mm(a, b)
+        except RuntimeError:
+            continue
+        return mm, (lambda a=a: torch._int_mm(a, b))
+    return None, None
+
+
+def kernel_phase_k8(gen) -> dict:
+    """K8 (int8 x int8 -> int32, then * sa[m] * sb[n]) at the w8a8 engine's
+    shapes, M = 8 and 512, layer 17 of a 32-layer stack (lm_head unstacked);
+    per-row scales spanning 10x, so that a kernel that swapped sa and sb
+    would fail; plus float8_e4m3fn inputs with f32 and bf16 outputs and a
+    scalar sa. Tolerance 1e-2 x max |ref| (the int path is exact up to its
+    epilogue). Library: ``torch._int_mm`` without the epilogue, at the
+    smallest M it takes (recorded as ``library_m``)."""
+    from conch_tpu_torch.kernels.quantization.gemm import scaled_gemm_launcher as launch, scaled_gemm_plain as plain
+
+    err, detail = 0.0, []
+    for (k, n) in (*FUSED_LAYER_SHAPES, LM_HEAD):
+        layers = NUM_LAYERS_POOL if (k, n) != LM_HEAD else None
+        lead = () if layers is None else (layers,)
+        w8 = torch.randint(-127, 128, (*lead, k, n), generator=gen, device="cuda", dtype=torch.int8)
+        sb = torch.rand((*lead, n), generator=gen, device="cuda") * 1e-3 + 1e-4
+        li = None if layers is None else LAYER
+        cyc = _stack_cycle() if layers else itertools.repeat(None)
+        for m in (8, 512):
+            a = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+            sa = 1e-3 * torch.logspace(0, 1, m, device="cuda")  # rows 10x apart, end to end
+            out_k = launch(a, w8, sa, sb, torch.bfloat16, li)
+            out_p = plain(a, w8, sa, sb, torch.bfloat16, li)
+            torch.cuda.synchronize()
+            scale = out_p.float().abs().max().item()
+            e = (out_k.float() - out_p.float()).abs().max().item()
+            same = (out_k == out_p).float().mean().item()
+            check(f"K8 scaled_gemm int8 M={m} K={k} N={n} (max|ref| {scale:.3f}, {same:.4f} of outputs equal)",
+                  e, 1e-2 * scale)
+            err = max(err, e)
+            lib_m, lib = _int_mm_library(m, k, n, gen)
+            bytes_moved = m * k + k * n + m * 4 + n * 4 + m * n * 2
+            detail.append(_time_case(
+                lambda: launch(a, w8, sa, sb, torch.bfloat16, next(cyc)),
+                lambda: plain(a, w8, sa, sb, torch.bfloat16, li), lib, m, k, n, e, bytes_moved, 2 * m * n * k,
+                INT8_OPS_PER_S, library_m=lib_m,
+            ))
+        del w8, sb
+        torch.cuda.empty_cache()
+    # float8_e4m3fn inputs (converted exactly, summed in f32), scalar sa.
+    m, k, n = 16, 512, 256
+    a8 = torch.randn((m, k), generator=gen, device="cuda").to(torch.float8_e4m3fn)
+    b8 = torch.randn((k, n), generator=gen, device="cuda").to(torch.float8_e4m3fn)
+    sa, sb = torch.tensor([0.5], device="cuda"), torch.rand((n,), generator=gen, device="cuda") + 0.5
+    for dtype in (torch.float32, torch.bfloat16):
+        out_k, out_p = launch(a8, b8, sa, sb, dtype), plain(a8, b8, sa, sb, dtype)
+        scale = out_p.float().abs().max().item()
+        e = (out_k.float() - out_p.float()).abs().max().item()
+        check(f"K8 scaled_gemm float8_e4m3fn -> {dtype} (max|ref| {scale:.3f})", e, 1e-2 * scale)
+        err = max(err, e)
+    row = _layer_row(
+        "scaled_gemm", "conch_tpu_torch/csrc/scaled_gemm.cu", "conch_tpu/kernels/quantization/gemm.py:739", err,
+        detail, FUSED_LAYER_SHAPES,
+    )
+    row["library_note"] = "torch._int_mm without the epilogue, at the M in each detail entry's library_m"
+    return row
+
+
+def kernel_phase_k12q(gen) -> dict:
+    """K12q (NF4 and FP4 encode, blocksize 64) on every (N, K) weight the
+    nf4 init quantizes, transposed and rounded to bf16 as ``nf4_from_dense``
+    hands it over, with an all-zero block; packed bytes and absmax held
+    byte for byte against the plain version. The row times the gate
+    projection (4096 x 14336)."""
+    from conch_tpu_torch.kernels.quantization.bitsandbytes.blockwise import (
+        quantize4_launcher as launch,
+        quantize4_plain as plain,
+    )
+
+    detail = []
+    for (k, n) in (*NF4_LAYER_SHAPES, LM_HEAD):
+        wt = (0.02 * torch.randn((n, k), generator=gen, device="cuda")).to(torch.bfloat16)
+        wt[3, :NF4_BLOCK] = 0.0  # an all-zero block: absmax 0, reciprocal 0
+        for quant_type in ("nf4", "fp4") if (k, n) == (4096, 14336) else ("nf4",):
+            got, ref = launch(wt, NF4_BLOCK, quant_type), plain(wt, NF4_BLOCK, quant_type)
+            torch.cuda.synchronize()
+            bad = int((got[0] != ref[0]).sum().item()) + int((got[1] != ref[1]).sum().item())
+            print(f"K12q quantize4 {quant_type} {n} x {k}: {bad} bytes or absmax differ (tolerance 0)", flush=True)
+            if bad:
+                raise AssertionError(f"K12q quantize4 {quant_type} {n} x {k}: {bad} outputs differ from the plain version")
+        if (k, n) == (4096, 14336):
+            size = n * k
+            bytes_moved = size * 2 + size // 2 + (size // NF4_BLOCK) * 4
+            b_ms, b_by = bound(bytes_moved, 18 * size, F32_OPS_PER_S)  # abs, max, scale, 15 compares
+            detail.append({
+                "k": k, "n": n, "max_abs_err": 0.0, "bound_ms": b_ms, "bound_by": b_by,
+                "ms": time_ms(lambda: launch(wt, NF4_BLOCK, "nf4")),
+                "paced_ms": paced_ms(lambda: launch(wt, NF4_BLOCK, "nf4")),
+                "plain_ms": time_ms(lambda: plain(wt, NF4_BLOCK, "nf4"), iters=3, warmup=1), "library_ms": None,
+            })
+        del wt
+    d = detail[0]
+    print(f"quantize4 nf4 {d['n']} x {d['k']}: {d['ms']:.4f} ms (paced {d['paced_ms']:.4f}, plain {d['plain_ms']:.4f}, "
+          f"bound {d['bound_ms']:.5f} by {d['bound_by']})", flush=True)
+    row = _kernel_row(
+        "quantize4", "conch_tpu_torch/csrc/quantize4.cu",
+        "conch_tpu/kernels/quantization/bitsandbytes/blockwise.py:324", 0.0, d, d["bound_ms"], d["bound_by"],
+    )
+    row["detail"] = detail
+    return row
+
+
 def kernel_phase_k4(gen) -> dict:
     """K4 at 8 and 512 rows x 4096; the row has the 8-row (decode) numbers."""
     from conch_tpu_torch.kernels.normalization.rms_norm import rms_norm_launcher as launch, rms_norm_plain as plain
@@ -672,7 +985,8 @@ def kernel_phases() -> list[dict]:
     rows = [
         kernel_phase_k1(gen), kernel_phase_k2(gen, rng), kernel_phase_k3(gen, rng), kernel_phase_k4(gen),
         kernel_phase_k5(gen, rng), kernel_phase_k6(gen), kernel_phase_k7(gen, rng), kernel_phase_k10a(gen),
-        kernel_phase_k10b(gen),
+        kernel_phase_k10b(gen), kernel_phase_k1b(gen), kernel_phase_k1c(gen), kernel_phase_k8(gen),
+        kernel_phase_k12q(gen),
     ]
     # The Gemma-2-2B shapes of K2, K3, K5 and K7 go into their rows' detail
     # beside the Llama-3-8B numbers the rows keep.
@@ -711,10 +1025,20 @@ def _launchers() -> dict:
     from conch_tpu_torch.kernels.embedding.rotary_embedding import rotary_embedding_launcher
     from conch_tpu_torch.kernels.normalization.gemma_rms_norm import gemma_rms_norm_launcher
     from conch_tpu_torch.kernels.normalization.rms_norm import rms_norm_launcher
-    from conch_tpu_torch.kernels.quantization.gemm import mixed_gemm_magic_launcher
+    from conch_tpu_torch.kernels.quantization.bitsandbytes.blockwise import quantize4_launcher
+    from conch_tpu_torch.kernels.quantization.gemm import (
+        mixed_gemm_magic_launcher,
+        mixed_gemm_planar_launcher,
+        mixed_gemm_rows_launcher,
+        scaled_gemm_launcher,
+    )
 
     return {
         "mixed_gemm_magic": (mixed_gemm_magic_launcher,),
+        "mixed_gemm_planar": (mixed_gemm_planar_launcher,),
+        "mixed_gemm_rows": (mixed_gemm_rows_launcher,),
+        "scaled_gemm": (scaled_gemm_launcher,),
+        "quantize4": (quantize4_launcher,),
         "reshape_and_cache_stacked": (reshape_and_cache_stacked_launcher,),
         "paged_attention": (paged_attention_launcher,),
         "rms_norm": (rms_norm_launcher,),
@@ -757,6 +1081,15 @@ def to_device(tree, device: str):
 # error in the hidden state reaches every logit in proportion to the
 # logits' scale (about 6 here), not to each logit's own size.
 PREFILL_TOLERANCES = {torch.float32: 2e-3, torch.bfloat16: 3e-2}
+# w8a8 rounds every projection's input to whole int8 steps per row, so the
+# bf16 rounding differences between card and CPU flip activation codes, and
+# the flips spread through the layers. On the CPU (2 layers, hidden 1024;
+# python3 -m conch_tpu_torch.tools.w8a8_sensitivity) bf16 against f32
+# activations moves the logits by 3.5% of max |logit| in w8a8 against 0.7%
+# in int8, and one ulp of noise on the norms moves them by 1.6% in w8a8 and
+# by less than 0.01% in int8. Held at 1e-1 x max |ref|: a fault of wiring (a
+# wrong layer, scale or row) moves them by about max |ref|.
+W8A8_PREFILL_TOLERANCE = 1e-1
 
 
 def random_norm_weights(params: dict, gen: torch.Generator) -> dict:
@@ -768,13 +1101,20 @@ def random_norm_weights(params: dict, gen: torch.Generator) -> dict:
     return params
 
 
-def check_prefill_logits() -> None:
+LLAMA_PREFILL_CASES = (
+    ("bf16", torch.float32), ("bf16", torch.bfloat16), ("int4", torch.bfloat16), ("int8", torch.bfloat16),
+    ("nf4", torch.bfloat16), ("w8a8", torch.bfloat16),
+)
+
+
+def check_prefill_logits(llama_cases=LLAMA_PREFILL_CASES, gemma_dtypes=(torch.float32, torch.bfloat16)) -> None:
     """First-token logits of a 2-layer, full-width prefill on the card
     (kernels) against the same prefill on the CPU (plain versions), for
-    Llama-3-8B (bf16 weights in f32 and in bf16, then int4 weights (K1) in
-    bf16, the only activation dtype K1 takes on the card) and Gemma-2-2B
-    (bf16 weights in f32 and bf16, random norm weights, the window cut to
-    16 so that layer 0's mask bites in these 24- and 13-token prompts);
+    Llama-3-8B (bf16 weights in f32 and in bf16, then int4 (K1), int8 (K1b),
+    nf4 (K1c, init through K12q) and w8a8 (K8) weights in bf16, the only
+    activation dtype those kernels take on the card) and Gemma-2-2B (bf16
+    weights in f32 and bf16, random norm weights, the window cut to 16 so
+    that layer 0's mask bites in these 24- and 13-token prompts);
     PREFILL_TOLERANCES."""
     import dataclasses
 
@@ -810,12 +1150,9 @@ def check_prefill_logits() -> None:
         return "Gemma-2-2B, bf16 weights", cfg, gemma_prefill, lambda: fuse_llama_params(
             random_norm_weights(init_gemma_params(SEED, cfg, device="cuda"), gen))
 
-    cases = [
-        llama("bf16", torch.float32), llama("bf16", torch.bfloat16), llama("int4", torch.bfloat16),
-        gemma(torch.float32), gemma(torch.bfloat16),
-    ]
+    cases = [llama(mode, dtype) for mode, dtype in llama_cases] + [gemma(dtype) for dtype in gemma_dtypes]
     for label, cfg, prefill, make_params in cases:
-        tol = PREFILL_TOLERANCES[cfg.dtype]
+        tol = W8A8_PREFILL_TOLERANCE if "w8a8" in label else PREFILL_TOLERANCES[cfg.dtype]
         params = make_params()
         kc, vc = init_kv_caches(cfg, num_pages, PS, device="cuda")
         t = [a.cuda() for a in host]
@@ -866,6 +1203,11 @@ def int4_prompts(rng: np.random.Generator, vocab: int) -> list[list[int]]:
     return prompts + [prefix + rng.integers(0, vocab, n).tolist() for n in INT4_SHARED_TAILS]
 
 
+def quant_prompts(rng: np.random.Generator, vocab: int) -> list[list[int]]:
+    """8 prompts of 40 to 900 tokens, for the int8, nf4 and w8a8 runs."""
+    return [rng.integers(0, vocab, n).tolist() for n in (40, 900, 64, 300, 700, 96, 450, 800)]
+
+
 def gemma_prompts(rng: np.random.Generator, vocab: int) -> list[list[int]]:
     """8 prompts of 40 to 4600 tokens; the longest crosses the 4096 window
     of the local layers, in prefill (K7) and in decode (K3)."""
@@ -879,8 +1221,17 @@ ATTENTION = ("varlen_attention", "paged_attention")  # K7 once per layer of a pr
 # layer, attention 1 per layer. Gemma-2-2B, 26 layers: K10a 4 per layer
 # (input, post-attention, pre- and post-feedforward) plus the final norm,
 # K10b 1 per layer, attention 1 per layer.
+# int8 and w8a8 also quantize lm_head: K1b and K8 4 per layer plus 1; nf4
+# stays unfused and quantizes lm_head: K1c 7 per layer plus 1. K12q runs
+# during nf4 init (once per projection and layer, plus lm_head) and never
+# while serving.
 LLAMA_PER_STEP = {"mixed_gemm_magic": 4 * 32, "rms_norm": 2 * 32 + 1, "silu_and_mul": 32, ATTENTION: 32}
 GEMMA_PER_STEP = {"gemma_rms_norm": 4 * 26 + 1, "gelu_tanh_and_mul": 26, ATTENTION: 26}
+_LLAMA_REST = {"rms_norm": 2 * 32 + 1, "silu_and_mul": 32, ATTENTION: 32, "mixed_gemm_magic": 0, "quantize4": 0}
+INT8_PER_STEP = {"mixed_gemm_planar": 4 * 32 + 1, **_LLAMA_REST}
+NF4_PER_STEP = {"mixed_gemm_rows": 7 * 32 + 1, **_LLAMA_REST}
+W8A8_PER_STEP = {"scaled_gemm": 4 * 32 + 1, **_LLAMA_REST}
+NF4_INIT_LAUNCHES = 7 * 32 + 1
 
 
 def count_steps(engine) -> list[int]:
@@ -902,22 +1253,31 @@ def count_steps(engine) -> list[int]:
 
 def serve(
     card: str, label: str, cfg, make_params, model_fns: dict, engine_kwargs: dict, make_prompts,
-    expect: tuple[str, ...], per_step: dict,
+    expect: tuple[str, ...], per_step: dict, init_launches: dict | None = None,
 ) -> dict:
     """LLMEngine at full width (random weights from the seed) serving greedy
     requests of 32 tokens through ``model_fns`` (Llama's by default);
     returns each kernel's launch count in that run. Fails unless every
     kernel in ``expect`` launched, and launched ``per_step`` times in each
-    model step (attention: K3 and K7 together)."""
+    model step (attention: K3 and K7 together). ``init_launches``: kernels
+    that the params' init must launch, with the count (counted from just
+    before the init to the engine's start; returned as those kernels'
+    counts)."""
     from conch_tpu_torch.serving import EngineConfig, LLMEngine, SamplingParams
 
     t0 = time.perf_counter()
+    reset_launch_counts()
     params = make_params(cfg)
     engine = LLMEngine(params, cfg, EngineConfig(**engine_kwargs), **model_fns)
     del params
     torch.cuda.synchronize()
+    at_init = read_launch_counts()
     print(f"{label} engine ready in {time.perf_counter() - t0:.1f} s ({engine.ecfg}), "
-          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated", flush=True)
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated; launches during init: "
+          f"{ {k: v for k, v in at_init.items() if v} }", flush=True)
+    for name, want in (init_launches or {}).items():
+        if at_init[name] != want:
+            raise AssertionError(f"{name}: {at_init[name]} launches during the {label} init, expected {want}")
     prompts = make_prompts(np.random.default_rng(SEED), cfg.vocab_size)
     max_tokens = 32
     steps = count_steps(engine)
@@ -945,11 +1305,13 @@ def serve(
         got = sum(launches[n] for n in ((names,) if isinstance(names, str) else names))
         if got != per * n_steps:
             raise AssertionError(f"{names}: {got} launches on the {label} path, expected {per} x {n_steps} steps")
+    print(f"{label}: launches per model step: "
+          f"{ {n: launches[n] / n_steps for n in launches if launches[n]} }", flush=True)
     engine_params, ecfg = engine.params, engine.ecfg
     del engine
     torch.cuda.empty_cache()
     profile_served_run(engine_params, cfg, ecfg, model_fns, prompts, max_tokens, label)
-    return launches
+    return {**launches, **{name: at_init[name] for name in init_launches or {}}}
 
 
 def profile_served_run(params: dict, cfg, ecfg, model_fns: dict, prompts: list, max_tokens: int, label: str) -> None:
@@ -1012,6 +1374,14 @@ LLAMA_KERNELS = (
     "mixed_gemm_magic", "reshape_and_cache_stacked", "paged_attention", "rms_norm", "rotary_embedding",
     "silu_and_mul", "varlen_attention",
 )
+LLAMA_COMMON = tuple(k for k in LLAMA_KERNELS if k != "mixed_gemm_magic")
+# The run whose launches a kernel row reports; the others' counts stand
+# beside them (``launches_by_path``).
+PRIMARY_PATH = {
+    "mixed_gemm_magic": "llama3_8b_int4", "rms_norm": "llama3_8b_int4", "silu_and_mul": "llama3_8b_int4",
+    "mixed_gemm_planar": "llama3_8b_int8", "mixed_gemm_rows": "llama3_8b_nf4", "quantize4": "llama3_8b_nf4",
+    "scaled_gemm": "llama3_8b_w8a8",
+}
 GEMMA_KERNELS = (
     "reshape_and_cache_stacked", "paged_attention", "rotary_embedding", "varlen_attention", "gemma_rms_norm",
     "gelu_tanh_and_mul",
@@ -1039,13 +1409,25 @@ def main() -> int:
         "llama3_8b_bf16": serve(
             card, "bf16", llama_cfg, llama("bf16"), {},
             {"page_size": 16, "num_pages": 2048, "max_batch_size": 8, "max_prefill_tokens": 128}, bf16_prompts,
-            tuple(k for k in LLAMA_KERNELS if k != "mixed_gemm_magic"),
-            {k: v for k, v in LLAMA_PER_STEP.items() if k != "mixed_gemm_magic"},
+            LLAMA_COMMON, {k: v for k, v in LLAMA_PER_STEP.items() if k != "mixed_gemm_magic"},
         ),
         # The README's int4 example.
         "llama3_8b_int4": serve(
             card, "int4", llama_cfg, llama("int4"), {}, {"num_pages": 4096, "max_batch_size": 32}, int4_prompts,
             LLAMA_KERNELS, LLAMA_PER_STEP,
+        ),
+        # The other weight formats of the same model (lm_head quantized too).
+        "llama3_8b_int8": serve(
+            card, "int8", llama_cfg, llama("int8"), {}, {"num_pages": 4096, "max_batch_size": 32}, quant_prompts,
+            (*LLAMA_COMMON, "mixed_gemm_planar"), INT8_PER_STEP,
+        ),
+        "llama3_8b_nf4": serve(
+            card, "nf4", llama_cfg, llama("nf4"), {}, {"num_pages": 4096, "max_batch_size": 32}, quant_prompts,
+            (*LLAMA_COMMON, "mixed_gemm_rows"), NF4_PER_STEP, {"quantize4": NF4_INIT_LAUNCHES},
+        ),
+        "llama3_8b_w8a8": serve(
+            card, "w8a8", llama_cfg, llama("w8a8"), {}, {"num_pages": 4096, "max_batch_size": 32}, quant_prompts,
+            (*LLAMA_COMMON, "scaled_gemm"), W8A8_PER_STEP,
         ),
         # Gemma-2-2B at its published config, 26 layers.
         "gemma2_2b_bf16": serve(
@@ -1056,11 +1438,14 @@ def main() -> int:
         ),
     }
     # ``launches``: the Gemma run for the kernels it runs, the int4 run for
-    # K1, K4 and K6, which only Llama runs; every path's count beside it.
+    # K1, K4 and K6, the int8, nf4 and w8a8 runs for their kernels (K12q:
+    # during the nf4 init); every path's count beside it.
     for row in rows:
         by_path = {path: counts[row["name"]] for path, counts in launches.items()}
-        row["launches"] = by_path["gemma2_2b_bf16"] or by_path["llama3_8b_int4"]
+        row["launches"] = by_path[PRIMARY_PATH.get(row["name"], "gemma2_2b_bf16")]
         row["launches_by_path"] = by_path
+        if row["launches"] <= 0:
+            raise AssertionError(f"{row['name']} was never launched on its main path")
     print(json.dumps({"kernels": rows}))
     print(card)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

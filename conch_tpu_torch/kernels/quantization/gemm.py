@@ -1,26 +1,40 @@
 # Copyright 2026 Conch-TPU authors.
 # SPDX-License-Identifier: Apache-2.0
 
-"""int4 weight-only GEMM over the magic packing: the CUDA kernel (K1) and
-its plain version.
+"""The quantized GEMMs: four CUDA kernels and their plain versions.
 
-The kernel is ``csrc/mixed_gemm_magic.cu``; it replaces
-``conch_tpu/kernels/quantization/gemm.py:_mixed_gemm_magic_kernel``
-(launched by ``mixed_precision_gemm_launcher`` with ``layer_index``). For a
-per-layer stack of weights, (L, K/8, N) int32 and (L, K/128, N) scales,
-the wrapper offsets the pointers to the layer, so no slice of the stack is
-ever copied. ``mixed_gemm_magic_launcher`` takes the plain version for CPU
-tensors only; on CUDA it launches the kernel or raises.
+Each kernel replaces one kernel of ``conch_tpu/kernels/quantization/gemm.py``:
+
+- K1 ``mixed_gemm_magic`` (``csrc/mixed_gemm_magic.cu``) replaces
+  ``_mixed_gemm_magic_kernel``: int4 codes in the magic packing, group 128;
+- K1b ``mixed_gemm_planar`` (``csrc/mixed_gemm_planar.cu``) replaces
+  ``_mixed_gemm_planar_kernel``: 2/4/8-bit codes in the planar packing, the
+  group's scale and zero-point applied after the product;
+- K1c ``mixed_gemm_rows`` (``csrc/mixed_gemm_rows.cu``) replaces
+  ``_mixed_gemm_kernel``: 2/4/8-bit GPTQ rows or 4-bit codebook codes
+  (NF4, FP4), dequantized before the product and rounded to the
+  activation dtype;
+- K8 ``scaled_gemm`` (``csrc/scaled_gemm.cu``) replaces
+  ``_scaled_gemm_kernel``: int8 x int8 summed in int32 (float8_e4m3fn in
+  f32), then ``* sa[m] * sb[n]``.
+
+Each takes a ``layer_index`` into per-layer stacks of its weight arrays
+(``(L, ...)``): the wrapper offsets the pointers to the layer, so no
+slice of a stack is ever copied. The plain versions follow the TPU
+kernels' order of rounding in f32. A launcher takes its plain version for
+CPU tensors only; on CUDA it launches its kernel or raises, and counts
+each launch in ``launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from conch_tpu_torch.kernels.common import check_launch, kernel_function, require_cuda, stream_of
-from conch_tpu_torch.utils.quant_utils import unpack_rows_magic
+from conch_tpu_torch.kernels.common import check_launch, dtype_code, kernel_function, require_cuda, stream_of
+from conch_tpu_torch.utils.quant_utils import get_pack_factor, unpack_rows, unpack_rows_magic, unpack_rows_planar
 
 KERNEL_GROUP_SIZE = 128  # the group size the CUDA kernel is written for
 
@@ -32,6 +46,69 @@ def _layer(a: torch.Tensor, layer_index: int | None) -> torch.Tensor:
         msg = f"layer_index {layer_index} outside the {a.shape[0]}-layer stack"
         raise IndexError(msg)
     return a[layer_index]
+
+
+# -- shared by the wrappers ------------------------------------------------
+
+
+def _zp_of(zp: torch.Tensor | None, layer_index: int | None) -> torch.Tensor | None:
+    """A per-group zero-point stack follows the weights' layer; a scalar
+    zero-point (one element) is shared."""
+    if zp is None or zp.numel() == 1 or layer_index is None:
+        return zp
+    return _layer(zp, layer_index)
+
+
+def _layer_ptr(a: torch.Tensor, layer_index: int | None) -> int:
+    """The data pointer of layer ``layer_index`` of a contiguous stack (or of
+    ``a`` itself): a pointer offset, never a copy."""
+    if layer_index is None:
+        return a.data_ptr()
+    _layer(a, layer_index)  # range check
+    return a.data_ptr() + layer_index * a.stride(0) * a.element_size()
+
+
+def _check_layer_shapes(name: str, layer_index: int | None, shapes: dict) -> None:
+    """Raise unless each tensor has rank 2 (3 with a layer index) and the
+    given trailing shape."""
+    rank = 2 if layer_index is None else 3
+    for label, (t, want) in shapes.items():
+        if t.dim() != rank or tuple(t.shape[-2:]) != want:
+            msg = f"{name} kernel: {label} {tuple(t.shape)} does not fit (expected {'(L, ' if rank == 3 else '('}{want})"
+            raise ValueError(msg)
+
+
+def _check_x(name: str, x: torch.Tensor) -> None:
+    if x.dtype != torch.bfloat16:
+        msg = f"{name} kernel: x must be bfloat16 on the card, got {x.dtype}"
+        raise NotImplementedError(msg)
+    if x.dim() != 2 or x.stride(1) != 1 or x.stride(0) % 4 or x.data_ptr() % 8:
+        msg = f"{name} kernel: x rows must be contiguous, 8-byte aligned, with a row stride that is a multiple of 4"
+        raise ValueError(msg)
+
+
+def _check_packed(name: str, bits: int, packed: torch.Tensor, scales: torch.Tensor) -> None:
+    """Raise unless the words are contiguous int32 of 2/4/8-bit codes and the
+    scales contiguous bf16 or f32."""
+    if bits not in (2, 4, 8) or packed.dtype != torch.int32 or scales.dtype not in (torch.bfloat16, torch.float32):
+        msg = f"{name} kernel: 2/4/8-bit int32 words and bf16/f32 scales, got {bits} bits, {packed.dtype}, {scales.dtype}"
+        raise NotImplementedError(msg)
+    if not (packed.is_contiguous() and scales.is_contiguous()):
+        msg = f"{name} kernel: packed weights and scales must be contiguous"
+        raise ValueError(msg)
+
+
+def _zp_args(name: str, zp: torch.Tensor | None, layer_index: int | None, meta_shape: tuple) -> tuple[int, int]:
+    """(pointer, mode) of the zero-points: mode 0 none, 1 one value, 2 per group."""
+    if zp is None:
+        return 0, 0
+    if zp.dtype != torch.float32 or not zp.is_contiguous():
+        msg = f"{name} kernel: zero-points must be contiguous float32, got {zp.dtype}"
+        raise ValueError(msg)
+    if zp.numel() == 1:
+        return zp.data_ptr(), 1
+    _check_layer_shapes(name, layer_index, {"w_zp": (zp, meta_shape)})
+    return _layer_ptr(zp, layer_index), 2
 
 
 def dequantize_magic(packed: torch.Tensor, scales: torch.Tensor, k: int, group_size: int, bias: int) -> torch.Tensor:
@@ -74,17 +151,10 @@ def _magic_gemm_cuda(x, packed, scales, group_size: int, bias: int, layer_index:
     if x.stride(1) != 1 or x.stride(0) % 8 or x.data_ptr() % 16:
         msg = "mixed_gemm_magic kernel: x rows must be contiguous, 16-byte aligned, with a row stride that is a multiple of 8"
         raise ValueError(msg)
-    rank = 2 if layer_index is None else 3
-    if (packed.dim(), scales.dim()) != (rank, rank) or tuple(packed.shape[-2:]) != (k // 8, n) or tuple(
-        scales.shape[-2:]
-    ) != (k // group_size, n):
-        msg = f"mixed_gemm_magic kernel: packed {tuple(packed.shape)} / scales {tuple(scales.shape)} do not fit x {tuple(x.shape)}"
-        raise ValueError(msg)
-    w_ptr, s_ptr = packed.data_ptr(), scales.data_ptr()
-    if layer_index is not None:
-        _layer(packed, layer_index)  # range check
-        w_ptr += layer_index * packed.stride(0) * packed.element_size()
-        s_ptr += layer_index * scales.stride(0) * scales.element_size()
+    _check_layer_shapes("mixed_gemm_magic", layer_index, {
+        "packed": (packed, (k // 8, n)), "scales": (scales, (k // group_size, n)),
+    })
+    w_ptr, s_ptr = _layer_ptr(packed, layer_index), _layer_ptr(scales, layer_index)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     fn = kernel_function("conch_mixed_gemm_magic", (
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -114,3 +184,284 @@ def mixed_gemm_magic_launcher(
 
 
 mixed_gemm_magic_launcher.launches = 0
+
+
+# -- K1b: planar packing, dequantized after the product --------------------
+
+
+def mixed_gemm_planar_plain(
+    x: torch.Tensor,
+    packed: torch.Tensor,
+    scales: torch.Tensor,
+    zp: torch.Tensor | None,
+    bits: int,
+    bias: int,
+    group_size: int,
+    layer_index: int | None = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of K1b, on any device, in the TPU kernel's
+    order: for each group G, ``acc += (x_G @ c_G - z * sum(x_G)) * s_G``
+    in f32 (z the group's zero-point, the scalar zero-point, or ``bias``),
+    then rounded to x's dtype."""
+    packed, scales, zp = _layer(packed, layer_index), _layer(scales, layer_index), _zp_of(zp, layer_index)
+    k = x.shape[1]
+    codes = unpack_rows_planar(packed, bits, k, group_size)
+    xf = x.float()
+    acc = torch.zeros((x.shape[0], packed.shape[-1]), dtype=torch.float32, device=x.device)
+    for g in range(k // group_size):
+        rows = slice(g * group_size, (g + 1) * group_size)
+        part = xf[:, rows] @ codes[rows].float()
+        xsum = xf[:, rows].sum(dim=1, keepdim=True)
+        if zp is None:
+            z = float(bias)
+        elif zp.numel() == 1:
+            z = zp.reshape(()).float()
+        else:
+            z = zp[g].float()
+        acc += (part - z * xsum) * scales[g].float()
+    return acc.to(x.dtype)
+
+
+def _planar_gemm_cuda(x, packed, scales, zp, bits: int, bias: int, group_size: int, layer_index) -> torch.Tensor:
+    require_cuda(x, packed, scales, *([] if zp is None else [zp]))
+    _check_x("mixed_gemm_planar", x)
+    m, k = x.shape
+    n = packed.shape[-1]
+    epp = get_pack_factor(bits)
+    _check_packed("mixed_gemm_planar", bits, packed, scales)
+    if k % group_size or group_size % (16 * epp) or n % 32:
+        msg = (
+            f"mixed_gemm_planar kernel: needs K % group == 0, group % {16 * epp} == 0 and N % 32 == 0 "
+            f"(K={k}, N={n}, group={group_size})"
+        )
+        raise ValueError(msg)
+    meta_shape = (k // group_size, n)
+    _check_layer_shapes("mixed_gemm_planar", layer_index, {"packed": (packed, (k // epp, n)), "scales": (scales, meta_shape)})
+    zp_ptr, zp_mode = _zp_args("mixed_gemm_planar", zp, layer_index, meta_shape)
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    fn = kernel_function("conch_mixed_gemm_planar", (
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p,
+    ))
+    code = fn(x.data_ptr(), _layer_ptr(packed, layer_index), _layer_ptr(scales, layer_index), dtype_code(scales),
+              zp_ptr, zp_mode, out.data_ptr(), m, n, k, x.stride(0), bits, group_size, bias, stream_of(x))
+    check_launch("conch_mixed_gemm_planar", code)
+    mixed_gemm_planar_launcher.launches += 1
+    return out
+
+
+def mixed_gemm_planar_launcher(
+    x: torch.Tensor,  # (M, K)
+    packed: torch.Tensor,  # (K / (32 / bits), N) int32, or (L, ...) with layer_index
+    scales: torch.Tensor,  # (K / group, N), or (L, ...)
+    zp: torch.Tensor | None,  # None, one value, or (K / group, N) ((L, ...) when stacked)
+    bits: int,
+    bias: int,
+    group_size: int,
+    layer_index: int | None = None,
+) -> torch.Tensor:
+    """K1b: ``x @ W`` over the planar packing, (M, N) in x's dtype."""
+    if x.device.type == "cpu":
+        return mixed_gemm_planar_plain(x, packed, scales, zp, bits, bias, group_size, layer_index)
+    return _planar_gemm_cuda(x, packed, scales, zp, bits, bias, group_size, layer_index)
+
+
+mixed_gemm_planar_launcher.launches = 0
+
+
+# -- K1c: GPTQ rows and codebooks, dequantized before the product ----------
+
+
+def dequantize_rows(
+    packed: torch.Tensor,
+    scales: torch.Tensor,
+    zp: torch.Tensor | None,
+    k: int,
+    bits: int,
+    bias: int,
+    group_size: int,
+    codebook: tuple[float, ...] | None = None,
+) -> torch.Tensor:
+    """One layer's (K, N) f32 weight ``(c - bias [- z]) * s``, or
+    ``(book[c] [- z]) * s`` with a codebook, as K1c computes it."""
+    codes = unpack_rows(packed, bits, k)
+    if codebook is not None:
+        w = torch.tensor(codebook, dtype=torch.float32, device=packed.device)[codes.long()]
+    else:
+        w = codes.float() - float(bias)
+    if zp is not None:
+        w = w - (zp.reshape(()).float() if zp.numel() == 1 else zp.float().repeat_interleave(group_size, dim=0)[:k])
+    return w * scales.float().repeat_interleave(group_size, dim=0)[:k]
+
+
+def mixed_gemm_rows_plain(
+    x: torch.Tensor,
+    packed: torch.Tensor,
+    scales: torch.Tensor,
+    zp: torch.Tensor | None,
+    bits: int,
+    bias: int,
+    group_size: int,
+    codebook: tuple[float, ...] | None = None,
+    layer_index: int | None = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of K1c, on any device, in the TPU kernel's
+    order: the weight dequantized in f32 and rounded to x's dtype, the
+    product summed in f32, then rounded to x's dtype."""
+    packed, scales, zp = _layer(packed, layer_index), _layer(scales, layer_index), _zp_of(zp, layer_index)
+    w = dequantize_rows(packed, scales, zp, x.shape[1], bits, bias, group_size, codebook).to(x.dtype)
+    return torch.matmul(x.float(), w.float()).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=8)
+def _codebook_tensor(codebook: tuple[float, ...], device: torch.device) -> torch.Tensor:
+    return torch.tensor(codebook, dtype=torch.float32, device=device)
+
+
+def _rows_gemm_cuda(x, packed, scales, zp, bits: int, bias: int, group_size: int, codebook, layer_index) -> torch.Tensor:
+    require_cuda(x, packed, scales, *([] if zp is None else [zp]))
+    _check_x("mixed_gemm_rows", x)
+    m, k = x.shape
+    n = packed.shape[-1]
+    epp = get_pack_factor(bits)
+    _check_packed("mixed_gemm_rows", bits, packed, scales)
+    if codebook is not None and (bits != 4 or len(codebook) != 16):
+        raise ValueError("mixed_gemm_rows kernel: a codebook has 16 entries and takes 4-bit codes")
+    if k % epp or group_size % 4 or n % 32:
+        msg = (
+            f"mixed_gemm_rows kernel: needs K % {epp} == 0, group % 4 == 0 and N % 32 == 0 "
+            f"(K={k}, N={n}, group={group_size})"
+        )
+        raise ValueError(msg)
+    meta_shape = (-(-k // group_size), n)
+    _check_layer_shapes("mixed_gemm_rows", layer_index, {"packed": (packed, (k // epp, n)), "scales": (scales, meta_shape)})
+    zp_ptr, zp_mode = _zp_args("mixed_gemm_rows", zp, layer_index, meta_shape)
+    book = 0 if codebook is None else _codebook_tensor(tuple(codebook), x.device).data_ptr()
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    fn = kernel_function("conch_mixed_gemm_rows", (
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ))
+    code = fn(x.data_ptr(), _layer_ptr(packed, layer_index), _layer_ptr(scales, layer_index), dtype_code(scales),
+              zp_ptr, zp_mode, book, out.data_ptr(), m, n, k, x.stride(0), bits, group_size, bias, stream_of(x))
+    check_launch("conch_mixed_gemm_rows", code)
+    mixed_gemm_rows_launcher.launches += 1
+    return out
+
+
+def mixed_gemm_rows_launcher(
+    x: torch.Tensor,  # (M, K)
+    packed: torch.Tensor,  # (K / (32 / bits), N) int32, or (L, ...) with layer_index
+    scales: torch.Tensor,  # (ceil(K / group), N), or (L, ...)
+    zp: torch.Tensor | None,  # None, one value, or (ceil(K / group), N) ((L, ...) when stacked)
+    bits: int,
+    bias: int,
+    group_size: int,
+    codebook: tuple[float, ...] | None = None,
+    layer_index: int | None = None,
+) -> torch.Tensor:
+    """K1c: ``x @ W`` over GPTQ rows (or codebook codes), (M, N) in x's dtype."""
+    if x.device.type == "cpu":
+        return mixed_gemm_rows_plain(x, packed, scales, zp, bits, bias, group_size, codebook, layer_index)
+    return _rows_gemm_cuda(x, packed, scales, zp, bits, bias, group_size, codebook, layer_index)
+
+
+mixed_gemm_rows_launcher.launches = 0
+
+
+# -- K8: int8 (or float8_e4m3fn) x int8 with row and column scales ---------
+
+
+def _scale_vector(scale: torch.Tensor, size: int) -> torch.Tensor:
+    """(size, ) or one value, as float32."""
+    s = scale.float().reshape(-1)
+    if s.numel() not in (1, size):
+        msg = f"a scale of {s.numel()} values for {size} rows or columns"
+        raise ValueError(msg)
+    return s
+
+
+def scaled_gemm_plain(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    scale_a: torch.Tensor,
+    scale_b: torch.Tensor,
+    out_dtype: torch.dtype,
+    layer_index: int | None = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of K8 on any device: ``float(a @ b) * sa * sb``
+    in f32, in that order, rounded to ``out_dtype``. The int8 sums are
+    exact: taken in float64, whose 53 bits hold any int32 sum, and then
+    rounded to f32 as the int32 sum would be; float8 values are summed in
+    f32."""
+    b = _layer(b, layer_index)
+    if scale_b.numel() > 1:
+        scale_b = _layer(scale_b, layer_index)
+    if a.dtype == torch.int8:
+        acc = torch.matmul(a.double(), b.double()).float()
+    else:
+        acc = torch.matmul(a.to(torch.bfloat16).float(), b.to(torch.bfloat16).float())
+    sa = _scale_vector(scale_a, a.shape[0])
+    sb = _scale_vector(scale_b, b.shape[1])
+    return (acc * sa[:, None] * sb[None, :]).to(out_dtype)
+
+
+def _scaled_gemm_cuda(a, b, scale_a, scale_b, out_dtype: torch.dtype, layer_index) -> torch.Tensor:
+    require_cuda(a, b, scale_a, scale_b)
+    m, k = a.shape
+    n = b.shape[-1]
+    fp8 = a.dtype == torch.float8_e4m3fn
+    if a.dtype != b.dtype or a.dtype not in (torch.int8, torch.float8_e4m3fn) or out_dtype not in (
+        torch.float32, torch.bfloat16,
+    ):
+        msg = f"scaled_gemm kernel: int8 or float8_e4m3fn inputs and a float32/bfloat16 output, got {a.dtype}, {b.dtype} -> {out_dtype}"
+        raise NotImplementedError(msg)
+    if scale_a.dtype != torch.float32 or scale_b.dtype != torch.float32 or not (
+        scale_a.is_contiguous() and scale_b.is_contiguous()
+    ):
+        raise ValueError("scaled_gemm kernel: scales must be contiguous float32")
+    if a.stride(1) != 1 or not b.is_contiguous() or (not fp8 and (k % 32 or n % 32 or a.stride(0) % 4)):
+        msg = f"scaled_gemm kernel: needs contiguous rows and, for int8, K and N multiples of 32 (K={k}, N={n})"
+        raise ValueError(msg)
+    _check_layer_shapes("scaled_gemm", layer_index, {"b": (b, (k, n))})
+    sa_scalar = scale_a.numel() == 1
+    sb_scalar = scale_b.numel() == 1
+    if not sa_scalar and scale_a.numel() != m:
+        raise ValueError(f"scaled_gemm kernel: scale_a of {scale_a.numel()} values for {m} rows")
+    if sb_scalar:
+        sb_ptr = scale_b.data_ptr()
+    else:
+        if scale_b.shape[-1] != n or scale_b.dim() != (1 if layer_index is None else 2):
+            raise ValueError(f"scaled_gemm kernel: scale_b {tuple(scale_b.shape)} for {n} columns")
+        sb_ptr = _layer_ptr(scale_b, layer_index)
+    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    fn = kernel_function("conch_scaled_gemm", (
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+        ctypes.c_void_p,
+    ))
+    code = fn(a.data_ptr(), _layer_ptr(b, layer_index), scale_a.data_ptr(), int(sa_scalar), sb_ptr, int(sb_scalar),
+              out.data_ptr(), dtype_code(out), m, n, k, a.stride(0), int(fp8), stream_of(a))
+    check_launch("conch_scaled_gemm", code)
+    scaled_gemm_launcher.launches += 1
+    return out
+
+
+def scaled_gemm_launcher(
+    a: torch.Tensor,  # (M, K) int8 or float8_e4m3fn
+    b: torch.Tensor,  # (K, N) of a's dtype, or (L, K, N) with layer_index
+    scale_a: torch.Tensor,  # (M,) or one value, float32
+    scale_b: torch.Tensor,  # (N,) or one value ((L, N) when stacked), float32
+    out_dtype: torch.dtype,
+    layer_index: int | None = None,
+) -> torch.Tensor:
+    """K8: ``float(a @ b) * scale_a[:, None] * scale_b[None, :]`` as
+    ``out_dtype``: (M, N)."""
+    if a.device.type == "cpu":
+        return scaled_gemm_plain(a, b, scale_a, scale_b, out_dtype, layer_index)
+    return _scaled_gemm_cuda(a, b, scale_a, scale_b, out_dtype, layer_index)
+
+
+scaled_gemm_launcher.launches = 0

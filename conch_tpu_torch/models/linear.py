@@ -3,17 +3,22 @@
 
 """Quantization-polymorphic linear layers (counterpart of ``conch_tpu/models/linear.py``).
 
-The port has two kinds so far:
+A projection's ``kind`` picks its product:
 
 - ``dense``: a plain matrix product, which the JAX package leaves to XLA
   (``jnp.dot``) and the port leaves to ``torch.matmul``;
-- ``int4``: GPTQ-style uint4b8 codes, group 128, in the magic packing
-  (``utils/quant_utils.py:pack_rows_magic``) with bf16 scales, multiplied
-  by the K1 kernel (``ops/quantization/gemm.py``). Stacked (L, K/8, N)
-  weights are read at a layer offset, never sliced.
+- ``int4``: GPTQ-style uint4b8 codes with bf16 group scales, in the
+  fastest packing the shape allows (``_pack_grouped``): magic (K1), else
+  planar (K1b), else GPTQ rows (K1c);
+- ``int8_grouped``: uint8b128 codes, group 128, bf16 scales, planar (K1b)
+  or GPTQ rows (K1c);
+- ``nf4``: NF4 codes (encoded by K12q) in GPTQ rows with f32 absmax per
+  ``blocksize`` rows of K, multiplied through the 16-entry codebook (K1c);
+- ``w8a8``: per-column int8 weights with f32 scales, the activations
+  quantized per row to int8 on the fly (plain torch, outside any kernel as
+  in the JAX package), multiplied by K8.
 
-The other kinds (int8_grouped, nf4, w8a8) need the GEMM kernels of later
-slices and raise.
+Stacked (L, ...) weights are read at a layer offset, never sliced.
 """
 
 from __future__ import annotations
@@ -24,9 +29,19 @@ from typing import Any
 import torch
 
 from conch_tpu_torch.kernels.common import round_up
-from conch_tpu_torch.ops.quantization import mixed_precision_gemm
+from conch_tpu_torch.kernels.quantization.bitsandbytes.blockwise import NF4_CODE
+from conch_tpu_torch.ops.quantization import mixed_precision_gemm, scaled_gemm
+from conch_tpu_torch.ops.quantization.bitsandbytes import quantize_4bit
 from conch_tpu_torch.types.scalar_type import scalar_types
-from conch_tpu_torch.utils.quant_utils import pack_rows_magic, quantize_weights
+from conch_tpu_torch.utils.quant_utils import (
+    get_pack_factor,
+    pack_rows,
+    pack_rows_magic,
+    pack_rows_planar,
+    quantize_weights,
+)
+
+KINDS = ("dense", "int4", "int8_grouped", "nf4", "w8a8")
 
 
 def padded_out_features(n: int) -> int:
@@ -41,6 +56,17 @@ def padded_out_features(n: int) -> int:
     return round_up(n, 2048)
 
 
+def _pack_grouped(w_q: torch.Tensor, num_bits: int, group_size: int) -> tuple[torch.Tensor, str]:
+    """The fastest packing the shape allows, as the JAX package picks it:
+    magic (4-bit) > planar > GPTQ rows."""
+    epp = get_pack_factor(num_bits)
+    if num_bits == 4 and w_q.shape[0] % group_size == 0 and group_size % 8 == 0:
+        return pack_rows_magic(w_q, group_size), "magic"
+    if w_q.shape[0] % group_size == 0 and group_size % epp == 0:
+        return pack_rows_planar(w_q, num_bits, group_size), "planar"
+    return pack_rows(w_q, num_bits), "gptq"
+
+
 @dataclass
 class QuantizedLinear:
     """A (K, N) projection, or a per-layer stack of them: (L, K, N)."""
@@ -50,9 +76,9 @@ class QuantizedLinear:
     meta: dict[str, Any] = field(default_factory=dict)
 
     def __post_init__(self) -> None:
-        if self.kind not in ("dense", "int4"):
-            msg = f"QuantizedLinear kind {self.kind!r} needs the quantized GEMM kernels (K1b/K1c/K8), which are not ported yet"
-            raise NotImplementedError(msg)
+        if self.kind not in KINDS:
+            msg = f"Unknown linear kind: {self.kind} (expected one of {KINDS})"
+            raise ValueError(msg)
 
     @staticmethod
     def dense(w: torch.Tensor) -> QuantizedLinear:
@@ -71,57 +97,123 @@ class QuantizedLinear:
         n_pad = padded_out_features(n)
         if n_pad != n:
             w = torch.nn.functional.pad(w, (0, n_pad - n))
-        if w.shape[0] % group_size or group_size % 8:
-            msg = (
-                f"K={w.shape[0]} with group {group_size} needs the planar or GPTQ-row int4 layouts (K1b/K1c), "
-                "which are not ported yet"
-            )
-            raise NotImplementedError(msg)
         _, w_q, w_s = quantize_weights(w, scalar_types.uint4b8, group_size)
-        meta = {"bits": 4, "bias": 8, "group_size": group_size, "layout": "magic"}
+        packed, layout = _pack_grouped(w_q, 4, group_size)
+        meta = {"bits": 4, "bias": 8, "group_size": group_size, "layout": layout}
         if n_pad != n:
             meta["out_features"] = n
-        return QuantizedLinear("int4", {"packed": pack_rows_magic(w_q, group_size), "scales": w_s.to(dtype)}, meta)
+        return QuantizedLinear("int4", {"packed": packed, "scales": w_s.to(dtype)}, meta)
 
-    def _gemm(self, x: torch.Tensor, layer_index: int | None) -> torch.Tensor:
-        out = mixed_precision_gemm(
-            x, self.arrays["packed"], self.arrays["scales"], None, self.meta["bits"], self.meta["bias"],
-            self.meta["group_size"], layout=self.meta.get("layout", "gptq"), layer_index=layer_index,
+    @staticmethod
+    def int8_grouped_from_dense(
+        w: torch.Tensor, group_size: int = 128, dtype: torch.dtype = torch.bfloat16
+    ) -> QuantizedLinear:
+        """uint8b128 groupwise quantization of a (K, N) weight, on w's device
+        (N is not padded, as in the JAX package)."""
+        group_size = min(group_size, w.shape[0])
+        _, w_q, w_s = quantize_weights(w.to(torch.float32), scalar_types.uint8b128, group_size)
+        packed, layout = _pack_grouped(w_q, 8, group_size)
+        return QuantizedLinear(
+            "int8_grouped",
+            {"packed": packed, "scales": w_s.to(dtype)},
+            {"bits": 8, "bias": 128, "group_size": group_size, "layout": layout},
         )
-        n = self.meta.get("out_features")
-        return out if n is None else out[:, :n]
+
+    @staticmethod
+    def nf4_from_dense(w: torch.Tensor, blocksize: int = 64, dtype: torch.dtype = torch.bfloat16) -> QuantizedLinear:
+        """NF4 blockwise quantization of a (K, N) weight, on w's device.
+
+        As the JAX package does it: the weight is rounded to ``dtype`` and
+        transposed, so each block of ``blocksize`` is one (column, K-group)
+        pair; K12q encodes it (``quantize_4bit``); the codes, turned back to
+        (K, N), are packed as GPTQ rows ((K // 8, N) int32) beside the
+        (K // blocksize, N) f32 absmax.
+        """
+        k_dim, n_dim = w.shape
+        if k_dim % blocksize:
+            msg = f"nf4 requires K ({k_dim}) divisible by blocksize ({blocksize})"
+            raise ValueError(msg)
+        wt = w.to(torch.float32).t().to(dtype).contiguous()
+        packed_flat, state = quantize_4bit(wt, blocksize=blocksize, quant_type="nf4")
+        del wt
+        octets = packed_flat.reshape(-1)
+        codes = torch.stack([octets >> 4, octets & 0x0F], dim=1).reshape(n_dim, k_dim)  # even element: high nibble
+        absmax = state.absmax.reshape(n_dim, k_dim // blocksize).t().contiguous()
+        return QuantizedLinear(
+            "nf4",
+            {"packed": pack_rows(codes.t(), 4), "absmax": absmax},
+            {"shape": (k_dim, n_dim), "blocksize": blocksize, "dtype": str(dtype).removeprefix("torch.")},
+        )
+
+    @staticmethod
+    def w8a8_from_dense(w: torch.Tensor) -> QuantizedLinear:
+        """Per-column symmetric int8 quantization of a (K, N) weight (W8A8),
+        on w's device; the activations are quantized per row in ``apply``."""
+        w = w.to(torch.float32)
+        scales = torch.clamp_min(w.abs().amax(dim=0) / 127.0, 1e-8)  # (N,)
+        w8 = torch.clamp(torch.round(w / scales), -127, 127).to(torch.int8)
+        return QuantizedLinear("w8a8", {"w8": w8, "out_scales": scales}, {})
+
+    def _product(self, x: torch.Tensor, layer_index: int | None) -> torch.Tensor:
+        if self.kind in ("int4", "int8_grouped"):
+            out = mixed_precision_gemm(
+                x, self.arrays["packed"], self.arrays["scales"], None, self.meta["bits"], self.meta["bias"],
+                self.meta["group_size"], layout=self.meta.get("layout", "gptq"), layer_index=layer_index,
+            )
+            n = self.meta.get("out_features")
+            return out if n is None else out[:, :n]
+        if self.kind == "nf4":
+            return mixed_precision_gemm(
+                x, self.arrays["packed"], self.arrays["absmax"], None, 4, 0, self.meta["blocksize"],
+                codebook=NF4_CODE, layer_index=layer_index,
+            )
+        if self.kind == "w8a8":
+            # Dynamic per-row activation quantization, as the JAX package:
+            # a division (not a reciprocal), rounding half to even.
+            xf = x.to(torch.float32)
+            a_scale = torch.clamp_min(xf.abs().amax(dim=-1), 1e-8) / 127.0
+            xq = torch.clamp(torch.round(xf / a_scale[:, None]), -127, 127).to(torch.int8)
+            return scaled_gemm(
+                xq, self.arrays["w8"], a_scale, self.arrays["out_scales"], x.dtype, layer_index=layer_index
+            )
+        w = self.arrays["w"] if layer_index is None else self.arrays["w"][layer_index]
+        return torch.matmul(x, w.to(x.dtype))
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         """``x @ W`` for (tokens, K) activations, in x's dtype (accumulated
         in f32, as the JAX package and cuBLAS do)."""
-        if self.kind == "int4":
-            return self._gemm(x, None)
-        return torch.matmul(x, self.arrays["w"].to(x.dtype))
+        return self._product(x, None)
 
     def apply_stacked(self, x: torch.Tensor, layer_index: int) -> torch.Tensor:
         """``x @ W[layer_index]`` for a stacked (L, ...) weight: the layer is
-        a view (dense) or a pointer offset (int4), so nothing is copied."""
-        if self.kind == "int4":
-            return self._gemm(x, layer_index)
-        return torch.matmul(x, self.arrays["w"][layer_index].to(x.dtype))
+        a view (dense) or a pointer offset (the kernels), so nothing is
+        copied."""
+        return self._product(x, layer_index)
+
+    def take_layer(self, layer_index: int) -> QuantizedLinear:
+        """One layer of stacked (L, ...) arrays, as views (``apply_stacked``
+        needs none)."""
+        return QuantizedLinear(self.kind, {k: v[layer_index] for k, v in self.arrays.items()}, dict(self.meta))
 
     @staticmethod
     def concat_n(qls: list[QuantizedLinear]) -> QuantizedLinear:
         """Concatenate projections along N: ``[x@W1 | x@W2 | ...]``.
 
-        Every array keeps N as its last axis (the magic packing interleaves
-        rows within a column only), so concatenating each array on its
-        last axis equals packing the concatenated weight. Raises
-        ValueError for pieces that cannot fuse: mixed kinds or metadata, or
-        pack-time N padding (padded columns would land mid-concat).
+        Every array keeps N as its last axis (the packings interleave rows
+        within a column only; w8a8's ``w8`` and ``out_scales`` are per
+        column), so concatenating each array on its last axis equals
+        quantizing the concatenated weight. Raises ValueError for pieces
+        that cannot fuse: mixed kinds or metadata, pack-time N padding
+        (padded columns would land mid-concat), or a pinned ``shape`` (nf4,
+        which the JAX package leaves unfused).
         """
         if not qls:
             raise ValueError("concat_n needs at least one projection")
         first = qls[0]
         if any(q.kind != first.kind or q.meta != first.meta for q in qls):
             raise ValueError("concat_n requires one storage kind and identical metadata")
-        if "out_features" in first.meta:
-            raise ValueError("concat_n does not support pack-time-padded projections")
+        if "out_features" in first.meta or "shape" in first.meta:
+            raise ValueError("concat_n does not support pack-time-padded or shape-pinned projections")
         arrays = {k: torch.cat([q.arrays[k] for q in qls], dim=-1) for k in first.arrays}
         return QuantizedLinear(first.kind, arrays, dict(first.meta))
 
@@ -132,8 +224,11 @@ def quantize_linear(w: torch.Tensor, mode: str, **kwargs) -> QuantizedLinear:
         return QuantizedLinear.dense(w.to(torch.bfloat16))
     if mode == "int4":
         return QuantizedLinear.int4_from_dense(w, **kwargs)
-    if mode in ("int8", "nf4", "w8a8"):
-        msg = f"quantization mode {mode!r} needs the quantized GEMM kernels (K1b/K1c/K8), which are not ported yet"
-        raise NotImplementedError(msg)
+    if mode == "int8":
+        return QuantizedLinear.int8_grouped_from_dense(w, **kwargs)
+    if mode == "nf4":
+        return QuantizedLinear.nf4_from_dense(w, **kwargs)
+    if mode == "w8a8":
+        return QuantizedLinear.w8a8_from_dense(w, **kwargs)
     msg = f"Unknown quantization mode: {mode}"
     raise ValueError(msg)

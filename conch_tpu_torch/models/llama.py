@@ -7,7 +7,7 @@ Decoder-only transformer: RMS norm (K4), NeoX RoPE (K5), GQA attention
 over a stacked paged KV pool of shape (L, P, KH, ps, D) (decode: K2 write,
 K3 attention; prefill: an indexed write, K7 attention), SwiGLU MLP (K6),
 projections through ``QuantizedLinear`` (bf16 dense: ``torch.matmul``;
-int4: K1). Where the JAX package scans the layers with ``lax.scan`` and
+int4: K1; int8: K1b; nf4: K1c; w8a8: K8). Where the JAX package scans the layers with ``lax.scan`` and
 donates the caches, the port loops over the layers in Python and updates
 the caches IN PLACE; ``llama_prefill`` and ``llama_decode_step`` still
 return them, so call sites read alike.
@@ -105,25 +105,39 @@ def _cos_sin_cache(config: LlamaConfig, device: torch.device) -> torch.Tensor:
     )
 
 
+QUANT_MODES = ("bf16", "dense", "none", "int4", "int8", "nf4", "w8a8")
+
+
+def _quant_kwargs(quant_mode: str, group_size: int, blocksize: int) -> dict:
+    """The quantizer's arguments for a projection, as the JAX package passes them."""
+    if quant_mode in ("int4", "int8"):
+        return {"group_size": group_size}
+    if quant_mode == "nf4":
+        return {"blocksize": blocksize}
+    return {}
+
+
 def init_llama_params(
     seed: int, config: LlamaConfig, quant_mode: str = "bf16", group_size: int = 128,
-    device: str | torch.device | None = None,
+    device: str | torch.device | None = None, blocksize: int = 64,
 ) -> dict:
     """Random-initialize Llama params on ``device`` (None: CUDA).
 
     Weights are drawn on the device from a ``torch.Generator`` seeded with
     ``seed`` (normal, std 0.02), one layer at a time, so a full-width model
     never passes through the host. Projections are stacked on a leading
-    layer axis: bf16 dense for ``quant_mode="bf16"``, or for ``"int4"``
-    quantized on the device from the float32 draw (uint4b8, ``group_size``,
-    magic packing, as ``QuantizedLinear.int4_from_dense``). ``lm_head``
-    stays bf16 dense in both, as in the JAX package. Norms and the
-    embedding are in ``config.dtype``.
+    layer axis: bf16 dense for ``quant_mode="bf16"``, or quantized on the
+    device from each float32 draw, as ``quantize_linear`` does it:
+    ``"int4"`` (uint4b8, ``group_size``), ``"int8"`` (uint8b128,
+    ``group_size``), ``"nf4"`` (``blocksize``, K12q) or ``"w8a8"``.
+    ``lm_head`` is stored in the same mode (nf4 at the default blocksize
+    64, as in the JAX package), except for int4, where it stays bf16
+    dense. Norms and the embedding are in ``config.dtype``.
     """
     _check_config(config)
-    if quant_mode not in ("bf16", "dense", "none", "int4"):
-        msg = f"quant_mode {quant_mode!r} needs the quantized GEMM kernels (K1b/K1c/K8), which are not ported yet"
-        raise NotImplementedError(msg)
+    if quant_mode not in QUANT_MODES:
+        msg = f"Unknown quantization mode: {quant_mode}"
+        raise ValueError(msg)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     h, inter, n_layers = config.hidden_size, config.intermediate_size, config.num_layers
@@ -133,7 +147,7 @@ def init_llama_params(
     def normal(*shape: int, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
         return (torch.randn(shape, generator=gen, device=device, dtype=torch.float32) * 0.02).to(dtype)
 
-    quant_kwargs = {"group_size": group_size} if quant_mode == "int4" else {}
+    quant_kwargs = _quant_kwargs(quant_mode, group_size, blocksize)
 
     def stacked(k_dim: int, n_dim: int) -> QuantizedLinear:
         return stack_layers(
@@ -151,13 +165,52 @@ def init_llama_params(
         "input_norm": torch.ones((n_layers, h), dtype=config.dtype, device=device),
         "post_attn_norm": torch.ones((n_layers, h), dtype=config.dtype, device=device),
     }
+    embedding = normal(config.vocab_size, h, dtype=config.dtype)
+    head_mode = "bf16" if quant_mode == "int4" else quant_mode
+    head_kwargs = {"group_size": group_size} if head_mode == "int8" else {}
     return {
-        "embedding": normal(config.vocab_size, h, dtype=config.dtype),
+        "embedding": embedding,
         "layers": layers,
         "final_norm": torch.ones((h,), dtype=config.dtype, device=device),
-        "lm_head": QuantizedLinear.dense(normal(h, config.vocab_size)),
+        "lm_head": quantize_linear(normal(h, config.vocab_size, dtype=torch.float32), head_mode, **head_kwargs),
         "cos_sin_cache": _cos_sin_cache(config, device),
     }
+
+
+def requantize_llama_params(params: dict, config: LlamaConfig, quant_mode: str, group_size: int = 128) -> dict:
+    """Rebuild a dense (bf16) param tree in ``quant_mode`` ("int4", "int8",
+    "nf4", "w8a8" or "bf16"), as ``init_llama_params`` would store it:
+    each stacked projection quantized layer by layer on its device from
+    the float32 values of its bf16 weights, ``lm_head`` in the same mode
+    (bf16 for int4). Counterpart of
+    ``conch_tpu.models.llama.requantize_llama_params``, which passes
+    ``group_size`` to int4 and int8 and the defaults to the others."""
+    if quant_mode not in QUANT_MODES:
+        msg = f"Unknown quantization mode: {quant_mode}"
+        raise ValueError(msg)
+    kwargs = {"group_size": group_size} if quant_mode in ("int4", "int8") else {}
+
+    def requant_stacked(ql: QuantizedLinear) -> QuantizedLinear:
+        if ql.kind != "dense":
+            msg = f"requantize needs dense params, got {ql.kind}"
+            raise ValueError(msg)
+        w = ql.arrays["w"]
+        layers = iter(range(w.shape[0]))
+        return stack_layers(lambda: quantize_linear(w[next(layers)].to(torch.float32), quant_mode, **kwargs), w.shape[0])
+
+    layers = dict(params["layers"])
+    for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+        layers[name] = requant_stacked(params["layers"][name])
+    head = params["lm_head"]
+    if head.kind != "dense":
+        msg = f"requantize needs a dense lm_head, got {head.kind}"
+        raise ValueError(msg)
+    head_mode = "bf16" if quant_mode == "int4" else quant_mode
+    head_kwargs = kwargs if head_mode in ("int4", "int8") else {}
+    out = dict(params)
+    out["layers"] = layers
+    out["lm_head"] = quantize_linear(head.arrays["w"].to(torch.float32), head_mode, **head_kwargs)
+    return out
 
 
 def stack_layers(make: Callable[[], QuantizedLinear], n_layers: int) -> QuantizedLinear:

@@ -71,11 +71,12 @@ def copy_package(name: str, mutant: tuple[str, str, str] | None) -> Path:
     return root
 
 
-def run_phases(root: Path) -> tuple[int, str]:
-    """Run the Gemma attention checks with ``root``'s package first on the path."""
+def run_phases(root: Path, script: str = PHASES) -> tuple[int, str]:
+    """Run ``script`` (default: the Gemma attention checks) with ``root``'s
+    package first on the path."""
     env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(root), str(REPO_ROOT)])}
     proc = subprocess.run(
-        [sys.executable, "-c", PHASES], cwd=root, env=env, capture_output=True, text=True, check=False
+        [sys.executable, "-c", script], cwd=root, env=env, capture_output=True, text=True, check=False
     )
     return proc.returncode, proc.stdout + proc.stderr
 

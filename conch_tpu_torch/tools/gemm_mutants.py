@@ -1,0 +1,104 @@
+# Copyright 2026 Conch-TPU authors.
+# SPDX-License-Identifier: Apache-2.0
+
+"""Show that the card checks of K1b, K1c, K8 and K12q can fail.
+
+    python3 -m conch_tpu_torch.tools.gemm_mutants
+
+Run from the checkout's root on one Hopper card. For each fault below, the
+tool copies the package to ``conch_tpu_torch/_build/mutants/<name>/``,
+puts the fault into the copy's CUDA source, and runs the kernel's phase of
+``chip_smoke.py`` (``kernel_phase_k1b``, ``_k1c``, ``_k8`` or ``_k12q``:
+the kernel at the served shapes and the small cases, held against its
+plain version) on the copy in a subprocess, which builds the copy's
+kernels. The unchanged package must pass all four phases and every faulty
+copy must fail a check of its phase; the tool prints each run's check lines
+and exits non-zero otherwise. The faults:
+
+- ``k1b_gptq_rows``: K1b reads the planar words as GPTQ rows (field f of
+  word row r taken as logical row r * epp + f);
+- ``k1c_codebook_ignored``: K1c dequantizes codebook codes as linear
+  integers (the NF4 table unused);
+- ``k8_scales_swapped``: K8 scales row m by sb and column n by sa (indices
+  clamped to each vector's length, so the copy reads in bounds);
+- ``k12q_nibbles_swapped``: K12q puts the even element in the low nibble.
+"""
+
+from __future__ import annotations
+
+import shutil
+import sys
+
+from conch_tpu_torch.tools.attention_mutants import BUILD_DIR, copy_package, run_phases
+
+# name -> (source file under csrc/, text, faulty text, phase)
+MUTANTS = {
+    "k1b_gptq_rows": (
+        "mixed_gemm_planar.cu",
+        "        if (row < m) lo = *reinterpret_cast<const uint2*>(xg + row * ldx + f * rpg);\n"
+        "        if (row + 8 < m) hi = *reinterpret_cast<const uint2*>(xg + (row + 8) * ldx + f * rpg);",
+        "        const __nv_bfloat16* xr = x + static_cast<int64_t>(grp) * group + (16 * u + 4 * tig) * EPP + f;\n"
+        "        auto gptq4 = [&](int64_t r) {\n"
+        "          const __nv_bfloat16* p = xr + r * ldx;\n"
+        "          return make_uint2(\n"
+        "              __bfloat16_as_ushort(p[0]) | (static_cast<uint32_t>(__bfloat16_as_ushort(p[EPP])) << 16),\n"
+        "              __bfloat16_as_ushort(p[2 * EPP]) | (static_cast<uint32_t>(__bfloat16_as_ushort(p[3 * EPP])) << 16));\n"
+        "        };\n"
+        "        if (row < m) lo = gptq4(row);\n"
+        "        if (row + 8 < m) hi = gptq4(row + 8);",
+        "kernel_phase_k1b",
+    ),
+    "k1c_codebook_ignored": (
+        "mixed_gemm_rows.cu",
+        "float w = CODEBOOK ? book[c] : static_cast<float>(c) - bias;",
+        "float w = static_cast<float>(c) - bias;",
+        "kernel_phase_k1c",
+    ),
+    "k8_scales_swapped": (
+        "scaled_gemm.cu",
+        "    const float ra = sa_scalar ? __ldg(sa) : __ldg(sa + row);\n"
+        "    const float cb = sb_scalar ? __ldg(sb) : __ldg(sb + n0 + col);",
+        "    const float ra = sb_scalar ? __ldg(sb) : __ldg(sb + min(row, n - 1));\n"
+        "    const float cb = sa_scalar ? __ldg(sa) : __ldg(sa + min(n0 + col, m - 1));",
+        "kernel_phase_k8",
+    ),
+    "k12q_nibbles_swapped": (
+        "quantize4.cu", "packed[e / 2] = static_cast<uint8_t>((hi << 4) | lo);",
+        "packed[e / 2] = static_cast<uint8_t>((lo << 4) | hi);", "kernel_phase_k12q",
+    ),
+}
+ALL_PHASES = ("kernel_phase_k1b", "kernel_phase_k1c", "kernel_phase_k8", "kernel_phase_k12q")
+
+
+def phases_script(phases: tuple[str, ...]) -> str:
+    calls = "".join(f"chip_smoke.{p}(gen)\n" for p in phases)
+    return (
+        "import torch, chip_smoke, conch_tpu_torch\n"
+        "print('package:', conch_tpu_torch.__file__, flush=True)\n"
+        "gen = torch.Generator(device='cuda').manual_seed(chip_smoke.SEED)\n"
+        "chip_smoke.build()\n" + calls
+    )
+
+
+def main() -> int:
+    ok = True
+    for name, mutant in {"unchanged": None, **MUTANTS}.items():
+        phases = ALL_PHASES if mutant is None else (mutant[3],)
+        root = copy_package(name, None if mutant is None else mutant[:3])
+        code, out = run_phases(root, phases_script(phases))
+        lines = [ln for ln in out.splitlines() if "package:" in ln or "max_abs_err" in ln or "differ" in ln
+                 or "Error" in ln]
+        # A faulty copy must fail a check, not its build or launch.
+        failed_check = code != 0 and "AssertionError" in out and "nvcc failed" not in out
+        expected = code == 0 if mutant is None else failed_check
+        ok &= expected
+        print(f"{name}: exit code {code}, {'as expected' if expected else 'NOT as expected'}", flush=True)
+        for line in lines if expected else out.splitlines()[-40:]:
+            print("   ", line, flush=True)
+    shutil.rmtree(BUILD_DIR / "mutants", ignore_errors=True)
+    print("every fault was caught" if ok else "a fault was not caught, or the unchanged package failed", flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

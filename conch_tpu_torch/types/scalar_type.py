@@ -4,10 +4,11 @@
 """Integer storage formats of the quantized weights.
 
 The port's own copy of the part of ``conch_tpu/types/scalar_type.py`` that
-the int4 path needs: sub-byte unsigned integers with a bias (GPTQ-style
-``uint4b8`` stores the values -8..7 as the codes 0..15) and their
-representable range. The minifloat formats of the original come with the
-slices that use them.
+the quantized projections need: unsigned integers of up to 8 bits with a
+bias (GPTQ-style ``uint4b8`` stores the values -8..7 as the codes 0..15,
+``uint8b128`` the values -128..127 as 0..255) and their representable
+range. The minifloat formats of the original come with the slices that
+use them.
 """
 
 from __future__ import annotations
@@ -39,4 +40,8 @@ class ScalarType:
 
 
 class scalar_types:  # noqa: N801 - the JAX package's name
+    uint4 = ScalarType.uint(4)
+    uint8 = ScalarType.uint(8)
+    uint2b2 = ScalarType.uint(2, 2)
     uint4b8 = ScalarType.uint(4, 8)
+    uint8b128 = ScalarType.uint(8, 128)

@@ -1,14 +1,15 @@
 # Copyright 2026 Conch-TPU authors.
 # SPDX-License-Identifier: Apache-2.0
 
-"""Groupwise weight quantization and the int4 "magic" packing, in torch.
+"""Groupwise weight quantization and the int32 row packings, in torch.
 
 Counterpart of ``conch_tpu/utils/quant_utils.py`` (``quantize_weights``,
-``pack_rows_magic``, ``unpack_rows_magic``). These run on any device, so
-``init_llama_params`` can quantize an 8B model on the card without passing
-it through the host. They compute in float64 and round half to even, as
-numpy does, so codes, scales and packed words are bit for bit those of
-the numpy originals from the same float32 weight.
+``pack_rows`` / ``unpack_rows`` (GPTQ rows), ``pack_rows_planar`` /
+``unpack_rows_planar`` and ``pack_rows_magic`` / ``unpack_rows_magic``).
+These run on any device, so ``init_llama_params`` can quantize an 8B model
+on the card without passing it through the host. They compute in float64
+and round half to even, as numpy does, so codes, scales and packed words
+are bit for bit those of the numpy originals from the same float32 weight.
 """
 
 from __future__ import annotations
@@ -82,3 +83,73 @@ def unpack_rows_magic(packed: torch.Tensor, size_k: int, group_size: int) -> tor
         for h in range(2):
             out[:, j, :, h] = (p >> (4 * j + 16 * h)) & 0xF
     return out.reshape(size_k, p.shape[-1])
+
+
+def get_pack_factor(num_bits: int) -> int:
+    """Codes per int32 word; the row packings take 1, 2, 4 or 8 bits."""
+    if num_bits not in (1, 2, 4, 8):
+        msg = f"the row packings take 1, 2, 4 or 8-bit codes, got {num_bits}"
+        raise ValueError(msg)
+    return 32 // num_bits
+
+
+def _pack_fields(fields: torch.Tensor, num_bits: int) -> torch.Tensor:
+    """(W, epp, N) codes -> (W, N) int32 words, field ``i`` in bits
+    ``[i*num_bits, (i+1)*num_bits)``; built byte by byte (little-endian),
+    so no intermediate wider than the codes is made."""
+    w, epp, n = fields.shape
+    per_byte = epp // 4
+    f = (fields.to(torch.uint8) & ((1 << num_bits) - 1)).reshape(w, 4, per_byte, n)
+    octets = f[:, :, 0].clone()
+    for j in range(1, per_byte):
+        octets |= f[:, :, j] << (num_bits * j)
+    return octets.permute(0, 2, 1).contiguous().view(torch.int32).reshape(w, n)
+
+
+def _unpack_fields(packed: torch.Tensor, num_bits: int) -> torch.Tensor:
+    """Inverse of :func:`_pack_fields`: (W, N) int32 -> (W, epp, N) int32 codes."""
+    w, n = packed.shape
+    per_byte = 8 // num_bits
+    octets = packed.contiguous().view(torch.uint8).reshape(w, n, 4).permute(0, 2, 1)  # (W, 4, N)
+    mask = (1 << num_bits) - 1
+    fields = torch.stack([(octets >> (num_bits * j)) & mask for j in range(per_byte)], dim=2)  # (W, 4, per_byte, N)
+    return fields.reshape(w, 4 * per_byte, n).to(torch.int32)
+
+
+def pack_rows(q_w: torch.Tensor, num_bits: int) -> torch.Tensor:
+    """Pack (K, N) codes into (K // pack_factor, N) int32 words, GPTQ rows:
+    word ``r`` holds logical row ``r * pack_factor + i`` in bit field ``i``."""
+    size_k, size_n = q_w.shape
+    epp = get_pack_factor(num_bits)
+    if size_k % epp:
+        msg = f"K={size_k} is not a multiple of the pack factor {epp}"
+        raise ValueError(msg)
+    return _pack_fields(q_w.reshape(size_k // epp, epp, size_n), num_bits)
+
+
+def unpack_rows(packed: torch.Tensor, num_bits: int, size_k: int) -> torch.Tensor:
+    """Inverse of :func:`pack_rows`; returns (K, N) int32 codes."""
+    return _unpack_fields(packed, num_bits).reshape(size_k, packed.shape[-1])
+
+
+def pack_rows_planar(q_w: torch.Tensor, num_bits: int, group_size: int) -> torch.Tensor:
+    """Pack (K, N) codes planar within each group of ``group_size`` rows:
+    word row ``r`` of a group holds the group's row ``i * rpg + r`` in bit
+    field ``i`` (``rpg = group_size / pack_factor``)."""
+    size_k, size_n = q_w.shape
+    epp = get_pack_factor(num_bits)
+    if size_k % group_size or group_size % epp:
+        msg = f"planar packing needs K % group_size == 0 and group_size % {epp} == 0 (K={size_k}, group={group_size})"
+        raise ValueError(msg)
+    rpg = group_size // epp
+    fields = q_w.reshape(size_k // group_size, epp, rpg, size_n).transpose(1, 2).reshape(-1, epp, size_n)
+    return _pack_fields(fields, num_bits)
+
+
+def unpack_rows_planar(packed: torch.Tensor, num_bits: int, size_k: int, group_size: int) -> torch.Tensor:
+    """Inverse of :func:`pack_rows_planar`; returns (K, N) int32 codes."""
+    epp = get_pack_factor(num_bits)
+    rpg = group_size // epp
+    n = packed.shape[-1]
+    fields = _unpack_fields(packed, num_bits).reshape(size_k // group_size, rpg, epp, n)
+    return fields.transpose(1, 2).reshape(size_k, n)

@@ -123,22 +123,29 @@ def test_linear_int4_concat_and_out_features_match_jax():
 
 
 def test_unported_layouts_and_kinds_raise():
+    """What the GEMM op and the projections still refuse: a stack without a
+    layer and a layer without a stack, the JAX launcher's layout checks
+    (planar or magic with a codebook, magic at other bit widths), the magic
+    layout with zero-points (not ported), and unknown kinds and modes."""
     rng = np.random.default_rng(4)
     q = _jax_int4(rng, 256, 128)
     x = torch.zeros((2, 256))
     packed, scales = _to_torch(q.arrays["packed"]), _to_torch(q.arrays["scales"])
-    for layout in ("planar", "gptq"):
-        with pytest.raises(NotImplementedError, match="K1b"):
-            mixed_precision_gemm(x, packed, scales, None, 4, 8, 128, layout=layout)
     with pytest.raises(ValueError):  # a stack without a layer, and a layer without a stack
         mixed_precision_gemm(x, packed[None], scales[None], None, 4, 8, 128, layout="magic")
     with pytest.raises(ValueError):
         mixed_precision_gemm(x, packed, scales, None, 4, 8, 128, layout="magic", layer_index=0)
-    for kind in ("int8_grouped", "nf4", "w8a8"):
-        with pytest.raises(NotImplementedError):
-            QuantizedLinear(kind, {}, {})
+    for layout in ("planar", "magic"):
+        with pytest.raises(ValueError, match="codebook"):
+            mixed_precision_gemm(x, packed, scales, None, 4, 0, 128, layout=layout, codebook=tuple(range(16)))
+    with pytest.raises(ValueError, match="magic"):
+        mixed_precision_gemm(x, packed[:16], scales, None, 2, 2, 128, layout="magic")
     with pytest.raises(NotImplementedError):
-        quantize_linear(torch.zeros((256, 128)), "nf4")
+        mixed_precision_gemm(x, packed, scales, torch.zeros(1), 4, 8, 128, layout="magic")
+    with pytest.raises(ValueError):
+        QuantizedLinear("int3", {}, {})
+    with pytest.raises(ValueError):
+        quantize_linear(torch.zeros((256, 128)), "fp6")
 
 
 def test_plain_version_counts_no_launch():

@@ -1,0 +1,108 @@
+# Copyright 2026 Conch-TPU authors.
+# SPDX-License-Identifier: Apache-2.0
+
+"""Llama in w8a8 through both engines: the port's LLMEngine against the
+JAX package's, on the same params.
+
+JAX params (``conch_tpu.models.llama.init_llama_params(0, ...,
+quant_mode="w8a8")``: 2 layers, hidden 256, 4 query heads / 1 KV head,
+head_dim 128, f32 activations, per-column int8 projections and lm_head,
+the activations quantized per row, K8's format) are carried over with
+``params_from_jax``. Both engines serve the same prompts greedily with
+``max_prefill_tokens=256`` and must give identical tokens, up to a tie.
+
+w8a8 rounds every projection's input to whole int8 steps per row, so the
+one-ulp differences between the two frameworks' f32 sums (norms,
+attention, exp) flip a few activation codes, and the flips spread: the two
+models' logits differ by up to 2e-2 (tests/test_torch_llama_quant.py). A
+greedy choice between two logits closer than that is a tie that either
+side may break. So where the two engines' tokens first differ in a
+sequence, the port's own logits on the shared prefix must hold both
+tokens within twice that tolerance of each other; the sequences then go on
+from different tokens and are compared no further.
+
+The JAX engine runs its Pallas kernels in interpret mode, where each new
+step shape costs tens of seconds of compilation, so it runs once per
+module, and its prompts are sized so that both prefill steps have one
+shape: 20 + 236 tokens, then a mixed-in decode row + the last 164 tokens
+(256 rows, longest chunk above 128, in both).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from conch_tpu.models.llama import LlamaConfig as JaxLlamaConfig
+from conch_tpu.models.llama import init_llama_params as jax_init_llama_params
+from conch_tpu.serving import EngineConfig as JaxEngineConfig
+from conch_tpu.serving import LLMEngine as JaxLLMEngine
+from conch_tpu.serving import SamplingParams as JaxSamplingParams
+from conch_tpu_torch.models.llama import (
+    LlamaConfig,
+    fuse_llama_params,
+    init_kv_caches,
+    llama_prefill,
+    params_from_jax,
+)
+from conch_tpu_torch.serving import EngineConfig, LLMEngine, SamplingParams
+
+DIMS = {
+    "vocab_size": 256, "hidden_size": 256, "intermediate_size": 512, "num_layers": 2,
+    "num_heads": 4, "num_kv_heads": 1, "head_dim": 128,
+}
+ENGINE = {"page_size": 16, "num_pages": 64, "max_batch_size": 4, "max_prefill_tokens": 256}
+TOL = 2e-2  # w8a8 logits, port vs JAX (atol and rtol), tests/test_torch_llama_quant.py
+
+
+def _last_logits(params, cfg, tokens: list[int]) -> torch.Tensor:
+    """The port's next-token logits after ``tokens``, one prefill."""
+    n, ps = len(tokens), ENGINE["page_size"]
+    pages = -(-n // ps)
+    kc, vc = init_kv_caches(cfg, pages, ps, device="cpu")
+    bt = torch.arange(pages, dtype=torch.int32)[None]
+    logits, _, _ = llama_prefill(
+        params, cfg, torch.tensor(tokens, dtype=torch.int32), torch.arange(n, dtype=torch.int32),
+        torch.tensor([0, n], dtype=torch.int32), n, torch.tensor([n], dtype=torch.int32), bt,
+        torch.arange(n, dtype=torch.int32), kc, vc,
+    )
+    return logits[0]
+
+
+@pytest.fixture(scope="module")
+def jax_params():
+    cfg = JaxLlamaConfig(**DIMS, dtype=jnp.float32)
+    params = jax_init_llama_params(0, cfg, quant_mode="w8a8")
+    return cfg, params, jax.tree.map(np.asarray, params)
+
+
+def _prompts():
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, 256, 20).tolist(), rng.integers(0, 256, 400).tolist()]
+
+
+@pytest.fixture(scope="module")
+def jax_engine_tokens(jax_params):
+    jax_cfg, params, _ = jax_params
+    engine = JaxLLMEngine(params, jax_cfg, JaxEngineConfig(**ENGINE))
+    return engine.generate(_prompts(), JaxSamplingParams(max_tokens=8))
+
+
+def test_w8a8_engine_greedy_tokens_match_jax(jax_params, jax_engine_tokens):
+    _, _, numpy_params = jax_params
+    cfg = LlamaConfig(**DIMS, dtype=torch.float32)
+    ported = params_from_jax(numpy_params, cfg, device="cpu")
+    engine = LLMEngine(ported, cfg, EngineConfig(**ENGINE), device="cpu")
+    assert engine.ecfg.max_prefill_tokens == 256
+    ours = engine.generate(_prompts(), SamplingParams(max_tokens=8))
+    fused = fuse_llama_params(ported)
+    for prompt, mine, ref in zip(_prompts(), ours, jax_engine_tokens):
+        assert len(mine) == len(ref) == 8
+        for i, (a, b) in enumerate(zip(mine, ref)):
+            if a != b:
+                logits = _last_logits(fused, cfg, prompt + ref[:i])
+                top = logits.max().item()
+                gap = abs(logits[a].item() - logits[b].item())
+                assert gap <= 2 * (TOL + TOL * abs(top)), f"token {i}: {a} vs JAX {b}, logits {gap:.4f} apart"
+                break
