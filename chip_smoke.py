@@ -37,10 +37,19 @@
      halves at 8 and 512 rows x 2 * 14336 and on parts;
    - K10a gemma_rms_norm at 8 and 512 rows x 2304, K10b gelu_tanh_and_mul
      at 8 and 512 rows x 2 * 9216 (halves and parts), f32 and bf16;
+   - K11 absorbed MLA at DeepSeek-V2-Lite's shapes (16 heads, packed
+     640, latent 512, page 16, a 27-layer latent pool read at layer 13):
+     a decode step of batch 8 at lengths 0 (an idle row) to 4000 and a
+     512-row prefill step (chunked continuations, shared pages, padding
+     sequences and rows), f32 at 2e-4 and bf16 at 3e-2 (+ the same x
+     |ref|);
 4. slice phases: the first-token logits of 2-layer full-width prefills on
    the card against the plain path on the CPU (Llama-3-8B: bf16 weights in
    f32 and bf16, int4, int8, nf4 and w8a8 weights in bf16; Gemma-2-2B: f32
-   and bf16, random norm weights); then ``LLMEngine`` at full width (random
+   and bf16, random norm weights; DeepSeek-V2-Lite, one dense and one MoE
+   layer: f32 and bf16, random norm weights, and the MoE routing compared
+   token by token, a divergence accepted only at a near tie); then
+   ``LLMEngine`` at full width (random
    weights from a seed) serving greedy requests of 32 tokens, with every
    kernel's launch count and the model steps read around the run, and the
    same requests repeated under torch.profiler (device time by kernel
@@ -57,9 +66,14 @@
      to 4600 tokens, ``EngineConfig(num_pages=4096, max_batch_size=16,
      max_pages_per_seq=320)``, through ``gemma_prefill`` and
      ``gemma_decode_step``;
+   - DeepSeek-V2-Lite bf16 (27 layers): 8 requests of 40 to 1800 tokens,
+     ``EngineConfig(num_pages=4096, max_batch_size=16,
+     max_pages_per_seq=128)``, through ``deepseek_prefill`` and
+     ``deepseek_decode_step``;
 5. prints the ``kernels`` JSON line (each row's launches from its main
    run: Gemma for the kernels it runs, int4 for K1, K4 and K6, int8, nf4
-   and w8a8 for K1b, K1c and K8, the nf4 init for K12q; every path's counts
+   and w8a8 for K1b, K1c and K8, the nf4 init for K12q, DeepSeek for K11;
+   every path's counts
    beside them), the card line, then ``{"ok": true, "device": ...}`` as the
    last line.
 
@@ -69,6 +83,7 @@ result line. Without a CUDA device it exits non-zero at once.
 
 from __future__ import annotations
 
+import gc
 import itertools
 import json
 import math
@@ -979,6 +994,91 @@ def gemma_attention_phases(gen, rng) -> dict[str, list[dict]]:
     return out
 
 
+# DeepSeek-V2-Lite (DeepseekV2Config.v2_lite()): 16 heads, packed latent
+# rows of 640 (c_kv 512 | k_pe 64 | pad 64), 27 layers, softmax scale
+# 1 / sqrt(128 + 64).
+DS_HEADS, DS_PACKED, DS_LATENT, DS_ROPE, DS_LAYERS = 16, 640, 512, 64, 27
+DS_LAYER = 13  # a non-zero layer inside the 27-layer pool
+DS_SCALE = 1.0 / math.sqrt(192)
+# K11 against its plain version: f32 at tests/mla_attention_test.py:83's
+# 2e-4; bf16 at the port's K3/K7 attention tolerance, 3e-2 + 3e-2 x |ref|.
+K11_TOLERANCES = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
+
+
+def kernel_phase_k11(gen, rng) -> dict:
+    """K11 at DeepSeek-V2-Lite's shapes over a 27-layer latent pool read at
+    layer 13, in f32 and bf16, against its plain version:
+    - a decode step of batch 8 at lengths 0 (an idle row, first) to 4000;
+    - a 512-row prefill step as the engine packs it: a mixed-in decode row
+      at context 1500, a fresh 200-token prompt, a 150-token chunk at
+      context 1800, a 100-token chunk at context 164 whose first 4 pages
+      are another sequence's, 12 zero-length padding sequences (16 in all,
+      the served run's batch) and 61 padding rows.
+    Queries and rows have zero pad columns, as the model writes them. The
+    row has the bf16 decode numbers; ``detail`` every case."""
+    from conch_tpu_torch.kernels.attention.mla_attention import (
+        mla_attention_launcher as launch,
+        mla_attention_plain as plain,
+    )
+
+    max_pages = 256
+    dec_lens = [0, 1, 17, 300, 1000, 2047, 3000, 4000]
+    pre_q = [1, 200, 150, 100] + [0] * 12
+    pre_k = [1500, 200, 1800, 164] + [0] * 12
+    rows, total = 512, sum(pre_q)
+    num_pages = sum(-(-n // PS) for n in dec_lens + pre_k) + 1
+    bt_all = paged_layout(rng, dec_lens + pre_k, num_pages, share=(10, 11), shared_pages=4, max_pages=max_pages)
+    bt_dec, bt_pre = bt_all[: len(dec_lens)], bt_all[len(dec_lens) :]
+    pool = torch.randn((DS_LAYERS, num_pages, PS, DS_PACKED), generator=gen, device="cuda")
+    pool[..., DS_LATENT + DS_ROPE :] = 0.0
+    q_all = torch.randn((len(dec_lens) + rows, DS_HEADS, DS_PACKED), generator=gen, device="cuda")
+    q_all[..., DS_LATENT + DS_ROPE :] = 0.0
+    cu_pre = np.concatenate([[0], np.cumsum(pre_q)]).astype(np.int32)
+    cases = {
+        "decode": (q_all[: len(dec_lens)], np.arange(len(dec_lens) + 1, dtype=np.int32), 1, dec_lens, bt_dec),
+        "prefill": (q_all[len(dec_lens) :], cu_pre, 256, pre_k, bt_pre),
+    }
+    detail, err_all = [], 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        layer = pool[DS_LAYER].to(dtype)
+        for case, (q, cu, max_q, kv_lens, bt) in cases.items():
+            q = q.to(dtype)
+            args = (q, layer, torch.from_numpy(cu).cuda(), max_q, torch.tensor(kv_lens, dtype=torch.int32,
+                    device="cuda"), torch.from_numpy(bt).cuda())
+            kw = {"scale": DS_SCALE, "latent": DS_LATENT}
+            got, ref = launch(*args, **kw), plain(*args, **kw)
+            torch.cuda.synchronize()
+            zero_rows = got[0] if case == "decode" else got[total:]
+            if not torch.isfinite(got).all() or zero_rows.abs().max().item() != 0.0:
+                raise AssertionError(f"K11 ({case}): idle and padding rows must come out as finite zeros")
+            err = check_close(f"K11 mla_attention {case} {dtype}", got, ref, K11_TOLERANCES[dtype])
+            err_all = max(err_all, err)
+            entry = {"case": f"{case} {str(dtype).removeprefix('torch.')}", "max_abs_err": err}
+            if dtype == torch.bfloat16:
+                q_lens = np.diff(cu).tolist()
+                visible = sum(s - ql + j + 1 for ql, s in zip(q_lens, kv_lens) for j in range(ql))
+                bytes_moved = (unique_kv_rows(bt, kv_lens) * DS_PACKED * 2 + q.numel() * 2
+                               + q.shape[0] * DS_HEADS * DS_LATENT * 2 + bt.size * 4 + (len(cu) + len(kv_lens)) * 4)
+                b_ms, b_by = bound(bytes_moved, 2 * DS_HEADS * (DS_PACKED + DS_LATENT) * visible)
+                entry.update({
+                    "bound_ms": b_ms, "bound_by": b_by, "ms": time_ms(lambda: launch(*args, **kw)),
+                    "paced_ms": paced_ms(lambda: launch(*args, **kw)),
+                    "plain_ms": time_ms(lambda: plain(*args, **kw), iters=5), "library_ms": None,
+                })
+                print(f"K11 mla_attention ({entry['case']}): {entry['ms']:.4f} ms (paced {entry['paced_ms']:.4f}, "
+                      f"plain {entry['plain_ms']:.4f}, bound {b_ms:.5f} by {b_by})", flush=True)
+            detail.append(entry)
+    del pool, q_all
+    torch.cuda.empty_cache()
+    main = next(d for d in detail if d["case"] == "decode bfloat16")
+    row = _kernel_row(
+        "mla_attention", "conch_tpu_torch/csrc/mla_attention.cu", "conch_tpu/kernels/attention/mla_attention.py:51",
+        err_all, main, main["bound_ms"], main["bound_by"],
+    )
+    row["detail"] = detail
+    return row
+
+
 def kernel_phases() -> list[dict]:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rng = np.random.default_rng(SEED)
@@ -986,7 +1086,7 @@ def kernel_phases() -> list[dict]:
         kernel_phase_k1(gen), kernel_phase_k2(gen, rng), kernel_phase_k3(gen, rng), kernel_phase_k4(gen),
         kernel_phase_k5(gen, rng), kernel_phase_k6(gen), kernel_phase_k7(gen, rng), kernel_phase_k10a(gen),
         kernel_phase_k10b(gen), kernel_phase_k1b(gen), kernel_phase_k1c(gen), kernel_phase_k8(gen),
-        kernel_phase_k12q(gen),
+        kernel_phase_k12q(gen), kernel_phase_k11(gen, rng),
     ]
     # The Gemma-2-2B shapes of K2, K3, K5 and K7 go into their rows' detail
     # beside the Llama-3-8B numbers the rows keep.
@@ -1019,6 +1119,7 @@ def _launchers() -> dict:
         gelu_tanh_and_mul_parts_launcher,
     )
     from conch_tpu_torch.kernels.activation.silu_and_mul import silu_and_mul_launcher, silu_and_mul_parts_launcher
+    from conch_tpu_torch.kernels.attention.mla_attention import mla_attention_launcher
     from conch_tpu_torch.kernels.attention.paged_attention import paged_attention_launcher
     from conch_tpu_torch.kernels.attention.varlen_attention import varlen_attention_launcher
     from conch_tpu_torch.kernels.cache.reshape_and_cache import reshape_and_cache_stacked_launcher
@@ -1047,6 +1148,7 @@ def _launchers() -> dict:
         "varlen_attention": (varlen_attention_launcher,),
         "gemma_rms_norm": (gemma_rms_norm_launcher,),
         "gelu_tanh_and_mul": (gelu_tanh_and_mul_launcher, gelu_tanh_and_mul_parts_launcher),
+        "mla_attention": (mla_attention_launcher,),
     }
 
 
@@ -1066,6 +1168,8 @@ def to_device(tree, device: str):
     """A copy of a param tree on ``device``."""
     from conch_tpu_torch.models.linear import QuantizedLinear
 
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, QuantizedLinear):
@@ -1180,6 +1284,105 @@ def check_prefill_logits(llama_cases=LLAMA_PREFILL_CASES, gemma_dtypes=(torch.fl
             raise AssertionError(f"2-layer prefill logits ({label}, {cfg.dtype}) disagree with the plain path")
 
 
+# A routing divergence between card and CPU is accepted only at a near
+# tie: where the CPU's k-th and (k+1)-th expert probabilities (of 64) lie
+# within this gap. Card and CPU round differently (summation order; in
+# bf16 the hidden state itself), which moves a probability by about 1e-7
+# in f32 and 1e-4 in bf16, against a typical gap of 1e-3.
+ROUTING_NEAR_TIE = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
+
+
+def check_deepseek_logits(dtypes=(torch.float32, torch.bfloat16)) -> None:
+    """First-token logits of a 2-layer, full-width DeepSeek-V2-Lite prefill
+    (layer 0 dense, layer 1 MoE; bf16 weights, random norm weights) on the
+    card (K4, K6, K11) against the same prefill on the CPU (plain
+    versions), in f32 and bf16 at PREFILL_TOLERANCES; and the MoE layer's
+    routing of every real token compared expert set by expert set, a
+    divergence accepted only at a near tie (ROUTING_NEAR_TIE)."""
+    import dataclasses
+
+    import conch_tpu_torch.models.deepseek as ds
+
+    rng = np.random.default_rng(SEED)
+    q_lens, rows, batch, num_pages = [24, 13], 48, 4, 8
+    total = sum(q_lens)
+    tokens = np.zeros(rows, np.int32)
+    tokens[:total] = rng.integers(0, ds.DeepseekV2Config.v2_lite().vocab_size, total)
+    positions = np.zeros(rows, np.int32)
+    positions[:total] = np.concatenate([np.arange(n) for n in q_lens])
+    bt = np.zeros((batch, MAX_PAGES_PER_SEQ), np.int32)
+    bt[0, :2], bt[1, :1] = [5, 0], [3]
+    slots = np.full(rows, -1, np.int32)
+    slots[:total] = [int(bt[b, p // PS]) * PS + p % PS for b, n in enumerate(q_lens) for p in range(n)]
+    cu = np.array([0, q_lens[0], total, total, total], np.int32)
+    seq_lens = np.array(q_lens + [0, 0], np.int32)
+    host = [torch.from_numpy(a) for a in (tokens, positions, cu, seq_lens, bt, slots)]
+
+    routes: list = []
+    route = ds.deepseek_route
+
+    def recording_route(hidden, router_w, config, bias=None):
+        weights, experts = route(hidden, router_w, config, bias=bias)
+        probs = torch.softmax(hidden.float() @ router_w.float(), dim=-1)
+        routes.append((experts[:total].cpu(), probs[:total].cpu()))
+        return weights, experts
+
+    ds.deepseek_route = recording_route
+    try:
+        for dtype in dtypes:
+            cfg = dataclasses.replace(ds.DeepseekV2Config.v2_lite(), num_layers=2, dtype=dtype)
+            params = ds.fuse_deepseek_params(ds.init_deepseek_params(SEED, cfg, device="cuda"))
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+            norms = [params["final_norm"]] + [
+                w for stack in ("layers_dense", "layers_moe") for n, w in params[stack].items() if n.endswith("_norm")
+            ]
+            for w in norms:
+                w.copy_(1.0 + 0.3 * torch.randn(w.shape, generator=gen, device="cuda"))
+            kc = ds.init_deepseek_kv_cache(cfg, num_pages, PS, device="cuda")
+            vc = torch.zeros(0, dtype=dtype, device="cuda")
+            t = [a.cuda() for a in host]
+            routes.clear()
+            logits, _, _ = ds.deepseek_prefill(params, cfg, t[0], t[1], t[2], rows, t[3], t[4], t[5], kc, vc)
+            logits = logits.cpu()
+            (card_experts, _), = routes
+            cpu_params = to_device(params, "cpu")
+            del params, kc, vc
+            torch.cuda.empty_cache()
+            routes.clear()
+            kc = ds.init_deepseek_kv_cache(cfg, num_pages, PS, device="cpu")
+            ref, _, _ = ds.deepseek_prefill(
+                cpu_params, cfg, host[0], host[1], host[2], rows, host[3], host[4], host[5], kc, torch.zeros(0)
+            )
+            (cpu_experts, cpu_probs), = routes
+            del cpu_params
+            if not torch.isfinite(logits).all() or logits.shape != (batch, cfg.vocab_size):
+                raise AssertionError(f"DeepSeek prefill logits: shape {tuple(logits.shape)} or non-finite values")
+            k = cfg.num_experts_per_tok
+            same = (card_experts.sort(dim=-1).values == cpu_experts.sort(dim=-1).values).all(dim=-1)
+            ranked = cpu_probs.sort(dim=-1, descending=True).values
+            gaps = (ranked[:, k - 1] - ranked[:, k])[~same].tolist()
+            print(f"2-layer DeepSeek-V2-Lite prefill, {dtype}: MoE routing card vs CPU: {int(same.sum())} of "
+                  f"{total} tokens route to the same {k} experts; k-th/(k+1)-th probability gaps at the "
+                  f"divergences {gaps} (near tie <= {ROUTING_NEAR_TIE[dtype]:.0e})", flush=True)
+            if any(g > ROUTING_NEAR_TIE[dtype] for g in gaps):
+                raise AssertionError(f"DeepSeek routing ({dtype}) diverges from the CPU away from a near tie")
+            tol = PREFILL_TOLERANCES[dtype]
+            err = (logits - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            if dtype == torch.float32:
+                ok = bool(((logits - ref).abs() <= tol + tol * ref.abs()).all())
+                rule = f"{tol:.0e} + {tol:.0e} * |ref| elementwise"
+            else:
+                ok = err <= tol * scale
+                rule = f"{tol:.0e} * max|ref| = {tol * scale:.3e}"
+            print(f"2-layer prefill logits, DeepSeek-V2-Lite, bf16 weights, {dtype}, card vs plain path on the CPU: "
+                  f"max_abs_err {err:.3e}, max|ref| {scale:.3f}, tolerance {rule}", flush=True)
+            if not ok:
+                raise AssertionError(f"2-layer DeepSeek prefill logits ({dtype}) disagree with the plain path")
+    finally:
+        ds.deepseek_route = route
+
+
 def bf16_prompts(rng: np.random.Generator, vocab: int) -> list[list[int]]:
     """4 prompts of 40/128/300/500 tokens; the last two share 64 tokens."""
     prefix = rng.integers(0, vocab, 64).tolist()
@@ -1208,6 +1411,11 @@ def quant_prompts(rng: np.random.Generator, vocab: int) -> list[list[int]]:
     return [rng.integers(0, vocab, n).tolist() for n in (40, 900, 64, 300, 700, 96, 450, 800)]
 
 
+def deepseek_prompts(rng: np.random.Generator, vocab: int) -> list[list[int]]:
+    """8 prompts of 40 to 1800 tokens (4450 in all)."""
+    return [rng.integers(0, vocab, n).tolist() for n in (40, 900, 64, 300, 1800, 96, 450, 800)]
+
+
 def gemma_prompts(rng: np.random.Generator, vocab: int) -> list[list[int]]:
     """8 prompts of 40 to 4600 tokens; the longest crosses the 4096 window
     of the local layers, in prefill (K7) and in decode (K3)."""
@@ -1232,6 +1440,17 @@ INT8_PER_STEP = {"mixed_gemm_planar": 4 * 32 + 1, **_LLAMA_REST}
 NF4_PER_STEP = {"mixed_gemm_rows": 7 * 32 + 1, **_LLAMA_REST}
 W8A8_PER_STEP = {"scaled_gemm": 4 * 32 + 1, **_LLAMA_REST}
 NF4_INIT_LAUNCHES = 7 * 32 + 1
+# DeepSeek-V2-Lite, 27 layers (1 dense, 26 MoE): K11 1 per layer, K4 3 per
+# layer (input, kv_a and post-attention norms) plus the final norm, K6 1
+# per layer (the fused dense gate|up, then the shared experts' gate|up;
+# the routed experts' SwiGLU is plain PyTorch, as in the JAX package). The
+# latent cache write and the interleaved RoPE are plain PyTorch too, so no
+# K2, K3, K5 or K7.
+DEEPSEEK_PER_STEP = {
+    "mla_attention": 27, "rms_norm": 3 * 27 + 1, "silu_and_mul": 27, ATTENTION: 0, "reshape_and_cache_stacked": 0,
+    "rotary_embedding": 0,
+}
+DEEPSEEK_KERNELS = ("mla_attention", "rms_norm", "silu_and_mul")
 
 
 def count_steps(engine) -> list[int]:
@@ -1262,9 +1481,15 @@ def serve(
     model step (attention: K3 and K7 together). ``init_launches``: kernels
     that the params' init must launch, with the count (counted from just
     before the init to the engine's start; returned as those kernels'
-    counts)."""
+    counts). Fails at its start if more than 1 GiB is still allocated: an
+    earlier run's model was not freed."""
     from conch_tpu_torch.serving import EngineConfig, LLMEngine, SamplingParams
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    if held > 2**30:
+        raise AssertionError(f"{held / 2**30:.1f} GiB still allocated before the {label} run: a model was not freed")
     t0 = time.perf_counter()
     reset_launch_counts()
     params = make_params(cfg)
@@ -1380,7 +1605,7 @@ LLAMA_COMMON = tuple(k for k in LLAMA_KERNELS if k != "mixed_gemm_magic")
 PRIMARY_PATH = {
     "mixed_gemm_magic": "llama3_8b_int4", "rms_norm": "llama3_8b_int4", "silu_and_mul": "llama3_8b_int4",
     "mixed_gemm_planar": "llama3_8b_int8", "mixed_gemm_rows": "llama3_8b_nf4", "quantize4": "llama3_8b_nf4",
-    "scaled_gemm": "llama3_8b_w8a8",
+    "scaled_gemm": "llama3_8b_w8a8", "mla_attention": "deepseek_v2_lite_bf16",
 }
 GEMMA_KERNELS = (
     "reshape_and_cache_stacked", "paged_attention", "rotary_embedding", "varlen_attention", "gemma_rms_norm",
@@ -1397,7 +1622,11 @@ def main() -> int:
     build()
     rows = kernel_phases()
     check_prefill_logits()
+    check_deepseek_logits()
 
+    from conch_tpu_torch.models.deepseek import (
+        DeepseekV2Config, deepseek_decode_step, deepseek_prefill, init_deepseek_params,
+    )
     from conch_tpu_torch.models.gemma import GemmaConfig, gemma_decode_step, gemma_prefill, init_gemma_params
     from conch_tpu_torch.models.llama import LlamaConfig, init_llama_params
 
@@ -1436,10 +1665,19 @@ def main() -> int:
             {"num_pages": 4096, "max_batch_size": 16, "max_pages_per_seq": 320}, gemma_prompts, GEMMA_KERNELS,
             GEMMA_PER_STEP,
         ),
+        # DeepSeek-V2-Lite at its published config, 27 layers (K11).
+        "deepseek_v2_lite_bf16": serve(
+            card, "deepseek-v2-lite", DeepseekV2Config.v2_lite(),
+            lambda cfg: init_deepseek_params(SEED, cfg, device="cuda"),
+            {"prefill_fn": deepseek_prefill, "decode_fn": deepseek_decode_step},
+            {"num_pages": 4096, "max_batch_size": 16, "max_pages_per_seq": 128}, deepseek_prompts, DEEPSEEK_KERNELS,
+            DEEPSEEK_PER_STEP,
+        ),
     }
     # ``launches``: the Gemma run for the kernels it runs, the int4 run for
     # K1, K4 and K6, the int8, nf4 and w8a8 runs for their kernels (K12q:
-    # during the nf4 init); every path's count beside it.
+    # during the nf4 init), the DeepSeek run for K11; every path's count
+    # beside it.
     for row in rows:
         by_path = {path: counts[row["name"]] for path, counts in launches.items()}
         row["launches"] = by_path[PRIMARY_PATH.get(row["name"], "gemma2_2b_bf16")]

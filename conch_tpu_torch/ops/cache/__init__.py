@@ -2,5 +2,6 @@
 # SPDX-License-Identifier: Apache-2.0
 
 from conch_tpu_torch.ops.cache.reshape_and_cache import reshape_and_cache, reshape_and_cache_stacked
+from conch_tpu_torch.ops.cache.reshape_and_cache_mla import reshape_and_cache_mla
 
-__all__ = ["reshape_and_cache", "reshape_and_cache_stacked"]
+__all__ = ["reshape_and_cache", "reshape_and_cache_mla", "reshape_and_cache_stacked"]

@@ -20,10 +20,14 @@ counts, as in the JAX package:
   discarding overshoot.
 
 The KV pool is one stacked (L, P, KH, ps, D) tensor pair updated in place
-by the model (the JAX engine donates it through its jitted steps). The
-model is Llama by default; ``prefill_fn``/``decode_fn`` swap the family
-(``models.gemma.gemma_prefill``/``gemma_decode_step``), as in the JAX
-engine.
+by the model (the JAX engine donates it through its jitted steps); a
+model config with ``kv_cache_layout == "mla"`` (DeepSeek) gets one packed
+latent cache (L, P, ps, kv_packed_dim) instead, and ``v_caches`` is an
+empty placeholder threaded through the steps untouched. The model is
+Llama by default; ``prefill_fn``/``decode_fn`` swap the family
+(``models.gemma.gemma_prefill``/``gemma_decode_step``,
+``models.deepseek.deepseek_prefill``/``deepseek_decode_step``), as in the
+JAX engine.
 
 Later slices port LoRA, tensor parallelism, speculative decoding, rolling
 KV, parallel sampling (n > 1), guided decoding, logprobs, repetition
@@ -39,6 +43,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from conch_tpu_torch.models.deepseek import deepseek_decode_step, fuse_deepseek_params
 from conch_tpu_torch.models.llama import fuse_llama_params, llama_decode_step, llama_prefill
 from conch_tpu_torch.platforms import resolve_device
 from conch_tpu_torch.serving.block_allocator import BlockAllocator
@@ -117,12 +122,15 @@ class LLMEngine:
 
     ``params`` come from ``init_llama_params``/``params_from_jax`` (or the
     Gemma counterparts, with ``prefill_fn=gemma_prefill`` and
-    ``decode_fn=gemma_decode_step``) and must lie on ``device`` (None: CUDA;
-    without a CUDA device the engine raises unless ``device="cpu"``). The
-    model functions take ``(params, config, ...)`` with the Llama steps'
-    arguments. QKV and gate|up are fused once here (``fuse_llama_params``:
-    both families share the layer schema, and pieces that cannot fuse stay
-    as they are).
+    ``decode_fn=gemma_decode_step``, or the DeepSeek ones, with
+    ``prefill_fn=deepseek_prefill`` and ``decode_fn=deepseek_decode_step``)
+    and must lie on ``device`` (None: CUDA; without a CUDA device the engine
+    raises unless ``device="cpu"``). The model functions take
+    ``(params, config, ...)`` with the Llama steps' arguments. Projections
+    that share an input are fused once here, by model family as in the JAX
+    engine: ``fuse_deepseek_params`` for DeepSeek, ``fuse_llama_params``
+    (QKV and gate|up; Llama and Gemma share the layer schema) otherwise;
+    pieces that cannot fuse stay as they are.
     """
 
     def __init__(
@@ -147,18 +155,27 @@ class LLMEngine:
             raise ValueError(msg)
         self.config = model_config
         self.ecfg = engine_config
-        self.params = fuse_llama_params(params)
+        fuse = fuse_deepseek_params if decode_fn is deepseek_decode_step else fuse_llama_params
+        self.params = fuse(params)
         self._prefill_fn = prefill_fn or llama_prefill
         self._decode_fn = decode_fn or llama_decode_step
         self.allocator = BlockAllocator(engine_config.num_pages)
         self._page_cap = engine_config.max_pages_per_seq
-        cache_shape = (
-            model_config.num_layers, engine_config.num_pages, model_config.num_kv_heads,
-            engine_config.page_size, model_config.head_dim,
-        )
         dtype = cache_dtype or model_config.dtype
-        self.k_caches = torch.zeros(cache_shape, dtype=dtype, device=self.device)
-        self.v_caches = torch.zeros(cache_shape, dtype=dtype, device=self.device)
+        if getattr(model_config, "kv_cache_layout", "kv") == "mla":
+            cache_shape = (
+                model_config.num_layers, engine_config.num_pages, engine_config.page_size,
+                model_config.kv_packed_dim,
+            )
+            self.k_caches = torch.zeros(cache_shape, dtype=dtype, device=self.device)
+            self.v_caches = torch.zeros((0,), dtype=dtype, device=self.device)
+        else:
+            cache_shape = (
+                model_config.num_layers, engine_config.num_pages, model_config.num_kv_heads,
+                engine_config.page_size, model_config.head_dim,
+            )
+            self.k_caches = torch.zeros(cache_shape, dtype=dtype, device=self.device)
+            self.v_caches = torch.zeros(cache_shape, dtype=dtype, device=self.device)
         self.waiting: list[Request] = []
         self.running: list[Request] = []
         self._next_id = 0
