@@ -43,12 +43,21 @@
      512-row prefill step (chunked continuations, shared pages, padding
      sequences and rows), f32 at 2e-4 and bf16 at 3e-2 (+ the same x
      |ref|);
+   - K9 static-scale int8 / e4m3 quantization through its public ops
+     (``scaled_int8_quant``, ``scaled_fp8_quant``) at 8 and 512 rows x
+     4096 and at 7 x 4097, from f32, bf16 and f16, byte for byte;
+   - K3 and K7 with dequantization scales over an f32 cache (2e-3);
+   - the int8 and e4m3 KV-cache branches: K2's quantizing store (byte for
+     byte) and K3 / K7 at Llama's and Gemma's shapes (softcap, window),
+     with k_scale != v_scale, and K11 over quantized latent caches, decode
+     and prefill, bf16 queries, at 3e-2 (+ 3e-2 x |ref|; K7 2e-2);
 4. slice phases: the first-token logits of 2-layer full-width prefills on
    the card against the plain path on the CPU (Llama-3-8B: bf16 weights in
    f32 and bf16, int4, int8, nf4 and w8a8 weights in bf16; Gemma-2-2B: f32
    and bf16, random norm weights; DeepSeek-V2-Lite, one dense and one MoE
    layer: f32 and bf16, random norm weights, and the MoE routing compared
-   token by token, a divergence accepted only at a near tie); then
+   token by token, a divergence accepted only at a near tie; each family
+   also in bf16 over an int8 and an e4m3 KV cache); then
    ``LLMEngine`` at full width (random
    weights from a seed) serving greedy requests of 32 tokens, with every
    kernel's launch count and the model steps read around the run, and the
@@ -70,9 +79,14 @@
      ``EngineConfig(num_pages=4096, max_batch_size=16,
      max_pages_per_seq=128)``, through ``deepseek_prefill`` and
      ``deepseek_decode_step``;
+   - over quantized KV caches (``LLMEngine(..., cache_dtype=...)``), each
+     its twin above with only the cache changed: the int4 example over an
+     int8 cache, bf16 Llama over an e4m3 cache, DeepSeek-V2-Lite over an
+     e4m3 latent cache;
 5. prints the ``kernels`` JSON line (each row's launches from its main
    run: Gemma for the kernels it runs, int4 for K1, K4 and K6, int8, nf4
-   and w8a8 for K1b, K1c and K8, the nf4 init for K12q, DeepSeek for K11;
+   and w8a8 for K1b, K1c and K8, the nf4 init for K12q, DeepSeek for K11,
+   K9's own phase for K9 (no served path runs it);
    every path's counts
    beside them), the card line, then ``{"ok": true, "device": ...}`` as the
    last line.
@@ -83,6 +97,7 @@ result line. Without a CUDA device it exits non-zero at once.
 
 from __future__ import annotations
 
+import functools
 import gc
 import itertools
 import json
@@ -220,14 +235,58 @@ def unique_kv_rows(bt: np.ndarray, kv_lens: list[int], starts: list[int] | None 
     return len(rows)
 
 
-def kernel_phase_k2(gen, rng, qh: int = QH, kh: int = KH, d: int = D, layers: int = NUM_LAYERS_POOL) -> dict:
+# Quantized KV caches in the kernel checks, and their (k_scale, v_scale):
+# k != v, so a kernel that swapped them would fail. The int8 scales put
+# N(0, 1) values over most of the int8 range.
+KV_CACHES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
+KV_SCALES = {"int8": (1 / 32, 1 / 16), "fp8": (1.5, 0.75)}
+
+
+def quant_pool(gen, num_pages: int, layers: int, kh: int, d: int, cache: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """K and V pools of N(0, 1) values through the quantizing store at
+    KV_SCALES[cache]; it clips, so no e4m3 NaN code is ever written."""
+    from conch_tpu_torch.kernels.cache.reshape_and_cache import quantize_store
+
+    shape = (layers, num_pages, kh, PS, d)
+    return tuple(
+        quantize_store(torch.randn(shape, generator=gen, device="cuda"), scale, KV_CACHES[cache])
+        for scale in KV_SCALES[cache]
+    )
+
+
+def cache_bytes(t: torch.Tensor) -> torch.Tensor:
+    """A quantized cache's raw bytes (comparable across e4m3 NaN codes)."""
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
+def kv_pools(gen, num_pages: int, layers: int, kh: int, d: int, cache: str | None):
+    """bf16 K and V pools (``make_pool``), or int8 / e4m3 ones (``quant_pool``)."""
+    return make_pool(gen, num_pages, layers, kh, d) if cache is None else quant_pool(gen, num_pages, layers, kh, d, cache)
+
+
+def with_kv_scales(fn, cache: str | None):
+    """``fn`` as it is for a bf16 pool; for an int8 / e4m3 one, called with
+    KV_SCALES[cache] as its k_scale and v_scale."""
+    if cache is None:
+        return fn
+    ks, vs = KV_SCALES[cache]
+    return functools.partial(fn, k_scale=ks, v_scale=vs)
+
+
+def kernel_phase_k2(
+    gen, rng, qh: int = QH, kh: int = KH, d: int = D, layers: int = NUM_LAYERS_POOL, cache: str | None = None
+) -> dict:
+    """K2 into a bf16 pool, or with ``cache`` ("int8", "fp8") its quantizing
+    store into such a pool at KV_SCALES[cache], held byte for byte."""
     from conch_tpu_torch.kernels.cache.reshape_and_cache import (
-        reshape_and_cache_stacked_launcher as launch,
-        reshape_and_cache_stacked_plain as plain,
+        reshape_and_cache_stacked_launcher as launch_kv,
+        reshape_and_cache_stacked_plain as plain_kv,
     )
 
     num_pages, batch = 256, 8
-    kc, vc = make_pool(gen, num_pages, layers, kh, d)
+    kc, vc = kv_pools(gen, num_pages, layers, kh, d, cache)
+    launch, plain = with_kv_scales(launch_kv, cache), with_kv_scales(plain_kv, cache)
+
     # Decode batch of 8 taken from a fused qkv row block (strided k, v);
     # row 3 is idle (slot -1); rows 5 and 6 write the same page.
     qkv = torch.randn((batch, (qh + 2 * kh) * d), generator=gen, device="cuda").to(torch.bfloat16)
@@ -243,8 +302,12 @@ def kernel_phase_k2(gen, rng, qh: int = QH, kh: int = KH, d: int = D, layers: in
     plain(k, v, kc_ref, vc_ref, slot_t, LAYER)
     launch(k, v, kc, vc, slot_t, LAYER)
     torch.cuda.synchronize()
-    err = max((kc.float() - kc_ref.float()).abs().max().item(), (vc.float() - vc_ref.float()).abs().max().item())
-    check(f"K2 reshape_and_cache_stacked KH={kh} D={d}", err, 0.0)
+    if cache is None:
+        err = max((kc.float() - kc_ref.float()).abs().max().item(), (vc.float() - vc_ref.float()).abs().max().item())
+        check(f"K2 reshape_and_cache_stacked KH={kh} D={d}", err, 0.0)
+    else:
+        err = float(sum(int((cache_bytes(a) != cache_bytes(b)).sum()) for a, b in ((kc, kc_ref), (vc, vc_ref))))
+        check(f"K2 reshape_and_cache_stacked {cache} store KH={kh} D={d}: bytes differing", err, 0.0)
     valid = torch.from_numpy(np.nonzero(slots >= 0)[0]).cuda()
     vp = torch.from_numpy(slots[slots >= 0] // PS).long().cuda()
     ve = torch.from_numpy(slots[slots >= 0] % PS).long().cuda()
@@ -255,7 +318,8 @@ def kernel_phase_k2(gen, rng, qh: int = QH, kh: int = KH, d: int = D, layers: in
         vc[LAYER, vp, :, ve] = vv_valid
 
     n_valid = int((slots >= 0).sum())
-    bytes_moved = 2 * (2 * n_valid * kh * d * 2) + batch * 4
+    # K and V rows: read in bf16, written in the cache's element size.
+    bytes_moved = 2 * n_valid * kh * d * (2 + kc.element_size()) + batch * 4
     bound_ms, bound_by = bound(bytes_moved, 0)
     return {
         "name": "reshape_and_cache_stacked", "route": "cuda", "source": "conch_tpu_torch/csrc/reshape_and_cache.cu",
@@ -263,7 +327,8 @@ def kernel_phase_k2(gen, rng, qh: int = QH, kh: int = KH, d: int = D, layers: in
         "ms": time_ms(lambda: launch(k, v, kc, vc, slot_t, LAYER)),
         "paced_ms": paced_ms(lambda: launch(k, v, kc, vc, slot_t, LAYER)),
         "plain_ms": time_ms(lambda: plain(k, v, kc, vc, slot_t, LAYER)),
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": time_ms(library),
+        # One indexed assignment writes the bf16 rows; no single PyTorch call quantizes on store.
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": time_ms(library) if cache is None else None,
     }
 
 
@@ -300,14 +365,17 @@ def kernel_phase_k5(gen, rng, qh: int = QH, kh: int = KH, d: int = D, theta: flo
     }
 
 
-def kernel_phase_k3(gen, rng) -> dict:
+def kernel_phase_k3(gen, rng, cache: str | None = None) -> dict:
+    """K3 at Llama-3-8B's shapes over a bf16 pool, or over an int8 / e4m3
+    one (``cache``) with KV_SCALES[cache] (held at 3e-2 + 3e-2 x |ref|)."""
     from conch_tpu_torch.kernels.attention.paged_attention import (
-        paged_attention_launcher as launch,
-        paged_attention_plain as plain,
+        paged_attention_launcher as launch_kv,
+        paged_attention_plain as plain_kv,
     )
 
     num_pages = 512
-    kc, vc = make_pool(gen, num_pages)
+    kc, vc = kv_pools(gen, num_pages, NUM_LAYERS_POOL, KH, D, cache)
+    launch, plain = with_kv_scales(launch_kv, cache), with_kv_scales(plain_kv, cache)
     # Idle row 0 (seq_len 0), lengths off page multiples, and sequence 5
     # reading the first 4 pages of sequence 4 (a shared 64-token prefix).
     seq_lens = [0, 1, 17, 64, 200, 333, 511, 540]
@@ -322,10 +390,14 @@ def kernel_phase_k3(gen, rng) -> dict:
     torch.cuda.synchronize()
     if not torch.isfinite(out_k).all() or out_k[0].abs().max().item() != 0.0:
         raise AssertionError("K3: the idle row must come out as finite zeros")
-    err = (out_k.float() - out_p.float()).abs().max().item()
-    check("K3 paged_attention", err, 3e-2)
+    if cache is None:
+        err = (out_k.float() - out_p.float()).abs().max().item()
+        check("K3 paged_attention", err, 3e-2)
+    else:
+        err = check_close(f"K3 paged_attention {cache} cache", out_k, out_p, 3e-2)
     rows = unique_kv_rows(bt, seq_lens)
-    bytes_moved = 2 * q.numel() * 2 + 2 * rows * KH * D * 2 + sum(-(-n // PS) for n in seq_lens) * 4 + batch * 4
+    bytes_moved = (2 * q.numel() * 2 + 2 * rows * KH * D * kc.element_size() + sum(-(-n // PS) for n in seq_lens) * 4
+                   + batch * 4)
     bound_ms, bound_by = bound(bytes_moved, 4 * QH * D * sum(seq_lens))
     return {
         "name": "paged_attention", "route": "cuda", "source": "conch_tpu_torch/csrc/paged_attention.cu",
@@ -337,14 +409,17 @@ def kernel_phase_k3(gen, rng) -> dict:
     }
 
 
-def kernel_phase_k7(gen, rng) -> dict:
+def kernel_phase_k7(gen, rng, cache: str | None = None) -> dict:
+    """K7 at Llama-3-8B's shapes over a bf16 pool, or over an int8 / e4m3
+    one (``cache``) with KV_SCALES[cache] (held at 2e-2 + 2e-2 x |ref|)."""
     from conch_tpu_torch.kernels.attention.varlen_attention import (
-        varlen_attention_launcher as launch,
-        varlen_attention_plain as plain,
+        varlen_attention_launcher as launch_kv,
+        varlen_attention_plain as plain_kv,
     )
 
     num_pages = 512
-    kc, vc = make_pool(gen, num_pages)
+    kc, vc = kv_pools(gen, num_pages, NUM_LAYERS_POOL, KH, D, cache)
+    launch, plain = with_kv_scales(launch_kv, cache), with_kv_scales(plain_kv, cache)
     # A 128-row prefill step as the engine packs it: a mixed-in decode row
     # (context 300), a fresh 50-token prompt, the last 40-token chunk of a
     # 340-token prompt, a 30-token chunk whose first 4 pages are shared with
@@ -364,11 +439,15 @@ def kernel_phase_k7(gen, rng) -> dict:
     torch.cuda.synchronize()
     if not torch.isfinite(out_k).all() or out_k[total:].abs().max().item() != 0.0:
         raise AssertionError("K7: padding rows must come out as finite zeros")
-    err = (out_k.float() - out_p.float()).abs().max().item()
-    check("K7 varlen_attention", err, 2e-2)
+    if cache is None:
+        err = (out_k.float() - out_p.float()).abs().max().item()
+        check("K7 varlen_attention", err, 2e-2)
+    else:
+        err = check_close(f"K7 varlen_attention {cache} cache", out_k, out_p, 2e-2)
     kv_rows = unique_kv_rows(bt, seq_lens)
     row_kv = [s - ql + j + 1 for ql, s in zip(q_lens, seq_lens) for j in range(ql)]
-    bytes_moved = (total + rows) * QH * D * 2 + 2 * kv_rows * KH * D * 2 + bt.size * 4 + (len(cu) + len(seq_lens)) * 4
+    bytes_moved = ((total + rows) * QH * D * 2 + 2 * kv_rows * KH * D * kc.element_size() + bt.size * 4
+                   + (len(cu) + len(seq_lens)) * 4)
     bound_ms, bound_by = bound(bytes_moved, 4 * QH * D * sum(row_kv))
     return {
         "name": "varlen_attention", "route": "cuda", "source": "conch_tpu_torch/csrc/varlen_attention.cu",
@@ -902,7 +981,7 @@ def kernel_phase_k10b(gen) -> dict:
     return row
 
 
-def gemma_attention_phases(gen, rng) -> dict[str, list[dict]]:
+def gemma_attention_phases(gen, rng, cache: str | None = None) -> dict[str, list[dict]]:
     """K3 and K7 at Gemma-2-2B's shapes (QH 8 / KH 4 / D 256, a 26-layer pool
     read at layer 17, softcap 50, scale 1/16), on a global layer (no window)
     and a local one (window 4096), with lengths past the window:
@@ -920,14 +999,16 @@ def gemma_attention_phases(gen, rng) -> dict[str, list[dict]]:
     ``tol + tol * |ref|``, as the JAX tests hold them. A kernel that drops
     the softcap, caps before the scale, or ignores the window fails these
     checks (``python3 -m conch_tpu_torch.tools.attention_mutants``).
-    Returns detail entries (timed, with bounds) for each kernel's row."""
+    With ``cache`` ("int8", "fp8") the pool is quantized and read at
+    KV_SCALES[cache]. Returns detail entries (timed, with bounds) for each
+    kernel's row."""
     from conch_tpu_torch.kernels.attention.paged_attention import (
-        paged_attention_launcher as k3,
-        paged_attention_plain as k3_plain,
+        paged_attention_launcher as k3_kv,
+        paged_attention_plain as k3_plain_kv,
     )
     from conch_tpu_torch.kernels.attention.varlen_attention import (
-        varlen_attention_launcher as k7,
-        varlen_attention_plain as k7_plain,
+        varlen_attention_launcher as k7_kv,
+        varlen_attention_plain as k7_plain_kv,
     )
 
     max_pages = 384
@@ -935,7 +1016,9 @@ def gemma_attention_phases(gen, rng) -> dict[str, list[dict]]:
     pre_q = [1, 7, 400] + [0] * 13
     pre_k = [4200, 7, 4600] + [0] * 13
     num_pages = sum(-(-n // PS) for n in dec_lens + pre_k) + 1
-    kc, vc = make_pool(gen, num_pages, G_LAYERS, G_KH, G_D)
+    kc, vc = kv_pools(gen, num_pages, G_LAYERS, G_KH, G_D, cache)
+    k3, k3_plain, k7, k7_plain = (with_kv_scales(fn, cache) for fn in (k3_kv, k3_plain_kv, k7_kv, k7_plain_kv))
+    elem = kc.element_size()
     # Pages are drawn for both steps from one permutation, so decode and
     # prefill read disjoint pages of the same pool.
     bt_all = paged_layout(rng, dec_lens + pre_k, num_pages, share=(0, 5), shared_pages=8, max_pages=max_pages)
@@ -949,7 +1032,7 @@ def gemma_attention_phases(gen, rng) -> dict[str, list[dict]]:
            torch.from_numpy(bt_pre).cuda()]
     out: dict[str, list[dict]] = {"paged_attention": [], "varlen_attention": []}
     for window in (0, G_WINDOW):
-        tag = f"gemma2 softcap {G_SOFTCAP:g} window {window}"
+        tag = f"gemma2 softcap {G_SOFTCAP:g} window {window}" + (f" {cache} cache" if cache else "")
         args = (q_dec, kc, vc, *dec, G_SCALE, LAYER, G_SOFTCAP, window)
         got, ref = k3(*args), k3_plain(*args)
         torch.cuda.synchronize()
@@ -958,7 +1041,7 @@ def gemma_attention_phases(gen, rng) -> dict[str, list[dict]]:
         err = check_close(f"K3 paged_attention {tag}", got, ref, 3e-2)
         starts = [max(n - window, 0) if window else 0 for n in dec_lens]
         visible = sum(n - a for n, a in zip(dec_lens, starts))
-        bytes_moved = (2 * q_dec.numel() * 2 + 2 * unique_kv_rows(bt_dec, dec_lens, starts) * G_KH * G_D * 2
+        bytes_moved = (2 * q_dec.numel() * 2 + 2 * unique_kv_rows(bt_dec, dec_lens, starts) * G_KH * G_D * elem
                        + sum(-(-n // PS) for n in dec_lens) * 4 + len(dec_lens) * 4)
         b_ms, b_by = bound(bytes_moved, 4 * G_QH * G_D * visible)
         out["paged_attention"].append({
@@ -977,7 +1060,7 @@ def gemma_attention_phases(gen, rng) -> dict[str, list[dict]]:
         row_start = [max(p - window + 1, 0) if window else 0 for p in row_pos]
         # A sequence's first row has the earliest window start.
         starts = [max(s - ql - window + 1, 0) if window else 0 for ql, s in zip(pre_q, pre_k)]
-        bytes_moved = ((total + rows) * G_QH * G_D * 2 + 2 * unique_kv_rows(bt_pre, pre_k, starts) * G_KH * G_D * 2
+        bytes_moved = ((total + rows) * G_QH * G_D * 2 + 2 * unique_kv_rows(bt_pre, pre_k, starts) * G_KH * G_D * elem
                        + bt_pre.size * 4 + (len(cu) + len(pre_k)) * 4)
         b_ms, b_by = bound(bytes_moved, 4 * G_QH * G_D * sum(p + 1 - a for p, a in zip(row_pos, row_start)))
         out["varlen_attention"].append({
@@ -1005,7 +1088,7 @@ DS_SCALE = 1.0 / math.sqrt(192)
 K11_TOLERANCES = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
 
 
-def kernel_phase_k11(gen, rng) -> dict:
+def kernel_phase_k11(gen, rng, cache: str | None = None) -> dict:
     """K11 at DeepSeek-V2-Lite's shapes over a 27-layer latent pool read at
     layer 13, in f32 and bf16, against its plain version:
     - a decode step of batch 8 at lengths 0 (an idle row, first) to 4000;
@@ -1015,7 +1098,10 @@ def kernel_phase_k11(gen, rng) -> dict:
       are another sequence's, 12 zero-length padding sequences (16 in all,
       the served run's batch) and 61 padding rows.
     Queries and rows have zero pad columns, as the model writes them. The
-    row has the bf16 decode numbers; ``detail`` every case."""
+    row has the bf16 decode numbers; ``detail`` every case. With ``cache``
+    ("int8", "fp8") the latent pool is quantized at kv_scale
+    KV_SCALES[cache][0] and read by bf16 queries (the kernel's only
+    query type over such a cache)."""
     from conch_tpu_torch.kernels.attention.mla_attention import (
         mla_attention_launcher as launch,
         mla_attention_plain as plain,
@@ -1031,6 +1117,11 @@ def kernel_phase_k11(gen, rng) -> dict:
     bt_dec, bt_pre = bt_all[: len(dec_lens)], bt_all[len(dec_lens) :]
     pool = torch.randn((DS_LAYERS, num_pages, PS, DS_PACKED), generator=gen, device="cuda")
     pool[..., DS_LATENT + DS_ROPE :] = 0.0
+    kv_scale = 1.0 if cache is None else KV_SCALES[cache][0]
+    if cache is not None:
+        from conch_tpu_torch.kernels.cache.reshape_and_cache import quantize_store
+
+        pool = quantize_store(pool, kv_scale, KV_CACHES[cache])
     q_all = torch.randn((len(dec_lens) + rows, DS_HEADS, DS_PACKED), generator=gen, device="cuda")
     q_all[..., DS_LATENT + DS_ROPE :] = 0.0
     cu_pre = np.concatenate([[0], np.cumsum(pre_q)]).astype(np.int32)
@@ -1039,25 +1130,26 @@ def kernel_phase_k11(gen, rng) -> dict:
         "prefill": (q_all[len(dec_lens) :], cu_pre, 256, pre_k, bt_pre),
     }
     detail, err_all = [], 0.0
-    for dtype in (torch.float32, torch.bfloat16):
-        layer = pool[DS_LAYER].to(dtype)
+    for dtype in (torch.float32, torch.bfloat16) if cache is None else (torch.bfloat16,):
+        layer = pool[DS_LAYER].to(dtype) if cache is None else pool[DS_LAYER]
         for case, (q, cu, max_q, kv_lens, bt) in cases.items():
             q = q.to(dtype)
             args = (q, layer, torch.from_numpy(cu).cuda(), max_q, torch.tensor(kv_lens, dtype=torch.int32,
                     device="cuda"), torch.from_numpy(bt).cuda())
-            kw = {"scale": DS_SCALE, "latent": DS_LATENT}
+            kw = {"scale": DS_SCALE, "latent": DS_LATENT, "kv_scale": kv_scale}
             got, ref = launch(*args, **kw), plain(*args, **kw)
             torch.cuda.synchronize()
             zero_rows = got[0] if case == "decode" else got[total:]
             if not torch.isfinite(got).all() or zero_rows.abs().max().item() != 0.0:
                 raise AssertionError(f"K11 ({case}): idle and padding rows must come out as finite zeros")
-            err = check_close(f"K11 mla_attention {case} {dtype}", got, ref, K11_TOLERANCES[dtype])
+            tag = f"{case} {str(dtype).removeprefix('torch.')}" + (f" {cache} cache" if cache else "")
+            err = check_close(f"K11 mla_attention {tag}", got, ref, K11_TOLERANCES[dtype])
             err_all = max(err_all, err)
-            entry = {"case": f"{case} {str(dtype).removeprefix('torch.')}", "max_abs_err": err}
+            entry = {"case": tag, "max_abs_err": err}
             if dtype == torch.bfloat16:
                 q_lens = np.diff(cu).tolist()
                 visible = sum(s - ql + j + 1 for ql, s in zip(q_lens, kv_lens) for j in range(ql))
-                bytes_moved = (unique_kv_rows(bt, kv_lens) * DS_PACKED * 2 + q.numel() * 2
+                bytes_moved = (unique_kv_rows(bt, kv_lens) * DS_PACKED * layer.element_size() + q.numel() * 2
                                + q.shape[0] * DS_HEADS * DS_LATENT * 2 + bt.size * 4 + (len(cu) + len(kv_lens)) * 4)
                 b_ms, b_by = bound(bytes_moved, 2 * DS_HEADS * (DS_PACKED + DS_LATENT) * visible)
                 entry.update({
@@ -1070,13 +1162,140 @@ def kernel_phase_k11(gen, rng) -> dict:
             detail.append(entry)
     del pool, q_all
     torch.cuda.empty_cache()
-    main = next(d for d in detail if d["case"] == "decode bfloat16")
+    main = next(d for d in detail if d["case"].startswith("decode bfloat16"))
     row = _kernel_row(
         "mla_attention", "conch_tpu_torch/csrc/mla_attention.cu", "conch_tpu/kernels/attention/mla_attention.py:51",
         err_all, main, main["bound_ms"], main["bound_by"],
     )
     row["detail"] = detail
     return row
+
+
+# K9 at a decode batch and a prefill chunk of Llama-3-8B's hidden size, and
+# at a hidden size off the TPU kernel's 128 lanes whose element count
+# leaves a tail past the kernel's 8-element loads; from f32, bf16 and f16.
+K9_SHAPES = ((8, HIDDEN), (512, HIDDEN), (7, 4097))
+K9_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+K9_SCALE = 0.37  # here x * f32(1 / scale) and x / scale truncate differently on some inputs
+
+
+def kernel_phase_k9(gen) -> dict:
+    """K9 through its public ops (``scaled_int8_quant``, ``scaled_fp8_quant``),
+    its only callers: every K9_SHAPES x K9_DTYPES input of N(0, 100^2)
+    values (past both ranges) to int8 and to e4m3, held byte for byte
+    against the plain versions. No model calls K9, so its launches are
+    those of these public-op calls (counted from 0 just before them). The
+    row has the int8 numbers at 512 x 4096 bf16; ``detail`` int8 and fp8
+    at 8 and 512 rows."""
+    from conch_tpu_torch.kernels.quantization.fp8 import (
+        static_scaled_fp8_quant_launcher as fp8_kernel,
+        static_scaled_fp8_quant_plain as fp8_plain,
+    )
+    from conch_tpu_torch.kernels.quantization.int8 import (
+        static_scaled_int8_quant_launcher as int8_kernel,
+        static_scaled_int8_quant_plain as int8_plain,
+    )
+    from conch_tpu_torch.ops.quantization import scaled_fp8_quant, scaled_int8_quant
+
+    scale = torch.tensor([K9_SCALE], device="cuda")
+    inputs = {
+        (r, h, dt): (100.0 * torch.randn((r, h), generator=gen, device="cuda")).to(dt)
+        for r, h in K9_SHAPES for dt in K9_DTYPES
+    }
+    ops = {"int8": (scaled_int8_quant, int8_plain, int8_kernel), "fp8": (scaled_fp8_quant, fp8_plain, fp8_kernel)}
+    int8_kernel.launches = fp8_kernel.launches = 0
+    outs = {(kind, key): op(x, scale)[0] for kind, (op, _, _) in ops.items() for key, x in inputs.items()}
+    torch.cuda.synchronize()
+    launches = int8_kernel.launches + fp8_kernel.launches
+    if launches != len(outs):
+        raise AssertionError(f"K9: {launches} launches for {len(outs)} public-op calls")
+    differing = 0
+    for (kind, key), out in outs.items():
+        ref = ops[kind][1](inputs[key], scale)
+        if out.dtype != ref.dtype or out.shape != ref.shape:
+            raise AssertionError(f"K9 {kind} {key}: {out.dtype} {tuple(out.shape)}, expected {ref.dtype}")
+        differing += int((cache_bytes(out) != cache_bytes(ref)).sum())
+    check(f"K9 static_scaled_quant, {len(outs)} cases: bytes differing", float(differing), 0.0)
+    detail = []
+    for kind, (_, plain, kernel) in ops.items():
+        for rows in (8, 512):
+            x = inputs[(rows, HIDDEN, torch.bfloat16)]
+            b_ms, b_by = bound(x.numel() * 3 + 4, 2 * x.numel(), F32_OPS_PER_S)
+            detail.append({
+                "case": f"{kind} {rows}x{HIDDEN} bf16", "max_abs_err": 0.0, "bound_ms": b_ms, "bound_by": b_by,
+                "ms": time_ms(lambda: kernel(x, scale)), "paced_ms": paced_ms(lambda: kernel(x, scale)),
+                "plain_ms": time_ms(lambda: plain(x, scale)), "library_ms": None,
+            })
+    for d in detail:
+        print(f"K9 {d['case']}: {d['ms']:.4f} ms (paced {d['paced_ms']:.4f}, plain {d['plain_ms']:.4f}, "
+              f"bound {d['bound_ms']:.5f} by {d['bound_by']})", flush=True)
+    main = detail[1]
+    row = _kernel_row(
+        "static_scaled_quant", "conch_tpu_torch/csrc/static_quant.cu",
+        "conch_tpu/kernels/quantization/int8.py:22; conch_tpu/kernels/quantization/fp8.py:25", float(differing),
+        main, main["bound_ms"], main["bound_by"],
+    )
+    row["detail"] = detail
+    row["phase_launches"] = launches
+    return row
+
+
+def check_attention_scales(gen) -> None:
+    """K3 and K7 apply the dequantization scales over a plain f32 cache
+    (``kv_cache_dtype`` "auto"), as the JAX kernels do: f32, batch 2, QH 4 /
+    KH 1 / D 128, page 16, 8 pages, seq_lens [37, 50], k_scale 2, v_scale 3,
+    and for K7 five causal query rows (cu_seqlens_q [0, 2, 5]) and q_scale
+    1.5, held against the plain versions at the JAX tests' f32 2e-3."""
+    from conch_tpu_torch.kernels.attention.paged_attention import (
+        paged_attention_launcher as k3,
+        paged_attention_plain as k3_plain,
+    )
+    from conch_tpu_torch.kernels.attention.varlen_attention import (
+        varlen_attention_launcher as k7,
+        varlen_attention_plain as k7_plain,
+    )
+
+    kc, vc = (torch.randn((1, 8, 1, PS, D), generator=gen, device="cuda") for _ in range(2))
+    bt = torch.tensor([[0, 1, 2, 0], [3, 4, 5, 6]], dtype=torch.int32, device="cuda")
+    sl = torch.tensor([37, 50], dtype=torch.int32, device="cuda")
+    scale, scales = 1.0 / math.sqrt(D), {"k_scale": 2.0, "v_scale": 3.0}
+    q = torch.randn((2, 4, D), generator=gen, device="cuda")
+    args = (q, kc, vc, bt, sl, scale, 0)
+    check_close("K3 paged_attention f32 cache, k_scale 2, v_scale 3", k3(*args, **scales), k3_plain(*args, **scales),
+                2e-3)
+    q = torch.randn((5, 4, D), generator=gen, device="cuda")
+    cu = torch.tensor([0, 2, 5], dtype=torch.int32, device="cuda")
+    args, scales = (q, kc, vc, cu, sl, bt, scale, True, 0), {**scales, "q_scale": 1.5}
+    check_close("K7 varlen_attention f32 cache, q_scale 1.5, k_scale 2, v_scale 3", k7(*args, **scales),
+                k7_plain(*args, **scales), 2e-3)
+
+
+def quantized_cache_phases(gen, rng, by_name: dict) -> None:
+    """The int8 and e4m3 branches of K2, K3, K7 and K11, each against its
+    plain version on the card, as detail entries of those kernels' rows:
+    K2's store at Llama-3-8B's and Gemma-2-2B's shapes, K3 and K7 at
+    Llama's and at Gemma's (softcap 50, with and without the 4096 window),
+    K11 at DeepSeek-V2-Lite's decode and 512-row prefill steps."""
+    for cache in KV_CACHES:
+        found = {
+            "reshape_and_cache_stacked": [
+                {**kernel_phase_k2(gen, rng, cache=cache), "case": f"{cache} store, Llama KH {KH} D {D}"},
+                {**kernel_phase_k2(gen, rng, G_QH, G_KH, G_D, G_LAYERS, cache), "case": f"{cache} store, gemma2"},
+            ],
+            "paged_attention": [{**kernel_phase_k3(gen, rng, cache), "case": f"{cache} cache, Llama"}],
+            "varlen_attention": [{**kernel_phase_k7(gen, rng, cache), "case": f"{cache} cache, Llama"}],
+            "mla_attention": kernel_phase_k11(gen, rng, cache)["detail"],
+        }
+        for name, cases in gemma_attention_phases(gen, rng, cache).items():
+            found[name] += cases
+        for name, cases in found.items():
+            for case in cases:
+                kept = {k: v for k, v in case.items() if k not in ("name", "route", "source", "replaces", "detail")}
+                by_name[name].setdefault("detail", []).append(kept)
+                if name == "reshape_and_cache_stacked" or "Llama" in kept["case"]:  # the others print their own
+                    print(f"{name} ({kept['case']}): {kept['ms']:.4f} ms (paced {kept['paced_ms']:.4f}, plain "
+                          f"{kept['plain_ms']:.4f}, bound {kept['bound_ms']:.5f} by {kept['bound_by']})", flush=True)
+        torch.cuda.empty_cache()
 
 
 def kernel_phases() -> list[dict]:
@@ -1086,7 +1305,7 @@ def kernel_phases() -> list[dict]:
         kernel_phase_k1(gen), kernel_phase_k2(gen, rng), kernel_phase_k3(gen, rng), kernel_phase_k4(gen),
         kernel_phase_k5(gen, rng), kernel_phase_k6(gen), kernel_phase_k7(gen, rng), kernel_phase_k10a(gen),
         kernel_phase_k10b(gen), kernel_phase_k1b(gen), kernel_phase_k1c(gen), kernel_phase_k8(gen),
-        kernel_phase_k12q(gen), kernel_phase_k11(gen, rng),
+        kernel_phase_k12q(gen), kernel_phase_k11(gen, rng), kernel_phase_k9(gen),
     ]
     # The Gemma-2-2B shapes of K2, K3, K5 and K7 go into their rows' detail
     # beside the Llama-3-8B numbers the rows keep.
@@ -1102,6 +1321,8 @@ def kernel_phases() -> list[dict]:
             if name in ("reshape_and_cache_stacked", "rotary_embedding"):
                 print(f"{name} (gemma2 KH {G_KH} D {G_D}): {case['ms']:.4f} ms (paced {case['paced_ms']:.4f}, plain "
                       f"{case['plain_ms']:.4f}, bound {case['bound_ms']:.5f} by {case['bound_by']})", flush=True)
+    check_attention_scales(gen)
+    quantized_cache_phases(gen, rng, by_name)
     for r in rows:
         print(
             f"{r['name']}: {r['ms']:.4f} ms (paced {r['paced_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
@@ -1127,6 +1348,8 @@ def _launchers() -> dict:
     from conch_tpu_torch.kernels.normalization.gemma_rms_norm import gemma_rms_norm_launcher
     from conch_tpu_torch.kernels.normalization.rms_norm import rms_norm_launcher
     from conch_tpu_torch.kernels.quantization.bitsandbytes.blockwise import quantize4_launcher
+    from conch_tpu_torch.kernels.quantization.fp8 import static_scaled_fp8_quant_launcher
+    from conch_tpu_torch.kernels.quantization.int8 import static_scaled_int8_quant_launcher
     from conch_tpu_torch.kernels.quantization.gemm import (
         mixed_gemm_magic_launcher,
         mixed_gemm_planar_launcher,
@@ -1149,6 +1372,7 @@ def _launchers() -> dict:
         "gemma_rms_norm": (gemma_rms_norm_launcher,),
         "gelu_tanh_and_mul": (gelu_tanh_and_mul_launcher, gelu_tanh_and_mul_parts_launcher),
         "mla_attention": (mla_attention_launcher,),
+        "static_scaled_quant": (static_scaled_int8_quant_launcher, static_scaled_fp8_quant_launcher),
     }
 
 
@@ -1205,20 +1429,28 @@ def random_norm_weights(params: dict, gen: torch.Generator) -> dict:
     return params
 
 
+# (weights, activation dtype, KV cache dtype; None: the activation dtype).
 LLAMA_PREFILL_CASES = (
-    ("bf16", torch.float32), ("bf16", torch.bfloat16), ("int4", torch.bfloat16), ("int8", torch.bfloat16),
-    ("nf4", torch.bfloat16), ("w8a8", torch.bfloat16),
+    ("bf16", torch.float32, None), ("bf16", torch.bfloat16, None), ("int4", torch.bfloat16, None),
+    ("int8", torch.bfloat16, None), ("nf4", torch.bfloat16, None), ("w8a8", torch.bfloat16, None),
+    ("bf16", torch.bfloat16, torch.int8), ("bf16", torch.bfloat16, torch.float8_e4m3fn),
+)
+GEMMA_PREFILL_CASES = (
+    (torch.float32, None), (torch.bfloat16, None), (torch.bfloat16, torch.int8),
+    (torch.bfloat16, torch.float8_e4m3fn),
 )
 
 
-def check_prefill_logits(llama_cases=LLAMA_PREFILL_CASES, gemma_dtypes=(torch.float32, torch.bfloat16)) -> None:
+def check_prefill_logits(llama_cases=LLAMA_PREFILL_CASES, gemma_cases=GEMMA_PREFILL_CASES) -> None:
     """First-token logits of a 2-layer, full-width prefill on the card
     (kernels) against the same prefill on the CPU (plain versions), for
     Llama-3-8B (bf16 weights in f32 and in bf16, then int4 (K1), int8 (K1b),
     nf4 (K1c, init through K12q) and w8a8 (K8) weights in bf16, the only
-    activation dtype those kernels take on the card) and Gemma-2-2B (bf16
-    weights in f32 and bf16, random norm weights, the window cut to 16 so
-    that layer 0's mask bites in these 24- and 13-token prompts);
+    activation dtype those kernels take on the card; bf16 weights over an
+    int8 and an e4m3 KV cache, quantized on store at ``kv_cache_scale``)
+    and Gemma-2-2B (bf16 weights in f32 and bf16, and over int8 and e4m3
+    caches in bf16, random norm weights, the window cut to 16 so that layer
+    0's mask bites in these 24- and 13-token prompts);
     PREFILL_TOLERANCES."""
     import dataclasses
 
@@ -1243,29 +1475,32 @@ def check_prefill_logits(llama_cases=LLAMA_PREFILL_CASES, gemma_dtypes=(torch.fl
     seq_lens = np.array(q_lens + [0, 0], np.int32)
     host = [torch.from_numpy(a) for a in (tokens, positions, cu, seq_lens, bt, slots)]
 
-    def llama(quant_mode, dtype):
-        cfg = dataclasses.replace(LlamaConfig.llama3_8b(), num_layers=2, dtype=dtype)
-        return f"Llama-3-8B, {quant_mode} weights", cfg, llama_prefill, lambda: fuse_llama_params(
-            init_llama_params(SEED, cfg, quant_mode=quant_mode, device="cuda"))
+    def cache_tag(cache):
+        return "" if cache is None else f", {str(cache).removeprefix('torch.')} KV cache"
 
-    def gemma(dtype):
+    def llama(quant_mode, dtype, cache):
+        cfg = dataclasses.replace(LlamaConfig.llama3_8b(), num_layers=2, dtype=dtype)
+        return f"Llama-3-8B, {quant_mode} weights{cache_tag(cache)}", cfg, cache, llama_prefill, lambda: (
+            fuse_llama_params(init_llama_params(SEED, cfg, quant_mode=quant_mode, device="cuda")))
+
+    def gemma(dtype, cache):
         cfg = dataclasses.replace(GemmaConfig.gemma2_2b(), num_layers=2, sliding_window=16, dtype=dtype)
         gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-        return "Gemma-2-2B, bf16 weights", cfg, gemma_prefill, lambda: fuse_llama_params(
+        return f"Gemma-2-2B, bf16 weights{cache_tag(cache)}", cfg, cache, gemma_prefill, lambda: fuse_llama_params(
             random_norm_weights(init_gemma_params(SEED, cfg, device="cuda"), gen))
 
-    cases = [llama(mode, dtype) for mode, dtype in llama_cases] + [gemma(dtype) for dtype in gemma_dtypes]
-    for label, cfg, prefill, make_params in cases:
+    cases = [llama(*case) for case in llama_cases] + [gemma(*case) for case in gemma_cases]
+    for label, cfg, cache, prefill, make_params in cases:
         tol = W8A8_PREFILL_TOLERANCE if "w8a8" in label else PREFILL_TOLERANCES[cfg.dtype]
         params = make_params()
-        kc, vc = init_kv_caches(cfg, num_pages, PS, device="cuda")
+        kc, vc = init_kv_caches(cfg, num_pages, PS, cache_dtype=cache, device="cuda")
         t = [a.cuda() for a in host]
         logits, _, _ = prefill(params, cfg, t[0], t[1], t[2], rows, t[3], t[4], t[5], kc, vc)
         logits = logits.cpu()
         cpu_params = to_device(params, "cpu")
         del params, kc, vc
         torch.cuda.empty_cache()
-        kc, vc = init_kv_caches(cfg, num_pages, PS, device="cpu")
+        kc, vc = init_kv_caches(cfg, num_pages, PS, cache_dtype=cache, device="cpu")
         ref, _, _ = prefill(cpu_params, cfg, host[0], host[1], host[2], rows, host[3], host[4], host[5], kc, vc)
         del cpu_params
         if not torch.isfinite(logits).all() or logits.shape != (batch, cfg.vocab_size):
@@ -1292,13 +1527,20 @@ def check_prefill_logits(llama_cases=LLAMA_PREFILL_CASES, gemma_dtypes=(torch.fl
 ROUTING_NEAR_TIE = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
 
 
-def check_deepseek_logits(dtypes=(torch.float32, torch.bfloat16)) -> None:
+DEEPSEEK_PREFILL_CASES = (
+    (torch.float32, None), (torch.bfloat16, None), (torch.bfloat16, torch.int8),
+    (torch.bfloat16, torch.float8_e4m3fn),
+)
+
+
+def check_deepseek_logits(cases=DEEPSEEK_PREFILL_CASES) -> None:
     """First-token logits of a 2-layer, full-width DeepSeek-V2-Lite prefill
     (layer 0 dense, layer 1 MoE; bf16 weights, random norm weights) on the
     card (K4, K6, K11) against the same prefill on the CPU (plain
-    versions), in f32 and bf16 at PREFILL_TOLERANCES; and the MoE layer's
-    routing of every real token compared expert set by expert set, a
-    divergence accepted only at a near tie (ROUTING_NEAR_TIE)."""
+    versions), in f32 and bf16, and in bf16 over int8 and e4m3 latent
+    caches, at PREFILL_TOLERANCES; and the MoE layer's routing of every
+    real token compared expert set by expert set, a divergence accepted
+    only at a near tie (ROUTING_NEAR_TIE)."""
     import dataclasses
 
     import conch_tpu_torch.models.deepseek as ds
@@ -1329,7 +1571,8 @@ def check_deepseek_logits(dtypes=(torch.float32, torch.bfloat16)) -> None:
 
     ds.deepseek_route = recording_route
     try:
-        for dtype in dtypes:
+        for dtype, cache in cases:
+            tag = f"{dtype}" + ("" if cache is None else f", {str(cache).removeprefix('torch.')} latent cache")
             cfg = dataclasses.replace(ds.DeepseekV2Config.v2_lite(), num_layers=2, dtype=dtype)
             params = ds.fuse_deepseek_params(ds.init_deepseek_params(SEED, cfg, device="cuda"))
             gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -1338,7 +1581,7 @@ def check_deepseek_logits(dtypes=(torch.float32, torch.bfloat16)) -> None:
             ]
             for w in norms:
                 w.copy_(1.0 + 0.3 * torch.randn(w.shape, generator=gen, device="cuda"))
-            kc = ds.init_deepseek_kv_cache(cfg, num_pages, PS, device="cuda")
+            kc = ds.init_deepseek_kv_cache(cfg, num_pages, PS, dtype=cache, device="cuda")
             vc = torch.zeros(0, dtype=dtype, device="cuda")
             t = [a.cuda() for a in host]
             routes.clear()
@@ -1349,7 +1592,7 @@ def check_deepseek_logits(dtypes=(torch.float32, torch.bfloat16)) -> None:
             del params, kc, vc
             torch.cuda.empty_cache()
             routes.clear()
-            kc = ds.init_deepseek_kv_cache(cfg, num_pages, PS, device="cpu")
+            kc = ds.init_deepseek_kv_cache(cfg, num_pages, PS, dtype=cache, device="cpu")
             ref, _, _ = ds.deepseek_prefill(
                 cpu_params, cfg, host[0], host[1], host[2], rows, host[3], host[4], host[5], kc, torch.zeros(0)
             )
@@ -1361,11 +1604,11 @@ def check_deepseek_logits(dtypes=(torch.float32, torch.bfloat16)) -> None:
             same = (card_experts.sort(dim=-1).values == cpu_experts.sort(dim=-1).values).all(dim=-1)
             ranked = cpu_probs.sort(dim=-1, descending=True).values
             gaps = (ranked[:, k - 1] - ranked[:, k])[~same].tolist()
-            print(f"2-layer DeepSeek-V2-Lite prefill, {dtype}: MoE routing card vs CPU: {int(same.sum())} of "
+            print(f"2-layer DeepSeek-V2-Lite prefill, {tag}: MoE routing card vs CPU: {int(same.sum())} of "
                   f"{total} tokens route to the same {k} experts; k-th/(k+1)-th probability gaps at the "
                   f"divergences {gaps} (near tie <= {ROUTING_NEAR_TIE[dtype]:.0e})", flush=True)
             if any(g > ROUTING_NEAR_TIE[dtype] for g in gaps):
-                raise AssertionError(f"DeepSeek routing ({dtype}) diverges from the CPU away from a near tie")
+                raise AssertionError(f"DeepSeek routing ({tag}) diverges from the CPU away from a near tie")
             tol = PREFILL_TOLERANCES[dtype]
             err = (logits - ref).abs().max().item()
             scale = ref.abs().max().item()
@@ -1375,10 +1618,10 @@ def check_deepseek_logits(dtypes=(torch.float32, torch.bfloat16)) -> None:
             else:
                 ok = err <= tol * scale
                 rule = f"{tol:.0e} * max|ref| = {tol * scale:.3e}"
-            print(f"2-layer prefill logits, DeepSeek-V2-Lite, bf16 weights, {dtype}, card vs plain path on the CPU: "
+            print(f"2-layer prefill logits, DeepSeek-V2-Lite, bf16 weights, {tag}, card vs plain path on the CPU: "
                   f"max_abs_err {err:.3e}, max|ref| {scale:.3f}, tolerance {rule}", flush=True)
             if not ok:
-                raise AssertionError(f"2-layer DeepSeek prefill logits ({dtype}) disagree with the plain path")
+                raise AssertionError(f"2-layer DeepSeek prefill logits ({tag}) disagree with the plain path")
     finally:
         ds.deepseek_route = route
 
@@ -1495,6 +1738,9 @@ def serve(
     params = make_params(cfg)
     engine = LLMEngine(params, cfg, EngineConfig(**engine_kwargs), **model_fns)
     del params
+    cache_dtype = model_fns.get("cache_dtype", cfg.dtype)
+    if engine.k_caches.dtype != cache_dtype:
+        raise AssertionError(f"{label}: the engine's cache is {engine.k_caches.dtype}, asked for {cache_dtype}")
     torch.cuda.synchronize()
     at_init = read_launch_counts()
     print(f"{label} engine ready in {time.perf_counter() - t0:.1f} s ({engine.ecfg}), "
@@ -1607,6 +1853,9 @@ PRIMARY_PATH = {
     "mixed_gemm_planar": "llama3_8b_int8", "mixed_gemm_rows": "llama3_8b_nf4", "quantize4": "llama3_8b_nf4",
     "scaled_gemm": "llama3_8b_w8a8", "mla_attention": "deepseek_v2_lite_bf16",
 }
+# K9's callers are its public ops: its row's launches are those of its
+# kernel phase, and it launches on no served path.
+PHASE_PATH_KERNELS = ("static_scaled_quant",)
 GEMMA_KERNELS = (
     "reshape_and_cache_stacked", "paged_attention", "rotary_embedding", "varlen_attention", "gemma_rms_norm",
     "gelu_tanh_and_mul",
@@ -1634,6 +1883,8 @@ def main() -> int:
         return lambda cfg: init_llama_params(SEED, cfg, quant_mode=quant_mode, device="cuda")
 
     llama_cfg = LlamaConfig.llama3_8b()
+    deepseek_fns = {"prefill_fn": deepseek_prefill, "decode_fn": deepseek_decode_step}
+    deepseek_engine = {"num_pages": 4096, "max_batch_size": 16, "max_pages_per_seq": 128}
     launches = {
         "llama3_8b_bf16": serve(
             card, "bf16", llama_cfg, llama("bf16"), {},
@@ -1668,19 +1919,41 @@ def main() -> int:
         # DeepSeek-V2-Lite at its published config, 27 layers (K11).
         "deepseek_v2_lite_bf16": serve(
             card, "deepseek-v2-lite", DeepseekV2Config.v2_lite(),
+            lambda cfg: init_deepseek_params(SEED, cfg, device="cuda"), deepseek_fns,
+            deepseek_engine, deepseek_prompts, DEEPSEEK_KERNELS, DEEPSEEK_PER_STEP,
+        ),
+        # Quantized KV caches (kv_cache_scale 1/16): each run is its bf16-cache
+        # twin above with only the cache changed. The README's int4 example
+        # over an int8 cache (BASELINE.json, "INT4 weight-only + INT8 KV
+        # cache"); bf16 weights over an e4m3 cache (BASELINE.json, "FP8 KV
+        # cache"); DeepSeek-V2-Lite over an e4m3 latent cache.
+        "llama3_8b_int4_kv_int8": serve(
+            card, "int4-kv-int8", llama_cfg, llama("int4"), {"cache_dtype": torch.int8},
+            {"num_pages": 4096, "max_batch_size": 32}, int4_prompts, LLAMA_KERNELS, LLAMA_PER_STEP,
+        ),
+        "llama3_8b_bf16_kv_fp8": serve(
+            card, "bf16-kv-fp8", llama_cfg, llama("bf16"), {"cache_dtype": torch.float8_e4m3fn},
+            {"page_size": 16, "num_pages": 2048, "max_batch_size": 8, "max_prefill_tokens": 128}, bf16_prompts,
+            LLAMA_COMMON, {k: v for k, v in LLAMA_PER_STEP.items() if k != "mixed_gemm_magic"},
+        ),
+        "deepseek_v2_lite_kv_fp8": serve(
+            card, "deepseek-v2-lite-kv-fp8", DeepseekV2Config.v2_lite(),
             lambda cfg: init_deepseek_params(SEED, cfg, device="cuda"),
-            {"prefill_fn": deepseek_prefill, "decode_fn": deepseek_decode_step},
-            {"num_pages": 4096, "max_batch_size": 16, "max_pages_per_seq": 128}, deepseek_prompts, DEEPSEEK_KERNELS,
-            DEEPSEEK_PER_STEP,
+            {**deepseek_fns, "cache_dtype": torch.float8_e4m3fn}, deepseek_engine, deepseek_prompts,
+            DEEPSEEK_KERNELS, DEEPSEEK_PER_STEP,
         ),
     }
     # ``launches``: the Gemma run for the kernels it runs, the int4 run for
     # K1, K4 and K6, the int8, nf4 and w8a8 runs for their kernels (K12q:
-    # during the nf4 init), the DeepSeek run for K11; every path's count
-    # beside it.
+    # during the nf4 init), the DeepSeek run for K11, K9's phase for K9;
+    # every path's count beside it (the quantized-cache runs' K2, K3, K7
+    # and K11 among them).
     for row in rows:
         by_path = {path: counts[row["name"]] for path, counts in launches.items()}
-        row["launches"] = by_path[PRIMARY_PATH.get(row["name"], "gemma2_2b_bf16")]
+        if row["name"] in PHASE_PATH_KERNELS:
+            row["launches"] = row.pop("phase_launches")
+        else:
+            row["launches"] = by_path[PRIMARY_PATH.get(row["name"], "gemma2_2b_bf16")]
         row["launches_by_path"] = by_path
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} was never launched on its main path")

@@ -15,7 +15,16 @@
 //      template flag, so the loop without softcap compiles as before it);
 //   3. one warp per head rescales the running max and sum;
 //   4. each thread owns D / NTHREADS output columns for all G heads and
-//      accumulates p . V in registers.
+//      accumulates p . V in registers;
+//   5. the normalized f32 output is multiplied by v_scale before the cast.
+//
+// The cache element type C is a template parameter apart from the query
+// type T: bf16 or f32 as the query, or an int8 / e4m3 cache quantized on
+// store (K2). Its elements convert to f32 exactly as they are read; the
+// dequantization scales fold into two scalars, as in the TPU kernels:
+// the caller passes scale * q_scale * k_scale as `scale`, and v_scale
+// multiplies the output. An e4m3 NaN code (0x7F, 0xFF) reads as NaN; the
+// store never writes one (it clips to +-448).
 //
 // The caller turns causality and a sliding window into the range: every
 // key in it is visible, so each tile holds at least one visible key, the
@@ -45,10 +54,10 @@ struct PagedKV {
   int head_size;
 };
 
-template <typename T, bool SOFTCAP>
+template <typename T, typename C, bool SOFTCAP>
 __device__ void attend_group(const T* __restrict__ q_rows, int64_t q_head_stride, T* __restrict__ out_rows,
                              int64_t out_head_stride, const PagedKV& kv, int kv_head, int kv_start, int kv_len,
-                             int group, float scale, float softcap) {
+                             int group, float scale, float softcap, float v_scale) {
   __shared__ float q_s[kMaxGroup * kMaxHeadSize];
   __shared__ float p_s[kMaxGroup * kAttnTile];
   __shared__ int64_t row_s[kAttnTile];
@@ -60,8 +69,8 @@ __device__ void attend_group(const T* __restrict__ q_rows, int64_t q_head_stride
   const int warp = tid / 32;
   const int lane = tid % 32;
   const int d_size = kv.head_size;
-  const T* k_layer = static_cast<const T*>(kv.k_layer);
-  const T* v_layer = static_cast<const T*>(kv.v_layer);
+  const C* k_layer = static_cast<const C*>(kv.k_layer);
+  const C* v_layer = static_cast<const C*>(kv.v_layer);
 
   for (int i = tid; i < group * d_size; i += kAttnThreads) {
     const int g = i / d_size;
@@ -89,7 +98,7 @@ __device__ void attend_group(const T* __restrict__ q_rows, int64_t q_head_stride
     __syncthreads();
 
     for (int j = warp; j < n; j += kAttnWarps) {
-      const T* k_row = k_layer + row_s[j];
+      const C* k_row = k_layer + row_s[j];
       float part[kMaxGroup];
 #pragma unroll
       for (int g = 0; g < kMaxGroup; ++g) part[g] = 0.0f;
@@ -158,7 +167,7 @@ __device__ void attend_group(const T* __restrict__ q_rows, int64_t q_head_stride
       for (int g = 0; g < kMaxGroup; ++g) {
         if (g < group) {
           const float l = l_s[g];
-          out_rows[g * out_head_stride + d] = from_float<T>(l > 0.0f ? acc[g][c] / l : 0.0f);
+          out_rows[g * out_head_stride + d] = from_float<T>(l > 0.0f ? acc[g][c] / l * v_scale : 0.0f);
         }
       }
     }

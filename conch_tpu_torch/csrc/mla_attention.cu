@@ -29,7 +29,12 @@
 // log-sum-exp. Rounding follows the TPU kernel on a bf16 cache: bf16 q
 // and rows into the tensor cores, f32 scores, p rounded to bf16 for the
 // PV product, f32 accumulation; the f32 cache (the tests' dtype) takes a
-// CUDA-core path with the same blocks, f32 throughout.
+// CUDA-core path with the same blocks, f32 throughout. int8 and e4m3
+// latent caches (quantized on store, with bf16 queries) go through the
+// bf16 kernel: their rows convert to bf16 as they enter shared memory,
+// exactly (both types fit bf16's 8-bit mantissa and its exponent range),
+// and kv_scale folds into the score scale and the output as in the TPU
+// kernel; the tensor-core stages are those of the bf16 cache.
 //
 // Rows past cu_seqlens_q[batch] are padding. They come out as the TPU
 // launcher leaves them: its clamped gather gives padding row t the output
@@ -196,6 +201,17 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
+// Eight one-byte cache elements (int8 or e4m3) as eight bf16, exactly.
+template <typename C>
+__device__ __forceinline__ uint4 widen8_bf16(uint2 raw) {
+  const C* e = reinterpret_cast<const C*>(&raw);
+  uint4 out;
+  __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(&out);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) o[i] = __float2bfloat16(to_float(e[i]));
+  return out;
+}
+
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* ptr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -224,8 +240,8 @@ struct MlaBf16Smem {
 // bf16 kernel: MT m16 row tiles (16 * MT packed rows) per block, 8 warps.
 // S phase: warp w computes rows of m-tile w % MT against 8 / MT n8 tiles
 // of keys. PV phase: warp w owns latent columns [w * latent / 8, (w + 1) *
-// latent / 8) for every row.
-template <int MT>
+// latent / 8) for every row. C: the cache element type (bf16, int8, e4m3).
+template <int MT, typename C>
 __global__ void __launch_bounds__(kMlaThreads, 1) mla_bf16_kernel(const MlaParams p) {
   using Smem = MlaBf16Smem<MT>;
   constexpr int kRows = Smem::kRows;
@@ -293,7 +309,7 @@ __global__ void __launch_bounds__(kMlaThreads, 1) mla_bf16_kernel(const MlaParam
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
 
-  const __nv_bfloat16* cache = static_cast<const __nv_bfloat16*>(p.cache);
+  const C* cache = static_cast<const C*>(p.cache);
   const uint32_t* q32 = reinterpret_cast<const uint32_t*>(q_s);
   const uint32_t* kv32 = reinterpret_cast<const uint32_t*>(kv_s);
   const uint32_t* p32 = reinterpret_cast<const uint32_t*>(p_s);
@@ -310,7 +326,13 @@ __global__ void __launch_bounds__(kMlaThreads, 1) mla_bf16_kernel(const MlaParam
       const int c = idx % chunks;
       const int64_t off = row_s[j];
       // Rows past n are zero-filled: their p is 0, and 0 * garbage could be NaN.
-      cp_async16(kv_s + j * stride + c * 8, off >= 0 ? cache + off + c * 8 : cache, off >= 0 ? 16 : 0);
+      if constexpr (std::is_same_v<C, __nv_bfloat16>) {
+        cp_async16(kv_s + j * stride + c * 8, off >= 0 ? cache + off + c * 8 : cache, off >= 0 ? 16 : 0);
+      } else {
+        const uint4 v = off >= 0 ? widen8_bf16<C>(*reinterpret_cast<const uint2*>(cache + off + c * 8))
+                                 : make_uint4(0, 0, 0, 0);
+        *reinterpret_cast<uint4*>(kv_s + j * stride + c * 8) = v;
+      }
     }
     cp_async_wait_all();
     __syncthreads();
@@ -618,15 +640,23 @@ int launch_merge(const MlaParams& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int MT>
+template <int MT, typename C>
 int launch_bf16(const MlaParams& p, cudaStream_t stream) {
   const size_t smem = MlaBf16Smem<MT>::bytes(p.packed);
-  cudaError_t err = cudaFuncSetAttribute(mla_bf16_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t err = cudaFuncSetAttribute(mla_bf16_kernel<MT, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((p.max_seqlen_q * p.heads + 16 * MT - 1) / (16 * MT), p.batch, p.nsplit);
-  mla_bf16_kernel<MT><<<grid, kMlaThreads, smem, stream>>>(p);
+  mla_bf16_kernel<MT, C><<<grid, kMlaThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// bf16 queries over a cache of element type C, in MT m-tiles a block.
+template <typename C>
+int launch_bf16_tiles(const MlaParams& p, int m_tiles, cudaStream_t stream) {
+  if (m_tiles == 4) return launch_bf16<4, C>(p, stream);
+  if (m_tiles == 1) return launch_bf16<1, C>(p, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 int launch_f32(const MlaParams& p, cudaStream_t stream) {
@@ -643,12 +673,14 @@ int launch_f32(const MlaParams& p, cudaStream_t stream) {
 
 // m_tiles: 16-row m tiles a bf16 block takes (1 or 4); f32 blocks take 16
 // rows. nsplit > 1 needs part_acc and part_ml and runs the merge kernel
-// after the split blocks.
+// after the split blocks. dtype: the query's and output's (bf16 or f32);
+// cache_dtype: the cache's, the query's own or, under bf16 queries, int8
+// or e4m3.
 extern "C" int conch_mla_attention(const void* query, void* out, const void* cache, const void* cu_seqlens_q,
                                    const void* seq_lens, const void* block_table, void* part_acc, void* part_ml,
                                    int total_q, int batch, int max_pages, int heads, int page_size, int packed,
                                    int latent, int max_seqlen_q, int causal, int split_len, int nsplit, int m_tiles,
-                                   float scale, float v_scale, int dtype, void* stream) {
+                                   float scale, float v_scale, int dtype, int cache_dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (total_q == 0 || batch == 0) return static_cast<int>(cudaSuccess);
   if (packed % 128 != 0 || latent % 128 != 0 || latent > 512 || latent > packed || max_seqlen_q < 1 ||
@@ -680,15 +712,17 @@ extern "C" int conch_mla_attention(const void* query, void* out, const void* cac
   p.v_scale = v_scale;
   int code;
   if (dtype == conch::kBFloat16) {
-    if (m_tiles == 4) {
-      code = conch::launch_bf16<4>(p, s);
-    } else if (m_tiles == 1) {
-      code = conch::launch_bf16<1>(p, s);
+    if (cache_dtype == conch::kBFloat16) {
+      code = conch::launch_bf16_tiles<__nv_bfloat16>(p, m_tiles, s);
+    } else if (cache_dtype == conch::kInt8) {
+      code = conch::launch_bf16_tiles<int8_t>(p, m_tiles, s);
+    } else if (cache_dtype == conch::kFloat8E4M3) {
+      code = conch::launch_bf16_tiles<__nv_fp8_e4m3>(p, m_tiles, s);
     } else {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     if (code == 0 && nsplit > 1) code = conch::launch_merge<__nv_bfloat16>(p, s);
-  } else if (dtype == conch::kFloat32) {
+  } else if (dtype == conch::kFloat32 && cache_dtype == conch::kFloat32) {
     code = conch::launch_f32(p, s);
     if (code == 0 && nsplit > 1) code = conch::launch_merge<float>(p, s);
   } else {

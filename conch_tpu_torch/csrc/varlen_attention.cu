@@ -20,18 +20,22 @@
 // write zeros and read no cache; zero-length sequences own no rows.
 // Softcap (> 0) caps the scaled logits. A sliding window (> 0) anchors at
 // the row's own position q_pos, causal or not: the row sees keys from
-// q_pos - window + 1, and its walk starts there.
+// q_pos - window + 1, and its walk starts there. Quantized caches (int8,
+// e4m3) convert exactly as they are read; `scale` carries scale * q_scale
+// * k_scale and v_scale multiplies the output, as the TPU kernel folds
+// them (:750-753).
 
 #include "attention_common.cuh"
 
 namespace conch {
 
-template <typename T, bool SOFTCAP>
+template <typename T, typename C, bool SOFTCAP>
 __global__ void varlen_prefill_kernel(const T* __restrict__ query, T* __restrict__ out, const void* k_layer,
                                       const void* v_layer, const int32_t* __restrict__ cu_seqlens_q,
                                       const int32_t* __restrict__ seq_lens, const int32_t* __restrict__ block_table,
                                       int batch, int max_pages, int num_q_heads, int num_kv_heads, int page_size,
-                                      int head_size, float scale, float softcap, int window, int causal) {
+                                      int head_size, float scale, float softcap, int window, int causal,
+                                      float v_scale) {
   const int t = blockIdx.x;
   const int kv_head = blockIdx.y;
   const int group = num_q_heads / num_kv_heads;
@@ -58,22 +62,8 @@ __global__ void varlen_prefill_kernel(const T* __restrict__ query, T* __restrict
     bt_row = block_table + static_cast<int64_t>(b) * max_pages;
   }
   const PagedKV kv{k_layer, v_layer, bt_row, num_kv_heads, page_size, head_size};
-  attend_group<T, SOFTCAP>(query + row, head_size, out + row, head_size, kv, kv_head, kv_start, kv_len, group,
-                           scale, softcap);
-}
-
-template <typename T>
-void launch_varlen(const void* query, void* out, const void* k_layer, const void* v_layer, const void* cu_seqlens_q,
-                   const void* seq_lens, const void* block_table, int total_q, int batch, int max_pages,
-                   int num_q_heads, int num_kv_heads, int page_size, int head_size, float scale, float softcap,
-                   int window, int causal, cudaStream_t stream) {
-  dim3 grid(total_q, num_kv_heads);
-  auto kernel = softcap > 0.0f ? varlen_prefill_kernel<T, true> : varlen_prefill_kernel<T, false>;
-  kernel<<<grid, kAttnThreads, 0, stream>>>(
-      static_cast<const T*>(query), static_cast<T*>(out), k_layer, v_layer,
-      static_cast<const int32_t*>(cu_seqlens_q), static_cast<const int32_t*>(seq_lens),
-      static_cast<const int32_t*>(block_table), batch, max_pages, num_q_heads, num_kv_heads, page_size, head_size,
-      scale, softcap, window, causal);
+  attend_group<T, C, SOFTCAP>(query + row, head_size, out + row, head_size, kv, kv_head, kv_start, kv_len, group,
+                              scale, softcap, v_scale);
 }
 
 }  // namespace conch
@@ -82,23 +72,25 @@ extern "C" int conch_varlen_attention(const void* query, void* out, const void* 
                                       const void* cu_seqlens_q, const void* seq_lens, const void* block_table,
                                       int total_q, int batch, int max_pages, int num_q_heads, int num_kv_heads,
                                       int page_size, int head_size, float scale, float softcap, int window,
-                                      int causal, int dtype, void* stream) {
+                                      int causal, float v_scale, int dtype, int cache_dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (total_q == 0) return static_cast<int>(cudaSuccess);
   if (num_q_heads % num_kv_heads != 0 || num_q_heads / num_kv_heads > conch::kMaxGroup ||
       head_size > conch::kMaxHeadSize) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtype == conch::kBFloat16) {
-    conch::launch_varlen<__nv_bfloat16>(query, out, k_layer, v_layer, cu_seqlens_q, seq_lens, block_table, total_q,
-                                        batch, max_pages, num_q_heads, num_kv_heads, page_size, head_size, scale,
-                                        softcap, window, causal, s);
-  } else if (dtype == conch::kFloat32) {
-    conch::launch_varlen<float>(query, out, k_layer, v_layer, cu_seqlens_q, seq_lens, block_table, total_q, batch,
-                                max_pages, num_q_heads, num_kv_heads, page_size, head_size, scale, softcap,
-                                window, causal, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const dim3 grid(total_q, num_kv_heads);
+  const bool known = conch::dispatch_act_cache(dtype, cache_dtype, [&](auto q_tag, auto c_tag) {
+    using T = typename decltype(q_tag)::type;
+    using C = typename decltype(c_tag)::type;
+    auto kernel =
+        softcap > 0.0f ? conch::varlen_prefill_kernel<T, C, true> : conch::varlen_prefill_kernel<T, C, false>;
+    kernel<<<grid, conch::kAttnThreads, 0, s>>>(
+        static_cast<const T*>(query), static_cast<T*>(out), k_layer, v_layer,
+        static_cast<const int32_t*>(cu_seqlens_q), static_cast<const int32_t*>(seq_lens),
+        static_cast<const int32_t*>(block_table), batch, max_pages, num_q_heads, num_kv_heads, page_size, head_size,
+        scale, softcap, window, causal, v_scale);
+  });
+  if (!known) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

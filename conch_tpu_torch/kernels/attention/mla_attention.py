@@ -8,7 +8,10 @@ The kernel is ``csrc/mla_attention.cu``; it replaces
 launcher. It is bound by bytes at decode and by operations at prefill;
 one block per (sequence, tile of packed (token, head) rows) reads each
 cached row once for every head, and the KV range is split across blocks
-(merged by log-sum-exp) when those blocks would not fill the card.
+(merged by log-sum-exp) when those blocks would not fill the card. int8
+and float8_e4m3fn latent caches (quantized on store, ``kv_scale`` folded
+into the score scale and the output) take bf16 queries on the card: their
+rows widen to bf16 exactly as they enter shared memory.
 ``mla_attention_launcher`` takes the plain version for CPU tensors only;
 on CUDA it launches the kernel or raises.
 """
@@ -16,17 +19,19 @@ on CUDA it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from conch_tpu_torch.kernels.common import (
+    QUANTIZED_CACHE_DTYPES,
     cdiv,
     check_launch,
     dtype_code,
     kernel_function,
     require_cuda,
     round_up,
+    sm_count,
+    storage_code,
     stream_of,
 )
 from conch_tpu_torch.reference.attention.mla_attention import mla_attention as _mla_reference
@@ -58,11 +63,6 @@ def mla_attention_plain(
     return out.to(query.dtype)
 
 
-@functools.cache
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
 def kv_splits(blocks: int, max_kv: int, sms: int) -> tuple[int, int]:
     """(number of KV splits, rows each) for ``blocks`` (sequence, row tile)
     blocks over at most ``max_kv`` cached rows: none when the blocks fill
@@ -78,7 +78,11 @@ def kv_splits(blocks: int, max_kv: int, sms: int) -> tuple[int, int]:
 
 def _mla_cuda(query, kv_cache, cu_seqlens_q, max_seqlen_q, seq_lens, block_table, scale, latent, causal, kv_scale):
     require_cuda(query, kv_cache, cu_seqlens_q, seq_lens, block_table)
-    if query.dtype != kv_cache.dtype:
+    if kv_cache.dtype in QUANTIZED_CACHE_DTYPES:
+        if query.dtype != torch.bfloat16:
+            msg = f"mla_attention kernel: {kv_cache.dtype} latent caches take bf16 queries, got {query.dtype}"
+            raise NotImplementedError(msg)
+    elif query.dtype != kv_cache.dtype:
         msg = f"mla_attention kernel: query {query.dtype} and cache {kv_cache.dtype} must share a dtype"
         raise ValueError(msg)
     if latent % 128 or latent > MAX_LATENT:
@@ -101,21 +105,21 @@ def _mla_cuda(query, kv_cache, cu_seqlens_q, max_seqlen_q, seq_lens, block_table
     out = torch.empty((total_q, heads, latent), dtype=query.dtype, device=query.device)
     m_tiles = 4 if query.dtype == torch.bfloat16 and max_seqlen_q * heads > 16 else 1
     blocks = batch * cdiv(max_seqlen_q * heads, 16 * m_tiles)
-    nsplit, split_len = kv_splits(blocks, max_pages * page_size, _sm_count(query.device.index))
+    nsplit, split_len = kv_splits(blocks, max_pages * page_size, sm_count(query.device.index))
     part_acc = part_ml = None
     if nsplit > 1:
         part_acc = torch.empty((nsplit, total_q, heads, latent), dtype=torch.float32, device=query.device)
         part_ml = torch.empty((nsplit, total_q, heads, 2), dtype=torch.float32, device=query.device)
     fn = kernel_function("conch_mla_attention", (
         *(ctypes.c_void_p,) * 8, *(ctypes.c_int,) * 12, ctypes.c_float, ctypes.c_float, ctypes.c_int,
-        ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p,
     ))
     code = fn(
         query.data_ptr(), out.data_ptr(), kv_cache.data_ptr(), cu_seqlens_q.data_ptr(), seq_lens.data_ptr(),
         block_table.data_ptr(), None if part_acc is None else part_acc.data_ptr(),
         None if part_ml is None else part_ml.data_ptr(), total_q, batch, max_pages, heads, page_size, packed,
         latent, max_seqlen_q, int(causal), split_len, nsplit, m_tiles, scale * kv_scale, kv_scale,
-        dtype_code(query), stream_of(query),
+        dtype_code(query), storage_code(kv_cache), stream_of(query),
     )
     check_launch("conch_mla_attention", code)
     mla_attention_launcher.launches += 1
@@ -146,8 +150,8 @@ def mla_attention_launcher(
     if packed % 128 != 0:
         msg = f"packed MLA dim must be a lane multiple (128), got {packed}: pad [c_kv|k_pe]"
         raise ValueError(msg)
-    if kv_cache.dtype not in (torch.float32, torch.bfloat16):
-        msg = f"{kv_cache.dtype} latent caches (int8/fp8, kv_scale != 1) are not ported yet (ROADMAP Queue 1 item 5)"
+    if kv_cache.dtype not in (torch.float32, torch.bfloat16, *QUANTIZED_CACHE_DTYPES):
+        msg = f"latent caches are f32, bf16, int8 or float8_e4m3fn, got {kv_cache.dtype}"
         raise NotImplementedError(msg)
     args = (query, kv_cache, cu_seqlens_q, max_seqlen_q, seq_lens, block_table, scale, latent, causal, kv_scale)
     if query.device.type == "cpu":

@@ -6,8 +6,10 @@
 The kernel is ``csrc/varlen_attention.cu``; it replaces
 ``conch_tpu/kernels/attention/varlen_attention.py:_varlen_dma_allheads_kernel``
 (and ``_varlen_dma_kernel`` / ``_varlen_attention_kernel``, same
-function). ``varlen_attention_launcher`` takes the plain version for CPU
-tensors only; on CUDA it launches the kernel or raises.
+function). Quantized caches and the q/k/v scales go as in K3
+(``paged_attention.py``), with ``q_scale * k_scale`` folded into the
+softmax scale. ``varlen_attention_launcher`` takes the plain version for
+CPU tensors only; on CUDA it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from conch_tpu_torch.kernels.common import (
     dtype_code,
     kernel_function,
     require_cuda,
+    storage_code,
     stream_of,
 )
 from conch_tpu_torch.reference.attention.attention import varlen_attention as _varlen_reference
@@ -39,18 +42,21 @@ def varlen_attention_plain(
     layer_idx: int,
     softcap: float = 0.0,
     window_size: int = 0,
+    q_scale: float = 1.0,
+    k_scale: float = 1.0,
+    v_scale: float = 1.0,
 ) -> torch.Tensor:
     """Plain PyTorch version of K7 on any device. Padding rows are zeros."""
     out = _varlen_reference(
         query, key_caches[layer_idx], value_caches[layer_idx], cu_seqlens_q, seq_lens, block_table, scale, causal,
-        softcap, window_size,
+        softcap, window_size, q_scale, k_scale, v_scale,
     )
     return out.to(query.dtype)
 
 
 def _varlen_cuda(
     query, key_caches, value_caches, cu_seqlens_q, seq_lens, block_table, scale, causal, layer_idx, softcap,
-    window_size,
+    window_size, q_scale, k_scale, v_scale,
 ):
     require_cuda(query, key_caches, value_caches, cu_seqlens_q, seq_lens, block_table)
     check_kernel_shapes(query, key_caches, value_caches)
@@ -68,12 +74,13 @@ def _varlen_cuda(
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ))
     code = fn(
         query.data_ptr(), out.data_ptr(), k_layer, v_layer, cu_seqlens_q.data_ptr(), seq_lens.data_ptr(),
         block_table.data_ptr(), total_q, seq_lens.shape[0], block_table.shape[1], num_q_heads, num_kv_heads,
-        page_size, head_size, scale, softcap, window_size, int(causal), dtype_code(query), stream_of(query),
+        page_size, head_size, scale * q_scale * k_scale, softcap, window_size, int(causal), v_scale,
+        dtype_code(query), storage_code(key_caches), stream_of(query),
     )
     check_launch("conch_varlen_attention", code)
     varlen_attention_launcher.launches += 1
@@ -92,6 +99,9 @@ def varlen_attention_launcher(
     layer_idx: int,
     softcap: float = 0.0,  # > 0: logits capped at softcap * tanh(s / softcap)
     window_size: int = 0,  # > 0: row at position p sees keys from p - window_size + 1
+    q_scale: float = 1.0,  # dequantization scales: q_scale * k_scale fold into the logits,
+    k_scale: float = 1.0,  # v_scale multiplies the output
+    v_scale: float = 1.0,
 ) -> torch.Tensor:
     """Attention of ragged queries over layer ``layer_idx`` of the pool.
 
@@ -102,7 +112,7 @@ def varlen_attention_launcher(
     """
     args = (
         query, key_caches, value_caches, cu_seqlens_q, seq_lens, block_table, scale, causal, layer_idx, softcap,
-        window_size,
+        window_size, q_scale, k_scale, v_scale,
     )
     if query.device.type == "cpu":
         return varlen_attention_plain(*args)

@@ -34,7 +34,12 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # dtype codes understood by the C entry points (csrc/common.cuh: DType).
+# DTYPE_CODES: the compute types most kernels take; STORAGE_CODES adds the
+# f16 input of K9 and the int8 / e4m3 elements of quantized KV caches.
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+STORAGE_CODES = {**DTYPE_CODES, torch.float16: 2, torch.int8: 3, torch.float8_e4m3fn: 4}
+# Element types of KV caches quantized on store (K2), read by K3, K7, K11.
+QUANTIZED_CACHE_DTYPES = (torch.int8, torch.float8_e4m3fn)
 
 
 def cdiv(a: int, b: int) -> int:
@@ -128,6 +133,12 @@ def check_launch(name: str, code: int) -> None:
         raise RuntimeError(msg)
 
 
+@functools.cache
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``device_index``."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
 def stream_of(tensor: torch.Tensor) -> int:
     """The raw handle of PyTorch's current stream on ``tensor``'s device."""
     return torch.cuda.current_stream(tensor.device).cuda_stream
@@ -138,6 +149,16 @@ def dtype_code(tensor: torch.Tensor) -> int:
     code = DTYPE_CODES.get(tensor.dtype)
     if code is None:
         msg = f"the CUDA kernels take float32 or bfloat16, got {tensor.dtype}"
+        raise NotImplementedError(msg)
+    return code
+
+
+def storage_code(tensor: torch.Tensor) -> int:
+    """The C entry points' code for ``tensor``'s storage dtype (STORAGE_CODES);
+    raises on others."""
+    code = STORAGE_CODES.get(tensor.dtype)
+    if code is None:
+        msg = f"no CUDA kernel stores {tensor.dtype}"
         raise NotImplementedError(msg)
     return code
 

@@ -24,9 +24,10 @@ the one latent cache ``(L, P, ps, packed)`` in place, indexed by absolute
 layer; the steps still return it. Params keep the JAX layout
 (``layers_dense`` / ``layers_moe`` stacked on a leading layer axis), so
 ``deepseek_params_from_jax`` carries a JAX tree across unchanged. Weights
-are bf16 only: the other quantization modes, quantized latent caches,
-speculative verification, tensor parallelism and training are later work
-(ROADMAP Queue 1 items 15, 5, 14 and 9).
+are bf16 only: the other quantization modes, speculative verification,
+tensor parallelism and training are later work (ROADMAP Queue 1). int8
+and float8_e4m3fn latent caches store round(x / kv_cache_scale),
+saturating, and K11 folds the scale back in, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from conch_tpu_torch.kernels.common import round_up
+from conch_tpu_torch.kernels.common import QUANTIZED_CACHE_DTYPES, round_up
 from conch_tpu_torch.models.linear import QuantizedLinear, quantize_linear
 from conch_tpu_torch.models.llama import stack_layers, tree_from_jax
 from conch_tpu_torch.models.moe import make_dispatch
@@ -85,7 +86,7 @@ class DeepseekV2Config:
     max_position: int = 4096
     dtype: Any = torch.bfloat16
     moe_capacity_factor: float = 2.0  # serving-path expert capacity factor
-    # Static per-tensor scale for int8/fp8 latent caches (not ported yet).
+    # Static per-tensor scale for int8/fp8 latent caches.
     kv_cache_scale: float = 1.0 / 16
     # YaRN rope scaling (real V2/V3 checkpoints): HF-style dict stored as
     # an items-tuple so the frozen config stays hashable.
@@ -349,7 +350,7 @@ def init_deepseek_params(
     the expert stacks in ``config.dtype``; norms ones; the YaRN rope cache.
     """
     if quant_mode not in ("bf16", "dense", "none"):
-        msg = f"DeepSeek in quant_mode {quant_mode!r} is not ported yet (ROADMAP Queue 1 item 15); use 'bf16'"
+        msg = f"DeepSeek in quant_mode {quant_mode!r} is not ported yet (ROADMAP Queue 1); use 'bf16'"
         raise NotImplementedError(msg)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -543,11 +544,12 @@ def _mla_layer_step(
     pad = packed - lora - rope_d
     q_cat = torch.cat([q_lat, q_pe, q.new_zeros((t, nh, pad))], dim=-1)
     kv_row = torch.cat([c_kv, k_pe, c_kv.new_zeros((t, pad))], dim=-1)
-    reshape_and_cache_mla(kv_row, kv_cache, slot_mapping)
+    quantized = kv_cache.dtype in QUANTIZED_CACHE_DTYPES
+    reshape_and_cache_mla(kv_row, kv_cache, slot_mapping, scale=config.kv_cache_scale if quantized else None)
 
     out_lat = mla_attention(
         q_cat, kv_cache, cu_seqlens_q, max_seqlen_q, seq_lens, block_tables,
-        scale=config.attention_scale(), latent=lora,
+        scale=config.attention_scale(), latent=lora, kv_scale=config.kv_cache_scale if quantized else 1.0,
     )
     attn = torch.einsum("thl,hlv->thv", out_lat.float(), layers["w_uv"][li].float()).to(hidden.dtype)
     hidden = hidden + layers["wo"].apply_stacked(attn.reshape(t, nh * v_dim), li)
@@ -556,15 +558,9 @@ def _mla_layer_step(
     return hidden + mlp_fn(layers, li, mlp_in, config)
 
 
-def _check_unported(config: DeepseekV2Config, k_caches: torch.Tensor, tp_axis) -> None:
+def _check_unported(tp_axis) -> None:
     if tp_axis is not None:
-        msg = "tensor parallelism is not ported yet (ROADMAP Queue 1 item 9)"
-        raise NotImplementedError(msg)
-    if k_caches.dtype != config.dtype:
-        msg = (
-            f"latent caches of {k_caches.dtype} (int8/fp8) are not ported yet (ROADMAP Queue 1 item 5); "
-            f"use {config.dtype}"
-        )
+        msg = "tensor parallelism is not ported yet (ROADMAP Queue 1)"
         raise NotImplementedError(msg)
 
 
@@ -612,7 +608,7 @@ def deepseek_prefill(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Prefill (chunked ok): (last-token logits per sequence (batch, vocab)
     f32, k_caches, v_caches untouched)."""
-    _check_unported(config, k_caches, tp_axis)
+    _check_unported(tp_axis)
     hidden = _deepseek_forward(
         params, config, token_ids, positions, cu_seqlens_q, max_seqlen_q, seq_lens, block_tables, slot_mapping,
         k_caches,
@@ -624,7 +620,7 @@ def deepseek_prefill(
 def deepseek_verify_forward(*args, **kwargs):
     """Speculative verification (logits for every query token) is not
     ported yet, as the engine's speculative decoding is not."""
-    msg = "deepseek_verify_forward (speculative decoding) is not ported yet (ROADMAP Queue 1 item 14)"
+    msg = "deepseek_verify_forward (speculative decoding) is not ported yet (ROADMAP Queue 1)"
     raise NotImplementedError(msg)
 
 
@@ -642,7 +638,7 @@ def deepseek_decode_step(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decode step: varlen MLA with one query per sequence. Returns
     (logits (batch, vocab) f32, k_caches, v_caches)."""
-    _check_unported(config, k_caches, tp_axis)
+    _check_unported(tp_axis)
     batch = token_ids.shape[0]
     cu = torch.arange(batch + 1, dtype=torch.int32, device=token_ids.device)
     hidden = _deepseek_forward(

@@ -21,7 +21,9 @@ differences:
   ``post_attn_norm`` as the pre-MLP norm.
 
 Where the JAX package scans layer pairs, the port loops over the layers in
-Python; the window is ``sliding_window if layer % 2 == 0 else 0``.
+Python; the window is ``sliding_window if layer % 2 == 0 else 0``. int8 and
+float8_e4m3fn KV caches go as in Llama (``_kv_cache_quant``, with
+``kv_cache_scale``).
 """
 
 from __future__ import annotations
@@ -32,7 +34,14 @@ from typing import Any
 import torch
 
 from conch_tpu_torch.models.linear import QuantizedLinear, quantize_linear
-from conch_tpu_torch.models.llama import attention_block, init_kv_caches, mlp_block, stack_layers, tree_from_jax
+from conch_tpu_torch.models.llama import (
+    _kv_cache_quant,
+    attention_block,
+    init_kv_caches,
+    mlp_block,
+    stack_layers,
+    tree_from_jax,
+)
 from conch_tpu_torch.ops.activation import gelu_tanh_and_mul, gelu_tanh_and_mul_parts
 from conch_tpu_torch.ops.attention import paged_attention, varlen_attention
 from conch_tpu_torch.ops.normalization import gemma_rms_norm
@@ -60,6 +69,8 @@ class GemmaConfig:
     gemma2: bool = False  # sandwich norms + alternating local (even) / global (odd) layers
     sliding_window: int = 0
     dtype: Any = torch.bfloat16
+    # Static per-tensor scale for quantized (int8/fp8) KV caches, as Llama's.
+    kv_cache_scale: float = 1.0 / 16
 
     def __post_init__(self) -> None:
         if self.gemma2:
@@ -160,12 +171,9 @@ def init_gemma_kv_caches(
     return init_kv_caches(config, num_pages, page_size, cache_dtype, device)
 
 
-def _check_unported(config: GemmaConfig, k_caches: torch.Tensor, tp_axis) -> None:
+def _check_unported(tp_axis) -> None:
     if tp_axis is not None:
         msg = "tensor parallelism is not ported yet"
-        raise NotImplementedError(msg)
-    if k_caches.dtype != config.dtype:
-        msg = f"KV caches of {k_caches.dtype} (int8/fp8) are not ported yet; use {config.dtype}"
         raise NotImplementedError(msg)
 
 
@@ -187,16 +195,18 @@ def _gemma_layers(
     v_caches: torch.Tensor,
     attn_fn,
     decode: bool,
+    kv_quant: tuple[str, float | None],
 ) -> torch.Tensor:
     """Run every layer on ``hidden`` (T, H), the caches updated in place.
-    ``attn_fn(q, kc, vc, layer)`` picks the layer's window."""
+    ``attn_fn(q, kc, vc, layer)`` picks the layer's window; ``kv_quant``
+    (``_kv_cache_quant``) says how the store quantizes."""
     layers = params["layers"]
     eps = config.rms_norm_eps
     for layer in range(k_caches.shape[0]):
         attn_in = gemma_rms_norm(hidden, layers["input_norm"][layer], eps)
         attn_h = attention_block(
             params, layer, attn_in, positions, slot_mapping, k_caches, v_caches, attn_fn, decode,
-            config.num_heads, config.head_dim,
+            config.num_heads, config.head_dim, kv_quant,
         )
         if config.gemma2:
             hidden = hidden + gemma_rms_norm(attn_h, layers["post_attn_norm"][layer], eps)
@@ -247,17 +257,21 @@ def gemma_prefill(
     Returns (last-token logits per sequence (batch, vocab) f32, k_caches,
     v_caches); the caches are the arguments, updated in place.
     """
-    _check_unported(config, k_caches, tp_axis)
+    _check_unported(tp_axis)
     hidden = _embed(params, config, token_ids)
+    kv_quant = _kv_cache_quant(config, k_caches.dtype)
+    kv_dtype, kv_scale = kv_quant
 
     def attn_fn(q, kc, vc, layer):
         return varlen_attention(
             q, kc, vc, cu_seqlens_q, max_seqlen_q, seq_lens, max_seqlen_q, block_tables, causal=True,
-            scale=config.attn_scale(), softcap=config.attn_logit_softcap, window_size=config.window(layer),
-            layer_idx=layer,
+            scale=config.attn_scale(), softcap=config.attn_logit_softcap, kv_cache_dtype=kv_dtype,
+            k_scale=kv_scale, v_scale=kv_scale, window_size=config.window(layer), layer_idx=layer,
         )
 
-    hidden = _gemma_layers(params, config, hidden, positions, slot_mapping, k_caches, v_caches, attn_fn, False)
+    hidden = _gemma_layers(
+        params, config, hidden, positions, slot_mapping, k_caches, v_caches, attn_fn, False, kv_quant
+    )
     last_rows = (cu_seqlens_q[1:] - 1).long()
     return _final_logits(params, config, hidden[last_rows]), k_caches, v_caches
 
@@ -286,14 +300,19 @@ def gemma_decode_step(
     Returns (logits (batch, vocab) f32, k_caches, v_caches); the caches are
     the arguments, updated in place.
     """
-    _check_unported(config, k_caches, tp_axis)
+    _check_unported(tp_axis)
     hidden = _embed(params, config, token_ids)
+    kv_quant = _kv_cache_quant(config, k_caches.dtype)
+    kv_dtype, kv_scale = kv_quant
 
     def attn_fn(q, kc, vc, layer):
         return paged_attention(
             q, kc, vc, block_tables, seq_lens, scale=config.attn_scale(), softcap=config.attn_logit_softcap,
-            window_size=config.window(layer), layer_idx=layer,
+            kv_cache_dtype=kv_dtype, k_scale=kv_scale, v_scale=kv_scale, window_size=config.window(layer),
+            layer_idx=layer,
         )
 
-    hidden = _gemma_layers(params, config, hidden, positions, slot_mapping, k_caches, v_caches, attn_fn, True)
+    hidden = _gemma_layers(
+        params, config, hidden, positions, slot_mapping, k_caches, v_caches, attn_fn, True, kv_quant
+    )
     return _final_logits(params, config, hidden), k_caches, v_caches

@@ -7,7 +7,10 @@ Decoder-only transformer: RMS norm (K4), NeoX RoPE (K5), GQA attention
 over a stacked paged KV pool of shape (L, P, KH, ps, D) (decode: K2 write,
 K3 attention; prefill: an indexed write, K7 attention), SwiGLU MLP (K6),
 projections through ``QuantizedLinear`` (bf16 dense: ``torch.matmul``;
-int4: K1; int8: K1b; nf4: K1c; w8a8: K8). Where the JAX package scans the layers with ``lax.scan`` and
+int4: K1; int8: K1b; nf4: K1c; w8a8: K8). int8 and float8_e4m3fn KV
+caches are quantized on store with the static ``kv_cache_scale`` and
+dequantized in the attention kernels (``_kv_cache_quant``, as in the JAX
+package). Where the JAX package scans the layers with ``lax.scan`` and
 donates the caches, the port loops over the layers in Python and updates
 the caches IN PLACE; ``llama_prefill`` and ``llama_decode_step`` still
 return them, so call sites read alike.
@@ -52,6 +55,10 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-5
     max_position: int = 8192
     dtype: Any = torch.bfloat16
+    # Static per-tensor scale for quantized (int8/fp8) KV caches: K/V are
+    # stored as x / scale, rounded and clipped, and dequantized by folding
+    # the scale into the attention scalars (``_kv_cache_quant``).
+    kv_cache_scale: float = 1.0 / 16
     attention_bias: bool = False  # Qwen2-style q/k/v biases: not ported yet
     sliding_window: int = 0
     kv_ring_pages: int = 0
@@ -312,14 +319,22 @@ def _check_config(config: LlamaConfig) -> None:
         raise NotImplementedError(msg)
 
 
-def _check_unported(config: LlamaConfig, k_caches: torch.Tensor, tp_axis, lora) -> None:
+def _check_unported(config: LlamaConfig, tp_axis, lora) -> None:
     _check_config(config)
     if tp_axis is not None or lora is not None:
         msg = "tensor parallelism and LoRA are not ported yet"
         raise NotImplementedError(msg)
-    if k_caches.dtype != config.dtype:
-        msg = f"KV caches of {k_caches.dtype} (int8/fp8) are not ported yet; use {config.dtype}"
-        raise NotImplementedError(msg)
+
+
+def _kv_cache_quant(config, cache_dtype: torch.dtype) -> tuple[str, float | None]:
+    """Map a KV-cache buffer dtype to (kv_cache_dtype string, scale) for
+    reshape_and_cache and attention (quantize on store, folded dequant);
+    ``config`` is any model config with a ``kv_cache_scale``."""
+    if cache_dtype == torch.int8:
+        return "int8", config.kv_cache_scale
+    if cache_dtype == torch.float8_e4m3fn:
+        return "fp8_e4m3", config.kv_cache_scale
+    return "auto", None
 
 
 def attention_block(
@@ -334,11 +349,13 @@ def attention_block(
     decode: bool,
     num_heads: int,
     head_dim: int,
+    kv_quant: tuple[str, float | None],
 ) -> torch.Tensor:
     """One layer's attention on its normed input ``x`` (T, H), before the
     residual add: q/k/v (fused ``wqkv`` or separate), NeoX RoPE (K5), the
     layer's K/V written into the caches in place (decode: the K2 kernel;
-    prefill: an indexed write, as the JAX package's XLA scatter), then
+    prefill: an indexed write, as the JAX package's XLA scatter), quantized
+    on store as ``kv_quant`` (``_kv_cache_quant``) says, then
     ``attn_fn(q, k_caches, v_caches, layer)`` and ``wo``."""
     layers = params["layers"]
     t = x.shape[0]
@@ -353,10 +370,17 @@ def attention_block(
     q, k = rotary_embedding(positions, q, k, head_dim, params["cos_sin_cache"])
     k = k.view(t, num_kv_heads, head_dim)
     v = v.view(t, num_kv_heads, head_dim)
+    kv_dtype, kv_scale = kv_quant
     if decode:
-        reshape_and_cache_stacked(k, v, k_caches, v_caches, slot_mapping, layer)
+        reshape_and_cache_stacked(
+            k, v, k_caches, v_caches, slot_mapping, layer, kv_cache_dtype=kv_dtype, k_scale=kv_scale,
+            v_scale=kv_scale,
+        )
     else:
-        reshape_and_cache(k, v, k_caches[layer], v_caches[layer], slot_mapping)
+        reshape_and_cache(
+            k, v, k_caches[layer], v_caches[layer], slot_mapping, kv_cache_dtype=kv_dtype, k_scale=kv_scale,
+            v_scale=kv_scale,
+        )
     attn_out = attn_fn(q.view(t, num_heads, head_dim), k_caches, v_caches, layer)
     return layers["wo"].apply_stacked(attn_out.reshape(t, q_dim), layer)
 
@@ -382,6 +406,7 @@ def _forward_layers(
     v_caches: torch.Tensor,
     attn_fn,
     decode: bool,
+    kv_quant: tuple[str, float | None],
 ) -> torch.Tensor:
     """Run every layer on ``hidden`` (T, H), the caches updated in place."""
     layers = params["layers"]
@@ -390,7 +415,7 @@ def _forward_layers(
         attn_in = rms_norm(hidden, layers["input_norm"][layer], eps)
         hidden = hidden + attention_block(
             params, layer, attn_in, positions, slot_mapping, k_caches, v_caches, attn_fn, decode,
-            config.num_heads, config.head_dim,
+            config.num_heads, config.head_dim, kv_quant,
         )
         mlp_in = rms_norm(hidden, layers["post_attn_norm"][layer], eps)
         hidden = hidden + mlp_block(layers, layer, mlp_in, silu_and_mul, silu_and_mul_parts)
@@ -423,16 +448,20 @@ def llama_prefill(
     Returns (last-token logits per sequence (batch, vocab) f32, k_caches,
     v_caches); the caches are the arguments, updated in place.
     """
-    _check_unported(config, k_caches, tp_axis, lora)
+    _check_unported(config, tp_axis, lora)
     hidden = params["embedding"][token_ids.long()]
+    kv_quant = _kv_cache_quant(config, k_caches.dtype)
+    kv_dtype, kv_scale = kv_quant
 
     def attn_fn(q, kc, vc, layer):
         return varlen_attention(
             q, kc, vc, cu_seqlens_q, max_seqlen_q, seq_lens, max_seqlen_q, block_tables,
-            causal=True, layer_idx=layer,
+            causal=True, kv_cache_dtype=kv_dtype, k_scale=kv_scale, v_scale=kv_scale, layer_idx=layer,
         )
 
-    hidden = _forward_layers(params, config, hidden, positions, slot_mapping, k_caches, v_caches, attn_fn, False)
+    hidden = _forward_layers(
+        params, config, hidden, positions, slot_mapping, k_caches, v_caches, attn_fn, False, kv_quant
+    )
     last_rows = (cu_seqlens_q[1:] - 1).long()
     return _logits(params, config, hidden[last_rows]), k_caches, v_caches
 
@@ -456,11 +485,18 @@ def llama_decode_step(
     Returns (logits (batch, vocab) f32, k_caches, v_caches); the caches
     are the arguments, updated in place.
     """
-    _check_unported(config, k_caches, tp_axis, lora)
+    _check_unported(config, tp_axis, lora)
     hidden = params["embedding"][token_ids.long()]
+    kv_quant = _kv_cache_quant(config, k_caches.dtype)
+    kv_dtype, kv_scale = kv_quant
 
     def attn_fn(q, kc, vc, layer):
-        return paged_attention(q, kc, vc, block_tables, seq_lens, layer_idx=layer)
+        return paged_attention(
+            q, kc, vc, block_tables, seq_lens, kv_cache_dtype=kv_dtype, k_scale=kv_scale, v_scale=kv_scale,
+            layer_idx=layer,
+        )
 
-    hidden = _forward_layers(params, config, hidden, positions, slot_mapping, k_caches, v_caches, attn_fn, True)
+    hidden = _forward_layers(
+        params, config, hidden, positions, slot_mapping, k_caches, v_caches, attn_fn, True, kv_quant
+    )
     return _logits(params, config, hidden), k_caches, v_caches

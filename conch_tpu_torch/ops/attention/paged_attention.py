@@ -10,16 +10,27 @@ import math
 import torch
 
 from conch_tpu_torch.kernels.attention.paged_attention import paged_attention_launcher
+from conch_tpu_torch.ops.kv_quant import check_kv_cache_dtype, scale_value
 
 
-def check_unported_options(kv_cache_dtype: str, ring_pages: int) -> None:
+def check_unported_options(ring_pages: int) -> None:
     """Raise for attention options that later slices port."""
-    if kv_cache_dtype != "auto":
-        msg = f"kv_cache_dtype {kv_cache_dtype!r}: int8/fp8 caches are not ported yet"
-        raise NotImplementedError(msg)
     if ring_pages != 0:
         msg = "ring pages (rolling KV) are not ported yet"
         raise NotImplementedError(msg)
+
+
+def resolve_kv_caches(kv_cache_dtype: str, key_cache: torch.Tensor, value_cache: torch.Tensor) -> tuple:
+    """The caches as the kernels read them, as the JAX ops resolve
+    ``kv_cache_dtype``: ``"auto"`` reads any cache dtype; ``"int8"`` needs
+    int8 caches; ``"fp8"``/``"fp8_e4m3"`` float8_e4m3fn ones, uint8 caches
+    being viewed as float8_e4m3fn. An unknown or mismatched string raises
+    ValueError. The scales apply whatever the string."""
+    if kv_cache_dtype in ("fp8", "fp8_e4m3") and key_cache.dtype == torch.uint8:
+        key_cache, value_cache = key_cache.view(torch.float8_e4m3fn), value_cache.view(torch.float8_e4m3fn)
+    if kv_cache_dtype != "auto":
+        check_kv_cache_dtype(kv_cache_dtype, key_cache.dtype)
+    return key_cache, value_cache
 
 
 def stacked_view(key_cache: torch.Tensor, value_cache: torch.Tensor, layer_idx) -> tuple:
@@ -60,13 +71,19 @@ def paged_attention(
         seq_lens: (batch,) int32 lengths; 0 marks an idle row (zeros out).
         scale: softmax scale; defaults to 1/sqrt(head_size).
         softcap: > 0 caps each scaled logit s at ``softcap * tanh(s / softcap)``.
+        kv_cache_dtype: "auto", "int8", "fp8" or "fp8_e4m3" (uint8 caches
+            are viewed as float8_e4m3fn); see ``resolve_kv_caches``.
+        k_scale/v_scale: dequantization scales (one element; None = 1),
+            applied for every ``kv_cache_dtype``: ``k_scale`` multiplies the
+            softmax scale, ``v_scale`` the f32 output.
         window_size: > 0 limits each sequence to its last ``window_size``
             cached tokens (Gemma-2's local layers).
 
     Returns:
         (batch, num_q_heads, head_size) in the query's dtype.
     """
-    check_unported_options(kv_cache_dtype, ring_pages)
+    check_unported_options(ring_pages)
+    key_cache, value_cache = resolve_kv_caches(kv_cache_dtype, key_cache, value_cache)
     key_caches, value_caches, layer = stacked_view(key_cache, value_cache, layer_idx)
     if query.dim() != 3 or key_caches.shape != value_caches.shape:
         msg = f"query {tuple(query.shape)} must be (B, QH, D) and the caches equal"
@@ -80,5 +97,6 @@ def paged_attention(
     if scale is None:
         scale = 1.0 / math.sqrt(query.shape[-1])
     return paged_attention_launcher(
-        query, key_caches, value_caches, block_table, seq_lens, scale, layer, float(softcap), int(window_size)
+        query, key_caches, value_caches, block_table, seq_lens, scale, layer, float(softcap), int(window_size),
+        scale_value(k_scale), scale_value(v_scale),
     )

@@ -10,7 +10,8 @@ import math
 import torch
 
 from conch_tpu_torch.kernels.attention.varlen_attention import varlen_attention_launcher
-from conch_tpu_torch.ops.attention.paged_attention import check_unported_options, stacked_view
+from conch_tpu_torch.ops.attention.paged_attention import check_unported_options, resolve_kv_caches, stacked_view
+from conch_tpu_torch.ops.kv_quant import scale_value
 
 
 def varlen_attention(
@@ -49,13 +50,19 @@ def varlen_attention(
         causal: apply causal masking.
         scale: softmax scale; defaults to 1/sqrt(head_size).
         softcap: > 0 caps each scaled logit s at ``softcap * tanh(s / softcap)``.
+        kv_cache_dtype: "auto", "int8", "fp8" or "fp8_e4m3", as in
+            ``paged_attention``.
+        q_scale/k_scale/v_scale: dequantization scales (one element; None
+            = 1), applied for every ``kv_cache_dtype``: ``q_scale * k_scale``
+            multiplies the softmax scale, ``v_scale`` the f32 output.
         window_size: > 0: the query at position p sees keys from
             ``p - window_size + 1`` on (Gemma-2's local layers).
 
     Returns:
         (total_num_q, num_q_heads, head_size) in the query's dtype.
     """
-    check_unported_options(kv_cache_dtype, ring_pages)
+    check_unported_options(ring_pages)
+    key_cache, value_cache = resolve_kv_caches(kv_cache_dtype, key_cache, value_cache)
     key_caches, value_caches, layer = stacked_view(key_cache, value_cache, layer_idx)
     batch = cu_seqlens_q.shape[0] - 1
     if block_table.shape[0] != batch or seq_lens.shape != (batch,):
@@ -68,5 +75,5 @@ def varlen_attention(
         scale = 1.0 / math.sqrt(query.shape[-1])
     return varlen_attention_launcher(
         query, key_caches, value_caches, cu_seqlens_q, seq_lens, block_table, scale, causal, layer, float(softcap),
-        int(window_size),
+        int(window_size), scale_value(q_scale), scale_value(k_scale), scale_value(v_scale),
     )

@@ -5,6 +5,11 @@
 
 The caches are updated in place, and returned so call sites read like the
 JAX package's (which donates them and returns the new buffers).
+``kv_cache_dtype`` takes the JAX set: ``"auto"`` stores the caches' own
+dtype; ``"int8"``, ``"fp8"`` and ``"fp8_e4m3"`` quantize on store into
+int8 / float8_e4m3fn caches with ``k_scale`` / ``v_scale`` (None means 1).
+An unknown string, or one that does not name the caches' dtype, raises
+ValueError (``ops/kv_quant.py``).
 """
 
 from __future__ import annotations
@@ -15,12 +20,7 @@ from conch_tpu_torch.kernels.cache.reshape_and_cache import (
     reshape_and_cache_launcher,
     reshape_and_cache_stacked_launcher,
 )
-
-
-def _check_kv_cache_dtype(kv_cache_dtype: str) -> None:
-    if kv_cache_dtype != "auto":
-        msg = f"kv_cache_dtype {kv_cache_dtype!r}: int8/fp8 caches are not ported yet"
-        raise NotImplementedError(msg)
+from conch_tpu_torch.ops.kv_quant import check_kv_cache_dtype, scale_value
 
 
 def _validate_sizes(key, value, key_cache, value_cache, slot_mapping) -> None:
@@ -50,9 +50,11 @@ def reshape_and_cache(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Write key/value (T, KH, D) into (P, KH, ps, D) caches at the mapped
     slots, in place; negative slots are skipped."""
-    _check_kv_cache_dtype(kv_cache_dtype)
+    check_kv_cache_dtype(kv_cache_dtype, key_cache.dtype)
     _validate_sizes(key, value, key_cache, value_cache, slot_mapping)
-    reshape_and_cache_launcher(key, value, key_cache, value_cache, slot_mapping)
+    reshape_and_cache_launcher(
+        key, value, key_cache, value_cache, slot_mapping, scale_value(k_scale), scale_value(v_scale)
+    )
     return key_cache, value_cache
 
 
@@ -69,7 +71,9 @@ def reshape_and_cache_stacked(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Write key/value into layer ``layer_idx`` of the stacked
     (L, P, KH, ps, D) caches, in place (K2 on CUDA)."""
-    _check_kv_cache_dtype(kv_cache_dtype)
+    check_kv_cache_dtype(kv_cache_dtype, key_caches.dtype)
     _validate_sizes(key, value, key_caches, value_caches, slot_mapping)
-    reshape_and_cache_stacked_launcher(key, value, key_caches, value_caches, slot_mapping, int(layer_idx))
+    reshape_and_cache_stacked_launcher(
+        key, value, key_caches, value_caches, slot_mapping, int(layer_idx), scale_value(k_scale), scale_value(v_scale)
+    )
     return key_caches, value_caches

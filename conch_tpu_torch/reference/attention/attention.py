@@ -12,7 +12,10 @@ cached tokens, and a query row that belongs to no sequence, yield zeros.
 Options, as in the JAX reference: ``softcap > 0`` maps each scaled
 logit s to ``softcap * tanh(s / softcap)`` before the mask; a sliding
 ``window_size > 0`` lets query position p see keys ``k > p - window_size``
-(decode: the last ``window_size`` cached tokens).
+(decode: the last ``window_size`` cached tokens). Caches may be int8 or
+float8_e4m3fn, quantized on store: their values convert exactly to f32,
+and the dequantization scales fold as the TPU kernels fold them, ``q_scale
+* k_scale`` into the softmax scale and ``v_scale`` onto the f32 output.
 """
 
 from __future__ import annotations
@@ -73,14 +76,16 @@ def paged_attention(
     scale: float,
     softcap: float = 0.0,
     window_size: int = 0,
+    k_scale: float = 1.0,
+    v_scale: float = 1.0,
 ) -> torch.Tensor:
     """Golden decode attention: one query token per sequence. f32 output."""
     outs = []
     for b, seq_len in enumerate(seq_lens.tolist()):
         k = gather_cache_for_sequence(key_cache, block_table[b], seq_len)
         v = gather_cache_for_sequence(value_cache, block_table[b], seq_len)
-        outs.append(masked_attention(query[b : b + 1], k, v, scale, False, softcap, window_size)[0])
-    return torch.stack(outs)
+        outs.append(masked_attention(query[b : b + 1], k, v, scale * k_scale, False, softcap, window_size)[0])
+    return torch.stack(outs) * v_scale
 
 
 def varlen_attention(
@@ -94,6 +99,9 @@ def varlen_attention(
     causal: bool,
     softcap: float = 0.0,
     window_size: int = 0,
+    q_scale: float = 1.0,
+    k_scale: float = 1.0,
+    v_scale: float = 1.0,
 ) -> torch.Tensor:
     """Golden varlen attention over ragged queries. f32 output."""
     out = torch.zeros(query.shape, dtype=torch.float32, device=query.device)
@@ -104,6 +112,6 @@ def varlen_attention(
         k = gather_cache_for_sequence(key_cache, block_table[b], seq_len)
         v = gather_cache_for_sequence(value_cache, block_table[b], seq_len)
         out[cu[b] : cu[b + 1]] = masked_attention(
-            query[cu[b] : cu[b + 1]], k, v, scale, causal, softcap, window_size
+            query[cu[b] : cu[b + 1]], k, v, scale * q_scale * k_scale, causal, softcap, window_size
         )
-    return out
+    return out * v_scale

@@ -110,10 +110,25 @@ def test_stacked_write_takes_many_tokens_per_page_and_strided_rows():
 
 
 def test_unported_options_raise():
+    """int8 caches, once refused, now store: x times the f32 reciprocal of
+    the scale, rounded half to even (2.5 -> 2, 3.5 -> 4), clipped. A
+    kv_cache_dtype that does not name the caches' dtype, an unknown one and
+    a layer outside the pool still raise."""
     kc = torch.zeros(L, P, KH, PS, D)
     k = torch.zeros(1, KH, D)
     slots = torch.zeros(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="int8"):
         reshape_and_cache_stacked(k, k, kc, kc, slots, 0, kv_cache_dtype="int8")
+    with pytest.raises(ValueError, match="Unsupported"):
+        reshape_and_cache_stacked(k, k, kc, kc, slots, 0, kv_cache_dtype="fp16")
     with pytest.raises(IndexError):
         reshape_and_cache_stacked(k, k, kc, kc, slots, L)
+    kq, vq = torch.zeros(L, P, KH, PS, D, dtype=torch.int8), torch.zeros(L, P, KH, PS, D, dtype=torch.int8)
+    with pytest.raises(ValueError, match="auto"):
+        reshape_and_cache_stacked(k, k, kq, vq, slots, 0)
+    k[0, 0, :4] = torch.tensor([2.5, 3.5, 100.0, -100.0]) / 16
+    scale = torch.tensor([1 / 16])
+    reshape_and_cache_stacked(k, 2 * k, kq, vq, slots, 1, kv_cache_dtype="int8", k_scale=scale, v_scale=scale)
+    assert kq[1, 0, 0, 0, :4].tolist() == [2, 4, 100, -100]
+    assert vq[1, 0, 0, 0, :4].tolist() == [5, 7, 127, -128]
+    assert kq[0].abs().sum() == 0 and kq[2].abs().sum() == 0

@@ -311,6 +311,11 @@ def test_unported_modes_raise():
     params = init_deepseek_params(0, cfg, device="cpu")
     int8_cache = init_deepseek_kv_cache(cfg, 4, PS, dtype=torch.int8, device="cpu")
     one = torch.zeros(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="int8"):
-        deepseek_decode_step(params, cfg, one, one, one + 1, torch.zeros((1, 2), dtype=torch.int32), one, int8_cache,
-                             torch.zeros(0))
+    step = (params, cfg, one, one, one + 1, torch.zeros((1, 2), dtype=torch.int32), one, int8_cache, torch.zeros(0))
+    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        deepseek_decode_step(*step, tp_axis="tp")
+    # int8 latent caches, once refused, are served: the row is stored at
+    # slot 0 in int8 and the logits are finite.
+    logits, cache, _ = deepseek_decode_step(*step)
+    assert logits.shape == (1, cfg.vocab_size) and torch.isfinite(logits).all()
+    assert cache is int8_cache and cache.dtype == torch.int8 and cache[:, 0, 0].abs().sum() > 0

@@ -133,8 +133,9 @@ def test_reshape_and_cache_mla_all_dropped_keeps_cache():
 
 
 def test_mla_validation():
-    """The errors of tests/mla_attention_test.py:86, and the port's refusal
-    of quantized latent caches (not ported yet)."""
+    """The errors of tests/mla_attention_test.py:86; an int8 latent cache,
+    once refused, is read with kv_scale folded into the scores and the
+    output (against the same values dequantized, in f32)."""
     q = torch.zeros((2, 4, 256))
     cache = torch.zeros((4, 16, 256))
     cu = torch.tensor([0, 1, 2], dtype=torch.int32)
@@ -148,8 +149,12 @@ def test_mla_validation():
         mla_attention(torch.zeros((2, 4, 192)), torch.zeros((4, 16, 192)), cu, 1, sl, bt, scale=1.0, latent=64)
     with pytest.raises(ValueError, match="batch mismatch"):
         mla_attention(q, cache, cu, 1, sl, torch.zeros((3, 4), dtype=torch.int32), scale=1.0, latent=64)
-    with pytest.raises(NotImplementedError):
-        mla_attention(q, cache.to(torch.int8), cu, 1, sl, bt, scale=1.0, latent=64, kv_scale=1 / 16)
+    codes = torch.arange(-64, 64, dtype=torch.int8).repeat(2).reshape(1, 1, 256).expand(4, 16, 256).contiguous()
+    q = torch.linspace(-1, 1, 2 * 4 * 256).reshape(2, 4, 256)
+    out = mla_attention(q, codes, cu, 1, sl, bt, scale=0.5, latent=64, kv_scale=1 / 16)
+    same = mla_attention(q, codes.float() / 16, cu, 1, sl, bt, scale=0.5, latent=64)
+    assert out.shape == (2, 4, 64) and torch.isfinite(out).all() and out.abs().max() > 0
+    torch.testing.assert_close(out, same, atol=2e-4, rtol=2e-4)
 
 
 @pytest.mark.parametrize(

@@ -98,8 +98,22 @@ def test_paged_attention_reads_the_named_layer_only():
 
 
 def test_paged_attention_unported_options_raise():
+    """Ring pages still raise. fp8 caches, once refused, are read: an e4m3
+    cache (and its uint8 view) under kv_cache_dtype "fp8" equals the golden
+    reference on the same values with the scales folded in. A string that
+    does not name the caches' dtype raises."""
     rng = np.random.default_rng(23)
     q, kc, vc, bt, sl = map(torch.from_numpy, make_inputs(rng, [5, 20, 33], 4, 1, 128))
-    for kwargs in ({"ring_pages": 4}, {"kv_cache_dtype": "fp8"}):
-        with pytest.raises(NotImplementedError):
-            paged_attention(q, kc, vc, bt, sl, layer_idx=1, **kwargs)
+    with pytest.raises(NotImplementedError):
+        paged_attention(q, kc, vc, bt, sl, layer_idx=1, ring_pages=4)
+    with pytest.raises(ValueError, match="fp8"):
+        paged_attention(q, kc, vc, bt, sl, layer_idx=1, kv_cache_dtype="fp8")
+    k8, v8 = kc.to(torch.float8_e4m3fn), vc.to(torch.float8_e4m3fn)
+    scales = {"k_scale": torch.tensor([1.5]), "v_scale": torch.tensor([0.75])}
+    out = paged_attention(q, k8, v8, bt, sl, layer_idx=1, kv_cache_dtype="fp8", **scales)
+    gold = paged_reference(q, k8[1].float(), v8[1].float(), bt, sl, 1.5 / np.sqrt(128)) * 0.75
+    torch.testing.assert_close(out, gold, atol=2e-3, rtol=2e-3)
+    as_bytes = paged_attention(
+        q, k8.view(torch.uint8), v8.view(torch.uint8), bt, sl, layer_idx=1, kv_cache_dtype="fp8", **scales
+    )
+    torch.testing.assert_close(as_bytes, out, atol=0, rtol=0)
