@@ -51,7 +51,22 @@
      byte) and K3 / K7 at Llama's and Gemma's shapes (softcap, window),
      with k_scale != v_scale, and K11 over quantized latent caches, decode
      and prefill, bf16 queries, at 3e-2 (+ 3e-2 x |ref|; K7 2e-2);
-4. slice phases: the first-token logits of 2-layer full-width prefills on
+   - K13a BEV pool forward and K13b backward at BEVFusion's nuScenes
+     camera-to-BEV size (6 cameras, 118 depth bins x 32 x 88, a 360 x 360
+     grid, 80 channels; 1.63 M of 1.99 M frustum points kept, sorted into
+     intervals by cell) in f32 and bf16, and on small cases (shared cells,
+     cells outside the grid, f16, C 5 and 6): K13a f32 at 1e-5 (+ 1e-5 x
+     |ref|), bf16 / f16 at one rounding step x |ref|, K13b bit for bit;
+     K13c NMS keep mask at 4096 boxes, IoU 0.5, tied scores, and at N 1,
+     513, identical boxes and a lattice of touching boxes, bit for bit;
+4. vision: ``generate_voxels`` and ``voxelization_stable`` with
+   ``collect_point_features`` at PointPillars' KITTI size (120,000 points,
+   3% on voxel boundaries) on the card, every output equal to the CPU's;
+   then the vision path (``vision_bevfusion``): voxelize, BEV pool forward
+   and ``loss.backward()`` at BEVFusion's size, NMS over 4096 boxes,
+   through ``conch_tpu_torch.ops.vision``, with K13a, K13b and K13c's
+   launches read around it;
+5. slice phases: the first-token logits of 2-layer full-width prefills on
    the card against the plain path on the CPU (Llama-3-8B: bf16 weights in
    f32 and bf16, int4, int8, nf4 and w8a8 weights in bf16; Gemma-2-2B: f32
    and bf16, random norm weights; DeepSeek-V2-Lite, one dense and one MoE
@@ -83,10 +98,11 @@
      its twin above with only the cache changed: the int4 example over an
      int8 cache, bf16 Llama over an e4m3 cache, DeepSeek-V2-Lite over an
      e4m3 latent cache;
-5. prints the ``kernels`` JSON line (each row's launches from its main
+6. prints the ``kernels`` JSON line (each row's launches from its main
    run: Gemma for the kernels it runs, int4 for K1, K4 and K6, int8, nf4
    and w8a8 for K1b, K1c and K8, the nf4 init for K12q, DeepSeek for K11,
-   K9's own phase for K9 (no served path runs it);
+   K9's own phase for K9 (no served path runs it), the vision path for
+   K13a, K13b and K13c;
    every path's counts
    beside them), the card line, then ``{"ok": true, "device": ...}`` as the
    last line.
@@ -1298,6 +1314,377 @@ def quantized_cache_phases(gen, rng, by_name: dict) -> None:
         torch.cuda.empty_cache()
 
 
+# --- Vision: BEV pool (K13a, K13b), NMS (K13c), voxelization -----------------
+# BEVFusion's camera-to-BEV pool on nuScenes (mit-han-lab/bevfusion,
+# DepthLSSTransform): 6 cameras, image 256 x 704 at stride 8 (feature map
+# 32 x 88), dbound [1, 60, 0.5] (118 depth bins), xbound / ybound [-54, 54,
+# 0.3] (a 360 x 360 grid), zbound [-10, 10, 20] (Z = 1), 80 channels,
+# batch 1: 1,993,728 frustum points.
+BEV_CAMERAS, BEV_FH, BEV_FW, BEV_STRIDE, BEV_C = 6, 32, 88, 8, 80
+BEV_DEPTHS = (1.0, 60.0, 0.5)
+BEV_XY, BEV_Z = (-54.0, 54.0, 0.3), (-10.0, 10.0, 20.0)
+BEV_GRID = (1, 1, 360, 360)  # batch, Z, X, Y
+# nuScenes camera yaws (front, front-right, front-left, back, back-left,
+# back-right) and horizontal fields of view, degrees.
+BEV_YAWS = (0.0, -55.0, 55.0, 180.0, 110.0, -110.0)
+BEV_FOVS = (70.0, 70.0, 70.0, 110.0, 70.0, 70.0)
+# PointPillars on KITTI (mmdetection3d configs/_base_/models/
+# pointpillars_hv_secfpn_kitti.py): a 432 x 496 x 1 grid, 32 points a pillar.
+PILLARS = {"min_range": (0.0, -39.68, -3.0), "max_range": (69.12, 39.68, 1.0), "voxel_dim": (0.16, 0.16, 4.0),
+           "max_num_points_per_voxel": 32}
+PILLAR_POINTS = 120_000  # about one HDL-64E sweep
+NMS_BOXES, NMS_IOU = 4096, 0.5  # the JAX package's benchmarks/nms_benchmark.py
+
+
+def bevfusion_inputs(gen, rng, dtype=torch.float32) -> dict:
+    """The pool's inputs at BEVFusion's size, made from the seed on the card:
+    each frustum point (camera, depth bin, feature row and column) is cast
+    through its camera (a pinhole with the camera's field of view, its yaw
+    and mount jittered by the seed) into the ego frame; points outside the
+    grid are dropped (BEVFusion's ``kept``); the rest are sorted by cell
+    rank and cut into intervals at rank changes, as BEVFusion's quick
+    cumsum does. Features are a depth softmax times a context feature, as
+    ``DepthLSSTransform`` makes them."""
+    dev = "cuda"
+    depths = torch.arange(*BEV_DEPTHS, device=dev)
+    u = (torch.arange(BEV_FW, device=dev) + 0.5) * BEV_STRIDE
+    v = (torch.arange(BEV_FH, device=dev) + 0.5) * BEV_STRIDE
+    width, height = BEV_FW * BEV_STRIDE, BEV_FH * BEV_STRIDE
+    xs, ys, zs = [], [], []
+    for yaw, fov in zip(BEV_YAWS, BEV_FOVS):
+        focal = width / 2 / math.tan(math.radians(fov) / 2)
+        yaw = math.radians(yaw + rng.normal(0.0, 1.0))
+        mount = (1.0 * math.cos(yaw) + rng.normal(0.0, 0.05), 1.0 * math.sin(yaw) + rng.normal(0.0, 0.05),
+                 1.6 + rng.normal(0.0, 0.05))
+        d = depths[:, None, None]
+        left = -(u[None, None, :] - width / 2) / focal * d  # (D, 1, W)
+        up = -(v[None, :, None] - height / 2) / focal * d  # (D, H, 1)
+        fwd = d.expand(-1, BEV_FH, BEV_FW)
+        left, up = left.expand(-1, BEV_FH, -1), up.expand(-1, -1, BEV_FW)
+        xs.append(math.cos(yaw) * fwd - math.sin(yaw) * left + mount[0])
+        ys.append(math.sin(yaw) * fwd + math.cos(yaw) * left + mount[1])
+        zs.append(up + mount[2])
+    x, y, z = (torch.stack(a).reshape(-1) for a in (xs, ys, zs))
+    gx = torch.floor((x - BEV_XY[0]) / BEV_XY[2]).to(torch.int32)
+    gy = torch.floor((y - BEV_XY[0]) / BEV_XY[2]).to(torch.int32)
+    gz = torch.floor((z - BEV_Z[0]) / BEV_Z[2]).to(torch.int32)
+    kept = (gx >= 0) & (gx < BEV_GRID[2]) & (gy >= 0) & (gy < BEV_GRID[3]) & (gz >= 0) & (gz < BEV_GRID[1])
+    geom = torch.stack([gx, gy, gz, torch.zeros_like(gx)], dim=1)
+    context = torch.randn((BEV_CAMERAS, 1, BEV_FH, BEV_FW, BEV_C), generator=gen, device=dev)
+    depth = torch.softmax(2.0 * torch.randn((BEV_CAMERAS, len(depths), BEV_FH, BEV_FW, 1), generator=gen,
+                                            device=dev), dim=1)
+    feats = (depth * context).reshape(-1, BEV_C)
+    frustum_points = feats.shape[0]
+    feats, geom = feats[kept], geom[kept]
+    ranks = geom[:, 0].long() * BEV_GRID[3] + geom[:, 1]  # BEVFusion's rank: x, then y (Z = batch = 1)
+    order = torch.argsort(ranks, stable=True)
+    feats, geom, ranks = feats[order].to(dtype).contiguous(), geom[order].contiguous(), ranks[order]
+    starts_mask = torch.ones_like(ranks, dtype=torch.bool)
+    starts_mask[1:] = ranks[1:] != ranks[:-1]
+    starts = torch.nonzero(starts_mask).squeeze(1).to(torch.int32)
+    ends = torch.cat([starts[1:], torch.tensor([ranks.numel()], dtype=torch.int32, device=dev)])
+    lengths = ends - starts
+    return {"feats": feats, "geom": geom, "starts": starts, "lengths": lengths, "point_cells": ranks,
+            "frustum_points": frustum_points, "longest": int(lengths.max())}
+
+
+def small_bev_cases(rng) -> list[tuple[str, tuple, torch.dtype]]:
+    """What the BEVFusion inputs miss, as (name, (feats, geom, starts,
+    lengths, grid), dtype) on the card: cells shared by neighbouring
+    intervals (scatter-add), cells outside the grid (batch past the end, a
+    negative x, y = Y which a flat index would wrap) including one between
+    two intervals of one cell, f16, and channel counts that are not a
+    multiple of 4."""
+    def case(num_intervals, max_len, channels, gx, gy):
+        lengths = rng.integers(1, max_len + 1, size=num_intervals)
+        starts = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+        n = int(lengths.sum())
+        cells = np.sort(rng.choice(gx * gy, size=num_intervals, replace=False))
+        geom = np.zeros((n, 4), dtype=np.int32)
+        for s, ln, cell in zip(starts, lengths, cells):
+            geom[s : s + ln] = (cell // gy, cell % gy, 0, 0)
+        feats = rng.normal(size=(n, channels)).astype(np.float32)
+        return feats, geom, starts, lengths, (1, 1, gx, gy)
+
+    feats, geom, starts, lengths, grid = case(700, 9, 24, 32, 32)
+    for a, b in ((13, 14), (40, 41), (41, 42)):  # a run of three at 40
+        geom[starts[a] : starts[a] + lengths[a]] = geom[starts[b]]
+    dup = (feats, geom, starts, lengths, grid)
+    feats, geom, starts, lengths, grid = case(60, 6, 16, 8, 8)
+    geom[starts[10] : starts[10] + lengths[10]] = geom[starts[9]]  # 9, 10, 12 share a cell; 11 is dropped
+    geom[starts[12] : starts[12] + lengths[12]] = geom[starts[9]]
+    geom[starts[11] : starts[11] + lengths[11], 3] = 1  # batch past the end
+    geom[starts[30] : starts[30] + lengths[30], 0] = -1
+    geom[starts[31] : starts[31] + lengths[31], 1] = grid[3]
+    geom[starts[-1] : starts[-1] + lengths[-1], 3] = 1
+    outside = (feats, geom, starts, lengths, grid)
+    cases = [("duplicate cells, C 24", dup, torch.float32), ("cells outside the grid", outside, torch.float32),
+             ("f16, C 80", case(40, 9, 80, 16, 16), torch.float16),
+             ("C 6", case(40, 9, 6, 16, 16), torch.float32), ("C 5", case(40, 9, 5, 16, 16), torch.float32),
+             ("bf16, C 6", case(40, 9, 6, 16, 16), torch.bfloat16)]
+    out = []
+    for name, (feats, geom, starts, lengths, grid), dtype in cases:
+        t = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in (feats, geom, starts, lengths)]
+        out.append((name, (t[0].to(dtype), t[1], t[2].to(torch.int32), t[3].to(torch.int32), grid), dtype))
+    return out
+
+
+def rounding_step(dtype: torch.dtype) -> float:
+    """One rounding step of ``dtype`` relative to |ref|: its machine epsilon;
+    f32 is held at the JAX test's 1e-5."""
+    return 1e-5 if dtype == torch.float32 else torch.finfo(dtype).eps
+
+
+def check_bev_forward(name: str, out: torch.Tensor, ref: torch.Tensor) -> float:
+    """K13a against its plain version: f32 at 1e-5 + 1e-5 |ref|, bf16 / f16
+    at one rounding step times |ref|."""
+    tol = rounding_step(ref.dtype)
+    if out.dtype != ref.dtype or out.shape != ref.shape:
+        raise AssertionError(f"K13a {name}: {out.dtype} {tuple(out.shape)}, expected {ref.dtype} {tuple(ref.shape)}")
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item() if diff.numel() else 0.0
+    limit = (1e-5 if ref.dtype == torch.float32 else 0.0) + tol * ref.float().abs()
+    print(f"K13a bev_pool_fwd {name}: max_abs_err {err:.3e} (tolerance {tol:.1e} x |ref|"
+          f"{' + 1e-5' if ref.dtype == torch.float32 else ''})", flush=True)
+    if not bool((diff <= limit).all()):
+        raise AssertionError(f"K13a {name}: outside tolerance (max_abs_err {err})")
+    return err
+
+
+def check_equal(name: str, out: torch.Tensor, ref: torch.Tensor) -> None:
+    """Bit for bit: same dtype, shape and bytes."""
+    same = out.dtype == ref.dtype and out.shape == ref.shape and torch.equal(
+        out.reshape(-1).view(torch.uint8), ref.reshape(-1).view(torch.uint8))
+    print(f"{name}: {'bit for bit equal' if same else 'DIFFERS'}", flush=True)
+    if not same:
+        raise AssertionError(f"{name}: differs from its plain version")
+
+
+def nms_boxes(rng, n: int, ties: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """``n`` boxes of 5 to 50 units across a 1000 x 1000 field, and scores on
+    the card; with ``ties``, scores on a 1/64 grid (about 64 boxes a score)."""
+    centers = rng.uniform(0, 1000, size=(n, 2))
+    sizes = rng.uniform(5, 50, size=(n, 2))
+    boxes = np.concatenate([centers - sizes / 2, centers + sizes / 2], 1).astype(np.float32)
+    scores = rng.uniform(0, 1, n).astype(np.float32)
+    if ties:
+        scores = np.round(scores * 64) / 64
+    return torch.from_numpy(boxes).cuda(), torch.from_numpy(scores.astype(np.float32)).cuda()
+
+
+def kernel_phases_vision(gen, rng) -> list[dict]:
+    """K13a and K13b at BEVFusion's size (f32 and bf16) and on the small
+    cases; K13c at 4096 boxes (IoU 0.5, tied scores) and on N = 1, 513,
+    identical boxes and ties. Rows: the f32 pool, its backward, NMS at
+    4096; ``detail`` the rest."""
+    from conch_tpu_torch.kernels.vision.bev_pool import (
+        bev_pool_backward_launcher as bwd,
+        bev_pool_backward_plain as bwd_plain,
+        bev_pool_forward_launcher as fwd,
+        bev_pool_plain as fwd_plain,
+    )
+    from conch_tpu_torch.kernels.vision.nms import nms_keep_mask_launcher as keep_mask, sorted_boxes
+    from conch_tpu_torch.kernels.vision.nms import nms_keep_mask_plain as keep_plain
+
+    for name, (feats, geom, starts, lengths, grid), _ in small_bev_cases(rng):
+        check_bev_forward(name, fwd(feats, geom, starts, lengths, *grid), fwd_plain(feats, geom, starts, lengths, *grid))
+        g = torch.randn((*grid, feats.shape[1]), generator=gen, device="cuda").to(feats.dtype)
+        check_equal(f"K13b bev_pool_bwd {name}", bwd(g, geom, starts, lengths, feats.shape[0]),
+                    bwd_plain(g, geom, starts, lengths, feats.shape[0]))
+    fwd_detail, bwd_detail = [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        bev = bevfusion_inputs(gen, np.random.default_rng(SEED), dtype)
+        feats, geom, starts, lengths = bev["feats"], bev["geom"], bev["starts"], bev["lengths"]
+        n, ni, es = feats.shape[0], starts.numel(), feats.element_size()
+        label = f"BEVFusion {str(dtype).split('.')[-1]}, {n} of {bev['frustum_points']} points kept, {ni} intervals"
+        print(f"{label}, longest {bev['longest']} points", flush=True)
+        args = (feats, geom, starts, lengths, *BEV_GRID)
+        out = fwd(*args)
+        err = check_bev_forward(label, out, fwd_plain(*args))
+        grid_rows = math.prod(BEV_GRID)
+        lib_out = torch.zeros((grid_rows, BEV_C), dtype=dtype, device="cuda")
+        cells = bev["point_cells"]
+        b_ms, b_by = bound(n * BEV_C * es + grid_rows * BEV_C * es + ni * 24, n * BEV_C, F32_OPS_PER_S)
+        fwd_detail.append({
+            "case": label, "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by, "ms": time_ms(lambda: fwd(*args)),
+            "paced_ms": paced_ms(lambda: fwd(*args)), "plain_ms": time_ms(lambda: fwd_plain(*args), iters=3, warmup=1),
+            "library_ms": time_ms(lambda: lib_out.index_add_(0, cells, feats)),
+        })
+        grad = torch.randn((*BEV_GRID, BEV_C), generator=gen, device="cuda").to(dtype)
+        bargs = (grad, geom, starts, lengths, n)
+        check_equal(f"K13b bev_pool_bwd {label}", bwd(*bargs), bwd_plain(*bargs))
+        grad_rows = grad.view(-1, BEV_C)
+        b_ms, b_by = bound(ni * BEV_C * es + n * BEV_C * es + ni * 24, 0, F32_OPS_PER_S)
+        bwd_detail.append({
+            "case": label, "max_abs_err": 0.0, "bound_ms": b_ms, "bound_by": b_by, "ms": time_ms(lambda: bwd(*bargs)),
+            "paced_ms": paced_ms(lambda: bwd(*bargs)), "plain_ms": time_ms(lambda: bwd_plain(*bargs), iters=3, warmup=1),
+            "library_ms": time_ms(lambda: grad_rows.index_select(0, cells)),
+        })
+        del bev, feats, geom, starts, lengths, out, lib_out, cells, grad, grad_rows, args, bargs
+        torch.cuda.empty_cache()
+
+    identical = (torch.tensor([[0.0, 0.0, 10.0, 10.0]] * 5, device="cuda"),
+                 torch.tensor([0.1, 0.9, 0.5, 0.3, 0.7], device="cuda"))
+    lattice_boxes, lattice_scores = nms_boxes(rng, 200, ties=True)
+    lattice_boxes = torch.round(lattice_boxes / 25.0) * 25.0  # touching boxes, IoU exactly 1/3, 1/2, 0
+    nms_cases = [("N 1", nms_boxes(rng, 1)), ("N 513", nms_boxes(rng, 513)), ("identical boxes", identical),
+                 ("lattice, tied scores", (lattice_boxes, lattice_scores))]
+    for name, (boxes, scores) in nms_cases:
+        for t in (0.3, 0.5, 0.7):
+            _, parts = sorted_boxes(boxes, scores)
+            check_equal(f"K13c nms {name} IoU {t}", keep_mask(*parts, t), keep_plain(*parts, t))
+    boxes, scores = nms_boxes(rng, NMS_BOXES, ties=True)
+    _, parts = sorted_boxes(boxes, scores)
+    kept = keep_mask(*parts, NMS_IOU)
+    check_equal(f"K13c nms {NMS_BOXES} boxes IoU {NMS_IOU} (tied scores; {int(kept.sum())} kept)", kept,
+                keep_plain(*parts, NMS_IOU))
+    pairs = NMS_BOXES * (NMS_BOXES - 1) / 2
+    b_ms, b_by = bound(5 * 4 * NMS_BOXES + NMS_BOXES, 20 * pairs, F32_OPS_PER_S)
+    nms_timed = {
+        "max_abs_err": 0.0, "bound_ms": b_ms, "bound_by": b_by, "ms": time_ms(lambda: keep_mask(*parts, NMS_IOU)),
+        "paced_ms": paced_ms(lambda: keep_mask(*parts, NMS_IOU)),
+        "plain_ms": time_ms(lambda: keep_plain(*parts, NMS_IOU), iters=1, warmup=0), "library_ms": None,
+    }
+    rows = []
+    for name, source, replaces, detail in (
+        ("bev_pool_fwd", "conch_tpu_torch/csrc/bev_pool.cu",
+         "conch_tpu/kernels/vision/bev_pool.py:99; conch_tpu/kernels/vision/bev_pool.py:169", fwd_detail),
+        ("bev_pool_bwd", "conch_tpu_torch/csrc/bev_pool.cu",
+         "conch_tpu/kernels/vision/bev_pool.py:256; conch_tpu/kernels/vision/bev_pool.py:286", bwd_detail),
+        ("nms", "conch_tpu_torch/csrc/nms.cu", "conch_tpu/kernels/vision/nms.py:43", [nms_timed]),
+    ):
+        for d in detail:
+            print(f"{name} ({d.get('case', f'{NMS_BOXES} boxes')}): {d['ms']:.4f} ms (paced {d['paced_ms']:.4f}, plain "
+                  f"{d['plain_ms']:.4f}, library {d['library_ms']}, bound {d['bound_ms']:.5f} by {d['bound_by']})",
+                  flush=True)
+        row = _kernel_row(name, source, replaces, max(d["max_abs_err"] for d in detail), detail[0],
+                          detail[0]["bound_ms"], detail[0]["bound_by"])
+        row["detail"] = detail
+        rows.append(row)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def pillars_cloud(rng) -> np.ndarray:
+    """A KITTI-like sweep at PointPillars' range: points thin out with
+    distance from the sensor (about 10% land outside the range), and 3% sit
+    on voxel boundaries (x, y = min + k * 0.16 in f32, or one ulp off),
+    where a multiplication by the reciprocal and a true division part."""
+    n = PILLAR_POINTS
+    r = 2.0 + 78.0 * rng.random(n) ** 1.5
+    phi = rng.uniform(-math.pi / 2.2, math.pi / 2.2, n)
+    pts = np.stack([r * np.cos(phi), r * np.sin(phi), rng.uniform(-3.3, 1.2, n), rng.random(n)], 1).astype(np.float32)
+    edge = rng.choice(n, n * 3 // 100, replace=False)
+    lo, vd = np.float32(PILLARS["min_range"][1]), np.float32(0.16)
+    k = rng.integers(0, 432, edge.size).astype(np.float32)
+    pts[edge, 0] = k * vd
+    pts[edge, 1] = lo + rng.integers(0, 496, edge.size).astype(np.float32) * vd
+    ulp = rng.integers(-1, 2, (edge.size, 2))
+    for axis in (0, 1):
+        step = np.where(ulp[:, axis] > 0, np.float32(np.inf), np.float32(-np.inf))
+        moved = ulp[:, axis] != 0
+        pts[edge[moved], axis] = np.nextafter(pts[edge[moved], axis], step[moved])
+    return pts
+
+
+def check_voxelization(rng) -> dict:
+    """``generate_voxels``, and ``voxelization_stable`` with
+    ``collect_point_features``, at PointPillars' KITTI size on the card and on
+    the CPU from the same points: every output equal, element for element.
+    Plain torch (no kernel), so this is where a division done another way
+    on the card would show."""
+    from conch_tpu_torch.ops.vision import (
+        VoxelizationParameter, collect_point_features, generate_voxels, voxelization_stable,
+    )
+
+    param = VoxelizationParameter(**PILLARS)
+    pts = torch.from_numpy(pillars_cloud(rng))
+
+    def run(points):
+        gen_out = generate_voxels(points, param)
+        stable = voxelization_stable(points, param)
+        return (*gen_out, *stable, *collect_point_features(points, stable[0], stable[1], param))
+
+    card = run(pts.cuda())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(pts.cuda())
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    cpu = run(pts)
+    names = ("num_filled", "point_features", "voxel_indices", "num_points_per_voxel", "stable counts",
+             "point_indices", "flat_voxel_indices", "stable num_filled", "collected features", "capped counts")
+    for name, a, b in zip(names, card, cpu, strict=True):
+        check_equal(f"voxelization {name} card vs CPU {tuple(b.shape)}", a.cpu(), b)
+    filled, stable_filled = int(cpu[0]), int(cpu[7])
+    print(f"voxelization: {PILLAR_POINTS} points, generate_voxels {filled} voxels, voxelization_stable "
+          f"{stable_filled} voxels; both on the card in {card_s * 1e3:.1f} ms (host clock, one call each)", flush=True)
+    return {"generate_voxels": filled, "voxelization_stable": stable_filled}
+
+
+def vision_path(card: str) -> dict:
+    """The public vision ops in a perception stack's order, at full size:
+    voxelize a PointPillars sweep, pool BEVFusion's camera features onto the
+    BEV grid and back-propagate a loss through the pool
+    (``loss.backward()``), then NMS over 4096 boxes. Counts set to 0 just
+    before, read just after; checks: finite outputs of the expected shapes,
+    the gradient equal bit for bit to the plain backward of the loss's
+    gradient, the kept boxes equal to the plain keep mask's. Then a profiled
+    repeat (after the counts are read)."""
+    from conch_tpu_torch.kernels.vision.bev_pool import bev_pool_backward_plain
+    from conch_tpu_torch.kernels.vision.nms import nms_keep_mask_plain, sorted_boxes
+    from conch_tpu_torch.ops.vision import VoxelizationParameter, bev_pool, generate_voxels, nms
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    rng = np.random.default_rng(SEED + 1)
+    param = VoxelizationParameter(**PILLARS)
+    points = torch.from_numpy(pillars_cloud(rng)).cuda()
+    bev = bevfusion_inputs(gen, rng)
+    feats = bev["feats"].requires_grad_(True)
+    boxes, scores = nms_boxes(rng, NMS_BOXES, ties=True)
+
+    def run():
+        feats.grad = None
+        num_filled, voxel_feats, _, _ = generate_voxels(points, param)
+        pooled = bev_pool(feats, bev["geom"], bev["starts"], bev["lengths"], *BEV_GRID)
+        loss = (pooled**2).sum()
+        loss.backward()
+        return num_filled, voxel_feats, pooled, loss, nms(boxes, scores, NMS_IOU)
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    num_filled, voxel_feats, pooled, loss, keep = run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launch_counts()
+    if pooled.shape != (*BEV_GRID, BEV_C) or not bool(torch.isfinite(pooled).all()) or not math.isfinite(loss.item()):
+        raise AssertionError(f"vision path: pooled {tuple(pooled.shape)}, not finite or not of the grid's shape")
+    if voxel_feats.shape != (param.max_num_voxels, 32, 4) or int(num_filled) <= 0:
+        raise AssertionError("vision path: voxelization gave no voxels")
+    check_equal("vision path: feats.grad vs the plain backward of 2 * pooled", feats.grad,
+                bev_pool_backward_plain(2 * pooled.detach(), bev["geom"], bev["starts"], bev["lengths"],
+                                        feats.shape[0]))
+    order, parts = sorted_boxes(boxes, scores)
+    check_equal("vision path: nms vs the plain keep mask", keep,
+                order[nms_keep_mask_plain(*parts, NMS_IOU)].to(torch.int32))
+    print(f"vision_bevfusion: voxelized {PILLAR_POINTS} points ({int(num_filled)} pillars), pooled "
+          f"{feats.shape[0]} points onto {BEV_GRID} x {BEV_C} and back, kept {keep.numel()} of {NMS_BOXES} boxes in "
+          f"{seconds * 1e3:.1f} ms on {card} (host clock, first call); launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    for name in VISION_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was never launched on the vision path")
+    profile_run(run, "vision_bevfusion")
+    del bev, feats, pooled, loss, points, voxel_feats
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+VISION_KERNELS = ("bev_pool_fwd", "bev_pool_bwd", "nms")
+
+
 def kernel_phases() -> list[dict]:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rng = np.random.default_rng(SEED)
@@ -1305,7 +1692,7 @@ def kernel_phases() -> list[dict]:
         kernel_phase_k1(gen), kernel_phase_k2(gen, rng), kernel_phase_k3(gen, rng), kernel_phase_k4(gen),
         kernel_phase_k5(gen, rng), kernel_phase_k6(gen), kernel_phase_k7(gen, rng), kernel_phase_k10a(gen),
         kernel_phase_k10b(gen), kernel_phase_k1b(gen), kernel_phase_k1c(gen), kernel_phase_k8(gen),
-        kernel_phase_k12q(gen), kernel_phase_k11(gen, rng), kernel_phase_k9(gen),
+        kernel_phase_k12q(gen), kernel_phase_k11(gen, rng), kernel_phase_k9(gen), *kernel_phases_vision(gen, rng),
     ]
     # The Gemma-2-2B shapes of K2, K3, K5 and K7 go into their rows' detail
     # beside the Llama-3-8B numbers the rows keep.
@@ -1356,6 +1743,8 @@ def _launchers() -> dict:
         mixed_gemm_rows_launcher,
         scaled_gemm_launcher,
     )
+    from conch_tpu_torch.kernels.vision.bev_pool import bev_pool_backward_launcher, bev_pool_forward_launcher
+    from conch_tpu_torch.kernels.vision.nms import nms_keep_mask_launcher
 
     return {
         "mixed_gemm_magic": (mixed_gemm_magic_launcher,),
@@ -1373,6 +1762,9 @@ def _launchers() -> dict:
         "gelu_tanh_and_mul": (gelu_tanh_and_mul_launcher, gelu_tanh_and_mul_parts_launcher),
         "mla_attention": (mla_attention_launcher,),
         "static_scaled_quant": (static_scaled_int8_quant_launcher, static_scaled_fp8_quant_launcher),
+        "bev_pool_fwd": (bev_pool_forward_launcher,),
+        "bev_pool_bwd": (bev_pool_backward_launcher,),
+        "nms": (nms_keep_mask_launcher,),
     }
 
 
@@ -1787,19 +2179,24 @@ def serve(
 
 def profile_served_run(params: dict, cfg, ecfg, model_fns: dict, prompts: list, max_tokens: int, label: str) -> None:
     """The same requests on a fresh engine under torch.profiler (not the
-    timed run): device time by kernel group, from the trace's kernel events,
-    and the device's idle share of the wall time."""
+    timed run): ``profile_run``'s breakdown."""
+    from conch_tpu_torch.serving import LLMEngine, SamplingParams
+
+    engine = LLMEngine(params, cfg, ecfg, **model_fns)
+    profile_run(lambda: engine.generate(prompts, SamplingParams(max_tokens=max_tokens)), label)
+
+
+def profile_run(fn, label: str) -> None:
+    """``fn()`` under torch.profiler: device time by kernel group, from the
+    trace's kernel events, and the device's idle share of the wall time."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
 
-    from conch_tpu_torch.serving import LLMEngine, SamplingParams
-
-    engine = LLMEngine(params, cfg, ecfg, **model_fns)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.generate(prompts, SamplingParams(max_tokens=max_tokens))
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     with tempfile.TemporaryDirectory() as tmp:
@@ -1852,6 +2249,7 @@ PRIMARY_PATH = {
     "mixed_gemm_magic": "llama3_8b_int4", "rms_norm": "llama3_8b_int4", "silu_and_mul": "llama3_8b_int4",
     "mixed_gemm_planar": "llama3_8b_int8", "mixed_gemm_rows": "llama3_8b_nf4", "quantize4": "llama3_8b_nf4",
     "scaled_gemm": "llama3_8b_w8a8", "mla_attention": "deepseek_v2_lite_bf16",
+    "bev_pool_fwd": "vision_bevfusion", "bev_pool_bwd": "vision_bevfusion", "nms": "vision_bevfusion",
 }
 # K9's callers are its public ops: its row's launches are those of its
 # kernel phase, and it launches on no served path.
@@ -1870,6 +2268,8 @@ def main() -> int:
     print(card, flush=True)
     build()
     rows = kernel_phases()
+    check_voxelization(np.random.default_rng(SEED))
+    vision_launches = vision_path(card)
     check_prefill_logits()
     check_deepseek_logits()
 
@@ -1943,10 +2343,11 @@ def main() -> int:
             DEEPSEEK_KERNELS, DEEPSEEK_PER_STEP,
         ),
     }
+    launches["vision_bevfusion"] = vision_launches
     # ``launches``: the Gemma run for the kernels it runs, the int4 run for
     # K1, K4 and K6, the int8, nf4 and w8a8 runs for their kernels (K12q:
-    # during the nf4 init), the DeepSeek run for K11, K9's phase for K9;
-    # every path's count beside it (the quantized-cache runs' K2, K3, K7
+    # during the nf4 init), the DeepSeek run for K11, K9's phase for K9, the
+    # vision path for K13a, K13b and K13c; every path's count beside it (the quantized-cache runs' K2, K3, K7
     # and K11 among them).
     for row in rows:
         by_path = {path: counts[row["name"]] for path, counts in launches.items()}
