@@ -14,7 +14,8 @@
    its plain version, its bound and, where one exists, one PyTorch call
    computing the same function:
    - K1 int4 magic GEMM at the engine's four (K, N) at M 8 and 512, read
-     from layer 17 of a 32-layer stack (tolerance 1e-2 x max |ref|);
+     from layer 17 of a 32-layer stack, at group 128 and group 64
+     (tolerance 1e-2 x max |ref|);
    - K1b int8 planar GEMM and K8 int8 scaled GEMM at the int8 / w8a8
      engine's four fused (K, N) and lm_head (4096 x 128256), K1c NF4
      codebook GEMM at the nf4 engine's unfused shapes and lm_head, each at
@@ -24,7 +25,9 @@
      does not use (K1b 4-bit with per-group and scalar zero-points, K1c
      8-bit rows with zero-points and the FP4 codebook, K8 float8_e4m3fn);
    - K12q NF4/FP4 encode on every weight the nf4 init quantizes (with an
-     all-zero block), byte for byte;
+     all-zero block), and on the gate projection at blocksize 4096 and
+     from f16, byte for byte; K12d NF4/FP4 decode of the gate projection
+     at blocksize 64 and 4096 into bf16, f32 and f16, bit for bit;
    - K2 cache write, K3 paged decode attention, K5 RoPE, K7 varlen prefill
      attention at Llama-3-8B's shapes (QH 32 / KH 8 / D 128, page 16, a
      32-layer pool read at a non-zero layer, decode batch 8 with an idle
@@ -33,7 +36,10 @@
      and again at Gemma-2-2B's (QH 8 / KH 4 / D 256, a 26-layer pool; K3
      and K7 with softcap 50 and scale 1/16, with and without the 4096
      window, at lengths past it, queries scaled so the logits reach the cap);
-   - K4 rms_norm at 8 and 512 rows x 4096, K6 silu_and_mul on fused
+   - K4 rms_norm at 8 and 512 rows x 4096 (and f32, f16 at 512), K4b
+     fused_add_rms_norm in bf16 at 8 and 2048 rows x 4096 and in f32 and
+     f16 at 2048 (the sum bit for bit, the output at
+     tests/rms_norm_test.py's tolerances), K6 silu_and_mul on fused
      halves at 8 and 512 rows x 2 * 14336 and on parts;
    - K10a gemma_rms_norm at 8 and 512 rows x 2304, K10b gelu_tanh_and_mul
      at 8 and 512 rows x 2 * 9216 (halves and parts), f32 and bf16;
@@ -66,10 +72,19 @@
    and ``loss.backward()`` at BEVFusion's size, NMS over 4096 boxes,
    through ``conch_tpu_torch.ops.vision``, with K13a, K13b and K13c's
    launches read around it;
+   the QLoRA storage path (``llama3_8b_qlora``): every projection of
+   Llama-3-8B's 32 layers and its lm_head (bf16 random weights, one layer
+   at a time) through ``quantize_4bit(nf4, 64, compress_statistics=True)``
+   and ``dequantize_4bit``, 225 launches each of K12q and K12d, every
+   error within NF4's half-gap plus the double quantization's, and a
+   profiled repeat of one layer; and Llama-3-8B's residual stream through
+   ``fused_add_rms_norm`` (``llama3_8b_residual_stream``: 64 calls at 2048
+   x 4096 bf16, against the plain op's chain);
 5. slice phases: the first-token logits of 2-layer full-width prefills on
    the card against the plain path on the CPU (Llama-3-8B: bf16 weights in
-   f32 and bf16, int4, int8, nf4 and w8a8 weights in bf16; Gemma-2-2B: f32
-   and bf16, random norm weights; DeepSeek-V2-Lite, one dense and one MoE
+   f32 and bf16, int4 at group 128 and 64, int8, nf4 and w8a8 weights in
+   bf16; Gemma-2-2B: f32 and bf16, random norm weights; DeepSeek-V2-Lite,
+   one dense and one MoE
    layer: f32 and bf16, random norm weights, and the MoE routing compared
    token by token, a divergence accepted only at a near tie; each family
    also in bf16 over an int8 and an e4m3 KV cache); then
@@ -83,6 +98,8 @@
    - Llama-3-8B int4, the README's example: 16 requests of 40 to 900
      tokens, ``EngineConfig(num_pages=4096, max_batch_size=32)`` (512-row
      prefill steps);
+   - the same int4 engine with the projections at group 64 (K1's group-64
+     template): 8 requests of 40 to 900 tokens;
    - Llama-3-8B int8 (K1b), nf4 (K1c; K12q during the init) and w8a8 (K8),
      32 layers, every projection and lm_head in the mode: 8 requests of 40
      to 900 tokens each, ``EngineConfig(num_pages=4096, max_batch_size=32)``;
@@ -102,7 +119,8 @@
    run: Gemma for the kernels it runs, int4 for K1, K4 and K6, int8, nf4
    and w8a8 for K1b, K1c and K8, the nf4 init for K12q, DeepSeek for K11,
    K9's own phase for K9 (no served path runs it), the vision path for
-   K13a, K13b and K13c;
+   K13a, K13b and K13c, the QLoRA path for K12d, the residual stream for
+   K4b;
    every path's counts
    beside them), the card line, then ``{"ok": true, "device": ...}`` as the
    last line.
@@ -489,57 +507,74 @@ def _kernel_row(name: str, source: str, replaces: str, err: float, timed: dict, 
     }
 
 
-def kernel_phase_k1(gen) -> dict:
-    """K1 at the engine's four (K, N) at M = 8 (decode) and M = 512 (a
-    prefill chunk), read from layer 17 of a 32-layer stack. The row's
-    numbers are the sums over the four shapes at M = 8 (one layer's
-    projections in a decode step); ``detail`` has every shape."""
+def _k1_cases(gen, group: int) -> list[dict]:
+    """K1 at the engine's four (K, N), M = 8 and 512, layer 17 of a 32-layer
+    stack, at ``group``: checked against the plain version (tolerance 1e-2
+    x max |ref|) and timed beside it and a bf16 matmul on the dequantized
+    weight."""
     from conch_tpu_torch.kernels.quantization.gemm import (
         dequantize_magic,
         mixed_gemm_magic_launcher as launch,
         mixed_gemm_magic_plain as plain,
     )
 
-    err, detail = 0.0, []
+    detail = []
     for k, n in K1_SHAPES:
         packed = torch.randint(-(2**31), 2**31 - 1, (NUM_LAYERS_POOL, k // 8, n), generator=gen, device="cuda",
                                dtype=torch.int32)
-        scales = (torch.rand((NUM_LAYERS_POOL, k // GROUP, n), generator=gen, device="cuda") * 4e-3 + 1e-4).to(
+        scales = (torch.rand((NUM_LAYERS_POOL, k // group, n), generator=gen, device="cuda") * 4e-3 + 1e-4).to(
             torch.bfloat16)
         # Timed calls walk the 32 layers (library: 3 dense copies), so the
         # weights come from HBM as in a model step, not from the 50 MB L2.
-        dense = [dequantize_magic(packed[i], scales[i], k, GROUP, 8).to(torch.bfloat16) for i in (LAYER, 0, 31)]
+        dense = [dequantize_magic(packed[i], scales[i], k, group, 8).to(torch.bfloat16) for i in (LAYER, 0, 31)]
         layers, copies = itertools.cycle(range(NUM_LAYERS_POOL)), itertools.cycle(dense)
         for m in (8, 512):
             x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
-            out_k = launch(x, packed, scales, GROUP, 8, LAYER)
-            out_p = plain(x, packed, scales, GROUP, 8, LAYER)
+            out_k = launch(x, packed, scales, group, 8, LAYER)
+            out_p = plain(x, packed, scales, group, 8, LAYER)
             torch.cuda.synchronize()
             scale = out_p.float().abs().max().item()
             e = (out_k.float() - out_p.float()).abs().max().item()
-            check(f"K1 mixed_gemm_magic M={m} K={k} N={n} (max|ref| {scale:.3f})", e, 1e-2 * scale)
-            err = max(err, e)
-            bytes_moved = m * k * 2 + k * n // 2 + (k // GROUP) * n * 2 + m * n * 2
+            check(f"K1 mixed_gemm_magic group {group} M={m} K={k} N={n} (max|ref| {scale:.3f})", e, 1e-2 * scale)
+            bytes_moved = m * k * 2 + k * n // 2 + (k // group) * n * 2 + m * n * 2
             b_ms, b_by = bound(bytes_moved, 2 * m * n * k)
             detail.append({
-                "m": m, "k": k, "n": n, "max_abs_err": e, "bound_ms": b_ms, "bound_by": b_by,
-                "ms": time_ms(lambda: launch(x, packed, scales, GROUP, 8, next(layers))),
-                "paced_ms": paced_ms(lambda: launch(x, packed, scales, GROUP, 8, next(layers))),
-                "plain_ms": time_ms(lambda: plain(x, packed, scales, GROUP, 8, next(layers)), iters=5),
+                "group": group, "m": m, "k": k, "n": n, "max_abs_err": e, "bound_ms": b_ms, "bound_by": b_by,
+                "ms": time_ms(lambda: launch(x, packed, scales, group, 8, next(layers))),
+                "paced_ms": paced_ms(lambda: launch(x, packed, scales, group, 8, next(layers))),
+                "plain_ms": time_ms(lambda: plain(x, packed, scales, group, 8, next(layers)), iters=5),
                 "library_ms": time_ms(lambda: torch.matmul(x, next(copies))),
             })
         del packed, scales, dense
         torch.cuda.empty_cache()
     for d in detail:
-        print(f"K1 M={d['m']} K={d['k']} N={d['n']}: {d['ms']:.4f} ms (paced {d['paced_ms']:.4f}, plain "
-              f"{d['plain_ms']:.4f}, bf16 matmul {d['library_ms']:.4f}, bound {d['bound_ms']:.5f} by {d['bound_by']})",
-              flush=True)
+        print(f"K1 group {group} M={d['m']} K={d['k']} N={d['n']}: {d['ms']:.4f} ms (paced {d['paced_ms']:.4f}, "
+              f"plain {d['plain_ms']:.4f}, bf16 matmul {d['library_ms']:.4f}, bound {d['bound_ms']:.5f} by "
+              f"{d['bound_by']})", flush=True)
+    return detail
+
+
+def _decode_sums(detail: list[dict]) -> dict:
+    """One layer's four GEMMs at M = 8: each time and the bound summed."""
     decode = [d for d in detail if d["m"] == 8]
-    timed = {key: sum(d[key] for d in decode) for key in ("ms", "paced_ms", "plain_ms", "library_ms")}
+    return {key: sum(d[key] for d in decode) for key in ("ms", "paced_ms", "plain_ms", "library_ms", "bound_ms")}
+
+
+def kernel_phase_k1(gen) -> dict:
+    """K1 at the engine's four (K, N) at M = 8 (decode) and M = 512 (a
+    prefill chunk), read from layer 17 of a 32-layer stack, at group 128
+    (the README's int4) and group 64. The row's numbers are the group-128
+    sums over the four shapes at M = 8 (one layer's projections in a
+    decode step); ``group64`` has the same sums at group 64 and ``detail``
+    every case."""
+    detail = _k1_cases(gen, 128) + _k1_cases(gen, 64)
+    timed = _decode_sums([d for d in detail if d["group"] == 128])
     row = _kernel_row(
         "mixed_gemm_magic", "conch_tpu_torch/csrc/mixed_gemm_magic.cu", "conch_tpu/kernels/quantization/gemm.py:658",
-        err, timed, sum(d["bound_ms"] for d in decode), "bytes",
+        max(d["max_abs_err"] for d in detail), timed, timed["bound_ms"], "bytes",
     )
+    row["group64"] = _decode_sums([d for d in detail if d["group"] == 64])
+    print(f"K1 one layer at M=8: group 128 {timed['ms']:.4f} ms, group 64 {row['group64']['ms']:.4f} ms", flush=True)
     row["detail"] = detail
     return row
 
@@ -795,12 +830,27 @@ def kernel_phase_k8(gen) -> dict:
     return row
 
 
+GATE = (4096, 14336)  # Llama-3-8B's gate projection (K, N); its (N, K) weight is quantized
+
+
+def _k12q_case(launch, plain, wt: torch.Tensor, blocksize: int, quant_type: str) -> None:
+    """K12q against its plain version on one input, byte for byte."""
+    got, ref = launch(wt, blocksize, quant_type), plain(wt, blocksize, quant_type)
+    torch.cuda.synchronize()
+    bad = int((got[0] != ref[0]).sum().item()) + int((got[1] != ref[1]).sum().item())
+    name = f"K12q quantize4 {quant_type} blocksize {blocksize} {tuple(wt.shape)} {wt.dtype}"
+    print(f"{name}: {bad} bytes or absmax differ (tolerance 0)", flush=True)
+    if bad:
+        raise AssertionError(f"{name}: {bad} outputs differ from the plain version")
+
+
 def kernel_phase_k12q(gen) -> dict:
     """K12q (NF4 and FP4 encode, blocksize 64) on every (N, K) weight the
     nf4 init quantizes, transposed and rounded to bf16 as ``nf4_from_dense``
-    hands it over, with an all-zero block; packed bytes and absmax held
-    byte for byte against the plain version. The row times the gate
-    projection (4096 x 14336)."""
+    hands it over, with an all-zero block; on the gate projection also at
+    blocksize 4096 (the loop over a block read twice) and from f16; packed
+    bytes and absmax held byte for byte against the plain version. The row
+    times the gate projection at blocksize 64; ``detail`` also at 4096."""
     from conch_tpu_torch.kernels.quantization.bitsandbytes.blockwise import (
         quantize4_launcher as launch,
         quantize4_plain as plain,
@@ -810,30 +860,131 @@ def kernel_phase_k12q(gen) -> dict:
     for (k, n) in (*NF4_LAYER_SHAPES, LM_HEAD):
         wt = (0.02 * torch.randn((n, k), generator=gen, device="cuda")).to(torch.bfloat16)
         wt[3, :NF4_BLOCK] = 0.0  # an all-zero block: absmax 0, reciprocal 0
-        for quant_type in ("nf4", "fp4") if (k, n) == (4096, 14336) else ("nf4",):
-            got, ref = launch(wt, NF4_BLOCK, quant_type), plain(wt, NF4_BLOCK, quant_type)
-            torch.cuda.synchronize()
-            bad = int((got[0] != ref[0]).sum().item()) + int((got[1] != ref[1]).sum().item())
-            print(f"K12q quantize4 {quant_type} {n} x {k}: {bad} bytes or absmax differ (tolerance 0)", flush=True)
-            if bad:
-                raise AssertionError(f"K12q quantize4 {quant_type} {n} x {k}: {bad} outputs differ from the plain version")
-        if (k, n) == (4096, 14336):
+        for quant_type in ("nf4", "fp4") if (k, n) == GATE else ("nf4",):
+            _k12q_case(launch, plain, wt, NF4_BLOCK, quant_type)
+        if (k, n) == GATE:
+            wt[5, :4096] = 0.0  # an all-zero block at 4096
+            for quant_type in ("nf4", "fp4"):
+                _k12q_case(launch, plain, wt, 4096, quant_type)
+            for blocksize in (NF4_BLOCK, 4096):
+                _k12q_case(launch, plain, wt.half(), blocksize, "nf4")
             size = n * k
-            bytes_moved = size * 2 + size // 2 + (size // NF4_BLOCK) * 4
-            b_ms, b_by = bound(bytes_moved, 18 * size, F32_OPS_PER_S)  # abs, max, scale, 15 compares
-            detail.append({
-                "k": k, "n": n, "max_abs_err": 0.0, "bound_ms": b_ms, "bound_by": b_by,
-                "ms": time_ms(lambda: launch(wt, NF4_BLOCK, "nf4")),
-                "paced_ms": paced_ms(lambda: launch(wt, NF4_BLOCK, "nf4")),
-                "plain_ms": time_ms(lambda: plain(wt, NF4_BLOCK, "nf4"), iters=3, warmup=1), "library_ms": None,
-            })
+            for blocksize in (NF4_BLOCK, 4096):
+                bytes_moved = size * 2 + size // 2 + (size // blocksize) * 4
+                b_ms, b_by = bound(bytes_moved, 18 * size, F32_OPS_PER_S)  # abs, max, scale, 15 compares
+                detail.append({
+                    "k": k, "n": n, "blocksize": blocksize, "max_abs_err": 0.0, "bound_ms": b_ms, "bound_by": b_by,
+                    "ms": time_ms(lambda: launch(wt, blocksize, "nf4")),
+                    "paced_ms": paced_ms(lambda: launch(wt, blocksize, "nf4")),
+                    "plain_ms": time_ms(lambda: plain(wt, blocksize, "nf4"), iters=3, warmup=1), "library_ms": None,
+                })
         del wt
+    for d in detail:
+        print(f"quantize4 nf4 {d['n']} x {d['k']} blocksize {d['blocksize']}: {d['ms']:.4f} ms (paced "
+              f"{d['paced_ms']:.4f}, plain {d['plain_ms']:.4f}, bound {d['bound_ms']:.5f} by {d['bound_by']})",
+              flush=True)
     d = detail[0]
-    print(f"quantize4 nf4 {d['n']} x {d['k']}: {d['ms']:.4f} ms (paced {d['paced_ms']:.4f}, plain {d['plain_ms']:.4f}, "
-          f"bound {d['bound_ms']:.5f} by {d['bound_by']})", flush=True)
     row = _kernel_row(
         "quantize4", "conch_tpu_torch/csrc/quantize4.cu",
         "conch_tpu/kernels/quantization/bitsandbytes/blockwise.py:324", 0.0, d, d["bound_ms"], d["bound_by"],
+    )
+    row["detail"] = detail
+    return row
+
+
+def kernel_phase_k12d(gen) -> dict:
+    """K12d (NF4 and FP4 decode) on Llama-3-8B's gate projection (14336 x
+    4096, bf16, encoded by K12q with an all-zero block) at blocksize 64 and
+    4096, into bf16, f32 and f16, held bit for bit against the plain
+    version. The row times nf4 at blocksize 64 into bf16 (QLoRA's storage);
+    ``detail`` every output dtype and blocksize 4096. No single PyTorch
+    call decodes NF4, so no library time."""
+    from conch_tpu_torch.kernels.quantization.bitsandbytes.blockwise import (
+        dequantize4_launcher as launch,
+        dequantize4_plain as plain,
+        quantize4_launcher,
+    )
+
+    k, n = GATE
+    wt = (0.02 * torch.randn((n, k), generator=gen, device="cuda")).to(torch.bfloat16)
+    wt[3, :NF4_BLOCK] = 0.0
+    size, detail = n * k, []
+    for quant_type in ("nf4", "fp4"):
+        for blocksize in (NF4_BLOCK, 4096):
+            packed, absmax = quantize4_launcher(wt, blocksize, quant_type)
+            for dtype in (torch.bfloat16, torch.float32, torch.float16):
+                check_equal(f"K12d dequantize4 {quant_type} blocksize {blocksize} {n} x {k} into {dtype}",
+                            launch(packed, absmax, blocksize, quant_type, dtype),
+                            plain(packed, absmax, blocksize, quant_type, dtype))
+                if quant_type == "nf4":
+                    elem = torch.empty((), dtype=dtype).element_size()
+                    b_ms, b_by = bound(size // 2 + (size // blocksize) * 4 + size * elem, size, F32_OPS_PER_S)
+                    detail.append({
+                        "case": f"nf4 blocksize {blocksize} into {dtype}", "max_abs_err": 0.0, "bound_ms": b_ms,
+                        "bound_by": b_by,
+                        "ms": time_ms(lambda: launch(packed, absmax, blocksize, quant_type, dtype)),
+                        "paced_ms": paced_ms(lambda: launch(packed, absmax, blocksize, quant_type, dtype)),
+                        "plain_ms": time_ms(lambda: plain(packed, absmax, blocksize, quant_type, dtype), iters=3,
+                                            warmup=1),
+                        "library_ms": None,
+                    })
+            del packed, absmax
+    del wt
+    torch.cuda.empty_cache()
+    for d in detail:
+        print(f"K12d {d['case']}: {d['ms']:.4f} ms (paced {d['paced_ms']:.4f}, plain {d['plain_ms']:.4f}, bound "
+              f"{d['bound_ms']:.5f} by {d['bound_by']})", flush=True)
+    d = detail[0]
+    row = _kernel_row(
+        "dequantize4", "conch_tpu_torch/csrc/dequantize4.cu",
+        "conch_tpu/kernels/quantization/bitsandbytes/blockwise.py:367", 0.0, d, d["bound_ms"], d["bound_by"],
+    )
+    row["detail"] = detail
+    return row
+
+
+# tests/rms_norm_test.py's tolerances (atol and rtol) for K4 and K4b
+# against their plain versions: the two sum the squares in another order.
+NORM_TOLERANCES = {torch.float32: 1e-5, torch.float16: 1e-3, torch.bfloat16: 2e-2}
+K4B_CASES = ((8, torch.bfloat16), (2048, torch.bfloat16), (2048, torch.float32), (2048, torch.float16))
+
+
+def kernel_phase_k4b(gen) -> dict:
+    """K4b (fused residual add + RMS norm) at Llama-3-8B's hidden size: bf16
+    at 8 and 2048 rows, f32 and f16 at 2048. ``out`` against the plain
+    version at NORM_TOLERANCES, the sum ``x + r`` bit for bit. The row has
+    the 2048-row bf16 numbers (a prefill chunk); no single PyTorch call
+    computes both outputs, so no library time."""
+    from conch_tpu_torch.kernels.normalization.rms_norm import (
+        fused_add_rms_norm_launcher as launch,
+        fused_add_rms_norm_plain as plain,
+    )
+
+    eps = 1e-5
+    err, detail = 0.0, []
+    for rows, dtype in K4B_CASES:
+        x, r = (torch.randn((rows, HIDDEN), generator=gen, device="cuda").to(dtype) for _ in range(2))
+        w = (1.0 + 0.1 * torch.randn((HIDDEN,), generator=gen, device="cuda")).to(dtype)
+        (out, res), (ref_out, ref_res) = launch(x, r, w, eps), plain(x, r, w, eps)
+        torch.cuda.synchronize()
+        name = f"K4b fused_add_rms_norm rows={rows} {dtype}"
+        check_equal(f"{name} x + r", res, ref_res)
+        e = check_close(name, out, ref_out, NORM_TOLERANCES[dtype])
+        err = max(err, e)
+        if rows == 2048:
+            b_ms, b_by = bound(4 * rows * HIDDEN * x.element_size() + HIDDEN * w.element_size(), 6 * rows * HIDDEN,
+                               F32_OPS_PER_S)
+            detail.append({
+                "case": f"{rows}x{HIDDEN} {dtype}", "max_abs_err": e, "bound_ms": b_ms, "bound_by": b_by,
+                "ms": time_ms(lambda: launch(x, r, w, eps)), "paced_ms": paced_ms(lambda: launch(x, r, w, eps)),
+                "plain_ms": time_ms(lambda: plain(x, r, w, eps)), "library_ms": None,
+            })
+    for d in detail:
+        print(f"K4b {d['case']}: {d['ms']:.4f} ms (paced {d['paced_ms']:.4f}, plain {d['plain_ms']:.4f}, bound "
+              f"{d['bound_ms']:.5f} by {d['bound_by']})", flush=True)
+    row = _kernel_row(
+        "fused_add_rms_norm", "conch_tpu_torch/csrc/rms_norm.cu", "conch_tpu/kernels/normalization/rms_norm.py:42",
+        err, detail[0], detail[0]["bound_ms"], detail[0]["bound_by"],
     )
     row["detail"] = detail
     return row
@@ -847,6 +998,11 @@ def kernel_phase_k4(gen) -> dict:
     w = (1.0 + 0.1 * torch.randn((HIDDEN,), generator=gen, device="cuda")).to(torch.bfloat16)
     lib = getattr(torch.nn.functional, "rms_norm", None)
     err, detail = 0.0, []
+    for dtype in (torch.float32, torch.float16):  # the other dtypes K4 takes, at 512 rows
+        x = torch.randn((512, HIDDEN), generator=gen, device="cuda").to(dtype)
+        e = check_close(f"K4 rms_norm rows=512 {dtype}", launch(x, w.to(dtype), eps), plain(x, w.to(dtype), eps),
+                        NORM_TOLERANCES[dtype])
+        err = max(err, e)
     for rows in (8, 512):
         x = torch.randn((rows, HIDDEN), generator=gen, device="cuda").to(torch.bfloat16)
         e = (launch(x, w, eps).float() - plain(x, w, eps).float()).abs().max().item()
@@ -1684,6 +1840,136 @@ def vision_path(card: str) -> dict:
 
 VISION_KERNELS = ("bev_pool_fwd", "bev_pool_bwd", "nms")
 
+# Llama-3-8B's seven projections of a layer as torch.nn.Linear stores them,
+# (out_features, in_features): q, k, v, o, gate, up, down; then lm_head.
+LLAMA_LINEARS = ((4096, 4096), (1024, 4096), (1024, 4096), (4096, 4096), (14336, 4096), (14336, 4096), (4096, 14336))
+LLAMA_LM_HEAD = (128256, 4096)
+QLORA_LAUNCHES = 7 * 32 + 1
+
+
+def qlora_path(card: str) -> dict:
+    """QLoRA's storage of Llama-3-8B, through the public ops: every
+    projection of the 32 layers and the lm_head (bf16 random weights from a
+    seeded generator, made one layer at a time) to ``quantize_4bit(nf4,
+    blocksize 64, compress_statistics=True)`` (K12q, then the 8-bit dynamic
+    code of the absmax in plain torch) and back with ``dequantize_4bit``
+    (the absmax recovered in f32, then K12d). Counts set to 0 just before,
+    read just after: K12q and K12d 225 launches each. Check on every
+    weight: the decode is finite bf16 of the weight's size, and each
+    ``|w - deq|`` is at most NF4's largest half-gap times the block's
+    absmax, plus the double quantization's error of that absmax, plus a
+    bf16 rounding (2^-8 of the absmax). Then a profiled repeat of one layer."""
+    from conch_tpu_torch.kernels.quantization.bitsandbytes.blockwise import NF4_CODE
+    from conch_tpu_torch.ops.quantization.bitsandbytes import dequantize_4bit, dequantize_blockwise, quantize_4bit
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    half_gap = max((b - a) / 2 for a, b in zip(NF4_CODE, NF4_CODE[1:]))
+    worst = {"err_over_absmax": 0.0, "absmax_err": 0.0}
+    codec_s = 0.0
+
+    def roundtrip(w: torch.Tensor):
+        packed, state = quantize_4bit(w, blocksize=NF4_BLOCK, compress_statistics=True, quant_type="nf4")
+        return state, dequantize_4bit(packed, state)
+
+    def check_weight(w: torch.Tensor, state, deq: torch.Tensor) -> None:
+        if deq.dtype != torch.bfloat16 or deq.shape != (w.numel(),) or not bool(torch.isfinite(deq).all()):
+            raise AssertionError(f"QLoRA round trip of {tuple(w.shape)}: {deq.dtype} {tuple(deq.shape)} or not finite")
+        blocks = w.float().view(-1, NF4_BLOCK)
+        absmax = blocks.abs().amax(dim=1)
+        recovered = dequantize_blockwise(state.absmax, quant_state=state.state2) + state.offset
+        absmax_err = (recovered - absmax).abs()
+        err = (deq.float().view(-1, NF4_BLOCK) - blocks).abs()
+        limit = (half_gap + 2**-8) * absmax + absmax_err
+        if not bool((err <= limit[:, None] + 1e-12).all()):
+            raise AssertionError(f"QLoRA round trip of {tuple(w.shape)}: an error above NF4's half-gap bound")
+        worst["err_over_absmax"] = max(worst["err_over_absmax"], (err.amax(dim=1) / absmax).max().item())
+        worst["absmax_err"] = max(worst["absmax_err"], (absmax_err / absmax).max().item())
+
+    def make(shape: tuple[int, int]) -> torch.Tensor:
+        return (0.02 * torch.randn(shape, generator=gen, device="cuda")).to(torch.bfloat16)
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    values = 0
+    for layer in range(NUM_LAYERS_POOL + 1):
+        weights = [make(shape) for shape in LLAMA_LINEARS] if layer < NUM_LAYERS_POOL else [make(LLAMA_LM_HEAD)]
+        for w in weights:
+            values += w.numel()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, deq = roundtrip(w)
+            torch.cuda.synchronize()
+            codec_s += time.perf_counter() - t1
+            check_weight(w, state, deq)
+            del state, deq
+        last = weights if layer < NUM_LAYERS_POOL else last
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launch_counts()
+    print(f"llama3_8b_qlora: {QLORA_LAUNCHES} weights (32 layers x 7 projections + lm_head, {values} values) to "
+          f"nf4 with double quantization and back in {seconds:.3f} s on {card} (host clock, weights made and "
+          f"checked in it; the codec calls alone {codec_s:.3f} s); largest |w - deq| / absmax "
+          f"{worst['err_over_absmax']:.5f} (NF4 half-gap {half_gap:.5f}), largest absmax error of the double "
+          f"quantization {worst['absmax_err']:.2e} of the absmax; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    for name in ("quantize4", "dequantize4"):
+        if launches[name] != QLORA_LAUNCHES:
+            raise AssertionError(f"{name}: {launches[name]} launches on the QLoRA path, expected {QLORA_LAUNCHES}")
+    profile_run(lambda: [roundtrip(w) for w in last], "llama3_8b_qlora (one layer)")
+    del last, weights
+    torch.cuda.empty_cache()
+    return launches
+
+
+STREAM_ROWS = 2048  # a prefill chunk of tokens
+
+
+def residual_stream_path(card: str) -> dict:
+    """K4b through its public op, as a decoder stack calls it: Llama-3-8B's
+    residual stream (bf16, hidden 4096) at a 2048-token chunk, each of the
+    32 layers' two norms adding the sublayer's new output to the residual
+    and normalizing the sum, ``h, residual = fused_add_rms_norm(out,
+    residual, w, eps)``. The sublayers' outputs and the norm weights are
+    random (seeded). Counts set to 0 just before, read just after: 64
+    launches. Check: the final residual bit for bit and the final output at
+    NORM_TOLERANCES against the plain op chained on the same inputs."""
+    from conch_tpu_torch.kernels.normalization.rms_norm import fused_add_rms_norm_plain
+    from conch_tpu_torch.ops.normalization import fused_add_rms_norm
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    eps = 1e-5
+    sublayers = 2 * NUM_LAYERS_POOL
+    outs = [torch.randn((STREAM_ROWS, HIDDEN), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(sublayers)]
+    norms = [(1.0 + 0.1 * torch.randn((HIDDEN,), generator=gen, device="cuda")).to(torch.bfloat16)
+             for _ in range(sublayers)]
+    start = torch.randn((STREAM_ROWS, HIDDEN), generator=gen, device="cuda").to(torch.bfloat16)
+
+    def run(op):
+        h, residual = None, start
+        for out, w in zip(outs, norms):
+            h, residual = op(out, residual, w, eps)
+        return h, residual
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    h, residual = run(fused_add_rms_norm)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launch_counts()
+    ref_h, ref_residual = run(fused_add_rms_norm_plain)
+    check_equal("residual stream: the final residual", residual, ref_residual)
+    check_close("residual stream: the final normalized output", h, ref_h, NORM_TOLERANCES[torch.bfloat16])
+    print(f"llama3_8b_residual_stream: {sublayers} fused_add_rms_norm calls at {STREAM_ROWS} x {HIDDEN} bf16 in "
+          f"{seconds * 1e3:.2f} ms on {card} (host clock, first call); launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    if launches["fused_add_rms_norm"] != sublayers:
+        raise AssertionError(f"fused_add_rms_norm: {launches['fused_add_rms_norm']} launches, expected {sublayers}")
+    del outs, norms, start, h, residual, ref_h, ref_residual
+    torch.cuda.empty_cache()
+    return launches
+
 
 def kernel_phases() -> list[dict]:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1693,6 +1979,7 @@ def kernel_phases() -> list[dict]:
         kernel_phase_k5(gen, rng), kernel_phase_k6(gen), kernel_phase_k7(gen, rng), kernel_phase_k10a(gen),
         kernel_phase_k10b(gen), kernel_phase_k1b(gen), kernel_phase_k1c(gen), kernel_phase_k8(gen),
         kernel_phase_k12q(gen), kernel_phase_k11(gen, rng), kernel_phase_k9(gen), *kernel_phases_vision(gen, rng),
+        kernel_phase_k4b(gen), kernel_phase_k12d(gen),
     ]
     # The Gemma-2-2B shapes of K2, K3, K5 and K7 go into their rows' detail
     # beside the Llama-3-8B numbers the rows keep.
@@ -1733,8 +2020,8 @@ def _launchers() -> dict:
     from conch_tpu_torch.kernels.cache.reshape_and_cache import reshape_and_cache_stacked_launcher
     from conch_tpu_torch.kernels.embedding.rotary_embedding import rotary_embedding_launcher
     from conch_tpu_torch.kernels.normalization.gemma_rms_norm import gemma_rms_norm_launcher
-    from conch_tpu_torch.kernels.normalization.rms_norm import rms_norm_launcher
-    from conch_tpu_torch.kernels.quantization.bitsandbytes.blockwise import quantize4_launcher
+    from conch_tpu_torch.kernels.normalization.rms_norm import fused_add_rms_norm_launcher, rms_norm_launcher
+    from conch_tpu_torch.kernels.quantization.bitsandbytes.blockwise import dequantize4_launcher, quantize4_launcher
     from conch_tpu_torch.kernels.quantization.fp8 import static_scaled_fp8_quant_launcher
     from conch_tpu_torch.kernels.quantization.int8 import static_scaled_int8_quant_launcher
     from conch_tpu_torch.kernels.quantization.gemm import (
@@ -1752,6 +2039,8 @@ def _launchers() -> dict:
         "mixed_gemm_rows": (mixed_gemm_rows_launcher,),
         "scaled_gemm": (scaled_gemm_launcher,),
         "quantize4": (quantize4_launcher,),
+        "dequantize4": (dequantize4_launcher,),
+        "fused_add_rms_norm": (fused_add_rms_norm_launcher,),
         "reshape_and_cache_stacked": (reshape_and_cache_stacked_launcher,),
         "paged_attention": (paged_attention_launcher,),
         "rms_norm": (rms_norm_launcher,),
@@ -1822,8 +2111,10 @@ def random_norm_weights(params: dict, gen: torch.Generator) -> dict:
 
 
 # (weights, activation dtype, KV cache dtype; None: the activation dtype).
+# "int4-g64": int4 at group 64.
 LLAMA_PREFILL_CASES = (
     ("bf16", torch.float32, None), ("bf16", torch.bfloat16, None), ("int4", torch.bfloat16, None),
+    ("int4-g64", torch.bfloat16, None),
     ("int8", torch.bfloat16, None), ("nf4", torch.bfloat16, None), ("w8a8", torch.bfloat16, None),
     ("bf16", torch.bfloat16, torch.int8), ("bf16", torch.bfloat16, torch.float8_e4m3fn),
 )
@@ -1872,8 +2163,10 @@ def check_prefill_logits(llama_cases=LLAMA_PREFILL_CASES, gemma_cases=GEMMA_PREF
 
     def llama(quant_mode, dtype, cache):
         cfg = dataclasses.replace(LlamaConfig.llama3_8b(), num_layers=2, dtype=dtype)
+        mode, _, group = quant_mode.partition("-g")
         return f"Llama-3-8B, {quant_mode} weights{cache_tag(cache)}", cfg, cache, llama_prefill, lambda: (
-            fuse_llama_params(init_llama_params(SEED, cfg, quant_mode=quant_mode, device="cuda")))
+            fuse_llama_params(init_llama_params(SEED, cfg, quant_mode=mode, group_size=int(group or 128),
+                                                device="cuda")))
 
     def gemma(dtype, cache):
         cfg = dataclasses.replace(GemmaConfig.gemma2_2b(), num_layers=2, sliding_window=16, dtype=dtype)
@@ -2250,6 +2543,7 @@ PRIMARY_PATH = {
     "mixed_gemm_planar": "llama3_8b_int8", "mixed_gemm_rows": "llama3_8b_nf4", "quantize4": "llama3_8b_nf4",
     "scaled_gemm": "llama3_8b_w8a8", "mla_attention": "deepseek_v2_lite_bf16",
     "bev_pool_fwd": "vision_bevfusion", "bev_pool_bwd": "vision_bevfusion", "nms": "vision_bevfusion",
+    "dequantize4": "llama3_8b_qlora", "fused_add_rms_norm": "llama3_8b_residual_stream",
 }
 # K9's callers are its public ops: its row's launches are those of its
 # kernel phase, and it launches on no served path.
@@ -2270,6 +2564,8 @@ def main() -> int:
     rows = kernel_phases()
     check_voxelization(np.random.default_rng(SEED))
     vision_launches = vision_path(card)
+    qlora_launches = qlora_path(card)
+    stream_launches = residual_stream_path(card)
     check_prefill_logits()
     check_deepseek_logits()
 
@@ -2279,8 +2575,8 @@ def main() -> int:
     from conch_tpu_torch.models.gemma import GemmaConfig, gemma_decode_step, gemma_prefill, init_gemma_params
     from conch_tpu_torch.models.llama import LlamaConfig, init_llama_params
 
-    def llama(quant_mode):
-        return lambda cfg: init_llama_params(SEED, cfg, quant_mode=quant_mode, device="cuda")
+    def llama(quant_mode, group_size=128):
+        return lambda cfg: init_llama_params(SEED, cfg, quant_mode=quant_mode, group_size=group_size, device="cuda")
 
     llama_cfg = LlamaConfig.llama3_8b()
     deepseek_fns = {"prefill_fn": deepseek_prefill, "decode_fn": deepseek_decode_step}
@@ -2295,6 +2591,12 @@ def main() -> int:
         "llama3_8b_int4": serve(
             card, "int4", llama_cfg, llama("int4"), {}, {"num_pages": 4096, "max_batch_size": 32}, int4_prompts,
             LLAMA_KERNELS, LLAMA_PER_STEP,
+        ),
+        # The README's int4 engine with the projections at group 64 (K1's
+        # group-64 template), 8 requests.
+        "llama3_8b_int4_g64": serve(
+            card, "int4-g64", llama_cfg, llama("int4", 64), {}, {"num_pages": 4096, "max_batch_size": 32},
+            quant_prompts, LLAMA_KERNELS, LLAMA_PER_STEP,
         ),
         # The other weight formats of the same model (lm_head quantized too).
         "llama3_8b_int8": serve(
@@ -2344,6 +2646,8 @@ def main() -> int:
         ),
     }
     launches["vision_bevfusion"] = vision_launches
+    launches["llama3_8b_qlora"] = qlora_launches
+    launches["llama3_8b_residual_stream"] = stream_launches
     # ``launches``: the Gemma run for the kernels it runs, the int4 run for
     # K1, K4 and K6, the int8, nf4 and w8a8 runs for their kernels (K12q:
     # during the nf4 init), the DeepSeek run for K11, K9's phase for K9, the

@@ -19,7 +19,10 @@
 // neighbouring elements (one 8- or 4-byte load), the warp reduces the
 // absmax by shuffles, then encodes the pairs it still holds in registers
 // (PPL pairs a lane, the least power of two that covers the block) and
-// writes one byte a pair.
+// writes one byte a pair. A block above 2048 elements (4096, the largest
+// bitsandbytes blocksize) does not fit in one warp's registers: the warp
+// loops over it twice, once for the absmax and once, reading it again
+// (from L1/L2), to encode. Inputs f32, bf16 or f16 (each exact in f32).
 
 #include "common.cuh"
 
@@ -27,6 +30,7 @@ namespace conch {
 namespace {
 
 constexpr int kMaxPairsPerLane = 32;  // blocksize up to 2048, held in registers
+constexpr int kMaxBlocksize = 4096;   // above 2048: quantize4_wide_kernel
 
 // Midpoints of consecutive NF4 code values, as the f32 numbers the JAX
 // package computes ((NF4_CODE[:-1] + NF4_CODE[1:]) / 2 in f32).
@@ -65,6 +69,19 @@ __device__ __forceinline__ void load_pair(const __nv_bfloat16* x, int64_t e, flo
   const uint32_t v = *reinterpret_cast<const uint32_t*>(x + e);
   a = __uint_as_float(v << 16), b = __uint_as_float(v & 0xffff0000u);
 }
+__device__ __forceinline__ void load_pair(const __half* x, int64_t e, float& a, float& b) {
+  const __half2 v = *reinterpret_cast<const __half2*>(x + e);
+  a = __low2float(v), b = __high2float(v);
+}
+
+template <bool NF4>
+__device__ __forceinline__ uint8_t encode_pair(float a, float b, float recip) {
+  const float sa = __fmul_rn(a, recip);
+  const float sb = __fmul_rn(b, recip);
+  const int hi = NF4 ? nf4_code(sa) : fp4_code(sa);
+  const int lo = NF4 ? nf4_code(sb) : fp4_code(sb);
+  return static_cast<uint8_t>((hi << 4) | lo);
+}
 
 template <typename T, bool NF4, int PPL>
 __global__ void __launch_bounds__(256) quantize4_kernel(const T* __restrict__ x, uint8_t* __restrict__ packed,
@@ -91,13 +108,34 @@ __global__ void __launch_bounds__(256) quantize4_kernel(const T* __restrict__ x,
   for (int i = 0; i < PPL; ++i) {
     const int p = lane + 32 * i;
     const int64_t e = start + 2 * p;
-    if (p < pairs && e < size) {
-      const float sa = __fmul_rn(va[i], recip);
-      const float sb = __fmul_rn(vb[i], recip);
-      const int hi = NF4 ? nf4_code(sa) : fp4_code(sa);
-      const int lo = NF4 ? nf4_code(sb) : fp4_code(sb);
-      packed[e / 2] = static_cast<uint8_t>((hi << 4) | lo);
-    }
+    if (p < pairs && e < size) packed[e / 2] = encode_pair<NF4>(va[i], vb[i], recip);
+  }
+  if (lane == 0) absmax[block] = am;
+}
+
+// Blocks too large for registers: one pass for the absmax, a second one
+// that reads the block again and encodes it.
+template <typename T, bool NF4>
+__global__ void __launch_bounds__(256) quantize4_wide_kernel(const T* __restrict__ x, uint8_t* __restrict__ packed,
+                                                             float* __restrict__ absmax, int64_t size, int blocksize,
+                                                             int64_t num_blocks) {
+  const int64_t block = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (block >= num_blocks) return;
+  const int64_t start = block * blocksize;
+  const int64_t end = start + blocksize < size ? start + blocksize : size;  // size is even: pairs are whole
+  float am = 0.0f;
+  for (int64_t e = start + 2 * lane; e < end; e += 64) {
+    float a, b;
+    load_pair(x, e, a, b);
+    am = fmaxf(am, fmaxf(fabsf(a), fabsf(b)));
+  }
+  am = warp_max(am);
+  const float recip = am > 0.0f ? __frcp_rn(am) : 0.0f;
+  for (int64_t e = start + 2 * lane; e < end; e += 64) {
+    float a, b;
+    load_pair(x, e, a, b);
+    packed[e / 2] = encode_pair<NF4>(a, b, recip);
   }
   if (lane == 0) absmax[block] = am;
 }
@@ -122,7 +160,19 @@ template <typename T>
 cudaError_t launch(const void* x, void* packed, void* absmax, int64_t size, int blocksize, int nf4,
                    cudaStream_t stream) {
   const int ppl = (blocksize / 2 + 31) / 32;
-  if (ppl <= 1) {
+  if (ppl > kMaxPairsPerLane) {
+    const int64_t num_blocks = (size + blocksize - 1) / blocksize;
+    const dim3 grid(static_cast<unsigned>((num_blocks + 7) / 8));
+    auto run = [&](auto kernel) {
+      kernel<<<grid, 256, 0, stream>>>(static_cast<const T*>(x), static_cast<uint8_t*>(packed),
+                                       static_cast<float*>(absmax), size, blocksize, num_blocks);
+    };
+    if (nf4) {
+      run(quantize4_wide_kernel<T, true>);
+    } else {
+      run(quantize4_wide_kernel<T, false>);
+    }
+  } else if (ppl <= 1) {
     launch_ppl<T, 1>(x, packed, absmax, size, blocksize, nf4, stream);
   } else if (ppl <= 2) {
     launch_ppl<T, 2>(x, packed, absmax, size, blocksize, nf4, stream);
@@ -141,17 +191,22 @@ cudaError_t launch(const void* x, void* packed, void* absmax, int64_t size, int 
 }  // namespace
 }  // namespace conch
 
-// x: `size` contiguous f32 (dtype 0) or bf16 (1) values, size even and
-// 8-byte (f32) or 4-byte (bf16) aligned; packed: size / 2 bytes; absmax:
-// ceil(size / blocksize) f32. blocksize even and at most 64 * 32.
+// x: `size` contiguous f32 (dtype 0), bf16 (1) or f16 (2) values, size
+// even and 8-byte (f32) or 4-byte (bf16, f16) aligned; packed: size / 2
+// bytes; absmax: ceil(size / blocksize) f32. blocksize even and at most
+// kMaxBlocksize.
 extern "C" int conch_quantize4(const void* x, int dtype, void* packed, void* absmax, int64_t size, int blocksize,
                                int nf4, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (size == 0) return static_cast<int>(cudaSuccess);
-  if (size % 2 != 0 || blocksize % 2 != 0 || blocksize <= 0 || blocksize > 64 * conch::kMaxPairsPerLane) {
+  if (size % 2 != 0 || blocksize % 2 != 0 || blocksize <= 0 || blocksize > conch::kMaxBlocksize) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(dtype == conch::kFloat32 ? conch::launch<float>(x, packed, absmax, size, blocksize, nf4, s)
-                                                   : conch::launch<__nv_bfloat16>(x, packed, absmax, size, blocksize,
-                                                                                  nf4, s));
+  switch (dtype) {
+    case conch::kFloat32: return static_cast<int>(conch::launch<float>(x, packed, absmax, size, blocksize, nf4, s));
+    case conch::kBFloat16:
+      return static_cast<int>(conch::launch<__nv_bfloat16>(x, packed, absmax, size, blocksize, nf4, s));
+    case conch::kFloat16: return static_cast<int>(conch::launch<__half>(x, packed, absmax, size, blocksize, nf4, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

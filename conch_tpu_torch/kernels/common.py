@@ -34,10 +34,13 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # dtype codes understood by the C entry points (csrc/common.cuh: DType).
-# DTYPE_CODES: the compute types most kernels take; STORAGE_CODES adds the
-# f16 input of K9 and the int8 / e4m3 elements of quantized KV caches.
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-STORAGE_CODES = {**DTYPE_CODES, torch.float16: 2, torch.int8: 3, torch.float8_e4m3fn: 4}
+# DTYPE_CODES: the float types; most kernels take COMPUTE_DTYPES (f32 and
+# bf16), K4, K4b, K12q and K12d FLOAT_DTYPES (f16 too). STORAGE_CODES adds
+# the int8 / e4m3 elements of quantized KV caches.
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+FLOAT_DTYPES = (*COMPUTE_DTYPES, torch.float16)
+STORAGE_CODES = {**DTYPE_CODES, torch.int8: 3, torch.float8_e4m3fn: 4}
 # Element types of KV caches quantized on store (K2), read by K3, K7, K11.
 QUANTIZED_CACHE_DTYPES = (torch.int8, torch.float8_e4m3fn)
 
@@ -144,13 +147,14 @@ def stream_of(tensor: torch.Tensor) -> int:
     return torch.cuda.current_stream(tensor.device).cuda_stream
 
 
-def dtype_code(tensor: torch.Tensor) -> int:
-    """The C entry points' code for ``tensor``'s dtype; raises on others."""
-    code = DTYPE_CODES.get(tensor.dtype)
-    if code is None:
-        msg = f"the CUDA kernels take float32 or bfloat16, got {tensor.dtype}"
+def dtype_code(tensor: torch.Tensor, dtypes: tuple[torch.dtype, ...] = COMPUTE_DTYPES) -> int:
+    """The C entry points' code for ``tensor``'s dtype, one of the
+    ``dtypes`` the kernel takes; raises on others."""
+    if tensor.dtype not in dtypes:
+        names = ", ".join(str(d).removeprefix("torch.") for d in dtypes)
+        msg = f"this CUDA kernel takes {names}, got {tensor.dtype}"
         raise NotImplementedError(msg)
-    return code
+    return DTYPE_CODES[tensor.dtype]
 
 
 def storage_code(tensor: torch.Tensor) -> int:

@@ -6,7 +6,8 @@
 Each kernel replaces one kernel of ``conch_tpu/kernels/quantization/gemm.py``:
 
 - K1 ``mixed_gemm_magic`` (``csrc/mixed_gemm_magic.cu``) replaces
-  ``_mixed_gemm_magic_kernel``: int4 codes in the magic packing, group 128;
+  ``_mixed_gemm_magic_kernel``: int4 codes in the magic packing, groups 64
+  and 128 (any other group raises on the card);
 - K1b ``mixed_gemm_planar`` (``csrc/mixed_gemm_planar.cu``) replaces
   ``_mixed_gemm_planar_kernel``: 2/4/8-bit codes in the planar packing, the
   group's scale and zero-point applied after the product;
@@ -36,7 +37,7 @@ import torch
 from conch_tpu_torch.kernels.common import check_launch, dtype_code, kernel_function, require_cuda, stream_of
 from conch_tpu_torch.utils.quant_utils import get_pack_factor, unpack_rows, unpack_rows_magic, unpack_rows_planar
 
-KERNEL_GROUP_SIZE = 128  # the group size the CUDA kernel is written for
+KERNEL_GROUP_SIZES = (64, 128)  # the group sizes K1's CUDA kernel is written for
 
 
 def _layer(a: torch.Tensor, layer_index: int | None) -> torch.Tensor:
@@ -142,8 +143,11 @@ def _magic_gemm_cuda(x, packed, scales, group_size: int, bias: int, layer_index:
             f"scales {scales.dtype}, packed {packed.dtype}"
         )
         raise NotImplementedError(msg)
-    if group_size != KERNEL_GROUP_SIZE or k % KERNEL_GROUP_SIZE or n % 128:
-        msg = f"mixed_gemm_magic kernel: needs group_size 128 and K, N multiples of 128 (K={k}, N={n}, group={group_size})"
+    if group_size not in KERNEL_GROUP_SIZES or k % group_size or n % 128:
+        msg = (
+            f"mixed_gemm_magic kernel: needs group_size 64 or 128, K a multiple of it and N of 128 "
+            f"(K={k}, N={n}, group={group_size})"
+        )
         raise ValueError(msg)
     if not (packed.is_contiguous() and scales.is_contiguous()):
         msg = "mixed_gemm_magic kernel: packed weights and scales must be contiguous"
@@ -158,9 +162,9 @@ def _magic_gemm_cuda(x, packed, scales, group_size: int, bias: int, layer_index:
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     fn = kernel_function("conch_mixed_gemm_magic", (
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
     ))
-    code = fn(x.data_ptr(), w_ptr, s_ptr, out.data_ptr(), m, n, k, x.stride(0), bias, stream_of(x))
+    code = fn(x.data_ptr(), w_ptr, s_ptr, out.data_ptr(), m, n, k, group_size, x.stride(0), bias, stream_of(x))
     check_launch("conch_mixed_gemm_magic", code)
     mixed_gemm_magic_launcher.launches += 1
     return out

@@ -1,0 +1,30 @@
+# Copyright 2026 Conch-TPU authors.
+# SPDX-License-Identifier: Apache-2.0
+
+"""Golden RMS norm and fused residual add + RMS norm (counterpart of
+``conch_tpu/reference/normalization/rms_norm.py``).
+
+The mean of squares and the rsqrt are f32; the normalized value is cast
+back to x's dtype before the weight multiply in that dtype. These are the
+plain versions of K4 and K4b (``kernels/normalization/rms_norm.py``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, epsilon: float) -> torch.Tensor:
+    """``round(x * rsqrt(mean(x^2) + eps)) * w`` over the last axis, on any device."""
+    xf = x.float()
+    normalized = (xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + epsilon)).to(x.dtype)
+    return normalized * weight.to(x.dtype)
+
+
+def fused_add_rms_norm(
+    x: torch.Tensor, residual: torch.Tensor, weight: torch.Tensor, epsilon: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(rms_norm(x + residual), x + residual)``; the sum is taken in x's
+    dtype (rounded once) and both results are new tensors."""
+    summed = x + residual
+    return rms_norm(summed, weight, epsilon), summed

@@ -63,8 +63,8 @@ MUTANTS = {
         "kernel_phase_k8",
     ),
     "k12q_nibbles_swapped": (
-        "quantize4.cu", "packed[e / 2] = static_cast<uint8_t>((hi << 4) | lo);",
-        "packed[e / 2] = static_cast<uint8_t>((lo << 4) | hi);", "kernel_phase_k12q",
+        "quantize4.cu", "return static_cast<uint8_t>((hi << 4) | lo);",
+        "return static_cast<uint8_t>((lo << 4) | hi);", "kernel_phase_k12q",
     ),
 }
 ALL_PHASES = ("kernel_phase_k1b", "kernel_phase_k1c", "kernel_phase_k8", "kernel_phase_k12q")

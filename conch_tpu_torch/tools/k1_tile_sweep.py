@@ -5,8 +5,8 @@
 
     python3 -m conch_tpu_torch.tools.k1_tile_sweep
 
-Builds the kernel's template at each (MT, WARPS_N, WARPS_K, DEPTH) below
-into a library of its own (under ``conch_tpu_torch/_build``), checks each
+Builds the kernel's template at group 128 and each (MT, WARPS_N, WARPS_K,
+DEPTH) below into a library of its own (under ``conch_tpu_torch/_build``), checks each
 against the plain version, and prints the device time of each at the
 engine's four (K, N) and M = 8, 32 and 512, with the weights walked over a
 32-layer stack so they come from HBM. ``csrc/mixed_gemm_magic.cu`` picks
@@ -44,8 +44,8 @@ def build() -> ctypes.CDLL:
     for tile in DECODE_TILES + PREFILL_TILES:
         lines.append(
             f'extern "C" int {_name(tile)}(const void* x, const void* w, const void* s, void* o, int m, int n, int k,'
-            f" int64_t st, int bias, void* stream) {{ conch::launch<{', '.join(map(str, tile))}>(x, w, s, o, m, n, k,"
-            " st, bias, static_cast<cudaStream_t>(stream)); return static_cast<int>(cudaGetLastError()); }"
+            f" int64_t st, int bias, void* stream) {{ conch::launch<{GROUP}, {', '.join(map(str, tile))}>(x, w, s, o, m,"
+            " n, k, st, bias, static_cast<cudaStream_t>(stream)); return static_cast<int>(cudaGetLastError()); }"
         )
     BUILD_DIR.mkdir(exist_ok=True)
     src, lib = BUILD_DIR / "k1_tile_sweep.cu", BUILD_DIR / "libk1_tile_sweep.so"

@@ -43,8 +43,8 @@ def _assert_close(out, ref, k: int) -> None:
     assert np.abs(out - ref).max() <= 1e-2 * np.abs(ref).max()
 
 
-def _jax_int4(rng, k: int, n: int) -> JaxQuantizedLinear:
-    return JaxQuantizedLinear.int4_from_dense(rng.normal(size=(k, n)).astype(np.float32) * 0.05)
+def _jax_int4(rng, k: int, n: int, group_size: int = 128) -> JaxQuantizedLinear:
+    return JaxQuantizedLinear.int4_from_dense(rng.normal(size=(k, n)).astype(np.float32) * 0.05, group_size)
 
 
 def _to_torch(a) -> torch.Tensor:
@@ -91,6 +91,31 @@ def test_stacked_gemm_matches_jax(m, dtype):
         single = mixed_precision_gemm(xt, _to_torch(packed[layer]), _to_torch(scales[layer]), None, 4, 8, 128,
                                       layout="magic")
         torch.testing.assert_close(out, single, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("m", [1, 8, 33])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_group64_gemm_matches_jax(m, dtype):
+    """K1 at group 64 (the magic layout's group is 8 word rows, not 16): a
+    single weight and each layer of a stack, against JAX's group-64 GEMM."""
+    k, n = 512, 256
+    rng = np.random.default_rng(64 + m)
+    layers = [_jax_int4(rng, k, n, 64) for _ in range(L)]
+    assert layers[0].meta["layout"] == "magic" and layers[0].meta["group_size"] == 64
+    packed = jnp.stack([q.arrays["packed"] for q in layers])
+    scales = jnp.stack([q.arrays["scales"] for q in layers])
+    assert scales.shape == (L, k // 64, n)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    xj, xt = jnp.asarray(x, JAX_DTYPES[dtype]), torch.from_numpy(x).to(TORCH_DTYPES[dtype])
+    ref = jax_gemm(xj, layers[0].arrays["packed"], layers[0].arrays["scales"], None, 4, 8, 64, layout="magic")
+    out = mixed_precision_gemm(xt, _to_torch(layers[0].arrays["packed"]), _to_torch(layers[0].arrays["scales"]),
+                               None, 4, 8, 64, layout="magic")
+    _assert_close(out, ref, k)
+    for layer in range(L):
+        ref = jax_gemm(xj, packed, scales, None, 4, 8, 64, layout="magic", layer_index=jnp.int32(layer))
+        out = mixed_precision_gemm(xt, _to_torch(packed), _to_torch(scales), None, 4, 8, 64, layout="magic",
+                                   layer_index=layer)
+        _assert_close(out, ref, k)
 
 
 def test_linear_int4_concat_and_out_features_match_jax():

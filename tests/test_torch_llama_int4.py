@@ -61,6 +61,14 @@ def jax_params():
     return cfg, params, jax.tree.map(np.asarray, params)
 
 
+@pytest.fixture(scope="module")
+def jax_params_group64():
+    """The same tiny model with int4 projections at group 64."""
+    cfg = JaxLlamaConfig(**DIMS, dtype=jnp.float32)
+    params = jax_init_llama_params(0, cfg, quant_mode="int4", group_size=64)
+    return cfg, params, jax.tree.map(np.asarray, params)
+
+
 def _port_params(numpy_params):
     cfg = LlamaConfig(**DIMS, dtype=torch.float32)
     return cfg, params_from_jax(numpy_params, cfg, device="cpu")
@@ -111,7 +119,25 @@ def _steps():
 
 
 def test_int4_step_logits_match_jax(jax_params):
-    jax_cfg, params, numpy_params = jax_params
+    _check_steps_against_jax(*jax_params)
+
+
+def test_int4_group64_step_logits_match_jax(jax_params_group64):
+    """int4 at group 64 carries across with its group in the meta (and
+    scales of K / 64 rows), then one prefill and one decode step give JAX's
+    logits and KV pool at the tolerance of the group-128 case."""
+    _, params, numpy_params = jax_params_group64
+    _, ported = _port_params(numpy_params)
+    for name in PROJECTIONS:
+        ours = ported["layers"][name]
+        assert ours.meta == params["layers"][name].meta and ours.meta["group_size"] == 64
+        k = ours.arrays["packed"].shape[1] * 8
+        assert ours.arrays["scales"].shape[1] == k // 64
+    assert fuse_llama_params(ported)["layers"]["wqkv"].meta["group_size"] == 64
+    _check_steps_against_jax(*jax_params_group64)
+
+
+def _check_steps_against_jax(jax_cfg, params, numpy_params):
     cfg, ported = _port_params(numpy_params)
     steps = _steps()
 

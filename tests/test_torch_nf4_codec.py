@@ -36,7 +36,7 @@ def _input(rng, shape, scale: float = 1.0) -> np.ndarray:
 
 
 @pytest.mark.parametrize("quant_type", ["nf4", "fp4"])
-@pytest.mark.parametrize("blocksize", [64, 128, 512, 1024])
+@pytest.mark.parametrize("blocksize", [64, 128, 512, 1024, 4096])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_quantize_4bit_bytes_match_jax(quant_type, blocksize, dtype):
     rng = np.random.default_rng(blocksize)
@@ -77,7 +77,7 @@ def test_tables_match_jax():
 def test_unported_options_raise_and_plain_counts_no_launch():
     x = torch.randn(256)
     with pytest.raises(NotImplementedError):
-        quantize_4bit(x, compress_statistics=True, quant_type="nf4")
+        quantize_4bit(x, quant_type="nf4", quant_storage=torch.float32)
     with pytest.raises(NotImplementedError):
         quantize_4bit(x, quant_type="fp8")
     with pytest.raises(NotImplementedError):
