@@ -65,6 +65,19 @@
      |ref|), bf16 / f16 at one rounding step x |ref|, K13b bit for bit;
      K13c NMS keep mask at 4096 boxes, IoU 0.5, tied scores, and at N 1,
      513, identical boxes and a lattice of touching boxes, bit for bit;
+   - K14 ring all-gather on rings of 1, 2, 4 and 8 virtual ranks on the
+     card (every rank's buffers its own), both launch modes (one
+     cooperative launch; one launch per rank on its own stream), f32, bf16
+     and int8, the TP-8 shard (64 x 4096) and a 1 x 4097 one, automatic
+     and single blocks per rank; 100 back-to-back calls on one flag
+     buffer; per-rank launches with ``torch.cuda._sleep`` ahead of some
+     ranks; a deliberate 1 ms timeout that must set the error word; every
+     result bit for bit against the plain version, the error word read
+     after each phase; timed at 8 ranks x 64 x 4096 and 2048 x 4096 bf16;
+   - K1, K1b and K1c storing f32 from bf16 activations
+     (``mixed_precision_gemm(..., output_dtype=torch.float32)``) at K = N
+     = 4096, M 8 and 512, at 1e-2 x max |ref|, timed beside the bf16
+     store; a float16 output and a bfloat16 ``acc_dtype`` must raise;
 4. vision: ``generate_voxels`` and ``voxelization_stable`` with
    ``collect_point_features`` at PointPillars' KITTI size (120,000 points,
    3% on voxel boundaries) on the card, every output equal to the CPU's;
@@ -77,9 +90,14 @@
    at a time) through ``quantize_4bit(nf4, 64, compress_statistics=True)``
    and ``dequantize_4bit``, 225 launches each of K12q and K12d, every
    error within NF4's half-gap plus the double quantization's, and a
-   profiled repeat of one layer; and Llama-3-8B's residual stream through
+   profiled repeat of one layer; Llama-3-8B's residual stream through
    ``fused_add_rms_norm`` (``llama3_8b_residual_stream``: 64 calls at 2048
-   x 4096 bf16, against the plain op's chain);
+   x 4096 bf16, against the plain op's chain); and the collectives layer
+   at Llama-3-8B's TP-8 shapes on 8 virtual ranks
+   (``llama3_8b_tp8_collectives``: ``ring_all_gather`` of a 512-row and a
+   16384-row chunk, K14 launched twice; ``overlapped_allgather_matmul``
+   and ``overlapped_matmul_reduce_scatter`` in f32 and bf16 against the
+   unsharded product, then timed);
 5. slice phases: the first-token logits of 2-layer full-width prefills on
    the card against the plain path on the CPU (Llama-3-8B: bf16 weights in
    f32 and bf16, int4 at group 128 and 64, int8, nf4 and w8a8 weights in
@@ -120,8 +138,7 @@
    and w8a8 for K1b, K1c and K8, the nf4 init for K12q, DeepSeek for K11,
    K9's own phase for K9 (no served path runs it), the vision path for
    K13a, K13b and K13c, the QLoRA path for K12d, the residual stream for
-   K4b;
-   every path's counts
+   K4b, the TP-8 collectives path for K14; every path's counts
    beside them), the card line, then ``{"ok": true, "device": ...}`` as the
    last line.
 
@@ -1971,6 +1988,330 @@ def residual_stream_path(card: str) -> dict:
     return launches
 
 
+def gemm_output_types(gen, by_name: dict) -> None:
+    """``mixed_precision_gemm(..., output_dtype=torch.float32)`` from bf16
+    activations through K1 (int4 magic, group 128), K1b (int8 planar) and
+    K1c (NF4 rows) at Llama-3-8B's wo (K = N = 4096), M = 8 and 512, layer
+    17 of a 32-layer stack: the f32 store against the plain version at the
+    kernels' tolerance (1e-2 x max |ref|), timed beside the bf16 store
+    (``out_f32`` in each row). A float16 output and a bfloat16 acc_dtype
+    must raise on the card."""
+    from conch_tpu_torch.kernels.quantization.bitsandbytes.blockwise import NF4_CODE
+    from conch_tpu_torch.kernels.quantization.gemm import (
+        mixed_gemm_magic_plain,
+        mixed_gemm_planar_plain,
+        mixed_gemm_rows_plain,
+    )
+    from conch_tpu_torch.ops.quantization import mixed_precision_gemm
+
+    k = n = HIDDEN
+
+    def stack(words_per_k: int, groups: int, scale_dtype) -> tuple[torch.Tensor, torch.Tensor]:
+        packed = torch.randint(-(2**31), 2**31 - 1, (NUM_LAYERS_POOL, k // words_per_k, n), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        scales = (torch.rand((NUM_LAYERS_POOL, k // groups, n), generator=gen, device="cuda") * 4e-3 + 1e-4)
+        return packed, scales.to(scale_dtype)
+
+    cases = {
+        "mixed_gemm_magic": (*stack(8, GROUP, torch.bfloat16), (4, 8, GROUP), {"layout": "magic"},
+                             mixed_gemm_magic_plain, lambda p, s: (p, s, GROUP, 8)),
+        "mixed_gemm_planar": (*stack(4, GROUP, torch.bfloat16), (8, 128, GROUP), {"layout": "planar"},
+                              mixed_gemm_planar_plain, lambda p, s: (p, s, None, 8, 128, GROUP)),
+        "mixed_gemm_rows": (*stack(8, NF4_BLOCK, torch.float32), (4, 0, NF4_BLOCK),
+                            {"layout": "gptq", "codebook": NF4_CODE},
+                            mixed_gemm_rows_plain, lambda p, s: (p, s, None, 4, 0, NF4_BLOCK, NF4_CODE)),
+    }
+    for name, (packed, scales, (bits, bias, group), kw, plain, plain_args) in cases.items():
+        by_name[name]["out_f32"] = []
+        for m in (8, 512):
+            x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+
+            def op(out_dtype, layer=LAYER):
+                return mixed_precision_gemm(x, packed, scales, None, bits, bias, group, output_dtype=out_dtype,
+                                            layer_index=layer, **kw)
+
+            out = op(torch.float32)
+            ref = plain(x, *plain_args(packed, scales), LAYER, torch.float32)
+            torch.cuda.synchronize()
+            if out.dtype != torch.float32 or ref.dtype != torch.float32:
+                raise AssertionError(f"{name}: output_dtype float32 gave {out.dtype} (plain {ref.dtype})")
+            scale = ref.abs().max().item()
+            e = (out - ref).abs().max().item()
+            check(f"{name} f32 store M={m} K={k} N={n} (max|ref| {scale:.3f})", e, 1e-2 * scale)
+            layers = _stack_cycle()
+            case = {"m": m, "k": k, "n": n, "max_abs_err": e,
+                    "ms": time_ms(lambda: op(torch.float32, next(layers))),
+                    "bf16_store_ms": time_ms(lambda: op(torch.bfloat16, next(layers)))}
+            by_name[name]["out_f32"].append(case)
+            print(f"{name} M={m}: f32 store {case['ms']:.4f} ms, bf16 store {case['bf16_store_ms']:.4f} ms", flush=True)
+        for bad, error in (({"output_dtype": torch.float16}, "float16"), ({"acc_dtype": torch.bfloat16}, "bfloat16")):
+            try:
+                mixed_precision_gemm(x, packed, scales, None, bits, bias, group, layer_index=LAYER, **kw, **bad)
+            except NotImplementedError as exc:
+                if error not in str(exc):
+                    raise AssertionError(f"{name} {bad}: the error does not name {error}: {exc}") from exc
+            else:
+                raise AssertionError(f"{name} {bad}: no error on the card")
+        del packed, scales
+    torch.cuda.empty_cache()
+
+
+TP = 8  # Llama-3-8B's tensor-parallel degree on an 8-card host
+RING_SIZES = (1, 2, 4, 8)
+# (rows, cols) of one rank's shard: a 512-row prefill chunk over 8 ranks at
+# Llama-3-8B's width, and rows 1 x cols 4097, whose bytes are no multiple of
+# 16 (bf16 8194, f32 16388, int8 4097: 2-, 4- and 1-byte copies).
+RING_SHAPES = ((512 // TP, HIDDEN), (1, HIDDEN + 1))
+RING_LONG = (2048, HIDDEN)  # long context: 128 MiB out per rank in bf16, 1 GiB over the ring
+RING_SKEW_CYCLES = 200_000  # about 0.1 ms of torch.cuda._sleep ahead of a late rank
+
+
+def ring_shards(gen, n: int, shape: tuple[int, int], dtype: torch.dtype) -> list[torch.Tensor]:
+    """n random shards, each in a buffer of its own on the card."""
+    if dtype == torch.int8:
+        return [torch.randint(-128, 128, shape, generator=gen, device="cuda", dtype=torch.int8) for _ in range(n)]
+    return [torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(n)]
+
+
+def check_ring(name: str, out: list[torch.Tensor], shards: list[torch.Tensor], quiet: bool = False) -> None:
+    """Every rank's K14 result bit for bit equal to its plain version."""
+    from conch_tpu_torch.kernels.collectives.ring_all_gather import ring_all_gather_plain
+
+    ref = ring_all_gather_plain(shards)
+    same = len(out) == len(ref) and all(
+        o.dtype == r.dtype and o.shape == r.shape
+        and torch.equal(o.reshape(-1).view(torch.uint8), r.reshape(-1).view(torch.uint8))
+        for o, r in zip(out, ref)
+    )
+    if not quiet or not same:
+        print(f"{name}: {'every rank bit for bit equal' if same else 'DIFFERS'}", flush=True)
+    if not same:
+        raise AssertionError(f"{name}: differs from its plain version")
+
+
+def check_ring_error(phase: str) -> None:
+    """Fail loudly if a K14 wait timed out in ``phase``."""
+    from conch_tpu_torch.kernels.collectives.ring_all_gather import decode_ring_error, ring_error
+
+    code = ring_error()
+    print(f"K14 error word after {phase}: {code:#x} ({decode_ring_error(code)})", flush=True)
+    if code:
+        raise AssertionError(f"K14 {phase}: {decode_ring_error(code)}")
+
+
+def kernel_phase_k14(gen) -> dict:
+    """K14 on rings of 1, 2, 4 and 8 virtual ranks on the card, every result
+    bit for bit against the plain version: both launch modes (one
+    cooperative launch; one launch per rank on its own stream), f32, bf16
+    and int8, the TP-8 shard (several blocks a rank) and a 1 x 4097 one (one
+    block a rank); 100 back-to-back calls on one flag buffer, modes
+    alternating, each checked; per-rank launches with ``torch.cuda._sleep``
+    queued ahead of some ranks' streams so they enter late; a deliberate
+    timeout (a rank more than the 2 s timeout late) that must set the error
+    word and make ``check_ring_error`` raise, then a clean call. The error
+    word is read after every phase. Timed at the TP-8 shard (64 x 4096
+    bf16, 8 ranks: 4 MiB out per rank) and the long-context one (2048 x
+    4096), beside the plain version and n ``torch.cat`` calls; bound =
+    (n^2 + n) shard bytes / 3.35 TB/s: each input read once, each output
+    written once, on the one HBM all ranks share."""
+    from conch_tpu_torch.kernels.collectives.ring_all_gather import (
+        TIMEOUT_S,
+        check_ring_error as raise_on_ring_error,
+        ring_all_gather_launcher as launch,
+        ring_all_gather_plain as plain,
+        ring_error,
+    )
+
+    streams = [torch.cuda.Stream() for _ in range(max(RING_SIZES))]
+    calls = 0
+    for n in RING_SIZES:
+        for shape in RING_SHAPES:
+            for dtype in (torch.float32, torch.bfloat16, torch.int8):
+                shards = ring_shards(gen, n, shape, dtype)
+                for per_rank in (False, True):
+                    out = launch(shards, rank_streams=streams[:n] if per_rank else None)
+                    mode = "per-rank" if per_rank else "cooperative"
+                    check_ring(f"K14 n={n} {shape} {dtype} {mode}", out, shards, quiet=True)
+                    calls += 1
+    torch.cuda.synchronize()
+    print(f"K14: {calls} calls on rings of {RING_SIZES} ranks, both modes, every rank bit for bit equal", flush=True)
+    check_ring_error("the mode, size and dtype cases")
+
+    # 100 back-to-back calls on one flag buffer (n = 8, the TP-8 shard), the
+    # modes alternating, the inputs rotated so every call's result differs.
+    base = ring_shards(gen, TP, RING_SHAPES[0], torch.bfloat16)
+    runs = []
+    for c in range(100):
+        shards = base[c % TP:] + base[: c % TP]
+        runs.append((shards, launch(shards, rank_streams=streams[:TP] if c % 2 else None)))
+    torch.cuda.synchronize()
+    for c, (shards, out) in enumerate(runs):
+        check_ring(f"K14 back-to-back call {c}", out, shards, quiet=True)
+    print("K14: 100 back-to-back calls on one flag buffer, every rank of every call bit for bit equal", flush=True)
+    del runs
+    check_ring_error("the back-to-back calls")
+
+    # Skewed entry: sleeps queued ahead of some ranks' streams.
+    for n in (2, 4, 8):
+        shards = ring_shards(gen, n, RING_SHAPES[0], torch.bfloat16)
+        for pattern, late in (("odd ranks", range(1, n, 2)), ("rank 0", (0,)), ("all but the last", range(n - 1))):
+            for r in late:
+                with torch.cuda.stream(streams[r]):
+                    torch.cuda._sleep(RING_SKEW_CYCLES * (1 + r % 3))
+            out = launch(shards, rank_streams=streams[:n])
+            check_ring(f"K14 n={n} per-rank, {pattern} late", out, shards)
+    torch.cuda.synchronize()
+    check_ring_error("the skewed per-rank launches")
+
+    # A timeout must become an error word and an exception, never a hang;
+    # the ring works after it. Rank 1 enters half a second after rank 0's
+    # wait has run out, then times out itself waiting for rank 0's step.
+    shards = ring_shards(gen, 2, RING_SHAPES[1], torch.float32)
+    with torch.cuda.stream(streams[1]):
+        torch.cuda._sleep(int((TIMEOUT_S + 0.5) * SM_CYCLES_PER_S))
+    launch(shards, rank_streams=streams[:2])
+    torch.cuda.synchronize()
+    code = ring_error()
+    print(f"K14 deliberate timeout: error word {code:#x}", flush=True)
+    try:
+        raise_on_ring_error()
+    except RuntimeError as e:
+        print(f"K14 deliberate timeout raised: {e}", flush=True)
+    else:
+        raise AssertionError(f"K14: a rank {TIMEOUT_S + 0.5} s late under a {TIMEOUT_S} s timeout did not raise")
+    check_ring("K14 after the deliberate timeout", launch(shards, rank_streams=streams[:2]), shards)
+    torch.cuda.synchronize()
+    check_ring_error("the call after the deliberate timeout")
+
+    def timed(shape: tuple[int, int]) -> dict:
+        shards = ring_shards(gen, TP, shape, torch.bfloat16)
+        shard_bytes = shards[0].numel() * 2
+        b_ms, b_by = bound((TP * TP + TP) * shard_bytes, 0)
+        case = {
+            "case": f"{TP} ranks x {shape} bf16", "max_abs_err": 0.0, "bound_ms": b_ms, "bound_by": b_by,
+            "ms": time_ms(lambda: launch(shards)), "paced_ms": paced_ms(lambda: launch(shards)),
+            "per_rank_ms": time_ms(lambda: launch(shards, rank_streams=streams[:TP])),
+            "plain_ms": time_ms(lambda: plain(shards)),
+            "library_ms": time_ms(lambda: [torch.cat(shards) for _ in range(TP)]),
+        }
+        print(f"K14 {case['case']}: {case['ms']:.4f} ms (paced {case['paced_ms']:.4f}, per-rank launches "
+              f"{case['per_rank_ms']:.4f}, plain {case['plain_ms']:.4f}, "
+              f"{TP} torch.cat {case['library_ms']:.4f}, bound {b_ms:.5f} by {b_by}; "
+              f"virtual ranks on one card)", flush=True)
+        return case
+
+    detail = [timed(RING_SHAPES[0]), timed(RING_LONG)]
+    check_ring_error("the timed calls")
+    row = _kernel_row("ring_all_gather", "conch_tpu_torch/csrc/ring_all_gather.cu",
+                      "conch_tpu/kernels/collectives/ring_all_gather.py:44", 0.0, detail[0], detail[0]["bound_ms"],
+                      detail[0]["bound_by"])
+    row["detail"] = detail
+    torch.cuda.empty_cache()
+    return row
+
+
+def tp8_collectives_path(card: str) -> tuple[dict, list[dict]]:
+    """The collectives layer as Llama-3-8B's tensor parallelism at TP 8 calls
+    it, on a ring of 8 virtual ranks on the card (``create_mesh(model=8,
+    devices=[cuda:0] * 8)``), through ``conch_tpu_torch.parallel``:
+    ``ring_all_gather`` of a 512-row prefill chunk (shards 64 x 4096 bf16)
+    and of a long-context one (2048 x 4096 shards); in f32 and bf16,
+    ``overlapped_allgather_matmul`` (x 512 x 4096 K-sharded to 512 x 512,
+    w_local 4096 x 768: the fused wqkv's 6144 columns over 8) and
+    ``overlapped_matmul_reduce_scatter`` (x_local 512 x 1792: w_down's 14336
+    rows over 8; w_shard 1792 x 4096). Counts set to 0 just before, read
+    just after: K14 launches twice. Checks: each gather bit for bit against
+    the plain version and the unsharded input; each collective matmul
+    against the unsharded product (f32 at 1e-4 + 1e-4 |ref|, bf16 within
+    1e-2 x max |ref|). Then each is timed in bf16 beside the unsharded
+    product (on virtual ranks: correctness and cost, no overlap)."""
+    from conch_tpu_torch.parallel import (
+        create_mesh,
+        overlapped_allgather_matmul,
+        overlapped_matmul_reduce_scatter,
+        ring_all_gather,
+    )
+
+    if torch.get_float32_matmul_precision() != "highest" or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("f32 matmuls must run in full f32 (no TF32), as JAX's preferred_element_type=f32")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    ranks = create_mesh(model=TP, devices=[torch.device("cuda", 0)] * TP).axis_devices("model")
+
+    def split(t: torch.Tensor, dim: int) -> list[torch.Tensor]:
+        return [c.to(d, copy=True).contiguous() for c, d in zip(t.chunk(TP, dim=dim), ranks)]
+
+    chunk = torch.randn((512, HIDDEN), generator=gen, device="cuda").to(torch.bfloat16)
+    long = torch.randn((RING_LONG[0] * TP, HIDDEN), generator=gen, device="cuda").to(torch.bfloat16)
+    qkv_cols, down_k = 6144, INTER
+    matmuls = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((512, HIDDEN), generator=gen, device="cuda")
+        w = torch.randn((HIDDEN, qkv_cols), generator=gen, device="cuda") / math.sqrt(HIDDEN)
+        x2 = torch.randn((512, down_k), generator=gen, device="cuda")
+        w2 = torch.randn((down_k, HIDDEN), generator=gen, device="cuda") / math.sqrt(down_k)
+        x, w, x2, w2 = (t.to(dtype) for t in (x, w, x2, w2))
+        matmuls[dtype] = {"ag": (x, w, split(x, 1), split(w, 1)), "rs": (x2, w2, split(x2, 1), split(w2, 0))}
+    gathers = {"prefill": split(chunk, 0), "long": split(long, 0)}
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    gathered = {name: ring_all_gather(shards) for name, shards in gathers.items()}
+    products = {
+        dtype: (overlapped_allgather_matmul(m["ag"][2], m["ag"][3]), overlapped_matmul_reduce_scatter(m["rs"][2], m["rs"][3]))
+        for dtype, m in matmuls.items()
+    }
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launch_counts()
+    check_ring_error("the TP-8 collectives path")
+    for name, shards in gathers.items():
+        check_ring(f"tp8 ring_all_gather ({name})", gathered[name], shards)
+        whole = chunk if name == "prefill" else long
+        if not all(torch.equal(g, whole) for g in gathered[name]):
+            raise AssertionError(f"tp8 ring_all_gather ({name}): a rank's result is not the unsharded input")
+    for dtype, (ag, rs) in products.items():
+        for label, outs, (x, w, _, _) in (("allgather_matmul", ag, matmuls[dtype]["ag"]),
+                                          ("matmul_reduce_scatter", rs, matmuls[dtype]["rs"])):
+            got = torch.cat(outs, dim=1)
+            ref = torch.matmul(x.float(), w.float())
+            name = f"tp8 overlapped_{label} {dtype}"
+            if dtype == torch.float32:
+                check_close(name, got, ref, 1e-4)
+            else:
+                scale = ref.abs().max().item()
+                check(f"{name} (max|ref| {scale:.3f})", (got.float() - ref).abs().max().item(), 1e-2 * scale)
+    print(f"llama3_8b_tp8_collectives: 2 gathers and 4 collective matmuls on {TP} virtual ranks in "
+          f"{seconds * 1e3:.2f} ms on {card} (host clock, first call); launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    if launches["ring_all_gather"] != len(gathers):
+        raise AssertionError(f"ring_all_gather: {launches['ring_all_gather']} launches, expected {len(gathers)}")
+
+    # A collective matmul is about 310 eager launches at TP 8 (per hop and
+    # rank: two upcasts, a product, an add, a copy). Device times come from
+    # two calls, whose launches all fit in CUDA's launch queue behind
+    # time_ms's sleep; with more the host blocks on the full queue and the
+    # events time its pacing.
+    x, w, xs, ws = matmuls[torch.bfloat16]["ag"]
+    x2, w2, xs2, ws2 = matmuls[torch.bfloat16]["rs"]
+    timings = [
+        {"case": "overlapped_allgather_matmul bf16, x 512 x 512 x 8, w_local 4096 x 768",
+         "ms": time_ms(lambda: overlapped_allgather_matmul(xs, ws), iters=2),
+         "paced_ms": paced_ms(lambda: overlapped_allgather_matmul(xs, ws)),
+         "unsharded_ms": time_ms(lambda: torch.matmul(x, w))},
+        {"case": "overlapped_matmul_reduce_scatter bf16, x_local 512 x 1792, w_shard 1792 x 4096",
+         "ms": time_ms(lambda: overlapped_matmul_reduce_scatter(xs2, ws2), iters=2),
+         "paced_ms": paced_ms(lambda: overlapped_matmul_reduce_scatter(xs2, ws2)),
+         "unsharded_ms": time_ms(lambda: torch.matmul(x2, w2))},
+    ]
+    for t in timings:
+        print(f"tp8 {t['case']}: {t['ms']:.4f} ms (paced {t['paced_ms']:.4f}), unsharded product "
+              f"{t['unsharded_ms']:.4f} ms on {card} (virtual ranks: no overlap)", flush=True)
+    del gathers, gathered, products, matmuls, chunk, long
+    torch.cuda.empty_cache()
+    return launches, timings
+
+
 def kernel_phases() -> list[dict]:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rng = np.random.default_rng(SEED)
@@ -1979,7 +2320,7 @@ def kernel_phases() -> list[dict]:
         kernel_phase_k5(gen, rng), kernel_phase_k6(gen), kernel_phase_k7(gen, rng), kernel_phase_k10a(gen),
         kernel_phase_k10b(gen), kernel_phase_k1b(gen), kernel_phase_k1c(gen), kernel_phase_k8(gen),
         kernel_phase_k12q(gen), kernel_phase_k11(gen, rng), kernel_phase_k9(gen), *kernel_phases_vision(gen, rng),
-        kernel_phase_k4b(gen), kernel_phase_k12d(gen),
+        kernel_phase_k4b(gen), kernel_phase_k12d(gen), kernel_phase_k14(gen),
     ]
     # The Gemma-2-2B shapes of K2, K3, K5 and K7 go into their rows' detail
     # beside the Llama-3-8B numbers the rows keep.
@@ -1997,6 +2338,7 @@ def kernel_phases() -> list[dict]:
                       f"{case['plain_ms']:.4f}, bound {case['bound_ms']:.5f} by {case['bound_by']})", flush=True)
     check_attention_scales(gen)
     quantized_cache_phases(gen, rng, by_name)
+    gemm_output_types(gen, by_name)
     for r in rows:
         print(
             f"{r['name']}: {r['ms']:.4f} ms (paced {r['paced_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
@@ -2018,6 +2360,7 @@ def _launchers() -> dict:
     from conch_tpu_torch.kernels.attention.paged_attention import paged_attention_launcher
     from conch_tpu_torch.kernels.attention.varlen_attention import varlen_attention_launcher
     from conch_tpu_torch.kernels.cache.reshape_and_cache import reshape_and_cache_stacked_launcher
+    from conch_tpu_torch.kernels.collectives.ring_all_gather import ring_all_gather_launcher
     from conch_tpu_torch.kernels.embedding.rotary_embedding import rotary_embedding_launcher
     from conch_tpu_torch.kernels.normalization.gemma_rms_norm import gemma_rms_norm_launcher
     from conch_tpu_torch.kernels.normalization.rms_norm import fused_add_rms_norm_launcher, rms_norm_launcher
@@ -2054,6 +2397,7 @@ def _launchers() -> dict:
         "bev_pool_fwd": (bev_pool_forward_launcher,),
         "bev_pool_bwd": (bev_pool_backward_launcher,),
         "nms": (nms_keep_mask_launcher,),
+        "ring_all_gather": (ring_all_gather_launcher,),
     }
 
 
@@ -2544,6 +2888,7 @@ PRIMARY_PATH = {
     "scaled_gemm": "llama3_8b_w8a8", "mla_attention": "deepseek_v2_lite_bf16",
     "bev_pool_fwd": "vision_bevfusion", "bev_pool_bwd": "vision_bevfusion", "nms": "vision_bevfusion",
     "dequantize4": "llama3_8b_qlora", "fused_add_rms_norm": "llama3_8b_residual_stream",
+    "ring_all_gather": "llama3_8b_tp8_collectives",
 }
 # K9's callers are its public ops: its row's launches are those of its
 # kernel phase, and it launches on no served path.
@@ -2566,6 +2911,8 @@ def main() -> int:
     vision_launches = vision_path(card)
     qlora_launches = qlora_path(card)
     stream_launches = residual_stream_path(card)
+    tp8_launches, tp8_timings = tp8_collectives_path(card)
+    next(r for r in rows if r["name"] == "ring_all_gather")["collective_matmuls"] = tp8_timings
     check_prefill_logits()
     check_deepseek_logits()
 
@@ -2648,6 +2995,7 @@ def main() -> int:
     launches["vision_bevfusion"] = vision_launches
     launches["llama3_8b_qlora"] = qlora_launches
     launches["llama3_8b_residual_stream"] = stream_launches
+    launches["llama3_8b_tp8_collectives"] = tp8_launches
     # ``launches``: the Gemma run for the kernels it runs, the int4 run for
     # K1, K4 and K6, the int8, nf4 and w8a8 runs for their kernels (K12q:
     # during the nf4 init), the DeepSeek run for K11, K9's phase for K9, the

@@ -64,6 +64,17 @@ bool dispatch_act_cache(int act_dtype, int cache_dtype, Launch&& launch) {
   return false;
 }
 
+// Calls launch(TypeTag<O>{}) for the output dtype codes the GEMMs store
+// (bf16, f32); returns false for any other.
+template <typename Launch>
+bool dispatch_out(int out_dtype, Launch&& launch) {
+  switch (out_dtype) {
+    case kBFloat16: launch(TypeTag<__nv_bfloat16>{}); return true;
+    case kFloat32: launch(TypeTag<float>{}); return true;
+    default: return false;
+  }
+}
+
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>

@@ -174,10 +174,10 @@ __device__ __forceinline__ void group_product(float (&acc)[MT][kNT][4], const ui
 // MT m16 tiles of rows per warp; WARPS_N warps side by side on N; WARPS_K
 // warps splitting the groups of K (their sums added in shared memory);
 // each warp's words DEPTH groups ahead of its products.
-template <int G, int MT, int WARPS_N, int WARPS_K, int DEPTH>
+template <int G, int MT, int WARPS_N, int WARPS_K, int DEPTH, typename O>
 __global__ void __launch_bounds__(32 * WARPS_N * WARPS_K)
     magic_gemm_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ packed,
-                      const __nv_bfloat16* __restrict__ scales, __nv_bfloat16* __restrict__ out, int m, int n,
+                      const __nv_bfloat16* __restrict__ scales, O* __restrict__ out, int m, int n,
                       int k, int64_t x_row_stride, int bias) {
   constexpr int BM = 16 * MT;
   constexpr int BN = 32 * WARPS_N;
@@ -225,14 +225,23 @@ __global__ void __launch_bounds__(32 * WARPS_N * WARPS_K)
       for (int hh = 0; hh < 2; ++hh) {
         const int row = m0 + 16 * mi + g + 8 * hh;
         if (row >= m) continue;
-        __nv_bfloat162 v[4];  // columns 8*tig + {0..7}: tile t at +t (e even) and +4+t (e odd)
+        // Columns 8*tig + c, c in 0..7: tile c & 3, element 2*hh + (c >> 2).
+        O* dst = out + static_cast<int64_t>(row) * n + n_warp + 8 * tig;
+        if constexpr (std::is_same_v<O, float>) {
+          float v[8];
 #pragma unroll
-        for (int p = 0; p < 4; ++p) {
-          const int c0 = 2 * p, c1 = 2 * p + 1;  // the pair's columns
-          v[p] = __floats2bfloat162_rn(acc[mi][c0 & 3][2 * hh + (c0 >> 2)], acc[mi][c1 & 3][2 * hh + (c1 >> 2)]);
+          for (int c = 0; c < 8; ++c) v[c] = acc[mi][c & 3][2 * hh + (c >> 2)];
+          reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
+          reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
+        } else {
+          __nv_bfloat162 v[4];
+#pragma unroll
+          for (int p = 0; p < 4; ++p) {
+            const int c0 = 2 * p, c1 = 2 * p + 1;  // the pair's columns
+            v[p] = __floats2bfloat162_rn(acc[mi][c0 & 3][2 * hh + (c0 >> 2)], acc[mi][c1 & 3][2 * hh + (c1 >> 2)]);
+          }
+          *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
         }
-        *reinterpret_cast<uint4*>(out + static_cast<int64_t>(row) * n + n_warp + 8 * tig) =
-            *reinterpret_cast<const uint4*>(v);
       }
   } else {
     __shared__ float red[WARPS_K][BM][BN];
@@ -251,30 +260,30 @@ __global__ void __launch_bounds__(32 * WARPS_N * WARPS_K)
       float sum = 0.0f;
 #pragma unroll
       for (int w = 0; w < WARPS_K; ++w) sum += red[w][r][c];
-      out[static_cast<int64_t>(m0 + r) * n + blockIdx.y * BN + c] = __float2bfloat16_rn(sum);
+      out[static_cast<int64_t>(m0 + r) * n + blockIdx.y * BN + c] = from_float<O>(sum);
     }
   }
 }
 
-template <int G, int MT, int WARPS_N, int WARPS_K, int DEPTH>
+template <int G, int MT, int WARPS_N, int WARPS_K, int DEPTH, typename O>
 void launch(const void* x, const void* packed, const void* scales, void* out, int m, int n, int k,
             int64_t x_row_stride, int bias, cudaStream_t stream) {
   const dim3 grid((m + 16 * MT - 1) / (16 * MT), n / (32 * WARPS_N));
-  magic_gemm_kernel<G, MT, WARPS_N, WARPS_K, DEPTH><<<grid, 32 * WARPS_N * WARPS_K, 0, stream>>>(
+  magic_gemm_kernel<G, MT, WARPS_N, WARPS_K, DEPTH, O><<<grid, 32 * WARPS_N * WARPS_K, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const int32_t*>(packed),
-      static_cast<const __nv_bfloat16*>(scales), static_cast<__nv_bfloat16*>(out), m, n, k, x_row_stride, bias);
+      static_cast<const __nv_bfloat16*>(scales), static_cast<O*>(out), m, n, k, x_row_stride, bias);
 }
 
-template <int G>
+template <int G, typename O>
 void launch_group(const void* x, const void* packed, const void* scales, void* out, int m, int n, int k,
                   int64_t x_row_stride, int bias, cudaStream_t stream) {
   // Tile shapes picked by timing the engine's four (K, N) at M = 8, 32 and
   // 512 on the H100 at group 128 (see the header comment for the two
   // regimes); group 64 takes the same.
   if (m <= 32) {
-    launch<G, 1, 1, 8, 2>(x, packed, scales, out, m, n, k, x_row_stride, bias, stream);
+    launch<G, 1, 1, 8, 2, O>(x, packed, scales, out, m, n, k, x_row_stride, bias, stream);
   } else {
-    launch<G, 2, 2, 2, 1>(x, packed, scales, out, m, n, k, x_row_stride, bias, stream);
+    launch<G, 2, 2, 2, 1, O>(x, packed, scales, out, m, n, k, x_row_stride, bias, stream);
   }
 }
 
@@ -283,19 +292,24 @@ void launch_group(const void* x, const void* packed, const void* scales, void* o
 
 // x (M, K) bf16 with row stride x_row_stride (a multiple of 8, 16-byte
 // aligned); packed (K/8, N) int32 and scales (K/group, N) bf16 of ONE
-// layer (the wrapper offsets the stack's pointers); out (M, N) bf16,
-// contiguous. group 64 or 128; K a multiple of the group, N of 128.
-extern "C" int conch_mixed_gemm_magic(const void* x, const void* packed, const void* scales, void* out, int m, int n,
-                                      int k, int group, int64_t x_row_stride, int bias, void* stream) {
+// layer (the wrapper offsets the stack's pointers); out (M, N) bf16
+// (out_dtype 1) or f32 (0), contiguous: the f32 sums' one rounding is the
+// final store. group 64 or 128; K a multiple of the group, N of 128.
+extern "C" int conch_mixed_gemm_magic(const void* x, const void* packed, const void* scales, void* out,
+                                      int out_dtype, int m, int n, int k, int group, int64_t x_row_stride, int bias,
+                                      void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (m == 0) return static_cast<int>(cudaSuccess);
   if ((group != 64 && group != 128) || k % group != 0 || n % 128 != 0 || x_row_stride % 8 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (group == 128) {
-    conch::launch_group<128>(x, packed, scales, out, m, n, k, x_row_stride, bias, s);
-  } else {
-    conch::launch_group<64>(x, packed, scales, out, m, n, k, x_row_stride, bias, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const bool known = conch::dispatch_out(out_dtype, [&](auto out_tag) {
+    using O = typename decltype(out_tag)::type;
+    if (group == 128) {
+      conch::launch_group<128, O>(x, packed, scales, out, m, n, k, x_row_stride, bias, s);
+    } else {
+      conch::launch_group<64, O>(x, packed, scales, out, m, n, k, x_row_stride, bias, s);
+    }
+  });
+  return static_cast<int>(known ? cudaGetLastError() : cudaErrorInvalidValue);
 }

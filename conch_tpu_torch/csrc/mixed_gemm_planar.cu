@@ -42,11 +42,11 @@ __device__ __forceinline__ float field(uint32_t word, int f) {
   return static_cast<float>((word >> (BITS * f)) & ((1u << BITS) - 1u));
 }
 
-template <int BITS, int MT, int WARPS_K, typename S>
+template <int BITS, int MT, int WARPS_K, typename S, typename O>
 __global__ void __launch_bounds__(32 * WARPS_K)
     planar_gemm_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ packed,
                        const S* __restrict__ scales, const float* __restrict__ zp, int zp_mode,
-                       __nv_bfloat16* __restrict__ out, int m, int n, int k, int64_t ldx, int group, float bias) {
+                       O* __restrict__ out, int m, int n, int k, int64_t ldx, int group, float bias) {
   constexpr int EPP = 32 / BITS;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -148,24 +148,24 @@ __global__ void __launch_bounds__(32 * WARPS_K)
     for (int i = 0; i < 4; ++i) cur[i] = nxt[i];
   }
   reduce_and_store<MT, WARPS_K>(acc, m, m0, [&](int row, int col, float v) {
-    out[static_cast<int64_t>(row) * n + n0 + col] = __float2bfloat16_rn(v);
+    out[static_cast<int64_t>(row) * n + n0 + col] = from_float<O>(v);
   });
 }
 
-template <int BITS, typename S>
+template <int BITS, typename S, typename O>
 cudaError_t launch(const void* x, const void* packed, const void* scales, const void* zp, int zp_mode, void* out,
                    int m, int n, int k, int64_t ldx, int group, int bias, cudaStream_t stream) {
   auto run = [&](auto kernel, int rows, int warps) {
     const dim3 grid((m + rows - 1) / rows, n / 32);
     kernel<<<grid, 32 * warps, 0, stream>>>(static_cast<const __nv_bfloat16*>(x), static_cast<const int32_t*>(packed),
                                             static_cast<const S*>(scales), static_cast<const float*>(zp), zp_mode,
-                                            static_cast<__nv_bfloat16*>(out), m, n, k, ldx, group,
+                                            static_cast<O*>(out), m, n, k, ldx, group,
                                             static_cast<float>(bias));
   };
   if (m <= 16) {
-    run(planar_gemm_kernel<BITS, 1, 8, S>, 16, 8);
+    run(planar_gemm_kernel<BITS, 1, 8, S, O>, 16, 8);
   } else {
-    run(planar_gemm_kernel<BITS, 2, 4, S>, 32, 4);
+    run(planar_gemm_kernel<BITS, 2, 4, S, O>, 32, 4);
   }
   return cudaGetLastError();
 }
@@ -177,32 +177,33 @@ cudaError_t launch(const void* x, const void* packed, const void* scales, const 
 // packed (K / (32 / bits), N) int32, scales (K / group, N) bf16
 // (scale_dtype 1) or f32 (0), and per-group zero-points (K / group, N) f32
 // (zp_mode 2), one f32 zero-point (1) or none (0: the bias), of ONE layer
-// (the wrapper offsets the stack's pointers); out (M, N) bf16, contiguous.
-// N must be a multiple of 32, group a multiple of 16 * (32 / bits), and K a
-// multiple of group.
+// (the wrapper offsets the stack's pointers); out (M, N) bf16 (out_dtype 1)
+// or f32 (0), contiguous. N must be a multiple of 32, group a multiple of
+// 16 * (32 / bits), and K a multiple of group.
 extern "C" int conch_mixed_gemm_planar(const void* x, const void* packed, const void* scales, int scale_dtype,
-                                       const void* zp, int zp_mode, void* out, int m, int n, int k, int64_t ldx,
-                                       int bits, int group, int bias, void* stream) {
+                                       const void* zp, int zp_mode, void* out, int out_dtype, int m, int n, int k,
+                                       int64_t ldx, int bits, int group, int bias, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (m == 0) return static_cast<int>(cudaSuccess);
   if (n % 32 != 0 || ldx % 4 != 0 || group <= 0 || group % (16 * (32 / bits)) != 0 || k % group != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const bool f32 = scale_dtype == conch::kFloat32;
-  switch (bits) {
-    case 2:
-      return static_cast<int>(f32 ? conch::launch<2, float>(x, packed, scales, zp, zp_mode, out, m, n, k, ldx, group, bias, s)
-                                  : conch::launch<2, __nv_bfloat16>(x, packed, scales, zp, zp_mode, out, m, n, k, ldx,
-                                                                    group, bias, s));
-    case 4:
-      return static_cast<int>(f32 ? conch::launch<4, float>(x, packed, scales, zp, zp_mode, out, m, n, k, ldx, group, bias, s)
-                                  : conch::launch<4, __nv_bfloat16>(x, packed, scales, zp, zp_mode, out, m, n, k, ldx,
-                                                                    group, bias, s));
-    case 8:
-      return static_cast<int>(f32 ? conch::launch<8, float>(x, packed, scales, zp, zp_mode, out, m, n, k, ldx, group, bias, s)
-                                  : conch::launch<8, __nv_bfloat16>(x, packed, scales, zp, zp_mode, out, m, n, k, ldx,
-                                                                    group, bias, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  cudaError_t status = cudaErrorInvalidValue;
+  conch::dispatch_out(out_dtype, [&](auto out_tag) {
+    using O = typename decltype(out_tag)::type;
+    auto run = [&](auto bits_tag) {
+      constexpr int B = decltype(bits_tag)::value;
+      status = f32 ? conch::launch<B, float, O>(x, packed, scales, zp, zp_mode, out, m, n, k, ldx, group, bias, s)
+                   : conch::launch<B, __nv_bfloat16, O>(x, packed, scales, zp, zp_mode, out, m, n, k, ldx, group,
+                                                        bias, s);
+    };
+    switch (bits) {
+      case 2: run(std::integral_constant<int, 2>{}); break;
+      case 4: run(std::integral_constant<int, 4>{}); break;
+      case 8: run(std::integral_constant<int, 8>{}); break;
+      default: break;
+    }
+  });
+  return static_cast<int>(status);
 }

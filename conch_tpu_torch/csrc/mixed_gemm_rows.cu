@@ -37,11 +37,11 @@
 namespace conch {
 namespace {
 
-template <int BITS, int MT, int WARPS_K, typename S, bool CODEBOOK>
+template <int BITS, int MT, int WARPS_K, typename S, bool CODEBOOK, typename O>
 __global__ void __launch_bounds__(32 * WARPS_K)
     rows_gemm_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ packed,
                      const S* __restrict__ scales, const float* __restrict__ zp, int zp_mode,
-                     const float* __restrict__ codebook, __nv_bfloat16* __restrict__ out, int m, int n, int k,
+                     const float* __restrict__ codebook, O* __restrict__ out, int m, int n, int k,
                      int64_t ldx, int group, float bias) {
   constexpr int EPP = 32 / BITS;
   constexpr uint32_t MASK = (1u << BITS) - 1u;
@@ -127,11 +127,11 @@ __global__ void __launch_bounds__(32 * WARPS_K)
     for (int i = 0; i < 4; ++i) cur[i] = nxt[i];
   }
   reduce_and_store<MT, WARPS_K>(acc, m, m0, [&](int row, int col, float v) {
-    out[static_cast<int64_t>(row) * n + n0 + col] = __float2bfloat16_rn(v);
+    out[static_cast<int64_t>(row) * n + n0 + col] = from_float<O>(v);
   });
 }
 
-template <int BITS, typename S, bool CODEBOOK>
+template <int BITS, typename S, bool CODEBOOK, typename O>
 cudaError_t launch(const void* x, const void* packed, const void* scales, const void* zp, int zp_mode,
                    const void* codebook, void* out, int m, int n, int k, int64_t ldx, int group, int bias,
                    cudaStream_t stream) {
@@ -139,29 +139,31 @@ cudaError_t launch(const void* x, const void* packed, const void* scales, const 
     const dim3 grid((m + rows - 1) / rows, n / 32);
     kernel<<<grid, 32 * warps, 0, stream>>>(static_cast<const __nv_bfloat16*>(x), static_cast<const int32_t*>(packed),
                                             static_cast<const S*>(scales), static_cast<const float*>(zp), zp_mode,
-                                            static_cast<const float*>(codebook), static_cast<__nv_bfloat16*>(out), m,
+                                            static_cast<const float*>(codebook), static_cast<O*>(out), m,
                                             n, k, ldx, group, static_cast<float>(bias));
   };
   if (m <= 16) {
-    run(rows_gemm_kernel<BITS, 1, 8, S, CODEBOOK>, 16, 8);
+    run(rows_gemm_kernel<BITS, 1, 8, S, CODEBOOK, O>, 16, 8);
   } else {
-    run(rows_gemm_kernel<BITS, 2, 4, S, CODEBOOK>, 32, 4);
+    run(rows_gemm_kernel<BITS, 2, 4, S, CODEBOOK, O>, 32, 4);
   }
   return cudaGetLastError();
 }
 
-template <int BITS>
+template <int BITS, typename O>
 cudaError_t dispatch(bool f32_scales, bool codebook, const void* x, const void* packed, const void* scales,
                      const void* zp, int zp_mode, const void* book, void* out, int m, int n, int k, int64_t ldx,
                      int group, int bias, cudaStream_t s) {
   if (f32_scales) {
-    return codebook ? launch<BITS, float, true>(x, packed, scales, zp, zp_mode, book, out, m, n, k, ldx, group, bias, s)
-                    : launch<BITS, float, false>(x, packed, scales, zp, zp_mode, book, out, m, n, k, ldx, group, bias, s);
+    return codebook ? launch<BITS, float, true, O>(x, packed, scales, zp, zp_mode, book, out, m, n, k, ldx, group,
+                                                   bias, s)
+                    : launch<BITS, float, false, O>(x, packed, scales, zp, zp_mode, book, out, m, n, k, ldx, group,
+                                                    bias, s);
   }
-  return codebook
-             ? launch<BITS, __nv_bfloat16, true>(x, packed, scales, zp, zp_mode, book, out, m, n, k, ldx, group, bias, s)
-             : launch<BITS, __nv_bfloat16, false>(x, packed, scales, zp, zp_mode, book, out, m, n, k, ldx, group, bias,
-                                                  s);
+  return codebook ? launch<BITS, __nv_bfloat16, true, O>(x, packed, scales, zp, zp_mode, book, out, m, n, k, ldx,
+                                                         group, bias, s)
+                  : launch<BITS, __nv_bfloat16, false, O>(x, packed, scales, zp, zp_mode, book, out, m, n, k, ldx,
+                                                          group, bias, s);
 }
 
 }  // namespace
@@ -172,11 +174,11 @@ cudaError_t dispatch(bool f32_scales, bool codebook, const void* x, const void* 
 // (scale_dtype 1) or f32 (0), per-group zero-points of the same shape in
 // f32 (zp_mode 2), one f32 zero-point (1) or none (0), and codebook (16
 // f32 on the device, 4-bit codes only) or null, of ONE layer (the wrapper
-// offsets the stack's pointers); out (M, N) bf16, contiguous. N must be a
-// multiple of 32 and group of 4.
+// offsets the stack's pointers); out (M, N) bf16 (out_dtype 1) or f32 (0),
+// contiguous. N must be a multiple of 32 and group of 4.
 extern "C" int conch_mixed_gemm_rows(const void* x, const void* packed, const void* scales, int scale_dtype,
-                                     const void* zp, int zp_mode, const void* codebook, void* out, int m, int n,
-                                     int k, int64_t ldx, int bits, int group, int bias, void* stream) {
+                                     const void* zp, int zp_mode, const void* codebook, void* out, int out_dtype,
+                                     int m, int n, int k, int64_t ldx, int bits, int group, int bias, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (m == 0) return static_cast<int>(cudaSuccess);
   if (n % 32 != 0 || ldx % 4 != 0 || group <= 0 || group % 4 != 0 || k % (32 / bits) != 0 ||
@@ -185,17 +187,25 @@ extern "C" int conch_mixed_gemm_rows(const void* x, const void* packed, const vo
   }
   const bool f32 = scale_dtype == conch::kFloat32;
   const bool book = codebook != nullptr;
-  switch (bits) {
-    case 2:
-      return static_cast<int>(conch::dispatch<2>(f32, false, x, packed, scales, zp, zp_mode, codebook, out, m, n, k,
-                                                 ldx, group, bias, s));
-    case 4:
-      return static_cast<int>(conch::dispatch<4>(f32, book, x, packed, scales, zp, zp_mode, codebook, out, m, n, k,
-                                                 ldx, group, bias, s));
-    case 8:
-      return static_cast<int>(conch::dispatch<8>(f32, false, x, packed, scales, zp, zp_mode, codebook, out, m, n, k,
-                                                 ldx, group, bias, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  cudaError_t status = cudaErrorInvalidValue;
+  conch::dispatch_out(out_dtype, [&](auto out_tag) {
+    using O = typename decltype(out_tag)::type;
+    switch (bits) {
+      case 2:
+        status = conch::dispatch<2, O>(f32, false, x, packed, scales, zp, zp_mode, codebook, out, m, n, k, ldx, group,
+                                       bias, s);
+        break;
+      case 4:
+        status = conch::dispatch<4, O>(f32, book, x, packed, scales, zp, zp_mode, codebook, out, m, n, k, ldx, group,
+                                       bias, s);
+        break;
+      case 8:
+        status = conch::dispatch<8, O>(f32, false, x, packed, scales, zp, zp_mode, codebook, out, m, n, k, ldx, group,
+                                       bias, s);
+        break;
+      default:
+        break;
+    }
+  });
+  return static_cast<int>(status);
 }

@@ -21,8 +21,10 @@ Each kernel replaces one kernel of ``conch_tpu/kernels/quantization/gemm.py``:
 
 Each takes a ``layer_index`` into per-layer stacks of its weight arrays
 (``(L, ...)``): the wrapper offsets the pointers to the layer, so no
-slice of a stack is ever copied. The plain versions follow the TPU
-kernels' order of rounding in f32. A launcher takes its plain version for
+slice of a stack is ever copied. K1, K1b and K1c round their f32 sums
+once, into ``out_dtype`` (x's dtype by default; float32 or bfloat16 on the
+card, an output-type template parameter). The plain versions follow the
+TPU kernels' order of rounding in f32. A launcher takes its plain version for
 CPU tensors only; on CUDA it launches its kernel or raises, and counts
 each launch in ``launches``.
 """
@@ -38,6 +40,7 @@ from conch_tpu_torch.kernels.common import check_launch, dtype_code, kernel_func
 from conch_tpu_torch.utils.quant_utils import get_pack_factor, unpack_rows, unpack_rows_magic, unpack_rows_planar
 
 KERNEL_GROUP_SIZES = (64, 128)  # the group sizes K1's CUDA kernel is written for
+KERNEL_OUT_DTYPES = (torch.float32, torch.bfloat16)  # the final stores K1, K1b and K1c are written for
 
 
 def _layer(a: torch.Tensor, layer_index: int | None) -> torch.Tensor:
@@ -77,6 +80,15 @@ def _check_layer_shapes(name: str, layer_index: int | None, shapes: dict) -> Non
         if t.dim() != rank or tuple(t.shape[-2:]) != want:
             msg = f"{name} kernel: {label} {tuple(t.shape)} does not fit (expected {'(L, ' if rank == 3 else '('}{want})"
             raise ValueError(msg)
+
+
+def _out_dtype(name: str, x: torch.Tensor, out_dtype: torch.dtype | None) -> torch.dtype:
+    """The kernel's output dtype (x's by default); raises on one it does not store."""
+    out_dtype = out_dtype or x.dtype
+    if out_dtype not in KERNEL_OUT_DTYPES:
+        msg = f"{name} kernel: stores float32 or bfloat16 outputs, not {out_dtype}"
+        raise NotImplementedError(msg)
+    return out_dtype
 
 
 def _check_x(name: str, x: torch.Tensor) -> None:
@@ -125,16 +137,21 @@ def mixed_gemm_magic_plain(
     group_size: int,
     bias: int,
     layer_index: int | None = None,
+    out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of K1, on any device: dequantize the layer's
-    weight in f32, multiply in f32, round to x's dtype."""
+    weight in f32, multiply in f32, round to ``out_dtype`` (x's dtype by
+    default)."""
     packed, scales = _layer(packed, layer_index), _layer(scales, layer_index)
     w = dequantize_magic(packed, scales, x.shape[1], group_size, bias)
-    return torch.matmul(x.float(), w).to(x.dtype)
+    return torch.matmul(x.float(), w).to(out_dtype or x.dtype)
 
 
-def _magic_gemm_cuda(x, packed, scales, group_size: int, bias: int, layer_index: int | None) -> torch.Tensor:
+def _magic_gemm_cuda(
+    x, packed, scales, group_size: int, bias: int, layer_index: int | None, out_dtype: torch.dtype | None
+) -> torch.Tensor:
     require_cuda(x, packed, scales)
+    out_dtype = _out_dtype("mixed_gemm_magic", x, out_dtype)
     m, k = x.shape
     n = packed.shape[-1]
     if x.dtype != torch.bfloat16 or scales.dtype != torch.bfloat16 or packed.dtype != torch.int32:
@@ -159,12 +176,13 @@ def _magic_gemm_cuda(x, packed, scales, group_size: int, bias: int, layer_index:
         "packed": (packed, (k // 8, n)), "scales": (scales, (k // group_size, n)),
     })
     w_ptr, s_ptr = _layer_ptr(packed, layer_index), _layer_ptr(scales, layer_index)
-    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     fn = kernel_function("conch_mixed_gemm_magic", (
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
     ))
-    code = fn(x.data_ptr(), w_ptr, s_ptr, out.data_ptr(), m, n, k, group_size, x.stride(0), bias, stream_of(x))
+    code = fn(x.data_ptr(), w_ptr, s_ptr, out.data_ptr(), dtype_code(out), m, n, k, group_size, x.stride(0), bias,
+              stream_of(x))
     check_launch("conch_mixed_gemm_magic", code)
     mixed_gemm_magic_launcher.launches += 1
     return out
@@ -177,14 +195,16 @@ def mixed_gemm_magic_launcher(
     group_size: int,
     bias: int,
     layer_index: int | None = None,
+    out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
-    """``x @ ((code - bias) * scale)`` in f32, rounded to x's dtype: (M, N).
+    """``x @ ((code - bias) * scale)`` in f32, rounded to ``out_dtype`` (x's
+    dtype by default; float32 or bfloat16 on the card): (M, N).
 
     ``launches`` counts kernel launches.
     """
     if x.device.type == "cpu":
-        return mixed_gemm_magic_plain(x, packed, scales, group_size, bias, layer_index)
-    return _magic_gemm_cuda(x, packed, scales, group_size, bias, layer_index)
+        return mixed_gemm_magic_plain(x, packed, scales, group_size, bias, layer_index, out_dtype)
+    return _magic_gemm_cuda(x, packed, scales, group_size, bias, layer_index, out_dtype)
 
 
 mixed_gemm_magic_launcher.launches = 0
@@ -202,11 +222,12 @@ def mixed_gemm_planar_plain(
     bias: int,
     group_size: int,
     layer_index: int | None = None,
+    out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of K1b, on any device, in the TPU kernel's
     order: for each group G, ``acc += (x_G @ c_G - z * sum(x_G)) * s_G``
     in f32 (z the group's zero-point, the scalar zero-point, or ``bias``),
-    then rounded to x's dtype."""
+    then rounded to ``out_dtype`` (x's dtype by default)."""
     packed, scales, zp = _layer(packed, layer_index), _layer(scales, layer_index), _zp_of(zp, layer_index)
     k = x.shape[1]
     codes = unpack_rows_planar(packed, bits, k, group_size)
@@ -223,12 +244,15 @@ def mixed_gemm_planar_plain(
         else:
             z = zp[g].float()
         acc += (part - z * xsum) * scales[g].float()
-    return acc.to(x.dtype)
+    return acc.to(out_dtype or x.dtype)
 
 
-def _planar_gemm_cuda(x, packed, scales, zp, bits: int, bias: int, group_size: int, layer_index) -> torch.Tensor:
+def _planar_gemm_cuda(
+    x, packed, scales, zp, bits: int, bias: int, group_size: int, layer_index, out_dtype: torch.dtype | None
+) -> torch.Tensor:
     require_cuda(x, packed, scales, *([] if zp is None else [zp]))
     _check_x("mixed_gemm_planar", x)
+    out_dtype = _out_dtype("mixed_gemm_planar", x, out_dtype)
     m, k = x.shape
     n = packed.shape[-1]
     epp = get_pack_factor(bits)
@@ -242,14 +266,15 @@ def _planar_gemm_cuda(x, packed, scales, zp, bits: int, bias: int, group_size: i
     meta_shape = (k // group_size, n)
     _check_layer_shapes("mixed_gemm_planar", layer_index, {"packed": (packed, (k // epp, n)), "scales": (scales, meta_shape)})
     zp_ptr, zp_mode = _zp_args("mixed_gemm_planar", zp, layer_index, meta_shape)
-    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     fn = kernel_function("conch_mixed_gemm_planar", (
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ))
     code = fn(x.data_ptr(), _layer_ptr(packed, layer_index), _layer_ptr(scales, layer_index), dtype_code(scales),
-              zp_ptr, zp_mode, out.data_ptr(), m, n, k, x.stride(0), bits, group_size, bias, stream_of(x))
+              zp_ptr, zp_mode, out.data_ptr(), dtype_code(out), m, n, k, x.stride(0), bits, group_size, bias,
+              stream_of(x))
     check_launch("conch_mixed_gemm_planar", code)
     mixed_gemm_planar_launcher.launches += 1
     return out
@@ -264,11 +289,13 @@ def mixed_gemm_planar_launcher(
     bias: int,
     group_size: int,
     layer_index: int | None = None,
+    out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
-    """K1b: ``x @ W`` over the planar packing, (M, N) in x's dtype."""
+    """K1b: ``x @ W`` over the planar packing, (M, N) in ``out_dtype`` (x's
+    dtype by default)."""
     if x.device.type == "cpu":
-        return mixed_gemm_planar_plain(x, packed, scales, zp, bits, bias, group_size, layer_index)
-    return _planar_gemm_cuda(x, packed, scales, zp, bits, bias, group_size, layer_index)
+        return mixed_gemm_planar_plain(x, packed, scales, zp, bits, bias, group_size, layer_index, out_dtype)
+    return _planar_gemm_cuda(x, packed, scales, zp, bits, bias, group_size, layer_index, out_dtype)
 
 
 mixed_gemm_planar_launcher.launches = 0
@@ -309,13 +336,15 @@ def mixed_gemm_rows_plain(
     group_size: int,
     codebook: tuple[float, ...] | None = None,
     layer_index: int | None = None,
+    out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of K1c, on any device, in the TPU kernel's
     order: the weight dequantized in f32 and rounded to x's dtype, the
-    product summed in f32, then rounded to x's dtype."""
+    product summed in f32, then rounded to ``out_dtype`` (x's dtype by
+    default)."""
     packed, scales, zp = _layer(packed, layer_index), _layer(scales, layer_index), _zp_of(zp, layer_index)
     w = dequantize_rows(packed, scales, zp, x.shape[1], bits, bias, group_size, codebook).to(x.dtype)
-    return torch.matmul(x.float(), w.float()).to(x.dtype)
+    return torch.matmul(x.float(), w.float()).to(out_dtype or x.dtype)
 
 
 @functools.lru_cache(maxsize=8)
@@ -323,9 +352,12 @@ def _codebook_tensor(codebook: tuple[float, ...], device: torch.device) -> torch
     return torch.tensor(codebook, dtype=torch.float32, device=device)
 
 
-def _rows_gemm_cuda(x, packed, scales, zp, bits: int, bias: int, group_size: int, codebook, layer_index) -> torch.Tensor:
+def _rows_gemm_cuda(
+    x, packed, scales, zp, bits: int, bias: int, group_size: int, codebook, layer_index, out_dtype: torch.dtype | None
+) -> torch.Tensor:
     require_cuda(x, packed, scales, *([] if zp is None else [zp]))
     _check_x("mixed_gemm_rows", x)
+    out_dtype = _out_dtype("mixed_gemm_rows", x, out_dtype)
     m, k = x.shape
     n = packed.shape[-1]
     epp = get_pack_factor(bits)
@@ -342,14 +374,15 @@ def _rows_gemm_cuda(x, packed, scales, zp, bits: int, bias: int, group_size: int
     _check_layer_shapes("mixed_gemm_rows", layer_index, {"packed": (packed, (k // epp, n)), "scales": (scales, meta_shape)})
     zp_ptr, zp_mode = _zp_args("mixed_gemm_rows", zp, layer_index, meta_shape)
     book = 0 if codebook is None else _codebook_tensor(tuple(codebook), x.device).data_ptr()
-    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     fn = kernel_function("conch_mixed_gemm_rows", (
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ))
     code = fn(x.data_ptr(), _layer_ptr(packed, layer_index), _layer_ptr(scales, layer_index), dtype_code(scales),
-              zp_ptr, zp_mode, book, out.data_ptr(), m, n, k, x.stride(0), bits, group_size, bias, stream_of(x))
+              zp_ptr, zp_mode, book, out.data_ptr(), dtype_code(out), m, n, k, x.stride(0), bits, group_size, bias,
+              stream_of(x))
     check_launch("conch_mixed_gemm_rows", code)
     mixed_gemm_rows_launcher.launches += 1
     return out
@@ -365,11 +398,13 @@ def mixed_gemm_rows_launcher(
     group_size: int,
     codebook: tuple[float, ...] | None = None,
     layer_index: int | None = None,
+    out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
-    """K1c: ``x @ W`` over GPTQ rows (or codebook codes), (M, N) in x's dtype."""
+    """K1c: ``x @ W`` over GPTQ rows (or codebook codes), (M, N) in
+    ``out_dtype`` (x's dtype by default)."""
     if x.device.type == "cpu":
-        return mixed_gemm_rows_plain(x, packed, scales, zp, bits, bias, group_size, codebook, layer_index)
-    return _rows_gemm_cuda(x, packed, scales, zp, bits, bias, group_size, codebook, layer_index)
+        return mixed_gemm_rows_plain(x, packed, scales, zp, bits, bias, group_size, codebook, layer_index, out_dtype)
+    return _rows_gemm_cuda(x, packed, scales, zp, bits, bias, group_size, codebook, layer_index, out_dtype)
 
 
 mixed_gemm_rows_launcher.launches = 0

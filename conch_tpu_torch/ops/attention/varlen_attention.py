@@ -14,6 +14,44 @@ from conch_tpu_torch.ops.attention.paged_attention import check_unported_options
 from conch_tpu_torch.ops.kv_quant import scale_value
 
 
+def _check_size_compatibility(
+    query: torch.Tensor,
+    key_cache: torch.Tensor,
+    value_cache: torch.Tensor,
+    cu_seqlens_q: torch.Tensor,
+    seq_lens: torch.Tensor,
+    block_table: torch.Tensor,
+) -> None:
+    """The JAX op's ``strict`` checks, with its messages."""
+    if query.dim() != 3:
+        msg = f"Query tensor has unexpected shape (query.shape = {tuple(query.shape)}), expected 3-D tensor"
+        raise ValueError(msg)
+    if key_cache.dim() != 4:
+        msg = f"key_cache tensor has unexpected shape (key_cache.shape = {tuple(key_cache.shape)}), expected 4-D tensor"
+        raise ValueError(msg)
+    if key_cache.shape != value_cache.shape:
+        msg = (
+            "Shape of key_cache and value_cache tensors does not match "
+            f"(key_cache.shape = {tuple(key_cache.shape)}, value_cache.shape = {tuple(value_cache.shape)})"
+        )
+        raise ValueError(msg)
+    _, num_query_heads, head_size = query.shape
+    _, num_kv_heads, _, head_size_kv = key_cache.shape
+    if head_size_kv != head_size:
+        msg = f"Head size of key/value cache ({head_size_kv}) does not match query ({head_size})"
+        raise ValueError(msg)
+    if num_kv_heads > num_query_heads:
+        msg = f"Number of key/value heads ({num_kv_heads}) is greater than number of query heads ({num_query_heads})"
+        raise ValueError(msg)
+    batch_size = cu_seqlens_q.shape[0] - 1
+    if block_table.shape[0] != batch_size:
+        msg = f"Batch size from block_table tensor ({block_table.shape[0]}) does not match batch_size ({batch_size})"
+        raise ValueError(msg)
+    if seq_lens.shape[0] != batch_size:
+        msg = f"Shape of sequence lengths tensor does not match batch size ({seq_lens.shape[0]} vs {batch_size})"
+        raise ValueError(msg)
+
+
 def varlen_attention(
     query: torch.Tensor,
     key_cache: torch.Tensor,
@@ -33,6 +71,7 @@ def varlen_attention(
     window_size: int = 0,
     ring_pages: int = 0,
     layer_idx: int | None = None,
+    strict: bool = False,
 ) -> torch.Tensor:
     """Variable-length (prefill) attention over a paged KV cache.
 
@@ -57,10 +96,20 @@ def varlen_attention(
             multiplies the softmax scale, ``v_scale`` the f32 output.
         window_size: > 0: the query at position p sees keys from
             ``p - window_size + 1`` on (Gemma-2's local layers).
+        ring_pages: > 0 (rolling KV) is not ported yet and raises.
+        layer_idx: the layer of a stacked (L, ...) cache pool.
+        strict: the JAX op's size checks first, with its messages (on one
+            layer of a stacked pool).
 
     Returns:
         (total_num_q, num_q_heads, head_size) in the query's dtype.
     """
+    if strict:
+        stacked = layer_idx is not None
+        _check_size_compatibility(
+            query, key_cache[0] if stacked and key_cache.dim() == 5 else key_cache,
+            value_cache[0] if stacked and value_cache.dim() == 5 else value_cache, cu_seqlens_q, seq_lens, block_table,
+        )
     check_unported_options(ring_pages)
     key_cache, value_cache = resolve_kv_caches(kv_cache_dtype, key_cache, value_cache)
     key_caches, value_caches, layer = stacked_view(key_cache, value_cache, layer_idx)

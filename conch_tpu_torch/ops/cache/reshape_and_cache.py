@@ -20,7 +20,34 @@ from conch_tpu_torch.kernels.cache.reshape_and_cache import (
     reshape_and_cache_launcher,
     reshape_and_cache_stacked_launcher,
 )
-from conch_tpu_torch.ops.kv_quant import check_kv_cache_dtype, scale_value
+from conch_tpu_torch.ops.kv_quant import SCALED_KV_DTYPES, check_kv_cache_dtype, scale_value
+
+
+def _validate_sizes_strict(key, value, key_cache, value_cache, slot_mapping) -> None:
+    """The JAX op's ``strict`` checks, with its messages."""
+    if key.shape != value.shape:
+        msg = f"key.shape ({tuple(key.shape)}) does not match value.shape ({tuple(value.shape)})"
+        raise ValueError(msg)
+    if key.dim() != 3:
+        msg = f"Number of dimensions in key ({key.dim()}) did not match expected (3)"
+        raise ValueError(msg)
+    if key_cache.shape != value_cache.shape:
+        msg = f"key_cache.shape ({tuple(key_cache.shape)}) does not match value_cache.shape ({tuple(value_cache.shape)})"
+        raise ValueError(msg)
+    if key_cache.dim() != 4:
+        msg = f"Number of dimensions in key cache ({key_cache.dim()}) did not match expected (4)"
+        raise ValueError(msg)
+    _, num_kv_heads, head_size = key.shape
+    _, num_kv_heads_c, _, head_size_c = key_cache.shape
+    if num_kv_heads != num_kv_heads_c:
+        msg = f"Number of kv heads in key/value ({num_kv_heads}) does not match cache ({num_kv_heads_c})"
+        raise ValueError(msg)
+    if head_size != head_size_c:
+        msg = f"Head size in key/value ({head_size}) does not match cache ({head_size_c})"
+        raise ValueError(msg)
+    if slot_mapping.dim() != 1:
+        msg = f"Number of dimensions in slot mapping ({slot_mapping.dim()}) did not match expected (1)"
+        raise ValueError(msg)
 
 
 def _validate_sizes(key, value, key_cache, value_cache, slot_mapping) -> None:
@@ -47,9 +74,16 @@ def reshape_and_cache(
     kv_cache_dtype: str = "auto",
     k_scale: torch.Tensor | None = None,
     v_scale: torch.Tensor | None = None,
+    strict: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Write key/value (T, KH, D) into (P, KH, ps, D) caches at the mapped
-    slots, in place; negative slots are skipped."""
+    slots, in place; negative slots are skipped. ``strict`` runs the JAX
+    op's checks first, with its messages."""
+    if strict:
+        _validate_sizes_strict(key, value, key_cache, value_cache, slot_mapping)
+        if kv_cache_dtype != "auto" and kv_cache_dtype not in SCALED_KV_DTYPES:
+            msg = f"Unsupported kv_cache_dtype: '{kv_cache_dtype}'"
+            raise ValueError(msg)
     check_kv_cache_dtype(kv_cache_dtype, key_cache.dtype)
     _validate_sizes(key, value, key_cache, value_cache, slot_mapping)
     reshape_and_cache_launcher(

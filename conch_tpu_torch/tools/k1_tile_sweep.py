@@ -44,7 +44,7 @@ def build() -> ctypes.CDLL:
     for tile in DECODE_TILES + PREFILL_TILES:
         lines.append(
             f'extern "C" int {_name(tile)}(const void* x, const void* w, const void* s, void* o, int m, int n, int k,'
-            f" int64_t st, int bias, void* stream) {{ conch::launch<{GROUP}, {', '.join(map(str, tile))}>(x, w, s, o, m,"
+            f" int64_t st, int bias, void* stream) {{ conch::launch<{GROUP}, {', '.join(map(str, tile))}, __nv_bfloat16>(x, w, s, o, m,"
             " n, k, st, bias, static_cast<cudaStream_t>(stream)); return static_cast<int>(cudaGetLastError()); }"
         )
     BUILD_DIR.mkdir(exist_ok=True)
