@@ -13,17 +13,26 @@
    (device time with the stream pre-filled, and paced by the host) beside
    its plain version, its bound and, where one exists, one PyTorch call
    computing the same function:
-   - K1 int4 magic GEMM at the engine's four (K, N) at M 8 and 512, read
-     from layer 17 of a 32-layer stack, at group 128 and group 64
-     (tolerance 1e-2 x max |ref|);
+   - K1 int4 magic GEMM at the engine's four (K, N) at M 8, 32 (the
+     engine's decode step, padded to max_batch_size 32) and 512, read from
+     layer 17 of a 32-layer stack, at group 128 and group 64 (tolerance
+     1e-2 x max |ref|);
    - K1b int8 planar GEMM and K8 int8 scaled GEMM at the int8 / w8a8
      engine's four fused (K, N) and lm_head (4096 x 128256), K1c NF4
      codebook GEMM at the nf4 engine's unfused shapes and lm_head, each at
-     M 8 and 512 from layer 17 of a 32-layer stack, with random codes over
-     the full range (K8: row scales 10x apart end to end), tolerance
-     1e-2 x max |ref|; plus small cases of the options the served path
-     does not use (K1b 4-bit with per-group and scalar zero-points, K1c
-     8-bit rows with zero-points and the FP4 codebook, K8 float8_e4m3fn);
+     M 8, 32 and 512 from layer 17 of a 32-layer stack, with random codes
+     over the full range (K8: row scales 10x apart end to end), tolerance
+     1e-2 x max |ref|, K1b and K1c also bit for bit across two calls; plus
+     small cases of the options the served path does not use (K1b 4-bit
+     with per-group and scalar zero-points, K1c 8-bit rows with
+     zero-points and the FP4 codebook, K8 float8_e4m3fn); each GEMM row
+     keeps one layer's sums at each M (``by_m``: 4 GEMMs for K1, K1b and
+     K8, 7 for K1c);
+   - K1b and K1c over every option they take (``check_quant_gemm_options``,
+     2808 small cases: 2-, 4- and 8-bit codes and the NF4 codebook, groups
+     12 to 256, bf16 and f32 scales, zero-point modes 0, 1 and 2, M 8, 40
+     and 130 with K split, x contiguous, with padded rows or realigned, f32
+     and bf16 outputs), tolerance 1e-2 x max |ref|;
    - K12q NF4/FP4 encode on every weight the nf4 init quantizes (with an
      all-zero block), and on the gate projection at blocksize 4096 and
      from f16, byte for byte; K12d NF4/FP4 decode of the gate projection
@@ -153,6 +162,7 @@ import gc
 import itertools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -512,6 +522,9 @@ def kernel_phase_k7(gen, rng, cache: str | None = None) -> dict:
 
 # Engine shapes of K1 (K, N): fused wqkv, wo, fused gate|up, w_down.
 K1_SHAPES = ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096))
+# Rows of the timed GEMM cases: a decode step of 8, the engine's decode step
+# (padded to max_batch_size 32) and a 512-row prefill chunk.
+GEMM_MS = (8, 32, 512)
 GROUP = 128
 HIDDEN, INTER = 4096, 14336
 
@@ -525,7 +538,7 @@ def _kernel_row(name: str, source: str, replaces: str, err: float, timed: dict, 
 
 
 def _k1_cases(gen, group: int) -> list[dict]:
-    """K1 at the engine's four (K, N), M = 8 and 512, layer 17 of a 32-layer
+    """K1 at the engine's four (K, N), M in GEMM_MS, layer 17 of a 32-layer
     stack, at ``group``: checked against the plain version (tolerance 1e-2
     x max |ref|) and timed beside it and a bf16 matmul on the dequantized
     weight."""
@@ -545,7 +558,7 @@ def _k1_cases(gen, group: int) -> list[dict]:
         # weights come from HBM as in a model step, not from the 50 MB L2.
         dense = [dequantize_magic(packed[i], scales[i], k, group, 8).to(torch.bfloat16) for i in (LAYER, 0, 31)]
         layers, copies = itertools.cycle(range(NUM_LAYERS_POOL)), itertools.cycle(dense)
-        for m in (8, 512):
+        for m in GEMM_MS:
             x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
             out_k = launch(x, packed, scales, group, 8, LAYER)
             out_p = plain(x, packed, scales, group, 8, LAYER)
@@ -571,19 +584,19 @@ def _k1_cases(gen, group: int) -> list[dict]:
     return detail
 
 
-def _decode_sums(detail: list[dict]) -> dict:
-    """One layer's four GEMMs at M = 8: each time and the bound summed."""
-    decode = [d for d in detail if d["m"] == 8]
+def _decode_sums(detail: list[dict], m: int = 8) -> dict:
+    """One layer's four GEMMs at ``m`` rows: each time and the bound summed."""
+    decode = [d for d in detail if d["m"] == m]
     return {key: sum(d[key] for d in decode) for key in ("ms", "paced_ms", "plain_ms", "library_ms", "bound_ms")}
 
 
 def kernel_phase_k1(gen) -> dict:
-    """K1 at the engine's four (K, N) at M = 8 (decode) and M = 512 (a
-    prefill chunk), read from layer 17 of a 32-layer stack, at group 128
-    (the README's int4) and group 64. The row's numbers are the group-128
-    sums over the four shapes at M = 8 (one layer's projections in a
-    decode step); ``group64`` has the same sums at group 64 and ``detail``
-    every case."""
+    """K1 at the engine's four (K, N) at M = 8, 32 (the engine's decode
+    step) and 512 (a prefill chunk), read from layer 17 of a 32-layer
+    stack, at group 128 (the README's int4) and group 64. The row's numbers
+    are the group-128 sums over the four shapes at M = 8 (one layer's
+    projections in a decode step of 8); ``by_m`` has them at each M,
+    ``group64`` the M = 8 sums at group 64 and ``detail`` every case."""
     detail = _k1_cases(gen, 128) + _k1_cases(gen, 64)
     timed = _decode_sums([d for d in detail if d["group"] == 128])
     row = _kernel_row(
@@ -591,6 +604,10 @@ def kernel_phase_k1(gen) -> dict:
         max(d["max_abs_err"] for d in detail), timed, timed["bound_ms"], "bytes",
     )
     row["group64"] = _decode_sums([d for d in detail if d["group"] == 64])
+    row["by_m"] = {m: _decode_sums([d for d in detail if d["group"] == 128], m) for m in GEMM_MS}
+    for m, sums in row["by_m"].items():
+        print(f"mixed_gemm_magic one layer at M={m}: {sums['ms']:.4f} ms (library {sums['library_ms']:.4f}, bound "
+              f"{sums['bound_ms']:.5f})", flush=True)
     print(f"K1 one layer at M=8: group 128 {timed['ms']:.4f} ms, group 64 {row['group64']['ms']:.4f} ms", flush=True)
     row["detail"] = detail
     return row
@@ -616,23 +633,44 @@ def _time_case(launch, plain, library, m: int, k: int, n: int, err: float, bytes
     }
 
 
+def _layer_sums(detail: list, counts: dict, m: int) -> dict:
+    """One layer's GEMMs at ``m`` rows: each shape's times and bound times its
+    count in a layer, summed."""
+    cases = [d for d in detail if d["m"] == m and (d["k"], d["n"]) in counts]
+    sums = {
+        key: sum(d[key] * counts[(d["k"], d["n"])] for d in cases)
+        for key in ("ms", "paced_ms", "plain_ms", "library_ms", "bound_ms") if all(d[key] is not None for d in cases)
+    }
+    sums.setdefault("library_ms", None)
+    return sums
+
+
 def _layer_row(name: str, source: str, replaces: str, err: float, detail: list, counts: dict) -> dict:
     """A kernel row whose numbers are one layer's GEMMs at M = 8 (each shape
-    times its count in a layer); ``detail`` keeps every case."""
-    decode = [d for d in detail if d["m"] == 8 and (d["k"], d["n"]) in counts]
-    timed = {
-        key: sum(d[key] * counts[(d["k"], d["n"])] for d in decode)
-        for key in ("ms", "paced_ms", "plain_ms", "library_ms") if all(d[key] is not None for d in decode)
-    }
-    timed.setdefault("library_ms", None)
-    bound_ms = sum(d["bound_ms"] * counts[(d["k"], d["n"])] for d in decode)
-    row = _kernel_row(name, source, replaces, err, timed, bound_ms, "bytes")
+    times its count in a layer); ``by_m`` has the same sums at each of
+    ``GEMM_MS`` and ``detail`` keeps every case."""
+    timed = _layer_sums(detail, counts, 8)
+    row = _kernel_row(name, source, replaces, err, timed, timed["bound_ms"], "bytes")
+    row["by_m"] = {m: _layer_sums(detail, counts, m) for m in GEMM_MS}
     row["detail"] = detail
     for d in detail:
         print(f"{name} M={d['m']} K={d['k']} N={d['n']}: {d['ms']:.4f} ms (paced {d['paced_ms']:.4f}, plain "
               f"{d['plain_ms']:.4f}, library {d['library_ms']}, bound {d['bound_ms']:.5f} by {d['bound_by']})",
               flush=True)
+    for m, sums in row["by_m"].items():
+        print(f"{name} one layer at M={m}: {sums['ms']:.4f} ms (library {sums['library_ms']}, bound "
+              f"{sums['bound_ms']:.5f})", flush=True)
     return row
+
+
+def check_repeatable(name: str, launch) -> None:
+    """Two calls of ``launch`` on the same inputs must agree bit for bit."""
+    first, second = launch(), launch()
+    torch.cuda.synchronize()
+    if not torch.equal(first, second):
+        diff = (first.float() - second.float()).abs().max().item()
+        raise AssertionError(f"{name}: two calls on the same inputs differ (max {diff})")
+    print(f"{name}: two calls bit for bit equal", flush=True)
 
 
 def _stack_cycle(n_layers: int = NUM_LAYERS_POOL):
@@ -643,10 +681,10 @@ def _stack_cycle(n_layers: int = NUM_LAYERS_POOL):
 
 def kernel_phase_k1b(gen) -> dict:
     """K1b (int8 planar, uint8b128, group 128, bf16 scales) at the int8
-    engine's shapes, M = 8 and 512, layer 17 of a 32-layer stack (lm_head
-    unstacked), random codes over the full range; plus 4-bit with per-group
-    and with scalar zero-points. Tolerance 1e-2 x max |ref|. Library: a bf16
-    matmul on the dequantized weight."""
+    engine's shapes, M in GEMM_MS, layer 17 of a 32-layer stack (lm_head
+    unstacked), random codes over the full range, bit for bit across two
+    calls; plus 4-bit with per-group and with scalar zero-points. Tolerance
+    1e-2 x max |ref|. Library: a bf16 matmul on the dequantized weight."""
     from conch_tpu_torch.kernels.quantization.gemm import (
         mixed_gemm_planar_launcher as launch,
         mixed_gemm_planar_plain as plain,
@@ -668,7 +706,7 @@ def kernel_phase_k1b(gen) -> dict:
         cyc = _stack_cycle() if layers else itertools.repeat(None)
         one = packed if layers is None else packed[LAYER]
         dense = dequant(one, scales if layers is None else scales[LAYER], k, 8, 128)
-        for m in (8, 512):
+        for m in GEMM_MS:
             x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
             out_k = launch(x, packed, scales, None, 8, 128, GROUP, li)
             out_p = plain(x, packed, scales, None, 8, 128, GROUP, li)
@@ -676,6 +714,8 @@ def kernel_phase_k1b(gen) -> dict:
             scale = out_p.float().abs().max().item()
             e = (out_k.float() - out_p.float()).abs().max().item()
             check(f"K1b mixed_gemm_planar int8 M={m} K={k} N={n} (max|ref| {scale:.3f})", e, 1e-2 * scale)
+            check_repeatable(f"K1b mixed_gemm_planar int8 M={m} K={k} N={n}",
+                             lambda: launch(x, packed, scales, None, 8, 128, GROUP, li))
             err = max(err, e)
             bytes_moved = m * k * 2 + k * n + (k // GROUP) * n * 2 + m * n * 2
             detail.append(_time_case(
@@ -710,10 +750,11 @@ def kernel_phase_k1b(gen) -> dict:
 
 def kernel_phase_k1c(gen) -> dict:
     """K1c (NF4 codebook over GPTQ rows, f32 absmax per 64 rows) at the nf4
-    engine's unfused shapes, M = 8 and 512, layer 17 of a 32-layer stack
-    (lm_head unstacked), random codes; plus 8-bit GPTQ rows with per-group
-    zero-points and the FP4 codebook. Tolerance 1e-2 x max |ref|. Library:
-    a bf16 matmul on the dequantized weight."""
+    engine's unfused shapes, M in GEMM_MS, layer 17 of a 32-layer stack
+    (lm_head unstacked), random codes, bit for bit across two calls; plus
+    8-bit GPTQ rows with per-group zero-points and the FP4 codebook.
+    Tolerance 1e-2 x max |ref|. Library: a bf16 matmul on the dequantized
+    weight."""
     from conch_tpu_torch.kernels.quantization.bitsandbytes.blockwise import FP4_MAGNITUDE_CODE, NF4_CODE
     from conch_tpu_torch.kernels.quantization.gemm import (
         dequantize_rows,
@@ -731,7 +772,7 @@ def kernel_phase_k1c(gen) -> dict:
         cyc = _stack_cycle() if layers else itertools.repeat(None)
         one = (packed, absmax) if layers is None else (packed[LAYER], absmax[LAYER])
         dense = dequantize_rows(*one, None, k, 4, 0, NF4_BLOCK, NF4_CODE).to(torch.bfloat16)
-        for m in (8, 512):
+        for m in GEMM_MS:
             x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
             out_k = launch(x, packed, absmax, None, 4, 0, NF4_BLOCK, NF4_CODE, li)
             out_p = plain(x, packed, absmax, None, 4, 0, NF4_BLOCK, NF4_CODE, li)
@@ -739,6 +780,8 @@ def kernel_phase_k1c(gen) -> dict:
             scale = out_p.float().abs().max().item()
             e = (out_k.float() - out_p.float()).abs().max().item()
             check(f"K1c mixed_gemm_rows nf4 M={m} K={k} N={n} (max|ref| {scale:.3f})", e, 1e-2 * scale)
+            check_repeatable(f"K1c mixed_gemm_rows nf4 M={m} K={k} N={n}",
+                             lambda: launch(x, packed, absmax, None, 4, 0, NF4_BLOCK, NF4_CODE, li))
             err = max(err, e)
             bytes_moved = m * k * 2 + k * n // 2 + (k // NF4_BLOCK) * n * 4 + m * n * 2
             detail.append(_time_case(
@@ -775,6 +818,93 @@ def kernel_phase_k1c(gen) -> dict:
     )
 
 
+# The option sweep of K1b and K1c: every bit width, scale dtype, zero-point
+# mode, M regime (32, 64 and 128 rows a block, with splits), x row layout
+# and output dtype, at each group the kernels take among these. Small K and
+# N: K spans four split units, so the plan splits K at every M.
+OPTION_MS = (8, 40, 130)
+ROWS_OPTION_GROUPS = (12, 64, 100, 128, 256)  # 12 and 100: the group-table template (up to 17 scale rows a slice)
+PLANAR_OPTION_GROUPS = {2: (256,), 4: (128, 256), 8: (64, 128, 256)}  # group % (16 * 32 / bits) == 0
+OPTION_N = 160  # a partial 128-column tile
+
+
+def _option_xs(gen, m: int, k: int) -> dict:
+    """x three ways: contiguous; rows 16 bytes longer (TMA with ldx != K);
+    8 bytes off and a stride of K + 4 (realigned by the wrapper's
+    ``_tma_rows``)."""
+    wide = torch.randn((m, k + 8), generator=gen, device="cuda").to(torch.bfloat16)
+    off = torch.randn((m, k + 4), generator=gen, device="cuda").to(torch.bfloat16)
+    return {"contiguous": wide[:, :k].contiguous(), "padded": wide[:, :k], "offset": off[:, 4:]}
+
+
+def check_quant_gemm_options(gen) -> None:
+    """K1b and K1c at every option they take, against their plain versions
+    at 1e-2 x max |ref|: 2-, 4- and 8-bit codes (K1c also the NF4 codebook)
+    at groups ``ROWS_OPTION_GROUPS`` (K1c, K not a multiple of 64) and
+    ``PLANAR_OPTION_GROUPS`` (K1b: the 16-word-row slices with their 4-d x
+    box, 2-bit codes, and whole groups of 128), bf16 and f32 scales,
+    zero-point modes 0, 1 and 2, M in ``OPTION_MS``, x contiguous, with
+    padded rows, or realigned, f32 and bf16 outputs; layer 1 of a 2-layer
+    stack. Errors are gathered on the card and read once."""
+    from conch_tpu_torch.kernels.quantization.bitsandbytes.blockwise import NF4_CODE
+    from conch_tpu_torch.kernels.quantization.gemm import (
+        mixed_gemm_planar_launcher,
+        mixed_gemm_planar_plain,
+        mixed_gemm_rows_launcher,
+        mixed_gemm_rows_plain,
+    )
+
+    n = OPTION_N
+    names, errs, refs = [], [], []
+
+    kernels = {
+        "K1c mixed_gemm_rows": (mixed_gemm_rows_launcher, mixed_gemm_rows_plain),
+        "K1b mixed_gemm_planar": (mixed_gemm_planar_launcher, mixed_gemm_planar_plain),
+    }
+
+    def sweep(label, bits, group, k, groups, books):
+        launch, plain = kernels[label]
+        epp = 32 // bits
+        packed = torch.randint(-(2**31), 2**31 - 1, (2, k // epp, n), generator=gen, device="cuda", dtype=torch.int32)
+        for sdt in (torch.bfloat16, torch.float32):
+            scales = (torch.rand((2, groups, n), generator=gen, device="cuda") * 4e-3 + 1e-4).to(sdt)
+            zps = {
+                "zp none": None, "zp scalar": torch.tensor([3.0], device="cuda"),
+                "zp per group": torch.randint(0, 2**bits, (2, groups, n), generator=gen, device="cuda").float(),
+            }
+            for zlabel, zp in zps.items():
+                for m in OPTION_MS:
+                    for xlabel, x in _option_xs(gen, m, k).items():
+                        for book, bias in books:
+                            book_arg = () if label.startswith("K1b") else (book,)  # K1b takes no codebook
+                            for od in (torch.bfloat16, torch.float32):
+                                out = launch(x, packed, scales, zp, bits, bias, group, *book_arg, 1, od)
+                                ref = plain(x, packed, scales, zp, bits, bias, group, *book_arg, 1, od)
+                                names.append(f"{label} {bits}-bit group {group} K={k} {'nf4 ' if book else ''}"
+                                             f"{str(sdt)[6:]} scales, {zlabel}, M={m}, x {xlabel}, {str(od)[6:]} out")
+                                errs.append((out.float() - ref.float()).abs().max())
+                                refs.append(ref.float().abs().max())
+
+    for bits in (2, 4, 8):
+        for group in ROWS_OPTION_GROUPS:
+            k = 4 * math.lcm(group, 64) - 16  # four split units, the last slice partial
+            books = ((None, 2 ** (bits - 1)),) + (((tuple(NF4_CODE), 0),) if bits == 4 else ())
+            sweep("K1c mixed_gemm_rows", bits, group, k, -(-k // group), books)
+        for group in PLANAR_OPTION_GROUPS[bits]:
+            sweep("K1b mixed_gemm_planar", bits, group, 4 * group, 4, ((None, 2 ** (bits - 1)),))
+    err_list = torch.stack(errs).tolist()
+    ref_list = torch.stack(refs).tolist()
+    bad = [(name, e, r) for name, e, r in zip(names, err_list, ref_list) if not e <= 1e-2 * r]
+    for layout in kernels:
+        ratios = [e / r for name, e, r in zip(names, err_list, ref_list) if name.startswith(layout)]
+        print(f"{layout} options: {len(ratios)} cases, worst max_abs_err / max|ref| {max(ratios):.3e} "
+              f"(tolerance 1e-2)", flush=True)
+    for name, e, r in bad:
+        print(f"{name}: max_abs_err {e:.3e} (tolerance {1e-2 * r:.1e})", flush=True)
+    if bad:
+        raise AssertionError(f"{len(bad)} of {len(names)} K1b/K1c option cases exceed 1e-2 x max |ref|")
+
+
 def _int_mm_library(m: int, k: int, n: int, gen) -> tuple:
     """``torch._int_mm`` (int8 x int8 -> int32, no epilogue) at the smallest
     M from ``m`` up that it takes: (M timed at, callable)."""
@@ -791,7 +921,7 @@ def _int_mm_library(m: int, k: int, n: int, gen) -> tuple:
 
 def kernel_phase_k8(gen) -> dict:
     """K8 (int8 x int8 -> int32, then * sa[m] * sb[n]) at the w8a8 engine's
-    shapes, M = 8 and 512, layer 17 of a 32-layer stack (lm_head unstacked);
+    shapes, M in GEMM_MS, layer 17 of a 32-layer stack (lm_head unstacked);
     per-row scales spanning 10x, so that a kernel that swapped sa and sb
     would fail; plus float8_e4m3fn inputs with f32 and bf16 outputs and a
     scalar sa. Tolerance 1e-2 x max |ref| (the int path is exact up to its
@@ -807,7 +937,7 @@ def kernel_phase_k8(gen) -> dict:
         sb = torch.rand((*lead, n), generator=gen, device="cuda") * 1e-3 + 1e-4
         li = None if layers is None else LAYER
         cyc = _stack_cycle() if layers else itertools.repeat(None)
-        for m in (8, 512):
+        for m in GEMM_MS:
             a = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
             sa = 1e-3 * torch.logspace(0, 1, m, device="cuda")  # rows 10x apart, end to end
             out_k = launch(a, w8, sa, sb, torch.bfloat16, li)
@@ -2339,6 +2469,7 @@ def kernel_phases() -> list[dict]:
     check_attention_scales(gen)
     quantized_cache_phases(gen, rng, by_name)
     gemm_output_types(gen, by_name)
+    check_quant_gemm_options(gen)
     for r in rows:
         print(
             f"{r['name']}: {r['ms']:.4f} ms (paced {r['paced_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
@@ -2862,17 +2993,42 @@ def profile_run(fn, label: str) -> None:
           + ", ".join(f"{g} {t:.1f} ms" for g, t in sorted(groups.items(), key=lambda x: -x[1])), flush=True)
     top = sorted(by_name.items(), key=lambda x: -x[1])[:8]
     print(f"{label} profile top kernels: " + "; ".join(f"{n} {t:.1f} ms" for n, t in top), flush=True)
+    # The kernels one K1b or K1c call may launch: the GEMM, the split
+    # reduction and K1b's x row-sum pre-pass.
+    qgemm = {n: t for n, t in by_name.items() if "qgemm::" in n or "group_row_sums" in n}
+    if qgemm:
+        counts = {n: sum(1 for e in kernels if e["name"][:60] == n) for n in qgemm}
+        print(f"{label} profile K1b/K1c kernels: " + "; ".join(
+            f"{n} {t:.1f} ms in {counts[n]} launches" for n, t in sorted(qgemm.items(), key=lambda x: -x[1])),
+            flush=True)
+
+
+# K1b's and K1c's templates in a mangled kernel name: layout, bits, flag, rows a block.
+QGEMM_TEMPLATE = re.compile(r"quant_gemm_kernel.*?(RowsLayout|PlanarLayout)ILi(\d+)ELb(\d)EEELi(\d+)E")
 
 
 def build() -> None:
+    """Build the kernels and print ptxas's report: every register and spill
+    line and every wgmma serialization warning, then one line per K1b / K1c
+    template (layout, bits, its flag, rows a block) with its registers and
+    spills."""
     from conch_tpu_torch.kernels.common import BUILD_DIR, kernel_library
 
     t0 = time.perf_counter()
     kernel_library()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
+    template, spills = None, ""
     for line in (BUILD_DIR / "nvcc.log").read_text().splitlines():
-        if "registers" in line or ("spill" in line and " 0 bytes spill stores" not in line):
+        if "registers" in line or ("spill" in line and " 0 bytes spill stores" not in line) or "Performance Loss" in line:
             print("nvcc:", line.strip())
+        if "Compiling entry function" in line:
+            match = QGEMM_TEMPLATE.search(line)
+            template = None if match is None else "{}<{}, {}> BN {}".format(*match.groups())
+        elif template and "spill stores" in line:
+            spills = line.strip()
+        elif template and "Used" in line and "registers" in line:
+            print(f"ptxas {template}: {line.split(':', 1)[1].strip()}; {spills}", flush=True)
+            template = None
 
 
 LLAMA_KERNELS = (

@@ -1,10 +1,12 @@
 // Copyright 2026 Conch-TPU authors.
 // SPDX-License-Identifier: Apache-2.0
 //
-// Tensor-core helpers shared by the quantized GEMMs (K1b, K1c, K8).
+// Tensor-core helpers shared by K8 (scaled_gemm.cu) and K11
+// (mla_attention.cu), and the bf16 packing that K1b and K1c
+// (quant_gemm_mainloop.cuh) use.
 //
-// All three use mma.sync with one warp per 16-row x 32-column output tile
-// and the same two tricks as K1 (mixed_gemm_magic.cu):
+// K8 uses mma.sync with one warp per 16-row x 32-column output tile and
+// the same two tricks as K1 (mixed_gemm_magic.cu):
 //  - the k order inside one mma is free as long as A and B agree, so each
 //    kernel maps the four k slots a thread holds (2t, 2t+1, 2t+8, 2t+9 for
 //    bf16 m16n8k16; 4t..4t+3 and 16+4t..16+4t+3 for s8 m16n8k32) to the
@@ -39,10 +41,6 @@ __device__ __forceinline__ void mma_s8_16832(int (&d)[4], uint32_t a0, uint32_t 
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t lane_of(const uint4& v, int t) {
-  return t == 0 ? v.x : t == 1 ? v.y : t == 2 ? v.z : v.w;
-}
-
 // Two floats rounded to bf16 (round to nearest even), lo in the low half.
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -52,31 +50,6 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 // The two bf16 of a 32-bit word as floats (exact).
 __device__ __forceinline__ float bf16_lo(uint32_t v) { return __uint_as_float(v << 16); }
 __device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
-
-// Four values of a (rows, n) scale or zero-point row at columns col..col+3
-// (bf16 or f32), as floats.
-template <typename S>
-__device__ __forceinline__ void load4(float (&v)[4], const S* __restrict__ p);
-template <>
-__device__ __forceinline__ void load4<float>(float (&v)[4], const float* __restrict__ p) {
-  const float4 f = __ldg(reinterpret_cast<const float4*>(p));
-  v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
-}
-template <>
-__device__ __forceinline__ void load4<__nv_bfloat16>(float (&v)[4], const __nv_bfloat16* __restrict__ p) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  v[0] = bf16_lo(u.x), v[1] = bf16_hi(u.x), v[2] = bf16_lo(u.y), v[3] = bf16_hi(u.y);
-}
-
-// Eight values at columns col..col+7.
-template <typename S>
-__device__ __forceinline__ void load8(float (&v)[8], const S* __restrict__ p) {
-  float lo[4], hi[4];
-  load4<S>(lo, p);
-  load4<S>(hi, p + 4);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) v[i] = lo[i], v[4 + i] = hi[i];
-}
 
 // Output element e (0..3) of n8 tile t for the thread with lane-in-group
 // tig: row g + 8 * (e >> 1), warp column 8 * tig + 4 * (e & 1) + t.

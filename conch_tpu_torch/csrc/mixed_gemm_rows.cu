@@ -8,204 +8,222 @@
 // (launcher mixed_precision_gemm_launcher, layout "gptq", with
 // layer_index). out[M, N] = x[M, K] @ W, with 2-, 4- or 8-bit codes c and,
 // as in the TPU kernel, the weight dequantized BEFORE the product:
-// W[k, n] = (c - bias [- z]) * s or, with a codebook (NF4, FP4),
-// W[k, n] = (book[c] [- z]) * s, with s (absmax for NF4) and the
-// optional zero-point z of group k / group, computed in f32 and rounded to
-// bf16 (the activation dtype); the products are summed in f32.
+// W[k, n] = bf16(fmul_rn(T[c] [- z], s)), with T[c] = book[c] (NF4, FP4)
+// or c - bias, s (absmax for NF4) and the optional zero-point z of group
+// k / group; the products are summed in f32 and rounded once.
 //
 // Layout (conch_tpu_torch/utils/quant_utils.py:pack_rows): word r holds
-// logical rows r * epp + i in bit field i (epp = 32 / bits). A warp's unit
-// is 16 word rows; thread (g, t) loads word rows 4i + t (i = 0..3) for the
-// warp's 4 columns 4g .. 4g+3 (four 16-byte loads). One mma k-step takes
-// fields 4j .. 4j+3 of word i from each of the four threads of a row
-// group, so a thread's k slots are the logical rows
-// (16u + 4i + t) * epp + 4j + {0..3}: four neighbouring x values (one
-// 8-byte load a row) that share one group when group % 4 == 0. Word rows
-// past K / epp read as zero, so K needs only to be a multiple of epp.
+// logical rows r * epp + i in bit field i (epp = 32 / bits).
 //
 // Bound on the H100: bytes at decode (M <= 32: K*N*bits/8 bytes of codes
 // plus the scales; 8.4 MB of NF4 codes and 1 MB of f32 absmax for
-// 4096 x 4096), operations at a 512-row prefill chunk. The block and grid
-// shapes are K1b's (mixed_gemm_planar.cu): 32 columns a warp, warps
-// splitting K, reduced in shared memory. The dequantization costs about
-// ten instructions a code (shift, mask, table lookup in shared memory,
-// scale, convert), so at decode the kernel is likely bound by instruction
-// throughput, not by HBM; a first kernel that is right.
+// 4096 x 4096, 2.8 us), operations at a 512-row prefill chunk. The design
+// is the shared mainloop of quant_gemm_mainloop.cuh: a slice is 64 k (one
+// 128-byte swizzle row of x, 64 / epp word rows), staged 3 slices ahead,
+// split over K on group boundaries for narrow shapes. Each thread decodes
+// the two columns and 8 k of its wgmma A fragment per k16 step: in the
+// natural k order, k slots 2t, 2t+1 (and 2t+8, 2t+9) are two neighbouring
+// fields of one word, so a thread shifts its word once and takes two
+// fields; the value comes from a 16-entry f32 table in shared memory (the
+// codebook, or c - bias; 16 distinct banks, so no conflicts) or, for
+// 8-bit codes, from one FADD on the float 2^23 + c; then fsub z, __fmul_rn
+// by s, and one cvt.rn.bf16x2.f32 for the pair: bit for bit the old
+// per-element f32 dequantization and round to nearest even. A thread's two
+// columns are neighbours, so one 8-byte load brings both words. Groups that
+// are a multiple of 64 give one scale row a slice (a template flag);
+// smaller or odd groups stage up to 17 rows and a table of each 4-k run's
+// row.
 
-#include "gemm_common.cuh"
+#include "quant_gemm_mainloop.cuh"
 
 namespace conch {
 namespace {
 
-template <int BITS, int MT, int WARPS_K, typename S, bool CODEBOOK, typename O>
-__global__ void __launch_bounds__(32 * WARPS_K)
-    rows_gemm_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ packed,
-                     const S* __restrict__ scales, const float* __restrict__ zp, int zp_mode,
-                     const float* __restrict__ codebook, O* __restrict__ out, int m, int n, int k,
-                     int64_t ldx, int group, float bias) {
-  constexpr int EPP = 32 / BITS;
-  constexpr uint32_t MASK = (1u << BITS) - 1u;
-  __shared__ float book[16];
-  if (CODEBOOK && threadIdx.x < 16) book[threadIdx.x] = codebook[threadIdx.x];
-  __syncthreads();
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int tig = lane & 3;
-  const int m0 = blockIdx.x * 16 * MT;
-  const int n0 = blockIdx.y * 32;
-  const int kw = k / EPP;            // word rows
-  const int units = (kw + 15) / 16;  // 16-word-row units
+using qgemm::kCols;
+using qgemm::Params;
+using qgemm::Stage;
 
-  float acc[MT][kTiles][4];
-#pragma unroll
-  for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-    for (int t = 0; t < kTiles; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][t][e] = 0.0f;
+template <int BITS, bool ONE_GROUP>
+struct RowsLayout {
+  static constexpr int EPP = 32 / BITS;
+  static constexpr int KS = qgemm::kKSlice;     // k of a slice
+  static constexpr int STEPS = KS / 16;         // wgmma k16 steps a slice
+  static constexpr int WR = KS / EPP;           // word rows of a slice
+  static constexpr int SR = ONE_GROUP ? 1 : 17; // scale rows a slice touches (group >= 4)
+  static constexpr bool kGroupTable = !ONE_GROUP;
+  static constexpr uint32_t MASK = (1u << BITS) - 1u;
 
-  auto load_unit = [&](uint4 (&w)[4], int u) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int wr = 16 * u + 4 * i + tig;
-      w[i] = wr < kw ? __ldg(reinterpret_cast<const uint4*>(packed + static_cast<int64_t>(wr) * n + n0 + 4 * g))
-                     : make_uint4(0, 0, 0, 0);
-    }
+  template <int BN>
+  struct Frag {
+    uint32_t a[STEPS][4];
   };
+  template <int BN>
+  struct State {};
 
-  uint4 cur[4], nxt[4];
-  if (warp < units) load_unit(cur, warp);
-  for (int u = warp; u < units; u += WARPS_K) {
-    if (u + WARPS_K < units) load_unit(nxt, u + WARPS_K);
+  const Params& p;
+  float* book;  // shared: T[c] for 2- and 4-bit codes (a static shared table made the multi-wave shapes slower)
+  float z1;     // the one zero-point (zp_mode 1)
+
+  __device__ RowsLayout(const Params& params, float* extra)
+      : p(params), book(extra), z1(params.zp_mode == 1 ? __ldg(params.zp) : 0.0f) {
+    if (BITS <= 4 && threadIdx.x < 16) {
+      book[threadIdx.x] = p.codebook != nullptr ? p.codebook[threadIdx.x] : static_cast<float>(threadIdx.x) - p.bias;
+    }
+  }
+
+  __device__ int word_row(int s) const { return s * WR; }
+  __device__ int scale_row(int s) const { return s * KS / p.group; }
+  template <int BN>
+  __device__ void load_x(uint32_t dst, uint32_t bar, int s, int m0) const {
+    qgemm::tma_2d(dst, p.tm_x, bar, s * KS, m0);
+  }
+
+  __device__ float value(uint32_t c) const {
+    if constexpr (BITS == 8) {
+      return qgemm::code_minus(c, p.bias);
+    } else {
+      return book[c];
+    }
+  }
+
+  // bf16x2 of the dequantized fields 0 and 1 of `word` (s, z their group's
+  // scale and zero-point).
+  __device__ uint32_t pair(uint32_t word, float s, float z) const {
+    float v0 = value(word & MASK);
+    float v1 = value((word >> BITS) & MASK);
+    if (p.zp_mode != 0) {
+      v0 = v0 - z;
+      v1 = v1 - z;
+    }
+    return pack_bf16x2(__fmul_rn(v0, s), __fmul_rn(v1, s));
+  }
+
+  __device__ float zero_point(const Stage& st, int r, int c) const {
+    return p.zp_mode == 2 ? st.z[r * kCols + c] : z1;
+  }
+
+  // The thread's A fragments of the slice: columns c, c + 1 (wgmma rows g,
+  // g + 8) at k slots 2t, 2t+1 (registers 0, 1) and 2t+8, 2t+9 (2, 3) of
+  // each k16 step, in the natural k order of the staged x.
+  template <int BN>
+  __device__ void decode(Frag<BN>& f, State<BN>&, const Stage& st, int, float*) const {
+    const int t = threadIdx.x & 3;
+    const int c = qgemm::pair_column();
+    float s_one[2] = {0.0f, 0.0f};
+    float z_one[2] = {0.0f, 0.0f};
+    if constexpr (ONE_GROUP) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int wr = 16 * u + 4 * i + tig;
-      const bool valid = wr < kw;
-#pragma unroll
-      for (int j = 0; j < EPP / 4; ++j) {
-        const int r0 = wr * EPP + 4 * j;  // logical row of this thread's first k slot
-        float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        if (valid) {
-          const int64_t meta = static_cast<int64_t>(r0 / group) * n + n0 + 4 * g;
-          load4<S>(s, scales + meta);
-          if (zp_mode == 2) {
-            load4<float>(z, zp + meta);
-          } else if (zp_mode == 1) {
-            z[0] = z[1] = z[2] = z[3] = __ldg(zp);
-          }
-        }
-        uint32_t b[kTiles][2];
-#pragma unroll
-        for (int t = 0; t < kTiles; ++t) {
-          const uint32_t word = lane_of(cur[i], t);
-          float v[4];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const uint32_t c = (word >> (BITS * (4 * j + q))) & MASK;
-            float w = CODEBOOK ? book[c] : static_cast<float>(c) - bias;
-            if (zp_mode != 0) w = w - z[t];
-            v[q] = __fmul_rn(w, s[t]);
-          }
-          b[t][0] = pack_bf16x2(v[0], v[1]);
-          b[t][1] = pack_bf16x2(v[2], v[3]);
-        }
-#pragma unroll
-        for (int mi = 0; mi < MT; ++mi) {
-          const int row = m0 + 16 * mi + g;
-          uint2 lo = make_uint2(0, 0);
-          uint2 hi = make_uint2(0, 0);
-          if (valid && row < m) lo = *reinterpret_cast<const uint2*>(x + row * ldx + r0);
-          if (valid && row + 8 < m) hi = *reinterpret_cast<const uint2*>(x + (row + 8) * ldx + r0);
-#pragma unroll
-          for (int t = 0; t < kTiles; ++t) mma_bf16_16816(acc[mi][t], lo.x, hi.x, lo.y, hi.y, b[t][0], b[t][1]);
-        }
+      for (int ci = 0; ci < 2; ++ci) {
+        s_one[ci] = qgemm::scale_at(p, st.s, 0, c + ci);
+        z_one[ci] = zero_point(st, 0, c + ci);
       }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) cur[i] = nxt[i];
+    for (int j = 0; j < STEPS; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int kk = 16 * j + 2 * t + 8 * h;
+        const int shift = BITS * (kk % EPP);
+        const uint2 w = *reinterpret_cast<const uint2*>(st.w + (kk / EPP) * kCols + c);
+#pragma unroll
+        for (int ci = 0; ci < 2; ++ci) {
+          float s = s_one[ci];
+          float z = z_one[ci];
+          if constexpr (!ONE_GROUP) {
+            const int r = st.tab[kk >> 2];
+            s = qgemm::scale_at(p, st.s, r, c + ci);
+            z = zero_point(st, r, c + ci);
+          }
+          f.a[j][2 * h + ci] = pair((ci == 0 ? w.x : w.y) >> shift, s, z);
+        }
+      }
+    }
   }
-  reduce_and_store<MT, WARPS_K>(acc, m, m0, [&](int row, int col, float v) {
-    out[static_cast<int64_t>(row) * n + n0 + col] = from_float<O>(v);
-  });
+
+  template <int BN>
+  __device__ void mma(Frag<BN>& f, State<BN>&, float (&acc)[BN / 2], const Stage& st) const {
+    qgemm::fence_operands(acc);
+    qgemm::wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < STEPS; ++j) qgemm::wgmma_rs<BN>(acc, f.a[j], qgemm::desc_sw128(st.x + 32 * j), 1);
+    qgemm::wgmma_commit();
+  }
+
+  template <int BN>
+  __device__ void retire(Frag<BN>&, State<BN>&, float (&)[BN / 2], float*) const {}
+};
+
+// Checks the plan against RowsLayout<BITS, ONE_GROUP>, encodes the tensor
+// maps and launches.
+template <int BITS, bool ONE_GROUP>
+cudaError_t run(Params& p, const void* x, int64_t ldx, const void* packed, const void* scales, int bn, int ks,
+                cudaStream_t stream) {
+  using L = RowsLayout<BITS, ONE_GROUP>;
+  if (!qgemm::plan_ok<L>(p, bn, ks)) return cudaErrorInvalidValue;
+  // x: (M, K) with row stride ldx, read in boxes of 64 k x bn rows.
+  const cuuint64_t xdims[2] = {static_cast<cuuint64_t>(p.k), static_cast<cuuint64_t>(p.m)};
+  const cuuint64_t xstride[1] = {static_cast<cuuint64_t>(ldx) * 2};
+  const cuuint32_t xbox[2] = {L::KS, static_cast<cuuint32_t>(bn)};
+  if (!qgemm::encode(&p.tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, xdims, xstride, xbox,
+                     CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !qgemm::encode_weights<L>(p, packed, scales)) {
+    return cudaErrorInvalidValue;
+  }
+  return qgemm::launch_bn<L>(p, bn, stream);
 }
 
-template <int BITS, typename S, bool CODEBOOK, typename O>
-cudaError_t launch(const void* x, const void* packed, const void* scales, const void* zp, int zp_mode,
-                   const void* codebook, void* out, int m, int n, int k, int64_t ldx, int group, int bias,
-                   cudaStream_t stream) {
-  auto run = [&](auto kernel, int rows, int warps) {
-    const dim3 grid((m + rows - 1) / rows, n / 32);
-    kernel<<<grid, 32 * warps, 0, stream>>>(static_cast<const __nv_bfloat16*>(x), static_cast<const int32_t*>(packed),
-                                            static_cast<const S*>(scales), static_cast<const float*>(zp), zp_mode,
-                                            static_cast<const float*>(codebook), static_cast<O*>(out), m,
-                                            n, k, ldx, group, static_cast<float>(bias));
-  };
-  if (m <= 16) {
-    run(rows_gemm_kernel<BITS, 1, 8, S, CODEBOOK, O>, 16, 8);
-  } else {
-    run(rows_gemm_kernel<BITS, 2, 4, S, CODEBOOK, O>, 32, 4);
-  }
-  return cudaGetLastError();
-}
-
-template <int BITS, typename O>
-cudaError_t dispatch(bool f32_scales, bool codebook, const void* x, const void* packed, const void* scales,
-                     const void* zp, int zp_mode, const void* book, void* out, int m, int n, int k, int64_t ldx,
-                     int group, int bias, cudaStream_t s) {
-  if (f32_scales) {
-    return codebook ? launch<BITS, float, true, O>(x, packed, scales, zp, zp_mode, book, out, m, n, k, ldx, group,
-                                                   bias, s)
-                    : launch<BITS, float, false, O>(x, packed, scales, zp, zp_mode, book, out, m, n, k, ldx, group,
-                                                    bias, s);
-  }
-  return codebook ? launch<BITS, __nv_bfloat16, true, O>(x, packed, scales, zp, zp_mode, book, out, m, n, k, ldx,
-                                                         group, bias, s)
-                  : launch<BITS, __nv_bfloat16, false, O>(x, packed, scales, zp, zp_mode, book, out, m, n, k, ldx,
-                                                          group, bias, s);
+// Groups that are a multiple of a slice's 64 k take the one-scale-row template.
+template <int BITS>
+cudaError_t dispatch(Params& p, const void* x, int64_t ldx, const void* packed, const void* scales, int bn, int ks,
+                     cudaStream_t stream) {
+  return p.group % qgemm::kKSlice == 0 ? run<BITS, true>(p, x, ldx, packed, scales, bn, ks, stream)
+                                       : run<BITS, false>(p, x, ldx, packed, scales, bn, ks, stream);
 }
 
 }  // namespace
 }  // namespace conch
 
-// x (M, K) bf16 with row stride ldx (a multiple of 4, 8-byte aligned);
+// x (M, K) bf16 with row stride ldx (a multiple of 8, 16-byte aligned: TMA);
 // packed (K / (32 / bits), N) int32, scales (ceil(K / group), N) bf16
 // (scale_dtype 1) or f32 (0), per-group zero-points of the same shape in
 // f32 (zp_mode 2), one f32 zero-point (1) or none (0), and codebook (16
 // f32 on the device, 4-bit codes only) or null, of ONE layer (the wrapper
 // offsets the stack's pointers); out (M, N) bf16 (out_dtype 1) or f32 (0),
-// contiguous. N must be a multiple of 32 and group of 4.
+// contiguous. N must be a multiple of 32 and group of 4. The plan
+// (quant_gemm_plan): bn (32, 64 or 128 rows a block), ks (64 k a slice),
+// slices (ceil(K / 64)), unit (slices a split unit, ending on a group
+// boundary: lcm(group, 64) / 64) and splits (1 .. the units); ws, with
+// splits > 1, (splits, M, N) f32.
 extern "C" int conch_mixed_gemm_rows(const void* x, const void* packed, const void* scales, int scale_dtype,
                                      const void* zp, int zp_mode, const void* codebook, void* out, int out_dtype,
-                                     int m, int n, int k, int64_t ldx, int bits, int group, int bias, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
+                                     int m, int n, int k, int64_t ldx, int bits, int group, int bias, int bn, int ks,
+                                     int slices, int unit, int splits, void* ws, void* stream) {
   if (m == 0) return static_cast<int>(cudaSuccess);
-  if (n % 32 != 0 || ldx % 4 != 0 || group <= 0 || group % 4 != 0 || k % (32 / bits) != 0 ||
-      (codebook != nullptr && bits != 4)) {
+  if ((bits != 2 && bits != 4 && bits != 8) || n % 32 != 0 || ldx % 8 != 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 || group <= 0 || group % 4 != 0 ||
+      k % (32 / bits) != 0 || (codebook != nullptr && bits != 4) || (out_dtype != conch::kFloat32 &&
+      out_dtype != conch::kBFloat16) || zp_mode < 0 || zp_mode > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool f32 = scale_dtype == conch::kFloat32;
-  const bool book = codebook != nullptr;
-  cudaError_t status = cudaErrorInvalidValue;
-  conch::dispatch_out(out_dtype, [&](auto out_tag) {
-    using O = typename decltype(out_tag)::type;
-    switch (bits) {
-      case 2:
-        status = conch::dispatch<2, O>(f32, false, x, packed, scales, zp, zp_mode, codebook, out, m, n, k, ldx, group,
-                                       bias, s);
-        break;
-      case 4:
-        status = conch::dispatch<4, O>(f32, book, x, packed, scales, zp, zp_mode, codebook, out, m, n, k, ldx, group,
-                                       bias, s);
-        break;
-      case 8:
-        status = conch::dispatch<8, O>(f32, false, x, packed, scales, zp, zp_mode, codebook, out, m, n, k, ldx, group,
-                                       bias, s);
-        break;
-      default:
-        break;
-    }
-  });
-  return static_cast<int>(status);
+  conch::qgemm::Params p{};
+  p.zp = static_cast<const float*>(zp);
+  p.codebook = static_cast<const float*>(codebook);
+  p.out = out;
+  p.ws = static_cast<float*>(ws);
+  p.m = m, p.n = n, p.k = k;
+  p.group = group;
+  p.num_groups = (k + group - 1) / group;
+  p.bias = static_cast<float>(bias);
+  p.zp_mode = zp_mode;
+  p.f32_scales = scale_dtype == conch::kFloat32;
+  p.out_f32 = out_dtype == conch::kFloat32;
+  p.slices = slices;
+  p.unit = unit;
+  p.splits = splits;
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (bits) {
+    case 2: return static_cast<int>(conch::dispatch<2>(p, x, ldx, packed, scales, bn, ks, s));
+    case 4: return static_cast<int>(conch::dispatch<4>(p, x, ldx, packed, scales, bn, ks, s));
+    default: return static_cast<int>(conch::dispatch<8>(p, x, ldx, packed, scales, bn, ks, s));
+  }
 }

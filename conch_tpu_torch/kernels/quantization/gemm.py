@@ -19,6 +19,11 @@ Each kernel replaces one kernel of ``conch_tpu/kernels/quantization/gemm.py``:
   ``_scaled_gemm_kernel``: int8 x int8 summed in int32 (float8_e4m3fn in
   f32), then ``* sa[m] * sb[n]``.
 
+K1b and K1c share one pipelined tensor-core mainloop
+(``csrc/quant_gemm_mainloop.cuh``); ``quant_gemm_plan`` picks its launch
+(rows a block, splits of K on group boundaries, the f32 workspace) from
+the shape and the SM count, here in Python where the CPU tests hold it.
+
 Each takes a ``layer_index`` into per-layer stacks of its weight arrays
 (``(L, ...)``): the wrapper offsets the pointers to the layer, so no
 slice of a stack is ever copied. K1, K1b and K1c round their f32 sums
@@ -32,11 +37,21 @@ each launch in ``launches``.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+import math
 
 import torch
 
-from conch_tpu_torch.kernels.common import check_launch, dtype_code, kernel_function, require_cuda, stream_of
+from conch_tpu_torch.kernels.common import (
+    cdiv,
+    check_launch,
+    dtype_code,
+    kernel_function,
+    require_cuda,
+    sm_count,
+    stream_of,
+)
 from conch_tpu_torch.utils.quant_utils import get_pack_factor, unpack_rows, unpack_rows_magic, unpack_rows_planar
 
 KERNEL_GROUP_SIZES = (64, 128)  # the group sizes K1's CUDA kernel is written for
@@ -98,6 +113,18 @@ def _check_x(name: str, x: torch.Tensor) -> None:
     if x.dim() != 2 or x.stride(1) != 1 or x.stride(0) % 4 or x.data_ptr() % 8:
         msg = f"{name} kernel: x rows must be contiguous, 8-byte aligned, with a row stride that is a multiple of 4"
         raise ValueError(msg)
+
+
+def _tma_rows(x: torch.Tensor) -> torch.Tensor:
+    """x itself when its rows suit the TMA copies of K1b and K1c (16-byte
+    aligned, a row stride that is a multiple of 8), else a copy whose rows
+    do (stride K rounded up to 8)."""
+    if x.stride(0) % 8 == 0 and x.data_ptr() % 16 == 0:
+        return x
+    m, k = x.shape
+    aligned = torch.empty((m, -(-k // 8) * 8), dtype=x.dtype, device=x.device)[:, :k]
+    aligned.copy_(x)
+    return aligned
 
 
 def _check_packed(name: str, bits: int, packed: torch.Tensor, scales: torch.Tensor) -> None:
@@ -210,6 +237,123 @@ def mixed_gemm_magic_launcher(
 mixed_gemm_magic_launcher.launches = 0
 
 
+# -- the launch plan of K1b and K1c -----------------------------------------
+
+QGEMM_COLS = 128  # weight (output) columns a block: two warpgroups of 64 (quant_gemm_mainloop.cuh kCols)
+QGEMM_ROW_TILES = (32, 64, 128)  # x rows a block (wgmma's N): decode, up to 64, prefill
+ROWS_K_SLICE = 64  # K of a GPTQ-row slice (kKSlice)
+
+
+def planar_k_slice(bits: int, group_size: int) -> int:
+    """K of a planar slice: a whole group of 128 for 4- and 8-bit codes (its
+    x values are contiguous), else 16 word rows of one group, 16 * (32 /
+    bits) k."""
+    return 128 if group_size == 128 and bits >= 4 else 16 * get_pack_factor(bits)
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantGemmPlan:
+    """A launch of K1b or K1c: ``bn`` x rows a block; K walked in ``slices``
+    slices of ``k_slice`` k; ``splits`` blocks over K, each taking whole
+    units of ``unit`` slices (a unit ends on a group boundary); grid
+    (column tiles, row tiles, splits). The entry point takes ``bn``,
+    ``k_slice``, ``slices``, ``unit`` and ``splits`` as they are, refuses a
+    plan its template cannot run, and splits K with ``split_slices``'s
+    formula (quant_gemm_mainloop.cuh: split_range)."""
+
+    bn: int
+    k_slice: int
+    slices: int
+    unit: int
+    splits: int
+    grid: tuple[int, int, int]
+    row_sums: bool = False  # K1b: x's group row sums summed once by a pre-pass (128 rows a block)
+
+    @property
+    def units(self) -> int:
+        return cdiv(self.slices, self.unit)
+
+    def split_slices(self, split: int) -> tuple[int, int]:
+        """Slices [s0, s1) of one split: whole units, as evenly as integer
+        division allows."""
+        u0, u1 = split * self.units // self.splits, (split + 1) * self.units // self.splits
+        return u0 * self.unit, min(u1 * self.unit, self.slices)
+
+    def workspace_shape(self, m: int, n: int) -> tuple[int, int, int] | None:
+        """The f32 partial sums of the splits, added in a fixed order by a
+        second kernel; none with one split."""
+        return (self.splits, m, n) if self.splits > 1 else None
+
+
+def quant_gemm_plan(layout: str, m: int, n: int, k: int, bits: int, group_size: int, num_sms: int) -> QuantGemmPlan:
+    """The launch of K1b (``layout="planar"``) or K1c (``"gptq"``) for an (M,
+    K) x (K, N) product of ``bits``-bit codes in groups of ``group_size``
+    on a card of ``num_sms`` SMs. Raises on what the kernel refuses.
+
+    Rows: 32 a block up to 32 (the engine's decode step: one block covers
+    every row, so each code is decoded once), 64 up to 64, else 128 (64
+    for 2- and 4-bit planar codes). K is split so that a decode shape has
+    about two blocks an SM, never less than one, and a prefill shape at
+    most one wave; a split takes at least two slices. K1b at 128 rows a
+    block takes x's row sums over each group from a pre-pass, so that the
+    N / 128 column blocks do not each sum them again.
+    """
+    epp = get_pack_factor(bits)
+    if layout == "planar":
+        name = "mixed_gemm_planar"
+        if k % group_size or group_size % (16 * epp) or n % 32:
+            msg = (
+                f"{name} kernel: needs K % group == 0, group % {16 * epp} == 0 and N % 32 == 0 "
+                f"(K={k}, N={n}, group={group_size})"
+            )
+            raise ValueError(msg)
+        ks = planar_k_slice(bits, group_size)
+        slices, unit = k // ks, group_size // ks
+    elif layout == "gptq":
+        name = "mixed_gemm_rows"
+        if k % epp or group_size % 4 or n % 32:
+            msg = (
+                f"{name} kernel: needs K % {epp} == 0, group % 4 == 0 and N % 32 == 0 "
+                f"(K={k}, N={n}, group={group_size})"
+            )
+            raise ValueError(msg)
+        ks = ROWS_K_SLICE
+        slices, unit = cdiv(k, ks), math.lcm(group_size, ks) // ks
+    else:
+        msg = f"no K1b/K1c launch plan for layout {layout!r}"
+        raise ValueError(msg)
+    # 2- and 4-bit planar codes decode 8 or 16 k16 steps a slice: their
+    # fragments fit the registers beside two accumulator sets up to 64 rows.
+    tiles = QGEMM_ROW_TILES[:-1] if layout == "planar" and bits < 8 else QGEMM_ROW_TILES
+    bn = next((b for b in tiles if m <= b), tiles[-1])
+    col_tiles, row_tiles = cdiv(n, QGEMM_COLS), cdiv(m, bn)
+    blocks = col_tiles * row_tiles
+    units = cdiv(slices, unit)
+    if blocks == 0:
+        splits = 1
+    elif bn <= 64:  # about two blocks an SM, never less than one
+        splits = max(cdiv(num_sms, blocks), 2 * num_sms // blocks)
+    else:  # at most one wave
+        splits = num_sms // blocks
+    splits = max(1, min(splits, slices // (2 * unit), units))
+    return QuantGemmPlan(bn=bn, k_slice=ks, slices=slices, unit=unit, splits=splits,
+                         grid=(col_tiles, row_tiles, splits), row_sums=layout == "planar" and bn == QGEMM_ROW_TILES[-1])
+
+
+# The plan's arguments of the entry points: bn, k_slice, slices, unit,
+# splits, then the workspace pointer.
+PLAN_ARGTYPES = (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
+
+
+def _plan_args(plan: QuantGemmPlan, m: int, n: int, device: torch.device) -> tuple[tuple, torch.Tensor | None]:
+    """The plan's arguments of the entry point (PLAN_ARGTYPES) and the
+    workspace, which the caller keeps alive until the launch."""
+    shape = plan.workspace_shape(m, n)
+    ws = None if shape is None else torch.empty(shape, dtype=torch.float32, device=device)
+    args = (plan.bn, plan.k_slice, plan.slices, plan.unit, plan.splits, 0 if ws is None else ws.data_ptr())
+    return args, ws
+
+
 # -- K1b: planar packing, dequantized after the product --------------------
 
 
@@ -252,29 +396,27 @@ def _planar_gemm_cuda(
 ) -> torch.Tensor:
     require_cuda(x, packed, scales, *([] if zp is None else [zp]))
     _check_x("mixed_gemm_planar", x)
+    x = _tma_rows(x)
     out_dtype = _out_dtype("mixed_gemm_planar", x, out_dtype)
     m, k = x.shape
     n = packed.shape[-1]
     epp = get_pack_factor(bits)
     _check_packed("mixed_gemm_planar", bits, packed, scales)
-    if k % group_size or group_size % (16 * epp) or n % 32:
-        msg = (
-            f"mixed_gemm_planar kernel: needs K % group == 0, group % {16 * epp} == 0 and N % 32 == 0 "
-            f"(K={k}, N={n}, group={group_size})"
-        )
-        raise ValueError(msg)
+    plan = quant_gemm_plan("planar", m, n, k, bits, group_size, sm_count(x.device.index))
     meta_shape = (k // group_size, n)
     _check_layer_shapes("mixed_gemm_planar", layer_index, {"packed": (packed, (k // epp, n)), "scales": (scales, meta_shape)})
     zp_ptr, zp_mode = _zp_args("mixed_gemm_planar", zp, layer_index, meta_shape)
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    plan_args, _ws = _plan_args(plan, m, n, x.device)
+    xs = torch.empty((k // group_size, -(-m // 4) * 4), dtype=torch.float32, device=x.device) if plan.row_sums else None
     fn = kernel_function("conch_mixed_gemm_planar", (
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, *PLAN_ARGTYPES, ctypes.c_void_p, ctypes.c_void_p,
     ))
     code = fn(x.data_ptr(), _layer_ptr(packed, layer_index), _layer_ptr(scales, layer_index), dtype_code(scales),
               zp_ptr, zp_mode, out.data_ptr(), dtype_code(out), m, n, k, x.stride(0), bits, group_size, bias,
-              stream_of(x))
+              *plan_args, 0 if xs is None else xs.data_ptr(), stream_of(x))
     check_launch("conch_mixed_gemm_planar", code)
     mixed_gemm_planar_launcher.launches += 1
     return out
@@ -357,6 +499,7 @@ def _rows_gemm_cuda(
 ) -> torch.Tensor:
     require_cuda(x, packed, scales, *([] if zp is None else [zp]))
     _check_x("mixed_gemm_rows", x)
+    x = _tma_rows(x)
     out_dtype = _out_dtype("mixed_gemm_rows", x, out_dtype)
     m, k = x.shape
     n = packed.shape[-1]
@@ -364,25 +507,21 @@ def _rows_gemm_cuda(
     _check_packed("mixed_gemm_rows", bits, packed, scales)
     if codebook is not None and (bits != 4 or len(codebook) != 16):
         raise ValueError("mixed_gemm_rows kernel: a codebook has 16 entries and takes 4-bit codes")
-    if k % epp or group_size % 4 or n % 32:
-        msg = (
-            f"mixed_gemm_rows kernel: needs K % {epp} == 0, group % 4 == 0 and N % 32 == 0 "
-            f"(K={k}, N={n}, group={group_size})"
-        )
-        raise ValueError(msg)
+    plan = quant_gemm_plan("gptq", m, n, k, bits, group_size, sm_count(x.device.index))
     meta_shape = (-(-k // group_size), n)
     _check_layer_shapes("mixed_gemm_rows", layer_index, {"packed": (packed, (k // epp, n)), "scales": (scales, meta_shape)})
     zp_ptr, zp_mode = _zp_args("mixed_gemm_rows", zp, layer_index, meta_shape)
     book = 0 if codebook is None else _codebook_tensor(tuple(codebook), x.device).data_ptr()
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    plan_args, _ws = _plan_args(plan, m, n, x.device)
     fn = kernel_function("conch_mixed_gemm_rows", (
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, *PLAN_ARGTYPES, ctypes.c_void_p,
     ))
     code = fn(x.data_ptr(), _layer_ptr(packed, layer_index), _layer_ptr(scales, layer_index), dtype_code(scales),
               zp_ptr, zp_mode, book, out.data_ptr(), dtype_code(out), m, n, k, x.stride(0), bits, group_size, bias,
-              stream_of(x))
+              *plan_args, stream_of(x))
     check_launch("conch_mixed_gemm_rows", code)
     mixed_gemm_rows_launcher.launches += 1
     return out

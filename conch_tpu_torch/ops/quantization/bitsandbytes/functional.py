@@ -27,6 +27,7 @@ from conch_tpu_torch.kernels.quantization.bitsandbytes.blockwise import (
     dequantize_blockwise_launcher,
     quantize_blockwise_launcher,
 )
+from conch_tpu_torch.platforms import resolve_device
 
 SUPPORTED_QUANT_TYPES: Final = ["nf4", "fp4", "fp8"]
 SUPPORTED_BLOCKSIZES: Final = [4096, 2048, 1024, 512, 256, 128, 64]
@@ -113,9 +114,12 @@ class QuantState:
 _DTYPES_BY_NAME: Final = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
-def quant_state_from_jax(numpy_state: Any, device: str | torch.device = "cpu") -> QuantState:
+def quant_state_from_jax(numpy_state: Any, device: str | torch.device | None = None) -> QuantState:
     """Carry a JAX ``QuantState`` (arrays as numpy, or anything ``np.asarray``
-    takes; a nested ``state2`` included) over to the port's, bit for bit."""
+    takes; a nested ``state2`` included) over to the port's, bit for bit, on
+    ``device`` (None: the card, as every entry point; ``"cpu"`` asks for the
+    CPU)."""
+    device = resolve_device(device)
 
     def tensor(a: Any) -> torch.Tensor | None:
         return None if a is None else torch.from_numpy(np.array(a, dtype=np.float32)).to(device)

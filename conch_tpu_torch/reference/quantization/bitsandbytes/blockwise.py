@@ -57,10 +57,10 @@ def quantize_blockwise(
     scaled = padded / absmax[:, None]
 
     if quant_type == "nf4":
-        codes = (scaled[..., None] > nf4_thresholds()).sum(-1)
+        codes = (scaled[..., None] > nf4_thresholds(scaled.device)).sum(-1)
     elif quant_type == "fp4":
-        level = (scaled.abs()[..., None] > torch.tensor(FP4_THRESHOLDS)).sum(-1)
-        codes = torch.where(scaled < 0, 8, 0) + torch.tensor(FP4_LEVEL_TO_CODE)[level]
+        level = (scaled.abs()[..., None] > torch.tensor(FP4_THRESHOLDS, device=scaled.device)).sum(-1)
+        codes = torch.where(scaled < 0, 8, 0) + torch.tensor(FP4_LEVEL_TO_CODE, device=scaled.device)[level]
     else:
         if code is None:
             msg = "8-bit quantization requires a code table"
@@ -90,9 +90,9 @@ def dequantize_blockwise(
     if quant_type in ("nf4", "fp4"):
         codes = torch.stack([flat >> 4, flat & 0x0F], dim=-1).reshape(-1).long()
         if quant_type == "nf4":
-            values = torch.tensor(NF4_CODE, dtype=torch.float32)[codes]
+            values = torch.tensor(NF4_CODE, dtype=torch.float32, device=flat.device)[codes]
         else:
-            magnitude = torch.tensor(FP4_MAGNITUDE_CODE, dtype=torch.float32)[codes & 0x7]
+            magnitude = torch.tensor(FP4_MAGNITUDE_CODE, dtype=torch.float32, device=flat.device)[codes & 0x7]
             values = torch.where(codes >= 8, -1.0, 1.0) * magnitude
     else:
         if code is None:

@@ -15,8 +15,8 @@ kernels. The unchanged package must pass all four phases and every faulty
 copy must fail a check of its phase; the tool prints each run's check lines
 and exits non-zero otherwise. The faults:
 
-- ``k1b_gptq_rows``: K1b reads the planar words as GPTQ rows (field f of
-  word row r taken as logical row r * epp + f);
+- ``k1b_gptq_rows``: K1b takes the planar words' bit fields in GPTQ order
+  (field j % epp for k16 step j, not the field that holds its x values);
 - ``k1c_codebook_ignored``: K1c dequantizes codebook codes as linear
   integers (the NF4 table unused);
 - ``k8_scales_swapped``: K8 scales row m by sb and column n by sa (indices
@@ -35,23 +35,14 @@ from conch_tpu_torch.tools.attention_mutants import BUILD_DIR, copy_package, run
 MUTANTS = {
     "k1b_gptq_rows": (
         "mixed_gemm_planar.cu",
-        "        if (row < m) lo = *reinterpret_cast<const uint2*>(xg + row * ldx + f * rpg);\n"
-        "        if (row + 8 < m) hi = *reinterpret_cast<const uint2*>(xg + (row + 8) * ldx + f * rpg);",
-        "        const __nv_bfloat16* xr = x + static_cast<int64_t>(grp) * group + (16 * u + 4 * tig) * EPP + f;\n"
-        "        auto gptq4 = [&](int64_t r) {\n"
-        "          const __nv_bfloat16* p = xr + r * ldx;\n"
-        "          return make_uint2(\n"
-        "              __bfloat16_as_ushort(p[0]) | (static_cast<uint32_t>(__bfloat16_as_ushort(p[EPP])) << 16),\n"
-        "              __bfloat16_as_ushort(p[2 * EPP]) | (static_cast<uint32_t>(__bfloat16_as_ushort(p[3 * EPP])) << 16));\n"
-        "        };\n"
-        "        if (row < m) lo = gptq4(row);\n"
-        "        if (row + 8 < m) hi = gptq4(row + 8);",
+        "      const int f = j / NB;",
+        "      const int f = j % EPP;",
         "kernel_phase_k1b",
     ),
     "k1c_codebook_ignored": (
         "mixed_gemm_rows.cu",
-        "float w = CODEBOOK ? book[c] : static_cast<float>(c) - bias;",
-        "float w = static_cast<float>(c) - bias;",
+        "      return book[c];",
+        "      return static_cast<float>(c) - p.bias;",
         "kernel_phase_k1c",
     ),
     "k8_scales_swapped": (

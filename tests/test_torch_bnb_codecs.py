@@ -124,7 +124,7 @@ def test_dequantize_4bit_carried_state_bit_for_bit(jax_codes, quant_type, blocks
     x, codes = jax_codes
     jpacked, jstate = codes[(quant_type, blocksize)]
     jstate = dataclasses.replace(jstate, dtype=jnp.dtype(JAX_DTYPES[dtype]))
-    state = bnb.quant_state_from_jax(jstate)
+    state = bnb.quant_state_from_jax(jstate, device="cpu")
     assert state.dtype == TORCH_DTYPES[dtype] and state.shape == x.shape and not state.nested
     before = dequantize4_launcher.launches
     out = bnb.dequantize_4bit(_port(jpacked), quant_state=state)
@@ -150,7 +150,7 @@ def test_nested_state_carried_across_decodes_bit_for_bit(dtype):
     x = _weights(8, (64, 512))
     jpacked, jstate = jax_bnb.quantize_4bit(jnp.asarray(x, JAX_DTYPES[dtype]), blocksize=64, quant_type="nf4",
                                             compress_statistics=True)
-    state = bnb.quant_state_from_jax(jstate)
+    state = bnb.quant_state_from_jax(jstate, device="cpu")
     assert state.nested and state.offset == jstate.offset and state.absmax.dtype == torch.uint8
     assert state.state2.blocksize == 256 and state.state2.quant_type == "fp8"
     out = bnb.dequantize_4bit(_port(jpacked), quant_state=state)
@@ -250,3 +250,14 @@ def test_golden_reference_agrees(quant_type):
             assert ref.nf4_quantize_scalar(ref.nf4_dequantize_scalar(c)) == c
         elif quant_type == "fp4" and c != 8:  # -0.0 encodes as +0
             assert ref.fp4_quantize_scalar(ref.fp4_dequantize_scalar(c)) == c
+
+
+def test_quant_state_from_jax_defaults_to_the_card(monkeypatch):
+    """Without a device the state goes to the card, as with every entry point
+    (``platforms.resolve_device``): with no card that raises and names
+    ``device='cpu'``; asked for, the CPU works."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, jstate = jax_bnb.quantize_4bit(jnp.asarray(_weights(9, (8, 64)), jnp.float32), blocksize=64, quant_type="nf4")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bnb.quant_state_from_jax(jstate)
+    assert bnb.quant_state_from_jax(jstate, device="cpu").absmax.device.type == "cpu"

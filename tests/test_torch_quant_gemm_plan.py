@@ -1,0 +1,156 @@
+# Copyright 2026 Conch-TPU authors.
+# SPDX-License-Identifier: Apache-2.0
+
+"""The launch plan of K1b (planar) and K1c (GPTQ rows), which the wrappers
+in ``conch_tpu_torch/kernels/quantization/gemm.py`` compute in Python and
+hand to the CUDA entry points. Held on the CPU, for the Llama-3-8B engine
+shapes (nf4 unfused and int8 fused, and lm_head) at M 1, 8, 32, 40 and 512,
+and for the small shapes of the port's GEMM tests:
+
+- the splits cover K's slices exactly once, in order, and every split
+  starts on a group boundary; the K slice is the one the entry point's
+  template takes, and the entry point gets the plan's numbers as they are;
+- at M <= 32 every engine shape puts at least one block on each SM of a
+  132-SM card;
+- the plan refuses what the kernel refuses, with the wrappers' messages;
+- x rows that do not suit the kernels' TMA copies are realigned, values
+  unchanged.
+"""
+
+import math
+
+import pytest
+import torch
+
+from conch_tpu_torch.kernels.quantization.gemm import (
+    PLAN_ARGTYPES,
+    QGEMM_COLS,
+    _plan_args,
+    _tma_rows,
+    quant_gemm_plan,
+)
+
+H100_SMS = 132
+NF4_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256)]  # (K, N), group 64
+INT8_SHAPES = [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096), (4096, 128256)]  # (K, N), group 128
+ENGINE_MS = [1, 8, 32, 40, 512]
+
+# (layout, bits, group, K, N): the engine's, then the small shapes of
+# tests/test_torch_rows_gemm.py and tests/test_torch_planar_gemm.py.
+ENGINE_CASES = [("gptq", 4, 64, k, n) for k, n in NF4_SHAPES] + [("planar", 8, 128, k, n) for k, n in INT8_SHAPES]
+SMALL_CASES = [
+    *[("gptq", bits, 64, 512, 256) for bits in (2, 4, 8)],
+    ("gptq", 4, 64, 256, 384), ("gptq", 4, 64, 256, 256), ("gptq", 4, 64, 128, 96), ("gptq", 8, 100, 300, 64),
+    ("gptq", 4, 4, 256, 64), ("gptq", 2, 12, 192, 32),
+    *[("planar", bits, 128 if bits >= 4 else 256, 512, 256) for bits in (2, 4, 8)],
+    ("planar", 8, 128, 256, 384), ("planar", 8, 64, 512, 128), ("planar", 4, 256, 1024, 512),
+]
+
+
+def _k_slice(layout: str, bits: int, group: int) -> int:
+    """K of a slice in the entry points' templates: 64 for GPTQ rows
+    (RowsLayout::KS); planar codes a whole group of 128 for 4 and 8 bits at
+    group 128, else 16 word rows (PlanarLayout::KS)."""
+    if layout == "gptq":
+        return 64
+    return 128 if group == 128 and bits >= 4 else 16 * (32 // bits)
+
+
+@pytest.mark.parametrize("m", ENGINE_MS + [9, 33])
+@pytest.mark.parametrize("case", ENGINE_CASES + SMALL_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_splits_cover_k_once_on_group_boundaries(case, m):
+    layout, bits, group, k, n = case
+    plan = quant_gemm_plan(layout, m, n, k, bits, group, H100_SMS)
+    ks = _k_slice(layout, bits, group)
+    assert plan.k_slice == ks
+    assert plan.slices == math.ceil(k / ks) and plan.slices * ks >= k > (plan.slices - 1) * ks
+    covered = []
+    for split in range(plan.splits):
+        s0, s1 = plan.split_slices(split)
+        assert s0 < s1, f"split {split} of {plan.splits} is empty"
+        assert (s0 * ks) % group == 0 or s0 == 0, f"split {split} starts at k {s0 * ks}, inside a group of {group}"
+        covered.extend(range(s0, s1))
+    assert covered == list(range(plan.slices))
+    assert plan.grid == (math.ceil(n / QGEMM_COLS), math.ceil(m / plan.bn), plan.splits)
+    assert plan.workspace_shape(m, n) == ((plan.splits, m, n) if plan.splits > 1 else None)
+    assert (plan.unit * ks) % group == 0, "a unit ends on a group boundary (the entry point's plan_ok)"
+
+
+@pytest.mark.parametrize("m", [8, 512])
+@pytest.mark.parametrize(
+    "case", [ENGINE_CASES[1], ENGINE_CASES[6], SMALL_CASES[3]], ids=lambda c: "-".join(map(str, c))
+)
+def test_entry_point_gets_the_plan(case, m):
+    """The entry point's plan arguments are the plan's own numbers, and the
+    workspace is the splits' f32 partial sums."""
+    layout, bits, group, k, n = case
+    plan = quant_gemm_plan(layout, m, n, k, bits, group, H100_SMS)
+    args, ws = _plan_args(plan, m, n, torch.device("cpu"))
+    assert len(args) == len(PLAN_ARGTYPES)
+    assert args[:5] == (plan.bn, plan.k_slice, plan.slices, plan.unit, plan.splits)
+    if plan.splits > 1:
+        assert ws.dtype == torch.float32 and tuple(ws.shape) == (plan.splits, m, n) and args[5] == ws.data_ptr()
+    else:
+        assert ws is None and args[5] == 0
+
+
+@pytest.mark.parametrize("m", [m for m in ENGINE_MS if m <= 32])
+@pytest.mark.parametrize("case", ENGINE_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_decode_grid_fills_the_card(case, m):
+    layout, bits, group, k, n = case
+    plan = quant_gemm_plan(layout, m, n, k, bits, group, H100_SMS)
+    blocks = math.prod(plan.grid)
+    assert plan.bn == 32, "the engine's decode step (32 rows) takes the 32-row template"
+    assert blocks >= H100_SMS, f"{blocks} blocks for {H100_SMS} SMs"
+
+
+@pytest.mark.parametrize("m,bn", [(1, 32), (8, 32), (32, 32), (33, 64), (40, 64), (64, 64), (65, 128), (512, 128)])
+@pytest.mark.parametrize("layout,bits,group", [("gptq", 4, 64), ("planar", 8, 128), ("planar", 4, 128)])
+def test_rows_a_block(m, bn, layout, bits, group):
+    """32 rows a block up to the engine's 32-row decode step, then 64, then
+    128; 2- and 4-bit planar codes stop at 64. The x row-sum pre-pass runs
+    only for K1b at 128 rows a block."""
+    plan = quant_gemm_plan(layout, m, 4096, 4096, bits, group, H100_SMS)
+    want = min(bn, 64) if layout == "planar" and bits < 8 else bn
+    assert plan.bn == want
+    assert plan.row_sums == (layout == "planar" and want == 128)
+
+
+def test_prefill_takes_at_most_one_wave():
+    """At 128 rows a block K is split only to fill one wave."""
+    for layout, bits, group, k, n in ENGINE_CASES:
+        plan = quant_gemm_plan(layout, 512, n, k, bits, group, H100_SMS)
+        blocks = math.prod(plan.grid)
+        assert plan.splits == 1 or blocks <= H100_SMS
+
+
+@pytest.mark.parametrize(
+    "layout,bits,group,k,n,error,match",
+    [
+        ("planar", 8, 128, 4000, 256, ValueError, "mixed_gemm_planar kernel: needs K % group == 0"),
+        ("planar", 8, 32, 4096, 256, ValueError, r"group % 64 == 0"),
+        ("planar", 4, 64, 4096, 256, ValueError, r"group % 128 == 0"),
+        ("planar", 8, 128, 4096, 100, ValueError, "N % 32 == 0"),
+        ("gptq", 4, 64, 4100, 256, ValueError, r"mixed_gemm_rows kernel: needs K % 8 == 0"),
+        ("gptq", 4, 2, 4096, 256, ValueError, r"group % 4 == 0"),
+        ("gptq", 8, 64, 4096, 48, ValueError, "N % 32 == 0"),
+        ("magic", 4, 64, 4096, 256, ValueError, "no K1b/K1c launch plan"),
+    ],
+)
+def test_plan_refuses_what_the_kernel_refuses(layout, bits, group, k, n, error, match):
+    with pytest.raises(error, match=match):
+        quant_gemm_plan(layout, 8, n, k, bits, group, H100_SMS)
+
+
+@pytest.mark.parametrize("offset,stride,kept", [(0, 4100, False), (4, 4104, False), (8, 4096, True)])
+def test_tma_rows_realigns_x(offset, stride, kept):
+    """Rows 8-byte aligned with a stride that is a multiple of 4 (what the
+    wrappers accept) become a copy with 16-byte aligned rows and a stride
+    that is a multiple of 8; aligned rows are passed through."""
+    base = torch.randn(3 * stride + offset, dtype=torch.float32).to(torch.bfloat16)
+    x = base[offset:offset + 3 * stride].view(3, stride)[:, :4092]
+    assert x.data_ptr() % 8 == 0 and x.stride(0) % 4 == 0
+    y = _tma_rows(x)
+    assert (y is x) == kept
+    assert y.stride(0) % 8 == 0 and y.data_ptr() % 16 == 0 and y.stride(1) == 1
+    assert torch.equal(y, x)
