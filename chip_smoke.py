@@ -16,7 +16,7 @@
    - K1 int4 magic GEMM at the engine's four (K, N) at M 8, 32 (the
      engine's decode step, padded to max_batch_size 32) and 512, read from
      layer 17 of a 32-layer stack, at group 128 and group 64 (tolerance
-     1e-2 x max |ref|);
+     1e-2 x max |ref|, bit for bit across two calls);
    - K1b int8 planar GEMM and K8 int8 scaled GEMM at the int8 / w8a8
      engine's four fused (K, N) and lm_head (4096 x 128256), K1c NF4
      codebook GEMM at the nf4 engine's unfused shapes and lm_head, each at
@@ -32,7 +32,19 @@
      2808 small cases: 2-, 4- and 8-bit codes and the NF4 codebook, groups
      12 to 256, bf16 and f32 scales, zero-point modes 0, 1 and 2, M 8, 40
      and 130 with K split, x contiguous, with padded rows or realigned, f32
-     and bf16 outputs), tolerance 1e-2 x max |ref|;
+     and bf16 outputs), tolerance 1e-2 x max |ref|; K1 over every option it
+     takes (``check_magic_gemm_options``, 576 cases: groups 64 and 128,
+     biases 8, 0 and 15, stacked
+     and single weights, M 1 to 600, x three ways, f32 and bf16 outputs;
+     1e-2 x max |ref|, every case bit for bit across two calls);
+   - K3 over every option it takes (``check_paged_attention_options``, 1008
+     cases: bf16 and f32 queries over bf16, f32, int8 and e4m3 caches, GQA
+     groups 1, 4 and 8, heads 34 to 256, softcap, windows 0, 37 and 500, one
+     split and several, idle rows exactly zero, shared prefix pages, pages no
+     row may see set to NaN; 3e-2, or 3e-2 + 3e-2 x |ref| on 1-byte caches;
+     every case bit for bit across two calls), then one K3 call captured in
+     a CUDA graph and replayed (equal to the eager call, also after
+     seq_lens changed in place);
    - K12q NF4/FP4 encode on every weight the nf4 init quantizes (with an
      all-zero block), and on the gate projection at blocksize 4096 and
      from f16, byte for byte; K12d NF4/FP4 decode of the gate projection
@@ -45,6 +57,11 @@
      and again at Gemma-2-2B's (QH 8 / KH 4 / D 256, a 26-layer pool; K3
      and K7 with softcap 50 and scale 1/16, with and without the 4096
      window, at lengths past it, queries scaled so the logits reach the cap);
+     K3 also at the decode steps the engines serve (``K3_SERVED_LLAMA``: 32
+     rows, 8 live at 40 to 932; ``K3_SERVED_GEMMA``: 16 rows, 8 live at 4200
+     to 6000, without and with the window; 1e-2 x (|ref| + the head's
+     rms)), in its row's ``served``; every K3 case is built by
+     ``k3_inputs`` from ``K3_CASES``;
    - K4 rms_norm at 8 and 512 rows x 4096 (and f32, f16 at 512), K4b
      fused_add_rms_norm in bf16 at 8 and 2048 rows x 4096 and in f32 and
      f16 at 2048 (the sum bit for bit, the output at
@@ -157,6 +174,7 @@ result line. Without a CUDA device it exits non-zero at once.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import gc
 import itertools
@@ -427,45 +445,34 @@ def kernel_phase_k5(gen, rng, qh: int = QH, kh: int = KH, d: int = D, theta: flo
 
 
 def kernel_phase_k3(gen, rng, cache: str | None = None) -> dict:
-    """K3 at Llama-3-8B's shapes over a bf16 pool, or over an int8 / e4m3
-    one (``cache``) with KV_SCALES[cache] (held at 3e-2 + 3e-2 x |ref|)."""
+    """K3 on Llama-3-8B's table line (K3_CASES) over a bf16 pool, or over
+    an int8 / e4m3 one (``cache``) with KV_SCALES[cache] (held at 3e-2 +
+    3e-2 x |ref|)."""
     from conch_tpu_torch.kernels.attention.paged_attention import (
         paged_attention_launcher as launch_kv,
         paged_attention_plain as plain_kv,
     )
 
-    num_pages = 512
-    kc, vc = kv_pools(gen, num_pages, NUM_LAYERS_POOL, KH, D, cache)
+    case = k3_inputs(gen, rng, "llama3_8b table line", cache)
     launch, plain = with_kv_scales(launch_kv, cache), with_kv_scales(plain_kv, cache)
-    # Idle row 0 (seq_len 0), lengths off page multiples, and sequence 5
-    # reading the first 4 pages of sequence 4 (a shared 64-token prefix).
-    seq_lens = [0, 1, 17, 64, 200, 333, 511, 540]
-    bt = paged_layout(rng, seq_lens, num_pages, share=(4, 5), shared_pages=4)
-    batch = len(seq_lens)
-    q = torch.randn((batch, QH, D), generator=gen, device="cuda").to(torch.bfloat16)
-    bt_t = torch.from_numpy(bt).cuda()
-    sl_t = torch.tensor(seq_lens, dtype=torch.int32, device="cuda")
-    scale = 1.0 / math.sqrt(D)
-    out_k = launch(q, kc, vc, bt_t, sl_t, scale, LAYER)
-    out_p = plain(q, kc, vc, bt_t, sl_t, scale, LAYER)
+    args = (*case["args"], 0)
+    out_k = launch(*args)
+    out_p = plain(*args)
     torch.cuda.synchronize()
-    if not torch.isfinite(out_k).all() or out_k[0].abs().max().item() != 0.0:
+    if not torch.isfinite(out_k).all() or out_k[case["idle"]].abs().max().item() != 0.0:
         raise AssertionError("K3: the idle row must come out as finite zeros")
     if cache is None:
         err = (out_k.float() - out_p.float()).abs().max().item()
         check("K3 paged_attention", err, 3e-2)
     else:
         err = check_close(f"K3 paged_attention {cache} cache", out_k, out_p, 3e-2)
-    rows = unique_kv_rows(bt, seq_lens)
-    bytes_moved = (2 * q.numel() * 2 + 2 * rows * KH * D * kc.element_size() + sum(-(-n // PS) for n in seq_lens) * 4
-                   + batch * 4)
-    bound_ms, bound_by = bound(bytes_moved, 4 * QH * D * sum(seq_lens))
+    bound_ms, bound_by = k3_bound(case, 0)
     return {
         "name": "paged_attention", "route": "cuda", "source": "conch_tpu_torch/csrc/paged_attention.cu",
         "replaces": "conch_tpu/kernels/attention/paged_attention.py:57", "max_abs_err": err,
-        "ms": time_ms(lambda: launch(q, kc, vc, bt_t, sl_t, scale, LAYER)),
-        "paced_ms": paced_ms(lambda: launch(q, kc, vc, bt_t, sl_t, scale, LAYER)),
-        "plain_ms": time_ms(lambda: plain(q, kc, vc, bt_t, sl_t, scale, LAYER), iters=5),
+        "ms": time_ms(lambda: launch(*args)),
+        "paced_ms": paced_ms(lambda: launch(*args)),
+        "plain_ms": time_ms(lambda: plain(*args), iters=5),
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
     }
 
@@ -540,12 +547,14 @@ def _kernel_row(name: str, source: str, replaces: str, err: float, timed: dict, 
 def _k1_cases(gen, group: int) -> list[dict]:
     """K1 at the engine's four (K, N), M in GEMM_MS, layer 17 of a 32-layer
     stack, at ``group``: checked against the plain version (tolerance 1e-2
-    x max |ref|) and timed beside it and a bf16 matmul on the dequantized
-    weight."""
+    x max |ref|), bit for bit across two calls, and timed beside it and a
+    bf16 matmul on the dequantized weight."""
+    from conch_tpu_torch.kernels.common import sm_count
     from conch_tpu_torch.kernels.quantization.gemm import (
         dequantize_magic,
         mixed_gemm_magic_launcher as launch,
         mixed_gemm_magic_plain as plain,
+        quant_gemm_plan,
     )
 
     detail = []
@@ -566,10 +575,14 @@ def _k1_cases(gen, group: int) -> list[dict]:
             scale = out_p.float().abs().max().item()
             e = (out_k.float() - out_p.float()).abs().max().item()
             check(f"K1 mixed_gemm_magic group {group} M={m} K={k} N={n} (max|ref| {scale:.3f})", e, 1e-2 * scale)
+            check_repeatable(f"K1 mixed_gemm_magic group {group} M={m} K={k} N={n}",
+                             lambda: launch(x, packed, scales, group, 8, LAYER))
+            plan = quant_gemm_plan("magic", m, n, k, 4, group, sm_count(0))
             bytes_moved = m * k * 2 + k * n // 2 + (k // group) * n * 2 + m * n * 2
             b_ms, b_by = bound(bytes_moved, 2 * m * n * k)
             detail.append({
                 "group": group, "m": m, "k": k, "n": n, "max_abs_err": e, "bound_ms": b_ms, "bound_by": b_by,
+                "plan": dataclasses.asdict(plan),
                 "ms": time_ms(lambda: launch(x, packed, scales, group, 8, next(layers))),
                 "paced_ms": paced_ms(lambda: launch(x, packed, scales, group, 8, next(layers))),
                 "plain_ms": time_ms(lambda: plain(x, packed, scales, group, 8, next(layers)), iters=5),
@@ -578,16 +591,16 @@ def _k1_cases(gen, group: int) -> list[dict]:
         del packed, scales, dense
         torch.cuda.empty_cache()
     for d in detail:
-        print(f"K1 group {group} M={d['m']} K={d['k']} N={d['n']}: {d['ms']:.4f} ms (paced {d['paced_ms']:.4f}, "
-              f"plain {d['plain_ms']:.4f}, bf16 matmul {d['library_ms']:.4f}, bound {d['bound_ms']:.5f} by "
-              f"{d['bound_by']})", flush=True)
+        print(f"K1 group {group} M={d['m']} K={d['k']} N={d['n']}: {d['ms']:.4f} ms (paced {d['paced_ms']:.4f}, plain {d['plain_ms']:.4f}, bf16 matmul {d['library_ms']:.4f}, bound "
+              f"{d['bound_ms']:.5f} by {d['bound_by']}; splits {d['plan']['splits']})", flush=True)
     return detail
 
 
 def _decode_sums(detail: list[dict], m: int = 8) -> dict:
     """One layer's four GEMMs at ``m`` rows: each time and the bound summed."""
     decode = [d for d in detail if d["m"] == m]
-    return {key: sum(d[key] for d in decode) for key in ("ms", "paced_ms", "plain_ms", "library_ms", "bound_ms")}
+    keys = ("ms", "paced_ms", "plain_ms", "library_ms", "bound_ms")
+    return {key: sum(d[key] for d in decode) for key in keys}
 
 
 def kernel_phase_k1(gen) -> dict:
@@ -596,7 +609,8 @@ def kernel_phase_k1(gen) -> dict:
     stack, at group 128 (the README's int4) and group 64. The row's numbers
     are the group-128 sums over the four shapes at M = 8 (one layer's
     projections in a decode step of 8); ``by_m`` has them at each M,
-    ``group64`` the M = 8 sums at group 64 and ``detail`` every case."""
+    ``group64`` the M = 8 sums at group 64, ``group64_by_m`` those at each
+    M, and ``detail`` every case."""
     detail = _k1_cases(gen, 128) + _k1_cases(gen, 64)
     timed = _decode_sums([d for d in detail if d["group"] == 128])
     row = _kernel_row(
@@ -605,9 +619,11 @@ def kernel_phase_k1(gen) -> dict:
     )
     row["group64"] = _decode_sums([d for d in detail if d["group"] == 64])
     row["by_m"] = {m: _decode_sums([d for d in detail if d["group"] == 128], m) for m in GEMM_MS}
-    for m, sums in row["by_m"].items():
-        print(f"mixed_gemm_magic one layer at M={m}: {sums['ms']:.4f} ms (library {sums['library_ms']:.4f}, bound "
-              f"{sums['bound_ms']:.5f})", flush=True)
+    row["group64_by_m"] = {m: _decode_sums([d for d in detail if d["group"] == 64], m) for m in GEMM_MS}
+    for group, by_m in ((128, row["by_m"]), (64, row["group64_by_m"])):
+        for m, sums in by_m.items():
+            print(f"mixed_gemm_magic group {group} one layer at M={m}: {sums['ms']:.4f} ms (library "
+                  f"{sums['library_ms']:.4f}, bound {sums['bound_ms']:.5f})", flush=True)
     print(f"K1 one layer at M=8: group 128 {timed['ms']:.4f} ms, group 64 {row['group64']['ms']:.4f} ms", flush=True)
     row["detail"] = detail
     return row
@@ -905,6 +921,58 @@ def check_quant_gemm_options(gen) -> None:
         raise AssertionError(f"{len(bad)} of {len(names)} K1b/K1c option cases exceed 1e-2 x max |ref|")
 
 
+# K1's option sweep: both groups, any bias, stacked and single weights, x three ways, bf16 and f32 outputs, M
+# from 1 past 512 (32, 64 and 128 rows a block, K split at small M).
+MAGIC_OPTION_MS = (1, 8, 31, 40, 64, 130, 512, 600)
+MAGIC_OPTION_BIASES = (8, 0, 15)
+
+
+def check_magic_gemm_options(gen) -> None:
+    """K1 at every option it takes, against its plain version at 1e-2 x max
+    |ref|: groups 64 and 128, biases
+    ``MAGIC_OPTION_BIASES``, layer 1 of a 2-layer stack and an unstacked
+    weight, M in ``MAGIC_OPTION_MS``, x contiguous, with padded rows, or
+    realigned, bf16 and f32 outputs; K = 4 groups (split at small M), N =
+    ``OPTION_N``. Every case runs twice and must give the same bits. Errors
+    are gathered on the card and read once."""
+    from conch_tpu_torch.kernels.common import sm_count
+    from conch_tpu_torch.kernels.quantization.gemm import _magic_gemm_cuda, mixed_gemm_magic_plain, quant_gemm_plan
+
+    n = OPTION_N
+    names, errs, refs, same = [], [], [], []
+    for group in (128, 64):
+        k = 4 * group
+        packed = torch.randint(-(2**31), 2**31 - 1, (2, k // 8, n), generator=gen, device="cuda", dtype=torch.int32)
+        scales = (torch.rand((2, k // group, n), generator=gen, device="cuda") * 4e-3 + 1e-4).to(torch.bfloat16)
+        for m in MAGIC_OPTION_MS:
+            plan = quant_gemm_plan("magic", m, n, k, 4, group, sm_count(0))
+            for xlabel, x in _option_xs(gen, m, k).items():
+                for bias in MAGIC_OPTION_BIASES:
+                    for stacked in (True, False):
+                        w, sc, li = (packed, scales, 1) if stacked else (packed[1], scales[1], None)
+                        for od in (torch.bfloat16, torch.float32):
+                            out = _magic_gemm_cuda(x, w, sc, group, bias, li, od)
+                            again = _magic_gemm_cuda(x, w, sc, group, bias, li, od)
+                            ref = mixed_gemm_magic_plain(x, w, sc, group, bias, li, od)
+                            names.append(f"K1 mixed_gemm_magic group {group} M={m} x {xlabel} bias {bias} "
+                                         f"{'stacked' if stacked else 'single'} {str(od)[6:]} out "
+                                         f"(splits {plan.splits})")
+                            errs.append((out.float() - ref.float()).abs().max())
+                            refs.append(ref.float().abs().max())
+                            same.append(torch.equal(out, again))
+    err_list, ref_list, same_list = torch.stack(errs).tolist(), torch.stack(refs).tolist(), torch.tensor(same).tolist()
+    bad = [(name, e, r) for name, e, r in zip(names, err_list, ref_list) if not e <= 1e-2 * r]
+    print(f"K1 mixed_gemm_magic options: {len(names)} cases, worst max_abs_err / max|ref| "
+          f"{max(e / r for e, r in zip(err_list, ref_list)):.3e} (tolerance 1e-2); "
+          f"{sum(same_list)} of {len(names)} bit for bit across two calls", flush=True)
+    for name, e, r in bad:
+        print(f"{name}: max_abs_err {e:.3e} (tolerance {1e-2 * r:.1e})", flush=True)
+    if bad:
+        raise AssertionError(f"{len(bad)} of {len(names)} K1 option cases exceed 1e-2 x max |ref|")
+    if not all(same_list):
+        raise AssertionError(f"{len(same_list) - sum(same_list)} K1 option cases differ between two calls")
+
+
 def _int_mm_library(m: int, k: int, n: int, gen) -> tuple:
     """``torch._int_mm`` (int8 x int8 -> int32, no epilogue) at the smallest
     M from ``m`` up that it takes: (M timed at, callable)."""
@@ -937,8 +1005,12 @@ def kernel_phase_k8(gen) -> dict:
         sb = torch.rand((*lead, n), generator=gen, device="cuda") * 1e-3 + 1e-4
         li = None if layers is None else LAYER
         cyc = _stack_cycle() if layers else itertools.repeat(None)
+        # The bf16 matmul of the same shape, for reference (three weights in turn, so not from L2).
+        dense = itertools.cycle([torch.randn((k, n), generator=gen, device="cuda").to(torch.bfloat16)
+                                 for _ in range(3)])
         for m in GEMM_MS:
             a = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+            xb = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
             sa = 1e-3 * torch.logspace(0, 1, m, device="cuda")  # rows 10x apart, end to end
             out_k = launch(a, w8, sa, sb, torch.bfloat16, li)
             out_p = plain(a, w8, sa, sb, torch.bfloat16, li)
@@ -954,9 +1026,9 @@ def kernel_phase_k8(gen) -> dict:
             detail.append(_time_case(
                 lambda: launch(a, w8, sa, sb, torch.bfloat16, next(cyc)),
                 lambda: plain(a, w8, sa, sb, torch.bfloat16, li), lib, m, k, n, e, bytes_moved, 2 * m * n * k,
-                INT8_OPS_PER_S, library_m=lib_m,
+                INT8_OPS_PER_S, library_m=lib_m, matmul_ms=time_ms(lambda: torch.matmul(xb, next(dense))),
             ))
-        del w8, sb
+        del w8, sb, dense
         torch.cuda.empty_cache()
     # float8_e4m3fn inputs (converted exactly, summed in f32), scalar sa.
     m, k, n = 16, 512, 256
@@ -973,7 +1045,13 @@ def kernel_phase_k8(gen) -> dict:
         "scaled_gemm", "conch_tpu_torch/csrc/scaled_gemm.cu", "conch_tpu/kernels/quantization/gemm.py:739", err,
         detail, FUSED_LAYER_SHAPES,
     )
-    row["library_note"] = "torch._int_mm without the epilogue, at the M in each detail entry's library_m"
+    row["library_note"] = ("torch._int_mm without the epilogue, at the M in each detail entry's library_m; "
+                           "matmul_ms: a bf16 torch.matmul of the same shape, for reference")
+    for m in GEMM_MS:
+        matmul = sum(d["matmul_ms"] * FUSED_LAYER_SHAPES[(d["k"], d["n"])] for d in detail
+                     if d["m"] == m and (d["k"], d["n"]) in FUSED_LAYER_SHAPES)
+        row["by_m"][m]["matmul_ms"] = matmul
+        print(f"scaled_gemm one layer at M={m}: bf16 torch.matmul {matmul:.4f} ms", flush=True)
     return row
 
 
@@ -1220,6 +1298,68 @@ G_HIDDEN, G_INTER = 2304, 9216
 G_SOFTCAP, G_WINDOW, G_SCALE = 50.0, 4096, 256.0**-0.5
 G_Q_GAIN = 12.0  # query scale in the K3/K7 checks, so the logits reach the softcap
 
+# K3's timed decode steps, each on a pool and block table of its own:
+# name -> (model, rows, table pages, row -> context (other rows idle),
+# (source row, reading row, shared pages), windows). The kernel table's
+# lines: Llama-3-8B's decode batch of 8 and Gemma-2-2B's, each with an idle
+# row, lengths off page multiples and a shared prefix, Gemma's past the
+# window. The served steps: the int4 Llama engine (the README example,
+# max_batch_size 32) decodes 32 rows, 8 of them live at contexts 40 to 932
+# (prompts of 40 to 900 plus 32 generated tokens), over its 64-page table;
+# the Gemma-2-2B engine (max_batch_size 16) 16 rows, 8 live at 4200 to
+# 6000, over a 384-page table (the served engine's 320 pages stop at 5120
+# tokens).
+K3_SERVED_LLAMA = dict(zip((0, 3, 4, 9, 15, 20, 26, 31), (40, 131, 262, 395, 540, 690, 812, 932)))
+K3_SERVED_GEMMA = dict(zip((0, 2, 3, 6, 8, 11, 13, 15), (4200, 4457, 4713, 4970, 5228, 5485, 5742, 6000)))
+K3_CASES = {
+    "llama3_8b table line": ("llama", 8, MAX_PAGES_PER_SEQ, dict(enumerate([0, 1, 17, 64, 200, 333, 511, 540])),
+                             (4, 5, 4), (0,)),
+    "gemma2 table line": ("gemma", 8, 384, dict(enumerate([4600, 1, 17, 0, 300, 4096, 4097, 6000])), (0, 5, 8),
+                          (0, G_WINDOW)),
+    "llama3_8b int4 served decode": ("llama", 32, 64, K3_SERVED_LLAMA, (0, 0, 0), (0,)),
+    "gemma2 served decode": ("gemma", 16, 384, K3_SERVED_GEMMA, (0, 0, 0), (0, G_WINDOW)),
+}
+
+
+def k3_inputs(gen, rng, name: str, cache: str | None = None) -> dict:
+    """K3_CASES[name] on the card: ``args``, the launcher's arguments up to
+    the window (query, pools, block table, seq_lens, scale, layer 17,
+    softcap); ``windows``, ``seq_lens``, ``bt`` (the table in numpy),
+    ``idle`` (rows of length 0) and ``shape`` (QH, KH, D). Llama-3-8B: 32
+    query heads over 8 KV heads of 128, a 32-layer pool, scale D^-0.5,
+    queries N(0, 1). Gemma-2-2B: 8 over 4 of 256, 26 layers, softcap 50,
+    scale 1/16, queries N(0, G_Q_GAIN^2). Pools are bf16, or int8 / e4m3
+    (``cache``) through the quantizing store."""
+    model, rows, max_pages, lens, (src, dst, shared), windows = K3_CASES[name]
+    qh, kh, d, layers, softcap, scale, gain = {
+        "llama": (QH, KH, D, NUM_LAYERS_POOL, 0.0, D**-0.5, 1.0),
+        "gemma": (G_QH, G_KH, G_D, G_LAYERS, G_SOFTCAP, G_SCALE, G_Q_GAIN),
+    }[model]
+    seq_lens = [lens.get(i, 0) for i in range(rows)]
+    num_pages = sum(-(-n // PS) for n in seq_lens) + 1
+    kc, vc = kv_pools(gen, num_pages, layers, kh, d, cache)
+    bt = paged_layout(rng, seq_lens, num_pages, share=(src, dst), shared_pages=shared, max_pages=max_pages)
+    q = (gain * torch.randn((rows, qh, d), generator=gen, device="cuda")).to(torch.bfloat16)
+    sl_t = torch.tensor(seq_lens, dtype=torch.int32, device="cuda")
+    return {
+        "args": (q, kc, vc, torch.from_numpy(bt).cuda(), sl_t, scale, LAYER, softcap), "windows": windows,
+        "seq_lens": seq_lens, "bt": bt, "idle": [i for i, n in enumerate(seq_lens) if n == 0], "shape": (qh, kh, d),
+    }
+
+
+def k3_bound(case: dict, window: int) -> tuple[float, str]:
+    """K3's bound on ``case`` (k3_inputs) under ``window``: the query read
+    and the output written in bf16, each visible cached K and V row read
+    once (shared pages once), the table entries of the visible pages and
+    seq_lens; 4 * QH * D operations a visible token."""
+    qh, kh, d = case["shape"]
+    seq_lens, kc = case["seq_lens"], case["args"][1]
+    starts = [max(n - window, 0) if window else 0 for n in seq_lens]
+    pages = sum(-(-n // PS) - a // PS for n, a in zip(seq_lens, starts) if n > a)
+    bytes_moved = (2 * case["args"][0].numel() * 2 + 2 * unique_kv_rows(case["bt"], seq_lens, starts) * kh * d
+                   * kc.element_size() + pages * 4 + len(seq_lens) * 4)
+    return bound(bytes_moved, 4 * qh * d * sum(n - a for n, a in zip(seq_lens, starts)))
+
 
 def kernel_phase_k10a(gen) -> dict:
     """K10a at 8 and 512 rows x 2304 in bf16 (timed) and f32, weights
@@ -1331,38 +1471,29 @@ def gemma_attention_phases(gen, rng, cache: str | None = None) -> dict[str, list
     )
 
     max_pages = 384
-    dec_lens = [4600, 1, 17, 0, 300, 4096, 4097, 6000]
     pre_q = [1, 7, 400] + [0] * 13
     pre_k = [4200, 7, 4600] + [0] * 13
-    num_pages = sum(-(-n // PS) for n in dec_lens + pre_k) + 1
+    dec = k3_inputs(gen, rng, "gemma2 table line", cache)
+    num_pages = sum(-(-n // PS) for n in pre_k) + 1
     kc, vc = kv_pools(gen, num_pages, G_LAYERS, G_KH, G_D, cache)
     k3, k3_plain, k7, k7_plain = (with_kv_scales(fn, cache) for fn in (k3_kv, k3_plain_kv, k7_kv, k7_plain_kv))
     elem = kc.element_size()
-    # Pages are drawn for both steps from one permutation, so decode and
-    # prefill read disjoint pages of the same pool.
-    bt_all = paged_layout(rng, dec_lens + pre_k, num_pages, share=(0, 5), shared_pages=8, max_pages=max_pages)
-    bt_dec, bt_pre = bt_all[: len(dec_lens)], bt_all[len(dec_lens) :]
-    q_dec = (G_Q_GAIN * torch.randn((len(dec_lens), G_QH, G_D), generator=gen, device="cuda")).to(torch.bfloat16)
+    bt_pre = paged_layout(rng, pre_k, num_pages, share=(0, 0), shared_pages=0, max_pages=max_pages)
     rows, total = 512, sum(pre_q)
     q_pre = (G_Q_GAIN * torch.randn((rows, G_QH, G_D), generator=gen, device="cuda")).to(torch.bfloat16)
-    dec = [torch.from_numpy(bt_dec).cuda(), torch.tensor(dec_lens, dtype=torch.int32, device="cuda")]
     cu = np.concatenate([[0], np.cumsum(pre_q)]).astype(np.int32)
     pre = [torch.from_numpy(cu).cuda(), torch.tensor(pre_k, dtype=torch.int32, device="cuda"),
            torch.from_numpy(bt_pre).cuda()]
     out: dict[str, list[dict]] = {"paged_attention": [], "varlen_attention": []}
-    for window in (0, G_WINDOW):
+    for window in dec["windows"]:
         tag = f"gemma2 softcap {G_SOFTCAP:g} window {window}" + (f" {cache} cache" if cache else "")
-        args = (q_dec, kc, vc, *dec, G_SCALE, LAYER, G_SOFTCAP, window)
+        args = (*dec["args"], window)
         got, ref = k3(*args), k3_plain(*args)
         torch.cuda.synchronize()
-        if not torch.isfinite(got).all() or got[3].abs().max().item() != 0.0:
+        if not torch.isfinite(got).all() or got[dec["idle"]].abs().max().item() != 0.0:
             raise AssertionError(f"K3 ({tag}): the idle row must come out as finite zeros")
         err = check_close(f"K3 paged_attention {tag}", got, ref, 3e-2)
-        starts = [max(n - window, 0) if window else 0 for n in dec_lens]
-        visible = sum(n - a for n, a in zip(dec_lens, starts))
-        bytes_moved = (2 * q_dec.numel() * 2 + 2 * unique_kv_rows(bt_dec, dec_lens, starts) * G_KH * G_D * elem
-                       + sum(-(-n // PS) for n in dec_lens) * 4 + len(dec_lens) * 4)
-        b_ms, b_by = bound(bytes_moved, 4 * G_QH * G_D * visible)
+        b_ms, b_by = k3_bound(dec, window)
         out["paged_attention"].append({
             "case": tag, "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
             "ms": time_ms(lambda: k3(*args)), "paced_ms": paced_ms(lambda: k3(*args)),
@@ -1387,13 +1518,71 @@ def gemma_attention_phases(gen, rng, cache: str | None = None) -> dict[str, list
             "ms": time_ms(lambda: k7(*args)), "paced_ms": paced_ms(lambda: k7(*args)),
             "plain_ms": time_ms(lambda: k7_plain(*args), iters=5), "library_ms": None,
         })
-    del kc, vc
+    del kc, vc, dec
     torch.cuda.empty_cache()
     for name, cases in out.items():
         for d in cases:
             print(f"{name} ({d['case']}): {d['ms']:.4f} ms (paced {d['paced_ms']:.4f}, plain {d['plain_ms']:.4f}, "
                   f"bound {d['bound_ms']:.5f} by {d['bound_by']})", flush=True)
     return out
+
+
+def check_to_rms(name: str, out: torch.Tensor, ref: torch.Tensor, tol: float) -> float:
+    """Hold ``out`` to ``ref`` elementwise at ``|out - ref| <= tol * (|ref| +
+    rms)``, rms that of ref over the last dimension (one head of one row):
+    a limit that follows the output's size, so that a flat softmax's small
+    outputs are held as tightly as a peaked one's, and an idle row must be
+    exactly zero. One ulp of bf16 is at most 2^-7 |ref|. Returns the max
+    abs error."""
+    ref32 = ref.float()
+    limit = tol * (ref32.abs() + ref32.pow(2).mean(-1, keepdim=True).sqrt())
+    diff = (out.float() - ref32).abs()
+    err = diff.max().item()
+    worst = (diff / limit.clamp_min(torch.finfo(torch.float32).tiny)).max().item() * tol
+    print(f"{name}: max_abs_err {err:.3e}, worst |out - ref| / (|ref| + rms) {worst:.3e} (tolerance {tol:.0e})",
+          flush=True)
+    if not bool((diff <= limit).all()):
+        msg = f"{name}: outside {tol} x (|ref| + rms) (max_abs_err {err}, worst ratio {worst})"
+        raise AssertionError(msg)
+    return err
+
+
+def kernel_phase_k3_served(gen, rng) -> list[dict]:
+    """K3 at the served decode steps of K3_CASES (Gemma without and with
+    the 4096 window), against the plain version at 1e-2 x (|ref| + the
+    head's rms) (``check_to_rms``: Llama's N(0, 1) queries give a nearly
+    flat softmax over hundreds of tokens, outputs near 0.05, which the
+    table lines' 3e-2 + 3e-2 x |ref| would hold too loosely), idle rows
+    exactly zero; timed. Returns detail entries of K3's row."""
+    from conch_tpu_torch.kernels.attention.paged_attention import (
+        paged_attention_launcher as launch,
+        paged_attention_plain as plain,
+    )
+
+    cases = []
+    for label in ("llama3_8b int4 served decode", "gemma2 served decode"):
+        case = k3_inputs(gen, rng, label)
+        live = len(case["seq_lens"]) - len(case["idle"])
+        for window in case["windows"]:
+            tag = f"{label}, {live} of {len(case['seq_lens'])} rows live, window {window}"
+            args = (*case["args"], window)
+            got, ref = launch(*args), plain(*args)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all() or got[case["idle"]].abs().max().item() != 0.0:
+                raise AssertionError(f"K3 ({tag}): idle rows must come out as finite zeros")
+            err = check_to_rms(f"K3 paged_attention {tag}", got, ref, 1e-2)
+            b_ms, b_by = k3_bound(case, window)
+            entry = {
+                "case": tag, "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+                "ms": time_ms(lambda: launch(*args)), "paced_ms": paced_ms(lambda: launch(*args)),
+                "plain_ms": time_ms(lambda: plain(*args), iters=3, warmup=1), "library_ms": None,
+            }
+            print(f"paged_attention ({tag}): {entry['ms']:.4f} ms (paced {entry['paced_ms']:.4f}, plain "
+                  f"{entry['plain_ms']:.4f}, bound {b_ms:.5f} by {b_by})", flush=True)
+            cases.append(entry)
+        del case
+        torch.cuda.empty_cache()
+    return cases
 
 
 # DeepSeek-V2-Lite (DeepseekV2Config.v2_lite()): 16 heads, packed latent
@@ -1587,6 +1776,137 @@ def check_attention_scales(gen) -> None:
     args, scales = (q, kc, vc, cu, sl, bt, scale, True, 0), {**scales, "q_scale": 1.5}
     check_close("K7 varlen_attention f32 cache, q_scale 1.5, k_scale 2, v_scale 3", k7(*args, **scales),
                 k7_plain(*args, **scales), 2e-3)
+
+
+# K3's option sweep: (query, cache) dtypes, GQA groups, head sizes (34:
+# rows copied 4 bytes at a time, or element by element for 1-byte caches),
+# softcap, windows (37: not a page multiple), and a wide block table (up to
+# 1024 tokens: several splits, merged) and a narrow one (one split).
+PAGED_OPTION_TYPES = (
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.int8), (torch.bfloat16, torch.float8_e4m3fn), (torch.float32, torch.int8),
+    (torch.float32, torch.float8_e4m3fn),
+)
+PAGED_OPTION_GROUPS = (1, 4, 8)
+PAGED_OPTION_HEADS = (64, 128, 256, 34)
+PAGED_OPTION_LENS = [0, 1, 17, 300, 700, 1000]  # row 0 idle; row 4 shares row 3's first 8 pages
+PAGED_OPTION_KH, PAGED_OPTION_LAYERS = 2, 3
+
+
+def _option_pool(gen, num_pages: int, d: int, dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    shape = (PAGED_OPTION_LAYERS, num_pages, PAGED_OPTION_KH, PS, d)
+    if dtype in (torch.int8, torch.float8_e4m3fn):
+        cache = "int8" if dtype == torch.int8 else "fp8"
+        return quant_pool(gen, num_pages, PAGED_OPTION_LAYERS, PAGED_OPTION_KH, d, cache)
+    return tuple(torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(2))
+
+
+def _poisoned(pool: torch.Tensor, pages: list[int]) -> torch.Tensor:
+    """A copy of ``pool`` with ``pages`` (of every layer) set to NaN (e4m3:
+    its NaN code), so that a read of them shows in the output."""
+    out = pool.clone()
+    if out.dtype == torch.float8_e4m3fn:
+        out.view(torch.uint8)[:, pages] = 0x7F
+    else:
+        out[:, pages] = float("nan")
+    return out
+
+
+def check_paged_attention_options(gen, rng) -> None:
+    """K3 at every option it takes, against its plain version: the (query,
+    cache) dtypes of ``PAGED_OPTION_TYPES`` (1-byte caches at KV_SCALES),
+    GQA groups ``PAGED_OPTION_GROUPS``, head sizes ``PAGED_OPTION_HEADS``,
+    softcap 0 and 30, windows 0, 37 and 500, a 64-page block table (KV
+    splits merged) and a 4-page one (one split), idle row 0, shared prefix
+    pages, layer 2 of a 3-layer pool. Tolerance 3e-2 (3e-2 + 3e-2 x |ref|
+    on 1-byte caches); idle rows exactly zero; every case twice, bit for
+    bit. On float caches every page that no row may see (the block table's
+    padding, pages wholly before a window) is NaN in the pool the kernel
+    reads, so a read of one fails the case. Then one call is captured in a
+    CUDA graph: its replay must equal the eager call, and again after
+    seq_lens changed in place (the wrapper reads no value on the host).
+    Errors are gathered on the card and read once."""
+    from conch_tpu_torch.kernels.attention.paged_attention import (
+        paged_attention_launcher as launch,
+        paged_attention_plain as plain,
+        paged_split_plan,
+    )
+    from conch_tpu_torch.kernels.common import sm_count
+
+    lens = PAGED_OPTION_LENS
+    num_pages = sum(-(-n // PS) for n in lens) + 2
+    poison_page = num_pages - 1
+    bt = paged_layout(rng, lens, num_pages - 1, share=(3, 4), shared_pages=8, max_pages=64)
+    bt[bt == 0] = poison_page  # padding entries (page 0 is never drawn by paged_layout)
+    tables = {"wide": (bt, lens), "narrow": (bt[:, :4].copy(), [min(n, 4 * PS) for n in lens])}
+    names, errs, tols, same, idle, splits_seen = [], [], [], [], [], set()
+    for q_dt, c_dt in PAGED_OPTION_TYPES:
+        one_byte = c_dt in (torch.int8, torch.float8_e4m3fn)
+        ks, vs = KV_SCALES["int8" if c_dt == torch.int8 else "fp8"] if one_byte else (1.0, 1.0)
+        for group in PAGED_OPTION_GROUPS:
+            for d in PAGED_OPTION_HEADS:
+                kc, vc = _option_pool(gen, num_pages, d, c_dt)
+                q = (6.0 * torch.randn((len(lens), group * PAGED_OPTION_KH, d), generator=gen, device="cuda")).to(q_dt)
+                scale = d**-0.5
+                for tlabel, (table, seq_lens) in tables.items():
+                    bt_t = torch.from_numpy(table).cuda()
+                    sl_t = torch.tensor(seq_lens, dtype=torch.int32, device="cuda")
+                    for window in (0, 37, 500):
+                        seen = {int(table[b, pos // PS]) for b, n in enumerate(seq_lens)
+                                for pos in range(max(n - window, 0) if window else 0, n)}
+                        hidden = sorted({int(p) for p in table.reshape(-1)} - seen)
+                        kp, vp = (kc, vc) if c_dt == torch.int8 else (_poisoned(kc, hidden), _poisoned(vc, hidden))
+                        plan = paged_split_plan(sl_t, bt_t, PS, PAGED_OPTION_KH, window, sm_count(0))
+                        splits_seen.add(plan.splits)
+                        for softcap in (0.0, 30.0):
+                            args = (q, kp, vp, bt_t, sl_t, scale, 2, softcap, window, ks, vs)
+                            out, again = launch(*args), launch(*args)
+                            ref = plain(q, kc, vc, bt_t, sl_t, scale, 2, softcap, window, ks, vs)
+                            names.append(f"K3 q {str(q_dt)[6:]} cache {str(c_dt)[6:]} G {group} D {d} {tlabel} table "
+                                         f"({plan.splits} splits) window {window} softcap {softcap:g}")
+                            diff = (out.float() - ref.float()).abs()
+                            tol = 3e-2 + (3e-2 * ref.float().abs() if one_byte else 0.0)
+                            errs.append(diff.max())
+                            tols.append((diff - tol).max())  # <= 0 when every element is inside
+                            same.append(torch.equal(out, again))
+                            idle.append(out[0].float().abs().max())
+    err_list, over, same_list, idle_list = (torch.stack(errs).tolist(), torch.stack(tols).tolist(),
+                                            torch.tensor(same).tolist(), torch.stack(idle).tolist())
+    print(f"K3 paged_attention options: {len(names)} cases (splits {sorted(splits_seen)}), worst max_abs_err "
+          f"{max(err_list):.3e}; {sum(same_list)} bit for bit across two calls", flush=True)
+    bad = [(name, e) for name, e, o, i in zip(names, err_list, over, idle_list) if not (o <= 0.0 and i == 0.0)]
+    for name, e in bad:
+        print(f"{name}: max_abs_err {e:.3e} outside the tolerance, or the idle row not exactly zero", flush=True)
+    if bad:
+        raise AssertionError(f"{len(bad)} of {len(names)} K3 option cases fail")
+    if not all(same_list):
+        raise AssertionError(f"{len(same_list) - sum(same_list)} K3 option cases differ between two calls")
+
+    # One call in a CUDA graph, replayed: the same bits as the eager call,
+    # and again after seq_lens changed in place.
+    kc, vc = _option_pool(gen, num_pages, D, torch.bfloat16)
+    q = torch.randn((len(lens), 4 * PAGED_OPTION_KH, D), generator=gen, device="cuda").to(torch.bfloat16)
+    bt_t = torch.from_numpy(bt).cuda()
+    sl_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    args = (q, kc, vc, bt_t, sl_t, D**-0.5, 2)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        launch(*args)  # warm-up outside the capture (builds and binds the kernel)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = launch(*args)
+    for step, new_lens in enumerate((lens, [5, 0, 1000, 64, 999, 333])):
+        sl_t.copy_(torch.tensor(new_lens, dtype=torch.int32))
+        graph.replay()
+        eager = launch(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(captured, eager):
+            diff = (captured.float() - eager.float()).abs().max().item()
+            raise AssertionError(f"K3 in a CUDA graph: replay {step} differs from the eager call (max {diff})")
+    print("K3 paged_attention in a CUDA graph: two replays (seq_lens changed in place between them) bit for bit "
+          "equal to the eager calls", flush=True)
 
 
 def quantized_cache_phases(gen, rng, by_name: dict) -> None:
@@ -2466,10 +2786,13 @@ def kernel_phases() -> list[dict]:
             if name in ("reshape_and_cache_stacked", "rotary_embedding"):
                 print(f"{name} (gemma2 KH {G_KH} D {G_D}): {case['ms']:.4f} ms (paced {case['paced_ms']:.4f}, plain "
                       f"{case['plain_ms']:.4f}, bound {case['bound_ms']:.5f} by {case['bound_by']})", flush=True)
+    by_name["paged_attention"]["served"] = kernel_phase_k3_served(gen, rng)
     check_attention_scales(gen)
     quantized_cache_phases(gen, rng, by_name)
     gemm_output_types(gen, by_name)
     check_quant_gemm_options(gen)
+    check_magic_gemm_options(gen)
+    check_paged_attention_options(gen, rng)
     for r in rows:
         print(
             f"{r['name']}: {r['ms']:.4f} ms (paced {r['paced_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
@@ -2993,18 +3316,20 @@ def profile_run(fn, label: str) -> None:
           + ", ".join(f"{g} {t:.1f} ms" for g, t in sorted(groups.items(), key=lambda x: -x[1])), flush=True)
     top = sorted(by_name.items(), key=lambda x: -x[1])[:8]
     print(f"{label} profile top kernels: " + "; ".join(f"{n} {t:.1f} ms" for n, t in top), flush=True)
-    # The kernels one K1b or K1c call may launch: the GEMM, the split
-    # reduction and K1b's x row-sum pre-pass.
-    qgemm = {n: t for n, t in by_name.items() if "qgemm::" in n or "group_row_sums" in n}
-    if qgemm:
-        counts = {n: sum(1 for e in kernels if e["name"][:60] == n) for n in qgemm}
-        print(f"{label} profile K1b/K1c kernels: " + "; ".join(
-            f"{n} {t:.1f} ms in {counts[n]} launches" for n, t in sorted(qgemm.items(), key=lambda x: -x[1])),
-            flush=True)
+    # The kernels one K1, K1b or K1c call may launch (the GEMM, the split
+    # reduction, K1b's x row-sum pre-pass), and K3's two (the split walk,
+    # the merge).
+    for tag, names in (("K1/K1b/K1c", ("qgemm::", "group_row_sums")), ("K3", ("paged_split", "paged_merge"))):
+        found = {n: t for n, t in by_name.items() if any(key in n for key in names)}
+        if found:
+            counts = {n: sum(1 for e in kernels if e["name"][:60] == n) for n in found}
+            print(f"{label} profile {tag} kernels: " + "; ".join(
+                f"{n} {t:.1f} ms in {counts[n]} launches" for n, t in sorted(found.items(), key=lambda x: -x[1])),
+                flush=True)
 
 
-# K1b's and K1c's templates in a mangled kernel name: layout, bits, flag, rows a block.
-QGEMM_TEMPLATE = re.compile(r"quant_gemm_kernel.*?(RowsLayout|PlanarLayout)ILi(\d+)ELb(\d)EEELi(\d+)E")
+# K1's, K1b's and K1c's templates in a mangled kernel name: layout, bits (K1: group), flag, rows a block.
+QGEMM_TEMPLATE = re.compile(r"quant_gemm_kernel.*?(RowsLayout|PlanarLayout|MagicLayout)ILi(\d+)ELb(\d)EEELi(\d+)E")
 
 
 def build() -> None:

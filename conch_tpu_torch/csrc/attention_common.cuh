@@ -1,11 +1,12 @@
 // Copyright 2026 Conch-TPU authors.
 // SPDX-License-Identifier: Apache-2.0
 //
-// One block's share of paged attention, shared by the decode kernel (K3)
-// and the varlen prefill kernel (K7): the G query heads of one GQA group,
-// all at one query position, attend to the tokens kv_start..kv_len-1 of
-// one KV head, found through the block table. Online softmax over tiles of
-// TILE tokens, f32 throughout.
+// One block's share of the varlen prefill kernel (K7,
+// varlen_attention.cu): the G query heads of one GQA group, all at one
+// query position, attend to the tokens kv_start..kv_len-1 of one KV head,
+// found through the block table, walked by the one block alone. Online
+// softmax over tiles of TILE tokens, f32 throughout. (The decode kernel K3,
+// paged_attention.cu, splits its walk over blocks and has its own loop.)
 //
 //   1. the block resolves the tile's cache rows from the block table,
 //      reading only entries in [kv_start, kv_len) (never the table's

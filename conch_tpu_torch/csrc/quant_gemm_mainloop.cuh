@@ -1,10 +1,11 @@
 // Copyright 2026 Conch-TPU authors.
 // SPDX-License-Identifier: Apache-2.0
 //
-// The pipelined tensor-core mainloop shared by the weight-only GEMMs K1b
-// (mixed_gemm_planar.cu) and K1c (mixed_gemm_rows.cu). Each layout plugs
-// in as a small policy: where a K slice's codes, scales and x values lie,
-// and how a thread turns its words into wgmma's A fragment.
+// The pipelined tensor-core mainloop shared by the weight-only GEMMs K1
+// (mixed_gemm_magic.cu), K1b (mixed_gemm_planar.cu) and K1c
+// (mixed_gemm_rows.cu). Each layout plugs in as a small policy: where a K
+// slice's codes, scales and x values lie, and how a thread turns its words
+// into wgmma's A fragment.
 //
 // out[M, N] = x[M, K] @ W[K, N] is computed transposed ("swap AB"):
 // outT = WT . xT, so that the weight's N fills the 64-row side of
@@ -38,7 +39,8 @@
 //    the same inputs give the same bits, and no host state changes between
 //    calls.
 // The launch plan (BN, the K slice, slices, unit, splits) comes from the
-// Python wrapper (kernels/quantization/gemm.py: quant_gemm_plan); the
+// Python wrapper (kernels/quantization/gemm.py: quant_gemm_plan, layouts
+// "magic", "planar" and "gptq"); the
 // entry points refuse a plan their template cannot run (plan_ok) and run
 // the rest as it is. Tried on
 // the card and dropped (PERF.md): pairs of column blocks sharing x

@@ -12,30 +12,102 @@ one build serves Llama and Gemma-2's local and global layers. The caches
 may be int8 or float8_e4m3fn (quantized on store by K2): the kernel reads
 them in their own type, folds ``k_scale`` into the softmax scale and
 multiplies the f32 output by ``v_scale``, as the TPU kernel does.
-``paged_attention_launcher`` takes the plain version for CPU tensors
-only; on CUDA it launches the kernel or raises.
+
+The kernel splits each sequence's visible tokens over blocks and merges
+the splits by log-sum-exp (a second kernel). ``paged_split_plan`` sets
+the split count and length from shapes alone (the block table's width,
+the page size, the window and the SM count), never from ``seq_lens``'
+values, so the wrapper reads no tensor value on the host and a call can
+be captured in a CUDA graph. ``paged_attention_launcher`` takes the plain
+version for CPU tensors only; on CUDA it launches the kernel or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
 from conch_tpu_torch.kernels.common import (
     QUANTIZED_CACHE_DTYPES,
+    cdiv,
     check_launch,
     dtype_code,
     kernel_function,
     require_cuda,
+    round_up,
+    sm_count,
     storage_code,
     stream_of,
 )
 from conch_tpu_torch.reference.attention.attention import paged_attention as _paged_reference
 
-# Limits of csrc/attention_common.cuh (kMaxGroup, kMaxHeadSize).
+# Limits of csrc/attention_common.cuh and csrc/paged_attention.cu (kMaxGroup, kMaxHeadSize).
 MAX_GROUP = 8
 MAX_HEAD_SIZE = 256
+# K3's splits of the KV walk (csrc/paged_attention.cu: kTile, kMaxSplits).
+SPLIT_TILE = 32  # tokens a stage of the kernel's ring; a split is a whole number of them
+SPLIT_TOKENS = 256  # tokens a split walks at most (128 KiB of bf16 K and V at head 128)
+MIN_SPLIT_TOKENS = 64
+MAX_SPLITS = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedSplitPlan:
+    """K3's grid (B, KH, ``splits``): split z of a sequence walks its visible
+    tokens ``kv_start + z * split_len`` .. ``+ split_len - 1``, with
+    ``kv_start = max(seq_len - window, 0)`` under a window, else 0 (the
+    kernel's ``visible_start``)."""
+
+    splits: int
+    split_len: int
+
+    def split_range(self, seq_len: int, window: int, split: int) -> tuple[int, int]:
+        """Tokens [start, end) that split ``split`` walks for one sequence;
+        empty (start >= end) when the split lies past ``seq_len``."""
+        kv_start = max(seq_len - window, 0) if window > 0 else 0
+        start = kv_start + split * self.split_len
+        return start, min(start + self.split_len, seq_len)
+
+    def workspace_shapes(self, batch: int, num_q_heads: int, head_size: int) -> tuple[tuple, tuple] | None:
+        """The splits' f32 accumulators and (max, sum) pairs; none with one split."""
+        if self.splits == 1:
+            return None
+        return (self.splits, batch, num_q_heads, head_size), (self.splits, batch, num_q_heads, 2)
+
+
+def paged_split_plan(
+    seq_lens: torch.Tensor, block_table: torch.Tensor, page_size: int, num_kv_heads: int, window: int, num_sms: int
+) -> PagedSplitPlan:
+    """K3's splits from shapes only: a row holds at most ``max_pages *
+    page_size`` tokens and sees at most ``window`` of them. Splits walk
+    SPLIT_TOKENS, fewer (down to MIN_SPLIT_TOKENS) when even full rows
+    would give the (B, KH) grid under two waves of ``num_sms``, and more
+    when MAX_SPLITS would not cover a row; a split is a whole number of
+    SPLIT_TILE tokens. One split (a short table) walks the whole visible
+    capacity. Reads no value of either tensor."""
+    batch, max_pages = block_table.shape
+    if seq_lens.shape != (batch,):
+        msg = f"paged_attention kernel: seq_lens {tuple(seq_lens.shape)} for a block table of {batch} rows"
+        raise ValueError(msg)
+    visible = max_pages * page_size
+    if window > 0:
+        visible = min(visible, window)
+    fill = cdiv(max(batch * num_kv_heads * visible, 1), 2 * num_sms)
+    split_len = round_up(min(SPLIT_TOKENS, max(MIN_SPLIT_TOKENS, fill)), SPLIT_TILE)
+    split_len = max(split_len, round_up(cdiv(visible, MAX_SPLITS), SPLIT_TILE))
+    splits = cdiv(visible, split_len)
+    return PagedSplitPlan(max(splits, 1), split_len)
+
+
+def _copy_bytes(row_bytes: int, *pointers: int) -> int:
+    """The kernel's cp.async size for rows of ``row_bytes``: 16 or 4 bytes
+    when the rows and the pointers allow, else 0 (element by element)."""
+    for size in (16, 4):
+        if row_bytes % size == 0 and all(ptr % size == 0 for ptr in pointers):
+            return size
+    return 0
 
 
 def paged_attention_plain(
@@ -103,17 +175,24 @@ def _paged_cuda(
     batch, num_q_heads, head_size = query.shape
     _, _, num_kv_heads, page_size, _ = key_caches.shape
     k_layer, v_layer = layer_pointers(key_caches, value_caches, layer_idx)
+    plan = paged_split_plan(seq_lens, block_table, page_size, num_kv_heads, window_size, sm_count(query.device.index))
+    shapes = plan.workspace_shapes(batch, num_q_heads, head_size)
+    part_acc, part_ml = (None, None) if shapes is None else (
+        torch.empty(shape, dtype=torch.float32, device=query.device) for shape in shapes
+    )
     out = torch.empty_like(query)
     fn = kernel_function("conch_paged_attention", (
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
     ))
     code = fn(
         query.data_ptr(), out.data_ptr(), k_layer, v_layer, block_table.data_ptr(), seq_lens.data_ptr(),
         batch, block_table.shape[1], num_q_heads, num_kv_heads, page_size, head_size, scale * k_scale, softcap,
-        window_size, v_scale, dtype_code(query), storage_code(key_caches), stream_of(query),
+        window_size, v_scale, dtype_code(query), storage_code(key_caches), plan.split_len, plan.splits,
+        None if part_acc is None else part_acc.data_ptr(), None if part_ml is None else part_ml.data_ptr(),
+        _copy_bytes(head_size * key_caches.element_size(), k_layer, v_layer), stream_of(query),
     )
     check_launch("conch_paged_attention", code)
     paged_attention_launcher.launches += 1

@@ -7,7 +7,8 @@ Each kernel replaces one kernel of ``conch_tpu/kernels/quantization/gemm.py``:
 
 - K1 ``mixed_gemm_magic`` (``csrc/mixed_gemm_magic.cu``) replaces
   ``_mixed_gemm_magic_kernel``: int4 codes in the magic packing, groups 64
-  and 128 (any other group raises on the card);
+  and 128 (any other group raises on the card), the group's scale applied
+  to the decoded weight before the product;
 - K1b ``mixed_gemm_planar`` (``csrc/mixed_gemm_planar.cu``) replaces
   ``_mixed_gemm_planar_kernel``: 2/4/8-bit codes in the planar packing, the
   group's scale and zero-point applied after the product;
@@ -19,7 +20,7 @@ Each kernel replaces one kernel of ``conch_tpu/kernels/quantization/gemm.py``:
   ``_scaled_gemm_kernel``: int8 x int8 summed in int32 (float8_e4m3fn in
   f32), then ``* sa[m] * sb[n]``.
 
-K1b and K1c share one pipelined tensor-core mainloop
+K1, K1b and K1c share one pipelined tensor-core mainloop
 (``csrc/quant_gemm_mainloop.cuh``); ``quant_gemm_plan`` picks its launch
 (rows a block, splits of K on group boundaries, the f32 workspace) from
 the shape and the SM count, here in Python where the CPU tests hold it.
@@ -54,7 +55,7 @@ from conch_tpu_torch.kernels.common import (
 )
 from conch_tpu_torch.utils.quant_utils import get_pack_factor, unpack_rows, unpack_rows_magic, unpack_rows_planar
 
-KERNEL_GROUP_SIZES = (64, 128)  # the group sizes K1's CUDA kernel is written for
+KERNEL_GROUP_SIZES = (64, 128)  # the group sizes K1's CUDA kernel is written for (a slice is one group)
 KERNEL_OUT_DTYPES = (torch.float32, torch.bfloat16)  # the final stores K1, K1b and K1c are written for
 
 
@@ -116,7 +117,7 @@ def _check_x(name: str, x: torch.Tensor) -> None:
 
 
 def _tma_rows(x: torch.Tensor) -> torch.Tensor:
-    """x itself when its rows suit the TMA copies of K1b and K1c (16-byte
+    """x itself when its rows suit the TMA copies of K1, K1b and K1c (16-byte
     aligned, a row stride that is a multiple of 8), else a copy whose rows
     do (stride K rounded up to 8)."""
     if x.stride(0) % 8 == 0 and x.data_ptr() % 16 == 0:
@@ -178,37 +179,28 @@ def _magic_gemm_cuda(
     x, packed, scales, group_size: int, bias: int, layer_index: int | None, out_dtype: torch.dtype | None
 ) -> torch.Tensor:
     require_cuda(x, packed, scales)
+    _check_x("mixed_gemm_magic", x)
+    x = _tma_rows(x)
     out_dtype = _out_dtype("mixed_gemm_magic", x, out_dtype)
     m, k = x.shape
     n = packed.shape[-1]
-    if x.dtype != torch.bfloat16 or scales.dtype != torch.bfloat16 or packed.dtype != torch.int32:
-        msg = (
-            f"mixed_gemm_magic kernel: x and scales must be bfloat16 and packed int32, got x {x.dtype}, "
-            f"scales {scales.dtype}, packed {packed.dtype}"
-        )
+    if scales.dtype != torch.bfloat16 or packed.dtype != torch.int32:
+        msg = f"mixed_gemm_magic kernel: scales must be bfloat16 and packed int32, got {scales.dtype}, {packed.dtype}"
         raise NotImplementedError(msg)
-    if group_size not in KERNEL_GROUP_SIZES or k % group_size or n % 128:
-        msg = (
-            f"mixed_gemm_magic kernel: needs group_size 64 or 128, K a multiple of it and N of 128 "
-            f"(K={k}, N={n}, group={group_size})"
-        )
-        raise ValueError(msg)
     if not (packed.is_contiguous() and scales.is_contiguous()):
-        msg = "mixed_gemm_magic kernel: packed weights and scales must be contiguous"
-        raise ValueError(msg)
-    if x.stride(1) != 1 or x.stride(0) % 8 or x.data_ptr() % 16:
-        msg = "mixed_gemm_magic kernel: x rows must be contiguous, 16-byte aligned, with a row stride that is a multiple of 8"
-        raise ValueError(msg)
+        raise ValueError("mixed_gemm_magic kernel: packed weights and scales must be contiguous")
+    plan = quant_gemm_plan("magic", m, n, k, 4, group_size, sm_count(x.device.index))
     _check_layer_shapes("mixed_gemm_magic", layer_index, {
         "packed": (packed, (k // 8, n)), "scales": (scales, (k // group_size, n)),
     })
-    w_ptr, s_ptr = _layer_ptr(packed, layer_index), _layer_ptr(scales, layer_index)
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    plan_args, _ws = _plan_args(plan, m, n, x.device)
     fn = kernel_function("conch_mixed_gemm_magic", (
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int, *PLAN_ARGTYPES, ctypes.c_void_p,
     ))
-    code = fn(x.data_ptr(), w_ptr, s_ptr, out.data_ptr(), dtype_code(out), m, n, k, group_size, x.stride(0), bias,
+    code = fn(x.data_ptr(), _layer_ptr(packed, layer_index), _layer_ptr(scales, layer_index), out.data_ptr(),
+              dtype_code(out), m, n, k, group_size, x.stride(0), bias, *plan_args,
               stream_of(x))
     check_launch("conch_mixed_gemm_magic", code)
     mixed_gemm_magic_launcher.launches += 1
@@ -237,7 +229,7 @@ def mixed_gemm_magic_launcher(
 mixed_gemm_magic_launcher.launches = 0
 
 
-# -- the launch plan of K1b and K1c -----------------------------------------
+# -- the launch plan of K1, K1b and K1c -------------------------------------
 
 QGEMM_COLS = 128  # weight (output) columns a block: two warpgroups of 64 (quant_gemm_mainloop.cuh kCols)
 QGEMM_ROW_TILES = (32, 64, 128)  # x rows a block (wgmma's N): decode, up to 64, prefill
@@ -253,7 +245,7 @@ def planar_k_slice(bits: int, group_size: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class QuantGemmPlan:
-    """A launch of K1b or K1c: ``bn`` x rows a block; K walked in ``slices``
+    """A launch of K1, K1b or K1c: ``bn`` x rows a block; K walked in ``slices``
     slices of ``k_slice`` k; ``splits`` blocks over K, each taking whole
     units of ``unit`` slices (a unit ends on a group boundary); grid
     (column tiles, row tiles, splits). The entry point takes ``bn``,
@@ -286,9 +278,10 @@ class QuantGemmPlan:
 
 
 def quant_gemm_plan(layout: str, m: int, n: int, k: int, bits: int, group_size: int, num_sms: int) -> QuantGemmPlan:
-    """The launch of K1b (``layout="planar"``) or K1c (``"gptq"``) for an (M,
-    K) x (K, N) product of ``bits``-bit codes in groups of ``group_size``
-    on a card of ``num_sms`` SMs. Raises on what the kernel refuses.
+    """The launch of K1 (``layout="magic"``), K1b (``"planar"``) or K1c
+    (``"gptq"``) for an (M, K) x (K, N) product of ``bits``-bit codes in
+    groups of ``group_size`` on a card of ``num_sms`` SMs. Raises on what
+    the kernel refuses. A magic slice is one group (64 or 128).
 
     Rows: 32 a block up to 32 (the engine's decode step: one block covers
     every row, so each code is decoded once), 64 up to 64, else 128 (64
@@ -319,8 +312,18 @@ def quant_gemm_plan(layout: str, m: int, n: int, k: int, bits: int, group_size: 
             raise ValueError(msg)
         ks = ROWS_K_SLICE
         slices, unit = cdiv(k, ks), math.lcm(group_size, ks) // ks
+    elif layout == "magic":
+        name = "mixed_gemm_magic"
+        if bits != 4 or group_size not in KERNEL_GROUP_SIZES or k % group_size or n % 32:
+            msg = (
+                f"{name} kernel: needs 4-bit codes, group_size 64 or 128, K a multiple of it and N of 32 "
+                f"(bits={bits}, K={k}, N={n}, group={group_size})"
+            )
+            raise ValueError(msg)
+        ks = group_size
+        slices, unit = k // ks, 1
     else:
-        msg = f"no K1b/K1c launch plan for layout {layout!r}"
+        msg = f"no K1/K1b/K1c launch plan for layout {layout!r}"
         raise ValueError(msg)
     # 2- and 4-bit planar codes decode 8 or 16 k16 steps a slice: their
     # fragments fit the registers beside two accumulator sets up to 64 rows.

@@ -1,18 +1,24 @@
 # Copyright 2026 Conch-TPU authors.
 # SPDX-License-Identifier: Apache-2.0
 
-"""Show that the card checks of K3/K7's softcap and window can fail.
+"""Show that the card checks of K3/K7's softcap and window, and of K3's
+split merge, can fail.
 
     python3 -m conch_tpu_torch.tools.attention_mutants
 
 Run from the checkout's root on one Hopper card. For each fault below, the
 tool copies the package to ``conch_tpu_torch/_build/mutants/<name>/``,
-puts the fault into the copy's CUDA source, and runs
+puts the fault into the copy's CUDA source, and runs the fault's checks on
+the copy in a subprocess, which builds the copy's kernels:
 ``chip_smoke.gemma_attention_phases`` (K3 and K7 at Gemma-2-2B's shapes,
-held against the plain versions) on the copy in a subprocess, which builds
-the copy's kernels. The unchanged package must pass and every faulty copy
-must fail a check; the tool prints each run's check lines and exits
-non-zero otherwise.
+held against the plain versions) for the softcap and window faults,
+``chip_smoke.check_paged_attention_options`` (K3's option sweep) for the
+merge faults (a split dropped, the splits' rescale skipped), and
+``chip_smoke.kernel_phase_k3_served`` (K3 at the served decode steps,
+where Llama's flat softmax gives small outputs) for the dropped split
+again. The unchanged package must pass all three and every faulty copy
+must fail a check; the tool
+prints each run's check lines and exits non-zero otherwise.
 """
 
 from __future__ import annotations
@@ -31,28 +37,43 @@ SCALE_THEN_CAP = (
     "float s = warp_sum(part[g]) * scale;\n"
     "          if constexpr (SOFTCAP) s = softcap * tanhf(s / softcap);"
 )
-# name -> (source file under csrc/, text, faulty text)
+K3_SCALE_THEN_CAP = (
+    "float x = warp_sum(part[g]) * p.scale;\n"
+    "          if constexpr (SOFTCAP) x = p.softcap * tanhf(x / p.softcap);"
+)
+K3_WEIGHT = "w_s[z] = __expf(p.part_ml[(z * split_stride + head) * 2] - m);"
+K3_SUM = "for (int z = 0; z < live; ++z) a += p.part_acc[(z * split_stride + head) * p.head_size + d] * w_s[z];"
+GEMMA, OPTIONS, SERVED = "gemma_attention_phases", "check_paged_attention_options", "kernel_phase_k3_served"
+# name -> (source file under csrc/, text, faulty text, the chip_smoke checks that must catch it)
 MUTANTS = {
-    "softcap_dropped": ("attention_common.cuh", SCALE_THEN_CAP, "float s = warp_sum(part[g]) * scale;"),
-    "cap_before_scale": (
+    "k7_softcap_dropped": ("attention_common.cuh", SCALE_THEN_CAP, "float s = warp_sum(part[g]) * scale;", GEMMA),
+    "k7_cap_before_scale": (
         "attention_common.cuh", SCALE_THEN_CAP,
         "float s = warp_sum(part[g]);\n"
         "          if constexpr (SOFTCAP) s = softcap * tanhf(s / softcap);\n"
         "          s *= scale;",
+        GEMMA,
     ),
+    "k3_softcap_dropped": ("paged_attention.cu", K3_SCALE_THEN_CAP, "float x = warp_sum(part[g]) * p.scale;", GEMMA),
     "k3_window_ignored": (
         "paged_attention.cu", "const int kv_start = window > 0 ? max(seq_len - window, 0) : 0;",
-        "const int kv_start = 0;",
+        "const int kv_start = 0;", GEMMA,
     ),
-    "k7_window_ignored": ("varlen_attention.cu", "if (window > 0) kv_start = max(q_pos - window + 1, 0);", ""),
+    "k7_window_ignored": ("varlen_attention.cu", "if (window > 0) kv_start = max(q_pos - window + 1, 0);", "", GEMMA),
+    "k3_merge_split_dropped": ("paged_attention.cu", K3_SUM, K3_SUM.replace("z = 0", "z = 1"), OPTIONS),
+    "k3_merge_split_dropped_served": ("paged_attention.cu", K3_SUM, K3_SUM.replace("z = 0", "z = 1"), SERVED),
+    "k3_merge_rescale_skipped": ("paged_attention.cu", K3_WEIGHT, "w_s[z] = 1.0f;", OPTIONS),
 }
-PHASES = (
-    "import numpy as np, torch, chip_smoke, conch_tpu_torch\n"
-    "print('package:', conch_tpu_torch.__file__, flush=True)\n"
-    "gen = torch.Generator(device='cuda').manual_seed(chip_smoke.SEED)\n"
-    "chip_smoke.build()\n"
-    "chip_smoke.gemma_attention_phases(gen, np.random.default_rng(chip_smoke.SEED))\n"
-)
+
+
+def phases_script(*checks: str) -> str:
+    calls = "".join(f"chip_smoke.{c}(gen, np.random.default_rng(chip_smoke.SEED))\n" for c in checks)
+    return (
+        "import numpy as np, torch, chip_smoke, conch_tpu_torch\n"
+        "print('package:', conch_tpu_torch.__file__, flush=True)\n"
+        "gen = torch.Generator(device='cuda').manual_seed(chip_smoke.SEED)\n"
+        "chip_smoke.build()\n" + calls
+    )
 
 
 def copy_package(name: str, mutant: tuple[str, str, str] | None) -> Path:
@@ -71,9 +92,8 @@ def copy_package(name: str, mutant: tuple[str, str, str] | None) -> Path:
     return root
 
 
-def run_phases(root: Path, script: str = PHASES) -> tuple[int, str]:
-    """Run ``script`` (default: the Gemma attention checks) with ``root``'s
-    package first on the path."""
+def run_phases(root: Path, script: str) -> tuple[int, str]:
+    """Run ``script`` with ``root``'s package first on the path."""
     env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(root), str(REPO_ROOT)])}
     proc = subprocess.run(
         [sys.executable, "-c", script], cwd=root, env=env, capture_output=True, text=True, check=False
@@ -84,7 +104,8 @@ def run_phases(root: Path, script: str = PHASES) -> tuple[int, str]:
 def main() -> int:
     ok = True
     for name, mutant in {"unchanged": None, **MUTANTS}.items():
-        code, out = run_phases(copy_package(name, mutant))
+        checks = (GEMMA, OPTIONS, SERVED) if mutant is None else (mutant[3],)
+        code, out = run_phases(copy_package(name, None if mutant is None else mutant[:3]), phases_script(*checks))
         lines = [ln for ln in out.splitlines() if "package:" in ln or "max_abs_err" in ln or "Error" in ln]
         # A faulty copy must fail a check, not its build or launch.
         failed_check = code != 0 and "AssertionError" in out and "nvcc failed" not in out

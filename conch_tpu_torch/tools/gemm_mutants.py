@@ -1,19 +1,23 @@
 # Copyright 2026 Conch-TPU authors.
 # SPDX-License-Identifier: Apache-2.0
 
-"""Show that the card checks of K1b, K1c, K8 and K12q can fail.
+"""Show that the card checks of K1, K1b, K1c, K8 and K12q can fail.
 
     python3 -m conch_tpu_torch.tools.gemm_mutants
 
 Run from the checkout's root on one Hopper card. For each fault below, the
 tool copies the package to ``conch_tpu_torch/_build/mutants/<name>/``,
 puts the fault into the copy's CUDA source, and runs the kernel's phase of
-``chip_smoke.py`` (``kernel_phase_k1b``, ``_k1c``, ``_k8`` or ``_k12q``:
-the kernel at the served shapes and the small cases, held against its
-plain version) on the copy in a subprocess, which builds the copy's
-kernels. The unchanged package must pass all four phases and every faulty
-copy must fail a check of its phase; the tool prints each run's check lines
-and exits non-zero otherwise. The faults:
+``chip_smoke.py`` (``check_magic_gemm_options``: K1's option sweep;
+``kernel_phase_k1b``, ``_k1c``, ``_k8`` or ``_k12q``: the kernel at the
+served shapes and the small cases, held against its plain version) on the
+copy in a subprocess, which builds the copy's kernels. The unchanged
+package must pass all five and every faulty copy must fail a check of its
+own; the tool prints each run's check lines and exits non-zero otherwise.
+The faults:
+
+- ``k1_field_shift``: K1 decodes a word's bit fields in the wrong order
+  (field f ^ 1 for k16 step j, not the field that holds its x values);
 
 - ``k1b_gptq_rows``: K1b takes the planar words' bit fields in GPTQ order
   (field j % epp for k16 step j, not the field that holds its x values);
@@ -33,6 +37,12 @@ from conch_tpu_torch.tools.attention_mutants import BUILD_DIR, copy_package, run
 
 # name -> (source file under csrc/, text, faulty text, phase)
 MUTANTS = {
+    "k1_field_shift": (
+        "mixed_gemm_magic.cu",
+        "uint32_t magic = ((word >> (4 * f)) & 0x000F000Fu) | 0x43004300u;",
+        "uint32_t magic = ((word >> (4 * (f ^ 1))) & 0x000F000Fu) | 0x43004300u;",
+        "check_magic_gemm_options",
+    ),
     "k1b_gptq_rows": (
         "mixed_gemm_planar.cu",
         "      const int f = j / NB;",
@@ -58,7 +68,7 @@ MUTANTS = {
         "return static_cast<uint8_t>((lo << 4) | hi);", "kernel_phase_k12q",
     ),
 }
-ALL_PHASES = ("kernel_phase_k1b", "kernel_phase_k1c", "kernel_phase_k8", "kernel_phase_k12q")
+ALL_PHASES = ("check_magic_gemm_options", "kernel_phase_k1b", "kernel_phase_k1c", "kernel_phase_k8", "kernel_phase_k12q")
 
 
 def phases_script(phases: tuple[str, ...]) -> str:

@@ -1,0 +1,124 @@
+# Copyright 2026 Conch-TPU authors.
+# SPDX-License-Identifier: Apache-2.0
+
+"""Time K1 and K3 of two checkouts on one card, in turns.
+
+    python3 -m conch_tpu_torch.tools.parent_compare --parent DIR
+
+Run from the checkout's root on one Hopper card, with ``DIR`` another
+checkout of the repository (for instance ``git archive`` of the parent
+commit, unpacked). The tool copies ``DIR``'s ``conch_tpu_torch`` package to
+``conch_tpu_torch/_build/compare/parent/`` and times, in a subprocess per
+run that builds that run's kernels, the parent's package, this one, this
+one again and the parent's again (so a drift of the card shows as a
+difference between a package's two runs). Each run goes through the public
+launchers only, which both packages share:
+
+- K1 (``mixed_gemm_magic_launcher``), one layer's four GEMMs of the int4
+  Llama-3-8B engine (fused wqkv, wo, fused gate|up, w_down) at groups 128
+  and 64 and M 8, 32 and 512, read from layer 17 of a 32-layer stack
+  (timed calls walk the layers, so the weights come from HBM);
+- K3 (``paged_attention_launcher``) on ``chip_smoke.py``'s ``K3_CASES``,
+  built by its ``k3_inputs`` as its K3 phases build them: the kernel
+  table's lines (Llama-3-8B's decode batch of 8 at lengths to 540;
+  Gemma-2-2B's 8 rows to 6000, softcap 50) and the served decode steps,
+  Gemma's without and with the 4096 window.
+
+Device times come from ``chip_smoke.time_ms``. The tool prints each run's
+numbers, then one line per case with the two packages' means, and a JSON
+line with every run.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+from conch_tpu_torch.kernels.common import BUILD_DIR
+
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+REPO_ROOT = PACKAGE_DIR.parent
+
+# Run in a subprocess with one package first on the path; prints one JSON line.
+RUN = r'''
+import json, itertools
+import numpy as np, torch
+import chip_smoke as cs
+import conch_tpu_torch
+from conch_tpu_torch.kernels.common import kernel_library
+from conch_tpu_torch.kernels.quantization.gemm import mixed_gemm_magic_launcher as k1
+from conch_tpu_torch.kernels.attention.paged_attention import paged_attention_launcher as k3
+
+kernel_library()
+gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+rng = np.random.default_rng(cs.SEED)
+times = {}
+for group in (128, 64):
+    sums = {m: 0.0 for m in cs.GEMM_MS}
+    for k, n in cs.K1_SHAPES:
+        packed = torch.randint(-(2**31), 2**31 - 1, (cs.NUM_LAYERS_POOL, k // 8, n), generator=gen, device="cuda",
+                               dtype=torch.int32)
+        scales = (torch.rand((cs.NUM_LAYERS_POOL, k // group, n), generator=gen, device="cuda") * 4e-3
+                  + 1e-4).to(torch.bfloat16)
+        layers = itertools.cycle(range(cs.NUM_LAYERS_POOL))
+        for m in cs.GEMM_MS:
+            x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+            sums[m] += cs.time_ms(lambda: k1(x, packed, scales, group, 8, next(layers)))
+        del packed, scales
+    for m, t in sums.items():
+        times[f"K1 group {group} one layer M={m}"] = t
+
+for name in cs.K3_CASES:
+    case = cs.k3_inputs(gen, rng, name)
+    for w in case["windows"]:
+        times[f"K3 {name} window {w}"] = cs.time_ms(lambda: k3(*case["args"], w))
+    del case
+print("TIMES " + json.dumps({"package": conch_tpu_torch.__file__, "times": times}), flush=True)
+'''
+
+
+def run(package_root: Path) -> dict:
+    """One timed run with ``package_root``'s package first on the path and
+    this checkout's ``chip_smoke.py`` after it."""
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(package_root), str(REPO_ROOT)])}
+    proc = subprocess.run([sys.executable, "-c", RUN], cwd=package_root, env=env, capture_output=True, text=True,
+                          check=False)
+    line = next((ln for ln in proc.stdout.splitlines() if ln.startswith("TIMES ")), None)
+    if proc.returncode != 0 or line is None:
+        msg = f"the run of {package_root} failed (exit code {proc.returncode}):\n{proc.stdout[-3000:]}{proc.stderr[-3000:]}"
+        raise RuntimeError(msg)
+    return json.loads(line[len("TIMES "):])
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--parent", type=Path, required=True, help="another checkout of the repository")
+    args = parser.parse_args()
+    parent = BUILD_DIR / "compare" / "parent"
+    shutil.rmtree(parent, ignore_errors=True)
+    shutil.copytree(args.parent / PACKAGE_DIR.name, parent / PACKAGE_DIR.name,
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    runs = []
+    for label, root in (("parent", parent), ("change", REPO_ROOT), ("change", REPO_ROOT), ("parent", parent)):
+        result = run(root)
+        runs.append({"label": label, **result})
+        print(f"{label} ({result['package']}): " + "; ".join(f"{k} {v:.4f}" for k, v in result["times"].items()),
+              flush=True)
+    for case in runs[0]["times"]:
+        by = {label: [r["times"][case] for r in runs if r["label"] == label] for label in ("parent", "change")}
+        mean = {label: sum(v) / len(v) for label, v in by.items()}
+        print(f"{case}: parent {mean['parent']:.4f} ms ({by['parent'][0]:.4f}, {by['parent'][1]:.4f}), change "
+              f"{mean['change']:.4f} ms ({by['change'][0]:.4f}, {by['change'][1]:.4f}), change / parent "
+              f"{mean['change'] / mean['parent']:.3f}", flush=True)
+    print(json.dumps({"runs": runs}), flush=True)
+    shutil.rmtree(BUILD_DIR / "compare", ignore_errors=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,11 +1,12 @@
 # Copyright 2026 Conch-TPU authors.
 # SPDX-License-Identifier: Apache-2.0
 
-"""The launch plan of K1b (planar) and K1c (GPTQ rows), which the wrappers
-in ``conch_tpu_torch/kernels/quantization/gemm.py`` compute in Python and
-hand to the CUDA entry points. Held on the CPU, for the Llama-3-8B engine
-shapes (nf4 unfused and int8 fused, and lm_head) at M 1, 8, 32, 40 and 512,
-and for the small shapes of the port's GEMM tests:
+"""The launch plan of K1 (magic), K1b (planar) and K1c (GPTQ rows), which
+the wrappers in ``conch_tpu_torch/kernels/quantization/gemm.py`` compute in
+Python and hand to the CUDA entry points. Held on the CPU, for the
+Llama-3-8B engine shapes (int4 fused at groups 64 and 128, nf4 unfused and
+int8 fused, and lm_head) at M 1, 8, 32, 40 and 512, and for the small
+shapes of the port's GEMM tests:
 
 - the splits cover K's slices exactly once, in order, and every split
   starts on a group boundary; the K slice is the one the entry point's
@@ -14,7 +15,10 @@ and for the small shapes of the port's GEMM tests:
   132-SM card;
 - the plan refuses what the kernel refuses, with the wrappers' messages;
 - x rows that do not suit the kernels' TMA copies are realigned, values
-  unchanged.
+  unchanged;
+- K1's A fragments, read from the magic packing as
+  ``csrc/mixed_gemm_magic.cu`` reads them, are x's k order within each
+  group.
 """
 
 import math
@@ -29,16 +33,23 @@ from conch_tpu_torch.kernels.quantization.gemm import (
     _tma_rows,
     quant_gemm_plan,
 )
+from conch_tpu_torch.utils.quant_utils import pack_rows_magic
 
 H100_SMS = 132
 NF4_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256)]  # (K, N), group 64
 INT8_SHAPES = [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096), (4096, 128256)]  # (K, N), group 128
+INT4_SHAPES = INT8_SHAPES[:4]  # fused wqkv, wo, fused gate|up, w_down; groups 64 and 128
 ENGINE_MS = [1, 8, 32, 40, 512]
 
 # (layout, bits, group, K, N): the engine's, then the small shapes of
-# tests/test_torch_rows_gemm.py and tests/test_torch_planar_gemm.py.
-ENGINE_CASES = [("gptq", 4, 64, k, n) for k, n in NF4_SHAPES] + [("planar", 8, 128, k, n) for k, n in INT8_SHAPES]
+# tests/test_torch_rows_gemm.py, tests/test_torch_planar_gemm.py and
+# tests/test_torch_int4_gemm.py.
+ENGINE_CASES = (
+    [("gptq", 4, 64, k, n) for k, n in NF4_SHAPES] + [("planar", 8, 128, k, n) for k, n in INT8_SHAPES]
+    + [("magic", 4, g, k, n) for g in (128, 64) for k, n in INT4_SHAPES]
+)
 SMALL_CASES = [
+    ("magic", 4, 128, 256, 384), ("magic", 4, 128, 512, 256), ("magic", 4, 64, 256, 384), ("magic", 4, 64, 128, 32),
     *[("gptq", bits, 64, 512, 256) for bits in (2, 4, 8)],
     ("gptq", 4, 64, 256, 384), ("gptq", 4, 64, 256, 256), ("gptq", 4, 64, 128, 96), ("gptq", 8, 100, 300, 64),
     ("gptq", 4, 4, 256, 64), ("gptq", 2, 12, 192, 32),
@@ -49,10 +60,13 @@ SMALL_CASES = [
 
 def _k_slice(layout: str, bits: int, group: int) -> int:
     """K of a slice in the entry points' templates: 64 for GPTQ rows
-    (RowsLayout::KS); planar codes a whole group of 128 for 4 and 8 bits at
-    group 128, else 16 word rows (PlanarLayout::KS)."""
+    (RowsLayout::KS); one group for magic codes (MagicLayout::KS); planar
+    codes a whole group of 128 for 4 and 8 bits at group 128, else 16 word
+    rows (PlanarLayout::KS)."""
     if layout == "gptq":
         return 64
+    if layout == "magic":
+        return group
     return 128 if group == 128 and bits >= 4 else 16 * (32 // bits)
 
 
@@ -105,7 +119,9 @@ def test_decode_grid_fills_the_card(case, m):
 
 
 @pytest.mark.parametrize("m,bn", [(1, 32), (8, 32), (32, 32), (33, 64), (40, 64), (64, 64), (65, 128), (512, 128)])
-@pytest.mark.parametrize("layout,bits,group", [("gptq", 4, 64), ("planar", 8, 128), ("planar", 4, 128)])
+@pytest.mark.parametrize(
+    "layout,bits,group", [("gptq", 4, 64), ("planar", 8, 128), ("planar", 4, 128), ("magic", 4, 128), ("magic", 4, 64)]
+)
 def test_rows_a_block(m, bn, layout, bits, group):
     """32 rows a block up to the engine's 32-row decode step, then 64, then
     128; 2- and 4-bit planar codes stop at 64. The x row-sum pre-pass runs
@@ -134,7 +150,12 @@ def test_prefill_takes_at_most_one_wave():
         ("gptq", 4, 64, 4100, 256, ValueError, r"mixed_gemm_rows kernel: needs K % 8 == 0"),
         ("gptq", 4, 2, 4096, 256, ValueError, r"group % 4 == 0"),
         ("gptq", 8, 64, 4096, 48, ValueError, "N % 32 == 0"),
-        ("magic", 4, 64, 4096, 256, ValueError, "no K1b/K1c launch plan"),
+        ("magic", 4, 32, 4096, 256, ValueError, r"mixed_gemm_magic kernel: needs 4-bit codes, group_size 64 or 128"),
+        ("magic", 4, 256, 4096, 256, ValueError, r"group=256"),
+        ("magic", 4, 128, 4160, 256, ValueError, r"K a multiple of it"),
+        ("magic", 4, 64, 4096, 48, ValueError, "N of 32"),
+        ("magic", 8, 64, 4096, 256, ValueError, "bits=8"),
+        ("awq", 4, 64, 4096, 256, ValueError, "no K1/K1b/K1c launch plan"),
     ],
 )
 def test_plan_refuses_what_the_kernel_refuses(layout, bits, group, k, n, error, match):
@@ -154,3 +175,26 @@ def test_tma_rows_realigns_x(offset, stride, kept):
     assert (y is x) == kept
     assert y.stride(0) % 8 == 0 and y.data_ptr() % 16 == 0 and y.stride(1) == 1
     assert torch.equal(y, x)
+
+
+@pytest.mark.parametrize("group", [64, 128])
+def test_magic_fragments_follow_x(group):
+    """K1's decode as csrc/mixed_gemm_magic.cu does it, on words packed by
+    ``pack_rows_magic``: k16 step j of a group takes field j // NB of word
+    rows 8 (j % NB) + t (k slots 2t, 2t+1: low and high half) and 8 (j %
+    NB) + 4 + t (slots 2t+8, 2t+9), NB = group / 64. Each slot must hold
+    the code of x value 16j + slot of the group: x's TMA box is a plain
+    slice. Codes encode their k mod 16 and j, so any slip shows."""
+    k, nb = 2 * group, group // 64
+    rows = torch.arange(k)
+    codes = ((rows % 16) ^ ((rows % group) // 16)).reshape(k, 1).repeat(1, 2)  # 4-bit, two columns
+    words = pack_rows_magic(codes, group).to(torch.int64) & 0xFFFFFFFF
+    for g in range(k // group):
+        w = words[g * group // 8 : (g + 1) * group // 8, 0]
+        for j in range(group // 16):
+            f, b = divmod(j, nb)
+            for t in range(4):
+                for q, base in ((0, 2 * t), (1, 2 * t + 8)):
+                    word = int(w[8 * b + t + 4 * q]) >> (4 * f)
+                    for h in range(2):
+                        assert (word >> (16 * h)) & 0xF == int(codes[g * group + 16 * j + base + h, 0])
