@@ -45,6 +45,19 @@
      every case bit for bit across two calls), then one K3 call captured in
      a CUDA graph and replayed (equal to the eager call, also after
      seq_lens changed in place);
+   - K7 over every option it takes (``check_varlen_attention_options``,
+     1008 cases: K3's (query, cache) dtypes, groups and heads, causal and
+     not, softcap, windows 0, 37 and 500, a ragged step with a decode row,
+     a zero-length sequence and padding rows, shared prefix pages, pages no
+     row may see set to NaN, several splits and one; 2e-2 + 2e-2 x |ref|,
+     padding rows exactly zero, every case bit for bit across two calls),
+     then one K7 call replayed from a CUDA graph (also after cu_seqlens_q
+     and seq_lens changed in place);
+   - K8's int8 path over every option it takes (``check_scaled_gemm_options``,
+     522 cases: M 1 to 600, K 96 / N 160 and the served shapes, f32 and bf16
+     outputs, scalar and vector scales, stacked and single weights, strided
+     a, values near 127 whose split sums pass 2^24), each equal to the
+     plain version bit for bit;
    - K12q NF4/FP4 encode on every weight the nf4 init quantizes (with an
      all-zero block), and on the gate projection at blocksize 4096 and
      from f16, byte for byte; K12d NF4/FP4 decode of the gate projection
@@ -103,7 +116,8 @@
    - K1, K1b and K1c storing f32 from bf16 activations
      (``mixed_precision_gemm(..., output_dtype=torch.float32)``) at K = N
      = 4096, M 8 and 512, at 1e-2 x max |ref|, timed beside the bf16
-     store; a float16 output and a bfloat16 ``acc_dtype`` must raise;
+     store; a float16 output must raise, and a bfloat16 ``acc_dtype``
+     (recorded only, as in JAX) must equal the f32 call bit for bit;
 4. vision: ``generate_voxels`` and ``voxelization_stable`` with
    ``collect_point_features`` at PointPillars' KITTI size (120,000 points,
    3% on voxel boundaries) on the card, every output equal to the CPU's;
@@ -478,51 +492,34 @@ def kernel_phase_k3(gen, rng, cache: str | None = None) -> dict:
 
 
 def kernel_phase_k7(gen, rng, cache: str | None = None) -> dict:
-    """K7 at Llama-3-8B's shapes over a bf16 pool, or over an int8 / e4m3
-    one (``cache``) with KV_SCALES[cache] (held at 2e-2 + 2e-2 x |ref|)."""
+    """K7 at Llama-3-8B's table line (K7_CASES) over a bf16 pool, or over an
+    int8 / e4m3 one (``cache``) with KV_SCALES[cache] (held at 2e-2 + 2e-2
+    x |ref|); padding rows exactly zero."""
     from conch_tpu_torch.kernels.attention.varlen_attention import (
         varlen_attention_launcher as launch_kv,
         varlen_attention_plain as plain_kv,
     )
 
-    num_pages = 512
-    kc, vc = kv_pools(gen, num_pages, NUM_LAYERS_POOL, KH, D, cache)
+    case = k7_inputs(gen, rng, "llama3_8b table line", cache)
     launch, plain = with_kv_scales(launch_kv, cache), with_kv_scales(plain_kv, cache)
-    # A 128-row prefill step as the engine packs it: a mixed-in decode row
-    # (context 300), a fresh 50-token prompt, the last 40-token chunk of a
-    # 340-token prompt, a 30-token chunk whose first 4 pages are shared with
-    # that prompt, then zero-length padding sequences and 7 padding rows.
-    q_lens = [1, 50, 40, 30, 0, 0, 0, 0]
-    seq_lens = [300, 50, 340, 94, 0, 0, 0, 0]
-    total, rows = sum(q_lens), 128
-    bt = paged_layout(rng, seq_lens, num_pages, share=(2, 3), shared_pages=4)
-    cu = np.concatenate([[0], np.cumsum(q_lens)]).astype(np.int32)
-    q = torch.randn((rows, QH, D), generator=gen, device="cuda").to(torch.bfloat16)
-    cu_t = torch.from_numpy(cu).cuda()
-    sl_t = torch.tensor(seq_lens, dtype=torch.int32, device="cuda")
-    bt_t = torch.from_numpy(bt).cuda()
-    scale = 1.0 / math.sqrt(D)
-    out_k = launch(q, kc, vc, cu_t, sl_t, bt_t, scale, True, LAYER)
-    out_p = plain(q, kc, vc, cu_t, sl_t, bt_t, scale, True, LAYER)
+    args = (*case["args"], 0)
+    out_k = launch(*args)
+    out_p = plain(*args)
     torch.cuda.synchronize()
-    if not torch.isfinite(out_k).all() or out_k[total:].abs().max().item() != 0.0:
+    if not torch.isfinite(out_k).all() or out_k[case["total"]:].abs().max().item() != 0.0:
         raise AssertionError("K7: padding rows must come out as finite zeros")
     if cache is None:
         err = (out_k.float() - out_p.float()).abs().max().item()
         check("K7 varlen_attention", err, 2e-2)
     else:
         err = check_close(f"K7 varlen_attention {cache} cache", out_k, out_p, 2e-2)
-    kv_rows = unique_kv_rows(bt, seq_lens)
-    row_kv = [s - ql + j + 1 for ql, s in zip(q_lens, seq_lens) for j in range(ql)]
-    bytes_moved = ((total + rows) * QH * D * 2 + 2 * kv_rows * KH * D * kc.element_size() + bt.size * 4
-                   + (len(cu) + len(seq_lens)) * 4)
-    bound_ms, bound_by = bound(bytes_moved, 4 * QH * D * sum(row_kv))
+    bound_ms, bound_by = k7_bound(case, 0)
     return {
         "name": "varlen_attention", "route": "cuda", "source": "conch_tpu_torch/csrc/varlen_attention.cu",
         "replaces": "conch_tpu/kernels/attention/varlen_attention.py:247", "max_abs_err": err,
-        "ms": time_ms(lambda: launch(q, kc, vc, cu_t, sl_t, bt_t, scale, True, LAYER)),
-        "paced_ms": paced_ms(lambda: launch(q, kc, vc, cu_t, sl_t, bt_t, scale, True, LAYER)),
-        "plain_ms": time_ms(lambda: plain(q, kc, vc, cu_t, sl_t, bt_t, scale, True, LAYER), iters=5),
+        "ms": time_ms(lambda: launch(*args)),
+        "paced_ms": paced_ms(lambda: launch(*args)),
+        "plain_ms": time_ms(lambda: plain(*args), iters=5),
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
     }
 
@@ -987,6 +984,21 @@ def _int_mm_library(m: int, k: int, n: int, gen) -> tuple:
     return None, None
 
 
+def k8_weights(gen, k: int, n: int, layers: int | None = NUM_LAYERS_POOL) -> tuple[torch.Tensor, torch.Tensor]:
+    """The w8a8 engine's int8 weight of one projection, (layers, K, N) (or
+    (K, N) unstacked), and its per-column scales."""
+    lead = () if layers is None else (layers,)
+    w8 = torch.randint(-127, 128, (*lead, k, n), generator=gen, device="cuda", dtype=torch.int8)
+    return w8, torch.rand((*lead, n), generator=gen, device="cuda") * 1e-3 + 1e-4
+
+
+def k8_rows(gen, m: int, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """m int8 activation rows and their per-row scales, 10x apart end to end
+    (a kernel that swapped sa and sb would fail)."""
+    a = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+    return a, 1e-3 * torch.logspace(0, 1, m, device="cuda")
+
+
 def kernel_phase_k8(gen) -> dict:
     """K8 (int8 x int8 -> int32, then * sa[m] * sb[n]) at the w8a8 engine's
     shapes, M in GEMM_MS, layer 17 of a 32-layer stack (lm_head unstacked);
@@ -1000,18 +1012,15 @@ def kernel_phase_k8(gen) -> dict:
     err, detail = 0.0, []
     for (k, n) in (*FUSED_LAYER_SHAPES, LM_HEAD):
         layers = NUM_LAYERS_POOL if (k, n) != LM_HEAD else None
-        lead = () if layers is None else (layers,)
-        w8 = torch.randint(-127, 128, (*lead, k, n), generator=gen, device="cuda", dtype=torch.int8)
-        sb = torch.rand((*lead, n), generator=gen, device="cuda") * 1e-3 + 1e-4
+        w8, sb = k8_weights(gen, k, n, layers)
         li = None if layers is None else LAYER
         cyc = _stack_cycle() if layers else itertools.repeat(None)
         # The bf16 matmul of the same shape, for reference (three weights in turn, so not from L2).
         dense = itertools.cycle([torch.randn((k, n), generator=gen, device="cuda").to(torch.bfloat16)
                                  for _ in range(3)])
         for m in GEMM_MS:
-            a = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+            a, sa = k8_rows(gen, m, k)
             xb = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
-            sa = 1e-3 * torch.logspace(0, 1, m, device="cuda")  # rows 10x apart, end to end
             out_k = launch(a, w8, sa, sb, torch.bfloat16, li)
             out_p = plain(a, w8, sa, sb, torch.bfloat16, li)
             torch.cuda.synchronize()
@@ -1053,6 +1062,74 @@ def kernel_phase_k8(gen) -> dict:
         row["by_m"][m]["matmul_ms"] = matmul
         print(f"scaled_gemm one layer at M={m}: bf16 torch.matmul {matmul:.4f} ms", flush=True)
     return row
+
+
+# K8's option sweep: rows from one to past a 512-row chunk (1 and 17:
+# partial row tiles of the 32-row template; 40: the 64-row one; 130, 600:
+# several 128-row tiles), a small shape (K 96: a K slice zero-filled past
+# K; N 160: a partial column block) with every option, and the served
+# shapes (FUSED_LAYER_SHAPES) with one option set each, in turn.
+SCALED_OPTION_MS = (1, 8, 16, 17, 31, 32, 40, 130, 512, 600)
+SCALED_OPTION_SMALL = (96, 160)
+SCALED_OPTIONS = list(itertools.product(
+    (torch.float32, torch.bfloat16), ("scalar", "row"), ("scalar", "column"), ("single", "stacked"),
+    (0, 64, 40),  # a's row stride past K: contiguous, one TMA takes, one the wrapper realigns
+))
+
+
+def check_scaled_gemm_options(gen) -> None:
+    """K8's int8 path against ``scaled_gemm_plain``, every output equal bit
+    for bit (``torch.equal``: the sums are exact in int32 and both apply
+    ``(float(v) * sa[m]) * sb[n]`` in f32, then round once): M in
+    SCALED_OPTION_MS at K 96 / N 160 with every option of SCALED_OPTIONS
+    (output f32 or bf16; scale_a one value or per row, 10x apart; scale_b
+    one value or per column; a single weight or layer 1 of a 2-layer stack
+    with its scales; a's rows contiguous or with a row stride of K + 64 or K
+    + 40), and at the served shapes with one option set each (cycling).
+    Then w_down's shape (K 14336) at 8 and 32 rows with every value of a
+    and b in 125..127: each split's partial sum (K split 8 ways) exceeds
+    2^24, so a workspace that held them in f32 would lose bits. Mismatches
+    are counted on the card and read once; the case count is printed."""
+    from conch_tpu_torch.kernels.quantization.gemm import scaled_gemm_launcher as launch, scaled_gemm_plain as plain
+
+    names, same = [], []
+
+    def run(m: int, k: int, n: int, options: list, low: int = -127) -> None:
+        w = torch.randint(low, 128, (2, k, n), generator=gen, device="cuda", dtype=torch.int8)
+        sb_stack = torch.rand((2, n), generator=gen, device="cuda") * 1e-3 + 1e-4
+        a_wide = torch.randint(low, 128, (m, k + 64), generator=gen, device="cuda", dtype=torch.int8)
+        sa_row = 1e-3 * torch.logspace(0, 1, m, device="cuda")
+        scalar = torch.tensor([2.5e-3], device="cuda")
+        for out_dtype, sa_kind, sb_kind, weight, pad in options:
+            a = a_wide[:, :k] if pad == 64 else torch.empty((m, k + pad), dtype=torch.int8, device="cuda")[:, :k]
+            if pad != 64:
+                a.copy_(a_wide[:, :k])
+            sa = scalar if sa_kind == "scalar" else sa_row
+            b, sb, layer = (w[1], sb_stack[1], None) if weight == "single" else (w, sb_stack, 1)
+            if sb_kind == "scalar":
+                sb = scalar
+            out = launch(a, b, sa, sb, out_dtype, layer)
+            names.append(f"K8 M {m} K {k} N {n} out {str(out_dtype)[6:]} sa {sa_kind} sb {sb_kind} {weight} "
+                         f"a stride {a.stride(0)}")
+            same.append(torch.equal(out, plain(a, b, sa, sb, out_dtype, layer)))
+
+    for m in SCALED_OPTION_MS:
+        run(m, *SCALED_OPTION_SMALL, SCALED_OPTIONS)
+    turn = itertools.cycle(SCALED_OPTIONS)
+    for k, n in FUSED_LAYER_SHAPES:
+        for m in SCALED_OPTION_MS:
+            run(m, k, n, [next(turn)])
+        torch.cuda.empty_cache()
+    for m in (8, 32):
+        run(m, INTER, HIDDEN, [(torch.float32, "row", "column", "stacked", 0)], low=125)
+    same_list = torch.tensor(same).tolist()
+    print(f"K8 scaled_gemm options: {len(names)} cases, {sum(same_list)} equal to the plain version bit for bit",
+          flush=True)
+    bad = [name for name, ok in zip(names, same_list) if not ok]
+    for name in bad[:20]:
+        print(f"{name}: differs from the plain version", flush=True)
+    if bad:
+        raise AssertionError(f"{len(bad)} of {len(names)} K8 option cases differ from the plain version")
 
 
 GATE = (4096, 14336)  # Llama-3-8B's gate projection (K, N); its (N, K) weight is quantized
@@ -1361,6 +1438,65 @@ def k3_bound(case: dict, window: int) -> tuple[float, str]:
     return bound(bytes_moved, 4 * qh * d * sum(n - a for n, a in zip(seq_lens, starts)))
 
 
+# K7's timed prefill steps: name -> (model, rows, table pages, q_lens,
+# seq_lens, (source, reading sequence, shared pages), windows). Llama-3-8B:
+# a 128-row step as the engine packs it: a mixed-in decode row (context
+# 300), a fresh 50-token prompt, the last 40-token chunk of a 340-token
+# prompt, a 30-token chunk whose first 4 pages are shared with that prompt,
+# then zero-length padding sequences and 7 padding rows. Gemma-2-2B: a
+# 512-row step: a mixed-in decode row at context 4200, a 7-token prompt,
+# the last 400-token chunk of a 4600-token prompt, zero-length padding
+# sequences (16 in all, the served run's batch) and 104 padding rows, on a
+# global layer (no window) and a local one (window 4096).
+K7_CASES = {
+    "llama3_8b table line": ("llama", 128, MAX_PAGES_PER_SEQ, [1, 50, 40, 30, 0, 0, 0, 0],
+                             [300, 50, 340, 94, 0, 0, 0, 0], (2, 3, 4), (0,)),
+    "gemma2 table line": ("gemma", 512, 384, [1, 7, 400] + [0] * 13, [4200, 7, 4600] + [0] * 13, (0, 0, 0),
+                          (0, G_WINDOW)),
+}
+
+
+def k7_inputs(gen, rng, name: str, cache: str | None = None) -> dict:
+    """K7_CASES[name] on the card: ``args``, the launcher's arguments up to
+    the window (query, pools, cu_seqlens_q, seq_lens, block table, scale,
+    causal, layer 17, softcap); ``windows``, ``q_lens``, ``seq_lens``,
+    ``bt`` (the table in numpy), ``total`` (rows before the padding) and
+    ``shape`` (QH, KH, D). Shapes, scales and query gains as ``k3_inputs``;
+    pools bf16, or int8 / e4m3 (``cache``) through the quantizing store."""
+    model, rows, max_pages, q_lens, seq_lens, (src, dst, shared), windows = K7_CASES[name]
+    qh, kh, d, layers, softcap, scale, gain = {
+        "llama": (QH, KH, D, NUM_LAYERS_POOL, 0.0, D**-0.5, 1.0),
+        "gemma": (G_QH, G_KH, G_D, G_LAYERS, G_SOFTCAP, G_SCALE, G_Q_GAIN),
+    }[model]
+    num_pages = sum(-(-n // PS) for n in seq_lens) + 1
+    kc, vc = kv_pools(gen, num_pages, layers, kh, d, cache)
+    bt = paged_layout(rng, seq_lens, num_pages, share=(src, dst), shared_pages=shared, max_pages=max_pages)
+    q = (gain * torch.randn((rows, qh, d), generator=gen, device="cuda")).to(torch.bfloat16)
+    cu = torch.tensor(np.concatenate([[0], np.cumsum(q_lens)]), dtype=torch.int32, device="cuda")
+    sl_t = torch.tensor(seq_lens, dtype=torch.int32, device="cuda")
+    return {
+        "args": (q, kc, vc, cu, sl_t, torch.from_numpy(bt).cuda(), scale, True, LAYER, softcap), "windows": windows,
+        "q_lens": q_lens, "seq_lens": seq_lens, "bt": bt, "total": sum(q_lens), "shape": (qh, kh, d),
+    }
+
+
+def k7_bound(case: dict, window: int) -> tuple[float, str]:
+    """K7's bound on ``case`` (k7_inputs) under ``window``: the live query
+    rows read and every row written in bf16, each cached K and V row that a
+    row sees read once (shared pages once; a sequence's first row has the
+    earliest window start), the block table, cu_seqlens_q and seq_lens; 4 *
+    QH * D operations a visible (row, key) pair."""
+    qh, kh, d = case["shape"]
+    q_lens, seq_lens, bt, kc = case["q_lens"], case["seq_lens"], case["bt"], case["args"][1]
+    rows = case["args"][0].shape[0]
+    row_pos = [s - ql + j for ql, s in zip(q_lens, seq_lens) for j in range(ql)]
+    row_start = [max(p - window + 1, 0) if window else 0 for p in row_pos]
+    starts = [max(s - ql - window + 1, 0) if window else 0 for ql, s in zip(q_lens, seq_lens)]
+    bytes_moved = ((case["total"] + rows) * qh * d * 2 + 2 * unique_kv_rows(bt, seq_lens, starts) * kh * d
+                   * kc.element_size() + bt.size * 4 + (len(q_lens) + 1 + len(seq_lens)) * 4)
+    return bound(bytes_moved, 4 * qh * d * sum(p + 1 - a for p, a in zip(row_pos, row_start)))
+
+
 def kernel_phase_k10a(gen) -> dict:
     """K10a at 8 and 512 rows x 2304 in bf16 (timed) and f32, weights
     random (so a kernel that dropped the (1 + w) would fail); tolerances
@@ -1470,20 +1606,9 @@ def gemma_attention_phases(gen, rng, cache: str | None = None) -> dict[str, list
         varlen_attention_plain as k7_plain_kv,
     )
 
-    max_pages = 384
-    pre_q = [1, 7, 400] + [0] * 13
-    pre_k = [4200, 7, 4600] + [0] * 13
     dec = k3_inputs(gen, rng, "gemma2 table line", cache)
-    num_pages = sum(-(-n // PS) for n in pre_k) + 1
-    kc, vc = kv_pools(gen, num_pages, G_LAYERS, G_KH, G_D, cache)
+    pre = k7_inputs(gen, rng, "gemma2 table line", cache)
     k3, k3_plain, k7, k7_plain = (with_kv_scales(fn, cache) for fn in (k3_kv, k3_plain_kv, k7_kv, k7_plain_kv))
-    elem = kc.element_size()
-    bt_pre = paged_layout(rng, pre_k, num_pages, share=(0, 0), shared_pages=0, max_pages=max_pages)
-    rows, total = 512, sum(pre_q)
-    q_pre = (G_Q_GAIN * torch.randn((rows, G_QH, G_D), generator=gen, device="cuda")).to(torch.bfloat16)
-    cu = np.concatenate([[0], np.cumsum(pre_q)]).astype(np.int32)
-    pre = [torch.from_numpy(cu).cuda(), torch.tensor(pre_k, dtype=torch.int32, device="cuda"),
-           torch.from_numpy(bt_pre).cuda()]
     out: dict[str, list[dict]] = {"paged_attention": [], "varlen_attention": []}
     for window in dec["windows"]:
         tag = f"gemma2 softcap {G_SOFTCAP:g} window {window}" + (f" {cache} cache" if cache else "")
@@ -1500,25 +1625,19 @@ def gemma_attention_phases(gen, rng, cache: str | None = None) -> dict[str, list
             "plain_ms": time_ms(lambda: k3_plain(*args), iters=5), "library_ms": None,
         })
 
-        args = (q_pre, kc, vc, *pre, G_SCALE, True, LAYER, G_SOFTCAP, window)
+        args = (*pre["args"], window)
         got, ref = k7(*args), k7_plain(*args)
         torch.cuda.synchronize()
-        if not torch.isfinite(got).all() or got[total:].abs().max().item() != 0.0:
+        if not torch.isfinite(got).all() or got[pre["total"]:].abs().max().item() != 0.0:
             raise AssertionError(f"K7 ({tag}): padding rows must come out as finite zeros")
         err = check_close(f"K7 varlen_attention {tag}", got, ref, 2e-2)
-        row_pos = [s - ql + j for ql, s in zip(pre_q, pre_k) for j in range(ql)]
-        row_start = [max(p - window + 1, 0) if window else 0 for p in row_pos]
-        # A sequence's first row has the earliest window start.
-        starts = [max(s - ql - window + 1, 0) if window else 0 for ql, s in zip(pre_q, pre_k)]
-        bytes_moved = ((total + rows) * G_QH * G_D * 2 + 2 * unique_kv_rows(bt_pre, pre_k, starts) * G_KH * G_D * elem
-                       + bt_pre.size * 4 + (len(cu) + len(pre_k)) * 4)
-        b_ms, b_by = bound(bytes_moved, 4 * G_QH * G_D * sum(p + 1 - a for p, a in zip(row_pos, row_start)))
+        b_ms, b_by = k7_bound(pre, window)
         out["varlen_attention"].append({
             "case": tag, "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
             "ms": time_ms(lambda: k7(*args)), "paced_ms": paced_ms(lambda: k7(*args)),
             "plain_ms": time_ms(lambda: k7_plain(*args), iters=5), "library_ms": None,
         })
-    del kc, vc, dec
+    del pre, dec
     torch.cuda.empty_cache()
     for name, cases in out.items():
         for d in cases:
@@ -1907,6 +2026,125 @@ def check_paged_attention_options(gen, rng) -> None:
             raise AssertionError(f"K3 in a CUDA graph: replay {step} differs from the eager call (max {diff})")
     print("K3 paged_attention in a CUDA graph: two replays (seq_lens changed in place between them) bit for bit "
           "equal to the eager calls", flush=True)
+
+
+# K7's option sweep: the (query, cache) dtypes and GQA groups of K3's
+# sweep, head sizes 64, 128, 256 and 34 (rows copied 4 bytes at a time, or
+# element by element for 1-byte caches; zero-padded to 64 in shared
+# memory), causal or not, softcap, windows (37: not a page multiple), and
+# one ragged step: a decode row mixed in (context 700), a zero-length
+# sequence between live ones, a fresh 77-token prompt (tiles crossing the
+# diagonal), the last 150-token chunk of a 1000-token prompt and a 40-token
+# chunk of a 300-token prompt whose first 8 pages are that prompt's, a
+# zero-length padding sequence and 12 padding rows, over a 64-page table
+# (its splits merged; under window 37 one split).
+VARLEN_OPTION_QLENS = [1, 0, 77, 150, 40, 0]
+VARLEN_OPTION_LENS = [700, 0, 77, 1000, 300, 0]
+VARLEN_OPTION_ROWS = 280
+VARLEN_OPTION_GRAPH = ([5, 20, 0, 200, 43, 0], [64, 20, 0, 1000, 999, 0])  # q_lens, seq_lens after the change
+
+
+def check_varlen_attention_options(gen, rng) -> None:
+    """K7 at every option it takes, against its plain version: the (query,
+    cache) dtypes of ``PAGED_OPTION_TYPES`` (1-byte caches at KV_SCALES),
+    GQA groups ``PAGED_OPTION_GROUPS`` over 2 KV heads, head sizes
+    ``PAGED_OPTION_HEADS``, causal and not, softcap 0 and 30, windows 0, 37
+    and 500, on the ragged step of ``VARLEN_OPTION_QLENS`` (layer 2 of a
+    3-layer pool). Tolerance 2e-2 + 2e-2 x |ref| (bf16 P in the tensor-core
+    PV product; the JAX tests' 2e-2); padding rows exactly zero; every case
+    twice, bit for bit. On float caches every page that no row may see (the
+    block table's padding, pages wholly before a sequence's first window) is
+    NaN in the pool the kernel reads, so a read of one fails the case. Then
+    one call is captured in a CUDA graph: its replay must equal the eager
+    call, and again after cu_seqlens_q and seq_lens changed in place (the
+    wrapper reads no value on the host). Errors are gathered on the card
+    and read once; the case count is printed."""
+    from conch_tpu_torch.kernels.attention.varlen_attention import (
+        varlen_attention_launcher as launch,
+        varlen_attention_plain as plain,
+        varlen_tile_plan,
+    )
+    from conch_tpu_torch.kernels.common import sm_count
+
+    q_lens, lens, rows = VARLEN_OPTION_QLENS, VARLEN_OPTION_LENS, VARLEN_OPTION_ROWS
+    total = sum(q_lens)
+    num_pages = sum(-(-n // PS) for n in lens) + 2
+    poison_page = num_pages - 1
+    bt = paged_layout(rng, lens, num_pages - 1, share=(3, 4), shared_pages=8, max_pages=64)
+    bt[bt == 0] = poison_page  # padding entries (page 0 is never drawn by paged_layout)
+    bt_t = torch.from_numpy(bt).cuda()
+    cu_t = torch.tensor(np.concatenate([[0], np.cumsum(q_lens)]), dtype=torch.int32, device="cuda")
+    sl_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    names, errs, tols, same, pad, splits_seen = [], [], [], [], [], set()
+    for q_dt, c_dt in PAGED_OPTION_TYPES:
+        one_byte = c_dt in (torch.int8, torch.float8_e4m3fn)
+        ks, vs = KV_SCALES["int8" if c_dt == torch.int8 else "fp8"] if one_byte else (1.0, 1.0)
+        for group in PAGED_OPTION_GROUPS:
+            qh = group * PAGED_OPTION_KH
+            for d in PAGED_OPTION_HEADS:
+                kc, vc = _option_pool(gen, num_pages, d, c_dt)
+                q = (6.0 * torch.randn((rows, qh, d), generator=gen, device="cuda")).to(q_dt)
+                scale = d**-0.5
+                for window in (0, 37, 500):
+                    # A sequence's rows see [its first row's window start, seq_len).
+                    seen = {int(bt[b, pos // PS]) for b, (ql, n) in enumerate(zip(q_lens, lens))
+                            for pos in range(max(n - ql - window + 1, 0) if window else 0, n)}
+                    hidden = sorted({int(p) for p in bt.reshape(-1)} - seen)
+                    kp, vp = (kc, vc) if c_dt == torch.int8 else (_poisoned(kc, hidden), _poisoned(vc, hidden))
+                    for causal in (True, False):
+                        plan = varlen_tile_plan(rows, len(lens), bt.shape[1], PS, qh, PAGED_OPTION_KH, d, causal,
+                                                window, sm_count(0))
+                        splits_seen.add(plan.splits)
+                        for softcap in (0.0, 30.0):
+                            args = (q, kp, vp, cu_t, sl_t, bt_t, scale, causal, 2, softcap, window, 1.0, ks, vs)
+                            out, again = launch(*args), launch(*args)
+                            ref = plain(q, kc, vc, cu_t, sl_t, bt_t, scale, causal, 2, softcap, window, 1.0, ks, vs)
+                            names.append(f"K7 q {str(q_dt)[6:]} cache {str(c_dt)[6:]} G {group} D {d} "
+                                         f"{'causal' if causal else 'non-causal'} ({plan.splits} splits) window "
+                                         f"{window} softcap {softcap:g}")
+                            diff = (out[:total].float() - ref[:total].float()).abs()
+                            errs.append(diff.max())
+                            tols.append((diff - 2e-2 - 2e-2 * ref[:total].float().abs()).max())  # <= 0: inside
+                            same.append(torch.equal(out, again))
+                            pad.append(out[total:].float().abs().max())
+                del kc, vc
+    err_list, over, same_list, pad_list = (torch.stack(errs).tolist(), torch.stack(tols).tolist(),
+                                           torch.tensor(same).tolist(), torch.stack(pad).tolist())
+    print(f"K7 varlen_attention options: {len(names)} cases (splits {sorted(splits_seen)}), worst max_abs_err "
+          f"{max(err_list):.3e}; {sum(same_list)} bit for bit across two calls", flush=True)
+    bad = [(name, e) for name, e, o, z in zip(names, err_list, over, pad_list) if not (o <= 0.0 and z == 0.0)]
+    for name, e in bad:
+        print(f"{name}: max_abs_err {e:.3e} outside the tolerance, or a padding row not exactly zero", flush=True)
+    if bad:
+        raise AssertionError(f"{len(bad)} of {len(names)} K7 option cases fail")
+    if not all(same_list):
+        raise AssertionError(f"{len(same_list) - sum(same_list)} K7 option cases differ between two calls")
+
+    # One call in a CUDA graph, replayed: the same bits as the eager call,
+    # and again after cu_seqlens_q and seq_lens changed in place.
+    kc, vc = _option_pool(gen, num_pages, D, torch.bfloat16)
+    q = torch.randn((rows, 4 * PAGED_OPTION_KH, D), generator=gen, device="cuda").to(torch.bfloat16)
+    bt_t = torch.from_numpy(np.where(bt == poison_page, 0, bt)).cuda()
+    args = (q, kc, vc, cu_t, sl_t, bt_t, D**-0.5, True, 2, 30.0, 500)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        launch(*args)  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = launch(*args)
+    for step, (new_q, new_lens) in enumerate(((q_lens, lens), VARLEN_OPTION_GRAPH)):
+        cu_t.copy_(torch.tensor(np.concatenate([[0], np.cumsum(new_q)]), dtype=torch.int32))
+        sl_t.copy_(torch.tensor(new_lens, dtype=torch.int32))
+        graph.replay()
+        eager = launch(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(captured, eager):
+            diff = (captured.float() - eager.float()).abs().max().item()
+            raise AssertionError(f"K7 in a CUDA graph: replay {step} differs from the eager call (max {diff})")
+    print("K7 varlen_attention in a CUDA graph: two replays (cu_seqlens_q and seq_lens changed in place between "
+          "them) bit for bit equal to the eager calls", flush=True)
 
 
 def quantized_cache_phases(gen, rng, by_name: dict) -> None:
@@ -2444,8 +2682,9 @@ def gemm_output_types(gen, by_name: dict) -> None:
     K1c (NF4 rows) at Llama-3-8B's wo (K = N = 4096), M = 8 and 512, layer
     17 of a 32-layer stack: the f32 store against the plain version at the
     kernels' tolerance (1e-2 x max |ref|), timed beside the bf16 store
-    (``out_f32`` in each row). A float16 output and a bfloat16 acc_dtype
-    must raise on the card."""
+    (``out_f32`` in each row). A float16 output must raise on the card; a
+    bfloat16 acc_dtype is recorded only (JAX's kernels never read it), so
+    its call must equal the float32 acc_dtype call bit for bit."""
     from conch_tpu_torch.kernels.quantization.bitsandbytes.blockwise import NF4_CODE
     from conch_tpu_torch.kernels.quantization.gemm import (
         mixed_gemm_magic_plain,
@@ -2494,14 +2733,19 @@ def gemm_output_types(gen, by_name: dict) -> None:
                     "bf16_store_ms": time_ms(lambda: op(torch.bfloat16, next(layers)))}
             by_name[name]["out_f32"].append(case)
             print(f"{name} M={m}: f32 store {case['ms']:.4f} ms, bf16 store {case['bf16_store_ms']:.4f} ms", flush=True)
-        for bad, error in (({"output_dtype": torch.float16}, "float16"), ({"acc_dtype": torch.bfloat16}, "bfloat16")):
-            try:
-                mixed_precision_gemm(x, packed, scales, None, bits, bias, group, layer_index=LAYER, **kw, **bad)
-            except NotImplementedError as exc:
-                if error not in str(exc):
-                    raise AssertionError(f"{name} {bad}: the error does not name {error}: {exc}") from exc
-            else:
-                raise AssertionError(f"{name} {bad}: no error on the card")
+        try:
+            mixed_precision_gemm(x, packed, scales, None, bits, bias, group, layer_index=LAYER, output_dtype=torch.float16,
+                                 **kw)
+        except NotImplementedError as exc:
+            if "float16" not in str(exc):
+                raise AssertionError(f"{name} output_dtype float16: the error does not name float16: {exc}") from exc
+        else:
+            raise AssertionError(f"{name} output_dtype float16: no error on the card")
+        acc = {dt: mixed_precision_gemm(x, packed, scales, None, bits, bias, group, layer_index=LAYER, acc_dtype=dt,
+                                        **kw) for dt in (torch.bfloat16, torch.float32)}
+        if not torch.equal(acc[torch.bfloat16], acc[torch.float32]):
+            raise AssertionError(f"{name}: acc_dtype bfloat16 differs from acc_dtype float32 on the card")
+        print(f"{name} M={x.shape[0]}: acc_dtype bfloat16 equal to acc_dtype float32 bit for bit", flush=True)
         del packed, scales
     torch.cuda.empty_cache()
 
@@ -2793,6 +3037,8 @@ def kernel_phases() -> list[dict]:
     check_quant_gemm_options(gen)
     check_magic_gemm_options(gen)
     check_paged_attention_options(gen, rng)
+    check_varlen_attention_options(gen, rng)
+    check_scaled_gemm_options(gen)
     for r in rows:
         print(
             f"{r['name']}: {r['ms']:.4f} ms (paced {r['paced_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
@@ -3316,10 +3562,11 @@ def profile_run(fn, label: str) -> None:
           + ", ".join(f"{g} {t:.1f} ms" for g, t in sorted(groups.items(), key=lambda x: -x[1])), flush=True)
     top = sorted(by_name.items(), key=lambda x: -x[1])[:8]
     print(f"{label} profile top kernels: " + "; ".join(f"{n} {t:.1f} ms" for n, t in top), flush=True)
-    # The kernels one K1, K1b or K1c call may launch (the GEMM, the split
-    # reduction, K1b's x row-sum pre-pass), and K3's two (the split walk,
-    # the merge).
-    for tag, names in (("K1/K1b/K1c", ("qgemm::", "group_row_sums")), ("K3", ("paged_split", "paged_merge"))):
+    # The kernels one K1, K1b, K1c or K8 call may launch (the GEMM, the
+    # split reduction, K1b's x row-sum pre-pass), and K3's and K7's two
+    # each (the split walk, the merge).
+    for tag, names in (("K1/K1b/K1c/K8", ("qgemm::", "group_row_sums")), ("K3", ("paged_split", "paged_merge")),
+                       ("K7", ("varlen_tile", "varlen_merge", "varlen_rows"))):
         found = {n: t for n, t in by_name.items() if any(key in n for key in names)}
         if found:
             counts = {n: sum(1 for e in kernels if e["name"][:60] == n) for n in found}

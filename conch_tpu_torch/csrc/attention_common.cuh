@@ -1,12 +1,12 @@
 // Copyright 2026 Conch-TPU authors.
 // SPDX-License-Identifier: Apache-2.0
 //
-// One block's share of the varlen prefill kernel (K7,
-// varlen_attention.cu): the G query heads of one GQA group, all at one
-// query position, attend to the tokens kv_start..kv_len-1 of one KV head,
-// found through the block table, walked by the one block alone. Online
-// softmax over tiles of TILE tokens, f32 throughout. (The decode kernel K3,
-// paged_attention.cu, splits its walk over blocks and has its own loop.)
+// One block's share of K7's f32-query kernel (varlen_attention.cu:
+// varlen_rows_f32_kernel; bf16 queries take the tiled tensor-core kernel
+// there): the G query heads of one GQA group, all at one query position,
+// attend to the tokens kv_start..kv_len-1 of one KV head, found through the
+// block table, walked by the one block alone. Online softmax over tiles of
+// TILE tokens, f32 throughout.
 //
 //   1. the block resolves the tile's cache rows from the block table,
 //      reading only entries in [kv_start, kv_len) (never the table's

@@ -50,6 +50,8 @@ using qgemm::Stage;
 template <int G>
 struct MagicLayout {
   static_assert(G == 64 || G == 128, "a magic slice is one group of 64 or 128");
+  using Acc = float;  // wgmma sums bf16 x in f32
+  static constexpr int XB = 2;  // bytes of an x value
   static constexpr int EPP = 8;
   static constexpr int KS = G;           // k of a slice: one group
   static constexpr int WR = G / 8;       // word rows of a slice

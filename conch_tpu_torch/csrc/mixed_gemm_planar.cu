@@ -54,6 +54,8 @@ using qgemm::Stage;
 // boxes, as for GPTQ rows. Otherwise a slice is 16 word rows of one group.
 template <int BITS, bool WHOLE>
 struct PlanarLayout {
+  using Acc = float;  // wgmma sums bf16 x in f32
+  static constexpr int XB = 2;  // bytes of an x value
   static constexpr int EPP = 32 / BITS;
   static constexpr int WR = WHOLE ? 128 / EPP : 16;  // word rows of a slice
   static constexpr int KS = WR * EPP;                // k of a slice

@@ -45,6 +45,8 @@ using qgemm::Stage;
 
 template <int BITS, bool ONE_GROUP>
 struct RowsLayout {
+  using Acc = float;  // wgmma sums bf16 x in f32
+  static constexpr int XB = 2;  // bytes of an x value
   static constexpr int EPP = 32 / BITS;
   static constexpr int KS = qgemm::kKSlice;     // k of a slice
   static constexpr int STEPS = KS / 16;         // wgmma k16 steps a slice

@@ -188,10 +188,6 @@ __device__ __forceinline__ float* mla_partial_acc(const MlaParams& p, const MlaT
   return p.part_acc + ((static_cast<int64_t>(blockIdx.z) * p.total_q + t.q0 + i) * p.heads + h) * p.latent + col;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
 }
@@ -199,23 +195,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\n" ::);
   asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-// Eight one-byte cache elements (int8 or e4m3) as eight bf16, exactly.
-template <typename C>
-__device__ __forceinline__ uint4 widen8_bf16(uint2 raw) {
-  const C* e = reinterpret_cast<const C*>(&raw);
-  uint4 out;
-  __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(&out);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) o[i] = __float2bfloat16(to_float(e[i]));
-  return out;
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* ptr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(ptr)));
 }
 
 // Shared-memory layout of the bf16 kernel (bytes), rows padded by 8 bf16 so

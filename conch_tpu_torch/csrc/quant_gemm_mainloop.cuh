@@ -3,9 +3,13 @@
 //
 // The pipelined tensor-core mainloop shared by the weight-only GEMMs K1
 // (mixed_gemm_magic.cu), K1b (mixed_gemm_planar.cu) and K1c
-// (mixed_gemm_rows.cu). Each layout plugs in as a small policy: where a K
-// slice's codes, scales and x values lie, and how a thread turns its words
-// into wgmma's A fragment.
+// (mixed_gemm_rows.cu), and by the int8 scaled GEMM K8 (scaled_gemm.cu).
+// Each layout plugs in as a small policy: where a K slice's codes, scales
+// and x values lie, and how a thread turns its words into wgmma's A
+// fragment. The weight-only GEMMs take bf16 x and sum in f32
+// (wgmma.m64nBNk16.f32.bf16); K8 takes int8 x and sums in s32
+// (wgmma.m64nBNk32.s32.s8.s8, its int32 split workspace added exactly),
+// then scales each output by its row's and column's scales.
 //
 // out[M, N] = x[M, K] @ W[K, N] is computed transposed ("swap AB"):
 // outT = WT . xT, so that the weight's N fills the 64-row side of
@@ -40,10 +44,9 @@
 //    calls.
 // The launch plan (BN, the K slice, slices, unit, splits) comes from the
 // Python wrapper (kernels/quantization/gemm.py: quant_gemm_plan, layouts
-// "magic", "planar" and "gptq"); the
-// entry points refuse a plan their template cannot run (plan_ok) and run
-// the rest as it is. Tried on
-// the card and dropped (PERF.md): pairs of column blocks sharing x
+// "magic", "planar", "gptq" and "scaled"); the entry points refuse a
+// plan their template cannot run (plan_ok) and run the rest as it is.
+// Tried on the card and dropped (PERF.md): pairs of column blocks sharing x
 // by TMA multicast in a cluster, split-K added up through distributed
 // shared memory, a value table in static shared memory, and K orders
 // rotated per column block; each was slower. K1b's fold between a group's
@@ -56,6 +59,8 @@
 #pragma once
 
 #include <cuda.h>
+
+#include <type_traits>
 
 #include "gemm_common.cuh"
 
@@ -70,15 +75,17 @@ constexpr int kExtraBytes = 2048;         // value table (16 f32), x row sums (2
 constexpr int kKSlice = 64;               // K of a GPTQ-row slice (one 128-byte swizzle atom of x)
 
 struct Params {
-  CUtensorMap tm_x;  // x, bf16, in the layout's box and wgmma layout
-  CUtensorMap tm_w;  // the layer's words: (K / epp, N) int32, box (128, WR)
+  CUtensorMap tm_x;  // x (bf16; K8: int8), in the layout's box and wgmma layout
+  CUtensorMap tm_w;  // the layer's words: (K / epp, N) int32, box (128, WR); K8: (K, N) bytes, box (128, 128)
   CUtensorMap tm_s;  // its scales: (groups, N) bf16 or f32, box (128, SR)
   CUtensorMap tm_z;  // its per-group zero-points (zp_mode 2): f32, box (128, SR)
   CUtensorMap tm_xs; // x's row sums per group (xs_pre): (groups, M) f32, box (BN, 1)
   const float* zp;
   const float* codebook;  // 16 f32 (K1c codebooks) or null
+  const float* sa;        // K8: row scales (m, or one value when sa_scalar)
+  const float* sb;        // K8: column scales (n, or one value when sb_scalar)
   void* out;
-  float* ws;  // (splits, m, n) f32 partial sums when splits > 1
+  float* ws;  // (splits, m, n) partial sums when splits > 1: f32, or int32 for an s32 layout
   int m, n, k;
   int group, num_groups;
   float bias;
@@ -89,6 +96,7 @@ struct Params {
   int unit;        // slices per split unit
   int splits;
   int xs_pre;      // the row sums come from group_row_sums_kernel (K1b at 128 rows a block)
+  int sa_scalar, sb_scalar;
 };
 
 // Slices [s0, s1) of split `split`: whole units, split as evenly as integer
@@ -154,6 +162,11 @@ template <int R>
 __device__ __forceinline__ void fence_operands(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_operands(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // wgmma's descriptor of a K-major bf16 tile with the 128-byte swizzle:
@@ -230,6 +243,68 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
+// d[BN/2] += A[64 x 32] . B[32 x BN] in s32, int8 operands: A from
+// registers (warp w of the warpgroup holding rows 16w .. 16w+15; register
+// i of a thread: row g + 8 (i & 1), k 4t .. 4t+3 + 16 (i >> 1), the lowest
+// k in the lowest byte, as mma.m16n8k32's A), B from shared memory through
+// `desc`; scale_d 0 overwrites d.
+template <int BN>
+__device__ __forceinline__ void wgmma_rs_s8(int (&d)[BN / 2], const uint32_t (&a)[4], uint64_t desc, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_rs_s8<32>(int (&d)[16], const uint32_t (&a)[4], uint64_t desc,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_s8<64>(int (&d)[32], const uint32_t (&a)[4], uint64_t desc,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_s8<128>(int (&d)[64], const uint32_t (&a)[4], uint64_t desc,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
 // A code c < 2^23 as f32, exactly, minus `offset` (exact for the biases and
 // code ranges of 2- to 8-bit codes): 2^23 + c is the float with bits
 // 0x4B000000 | c, so one FADD replaces I2F.
@@ -239,14 +314,14 @@ __device__ __forceinline__ float code_minus(uint32_t c, float offset) {
 
 // -- the ring ------------------------------------------------------------------
 
-// One stage: x (BN rows x KS values, K-major, in the layout's wgmma
+// One stage: x (BN rows x KS values of XB bytes, K-major, in the layout's wgmma
 // layout, 1024-byte aligned, first), the words (WR rows of kCols), SR scale rows and SR
 // zero-point rows (kCols values each, room for f32), a 16-byte group
 // table (GPTQ rows with small groups) and the x rows' sums over the group
 // (K1b with xs_pre).
 template <class L, int BN>
 struct Ring {
-  static constexpr int kX = BN * L::KS * 2;
+  static constexpr int kX = BN * L::KS * L::XB;
   static constexpr int kWOff = kX;
   static constexpr int kRow = kCols * 4;
   static constexpr int kSOff = kWOff + L::WR * kCols * 4;
@@ -308,11 +383,11 @@ __device__ __forceinline__ void issue_slice(const Params& p, const L& lay, uint8
   if (threadIdx.x != 0) return;
   const uint32_t sbase = smem_u32(base);
   const int sb = p.f32_scales ? 4 : 2;
-  mbar_expect_tx(bar, BN * L::KS * 2 + L::WR * kCols * 4 + L::SR * kCols * sb +
+  mbar_expect_tx(bar, BN * L::KS * L::XB + L::WR * kCols * 4 + L::SR * kCols * sb +
                           (p.zp_mode == 2 ? L::SR * kCols * 4 : 0) + (p.xs_pre ? BN * 4 : 0));
   lay.template load_x<BN>(sbase, bar, s, m0);
   tma_2d(sbase + R::kWOff, p.tm_w, bar, n0, lay.word_row(s));
-  tma_2d(sbase + R::kSOff, p.tm_s, bar, n0, g0);
+  if (L::SR > 0) tma_2d(sbase + R::kSOff, p.tm_s, bar, n0, g0);
   if (p.zp_mode == 2) tma_2d(sbase + R::kZOff, p.tm_z, bar, n0, g0);
   if (p.xs_pre) tma_2d(sbase + R::kXsOff, p.tm_xs, bar, m0, g0);
 }
@@ -329,8 +404,8 @@ __device__ __forceinline__ void hold_fragments(uint32_t (&a)[STEPS][4]) {
     for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[j][i])::"memory");
 }
 
-// A layout L provides: its slice geometry (EPP, KS, WR, SR, kGroupTable,
-// STEPS), Frag<BN> (the A fragments of one slice, a[STEPS][4], and what
+// A layout L provides: its accumulator type Acc (float, or int for s8),
+// its slice geometry (XB, EPP, KS, WR, SR, kGroupTable, STEPS), Frag<BN> (the A fragments of one slice, a[STEPS][4], and what
 // retiring the slice needs), State<BN> (carried across slices), word_row /
 // scale_row / load_x (what issue_slice copies), decode (stage ->
 // fragments), mma (fragments -> wgmma, committed) and retire (after the
@@ -339,6 +414,7 @@ template <class L, int BN>
 __global__ void __launch_bounds__(kThreads, Ring<L, BN>::kBlocksPerSm) quant_gemm_kernel(const __grid_constant__ Params p) {
   using R = Ring<L, BN>;
   using Frag = typename L::template Frag<BN>;
+  using Acc = typename L::Acc;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   float* extra = reinterpret_cast<float*>(smem + R::kStages * R::kStage);
@@ -361,9 +437,9 @@ __global__ void __launch_bounds__(kThreads, Ring<L, BN>::kBlocksPerSm) quant_gem
   for (int i = 0; i < R::kStages - 1; ++i) {
     if (s0 + i < s1) issue_slice<L, BN>(p, lay, stage(s0 + i), bar(s0 + i), s0 + i, n0, m0);
   }
-  float acc[BN / 2];
+  Acc acc[BN / 2];
 #pragma unroll
-  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
   typename L::template State<BN> state;
   Frag f0, f1;
   if (s0 < s1) {
@@ -402,11 +478,18 @@ __global__ void __launch_bounds__(kThreads, Ring<L, BN>::kBlocksPerSm) quant_gem
   // acc[4j + e] is output row m0 + 8j + 2t + (e & 1) and, with the
   // thread's column pair c, c + 1 (wgmma rows g and g + 8), column
   // c + (e >> 1): wgmma's accumulator layout, transposed back. Each row's
-  // two columns go out as one 8-byte (f32) or 4-byte (bf16) store.
+  // two columns go out as one 8-byte (f32) or 4-byte (bf16) store. An s32
+  // sum becomes fmul_rn(fmul_rn(float(v), sa[row]), sb[col]) first, or goes
+  // to the int32 workspace.
   const int lane = threadIdx.x & 31;
   const int t = lane & 3;
   const int col = n0 + pair_column();
   if (col >= p.n) return;  // N % 32 == 0: both columns are in or out
+  float sb0 = 0.0f, sb1 = 0.0f;
+  if constexpr (std::is_same_v<Acc, int>) {
+    sb0 = p.sb_scalar ? __ldg(p.sb) : __ldg(p.sb + col);
+    sb1 = p.sb_scalar ? sb0 : __ldg(p.sb + col + 1);
+  }
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
@@ -414,8 +497,20 @@ __global__ void __launch_bounds__(kThreads, Ring<L, BN>::kBlocksPerSm) quant_gem
       const int row = m0 + 8 * j + 2 * t + h;
       if (row >= p.m) continue;
       const int64_t at = static_cast<int64_t>(row) * p.n + col;
-      const float lo = acc[4 * j + h];
-      const float hi = acc[4 * j + 2 + h];
+      float lo, hi;
+      if constexpr (std::is_same_v<Acc, int>) {
+        if (p.splits > 1) {
+          *reinterpret_cast<int2*>(reinterpret_cast<int*>(p.ws) + static_cast<int64_t>(blockIdx.z) * p.m * p.n + at) =
+              make_int2(acc[4 * j + h], acc[4 * j + 2 + h]);
+          continue;
+        }
+        const float sa = p.sa_scalar ? __ldg(p.sa) : __ldg(p.sa + row);
+        lo = __fmul_rn(__fmul_rn(static_cast<float>(acc[4 * j + h]), sa), sb0);
+        hi = __fmul_rn(__fmul_rn(static_cast<float>(acc[4 * j + 2 + h]), sa), sb1);
+      } else {
+        lo = acc[4 * j + h];
+        hi = acc[4 * j + 2 + h];
+      }
       if (p.splits > 1) {
         *reinterpret_cast<float2*>(p.ws + static_cast<int64_t>(blockIdx.z) * p.m * p.n + at) = make_float2(lo, hi);
       } else if (p.out_f32) {
@@ -466,6 +561,32 @@ __global__ void __launch_bounds__(32 * kReduceWarps)
   o[0] = from_float<O>(v.x), o[1] = from_float<O>(v.y), o[2] = from_float<O>(v.z), o[3] = from_float<O>(v.w);
 }
 
+// K8's reduction: out = the splits' int32 sums of ws (exact, in any order),
+// times sa[row] then sb[col] in f32 (fmul_rn, in that order), rounded once.
+// A thread takes 4 neighbouring outputs of one row (N % 32 == 0).
+template <typename O>
+__global__ void __launch_bounds__(256) split_reduce_scaled_kernel(const int4* __restrict__ ws, O* __restrict__ out,
+                                                                  int64_t count4, int splits, int n,
+                                                                  const float* __restrict__ sa, int sa_scalar,
+                                                                  const float* __restrict__ sb, int sb_scalar) {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");  // the GEMM grid has finished and its stores are visible
+  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (i >= count4) return;
+  int4 v = make_int4(0, 0, 0, 0);
+  for (int s = 0; s < splits; ++s) {
+    const int4 w = ws[s * count4 + i];
+    v.x += w.x, v.y += w.y, v.z += w.z, v.w += w.w;
+  }
+  const int64_t row = 4 * i / n;
+  const int col = static_cast<int>(4 * i - row * n);
+  const float ra = sa_scalar ? __ldg(sa) : __ldg(sa + row);
+  auto scaled = [&](int x, int c) {
+    return from_float<O>(__fmul_rn(__fmul_rn(static_cast<float>(x), ra), sb_scalar ? __ldg(sb) : __ldg(sb + col + c)));
+  };
+  O* o = out + 4 * i;
+  o[0] = scaled(v.x, 0), o[1] = scaled(v.y, 1), o[2] = scaled(v.z, 2), o[3] = scaled(v.w, 3);
+}
+
 template <class L, int BN>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   using R = Ring<L, BN>;
@@ -487,11 +608,23 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
     attr[0].val.programmaticStreamSerializationAllowed = 1;
     config.attrs = attr;
     config.numAttrs = 1;
-    const auto* ws = reinterpret_cast<const float4*>(p.ws);
-    status = p.out_f32 ? cudaLaunchKernelEx(&config, split_reduce_kernel<float>, ws, static_cast<float*>(p.out),
-                                            count4, p.splits)
-                       : cudaLaunchKernelEx(&config, split_reduce_kernel<__nv_bfloat16>, ws,
-                                            static_cast<__nv_bfloat16*>(p.out), count4, p.splits);
+    if constexpr (std::is_same_v<typename L::Acc, int>) {
+      config.gridDim = dim3(static_cast<unsigned>((count4 + 255) / 256));
+      config.blockDim = dim3(256);
+      const auto* ws = reinterpret_cast<const int4*>(p.ws);
+      status = p.out_f32 ? cudaLaunchKernelEx(&config, split_reduce_scaled_kernel<float>, ws,
+                                              static_cast<float*>(p.out), count4, p.splits, p.n, p.sa, p.sa_scalar,
+                                              p.sb, p.sb_scalar)
+                         : cudaLaunchKernelEx(&config, split_reduce_scaled_kernel<__nv_bfloat16>, ws,
+                                              static_cast<__nv_bfloat16*>(p.out), count4, p.splits, p.n, p.sa,
+                                              p.sa_scalar, p.sb, p.sb_scalar);
+    } else {
+      const auto* ws = reinterpret_cast<const float4*>(p.ws);
+      status = p.out_f32 ? cudaLaunchKernelEx(&config, split_reduce_kernel<float>, ws, static_cast<float*>(p.out),
+                                              count4, p.splits)
+                         : cudaLaunchKernelEx(&config, split_reduce_kernel<__nv_bfloat16>, ws,
+                                              static_cast<__nv_bfloat16*>(p.out), count4, p.splits);
+    }
     if (status != cudaSuccess) return status;
   }
   return cudaGetLastError();

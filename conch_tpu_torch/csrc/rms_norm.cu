@@ -5,9 +5,14 @@
 // (K4b).
 //
 // K4 replaces conch_tpu/kernels/normalization/rms_norm.py:_rms_norm_kernel.
-// out = round(x * rsqrt(mean(x^2) + eps)) * w, where the sum of squares and
-// the rsqrt are f32 and the normalized value is rounded to x's dtype BEFORE
-// the weight multiply in that dtype, as the TPU kernel does.
+// out = round(x * rsqrt(mean(x^2) + eps)) * w, where the squares and the
+// rsqrt are f32 and the normalized value is rounded to x's dtype BEFORE
+// the weight multiply in that dtype, as the TPU kernel does. The squares
+// are summed in f64 and the mean rounded once to f32, as the plain version
+// does: the mean is then the same whatever the order of the sum, so the
+// kernel equals its plain version bit for bit (an f32 sum in another order
+// moved the rsqrt by an ulp, and the two roundings after it turned that
+// into up to two ulps of an f16 output).
 //
 // K4b replaces conch_tpu/kernels/normalization/rms_norm.py:
 // _fused_add_rms_norm_kernel. s = round(x + r) (an f32 add then one
@@ -31,12 +36,13 @@ namespace {
 constexpr int kThreads = 256;
 
 // The row's sum of squares, in every thread of the block.
-__device__ __forceinline__ float block_sum(float v) {
-  __shared__ float warp_sums[kThreads / 32];
-  v = warp_sum(v);
+__device__ __forceinline__ double block_sum(double v) {
+  __shared__ double warp_sums[kThreads / 32];
+#pragma unroll
+  for (int offset = 16; offset > 0; offset >>= 1) v += __shfl_xor_sync(0xffffffffu, v, offset);
   if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = v;
   __syncthreads();
-  float total = 0.0f;
+  double total = 0.0;
 #pragma unroll
   for (int i = 0; i < kThreads / 32; ++i) total += warp_sums[i];
   return total;
@@ -59,12 +65,12 @@ __global__ void __launch_bounds__(kThreads)
     rms_norm_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out, int hidden,
                     int64_t x_row_stride, float epsilon) {
   const T* xr = x + blockIdx.x * x_row_stride;
-  float sq = 0.0f;
+  double sq = 0.0;
   for (int i = threadIdx.x; i < hidden; i += kThreads) {
     const float v = to_float(xr[i]);
-    sq += v * v;
+    sq += static_cast<double>(v * v);
   }
-  const float inv = rsqrtf(block_sum(sq) / static_cast<float>(hidden) + epsilon);
+  const float inv = rsqrtf(static_cast<float>(block_sum(sq) / hidden) + epsilon);
   write_normalized(xr, w, out + static_cast<int64_t>(blockIdx.x) * hidden, hidden, inv);
 }
 
@@ -76,14 +82,14 @@ __global__ void __launch_bounds__(kThreads)
   const T* xr = x + blockIdx.x * x_row_stride;
   const T* rr = r + blockIdx.x * r_row_stride;
   T* sr = res_out + static_cast<int64_t>(blockIdx.x) * hidden;
-  float sq = 0.0f;
+  double sq = 0.0;
   for (int i = threadIdx.x; i < hidden; i += kThreads) {
     const T s = from_float<T>(to_float(xr[i]) + to_float(rr[i]));
     sr[i] = s;
     const float v = to_float(s);
-    sq += v * v;
+    sq += static_cast<double>(v * v);
   }
-  const float inv = rsqrtf(block_sum(sq) / static_cast<float>(hidden) + epsilon);
+  const float inv = rsqrtf(static_cast<float>(block_sum(sq) / hidden) + epsilon);
   // Each thread reads back only the elements it wrote: no barrier needed.
   write_normalized<T>(sr, w, out + static_cast<int64_t>(blockIdx.x) * hidden, hidden, inv);
 }

@@ -8,29 +8,110 @@
 // (launcher scaled_gemm_launcher). out[M, N] = float(a @ b) * sa[m] * sb[n],
 // in that order, rounded to the output dtype; a scalar sa or sb broadcasts.
 //
-// int8: mma.sync m16n8k32 s8 x s8 -> s32, exact up to the epilogue (the
-// largest served sum, 127 * 127 * 14336, fits in int32). Thread (g, t)
-// loads k rows 4t .. 4t+3 and 16+4t .. 16+4t+3 of b (row-major (K, N))
-// at the warp's 4 columns 4g .. 4g+3, one 4-byte load a row, and turns the
-// 4 x 4 bytes around with byte permutes so that each register holds 4 k
-// values of one column, the layout the s8 B fragment takes; a is row-major
-// (M, K), so its fragments are 4-byte loads. The warps of a block split K
-// and add their int32 sums in shared memory (exact, in any order).
+// Bound on the H100: bytes at decode (M <= 32: K*N bytes of b, 16.8 MB
+// for 4096 x 4096), operations at a 512-row prefill chunk.
+//
+// int8: the shared mainloop of quant_gemm_mainloop.cuh with an s8 policy
+// (ScaledLayout), transposed as the weight-only GEMMs are: outT = bT . aT,
+// so that b's N fills wgmma.m64nBNk32.s32.s8.s8's 64-row side and a's rows
+// are its N (BN = 32, 64 or 128). A slice is 128 k: a's rows K-major in
+// one 128-byte swizzled TMA box (B from shared memory), and b's 128 rows of
+// the block's 128 columns in another, in b's own (K, N) layout (no
+// repack). A thread reads, for each k32 step, the 2-byte pair of its two
+// columns (wgmma rows g and g + 8) in each of its 8 k rows (4t .. 4t+3 and
+// 16 + 4t .. 16 + 4t+3) and turns them around with byte permutes, so that
+// each register holds 4 k values of one column: wgmma's A fragment. The
+// sums are exact in s32 (the largest served one, 127 * 127 * 14336, fits);
+// a split writes them to an int32 workspace (an f32 one would round sums
+// above 2^24), and the reduction kernel, or the block itself with one
+// split, applies fmul_rn(fmul_rn(float(v), sa[m]), sb[n]) and rounds once.
+// The launch plan is quant_gemm_plan's, layout "scaled".
 // float8_e4m3fn: every value is converted to f32 (exact, as bf16 is) and
 // the products summed in f32 by a plain loop, one thread an output; only
 // small shapes take this path.
-//
-// Bound on the H100: bytes at decode (M <= 32: K*N bytes of b, 16.8 MB
-// for 4096 x 4096), operations at a 512-row prefill chunk. Block and grid
-// shapes as K1b (mixed_gemm_planar.cu). No shared-memory staging, TMA or
-// wgmma yet: a first kernel that is right.
 
 #include <cuda_fp8.h>
 
-#include "gemm_common.cuh"
+#include "quant_gemm_mainloop.cuh"
 
 namespace conch {
 namespace {
+
+using qgemm::Params;
+using qgemm::Stage;
+
+struct ScaledLayout {
+  using Acc = int;                       // wgmma sums int8 in s32
+  static constexpr int XB = 1;           // bytes of an x (a) value
+  static constexpr int EPP = 4;
+  static constexpr int KS = 128;         // k of a slice: one 128-byte swizzle atom of a's rows, and b's rows
+  static constexpr int WR = KS / 4;      // b's KS rows of kCols bytes, counted as 4-byte words
+  static constexpr int STEPS = KS / 32;  // k32 step j: k 32j .. 32j + 31 of the slice
+  static constexpr int SR = 0;           // no scales staged: they apply in the epilogue
+  static constexpr bool kGroupTable = false;
+
+  template <int BN>
+  struct Frag {
+    uint32_t a[STEPS][4];
+  };
+  template <int BN>
+  struct State {};
+
+  const Params& p;
+
+  __device__ ScaledLayout(const Params& params, float*) : p(params) {}
+
+  __device__ int word_row(int s) const { return KS * s; }  // b's tensor map counts rows of k
+  __device__ int scale_row(int) const { return 0; }
+  template <int BN>
+  __device__ void load_x(uint32_t dst, uint32_t bar, int s, int m0) const {
+    qgemm::tma_2d(dst, p.tm_x, bar, KS * s, m0);
+  }
+  template <int BN>
+  __device__ static uint64_t x_desc(uint32_t x, int j) {
+    return qgemm::desc_sw128(x + 32 * j);
+  }
+
+  // The bytes of columns c, c + 1 (c even) in row k of the staged b tile:
+  // 128-byte rows under the 128-byte swizzle (16-byte chunk i of row k at
+  // chunk i ^ (k % 8)).
+  __device__ static uint32_t column_pair(const uint8_t* w, int k, int c) {
+    return *reinterpret_cast<const uint16_t*>(w + k * 128 + ((((c >> 4) ^ (k & 7)) << 4) | (c & 15)));
+  }
+
+  template <int BN>
+  __device__ void decode(Frag<BN>& fr, State<BN>&, const Stage& st, int, float*) const {
+    const int t = threadIdx.x & 3;
+    const int c = qgemm::pair_column();
+    const uint8_t* w = reinterpret_cast<const uint8_t*>(st.w);
+#pragma unroll
+    for (int j = 0; j < STEPS; ++j) {
+      uint32_t r[8];  // rows 4t + q (q < 4) and 16 + 4t + q - 4: byte 0 column c, byte 1 column c + 1
+#pragma unroll
+      for (int q = 0; q < 8; ++q) r[q] = column_pair(w, 32 * j + 4 * t + (q & 3) + 16 * (q >> 2), c);
+      const uint32_t lo01 = __byte_perm(r[0], r[1], 0x5140);  // r0.b0 r1.b0 r0.b1 r1.b1
+      const uint32_t lo23 = __byte_perm(r[2], r[3], 0x5140);
+      const uint32_t hi01 = __byte_perm(r[4], r[5], 0x5140);
+      const uint32_t hi23 = __byte_perm(r[6], r[7], 0x5140);
+      fr.a[j][0] = __byte_perm(lo01, lo23, 0x5410);  // column c, k 4t .. 4t+3
+      fr.a[j][1] = __byte_perm(lo01, lo23, 0x7632);  // column c + 1
+      fr.a[j][2] = __byte_perm(hi01, hi23, 0x5410);  // column c, k 16+4t .. 16+4t+3
+      fr.a[j][3] = __byte_perm(hi01, hi23, 0x7632);
+    }
+  }
+
+  template <int BN>
+  __device__ void mma(Frag<BN>& fr, State<BN>&, int (&acc)[BN / 2], const Stage& stage) const {
+    qgemm::fence_operands(acc);
+    qgemm::wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < STEPS; ++j) qgemm::wgmma_rs_s8<BN>(acc, fr.a[j], x_desc<BN>(stage.x, j), 1);
+    qgemm::wgmma_commit();
+  }
+
+  template <int BN>
+  __device__ void retire(Frag<BN>&, State<BN>&, int (&)[BN / 2], float*) const {}
+};
 
 template <typename O>
 __device__ __forceinline__ O cast_out(float v);
@@ -38,85 +119,6 @@ template <>
 __device__ __forceinline__ float cast_out<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 cast_out<__nv_bfloat16>(float v) { return __float2bfloat16_rn(v); }
-
-// b's k rows k0 + 4t + {0..3} (lo) and k0 + 16 + 4t + {0..3} (hi) at the
-// warp's columns 4g .. 4g+3, as 4-byte words (byte c = column 4g + c).
-__device__ __forceinline__ void load_b(uint32_t (&w)[8], const int8_t* __restrict__ b, int n, int k0, int col,
-                                       int tig) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = k0 + (i < 4 ? 4 * tig + i : 16 + 4 * tig + i - 4);
-    w[i] = __ldg(reinterpret_cast<const uint32_t*>(b + static_cast<int64_t>(row) * n + col));
-  }
-}
-
-// Transposes 4 words (rows) of 4 bytes (columns): out[c] byte r = in[r] byte c.
-__device__ __forceinline__ void transpose4(uint32_t (&out)[4], uint32_t r0, uint32_t r1, uint32_t r2, uint32_t r3) {
-  const uint32_t lo01 = __byte_perm(r0, r1, 0x5140);  // r0.b0 r1.b0 r0.b1 r1.b1
-  const uint32_t lo23 = __byte_perm(r2, r3, 0x5140);
-  const uint32_t hi01 = __byte_perm(r0, r1, 0x7362);  // r0.b2 r1.b2 r0.b3 r1.b3
-  const uint32_t hi23 = __byte_perm(r2, r3, 0x7362);
-  out[0] = __byte_perm(lo01, lo23, 0x5410);
-  out[1] = __byte_perm(lo01, lo23, 0x7632);
-  out[2] = __byte_perm(hi01, hi23, 0x5410);
-  out[3] = __byte_perm(hi01, hi23, 0x7632);
-}
-
-template <int MT, int WARPS_K, typename O>
-__global__ void __launch_bounds__(32 * WARPS_K)
-    scaled_gemm_s8_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b, const float* __restrict__ sa,
-                          int sa_scalar, const float* __restrict__ sb, int sb_scalar, O* __restrict__ out, int m,
-                          int n, int k, int64_t lda) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int tig = lane & 3;
-  const int m0 = blockIdx.x * 16 * MT;
-  const int n0 = blockIdx.y * 32;
-  const int steps = k / 32;
-
-  int acc[MT][kTiles][4];
-#pragma unroll
-  for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-    for (int t = 0; t < kTiles; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][t][e] = 0;
-
-  uint32_t cur[8], nxt[8];
-  if (warp < steps) load_b(cur, b, n, 32 * warp, n0 + 4 * g, tig);
-  for (int st = warp; st < steps; st += WARPS_K) {
-    if (st + WARPS_K < steps) load_b(nxt, b, n, 32 * (st + WARPS_K), n0 + 4 * g, tig);
-    uint32_t blo[4], bhi[4];  // [tile]: k 4t..4t+3, and 16+4t..16+4t+3, of column 4g + tile
-    transpose4(blo, cur[0], cur[1], cur[2], cur[3]);
-    transpose4(bhi, cur[4], cur[5], cur[6], cur[7]);
-    const int k0 = 32 * st + 4 * tig;
-#pragma unroll
-    for (int mi = 0; mi < MT; ++mi) {
-      const int row = m0 + 16 * mi + g;
-      uint32_t a0 = 0, a1 = 0, a2 = 0, a3 = 0;
-      if (row < m) {
-        const int8_t* p = a + row * lda + k0;
-        a0 = *reinterpret_cast<const uint32_t*>(p);
-        a2 = *reinterpret_cast<const uint32_t*>(p + 16);
-      }
-      if (row + 8 < m) {
-        const int8_t* p = a + (row + 8) * lda + k0;
-        a1 = *reinterpret_cast<const uint32_t*>(p);
-        a3 = *reinterpret_cast<const uint32_t*>(p + 16);
-      }
-#pragma unroll
-      for (int t = 0; t < kTiles; ++t) mma_s8_16832(acc[mi][t], a0, a1, a2, a3, blo[t], bhi[t]);
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) cur[i] = nxt[i];
-  }
-  reduce_and_store<MT, WARPS_K>(acc, m, m0, [&](int row, int col, int v) {
-    const float ra = sa_scalar ? __ldg(sa) : __ldg(sa + row);
-    const float cb = sb_scalar ? __ldg(sb) : __ldg(sb + n0 + col);
-    out[static_cast<int64_t>(row) * n + n0 + col] = cast_out<O>(__fmul_rn(__fmul_rn(static_cast<float>(v), ra), cb));
-  });
-}
 
 template <typename O>
 __global__ void scaled_gemm_fp8_kernel(const __nv_fp8_e4m3* __restrict__ a, const __nv_fp8_e4m3* __restrict__ b,
@@ -135,23 +137,6 @@ __global__ void scaled_gemm_fp8_kernel(const __nv_fp8_e4m3* __restrict__ a, cons
 }
 
 template <typename O>
-cudaError_t launch_s8(const void* a, const void* b, const void* sa, int sa_scalar, const void* sb, int sb_scalar,
-                      void* out, int m, int n, int k, int64_t lda, cudaStream_t stream) {
-  auto run = [&](auto kernel, int rows, int warps) {
-    const dim3 grid((m + rows - 1) / rows, n / 32);
-    kernel<<<grid, 32 * warps, 0, stream>>>(static_cast<const int8_t*>(a), static_cast<const int8_t*>(b),
-                                            static_cast<const float*>(sa), sa_scalar, static_cast<const float*>(sb),
-                                            sb_scalar, static_cast<O*>(out), m, n, k, lda);
-  };
-  if (m <= 16) {
-    run(scaled_gemm_s8_kernel<1, 8, O>, 16, 8);
-  } else {
-    run(scaled_gemm_s8_kernel<2, 4, O>, 32, 4);
-  }
-  return cudaGetLastError();
-}
-
-template <typename O>
 cudaError_t launch_fp8(const void* a, const void* b, const void* sa, int sa_scalar, const void* sb, int sb_scalar,
                        void* out, int m, int n, int k, int64_t lda, cudaStream_t stream) {
   const dim3 grid((n + 127) / 128, m);
@@ -161,24 +146,64 @@ cudaError_t launch_fp8(const void* a, const void* b, const void* sa, int sa_scal
   return cudaGetLastError();
 }
 
+// Checks the plan against ScaledLayout, encodes a's and b's tensor maps
+// and launches.
+cudaError_t run_s8(Params& p, const void* a, int64_t lda, const void* b, int bn, int ks, cudaStream_t stream) {
+  using L = ScaledLayout;
+  if (!qgemm::plan_ok<L>(p, bn, ks)) return cudaErrorInvalidValue;
+  // a: (M, K) bytes with row stride lda, in boxes of 128 k x bn rows; b: (K, N) bytes, boxes of 128 x 128.
+  const cuuint64_t adims[2] = {static_cast<cuuint64_t>(p.k), static_cast<cuuint64_t>(p.m)};
+  const cuuint64_t astride[1] = {static_cast<cuuint64_t>(lda)};
+  const cuuint32_t abox[2] = {L::KS, static_cast<cuuint32_t>(bn)};
+  const cuuint64_t bdims[2] = {static_cast<cuuint64_t>(p.n), static_cast<cuuint64_t>(p.k)};
+  const cuuint64_t bstride[1] = {static_cast<cuuint64_t>(p.n)};
+  const cuuint32_t bbox[2] = {qgemm::kCols, L::KS};
+  if (!qgemm::encode(&p.tm_x, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, a, adims, astride, abox, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !qgemm::encode(&p.tm_w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, b, bdims, bstride, bbox, CU_TENSOR_MAP_SWIZZLE_128B)) {
+    return cudaErrorInvalidValue;
+  }
+  return qgemm::launch_bn<L>(p, bn, stream);
+}
+
 }  // namespace
 }  // namespace conch
 
 // a (M, K) with row stride lda, b (K, N) contiguous, both int8 (fp8 0) or
 // both float8_e4m3fn (fp8 1); sa (M) or one value (sa_scalar 1), sb (N) or
 // one value, f32; out (M, N) contiguous, f32 (out_dtype 0) or bf16 (1).
-// int8 needs K a multiple of 32, N of 32 and lda of 4.
+// int8 needs K a multiple of 32, N of 32, lda of 16 and a 16-byte aligned
+// (TMA), and takes the plan (quant_gemm_plan, layout "scaled"): bn (32, 64
+// or 128 rows a block), ks (128), slices (cdiv(K, 128)), unit (1) and
+// splits; ws, with splits > 1, (splits, M, N) int32. float8_e4m3fn ignores
+// the plan.
 extern "C" int conch_scaled_gemm(const void* a, const void* b, const void* sa, int sa_scalar, const void* sb,
                                  int sb_scalar, void* out, int out_dtype, int m, int n, int k, int64_t lda, int fp8,
-                                 void* stream) {
+                                 int bn, int ks, int slices, int unit, int splits, void* ws, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (m == 0 || n == 0) return static_cast<int>(cudaSuccess);
+  if (out_dtype != conch::kFloat32 && out_dtype != conch::kBFloat16) return static_cast<int>(cudaErrorInvalidValue);
   const bool bf16 = out_dtype == conch::kBFloat16;
   if (fp8) {
     return static_cast<int>(bf16 ? conch::launch_fp8<__nv_bfloat16>(a, b, sa, sa_scalar, sb, sb_scalar, out, m, n, k, lda, s)
                                  : conch::launch_fp8<float>(a, b, sa, sa_scalar, sb, sb_scalar, out, m, n, k, lda, s));
   }
-  if (k % 32 != 0 || n % 32 != 0 || lda % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(bf16 ? conch::launch_s8<__nv_bfloat16>(a, b, sa, sa_scalar, sb, sb_scalar, out, m, n, k, lda, s)
-                               : conch::launch_s8<float>(a, b, sa, sa_scalar, sb, sb_scalar, out, m, n, k, lda, s));
+  if (k % 32 != 0 || n % 32 != 0 || lda % 16 != 0 || reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(b) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  conch::qgemm::Params p{};
+  p.sa = static_cast<const float*>(sa);
+  p.sb = static_cast<const float*>(sb);
+  p.sa_scalar = sa_scalar;
+  p.sb_scalar = sb_scalar;
+  p.out = out;
+  p.ws = static_cast<float*>(ws);
+  p.m = m, p.n = n, p.k = k;
+  p.group = conch::ScaledLayout::KS;  // no groups: a split unit is one slice
+  p.num_groups = (k + p.group - 1) / p.group;
+  p.out_f32 = !bf16;
+  p.slices = slices;
+  p.unit = unit;
+  p.splits = splits;
+  return static_cast<int>(conch::run_s8(p, a, lda, b, bn, ks, s));
 }

@@ -101,7 +101,7 @@ def paged_split_plan(
     return PagedSplitPlan(max(splits, 1), split_len)
 
 
-def _copy_bytes(row_bytes: int, *pointers: int) -> int:
+def copy_bytes(row_bytes: int, *pointers: int) -> int:
     """The kernel's cp.async size for rows of ``row_bytes``: 16 or 4 bytes
     when the rows and the pointers allow, else 0 (element by element)."""
     for size in (16, 4):
@@ -192,7 +192,7 @@ def _paged_cuda(
         batch, block_table.shape[1], num_q_heads, num_kv_heads, page_size, head_size, scale * k_scale, softcap,
         window_size, v_scale, dtype_code(query), storage_code(key_caches), plan.split_len, plan.splits,
         None if part_acc is None else part_acc.data_ptr(), None if part_ml is None else part_ml.data_ptr(),
-        _copy_bytes(head_size * key_caches.element_size(), k_layer, v_layer), stream_of(query),
+        copy_bytes(head_size * key_caches.element_size(), k_layer, v_layer), stream_of(query),
     )
     check_launch("conch_paged_attention", code)
     paged_attention_launcher.launches += 1

@@ -6,9 +6,9 @@ and their plain versions.
 
 Both kernels are in ``csrc/rms_norm.cu``; they replace
 ``conch_tpu/kernels/normalization/rms_norm.py:_rms_norm_kernel`` and
-``_fused_add_rms_norm_kernel``. Both take the mean of squares and the
-rsqrt in f32 and round the normalized value to x's dtype before the
-weight multiply; K4b first forms ``s = x + r`` rounded to the dtype and
+``_fused_add_rms_norm_kernel``. Both take the squares and the rsqrt in
+f32 (the squares summed in f64, the mean rounded once to f32) and round
+the normalized value to x's dtype before the weight multiply; K4b first forms ``s = x + r`` rounded to the dtype and
 returns ``(norm(s), s)`` as two new tensors. The plain versions are the
 golden ones of ``reference/normalization/rms_norm.py``. Each launcher
 takes the plain version for CPU tensors only; on CUDA it launches its

@@ -20,10 +20,11 @@ Each kernel replaces one kernel of ``conch_tpu/kernels/quantization/gemm.py``:
   ``_scaled_gemm_kernel``: int8 x int8 summed in int32 (float8_e4m3fn in
   f32), then ``* sa[m] * sb[n]``.
 
-K1, K1b and K1c share one pipelined tensor-core mainloop
+K1, K1b, K1c and K8's int8 path share one pipelined tensor-core mainloop
 (``csrc/quant_gemm_mainloop.cuh``); ``quant_gemm_plan`` picks its launch
-(rows a block, splits of K on group boundaries, the f32 workspace) from
-the shape and the SM count, here in Python where the CPU tests hold it.
+(rows a block, splits of K on group boundaries, the workspace: f32, int32
+for K8) from the shape and the SM count, here in Python where the CPU
+tests hold it.
 
 Each takes a ``layer_index`` into per-layer stacks of its weight arrays
 (``(L, ...)``): the wrapper offsets the pointers to the layer, so no
@@ -117,13 +118,14 @@ def _check_x(name: str, x: torch.Tensor) -> None:
 
 
 def _tma_rows(x: torch.Tensor) -> torch.Tensor:
-    """x itself when its rows suit the TMA copies of K1, K1b and K1c (16-byte
-    aligned, a row stride that is a multiple of 8), else a copy whose rows
-    do (stride K rounded up to 8)."""
-    if x.stride(0) % 8 == 0 and x.data_ptr() % 16 == 0:
+    """x itself when its rows suit the TMA copies of K1, K1b, K1c and K8
+    (16-byte aligned, a row stride of a multiple of 16 bytes), else a copy
+    whose rows do (stride K rounded up to 16 bytes)."""
+    per16 = 16 // x.element_size()
+    if x.stride(0) % per16 == 0 and x.data_ptr() % 16 == 0:
         return x
     m, k = x.shape
-    aligned = torch.empty((m, -(-k // 8) * 8), dtype=x.dtype, device=x.device)[:, :k]
+    aligned = torch.empty((m, -(-k // per16) * per16), dtype=x.dtype, device=x.device)[:, :k]
     aligned.copy_(x)
     return aligned
 
@@ -229,11 +231,12 @@ def mixed_gemm_magic_launcher(
 mixed_gemm_magic_launcher.launches = 0
 
 
-# -- the launch plan of K1, K1b and K1c -------------------------------------
+# -- the launch plan of K1, K1b, K1c and K8 --------------------------------
 
 QGEMM_COLS = 128  # weight (output) columns a block: two warpgroups of 64 (quant_gemm_mainloop.cuh kCols)
 QGEMM_ROW_TILES = (32, 64, 128)  # x rows a block (wgmma's N): decode, up to 64, prefill
 ROWS_K_SLICE = 64  # K of a GPTQ-row slice (kKSlice)
+SCALED_K_SLICE = 128  # K of a K8 slice: one 128-byte swizzle atom of int8 (scaled_gemm.cu ScaledLayout::KS)
 
 
 def planar_k_slice(bits: int, group_size: int) -> int:
@@ -245,7 +248,7 @@ def planar_k_slice(bits: int, group_size: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class QuantGemmPlan:
-    """A launch of K1, K1b or K1c: ``bn`` x rows a block; K walked in ``slices``
+    """A launch of K1, K1b, K1c or K8: ``bn`` x rows a block; K walked in ``slices``
     slices of ``k_slice`` k; ``splits`` blocks over K, each taking whole
     units of ``unit`` slices (a unit ends on a group boundary); grid
     (column tiles, row tiles, splits). The entry point takes ``bn``,
@@ -260,6 +263,7 @@ class QuantGemmPlan:
     splits: int
     grid: tuple[int, int, int]
     row_sums: bool = False  # K1b: x's group row sums summed once by a pre-pass (128 rows a block)
+    int_sums: bool = False  # K8 sums in s32: its splits' partial sums are int32, not f32
 
     @property
     def units(self) -> int:
@@ -272,16 +276,19 @@ class QuantGemmPlan:
         return u0 * self.unit, min(u1 * self.unit, self.slices)
 
     def workspace_shape(self, m: int, n: int) -> tuple[int, int, int] | None:
-        """The f32 partial sums of the splits, added in a fixed order by a
-        second kernel; none with one split."""
+        """The partial sums of the splits (int32 with ``int_sums``, else
+        f32), added in a fixed order by a second kernel; none with one
+        split."""
         return (self.splits, m, n) if self.splits > 1 else None
 
 
 def quant_gemm_plan(layout: str, m: int, n: int, k: int, bits: int, group_size: int, num_sms: int) -> QuantGemmPlan:
-    """The launch of K1 (``layout="magic"``), K1b (``"planar"``) or K1c
-    (``"gptq"``) for an (M, K) x (K, N) product of ``bits``-bit codes in
-    groups of ``group_size`` on a card of ``num_sms`` SMs. Raises on what
-    the kernel refuses. A magic slice is one group (64 or 128).
+    """The launch of K1 (``layout="magic"``), K1b (``"planar"``), K1c
+    (``"gptq"``) or K8 (``"scaled"``: int8 x int8, ``bits`` 8, no groups)
+    for an (M, K) x (K, N) product of ``bits``-bit codes in groups of
+    ``group_size`` on a card of ``num_sms`` SMs. Raises on what the kernel
+    refuses. A magic slice is one group (64 or 128); a scaled slice is 128
+    k (the last one zero-filled past K), a split unit one slice.
 
     Rows: 32 a block up to 32 (the engine's decode step: one block covers
     every row, so each code is decoded once), 64 up to 64, else 128 (64
@@ -322,8 +329,15 @@ def quant_gemm_plan(layout: str, m: int, n: int, k: int, bits: int, group_size: 
             raise ValueError(msg)
         ks = group_size
         slices, unit = k // ks, 1
+    elif layout == "scaled":
+        name = "scaled_gemm"
+        if bits != 8 or k % 32 or n % 32:
+            msg = f"{name} kernel: needs int8 operands and K and N multiples of 32 (bits={bits}, K={k}, N={n})"
+            raise ValueError(msg)
+        ks = SCALED_K_SLICE
+        slices, unit = cdiv(k, ks), 1
     else:
-        msg = f"no K1/K1b/K1c launch plan for layout {layout!r}"
+        msg = f"no K1/K1b/K1c/K8 launch plan for layout {layout!r}"
         raise ValueError(msg)
     # 2- and 4-bit planar codes decode 8 or 16 k16 steps a slice: their
     # fragments fit the registers beside two accumulator sets up to 64 rows.
@@ -340,7 +354,8 @@ def quant_gemm_plan(layout: str, m: int, n: int, k: int, bits: int, group_size: 
         splits = num_sms // blocks
     splits = max(1, min(splits, slices // (2 * unit), units))
     return QuantGemmPlan(bn=bn, k_slice=ks, slices=slices, unit=unit, splits=splits,
-                         grid=(col_tiles, row_tiles, splits), row_sums=layout == "planar" and bn == QGEMM_ROW_TILES[-1])
+                         grid=(col_tiles, row_tiles, splits), row_sums=layout == "planar" and bn == QGEMM_ROW_TILES[-1],
+                         int_sums=layout == "scaled")
 
 
 # The plan's arguments of the entry points: bn, k_slice, slices, unit,
@@ -352,7 +367,8 @@ def _plan_args(plan: QuantGemmPlan, m: int, n: int, device: torch.device) -> tup
     """The plan's arguments of the entry point (PLAN_ARGTYPES) and the
     workspace, which the caller keeps alive until the launch."""
     shape = plan.workspace_shape(m, n)
-    ws = None if shape is None else torch.empty(shape, dtype=torch.float32, device=device)
+    ws = None if shape is None else torch.empty(shape, dtype=torch.int32 if plan.int_sums else torch.float32,
+                                                device=device)
     args = (plan.bn, plan.k_slice, plan.slices, plan.unit, plan.splits, 0 if ws is None else ws.data_ptr())
     return args, ws
 
@@ -603,7 +619,7 @@ def _scaled_gemm_cuda(a, b, scale_a, scale_b, out_dtype: torch.dtype, layer_inde
         scale_a.is_contiguous() and scale_b.is_contiguous()
     ):
         raise ValueError("scaled_gemm kernel: scales must be contiguous float32")
-    if a.stride(1) != 1 or not b.is_contiguous() or (not fp8 and (k % 32 or n % 32 or a.stride(0) % 4)):
+    if a.dim() != 2 or a.stride(1) != 1 or not b.is_contiguous() or (not fp8 and (k % 32 or n % 32)):
         msg = f"scaled_gemm kernel: needs contiguous rows and, for int8, K and N multiples of 32 (K={k}, N={n})"
         raise ValueError(msg)
     _check_layer_shapes("scaled_gemm", layer_index, {"b": (b, (k, n))})
@@ -618,13 +634,19 @@ def _scaled_gemm_cuda(a, b, scale_a, scale_b, out_dtype: torch.dtype, layer_inde
             raise ValueError(f"scaled_gemm kernel: scale_b {tuple(scale_b.shape)} for {n} columns")
         sb_ptr = _layer_ptr(scale_b, layer_index)
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    if fp8:
+        plan_args, _ws = (0, 0, 0, 0, 1, 0), None
+    else:
+        a = _tma_rows(a)
+        plan = quant_gemm_plan("scaled", m, n, k, 8, SCALED_K_SLICE, sm_count(a.device.index))
+        plan_args, _ws = _plan_args(plan, m, n, a.device)
     fn = kernel_function("conch_scaled_gemm", (
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
-        ctypes.c_void_p,
+        *PLAN_ARGTYPES, ctypes.c_void_p,
     ))
     code = fn(a.data_ptr(), _layer_ptr(b, layer_index), scale_a.data_ptr(), int(sa_scalar), sb_ptr, int(sb_scalar),
-              out.data_ptr(), dtype_code(out), m, n, k, a.stride(0), int(fp8), stream_of(a))
+              out.data_ptr(), dtype_code(out), m, n, k, a.stride(0), int(fp8), *plan_args, stream_of(a))
     check_launch("conch_scaled_gemm", code)
     scaled_gemm_launcher.launches += 1
     return out

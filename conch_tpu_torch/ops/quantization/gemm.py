@@ -197,8 +197,9 @@ def mixed_precision_gemm(
         group_size: quantization group size along K.
         output_dtype: the dtype of the one final rounding of the f32 sums;
             float32 or bfloat16 on the card, any float dtype on the CPU.
-        acc_dtype: the sums' dtype: the kernels and plain versions sum in
-            float32 (as JAX's kernels do), so another dtype raises on the card.
+        acc_dtype: recorded in the metadata as given, as in JAX, whose
+            kernels never read it: every path sums in float32 whatever it
+            says.
         meta_dtype: recorded in the metadata, as in JAX; the scales keep
             their own dtype.
         scaled_activations: not implemented (raises, as JAX's strict check).
@@ -212,9 +213,6 @@ def mixed_precision_gemm(
     """
     if scaled_activations:
         msg = "Scaled activations not yet implemented"
-        raise NotImplementedError(msg)
-    if x.device.type == "cuda" and acc_dtype not in (None, torch.float32):
-        msg = f"mixed_precision_gemm: the CUDA kernels accumulate in float32, not {acc_dtype}"
         raise NotImplementedError(msg)
     metadata = create_mixed_precision_metadata(
         x,

@@ -4,9 +4,12 @@
 """Golden RMS norm and fused residual add + RMS norm (counterpart of
 ``conch_tpu/reference/normalization/rms_norm.py``).
 
-The mean of squares and the rsqrt are f32; the normalized value is cast
-back to x's dtype before the weight multiply in that dtype. These are the
-plain versions of K4 and K4b (``kernels/normalization/rms_norm.py``).
+The squares and the rsqrt are f32, the squares summed in f64 and their
+mean rounded once to f32 (so that it does not depend on the order of the
+sum, and K4 and K4b equal these bit for bit on the card); the normalized
+value is cast back to x's dtype before the weight multiply in that dtype.
+These are the plain versions of K4 and K4b
+(``kernels/normalization/rms_norm.py``).
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ import torch
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, epsilon: float) -> torch.Tensor:
     """``round(x * rsqrt(mean(x^2) + eps)) * w`` over the last axis, on any device."""
     xf = x.float()
-    normalized = (xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + epsilon)).to(x.dtype)
+    mean_sq = xf.square().double().mean(dim=-1, keepdim=True).float()
+    normalized = (xf * torch.rsqrt(mean_sq + epsilon)).to(x.dtype)
     return normalized * weight.to(x.dtype)
 
 

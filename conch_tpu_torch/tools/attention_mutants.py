@@ -1,24 +1,30 @@
 # Copyright 2026 Conch-TPU authors.
 # SPDX-License-Identifier: Apache-2.0
 
-"""Show that the card checks of K3/K7's softcap and window, and of K3's
-split merge, can fail.
+"""Show that the card checks of K3/K7's softcap and window, of K7's masks,
+and of K3's and K7's split merges, can fail.
 
-    python3 -m conch_tpu_torch.tools.attention_mutants
+    python3 -m conch_tpu_torch.tools.attention_mutants [NAME ...]
 
-Run from the checkout's root on one Hopper card. For each fault below, the
-tool copies the package to ``conch_tpu_torch/_build/mutants/<name>/``,
-puts the fault into the copy's CUDA source, and runs the fault's checks on
-the copy in a subprocess, which builds the copy's kernels:
-``chip_smoke.gemma_attention_phases`` (K3 and K7 at Gemma-2-2B's shapes,
-held against the plain versions) for the softcap and window faults,
-``chip_smoke.check_paged_attention_options`` (K3's option sweep) for the
-merge faults (a split dropped, the splits' rescale skipped), and
-``chip_smoke.kernel_phase_k3_served`` (K3 at the served decode steps,
-where Llama's flat softmax gives small outputs) for the dropped split
-again. The unchanged package must pass all three and every faulty copy
-must fail a check; the tool
-prints each run's check lines and exits non-zero otherwise.
+Run from the checkout's root on one Hopper card. For each fault below (or
+the named ones), the tool copies the package to
+``conch_tpu_torch/_build/mutants/<name>/``, puts the fault into the copy's
+CUDA source, and runs the fault's checks on the copy in a subprocess,
+which builds the copy's kernels: ``chip_smoke.gemma_attention_phases`` (K3
+and K7 at Gemma-2-2B's shapes, held against the plain versions) for the
+softcap faults and K3's window fault,
+``chip_smoke.check_paged_attention_options`` (K3's option sweep) for K3's
+merge faults (a split dropped, the splits' rescale skipped),
+``chip_smoke.kernel_phase_k3_served`` (K3 at the served decode steps, where
+Llama's flat softmax gives small outputs) for the dropped split again, and
+``chip_smoke.check_varlen_attention_options`` (K7's option sweep) for K7's
+other faults: each row's window start dropped from the mask (the walk
+still starts at its tile's first window start), the causal mask one key
+late on the diagonal, the first tile of a windowed walk (a band tile
+whose first keys the tile's first rows need) skipped, a split dropped from
+the merge. The unchanged package must pass all the checks first, and
+every faulty copy must fail a check; the tool prints each run's check
+lines and exits non-zero otherwise.
 """
 
 from __future__ import annotations
@@ -33,10 +39,8 @@ from conch_tpu_torch.kernels.common import BUILD_DIR
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 REPO_ROOT = PACKAGE_DIR.parent
-SCALE_THEN_CAP = (
-    "float s = warp_sum(part[g]) * scale;\n"
-    "          if constexpr (SOFTCAP) s = softcap * tanhf(s / softcap);"
-)
+K7_LOGIT = "x = p.softcap > 0.0f ? cap_log2 * tanhf(x * scale_cap) : x * scale_log2;"
+K7_SUM = "for (int z = 0; z < live; ++z) a += p.part_acc[z * split_stride * p.head_size + at] * w_s[gh][z];"
 K3_SCALE_THEN_CAP = (
     "float x = warp_sum(part[g]) * p.scale;\n"
     "          if constexpr (SOFTCAP) x = p.softcap * tanhf(x / p.softcap);"
@@ -44,22 +48,32 @@ K3_SCALE_THEN_CAP = (
 K3_WEIGHT = "w_s[z] = __expf(p.part_ml[(z * split_stride + head) * 2] - m);"
 K3_SUM = "for (int z = 0; z < live; ++z) a += p.part_acc[(z * split_stride + head) * p.head_size + d] * w_s[z];"
 GEMMA, OPTIONS, SERVED = "gemma_attention_phases", "check_paged_attention_options", "kernel_phase_k3_served"
+K7_OPTIONS = "check_varlen_attention_options"
 # name -> (source file under csrc/, text, faulty text, the chip_smoke checks that must catch it)
 MUTANTS = {
-    "k7_softcap_dropped": ("attention_common.cuh", SCALE_THEN_CAP, "float s = warp_sum(part[g]) * scale;", GEMMA),
+    "k7_softcap_dropped": ("varlen_attention.cu", K7_LOGIT, "x = x * scale_log2;", GEMMA),
     "k7_cap_before_scale": (
-        "attention_common.cuh", SCALE_THEN_CAP,
-        "float s = warp_sum(part[g]);\n"
-        "          if constexpr (SOFTCAP) s = softcap * tanhf(s / softcap);\n"
-        "          s *= scale;",
-        GEMMA,
+        "varlen_attention.cu", K7_LOGIT,
+        "x = p.softcap > 0.0f ? cap_log2 * tanhf(x / p.softcap) * p.scale : x * scale_log2;", GEMMA,
     ),
     "k3_softcap_dropped": ("paged_attention.cu", K3_SCALE_THEN_CAP, "float x = warp_sum(part[g]) * p.scale;", GEMMA),
     "k3_window_ignored": (
         "paged_attention.cu", "const int kv_start = window > 0 ? max(seq_len - window, 0) : 0;",
         "const int kv_start = 0;", GEMMA,
     ),
-    "k7_window_ignored": ("varlen_attention.cu", "if (window > 0) kv_start = max(q_pos - window + 1, 0);", "", GEMMA),
+    "k7_window_mask_dropped": (
+        "varlen_attention.cu", "return p.window > 0 ? max(t.first + i - p.window + 1, 0) : 0;", "return 0;",
+        K7_OPTIONS,
+    ),
+    "k7_diagonal_off_by_one": (
+        "varlen_attention.cu", "return p.causal ? t.first + i : t.seq_len - 1;",
+        "return p.causal ? t.first + i + 1 : t.seq_len - 1;", K7_OPTIONS,
+    ),
+    "k7_band_tile_skipped": (
+        "varlen_attention.cu", "k0 + n - 1 < w_min_start) continue;",
+        "k0 + n - 1 < w_min_start || (p.window > 0 && k0 == t.lo)) continue;", K7_OPTIONS,
+    ),
+    "k7_merge_split_dropped": ("varlen_attention.cu", K7_SUM, K7_SUM.replace("z = 0", "z = 1"), K7_OPTIONS),
     "k3_merge_split_dropped": ("paged_attention.cu", K3_SUM, K3_SUM.replace("z = 0", "z = 1"), OPTIONS),
     "k3_merge_split_dropped_served": ("paged_attention.cu", K3_SUM, K3_SUM.replace("z = 0", "z = 1"), SERVED),
     "k3_merge_rescale_skipped": ("paged_attention.cu", K3_WEIGHT, "w_s[z] = 1.0f;", OPTIONS),
@@ -102,9 +116,11 @@ def run_phases(root: Path, script: str) -> tuple[int, str]:
 
 
 def main() -> int:
+    names = sys.argv[1:] or list(MUTANTS)
+    chosen = {name: MUTANTS[name] for name in names}
     ok = True
-    for name, mutant in {"unchanged": None, **MUTANTS}.items():
-        checks = (GEMMA, OPTIONS, SERVED) if mutant is None else (mutant[3],)
+    for name, mutant in {"unchanged": None, **chosen}.items():
+        checks = tuple(dict.fromkeys(m[3] for m in chosen.values())) if mutant is None else (mutant[3],)
         code, out = run_phases(copy_package(name, None if mutant is None else mutant[:3]), phases_script(*checks))
         lines = [ln for ln in out.splitlines() if "package:" in ln or "max_abs_err" in ln or "Error" in ln]
         # A faulty copy must fail a check, not its build or launch.

@@ -3,17 +3,19 @@
 
 """Show that the card checks of K1, K1b, K1c, K8 and K12q can fail.
 
-    python3 -m conch_tpu_torch.tools.gemm_mutants
+    python3 -m conch_tpu_torch.tools.gemm_mutants [NAME ...]
 
-Run from the checkout's root on one Hopper card. For each fault below, the
-tool copies the package to ``conch_tpu_torch/_build/mutants/<name>/``,
+Run from the checkout's root on one Hopper card. For each fault below (or
+the named ones), the tool copies the package to ``conch_tpu_torch/_build/mutants/<name>/``,
 puts the fault into the copy's CUDA source, and runs the kernel's phase of
 ``chip_smoke.py`` (``check_magic_gemm_options``: K1's option sweep;
 ``kernel_phase_k1b``, ``_k1c``, ``_k8`` or ``_k12q``: the kernel at the
-served shapes and the small cases, held against its plain version) on the
-copy in a subprocess, which builds the copy's kernels. The unchanged
-package must pass all five and every faulty copy must fail a check of its
-own; the tool prints each run's check lines and exits non-zero otherwise.
+served shapes and the small cases, held against its plain version;
+``check_scaled_gemm_options``: K8's option sweep, bit for bit) on the copy
+in a subprocess, which builds the copy's kernels. The unchanged package
+must pass the faults' phases first and every faulty copy must fail a check
+of its own; the tool prints each run's check lines and exits non-zero
+otherwise.
 The faults:
 
 - ``k1_field_shift``: K1 decodes a word's bit fields in the wrong order
@@ -23,8 +25,12 @@ The faults:
   (field j % epp for k16 step j, not the field that holds its x values);
 - ``k1c_codebook_ignored``: K1c dequantizes codebook codes as linear
   integers (the NF4 table unused);
-- ``k8_scales_swapped``: K8 scales row m by sb and column n by sa (indices
-  clamped to each vector's length, so the copy reads in bounds);
+- ``k8_scales_swapped``: K8 scales row m by sb (index clamped to its
+  length, so the copy reads in bounds), in the epilogue of a block that
+  holds all of K (the 512-row prefill shapes);
+- ``k8_split_workspace_f32``: K8's split sums pass through f32 on their way
+  to the workspace (as an f32 workspace would hold them): sums above 2^24
+  lose their low bits, which the option sweep's near-127 case shows;
 - ``k12q_nibbles_swapped``: K12q puts the even element in the low nibble.
 """
 
@@ -56,19 +62,23 @@ MUTANTS = {
         "kernel_phase_k1c",
     ),
     "k8_scales_swapped": (
-        "scaled_gemm.cu",
-        "    const float ra = sa_scalar ? __ldg(sa) : __ldg(sa + row);\n"
-        "    const float cb = sb_scalar ? __ldg(sb) : __ldg(sb + n0 + col);",
-        "    const float ra = sb_scalar ? __ldg(sb) : __ldg(sb + min(row, n - 1));\n"
-        "    const float cb = sa_scalar ? __ldg(sa) : __ldg(sa + min(n0 + col, m - 1));",
+        "quant_gemm_mainloop.cuh",
+        "const float sa = p.sa_scalar ? __ldg(p.sa) : __ldg(p.sa + row);",
+        "const float sa = p.sb_scalar ? __ldg(p.sb) : __ldg(p.sb + min(row, p.n - 1));",
         "kernel_phase_k8",
+    ),
+    "k8_split_workspace_f32": (
+        "quant_gemm_mainloop.cuh",
+        "make_int2(acc[4 * j + h], acc[4 * j + 2 + h]);",
+        "make_int2(static_cast<int>(static_cast<float>(acc[4 * j + h])),\n"
+        "                        static_cast<int>(static_cast<float>(acc[4 * j + 2 + h])));",
+        "check_scaled_gemm_options",
     ),
     "k12q_nibbles_swapped": (
         "quantize4.cu", "return static_cast<uint8_t>((hi << 4) | lo);",
         "return static_cast<uint8_t>((lo << 4) | hi);", "kernel_phase_k12q",
     ),
 }
-ALL_PHASES = ("check_magic_gemm_options", "kernel_phase_k1b", "kernel_phase_k1c", "kernel_phase_k8", "kernel_phase_k12q")
 
 
 def phases_script(phases: tuple[str, ...]) -> str:
@@ -82,9 +92,11 @@ def phases_script(phases: tuple[str, ...]) -> str:
 
 
 def main() -> int:
+    names = sys.argv[1:] or list(MUTANTS)
+    chosen = {name: MUTANTS[name] for name in names}
     ok = True
-    for name, mutant in {"unchanged": None, **MUTANTS}.items():
-        phases = ALL_PHASES if mutant is None else (mutant[3],)
+    for name, mutant in {"unchanged": None, **chosen}.items():
+        phases = tuple(dict.fromkeys(m[3] for m in chosen.values())) if mutant is None else (mutant[3],)
         root = copy_package(name, None if mutant is None else mutant[:3])
         code, out = run_phases(root, phases_script(phases))
         lines = [ln for ln in out.splitlines() if "package:" in ln or "max_abs_err" in ln or "differ" in ln

@@ -1,7 +1,7 @@
 # Copyright 2026 Conch-TPU authors.
 # SPDX-License-Identifier: Apache-2.0
 
-"""Time K1 and K3 of two checkouts on one card, in turns.
+"""Time K1, K3, K7 and K8 of two checkouts on one card, in turns.
 
     python3 -m conch_tpu_torch.tools.parent_compare --parent DIR
 
@@ -22,7 +22,14 @@ launchers only, which both packages share:
   built by its ``k3_inputs`` as its K3 phases build them: the kernel
   table's lines (Llama-3-8B's decode batch of 8 at lengths to 540;
   Gemma-2-2B's 8 rows to 6000, softcap 50) and the served decode steps,
-  Gemma's without and with the 4096 window.
+  Gemma's without and with the 4096 window;
+- K7 (``varlen_attention_launcher``) on ``K7_CASES``, built by
+  ``k7_inputs``: Llama-3-8B's 128-row prefill step and Gemma-2-2B's
+  512-row one (softcap 50, without and with the 4096 window), over bf16,
+  int8 and e4m3 pools;
+- K8 (``scaled_gemm_launcher``), one layer's four GEMMs of the w8a8 engine
+  at M 8, 32 and 512, built by ``k8_weights`` and ``k8_rows`` (layer 17
+  of a 32-layer stack; timed calls walk the layers).
 
 Device times come from ``chip_smoke.time_ms``. The tool prints each run's
 numbers, then one line per case with the two packages' means, and a JSON
@@ -53,6 +60,8 @@ import conch_tpu_torch
 from conch_tpu_torch.kernels.common import kernel_library
 from conch_tpu_torch.kernels.quantization.gemm import mixed_gemm_magic_launcher as k1
 from conch_tpu_torch.kernels.attention.paged_attention import paged_attention_launcher as k3
+from conch_tpu_torch.kernels.attention.varlen_attention import varlen_attention_launcher as k7
+from conch_tpu_torch.kernels.quantization.gemm import scaled_gemm_launcher as k8
 
 kernel_library()
 gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
@@ -78,6 +87,27 @@ for name in cs.K3_CASES:
     for w in case["windows"]:
         times[f"K3 {name} window {w}"] = cs.time_ms(lambda: k3(*case["args"], w))
     del case
+
+for cache in (None, "int8", "fp8"):
+    launch = cs.with_kv_scales(k7, cache)
+    for name in cs.K7_CASES:
+        case = cs.k7_inputs(gen, rng, name, cache)
+        for w in case["windows"]:
+            times[f"K7 {name} {cache or 'bf16'} cache window {w}"] = cs.time_ms(lambda: launch(*case["args"], w))
+        del case
+        torch.cuda.empty_cache()
+
+sums = {m: 0.0 for m in cs.GEMM_MS}
+for k, n in cs.FUSED_LAYER_SHAPES:
+    w8, sb = cs.k8_weights(gen, k, n)
+    layers = itertools.cycle(range(cs.NUM_LAYERS_POOL))
+    for m in cs.GEMM_MS:
+        a, sa = cs.k8_rows(gen, m, k)
+        sums[m] += cs.time_ms(lambda: k8(a, w8, sa, sb, torch.bfloat16, next(layers)))
+    del w8, sb
+    torch.cuda.empty_cache()
+for m, t in sums.items():
+    times[f"K8 one layer M={m}"] = t
 print("TIMES " + json.dumps({"package": conch_tpu_torch.__file__, "times": times}), flush=True)
 '''
 

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from conch_tpu.kernels.quantization.bitsandbytes.blockwise import NF4_CODE
 from conch_tpu.models.linear import QuantizedLinear as JaxQuantizedLinear
 from conch_tpu.models.llama import LlamaConfig as JaxLlamaConfig
 from conch_tpu.models.llama import init_llama_params as jax_init_llama_params
@@ -159,7 +160,8 @@ def test_mixed_precision_gemm_strict_errors_match_jax(case, rng):
 
 def test_mixed_precision_gemm_rejects_what_it_does_not_compute(rng):
     """scaled_activations raises without strict too (JAX ignores it there);
-    acc_dtype other than f32 raises only where the CUDA kernels run."""
+    acc_dtype and meta_dtype are taken on every device and only recorded
+    (``test_mixed_precision_gemm_acc_dtype_is_recorded_only``)."""
     x, p, s, _ = _mixed_inputs(rng, "none")
     with pytest.raises(NotImplementedError, match="Scaled activations"):
         mixed_precision_gemm(_torch(x, jnp.bfloat16), _torch(p), _torch(s, jnp.bfloat16), None, 4, 8, GROUP,
@@ -167,6 +169,45 @@ def test_mixed_precision_gemm_rejects_what_it_does_not_compute(rng):
     out = mixed_precision_gemm(_torch(x, jnp.bfloat16), _torch(p), _torch(s, jnp.bfloat16), None, 4, 8, GROUP,
                                layout="magic", acc_dtype=torch.float32, meta_dtype=torch.float32)
     assert out.dtype == torch.bfloat16
+
+
+ACC_DTYPE_FORMATS = {
+    "int4": lambda w: JaxQuantizedLinear.int4_from_dense(w, GROUP),
+    "int8": lambda w: JaxQuantizedLinear.int8_grouped_from_dense(w, GROUP),
+    "nf4": lambda w: JaxQuantizedLinear.nf4_from_dense(w, GROUP),
+}
+
+
+def _gemm_operands(q) -> tuple[list, dict]:
+    """(packed, scales, zero-point, bits, bias, group) and the keyword
+    arguments of one JAX QuantizedLinear's mixed_precision_gemm call."""
+    if q.kind == "nf4":
+        return [q.arrays["packed"], q.arrays["absmax"], None, 4, 0, q.meta["blocksize"]], {
+            "codebook": tuple(float(v) for v in NF4_CODE), "layout": "gptq"}
+    return [q.arrays["packed"], q.arrays["scales"], None, q.meta["bits"], q.meta["bias"], q.meta["group_size"]], {
+        "layout": q.meta["layout"]}
+
+
+@pytest.mark.parametrize("fmt", ACC_DTYPE_FORMATS)
+def test_mixed_precision_gemm_acc_dtype_is_recorded_only(fmt, rng):
+    """acc_dtype=bfloat16 is recorded in the metadata, as JAX records it,
+    and changes nothing: both packages sum in f32 (JAX's kernels never read
+    it). The port's output equals its f32-acc call bit for bit and JAX's
+    bf16-acc call at tests/test_torch_int4_gemm.py's K1 tolerance."""
+    q = ACC_DTYPE_FORMATS[fmt](rng.normal(size=(K, N)).astype(np.float32) * 0.05)
+    x = rng.normal(size=(8, K)).astype(np.float32)
+    args, kw = _gemm_operands(q)
+    ref = jax_gemm.mixed_precision_gemm(_jnp(x, jnp.bfloat16), *args, acc_dtype=jnp.bfloat16, **kw)
+    targs = [None if a is None else torch.from_numpy(_bits(a).copy()).view(TORCH_DTYPES[a.dtype.type])
+             for a in args[:3]]
+    xt = _torch(x, jnp.bfloat16)
+    out = mixed_precision_gemm(xt, *targs, *args[3:], acc_dtype=torch.bfloat16, **kw)
+    assert torch.equal(out, mixed_precision_gemm(xt, *targs, *args[3:], acc_dtype=torch.float32, **kw))
+    meta = create_mixed_precision_metadata(xt, *targs, *args[3:], acc_dtype=torch.bfloat16)
+    assert meta.acc_dtype == torch.bfloat16
+    out, ref = out.float().numpy(), np.asarray(ref, np.float32)
+    np.testing.assert_allclose(out, ref, atol=min(5e-2 * np.sqrt(K), 1.0), rtol=1e-1)
+    assert np.abs(out - ref).max() <= 1e-2 * np.abs(ref).max()
 
 
 SCALED_STRICT_CASES = {

@@ -1,12 +1,13 @@
 # Copyright 2026 Conch-TPU authors.
 # SPDX-License-Identifier: Apache-2.0
 
-"""The launch plan of K1 (magic), K1b (planar) and K1c (GPTQ rows), which
-the wrappers in ``conch_tpu_torch/kernels/quantization/gemm.py`` compute in
-Python and hand to the CUDA entry points. Held on the CPU, for the
-Llama-3-8B engine shapes (int4 fused at groups 64 and 128, nf4 unfused and
-int8 fused, and lm_head) at M 1, 8, 32, 40 and 512, and for the small
-shapes of the port's GEMM tests:
+"""The launch plan of K1 (magic), K1b (planar), K1c (GPTQ rows) and K8
+(scaled int8), which the wrappers in
+``conch_tpu_torch/kernels/quantization/gemm.py`` compute in Python and
+hand to the CUDA entry points. Held on the CPU, for the Llama-3-8B engine
+shapes (int4 fused at groups 64 and 128, nf4 unfused, int8 and w8a8 fused,
+and lm_head) at M 1, 8, 32, 40 and 512, and for the small shapes of the
+port's GEMM tests and K8's option sweep:
 
 - the splits cover K's slices exactly once, in order, and every split
   starts on a group boundary; the K slice is the one the entry point's
@@ -15,7 +16,8 @@ shapes of the port's GEMM tests:
   132-SM card;
 - the plan refuses what the kernel refuses, with the wrappers' messages;
 - x rows that do not suit the kernels' TMA copies are realigned, values
-  unchanged;
+  unchanged (bf16 x, and K8's int8 a);
+- K8's workspace holds int32 sums (exact; f32 would round above 2^24);
 - K1's A fragments, read from the magic packing as
   ``csrc/mixed_gemm_magic.cu`` reads them, are x's k order within each
   group.
@@ -47,6 +49,7 @@ ENGINE_MS = [1, 8, 32, 40, 512]
 ENGINE_CASES = (
     [("gptq", 4, 64, k, n) for k, n in NF4_SHAPES] + [("planar", 8, 128, k, n) for k, n in INT8_SHAPES]
     + [("magic", 4, g, k, n) for g in (128, 64) for k, n in INT4_SHAPES]
+    + [("scaled", 8, 128, k, n) for k, n in INT8_SHAPES]
 )
 SMALL_CASES = [
     ("magic", 4, 128, 256, 384), ("magic", 4, 128, 512, 256), ("magic", 4, 64, 256, 384), ("magic", 4, 64, 128, 32),
@@ -55,6 +58,7 @@ SMALL_CASES = [
     ("gptq", 4, 4, 256, 64), ("gptq", 2, 12, 192, 32),
     *[("planar", bits, 128 if bits >= 4 else 256, 512, 256) for bits in (2, 4, 8)],
     ("planar", 8, 128, 256, 384), ("planar", 8, 64, 512, 128), ("planar", 4, 256, 1024, 512),
+    ("scaled", 8, 128, 96, 160), ("scaled", 8, 128, 64, 32), ("scaled", 8, 128, 512, 256),
 ]
 
 
@@ -62,9 +66,11 @@ def _k_slice(layout: str, bits: int, group: int) -> int:
     """K of a slice in the entry points' templates: 64 for GPTQ rows
     (RowsLayout::KS); one group for magic codes (MagicLayout::KS); planar
     codes a whole group of 128 for 4 and 8 bits at group 128, else 16 word
-    rows (PlanarLayout::KS)."""
+    rows (PlanarLayout::KS); 128 for K8's int8 (ScaledLayout::KS)."""
     if layout == "gptq":
         return 64
+    if layout == "scaled":
+        return 128
     if layout == "magic":
         return group
     return 128 if group == 128 and bits >= 4 else 16 * (32 // bits)
@@ -92,18 +98,19 @@ def test_splits_cover_k_once_on_group_boundaries(case, m):
 
 @pytest.mark.parametrize("m", [8, 512])
 @pytest.mark.parametrize(
-    "case", [ENGINE_CASES[1], ENGINE_CASES[6], SMALL_CASES[3]], ids=lambda c: "-".join(map(str, c))
+    "case", [ENGINE_CASES[1], ENGINE_CASES[6], SMALL_CASES[3], ENGINE_CASES[-4]], ids=lambda c: "-".join(map(str, c))
 )
 def test_entry_point_gets_the_plan(case, m):
     """The entry point's plan arguments are the plan's own numbers, and the
-    workspace is the splits' f32 partial sums."""
+    workspace is the splits' partial sums: f32, int32 for K8."""
     layout, bits, group, k, n = case
     plan = quant_gemm_plan(layout, m, n, k, bits, group, H100_SMS)
     args, ws = _plan_args(plan, m, n, torch.device("cpu"))
     assert len(args) == len(PLAN_ARGTYPES)
     assert args[:5] == (plan.bn, plan.k_slice, plan.slices, plan.unit, plan.splits)
     if plan.splits > 1:
-        assert ws.dtype == torch.float32 and tuple(ws.shape) == (plan.splits, m, n) and args[5] == ws.data_ptr()
+        want = torch.int32 if layout == "scaled" else torch.float32
+        assert ws.dtype == want and tuple(ws.shape) == (plan.splits, m, n) and args[5] == ws.data_ptr()
     else:
         assert ws is None and args[5] == 0
 
@@ -120,7 +127,8 @@ def test_decode_grid_fills_the_card(case, m):
 
 @pytest.mark.parametrize("m,bn", [(1, 32), (8, 32), (32, 32), (33, 64), (40, 64), (64, 64), (65, 128), (512, 128)])
 @pytest.mark.parametrize(
-    "layout,bits,group", [("gptq", 4, 64), ("planar", 8, 128), ("planar", 4, 128), ("magic", 4, 128), ("magic", 4, 64)]
+    "layout,bits,group",
+    [("gptq", 4, 64), ("planar", 8, 128), ("planar", 4, 128), ("magic", 4, 128), ("magic", 4, 64), ("scaled", 8, 128)],
 )
 def test_rows_a_block(m, bn, layout, bits, group):
     """32 rows a block up to the engine's 32-row decode step, then 64, then
@@ -155,7 +163,10 @@ def test_prefill_takes_at_most_one_wave():
         ("magic", 4, 128, 4160, 256, ValueError, r"K a multiple of it"),
         ("magic", 4, 64, 4096, 48, ValueError, "N of 32"),
         ("magic", 8, 64, 4096, 256, ValueError, "bits=8"),
-        ("awq", 4, 64, 4096, 256, ValueError, "no K1/K1b/K1c launch plan"),
+        ("scaled", 8, 128, 4112, 256, ValueError, r"scaled_gemm kernel: needs int8 operands and K and N multiples of 32"),
+        ("scaled", 8, 128, 4096, 48, ValueError, "N=48"),
+        ("scaled", 4, 128, 4096, 256, ValueError, "bits=4"),
+        ("awq", 4, 64, 4096, 256, ValueError, "no K1/K1b/K1c/K8 launch plan"),
     ],
 )
 def test_plan_refuses_what_the_kernel_refuses(layout, bits, group, k, n, error, match):
@@ -174,6 +185,19 @@ def test_tma_rows_realigns_x(offset, stride, kept):
     y = _tma_rows(x)
     assert (y is x) == kept
     assert y.stride(0) % 8 == 0 and y.data_ptr() % 16 == 0 and y.stride(1) == 1
+    assert torch.equal(y, x)
+
+
+@pytest.mark.parametrize("offset,stride,kept", [(0, 4100, False), (4, 4112, False), (16, 4096, True), (0, 96, True)])
+def test_tma_rows_realigns_int8_a(offset, stride, kept):
+    """K8's int8 a with rows off 16 bytes (any stride, a sliced view) becomes
+    a copy with 16-byte aligned rows and a stride that is a multiple of 16;
+    aligned rows are passed through."""
+    base = torch.randint(-127, 128, (3 * stride + offset,), dtype=torch.int8)
+    x = base[offset:offset + 3 * stride].view(3, stride)[:, :96]
+    y = _tma_rows(x)
+    assert (y is x) == kept
+    assert y.stride(0) % 16 == 0 and y.data_ptr() % 16 == 0 and y.stride(1) == 1
     assert torch.equal(y, x)
 
 
