@@ -58,6 +58,18 @@
      outputs, scalar and vector scales, stacked and single weights, strided
      a, values near 127 whose split sums pass 2^24), each equal to the
      plain version bit for bit;
+   - K11 over every option it takes (``check_mla_attention_options``, 1440
+     cases: bf16 queries over bf16, int8 and e4m3 latent caches, f32
+     queries over f32, int8 and e4m3 ones, 1, 3, 16 and 128 heads, latent
+     128 to 512 and packed 128 to 896, causal or not, ragged decode and
+     prefill steps at stage and split edges with idle and zero-length
+     sequences, shared pages, padding rows after a real last sequence,
+     ``max_seqlen_q`` above the real maximum, one split to eight), within
+     K11's tolerances, every case twice, bit for bit; K12q over every
+     option it takes (``check_quantize4_options``, 504 cases: blocksizes 2
+     to 4096, f32 / bf16 / f16, nf4 and fp4, ragged tails, all-zero
+     blocks, every threshold exactly, starts 16-, 8- and 4-byte aligned),
+     byte for byte;
    - K12q NF4/FP4 encode on every weight the nf4 init quantizes (with an
      all-zero block), and on the gate projection at blocksize 4096 and
      from f16, byte for byte; K12d NF4/FP4 decode of the gate projection
@@ -1715,30 +1727,25 @@ DS_SCALE = 1.0 / math.sqrt(192)
 K11_TOLERANCES = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
 
 
-def kernel_phase_k11(gen, rng, cache: str | None = None) -> dict:
-    """K11 at DeepSeek-V2-Lite's shapes over a 27-layer latent pool read at
-    layer 13, in f32 and bf16, against its plain version:
-    - a decode step of batch 8 at lengths 0 (an idle row, first) to 4000;
-    - a 512-row prefill step as the engine packs it: a mixed-in decode row
-      at context 1500, a fresh 200-token prompt, a 150-token chunk at
-      context 1800, a 100-token chunk at context 164 whose first 4 pages
-      are another sequence's, 12 zero-length padding sequences (16 in all,
-      the served run's batch) and 61 padding rows.
-    Queries and rows have zero pad columns, as the model writes them. The
-    row has the bf16 decode numbers; ``detail`` every case. With ``cache``
-    ("int8", "fp8") the latent pool is quantized at kv_scale
-    KV_SCALES[cache][0] and read by bf16 queries (the kernel's only
-    query type over such a cache)."""
-    from conch_tpu_torch.kernels.attention.mla_attention import (
-        mla_attention_launcher as launch,
-        mla_attention_plain as plain,
-    )
-
+def k11_inputs(gen, rng, cache: str | None = None) -> dict:
+    """K11's cases at DeepSeek-V2-Lite's shapes over a 27-layer latent pool
+    read at layer 13 (``kernel_phase_k11``'s, and the tools'):
+    - "decode": a decode step of batch 8 at lengths 0 (an idle row, first)
+      to 4000;
+    - "prefill": a 512-row prefill step as the engine packs it: a mixed-in
+      decode row at context 1500, a fresh 200-token prompt, a 150-token
+      chunk at context 1800, a 100-token chunk at context 164 whose first 4
+      pages are another sequence's, 12 zero-length padding sequences (16 in
+      all, the served run's batch) and 61 padding rows.
+    Queries and rows have zero pad columns, as the model writes them. With
+    ``cache`` ("int8", "fp8") the latent pool is quantized at kv_scale
+    KV_SCALES[cache][0]. ``cases`` maps a case to (queries in f32, cu_seqlens_q,
+    max_seqlen_q, seq_lens, block table)."""
     max_pages = 256
     dec_lens = [0, 1, 17, 300, 1000, 2047, 3000, 4000]
     pre_q = [1, 200, 150, 100] + [0] * 12
     pre_k = [1500, 200, 1800, 164] + [0] * 12
-    rows, total = 512, sum(pre_q)
+    rows = 512
     num_pages = sum(-(-n // PS) for n in dec_lens + pre_k) + 1
     bt_all = paged_layout(rng, dec_lens + pre_k, num_pages, share=(10, 11), shared_pages=4, max_pages=max_pages)
     bt_dec, bt_pre = bt_all[: len(dec_lens)], bt_all[len(dec_lens) :]
@@ -1752,18 +1759,42 @@ def kernel_phase_k11(gen, rng, cache: str | None = None) -> dict:
     q_all = torch.randn((len(dec_lens) + rows, DS_HEADS, DS_PACKED), generator=gen, device="cuda")
     q_all[..., DS_LATENT + DS_ROPE :] = 0.0
     cu_pre = np.concatenate([[0], np.cumsum(pre_q)]).astype(np.int32)
-    cases = {
+    return {"pool": pool, "kv_scale": kv_scale, "total_prefill": sum(pre_q), "cases": {
         "decode": (q_all[: len(dec_lens)], np.arange(len(dec_lens) + 1, dtype=np.int32), 1, dec_lens, bt_dec),
         "prefill": (q_all[len(dec_lens) :], cu_pre, 256, pre_k, bt_pre),
-    }
+    }}
+
+
+def k11_args(inputs: dict, case: str, dtype: torch.dtype) -> tuple[tuple, dict]:
+    """(args, keyword arguments) of one ``k11_inputs`` case for queries of
+    ``dtype``, read at layer DS_LAYER (a float pool in ``dtype``)."""
+    pool = inputs["pool"]
+    layer = pool[DS_LAYER] if pool.dtype in (torch.int8, torch.float8_e4m3fn) else pool[DS_LAYER].to(dtype)
+    q, cu, max_q, kv_lens, bt = inputs["cases"][case]
+    args = (q.to(dtype), layer, torch.from_numpy(cu).cuda(), max_q,
+            torch.tensor(kv_lens, dtype=torch.int32, device="cuda"), torch.from_numpy(bt).cuda())
+    return args, {"scale": DS_SCALE, "latent": DS_LATENT, "kv_scale": inputs["kv_scale"]}
+
+
+def kernel_phase_k11(gen, rng, cache: str | None = None) -> dict:
+    """K11 on ``k11_inputs``' decode and prefill steps, in f32 and bf16,
+    against its plain version. The row has the bf16 decode numbers;
+    ``detail`` every case. With ``cache`` ("int8", "fp8") the pool is
+    quantized and read by bf16 queries (f32 queries over such caches are
+    held in ``check_mla_attention_options``)."""
+    from conch_tpu_torch.kernels.attention.mla_attention import (
+        mla_attention_launcher as launch,
+        mla_attention_plain as plain,
+    )
+
+    inputs = k11_inputs(gen, rng, cache)
+    total = inputs["total_prefill"]
     detail, err_all = [], 0.0
     for dtype in (torch.float32, torch.bfloat16) if cache is None else (torch.bfloat16,):
-        layer = pool[DS_LAYER].to(dtype) if cache is None else pool[DS_LAYER]
-        for case, (q, cu, max_q, kv_lens, bt) in cases.items():
-            q = q.to(dtype)
-            args = (q, layer, torch.from_numpy(cu).cuda(), max_q, torch.tensor(kv_lens, dtype=torch.int32,
-                    device="cuda"), torch.from_numpy(bt).cuda())
-            kw = {"scale": DS_SCALE, "latent": DS_LATENT, "kv_scale": kv_scale}
+        for case in inputs["cases"]:
+            args, kw = k11_args(inputs, case, dtype)
+            q, layer, cu, bt = args[0], args[1], inputs["cases"][case][1], inputs["cases"][case][4]
+            kv_lens = inputs["cases"][case][3]
             got, ref = launch(*args, **kw), plain(*args, **kw)
             torch.cuda.synchronize()
             zero_rows = got[0] if case == "decode" else got[total:]
@@ -1787,7 +1818,7 @@ def kernel_phase_k11(gen, rng, cache: str | None = None) -> dict:
                 print(f"K11 mla_attention ({entry['case']}): {entry['ms']:.4f} ms (paced {entry['paced_ms']:.4f}, "
                       f"plain {entry['plain_ms']:.4f}, bound {b_ms:.5f} by {b_by})", flush=True)
             detail.append(entry)
-    del pool, q_all
+    del inputs
     torch.cuda.empty_cache()
     main = next(d for d in detail if d["case"].startswith("decode bfloat16"))
     row = _kernel_row(
@@ -1796,6 +1827,158 @@ def kernel_phase_k11(gen, rng, cache: str | None = None) -> dict:
     )
     row["detail"] = detail
     return row
+
+
+# K11's option sweep: (query, latent cache) dtypes, head counts (64-row
+# tiles hold 4 tokens of 16 heads, 64 tokens of 1, 21 tokens and a third
+# of 3, half a token of 128), (latent, packed) widths, and three ragged
+# steps over tables of 8 pages (one split) and 64 pages (splits of 128
+# keys): a decode step with an idle row and lengths at stage (32) and
+# split (128) edges, a prefill step with zero-length sequences, a decode
+# row, a chunk at a split edge and padding rows after a zero-length last
+# sequence, and a step whose last sequence is real with padding rows
+# after it. In each step two sequences share their first two pages.
+MLA_OPTION_TYPES = (
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.int8),
+    (torch.bfloat16, torch.float8_e4m3fn), (torch.float32, torch.int8), (torch.float32, torch.float8_e4m3fn),
+)
+MLA_OPTION_HEADS = (16, 1, 3, 128)
+MLA_OPTION_WIDTHS = ((512, 640), (128, 128), (256, 384), (384, 512), (512, 896))
+MLA_OPTION_STEPS = {  # name: (q_lens, seq_lens, rows, the sequences that share pages)
+    "decode": ([1, 1, 1, 1, 1, 1, 1], [0, 31, 32, 33, 128, 129, 257], 9, (2, 3)),
+    "prefill": ([1, 40, 0, 9, 33, 1, 0], [100, 40, 0, 121, 128, 300, 0], 90, (3, 4)),
+    "last real": ([1, 9, 40], [0, 121, 40], 64, (1, 2)),
+}
+
+
+def check_mla_attention_options(gen, rng) -> None:
+    """K11 at every option it takes, against its plain version: the
+    (query, cache) dtypes of MLA_OPTION_TYPES (1-byte caches at
+    KV_SCALES[..][0], read by bf16 and by f32 queries), heads
+    MLA_OPTION_HEADS, (latent, packed) MLA_OPTION_WIDTHS, causal and not,
+    the steps of MLA_OPTION_STEPS over 8- and 64-page tables, with
+    ``max_seqlen_q`` the real maximum or 3 above it. Tolerance
+    K11_TOLERANCES of the matrix-unit type (bf16 for bf16 queries and for
+    e4m3 caches, whose rows the TPU kernel multiplies in bf16; f32
+    otherwise), padding rows included (copies of the last sequence's
+    tokens, or zeros); pages that no row may see are NaN in the pool the
+    kernel reads (float caches); every case twice, bit for bit. Errors are
+    gathered on the card and read once."""
+    from conch_tpu_torch.kernels.attention.mla_attention import (
+        mla_attention_launcher as launch,
+        mla_attention_plain as plain,
+        mla_tile_plan,
+    )
+    from conch_tpu_torch.kernels.cache.reshape_and_cache import quantize_store
+    from conch_tpu_torch.kernels.common import sm_count
+
+    names, errs, over, same, splits_seen = [], [], [], [], set()
+    for step, (q_lens, lens, rows, share) in MLA_OPTION_STEPS.items():
+        for table in (8, 64):
+            lens_t = [min(n, table * PS) for n in lens]
+            num_pages = sum(-(-n // PS) for n in lens_t) + 2
+            poison = num_pages - 1
+            bt = paged_layout(rng, lens_t, num_pages - 1, share=share, shared_pages=2, max_pages=table)
+            bt[bt == 0] = poison  # the table's padding (page 0 is never drawn)
+            bt_t = torch.from_numpy(bt).cuda()
+            cu_t = torch.tensor(np.concatenate([[0], np.cumsum(q_lens)]), dtype=torch.int32, device="cuda")
+            sl_t = torch.tensor(lens_t, dtype=torch.int32, device="cuda")
+            for latent, packed in MLA_OPTION_WIDTHS:
+                base = torch.randn((num_pages, PS, packed), generator=gen, device="cuda")
+                for q_dt, c_dt in MLA_OPTION_TYPES:
+                    one_byte = c_dt in (torch.int8, torch.float8_e4m3fn)
+                    kv_scale = KV_SCALES["int8" if c_dt == torch.int8 else "fp8"][0] if one_byte else 1.0
+                    pool = quantize_store(base, kv_scale, c_dt) if one_byte else base.to(c_dt)
+                    if not one_byte:
+                        pool = pool.clone()
+                        pool[poison] = float("nan")
+                    mxu = torch.bfloat16 if q_dt == torch.bfloat16 or c_dt == torch.float8_e4m3fn else torch.float32
+                    tol = K11_TOLERANCES[mxu]
+                    for heads in MLA_OPTION_HEADS:
+                        q = torch.randn((rows, heads, packed), generator=gen, device="cuda").to(q_dt)
+                        for causal in (True, False):
+                            plan = mla_tile_plan(rows, len(lens), table, PS, heads, packed, latent, causal,
+                                                 sm_count(0))
+                            splits_seen.add(plan.splits)
+                            max_q = max(q_lens) + (3 if (heads + causal) % 2 else 0)
+                            args = (q, pool, cu_t, max_q, sl_t, bt_t)
+                            kw = {"scale": packed**-0.5, "latent": latent, "causal": causal, "kv_scale": kv_scale}
+                            out, again = launch(*args, **kw), launch(*args, **kw)
+                            ref_pool = pool if one_byte else base.to(c_dt)
+                            ref = plain(q, ref_pool, cu_t, max_q, sl_t, bt_t, **kw)
+                            names.append(f"K11 {step} table {table} q {str(q_dt)[6:]} cache {str(c_dt)[6:]} heads "
+                                         f"{heads} latent {latent} packed {packed} "
+                                         f"{'causal' if causal else 'non-causal'} max_seqlen_q {max_q} "
+                                         f"({plan.splits} splits)")
+                            diff = (out.float() - ref.float()).abs()
+                            errs.append(diff.max())
+                            over.append((diff - tol - tol * ref.float().abs()).max())  # <= 0: inside
+                            same.append(torch.equal(out, again))
+                del base
+    err_list, over_list, same_list = (torch.stack(errs).tolist(), torch.stack(over).tolist(),
+                                      torch.tensor(same).tolist())
+    print(f"K11 mla_attention options: {len(names)} cases (splits {sorted(splits_seen)}), worst max_abs_err "
+          f"{max(err_list):.3e}; {sum(same_list)} bit for bit across two calls", flush=True)
+    bad = [(name, e) for name, e, o in zip(names, err_list, over_list) if not o <= 0.0]
+    for name, e in bad[:40]:
+        print(f"{name}: max_abs_err {e:.3e} outside the tolerance", flush=True)
+    if bad:
+        raise AssertionError(f"{len(bad)} of {len(names)} K11 option cases fail")
+    if not all(same_list):
+        raise AssertionError(f"{len(same_list) - sum(same_list)} K11 option cases differ between two calls")
+
+
+# K12q's option sweep: every power-of-two blocksize from 8 to 4096 (the
+# vector path) and 2, 6, 100 and 1000 (the scalar path), sizes of 5 blocks
+# and of 3 blocks and 6 elements (a ragged last block whose last chunk is
+# not whole), inputs starting 16-, 8- and 4-byte aligned.
+QUANTIZE4_OPTION_BLOCKSIZES = (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 2, 6, 100, 1000)
+QUANTIZE4_OPTION_OFFSETS = (0, 8, 4)  # bytes past a 16-byte boundary
+
+
+def check_quantize4_options(gen) -> None:
+    """K12q at every option it takes, byte for byte against its plain
+    version: QUANTIZE4_OPTION_BLOCKSIZES, f32, bf16 and f16 inputs, nf4 and
+    fp4, the sizes and start offsets above. Block 0 is all zeros (absmax 0,
+    reciprocal 0); in f32 inputs block 1 holds 1 and -1 and, where it has
+    room, every NF4 and FP4 threshold exactly (zeros elsewhere, so its
+    absmax is 1), so a compare that is not strict changes a code. Mismatches are gathered on the card and read
+    once."""
+    from conch_tpu_torch.kernels.quantization.bitsandbytes.blockwise import (
+        FP4_THRESHOLDS,
+        nf4_thresholds,
+        quantize4_launcher as launch,
+        quantize4_plain as plain,
+    )
+
+    edges = torch.cat([torch.tensor([1.0, -1.0], device="cuda"), nf4_thresholds("cuda"),
+                       torch.tensor(FP4_THRESHOLDS, dtype=torch.float32, device="cuda"),
+                       -torch.tensor(FP4_THRESHOLDS, dtype=torch.float32, device="cuda")])
+    names, bad = [], []
+    for blocksize in QUANTIZE4_OPTION_BLOCKSIZES:
+        for size in (5 * blocksize, 3 * blocksize + 6):
+            for dtype in (torch.float32, torch.bfloat16, torch.float16):
+                for offset in QUANTIZE4_OPTION_OFFSETS:
+                    pad = offset * 8 // torch.finfo(dtype).bits  # elements
+                    buf = torch.randn(size + 16, generator=gen, device="cuda").to(dtype)
+                    x = buf[pad : pad + size]
+                    x[:blocksize] = 0.0
+                    if dtype == torch.float32 and size > blocksize:
+                        n = min(blocksize, edges.numel(), size - blocksize)
+                        x[blocksize : 2 * blocksize] = 0.0  # absmax 1: every edge value is scaled by exactly 1
+                        x[blocksize : blocksize + n] = edges[:n]
+                    for quant_type in ("nf4", "fp4"):
+                        got, ref = launch(x, blocksize, quant_type), plain(x, blocksize, quant_type)
+                        names.append(f"K12q {quant_type} blocksize {blocksize} size {size} {str(dtype)[6:]} "
+                                     f"start +{offset} bytes")
+                        bad.append((got[0] != ref[0]).sum() + (got[1] != ref[1]).sum())
+    bad_list = torch.stack(bad).tolist()
+    print(f"K12q quantize4 options: {len(names)} cases, {sum(b == 0 for b in bad_list)} byte for byte", flush=True)
+    for name, b in zip(names, bad_list):
+        if b:
+            print(f"{name}: {b} bytes or absmax differ", flush=True)
+    if any(bad_list):
+        raise AssertionError(f"{sum(b != 0 for b in bad_list)} of {len(names)} K12q option cases differ")
 
 
 # K9 at a decode batch and a prefill chunk of Llama-3-8B's hidden size, and
@@ -3039,6 +3222,8 @@ def kernel_phases() -> list[dict]:
     check_paged_attention_options(gen, rng)
     check_varlen_attention_options(gen, rng)
     check_scaled_gemm_options(gen)
+    check_mla_attention_options(gen, rng)
+    check_quantize4_options(gen)
     for r in rows:
         print(
             f"{r['name']}: {r['ms']:.4f} ms (paced {r['paced_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
@@ -3427,18 +3612,19 @@ DEEPSEEK_KERNELS = ("mla_attention", "rms_norm", "silu_and_mul")
 
 def count_steps(engine) -> list[int]:
     """Wrap the engine's model step functions so that each call adds one to
-    the returned counter: the model steps of a run, counted apart from the
-    kernels' launches."""
-    counter = [0]
+    the returned counters: the model steps of a run (then its prefill and
+    its decode steps), counted apart from the kernels' launches."""
+    counter = [0, 0, 0]
 
-    def counted(fn):
+    def counted(fn, kind):
         def step(*args, **kwargs):
             counter[0] += 1
+            counter[kind] += 1
             return fn(*args, **kwargs)
 
         return step
 
-    engine._prefill_fn, engine._decode_fn = counted(engine._prefill_fn), counted(engine._decode_fn)
+    engine._prefill_fn, engine._decode_fn = counted(engine._prefill_fn, 1), counted(engine._decode_fn, 2)
     return counter
 
 
@@ -3497,7 +3683,8 @@ def serve(
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB peak allocated; prefix-cache hits "
           f"{engine.prefix_cache_hits} tokens", flush=True)
     n_steps = steps[0]
-    print(f"{label}: launches in the served run ({n_steps} model steps): {launches}", flush=True)
+    print(f"{label}: launches in the served run ({n_steps} model steps: {steps[1]} prefill, {steps[2]} decode): "
+          f"{launches}", flush=True)
     for name in expect:
         if launches[name] <= 0:
             raise AssertionError(f"{name} was never launched on the {label} path")
@@ -3563,10 +3750,10 @@ def profile_run(fn, label: str) -> None:
     top = sorted(by_name.items(), key=lambda x: -x[1])[:8]
     print(f"{label} profile top kernels: " + "; ".join(f"{n} {t:.1f} ms" for n, t in top), flush=True)
     # The kernels one K1, K1b, K1c or K8 call may launch (the GEMM, the
-    # split reduction, K1b's x row-sum pre-pass), and K3's and K7's two
-    # each (the split walk, the merge).
+    # split reduction, K1b's x row-sum pre-pass), and K3's, K7's and K11's
+    # two each (the split walk, the merge).
     for tag, names in (("K1/K1b/K1c/K8", ("qgemm::", "group_row_sums")), ("K3", ("paged_split", "paged_merge")),
-                       ("K7", ("varlen_tile", "varlen_merge", "varlen_rows"))):
+                       ("K7", ("varlen_tile", "varlen_merge", "varlen_rows")), ("K11", ("mla_",))):
         found = {n: t for n, t in by_name.items() if any(key in n for key in names)}
         if found:
             counts = {n: sum(1 for e in kernels if e["name"][:60] == n) for n in found}

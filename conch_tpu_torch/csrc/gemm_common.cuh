@@ -48,15 +48,37 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
 }
 
 // Eight one-byte cache elements (int8 or e4m3) as eight bf16, exactly (both
-// types fit bf16's 8-bit mantissa and its exponent range).
+// types fit bf16's 8-bit mantissa and its exponent range), without the
+// conversion unit's slow path. int8: q + 128 in the low byte of 2^23 makes
+// the float 2^23 + 128 + q, and one subtraction leaves q; its bf16 is the
+// float's upper half (|q| <= 128 needs 8 significant bits). e4m3: pairs
+// through f16 (which holds every e4m3 value) and f32 into bf16.
 template <typename C>
 __device__ __forceinline__ uint4 widen8_bf16(uint2 raw) {
-  const C* e = reinterpret_cast<const C*>(&raw);
-  uint4 out;
-  __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(&out);
+  const uint32_t in[2] = {raw.x, raw.y};
+  uint32_t out[4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) o[i] = __float2bfloat16(to_float(e[i]));
-  return out;
+  for (int w = 0; w < 2; ++w) {
+    if constexpr (std::is_same_v<C, int8_t>) {
+      const uint32_t biased = in[w] ^ 0x80808080u;
+      float f[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        f[k] = __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7440 + k)) - 8388736.0f;  // 2^23 + 128
+      }
+      out[2 * w] = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
+      out[2 * w + 1] = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const auto pair = static_cast<__nv_fp8x2_storage_t>(in[w] >> (16 * k));
+        const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(pair, __NV_E4M3);
+        const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&h));
+        out[2 * w + k] = pack_bf16x2(f.x, f.y);
+      }
+    }
+  }
+  return make_uint4(out[0], out[1], out[2], out[3]);
 }
 
 }  // namespace conch

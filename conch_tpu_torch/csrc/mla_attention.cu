@@ -4,37 +4,89 @@
 // Absorbed multi-head latent attention over the packed latent cache (K11).
 //
 // Replaces conch_tpu/kernels/attention/mla_attention.py:_mla_dma_kernel and
-// its launcher mla_attention_launcher. Varlen, paged, causal MQA: every
-// query head of a sequence reads one shared stream of packed cache rows
-// [c_kv | k_pe | 0-pad] (packed 640 for DeepSeek-V2-Lite). The score is
-// q_cat . row over the whole packed row, at scale * kv_scale; the value is
-// the row's first `latent` (512) columns; the output (total_q, heads,
-// latent) is the f32 accumulator over the softmax sum, times kv_scale.
+// its launcher mla_attention_launcher. Varlen, paged, causal or non-causal
+// MQA: every query head of a sequence reads one shared stream of packed
+// cache rows [c_kv | k_pe | 0-pad] (packed 640 for DeepSeek-V2-Lite). The
+// score is q_cat . row over all `packed` columns, at scale * kv_scale; the
+// value is the row's first `latent` (512) columns; the output (total_q,
+// heads, latent) is the f32 accumulator over the softmax sum, times
+// kv_scale.
 //
 // Bound on the H100: bytes at decode (16 heads x (640 + 512) x 2
 // operations per 1280-byte row, 29 per byte, far below the card's ~295),
 // operations at prefill (a 512-row step multiplies that by the query
-// tokens of a sequence). MLA's whole saving is that one cached row serves
-// every head, so the design keeps that property: one block per (sequence,
-// tile of packed (token, head) rows, KV split). The tile's rows form the
-// M dimension of mma.sync m16n8k16 tiles (16 rows = the 16 heads of one
-// token at V2-Lite) against a shared-memory tile of 64 packed rows that
-// the block reads once: S = Q . K^T over 640 columns, an online softmax in
-// f32 (base 2), then O += P . V over the 512 latent columns of the same
-// shared-memory rows (ldmatrix.trans gives the B fragments). Decode has one
-// token per sequence, so a block per sequence would fill 8 of 132 SMs at
-// batch 8: when the (sequence, tile) blocks are fewer than two waves the
-// wrapper splits each KV range into equal pieces, one block each, and a
-// second kernel merges the pieces' (max, sum, accumulator) by
-// log-sum-exp. Rounding follows the TPU kernel on a bf16 cache: bf16 q
-// and rows into the tensor cores, f32 scores, p rounded to bf16 for the
-// PV product, f32 accumulation; the f32 cache (the tests' dtype) takes a
-// CUDA-core path with the same blocks, f32 throughout. int8 and e4m3
-// latent caches (quantized on store, with bf16 queries) go through the
-// bf16 kernel: their rows convert to bf16 as they enter shared memory,
-// exactly (both types fit bf16's 8-bit mantissa and its exponent range),
-// and kv_scale folds into the score scale and the output as in the TPU
-// kernel; the tensor-core stages are those of the bf16 cache.
+// tokens of a sequence). MLA's saving is that one cached row serves every
+// head, so a block's M rows are (token, head) rows of one sequence: the
+// flattened rows t * 64 .. t * 64 + 63 of its (q_len x heads) queries
+// (4 tokens of 16 heads; at decode one token, 48 rows idle).
+//
+// The launch plan comes from shapes alone, in Python
+// (kernels/attention/mla_attention.py:mla_tile_plan): the grid has
+// cdiv(total_q * heads, 64) + batch tile slots, at least the step's
+// (sequence, tile) pairs, and a block finds its pair from cu_seqlens_q on
+// the device (find_tile; slots past the last pair exit); split z of a
+// tile walks its keys [z * split_len, ..) up to the tile's last row's
+// limit, the splits aimed at two waves of working blocks. The wrapper
+// reads no tensor value on the host.
+//
+// Design of the bf16 kernel (the layout of DeepSeek's FlashMLA kernel for
+// Hopper, github.com/deepseek-ai/FlashMLA: 64-row warpgroup tiles, the
+// latent accumulator split between two consumer warpgroups):
+//  - three warpgroups: a producer and two consumers. The producer
+//    (setmaxnreg down to 88 registers) copies the Q tile and then the
+//    split's keys, 32 a stage, into a ring of `stages` stages (16-byte
+//    cp.async into the 128-byte swizzled layout that wgmma reads, zero-
+//    filled past the split), one block-table lookup a thread and 16 keys,
+//    made a stage ahead. Each thread's copies arrive on the stage's `full`
+//    mbarrier as they land (cp.async.mbarrier.arrive.noinc), so every
+//    stage of the ring is in flight; the consumers fence the stage
+//    (fence.proxy.async) before wgmma reads it. int8 and e4m3 rows go by
+//    cp.async into a staging area after the ring (one stage of one-byte
+//    rows; at packed 896 it leaves room for one stage), then each
+//    producer thread widens the pieces it copied to bf16 exactly
+//    (widen8_bf16: byte permutes, not the conversion unit) into the
+//    stage, fences and signals it. A stage is refilled after both
+//    consumers arrive on its `empty` mbarrier;
+//  - each consumer (setmaxnreg up to 208) owns latent / 2 columns of the
+//    64 x latent f32 accumulator (128 registers a thread at latent 512;
+//    without the exchange the consumers spill and the kernel runs 3x
+//    slower).
+//    Per stage it computes S = Q . K^T over all packed columns with
+//    wgmma.m64n32k16 from shared memory (Q and K both K-major), the
+//    masked online softmax in base 2 in registers, P rounded to bf16 in
+//    registers as the A operand of O += P . V (wgmma.m64n64k16, A from
+//    registers, B = the same stage's rows read MN-major: V is the first
+//    `latent` columns of K). Both consumers compute the same S, so no
+//    barrier or shared memory joins them;
+//  - with one split a consumer writes (O / l) * v_scale in bf16;
+//    otherwise its unnormalized O and (max, sum) go to an f32 workspace
+//    and a merge kernel, launched as a programmatic dependent (its launch
+//    overlaps this grid's end), combines the live splits by log-sum-exp in
+//    a fixed order, four columns a thread and eight splits' loads ahead of
+//    their sums.
+// Shared memory decides the shape: Q for 64 rows at packed 640 is 80 KB and
+// a 64-key stage another 80 KB, so Q and two such stages (240 KB) exceed
+// the 227 KB a block may use; 32-key stages of 40 KB leave room for three
+// (200 KB at packed 640, four below packed 576; a one-byte cache's
+// staging area takes a stage's rows in bytes beside them). Packed up to
+// 896 keeps two stages. One block an SM.
+// What sets the pace (tools/k11_tile_sweep.py, PERF.md): a stage takes
+// about 2.2 us on one block whatever its copies (without them, 2.16): the
+// consumers' chain of S, its wait, the softmax, PV and its wait, in step
+// in both warpgroups; S is about a third of it. Dropped after timing: two
+// stages, 16-key stages, scores by mma.sync (at decode too), the score
+// product split between the consumers and joined through shared memory
+// (its two barriers a stage cost what it saved), the next tile's S issued
+// under the softmax (ptxas then serializes the wgmmas, or spills past
+// 208 registers a thread), and persistent blocks (one an SM, walking the
+// work items: a block's items then run one after another).
+//
+// Rounding follows the TPU kernel: bf16 q and rows into the tensor cores,
+// f32 scores, p rounded to bf16 for PV, f32 accumulation and softmax sum.
+// int8 and e4m3 latent caches (quantized on store) go through the same
+// kernel under bf16 queries: their rows widen to bf16 exactly (both types
+// fit bf16's 8-bit mantissa and its exponent range), and kv_scale folds
+// into the score scale and the output.
 //
 // Rows past cu_seqlens_q[batch] are padding. They come out as the TPU
 // launcher leaves them: its clamped gather gives padding row t the output
@@ -42,107 +94,588 @@
 // sequence, or zeros where that sequence has no such token. A MoE layer
 // after the attention routes the padding rows too, and their first
 // choices take capacity from later choices, so the served tokens depend on
-// it.
+// it. With one split, the block that owns a token writes its copies and
+// the blocks of split 0 write the zero rows; with splits the merge writes
+// every row.
+//
+// f32 queries (the tests' dtype; no served model) keep a CUDA-core kernel,
+// f32 throughout, over f32, int8 or e4m3 caches (a cache-type template
+// parameter; an e4m3 cache rounds q and p to bf16, as the TPU kernel's
+// matrix-unit type for it does): a block takes the plan's tiles and
+// splits and walks its 64 rows 16 at a time.
 
-#include "gemm_common.cuh"
+#include "quant_gemm_mainloop.cuh"
 
 namespace conch {
+namespace mla {
 
-constexpr int kMlaThreads = 256;
-constexpr int kMlaWarps = kMlaThreads / 32;
-constexpr int kMlaKeysBf16 = 64;  // cached rows per shared-memory tile
-constexpr int kMlaKeysF32 = 32;
-constexpr int kMlaMaxLatentTiles = 8;  // n8 tiles of latent a warp owns: latent <= 512
-constexpr int kMlaMaxSplits = 256;
+using qgemm::desc_sw128;
+using qgemm::fence_operands;
+using qgemm::mbar_init;
+using qgemm::mbar_wait;
+using qgemm::smem_u32;
+using qgemm::wgmma_commit;
+using qgemm::wgmma_fence;
+using qgemm::wgmma_wait0;
+
+constexpr int kRows = 64;                         // M rows a tile: (token, head) rows of one sequence
+constexpr int kKeys = 32;                         // keys a stage
+constexpr int kChunk = 64;                        // bf16 columns of one 128-byte swizzled row
+constexpr int kQChunkBytes = kRows * 128;         // one 64-column chunk of the Q tile
+constexpr int kKChunkBytes = kKeys * 128;         // one 64-column chunk of a stage
+constexpr int kConsumers = 2;                     // consumer warpgroups, latent / 2 columns each
+constexpr int kThreads = 128 * (1 + kConsumers);  // the producer warpgroup first
+constexpr int kMaxStages = 4;
+constexpr int kMaxSplits = 64;
+constexpr int kMaxPacked = 896;
+constexpr int kSmemLimit = 232448;
+constexpr int kSmemSlack = 1024 + 2 * kMaxStages * 8;  // aligning the base to 1024 bytes, the mbarriers
+constexpr int kProducerRegs = 88;   // setmaxnreg: the producer gives registers up,
+constexpr int kConsumerRegs = 208;  // the consumers take them (88 + 2 x 208 = 504 a lane)
+constexpr int kF32Threads = 256;
+constexpr int kF32Rows = 16;  // rows a pass of the f32 kernel
+constexpr int kF32Keys = 32;
+constexpr int kF32Cols = 2;  // latent <= 512 = 2 x 256 threads
+constexpr int kMergeThreads = 128;
 constexpr float kLog2e = 1.4426950408889634f;
 
-struct MlaParams {
+struct Params {
   const void* query;  // (total_q, heads, packed)
   void* out;          // (total_q, heads, latent)
   const void* cache;  // (pages, page_size, packed): one layer
   const int32_t* cu_seqlens_q;
   const int32_t* seq_lens;
   const int32_t* block_table;  // (batch, max_pages)
-  float* part_acc;             // (nsplit, total_q, heads, latent) when nsplit > 1
-  float* part_ml;              // (nsplit, total_q, heads, 2)
+  float* part_acc;             // (splits, total_q, heads, latent) when splits > 1
+  float* part_ml;              // (splits, total_q, heads, 2): running max (base 2), softmax sum
   int total_q, batch, max_pages, heads, page_size, packed, latent, max_seqlen_q, causal;
-  int split_len, nsplit;
+  int split_len, splits, stages, cache_type;
+  int staging;  // one-byte caches: the staging area's byte offset (kKeys rows of `packed` bytes)
   float score_scale;  // scale * kv_scale * log2(e)
   float v_scale;
 };
 
-// What one block needs of its sequence: the query rows, the KV range of its
-// split, and each row's last visible position.
-struct MlaTile {
-  int b, q0, q_len, seq_k, row0, kv_lo, kv_hi;
+// The one-byte caches' staging area, after the ring (none for bf16).
+__host__ __device__ __forceinline__ uint32_t staging_bytes(const Params& p) {
+  return p.cache_type == kBFloat16 ? 0 : kKeys * p.packed;
+}
+
+// One tile: flattened (token, head) rows row0 .. row0 + rows - 1 of
+// sequence b, and the keys [0, hi) its last row sees.
+struct Tile {
+  int b, q0, q_len, seq_k, row0, rows, hi;
 };
 
-__device__ __forceinline__ MlaTile mla_tile(const MlaParams& p, int rows) {
-  MlaTile t;
-  t.b = blockIdx.y;
-  t.q0 = p.cu_seqlens_q[t.b];
-  t.q_len = p.cu_seqlens_q[t.b + 1] - t.q0;
-  t.seq_k = p.seq_lens[t.b];
-  t.row0 = blockIdx.x * rows;
-  const int last = min((t.row0 + rows - 1) / p.heads, t.q_len - 1);
-  int kv_limit = p.causal ? t.seq_k - t.q_len + last + 1 : t.seq_k;
-  kv_limit = max(min(kv_limit, t.seq_k), 0);
-  t.kv_lo = blockIdx.z * p.split_len;
-  t.kv_hi = min(t.kv_lo + p.split_len, kv_limit);
+__device__ __forceinline__ Tile tile_of(const Params& p, int b, int tile) {
+  Tile t;
+  t.b = b;
+  t.q0 = p.cu_seqlens_q[b];
+  t.q_len = p.cu_seqlens_q[b + 1] - t.q0;
+  t.seq_k = p.seq_lens[b];
+  t.row0 = tile * kRows;
+  t.rows = min(kRows, t.q_len * p.heads - t.row0);
+  const int last = (t.row0 + t.rows - 1) / p.heads;
+  t.hi = max(min(p.causal ? t.seq_k - t.q_len + last + 1 : t.seq_k, t.seq_k), 0);
   return t;
 }
 
-// Last visible key position of tile row r, or -1 for a row of no token.
-__device__ __forceinline__ int mla_row_limit(const MlaParams& p, const MlaTile& t, int r) {
-  const int i = (t.row0 + r) / p.heads;
-  if (i >= t.q_len) return -1;
-  return p.causal ? t.seq_k - t.q_len + i : t.seq_k - 1;
+// Tile slot `slot`'s (sequence, tile) pair: the tiles in sequence order,
+// cdiv(q_len * heads, 64) a sequence. False past the last pair. Each warp
+// finds it alone: lane l counts sequence base + l's tiles, a prefix sum by
+// shuffles and a ballot give the sequence, 32 sequences a round, so the
+// lookups of a round are one load's latency.
+__device__ __forceinline__ bool find_tile(const Params& p, int slot, Tile& t) {
+  const int lane = threadIdx.x & 31;
+  int rem = slot;
+  for (int base = 0; base < p.batch; base += 32) {
+    const int b = base + lane;
+    const int tiles = b < p.batch ? ((p.cu_seqlens_q[b + 1] - p.cu_seqlens_q[b]) * p.heads + kRows - 1) / kRows : 0;
+    int upto = tiles;  // tiles of sequences base .. b
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, upto, off);
+      if (lane >= off) upto += v;
+    }
+    const unsigned past = __ballot_sync(0xffffffffu, upto > rem);  // sequences whose tiles reach past the slot
+    if (past != 0) {
+      const int first = __ffs(past) - 1;
+      const int before = __shfl_sync(0xffffffffu, upto - tiles, first);
+      t = tile_of(p, base + first, rem - before);
+      return true;
+    }
+    rem -= __shfl_sync(0xffffffffu, upto, 31);
+  }
+  return false;
+}
+
+// The sequence that owns packed query row `row` < cu_seqlens_q[batch]: the
+// last b with cu_seqlens_q[b] <= row (zero-length sequences own no row), by
+// a ballot over 32 sequences a round.
+__device__ __forceinline__ int sequence_of(const Params& p, int row) {
+  const int lane = threadIdx.x & 31;
+  for (int base = 0;; base += 32) {
+    const int b = base + lane;
+    const unsigned past = __ballot_sync(0xffffffffu, b < p.batch && p.cu_seqlens_q[b + 1] > row);
+    if (past != 0) return base + __ffs(past) - 1;
+  }
+}
+
+// Last visible key of tile row r, or -1 for a row past the tile's rows.
+__device__ __forceinline__ int row_limit(const Params& p, const Tile& t, int r) {
+  if (r >= t.rows) return -1;
+  return p.causal ? t.seq_k - t.q_len + (t.row0 + r) / p.heads : t.seq_k - 1;
+}
+
+// Splits of a tile with keys to walk (the merge reads these).
+__device__ __forceinline__ int live_splits(const Params& p, int hi) {
+  return hi > 0 ? min((hi + p.split_len - 1) / p.split_len, p.splits) : 0;
 }
 
 // Writes two neighbouring output columns (col, col + 1) of token i, head h
-// of the tile's sequence: its own row when the token exists, and the
-// padding rows that the TPU launcher's clamped gather maps to it when the
-// sequence is the last one (zeros for a token the sequence does not have).
+// of the tile's sequence, and the padding rows that the TPU launcher's
+// clamped gather maps to it when the sequence is the last one.
 template <typename T>
-__device__ __forceinline__ void mla_store2(const MlaParams& p, const MlaTile& t, int i, int h, int col, float v0,
-                                           float v1) {
+__device__ __forceinline__ void store2(const Params& p, const Tile& t, int i, int h, int col, float v0, float v1) {
   T* out = static_cast<T*>(p.out);
   auto put = [&](int row) {
     T* dst = out + (static_cast<int64_t>(row) * p.heads + h) * p.latent + col;
     dst[0] = from_float<T>(v0);
     dst[1] = from_float<T>(v1);
   };
-  if (i < t.q_len) put(t.q0 + i);
+  put(t.q0 + i);
   if (t.b == p.batch - 1 && i < p.max_seqlen_q) {
     const int total = p.cu_seqlens_q[p.batch];
-    if (i < p.max_seqlen_q - 1) {
-      if (total + i < p.total_q) put(total + i);
-    } else {
-      for (int row = total + i; row < p.total_q; ++row) put(row);
+    const int end = i < p.max_seqlen_q - 1 ? min(total + i + 1, p.total_q) : p.total_q;
+    for (int row = total + i; row < end; ++row) put(row);
+  }
+}
+
+// The padding rows whose token the last sequence does not have: zeros,
+// shared out among the blocks of split 0 (one split only).
+template <typename T>
+__device__ __forceinline__ void zero_padding_rows(const Params& p, int threads) {
+  const int total = p.cu_seqlens_q[p.batch];
+  const int last_len = p.cu_seqlens_q[p.batch] - p.cu_seqlens_q[p.batch - 1];
+  T* out = static_cast<T*>(p.out);
+  const int width = p.heads * p.latent;
+  for (int row = total + blockIdx.x; row < p.total_q; row += gridDim.x) {
+    if (min(row - total, p.max_seqlen_q - 1) < last_len) continue;  // a copy, written by its token's block
+    for (int idx = threadIdx.x; idx < width; idx += threads) {
+      out[static_cast<int64_t>(row) * width + idx] = from_float<T>(0.0f);
     }
   }
 }
 
-// Online-softmax update of one KV tile: s_s holds the tile's masked scores
-// (base 2); turns them into p (written to p_s as P), and rescales each row's
-// running max and sum. Every thread of the block calls it.
-template <int ROWS, int KEYS, typename P>
-__device__ __forceinline__ void mla_softmax(const float* s_s, int s_stride, P* p_s, int p_stride, float* m_s,
-                                            float* l_s, float* alpha_s) {
-  constexpr int kPerRow = kMlaThreads / ROWS;  // threads per row, contiguous lanes of one warp
+__device__ __forceinline__ float* partial_acc(const Params& p, int split, int64_t head_row, int col) {
+  return p.part_acc + (static_cast<int64_t>(split) * p.total_q * p.heads + head_row) * p.latent + col;
+}
+__device__ __forceinline__ float* partial_ml(const Params& p, int split, int64_t head_row) {
+  return p.part_ml + (static_cast<int64_t>(split) * p.total_q * p.heads + head_row) * 2;
+}
+
+// -- PTX -----------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+// One arrival on `bar` once every cp.async this thread has issued so far has
+// landed (the barrier's count includes it).
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+// Orders this thread's generic-proxy writes to shared memory (cp.async,
+// st.shared) before the async proxy's reads (wgmma).
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+// Byte offset of the 16-byte piece `piece` (columns 8 piece .. 8 piece + 7
+// of a 64-column chunk) of row r in a 128-byte swizzled, 1024-byte
+// aligned chunk.
+__device__ __forceinline__ uint32_t swizzled(int r, int piece) { return r * 128 + ((piece ^ (r & 7)) << 4); }
+
+// wgmma's descriptor of an MN-major bf16 operand with the 128-byte
+// swizzle: rows of 64 values (128 bytes) along N, 8-row atoms along K
+// 1024 bytes apart. With one 64-column atom along N (m64n64) only the
+// K-atom stride is read; both offsets carry it.
+__device__ __forceinline__ uint64_t desc_mn_sw128(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) | (static_cast<uint64_t>(1024 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+// d[N / 2] (+)= A[64 x 16] . B[16 x N]: both from shared memory, K-major
+// (N = the keys of a stage).
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// 16-key stages: the variant tools/k11_tile_sweep.py times.
+template <>
+__device__ __forceinline__ void wgmma_ss<16>(float (&d)[8], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d[32] += A[64 x 16] . B[16 x 64]: A from registers (the mma.m16n8k16 A
+// layout, warp w of the warpgroup holding rows 16w .. 16w + 15), B from
+// shared memory, MN-major (transposed).
+__device__ __forceinline__ void wgmma_rs_n64_t(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// Keeps the A fragments alive (unmodified) until the wgmmas reading them
+// have completed.
+__device__ __forceinline__ void hold(uint32_t (&a)[kKeys / 16][4]) {
+#pragma unroll
+  for (int k = 0; k < kKeys / 16; ++k)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[k][i])::"memory");
+}
+
+// -- the bf16 kernel: producer ----------------------------------------------------
+
+// The cache rows of a stage's keys k0 .. k0 + kKeys - 1 that thread `pt`
+// copies (key pass * 16 + pt / 8 of each pass; invalid past s_hi): one
+// block-table lookup a pass, made a stage ahead of the copies.
+constexpr int kPasses = kKeys / 16;
+struct StageRows {
+  int64_t row[kPasses];
+  bool valid[kPasses];
+};
+
+__device__ __forceinline__ StageRows stage_rows(const Params& p, const Tile& t, int k0, int s_hi, int pt) {
+  const int32_t* bt = p.block_table + static_cast<int64_t>(t.b) * p.max_pages;
+  StageRows r;
+#pragma unroll
+  for (int pass = 0; pass < kPasses; ++pass) {
+    const int pos = k0 + pass * 16 + (pt >> 3);
+    r.valid[pass] = pos < s_hi;
+    r.row[pass] = r.valid[pass] ? (static_cast<int64_t>(bt[pos / p.page_size]) * p.page_size + pos % p.page_size) *
+                                      p.packed
+                                : 0;
+  }
+  return r;
+}
+
+// One stage: 8 threads a key, 16 keys a pass, thread `pt` taking 16-byte
+// pieces pt % 8, pt % 8 + 8, ... of its key's row (zeros past s_hi). bf16
+// rows go by cp.async into the stage (one piece of each 64-column chunk);
+// one-byte rows by cp.async into the staging area, every piece in flight
+// at once, then, landed, each thread widens the pieces it copied into the
+// stage (no other thread reads them, so no barrier).
+__device__ __forceinline__ void copy_stage(const Params& p, uint8_t* smem, uint32_t stage_off, const StageRows& r,
+                                           int pt) {
+  const int sub = pt & 7;
+  if (p.cache_type == kBFloat16) {
+    const int chunks = p.packed / kChunk;
+#pragma unroll
+    for (int pass = 0; pass < kPasses; ++pass) {
+      const int j = pass * 16 + (pt >> 3);
+      const __nv_bfloat16* src = static_cast<const __nv_bfloat16*>(p.cache) + r.row[pass] + 8 * sub;
+      for (int c = 0; c < chunks; ++c) {
+        cp_async16(smem_u32(smem) + stage_off + c * kKChunkBytes + swizzled(j, sub), src + c * kChunk,
+                   r.valid[pass] ? 16 : 0);
+      }
+    }
+    return;
+  }
+  // Columns 16 u .. 16 u + 15, u = sub + 8 k: chunk u / 4, pieces 2 (u % 4) and 2 (u % 4) + 1.
+  const int pieces = p.packed / 16;
+  const uint8_t* cache = static_cast<const uint8_t*>(p.cache);
+#pragma unroll
+  for (int pass = 0; pass < kPasses; ++pass) {
+    const int j = pass * 16 + (pt >> 3);
+    for (int u = sub; u < pieces; u += 8) {
+      cp_async16(smem_u32(smem) + p.staging + j * p.packed + 16 * u, cache + r.row[pass] + 16 * u,
+                 r.valid[pass] ? 16 : 0);
+    }
+  }
+  cp_async_wait_all();
+  const bool int8 = p.cache_type == kInt8;
+#pragma unroll
+  for (int pass = 0; pass < kPasses; ++pass) {
+    const int j = pass * 16 + (pt >> 3);
+    for (int u = sub; u < pieces; u += 8) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(smem + p.staging + j * p.packed + 16 * u);
+      const uint2 first = make_uint2(raw.x, raw.y), second = make_uint2(raw.z, raw.w);
+      const uint4 lo = int8 ? widen8_bf16<int8_t>(first) : widen8_bf16<__nv_fp8_e4m3>(first);
+      const uint4 hi = int8 ? widen8_bf16<int8_t>(second) : widen8_bf16<__nv_fp8_e4m3>(second);
+      uint8_t* base = smem + stage_off + (u >> 2) * kKChunkBytes;
+      *reinterpret_cast<uint4*>(base + swizzled(j, 2 * (u & 3))) = lo;
+      *reinterpret_cast<uint4*>(base + swizzled(j, 2 * (u & 3) + 1)) = hi;
+    }
+  }
+}
+
+// The Q tile: 64 rows (zeros past the tile's rows), 8 threads a row.
+__device__ __forceinline__ void load_q(const Params& p, const Tile& t, uint8_t* smem, int pt) {
+  const __nv_bfloat16* query = static_cast<const __nv_bfloat16*>(p.query);
+  const int sub = pt & 7;
+  const int chunks = p.packed / kChunk;
+  for (int r = pt >> 3; r < kRows; r += 16) {
+    const bool valid = r < t.rows;
+    const __nv_bfloat16* src =
+        query + (valid ? (static_cast<int64_t>(t.q0) * p.heads + t.row0 + r) * p.packed : 0) + 8 * sub;
+    for (int c = 0; c < chunks; ++c) {
+      cp_async16(smem_u32(smem) + c * kQChunkBytes + swizzled(r, sub), src + c * kChunk, valid ? 16 : 0);
+    }
+  }
+}
+
+// -- the bf16 kernel ------------------------------------------------------------
+
+// NC: the 64-column latent chunks each consumer warpgroup owns (latent =
+// 128 NC). Block (x, z) takes split z of tile slot x.
+template <int NC>
+__global__ void __launch_bounds__(kThreads, 1) mla_wgmma_kernel(const __grid_constant__ Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int chunks = p.packed / kChunk;
+  const uint32_t q_bytes = chunks * kQChunkBytes;
+  const uint32_t stage_bytes = chunks * kKChunkBytes;
+  const uint32_t bars = smem_u32(smem) + q_bytes + p.stages * stage_bytes + staging_bytes(p);
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kMaxStages + s); };
+  const int tid = threadIdx.x;
+  const int split = blockIdx.y;
+
+  if (split == 0 && p.splits == 1) zero_padding_rows<__nv_bfloat16>(p, kThreads);
+  Tile t;
+  if (!find_tile(p, blockIdx.x, t)) return;
+  const int s_lo = split * p.split_len;
+  const int s_hi = min(s_lo + p.split_len, t.hi);
+  // With splits the merge writes what a split without keys would.
+  if (s_lo >= s_hi && p.splits > 1) return;
+  const int tiles = s_hi > s_lo ? (s_hi - s_lo + kKeys - 1) / kKeys : 0;
+
+  if (tid == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(full(s), 128);
+      mbar_init(empty(s), 128 * kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // Producer: Q with the first stage, then each stage as soon as the
+    // consumers have released its slot; the next stage's block-table
+    // lookups go out before that wait. bf16 copies arrive on the stage's
+    // `full` barrier as they land (the consumers fence them for wgmma);
+    // one-byte rows are stored, fenced and signalled here.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    const bool async_copy = p.cache_type == kBFloat16;
+    StageRows rows = stage_rows(p, t, s_lo, s_hi, tid);
+    for (int i = 0; i < tiles; ++i) {
+      const int st = i % p.stages;
+      if (i >= p.stages) mbar_wait(empty(st), ((i / p.stages) + 1) & 1);
+      if (i == 0) load_q(p, t, smem, tid);
+      copy_stage(p, smem, q_bytes + st * stage_bytes, rows, tid);
+      if (async_copy) {
+        cp_async_arrive(full(st));
+      } else {
+        fence_proxy_async();  // copy_stage waited for its copies, the Q tile's among them
+        mbar_arrive(full(st));
+      }
+      if (i + 1 < tiles) rows = stage_rows(p, t, s_lo + (i + 1) * kKeys, s_hi, tid);
+    }
+    cp_async_wait_all();
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int cw = tid / 128 - 1;  // consumer warpgroup: latent chunks cw * NC .. cw * NC + NC - 1
+  const int warp = (tid / 32) & 3;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int tig = lane & 3;
+  int lim[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) lim[h] = row_limit(p, t, warp * 16 + g + 8 * h);
+  float o[NC][32];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) o[c][e] = 0.0f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  const uint32_t q_addr = smem_u32(smem);
+
+  for (int i = 0; i < tiles; ++i) {
+    const int st = i % p.stages;
+    mbar_wait(full(st), (i / p.stages) & 1);
+    fence_proxy_async();  // the stage's cp.async writes, before wgmma reads them
+    const uint32_t k_addr = q_addr + q_bytes + st * stage_bytes;
+    // S = Q . K^T over every packed column.
+    float s[kKeys / 2];
+#pragma unroll
+    for (int e = 0; e < kKeys / 2; ++e) s[e] = 0.0f;
+    fence_operands(s);
+    wgmma_fence();
+    for (int c = 0; c < chunks; ++c) {  // 64-column chunks, four k16 steps each
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        wgmma_ss<kKeys>(s, desc_sw128(q_addr + c * kQChunkBytes + 32 * k),
+                        desc_sw128(k_addr + c * kKChunkBytes + 32 * k), c > 0 || k > 0);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_operands(s);
+    // Logits in base 2, masked past the split and past each row's limit;
+    // s[4j + e] is row g + 8 (e >> 1), key 8j + 2 tig + (e & 1).
+    const int k0 = s_lo + i * kKeys;
+#pragma unroll
+    for (int e = 0; e < kKeys / 2; ++e) {
+      const int key = k0 + 8 * (e >> 2) + 2 * tig + (e & 1);
+      s[e] = (key < s_hi && key <= lim[(e >> 1) & 1]) ? s[e] * p.score_scale : -INFINITY;
+    }
+    // Online softmax of rows g (h 0) and g + 8 (h 1); a quad of lanes holds a row.
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kKeys / 8; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[h], mx);
+      const float m_use = m_new == -INFINITY ? 0.0f : m_new;  // a row that has seen no key yet
+      const float alpha = exp2f(m[h] - m_use);
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kKeys / 8; ++j) {
+        s[4 * j + 2 * h] = exp2f(s[4 * j + 2 * h] - m_use);
+        s[4 * j + 2 * h + 1] = exp2f(s[4 * j + 2 * h + 1] - m_use);
+        sum += s[4 * j + 2 * h] + s[4 * j + 2 * h + 1];
+      }
+      l[h] = l[h] * alpha + sum;
+      m[h] = m_new;
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          o[c][4 * j + 2 * h] *= alpha;
+          o[c][4 * j + 2 * h + 1] *= alpha;
+        }
+    }
+    // O += P . V: P rounded to bf16 as the A operand (keys 16 kk .. 16 kk + 15).
+    uint32_t a[kKeys / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
+      a[kk][0] = pack_bf16x2(s[8 * kk + 0], s[8 * kk + 1]);
+      a[kk][1] = pack_bf16x2(s[8 * kk + 2], s[8 * kk + 3]);
+      a[kk][2] = pack_bf16x2(s[8 * kk + 4], s[8 * kk + 5]);
+      a[kk][3] = pack_bf16x2(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+#pragma unroll
+    for (int c = 0; c < NC; ++c) fence_operands(o[c]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        wgmma_rs_n64_t(o[c], a[kk], desc_mn_sw128(k_addr + (cw * NC + c) * kKChunkBytes + kk * 2048));
+      }
+    wgmma_commit();
+    wgmma_wait0();
+    hold(a);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) fence_operands(o[c]);
+    mbar_arrive(empty(st));
+  }
+
+  // o[c][4j + e] is row 16 warp + g + 8 (e >> 1), column (cw NC + c) 64 + 8j + 2 tig + (e & 1).
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int r = warp * 16 + g + 8 * h;
+    if (r >= t.rows) continue;
+    const int i = (t.row0 + r) / p.heads;
+    const int head = (t.row0 + r) % p.heads;
+    const int64_t head_row = (static_cast<int64_t>(t.q0) + i) * p.heads + head;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = (cw * NC + c) * kChunk + 8 * j + 2 * tig;
+        const float v0 = o[c][4 * j + 2 * h], v1 = o[c][4 * j + 2 * h + 1];
+        if (p.splits == 1) {
+          store2<__nv_bfloat16>(p, t, i, head, col, l[h] > 0.0f ? v0 / l[h] * p.v_scale : 0.0f,
+                                l[h] > 0.0f ? v1 / l[h] * p.v_scale : 0.0f);
+        } else {
+          *reinterpret_cast<float2*>(partial_acc(p, split, head_row, col)) = make_float2(v0, v1);
+        }
+      }
+    if (p.splits > 1 && cw == 0 && tig == 0) {
+      float* ml = partial_ml(p, split, head_row);
+      ml[0] = m[h];
+      ml[1] = l[h];
+    }
+  }
+  // The merge may start launching (it waits for this grid to finish before
+  // it reads the workspace).
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// -- the f32 kernel ---------------------------------------------------------------
+
+struct F32Smem {
+  static constexpr int kSStride = kF32Keys + 4;
+  static __host__ __device__ size_t stats_off() { return kF32Keys * sizeof(int64_t); }
+  static __host__ __device__ size_t s_off() { return stats_off() + 4 * kF32Rows * sizeof(float); }
+  static __host__ __device__ size_t q_off() { return s_off() + kF32Rows * kSStride * sizeof(float); }
+  static __host__ __device__ size_t bytes(int packed) { return q_off() + size_t(kF32Rows) * packed * sizeof(float); }
+};
+
+// Online-softmax update of one key tile: s_s holds the tile's masked scores
+// (base 2); turns them into p in place, and rescales each row's running max
+// and sum. Every thread of the block calls it.
+__device__ __forceinline__ void f32_softmax(float* s_s, float* m_s, float* l_s, float* alpha_s, bool bf16_p) {
+  constexpr int kPerRow = kF32Threads / kF32Rows;  // threads per row, contiguous lanes of one warp
   const int r = threadIdx.x / kPerRow;
   const int sub = threadIdx.x % kPerRow;
   float mx = -INFINITY;
-  for (int j = sub; j < KEYS; j += kPerRow) mx = fmaxf(mx, s_s[r * s_stride + j]);
+  for (int j = sub; j < kF32Keys; j += kPerRow) mx = fmaxf(mx, s_s[r * F32Smem::kSStride + j]);
 #pragma unroll
   for (int off = kPerRow / 2; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
   const float m_old = m_s[r];
   const float m_new = fmaxf(m_old, mx);
   float sum = 0.0f;
-  for (int j = sub; j < KEYS; j += kPerRow) {
-    const float pj = m_new == -INFINITY ? 0.0f : exp2f(s_s[r * s_stride + j] - m_new);
+  for (int j = sub; j < kF32Keys; j += kPerRow) {
+    float* sj = s_s + r * F32Smem::kSStride + j;
+    const float pj = m_new == -INFINITY ? 0.0f : exp2f(*sj - m_new);
     sum += pj;
-    p_s[r * p_stride + j] = from_float<P>(pj);
+    *sj = bf16_p ? __bfloat162float(__float2bfloat16(pj)) : pj;
   }
 #pragma unroll
   for (int off = kPerRow / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
@@ -154,520 +687,306 @@ __device__ __forceinline__ void mla_softmax(const float* s_s, int s_stride, P* p
   }
 }
 
-// Rows of one KV tile: offsets (in elements) of positions lo .. lo + n - 1
-// through the block table, -1 past n.
-__device__ __forceinline__ void mla_tile_rows(const MlaParams& p, const MlaTile& t, int lo, int n, int keys,
-                                              int64_t* row_s) {
-  const int32_t* bt = p.block_table + static_cast<int64_t>(t.b) * p.max_pages;
-  for (int j = threadIdx.x; j < keys; j += kMlaThreads) {
-    int64_t off = -1;
-    if (j < n) {
-      const int pos = lo + j;
-      const int64_t page = bt[min(pos / p.page_size, p.max_pages - 1)];
-      off = (page * p.page_size + pos % p.page_size) * p.packed;
-    }
-    row_s[j] = off;
-  }
-}
-
-// Epilogue of a split block (nsplit > 1): the unnormalized accumulator and
-// the (max, sum) of each row that has a token.
-__device__ __forceinline__ void mla_store_partial_ml(const MlaParams& p, const MlaTile& t, int rows,
-                                                     const float* m_s, const float* l_s) {
-  for (int r = threadIdx.x; r < rows; r += kMlaThreads) {
-    const int i = (t.row0 + r) / p.heads;
-    if (i >= t.q_len) continue;
-    const int h = (t.row0 + r) % p.heads;
-    float* ml = p.part_ml + ((static_cast<int64_t>(blockIdx.z) * p.total_q + t.q0 + i) * p.heads + h) * 2;
-    ml[0] = m_s[r];
-    ml[1] = l_s[r];
-  }
-}
-
-__device__ __forceinline__ float* mla_partial_acc(const MlaParams& p, const MlaTile& t, int i, int h, int col) {
-  return p.part_acc + ((static_cast<int64_t>(blockIdx.z) * p.total_q + t.q0 + i) * p.heads + h) * p.latent + col;
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-// Shared-memory layout of the bf16 kernel (bytes), rows padded by 8 bf16 so
-// that fragment loads and ldmatrix rows fall on distinct banks.
-template <int MT>
-struct MlaBf16Smem {
-  static constexpr int kRows = 16 * MT;
-  static constexpr int kSStride = kMlaKeysBf16 + 4;  // f32 scores
-  static constexpr int kPStride = kMlaKeysBf16 + 8;  // bf16 probabilities
-  static __host__ __device__ int row_stride(int packed) { return packed + 8; }
-  static __host__ __device__ size_t rows_off() { return 0; }
-  static __host__ __device__ size_t stats_off() { return rows_off() + kMlaKeysBf16 * sizeof(int64_t); }
-  static __host__ __device__ size_t s_off() { return stats_off() + 4 * kRows * sizeof(float); }
-  static __host__ __device__ size_t p_off() { return s_off() + kRows * kSStride * sizeof(float); }
-  static __host__ __device__ size_t q_off() { return p_off() + kRows * kPStride * 2; }
-  static __host__ __device__ size_t kv_off(int packed) { return q_off() + size_t(kRows) * row_stride(packed) * 2; }
-  static __host__ __device__ size_t bytes(int packed) {
-    return kv_off(packed) + size_t(kMlaKeysBf16) * row_stride(packed) * 2;
-  }
-};
-
-// bf16 kernel: MT m16 row tiles (16 * MT packed rows) per block, 8 warps.
-// S phase: warp w computes rows of m-tile w % MT against 8 / MT n8 tiles
-// of keys. PV phase: warp w owns latent columns [w * latent / 8, (w + 1) *
-// latent / 8) for every row. C: the cache element type (bf16, int8, e4m3).
-template <int MT, typename C>
-__global__ void __launch_bounds__(kMlaThreads, 1) mla_bf16_kernel(const MlaParams p) {
-  using Smem = MlaBf16Smem<MT>;
-  constexpr int kRows = Smem::kRows;
-  constexpr int kKeys = kMlaKeysBf16;
-  // The 8 n8 key tiles of a KV tile are split among the 8 / MT warps that share an m-tile.
-  constexpr int kKeyTilesPerWarp = (kKeys / 8) / (kMlaWarps / MT);
+// f32 queries over a cache of element type C (f32, int8, e4m3): the plan's
+// 64-row tiles, 16 rows a pass, tiles of 32 cached rows, CUDA cores. S
+// phase: warp w takes keys w, w + 8, ...; its lanes split the packed
+// columns and sum by shuffles. PV phase: thread c owns latent columns c
+// and c + 256 of the pass's rows.
+template <typename C>
+__global__ void __launch_bounds__(kF32Threads) mla_f32_kernel(const __grid_constant__ Params p) {
+  constexpr bool kBf16Mxu = std::is_same_v<C, __nv_fp8_e4m3>;  // the TPU kernel's matrix-unit type
   extern __shared__ __align__(16) unsigned char smem[];
-  int64_t* row_s = reinterpret_cast<int64_t*>(smem + Smem::rows_off());
-  float* m_s = reinterpret_cast<float*>(smem + Smem::stats_off());
-  float* l_s = m_s + kRows;
-  float* alpha_s = l_s + kRows;
-  int* lim_s = reinterpret_cast<int*>(alpha_s + kRows);
-  float* s_s = reinterpret_cast<float*>(smem + Smem::s_off());
-  __nv_bfloat16* p_s = reinterpret_cast<__nv_bfloat16*>(smem + Smem::p_off());
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem + Smem::q_off());
-  __nv_bfloat16* kv_s = reinterpret_cast<__nv_bfloat16*>(smem + Smem::kv_off(p.packed));
-
-  const MlaTile t = mla_tile(p, kRows);
+  int64_t* row_s = reinterpret_cast<int64_t*>(smem);
+  float* m_s = reinterpret_cast<float*>(smem + F32Smem::stats_off());
+  float* l_s = m_s + kF32Rows;
+  float* alpha_s = l_s + kF32Rows;
+  int* lim_s = reinterpret_cast<int*>(alpha_s + kF32Rows);
+  float* s_s = reinterpret_cast<float*>(smem + F32Smem::s_off());
+  float* q_s = reinterpret_cast<float*>(smem + F32Smem::q_off());
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int tig = lane & 3;
-  const int stride = Smem::row_stride(p.packed);
-  const int words = stride / 2;  // 32-bit words a shared row
-  const int latent_tiles = p.latent / 64;  // n8 tiles a warp owns
+  const int split = blockIdx.y;
 
-  if (t.row0 >= t.q_len * p.heads) {
-    // No token in this tile: only the last sequence's padding rows may need zeros.
-    if (p.nsplit > 1 || t.b != p.batch - 1) return;
-    for (int idx = tid; idx < kRows * (p.latent / 2); idx += kMlaThreads) {
-      const int r = idx / (p.latent / 2);
-      const int row = t.row0 + r;
-      mla_store2<__nv_bfloat16>(p, t, row / p.heads, row % p.heads, 2 * (idx % (p.latent / 2)), 0.0f, 0.0f);
-    }
-    return;
-  }
-
-  // The tile's queries; rows of no token are zeros.
-  const int chunks = p.packed / 8;
-  const __nv_bfloat16* query = static_cast<const __nv_bfloat16*>(p.query);
-  for (int idx = tid; idx < kRows * chunks; idx += kMlaThreads) {
-    const int r = idx / chunks;
-    const int c = idx % chunks;
-    const int row = t.row0 + r;
-    const int i = row / p.heads;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (i < t.q_len) {
-      const int64_t q_row = static_cast<int64_t>(t.q0 + i) * p.heads + row % p.heads;
-      v = *reinterpret_cast<const uint4*>(query + q_row * p.packed + c * 8);
-    }
-    *reinterpret_cast<uint4*>(q_s + r * stride + c * 8) = v;
-  }
-  for (int r = tid; r < kRows; r += kMlaThreads) {
-    m_s[r] = -INFINITY;
-    l_s[r] = 0.0f;
-    lim_s[r] = mla_row_limit(p, t, r);
-  }
-
-  float acc[MT][kMlaMaxLatentTiles][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < kMlaMaxLatentTiles; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
-
+  if (split == 0 && p.splits == 1) zero_padding_rows<float>(p, kF32Threads);
+  Tile t;
+  if (!find_tile(p, blockIdx.x, t)) return;
+  const int s_lo = split * p.split_len;
+  const int s_hi = min(s_lo + p.split_len, t.hi);
+  if (s_lo >= s_hi && p.splits > 1) return;
+  const float* query = static_cast<const float*>(p.query);
   const C* cache = static_cast<const C*>(p.cache);
-  const uint32_t* q32 = reinterpret_cast<const uint32_t*>(q_s);
-  const uint32_t* kv32 = reinterpret_cast<const uint32_t*>(kv_s);
-  const uint32_t* p32 = reinterpret_cast<const uint32_t*>(p_s);
-  const int s_mt = warp % MT;
-  const int s_key0 = (warp / MT) * kKeyTilesPerWarp * 8;
+  const int32_t* bt = p.block_table + static_cast<int64_t>(t.b) * p.max_pages;
+  float* out = static_cast<float*>(p.out);
 
-  for (int lo = t.kv_lo; lo < t.kv_hi; lo += kKeys) {
-    const int n = min(kKeys, t.kv_hi - lo);
-    __syncthreads();  // the previous tile's PV reads of kv_s are done
-    mla_tile_rows(p, t, lo, n, kKeys, row_s);
-    __syncthreads();
-    for (int idx = tid; idx < kKeys * chunks; idx += kMlaThreads) {
-      const int j = idx / chunks;
-      const int c = idx % chunks;
-      const int64_t off = row_s[j];
-      // Rows past n are zero-filled: their p is 0, and 0 * garbage could be NaN.
-      if constexpr (std::is_same_v<C, __nv_bfloat16>) {
-        cp_async16(kv_s + j * stride + c * 8, off >= 0 ? cache + off + c * 8 : cache, off >= 0 ? 16 : 0);
-      } else {
-        const uint4 v = off >= 0 ? widen8_bf16<C>(*reinterpret_cast<const uint2*>(cache + off + c * 8))
-                                 : make_uint4(0, 0, 0, 0);
-        *reinterpret_cast<uint4*>(kv_s + j * stride + c * 8) = v;
+  for (int pass = 0; pass * kF32Rows < t.rows; ++pass) {
+    const int r0 = pass * kF32Rows;
+    __syncthreads();  // the previous pass is done with q_s and the stats
+    for (int idx = tid; idx < kF32Rows * p.packed; idx += kF32Threads) {
+      const int r = idx / p.packed;
+      float v = 0.0f;
+      if (r0 + r < t.rows) {
+        v = query[(static_cast<int64_t>(t.q0) * p.heads + t.row0 + r0 + r) * p.packed + idx % p.packed];
+      }
+      q_s[idx] = kBf16Mxu ? __bfloat162float(__float2bfloat16(v)) : v;
+    }
+    for (int r = tid; r < kF32Rows; r += kF32Threads) {
+      m_s[r] = -INFINITY;
+      l_s[r] = 0.0f;
+      lim_s[r] = row_limit(p, t, r0 + r);
+    }
+    float acc[kF32Rows][kF32Cols];
+#pragma unroll
+    for (int r = 0; r < kF32Rows; ++r)
+#pragma unroll
+      for (int c = 0; c < kF32Cols; ++c) acc[r][c] = 0.0f;
+
+    for (int lo = s_lo; lo < s_hi; lo += kF32Keys) {
+      const int n = min(kF32Keys, s_hi - lo);
+      __syncthreads();
+      for (int j = tid; j < kF32Keys; j += kF32Threads) {
+        const int pos = lo + j;
+        row_s[j] = j < n ? (static_cast<int64_t>(bt[pos / p.page_size]) * p.page_size + pos % p.page_size) * p.packed
+                         : -1;
+      }
+      __syncthreads();
+      for (int j = warp; j < kF32Keys; j += kF32Threads / 32) {
+        float part[kF32Rows];
+#pragma unroll
+        for (int r = 0; r < kF32Rows; ++r) part[r] = 0.0f;
+        if (j < n) {
+          const C* k_row = cache + row_s[j];
+          for (int d = lane; d < p.packed; d += 32) {
+            const float kd = to_float(k_row[d]);
+#pragma unroll
+            for (int r = 0; r < kF32Rows; ++r) part[r] += q_s[r * p.packed + d] * kd;
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < kF32Rows; ++r) {
+          const float s = warp_sum(part[r]);
+          if (lane == 0) {
+            s_s[r * F32Smem::kSStride + j] = (j < n && lo + j <= lim_s[r]) ? s * p.score_scale : -INFINITY;
+          }
+        }
+      }
+      __syncthreads();
+      f32_softmax(s_s, m_s, l_s, alpha_s, kBf16Mxu);
+      __syncthreads();
+#pragma unroll
+      for (int c = 0; c < kF32Cols; ++c) {
+        const int d = tid + c * kF32Threads;
+        if (d >= p.latent) continue;
+#pragma unroll
+        for (int r = 0; r < kF32Rows; ++r) acc[r][c] *= alpha_s[r];
+        for (int j = 0; j < n; ++j) {
+          const float vd = to_float(cache[row_s[j] + d]);
+#pragma unroll
+          for (int r = 0; r < kF32Rows; ++r) acc[r][c] += s_s[r * F32Smem::kSStride + j] * vd;
+        }
       }
     }
-    cp_async_wait_all();
     __syncthreads();
 
-    // S = Q . K^T for this warp's m-tile and key tiles, over all packed columns.
-    float sacc[kKeyTilesPerWarp][4];
+    // Columns d and d + 256 are not neighbours: store them one at a time.
 #pragma unroll
-    for (int s = 0; s < kKeyTilesPerWarp; ++s)
+    for (int c = 0; c < kF32Cols; ++c) {
+      const int d = tid + c * kF32Threads;
+      if (d >= p.latent) continue;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) sacc[s][e] = 0.0f;
-    const uint32_t* qa = q32 + (s_mt * 16 + g) * words + tig;
-    for (int kw = 0; kw < p.packed / 2; kw += 8) {
-      const uint32_t a0 = qa[kw], a1 = qa[8 * words + kw], a2 = qa[kw + 4], a3 = qa[8 * words + kw + 4];
-#pragma unroll
-      for (int s = 0; s < kKeyTilesPerWarp; ++s) {
-        const uint32_t* kb = kv32 + (s_key0 + s * 8 + g) * words + tig + kw;
-        mma_bf16_16816(sacc[s], a0, a1, a2, a3, kb[0], kb[4]);
-      }
-    }
-#pragma unroll
-    for (int s = 0; s < kKeyTilesPerWarp; ++s) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = s_mt * 16 + g + 8 * half;
-        const int j = s_key0 + s * 8 + 2 * tig;
-        const int lim = lim_s[r];
-        float2 v;
-        v.x = (j < n && lo + j <= lim) ? sacc[s][2 * half] * p.score_scale : -INFINITY;
-        v.y = (j + 1 < n && lo + j + 1 <= lim) ? sacc[s][2 * half + 1] * p.score_scale : -INFINITY;
-        *reinterpret_cast<float2*>(s_s + r * Smem::kSStride + j) = v;
-      }
-    }
-    __syncthreads();
-    mla_softmax<kRows, kKeys>(s_s, Smem::kSStride, p_s, Smem::kPStride, m_s, l_s, alpha_s);
-    __syncthreads();
-
-    // O = O * alpha + P . V over this warp's latent columns.
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      const float a_lo = alpha_s[mt * 16 + g];
-      const float a_hi = alpha_s[mt * 16 + g + 8];
-#pragma unroll
-      for (int nt = 0; nt < kMlaMaxLatentTiles; ++nt) {
-        acc[mt][nt][0] *= a_lo;
-        acc[mt][nt][1] *= a_lo;
-        acc[mt][nt][2] *= a_hi;
-        acc[mt][nt][3] *= a_hi;
-      }
-    }
-    const int col0 = warp * latent_tiles * 8;
-    const int m = lane >> 3;
-    const int ld_row = (lane & 7) + 8 * (m & 1);
-    const int ld_col = 8 * (m >> 1);
-#pragma unroll
-    for (int kk = 0; kk < kKeys; kk += 16) {
-      uint32_t a[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const uint32_t* pa = p32 + (mt * 16 + g) * (Smem::kPStride / 2) + kk / 2 + tig;
-        a[mt][0] = pa[0];
-        a[mt][1] = pa[8 * (Smem::kPStride / 2)];
-        a[mt][2] = pa[4];
-        a[mt][3] = pa[8 * (Smem::kPStride / 2) + 4];
-      }
-#pragma unroll
-      for (int np = 0; np < kMlaMaxLatentTiles / 2; ++np) {
-        if (2 * np < latent_tiles) {
-          uint32_t b[4];
-          ldmatrix_x4_trans(b, kv_s + (kk + ld_row) * stride + col0 + 16 * np + ld_col);
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            mma_bf16_16816(acc[mt][2 * np], a[mt][0], a[mt][1], a[mt][2], a[mt][3], b[0], b[1]);
-            mma_bf16_16816(acc[mt][2 * np + 1], a[mt][0], a[mt][1], a[mt][2], a[mt][3], b[2], b[3]);
+      for (int r = 0; r < kF32Rows; ++r) {
+        if (r0 + r >= t.rows) continue;
+        const int i = (t.row0 + r0 + r) / p.heads;
+        const int h = (t.row0 + r0 + r) % p.heads;
+        const int64_t head_row = (static_cast<int64_t>(t.q0) + i) * p.heads + h;
+        if (p.splits > 1) {
+          *partial_acc(p, split, head_row, d) = acc[r][c];
+          continue;
+        }
+        const float l = l_s[r];
+        const float v = l > 0.0f ? acc[r][c] / l * p.v_scale : 0.0f;
+        out[head_row * p.latent + d] = v;
+        if (t.b == p.batch - 1 && i < p.max_seqlen_q) {
+          const int total = p.cu_seqlens_q[p.batch];
+          const int end = i < p.max_seqlen_q - 1 ? min(total + i + 1, p.total_q) : p.total_q;
+          for (int prow = total + i; prow < end; ++prow) {
+            out[(static_cast<int64_t>(prow) * p.heads + h) * p.latent + d] = v;
           }
         }
       }
     }
-  }
-  __syncthreads();
-
-  const int col0 = warp * latent_tiles * 8;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = mt * 16 + g + 8 * half;
-      const int row = t.row0 + r;
-      const int i = row / p.heads;
-      const int h = row % p.heads;
-      const float l = l_s[r];
-#pragma unroll
-      for (int nt = 0; nt < kMlaMaxLatentTiles; ++nt) {
-        if (nt >= latent_tiles) continue;
-        const int col = col0 + nt * 8 + 2 * tig;
-        const float v0 = acc[mt][nt][2 * half];
-        const float v1 = acc[mt][nt][2 * half + 1];
-        if (p.nsplit > 1) {
-          if (i < t.q_len) *reinterpret_cast<float2*>(mla_partial_acc(p, t, i, h, col)) = make_float2(v0, v1);
-        } else {
-          mla_store2<__nv_bfloat16>(p, t, i, h, col, l > 0.0f ? v0 / l * p.v_scale : 0.0f,
-                                    l > 0.0f ? v1 / l * p.v_scale : 0.0f);
-        }
+    if (p.splits > 1) {
+      for (int r = tid; r < kF32Rows; r += kF32Threads) {
+        if (r0 + r >= t.rows) continue;
+        const int row = t.row0 + r0 + r;
+        float* ml = partial_ml(p, split, static_cast<int64_t>(t.q0) * p.heads + row);
+        ml[0] = m_s[r];
+        ml[1] = l_s[r];
       }
     }
   }
-  if (p.nsplit > 1) mla_store_partial_ml(p, t, kRows, m_s, l_s);
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
-// f32 kernel (the tests' cache dtype): 16 packed rows a block, tiles of 32
-// cached rows, CUDA cores. S phase: warp w takes keys w, w + 8, ...; its
-// lanes split the packed columns and sum by shuffles. PV phase: thread c
-// owns latent columns c and c + 256 of all 16 rows.
-constexpr int kMlaF32Rows = 16;
-constexpr int kMlaF32Cols = 2;  // latent <= 512 = 2 x 256 threads
+// -- the merge --------------------------------------------------------------------
 
-struct MlaF32Smem {
-  static constexpr int kSStride = kMlaKeysF32 + 4;
-  static __host__ __device__ size_t stats_off() { return kMlaKeysF32 * sizeof(int64_t); }
-  static __host__ __device__ size_t s_off() { return stats_off() + 4 * kMlaF32Rows * sizeof(float); }
-  static __host__ __device__ size_t q_off() { return s_off() + kMlaF32Rows * kSStride * sizeof(float); }
-  static __host__ __device__ size_t bytes(int packed) { return q_off() + size_t(kMlaF32Rows) * packed * sizeof(float); }
-};
-
-__global__ void __launch_bounds__(kMlaThreads) mla_f32_kernel(const MlaParams p) {
-  constexpr int kRows = kMlaF32Rows;
-  constexpr int kKeys = kMlaKeysF32;
-  extern __shared__ __align__(16) unsigned char smem[];
-  int64_t* row_s = reinterpret_cast<int64_t*>(smem);
-  float* m_s = reinterpret_cast<float*>(smem + MlaF32Smem::stats_off());
-  float* l_s = m_s + kRows;
-  float* alpha_s = l_s + kRows;
-  int* lim_s = reinterpret_cast<int*>(alpha_s + kRows);
-  float* s_s = reinterpret_cast<float*>(smem + MlaF32Smem::s_off());
-  float* q_s = reinterpret_cast<float*>(smem + MlaF32Smem::q_off());
-
-  const MlaTile t = mla_tile(p, kRows);
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-
-  if (t.row0 >= t.q_len * p.heads) {
-    if (p.nsplit > 1 || t.b != p.batch - 1) return;
-    for (int idx = tid; idx < kRows * (p.latent / 2); idx += kMlaThreads) {
-      const int row = t.row0 + idx / (p.latent / 2);
-      mla_store2<float>(p, t, row / p.heads, row % p.heads, 2 * (idx % (p.latent / 2)), 0.0f, 0.0f);
-    }
-    return;
-  }
-
-  const float* query = static_cast<const float*>(p.query);
-  for (int idx = tid; idx < kRows * p.packed; idx += kMlaThreads) {
-    const int r = idx / p.packed;
-    const int row = t.row0 + r;
-    const int i = row / p.heads;
-    q_s[idx] = i < t.q_len
-                   ? query[(static_cast<int64_t>(t.q0 + i) * p.heads + row % p.heads) * p.packed + idx % p.packed]
-                   : 0.0f;
-  }
-  for (int r = tid; r < kRows; r += kMlaThreads) {
-    m_s[r] = -INFINITY;
-    l_s[r] = 0.0f;
-    lim_s[r] = mla_row_limit(p, t, r);
-  }
-  float acc[kRows][kMlaF32Cols];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int c = 0; c < kMlaF32Cols; ++c) acc[r][c] = 0.0f;
-
-  const float* cache = static_cast<const float*>(p.cache);
-  for (int lo = t.kv_lo; lo < t.kv_hi; lo += kKeys) {
-    const int n = min(kKeys, t.kv_hi - lo);
-    __syncthreads();
-    mla_tile_rows(p, t, lo, n, kKeys, row_s);
-    __syncthreads();
-    for (int j = warp; j < kKeys; j += kMlaWarps) {
-      float part[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) part[r] = 0.0f;
-      if (j < n) {
-        const float* k_row = cache + row_s[j];
-        for (int d = lane; d < p.packed; d += 32) {
-          const float kd = k_row[d];
-#pragma unroll
-          for (int r = 0; r < kRows; ++r) part[r] += q_s[r * p.packed + d] * kd;
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float s = warp_sum(part[r]);
-        if (lane == 0) {
-          s_s[r * MlaF32Smem::kSStride + j] = (j < n && lo + j <= lim_s[r]) ? s * p.score_scale : -INFINITY;
-        }
-      }
-    }
-    __syncthreads();
-    mla_softmax<kRows, kKeys>(s_s, MlaF32Smem::kSStride, s_s, MlaF32Smem::kSStride, m_s, l_s, alpha_s);
-    __syncthreads();
-#pragma unroll
-    for (int c = 0; c < kMlaF32Cols; ++c) {
-      const int d = tid + c * kMlaThreads;
-      if (d >= p.latent) continue;
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r][c] *= alpha_s[r];
-      for (int j = 0; j < n; ++j) {
-        const float vd = cache[row_s[j] + d];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[r][c] += s_s[r * MlaF32Smem::kSStride + j] * vd;
-      }
-    }
-  }
-  __syncthreads();
-
-  // Columns d and d + 256 are not neighbours: store them one at a time.
-  float* out = static_cast<float*>(p.out);
-#pragma unroll
-  for (int c = 0; c < kMlaF32Cols; ++c) {
-    const int d = tid + c * kMlaThreads;
-    if (d >= p.latent) continue;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int row = t.row0 + r;
-      const int i = row / p.heads;
-      const int h = row % p.heads;
-      if (p.nsplit > 1) {
-        if (i < t.q_len) *mla_partial_acc(p, t, i, h, d) = acc[r][c];
-        continue;
-      }
-      const float l = l_s[r];
-      const float v = l > 0.0f ? acc[r][c] / l * p.v_scale : 0.0f;
-      if (i < t.q_len) out[(static_cast<int64_t>(t.q0 + i) * p.heads + h) * p.latent + d] = v;
-      if (t.b == p.batch - 1 && i < p.max_seqlen_q) {
-        const int total = p.cu_seqlens_q[p.batch];
-        const int end = i < p.max_seqlen_q - 1 ? min(total + i + 1, p.total_q) : p.total_q;
-        for (int prow = total + i; prow < end; ++prow) {
-          out[(static_cast<int64_t>(prow) * p.heads + h) * p.latent + d] = v;
-        }
-      }
-    }
-  }
-  if (p.nsplit > 1) mla_store_partial_ml(p, t, kRows, m_s, l_s);
-}
-
-// Merges the KV splits: one block per (token slot, sequence, head). Warp 0
-// turns the splits' (max, sum) into weights in shared memory; then each
-// thread sums its column pair over the splits. Splits that saw no visible
-// key (sum 0) get weight 0 and are skipped, so their unwritten
-// accumulators are never read.
+// Merges the live splits of one (row, head): split z carries weight w_z =
+// 2^(m_z - m), m the largest of their maxima; the output is (sum_z w_z
+// acc_z / sum_z w_z l_z) * v_scale, the splits taken in order. A split in
+// which the row saw no key has m_z = -inf and weight 0. A padding row
+// merges the splits of the token the TPU launcher's clamped gather gives
+// it, or is zero.
 template <typename T>
-__global__ void __launch_bounds__(kMlaThreads) mla_merge_kernel(const MlaParams p) {
-  __shared__ float w_s[kMlaMaxSplits];
+__global__ void __launch_bounds__(kMergeThreads) mla_merge_kernel(const __grid_constant__ Params p) {
+  __shared__ float w_s[kMaxSplits];
   __shared__ float l_s;
-  MlaTile t;
-  t.b = blockIdx.y;
-  t.q0 = p.cu_seqlens_q[t.b];
-  t.q_len = p.cu_seqlens_q[t.b + 1] - t.q0;
-  t.seq_k = p.seq_lens[t.b];
-  t.row0 = 0;
-  const int i = blockIdx.x;
-  const int h = blockIdx.z;
-  if (i >= t.q_len && (t.b != p.batch - 1 || i >= p.max_seqlen_q)) return;
-  const bool has_token = i < t.q_len;
-  const int64_t row = has_token ? static_cast<int64_t>(t.q0 + i) * p.heads + h : 0;
-  const int64_t split_stride = static_cast<int64_t>(p.total_q) * p.heads;
-  if (has_token && threadIdx.x < 32) {
-    float m = -INFINITY;
-    for (int s = threadIdx.x; s < p.nsplit; s += 32) {
-      const float* ml = p.part_ml + (s * split_stride + row) * 2;
-      if (ml[1] > 0.0f) m = fmaxf(m, ml[0]);
+  const int row = blockIdx.x;
+  const int h = blockIdx.y;
+  const int total = p.cu_seqlens_q[p.batch];
+  int b = p.batch - 1, src = -1;
+  if (row < total) {
+    b = sequence_of(p, row);
+    src = row;
+  } else {
+    const int i = min(row - total, p.max_seqlen_q - 1);
+    if (i < total - p.cu_seqlens_q[b]) src = p.cu_seqlens_q[b] + i;
+  }
+  int live = 0;
+  if (src >= 0) {
+    const Tile t = tile_of(p, b, ((src - p.cu_seqlens_q[b]) * p.heads + h) / kRows);
+    live = live_splits(p, t.hi);
+  }
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");  // the split grid has finished and its stores are visible
+  const int64_t head_row = static_cast<int64_t>(src) * p.heads + h;
+  if (threadIdx.x < 32) {
+    float m_z[2], mx = -INFINITY;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int z = threadIdx.x + 32 * u;
+      m_z[u] = z < live ? partial_ml(p, z, head_row)[0] : -INFINITY;
+      mx = fmaxf(mx, m_z[u]);
     }
-    m = warp_max(m);
-    float l = 0.0f;
-    for (int s = threadIdx.x; s < p.nsplit; s += 32) {
-      const float* ml = p.part_ml + (s * split_stride + row) * 2;
-      const float w = ml[1] > 0.0f ? exp2f(ml[0] - m) : 0.0f;
-      w_s[s] = w;
-      l += ml[1] * w;
+    mx = warp_max(mx);
+    float sum = 0.0f;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int z = threadIdx.x + 32 * u;
+      if (z < live) {
+        const float w = mx == -INFINITY ? 0.0f : exp2f(m_z[u] - mx);
+        w_s[z] = w;
+        sum += partial_ml(p, z, head_row)[1] * w;
+      }
     }
-    l = warp_sum(l);
-    if (threadIdx.x == 0) l_s = l;
+    sum = warp_sum(sum);
+    if (threadIdx.x == 0) l_s = sum;
   }
   __syncthreads();
-  for (int col = 2 * threadIdx.x; col < p.latent; col += 2 * kMlaThreads) {
-    float v0 = 0.0f, v1 = 0.0f;
-    if (has_token && l_s > 0.0f) {
-      float a0 = 0.0f, a1 = 0.0f;
-      for (int s = 0; s < p.nsplit; ++s) {
-        const float w = w_s[s];
-        if (w == 0.0f) continue;
-        const float2 part = *reinterpret_cast<const float2*>(p.part_acc + (s * split_stride + row) * p.latent + col);
-        a0 += part.x * w;
-        a1 += part.y * w;
+  // Four columns a thread; the splits' loads eight at a time, ahead of
+  // their sums (which go in split order).
+  T* out = static_cast<T*>(p.out) + (static_cast<int64_t>(row) * p.heads + h) * p.latent;
+  const float l = l_s;
+  for (int col = 4 * threadIdx.x; col < p.latent; col += 4 * kMergeThreads) {
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int z0 = 0; z0 < live; z0 += 8) {
+      float4 part[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        part[u] = z0 + u < live ? *reinterpret_cast<const float4*>(partial_acc(p, z0 + u, head_row, col))
+                                : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       }
-      v0 = a0 / l_s * p.v_scale;
-      v1 = a1 / l_s * p.v_scale;
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        if (z0 + u >= live) break;
+        const float w = w_s[z0 + u];
+        acc[0] += part[u].x * w;
+        acc[1] += part[u].y * w;
+        acc[2] += part[u].z * w;
+        acc[3] += part[u].w * w;
+      }
     }
-    mla_store2<T>(p, t, i, h, col, v0, v1);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) out[col + k] = from_float<T>(l > 0.0f ? acc[k] / l * p.v_scale : 0.0f);
   }
 }
 
-template <typename T>
-int launch_merge(const MlaParams& p, cudaStream_t stream) {
-  dim3 grid(p.max_seqlen_q, p.batch, p.heads);
-  mla_merge_kernel<T><<<grid, kMlaThreads, 0, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+// The split grid, then (with splits) the merge as its programmatic dependent.
+template <typename T, typename Kernel>
+cudaError_t launch(const Params& p, Kernel kernel, dim3 grid, int threads, size_t smem, cudaStream_t stream) {
+  cudaError_t status =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (status != cudaSuccess) return status;
+  kernel<<<grid, threads, smem, stream>>>(p);
+  status = cudaGetLastError();
+  if (status != cudaSuccess || p.splits == 1) return status;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(p.total_q, p.heads);
+  config.blockDim = dim3(kMergeThreads);
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  status = cudaLaunchKernelEx(&config, mla_merge_kernel<T>, p);
+  if (status != cudaSuccess) return status;
+  return cudaGetLastError();
 }
 
-template <int MT, typename C>
-int launch_bf16(const MlaParams& p, cudaStream_t stream) {
-  const size_t smem = MlaBf16Smem<MT>::bytes(p.packed);
-  cudaError_t err = cudaFuncSetAttribute(mla_bf16_kernel<MT, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((p.max_seqlen_q * p.heads + 16 * MT - 1) / (16 * MT), p.batch, p.nsplit);
-  mla_bf16_kernel<MT, C><<<grid, kMlaThreads, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+size_t wgmma_smem(int packed, int stages) {
+  return static_cast<size_t>(packed / kChunk) * (kQChunkBytes + stages * kKChunkBytes) + kSmemSlack;
 }
 
-// bf16 queries over a cache of element type C, in MT m-tiles a block.
-template <typename C>
-int launch_bf16_tiles(const MlaParams& p, int m_tiles, cudaStream_t stream) {
-  if (m_tiles == 4) return launch_bf16<4, C>(p, stream);
-  if (m_tiles == 1) return launch_bf16<1, C>(p, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+cudaError_t launch_wgmma(const Params& p, dim3 grid, cudaStream_t stream) {
+  const size_t smem = wgmma_smem(p.packed, p.stages) + staging_bytes(p);
+  switch (p.latent / 128) {
+    case 1: return launch<__nv_bfloat16>(p, mla_wgmma_kernel<1>, grid, kThreads, smem, stream);
+    case 2: return launch<__nv_bfloat16>(p, mla_wgmma_kernel<2>, grid, kThreads, smem, stream);
+    case 3: return launch<__nv_bfloat16>(p, mla_wgmma_kernel<3>, grid, kThreads, smem, stream);
+    default: return launch<__nv_bfloat16>(p, mla_wgmma_kernel<4>, grid, kThreads, smem, stream);
+  }
 }
 
-int launch_f32(const MlaParams& p, cudaStream_t stream) {
-  const size_t smem = MlaF32Smem::bytes(p.packed);
-  cudaError_t err =
-      cudaFuncSetAttribute(mla_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((p.max_seqlen_q * p.heads + kMlaF32Rows - 1) / kMlaF32Rows, p.batch, p.nsplit);
-  mla_f32_kernel<<<grid, kMlaThreads, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+cudaError_t launch_f32(const Params& p, dim3 grid, cudaStream_t stream) {
+  const size_t smem = F32Smem::bytes(p.packed);
+  switch (p.cache_type) {
+    case kFloat32: return launch<float>(p, mla_f32_kernel<float>, grid, kF32Threads, smem, stream);
+    case kInt8: return launch<float>(p, mla_f32_kernel<int8_t>, grid, kF32Threads, smem, stream);
+    default: return launch<float>(p, mla_f32_kernel<__nv_fp8_e4m3>, grid, kF32Threads, smem, stream);
+  }
 }
 
+}  // namespace mla
 }  // namespace conch
 
-// m_tiles: 16-row m tiles a bf16 block takes (1 or 4); f32 blocks take 16
-// rows. nsplit > 1 needs part_acc and part_ml and runs the merge kernel
-// after the split blocks. dtype: the query's and output's (bf16 or f32);
-// cache_dtype: the cache's, the query's own or, under bf16 queries, int8
-// or e4m3.
+// query (total_q, heads, packed) and out (total_q, heads, latent) in
+// `dtype` (bf16 or f32); the cache layer (pages, page_size, packed) in
+// `cache_dtype`: bf16, int8 or e4m3 under bf16 queries, f32, int8 or e4m3
+// under f32 queries. The plan (mla_tile_plan): rows (64), tile_slots (at
+// least the step's (sequence, tile) pairs), kv_tile (32), stages (ring
+// stages of the bf16 kernel, 2 to 4, that fit beside Q), split_len and
+// splits (1 to 64); with splits > 1, part_acc (splits, total_q, heads,
+// latent) and part_ml (splits, total_q, heads, 2) f32. Plans the kernels cannot run
+// are refused.
 extern "C" int conch_mla_attention(const void* query, void* out, const void* cache, const void* cu_seqlens_q,
                                    const void* seq_lens, const void* block_table, void* part_acc, void* part_ml,
                                    int total_q, int batch, int max_pages, int heads, int page_size, int packed,
-                                   int latent, int max_seqlen_q, int causal, int split_len, int nsplit, int m_tiles,
-                                   float scale, float v_scale, int dtype, int cache_dtype, void* stream) {
+                                   int latent, int max_seqlen_q, int causal, int rows, int tile_slots, int kv_tile,
+                                   int stages, int split_len, int splits, float scale, float v_scale, int dtype,
+                                   int cache_dtype, void* stream) {
+  using namespace conch::mla;
   auto s = static_cast<cudaStream_t>(stream);
   if (total_q == 0 || batch == 0) return static_cast<int>(cudaSuccess);
-  if (packed % 128 != 0 || latent % 128 != 0 || latent > 512 || latent > packed || max_seqlen_q < 1 ||
-      split_len < 1 || nsplit < 1 || nsplit > conch::kMlaMaxSplits ||
-      (nsplit > 1 && (part_acc == nullptr || part_ml == nullptr))) {
+  const bool bf16 = dtype == conch::kBFloat16;
+  const bool cache_ok = cache_dtype == conch::kInt8 || cache_dtype == conch::kFloat8E4M3 ||
+                        cache_dtype == (bf16 ? conch::kBFloat16 : conch::kFloat32);
+  if ((!bf16 && dtype != conch::kFloat32) || !cache_ok || packed % 128 != 0 || (bf16 && packed > kMaxPacked) ||
+      latent % 128 != 0 || latent > 512 || latent > packed || heads < 1 || page_size < 1 || max_seqlen_q < 1 ||
+      rows != kRows || kv_tile != kKeys || tile_slots < 1 || split_len < 1 || split_len % kKeys != 0 || splits < 1 ||
+      splits > kMaxSplits || (splits > 1 && (part_acc == nullptr || part_ml == nullptr)) ||
+      (bf16 && (stages < 2 || stages > kMaxStages || wgmma_smem(packed, stages) > static_cast<size_t>(kSmemLimit)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  conch::MlaParams p;
+  Params p{};
   p.query = query;
   p.out = out;
   p.cache = cache;
@@ -686,26 +1005,19 @@ extern "C" int conch_mla_attention(const void* query, void* out, const void* cac
   p.max_seqlen_q = max_seqlen_q;
   p.causal = causal;
   p.split_len = split_len;
-  p.nsplit = nsplit;
-  p.score_scale = scale * conch::kLog2e;
+  p.splits = splits;
+  p.stages = stages;
+  p.cache_type = cache_dtype;
+  p.score_scale = scale * kLog2e;
   p.v_scale = v_scale;
-  int code;
-  if (dtype == conch::kBFloat16) {
-    if (cache_dtype == conch::kBFloat16) {
-      code = conch::launch_bf16_tiles<__nv_bfloat16>(p, m_tiles, s);
-    } else if (cache_dtype == conch::kInt8) {
-      code = conch::launch_bf16_tiles<int8_t>(p, m_tiles, s);
-    } else if (cache_dtype == conch::kFloat8E4M3) {
-      code = conch::launch_bf16_tiles<__nv_fp8_e4m3>(p, m_tiles, s);
-    } else {
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (bf16 && cache_dtype != conch::kBFloat16) {
+    // The staging area goes after the ring: as many of the plan's stages as
+    // fit beside it (all but at packed 896).
+    while (p.stages > 1 && wgmma_smem(packed, p.stages) + staging_bytes(p) > static_cast<size_t>(kSmemLimit)) {
+      --p.stages;
     }
-    if (code == 0 && nsplit > 1) code = conch::launch_merge<__nv_bfloat16>(p, s);
-  } else if (dtype == conch::kFloat32 && cache_dtype == conch::kFloat32) {
-    code = conch::launch_f32(p, s);
-    if (code == 0 && nsplit > 1) code = conch::launch_merge<float>(p, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    p.staging = (packed / kChunk) * (kQChunkBytes + p.stages * kKChunkBytes);
   }
-  return code;
+  const dim3 grid(tile_slots, splits);
+  return static_cast<int>(bf16 ? launch_wgmma(p, grid, s) : launch_f32(p, grid, s));
 }

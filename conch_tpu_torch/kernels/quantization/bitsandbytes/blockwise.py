@@ -53,7 +53,7 @@ NF4_CODE = (
 FP4_MAGNITUDE_CODE = (0.0, 0.0052083333, 0.6666666, 1.0, 0.333333, 0.5, 0.166666, 0.25)
 FP4_THRESHOLDS = (0.00260417, 0.0859375, 0.208333334, 0.29166667, 0.4166667, 0.5833334, 0.83333334)
 FP4_LEVEL_TO_CODE = (0, 1, 6, 7, 4, 5, 2, 3)
-KERNEL_MAX_BLOCKSIZE = 4096  # K12q: up to 2048 held in one warp's registers, 4096 read twice
+KERNEL_MAX_BLOCKSIZE = 4096  # K12q: a block of 4096 held in the registers of one CTA
 
 
 def nf4_thresholds(device: torch.device | str = "cpu") -> torch.Tensor:

@@ -2,7 +2,8 @@
 # SPDX-License-Identifier: Apache-2.0
 
 """Show that the card checks of K3/K7's softcap and window, of K7's masks,
-and of K3's and K7's split merges, can fail.
+of K3's and K7's split merges, and of K11's merge, diagonal, padding
+rows and kv_scale, can fail.
 
     python3 -m conch_tpu_torch.tools.attention_mutants [NAME ...]
 
@@ -22,7 +23,11 @@ other faults: each row's window start dropped from the mask (the walk
 still starts at its tile's first window start), the causal mask one key
 late on the diagonal, the first tile of a windowed walk (a band tile
 whose first keys the tile's first rows need) skipped, a split dropped from
-the merge. The unchanged package must pass all the checks first, and
+the merge; ``chip_smoke.check_mla_attention_options`` (K11's option sweep)
+for K11's faults: the first split dropped from the merge, the causal
+limit of each row one key late, the copies of the last sequence's tokens
+into the padding rows dropped (one split), ``kv_scale`` not folded into the
+output. The unchanged package must pass all the checks first, and
 every faulty copy must fail a check; the tool prints each run's check
 lines and exits non-zero otherwise.
 """
@@ -49,6 +54,7 @@ K3_WEIGHT = "w_s[z] = __expf(p.part_ml[(z * split_stride + head) * 2] - m);"
 K3_SUM = "for (int z = 0; z < live; ++z) a += p.part_acc[(z * split_stride + head) * p.head_size + d] * w_s[z];"
 GEMMA, OPTIONS, SERVED = "gemma_attention_phases", "check_paged_attention_options", "kernel_phase_k3_served"
 K7_OPTIONS = "check_varlen_attention_options"
+K11_OPTIONS = "check_mla_attention_options"
 # name -> (source file under csrc/, text, faulty text, the chip_smoke checks that must catch it)
 MUTANTS = {
     "k7_softcap_dropped": ("varlen_attention.cu", K7_LOGIT, "x = x * scale_log2;", GEMMA),
@@ -77,6 +83,18 @@ MUTANTS = {
     "k3_merge_split_dropped": ("paged_attention.cu", K3_SUM, K3_SUM.replace("z = 0", "z = 1"), OPTIONS),
     "k3_merge_split_dropped_served": ("paged_attention.cu", K3_SUM, K3_SUM.replace("z = 0", "z = 1"), SERVED),
     "k3_merge_rescale_skipped": ("paged_attention.cu", K3_WEIGHT, "w_s[z] = 1.0f;", OPTIONS),
+    "k11_merge_split_dropped": (
+        "mla_attention.cu", "for (int z0 = 0; z0 < live; z0 += 8) {", "for (int z0 = 1; z0 < live; z0 += 8) {",
+        K11_OPTIONS,
+    ),
+    "k11_diagonal_off_by_one": (
+        "mla_attention.cu", "return p.causal ? t.seq_k - t.q_len + (t.row0 + r) / p.heads : t.seq_k - 1;",
+        "return p.causal ? t.seq_k - t.q_len + (t.row0 + r) / p.heads + 1 : t.seq_k - 1;", K11_OPTIONS,
+    ),
+    "k11_padding_copy_dropped": (
+        "mla_attention.cu", "for (int row = total + i; row < end; ++row) put(row);", "(void)end;", K11_OPTIONS,
+    ),
+    "k11_kv_scale_not_in_output": ("mla_attention.cu", "p.v_scale = v_scale;", "p.v_scale = 1.0f;", K11_OPTIONS),
 }
 
 

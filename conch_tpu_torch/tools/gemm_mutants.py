@@ -31,7 +31,11 @@ The faults:
 - ``k8_split_workspace_f32``: K8's split sums pass through f32 on their way
   to the workspace (as an f32 workspace would hold them): sums above 2^24
   lose their low bits, which the option sweep's near-127 case shows;
-- ``k12q_nibbles_swapped``: K12q puts the even element in the low nibble.
+- ``k12q_nibbles_swapped``: K12q puts the even element in the low nibble;
+- ``k12q_threshold_not_strict``: K12q's second bisection step compares
+  with ``>=``, so a value equal to NF4's third or eleventh threshold takes
+  the code above (``check_quantize4_options``: its f32 inputs hold every
+  threshold exactly).
 """
 
 from __future__ import annotations
@@ -75,8 +79,15 @@ MUTANTS = {
         "check_scaled_gemm_options",
     ),
     "k12q_nibbles_swapped": (
-        "quantize4.cu", "return static_cast<uint8_t>((hi << 4) | lo);",
-        "return static_cast<uint8_t>((lo << 4) | hi);", "kernel_phase_k12q",
+        "quantize4.cu",
+        "return NF4 ? (nf4_code(sa, t_s) << 4) | nf4_code(sb, t_s) : (fp4_code(sa) << 4) | fp4_code(sb);",
+        "return NF4 ? (nf4_code(sb, t_s) << 4) | nf4_code(sa, t_s) : (fp4_code(sb) << 4) | fp4_code(sa);",
+        "kernel_phase_k12q",
+    ),
+    "k12q_threshold_not_strict": (
+        "quantize4.cu", "c4 += v > *reinterpret_cast<const float*>(tb + c4 + 12) ? 16u : 0u;",
+        "c4 += v >= *reinterpret_cast<const float*>(tb + c4 + 12) ? 16u : 0u;",
+        "check_quantize4_options",
     ),
 }
 

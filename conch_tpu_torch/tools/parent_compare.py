@@ -1,7 +1,7 @@
 # Copyright 2026 Conch-TPU authors.
 # SPDX-License-Identifier: Apache-2.0
 
-"""Time K1, K3, K7 and K8 of two checkouts on one card, in turns.
+"""Time K1, K3, K7, K8, K11 and K12q of two checkouts on one card, in turns.
 
     python3 -m conch_tpu_torch.tools.parent_compare --parent DIR
 
@@ -29,7 +29,13 @@ launchers only, which both packages share:
   int8 and e4m3 pools;
 - K8 (``scaled_gemm_launcher``), one layer's four GEMMs of the w8a8 engine
   at M 8, 32 and 512, built by ``k8_weights`` and ``k8_rows`` (layer 17
-  of a 32-layer stack; timed calls walk the layers).
+  of a 32-layer stack; timed calls walk the layers);
+- K11 (``mla_attention_launcher``) on ``k11_inputs``' decode and 512-row
+  prefill steps at DeepSeek-V2-Lite's shapes, bf16 queries over bf16,
+  int8 and e4m3 latent pools;
+- K12q (``quantize4_launcher``), NF4 on Llama-3-8B's gate projection
+  (14336 x 4096 bf16, as ``kernel_phase_k12q`` builds it) at blocksizes 64
+  and 4096.
 
 Device times come from ``chip_smoke.time_ms``. The tool prints each run's
 numbers, then one line per case with the two packages' means, and a JSON
@@ -62,6 +68,8 @@ from conch_tpu_torch.kernels.quantization.gemm import mixed_gemm_magic_launcher 
 from conch_tpu_torch.kernels.attention.paged_attention import paged_attention_launcher as k3
 from conch_tpu_torch.kernels.attention.varlen_attention import varlen_attention_launcher as k7
 from conch_tpu_torch.kernels.quantization.gemm import scaled_gemm_launcher as k8
+from conch_tpu_torch.kernels.attention.mla_attention import mla_attention_launcher as k11
+from conch_tpu_torch.kernels.quantization.bitsandbytes.blockwise import quantize4_launcher as k12q
 
 kernel_library()
 gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
@@ -108,6 +116,19 @@ for k, n in cs.FUSED_LAYER_SHAPES:
     torch.cuda.empty_cache()
 for m, t in sums.items():
     times[f"K8 one layer M={m}"] = t
+
+for cache in (None, "int8", "fp8"):
+    inputs = cs.k11_inputs(gen, rng, cache)
+    for case in inputs["cases"]:
+        args, kw = cs.k11_args(inputs, case, torch.bfloat16)
+        times[f"K11 {case} {cache or 'bf16'} cache"] = cs.time_ms(lambda: k11(*args, **kw))
+    del inputs
+    torch.cuda.empty_cache()
+
+k, n = cs.GATE
+wt = (0.02 * torch.randn((n, k), generator=gen, device="cuda")).to(torch.bfloat16)
+for blocksize in (cs.NF4_BLOCK, 4096):
+    times[f"K12q gate nf4 blocksize {blocksize}"] = cs.time_ms(lambda: k12q(wt, blocksize, "nf4"))
 print("TIMES " + json.dumps({"package": conch_tpu_torch.__file__, "times": times}), flush=True)
 '''
 

@@ -27,7 +27,6 @@ import torch
 
 from conch_tpu.ops.attention import mla_attention as jax_mla
 from conch_tpu.ops.cache import reshape_and_cache_mla as jax_cache_mla
-from conch_tpu_torch.kernels.attention.mla_attention import NO_SPLIT, kv_splits
 from conch_tpu_torch.ops.attention import mla_attention
 from conch_tpu_torch.ops.cache import reshape_and_cache_mla
 
@@ -155,16 +154,3 @@ def test_mla_validation():
     same = mla_attention(q, codes.float() / 16, cu, 1, sl, bt, scale=0.5, latent=64)
     assert out.shape == (2, 4, 64) and torch.isfinite(out).all() and out.abs().max() > 0
     torch.testing.assert_close(out, same, atol=2e-4, rtol=2e-4)
-
-
-@pytest.mark.parametrize(
-    "blocks,max_kv,expect",
-    [
-        (8, 4096, (16, 256)),  # decode batch 8: 16 splits of 256 rows fill two waves of 132 SMs
-        (16, 2048, (8, 256)),  # decode batch 16 over 128 pages of 16: capped by MIN_SPLIT rows a split
-        (16, 200, (1, NO_SPLIT)),  # too short to split
-        (512, 2048, (1, NO_SPLIT)),  # a prefill step fills the card alone
-    ],
-)
-def test_kv_splits(blocks, max_kv, expect):
-    assert kv_splits(blocks, max_kv, 132) == expect
