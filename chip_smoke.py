@@ -74,7 +74,8 @@
      all-zero block), and on the gate projection at blocksize 4096 and
      from f16, byte for byte; K12d NF4/FP4 decode of the gate projection
      at blocksize 64 and 4096 into bf16, f32 and f16, bit for bit;
-   - K2 cache write, K3 paged decode attention, K5 RoPE, K7 varlen prefill
+   - K2 cache write, K3 paged decode attention, K5 RoPE (timed at 8, 32 and
+     512 Llama tokens, 8, 16 and 512 Gemma ones), K7 varlen prefill
      attention at Llama-3-8B's shapes (QH 32 / KH 8 / D 128, page 16, a
      32-layer pool read at a non-zero layer, decode batch 8 with an idle
      seq_len-0 row, a 128-row prefill of mixed lengths with a zero-length
@@ -92,8 +93,24 @@
      f16 at 2048 (the sum bit for bit, the output at
      tests/rms_norm_test.py's tolerances), K6 silu_and_mul on fused
      halves at 8 and 512 rows x 2 * 14336 and on parts;
-   - K10a gemma_rms_norm at 8 and 512 rows x 2304, K10b gelu_tanh_and_mul
-     at 8 and 512 rows x 2 * 9216 (halves and parts), f32 and bf16;
+   - K10a gemma_rms_norm at 8, 16 (Gemma-2-2B's decode step) and 512 rows x
+     2304 in f32, f16 and bf16, timed beside ``F.rms_norm`` with the weight
+     1 + w; K10b gelu_tanh_and_mul at 8 and 512 rows x 2 * 9216 (halves and
+     parts), f32 and bf16;
+   - K5 and K10a after their served predecessors (``row_kernel_pairs``: K5
+     after Llama-3-8B's fused wqkv through K1 at 32 rows and through
+     ``torch.matmul`` at 8, K10a after Gemma-2-2B's ``o_proj`` matmul at 16
+     and 512 rows): the pair's device time minus the predecessor's, with and
+     without the programmatic-dependent launch;
+   - K5 over every option it takes (``check_rope_options``, 2304 cases: f32,
+     bf16 and f16, heads (32, 8, 128), (8, 4, 256), (4, 1, 128) and (8, 8,
+     64), whole, half and D - 28 rot_dims, 0 to 512 tokens, contiguous q/k,
+     slices of a fused qkv block, rows or a base that break 16-byte
+     alignment, positions past the cache, each with and without the
+     programmatic-dependent launch) and K10a over every option it takes
+     (``check_gemma_rms_norm_options``, 672 cases: f32, bf16 and f16, rows 0
+     to 4096, hidden 128 to 4608 and 36872 (the looped path), strided and
+     misaligned rows), at the JAX tests' tolerances;
    - K11 absorbed MLA at DeepSeek-V2-Lite's shapes (16 heads, packed
      640, latent 512, page 16, a 27-layer latent pool read at layer 13):
      a decode step of batch 8 at lengths 0 (an idle row) to 4000 and a
@@ -437,7 +454,23 @@ def kernel_phase_k2(
     }
 
 
-def kernel_phase_k5(gen, rng, qh: int = QH, kh: int = KH, d: int = D, theta: float = 500000.0) -> dict:
+# K5's timed steps: the kernel table's decode step of 8 tokens (the row's
+# numbers), then Llama-3-8B's padded decode step of the quantized engines
+# and a 512-row prefill chunk, Gemma-2-2B's decode step and a 512-row chunk.
+K5_TOKENS = {"llama": (8, 32, 512), "gemma": (8, 16, 512)}
+
+
+def k5_bound(tokens: int, qh: int, kh: int, d: int, itemsize: int = 2) -> tuple[float, str]:
+    """K5's bound: q and k read and written once, one f32 cache row and a
+    position a token; 3 operations an element."""
+    return bound(2 * tokens * (qh + kh) * d * itemsize + tokens * d * 4 + tokens * 4, tokens * (qh + kh) * d * 3)
+
+
+def kernel_phase_k5(gen, rng, qh: int = QH, kh: int = KH, d: int = D, theta: float = 500000.0,
+                    timed_tokens: tuple[int, ...] = K5_TOKENS["llama"]) -> dict:
+    """K5 on slices of a fused bf16 qkv row block at ``timed_tokens`` and a
+    128-row chunk (2e-2), each step timed beside its bound and plain
+    version (``detail``); the row has the first step's numbers."""
     from conch_tpu_torch.kernels.embedding.rotary_embedding import (
         rotary_embedding_launcher as launch,
         rotary_embedding_plain as plain,
@@ -445,29 +478,192 @@ def kernel_phase_k5(gen, rng, qh: int = QH, kh: int = KH, d: int = D, theta: flo
     from conch_tpu_torch.reference.embedding.rotary_embedding import compute_cos_sin_cache
 
     cache = compute_cos_sin_cache(theta, d, 8192, device="cuda")
-    err = 0.0
-    timed = {}
-    for tokens in (8, 128):  # a decode step of batch 8, a 128-row prefill chunk
+    err, detail = 0.0, []
+    for tokens in (*timed_tokens, 128):
         qkv = torch.randn((tokens, (qh + 2 * kh) * d), generator=gen, device="cuda").to(torch.bfloat16)
         q, k = qkv[:, : qh * d], qkv[:, qh * d : (qh + kh) * d]
         pos = torch.from_numpy(rng.integers(0, 8192, size=tokens).astype(np.int32)).cuda()
         q_k, k_k = launch(pos, q, k, d, cache)
         q_p, k_p = plain(pos, q, k, d, cache)
         torch.cuda.synchronize()
-        err = max(err, (q_k.float() - q_p.float()).abs().max().item(), (k_k.float() - k_p.float()).abs().max().item())
-        timed[tokens] = (q, k, pos)
+        e = max((q_k.float() - q_p.float()).abs().max().item(), (k_k.float() - k_p.float()).abs().max().item())
+        err = max(err, e)
+        if tokens in timed_tokens:
+            b_ms, b_by = k5_bound(tokens, qh, kh, d)
+            detail.append({
+                "tokens": tokens, "max_abs_err": e, "bound_ms": b_ms, "bound_by": b_by,
+                "ms": time_ms(lambda: launch(pos, q, k, d, cache)),
+                "paced_ms": paced_ms(lambda: launch(pos, q, k, d, cache)),
+                "plain_ms": time_ms(lambda: plain(pos, q, k, d, cache)), "library_ms": None,
+            })
     check(f"K5 rotary_embedding QH={qh} KH={kh} D={d}", err, 2e-2)
-    q, k, pos = timed[8]
-    bytes_moved = 2 * 8 * (qh + kh) * d * 2 + 8 * d * 4 + 8 * 4
-    bound_ms, bound_by = bound(bytes_moved, 8 * (qh + kh) * d * 3)
-    return {
-        "name": "rotary_embedding", "route": "cuda", "source": "conch_tpu_torch/csrc/rotary_embedding.cu",
-        "replaces": "conch_tpu/kernels/embedding/rotary_embedding.py:34", "max_abs_err": err,
-        "ms": time_ms(lambda: launch(pos, q, k, d, cache)),
-        "paced_ms": paced_ms(lambda: launch(pos, q, k, d, cache)),
-        "plain_ms": time_ms(lambda: plain(pos, q, k, d, cache)),
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-    }
+    for x in detail:
+        print(f"K5 QH={qh} KH={kh} D={d} tokens={x['tokens']}: {x['ms']:.4f} ms (paced {x['paced_ms']:.4f}, plain "
+              f"{x['plain_ms']:.4f}, bound {x['bound_ms']:.6f} by {x['bound_by']})", flush=True)
+    row = _kernel_row(
+        "rotary_embedding", "conch_tpu_torch/csrc/rotary_embedding.cu",
+        "conch_tpu/kernels/embedding/rotary_embedding.py:34", err, detail[0], detail[0]["bound_ms"],
+        detail[0]["bound_by"],
+    )
+    row["detail"] = detail
+    return row
+
+
+PAIR_ITERS = 200
+
+
+def pair_timings(name: str, pred, kernel, launcher) -> dict:
+    """``kernel`` after its served predecessor ``pred``: the device time of
+    the pair (``kernel(pred())``) minus ``pred()``'s alone, each from one
+    ``time_ms`` call of PAIR_ITERS launches, with and without the kernel's
+    programmatic-dependent launch (``launcher.pdl``), and the kernel alone
+    back to back both ways (there it overlaps its own previous launch)."""
+    saved = launcher.pdl
+    out = pred()
+    res = {"case": name}
+    try:
+        for pdl in (False, True, False, True):
+            launcher.pdl = pdl
+            tag = "pdl" if pdl else "no_pdl"
+            pred_ms = time_ms(pred, iters=PAIR_ITERS)
+            pair_ms = time_ms(lambda: kernel(pred()), iters=PAIR_ITERS)
+            alone_ms = time_ms(lambda: kernel(out), iters=PAIR_ITERS)
+            for key, value in (("pred_ms", pred_ms), ("pair_ms", pair_ms), ("after_pred_ms", pair_ms - pred_ms),
+                               ("alone_ms", alone_ms)):
+                res.setdefault(f"{tag}_{key}", []).append(value)
+    finally:
+        launcher.pdl = saved
+    print(f"{name}: after the predecessor (pair - predecessor) without PDL "
+          f"{', '.join(f'{v:.4f}' for v in res['no_pdl_after_pred_ms'])} ms, with PDL "
+          f"{', '.join(f'{v:.4f}' for v in res['pdl_after_pred_ms'])}; predecessor "
+          f"{res['no_pdl_pred_ms'][0]:.4f}; alone without / with PDL "
+          f"{res['no_pdl_alone_ms'][0]:.4f} / {res['pdl_alone_ms'][0]:.4f} ms", flush=True)
+    return res
+
+
+def row_kernel_pairs(gen, rng, by_name: dict) -> None:
+    """K5 and K10a after their served predecessors (``pair_timings``): K5
+    after Llama-3-8B's fused wqkv through K1 (int4, group 128, the engine's
+    32-row decode step) and through ``torch.matmul`` (bf16, 8 rows); K10a
+    after Gemma-2-2B's bf16 ``o_proj`` ``torch.matmul`` at 16 and 512 rows.
+    The results go into the rows' ``after_predecessor``."""
+    from conch_tpu_torch.kernels.embedding.rotary_embedding import rotary_embedding_launcher as rope
+    from conch_tpu_torch.kernels.normalization.gemma_rms_norm import gemma_rms_norm_launcher as norm
+    from conch_tpu_torch.kernels.quantization.gemm import mixed_gemm_magic_launcher as k1
+    from conch_tpu_torch.reference.embedding.rotary_embedding import compute_cos_sin_cache
+
+    k, n = K1_SHAPES[0]
+    cache = compute_cos_sin_cache(500000.0, D, 8192, device="cuda")
+    packed = torch.randint(-(2**31), 2**31 - 1, (1, k // 8, n), generator=gen, device="cuda", dtype=torch.int32)
+    scales = (torch.rand((1, k // GROUP, n), generator=gen, device="cuda") * 4e-3 + 1e-4).to(torch.bfloat16)
+    w_qkv = (0.02 * torch.randn((k, n), generator=gen, device="cuda")).to(torch.bfloat16)
+
+    def rope_after(out, pos):
+        return rope(pos, out[:, : QH * D], out[:, QH * D : (QH + KH) * D], D, cache)
+
+    rope_pairs = []
+    for m, label in ((32, "K1 int4 wqkv, 32 rows"), (8, "torch.matmul bf16 wqkv, 8 rows")):
+        x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+        pos = torch.from_numpy(rng.integers(0, 8192, size=m).astype(np.int32)).cuda()
+        pred = (lambda x=x: k1(x, packed, scales, GROUP, 8, 0)) if m == 32 else (lambda x=x: torch.matmul(x, w_qkv))
+        rope_pairs.append(pair_timings(f"K5 after {label}", pred, lambda out, pos=pos: rope_after(out, pos), rope))
+    by_name["rotary_embedding"]["after_predecessor"] = rope_pairs
+    w_o = (0.02 * torch.randn((2048, G_HIDDEN), generator=gen, device="cuda")).to(torch.bfloat16)
+    w = (0.5 * torch.randn((G_HIDDEN,), generator=gen, device="cuda")).to(torch.bfloat16)
+    norm_pairs = []
+    for m in (16, 512):
+        x = torch.randn((m, 2048), generator=gen, device="cuda").to(torch.bfloat16)
+        norm_pairs.append(pair_timings(f"K10a after torch.matmul bf16 o_proj, {m} rows",
+                                       lambda x=x: torch.matmul(x, w_o), lambda out: norm(out, w, 1e-6), norm))
+    by_name["gemma_rms_norm"]["after_predecessor"] = norm_pairs
+
+
+# K5's options (check_rope_options): head shapes (Llama-3-8B, Gemma-2-2B,
+# JAX's test shapes), three rot_dims each (whole, half, and rot_dim / 2 not
+# a multiple of 8: D - 28), token counts, q/k layouts (contiguous, slices
+# of a fused qkv block, fused rows one element longer, contiguous rows from
+# a base one element off), positions from -64 to past the cache.
+ROPE_OPTION_HEADS = ((32, 8, 128), (8, 4, 256), (4, 1, 128), (8, 8, 64))
+ROPE_OPTION_TOKENS = (0, 1, 7, 8, 16, 32, 128, 512)
+ROPE_OPTION_LAYOUTS = ("contiguous", "fused", "misaligned rows", "misaligned base")
+ROPE_OPTION_POSITIONS = 4096
+# tests/rotary_embedding_test.py's tolerances (atol and rtol); bf16's is the K5 phase's 2e-2.
+ROPE_TOLERANCES = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 1e-3}
+
+
+def _flat_rows(gen, rows: int, width: int, dtype: torch.dtype, layout: str, row_stride: int | None = None):
+    """A (rows, width) tensor of N(0, 1) values in ``dtype``: contiguous;
+    rows at ``row_stride`` (``layout`` "strided"); rows one element longer
+    than ``row_stride`` or width ("misaligned rows"); or contiguous rows from
+    a base one element past a 16-byte boundary ("misaligned base")."""
+    stride = row_stride or width
+    if layout == "misaligned base":
+        flat = torch.randn((rows * width + 1,), generator=gen, device="cuda").to(dtype)
+        return flat[1:].view(rows, width)
+    if layout == "misaligned rows":
+        stride += 1
+    if layout in ("strided", "misaligned rows"):
+        return torch.randn((rows, stride), generator=gen, device="cuda").to(dtype)[:, :width]
+    return torch.randn((rows, width), generator=gen, device="cuda").to(dtype)
+
+
+def check_rope_options(gen, rng) -> None:
+    """K5 over every option it takes (ROPE_OPTION_*: f32, bf16 and f16,
+    each case with and without the programmatic-dependent launch) against
+    the plain version at ROPE_TOLERANCES, both outputs contiguous and of
+    their input's shape; counts the cases on each path of ``rope_plan``."""
+    from conch_tpu_torch.kernels.common import aligned16
+    from conch_tpu_torch.kernels.embedding.rotary_embedding import (
+        rope_plan,
+        rotary_embedding_launcher as launch,
+        rotary_embedding_plain as plain,
+    )
+    from conch_tpu_torch.reference.embedding.rotary_embedding import compute_cos_sin_cache
+
+    saved, failed, paths, cases, exact, err = launch.pdl, [], {}, 0, 0, {}
+    try:
+        for (qh, kh, d), dtype in itertools.product(ROPE_OPTION_HEADS, ROPE_TOLERANCES):
+            tol = ROPE_TOLERANCES[dtype]
+            for rot in (d, d // 2, d - 28):
+                cache = compute_cos_sin_cache(10000.0, rot, ROPE_OPTION_POSITIONS, device="cuda")
+                for tokens, layout in itertools.product(ROPE_OPTION_TOKENS, ROPE_OPTION_LAYOUTS):
+                    if layout in ("fused", "misaligned rows"):
+                        qkv = _flat_rows(gen, tokens, (qh + 2 * kh) * d, dtype, layout)
+                        q, k = qkv[:, : qh * d], qkv[:, qh * d : (qh + kh) * d]
+                    else:
+                        q = _flat_rows(gen, tokens, qh * d, dtype, layout)
+                        k = _flat_rows(gen, tokens, kh * d, dtype, layout)
+                    pos = torch.from_numpy(rng.integers(-64, ROPE_OPTION_POSITIONS + 64, size=tokens).astype(
+                        np.int32)).cuda()
+                    plan = rope_plan(tokens, qh, kh, d, rot, q.element_size(), q.stride(0), k.stride(0),
+                                     aligned16(q, k))
+                    ref = plain(pos, q, k, d, cache)
+                    for pdl in (False, True):
+                        launch.pdl = pdl
+                        got = launch(pos, q, k, d, cache)
+                        name = f"{dtype} QH {qh} KH {kh} D {d} rot {rot} tokens {tokens} {layout} pdl {pdl}"
+                        cases += 1
+                        paths[plan.path] = paths.get(plan.path, 0) + 1
+                        e = 0.0
+                        for g, r in zip(got, ref):
+                            if g.shape != r.shape or not g.is_contiguous():
+                                failed.append(f"{name}: shape {tuple(g.shape)}")
+                            elif tokens:
+                                diff = (g.float() - r.float()).abs()
+                                e = max(e, diff.max().item())
+                                if not bool((diff <= tol + tol * r.float().abs()).all()):
+                                    failed.append(f"{name}: max_abs_err {diff.max().item():.3e}")
+                        err[dtype] = max(err.get(dtype, 0.0), e)
+                        exact += e == 0.0
+    finally:
+        launch.pdl = saved
+    torch.cuda.synchronize()
+    print(f"K5 options: {cases} cases ({paths.get(0, 0)} on the vector path, {paths.get(1, 0)} scalar), "
+          f"{exact} equal to the plain version bit for bit; max_abs_err "
+          + ", ".join(f"{dt} {e:.3e} (tolerance {ROPE_TOLERANCES[dt]:.0e} + {ROPE_TOLERANCES[dt]:.0e} * |ref|)"
+                      for dt, e in err.items()), flush=True)
+    if failed:
+        raise AssertionError(f"K5 options: {len(failed)} of {cases} cases failed: " + "; ".join(failed[:10]))
 
 
 def kernel_phase_k3(gen, rng, cache: str | None = None) -> dict:
@@ -1509,10 +1705,19 @@ def k7_bound(case: dict, window: int) -> tuple[float, str]:
     return bound(bytes_moved, 4 * qh * d * sum(p + 1 - a for p, a in zip(row_pos, row_start)))
 
 
+# tests/gemma_rms_norm_test.py's tolerances (atol and rtol) for K10a.
+GEMMA_NORM_TOLERANCES = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 1e-3}
+# K10a's timed steps: the kernel table's 8 rows (the row's numbers),
+# Gemma-2-2B's served decode step (16) and a 512-row prefill chunk.
+K10A_ROWS = (8, 16, 512)
+
+
 def kernel_phase_k10a(gen) -> dict:
-    """K10a at 8 and 512 rows x 2304 in bf16 (timed) and f32, weights
-    random (so a kernel that dropped the (1 + w) would fail); tolerances
-    of tests/gemma_rms_norm_test.py:15. The row has the 8-row numbers."""
+    """K10a at K10A_ROWS x 2304 in f32, f16 and bf16 (timed), weights
+    random (so a kernel that dropped the (1 + w) would fail), at
+    GEMMA_NORM_TOLERANCES; each step timed beside its bound, plain version
+    and ``F.rms_norm`` with the weight 1 + w (``detail``). The row has the
+    8-row numbers."""
     from conch_tpu_torch.kernels.normalization.gemma_rms_norm import (
         gemma_rms_norm_launcher as launch,
         gemma_rms_norm_plain as plain,
@@ -1521,12 +1726,13 @@ def kernel_phase_k10a(gen) -> dict:
     eps = 1e-6
     lib = getattr(torch.nn.functional, "rms_norm", None)
     err, detail = 0.0, []
-    for rows in (8, 512):
-        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+    for rows in K10A_ROWS:
+        for dtype in (torch.float32, torch.float16, torch.bfloat16):
             w = (0.5 * torch.randn((G_HIDDEN,), generator=gen, device="cuda")).to(dtype)
             x = torch.randn((rows, G_HIDDEN), generator=gen, device="cuda").to(dtype)
             got, ref = launch(x, w, eps), plain(x, w, eps)
-            err = max(err, check_close(f"K10a gemma_rms_norm rows={rows} {dtype}", got, ref, tol))
+            err = max(err, check_close(f"K10a gemma_rms_norm rows={rows} {dtype}", got, ref,
+                                       GEMMA_NORM_TOLERANCES[dtype]))
         # One library call computes the same function given the weight 1 + w.
         w1 = (1.0 + w.float()).to(torch.bfloat16)
         b_ms, b_by = bound(2 * rows * G_HIDDEN * 2 + G_HIDDEN * 2, 5 * rows * G_HIDDEN)
@@ -1539,7 +1745,7 @@ def kernel_phase_k10a(gen) -> dict:
         })
     for d in detail:
         print(f"K10a rows={d['rows']}: {d['ms']:.4f} ms (paced {d['paced_ms']:.4f}, plain {d['plain_ms']:.4f}, "
-              f"F.rms_norm(1+w) {d['library_ms']}, bound {d['bound_ms']:.5f} by {d['bound_by']})", flush=True)
+              f"F.rms_norm(1+w) {d['library_ms']}, bound {d['bound_ms']:.6f} by {d['bound_by']})", flush=True)
     row = _kernel_row(
         "gemma_rms_norm", "conch_tpu_torch/csrc/gemma_rms_norm.cu",
         "conch_tpu/kernels/normalization/gemma_rms_norm.py:26", err, detail[0], detail[0]["bound_ms"],
@@ -1547,6 +1753,63 @@ def kernel_phase_k10a(gen) -> dict:
     )
     row["detail"] = detail
     return row
+
+
+# K10a's options (check_gemma_rms_norm_options): rows, widths (JAX's 128,
+# 531 and 3072, Gemma-2-2B's 2304 and 2048, Gemma-2-9B's 3584, 27B's 4608,
+# and 36872, past the register path in every dtype: the looped path) and
+# layouts (contiguous; rows at a stride 64 elements longer; rows one
+# element longer; contiguous rows from a base one element off).
+NORM_OPTION_ROWS = (0, 1, 3, 8, 16, 512, 4096)
+NORM_OPTION_HIDDEN = (128, 531, 2048, 2304, 3072, 3584, 4608, 36872)
+NORM_OPTION_LAYOUTS = ("contiguous", "strided", "misaligned rows", "misaligned base")
+
+
+def check_gemma_rms_norm_options(gen) -> None:
+    """K10a over every option it takes (NORM_OPTION_*, f32, bf16 and f16,
+    random weights, the programmatic-dependent launch on every other case)
+    against the plain version at GEMMA_NORM_TOLERANCES; counts the cases on
+    each path of ``gemma_norm_plan``."""
+    from conch_tpu_torch.kernels.common import aligned16
+    from conch_tpu_torch.kernels.normalization.gemma_rms_norm import (
+        gemma_norm_plan,
+        gemma_rms_norm_launcher as launch,
+        gemma_rms_norm_plain as plain,
+    )
+
+    eps = 1e-6
+    saved, failed, paths, cases, err = launch.pdl, [], {}, 0, {}
+    try:
+        for hidden, dtype in itertools.product(NORM_OPTION_HIDDEN, GEMMA_NORM_TOLERANCES):
+            tol = GEMMA_NORM_TOLERANCES[dtype]
+            w = (0.5 * torch.randn((hidden,), generator=gen, device="cuda")).to(dtype)
+            for rows, layout in itertools.product(NORM_OPTION_ROWS, NORM_OPTION_LAYOUTS):
+                x = _flat_rows(gen, rows, hidden, dtype, layout, hidden + 64 if layout == "strided" else None)
+                plan = gemma_norm_plan(rows, hidden, x.element_size(), x.stride(0), aligned16(x))
+                paths[plan.path] = paths.get(plan.path, 0) + 1
+                launch.pdl = cases % 2 == 1
+                got, ref = launch(x, w, eps), plain(x, w, eps)
+                cases += 1
+                name = f"{dtype} rows {rows} hidden {hidden} {layout}"
+                if got.shape != ref.shape or not got.is_contiguous():
+                    failed.append(f"{name}: shape {tuple(got.shape)}")
+                elif rows:
+                    diff = (got.float() - ref.float()).abs()
+                    err[dtype] = max(err.get(dtype, 0.0), diff.max().item())
+                    if not bool((diff <= tol + tol * ref.float().abs()).all()):
+                        failed.append(f"{name}: max_abs_err {diff.max().item():.3e}")
+                del x, got, ref
+    finally:
+        launch.pdl = saved
+    torch.cuda.synchronize()
+    names = {0: "vector", 1: "scalar", 2: "looped vector", 3: "looped scalar"}
+    print(f"K10a options: {cases} cases (" + ", ".join(f"{names[k]} {v}" for k, v in sorted(paths.items()))
+          + "); max_abs_err " + ", ".join(
+              f"{dt} {e:.3e} (tolerance {GEMMA_NORM_TOLERANCES[dt]:.0e} + {GEMMA_NORM_TOLERANCES[dt]:.0e} * |ref|)"
+              for dt, e in err.items()), flush=True)
+    if failed:
+        raise AssertionError(f"K10a options: {len(failed)} of {cases} cases failed: " + "; ".join(failed[:10]))
+    torch.cuda.empty_cache()
 
 
 def kernel_phase_k10b(gen) -> dict:
@@ -3204,7 +3467,7 @@ def kernel_phases() -> list[dict]:
     by_name = {r["name"]: r for r in rows}
     gemma = gemma_attention_phases(gen, rng)
     gemma["reshape_and_cache_stacked"] = [kernel_phase_k2(gen, rng, G_QH, G_KH, G_D, G_LAYERS)]
-    gemma["rotary_embedding"] = [kernel_phase_k5(gen, rng, G_QH, G_KH, G_D, 10000.0)]
+    gemma["rotary_embedding"] = [kernel_phase_k5(gen, rng, G_QH, G_KH, G_D, 10000.0, K5_TOKENS["gemma"])]
     for name, cases in gemma.items():
         for case in cases:
             kept = {k: v for k, v in case.items() if k not in ("name", "route", "source", "replaces")}
@@ -3214,6 +3477,9 @@ def kernel_phases() -> list[dict]:
                 print(f"{name} (gemma2 KH {G_KH} D {G_D}): {case['ms']:.4f} ms (paced {case['paced_ms']:.4f}, plain "
                       f"{case['plain_ms']:.4f}, bound {case['bound_ms']:.5f} by {case['bound_by']})", flush=True)
     by_name["paged_attention"]["served"] = kernel_phase_k3_served(gen, rng)
+    row_kernel_pairs(gen, rng, by_name)
+    check_rope_options(gen, rng)
+    check_gemma_rms_norm_options(gen)
     check_attention_scales(gen)
     quantized_cache_phases(gen, rng, by_name)
     gemm_output_types(gen, by_name)
@@ -3712,7 +3978,10 @@ def profile_served_run(params: dict, cfg, ecfg, model_fns: dict, prompts: list, 
 
 def profile_run(fn, label: str) -> None:
     """``fn()`` under torch.profiler: device time by kernel group, from the
-    trace's kernel events, and the device's idle share of the wall time."""
+    trace's kernel events, and the device's idle share of the wall time;
+    for the kernels of K1 to K11 their events' sum and the part of it after
+    the end of the kernel before (a programmatic dependent's event starts
+    under its predecessor)."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
@@ -3749,17 +4018,27 @@ def profile_run(fn, label: str) -> None:
           + ", ".join(f"{g} {t:.1f} ms" for g, t in sorted(groups.items(), key=lambda x: -x[1])), flush=True)
     top = sorted(by_name.items(), key=lambda x: -x[1])[:8]
     print(f"{label} profile top kernels: " + "; ".join(f"{n} {t:.1f} ms" for n, t in top), flush=True)
+    # A programmatic-dependent kernel's event starts under the kernel
+    # before it: its time after the latest end of the kernels that started
+    # before it is its own.
+    own, last_end = {}, float("-inf")
+    for e in sorted(kernels, key=lambda e: e["ts"]):
+        end = e["ts"] + e["dur"]
+        own[id(e)] = max(0.0, end - max(e["ts"], last_end)) / 1e3
+        last_end = max(last_end, end)
     # The kernels one K1, K1b, K1c or K8 call may launch (the GEMM, the
     # split reduction, K1b's x row-sum pre-pass), and K3's, K7's and K11's
     # two each (the split walk, the merge).
     for tag, names in (("K1/K1b/K1c/K8", ("qgemm::", "group_row_sums")), ("K3", ("paged_split", "paged_merge")),
-                       ("K7", ("varlen_tile", "varlen_merge", "varlen_rows")), ("K11", ("mla_",))):
+                       ("K7", ("varlen_tile", "varlen_merge", "varlen_rows")), ("K11", ("mla_",)),
+                       ("K5", ("rope_kernel",)), ("K10a", ("gemma_rms_norm_kernel",))):
         found = {n: t for n, t in by_name.items() if any(key in n for key in names)}
         if found:
             counts = {n: sum(1 for e in kernels if e["name"][:60] == n) for n in found}
+            mine = {n: sum(own[id(e)] for e in kernels if e["name"][:60] == n) for n in found}
             print(f"{label} profile {tag} kernels: " + "; ".join(
-                f"{n} {t:.1f} ms in {counts[n]} launches" for n, t in sorted(found.items(), key=lambda x: -x[1])),
-                flush=True)
+                f"{n} {t:.1f} ms in {counts[n]} launches ({mine[n]:.1f} ms after the kernel before ended)"
+                for n, t in sorted(found.items(), key=lambda x: -x[1])), flush=True)
 
 
 # K1's, K1b's and K1c's templates in a mangled kernel name: layout, bits (K1: group), flag, rows a block.

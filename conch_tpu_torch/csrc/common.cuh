@@ -16,6 +16,7 @@
 #include <cmath>
 #include <cstdint>
 #include <type_traits>
+#include <utility>
 
 namespace conch {
 
@@ -83,6 +84,71 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
 template <>
 __device__ __forceinline__ __half from_float<__half>(float x) { return __float2half_rn(x); }
+
+// 16 bytes of T (8 bf16 or f16, 4 f32) widened to f32 and back; the
+// narrowing rounds each value to nearest even, as from_float does.
+template <typename T>
+inline constexpr int kVec16 = 16 / static_cast<int>(sizeof(T));
+
+template <typename T>
+__device__ __forceinline__ void unpack16(const uint4& raw, float (&f)[kVec16<T>]) {
+  if constexpr (std::is_same_v<T, float>) {
+    f[0] = __uint_as_float(raw.x), f[1] = __uint_as_float(raw.y);
+    f[2] = __uint_as_float(raw.z), f[3] = __uint_as_float(raw.w);
+  } else {
+    using T2 = std::conditional_t<std::is_same_v<T, __half>, __half2, __nv_bfloat162>;
+    const T2* h = reinterpret_cast<const T2*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float2 v;
+      if constexpr (std::is_same_v<T, __half>) v = __half22float2(h[i]);
+      else v = __bfloat1622float2(h[i]);
+      f[2 * i] = v.x, f[2 * i + 1] = v.y;
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ uint4 pack16(const float (&f)[kVec16<T>]) {
+  uint4 raw;
+  if constexpr (std::is_same_v<T, float>) {
+    raw = make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]), __float_as_uint(f[3]));
+  } else {
+    using T2 = std::conditional_t<std::is_same_v<T, __half>, __half2, __nv_bfloat162>;
+    T2* h = reinterpret_cast<T2*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (std::is_same_v<T, __half>) h[i] = __floats2half2_rn(f[2 * i], f[2 * i + 1]);
+      else h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    }
+  }
+  return raw;
+}
+
+// Programmatic dependent launch (a kernel launched with
+// cudaLaunchAttributeProgrammaticStreamSerialization): griddep_wait()
+// returns once the kernel before it in the stream has finished and its
+// stores are visible (at once without the attribute); griddep_launch()
+// lets the next such kernel start launching.
+__device__ __forceinline__ void griddep_wait() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
+__device__ __forceinline__ void griddep_launch() { asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory"); }
+
+// cudaLaunchKernelEx of kernel<<<grid, block, 0, stream>>>(args...), as a
+// programmatic dependent of the kernel before it when pdl is set.
+template <typename... Params, typename... Args>
+cudaError_t launch_maybe_pdl(void (*kernel)(Params...), dim3 grid, dim3 block, cudaStream_t stream, bool pdl,
+                             Args&&... args) {
+  cudaLaunchConfig_t config = {};
+  config.gridDim = grid;
+  config.blockDim = block;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  config.attrs = attr;
+  config.numAttrs = pdl ? 1 : 0;
+  return cudaLaunchKernelEx(&config, kernel, std::forward<Args>(args)...);
+}
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll

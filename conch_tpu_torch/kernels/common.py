@@ -167,6 +167,12 @@ def storage_code(tensor: torch.Tensor) -> int:
     return code
 
 
+def aligned16(*tensors: torch.Tensor) -> bool:
+    """Whether every tensor's data starts on a 16-byte boundary (the
+    kernels' vector paths need it)."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def require_cuda(*tensors: torch.Tensor) -> None:
     """Raise unless every tensor lies on one CUDA device."""
     devices = {t.device for t in tensors}

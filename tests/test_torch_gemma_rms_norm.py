@@ -7,7 +7,8 @@ against the JAX package's op (the Pallas kernel in interpret mode).
 Inputs come from a numpy seed, with random weights (the model initializes
 them to zero, where ``(1 + w)`` is 1 and a dropped weight would pass).
 Hidden 256 and 300 (not a multiple of 128), with and without the residual,
-f32 and bf16. Tolerances are those of tests/gemma_rms_norm_test.py:15.
+f32, bf16 and f16 (which the JAX launcher computes in f32 and casts once,
+as the port does). Tolerances are those of tests/gemma_rms_norm_test.py:15.
 """
 
 import jax.numpy as jnp
@@ -19,14 +20,14 @@ from conch_tpu.ops.normalization import gemma_rms_norm as jax_gemma_rms_norm
 from conch_tpu_torch.kernels.normalization.gemma_rms_norm import gemma_rms_norm_launcher
 from conch_tpu_torch.ops.normalization import gemma_rms_norm
 
-TOLERANCES = {"float32": 1e-5, "bfloat16": 1e-2}
-JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
-TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+TOLERANCES = {"float32": 1e-5, "bfloat16": 1e-2, "float16": 1e-3}
+JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16, "float16": jnp.float16}
+TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 SHAPES = [(7, 256), (300, 256), (5, 300), (2, 3, 300)]
 
 
 @pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("use_residual", [False, True])
 def test_gemma_rms_norm_matches_jax(shape, dtype, use_residual):
     rng = np.random.default_rng(shape[0] * 1000 + shape[-1])

@@ -6,7 +6,8 @@
 Inputs come from a numpy seed and go through both ``conch_tpu.ops``
 (the Pallas kernel in interpret mode on the CPU) and
 ``conch_tpu_torch.ops`` on ``device="cpu"`` (the kernel's plain version).
-Tolerances are those of tests/rotary_embedding_test.py:21.
+Tolerances are those of tests/rotary_embedding_test.py:21 (f16 too,
+which both packages rotate in f32 and round once).
 """
 
 import jax.numpy as jnp
@@ -21,9 +22,9 @@ from conch_tpu_torch.ops.embedding import rotary_embedding
 from conch_tpu_torch.reference.embedding.rotary_embedding import compute_cos_sin_cache
 from conch_tpu_torch.reference.embedding.rotary_embedding import rotary_embedding as rope_reference
 
-TOLERANCES = {"float32": 1e-5, "bfloat16": 2e-2}
-JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
-TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+TOLERANCES = {"float32": 1e-5, "bfloat16": 2e-2, "float16": 1e-3}
+JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16, "float16": jnp.float16}
+TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 LLAMA31_SCALING = {
     "rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0,
     "high_freq_factor": 4.0, "original_max_position_embeddings": 8192,
@@ -46,7 +47,7 @@ def test_cos_sin_cache_matches_jax(rope_scaling):
 
 @pytest.mark.parametrize("num_tokens", [1, 7, 128])
 @pytest.mark.parametrize("num_q_heads,num_k_heads,head_size", [(32, 8, 128), (4, 1, 128), (8, 8, 64)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_rope_matches_jax(num_tokens, num_q_heads, num_k_heads, head_size, dtype):
     rng = np.random.default_rng(7)
     max_pos = 1024
