@@ -395,63 +395,91 @@ def with_kv_scales(fn, cache: str | None):
     return functools.partial(fn, k_scale=ks, v_scale=vs)
 
 
+def k2_step(gen, rng, qh: int, kh: int, d: int, tokens: int, idle: tuple[int, ...], num_pages: int):
+    """A decode step of ``tokens`` rows, k and v slices of a fused bf16 qkv
+    block; the ``idle`` rows have slot -1 (an idle row, or the rows the
+    engines pad a step with); rows 5 and 6 write one page. Returns k, v,
+    the slots (numpy) and their tensor."""
+    qkv = torch.randn((tokens, (qh + 2 * kh) * d), generator=gen, device="cuda").to(torch.bfloat16)
+    k = qkv[:, qh * d : (qh + kh) * d].view(tokens, kh, d)
+    v = qkv[:, (qh + kh) * d :].view(tokens, kh, d)
+    pages = rng.permutation(np.arange(num_pages))[:tokens]
+    pages[6] = pages[5]
+    entries = rng.integers(0, PS, size=tokens)
+    entries[:8] = (0, 15, 7, 0, 3, 9, 10, 1)
+    slots = (pages * PS + entries).astype(np.int32)
+    slots[list(idle)] = -1
+    return k, v, slots, torch.from_numpy(slots).cuda()
+
+
+# K2's timed steps, (tokens, idle rows): the kernel table's decode step of
+# 8 with row 3 idle (the row's numbers), and the quantized engines' step
+# padded to 32 rows, 8 live.
+K2_STEPS = ((8, (3,)), (32, tuple(range(8, 32))))
+
+
 def kernel_phase_k2(
     gen, rng, qh: int = QH, kh: int = KH, d: int = D, layers: int = NUM_LAYERS_POOL, cache: str | None = None
 ) -> dict:
     """K2 into a bf16 pool, or with ``cache`` ("int8", "fp8") its quantizing
-    store into such a pool at KV_SCALES[cache], held byte for byte."""
+    store into such a pool at KV_SCALES[cache], held byte for byte, at each
+    of K2_STEPS (``detail``), each timed beside its bound, plain version and
+    (bf16 pool) the indexed assignment; the row has the 8-token numbers."""
     from conch_tpu_torch.kernels.cache.reshape_and_cache import (
         reshape_and_cache_stacked_launcher as launch_kv,
         reshape_and_cache_stacked_plain as plain_kv,
     )
 
-    num_pages, batch = 256, 8
+    num_pages = 256
     kc, vc = kv_pools(gen, num_pages, layers, kh, d, cache)
     launch, plain = with_kv_scales(launch_kv, cache), with_kv_scales(plain_kv, cache)
+    err, detail = 0.0, []
+    for tokens, idle in K2_STEPS:
+        k, v, slots, slot_t = k2_step(gen, rng, qh, kh, d, tokens, idle, num_pages)
+        kc_ref, vc_ref = kc.clone(), vc.clone()
+        plain(k, v, kc_ref, vc_ref, slot_t, LAYER)
+        launch(k, v, kc, vc, slot_t, LAYER)
+        torch.cuda.synchronize()
+        step = f"KH={kh} D={d} tokens={tokens} live={tokens - len(idle)}"
+        if cache is None:
+            e = max((kc.float() - kc_ref.float()).abs().max().item(), (vc.float() - vc_ref.float()).abs().max().item())
+            check(f"K2 reshape_and_cache_stacked {step}", e, 0.0)
+        else:
+            e = float(sum(int((cache_bytes(a) != cache_bytes(b)).sum()) for a, b in ((kc, kc_ref), (vc, vc_ref))))
+            check(f"K2 reshape_and_cache_stacked {cache} store {step}: bytes differing", e, 0.0)
+        err = max(err, e)
+        del kc_ref, vc_ref
+        valid = torch.from_numpy(np.nonzero(slots >= 0)[0]).cuda()
+        vp = torch.from_numpy(slots[slots >= 0] // PS).long().cuda()
+        ve = torch.from_numpy(slots[slots >= 0] % PS).long().cuda()
+        kv_valid, vv_valid = k[valid], v[valid]
 
-    # Decode batch of 8 taken from a fused qkv row block (strided k, v);
-    # row 3 is idle (slot -1); rows 5 and 6 write the same page.
-    qkv = torch.randn((batch, (qh + 2 * kh) * d), generator=gen, device="cuda").to(torch.bfloat16)
-    k = qkv[:, qh * d : (qh + kh) * d].view(batch, kh, d)
-    v = qkv[:, (qh + kh) * d :].view(batch, kh, d)
-    pages = rng.permutation(np.arange(num_pages))[:batch]
-    pages[6] = pages[5]
-    entries = np.array([0, 15, 7, 0, 3, 9, 10, 1])
-    slots = (pages * PS + entries).astype(np.int32)
-    slots[3] = -1
-    slot_t = torch.from_numpy(slots).cuda()
-    kc_ref, vc_ref = kc.clone(), vc.clone()
-    plain(k, v, kc_ref, vc_ref, slot_t, LAYER)
-    launch(k, v, kc, vc, slot_t, LAYER)
-    torch.cuda.synchronize()
-    if cache is None:
-        err = max((kc.float() - kc_ref.float()).abs().max().item(), (vc.float() - vc_ref.float()).abs().max().item())
-        check(f"K2 reshape_and_cache_stacked KH={kh} D={d}", err, 0.0)
-    else:
-        err = float(sum(int((cache_bytes(a) != cache_bytes(b)).sum()) for a, b in ((kc, kc_ref), (vc, vc_ref))))
-        check(f"K2 reshape_and_cache_stacked {cache} store KH={kh} D={d}: bytes differing", err, 0.0)
-    valid = torch.from_numpy(np.nonzero(slots >= 0)[0]).cuda()
-    vp = torch.from_numpy(slots[slots >= 0] // PS).long().cuda()
-    ve = torch.from_numpy(slots[slots >= 0] % PS).long().cuda()
-    kv_valid, vv_valid = k[valid], v[valid]
+        def library():
+            kc[LAYER, vp, :, ve] = kv_valid
+            vc[LAYER, vp, :, ve] = vv_valid
 
-    def library():
-        kc[LAYER, vp, :, ve] = kv_valid
-        vc[LAYER, vp, :, ve] = vv_valid
-
-    n_valid = int((slots >= 0).sum())
-    # K and V rows: read in bf16, written in the cache's element size.
-    bytes_moved = 2 * n_valid * kh * d * (2 + kc.element_size()) + batch * 4
-    bound_ms, bound_by = bound(bytes_moved, 0)
-    return {
-        "name": "reshape_and_cache_stacked", "route": "cuda", "source": "conch_tpu_torch/csrc/reshape_and_cache.cu",
-        "replaces": "conch_tpu/kernels/cache/reshape_and_cache.py:37", "max_abs_err": err,
-        "ms": time_ms(lambda: launch(k, v, kc, vc, slot_t, LAYER)),
-        "paced_ms": paced_ms(lambda: launch(k, v, kc, vc, slot_t, LAYER)),
-        "plain_ms": time_ms(lambda: plain(k, v, kc, vc, slot_t, LAYER)),
-        # One indexed assignment writes the bf16 rows; no single PyTorch call quantizes on store.
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": time_ms(library) if cache is None else None,
-    }
+        n_valid = int((slots >= 0).sum())
+        # K and V rows: read in bf16, written in the cache's element size; the slots.
+        b_ms, b_by = bound(2 * n_valid * kh * d * (2 + kc.element_size()) + tokens * 4, 0)
+        detail.append({
+            "tokens": tokens, "live": n_valid, "max_abs_err": e, "bound_ms": b_ms, "bound_by": b_by,
+            "ms": time_ms(lambda: launch(k, v, kc, vc, slot_t, LAYER)),
+            "paced_ms": paced_ms(lambda: launch(k, v, kc, vc, slot_t, LAYER)),
+            "plain_ms": time_ms(lambda: plain(k, v, kc, vc, slot_t, LAYER)),
+            # One indexed assignment writes the bf16 rows; no single PyTorch call quantizes on store.
+            "library_ms": time_ms(library) if cache is None else None,
+        })
+    for x in detail[1:]:
+        print(f"K2 {cache or 'bf16'} KH={kh} D={d} tokens={x['tokens']} live={x['live']}: {x['ms']:.4f} ms (paced "
+              f"{x['paced_ms']:.4f}, plain {x['plain_ms']:.4f}, library {x['library_ms']}, bound "
+              f"{x['bound_ms']:.7f} by {x['bound_by']})", flush=True)
+    row = _kernel_row(
+        "reshape_and_cache_stacked", "conch_tpu_torch/csrc/reshape_and_cache.cu",
+        "conch_tpu/kernels/cache/reshape_and_cache.py:37", err, detail[0], detail[0]["bound_ms"],
+        detail[0]["bound_by"],
+    )
+    row["detail"] = detail
+    return row
 
 
 # K5's timed steps: the kernel table's decode step of 8 tokens (the row's
@@ -542,13 +570,17 @@ def pair_timings(name: str, pred, kernel, launcher) -> dict:
 
 
 def row_kernel_pairs(gen, rng, by_name: dict) -> None:
-    """K5 and K10a after their served predecessors (``pair_timings``): K5
-    after Llama-3-8B's fused wqkv through K1 (int4, group 128, the engine's
-    32-row decode step) and through ``torch.matmul`` (bf16, 8 rows); K10a
-    after Gemma-2-2B's bf16 ``o_proj`` ``torch.matmul`` at 16 and 512 rows.
-    The results go into the rows' ``after_predecessor``."""
+    """K5, K10a, K2 and K4 after their served predecessors
+    (``pair_timings``): K5 after Llama-3-8B's fused wqkv through K1 (int4,
+    group 128, the engine's 32-row decode step) and through ``torch.matmul``
+    (bf16, 8 rows); K10a after Gemma-2-2B's bf16 ``o_proj`` ``torch.matmul``
+    at 16 and 512 rows; K2 after K5 at Llama-3-8B's decode step of 8 tokens
+    and the padded 32 (8 live); K4 after the residual add at 8 and 32 rows
+    of 4096. The results go into the rows' ``after_predecessor``."""
+    from conch_tpu_torch.kernels.cache.reshape_and_cache import reshape_and_cache_stacked_launcher as k2
     from conch_tpu_torch.kernels.embedding.rotary_embedding import rotary_embedding_launcher as rope
     from conch_tpu_torch.kernels.normalization.gemma_rms_norm import gemma_rms_norm_launcher as norm
+    from conch_tpu_torch.kernels.normalization.rms_norm import rms_norm_launcher as k4
     from conch_tpu_torch.kernels.quantization.gemm import mixed_gemm_magic_launcher as k1
     from conch_tpu_torch.reference.embedding.rotary_embedding import compute_cos_sin_cache
 
@@ -576,6 +608,26 @@ def row_kernel_pairs(gen, rng, by_name: dict) -> None:
         norm_pairs.append(pair_timings(f"K10a after torch.matmul bf16 o_proj, {m} rows",
                                        lambda x=x: torch.matmul(x, w_o), lambda out: norm(out, w, 1e-6), norm))
     by_name["gemma_rms_norm"]["after_predecessor"] = norm_pairs
+    kc, vc = make_pool(gen, 256)
+    k2_pairs = []
+    for tokens, idle in K2_STEPS:
+        k, v, _, slot_t = k2_step(gen, rng, QH, KH, D, tokens, idle, 256)
+        q = torch.randn((tokens, QH * D), generator=gen, device="cuda").to(torch.bfloat16)
+        pos = torch.from_numpy(rng.integers(0, 8192, size=tokens).astype(np.int32)).cuda()
+        k_rows = k.reshape(tokens, KH * D)
+        k2_pairs.append(pair_timings(
+            f"K2 after K5, {tokens} tokens ({tokens - len(idle)} live)",
+            lambda q=q, k_rows=k_rows, pos=pos: rope(pos, q, k_rows, D, cache),
+            lambda out, v=v, slot_t=slot_t, tokens=tokens: k2(out[1].view(tokens, KH, D), v, kc, vc, slot_t, LAYER),
+            k2))
+    by_name["reshape_and_cache_stacked"]["after_predecessor"] = k2_pairs
+    w4 = (1.0 + 0.1 * torch.randn((HIDDEN,), generator=gen, device="cuda")).to(torch.bfloat16)
+    k4_pairs = []
+    for m in (8, 32):
+        h, r = (torch.randn((m, HIDDEN), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(2))
+        k4_pairs.append(pair_timings(f"K4 after the residual add, {m} rows", lambda h=h, r=r: h + r,
+                                     lambda out: k4(out, w4, 1e-5), k4))
+    by_name["rms_norm"]["after_predecessor"] = k4_pairs
 
 
 # K5's options (check_rope_options): head shapes (Llama-3-8B, Gemma-2-2B,
@@ -1500,27 +1552,28 @@ def kernel_phase_k4b(gen) -> dict:
     return row
 
 
+# K4's timed steps: Llama-3-8B's decode step of 8 rows (the row's
+# numbers), the quantized engines' step padded to 32, a 512-row prefill chunk.
+K4_ROWS = (8, 32, 512)
+
+
 def kernel_phase_k4(gen) -> dict:
-    """K4 at 8 and 512 rows x 4096; the row has the 8-row (decode) numbers."""
+    """K4 at K4_ROWS x 4096 in f32, f16 and bf16, bit for bit against its
+    plain version; the bf16 steps timed beside their bound, plain version
+    and ``F.rms_norm`` (``detail``). The row has the 8-row numbers."""
     from conch_tpu_torch.kernels.normalization.rms_norm import rms_norm_launcher as launch, rms_norm_plain as plain
 
     eps = 1e-5
-    w = (1.0 + 0.1 * torch.randn((HIDDEN,), generator=gen, device="cuda")).to(torch.bfloat16)
     lib = getattr(torch.nn.functional, "rms_norm", None)
-    err, detail = 0.0, []
-    for dtype in (torch.float32, torch.float16):  # the other dtypes K4 takes, at 512 rows
-        x = torch.randn((512, HIDDEN), generator=gen, device="cuda").to(dtype)
-        e = check_close(f"K4 rms_norm rows=512 {dtype}", launch(x, w.to(dtype), eps), plain(x, w.to(dtype), eps),
-                        NORM_TOLERANCES[dtype])
-        err = max(err, e)
-    for rows in (8, 512):
-        x = torch.randn((rows, HIDDEN), generator=gen, device="cuda").to(torch.bfloat16)
-        e = (launch(x, w, eps).float() - plain(x, w, eps).float()).abs().max().item()
-        check(f"K4 rms_norm rows={rows}", e, 2e-2)
-        err = max(err, e)
+    detail = []
+    for rows in K4_ROWS:
+        for dtype in (torch.float32, torch.float16, torch.bfloat16):
+            w = (1.0 + 0.1 * torch.randn((HIDDEN,), generator=gen, device="cuda")).to(dtype)
+            x = torch.randn((rows, HIDDEN), generator=gen, device="cuda").to(dtype)
+            check_equal(f"K4 rms_norm rows={rows} {dtype}", launch(x, w, eps), plain(x, w, eps))
         b_ms, b_by = bound(2 * rows * HIDDEN * 2 + HIDDEN * 2, 4 * rows * HIDDEN)
         detail.append({
-            "rows": rows, "max_abs_err": e, "bound_ms": b_ms, "bound_by": b_by,
+            "rows": rows, "max_abs_err": 0.0, "bound_ms": b_ms, "bound_by": b_by,
             "ms": time_ms(lambda: launch(x, w, eps)),
             "paced_ms": paced_ms(lambda: launch(x, w, eps)),
             "plain_ms": time_ms(lambda: plain(x, w, eps)),
@@ -1528,9 +1581,9 @@ def kernel_phase_k4(gen) -> dict:
         })
     for d in detail:
         print(f"K4 rows={d['rows']}: {d['ms']:.4f} ms (paced {d['paced_ms']:.4f}, plain {d['plain_ms']:.4f}, "
-              f"F.rms_norm {d['library_ms']}, bound {d['bound_ms']:.5f} by {d['bound_by']})", flush=True)
+              f"F.rms_norm {d['library_ms']}, bound {d['bound_ms']:.6f} by {d['bound_by']})", flush=True)
     row = _kernel_row(
-        "rms_norm", "conch_tpu_torch/csrc/rms_norm.cu", "conch_tpu/kernels/normalization/rms_norm.py:34", err,
+        "rms_norm", "conch_tpu_torch/csrc/rms_norm.cu", "conch_tpu/kernels/normalization/rms_norm.py:34", 0.0,
         detail[0], detail[0]["bound_ms"], detail[0]["bound_by"],
     )
     row["detail"] = detail
@@ -1769,13 +1822,13 @@ def check_gemma_rms_norm_options(gen) -> None:
     """K10a over every option it takes (NORM_OPTION_*, f32, bf16 and f16,
     random weights, the programmatic-dependent launch on every other case)
     against the plain version at GEMMA_NORM_TOLERANCES; counts the cases on
-    each path of ``gemma_norm_plan``."""
+    each path of ``row_norm_plan``."""
     from conch_tpu_torch.kernels.common import aligned16
     from conch_tpu_torch.kernels.normalization.gemma_rms_norm import (
-        gemma_norm_plan,
         gemma_rms_norm_launcher as launch,
         gemma_rms_norm_plain as plain,
     )
+    from conch_tpu_torch.kernels.normalization.row_norm import row_norm_plan
 
     eps = 1e-6
     saved, failed, paths, cases, err = launch.pdl, [], {}, 0, {}
@@ -1785,7 +1838,7 @@ def check_gemma_rms_norm_options(gen) -> None:
             w = (0.5 * torch.randn((hidden,), generator=gen, device="cuda")).to(dtype)
             for rows, layout in itertools.product(NORM_OPTION_ROWS, NORM_OPTION_LAYOUTS):
                 x = _flat_rows(gen, rows, hidden, dtype, layout, hidden + 64 if layout == "strided" else None)
-                plan = gemma_norm_plan(rows, hidden, x.element_size(), x.stride(0), aligned16(x))
+                plan = row_norm_plan(rows, hidden, x.element_size(), x.stride(0), aligned16(x))
                 paths[plan.path] = paths.get(plan.path, 0) + 1
                 launch.pdl = cases % 2 == 1
                 got, ref = launch(x, w, eps), plain(x, w, eps)
@@ -1809,6 +1862,138 @@ def check_gemma_rms_norm_options(gen) -> None:
               for dt, e in err.items()), flush=True)
     if failed:
         raise AssertionError(f"K10a options: {len(failed)} of {cases} cases failed: " + "; ".join(failed[:10]))
+    torch.cuda.empty_cache()
+
+
+# K4's options (check_rms_norm_options): rows around one block a row and
+# the spread limit (131 to 133), the served steps, past them; widths (JAX's
+# 128 and 531, Gemma-2-2B's 2304, Llama-3-8B's 4096, Llama-2-13B's 5120,
+# 8192: looped in scalars, 16384: looped in f32 vectors); NORM_OPTION_LAYOUTS.
+RMS_OPTION_ROWS = (0, 1, 3, 8, 32, 131, 133, 512, 540)
+RMS_OPTION_HIDDEN = (128, 531, 2304, 4096, 5120, 8192, 16384)
+
+
+def check_rms_norm_options(gen) -> None:
+    """K4 over every option it takes (RMS_OPTION_*, NORM_OPTION_LAYOUTS, f32,
+    bf16 and f16, random weights, the programmatic-dependent launch on every
+    other case) against the plain version bit for bit; counts the cases on
+    each path of ``row_norm_plan``."""
+    from conch_tpu_torch.kernels.common import aligned16
+    from conch_tpu_torch.kernels.normalization.rms_norm import rms_norm_launcher as launch, rms_norm_plain as plain
+    from conch_tpu_torch.kernels.normalization.row_norm import row_norm_plan
+
+    eps = 1e-5
+    saved, failed, paths, cases = launch.pdl, [], {}, 0
+    try:
+        for hidden, dtype in itertools.product(RMS_OPTION_HIDDEN, (torch.float32, torch.bfloat16, torch.float16)):
+            w = (1.0 + 0.5 * torch.randn((hidden,), generator=gen, device="cuda")).to(dtype)
+            for rows, layout in itertools.product(RMS_OPTION_ROWS, NORM_OPTION_LAYOUTS):
+                x = _flat_rows(gen, rows, hidden, dtype, layout, hidden + 64 if layout == "strided" else None)
+                plan = row_norm_plan(rows, hidden, x.element_size(), x.stride(0), aligned16(x))
+                paths[plan.path] = paths.get(plan.path, 0) + 1
+                launch.pdl = cases % 2 == 1
+                got, ref = launch(x, w, eps), plain(x, w, eps)
+                cases += 1
+                if got.shape != ref.shape or not got.is_contiguous() or not torch.equal(
+                        got.view(torch.uint8), ref.contiguous().view(torch.uint8)):
+                    diff = (got.float() - ref.float()).abs().max().item() if rows and got.shape == ref.shape else None
+                    failed.append(f"{dtype} rows {rows} hidden {hidden} {layout}: max_abs_err {diff}")
+                del x, got, ref
+    finally:
+        launch.pdl = saved
+    torch.cuda.synchronize()
+    names = {0: "vector", 1: "scalar", 2: "looped vector", 3: "looped scalar"}
+    print(f"K4 options: {cases} cases (" + ", ".join(f"{names[k]} {v}" for k, v in sorted(paths.items()))
+          + f"), {cases - len(failed)} equal to the plain version bit for bit", flush=True)
+    if failed:
+        raise AssertionError(f"K4 options: {len(failed)} of {cases} cases differ: " + "; ".join(failed[:10]))
+    torch.cuda.empty_cache()
+
+
+# K2's options (check_cache_write_options): token counts (a third of the
+# rows idle, tokens sharing pages), (KH, D) of Llama-3-8B, Gemma-2-2B, a
+# single head of 64 and D 80, page sizes, k / v layouts (contiguous; slices
+# of a fused qkv block; fused rows one element longer; contiguous rows from
+# a base one element off), every (key, cache) type pair K2 takes.
+CACHE_OPTION_TOKENS = (1, 7, 8, 32, 130, 540)
+CACHE_OPTION_HEADS = ((8, 128), (4, 256), (1, 64), (2, 80))
+CACHE_OPTION_PAGE_SIZES = (16, 64)
+CACHE_OPTION_LAYOUTS = ("contiguous", "fused", "misaligned rows", "misaligned base")
+CACHE_OPTION_TYPES = (
+    (torch.bfloat16, None), (torch.bfloat16, "int8"), (torch.bfloat16, "fp8"), (torch.float32, None),
+    (torch.float32, "bf16"), (torch.float32, "int8"), (torch.float32, "fp8"),
+)
+CACHE_OPTION_LAYERS, CACHE_OPTION_LAYER = 3, 1
+
+
+def _cache_option_rows(gen, tokens: int, kh: int, d: int, dtype: torch.dtype, layout: str):
+    """k and v (tokens, KH, D) in ``dtype`` at 4 N(0, 1), every 37th element
+    +-1000 (past every clip): contiguous rows, or the k and v slices of a
+    fused (QH = 4 KH) block (``_flat_rows``' layouts)."""
+    if layout in ("fused", "misaligned rows"):
+        qkv = _flat_rows(gen, tokens, 6 * kh * d, dtype, "misaligned rows" if layout != "fused" else "contiguous")
+        k, v = qkv[:, 4 * kh * d : 5 * kh * d], qkv[:, 5 * kh * d :]
+    else:
+        k, v = (_flat_rows(gen, tokens, kh * d, dtype, layout) for _ in range(2))
+    for t in (k, v):
+        t.mul_(4.0)
+        t[:, ::37] = 1000.0
+        t[:, 18::37] = -1000.0
+    return k.view(tokens, kh, d), v.view(tokens, kh, d)
+
+
+def check_cache_write_options(gen, rng) -> None:
+    """K2 over every option it takes (CACHE_OPTION_*; the programmatic-
+    dependent launch on every other case) into layer 1 of a 3-layer pool of
+    random bytes, against the plain version byte for byte over the whole
+    pool; counts the cases on each path of ``cache_write_plan``."""
+    from conch_tpu_torch.kernels.cache.reshape_and_cache import (
+        cache_write_plan,
+        reshape_and_cache_stacked_launcher as launch,
+        reshape_and_cache_stacked_plain as plain,
+    )
+    from conch_tpu_torch.kernels.common import aligned16
+
+    cache_types = {None: None, "bf16": torch.bfloat16, **KV_CACHES}
+    saved, failed, paths, cases = launch.pdl, [], {}, 0
+    try:
+        for (kh, d), ps, (dtype, cache) in itertools.product(CACHE_OPTION_HEADS, CACHE_OPTION_PAGE_SIZES,
+                                                             CACHE_OPTION_TYPES):
+            cache_dtype = cache_types[cache] or dtype
+            scales = KV_SCALES.get(cache, (1.0, 1.0))
+            num_pages = math.ceil((2 * max(CACHE_OPTION_TOKENS) + ps) / ps)
+            shape = (CACHE_OPTION_LAYERS, num_pages, kh, ps, d)
+            nbytes = math.prod(shape) * torch.empty((), dtype=cache_dtype).element_size()
+            pools = [torch.randint(0, 256, (nbytes,), generator=gen, device="cuda", dtype=torch.uint8)
+                     for _ in range(2)]
+            for tokens, layout in itertools.product(CACHE_OPTION_TOKENS, CACHE_OPTION_LAYOUTS):
+                k, v = _cache_option_rows(gen, tokens, kh, d, dtype, layout)
+                slots = rng.choice(2 * tokens + ps, size=tokens, replace=False).astype(np.int32)
+                slots[rng.random(tokens) < 1 / 3] = -1
+                slot_t = torch.from_numpy(slots).cuda()
+                kc, vc = (pool.clone().view(cache_dtype).view(shape) for pool in pools)
+                kc_ref, vc_ref = (pool.clone().view(cache_dtype).view(shape) for pool in pools)
+                plan = cache_write_plan(tokens, kh, d, k.element_size(), k.stride(0), v.stride(0),
+                                        aligned16(k, v, kc, vc))
+                paths[plan.path] = paths.get(plan.path, 0) + 1
+                launch.pdl = cases % 2 == 1
+                plain(k, v, kc_ref, vc_ref, slot_t, CACHE_OPTION_LAYER, *scales)
+                launch(k, v, kc, vc, slot_t, CACHE_OPTION_LAYER, *scales)
+                cases += 1
+                differing = sum(int((a.view(torch.uint8) != b.view(torch.uint8)).sum())
+                                for a, b in ((kc, kc_ref), (vc, vc_ref)))
+                if differing:
+                    failed.append(f"{dtype} into {cache_dtype} KH {kh} D {d} page {ps} tokens {tokens} {layout}: "
+                                  f"{differing} bytes differ")
+                del k, v, kc, vc, kc_ref, vc_ref
+            del pools
+    finally:
+        launch.pdl = saved
+    torch.cuda.synchronize()
+    print(f"K2 options: {cases} cases (vector {paths.get(0, 0)}, scalar {paths.get(1, 0)}), "
+          f"{cases - len(failed)} equal to the plain version byte for byte", flush=True)
+    if failed:
+        raise AssertionError(f"K2 options: {len(failed)} of {cases} cases differ: " + "; ".join(failed[:10]))
     torch.cuda.empty_cache()
 
 
@@ -3480,6 +3665,8 @@ def kernel_phases() -> list[dict]:
     row_kernel_pairs(gen, rng, by_name)
     check_rope_options(gen, rng)
     check_gemma_rms_norm_options(gen)
+    check_rms_norm_options(gen)
+    check_cache_write_options(gen, rng)
     check_attention_scales(gen)
     quantized_cache_phases(gen, rng, by_name)
     gemm_output_types(gen, by_name)
@@ -3976,12 +4163,16 @@ def profile_served_run(params: dict, cfg, ecfg, model_fns: dict, prompts: list, 
     profile_run(lambda: engine.generate(prompts, SamplingParams(max_tokens=max_tokens)), label)
 
 
+KERNEL_NAME_CHARS = 120
+
+
 def profile_run(fn, label: str) -> None:
     """``fn()`` under torch.profiler: device time by kernel group, from the
     trace's kernel events, and the device's idle share of the wall time;
     for the kernels of K1 to K11 their events' sum and the part of it after
     the end of the kernel before (a programmatic dependent's event starts
-    under its predecessor)."""
+    under its predecessor). Kernel names are cut to KERNEL_NAME_CHARS, which
+    keeps the norm policy of K4's and K10a's shared kernel."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
@@ -4010,7 +4201,7 @@ def profile_run(fn, label: str) -> None:
         matmul = "conch" not in low and any(tag in low for tag in ("nvjet", "gemm", "sm90", "cutlass"))
         group = "conch kernels" if "conch" in low else "matmul" if matmul else "other"
         groups[group] = groups.get(group, 0.0) + e["dur"] / 1e3
-        by_name[name[:60]] = by_name.get(name[:60], 0.0) + e["dur"] / 1e3
+        by_name[name[:KERNEL_NAME_CHARS]] = by_name.get(name[:KERNEL_NAME_CHARS], 0.0) + e["dur"] / 1e3
     busy = sum(groups.values())
     window = (max(e["ts"] + e["dur"] for e in kernels) - min(e["ts"] for e in kernels)) / 1e3
     print(f"{label} profile ({len(kernels)} kernels): wall {wall_ms:.1f} ms, device busy {busy:.1f} ms, "
@@ -4031,11 +4222,13 @@ def profile_run(fn, label: str) -> None:
     # two each (the split walk, the merge).
     for tag, names in (("K1/K1b/K1c/K8", ("qgemm::", "group_row_sums")), ("K3", ("paged_split", "paged_merge")),
                        ("K7", ("varlen_tile", "varlen_merge", "varlen_rows")), ("K11", ("mla_",)),
-                       ("K5", ("rope_kernel",)), ("K10a", ("gemma_rms_norm_kernel",))):
+                       ("K5", ("rope_kernel",)), ("K10a", ("gemma_rms_norm_kernel", "GemmaNorm")),
+                       ("K4", ("::rms_norm_kernel", "LlamaNorm")),
+                       ("K2", ("stacked_write_kernel", "cache_write_kernel"))):
         found = {n: t for n, t in by_name.items() if any(key in n for key in names)}
         if found:
-            counts = {n: sum(1 for e in kernels if e["name"][:60] == n) for n in found}
-            mine = {n: sum(own[id(e)] for e in kernels if e["name"][:60] == n) for n in found}
+            counts = {n: sum(1 for e in kernels if e["name"][:KERNEL_NAME_CHARS] == n) for n in found}
+            mine = {n: sum(own[id(e)] for e in kernels if e["name"][:KERNEL_NAME_CHARS] == n) for n in found}
             print(f"{label} profile {tag} kernels: " + "; ".join(
                 f"{n} {t:.1f} ms in {counts[n]} launches ({mine[n]:.1f} ms after the kernel before ended)"
                 for n, t in sorted(found.items(), key=lambda x: -x[1])), flush=True)

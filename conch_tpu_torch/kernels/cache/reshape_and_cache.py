@@ -18,26 +18,85 @@ store what ``conch_tpu/kernels/cache/reshape_and_cache.py:_quantize_store``
 stores (``quantize_store``): x times the f32 reciprocal of the scale, then
 int8: round half to even and clip to [-128, 127]; e4m3: clip to +-448 and
 round to nearest even. K2 fuses that into its copy.
+
+``cache_write_plan`` sets K2's launch from shapes alone: its path (16-byte
+vectors only where every row start is 16-byte aligned, else scalars), the
+threads of a (token, head) row of K or V and the rows of a block, so that a
+decode step spreads over the card's SMs.
+``reshape_and_cache_stacked_launcher.pdl`` (default True) launches K2 as a
+programmatic dependent of the kernel before it (K5 on every served decode
+step).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
 
 from conch_tpu_torch.kernels.common import (
     QUANTIZED_CACHE_DTYPES,
+    aligned16,
+    cdiv,
     check_launch,
     dtype_code,
     kernel_function,
+    next_power_of_2,
     require_cuda,
     storage_code,
     stream_of,
 )
 
 FP8_MAX = 448.0  # largest finite float8_e4m3fn
+
+VECTOR, SCALAR = 0, 1  # K2's paths (csrc/reshape_and_cache.cu: launch's path)
+MAX_THREADS = 256  # a block's threads (csrc/reshape_and_cache.cu: kMaxThreads)
+ROW_THREADS = 64  # a row's threads at most; wider rows loop
+SPREAD_BLOCKS = 132  # one block for each SM of an H100: rows share a block only while a step keeps this many
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheWritePlan:
+    """A launch of K2: block (``threads_per_row``, ``rows_per_block``),
+    ``grid`` blocks over the ``2 * tokens * KH`` rows (row r: token r // (2
+    KH), head r // 2 % KH, V when r is odd). A row is ``head_size // vec``
+    chunks of ``vec`` elements; chunk j belongs to the row's thread ``j %
+    threads_per_row``, which moves ``items`` of them at most."""
+
+    path: int
+    vec: int
+    threads_per_row: int
+    rows_per_block: int
+    items: int
+    grid: int
+
+
+def cache_write_plan(
+    num_tokens: int, num_kv_heads: int, head_size: int, itemsize: int, k_row_stride: int, v_row_stride: int,
+    aligned: bool,
+) -> CacheWritePlan:
+    """K2's launch from shapes only. ``itemsize``: the keys' element size;
+    ``aligned``: k, v and both caches start on 16-byte boundaries. Vectors
+    need that, a head size in whole 16-byte vectors of the keys and, when
+    there are tokens after the first, row strides in whole vectors too. A
+    row gets a thread a chunk up to ROW_THREADS (a power of two); rows share
+    a warp when they are narrower, and a block up to MAX_THREADS threads
+    while the step keeps SPREAD_BLOCKS blocks."""
+    vec = 16 // itemsize
+    strides = num_tokens <= 1 or (k_row_stride % vec == 0 and v_row_stride % vec == 0)
+    path = VECTOR if aligned and strides and head_size % vec == 0 else SCALAR
+    if path == SCALAR:
+        vec = 1
+    chunks = head_size // vec
+    tpr = min(next_power_of_2(chunks), ROW_THREADS)
+    rows = 2 * num_tokens * num_kv_heads
+    rpb = max(32 // tpr, 1)
+    while tpr * rpb * 2 <= MAX_THREADS and cdiv(rows, rpb * 2) >= SPREAD_BLOCKS:
+        rpb *= 2
+    return CacheWritePlan(path=path, vec=vec, threads_per_row=tpr, rows_per_block=rpb, items=cdiv(chunks, tpr),
+                          grid=cdiv(rows, rpb))
 
 
 def quantize_store(x: torch.Tensor, scale: float, cache_dtype: torch.dtype) -> torch.Tensor:
@@ -110,20 +169,26 @@ def _stacked_write_cuda(key, value, key_caches, value_caches, slot_mapping, laye
     if slot_mapping.dtype != torch.int32:
         msg = "reshape_and_cache_stacked kernel: slot_mapping must be int32"
         raise ValueError(msg)
+    num_tokens = key.shape[0]
+    plan = cache_write_plan(num_tokens, num_kv_heads, head_size, key.element_size(), key.stride(0), value.stride(0),
+                            aligned16(key, value, key_caches, value_caches))
     fn = kernel_function("conch_reshape_and_cache_stacked", (
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ))
     layer_offset = layer_idx * num_pages * num_kv_heads * page_size * head_size
     code = fn(
         key.data_ptr(), value.data_ptr(), key_caches.data_ptr(), value_caches.data_ptr(),
-        slot_mapping.data_ptr(), key.shape[0], key.stride(0), value.stride(0), layer_offset,
+        slot_mapping.data_ptr(), num_tokens, key.stride(0), value.stride(0), layer_offset,
         num_kv_heads, page_size, head_size, k_scale, v_scale, dtype_code(key), storage_code(key_caches),
-        stream_of(key),
+        plan.path, plan.threads_per_row, plan.rows_per_block, plan.grid,
+        int(reshape_and_cache_stacked_launcher.pdl), stream_of(key),
     )
     check_launch("conch_reshape_and_cache_stacked", code)
-    reshape_and_cache_stacked_launcher.launches += 1
+    if num_tokens:
+        reshape_and_cache_stacked_launcher.launches += 1
 
 
 def reshape_and_cache_stacked_launcher(
@@ -139,7 +204,8 @@ def reshape_and_cache_stacked_launcher(
     """In-place write of each token into layer ``layer_idx`` of the pool,
     quantized on store into int8 / float8_e4m3fn caches.
 
-    ``launches`` counts kernel launches.
+    ``launches`` counts kernel launches; ``pdl`` launches the kernel as a
+    programmatic dependent.
     """
     if not 0 <= layer_idx < key_caches.shape[0]:
         msg = f"layer_idx {layer_idx} outside the {key_caches.shape[0]}-layer pool"
@@ -152,3 +218,4 @@ def reshape_and_cache_stacked_launcher(
 
 
 reshape_and_cache_stacked_launcher.launches = 0
+reshape_and_cache_stacked_launcher.pdl = True

@@ -13,6 +13,11 @@ returns ``(norm(s), s)`` as two new tensors. The plain versions are the
 golden ones of ``reference/normalization/rms_norm.py``. Each launcher
 takes the plain version for CPU tensors only; on CUDA it launches its
 kernel, at any row count and hidden size, in f32, bf16 or f16, or raises.
+
+K4 is the register-held row kernel of ``csrc/row_norm.cuh`` (K10a's), on
+the plan of ``row_norm.py:row_norm_plan``; ``rms_norm_launcher.pdl``
+(default True) launches it as a programmatic dependent of the kernel
+before it. K4b keeps a block a row.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from conch_tpu_torch.kernels.common import (
     require_cuda,
     stream_of,
 )
+from conch_tpu_torch.kernels.normalization.row_norm import launch_row_norm
 from conch_tpu_torch.reference.normalization.rms_norm import fused_add_rms_norm as fused_add_rms_norm_plain
 from conch_tpu_torch.reference.normalization.rms_norm import rms_norm as rms_norm_plain
 
@@ -48,28 +54,17 @@ def _check_rows(name: str, weight: torch.Tensor, *rows: torch.Tensor) -> None:
 
 
 def _rms_norm_cuda(x: torch.Tensor, weight: torch.Tensor, epsilon: float) -> torch.Tensor:
-    weight = weight.to(x.dtype).contiguous()
-    require_cuda(x, weight)
-    _check_rows("rms_norm", weight, x)
-    rows, hidden = x.shape
-    out = torch.empty((rows, hidden), dtype=x.dtype, device=x.device)
-    fn = kernel_function("conch_rms_norm", (
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-    ))
-    code = fn(
-        x.data_ptr(), weight.data_ptr(), out.data_ptr(), rows, hidden, x.stride(0), epsilon,
-        dtype_code(x, FLOAT_DTYPES), stream_of(x),
-    )
-    check_launch("conch_rms_norm", code)
-    rms_norm_launcher.launches += 1
+    out = launch_row_norm("conch_rms_norm", x, weight, epsilon, rms_norm_launcher.pdl)
+    if x.shape[0]:
+        rms_norm_launcher.launches += 1
     return out
 
 
 def rms_norm_launcher(x: torch.Tensor, weight: torch.Tensor, epsilon: float) -> torch.Tensor:
     """RMS norm over the last axis of a 2D (rows, hidden) input.
 
-    ``launches`` counts kernel launches.
+    ``launches`` counts kernel launches; ``pdl`` launches the kernel as a
+    programmatic dependent.
     """
     if x.device.type == "cpu":
         return rms_norm_plain(x, weight, epsilon)
@@ -77,6 +72,7 @@ def rms_norm_launcher(x: torch.Tensor, weight: torch.Tensor, epsilon: float) -> 
 
 
 rms_norm_launcher.launches = 0
+rms_norm_launcher.pdl = True
 
 
 def _fused_add_rms_norm_cuda(

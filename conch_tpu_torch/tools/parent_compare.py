@@ -1,9 +1,9 @@
 # Copyright 2026 Conch-TPU authors.
 # SPDX-License-Identifier: Apache-2.0
 
-"""Time K1, K3, K5, K7, K8, K10a, K11 and K12q of two checkouts on one card, in turns.
+"""Time K1, K2, K3, K4, K5, K7, K8, K10a, K11 and K12q of two checkouts on one card, in turns.
 
-    python3 -m conch_tpu_torch.tools.parent_compare --parent DIR [--kernels K5 K10a ...] [--serve]
+    python3 -m conch_tpu_torch.tools.parent_compare --parent DIR [--kernels K4 K2 ...] [--serve]
 
 Run from the checkout's root on one Hopper card, with ``DIR`` another
 checkout of the repository (for instance ``git archive`` of the parent
@@ -41,15 +41,22 @@ launchers only, which both packages share:
   at Gemma-2-2B's hidden 2304 in bf16, each at 8, 16, 32 and 512 rows; then
   both after their served predecessors (``chip_smoke.row_kernel_pairs``:
   the pair's time minus the predecessor's, with and without the
-  programmatic-dependent launch where the package has it).
+  programmatic-dependent launch where the package has it);
+- K4 (``rms_norm_launcher``) at Llama-3-8B's hidden 4096 in bf16 at 8, 32
+  and 512 rows, and K2 (``reshape_and_cache_stacked_launcher``) at
+  ``chip_smoke.K2_STEPS`` (8 tokens, one idle; 32 with 8 live) of
+  Llama-3-8B into bf16, int8 and e4m3 pools and at Gemma-2-2B's 8 tokens,
+  k and v slices of a fused qkv block (``chip_smoke.k2_step``); then both
+  after their served predecessors (``row_kernel_pairs``, as K5 and K10a).
 
-``--kernels`` times only the named ones (K1 K3 K5 K7 K8 K10a K11 K12q).
+``--kernels`` times only the named ones (K1 K2 K3 K4 K5 K7 K8 K10a K11 K12q).
 ``--serve`` also serves Gemma-2-2B and the int4 Llama-3-8B engine with each
 package, as ``chip_smoke.py``'s ``serve`` does (launches checked per model
 step, then a profiled repeat), and prints each run's served and profile
 lines (device time by kernel, K5's and K10a's among them); a package whose
 K5 and K10a launch as programmatic dependents also serves Gemma-2-2B with
-that launch off.
+that launch off. The profile lines give K2's, K4's, K5's and K10a's
+device time and launches.
 
 Device times come from ``chip_smoke.time_ms``. The tool prints each run's
 numbers, then one line per case with the two packages' means, and a JSON
@@ -86,6 +93,8 @@ from conch_tpu_torch.kernels.quantization.gemm import scaled_gemm_launcher as k8
 from conch_tpu_torch.kernels.normalization.gemma_rms_norm import gemma_rms_norm_launcher as k10a
 from conch_tpu_torch.kernels.attention.mla_attention import mla_attention_launcher as k11
 from conch_tpu_torch.kernels.quantization.bitsandbytes.blockwise import quantize4_launcher as k12q
+from conch_tpu_torch.kernels.cache.reshape_and_cache import reshape_and_cache_stacked_launcher as k2
+from conch_tpu_torch.kernels.normalization.rms_norm import rms_norm_launcher as k4
 from conch_tpu_torch.reference.embedding.rotary_embedding import compute_cos_sin_cache
 
 want = set(sys.argv[1:])
@@ -155,8 +164,27 @@ if "K12q" in want:
     for blocksize in (cs.NF4_BLOCK, 4096):
         times[f"K12q gate nf4 blocksize {blocksize}"] = cs.time_ms(lambda: k12q(wt, blocksize, "nf4"))
 
-if "K5" in want or "K10a" in want:
-    for fn in (k5, k10a):
+if "K4" in want:
+    w4 = (1.0 + 0.1 * torch.randn((cs.HIDDEN,), generator=gen, device="cuda")).to(torch.bfloat16)
+    for rows in cs.K4_ROWS:
+        x = torch.randn((rows, cs.HIDDEN), generator=gen, device="cuda").to(torch.bfloat16)
+        times[f"K4 rows={rows}"] = cs.time_ms(lambda: k4(x, w4, 1e-5))
+
+if "K2" in want:
+    for label, (qh, kh, d, layers, steps) in (("llama3_8b", (cs.QH, cs.KH, cs.D, cs.NUM_LAYERS_POOL, cs.K2_STEPS)),
+                                              ("gemma2_2b", (cs.G_QH, cs.G_KH, cs.G_D, cs.G_LAYERS, cs.K2_STEPS[:1]))):
+        for cache in (None, "int8", "fp8") if label == "llama3_8b" else (None,):
+            kc, vc = cs.kv_pools(gen, 256, layers, kh, d, cache)
+            launch = cs.with_kv_scales(k2, cache)
+            for tokens, idle in steps:
+                k, v, _, slot_t = cs.k2_step(gen, rng, qh, kh, d, tokens, idle, 256)
+                times[f"K2 {label} {cache or 'bf16'} cache tokens={tokens} live={tokens - len(idle)}"] = cs.time_ms(
+                    lambda: launch(k, v, kc, vc, slot_t, cs.LAYER))
+            del kc, vc
+            torch.cuda.empty_cache()
+
+if want & {"K5", "K10a", "K4", "K2"}:
+    for fn in (k5, k10a, k4, k2):
         fn.pdl = getattr(fn, "pdl", False)  # a package without the attribute launches one way
     for label, (qh, kh, d, theta) in (("llama3_8b", (cs.QH, cs.KH, cs.D, 500000.0)),
                                       ("gemma2_2b", (cs.G_QH, cs.G_KH, cs.G_D, 10000.0))):
@@ -170,7 +198,7 @@ if "K5" in want or "K10a" in want:
     for rows in (8, 16, 32, 512):
         x = torch.randn((rows, cs.G_HIDDEN), generator=gen, device="cuda").to(torch.bfloat16)
         times[f"K10a rows={rows}"] = cs.time_ms(lambda: k10a(x, w, 1e-6))
-    by_name = {"rotary_embedding": {}, "gemma_rms_norm": {}}
+    by_name = {"rotary_embedding": {}, "gemma_rms_norm": {}, "reshape_and_cache_stacked": {}, "rms_norm": {}}
     cs.row_kernel_pairs(gen, rng, by_name)
     for row in by_name.values():
         for pair in row["after_predecessor"]:
@@ -200,7 +228,7 @@ if "serve" in want:
              {"num_pages": 4096, "max_batch_size": 32}, cs.int4_prompts, cs.LLAMA_KERNELS, cs.LLAMA_PER_STEP)
 print("TIMES " + json.dumps({"package": conch_tpu_torch.__file__, "times": times}), flush=True)
 '''
-KERNELS = ("K1", "K3", "K5", "K7", "K8", "K10a", "K11", "K12q")
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K7", "K8", "K10a", "K11", "K12q")
 # The lines of a run's output that the tool prints with --serve.
 SERVE_LINES = ("served ", "profile", "launches per model step")
 

@@ -1,7 +1,8 @@
 # Copyright 2026 Conch-TPU authors.
 # SPDX-License-Identifier: Apache-2.0
 
-"""Show that the card checks of K5 (RoPE) and K10a (Gemma RMS norm) can fail.
+"""Show that the card checks of K5 (RoPE), K10a (Gemma RMS norm), K4 (RMS
+norm) and K2 (the stacked KV-cache write) can fail.
 
     python3 -m conch_tpu_torch.tools.row_mutants [NAME ...]
 
@@ -10,25 +11,36 @@ the named ones), the tool copies the package to
 ``conch_tpu_torch/_build/mutants/<name>/`` with only the two kernels'
 sources under ``csrc/`` (so each copy builds in seconds), puts the fault
 into the copy, and runs the fault's option sweep of ``chip_smoke.py`` on
-the copy in a subprocess: ``check_rope_options`` (K5 over 2304 cases) or
-``check_gemma_rms_norm_options`` (K10a over 672 cases), each against the
-kernel's plain version. The unchanged copy must pass both sweeps first,
+the copy in a subprocess: ``check_rope_options`` (K5 over 2304 cases),
+``check_gemma_rms_norm_options`` (K10a over 672 cases),
+``check_rms_norm_options`` (K4 over 756 cases, bit for bit) or
+``check_cache_write_options`` (K2 over 1344 cases, byte for byte), each
+against the kernel's plain version. The unchanged copy must pass the
+sweeps first,
 and every faulty copy must fail its sweep: a check's AssertionError, or,
 for the vector path on a misaligned row, the card's misaligned-address
 fault inside the sweep (never a failed build). The tool prints each run's
 result lines and exits non-zero otherwise. The faults:
 
 - ``k10a_weight_not_plus_one``: K10a multiplies by w, not 1 + w;
-- ``k10a_tail_dropped``: K10a leaves out a row's scalar tail (the last
-  hidden % 8 elements of a single bf16 row of 531 take it: neither summed
-  nor written);
+- ``k10a_tail_dropped``: the row kernel K10a shares with K4 leaves out a
+  row's scalar tail (the last hidden % 8 elements of a single bf16 row of
+  531 take it: neither summed nor written);
 - ``k5_sin_sign_flipped``: K5's vector path computes the second half as
   x2 * cos - x1 * sin;
 - ``k5_tail_not_copied``: K5's vector path does not copy the elements past
   rot_dim;
 - ``k5_vector_on_misaligned_stride``: ``rope_plan`` takes the vector path
   whatever the row strides, so rows that break 16-byte alignment get
-  16-byte loads.
+  16-byte loads;
+- ``k4_normalized_not_rounded``: K4 multiplies x * inv by w without first
+  rounding it to x's dtype;
+- ``k4_sum_in_f32``: K4 sums the squares in f32 and divides in f32;
+- ``k2_entry_off_by_one``: K2 writes each token one entry past its slot;
+- ``k2_idle_rows_written``: K2 drops the idle check, so a slot of -1 writes
+  entry -1 of page 0;
+- ``k2_int8_round_toward_zero``: K2's int8 store truncates instead of
+  rounding half to even.
 """
 
 from __future__ import annotations
@@ -39,14 +51,24 @@ import sys
 from conch_tpu_torch.tools.attention_mutants import BUILD_DIR, PACKAGE_DIR, copy_package, run_phases
 
 ROPE, NORM = "check_rope_options", "check_gemma_rms_norm_options"
-PHASE_ARGS = {ROPE: "gen, np.random.default_rng(chip_smoke.SEED)", NORM: "gen"}
-ROW_SOURCES = ("rotary_embedding.cu", "gemma_rms_norm.cu")
+LLAMA_NORM, CACHE = "check_rms_norm_options", "check_cache_write_options"
+RNG = "np.random.default_rng(chip_smoke.SEED)"
+PHASE_ARGS = {ROPE: f"gen, {RNG}", NORM: "gen", LLAMA_NORM: "gen", CACHE: f"gen, {RNG}"}
+ROW_SOURCES = ("rotary_embedding.cu", "gemma_rms_norm.cu", "rms_norm.cu", "reshape_and_cache.cu")
+K4_SUM_F64 = """  using Acc = double;
+  static __device__ __forceinline__ void add(double& sq, float f) { sq += static_cast<double>(f * f); }
+  static __device__ __forceinline__ float inv(double total, int hidden, float eps) {
+    return rsqrtf(static_cast<float>(total / hidden) + eps);"""
+K4_SUM_F32 = """  using Acc = float;
+  static __device__ __forceinline__ void add(float& sq, float f) { sq += f * f; }
+  static __device__ __forceinline__ float inv(float total, int hidden, float eps) {
+    return rsqrtf(total / static_cast<float>(hidden) + eps);"""
 # name -> (file under the package, text, faulty text, the chip_smoke sweep that must catch it)
 MUTANTS = {
     "k10a_weight_not_plus_one": ("csrc/gemma_rms_norm.cu", "return x * inv * (1.0f + w);", "return x * inv * w;",
                                  NORM),
     "k10a_tail_dropped": (
-        "csrc/gemma_rms_norm.cu", "const bool has_tail = live && t0 + lane < p.hidden;",
+        "csrc/row_norm.cuh", "const bool has_tail = live && t0 + lane < p.hidden;",
         "const bool has_tail = false;", NORM,
     ),
     "k5_sin_sign_flipped": ("csrc/rotary_embedding.cu", "o2[e] = __fadd_rn(", "o2[e] = __fsub_rn(", ROPE),
@@ -58,6 +80,16 @@ MUTANTS = {
         "strides = num_tokens <= 1 or (q_row_stride % vec == 0 and k_row_stride % vec == 0)", "strides = True",
         ROPE,
     ),
+    "k4_normalized_not_rounded": (
+        "csrc/rms_norm.cu", "return to_float(from_float<T>(x * inv)) * w;", "return x * inv * w;", LLAMA_NORM,
+    ),
+    "k4_sum_in_f32": ("csrc/rms_norm.cu", K4_SUM_F64, K4_SUM_F32, LLAMA_NORM),
+    "k2_entry_off_by_one": (
+        "csrc/reshape_and_cache.cu", "const int entry = slot - page * p.page_size;",
+        "const int entry = slot - page * p.page_size + 1;", CACHE,
+    ),
+    "k2_idle_rows_written": ("csrc/reshape_and_cache.cu", "if (slot < 0) return;", "", CACHE),
+    "k2_int8_round_toward_zero": ("csrc/reshape_and_cache.cu", "fmaxf(rintf(x)", "fmaxf(truncf(x)", CACHE),
 }
 
 

@@ -23,6 +23,7 @@ import torch
 from conch_tpu.ops.attention import paged_attention as jax_paged
 from conch_tpu.ops.attention import varlen_attention as jax_varlen
 from conch_tpu_torch.ops.attention import paged_attention, varlen_attention
+from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
 PAGED_TOL = {"float32": 2e-3, "bfloat16": 3e-2}
 VARLEN_TOL = {"float32": 2e-3, "bfloat16": 2e-2}

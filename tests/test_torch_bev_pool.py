@@ -21,6 +21,7 @@ import torch
 import conch_tpu.ops.vision as jv
 from conch_tpu_torch.kernels.vision.bev_pool import bev_pool_backward_launcher, bev_pool_forward_launcher
 from conch_tpu_torch.ops.vision import bev_pool, bev_pool_backward
+from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
 
 def _make_bev_inputs(rng, num_intervals=20, max_len=6, channels=16, b=2, gz=1, gx=8, gy=8, sort_cells=True):

@@ -35,6 +35,7 @@ from conch_tpu_torch.kernels.quantization.bitsandbytes.blockwise import (
 )
 from conch_tpu_torch.ops.quantization import bitsandbytes as bnb
 from conch_tpu_torch.reference.quantization.bitsandbytes import blockwise as ref
+from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
 JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16, "float16": jnp.float16}
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}

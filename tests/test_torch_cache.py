@@ -20,6 +20,7 @@ from conch_tpu.ops.cache import reshape_and_cache as jax_write
 from conch_tpu.ops.cache import reshape_and_cache_stacked as jax_write_stacked
 from conch_tpu_torch.kernels.cache.reshape_and_cache import reshape_and_cache_stacked_launcher
 from conch_tpu_torch.ops.cache import reshape_and_cache, reshape_and_cache_stacked
+from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
 JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}

@@ -40,6 +40,7 @@ from conch_tpu_torch.parallel import (
     ppermute,
     ring_all_gather,
 )
+from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
 pytestmark = pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
 

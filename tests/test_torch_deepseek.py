@@ -54,6 +54,7 @@ from conch_tpu_torch.models.deepseek import (
     init_deepseek_params,
 )
 from conch_tpu_torch.models.moe import make_dispatch
+from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
 DIMS = {
     "vocab_size": 256, "hidden_size": 64, "num_layers": 3, "num_heads": 4, "kv_lora_rank": 32,
@@ -62,7 +63,7 @@ DIMS = {
     "first_k_dense_replace": 1, "moe_capacity_factor": 0.5,
 }
 TOL = 1e-4
-PS, NUM_PAGES, ROWS, BATCH, MAX_PAGES = 16, 16, 64, 4, 8
+PS, NUM_PAGES, ROWS, BATCH, MAX_PAGES = 16, 16, 64, 4, 6
 PAGES = [[3, 7, 1, 9, 10], [0, 5]]  # page 0 is a real page
 
 

@@ -46,6 +46,7 @@ from conch_tpu_torch.models.deepseek import (
     deepseek_verify_forward,
 )
 from conch_tpu_torch.serving import EngineConfig, LLMEngine, SamplingParams
+from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
 DIMS = {
     "vocab_size": 256, "hidden_size": 64, "num_layers": 3, "num_heads": 4, "kv_lora_rank": 32,

@@ -21,6 +21,7 @@ from conch_tpu.ops.normalization import rms_norm as jax_rms_norm
 from conch_tpu_torch.kernels.normalization.rms_norm import fused_add_rms_norm_launcher, rms_norm_launcher
 from conch_tpu_torch.ops.normalization import fused_add_rms_norm, rms_norm
 from conch_tpu_torch.reference.normalization.rms_norm import fused_add_rms_norm as fused_add_rms_norm_ref
+from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
 TOLERANCES = {"float32": 1e-5, "float16": 1e-3, "bfloat16": 2e-2}
 JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16, "float16": jnp.float16}

@@ -22,6 +22,7 @@ from conch_tpu_torch.kernels.activation.gelu_tanh_and_mul import (
     gelu_tanh_and_mul_parts_launcher,
 )
 from conch_tpu_torch.ops.activation import gelu_tanh_and_mul, gelu_tanh_and_mul_parts
+from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
 TOLERANCES = {"float32": 1e-6, "bfloat16": 1e-2}
 JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

@@ -43,6 +43,7 @@ from conch_tpu_torch.models.gemma import (
     init_gemma_params,
 )
 from conch_tpu_torch.models.llama import fuse_llama_params
+from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
 DIMS = {
     "vocab_size": 128, "hidden_size": 128, "intermediate_size": 256, "num_layers": 2, "num_heads": 4,
@@ -54,7 +55,7 @@ VARIANTS = {
     "gemma1": {},
 }
 TOL = 2e-3
-PS, NUM_PAGES, ROWS, BATCH, MAX_PAGES = 16, 16, 64, 4, 8
+PS, NUM_PAGES, ROWS, BATCH, MAX_PAGES = 16, 16, 64, 4, 6
 PAGES = [[3, 7, 1, 9, 10], [0, 5]]  # page 0 is a real page
 
 

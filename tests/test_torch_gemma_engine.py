@@ -40,6 +40,7 @@ from conch_tpu_torch.models.gemma import (
     gemma_verify_forward,
 )
 from conch_tpu_torch.serving import EngineConfig, LLMEngine, SamplingParams
+from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
 DIMS = {
     "vocab_size": 128, "hidden_size": 128, "intermediate_size": 256, "num_layers": 2, "num_heads": 4,

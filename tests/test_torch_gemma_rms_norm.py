@@ -19,6 +19,7 @@ import torch
 from conch_tpu.ops.normalization import gemma_rms_norm as jax_gemma_rms_norm
 from conch_tpu_torch.kernels.normalization.gemma_rms_norm import gemma_rms_norm_launcher
 from conch_tpu_torch.ops.normalization import gemma_rms_norm
+from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
 TOLERANCES = {"float32": 1e-5, "bfloat16": 1e-2, "float16": 1e-3}
 JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16, "float16": jnp.float16}

@@ -26,6 +26,7 @@ from conch_tpu.ops.quantization.gemm import mixed_precision_gemm as jax_gemm
 from conch_tpu_torch.kernels.quantization.gemm import mixed_gemm_magic_launcher
 from conch_tpu_torch.models.linear import QuantizedLinear, quantize_linear
 from conch_tpu_torch.ops.quantization import mixed_precision_gemm
+from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
 JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}

@@ -45,6 +45,7 @@ from conch_tpu_torch.models.deepseek import (
 from conch_tpu_torch.models.gemma import GemmaConfig, gemma_decode_step, gemma_prefill, init_gemma_params
 from conch_tpu_torch.models.llama import LlamaConfig, init_llama_params
 from conch_tpu_torch.serving import EngineConfig, LLMEngine, SamplingParams
+from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
 LLAMA_DIMS = {
     "vocab_size": 256, "hidden_size": 256, "intermediate_size": 512, "num_layers": 2,

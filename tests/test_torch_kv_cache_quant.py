@@ -55,6 +55,7 @@ from conch_tpu.reference.attention.attention import varlen_attention as jax_varl
 from conch_tpu_torch.kernels.cache.reshape_and_cache import quantize_store
 from conch_tpu_torch.ops.attention import mla_attention, paged_attention, varlen_attention
 from conch_tpu_torch.ops.cache import reshape_and_cache, reshape_and_cache_mla, reshape_and_cache_stacked
+from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
 PS = 16
 CACHE_DTYPES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}

@@ -41,8 +41,9 @@ import conch_tpu.models.llama as jax_llama
 import conch_tpu_torch.models.deepseek as ds
 import conch_tpu_torch.models.gemma as gemma
 import conch_tpu_torch.models.llama as llama
+from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
-PS, NUM_PAGES, ROWS, BATCH, MAX_PAGES = 16, 12, 64, 4, 8
+PS, NUM_PAGES, ROWS, BATCH, MAX_PAGES = 16, 12, 64, 4, 5
 PAGES = [[3, 7, 1, 9], [0, 5]]  # page 0 is a real page
 CACHES = {"int8": (jnp.int8, torch.int8), "fp8": (jnp.float8_e4m3fn, torch.float8_e4m3fn)}
 LLAMA_DIMS = {

@@ -43,13 +43,14 @@ from conch_tpu_torch.models.llama import (
     params_from_jax,
 )
 from conch_tpu_torch.serving import EngineConfig, LLMEngine, SamplingParams
+from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
 DIMS = {
     "vocab_size": 256, "hidden_size": 256, "intermediate_size": 512, "num_layers": 2,
     "num_heads": 4, "num_kv_heads": 1, "head_dim": 128,
 }
 TOL = 2e-3
-PS, NUM_PAGES, ROWS, BATCH, MAX_PAGES = 16, 16, 64, 4, 8
+PS, NUM_PAGES, ROWS, BATCH, MAX_PAGES = 16, 16, 64, 4, 6
 PAGES = [[3, 7, 1, 9, 10], [0, 5]]
 PROJECTIONS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 

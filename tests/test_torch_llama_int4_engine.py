@@ -32,12 +32,17 @@ from conch_tpu.serving import LLMEngine as JaxLLMEngine
 from conch_tpu.serving import SamplingParams as JaxSamplingParams
 from conch_tpu_torch.models.llama import LlamaConfig, params_from_jax
 from conch_tpu_torch.serving import EngineConfig, LLMEngine, SamplingParams
+from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
 DIMS = {
     "vocab_size": 256, "hidden_size": 256, "intermediate_size": 512, "num_layers": 2,
     "num_heads": 4, "num_kv_heads": 1, "head_dim": 128,
 }
-ENGINE = {"page_size": 16, "num_pages": 64, "max_batch_size": 4, "max_prefill_tokens": 256}
+# max_pages_per_seq: what the requests need (the default is 64); the JAX
+# engine's interpret-mode compile grows with the block table's width.
+ENGINE = {
+    "page_size": 16, "num_pages": 64, "max_batch_size": 4, "max_prefill_tokens": 256, "max_pages_per_seq": 32,
+}
 
 
 @pytest.fixture(scope="module")

@@ -56,13 +56,14 @@ from conch_tpu_torch.models.llama import (
     params_from_jax,
     requantize_llama_params,
 )
+from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
 DIMS = {
     "vocab_size": 256, "hidden_size": 256, "intermediate_size": 512, "num_layers": 2,
     "num_heads": 4, "num_kv_heads": 1, "head_dim": 128,
 }
 TOL = {"int8": 2e-3, "nf4": 2e-3, "w8a8": 2e-2}
-PS, NUM_PAGES, ROWS, BATCH, MAX_PAGES = 16, 16, 64, 4, 8
+PS, NUM_PAGES, ROWS, BATCH, MAX_PAGES = 16, 16, 64, 4, 6
 PAGES = [[3, 7, 1, 9, 10], [0, 5]]
 PROJECTIONS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 MODES = ("int8", "nf4", "w8a8")

@@ -34,6 +34,7 @@ from conch_tpu_torch.models.llama import (
     llama_prefill,
     params_from_jax,
 )
+from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
 DIMS = {
     "vocab_size": 256, "hidden_size": 256, "intermediate_size": 512, "num_layers": 3,
@@ -47,7 +48,7 @@ DIMS = {
 TOLERANCES = {"float32": 2e-3, "bfloat16": 3e-2}
 JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-PS, NUM_PAGES, ROWS, BATCH, MAX_PAGES = 16, 16, 64, 4, 8
+PS, NUM_PAGES, ROWS, BATCH, MAX_PAGES = 16, 16, 64, 4, 6
 PAGES = [[3, 7, 1, 9, 10], [0, 5]]  # page 0 is a real page
 
 

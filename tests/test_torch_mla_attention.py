@@ -29,6 +29,7 @@ from conch_tpu.ops.attention import mla_attention as jax_mla
 from conch_tpu.ops.cache import reshape_and_cache_mla as jax_cache_mla
 from conch_tpu_torch.ops.attention import mla_attention
 from conch_tpu_torch.ops.cache import reshape_and_cache_mla
+from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
 LATENT, ROPE, PACKED, HEADS, PS = 128, 64, 256, 8, 16
 SCALE = 1 / math.sqrt(192)

@@ -23,6 +23,7 @@ from conch_tpu_torch.kernels.quantization.bitsandbytes.blockwise import (
     quantize4_plain,
 )
 from conch_tpu_torch.ops.quantization.bitsandbytes import quantize_4bit
+from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
 JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}

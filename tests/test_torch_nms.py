@@ -16,6 +16,7 @@ import torch
 from conch_tpu.ops.vision import nms as jax_nms
 from conch_tpu_torch.kernels.vision.nms import nms_keep_mask_launcher
 from conch_tpu_torch.ops.vision import nms
+from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
 
 def _boxes(rng, n):

@@ -48,6 +48,7 @@ from conch_tpu_torch.ops.quantization import (
 )
 from conch_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 from conch_tpu_torch.utils.profiling import StepTimeline, annotate, profile_fn, trace
+from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
 TORCH_DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16, jnp.int32: torch.int32,
                 jnp.int8: torch.int8, jnp.float8_e4m3fn: torch.float8_e4m3fn}

@@ -27,6 +27,7 @@ import torch
 from conch_tpu.ops.attention import paged_attention as jax_paged
 from conch_tpu_torch.ops.attention import paged_attention
 from conch_tpu_torch.reference.attention.attention import paged_attention as paged_reference
+from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
 TOLERANCES = {"float32": 2e-3, "bfloat16": 3e-2}
 JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

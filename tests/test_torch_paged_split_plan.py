@@ -26,6 +26,7 @@ from conch_tpu_torch.kernels.attention.paged_attention import (
     SPLIT_TILE,
     paged_split_plan,
 )
+from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
 H100_SMS = 132
 PAGE = 16

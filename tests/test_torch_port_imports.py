@@ -34,7 +34,7 @@ def test_port_and_chip_smoke_import_no_jax():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env, capture_output=True, text=True,
-                         timeout=300, check=True)
+                         timeout=120, check=True)
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert "conch_tpu_torch.ops.vision.bev_pool" in result["imported"]
     assert len(result["imported"]) > 80

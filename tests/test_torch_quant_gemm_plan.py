@@ -36,6 +36,7 @@ from conch_tpu_torch.kernels.quantization.gemm import (
     quant_gemm_plan,
 )
 from conch_tpu_torch.utils.quant_utils import pack_rows_magic
+from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
 H100_SMS = 132
 NF4_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256)]  # (K, N), group 64

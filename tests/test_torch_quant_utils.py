@@ -32,6 +32,7 @@ from conch_tpu_torch.utils.quant_utils import (
     unpack_rows_magic,
     unpack_rows_planar,
 )
+from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
 # (K, N, group): a multi-group K, K below 128 (one group spans K), and N
 # that is not a multiple of 128.

@@ -17,15 +17,16 @@ import torch
 from conch_tpu.ops.normalization import rms_norm as jax_rms_norm
 from conch_tpu_torch.kernels.normalization.rms_norm import rms_norm_launcher
 from conch_tpu_torch.ops.normalization import rms_norm
+from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
-TOLERANCES = {"float32": 1e-5, "bfloat16": 2e-2}
-JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
-TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+TOLERANCES = {"float32": 1e-5, "float16": 1e-3, "bfloat16": 2e-2}
+JAX_DTYPES = {"float32": jnp.float32, "float16": jnp.float16, "bfloat16": jnp.bfloat16}
+TORCH_DTYPES = {"float32": torch.float32, "float16": torch.float16, "bfloat16": torch.bfloat16}
 SHAPES = [(1, 128), (7, 768), (32, 4096), (300, 256), (5, 531), (2, 3, 256)]
 
 
 @pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_rms_norm_matches_jax(shape, dtype):
     rng = np.random.default_rng(len(shape) * 1000 + shape[-1])
     x = rng.normal(size=shape).astype(np.float32)

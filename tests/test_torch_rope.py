@@ -21,6 +21,7 @@ from conch_tpu_torch.kernels.embedding.rotary_embedding import rotary_embedding_
 from conch_tpu_torch.ops.embedding import rotary_embedding
 from conch_tpu_torch.reference.embedding.rotary_embedding import compute_cos_sin_cache
 from conch_tpu_torch.reference.embedding.rotary_embedding import rotary_embedding as rope_reference
+from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
 TOLERANCES = {"float32": 1e-5, "bfloat16": 2e-2, "float16": 1e-3}
 JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16, "float16": jnp.float16}

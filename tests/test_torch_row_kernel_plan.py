@@ -1,22 +1,22 @@
 # Copyright 2026 Conch-TPU authors.
 # SPDX-License-Identifier: Apache-2.0
 
-"""K5's and K10a's launch plans (``conch_tpu_torch/kernels/embedding/
-rotary_embedding.py:rope_plan``, ``kernels/normalization/gemma_rms_norm.py:
-gemma_norm_plan``), which the wrappers compute from shapes in Python and
-the CUDA kernels follow (``csrc/rotary_embedding.cu``,
-``csrc/gemma_rms_norm.cu``). Each test walks the kernel's thread-to-work
+"""K5's launch plan and the norm plan of K4 and K10a (``conch_tpu_torch/
+kernels/embedding/rotary_embedding.py:rope_plan``, ``kernels/normalization/
+row_norm.py:row_norm_plan``), which the wrappers compute from shapes in
+Python and the CUDA kernels follow (``csrc/rotary_embedding.cu``,
+``csrc/row_norm.cuh``). Each test walks the kernel's thread-to-work
 mapping as the kernel does and checks, at the served shapes (Llama-3-8B's
-QH 32 / KH 8 / D 128 and Gemma-2-2B's 8 / 4 / 256 and hidden 2304 at
-decode and prefill steps), ``chip_smoke.py``'s option cases and small
-ragged ones:
+QH 32 / KH 8 / D 128 and hidden 4096, Gemma-2-2B's 8 / 4 / 256 and hidden
+2304 at decode and prefill steps), ``chip_smoke.py``'s option cases and
+small ragged ones:
 
 - every (token, head, pair) of K5 and every tail element past rot_dim,
-  and every element of every K10a row, is covered exactly once;
+  and every element of every K4 and K10a row, is covered exactly once;
 - the vector path is chosen only when every address it touches is 16-byte
   aligned (bases on 16-byte boundaries, as ``aligned`` says);
-- at 8 tokens K5's grid has at least 64 blocks, and at 8 and 16 Gemma rows
-  no K10a row sits on a single warp;
+- at 8 tokens K5's grid has at least 64 blocks, and at Llama's 8 and 32
+  rows and Gemma's 8 and 16 no norm row sits on a single warp;
 - blocks stay within the kernels' thread limits, and a row shares warps
   only in whole groups of lanes;
 - the plans take shapes only (plain integers): one shape, one plan.
@@ -36,18 +36,18 @@ from conch_tpu_torch.kernels.embedding.rotary_embedding import (
     VECTOR,
     rope_plan,
 )
-from conch_tpu_torch.kernels.normalization.gemma_rms_norm import (
+from conch_tpu_torch.kernels.normalization.row_norm import (
     LOOPED_SCALAR,
     LOOPED_VECTOR,
     MAX_ITEMS,
     MAX_THREADS,
     REGISTER_THREADS,
-    gemma_norm_plan,
+    row_norm_plan,
 )
-from conch_tpu_torch.kernels.normalization.gemma_rms_norm import (
+from conch_tpu_torch.kernels.normalization.row_norm import (
     SCALAR as NORM_SCALAR,
 )
-from conch_tpu_torch.kernels.normalization.gemma_rms_norm import (
+from conch_tpu_torch.kernels.normalization.row_norm import (
     VECTOR as NORM_VECTOR,
 )
 
@@ -153,11 +153,14 @@ def test_rope_plan_spreads_a_decode_step(heads):
         assert plan.grid[0] * plan.grid[1] >= 64
 
 
-# (rows, hidden): Gemma-2-2B's decode and prefill steps, chip_smoke.
-# check_gemma_rms_norm_options' rows and widths (Gemma-2-9B's 3584 and
-# 27B's 4608, JAX's 531, 36872 on the looped path), and small ragged ones.
-NORM_ROWS = [1, 3, 8, 16, 512, 4096]
-NORM_HIDDEN = [128, 531, 2048, 2304, 3072, 3584, 4608, 36872, 3, 9, 300, 1000]
+# (rows, hidden): the decode and prefill steps of Gemma-2-2B (K10a) and
+# Llama-3-8B (K4: 8 and 32 rows, 512), chip_smoke.check_gemma_rms_norm_options'
+# and check_rms_norm_options' rows and widths (Gemma-2-9B's 3584 and 27B's
+# 4608, Llama-2-13B's 5120, 8192 and 16384 past the register path in
+# scalars and in f32 vectors, JAX's 531, 36872 on the looped path), and
+# small ragged ones.
+NORM_ROWS = [1, 3, 8, 16, 32, 131, 133, 512, 540, 4096]
+NORM_HIDDEN = [128, 531, 2048, 2304, 3072, 3584, 4096, 4608, 5120, 8192, 16384, 36872, 3, 9, 300, 1000]
 
 
 def _norm_cover(plan, hidden: int) -> np.ndarray:
@@ -184,7 +187,7 @@ def _norm_cover(plan, hidden: int) -> np.ndarray:
 def test_gemma_norm_plan_covers_every_element_once(hidden, itemsize, layout):
     stride = {"contiguous": hidden, "strided": hidden + 64, "misaligned": hidden + 1}[layout]
     for rows in NORM_ROWS:
-        plan = gemma_norm_plan(rows, hidden, itemsize, stride, True)
+        plan = row_norm_plan(rows, hidden, itemsize, stride, True)
         assert (_norm_cover(plan, hidden) == 1).all(), (rows, plan)
         # Every row in exactly one block's slot.
         assert plan.grid * plan.rows_per_block >= rows > (plan.grid - 1) * plan.rows_per_block
@@ -207,7 +210,7 @@ def test_gemma_norm_vector_path_only_on_aligned_addresses(hidden, itemsize, layo
     tail exists only on a single row."""
     stride = {"contiguous": hidden, "strided": hidden + 64, "misaligned": hidden + 1}[layout]
     for rows, aligned in itertools.product((1, 3, 16), (True, False)):
-        plan = gemma_norm_plan(rows, hidden, itemsize, stride, aligned)
+        plan = row_norm_plan(rows, hidden, itemsize, stride, aligned)
         if plan.vec == 1:
             assert plan.path in (NORM_SCALAR, LOOPED_SCALAR)
             continue
@@ -219,20 +222,32 @@ def test_gemma_norm_vector_path_only_on_aligned_addresses(hidden, itemsize, layo
             assert (row_elems * itemsize % 16 == 0).all()
 
 
-def test_gemma_norm_plan_spreads_a_decode_step():
-    """At Gemma-2-2B's decode steps (8 and 16 rows of 2304, bf16 and f32)
-    no row waits on one warp: several warps share it, two vectors a thread;
-    hidden 3584 and 4608 (Gemma-2-9B, 27B) stay in registers at any row
-    count, and the 512-row prefill chunk too."""
-    for rows in (8, 16):
+def _spreads(hidden: int, steps: tuple[int, ...]) -> None:
+    """At each decode step, bf16 and f32, no row waits on one warp: several
+    warps share it, two vectors a thread, a block a row; hidden 2304 to
+    5120 stay in registers at any row count, the 512-row prefill chunk
+    too."""
+    for rows in steps:
         for itemsize in (2, 4):
-            plan = gemma_norm_plan(rows, 2304, itemsize, 2304, True)
+            plan = row_norm_plan(rows, hidden, itemsize, hidden, True)
             assert plan.path == NORM_VECTOR and plan.threads_per_row > 32 and plan.items <= 2
             assert plan.grid == rows
-    for hidden in (2304, 3584, 4608):
+    for hidden in (2304, 3584, 4096, 4608, 5120):
         for rows in (1, 16, 512, 4096):
-            assert gemma_norm_plan(rows, hidden, 2, hidden, True).path == NORM_VECTOR
-            assert gemma_norm_plan(rows, hidden, 4, hidden, True).path == NORM_VECTOR
+            assert row_norm_plan(rows, hidden, 2, hidden, True).path == NORM_VECTOR
+            assert row_norm_plan(rows, hidden, 4, hidden, True).path == NORM_VECTOR
+
+
+def test_gemma_norm_plan_spreads_a_decode_step():
+    """K10a at Gemma-2-2B's decode steps: 8 and 16 rows of 2304."""
+    _spreads(2304, (8, 16))
+
+
+def test_rms_norm_plan_spreads_a_decode_step():
+    """K4 at Llama-3-8B's decode steps: 8 rows of 4096, and the quantized
+    engines' step padded to 32; a 256-thread block a row."""
+    _spreads(4096, (8, 32))
+    assert row_norm_plan(8, 4096, 2, 4096, True).threads_per_row == 256
 
 
 def test_plans_take_shapes_only():
@@ -240,10 +255,10 @@ def test_plans_take_shapes_only():
         "num_tokens", "num_q_heads", "num_k_heads", "head_size", "rot_dim", "itemsize", "q_row_stride",
         "k_row_stride", "aligned",
     ]
-    assert list(inspect.signature(gemma_norm_plan).parameters) == ["rows", "hidden", "itemsize", "row_stride",
+    assert list(inspect.signature(row_norm_plan).parameters) == ["rows", "hidden", "itemsize", "row_stride",
                                                                     "aligned"]
     args = (8, 32, 8, 128, 128, 2, 6144, 6144, True)
     assert rope_plan(*args) == rope_plan(*args)
-    assert gemma_norm_plan(16, 2304, 2, 2304, True) == gemma_norm_plan(16, 2304, 2, 2304, True)
+    assert row_norm_plan(16, 2304, 2, 2304, True) == row_norm_plan(16, 2304, 2, 2304, True)
     assert rope_plan(0, 32, 8, 128, 128, 2, 6144, 6144, True).grid[0] == 0
-    assert gemma_norm_plan(0, 2304, 2, 2304, True).grid == 0
+    assert row_norm_plan(0, 2304, 2, 2304, True).grid == 0

@@ -29,6 +29,7 @@ from conch_tpu_torch.kernels.quantization.bitsandbytes.blockwise import NF4_CODE
 from conch_tpu_torch.kernels.quantization.gemm import mixed_gemm_rows_launcher
 from conch_tpu_torch.models.linear import QuantizedLinear, quantize_linear
 from conch_tpu_torch.ops.quantization import mixed_precision_gemm
+from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
 JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}

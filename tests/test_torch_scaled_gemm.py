@@ -22,6 +22,7 @@ from conch_tpu.ops.quantization.gemm import scaled_gemm as jax_scaled_gemm
 from conch_tpu_torch.kernels.quantization.gemm import scaled_gemm_launcher
 from conch_tpu_torch.models.linear import QuantizedLinear, quantize_linear
 from conch_tpu_torch.ops.quantization import scaled_gemm
+from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
 MNK_SHAPES = [(1, 256, 512), (16, 512, 256), (33, 384, 640)]
 JAX_OUT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

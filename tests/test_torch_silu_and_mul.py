@@ -19,6 +19,7 @@ import torch
 from conch_tpu.ops.activation import silu_and_mul as jax_silu_and_mul
 from conch_tpu.ops.activation.silu_and_mul import silu_and_mul_parts as jax_silu_and_mul_parts
 from conch_tpu_torch.ops.activation import silu_and_mul, silu_and_mul_parts
+from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
 TOLERANCES = {"float32": 1e-6, "bfloat16": 1e-2}
 JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

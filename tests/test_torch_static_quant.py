@@ -28,6 +28,7 @@ from conch_tpu_torch.ops.quantization import (
     static_scaled_fp8_quant,
     static_scaled_int8_quant,
 )
+from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
 SHAPES = [(1, 128), (16, 4096), (257, 1024), (7, 531)]
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16),

@@ -21,6 +21,7 @@ import torch
 from conch_tpu.ops.attention import varlen_attention as jax_varlen
 from conch_tpu_torch.ops.attention import varlen_attention
 from conch_tpu_torch.reference.attention.attention import varlen_attention as varlen_reference
+from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
 TOLERANCES = {"float32": 2e-3, "bfloat16": 2e-2}
 JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

@@ -22,6 +22,7 @@ import torch
 
 import conch_tpu.ops.vision as jv
 import conch_tpu_torch.ops.vision as tv
+from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
 # PointPillars on KITTI (mmdetection3d pointpillars_hv_secfpn_kitti.py).
 PILLARS = dict(min_range=(0.0, -39.68, -3.0), max_range=(69.12, 39.68, 1.0), voxel_dim=(0.16, 0.16, 4.0),
