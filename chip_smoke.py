@@ -91,17 +91,28 @@
    - K4 rms_norm at 8 and 512 rows x 4096 (and f32, f16 at 512), K4b
      fused_add_rms_norm in bf16 at 8 and 2048 rows x 4096 and in f32 and
      f16 at 2048 (the sum bit for bit, the output at
-     tests/rms_norm_test.py's tolerances), K6 silu_and_mul on fused
-     halves at 8 and 512 rows x 2 * 14336 and on parts;
+     tests/rms_norm_test.py's tolerances), K6 silu_and_mul at 8, 32 (the
+     quantized engines' padded step) and 512 rows x 2 * 14336, fused halves
+     and row-strided parts, f32, f16 and bf16 at tests/activation_test.py's
+     tolerances (bf16 timed at each step, f32 and f16 at 8 rows);
    - K10a gemma_rms_norm at 8, 16 (Gemma-2-2B's decode step) and 512 rows x
      2304 in f32, f16 and bf16, timed beside ``F.rms_norm`` with the weight
-     1 + w; K10b gelu_tanh_and_mul at 8 and 512 rows x 2 * 9216 (halves and
-     parts), f32 and bf16;
-   - K5 and K10a after their served predecessors (``row_kernel_pairs``: K5
-     after Llama-3-8B's fused wqkv through K1 at 32 rows and through
-     ``torch.matmul`` at 8, K10a after Gemma-2-2B's ``o_proj`` matmul at 16
-     and 512 rows): the pair's device time minus the predecessor's, with and
-     without the programmatic-dependent launch;
+     1 + w; K10b gelu_tanh_and_mul as K6, at 8, 16 (Gemma-2-2B's decode
+     step) and 512 rows x 2 * 9216;
+   - K5, K10a, K2, K4, K6 and K10b after their served predecessors
+     (``row_kernel_pairs``: K5 after Llama-3-8B's fused wqkv through K1 at
+     32 rows and through ``torch.matmul`` at 8, K10a after Gemma-2-2B's
+     ``o_proj`` matmul at 16 and 512 rows, K2 after K5, K4 after the
+     residual add, K6 after K1's fused gate|up at 32 rows, K10b after
+     Gemma-2-2B's gate|up matmul at 16): the pair's device time minus the
+     predecessor's, with and without the programmatic-dependent launch;
+   - K6 and K10b over every option they take (``check_gated_act_options``,
+     1470 cases, each with and without the programmatic-dependent launch:
+     f32, bf16 and f16, d 14336, 9216, 10944, 2816, 128, 4096 and 531, 0
+     to 512 rows, fused halves, row-strided and contiguous parts, a base or
+     rows that break 16-byte alignment) at tests/activation_test.py's
+     tolerances and bit for bit against the kernel's own rounding of its
+     f32 activation;
    - K5 over every option it takes (``check_rope_options``, 2304 cases: f32,
      bf16 and f16, heads (32, 8, 128), (8, 4, 256), (4, 1, 128) and (8, 8,
      64), whole, half and D - 28 rot_dims, 0 to 512 tokens, contiguous q/k,
@@ -154,6 +165,10 @@
    and ``loss.backward()`` at BEVFusion's size, NMS over 4096 boxes,
    through ``conch_tpu_torch.ops.vision``, with K13a, K13b and K13c's
    launches read around it;
+   the top-p filter (``check_top_p_filter``) at the int4 engine's 32 x
+   128256 and Gemma-2-2B's 16 x 256000 logits, held to the exact kept set
+   at top_p 1.0, 0.999, 0.9 and 0.5, and ``sample_tokens`` timed beside
+   the parent's f32 top-p pass;
    the QLoRA storage path (``llama3_8b_qlora``): every projection of
    Llama-3-8B's 32 layers and its lm_head (bf16 random weights, one layer
    at a time) through ``quantize_4bit(nf4, 64, compress_statistics=True)``
@@ -570,13 +585,17 @@ def pair_timings(name: str, pred, kernel, launcher) -> dict:
 
 
 def row_kernel_pairs(gen, rng, by_name: dict) -> None:
-    """K5, K10a, K2 and K4 after their served predecessors
+    """K5, K10a, K2, K4, K6 and K10b after their served predecessors
     (``pair_timings``): K5 after Llama-3-8B's fused wqkv through K1 (int4,
     group 128, the engine's 32-row decode step) and through ``torch.matmul``
     (bf16, 8 rows); K10a after Gemma-2-2B's bf16 ``o_proj`` ``torch.matmul``
     at 16 and 512 rows; K2 after K5 at Llama-3-8B's decode step of 8 tokens
     and the padded 32 (8 live); K4 after the residual add at 8 and 32 rows
-    of 4096. The results go into the rows' ``after_predecessor``."""
+    of 4096; K6 after K1's fused gate|up at the 32-row step; K10b after
+    Gemma-2-2B's bf16 gate|up ``torch.matmul`` at 16 rows. The results go
+    into the rows' ``after_predecessor``."""
+    from conch_tpu_torch.kernels.activation.gelu_tanh_and_mul import gelu_tanh_and_mul_launcher as k10b
+    from conch_tpu_torch.kernels.activation.silu_and_mul import silu_and_mul_launcher as k6
     from conch_tpu_torch.kernels.cache.reshape_and_cache import reshape_and_cache_stacked_launcher as k2
     from conch_tpu_torch.kernels.embedding.rotary_embedding import rotary_embedding_launcher as rope
     from conch_tpu_torch.kernels.normalization.gemma_rms_norm import gemma_rms_norm_launcher as norm
@@ -628,6 +647,16 @@ def row_kernel_pairs(gen, rng, by_name: dict) -> None:
         k4_pairs.append(pair_timings(f"K4 after the residual add, {m} rows", lambda h=h, r=r: h + r,
                                      lambda out: k4(out, w4, 1e-5), k4))
     by_name["rms_norm"]["after_predecessor"] = k4_pairs
+    k, n = K1_SHAPES[2]  # the fused gate|up projection
+    packed_gu = torch.randint(-(2**31), 2**31 - 1, (1, k // 8, n), generator=gen, device="cuda", dtype=torch.int32)
+    scales_gu = (torch.rand((1, k // GROUP, n), generator=gen, device="cuda") * 4e-3 + 1e-4).to(torch.bfloat16)
+    x = torch.randn((32, k), generator=gen, device="cuda").to(torch.bfloat16)
+    by_name["silu_and_mul"]["after_predecessor"] = [pair_timings(
+        "K6 after K1 int4 gate|up, 32 rows", lambda: k1(x, packed_gu, scales_gu, GROUP, 8, 0), k6, k6)]
+    w_gu = (0.02 * torch.randn((G_HIDDEN, 2 * G_INTER), generator=gen, device="cuda")).to(torch.bfloat16)
+    xg = torch.randn((16, G_HIDDEN), generator=gen, device="cuda").to(torch.bfloat16)
+    by_name["gelu_tanh_and_mul"]["after_predecessor"] = [pair_timings(
+        "K10b after torch.matmul bf16 gate|up, 16 rows", lambda: torch.matmul(xg, w_gu), k10b, k10b)]
 
 
 # K5's options (check_rope_options): head shapes (Llama-3-8B, Gemma-2-2B,
@@ -1590,42 +1619,60 @@ def kernel_phase_k4(gen) -> dict:
     return row
 
 
-def kernel_phase_k6(gen) -> dict:
-    """K6 on fused halves at 8 and 512 rows x 2*14336, and on parts once;
-    the row has the 8-row halves (decode) numbers."""
-    from conch_tpu_torch.kernels.activation.silu_and_mul import (
-        silu_and_mul_launcher as launch,
-        silu_and_mul_parts_launcher as launch_parts,
-        silu_and_mul_parts_plain as plain_parts,
-        silu_and_mul_plain as plain,
-    )
+# tests/activation_test.py's tolerances (atol and rtol) for K6 and K10b.
+GATED_TOLERANCES = {torch.float32: 1e-6, torch.bfloat16: 1e-2, torch.float16: 1e-3}
+# K6's timed steps: Llama-3-8B's decode step of 8 rows (the row's numbers),
+# the quantized engines' step padded to 32, a 512-row prefill chunk.
+K6_ROWS = (8, 32, 512)
 
-    err, detail = 0.0, []
-    for rows in (8, 512):
-        x = torch.randn((rows, 2 * INTER), generator=gen, device="cuda").to(torch.bfloat16)
-        e = (launch(x).float() - plain(x).float()).abs().max().item()
-        check(f"K6 silu_and_mul halves rows={rows}", e, 1e-2)
-        err = max(err, e)
-        b_ms, b_by = bound(rows * INTER * 3 * 2, 6 * rows * INTER)
-        detail.append({
-            "rows": rows, "max_abs_err": e, "bound_ms": b_ms, "bound_by": b_by,
-            "ms": time_ms(lambda: launch(x)),
-            "paced_ms": paced_ms(lambda: launch(x)),
-            "plain_ms": time_ms(lambda: plain(x)), "library_ms": None,
-        })
-    gate, up = x[:, :INTER], x[:, INTER:]  # row-strided parts of the last input
-    e = (launch_parts(gate, up).float() - plain_parts(gate, up).float()).abs().max().item()
-    check("K6 silu_and_mul parts rows=512", e, 1e-2)
-    err = max(err, e)
-    for d in detail:
-        print(f"K6 halves rows={d['rows']}: {d['ms']:.4f} ms (paced {d['paced_ms']:.4f}, plain {d['plain_ms']:.4f}, "
-              f"bound {d['bound_ms']:.5f} by {d['bound_by']})", flush=True)
-    row = _kernel_row(
-        "silu_and_mul", "conch_tpu_torch/csrc/silu_and_mul.cu", "conch_tpu/kernels/activation/silu_and_mul.py:27",
-        err, detail[0], detail[0]["bound_ms"], detail[0]["bound_by"],
-    )
+
+def gated_act_phase(gen, kernel: str, d: int, timed_rows: tuple[int, ...], gain: float, launchers: tuple) -> list[dict]:
+    """K6 or K10b (``kernel``) at ``timed_rows`` x 2d in f32, f16 and bf16:
+    the fused halves and the row-strided parts of one input (N(0, gain^2))
+    against the plain versions at GATED_TOLERANCES. Every bf16 step is timed
+    beside its bound and plain version, f32 and f16 at the first; no single
+    PyTorch call computes the function, so no library time. Returns the
+    timed steps (``detail``); the first is the row's."""
+    launch, launch_parts, plain, plain_parts = launchers
+    detail = []
+    for rows in timed_rows:
+        for dtype in (torch.float32, torch.float16, torch.bfloat16):
+            tol = GATED_TOLERANCES[dtype]
+            x = (gain * torch.randn((rows, 2 * d), generator=gen, device="cuda")).to(dtype)
+            gate, up = x[:, :d], x[:, d:]
+            err = max(check_close(f"{kernel} halves rows={rows} {dtype}", launch(x), plain(x), tol),
+                      check_close(f"{kernel} parts rows={rows} {dtype}", launch_parts(gate, up),
+                                  plain_parts(gate, up), tol))
+            if dtype == torch.bfloat16 or rows == timed_rows[0]:
+                b_ms, b_by = bound(3 * rows * d * x.element_size(), 10 * rows * d, F32_OPS_PER_S)
+                detail.append({
+                    "rows": rows, "dtype": str(dtype).removeprefix("torch."), "max_abs_err": err, "bound_ms": b_ms,
+                    "bound_by": b_by, "ms": time_ms(lambda: launch(x)), "paced_ms": paced_ms(lambda: launch(x)),
+                    "plain_ms": time_ms(lambda: plain(x)), "library_ms": None,
+                })
+    for t in detail:
+        print(f"{kernel} halves rows={t['rows']} {t['dtype']}: {t['ms']:.4f} ms (paced {t['paced_ms']:.4f}, plain "
+              f"{t['plain_ms']:.4f}, bound {t['bound_ms']:.6f} by {t['bound_by']})", flush=True)
+    return sorted(detail, key=lambda t: (t["dtype"] != "bfloat16", t["rows"]))
+
+
+def _gated_row(name: str, source: str, replaces: str, detail: list[dict]) -> dict:
+    row = _kernel_row(name, source, replaces, max(t["max_abs_err"] for t in detail), detail[0], detail[0]["bound_ms"],
+                      detail[0]["bound_by"])
     row["detail"] = detail
     return row
+
+
+def kernel_phase_k6(gen) -> dict:
+    """K6 (``gated_act_phase``) at K6_ROWS x 2*14336; the row has the 8-row
+    bf16 halves (decode) numbers."""
+    from conch_tpu_torch.kernels.activation import silu_and_mul as k6
+
+    launchers = (k6.silu_and_mul_launcher, k6.silu_and_mul_parts_launcher, k6.silu_and_mul_plain,
+                 k6.silu_and_mul_parts_plain)
+    return _gated_row("silu_and_mul", "conch_tpu_torch/csrc/silu_and_mul.cu",
+                      "conch_tpu/kernels/activation/silu_and_mul.py:27",
+                      gated_act_phase(gen, "K6 silu_and_mul", INTER, K6_ROWS, 3.0, launchers))
 
 
 # Gemma-2-2B (GemmaConfig.gemma2_2b()): hidden 2304, intermediate 9216, 8
@@ -1997,43 +2044,111 @@ def check_cache_write_options(gen, rng) -> None:
     torch.cuda.empty_cache()
 
 
-def kernel_phase_k10b(gen) -> dict:
-    """K10b on fused halves at 8 and 512 rows x 2*9216 in bf16 (timed) and
-    f32, and on row-strided parts; tolerances of tests/activation_test.py:16.
-    The row has the 8-row halves numbers."""
-    from conch_tpu_torch.kernels.activation.gelu_tanh_and_mul import (
-        gelu_tanh_and_mul_launcher as launch,
-        gelu_tanh_and_mul_parts_launcher as launch_parts,
-        gelu_tanh_and_mul_parts_plain as plain_parts,
-        gelu_tanh_and_mul_plain as plain,
-    )
+# K10b's timed steps: the kernel table's 8 rows (the row's numbers),
+# Gemma-2-2B's served decode step (16) and a 512-row prefill chunk.
+K10B_ROWS = (8, 16, 512)
 
-    err, detail = 0.0, []
-    for rows in (8, 512):
-        for dtype, tol in ((torch.float32, 1e-6), (torch.bfloat16, 1e-2)):
-            x = (2.0 * torch.randn((rows, 2 * G_INTER), generator=gen, device="cuda")).to(dtype)
-            err = max(err, check_close(f"K10b gelu_tanh_and_mul halves rows={rows} {dtype}", launch(x), plain(x), tol))
-            gate, up = x[:, :G_INTER], x[:, G_INTER:]  # row-strided parts
-            err = max(err, check_close(
-                f"K10b gelu_tanh_and_mul parts rows={rows} {dtype}", launch_parts(gate, up), plain_parts(gate, up), tol
-            ))
-        b_ms, b_by = bound(rows * G_INTER * 3 * 2, 10 * rows * G_INTER)
-        detail.append({
-            "rows": rows, "bound_ms": b_ms, "bound_by": b_by,
-            "ms": time_ms(lambda: launch(x)),
-            "paced_ms": paced_ms(lambda: launch(x)),
-            "plain_ms": time_ms(lambda: plain(x)), "library_ms": None,
-        })
-    for d in detail:
-        print(f"K10b halves rows={d['rows']}: {d['ms']:.4f} ms (paced {d['paced_ms']:.4f}, plain "
-              f"{d['plain_ms']:.4f}, bound {d['bound_ms']:.5f} by {d['bound_by']})", flush=True)
-    row = _kernel_row(
-        "gelu_tanh_and_mul", "conch_tpu_torch/csrc/gelu_tanh_and_mul.cu",
-        "conch_tpu/kernels/activation/gelu_tanh_and_mul.py:31", err, detail[0], detail[0]["bound_ms"],
-        detail[0]["bound_by"],
-    )
-    row["detail"] = detail
-    return row
+
+def kernel_phase_k10b(gen) -> dict:
+    """K10b (``gated_act_phase``) at K10B_ROWS x 2*9216; the row has the
+    8-row bf16 halves numbers."""
+    from conch_tpu_torch.kernels.activation import gelu_tanh_and_mul as k10b
+
+    launchers = (k10b.gelu_tanh_and_mul_launcher, k10b.gelu_tanh_and_mul_parts_launcher,
+                 k10b.gelu_tanh_and_mul_plain, k10b.gelu_tanh_and_mul_parts_plain)
+    return _gated_row("gelu_tanh_and_mul", "conch_tpu_torch/csrc/gelu_tanh_and_mul.cu",
+                      "conch_tpu/kernels/activation/gelu_tanh_and_mul.py:31",
+                      gated_act_phase(gen, "K10b gelu_tanh_and_mul", G_INTER, K10B_ROWS, 2.0, launchers))
+
+
+# K6's and K10b's options (check_gated_act_options): widths (Llama-3-8B's
+# 14336, Gemma-2-2B's 9216, DeepSeek-V2-Lite's 10944 and 2816, the JAX
+# tests' 128, 4096 and 531), rows, layouts (the fused halves of a (rows,
+# 2d) input; row-strided parts sliced from one; separate contiguous parts;
+# fused halves from a base one element off; fused rows one element longer).
+GATED_OPTION_WIDTHS = (14336, 9216, 10944, 2816, 128, 4096, 531)
+GATED_OPTION_ROWS = (0, 1, 7, 8, 16, 32, 512)
+GATED_OPTION_LAYOUTS = ("halves", "strided parts", "parts", "misaligned base", "misaligned rows")
+
+
+def _gated_option_call(gen, rows: int, d: int, dtype: torch.dtype, layout: str):
+    """The (gate, up) of a layout and a call of a (halves, parts) launcher pair on them."""
+    if layout == "parts":
+        gate, up = (_flat_rows(gen, rows, d, dtype, "contiguous") for _ in range(2))
+        gate *= 3.0
+        return gate, up, lambda halves, parts: parts(gate, up)
+    source = {"halves": "contiguous", "strided parts": "contiguous"}.get(layout, layout)
+    x = _flat_rows(gen, rows, 2 * d, dtype, source)
+    x[:, :d] *= 3.0
+    gate, up = x[:, :d], x[:, d:]
+    if layout == "strided parts":
+        return gate, up, lambda halves, parts: parts(gate, up)
+    return gate, up, lambda halves, parts: halves(x)
+
+
+def check_gated_act_options(gen) -> None:
+    """K6 and K10b over every option they take (GATED_OPTION_*, f32, bf16
+    and f16, each case with and without the programmatic-dependent launch,
+    out's memory filled with NaN before each call) against the plain
+    versions at GATED_TOLERANCES, and bit for bit against the kernel's own
+    rounding: its f32 activation of the gate (an f32 parts call with up 1),
+    rounded to the dtype, times up, rounded. Counts the cases on each path
+    of ``gated_act_plan`` and those equal to the plain version bit for bit."""
+    from conch_tpu_torch.kernels.activation import gelu_tanh_and_mul as k10b, silu_and_mul as k6
+    from conch_tpu_torch.kernels.activation.gated_act import gated_act_plan
+
+    kernels = {
+        "K6": (k6.silu_and_mul_launcher, k6.silu_and_mul_parts_launcher, k6.silu_and_mul_parts_plain),
+        "K10b": (k10b.gelu_tanh_and_mul_launcher, k10b.gelu_tanh_and_mul_parts_launcher,
+                 k10b.gelu_tanh_and_mul_parts_plain),
+    }
+    t0 = time.perf_counter()
+    saved = {fn: fn.pdl for fns in kernels.values() for fn in fns[:2]}
+    failed, paths, cases, exact, err = [], {}, 0, 0, {}
+    try:
+        for (label, (halves, parts, plain)), d, dtype in itertools.product(
+                kernels.items(), GATED_OPTION_WIDTHS, GATED_TOLERANCES):
+            tol = GATED_TOLERANCES[dtype]
+            for rows, layout in itertools.product(GATED_OPTION_ROWS, GATED_OPTION_LAYOUTS):
+                gate, up, call = _gated_option_call(gen, rows, d, dtype, layout)
+                ref = plain(gate, up)
+                act = parts(gate.float().contiguous(), torch.ones((rows, d), device="cuda"))
+                own = (act.to(dtype).float() * up.float()).to(dtype)
+                aligned = all(t.data_ptr() % 16 == 0 for t in (gate, up))
+                plan = gated_act_plan(rows, d, gate.element_size(), gate.stride(0), up.stride(0), aligned)
+                path = f"{plan.vec * gate.element_size()}-byte vectors" if plan.path == 0 else "scalars"
+                for pdl in (False, True):
+                    halves.pdl = parts.pdl = pdl
+                    poison = torch.full((rows, d), float("nan"), dtype=dtype, device="cuda")
+                    del poison
+                    got = call(halves, parts)
+                    name = f"{label} {dtype} d {d} rows {rows} {layout} pdl {pdl}"
+                    cases += 1
+                    paths[path] = paths.get(path, 0) + 1
+                    if got.shape != ref.shape or got.dtype != dtype or not got.is_contiguous():
+                        failed.append(f"{name}: shape {tuple(got.shape)} {got.dtype}")
+                        continue
+                    diff = (got.float() - ref.float()).abs()
+                    e = diff.max().item() if rows else 0.0
+                    err[dtype] = max(err.get(dtype, 0.0), e)
+                    if not bool((diff <= tol + tol * ref.float().abs()).all()):
+                        failed.append(f"{name}: max_abs_err {e:.3e}")
+                    elif not torch.equal(got.view(torch.uint8), own.view(torch.uint8)):
+                        failed.append(f"{name}: not the kernel's own rounding of its f32 activation")
+                    exact += torch.equal(got.view(torch.uint8), ref.contiguous().view(torch.uint8))
+                del gate, up, ref, act, own, got
+    finally:
+        for fn, pdl in saved.items():
+            fn.pdl = pdl
+    torch.cuda.synchronize()
+    counted = ", ".join(f"{k} {v}" for k, v in sorted(paths.items()))
+    print(f"K6 / K10b options: {cases} cases ({counted}), {exact} equal to the plain version bit for bit, in "
+          f"{time.perf_counter() - t0:.1f} s; max_abs_err " + ", ".join(
+              f"{dt} {e:.3e} (tolerance {GATED_TOLERANCES[dt]:.0e} + {GATED_TOLERANCES[dt]:.0e} * |ref|)"
+              for dt, e in err.items()), flush=True)
+    if failed:
+        raise AssertionError(f"K6 / K10b options: {len(failed)} of {cases} cases failed: " + "; ".join(failed[:10]))
+    torch.cuda.empty_cache()
 
 
 def gemma_attention_phases(gen, rng, cache: str | None = None) -> dict[str, list[dict]]:
@@ -3667,6 +3782,7 @@ def kernel_phases() -> list[dict]:
     check_gemma_rms_norm_options(gen)
     check_rms_norm_options(gen)
     check_cache_write_options(gen, rng)
+    check_gated_act_options(gen)
     check_attention_scales(gen)
     quantized_cache_phases(gen, rng, by_name)
     gemm_output_types(gen, by_name)
@@ -4219,12 +4335,15 @@ def profile_run(fn, label: str) -> None:
         last_end = max(last_end, end)
     # The kernels one K1, K1b, K1c or K8 call may launch (the GEMM, the
     # split reduction, K1b's x row-sum pre-pass), and K3's, K7's and K11's
-    # two each (the split walk, the merge).
+    # two each (the split walk, the merge); K6's and K10b's by their own
+    # names or their activation in the shared template's.
     for tag, names in (("K1/K1b/K1c/K8", ("qgemm::", "group_row_sums")), ("K3", ("paged_split", "paged_merge")),
                        ("K7", ("varlen_tile", "varlen_merge", "varlen_rows")), ("K11", ("mla_",)),
                        ("K5", ("rope_kernel",)), ("K10a", ("gemma_rms_norm_kernel", "GemmaNorm")),
                        ("K4", ("::rms_norm_kernel", "LlamaNorm")),
-                       ("K2", ("stacked_write_kernel", "cache_write_kernel"))):
+                       ("K2", ("stacked_write_kernel", "cache_write_kernel")),
+                       ("K6", ("silu_and_mul_kernel", "SiluAct")),
+                       ("K10b", ("gelu_tanh_and_mul_kernel", "GeluTanhAct"))):
         found = {n: t for n, t in by_name.items() if any(key in n for key in names)}
         if found:
             counts = {n: sum(1 for e in kernels if e["name"][:KERNEL_NAME_CHARS] == n) for n in found}
@@ -4232,6 +4351,90 @@ def profile_run(fn, label: str) -> None:
             print(f"{label} profile {tag} kernels: " + "; ".join(
                 f"{n} {t:.1f} ms in {counts[n]} launches ({mine[n]:.1f} ms after the kernel before ended)"
                 for n, t in sorted(found.items(), key=lambda x: -x[1])), flush=True)
+
+
+# The top-p filter on the card (check_top_p_filter): the int4 engine's
+# decode step (32 rows of Llama-3's 128256 tokens) and Gemma-2-2B's (16 of
+# 256000), logits N(0, 3^2), temperature 1, no top-k.
+TOP_P_STEPS = (("llama3_8b int4", 32, 128256), ("gemma2_2b", 16, 256000))
+TOP_PS = (1.0, 0.999, 0.9, 0.5)
+TOP_P_MARGIN = 1e-6
+
+
+def _mass_before(row: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """A row's token order by descending value and each sorted token's exact
+    mass before it: the f64 probability of the tokens with larger values."""
+    order = np.argsort(-row, kind="stable")
+    v = row[order].astype(np.float64)
+    p = np.exp(v - v[0])
+    p /= p.sum()
+    before = np.concatenate([[0.0], np.cumsum(p)[:-1]])
+    return order, before[np.searchsorted(-v, -v, side="left")]
+
+
+def parent_sample_tokens_f32(logits, generator, temperature, top_k, top_p) -> torch.Tensor:
+    """``sample_tokens`` as the port ran it before its top-p pass moved to
+    f64 (softmax and cumulative sum in f32); timed beside it, used nowhere."""
+    batch, vocab = logits.shape
+    greedy = logits.argmax(dim=-1)
+    scaled = logits / temperature.clamp_min(1e-6)[:, None]
+    sorted_desc = scaled.sort(dim=-1, descending=True).values
+    k = torch.where(top_k > 0, top_k, vocab)
+    kth = sorted_desc.gather(-1, (k - 1).clamp(0, vocab - 1)[:, None])
+    scaled = scaled.masked_fill(scaled < kth, float("-inf"))
+    sorted_desc = sorted_desc.masked_fill(sorted_desc < kth, float("-inf"))
+    cumprobs = torch.softmax(sorted_desc, dim=-1).cumsum(dim=-1)
+    cutoff_idx = (cumprobs < top_p[:, None]).sum(dim=-1).clamp(max=vocab - 1)
+    cutoff_val = sorted_desc.gather(-1, cutoff_idx[:, None])
+    scaled = scaled.masked_fill(scaled < cutoff_val, float("-inf"))
+    sampled = torch.multinomial(torch.softmax(scaled, dim=-1), 1, generator=generator)[:, 0]
+    return torch.where(temperature <= 0.0, greedy, sampled).to(torch.int32)
+
+
+def check_top_p_filter(card: str) -> None:
+    """``top_k_top_p_filter`` on the card at TOP_P_STEPS and TOP_PS, held to
+    the kept-set rule of tests/test_torch_sampling.py: a token whose exact
+    mass before it is below top_p - TOP_P_MARGIN is kept, one above top_p +
+    TOP_P_MARGIN dropped, every token kept at 1.0. Prints the kept counts
+    (and the parent's f32 pass's at 1.0) and the device time of one
+    ``sample_tokens`` call as the engine makes it (per-row top_k 0 and top_p
+    1.0 tensors) beside the parent's f32 pass."""
+    from conch_tpu_torch.serving.sampling import sample_tokens, top_k_top_p_filter
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for label, rows, vocab in TOP_P_STEPS:
+        logits = 3.0 * torch.randn((rows, vocab), generator=gen, device="cuda")
+        host = logits.cpu().numpy()
+        sorted_rows = [_mass_before(host[r]) for r in range(rows)]
+        top_k = torch.zeros(rows, dtype=torch.int64, device="cuda")
+        temperature = torch.ones(rows, device="cuda")
+        counts, failed = {}, []
+        for top_p in TOP_PS:
+            top_p_t = torch.full((rows,), top_p, device="cuda")
+            filtered = top_k_top_p_filter(logits, top_k, top_p_t).cpu().numpy()
+            kept_counts = []
+            for r, (order, before) in enumerate(sorted_rows):
+                kept = np.isfinite(filtered[r][order])
+                kept_counts.append(int(kept.sum()))
+                if not kept[before < top_p - TOP_P_MARGIN].all() or kept[before > top_p + TOP_P_MARGIN].any():
+                    failed.append(f"row {r} at top_p {top_p}")
+            if top_p == 1.0 and kept_counts != [vocab] * rows:
+                failed.append(f"top_p 1.0 kept {min(kept_counts)} of {vocab}")
+            counts[top_p] = kept_counts
+        ones = torch.ones(rows, device="cuda")
+        # The parent's f32 pass at 1.0 keeps the tokens up to its cutoff index.
+        cum = torch.softmax(logits.sort(dim=-1, descending=True).values, dim=-1).cumsum(dim=-1)
+        parent_kept = ((cum < 1.0).sum(dim=-1).clamp(max=vocab - 1) + 1).tolist()
+        g, gen_f32 = (torch.Generator(device="cuda").manual_seed(SEED) for _ in range(2))
+        ms = time_ms(lambda: sample_tokens(logits, g, temperature, top_k=top_k, top_p=ones))
+        parent_ms = time_ms(lambda: parent_sample_tokens_f32(logits, gen_f32, temperature, top_k, ones))
+        print(f"top-p filter {label} ({rows} x {vocab}): kept " + "; ".join(
+            f"{tp}: {min(c)} to {max(c)}" for tp, c in counts.items())
+            + f" (the parent's f32 pass at 1.0: {min(parent_kept)} to {max(parent_kept)}); sample_tokens "
+            f"{ms:.4f} ms with the f64 top-p pass, {parent_ms:.4f} ms with the parent's f32 pass, on {card}",
+            flush=True)
+        if failed:
+            raise AssertionError(f"top-p filter {label}: " + "; ".join(failed[:10]))
 
 
 # K1's, K1b's and K1c's templates in a mangled kernel name: layout, bits (K1: group), flag, rows a block.
@@ -4300,6 +4503,7 @@ def main() -> int:
     stream_launches = residual_stream_path(card)
     tp8_launches, tp8_timings = tp8_collectives_path(card)
     next(r for r in rows if r["name"] == "ring_all_gather")["collective_matmuls"] = tp8_timings
+    check_top_p_filter(card)
     check_prefill_logits()
     check_deepseek_logits()
 

@@ -6,69 +6,25 @@
 // Replaces conch_tpu/kernels/activation/silu_and_mul.py:_silu_and_mul_kernel,
 // in both of its call forms: the fused halves of one (T, 2d) [gate|up] row
 // (_fused_halves_launcher) and two separate (T, d) parts
-// (silu_and_mul_parts_launcher). silu is computed in f32 and rounded to the
-// dtype before the multiply by up in that dtype, as the TPU kernel does.
-// Bound on the H100: bytes (gate and up read once, out written once).
-// Design: one kernel takes a gate pointer and an up pointer, each with its
-// own row stride; the halves form passes the same row twice (up = gate + d),
-// so the (T, 2d) input is read in place with no slice copies. A 2-D grid
-// (column blocks x rows) keeps the card busy at decode's few rows.
+// (silu_and_mul_parts_launcher). silu(g) = g / (1 + exp(-g)) is computed in
+// f32 and rounded to the dtype (f32, bf16 or f16) before the multiply by
+// up, as the TPU kernel does. The kernel is csrc/gated_act.cuh's, shared
+// with K10b; its design and bound are there.
 
-#include "common.cuh"
-
-namespace conch {
-namespace {
-
-constexpr int kThreads = 256;
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    silu_and_mul_kernel(const T* __restrict__ gate, const T* __restrict__ up, T* __restrict__ out, int d,
-                        int64_t gate_row_stride, int64_t up_row_stride) {
-  const int col = blockIdx.x * kThreads + threadIdx.x;
-  if (col >= d) return;
-  const int64_t row = blockIdx.y;
-  const float gv = to_float(gate[row * gate_row_stride + col]);
-  const T silu = from_float<T>(gv / (1.0f + expf(-gv)));
-  out[row * d + col] = from_float<T>(to_float(silu) * to_float(up[row * up_row_stride + col]));
-}
-
-template <typename T>
-void launch(const void* gate, const void* up, void* out, int rows, int d, int64_t gate_row_stride,
-            int64_t up_row_stride, cudaStream_t stream) {
-  const dim3 grid((d + kThreads - 1) / kThreads, rows);
-  silu_and_mul_kernel<T><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(gate), static_cast<const T*>(up),
-                                                        static_cast<T*>(out), d, gate_row_stride, up_row_stride);
-}
-
-int dispatch(const void* gate, const void* up, void* out, int rows, int d, int64_t gate_row_stride,
-             int64_t up_row_stride, int dtype, cudaStream_t stream) {
-  if (rows == 0 || d == 0) return static_cast<int>(cudaSuccess);
-  if (dtype == kBFloat16) {
-    launch<__nv_bfloat16>(gate, up, out, rows, d, gate_row_stride, up_row_stride, stream);
-  } else if (dtype == kFloat32) {
-    launch<float>(gate, up, out, rows, d, gate_row_stride, up_row_stride, stream);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-}  // namespace conch
+#include "gated_act.cuh"
 
 // x (rows, 2d) with row stride x_row_stride: gate = x[:, :d], up = x[:, d:];
-// out (rows, d) contiguous.
+// out (rows, d) contiguous. The plan's arguments: csrc/gated_act.cuh's gated_act.
 extern "C" int conch_silu_and_mul(const void* x, void* out, int rows, int d, int64_t x_row_stride, int dtype,
-                                  void* stream) {
-  const size_t elem = dtype == conch::kBFloat16 ? sizeof(__nv_bfloat16) : sizeof(float);
-  const void* up = static_cast<const char*>(x) + static_cast<size_t>(d) * elem;
-  return conch::dispatch(x, up, out, rows, d, x_row_stride, x_row_stride, dtype, static_cast<cudaStream_t>(stream));
+                                  int vec, int threads, int items, int grid, int pdl, void* stream) {
+  return conch::gated_act_halves<conch::SiluAct>(x, out, rows, d, x_row_stride, dtype, vec, threads, items, grid,
+                                                 pdl, stream);
 }
 
 // gate and up (rows, d) with their own row strides; out (rows, d) contiguous.
 extern "C" int conch_silu_and_mul_parts(const void* gate, const void* up, void* out, int rows, int d,
-                                        int64_t gate_row_stride, int64_t up_row_stride, int dtype, void* stream) {
-  return conch::dispatch(gate, up, out, rows, d, gate_row_stride, up_row_stride, dtype,
-                         static_cast<cudaStream_t>(stream));
+                                        int64_t gate_row_stride, int64_t up_row_stride, int dtype, int vec,
+                                        int threads, int items, int grid, int pdl, void* stream) {
+  return conch::gated_act<conch::SiluAct>(gate, up, out, rows, d, gate_row_stride, up_row_stride, dtype, vec,
+                                          threads, items, grid, pdl, stream);
 }

@@ -35,8 +35,8 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas"
 
 # dtype codes understood by the C entry points (csrc/common.cuh: DType).
 # DTYPE_CODES: the float types; most kernels take COMPUTE_DTYPES (f32 and
-# bf16), K4, K4b, K12q and K12d FLOAT_DTYPES (f16 too). STORAGE_CODES adds
-# the int8 / e4m3 elements of quantized KV caches.
+# bf16), K4, K4b, K5, K10a, K6, K10b, K12q and K12d FLOAT_DTYPES (f16
+# too). STORAGE_CODES adds the int8 / e4m3 elements of quantized KV caches.
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 FLOAT_DTYPES = (*COMPUTE_DTYPES, torch.float16)

@@ -1,9 +1,9 @@
 # Copyright 2026 Conch-TPU authors.
 # SPDX-License-Identifier: Apache-2.0
 
-"""Time K1, K2, K3, K4, K5, K7, K8, K10a, K11 and K12q of two checkouts on one card, in turns.
+"""Time K1, K2, K3, K4, K5, K6, K7, K8, K10a, K10b, K11 and K12q of two checkouts on one card, in turns.
 
-    python3 -m conch_tpu_torch.tools.parent_compare --parent DIR [--kernels K4 K2 ...] [--serve]
+    python3 -m conch_tpu_torch.tools.parent_compare --parent DIR [--kernels K6 K10b ...] [--serve]
 
 Run from the checkout's root on one Hopper card, with ``DIR`` another
 checkout of the repository (for instance ``git archive`` of the parent
@@ -47,13 +47,22 @@ launchers only, which both packages share:
   ``chip_smoke.K2_STEPS`` (8 tokens, one idle; 32 with 8 live) of
   Llama-3-8B into bf16, int8 and e4m3 pools and at Gemma-2-2B's 8 tokens,
   k and v slices of a fused qkv block (``chip_smoke.k2_step``); then both
-  after their served predecessors (``row_kernel_pairs``, as K5 and K10a).
+  after their served predecessors (``row_kernel_pairs``, as K5 and K10a);
+- K6 (``silu_and_mul_launcher``) at Llama-3-8B's d 14336 and K10b
+  (``gelu_tanh_and_mul_launcher``) at Gemma-2-2B's 9216, bf16 fused halves
+  at ``chip_smoke.K6_ROWS`` and ``K10B_ROWS`` (8 / 32 / 512 and 8 / 16 /
+  512 rows), then after their served predecessors (``row_kernel_pairs``).
+  Their outputs in f32 and bf16 (fused halves, row-strided parts, and
+  fused rows one element longer, which take the scalar path) at those
+  steps are hashed in every run: the tool fails unless the two packages'
+  outputs are equal bit for bit.
 
-``--kernels`` times only the named ones (K1 K2 K3 K4 K5 K7 K8 K10a K11 K12q).
+``--kernels`` times only the named ones (K1 K2 K3 K4 K5 K6 K7 K8 K10a K10b
+K11 K12q).
 ``--serve`` also serves Gemma-2-2B and the int4 Llama-3-8B engine with each
 package, as ``chip_smoke.py``'s ``serve`` does (launches checked per model
 step, then a profiled repeat), and prints each run's served and profile
-lines (device time by kernel, K5's and K10a's among them); a package whose
+lines (device time by kernel, K5's, K6's, K10a's and K10b's among them); a package whose
 K5 and K10a launch as programmatic dependents also serves Gemma-2-2B with
 that launch off. The profile lines give K2's, K4's, K5's and K10a's
 device time and launches.
@@ -80,7 +89,7 @@ REPO_ROOT = PACKAGE_DIR.parent
 
 # Run in a subprocess with one package first on the path; prints one JSON line.
 RUN = r'''
-import json, itertools, sys
+import hashlib, json, itertools, sys
 import numpy as np, torch
 import chip_smoke as cs
 import conch_tpu_torch
@@ -95,14 +104,17 @@ from conch_tpu_torch.kernels.attention.mla_attention import mla_attention_launch
 from conch_tpu_torch.kernels.quantization.bitsandbytes.blockwise import quantize4_launcher as k12q
 from conch_tpu_torch.kernels.cache.reshape_and_cache import reshape_and_cache_stacked_launcher as k2
 from conch_tpu_torch.kernels.normalization.rms_norm import rms_norm_launcher as k4
+from conch_tpu_torch.kernels.activation import gelu_tanh_and_mul as k10b_module, silu_and_mul as k6_module
 from conch_tpu_torch.reference.embedding.rotary_embedding import compute_cos_sin_cache
+
+k6, k10b = k6_module.silu_and_mul_launcher, k10b_module.gelu_tanh_and_mul_launcher
 
 want = set(sys.argv[1:])
 has_pdl = hasattr(k5, "pdl")
 kernel_library()
 gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
 rng = np.random.default_rng(cs.SEED)
-times = {}
+times, digests = {}, {}
 if "K1" in want:
     for group in (128, 64):
         sums = {m: 0.0 for m in cs.GEMM_MS}
@@ -183,8 +195,23 @@ if "K2" in want:
             del kc, vc
             torch.cuda.empty_cache()
 
-if want & {"K5", "K10a", "K4", "K2"}:
-    for fn in (k5, k10a, k4, k2):
+for label, fn, parts, d, steps in (
+        ("K6", k6, k6_module.silu_and_mul_parts_launcher, cs.INTER, cs.K6_ROWS),
+        ("K10b", k10b, k10b_module.gelu_tanh_and_mul_parts_launcher, cs.G_INTER, cs.K10B_ROWS)):
+    if label not in want:
+        continue
+    for rows, dtype in itertools.product(steps, (torch.float32, torch.bfloat16)):
+        x = (3.0 * torch.randn((rows, 2 * d + 1), generator=gen, device="cuda")).to(dtype)
+        halves = x[:, : 2 * d].contiguous()
+        for form, out in (("halves", fn(halves)), ("parts", parts(halves[:, :d], halves[:, d:])),
+                          ("misaligned rows", fn(x[:, : 2 * d]))):
+            digests[f"{label} rows={rows} {dtype} {form}"] = hashlib.sha256(
+                out.view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+        if dtype == torch.bfloat16:
+            times[f"{label} rows={rows}"] = cs.time_ms(lambda: fn(halves))
+
+if want & {"K5", "K10a", "K4", "K2", "K6", "K10b"}:
+    for fn in (k5, k10a, k4, k2, k6, k10b):
         fn.pdl = getattr(fn, "pdl", False)  # a package without the attribute launches one way
     for label, (qh, kh, d, theta) in (("llama3_8b", (cs.QH, cs.KH, cs.D, 500000.0)),
                                       ("gemma2_2b", (cs.G_QH, cs.G_KH, cs.G_D, 10000.0))):
@@ -198,7 +225,8 @@ if want & {"K5", "K10a", "K4", "K2"}:
     for rows in (8, 16, 32, 512):
         x = torch.randn((rows, cs.G_HIDDEN), generator=gen, device="cuda").to(torch.bfloat16)
         times[f"K10a rows={rows}"] = cs.time_ms(lambda: k10a(x, w, 1e-6))
-    by_name = {"rotary_embedding": {}, "gemma_rms_norm": {}, "reshape_and_cache_stacked": {}, "rms_norm": {}}
+    by_name = {"rotary_embedding": {}, "gemma_rms_norm": {}, "reshape_and_cache_stacked": {}, "rms_norm": {},
+               "silu_and_mul": {}, "gelu_tanh_and_mul": {}}
     cs.row_kernel_pairs(gen, rng, by_name)
     for row in by_name.values():
         for pair in row["after_predecessor"]:
@@ -226,9 +254,9 @@ if "serve" in want:
     cs.serve(card, "int4", LlamaConfig.llama3_8b(),
              lambda cfg: init_llama_params(cs.SEED, cfg, quant_mode="int4", device="cuda"), {},
              {"num_pages": 4096, "max_batch_size": 32}, cs.int4_prompts, cs.LLAMA_KERNELS, cs.LLAMA_PER_STEP)
-print("TIMES " + json.dumps({"package": conch_tpu_torch.__file__, "times": times}), flush=True)
+print("TIMES " + json.dumps({"package": conch_tpu_torch.__file__, "times": times, "digests": digests}), flush=True)
 '''
-KERNELS = ("K1", "K2", "K3", "K4", "K5", "K7", "K8", "K10a", "K11", "K12q")
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K10a", "K10b", "K11", "K12q")
 # The lines of a run's output that the tool prints with --serve.
 SERVE_LINES = ("served ", "profile", "launches per model step")
 
@@ -277,7 +305,11 @@ def main() -> int:
               f"{mean['change'] / mean['parent']:.3f}", flush=True)
     print(json.dumps({"runs": runs}), flush=True)
     shutil.rmtree(BUILD_DIR / "compare", ignore_errors=True)
-    return 0
+    differ = sorted(case for case in runs[0]["digests"] if len({r["digests"][case] for r in runs}) != 1)
+    if runs[0]["digests"]:
+        print(f"outputs of the two packages: {len(runs[0]['digests'])} cases, "
+              + (f"{len(differ)} differ: {', '.join(differ)}" if differ else "all equal bit for bit"), flush=True)
+    return 1 if differ else 0
 
 
 if __name__ == "__main__":

@@ -2,7 +2,8 @@
 # SPDX-License-Identifier: Apache-2.0
 
 """Show that the card checks of K5 (RoPE), K10a (Gemma RMS norm), K4 (RMS
-norm) and K2 (the stacked KV-cache write) can fail.
+norm), K2 (the stacked KV-cache write) and K6 / K10b (the gated
+activations) can fail.
 
     python3 -m conch_tpu_torch.tools.row_mutants [NAME ...]
 
@@ -13,9 +14,11 @@ sources under ``csrc/`` (so each copy builds in seconds), puts the fault
 into the copy, and runs the fault's option sweep of ``chip_smoke.py`` on
 the copy in a subprocess: ``check_rope_options`` (K5 over 2304 cases),
 ``check_gemma_rms_norm_options`` (K10a over 672 cases),
-``check_rms_norm_options`` (K4 over 756 cases, bit for bit) or
-``check_cache_write_options`` (K2 over 1344 cases, byte for byte), each
-against the kernel's plain version. The unchanged copy must pass the
+``check_rms_norm_options`` (K4 over 756 cases, bit for bit),
+``check_cache_write_options`` (K2 over 1344 cases, byte for byte) or
+``check_gated_act_options`` (K6 and K10b over 1470 cases each way, within
+JAX's tolerances and bit for bit against the kernel's own rounding of its
+f32 activation), each against the kernel's plain version. The unchanged copy must pass the
 sweeps first,
 and every faulty copy must fail its sweep: a check's AssertionError, or,
 for the vector path on a misaligned row, the card's misaligned-address
@@ -40,7 +43,15 @@ result lines and exits non-zero otherwise. The faults:
 - ``k2_idle_rows_written``: K2 drops the idle check, so a slot of -1 writes
   entry -1 of page 0;
 - ``k2_int8_round_toward_zero``: K2's int8 store truncates instead of
-  rounding half to even.
+  rounding half to even;
+- ``gated_act_not_rounded``: K6 and K10b multiply the f32 activation by up
+  without first rounding it to the dtype;
+- ``gated_act_last_vector_skipped``: K6 and K10b store no row's last
+  unit (vector, or element on the scalar path);
+- ``gated_act_up_from_gate_half``: the fused entry points read up from the
+  gate's half (up = x, not x + d);
+- ``gated_act_gate_stride_ignored``: K6 and K10b take gate's row stride as
+  d, whatever the call passes.
 """
 
 from __future__ import annotations
@@ -52,9 +63,13 @@ from conch_tpu_torch.tools.attention_mutants import BUILD_DIR, PACKAGE_DIR, copy
 
 ROPE, NORM = "check_rope_options", "check_gemma_rms_norm_options"
 LLAMA_NORM, CACHE = "check_rms_norm_options", "check_cache_write_options"
+GATED = "check_gated_act_options"
 RNG = "np.random.default_rng(chip_smoke.SEED)"
-PHASE_ARGS = {ROPE: f"gen, {RNG}", NORM: "gen", LLAMA_NORM: "gen", CACHE: f"gen, {RNG}"}
-ROW_SOURCES = ("rotary_embedding.cu", "gemma_rms_norm.cu", "rms_norm.cu", "reshape_and_cache.cu")
+PHASE_ARGS = {ROPE: f"gen, {RNG}", NORM: "gen", LLAMA_NORM: "gen", CACHE: f"gen, {RNG}", GATED: "gen"}
+ROW_SOURCES = (
+    "rotary_embedding.cu", "gemma_rms_norm.cu", "rms_norm.cu", "reshape_and_cache.cu", "silu_and_mul.cu",
+    "gelu_tanh_and_mul.cu",
+)
 K4_SUM_F64 = """  using Acc = double;
   static __device__ __forceinline__ void add(double& sq, float f) { sq += static_cast<double>(f * f); }
   static __device__ __forceinline__ float inv(double total, int hidden, float eps) {
@@ -90,6 +105,22 @@ MUTANTS = {
     ),
     "k2_idle_rows_written": ("csrc/reshape_and_cache.cu", "if (slot < 0) return;", "", CACHE),
     "k2_int8_round_toward_zero": ("csrc/reshape_and_cache.cu", "fmaxf(rintf(x)", "fmaxf(truncf(x)", CACHE),
+    "gated_act_not_rounded": (
+        "csrc/gated_act.cuh", "return to_float(from_float<T>(Act::apply(g))) * u;", "return Act::apply(g) * u;",
+        GATED,
+    ),
+    "gated_act_last_vector_skipped": (
+        "csrc/gated_act.cuh", "reinterpret_cast<C*>(p.out)[unit] = narrow<T, V>(gf);",
+        "if ((unit + 1) % p.row_units != 0) reinterpret_cast<C*>(p.out)[unit] = narrow<T, V>(gf);", GATED,
+    ),
+    "gated_act_up_from_gate_half": (
+        "csrc/gated_act.cuh", "const void* up = static_cast<const char*>(x) + static_cast<size_t>(d) * elem;",
+        "const void* up = x;", GATED,
+    ),
+    "gated_act_gate_stride_ignored": (
+        "csrc/gated_act.cuh", "static_cast<const T*>(p.gate) + row * p.gate_row_stride + col",
+        "static_cast<const T*>(p.gate) + row * static_cast<int64_t>(p.row_units) * V + col", GATED,
+    ),
 }
 
 

@@ -1,8 +1,9 @@
 # Copyright 2026 Conch-TPU authors.
 # SPDX-License-Identifier: Apache-2.0
 
-"""Time K5 (RoPE), K10a (Gemma RMS norm), K4 (RMS norm) and K2 (the
-stacked KV-cache write) at other launch plans than their plans pick.
+"""Time K5 (RoPE), K10a (Gemma RMS norm), K4 (RMS norm), K2 (the stacked
+KV-cache write), K6 and K10b (the gated activations) at other launch plans
+than their plans pick.
 
     python3 -m conch_tpu_torch.tools.row_plan_sweep
 
@@ -21,6 +22,25 @@ the residual add; K2: K5), the pair's time minus the predecessor's,
 PAIR_ITERS launches each, with the programmatic-dependent launch. The
 plan's own choice is the line marked "plan". Prints one line per case and
 a JSON line.
+
+    python3 -m conch_tpu_torch.tools.row_plan_sweep --gated
+
+times only K6 (Llama-3-8B's d 14336 at 8, 32 and 512 rows) and K10b
+(Gemma-2-2B's 9216 at 8, 16 and 512), bf16 fused halves, at forced
+``gated_act_plan`` plans (units of 16 or 8 bytes; the decode steps at 64
+to 256 threads a block, one unit a thread; 512 rows at 1 to 4 units a
+thread, 256 threads, no grid cap), back to back and after a bf16
+``torch.matmul`` gate|up projection, with the programmatic-dependent
+launch.
+
+    python3 -m conch_tpu_torch.tools.row_plan_sweep --gated-diagnostics
+
+times K6 (14336) at 8 and 32 rows and K10b (9216) at 8 and 16, bf16 and
+f32 fused halves, back to back with and without the programmatic-dependent
+launch, in copies of the package built as ``--diagnostics`` builds them:
+the kernels as they are, with the activation's division by 1 + exp(-g)
+replaced by a product, and with no activation (out = g * u); the last two
+are wrong by design, diagnostics of time only.
 
     python3 -m conch_tpu_torch.tools.row_plan_sweep --diagnostics [--parent DIR]
 
@@ -43,6 +63,7 @@ its weights.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import shutil
 import sys
@@ -52,6 +73,9 @@ import numpy as np
 import torch
 
 import chip_smoke as cs
+from conch_tpu_torch.kernels.activation import gated_act as gated_module
+from conch_tpu_torch.kernels.activation.gelu_tanh_and_mul import gelu_tanh_and_mul_launcher
+from conch_tpu_torch.kernels.activation.silu_and_mul import silu_and_mul_launcher
 from conch_tpu_torch.kernels.cache import reshape_and_cache as cache_module
 from conch_tpu_torch.kernels.common import cdiv
 from conch_tpu_torch.kernels.embedding import rotary_embedding as rope_module
@@ -68,6 +92,10 @@ NORM_THREADS_A_ROW = (96, 160, 288)
 K4_ROWS = (8, 32, 512)
 K4_THREADS_A_ROW = (128, 256, 512)
 K2_ROWS_A_BLOCK = (1, 2, 4, 8)
+GATED_SHAPES = {"K6": (cs.HIDDEN, cs.INTER, cs.K6_ROWS), "K10b": (cs.G_HIDDEN, cs.G_INTER, cs.K10B_ROWS)}
+GATED_VECTORS = (8, 4)  # bf16 elements a unit: 16 or 8 bytes
+GATED_DECODE_THREADS = (64, 128, 256)
+GATED_PREFILL_ITEMS = (1, 2, 4)
 
 
 def timed(kernel, pred) -> dict:
@@ -152,12 +180,37 @@ print("DIAG " + json.dumps(times), flush=True)
 '''
 
 
-def diagnostics() -> int:
-    """The copies of K10a and K4 (DIAGNOSTICS), each built and timed in a subprocess."""
+GATED_DIAGNOSTICS = {
+    "as is": None,
+    "no division": ("csrc/gated_act.cuh", "return g / (1.0f + expf(-g));", "return g * (1.0f + expf(-g));"),
+    "no activation": (
+        "csrc/gated_act.cuh", "return to_float(from_float<T>(Act::apply(g))) * u;", "return g * u;",
+    ),
+}
+GATED_DIAGNOSTIC_RUN = r'''
+import json, torch, chip_smoke as cs
+from conch_tpu_torch.kernels.activation.gelu_tanh_and_mul import gelu_tanh_and_mul_launcher as k10b
+from conch_tpu_torch.kernels.activation.silu_and_mul import silu_and_mul_launcher as k6
+cs.build()
+gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+times = {}
+for name, launch, d, all_rows in (("K6", k6, cs.INTER, (8, 32)), ("K10b", k10b, cs.G_INTER, (8, 16))):
+    for rows, dtype in ((r, t) for r in all_rows for t in (torch.bfloat16, torch.float32)):
+        x = torch.randn((rows, 2 * d), generator=gen, device="cuda").to(dtype)
+        for pdl in (False, True):
+            launch.pdl = pdl
+            times[f"{name} rows={rows} {dtype} pdl {pdl}"] = cs.time_ms(lambda: launch(x), iters=cs.PAIR_ITERS)
+print("DIAG " + json.dumps(times), flush=True)
+'''
+
+
+def diagnostics(changes: dict = DIAGNOSTICS, script: str = DIAGNOSTIC_RUN) -> int:
+    """The copies of K10a and K4 (DIAGNOSTICS), or K6 and K10b
+    (GATED_DIAGNOSTICS), each built and timed in a subprocess."""
     from conch_tpu_torch.tools.attention_mutants import BUILD_DIR, PACKAGE_DIR, run_phases
     from conch_tpu_torch.tools.row_mutants import ROW_SOURCES, copy_rows
 
-    roots = {name: copy_rows(name.replace(" ", "_"), change) for name, change in DIAGNOSTICS.items()}
+    roots = {name: copy_rows(name.replace(" ", "_"), change) for name, change in changes.items()}
     if "--parent" in sys.argv:
         parent = roots["parent"] = BUILD_DIR / "mutants" / "parent"
         shutil.rmtree(parent, ignore_errors=True)
@@ -168,7 +221,7 @@ def diagnostics() -> int:
                 cu.unlink()
     results = {}
     for name, root in roots.items():
-        code, out = run_phases(root, DIAGNOSTIC_RUN)
+        code, out = run_phases(root, script)
         line = next((ln for ln in out.splitlines() if ln.startswith("DIAG ")), None)
         if code != 0 or line is None:
             print(f"{name}: exit code {code}\n{out[-3000:]}", flush=True)
@@ -229,9 +282,44 @@ def cache_rows_a_block(gen, rng, rope) -> list[dict]:
     return results
 
 
+def gated_plans(gen) -> list[dict]:
+    """K6 and K10b (GATED_SHAPES) at forced plans (GATED_VECTORS elements a
+    unit; at decode steps GATED_DECODE_THREADS a block, one unit a thread;
+    at 512 rows GATED_PREFILL_ITEMS a thread in blocks of 256), timed by
+    ``timed`` after the bf16 gate|up matmul that feeds them."""
+    launchers = {"K6": silu_and_mul_launcher, "K10b": gelu_tanh_and_mul_launcher}
+    results = []
+    for kernel, (hidden, d, all_rows) in GATED_SHAPES.items():
+        launch = launchers[kernel]
+        w = (0.02 * torch.randn((hidden, 2 * d), generator=gen, device="cuda")).to(torch.bfloat16)
+        for rows in all_rows:
+            x = torch.randn((rows, hidden), generator=gen, device="cuda").to(torch.bfloat16)
+            plan = gated_module.gated_act_plan(rows, d, 2, 2 * d, 2 * d, True)
+            forced = itertools.product(GATED_VECTORS, GATED_DECODE_THREADS if rows < 512 else (256,),
+                                       (1,) if rows < 512 else GATED_PREFILL_ITEMS)
+            for vec, threads, items in forced:
+                original = with_plan(gated_module, "gated_act_plan", lambda p, v=vec, t=threads, i=items: (
+                    dataclasses.replace(p, vec=v, threads=t, items=i, grid=cdiv(rows * d // v, t * i))))
+                try:
+                    t = timed(launch, lambda x=x: torch.matmul(x, w))
+                finally:
+                    gated_module.gated_act_plan = original
+                mark = " plan" if (vec, threads, items) == (plan.vec, plan.threads, plan.items) else ""
+                results.append({"kernel": kernel, "rows": rows, "vec": vec, "threads": threads, "items": items, **t})
+                print(f"{kernel} rows={rows} vec {vec} threads {threads} items {items}{mark}: alone "
+                      f"{t['alone_ms']:.4f} ms, after the matmul {t['after_pred_ms']:.4f} ms", flush=True)
+    return results
+
+
 def main() -> int:
     if "--diagnostics" in sys.argv[1:]:
         return diagnostics()
+    if "--gated-diagnostics" in sys.argv[1:]:
+        return diagnostics(GATED_DIAGNOSTICS, GATED_DIAGNOSTIC_RUN)
+    if "--gated" in sys.argv[1:]:
+        gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+        print(json.dumps({"card": cs.card_line(), "results": gated_plans(gen)}), flush=True)
+        return 0
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
     rng = np.random.default_rng(cs.SEED)
     rope, norm = rope_module.rotary_embedding_launcher, gemma_rms_norm_launcher
@@ -268,6 +356,7 @@ def main() -> int:
         results += norm_threads("K4", rows, cs.HIDDEN, K4_THREADS_A_ROW, lambda out: rms_norm_launcher(out, w4, 1e-5),
                                 lambda h=h, r=r: h + r, "the residual add")
     results += cache_rows_a_block(gen, rng, rope)
+    results += gated_plans(gen)
     print(json.dumps({"card": cs.card_line(), "results": results}), flush=True)
     return 0
 

@@ -24,14 +24,14 @@ from conch_tpu_torch.kernels.activation.gelu_tanh_and_mul import (
 from conch_tpu_torch.ops.activation import gelu_tanh_and_mul, gelu_tanh_and_mul_parts
 from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
-TOLERANCES = {"float32": 1e-6, "bfloat16": 1e-2}
-JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
-TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+TOLERANCES = {"float32": 1e-6, "bfloat16": 1e-2, "float16": 1e-3}
+JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16, "float16": jnp.float16}
+TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 SHAPES = [(1, 512), (17, 600), (130, 2048)]
 
 
 @pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("form", ["halves", "parts"])
 def test_gelu_tanh_and_mul_matches_jax(shape, dtype, form):
     rng = np.random.default_rng(shape[0] * 100 + shape[1])

@@ -21,9 +21,9 @@ from conch_tpu.ops.activation.silu_and_mul import silu_and_mul_parts as jax_silu
 from conch_tpu_torch.ops.activation import silu_and_mul, silu_and_mul_parts
 from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
-TOLERANCES = {"float32": 1e-6, "bfloat16": 1e-2}
-JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
-TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+TOLERANCES = {"float32": 1e-6, "bfloat16": 1e-2, "float16": 1e-3}
+JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16, "float16": jnp.float16}
+TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 SHAPES = [(1, 256), (17, 2048), (300, 512), (4, 1062), (2, 3, 256)]
 
 
@@ -34,7 +34,7 @@ def _check(out: torch.Tensor, ref, dtype: str) -> None:
 
 
 @pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_silu_and_mul_halves_match_jax(shape, dtype):
     x = np.random.default_rng(shape[-1]).normal(size=shape).astype(np.float32) * 3
     ref = jax_silu_and_mul(jnp.asarray(x, JAX_DTYPES[dtype]))
@@ -44,7 +44,7 @@ def test_silu_and_mul_halves_match_jax(shape, dtype):
 
 
 @pytest.mark.parametrize("rows,d", [(1, 128), (300, 256), (4, 531)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_silu_and_mul_parts_match_jax(rows, d, dtype):
     rng = np.random.default_rng(rows + d)
     gate = rng.normal(size=(rows, d)).astype(np.float32) * 3
