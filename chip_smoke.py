@@ -144,6 +144,15 @@
      |ref|), bf16 / f16 at one rounding step x |ref|, K13b bit for bit;
      K13c NMS keep mask at 4096 boxes, IoU 0.5, tied scores, and at N 1,
      513, identical boxes and a lattice of touching boxes, bit for bit;
+     then ``check_nms_options`` (K13c at N 1 to 20000 and IoU 0.3,
+     0.5, 0.7, the lattice, identical boxes across words, and 40000 boxes,
+     whose bands stream through shared memory in chunks; the keep buffer
+     filled with 7 first) and ``check_bev_backward_options`` (K13b in f32,
+     bf16 and f16 at vector widths 1 to 8 by channels and by misaligned
+     grad bases, on intervals with every trap of its search: zero-length
+     intervals sharing a start, negative starts, starts at and past the
+     last point, a dropped interval inside a cell's run, gaps; the output
+     NaN-filled first), both bit for bit against the plain versions;
    - K14 ring all-gather on rings of 1, 2, 4 and 8 virtual ranks on the
      card (every rank's buffers its own), both launch modes (one
      cooperative launch; one launch per rank on its own stream), f32, bf16
@@ -3172,6 +3181,161 @@ def kernel_phases_vision(gen, rng) -> list[dict]:
     return rows
 
 
+# K13c's sweep (check_nms_options): box counts across the word edges, a
+# few words, the served 4096, 20000 (bands streamed in chunks) and 40000
+# (band 0, 320 KB, larger than shared memory); IoU thresholds.
+NMS_OPTION_SIZES = (1, 2, 63, 64, 65, 513, 4096, 20000)
+NMS_STREAMED = 40000
+NMS_OPTION_IOUS = (0.3, 0.5, 0.7)
+
+
+def _poisoned_empty(numel: int, dtype: torch.dtype, value) -> None:
+    """Fill and free a block of ``numel`` elements: the caching allocator hands
+    the same memory to the next allocation of that size, so an output
+    element a kernel leaves unwritten shows as ``value``."""
+    poison = torch.full((numel,), value, dtype=dtype, device="cuda")
+    del poison
+
+
+def check_nms_options(gen, rng) -> None:
+    """K13c over NMS_OPTION_SIZES x NMS_OPTION_IOUS (tied scores), the
+    lattice (touching boxes, IoU exactly 1/3 and 1/2) at 200 and 4096,
+    identical boxes in one word and across three, and NMS_STREAMED at IoU
+    0.5: bit for bit against the plain keep mask, the keep buffer's memory
+    filled with 7 first (neither True nor False). Counts cases whose bands
+    stream in chunks."""
+    from conch_tpu_torch.kernels.vision.nms import nms_keep_mask_launcher as keep_mask
+    from conch_tpu_torch.kernels.vision.nms import nms_keep_mask_plain as keep_plain
+    from conch_tpu_torch.kernels.vision.nms import band_row_words, nms_plan, sorted_boxes
+
+    t0 = time.perf_counter()
+    cases = [(f"N {n}, tied scores", nms_boxes(rng, n, ties=True), NMS_OPTION_IOUS) for n in NMS_OPTION_SIZES]
+    for n in (200, 4096):
+        boxes, scores = nms_boxes(rng, n, ties=True)
+        cases.append((f"lattice N {n}", (torch.round(boxes / 25.0) * 25.0, scores), NMS_OPTION_IOUS))
+    for n in (5, 130):
+        identical = (torch.tensor([[0.0, 0.0, 10.0, 10.0]] * n, device="cuda"),
+                     torch.from_numpy(rng.uniform(0, 1, n).astype(np.float32)).cuda())
+        cases.append((f"identical boxes N {n}", identical, NMS_OPTION_IOUS))
+    cases.append((f"N {NMS_STREAMED}, tied scores", nms_boxes(rng, NMS_STREAMED, ties=True), (NMS_IOU,)))
+    failed, count, streamed = [], 0, 0
+    for name, (boxes, scores), ious in cases:
+        _, parts = sorted_boxes(boxes, scores)
+        n = boxes.shape[0]
+        plan = nms_plan(n)
+        for t in ious:
+            ref = keep_plain(*parts, t)
+            _poisoned_empty(n, torch.uint8, 7)
+            got = keep_mask(*parts, t)
+            count += 1
+            streamed += plan.chunk_words < band_row_words(plan.words, 0)
+            if not torch.equal(got.view(torch.uint8), ref.view(torch.uint8)):
+                failed.append(f"{name} IoU {t}: {int((got.view(torch.uint8) != ref.view(torch.uint8)).sum())} of {n} "
+                              f"differ ({int(ref.sum())} kept)")
+    torch.cuda.synchronize()
+    print(f"K13c nms options: {count} cases ({streamed} with bands streamed in chunks), bit for bit against the "
+          f"plain keep mask: {count - len(failed)} equal, in {time.perf_counter() - t0:.1f} s", flush=True)
+    if failed:
+        raise AssertionError(f"K13c nms options: {len(failed)} of {count} cases differ: " + "; ".join(failed[:10]))
+    torch.cuda.empty_cache()
+
+
+def bev_trap_case(rng, num_points: int, grid: tuple[int, int, int, int]) -> tuple[np.ndarray, ...]:
+    """Sorted intervals over ``num_points`` points with every case K13b's
+    search must get right (tests/test_torch_vision_plan.py builds the same
+    kinds): a negative start, points before an interval, zero-length
+    intervals sharing a start with a real one (before and after it) and
+    inside gaps, a dropped interval (batch past the end) between two
+    intervals of one cell, a dropped x, an end past the last point, and
+    intervals starting at and past it. (geom, starts, lengths)."""
+    cells_xy = grid[2] * grid[3]
+    starts, lengths, cells = [-4], [7], [5]
+    p = 6
+    while p < num_points - 80:
+        kind, length, cell = int(rng.integers(0, 6)), int(rng.integers(1, 40)), int(rng.integers(0, cells_xy))
+        if kind == 0:
+            starts += [p, p]
+            lengths += [0, length]
+            cells += [cell, cell]
+        elif kind == 1:
+            starts += [p, p]
+            lengths += [length, 0]
+            cells += [cell, cell]
+        elif kind == 2:
+            length = int(rng.integers(1, 5))
+            starts.append(p + length - 1)
+            lengths.append(0)
+            cells.append(0)
+        else:
+            starts.append(p)
+            lengths.append(length)
+            cells.append(cell)
+        p += length
+    for length, cell in ((5, 60), (4, -1), (6, 60), (3, -2)):
+        starts.append(p)
+        lengths.append(length)
+        cells.append(cell)
+        p += length
+    starts += [p + 2, num_points, num_points + 3]
+    lengths += [num_points, 4, 2]
+    cells += [9, 10, 11]
+    geom = np.zeros((num_points, 4), dtype=np.int32)
+    for st, ln, cell in zip(starts, lengths, cells):
+        lo, hi = max(st, 0), min(st + ln, num_points)
+        geom[lo:hi] = ((0, 0, 0, grid[0]) if cell == -1 else (-1, 0, 0, 0) if cell == -2
+                       else (cell // grid[3], cell % grid[3], 0, 0))
+    return geom, np.asarray(starts, dtype=np.int32), np.asarray(lengths, dtype=np.int32)
+
+
+# K13b's sweep (check_bev_backward_options): channel counts giving vectors of
+# 1, 2, 4 and 8 elements by the row width, and grad bases moved by 0 to 4
+# elements, which cut the vector by alignment.
+BEV_OPTION_CHANNELS = (5, 6, 12, 24, 80)
+BEV_OPTION_OFFSETS = (0, 1, 2, 4)
+BEV_OPTION_POINTS = (3000, 400_000)
+
+
+def check_bev_backward_options(gen, rng) -> None:
+    """K13b over f32, bf16 and f16, BEV_OPTION_CHANNELS, grad bases at
+    BEV_OPTION_OFFSETS elements and two trap cases (``bev_trap_case``, 3000
+    points: a tile a warp; 400000: several), the output's memory filled with
+    NaN before each call: bit for bit against the plain backward. Counts the
+    cases at each vector width."""
+    from conch_tpu_torch.kernels.vision.bev_pool import bev_pool_backward_launcher as bwd
+    from conch_tpu_torch.kernels.vision.bev_pool import bev_pool_backward_plain as bwd_plain
+    from conch_tpu_torch.kernels.vision.bev_pool import vector_width
+
+    t0 = time.perf_counter()
+    grid = (2, 1, 16, 16)
+    failed, widths, count = [], {}, 0
+    for num_points in BEV_OPTION_POINTS:
+        geom, starts, lengths = (torch.from_numpy(a).cuda() for a in bev_trap_case(rng, num_points, grid))
+        for dtype, channels, offset in itertools.product((torch.float32, torch.bfloat16, torch.float16),
+                                                         BEV_OPTION_CHANNELS, BEV_OPTION_OFFSETS):
+            rows = math.prod(grid)
+            flat = torch.randn((rows * channels + offset,), generator=gen, device="cuda").to(dtype)
+            grad = flat[offset:].view(*grid, channels)  # contiguous, its base moved by ``offset`` elements
+            ref = bwd_plain(grad, geom, starts, lengths, num_points)
+            _poisoned_empty(num_points * channels, dtype, float("nan"))
+            got = bwd(grad, geom, starts, lengths, num_points)
+            vec = vector_width(channels, grad.element_size(), grad, got)
+            widths[vec] = widths.get(vec, 0) + 1
+            count += 1
+            same = got.dtype == ref.dtype and got.shape == ref.shape and torch.equal(
+                got.view(torch.uint8), ref.view(torch.uint8))
+            if not same:
+                bad = int((got.view(torch.uint8) != ref.view(torch.uint8)).reshape(num_points, -1).any(1).sum())
+                failed.append(f"{dtype} C {channels} offset {offset} {num_points} points (V {vec}): {bad} rows differ")
+        del geom, starts, lengths
+    torch.cuda.synchronize()
+    by_vec = ", ".join(f"V {v}: {c}" for v, c in sorted(widths.items()))
+    print(f"K13b bev_pool_bwd options: {count} cases ({by_vec}), output NaN-filled first, bit for bit against the "
+          f"plain backward: {count - len(failed)} equal, in {time.perf_counter() - t0:.1f} s", flush=True)
+    if failed:
+        raise AssertionError(f"K13b options: {len(failed)} of {count} cases differ: " + "; ".join(failed[:10]))
+    torch.cuda.empty_cache()
+
+
 def pillars_cloud(rng) -> np.ndarray:
     """A KITTI-like sweep at PointPillars' range: points thin out with
     distance from the sensor (about 10% land outside the range), and 3% sit
@@ -3793,6 +3957,8 @@ def kernel_phases() -> list[dict]:
     check_scaled_gemm_options(gen)
     check_mla_attention_options(gen, rng)
     check_quantize4_options(gen)
+    check_nms_options(gen, rng)
+    check_bev_backward_options(gen, rng)
     for r in rows:
         print(
             f"{r['name']}: {r['ms']:.4f} ms (paced {r['paced_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "

@@ -13,6 +13,14 @@ as BEVFusion builds them) the JAX package runs its Pallas kernels; here
 (``conch_tpu_torch/reference/vision/vision.py``) only for CPU tensors; on
 CUDA they launch the kernel or raise.
 
+The sorted path's contract, as the JAX package's sorted backward assumes
+(``searchsorted`` over the ends and starts of the intervals,
+``conch_tpu/kernels/vision/bev_pool.py:411-415``): ``interval_starts``
+ascend and the intervals are disjoint (a zero-length interval may share
+its start with another). K13b relies on it: each of its warps finds the
+interval of its first point by one search over the starts, then gives
+each of its 32 points the last interval starting at or before it.
+
 With ``cells_sorted=False`` the JAX package runs XLA, not Pallas
 (``_bev_pool_xla_impl``, ``_bev_pool_backward_xla_impl``); that branch is
 plain torch here too, on either device, as the JAX package's own dispatch
@@ -32,7 +40,14 @@ import ctypes
 
 import torch
 
-from conch_tpu_torch.kernels.common import check_launch, kernel_function, require_cuda, storage_code, stream_of
+from conch_tpu_torch.kernels.common import (
+    cdiv,
+    check_launch,
+    kernel_function,
+    require_cuda,
+    storage_code,
+    stream_of,
+)
 from conch_tpu_torch.reference.vision.vision import bev_pool as bev_pool_plain
 from conch_tpu_torch.reference.vision.vision import bev_pool_backward as bev_pool_backward_plain
 from conch_tpu_torch.reference.vision.vision import interval_cells
@@ -41,8 +56,16 @@ KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 _ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
     ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p,
 )
+_PLAN_ARGTYPES = (ctypes.c_int64,)  # K13b's blocks
+BWD_BLOCK_POINTS = 256  # points a block of K13b (csrc/bev_pool.cu: kBevBwdBlockPoints): a point a thread
+
+
+def bev_backward_blocks(num_points: int) -> int:
+    """K13b's grid: a block for every BWD_BLOCK_POINTS points, in point
+    order, so the blocks in flight write one front of the output, as a fill
+    does."""
+    return max(1, cdiv(num_points, BWD_BLOCK_POINTS))
 
 
 def check_bev_inputs(rows: torch.Tensor, geom_feats: torch.Tensor, interval_starts: torch.Tensor,
@@ -71,8 +94,9 @@ def vector_width(channels: int, element_size: int, *tensors: torch.Tensor) -> in
 
 
 def _launch(name: str, src: torch.Tensor, geom: torch.Tensor, starts: torch.Tensor, lengths: torch.Tensor,
-            out: torch.Tensor, num_points: int, grid: tuple[int, int, int, int]) -> None:
-    """One launch of K13a or K13b (``name``) into the zero-filled ``out``."""
+            out: torch.Tensor, num_points: int, grid: tuple[int, int, int, int], plan: tuple[int, ...] = ()) -> None:
+    """One launch of K13a (into the zero-filled ``out``) or K13b (``plan``:
+    its blocks; every row of ``out`` written)."""
     if src.dtype not in KERNEL_DTYPES:
         msg = f"{name}: the CUDA kernel takes float32, bfloat16 or float16, got {src.dtype}"
         raise NotImplementedError(msg)
@@ -86,9 +110,9 @@ def _launch(name: str, src: torch.Tensor, geom: torch.Tensor, starts: torch.Tens
         geom = geom.clone()  # the kernel reads a geom row as one 16-byte load
     channels = src.shape[-1]
     vec = vector_width(channels, src.element_size(), src, out)
-    fn = kernel_function(name, _ARGTYPES)
+    fn = kernel_function(name, (*_ARGTYPES, *_PLAN_ARGTYPES[: len(plan)], ctypes.c_void_p))
     code = fn(src.data_ptr(), geom.data_ptr(), starts.data_ptr(), lengths.data_ptr(), out.data_ptr(), num_points,
-              starts.numel(), channels, *grid, storage_code(src), vec, stream_of(src))
+              starts.numel(), channels, *grid, storage_code(src), vec, *plan, stream_of(src))
     check_launch(name, code)
 
 
@@ -115,8 +139,12 @@ def bev_pool_backward_launcher(
     grad_output: torch.Tensor, geom_feats: torch.Tensor, interval_starts: torch.Tensor,
     interval_lengths: torch.Tensor, num_points: int,
 ) -> torch.Tensor:
-    """The sorted backward: (num_points, C) in ``grad_output``'s dtype. K13b on
-    CUDA (``launches`` counts its launches), the plain version on the CPU."""
+    """The sorted backward: (num_points, C) in ``grad_output``'s dtype, each
+    point its interval's cell row, zero where no kept interval holds it.
+    K13b on CUDA (``launches`` counts its launches), which writes every row
+    of a ``torch.empty`` output once; the plain version on the CPU. The
+    intervals must keep the sorted path's contract (ascending starts,
+    disjoint intervals)."""
     check_bev_inputs(grad_output, geom_feats, interval_starts, interval_lengths)
     if grad_output.dim() != 5:
         msg = f"grad_output must be (B, Z, X, Y, C), got {tuple(grad_output.shape)}"
@@ -124,11 +152,14 @@ def bev_pool_backward_launcher(
     if grad_output.device.type == "cpu":
         return bev_pool_backward_plain(grad_output, geom_feats, interval_starts, interval_lengths, num_points)
     grad = grad_output.contiguous()
-    out = torch.zeros((num_points, grad.shape[-1]), dtype=grad.dtype, device=grad.device)
-    if not (interval_starts.numel() and out.numel()):
-        return out  # no point takes a gradient: no launch
+    shape = (num_points, grad.shape[-1])
+    if not interval_starts.numel():
+        return torch.zeros(shape, dtype=grad.dtype, device=grad.device)  # no point takes a gradient: no launch
+    out = torch.empty(shape, dtype=grad.dtype, device=grad.device)
+    if not out.numel():
+        return out
     _launch("conch_bev_pool_backward", grad, geom_feats, interval_starts, interval_lengths, out, num_points,
-            tuple(grad.shape[:4]))
+            tuple(grad.shape[:4]), (bev_backward_blocks(num_points),))
     bev_pool_backward_launcher.launches += 1
     return out
 

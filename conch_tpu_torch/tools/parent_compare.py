@@ -1,7 +1,7 @@
 # Copyright 2026 Conch-TPU authors.
 # SPDX-License-Identifier: Apache-2.0
 
-"""Time K1, K2, K3, K4, K5, K6, K7, K8, K10a, K10b, K11 and K12q of two checkouts on one card, in turns.
+"""Time K1 to K8, K10a, K10b, K11, K12q and K13a to K13c of two checkouts on one card, in turns.
 
     python3 -m conch_tpu_torch.tools.parent_compare --parent DIR [--kernels K6 K10b ...] [--serve]
 
@@ -57,8 +57,20 @@ launchers only, which both packages share:
   steps are hashed in every run: the tool fails unless the two packages'
   outputs are equal bit for bit.
 
+- K13a (``bev_pool_forward_launcher``) and K13b
+  (``bev_pool_backward_launcher``) on ``chip_smoke.bevfusion_inputs``
+  (BEVFusion's nuScenes pool, f32 and bf16), and K13c
+  (``nms_keep_mask_launcher``) on ``chip_smoke.nms_boxes``' 4096 tied boxes
+  at IoU 0.5, each through its launcher (K13b's output allocation
+  included); K13b's and K13c's calls are also profiled, and the device
+  time of each kernel a call launches is printed by name (K13c's mask and
+  scan kernels, the parent K13b's zero fill). Their outputs are hashed in
+  every run and must be equal bit for bit. Asked for alone, each package
+  is copied with only ``csrc/bev_pool.cu`` and ``csrc/nms.cu``, so a run
+  builds in seconds.
+
 ``--kernels`` times only the named ones (K1 K2 K3 K4 K5 K6 K7 K8 K10a K10b
-K11 K12q).
+K11 K12q K13a K13b K13c).
 ``--serve`` also serves Gemma-2-2B and the int4 Llama-3-8B engine with each
 package, as ``chip_smoke.py``'s ``serve`` does (launches checked per model
 step, then a profiled repeat), and prints each run's served and profile
@@ -234,6 +246,58 @@ if want & {"K5", "K10a", "K4", "K2", "K6", "K10b"}:
                 v = pair[f"{tag}_after_pred_ms"]
                 times[f"{pair['case']} ({tag})"] = sum(v) / len(v)
 
+if want & {"K13a", "K13b", "K13c"}:
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    from conch_tpu_torch.kernels.vision.bev_pool import bev_pool_backward_launcher as k13b
+    from conch_tpu_torch.kernels.vision.bev_pool import bev_pool_forward_launcher as k13a
+    from conch_tpu_torch.kernels.vision.nms import nms_keep_mask_launcher as k13c, sorted_boxes
+
+    def digest(t):
+        return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+
+    def split(label, fn, iters=20):
+        """Device ms a call of each kernel ``fn`` launches, from a profiler trace's kernel events."""
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            prof.export_chrome_trace(f"{tmp}/trace.json")
+            with open(f"{tmp}/trace.json") as f:
+                events = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+        for e in events:
+            name = e["name"].replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
+            name = name.replace("void ", "")[-40:]
+            key = f"{label} [profile] {name}"
+            times[key] = times.get(key, 0.0) + e["dur"] / 1e3 / iters
+
+    for dtype in (torch.float32, torch.bfloat16):
+        bev = cs.bevfusion_inputs(gen, np.random.default_rng(cs.SEED), dtype)
+        args = (bev["feats"], bev["geom"], bev["starts"], bev["lengths"])
+        n, tag = bev["feats"].shape[0], str(dtype).split(".")[-1]
+        if "K13a" in want:
+            digests[f"K13a BEVFusion {tag}"] = digest(k13a(*args, *cs.BEV_GRID))
+            times[f"K13a BEVFusion {tag}"] = cs.time_ms(lambda: k13a(*args, *cs.BEV_GRID))
+        if "K13b" in want:
+            grad = torch.randn((*cs.BEV_GRID, cs.BEV_C), generator=gen, device="cuda").to(dtype)
+            bargs = (grad, *args[1:], n)
+            digests[f"K13b BEVFusion {tag}"] = digest(k13b(*bargs))
+            times[f"K13b BEVFusion {tag}"] = cs.time_ms(lambda: k13b(*bargs))
+            split(f"K13b BEVFusion {tag}", lambda: k13b(*bargs))
+            del grad, bargs
+        del bev, args
+        torch.cuda.empty_cache()
+    if "K13c" in want:
+        boxes, scores = cs.nms_boxes(rng, cs.NMS_BOXES, ties=True)
+        _, parts = sorted_boxes(boxes, scores)
+        label = f"K13c {cs.NMS_BOXES} boxes IoU {cs.NMS_IOU}"
+        digests[label] = digest(k13c(*parts, cs.NMS_IOU))
+        times[label] = cs.time_ms(lambda: k13c(*parts, cs.NMS_IOU))
+        split(label, lambda: k13c(*parts, cs.NMS_IOU))
+
 if "serve" in want:
     from conch_tpu_torch.models.gemma import GemmaConfig, gemma_decode_step, gemma_prefill, init_gemma_params
     from conch_tpu_torch.models.llama import LlamaConfig, init_llama_params
@@ -256,7 +320,9 @@ if "serve" in want:
              {"num_pages": 4096, "max_batch_size": 32}, cs.int4_prompts, cs.LLAMA_KERNELS, cs.LLAMA_PER_STEP)
 print("TIMES " + json.dumps({"package": conch_tpu_torch.__file__, "times": times, "digests": digests}), flush=True)
 '''
-KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K10a", "K10b", "K11", "K12q")
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K10a", "K10b", "K11", "K12q", "K13a", "K13b", "K13c")
+# A run of the vision kernels alone builds their sources alone (seconds, not minutes).
+VISION_KERNELS, VISION_SOURCES = {"K13a", "K13b", "K13c"}, ("bev_pool.cu", "nms.cu")
 # The lines of a run's output that the tool prints with --serve.
 SERVE_LINES = ("served ", "profile", "launches per model step")
 
@@ -285,20 +351,35 @@ def main() -> int:
     parser.add_argument("--serve", action="store_true", help="also serve Gemma-2-2B and int4 Llama-3-8B, profiled")
     args = parser.parse_args()
     parts = [*args.kernels, *(["serve"] if args.serve else [])]
-    parent = BUILD_DIR / "compare" / "parent"
-    shutil.rmtree(parent, ignore_errors=True)
-    shutil.copytree(args.parent / PACKAGE_DIR.name, parent / PACKAGE_DIR.name,
-                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    parent, change = BUILD_DIR / "compare" / "parent", REPO_ROOT
+    copies = [(args.parent, parent)]
+    vision = set(args.kernels) <= VISION_KERNELS and not args.serve
+    if vision:
+        change = BUILD_DIR / "compare" / "change"
+        copies.append((REPO_ROOT, change))
+    for source, root in copies:
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.copytree(source / PACKAGE_DIR.name, root / PACKAGE_DIR.name,
+                        ignore=shutil.ignore_patterns("_build", "__pycache__"))
+        if vision:
+            for path in (root / PACKAGE_DIR.name / "csrc").glob("*.cu"):
+                if path.name not in VISION_SOURCES:
+                    path.unlink()
     runs = []
-    for label, root in (("parent", parent), ("change", REPO_ROOT), ("change", REPO_ROOT), ("parent", parent)):
+    for label, root in (("parent", parent), ("change", change), ("change", change), ("parent", parent)):
         result = run(root, parts)
         runs.append({"label": label, **result})
         print(f"{label} ({result['package']}): " + "; ".join(f"{k} {v:.4f}" for k, v in result["times"].items()),
               flush=True)
         for line in result["serve"]:
             print(f"{label}: {line}", flush=True)
-    for case in runs[0]["times"]:
-        by = {label: [r["times"][case] for r in runs if r["label"] == label] for label in ("parent", "change")}
+    for case in dict.fromkeys(c for r in runs for c in r["times"]):
+        by = {label: [r["times"][case] for r in runs if r["label"] == label and case in r["times"]]
+              for label in ("parent", "change")}
+        if not all(by.values()):  # a kernel only one package launches (a profile's split by kernel name)
+            print(f"{case}: " + ", ".join(f"{label} {', '.join(f'{t:.4f}' for t in v)} ms"
+                                          for label, v in by.items() if v), flush=True)
+            continue
         mean = {label: sum(v) / len(v) for label, v in by.items()}
         print(f"{case}: parent {mean['parent']:.4f} ms ({by['parent'][0]:.4f}, {by['parent'][1]:.4f}), change "
               f"{mean['change']:.4f} ms ({by['change'][0]:.4f}, {by['change'][1]:.4f}), change / parent "
