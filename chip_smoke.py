@@ -152,7 +152,15 @@
      grad bases, on intervals with every trap of its search: zero-length
      intervals sharing a start, negative starts, starts at and past the
      last point, a dropped interval inside a cell's run, gaps; the output
-     NaN-filled first), both bit for bit against the plain versions;
+     NaN-filled first) and ``check_bev_forward_options`` (K13a in f32,
+     bf16 and f16 at vector widths 1 to 8 by channels and by feature bases
+     one element off, through TMA stages and from global memory, on
+     intervals with every trap of its ownership (``bev_forward_trap_case``:
+     runs across tile edges, a dropped interval inside a run, zero-length
+     intervals, an interval over several tiles, the grid's first and last
+     cells, starts at and past the last point), no kept interval, one
+     interval of 100,000 points and BEVFusion's inputs; the output
+     NaN-filled first), each bit for bit against the plain versions;
    - K14 ring all-gather on rings of 1, 2, 4 and 8 virtual ranks on the
      card (every rank's buffers its own), both launch modes (one
      cooperative launch; one launch per rank on its own stream), f32, bf16
@@ -173,7 +181,8 @@
    then the vision path (``vision_bevfusion``): voxelize, BEV pool forward
    and ``loss.backward()`` at BEVFusion's size, NMS over 4096 boxes,
    through ``conch_tpu_torch.ops.vision``, with K13a, K13b and K13c's
-   launches read around it;
+   launches read around it (the pooled grid and the gradient bit for bit
+   against the plain versions);
    the top-p filter (``check_top_p_filter``) at the int4 engine's 32 x
    128256 and Gemma-2-2B's 16 x 256000 logits, held to the exact kept set
    at top_p 1.0, 0.999, 0.9 and 0.5, and ``sample_tokens`` timed beside
@@ -3336,6 +3345,193 @@ def check_bev_backward_options(gen, rng) -> None:
     torch.cuda.empty_cache()
 
 
+# K13a's sweep (check_bev_forward_options): channel counts giving vectors of
+# 1, 2, 4 and 8 elements by the row width (rows of a multiple of 16 bytes go
+# through TMA stages, the rest are read from global memory), feature bases
+# moved by one element, which cut the vector to 1 or 2.
+BEV_FWD_OPTION_CHANNELS = (5, 6, 12, 24, 80)
+BEV_FWD_OPTION_OFFSETS = (0, 1)
+BEV_FWD_LONG = 100_000  # points of the one long interval
+# Each coordinate out of its range in turn: (x, y, z, b) offsets from the
+# grid's (X, Y, Z, B), applied by bev_forward_trap_case.
+BEV_OUT_OF_RANGE = ((-1, 0, 0, 0), (1, 0, 0, 0), (0, -1, 0, 0), (0, 1, 0, 0), (0, 0, -1, 0), (0, 0, 1, 0),
+                    (0, 0, 0, -1), (0, 0, 0, 1))
+
+
+def bev_cell_coords(cell: int, grid: tuple[int, int, int, int]) -> tuple[int, int, int, int]:
+    """(x, y, z, b) of a flat cell ((b*Z + z)*X + x)*Y + y."""
+    _, gz, gx, gy = grid
+    return (cell // gy) % gx, cell % gy, (cell // (gx * gy)) % gz, cell // (gz * gx * gy)
+
+
+def bev_out_of_range(kind: int, grid: tuple[int, int, int, int]) -> tuple[int, int, int, int]:
+    """A geom row with one coordinate outside its range (kind picks which,
+    and whether below or above)."""
+    b, z, x, y = grid
+    dx, dy, dz, db = BEV_OUT_OF_RANGE[kind % len(BEV_OUT_OF_RANGE)]
+    return (-1 if dx < 0 else x if dx else 0, -1 if dy < 0 else y if dy else 0, -1 if dz < 0 else z if dz else 0,
+            -1 if db < 0 else b if db else 0)
+
+
+def bev_forward_trap_case(rng, num_points: int, grid: tuple[int, int, int, int],
+                          tile_points: int) -> tuple[np.ndarray, ...]:
+    """Intervals in K13a's contract (ascending starts, ascending kept cells,
+    disjoint) over ``num_points`` points with every case its ownership of
+    intervals, runs and grid rows must get right (tests/test_torch_vision_
+    plan.py holds its model on them): a negative start; the grid's first
+    cell; zero-length intervals, alone and sharing a start; runs of several
+    intervals of one cell with a dropped interval between them (one
+    coordinate out of range, each in turn); runs across a tile edge of
+    ``tile_points``; gaps of points in no interval and of empty cells; an
+    interval longer than several tiles; the grid's last cell; an end past the
+    last point; intervals starting at and past it. Points in no kept
+    interval lie outside the grid. (geom, starts, lengths)."""
+    cells_total = math.prod(grid)
+    starts, lengths, cells = [-3], [5], [None]  # a negative start: dropped (its points 0 and 1 in no interval)
+    p, cell, drops = 2, 0, 0
+    starts.append(p)
+    lengths.append(4)
+    cells.append(0)  # the grid's first cell
+    p += 4
+    max_step = max(1, (cells_total - 8) // (num_points // 20 + 8))
+    long = min(3 * tile_points + 17, num_points // 3)
+    while p < num_points - long - 100:
+        kind, length = int(rng.integers(0, 8)), int(rng.integers(1, 40))
+        cell = min(cell + int(rng.integers(1, max_step + 1)), cells_total - 2)
+        if kind == 0:  # a zero-length interval sharing its start with the next
+            starts += [p, p]
+            lengths += [0, length]
+            cells += [cell, cell]
+        elif kind == 1:  # a run of three intervals, a dropped one between the first two
+            for ln, c in ((length, cell), (int(rng.integers(1, 9)), -1 - drops), (int(rng.integers(1, 30)), cell),
+                          (int(rng.integers(1, 30)), cell)):
+                starts.append(p)
+                lengths.append(ln)
+                cells.append(c)
+                p += ln
+            drops += 1
+            continue
+        elif kind == 2:  # a run across the next tile edge, when the edge is near
+            edge = (p // tile_points + 1) * tile_points
+            if edge - p > 60:
+                starts.append(p)
+                lengths.append(length)
+                cells.append(cell)
+            else:
+                head = edge - p - int(rng.integers(0, min(3, edge - p)))
+                starts += [p, p + head]
+                lengths += [head, length]
+                cells += [cell, cell]
+                length += head
+        elif kind == 3:  # points in no interval, a zero-length interval among them (dropped: outside the grid)
+            length = int(rng.integers(1, 6))
+            starts.append(p + length - 1)
+            lengths.append(0)
+            cells.append(None)
+        else:
+            starts.append(p)
+            lengths.append(length)
+            cells.append(cell)
+        p += length
+    cell = min(cell + 1, cells_total - 2)
+    starts.append(p)  # longer than several tiles (where the points allow)
+    lengths.append(long)
+    cells.append(cell)
+    p += long
+    starts.append(p)  # the grid's last cell, running past the last point
+    lengths.append(num_points)
+    cells.append(cells_total - 1)
+    starts += [num_points, num_points + 3]  # starting at and past the points
+    lengths += [4, 2]
+    cells += [None, None]
+    assert (np.diff(starts) >= 0).all() and p < num_points
+    geom = np.empty((num_points, 4), dtype=np.int32)
+    geom[:] = bev_out_of_range(7, grid)  # points in no kept interval: batch past the end
+    for st, ln, c in zip(starts, lengths, cells):
+        lo, hi = max(st, 0), min(st + ln, num_points)
+        if c is not None and lo < hi:
+            geom[lo:hi] = bev_out_of_range(-1 - c, grid) if c < 0 else bev_cell_coords(c, grid)
+    return geom, np.asarray(starts, dtype=np.int32), np.asarray(lengths, dtype=np.int32)
+
+
+def bev_forward_option_cases(rng) -> list[tuple[str, tuple, tuple, tuple]]:
+    """check_bev_forward_options' cases as (name, (geom, starts, lengths) on
+    the card, grid, channel counts, base offsets): the trap cases at 3000
+    points (a few tiles) and 400,000 (hundreds), no kept interval, one
+    interval of BEV_FWD_LONG points."""
+    from conch_tpu_torch.kernels.vision.bev_pool import FWD_TILE_POINTS
+
+    small, large = (2, 2, 16, 16), (2, 1, 128, 128)
+    cases = [(f"traps, {n} points", bev_forward_trap_case(rng, n, grid, FWD_TILE_POINTS), grid, BEV_FWD_OPTION_CHANNELS,
+              BEV_FWD_OPTION_OFFSETS) for n, grid in ((3000, small), (400_000, large))]
+    geom = np.tile(np.asarray(bev_out_of_range(7, small), dtype=np.int32), (500, 1))
+    starts = np.arange(0, 500, 10, dtype=np.int32)
+    cases.append(("no kept interval", (geom, starts, np.full_like(starts, 10)), small, BEV_FWD_OPTION_CHANNELS,
+                  BEV_FWD_OPTION_OFFSETS))
+    n = BEV_FWD_LONG + 20
+    geom = np.zeros((n, 4), dtype=np.int32)
+    geom[:10] = bev_cell_coords(3, small)
+    geom[10 : 10 + BEV_FWD_LONG] = bev_cell_coords(7, small)
+    geom[10 + BEV_FWD_LONG :] = bev_cell_coords(700, small)
+    starts = np.asarray([0, 10, 10 + BEV_FWD_LONG], dtype=np.int32)
+    lengths = np.asarray([10, BEV_FWD_LONG, 10], dtype=np.int32)
+    # Its plain version adds the points one after the other: C 6 and 80 at aligned bases only.
+    cases.append((f"one interval of {BEV_FWD_LONG} points", (geom, starts, lengths), small, (6, 80), (0,)))
+    return [(name, tuple(torch.from_numpy(a).cuda() for a in arrays), grid, channels, offsets)
+            for name, arrays, grid, channels, offsets in cases]
+
+
+def check_bev_forward_options(gen, rng) -> None:
+    """K13a over f32, bf16 and f16, BEV_FWD_OPTION_CHANNELS, feature bases at
+    BEV_FWD_OPTION_OFFSETS elements, the cases of ``bev_forward_option_cases``
+    and BEVFusion's inputs (f32 and bf16), the output's memory filled with
+    NaN before each call: bit for bit against the plain forward. Counts the
+    cases at each vector width and those whose rows went through TMA."""
+    from conch_tpu_torch.kernels.vision.bev_pool import bev_forward_plan, vector_width
+    from conch_tpu_torch.kernels.vision.bev_pool import bev_pool_forward_launcher as fwd
+    from conch_tpu_torch.kernels.vision.bev_pool import bev_pool_plain as fwd_plain
+
+    t0 = time.perf_counter()
+    failed, widths, count, tma = [], {}, 0, 0
+
+    def one(name, feats, geom, starts, lengths, grid):
+        nonlocal count, tma
+        ref = fwd_plain(feats, geom, starts, lengths, *grid)
+        _poisoned_empty(ref.numel(), feats.dtype, float("nan"))
+        got = fwd(feats, geom, starts, lengths, *grid)
+        channels = feats.shape[1]
+        vec = vector_width(channels, feats.element_size(), feats, got)
+        widths[vec] = widths.get(vec, 0) + 1
+        tma += bev_forward_plan(feats.shape[0], channels, feats.element_size(), vec).tma
+        count += 1
+        if not (got.dtype == ref.dtype and got.shape == ref.shape
+                and torch.equal(got.view(torch.uint8), ref.view(torch.uint8))):
+            bad = int((got.view(torch.uint8) != ref.view(torch.uint8)).reshape(-1, channels * feats.element_size())
+                      .any(1).sum())
+            failed.append(f"{name} (V {vec}): {bad} grid rows differ")
+
+    for name, (geom, starts, lengths), grid, channel_counts, offsets in bev_forward_option_cases(rng):
+        num_points = geom.shape[0]
+        for dtype, channels, offset in itertools.product((torch.float32, torch.bfloat16, torch.float16),
+                                                         channel_counts, offsets):
+            flat = torch.randn((num_points * channels + offset,), generator=gen, device="cuda").to(dtype)
+            feats = flat[offset:].view(num_points, channels)  # contiguous, its base moved by ``offset`` elements
+            one(f"{name}, {dtype} C {channels} offset {offset}", feats, geom, starts, lengths, grid)
+        del geom, starts, lengths
+    for dtype in (torch.float32, torch.bfloat16):
+        bev = bevfusion_inputs(gen, np.random.default_rng(SEED), dtype)
+        one(f"BEVFusion {dtype}", bev["feats"], bev["geom"], bev["starts"], bev["lengths"], BEV_GRID)
+        del bev
+    torch.cuda.synchronize()
+    by_vec = ", ".join(f"V {v}: {c}" for v, c in sorted(widths.items()))
+    print(f"K13a bev_pool_fwd options: {count} cases ({by_vec}; {tma} through TMA stages), output NaN-filled first, "
+          f"bit for bit against the plain forward: {count - len(failed)} equal, in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if failed:
+        raise AssertionError(f"K13a options: {len(failed)} of {count} cases differ: " + "; ".join(failed[:10]))
+    torch.cuda.empty_cache()
+
+
 def pillars_cloud(rng) -> np.ndarray:
     """A KITTI-like sweep at PointPillars' range: points thin out with
     distance from the sensor (about 10% land outside the range), and 3% sit
@@ -3402,7 +3598,7 @@ def vision_path(card: str) -> dict:
     the gradient equal bit for bit to the plain backward of the loss's
     gradient, the kept boxes equal to the plain keep mask's. Then a profiled
     repeat (after the counts are read)."""
-    from conch_tpu_torch.kernels.vision.bev_pool import bev_pool_backward_plain
+    from conch_tpu_torch.kernels.vision.bev_pool import bev_pool_backward_plain, bev_pool_plain
     from conch_tpu_torch.kernels.vision.nms import nms_keep_mask_plain, sorted_boxes
     from conch_tpu_torch.ops.vision import VoxelizationParameter, bev_pool, generate_voxels, nms
 
@@ -3433,6 +3629,8 @@ def vision_path(card: str) -> dict:
         raise AssertionError(f"vision path: pooled {tuple(pooled.shape)}, not finite or not of the grid's shape")
     if voxel_feats.shape != (param.max_num_voxels, 32, 4) or int(num_filled) <= 0:
         raise AssertionError("vision path: voxelization gave no voxels")
+    check_equal("vision path: pooled vs the plain forward", pooled.detach(),
+                bev_pool_plain(feats.detach(), bev["geom"], bev["starts"], bev["lengths"], *BEV_GRID))
     check_equal("vision path: feats.grad vs the plain backward of 2 * pooled", feats.grad,
                 bev_pool_backward_plain(2 * pooled.detach(), bev["geom"], bev["starts"], bev["lengths"],
                                         feats.shape[0]))
@@ -3959,6 +4157,7 @@ def kernel_phases() -> list[dict]:
     check_quantize4_options(gen)
     check_nms_options(gen, rng)
     check_bev_backward_options(gen, rng)
+    check_bev_forward_options(gen, rng)
     for r in rows:
         print(
             f"{r['name']}: {r['ms']:.4f} ms (paced {r['paced_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "

@@ -45,6 +45,7 @@
 
 #include <algorithm>
 
+#include "bulk_copy.cuh"
 #include "common.cuh"
 
 namespace conch {
@@ -66,35 +67,6 @@ __host__ __device__ __forceinline__ int band_row_words(int words, int w) { retur
 __host__ __device__ __forceinline__ int64_t band_offset(int words, int w) {
   const int64_t a = words - w + 1, b = words;
   return kNmsTile * ((a + b) * w / 2 + (b + 1) / 2 - a / 2);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-// `bytes` (a multiple of 16) from global `src` to shared `dst`, completing on `bar`.
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, int bytes, uint32_t bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
-  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
-               "l"(src), "r"(bytes), "r"(bar)
-               : "memory");
 }
 
 __global__ void __launch_bounds__(kNmsMaskThreads) nms_mask_kernel(const float* __restrict__ x1,

@@ -16,10 +16,13 @@ CUDA they launch the kernel or raise.
 The sorted path's contract, as the JAX package's sorted backward assumes
 (``searchsorted`` over the ends and starts of the intervals,
 ``conch_tpu/kernels/vision/bev_pool.py:411-415``): ``interval_starts``
-ascend and the intervals are disjoint (a zero-length interval may share
-its start with another). K13b relies on it: each of its warps finds the
-interval of its first point by one search over the starts, then gives
-each of its 32 points the last interval starting at or before it.
+ascend, the kept intervals' cells ascend, and the intervals are disjoint
+(a zero-length interval may share its start with another). K13b relies
+on it: each of its warps finds the interval of its first point by one
+search over the starts, then gives each of its 32 points the last
+interval starting at or before it. So does K13a: each of its blocks owns
+the kept intervals that start in its tile of points (one search), and the
+runs of equal cells that open among them (``bev_forward_plan``).
 
 With ``cells_sorted=False`` the JAX package runs XLA, not Pallas
 (``_bev_pool_xla_impl``, ``_bev_pool_backward_xla_impl``); that branch is
@@ -37,6 +40,7 @@ the two packages on cells they agree on.)
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -48,6 +52,7 @@ from conch_tpu_torch.kernels.common import (
     storage_code,
     stream_of,
 )
+from conch_tpu_torch.kernels.vision.nms import SMEM_LIMIT
 from conch_tpu_torch.reference.vision.vision import bev_pool as bev_pool_plain
 from conch_tpu_torch.reference.vision.vision import bev_pool_backward as bev_pool_backward_plain
 from conch_tpu_torch.reference.vision.vision import interval_cells
@@ -57,8 +62,61 @@ _ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
     ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
 )
-_PLAN_ARGTYPES = (ctypes.c_int64,)  # K13b's blocks
+_BWD_PLAN_ARGTYPES = (ctypes.c_int64,)  # K13b's blocks
+# K13a's plan: tile_points, tma, stages, stage_rows, stage_bytes, smem_bytes, blocks
+_FWD_PLAN_ARGTYPES = (ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                      ctypes.c_int64)
 BWD_BLOCK_POINTS = 256  # points a block of K13b (csrc/bev_pool.cu: kBevBwdBlockPoints): a point a thread
+# K13a (csrc/bev_pool.cu): a block owns the intervals that start in its tile of FWD_TILE_POINTS points.
+FWD_TILE_POINTS = 640
+FWD_STAGE_BYTES = 17920  # a TMA stage's rows: at most this many bytes (at least one row)
+FWD_MAX_STAGES = 2  # five blocks an SM at BEVFusion's rows
+FWD_PIECES = 128  # pieces, and rows, a stage holds at most (kFwdPieces)
+FWD_HEADER_BYTES = 2592  # sizeof(FwdHeader); a ring of one more than the stages
+
+
+@dataclasses.dataclass(frozen=True)
+class BevForwardPlan:
+    """K13a's launch: ``blocks`` tiles of ``tile_points`` points; a ring of
+    ``stages`` stages of ``stage_rows`` rows of the block's stream, whose
+    rows go through shared memory (``stage_bytes``) with ``tma``, else the
+    consumers read them from global memory; ``smem_bytes`` of dynamic
+    shared memory (the ring, a header a stage and one more, the carried
+    sums, two mbarriers a stage)."""
+
+    tile_points: int
+    blocks: int
+    tma: bool
+    stages: int
+    stage_rows: int
+    stage_bytes: int
+    smem_bytes: int
+
+
+def bev_forward_plan(num_points: int, channels: int, element_size: int, vec: int,
+                     tile_points: int | None = None) -> BevForwardPlan:
+    """K13a's plan from the shapes and ``vector_width``'s ``vec``: TMA bulk
+    copies where a row is a whole number of 16-byte vectors on a 16-byte
+    base (``vec * element_size == 16``) and two stages fit; stages of whole
+    rows, at most FWD_STAGE_BYTES and FWD_PIECES rows, as many as fit up to
+    FWD_MAX_STAGES. Raises NotImplementedError where the carried sums (16
+    bytes a channel) leave no room (above about 14000 channels)."""
+    tile_points = FWD_TILE_POINTS if tile_points is None else tile_points
+    row = channels * element_size
+    fixed = 16 * channels  # two buffers of the interval's and the run's f32 sums
+    tma, stages, stage_rows, stage_bytes = vec * element_size == 16, FWD_MAX_STAGES, FWD_PIECES, 0
+    if tma:
+        rows = min(max(1, FWD_STAGE_BYTES // row), FWD_PIECES)
+        fit = (SMEM_LIMIT - fixed - FWD_HEADER_BYTES) // (rows * row + FWD_HEADER_BYTES + 16)
+        tma = fit >= 2
+        if tma:
+            stages, stage_rows, stage_bytes = min(FWD_MAX_STAGES, fit), rows, rows * row
+    smem = fixed + FWD_HEADER_BYTES + stages * (stage_bytes + FWD_HEADER_BYTES + 16)
+    if smem > SMEM_LIMIT:
+        msg = f"bev_pool forward kernel: {channels} channels need {smem} bytes of shared memory, at most {SMEM_LIMIT}"
+        raise NotImplementedError(msg)
+    return BevForwardPlan(tile_points=tile_points, blocks=max(1, cdiv(num_points, tile_points)), tma=tma,
+                          stages=stages, stage_rows=stage_rows, stage_bytes=stage_bytes, smem_bytes=smem)
 
 
 def bev_backward_blocks(num_points: int) -> int:
@@ -94,9 +152,10 @@ def vector_width(channels: int, element_size: int, *tensors: torch.Tensor) -> in
 
 
 def _launch(name: str, src: torch.Tensor, geom: torch.Tensor, starts: torch.Tensor, lengths: torch.Tensor,
-            out: torch.Tensor, num_points: int, grid: tuple[int, int, int, int], plan: tuple[int, ...] = ()) -> None:
-    """One launch of K13a (into the zero-filled ``out``) or K13b (``plan``:
-    its blocks; every row of ``out`` written)."""
+            out: torch.Tensor, num_points: int, grid: tuple[int, int, int, int], vec: int, plan_types: tuple,
+            plan: tuple[int, ...]) -> None:
+    """One launch of K13a or K13b (``plan``: the entry point's plan
+    arguments, of ``plan_types``); each writes every row of ``out``."""
     if src.dtype not in KERNEL_DTYPES:
         msg = f"{name}: the CUDA kernel takes float32, bfloat16 or float16, got {src.dtype}"
         raise NotImplementedError(msg)
@@ -108,11 +167,9 @@ def _launch(name: str, src: torch.Tensor, geom: torch.Tensor, starts: torch.Tens
     require_cuda(src, geom, starts, lengths, out)
     if geom.data_ptr() % 16:
         geom = geom.clone()  # the kernel reads a geom row as one 16-byte load
-    channels = src.shape[-1]
-    vec = vector_width(channels, src.element_size(), src, out)
-    fn = kernel_function(name, (*_ARGTYPES, *_PLAN_ARGTYPES[: len(plan)], ctypes.c_void_p))
+    fn = kernel_function(name, (*_ARGTYPES, *plan_types, ctypes.c_void_p))
     code = fn(src.data_ptr(), geom.data_ptr(), starts.data_ptr(), lengths.data_ptr(), out.data_ptr(), num_points,
-              starts.numel(), channels, *grid, storage_code(src), vec, *plan, stream_of(src))
+              starts.numel(), src.shape[-1], *grid, storage_code(src), vec, *plan, stream_of(src))
     check_launch(name, code)
 
 
@@ -121,16 +178,28 @@ def bev_pool_forward_launcher(
     interval_lengths: torch.Tensor, batch_size: int, grid_cells_z: int, grid_cells_x: int, grid_cells_y: int,
 ) -> torch.Tensor:
     """The sorted forward: (B, Z, X, Y, C) in ``image_feats``' dtype. K13a on
-    CUDA (``launches`` counts its launches), the plain version on the CPU."""
+    CUDA (``launches`` counts its launches), which writes every row of a
+    ``torch.empty`` output once (zeros where no kept interval lands); the
+    plain version on the CPU."""
     check_bev_inputs(image_feats, geom_feats, interval_starts, interval_lengths)
     grid = (batch_size, grid_cells_z, grid_cells_x, grid_cells_y)
     if image_feats.device.type == "cpu":
         return bev_pool_plain(image_feats, geom_feats, interval_starts, interval_lengths, *grid)
     feats = image_feats.contiguous()
-    out = torch.zeros((*grid, feats.shape[1]), dtype=feats.dtype, device=feats.device)
-    if not (interval_starts.numel() and out.numel()):
-        return out  # nothing to pool: no launch
-    _launch("conch_bev_pool_forward", feats, geom_feats, interval_starts, interval_lengths, out, feats.shape[0], grid)
+    shape = (*grid, feats.shape[1])
+    if not interval_starts.numel():
+        return torch.zeros(shape, dtype=feats.dtype, device=feats.device)  # nothing to pool: no launch
+    out = torch.empty(shape, dtype=feats.dtype, device=feats.device)
+    if not out.numel():
+        return out
+    if out.shape[:4].numel() >= 2**31:
+        msg = f"bev_pool forward kernel: a grid of at most 2**31 - 1 cells, got {tuple(out.shape[:4])}"
+        raise NotImplementedError(msg)
+    vec = vector_width(feats.shape[1], feats.element_size(), feats, out)
+    plan = bev_forward_plan(feats.shape[0], feats.shape[1], feats.element_size(), vec)
+    _launch("conch_bev_pool_forward", feats, geom_feats, interval_starts, interval_lengths, out, feats.shape[0], grid,
+            vec, _FWD_PLAN_ARGTYPES, (plan.tile_points, int(plan.tma), plan.stages, plan.stage_rows, plan.stage_bytes,
+                                      plan.smem_bytes, plan.blocks))
     bev_pool_forward_launcher.launches += 1
     return out
 
@@ -158,8 +227,9 @@ def bev_pool_backward_launcher(
     out = torch.empty(shape, dtype=grad.dtype, device=grad.device)
     if not out.numel():
         return out
+    vec = vector_width(grad.shape[-1], grad.element_size(), grad, out)
     _launch("conch_bev_pool_backward", grad, geom_feats, interval_starts, interval_lengths, out, num_points,
-            tuple(grad.shape[:4]), (bev_backward_blocks(num_points),))
+            tuple(grad.shape[:4]), vec, _BWD_PLAN_ARGTYPES, (bev_backward_blocks(num_points),))
     bev_pool_backward_launcher.launches += 1
     return out
 

@@ -124,12 +124,17 @@ def copy_package(name: str, mutant: tuple[str, str, str] | None) -> Path:
     return root
 
 
-def run_phases(root: Path, script: str) -> tuple[int, str]:
-    """Run ``script`` with ``root``'s package first on the path."""
+def run_phases(root: Path, script: str, timeout: float | None = None) -> tuple[int, str]:
+    """Run ``script`` with ``root``'s package first on the path; past
+    ``timeout`` seconds it is killed and the exit code is 124."""
     env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(root), str(REPO_ROOT)])}
-    proc = subprocess.run(
-        [sys.executable, "-c", script], cwd=root, env=env, capture_output=True, text=True, check=False
-    )
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-c", script], cwd=root, env=env, capture_output=True, text=True, check=False,
+            timeout=timeout,
+        )
+    except subprocess.TimeoutExpired as e:
+        return 124, (e.stdout or b"").decode(errors="replace") + (e.stderr or b"").decode(errors="replace")
     return proc.returncode, proc.stdout + proc.stderr
 
 

@@ -62,9 +62,9 @@ launchers only, which both packages share:
   (BEVFusion's nuScenes pool, f32 and bf16), and K13c
   (``nms_keep_mask_launcher``) on ``chip_smoke.nms_boxes``' 4096 tied boxes
   at IoU 0.5, each through its launcher (K13b's output allocation
-  included); K13b's and K13c's calls are also profiled, and the device
-  time of each kernel a call launches is printed by name (K13c's mask and
-  scan kernels, the parent K13b's zero fill). Their outputs are hashed in
+  included); their calls are also profiled, and the device time of each
+  kernel a call launches is printed by name (K13c's mask and scan kernels,
+  a zero fill where a launcher has one). Their outputs are hashed in
   every run and must be equal bit for bit. Asked for alone, each package
   is copied with only ``csrc/bev_pool.cu`` and ``csrc/nms.cu``, so a run
   builds in seconds.
@@ -281,6 +281,7 @@ if want & {"K13a", "K13b", "K13c"}:
         if "K13a" in want:
             digests[f"K13a BEVFusion {tag}"] = digest(k13a(*args, *cs.BEV_GRID))
             times[f"K13a BEVFusion {tag}"] = cs.time_ms(lambda: k13a(*args, *cs.BEV_GRID))
+            split(f"K13a BEVFusion {tag}", lambda: k13a(*args, *cs.BEV_GRID))
         if "K13b" in want:
             grad = torch.randn((*cs.BEV_GRID, cs.BEV_C), generator=gen, device="cuda").to(dtype)
             bargs = (grad, *args[1:], n)

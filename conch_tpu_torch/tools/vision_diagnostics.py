@@ -1,8 +1,9 @@
 # Copyright 2026 Conch-TPU authors.
 # SPDX-License-Identifier: Apache-2.0
 
-"""Time K13c (the NMS keep mask) and K13b (the BEV pool backward) in copies
-that change one thing each, and measure the scan's serial floor.
+"""Time K13c (the NMS keep mask), K13b (the BEV pool backward) and K13a (the
+BEV pool forward) in copies that change one thing each, and measure the
+scan's serial floor.
 
     python3 -m conch_tpu_torch.tools.vision_diagnostics [NAME ...]
 
@@ -13,10 +14,14 @@ the named ones), the tool copies the package to
 through the launchers and at ``chip_smoke.py``'s sizes: K13c on 4096 tied
 boxes at IoU 0.5 (``chip_smoke.time_ms``, and each kernel's device time
 from a profile of 20 calls), K13b on BEVFusion's pool in f32 and bf16, and
-``torch.zeros`` of K13b's output (a pure store of the same bytes). Each
-run says whether its outputs equal the plain versions (the diagnostic
-copies need not). The unchanged package runs first and last, so a drift of
-the card shows. The copies:
+``torch.zeros`` of K13b's output (a pure store of the same bytes); K13a on
+the same pool (its kernels by name from a profile), ``torch.zeros`` of its
+grid, and K13a on the pool with every interval cut to 64 points (not a
+pool: the time without the longest intervals' tail); and, once, the
+pool's interval count, longest interval and histogram of interval lengths.
+Each run says whether its outputs equal the plain versions (the
+diagnostic copies need not). The unchanged package runs first and last,
+so a drift of the card shows. The copies:
 
 - ``nms_resolve_x5``: the resolver runs its 64-step loop five times a word
   (each pass from the word's removed bits, chained on the one before;
@@ -31,7 +36,22 @@ the card shows. The copies:
   (``try_wait``);
 - ``bev_plain_stores``: K13b's stores without the streaming hint;
 - ``bev_no_gather``: K13b stores zeros for every row (no cell row read;
-  wrong output): its stores and searches alone.
+  wrong output): its stores and searches alone;
+- ``bev_fwd_no_sums``: K13a's consumers wait for each stage and release it
+  but add nothing (wrong output): the stream of rows and the grid's
+  zeros alone;
+- ``bev_fwd_producer_only``: K13a without its row copies and without the
+  consumers' sums (wrong output): the producer's walk over the intervals,
+  its stages and zeros alone;
+- ``bev_fwd_no_zeros``: K13a without the gaps' zeros (unwritten rows);
+- ``bev_fwd_wide_vectors``: K13a's consumers always take whole 16-byte
+  vectors, never a narrower one for a stage of few runs;
+- ``bev_fwd_3_stages``: K13a's ring of 3 stages (2 planned: five blocks
+  an SM; 3 leave room for three);
+- ``bev_fwd_tile_1024``: K13a's blocks own the intervals of 1024 points
+  (640 planned);
+- ``bev_fwd_default_carveout``: K13a without its shared-memory carveout
+  set to the SM's whole shared memory (CUDA's default carveout).
 """
 
 from __future__ import annotations
@@ -70,9 +90,29 @@ COPIES = {
     "nms_8_background_warps": [
         ("csrc/nms.cu", "constexpr int kNmsBackgroundWarps = 4;", "constexpr int kNmsBackgroundWarps = 8;"),
     ],
-    "nms_spin_waits": [("csrc/nms.cu", "mbarrier.try_wait.parity", "mbarrier.test_wait.parity")],
+    "nms_spin_waits": [("csrc/bulk_copy.cuh", "mbarrier.try_wait.parity", "mbarrier.test_wait.parity")],
     "bev_plain_stores": [("csrc/bev_pool.cu", STORE, "    dst[v] = x;")],
     "bev_no_gather": [("csrc/bev_pool.cu", "    if (row >= 0) x = rows[row * vecs + c];", "    (void)row;")],
+    "bev_fwd_no_sums": [("csrc/bev_pool.cu", "  for (int u = tid; u < h.segs * per_seg; u += kFwdConsumers) {",
+                         "  for (int u = tid + h.segs * per_seg; u < h.segs * per_seg; u += kFwdConsumers) {")],
+    "bev_fwd_producer_only": [
+        ("csrc/bev_pool.cu", "  for (int u = tid; u < h.segs * per_seg; u += kFwdConsumers) {",
+         "  for (int u = tid + h.segs * per_seg; u < h.segs * per_seg; u += kFwdConsumers) {"),
+        ("csrc/bev_pool.cu", "        mbar_arrive_expect(full + 8 * s, static_cast<uint32_t>(rows * row_bytes));",
+         "        mbar_arrive(full + 8 * s);"),
+        ("csrc/bev_pool.cu", "      if (one_span) {", "      if (one_span && rows < 0) {"),
+        ("csrc/bev_pool.cu", "        for (int k = lane; k < npieces; k += 32) {", "        for (int k = lane; k < 0; k += 32) {"),
+    ],
+    "bev_fwd_no_zeros": [("csrc/bev_pool.cu", "zero_later(opens && cell > prev + 1, prev + 1, cell);",
+                          "zero_later(opens && cell > prev + 1 && ni < 0, prev + 1, cell);")],
+    "bev_fwd_wide_vectors": [("csrc/bev_pool.cu", "      int w = 1;\n", "      int w = V;\n")],
+    "bev_fwd_3_stages": [("kernels/vision/bev_pool.py", "FWD_MAX_STAGES = 2", "FWD_MAX_STAGES = 3")],
+    "bev_fwd_tile_1024": [("kernels/vision/bev_pool.py", "FWD_TILE_POINTS = 640", "FWD_TILE_POINTS = 1024")],
+    "bev_fwd_default_carveout": [
+        ("csrc/bev_pool.cu",
+         "  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);",
+         "  return cudaSuccess;"),
+    ],
 }
 RUN = r'''
 import json, tempfile
@@ -80,6 +120,10 @@ import numpy as np, torch
 import chip_smoke as cs
 from torch.profiler import ProfilerActivity, profile
 from conch_tpu_torch.kernels.vision.bev_pool import bev_pool_backward_launcher as k13b, bev_pool_backward_plain
+from conch_tpu_torch.kernels.vision.bev_pool import bev_pool_forward_launcher as k13a, bev_pool_plain
+from conch_tpu_torch.kernels.vision.bev_pool import bev_forward_plan
+from conch_tpu_torch.kernels.common import kernel_function, storage_code
+import ctypes
 from conch_tpu_torch.kernels.vision.nms import nms_keep_mask_launcher as k13c, nms_keep_mask_plain, sorted_boxes
 
 gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
@@ -88,17 +132,34 @@ boxes, scores = cs.nms_boxes(np.random.default_rng(cs.SEED), cs.NMS_BOXES, ties=
 _, parts = sorted_boxes(boxes, scores)
 out["K13c equal"] = bool(torch.equal(k13c(*parts, cs.NMS_IOU), nms_keep_mask_plain(*parts, cs.NMS_IOU)))
 out["K13c ms"] = cs.time_ms(lambda: k13c(*parts, cs.NMS_IOU))
-k13c(*parts, cs.NMS_IOU)
-torch.cuda.synchronize()
-with profile(activities=[ProfilerActivity.CUDA]) as prof:
-    for _ in range(20):
-        k13c(*parts, cs.NMS_IOU)
+
+
+def kernel_ms(fn, iters=20):
+    """Device ms a call of each kernel ``fn`` launches, by name, from a profile of ``iters`` calls."""
+    fn()
     torch.cuda.synchronize()
-with tempfile.TemporaryDirectory() as tmp:
-    prof.export_chrome_trace(f"{tmp}/t.json")
-    events = [e for e in json.load(open(f"{tmp}/t.json"))["traceEvents"] if e.get("cat") == "kernel"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        prof.export_chrome_trace(f"{tmp}/t.json")
+        events = [e for e in json.load(open(f"{tmp}/t.json"))["traceEvents"] if e.get("cat") == "kernel"]
+    by = {}
+    for e in events:
+        name = e["name"].replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0].split("<")[0]
+        by[name[-40:]] = by.get(name[-40:], 0.0) + e["dur"] / 1e3 / iters
+    return by
+
+
+def same_bits(a, b):
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.reshape(-1).view(torch.uint8),
+                                                                     b.reshape(-1).view(torch.uint8))
+
+
+by = kernel_ms(lambda: k13c(*parts, cs.NMS_IOU))
 for kernel in ("nms_mask_kernel", "nms_scan_kernel"):
-    out[f"K13c {kernel} ms"] = sum(e["dur"] for e in events if kernel in e["name"]) / 1e3 / 20
+    out[f"K13c {kernel} ms"] = sum(ms for name, ms in by.items() if kernel in name)
 for dtype in (torch.float32, torch.bfloat16):
     bev = cs.bevfusion_inputs(gen, np.random.default_rng(cs.SEED), dtype)
     n, tag = bev["feats"].shape[0], str(dtype).split(".")[-1]
@@ -107,7 +168,33 @@ for dtype in (torch.float32, torch.bfloat16):
     out[f"K13b {tag} equal"] = bool(torch.equal(k13b(*args), bev_pool_backward_plain(*args)))
     out[f"K13b {tag} ms"] = cs.time_ms(lambda: k13b(*args))
     out[f"zero fill {tag} ms"] = cs.time_ms(lambda: torch.zeros((n, cs.BEV_C), dtype=dtype, device="cuda"))
-    del bev, grad, args
+    # K13a on the same inputs: through its launcher, its kernels by name, a fill of its grid alone, and
+    # the inputs with every interval cut to 64 points (not a pool: the longest runs' tail taken away).
+    fargs = (bev["feats"], bev["geom"], bev["starts"], bev["lengths"], *cs.BEV_GRID)
+    out[f"K13a {tag} equal"] = bool(same_bits(k13a(*fargs), bev_pool_plain(*fargs)))
+    out[f"K13a {tag} ms"] = cs.time_ms(lambda: k13a(*fargs))
+    for kernel, ms in kernel_ms(lambda: k13a(*fargs)).items():
+        out[f"K13a {tag} [profile] {kernel} ms"] = ms
+    plan = bev_forward_plan(fargs[0].shape[0], cs.BEV_C, fargs[0].element_size(), 16 // fargs[0].element_size())
+    occupancy = kernel_function("conch_bev_pool_forward_occupancy", (ctypes.c_int,) * 4)
+    out[f"K13a {tag} blocks an SM"] = occupancy(storage_code(fargs[0]), 16 // fargs[0].element_size(),
+                                                 int(plan.tma), plan.smem_bytes)
+    grid_shape = (*cs.BEV_GRID, cs.BEV_C)
+    out[f"grid zero fill {tag} ms"] = cs.time_ms(lambda: torch.zeros(grid_shape, dtype=dtype, device="cuda"))
+    cut = (*fargs[:3], bev["lengths"].clamp(max=64), *cs.BEV_GRID)
+    out[f"K13a {tag} intervals cut to 64 points ms"] = cs.time_ms(lambda: k13a(*cut))
+    if dtype == torch.float32:
+        lengths = bev["lengths"].long()
+        out["BEVFusion intervals"] = lengths.numel()
+        out["BEVFusion longest interval"] = int(lengths.max())
+        edges = [1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 2**62]
+        hist = {}
+        for lo, hi in zip([0, *edges[:-1]], edges):
+            sel = (lengths >= lo) & (lengths < hi)
+            hist[f"{lo}-{hi - 1}" if hi < 2**62 else f"{lo}+"] = [int(sel.sum()), int(lengths[sel].sum())]
+        out["BEVFusion interval lengths: [intervals, points] by length"] = hist
+        out["BEVFusion points in intervals over 64"] = int((lengths - 64).clamp(min=0).sum())
+    del bev, grad, args, fargs, cut
     torch.cuda.empty_cache()
 print("DIAG " + json.dumps(out), flush=True)
 '''
@@ -157,9 +244,11 @@ def main() -> int:
             print(f"{name}, {limit} W, {label} {mhz:.0f} MHz: a resolve step {step_ms * 1e6:.3f} ns = "
                   f"{step_ms * 1e-3 * mhz * 1e6:.2f} cycles; serial floor of 4096 steps {4096 * step_ms:.4f} ms "
                   f"against the scan's {base:.4f} ms", flush=True)
-    ok = all(r["K13c equal"] and r["K13b float32 equal"] and r["K13b bfloat16 equal"]
+    ok = all(r["K13c equal"] and r["K13b float32 equal"] and r["K13b bfloat16 equal"] and r["K13a float32 equal"]
+             and r["K13a bfloat16 equal"]
              for n, r in runs if n in ("unchanged", "nms_resolve_x5", "nms_8_background_warps", "nms_spin_waits",
-                                       "bev_plain_stores"))
+                                       "bev_plain_stores", "bev_fwd_wide_vectors", "bev_fwd_3_stages",
+                                       "bev_fwd_tile_1024", "bev_fwd_default_carveout"))
     print("the copies that keep the arithmetic equal the plain versions" if ok else "a copy differs", flush=True)
     return 0 if ok else 1
 

@@ -1,7 +1,7 @@
 # Copyright 2026 Conch-TPU authors.
 # SPDX-License-Identifier: Apache-2.0
 
-"""K13c's and K13b's launch plans, on the CPU, against what the kernels do.
+"""K13c's, K13b's and K13a's launch plans, on the CPU, against what the kernels do.
 
 K13c (``conch_tpu_torch/kernels/vision/nms.py:nms_plan``, ``csrc/nms.cu``):
 the suppression mask's upper triangle is stored band-major (band w: the 64
@@ -27,6 +27,21 @@ the last point, a negative start, a dropped interval between two intervals
 of one cell, gaps, an end past the last point. One small case holds the
 port's plain backward against the JAX package's sorted backward (Pallas in
 interpret mode) on zero-length intervals that share a start.
+
+K13a (``kernels/vision/bev_pool.py:bev_forward_plan``, ``csrc/bev_pool.cu``):
+a block owns the kept intervals that start in its tile of points and the
+runs (kept intervals of one cell) that open among them; its producer warp
+reads the intervals 32 at a time and writes pieces of the owned intervals'
+rows into a ring of stages (TMA bulk copies where rows are 16-byte
+vectors), its consumers sum them in point order, carrying a run's sums
+from stage to stage, and the producer zeros the grid rows between runs.
+``forward_producer`` and ``forward_consumer`` repeat that step for step;
+on ``chip_smoke.bev_forward_trap_case`` (a negative start, zero-length
+intervals, an end past the last point, starts at and past it, a dropped
+interval inside a run, runs across tile edges, an interval over several
+tiles, the grid's first and last cells) every kept interval has one
+owner, every grid row is written once, and the model's output equals the
+plain forward (``reference/vision/vision.py:bev_pool``) bit for bit.
 """
 
 import jax.numpy as jnp
@@ -35,7 +50,18 @@ import pytest
 import torch
 
 import conch_tpu.ops.vision as jv
-from conch_tpu_torch.kernels.vision.bev_pool import BWD_BLOCK_POINTS, bev_backward_blocks
+from chip_smoke import bev_cell_coords, bev_forward_trap_case, bev_out_of_range
+from conch_tpu_torch.kernels.vision.bev_pool import (
+    BWD_BLOCK_POINTS,
+    FWD_HEADER_BYTES,
+    FWD_MAX_STAGES,
+    FWD_PIECES,
+    FWD_STAGE_BYTES,
+    FWD_TILE_POINTS,
+    bev_backward_blocks,
+    bev_forward_plan,
+    vector_width,
+)
 from conch_tpu_torch.kernels.vision.nms import (
     CHUNK_WORDS,
     MAX_BOXES,
@@ -46,7 +72,7 @@ from conch_tpu_torch.kernels.vision.nms import (
     band_row_words,
     nms_plan,
 )
-from conch_tpu_torch.reference.vision.vision import bev_pool_backward, interval_cells
+from conch_tpu_torch.reference.vision.vision import bev_pool, bev_pool_backward, interval_cells
 from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
 NMS_SIZES = (1, 63, 64, 65, 513, 4096, MAX_BOXES)
@@ -322,3 +348,327 @@ def test_bev_plain_backward_matches_jax_on_shared_starts(rng):
     ref = jv.bev_pool_backward(jnp.asarray(grad), jnp.asarray(geom), jnp.asarray(starts), jnp.asarray(lengths),
                                cells_sorted=True)
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+# --- K13a ---------------------------------------------------------------------
+
+BEVFUSION_POINTS = 1_630_118  # chip_smoke.bevfusion_inputs' kept points
+FWD_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+OPEN_INTERVAL, CLOSE_INTERVAL, OPEN_RUN, CLOSE_RUN = 1, 2, 4, 8  # a piece's flags (csrc/bev_pool.cu)
+
+
+def kernel_vec(channels, dtype, offset=0):
+    """vector_width for features of ``channels`` whose base is ``offset``
+    elements past an allocation's (16-byte aligned) start."""
+    feats = torch.empty(2 * channels + offset, dtype=dtype)[offset:]
+    return vector_width(channels, feats.element_size(), feats)
+
+
+@pytest.mark.parametrize("dtype", FWD_DTYPES)
+@pytest.mark.parametrize("channels", (5, 6, 24, 80, 256))
+@pytest.mark.parametrize("offset", (0, 1))
+def test_bev_forward_plan_fits_the_card(channels, dtype, offset):
+    """At BEVFusion's point count: a block a tile; TMA stages exactly where a
+    row is whole 16-byte vectors on a 16-byte base, each stage whole rows
+    of at most FWD_STAGE_BYTES, a multiple of 16 bytes; the shared memory
+    within the H100's 227 KB, and as many stages as fit up to the cap."""
+    es = torch.empty((), dtype=dtype).element_size()
+    vec = kernel_vec(channels, dtype, offset)
+    plan = bev_forward_plan(BEVFUSION_POINTS, channels, es, vec)
+    row = channels * es
+    assert plan.tile_points == FWD_TILE_POINTS
+    assert (plan.blocks - 1) * plan.tile_points < BEVFUSION_POINTS <= plan.blocks * plan.tile_points
+    assert plan.tma == (row % 16 == 0 and offset == 0) == (vec * es == 16)
+    if plan.tma:
+        assert plan.stage_rows == min(max(1, FWD_STAGE_BYTES // row), FWD_PIECES)
+        assert plan.stage_bytes == plan.stage_rows * row and plan.stage_bytes % 16 == 0
+        assert plan.stage_bytes <= max(FWD_STAGE_BYTES, row) and 2 <= plan.stages <= FWD_MAX_STAGES
+    else:
+        assert plan.stage_rows == FWD_PIECES and plan.stage_bytes == 0 and plan.stages == FWD_MAX_STAGES
+    one_stage = plan.stage_bytes + FWD_HEADER_BYTES + 16  # its rows, its header, two mbarriers
+    assert plan.smem_bytes == 16 * channels + FWD_HEADER_BYTES + plan.stages * one_stage
+    assert plan.smem_bytes <= SMEM_LIMIT
+    assert plan.stages == FWD_MAX_STAGES or plan.smem_bytes + one_stage > SMEM_LIMIT
+    if channels == 80 and offset == 0:  # BEVFusion's rows: stages of 56 f32 or 112 bf16 / f16 rows, 5 blocks an SM
+        assert plan.tma and plan.stage_rows == FWD_STAGE_BYTES // row and 5 * (plan.smem_bytes + 1024) <= 228 * 1024
+
+
+def test_bev_forward_plan_wide_rows():
+    """Rows too wide for two stages are read from global memory; channels
+    whose carried sums leave no room raise."""
+    wide = bev_forward_plan(1000, 12288, 4, 4)
+    assert not wide.tma and wide.smem_bytes <= SMEM_LIMIT
+    assert bev_forward_plan(1000, 8192, 2, 8).tma
+    with pytest.raises(NotImplementedError):
+        bev_forward_plan(1000, 15000, 4, 4)
+
+
+class Stage:
+    """One published stage: its pieces (first feats row, cell, first stage
+    row, rows, flags), segment starts, rows and whether it is the last."""
+
+    def __init__(self, pieces, rows, done):
+        self.pieces, self.rows, self.done = pieces, rows, done
+        self.segs = [k for k in range(len(pieces)) if k == 0 or pieces[k - 1][4] & CLOSE_RUN]
+
+
+def kept_cells(starts, geom, grid):
+    """bev_cell of each interval: its flat cell, or -1 when it is dropped."""
+    cells, valid = interval_cells(torch.from_numpy(geom), torch.from_numpy(starts), *grid)
+    return torch.where(valid, cells, -1).numpy()
+
+
+def first_bit(lanes, above=-1):
+    """The first lane above ``above`` in ``lanes`` (32: none), as next_bit."""
+    return min([lane for lane in lanes if lane > above], default=32)
+
+
+def forward_producer(block, starts, lengths, cells, num_points, grid_rows, plan):
+    """bev_pool_fwd_kernel's producer warp for one block, step for step:
+    (its published stages in order, the grid rows it zeros as [lo, hi)
+    ranges, the intervals it emits rows of)."""
+    ni, p0, sr = len(starts), block * plan.tile_points, plan.stage_rows
+    p1 = min(p0 + plan.tile_points, num_points)
+    first = int(np.searchsorted(starts, p0, side="left"))  # the 32-way search's answer (ascending starts)
+    cur_cell = next((int(cells[i]) for i in range(first - 1, -1, -1) if cells[i] >= 0), -1)
+    stages, zeros, emitted, open_pieces = [], [], [], []
+    streamed = t_pub = 0
+    pending = -1
+
+    def publish(done):
+        nonlocal t_pub
+        stages.append(Stage(list(open_pieces), min(streamed - t_pub * sr, sr), done))
+        t_pub += 1
+        open_pieces.clear()
+
+    owned_run = run_rows = any_run = reached_end = False
+    j = first
+    while True:
+        idx = [j + lane for lane in range(32)]
+        valid = [i < ni for i in idx]
+        start = [int(starts[i]) if v else num_points for i, v in zip(idx, valid)]
+        length = [int(lengths[i]) if v else 0 for i, v in zip(idx, valid)]
+        cell = [int(cells[i]) if v else -1 for i, v in zip(idx, valid)]
+        kept = [c >= 0 for c in cell]
+        in_tile = [v and st < p1 for v, st in zip(valid, start)]
+        prev, run_start, own = [], [], []
+        for lane in range(32):
+            below = [m for m in range(lane) if kept[m]]
+            prev.append(cell[below[-1]] if below else cur_cell)
+            run_start.append(kept[lane] and cell[lane] != prev[lane])
+            openers = [m for m in range(lane + 1) if run_start[m]]
+            own.append(in_tile[openers[-1]] if openers else owned_run)
+        stop = [not valid[lane] or (not in_tile[lane] and not own[lane]) for lane in range(32)]
+        count = stop.index(True) if any(stop) else 32
+        opens = [lane for lane in range(count) if run_start[lane] and own[lane]]
+        zeros += [(prev[lane] + 1, cell[lane]) for lane in opens if cell[lane] > prev[lane] + 1]
+        end = [min(st + max(ln, 0), num_points) for st, ln in zip(start, length)]
+        emits = [lane for lane in range(count) if kept[lane] and own[lane] and end[lane] > start[lane]]
+        events = opens + ([count] if count < 32 else [])
+        for e in events:  # a run that closes without rows: its cell's zeros
+            r = max([lane for lane in opens if lane < e], default=-1)
+            rows_between = any(max(r, 0) <= m < e for m in emits)
+            if r >= 0 and not rows_between:
+                zeros.append((cell[r], cell[r] + 1))
+            if r < 0 and owned_run and not run_rows and not rows_between:
+                zeros.append((cur_cell, cur_cell + 1))
+        opens_rows = {}  # the first rows since the run opened (its opening interval may have none)
+        for m in emits:
+            r = max([lane for lane in opens if lane <= m], default=-1)
+            opens_rows[m] = not any(max(r, 0) <= x < m for x in emits) and (r >= 0 or not run_rows)
+        decided = {m: first_bit(events, m) < 32 or first_bit(emits, m) < 32 for m in emits}
+        closes = {m: first_bit(events, m) < 32 and first_bit(events, m) <= first_bit(emits, m) for m in emits}
+        if pending >= 0:
+            e0, m0 = first_bit(events), first_bit(emits)
+            if e0 < 32 or m0 < 32:
+                if e0 < 32 and e0 <= m0:
+                    grow, c, srow, n, flags = open_pieces[pending]
+                    open_pieces[pending] = (grow, c, srow, n, flags | CLOSE_RUN)
+                pending = -1
+                if streamed == (t_pub + 1) * sr:
+                    publish(False)
+        rows = {m: end[m] - start[m] for m in emits}
+        pos, at = {}, streamed
+        for m in emits:
+            pos[m], at = at, at + rows[m]
+        batch_end = at
+        emitted += [idx[m] for m in emits]
+        while emits:
+            lo, hi = t_pub * sr, t_pub * sr + sr
+            for m in emits:
+                a, b = max(pos[m], lo), min(pos[m] + rows[m], hi)
+                if a < b:
+                    flags = (OPEN_INTERVAL | (OPEN_RUN if opens_rows[m] else 0) if a == pos[m] else 0) | (
+                        CLOSE_INTERVAL | (CLOSE_RUN if closes[m] else 0) if b == pos[m] + rows[m] else 0)
+                    open_pieces.append((start[m] + a - pos[m], cell[m], a - lo, b - a, flags))
+            if batch_end < hi:
+                if not decided[emits[-1]]:
+                    pending = len(open_pieces) - 1
+                break
+            streamed = hi
+            if batch_end == hi and not decided[emits[-1]]:
+                pending = len(open_pieces) - 1
+                break
+            publish(False)
+        streamed = batch_end
+        any_run |= bool(opens)
+        run_rows = any(m >= opens[-1] for m in emits) if opens else run_rows or bool(emits)
+        if count > 0:
+            owned_run = own[count - 1]
+        mine = [lane for lane in range(count) if kept[lane]]
+        if mine:
+            cur_cell = cell[mine[-1]]
+        if count < 32:
+            reached_end = not valid[count]
+            break
+        j += 32
+    if reached_end and owned_run and cur_cell + 1 < grid_rows:
+        zeros.append((cur_cell + 1, grid_rows))
+    if block == 0 and not any_run and not (cells[first:] >= 0).any():
+        zeros.append((0, grid_rows))
+    assert pending < 0
+    publish(True)
+    return stages, zeros, emitted
+
+
+def forward_consumer(stages, feats, plan, row_bytes):
+    """The consumers over one block's stages, step for step (f32 sums in
+    numpy, every channel at once: a thread's chain is one channel's), with
+    each TMA stage's rows put where its pieces' copies land: {cell: f32 row}."""
+    channels, writes, carry = feats.shape[1], {}, None
+    for stage in stages:
+        assert len(stage.pieces) <= FWD_PIECES and stage.rows <= plan.stage_rows
+        assert sum(p[3] for p in stage.pieces) == stage.rows
+        rows = feats
+        if plan.tma:
+            rows = np.full((plan.stage_rows, channels), np.nan, dtype=np.float32)
+            for grow, _, srow, n, _ in stage.pieces:
+                # TMA's rule: 16-byte aligned source and destination, a multiple of 16 bytes, inside the stage.
+                assert (grow * row_bytes) % 16 == 0 and (srow * row_bytes) % 16 == 0 and (n * row_bytes) % 16 == 0
+                assert n >= 1 and srow + n <= plan.stage_rows
+                rows[srow : srow + n] = feats[grow : grow + n]
+            assert stage.rows * row_bytes <= plan.stage_bytes
+        segs, out_carry = [*stage.segs, len(stage.pieces)], None
+        for k in range(len(stage.segs)):
+            pieces = stage.pieces[segs[k] : segs[k + 1]]
+            first = pieces[0][4]
+            if not first & (OPEN_INTERVAL | OPEN_RUN) == OPEN_INTERVAL | OPEN_RUN:
+                assert k == 0 and carry is not None  # only a stage's first segment goes on from the last stage
+            s = np.zeros(channels, np.float32) if first & OPEN_INTERVAL else carry[0]
+            acc = np.zeros(channels, np.float32) if first & OPEN_RUN else carry[1]
+            for grow, cell, srow, n, flags in pieces:
+                if flags & OPEN_INTERVAL:
+                    s = np.zeros(channels, np.float32)
+                if flags & OPEN_RUN:
+                    acc = np.zeros(channels, np.float32)
+                base = srow if plan.tma else grow
+                for r in range(base, base + n):
+                    s = s + rows[r]  # in point order, f32
+                if flags & CLOSE_INTERVAL:
+                    acc = acc + s
+                if flags & CLOSE_RUN:
+                    assert cell not in writes
+                    writes[cell] = acc
+            if not pieces[-1][4] & CLOSE_RUN:
+                assert k == len(stage.segs) - 1
+                out_carry = (s, acc)
+        carry = out_carry
+    return writes
+
+
+def forward_model(feats, geom, starts, lengths, grid, plan, sums=True):
+    """The kernel's blocks over the intervals: checks that every kept
+    interval is emitted by one block and every grid row written once, and
+    returns the output (with ``sums``) as the kernel writes it."""
+    num_points, grid_rows = geom.shape[0], int(np.prod(grid))
+    cells = kept_cells(starts, geom, grid)
+    owners, written, runs = np.zeros(len(starts), int), np.zeros(grid_rows, int), {}
+    feats32 = feats.float().numpy() if sums else None
+    row_bytes = feats.shape[1] * feats.element_size()
+    for block in range(plan.blocks):
+        stages, zeros, emitted = forward_producer(block, starts, lengths, cells, num_points, grid_rows, plan)
+        assert stages[-1].done and not any(st.done for st in stages[:-1])
+        owners[emitted] += 1
+        for lo, hi in zeros:
+            written[lo:hi] += 1
+        closed = [p[1] for st in stages for p in st.pieces if p[4] & CLOSE_RUN]
+        written[closed] += 1
+        if sums:
+            runs.update(forward_consumer(stages, feats32, plan, row_bytes))
+    nonempty = np.minimum(starts.astype(np.int64) + np.maximum(lengths, 0), num_points) > starts
+    np.testing.assert_array_equal(owners, ((cells >= 0) & nonempty).astype(int),
+                                  err_msg="kept intervals with points owned once, the others never")
+    np.testing.assert_array_equal(written, np.ones(grid_rows, int), err_msg="grid rows written once")
+    if not sums:
+        return None
+    out = torch.zeros((grid_rows, feats.shape[1]), dtype=feats.dtype)
+    for cell, acc in runs.items():
+        out[cell] = torch.from_numpy(acc).to(feats.dtype)  # one cast, to nearest even
+    return out.reshape(*grid, feats.shape[1])
+
+
+def same_bits(a, b):
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.reshape(-1).view(torch.uint8),
+                                                                     b.reshape(-1).view(torch.uint8))
+
+
+def check_model(geom, starts, lengths, grid, dtype, channels, tile_points, seed=0):
+    feats = torch.from_numpy(np.random.default_rng(seed).normal(size=(geom.shape[0], channels)).astype(np.float32))
+    feats = feats.to(dtype)
+    es = feats.element_size()
+    vec = kernel_vec(channels, dtype)
+    plan = bev_forward_plan(geom.shape[0], channels, es, vec, tile_points=tile_points)
+    got = forward_model(feats, geom, starts, lengths, grid, plan)
+    ref = bev_pool(feats, torch.from_numpy(geom), torch.from_numpy(starts), torch.from_numpy(lengths), *grid)
+    assert same_bits(got, ref)
+    return plan
+
+
+@pytest.mark.parametrize("dtype", FWD_DTYPES)
+@pytest.mark.parametrize("channels", (6, 24))
+@pytest.mark.parametrize("tile_points", (64, FWD_TILE_POINTS))
+def test_bev_forward_model_matches_plain(tile_points, channels, dtype):
+    """The trap case at 3000 points, in tiles of 64 (47 blocks, runs and an
+    interval of 209 points across their edges) and of the kernel's 1024;
+    C 24 through TMA stages, C 6 from global memory."""
+    grid = (2, 2, 16, 16)
+    geom, starts, lengths = bev_forward_trap_case(np.random.default_rng(tile_points + channels), 3000, grid,
+                                                  tile_points)
+    plan = check_model(geom, starts, lengths, grid, dtype, channels, tile_points)
+    assert plan.tma == (channels == 24)
+
+
+def test_bev_forward_model_small_stages():
+    """Stages of 3 rows (a 16 KB stage of a 5456-byte row): every interval
+    crosses stages, runs carry their sums from stage to stage."""
+    grid = (2, 2, 16, 16)
+    geom, starts, lengths = bev_forward_trap_case(np.random.default_rng(5), 600, grid, 64)
+    check_model(geom, starts, lengths, grid, torch.float32, 1364, 64)
+
+
+def test_bev_forward_ownership_at_many_tiles():
+    """100,000 points in tiles of 1024 (98 blocks): intervals owned once,
+    grid rows written once (no sums)."""
+    grid = (2, 1, 128, 128)
+    geom, starts, lengths = bev_forward_trap_case(np.random.default_rng(3), 100_000, grid, FWD_TILE_POINTS)
+    feats = torch.empty((geom.shape[0], 80), dtype=torch.bfloat16)
+    forward_model(feats, geom, starts, lengths, grid, bev_forward_plan(geom.shape[0], 80, 2, 8), sums=False)
+
+
+def test_bev_forward_no_kept_interval():
+    """Every interval dropped: block 0 zeros the grid, no block emits."""
+    grid = (2, 2, 16, 16)
+    geom = np.tile(np.asarray(bev_out_of_range(7, grid), dtype=np.int32), (500, 1))
+    starts = np.arange(0, 500, 10, dtype=np.int32)
+    check_model(geom, starts, np.full_like(starts, 10), grid, torch.float32, 24, 64)
+
+
+def test_bev_forward_long_interval():
+    """One interval of 20,000 points (over 300 tiles of 64) between two short
+    ones: its owner streams it through the stages, the tiles it covers skip it."""
+    grid, n = (2, 2, 16, 16), 20_020
+    geom = np.zeros((n, 4), dtype=np.int32)
+    geom[:10], geom[10:-10], geom[-10:] = bev_cell_coords(3, grid), bev_cell_coords(7, grid), bev_cell_coords(700, grid)
+    starts = np.asarray([0, 10, n - 10], dtype=np.int32)
+    lengths = np.asarray([10, n - 20, 10], dtype=np.int32)
+    check_model(geom, starts, lengths, grid, torch.bfloat16, 24, 64)
