@@ -37,22 +37,41 @@
      biases 8, 0 and 15, stacked
      and single weights, M 1 to 600, x three ways, f32 and bf16 outputs;
      1e-2 x max |ref|, every case bit for bit across two calls);
-   - K3 over every option it takes (``check_paged_attention_options``, 1008
+   - K3 over every option it takes (``check_paged_attention_options``, 1344
      cases: bf16 and f32 queries over bf16, f32, int8 and e4m3 caches, GQA
-     groups 1, 4 and 8, heads 34 to 256, softcap, windows 0, 37 and 500, one
+     groups 1, 4, 7 and 8, heads 34 to 256, softcap, windows 0, 37 and 500, one
      split and several, idle rows exactly zero, shared prefix pages, pages no
      row may see set to NaN; 3e-2, or 3e-2 + 3e-2 x |ref| on 1-byte caches;
      every case bit for bit across two calls), then one K3 call captured in
      a CUDA graph and replayed (equal to the eager call, also after
-     seq_lens changed in place);
+     seq_lens changed in place), then 288 rolling-KV cases
+     (``check_paged_ring_options``: bf16 queries over bf16, int8 and e4m3
+     caches and f32 over f32, groups 1, 4, 7 and 8, heads 64 to 256,
+     windows 37, 500 and 2000 over rings of 5, 34 and 127 pages that the
+     sequences wrap up to 62 times, softcap on and off, one split and
+     several, the table's entries past the ring poisoned);
    - K7 over every option it takes (``check_varlen_attention_options``,
-     1008 cases: K3's (query, cache) dtypes, groups and heads, causal and
+     1344 cases: K3's (query, cache) dtypes, groups and heads, causal and
      not, softcap, windows 0, 37 and 500, a ragged step with a decode row,
      a zero-length sequence and padding rows, shared prefix pages, pages no
      row may see set to NaN, several splits and one; 2e-2 + 2e-2 x |ref|,
      padding rows exactly zero, every case bit for bit across two calls),
      then one K7 call replayed from a CUDA graph (also after cu_seqlens_q
-     and seq_lens changed in place);
+     and seq_lens changed in place), then 576 rolling-KV cases
+     (``check_varlen_ring_options``: K3's ring types, groups, heads and
+     windows on the ragged step, causal and not, rings of the window plus
+     the step's largest chunk);
+   - K3 and K7 over a ring at Mistral-7B's shapes (``kernel_phase_ring``:
+     the decode step of 8 at 4100 to 7064 tokens and a 512-row chunk,
+     window 4096, the rolling engine's ring of 289 pages), bit for bit
+     against the same band through a linear table and timed beside it in
+     turns; K3 and K7 at Qwen2-7B's GQA group of 7 (``kernel_phase_group7``:
+     the served decode step and the 512-row prefill step); K1 at Qwen2-7B's
+     int4 shapes (``kernel_phase_k1_qwen2``: K 3584 and 18944, M 8, 32 and
+     512, beside bf16 ``torch.matmul``); K8's e4m3 loop kernel at the w8a8
+     shapes, M 16, 32 and 512, beside ``torch._scaled_mm``
+     (``kernel_phase_k8_e4m3``), and K7 under f32 queries
+     (``kernel_phase_k7_f32``);
    - K8's int8 path over every option it takes (``check_scaled_gemm_options``,
      522 cases: M 1 to 600, K 96 / N 160 and the served shapes, f32 and bf16
      outputs, scalar and vector scales, stacked and single weights, strided
@@ -107,15 +126,16 @@
      Gemma-2-2B's gate|up matmul at 16): the pair's device time minus the
      predecessor's, with and without the programmatic-dependent launch;
    - K6 and K10b over every option they take (``check_gated_act_options``,
-     1470 cases, each with and without the programmatic-dependent launch:
-     f32, bf16 and f16, d 14336, 9216, 10944, 2816, 128, 4096 and 531, 0
+     1680 cases, each with and without the programmatic-dependent launch:
+     f32, bf16 and f16, d 14336, 9216, 10944, 2816, 128, 4096, 531 and
+     18944, 0
      to 512 rows, fused halves, row-strided and contiguous parts, a base or
      rows that break 16-byte alignment) at tests/activation_test.py's
      tolerances and bit for bit against the kernel's own rounding of its
      f32 activation;
-   - K5 over every option it takes (``check_rope_options``, 2304 cases: f32,
-     bf16 and f16, heads (32, 8, 128), (8, 4, 256), (4, 1, 128) and (8, 8,
-     64), whole, half and D - 28 rot_dims, 0 to 512 tokens, contiguous q/k,
+   - K5 over every option it takes (``check_rope_options``, 2880 cases: f32,
+     bf16 and f16, heads (32, 8, 128), (8, 4, 256), (4, 1, 128), (8, 8,
+     64) and (28, 4, 128), whole, half and D - 28 rot_dims, 0 to 512 tokens, contiguous q/k,
      slices of a fused qkv block, rows or a base that break 16-byte
      alignment, positions past the cache, each with and without the
      programmatic-dependent launch) and K10a over every option it takes
@@ -203,7 +223,8 @@
 5. slice phases: the first-token logits of 2-layer full-width prefills on
    the card against the plain path on the CPU (Llama-3-8B: bf16 weights in
    f32 and bf16, int4 at group 128 and 64, int8, nf4 and w8a8 weights in
-   bf16; Gemma-2-2B: f32 and bf16, random norm weights; DeepSeek-V2-Lite,
+   bf16; Qwen2-7B and Mistral-7B (window cut to 16): bf16 weights in f32,
+   int4 in bf16; Gemma-2-2B: f32 and bf16, random norm weights; DeepSeek-V2-Lite,
    one dense and one MoE
    layer: f32 and bf16, random norm weights, and the MoE routing compared
    token by token, a divergence accepted only at a near tie; each family
@@ -235,10 +256,24 @@
      its twin above with only the cache changed: the int4 example over an
      int8 cache, bf16 Llama over an e4m3 cache, DeepSeek-V2-Lite over an
      e4m3 latent cache;
+   - Mistral-7B-v0.1 in int4 (its published config, window 4096 on every
+     layer) with rolling KV (``mistral_7b_int4_rolling``: page 16, 512-row
+     prefill steps, a ring of 289 pages, 8 requests of 40 to 7000 tokens,
+     64 new tokens each), then its unbounded twin (the same window, every
+     page kept): equal greedy tokens, at most 289 pages a sequence, every
+     K3 and K7 launch of the rolling run over the ring
+     (``check_rolling_twins``);
+   - Qwen2-7B in int4 (``qwen2_7b_int4``: q/k/v biases, GQA group 7, 28
+     layers): 8 requests of 40 to 2000 tokens,
+     ``EngineConfig(num_pages=4096, max_batch_size=32,
+     max_pages_per_seq=160)``;
 6. prints the ``kernels`` JSON line (each row's launches from its main
    run: Gemma for the kernels it runs, int4 for K1, K4 and K6, int8, nf4
    and w8a8 for K1b, K1c and K8, the nf4 init for K12q, DeepSeek for K11,
-   K9's own phase for K9 (no served path runs it), the vision path for
+   K9's own phase for K9 (no served path runs it; nor K8's e4m3 and K7's
+   f32 rows, whose launches are their phases'), Mistral-7B's rolling run
+   for K3's and K7's ring rows (their launches over the ring), Qwen2-7B
+   for their group-7 rows and K1's Qwen2 row, the vision path for
    K13a, K13b and K13c, the QLoRA path for K12d, the residual stream for
    K4b, the TP-8 collectives path for K14; every path's counts
    beside them), the card line, then ``{"ok": true, "device": ...}`` as the
@@ -678,11 +713,11 @@ def row_kernel_pairs(gen, rng, by_name: dict) -> None:
 
 
 # K5's options (check_rope_options): head shapes (Llama-3-8B, Gemma-2-2B,
-# JAX's test shapes), three rot_dims each (whole, half, and rot_dim / 2 not
+# JAX's test shapes, Qwen2-7B's 28 over 4), three rot_dims each (whole, half, and rot_dim / 2 not
 # a multiple of 8: D - 28), token counts, q/k layouts (contiguous, slices
 # of a fused qkv block, fused rows one element longer, contiguous rows from
 # a base one element off), positions from -64 to past the cache.
-ROPE_OPTION_HEADS = ((32, 8, 128), (8, 4, 256), (4, 1, 128), (8, 8, 64))
+ROPE_OPTION_HEADS = ((32, 8, 128), (8, 4, 256), (4, 1, 128), (8, 8, 64), (28, 4, 128))
 ROPE_OPTION_TOKENS = (0, 1, 7, 8, 16, 32, 128, 512)
 ROPE_OPTION_LAYOUTS = ("contiguous", "fused", "misaligned rows", "misaligned base")
 ROPE_OPTION_POSITIONS = 4096
@@ -848,8 +883,8 @@ def _kernel_row(name: str, source: str, replaces: str, err: float, timed: dict, 
     }
 
 
-def _k1_cases(gen, group: int) -> list[dict]:
-    """K1 at the engine's four (K, N), M in GEMM_MS, layer 17 of a 32-layer
+def _k1_cases(gen, group: int, shapes: tuple = K1_SHAPES) -> list[dict]:
+    """K1 at the engine's four (K, N) (or ``shapes``), M in GEMM_MS, layer 17 of a 32-layer
     stack, at ``group``: checked against the plain version (tolerance 1e-2
     x max |ref|), bit for bit across two calls, and timed beside it and a
     bf16 matmul on the dequantized weight."""
@@ -862,7 +897,7 @@ def _k1_cases(gen, group: int) -> list[dict]:
     )
 
     detail = []
-    for k, n in K1_SHAPES:
+    for k, n in shapes:
         packed = torch.randint(-(2**31), 2**31 - 1, (NUM_LAYERS_POOL, k // 8, n), generator=gen, device="cuda",
                                dtype=torch.int32)
         scales = (torch.rand((NUM_LAYERS_POOL, k // group, n), generator=gen, device="cuda") * 4e-3 + 1e-4).to(
@@ -1752,14 +1787,14 @@ def k3_inputs(gen, rng, name: str, cache: str | None = None) -> dict:
 
 def k3_bound(case: dict, window: int) -> tuple[float, str]:
     """K3's bound on ``case`` (k3_inputs) under ``window``: the query read
-    and the output written in bf16, each visible cached K and V row read
-    once (shared pages once), the table entries of the visible pages and
-    seq_lens; 4 * QH * D operations a visible token."""
+    and the output written in its dtype, each visible cached K and V row
+    read once (shared pages once), the table entries of the visible pages
+    and seq_lens; 4 * QH * D operations a visible token."""
     qh, kh, d = case["shape"]
-    seq_lens, kc = case["seq_lens"], case["args"][1]
+    seq_lens, kc, q = case["seq_lens"], case["args"][1], case["args"][0]
     starts = [max(n - window, 0) if window else 0 for n in seq_lens]
     pages = sum(-(-n // PS) - a // PS for n, a in zip(seq_lens, starts) if n > a)
-    bytes_moved = (2 * case["args"][0].numel() * 2 + 2 * unique_kv_rows(case["bt"], seq_lens, starts) * kh * d
+    bytes_moved = (2 * q.numel() * q.element_size() + 2 * unique_kv_rows(case["bt"], seq_lens, starts) * kh * d
                    * kc.element_size() + pages * 4 + len(seq_lens) * 4)
     return bound(bytes_moved, 4 * qh * d * sum(n - a for n, a in zip(seq_lens, starts)))
 
@@ -1806,21 +1841,22 @@ def k7_inputs(gen, rng, name: str, cache: str | None = None) -> dict:
     }
 
 
-def k7_bound(case: dict, window: int) -> tuple[float, str]:
+def k7_bound(case: dict, window: int, ops_per_s: float = BF16_OPS_PER_S) -> tuple[float, str]:
     """K7's bound on ``case`` (k7_inputs) under ``window``: the live query
-    rows read and every row written in bf16, each cached K and V row that a
-    row sees read once (shared pages once; a sequence's first row has the
-    earliest window start), the block table, cu_seqlens_q and seq_lens; 4 *
-    QH * D operations a visible (row, key) pair."""
+    rows read and every row written in the query's dtype, each cached K and
+    V row that a row sees read once (shared pages once; a sequence's first
+    row has the earliest window start), the block table, cu_seqlens_q and
+    seq_lens; 4 * QH * D operations a visible (row, key) pair, at
+    ``ops_per_s``."""
     qh, kh, d = case["shape"]
     q_lens, seq_lens, bt, kc = case["q_lens"], case["seq_lens"], case["bt"], case["args"][1]
-    rows = case["args"][0].shape[0]
+    rows, q_bytes = case["args"][0].shape[0], case["args"][0].element_size()
     row_pos = [s - ql + j for ql, s in zip(q_lens, seq_lens) for j in range(ql)]
     row_start = [max(p - window + 1, 0) if window else 0 for p in row_pos]
     starts = [max(s - ql - window + 1, 0) if window else 0 for ql, s in zip(q_lens, seq_lens)]
-    bytes_moved = ((case["total"] + rows) * qh * d * 2 + 2 * unique_kv_rows(bt, seq_lens, starts) * kh * d
+    bytes_moved = ((case["total"] + rows) * qh * d * q_bytes + 2 * unique_kv_rows(bt, seq_lens, starts) * kh * d
                    * kc.element_size() + bt.size * 4 + (len(q_lens) + 1 + len(seq_lens)) * 4)
-    return bound(bytes_moved, 4 * qh * d * sum(p + 1 - a for p, a in zip(row_pos, row_start)))
+    return bound(bytes_moved, 4 * qh * d * sum(p + 1 - a for p, a in zip(row_pos, row_start)), ops_per_s)
 
 
 # tests/gemma_rms_norm_test.py's tolerances (atol and rtol) for K10a.
@@ -1933,9 +1969,10 @@ def check_gemma_rms_norm_options(gen) -> None:
 # K4's options (check_rms_norm_options): rows around one block a row and
 # the spread limit (131 to 133), the served steps, past them; widths (JAX's
 # 128 and 531, Gemma-2-2B's 2304, Llama-3-8B's 4096, Llama-2-13B's 5120,
-# 8192: looped in scalars, 16384: looped in f32 vectors); NORM_OPTION_LAYOUTS.
+# 8192: looped in scalars, 16384: looped in f32 vectors; Qwen2-7B's 3584);
+# NORM_OPTION_LAYOUTS.
 RMS_OPTION_ROWS = (0, 1, 3, 8, 32, 131, 133, 512, 540)
-RMS_OPTION_HIDDEN = (128, 531, 2304, 4096, 5120, 8192, 16384)
+RMS_OPTION_HIDDEN = (128, 531, 2304, 4096, 5120, 8192, 16384, 3584)
 
 
 def check_rms_norm_options(gen) -> None:
@@ -1977,11 +2014,11 @@ def check_rms_norm_options(gen) -> None:
 
 # K2's options (check_cache_write_options): token counts (a third of the
 # rows idle, tokens sharing pages), (KH, D) of Llama-3-8B, Gemma-2-2B, a
-# single head of 64 and D 80, page sizes, k / v layouts (contiguous; slices
+# single head of 64 and D 80, Qwen2-7B, page sizes, k / v layouts (contiguous; slices
 # of a fused qkv block; fused rows one element longer; contiguous rows from
 # a base one element off), every (key, cache) type pair K2 takes.
 CACHE_OPTION_TOKENS = (1, 7, 8, 32, 130, 540)
-CACHE_OPTION_HEADS = ((8, 128), (4, 256), (1, 64), (2, 80))
+CACHE_OPTION_HEADS = ((8, 128), (4, 256), (1, 64), (2, 80), (4, 128))
 CACHE_OPTION_PAGE_SIZES = (16, 64)
 CACHE_OPTION_LAYOUTS = ("contiguous", "fused", "misaligned rows", "misaligned base")
 CACHE_OPTION_TYPES = (
@@ -2081,10 +2118,10 @@ def kernel_phase_k10b(gen) -> dict:
 
 # K6's and K10b's options (check_gated_act_options): widths (Llama-3-8B's
 # 14336, Gemma-2-2B's 9216, DeepSeek-V2-Lite's 10944 and 2816, the JAX
-# tests' 128, 4096 and 531), rows, layouts (the fused halves of a (rows,
+# tests' 128, 4096 and 531, Qwen2-7B's 18944), rows, layouts (the fused halves of a (rows,
 # 2d) input; row-strided parts sliced from one; separate contiguous parts;
 # fused halves from a base one element off; fused rows one element longer).
-GATED_OPTION_WIDTHS = (14336, 9216, 10944, 2816, 128, 4096, 531)
+GATED_OPTION_WIDTHS = (14336, 9216, 10944, 2816, 128, 4096, 531, 18944)
 GATED_OPTION_ROWS = (0, 1, 7, 8, 16, 32, 512)
 GATED_OPTION_LAYOUTS = ("halves", "strided parts", "parts", "misaligned base", "misaligned rows")
 
@@ -2670,7 +2707,7 @@ PAGED_OPTION_TYPES = (
     (torch.bfloat16, torch.int8), (torch.bfloat16, torch.float8_e4m3fn), (torch.float32, torch.int8),
     (torch.float32, torch.float8_e4m3fn),
 )
-PAGED_OPTION_GROUPS = (1, 4, 8)
+PAGED_OPTION_GROUPS = (1, 4, 7, 8)  # 7: Qwen2-7B's group, not a power of two
 PAGED_OPTION_HEADS = (64, 128, 256, 34)
 PAGED_OPTION_LENS = [0, 1, 17, 300, 700, 1000]  # row 0 idle; row 4 shares row 3's first 8 pages
 PAGED_OPTION_KH, PAGED_OPTION_LAYERS = 2, 3
@@ -2693,6 +2730,24 @@ def _poisoned(pool: torch.Tensor, pages: list[int]) -> torch.Tensor:
     else:
         out[:, pages] = float("nan")
     return out
+
+
+def _report_cases(label: str, names: list, errs: list, tols: list, same: list, zero: list, splits: set) -> None:
+    """Read a sweep's errors once and fail on any case outside its
+    tolerance, with a nonzero idle or padding row, or unequal across its
+    two calls."""
+    err_list, over, same_list, zero_list = (torch.stack(errs).tolist(), torch.stack(tols).tolist(),
+                                            torch.tensor(same).tolist(), torch.stack(zero).tolist())
+    print(f"{label}: {len(names)} cases (splits {sorted(splits)}), worst max_abs_err {max(err_list):.3e}; "
+          f"{sum(same_list)} bit for bit across two calls", flush=True)
+    bad = [(name, e) for name, e, o, z in zip(names, err_list, over, zero_list) if not (o <= 0.0 and z == 0.0)]
+    for name, e in bad:
+        print(f"{name}: max_abs_err {e:.3e} outside the tolerance, or an idle / padding row not exactly zero",
+              flush=True)
+    if bad:
+        raise AssertionError(f"{len(bad)} of {len(names)} {label} cases fail")
+    if not all(same_list):
+        raise AssertionError(f"{len(same_list) - sum(same_list)} {label} cases differ between two calls")
 
 
 def check_paged_attention_options(gen, rng) -> None:
@@ -2753,17 +2808,7 @@ def check_paged_attention_options(gen, rng) -> None:
                             tols.append((diff - tol).max())  # <= 0 when every element is inside
                             same.append(torch.equal(out, again))
                             idle.append(out[0].float().abs().max())
-    err_list, over, same_list, idle_list = (torch.stack(errs).tolist(), torch.stack(tols).tolist(),
-                                            torch.tensor(same).tolist(), torch.stack(idle).tolist())
-    print(f"K3 paged_attention options: {len(names)} cases (splits {sorted(splits_seen)}), worst max_abs_err "
-          f"{max(err_list):.3e}; {sum(same_list)} bit for bit across two calls", flush=True)
-    bad = [(name, e) for name, e, o, i in zip(names, err_list, over, idle_list) if not (o <= 0.0 and i == 0.0)]
-    for name, e in bad:
-        print(f"{name}: max_abs_err {e:.3e} outside the tolerance, or the idle row not exactly zero", flush=True)
-    if bad:
-        raise AssertionError(f"{len(bad)} of {len(names)} K3 option cases fail")
-    if not all(same_list):
-        raise AssertionError(f"{len(same_list) - sum(same_list)} K3 option cases differ between two calls")
+    _report_cases("K3 paged_attention options", names, errs, tols, same, idle, splits_seen)
 
     # One call in a CUDA graph, replayed: the same bits as the eager call,
     # and again after seq_lens changed in place.
@@ -2790,6 +2835,7 @@ def check_paged_attention_options(gen, rng) -> None:
             raise AssertionError(f"K3 in a CUDA graph: replay {step} differs from the eager call (max {diff})")
     print("K3 paged_attention in a CUDA graph: two replays (seq_lens changed in place between them) bit for bit "
           "equal to the eager calls", flush=True)
+    check_paged_ring_options(gen, rng)
 
 
 # K7's option sweep: the (query, cache) dtypes and GQA groups of K3's
@@ -2872,17 +2918,7 @@ def check_varlen_attention_options(gen, rng) -> None:
                             same.append(torch.equal(out, again))
                             pad.append(out[total:].float().abs().max())
                 del kc, vc
-    err_list, over, same_list, pad_list = (torch.stack(errs).tolist(), torch.stack(tols).tolist(),
-                                           torch.tensor(same).tolist(), torch.stack(pad).tolist())
-    print(f"K7 varlen_attention options: {len(names)} cases (splits {sorted(splits_seen)}), worst max_abs_err "
-          f"{max(err_list):.3e}; {sum(same_list)} bit for bit across two calls", flush=True)
-    bad = [(name, e) for name, e, o, z in zip(names, err_list, over, pad_list) if not (o <= 0.0 and z == 0.0)]
-    for name, e in bad:
-        print(f"{name}: max_abs_err {e:.3e} outside the tolerance, or a padding row not exactly zero", flush=True)
-    if bad:
-        raise AssertionError(f"{len(bad)} of {len(names)} K7 option cases fail")
-    if not all(same_list):
-        raise AssertionError(f"{len(same_list) - sum(same_list)} K7 option cases differ between two calls")
+    _report_cases("K7 varlen_attention options", names, errs, tols, same, pad, splits_seen)
 
     # One call in a CUDA graph, replayed: the same bits as the eager call,
     # and again after cu_seqlens_q and seq_lens changed in place.
@@ -2909,6 +2945,163 @@ def check_varlen_attention_options(gen, rng) -> None:
             raise AssertionError(f"K7 in a CUDA graph: replay {step} differs from the eager call (max {diff})")
     print("K7 varlen_attention in a CUDA graph: two replays (cu_seqlens_q and seq_lens changed in place between "
           "them) bit for bit equal to the eager calls", flush=True)
+    check_varlen_ring_options(gen, rng)
+
+
+# Ring cases of the K3 and K7 sweeps (rolling KV): every sequence with
+# tokens owns a ring of ``ring_size(window, burst)`` random pages, and the
+# table's entries past the ring (as many as the longest sequence's true
+# pages, and RING_OPTION_PAD more) name a page no row may see (poisoned on
+# float caches, so a walk that misses the modulo reads NaN, inside the
+# table). K3's lengths wrap window 37's ring of 5 pages up to 62
+# times and window 2000's ring of 127 pages 2.5 times; K7's ragged step
+# (VARLEN_OPTION_QLENS) wraps its rings (13, 42 and 136 pages, the window
+# plus the step's largest chunk of 150) up to 24 times.
+RING_OPTION_TYPES = (
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.int8), (torch.bfloat16, torch.float8_e4m3fn),
+    (torch.float32, torch.float32),
+)
+RING_OPTION_HEADS = (64, 128, 256)
+RING_OPTION_WINDOWS = (37, 500, 2000)
+RING_OPTION_LENS = [0, 1, 17, 300, 1000, 5000]  # K3: row 0 idle
+RING_VARLEN_LENS = [700, 0, 77, 3000, 5000, 0]  # K7, with VARLEN_OPTION_QLENS
+RING_OPTION_PAD = 8
+RING_DECODE_BURST = 16  # K3's ring: the window plus a burst of writes (1 suffices for decode)
+
+
+def ring_size(window: int, burst: int) -> int:
+    """The engine's ring: the window plus the largest write burst, plus one page."""
+    return -(-(window + burst) // PS) + 1
+
+
+def ring_option_table(rng, lens: list[int], ring: int, num_pages: int) -> np.ndarray:
+    """(B, max(ring, the longest sequence's pages) + RING_OPTION_PAD): each
+    sequence with tokens its own ring of ``ring`` distinct random pages of 1
+    .. num_pages - 2; the entries past the ring, and an empty sequence's,
+    name page num_pages - 1."""
+    perm = iter(rng.permutation(np.arange(1, num_pages - 1)).tolist())
+    width = max(ring, -(-max(lens) // PS)) + RING_OPTION_PAD
+    bt = np.full((len(lens), width), num_pages - 1, np.int32)
+    for b, n in enumerate(lens):
+        if n:
+            bt[b, :ring] = [next(perm) for _ in range(ring)]
+    return bt
+
+
+def _ring_hidden(bt: np.ndarray, ring: int, bands: list[tuple[int, int]]) -> list[int]:
+    """Pages of ``bt`` that no position of the (start, end) bands reaches
+    through the ring."""
+    seen = {int(bt[b, (pos // PS) % ring]) for b, (start, end) in enumerate(bands) for pos in range(start, end)}
+    return sorted({int(p) for p in bt.reshape(-1)} - seen)
+
+
+def check_paged_ring_options(gen, rng) -> None:
+    """K3 over rolling-KV rings (RING_OPTION_*): bf16 queries over bf16,
+    int8 and e4m3 caches and f32 over f32, GQA groups PAGED_OPTION_GROUPS
+    (7 among them), heads 64, 128 and 256, windows 37, 500 and 2000 (one
+    split and several), softcap 0 and 30, sequences that wrap their rings
+    many times and an idle row; against the plain version over the same
+    ring at K3's sweep tolerances, idle rows exactly zero, every case
+    twice, bit for bit."""
+    from conch_tpu_torch.kernels.attention.paged_attention import (
+        paged_attention_launcher as launch,
+        paged_attention_plain as plain,
+        paged_split_plan,
+    )
+    from conch_tpu_torch.kernels.common import sm_count
+
+    lens = RING_OPTION_LENS
+    sl_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    names, errs, tols, same, idle, splits_seen = [], [], [], [], [], set()
+    for window in RING_OPTION_WINDOWS:
+        ring = ring_size(window, RING_DECODE_BURST)
+        num_pages = sum(1 for n in lens if n) * ring + 2
+        bt = ring_option_table(rng, lens, ring, num_pages)
+        bt_t = torch.from_numpy(bt).cuda()
+        hidden = _ring_hidden(bt, ring, [(max(n - window, 0), n) for n in lens])
+        plan = paged_split_plan(sl_t, bt_t, PS, PAGED_OPTION_KH, window, sm_count(0))
+        splits_seen.add(plan.splits)
+        for q_dt, c_dt in RING_OPTION_TYPES:
+            one_byte = c_dt in (torch.int8, torch.float8_e4m3fn)
+            ks, vs = KV_SCALES["int8" if c_dt == torch.int8 else "fp8"] if one_byte else (1.0, 1.0)
+            for group in PAGED_OPTION_GROUPS:
+                for d in RING_OPTION_HEADS:
+                    kc, vc = _option_pool(gen, num_pages, d, c_dt)
+                    kp, vp = (kc, vc) if c_dt == torch.int8 else (_poisoned(kc, hidden), _poisoned(vc, hidden))
+                    q = (6.0 * torch.randn((len(lens), group * PAGED_OPTION_KH, d), generator=gen,
+                                           device="cuda")).to(q_dt)
+                    for softcap in (0.0, 30.0):
+                        args = (q, kp, vp, bt_t, sl_t, d**-0.5, 2, softcap, window, ks, vs, ring)
+                        out, again = launch(*args), launch(*args)
+                        ref = plain(q, kc, vc, bt_t, sl_t, d**-0.5, 2, softcap, window, ks, vs, ring)
+                        names.append(f"K3 ring of {ring} pages q {str(q_dt)[6:]} cache {str(c_dt)[6:]} G {group} "
+                                     f"D {d} ({plan.splits} splits) window {window} softcap {softcap:g}")
+                        diff = (out.float() - ref.float()).abs()
+                        tol = 3e-2 + (3e-2 * ref.float().abs() if one_byte else 0.0)
+                        errs.append(diff.max())
+                        tols.append((diff - tol).max())
+                        same.append(torch.equal(out, again))
+                        idle.append(out[0].float().abs().max())
+                    del kc, vc, kp, vp
+    _report_cases("K3 paged_attention ring options", names, errs, tols, same, idle, splits_seen)
+
+
+def check_varlen_ring_options(gen, rng) -> None:
+    """K7 over rolling-KV rings (RING_OPTION_*) on the ragged step of
+    VARLEN_OPTION_QLENS at RING_VARLEN_LENS: K3's ring types, groups and
+    heads, causal and not, windows 37, 500 and 2000, softcap 0 and 30; the
+    ring holds the window plus the step's largest chunk. Against the plain
+    version over the same ring at K7's sweep tolerance (2e-2 + 2e-2 x
+    |ref|), padding rows exactly zero, every case twice, bit for bit."""
+    from conch_tpu_torch.kernels.attention.varlen_attention import (
+        varlen_attention_launcher as launch,
+        varlen_attention_plain as plain,
+        varlen_tile_plan,
+    )
+    from conch_tpu_torch.kernels.common import sm_count
+
+    q_lens, lens, rows = VARLEN_OPTION_QLENS, RING_VARLEN_LENS, VARLEN_OPTION_ROWS
+    total = sum(q_lens)
+    cu_t = torch.tensor(np.concatenate([[0], np.cumsum(q_lens)]), dtype=torch.int32, device="cuda")
+    sl_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    names, errs, tols, same, pad, splits_seen = [], [], [], [], [], set()
+    for window in RING_OPTION_WINDOWS:
+        ring = ring_size(window, max(q_lens))
+        num_pages = sum(1 for n in lens if n) * ring + 2
+        bt = ring_option_table(rng, lens, ring, num_pages)
+        bt_t = torch.from_numpy(bt).cuda()
+        # A sequence's rows see [its first row's window start, seq_len).
+        hidden = _ring_hidden(bt, ring, [(max(n - ql - window + 1, 0), n if ql else 0)
+                                         for ql, n in zip(q_lens, lens)])
+        for q_dt, c_dt in RING_OPTION_TYPES:
+            one_byte = c_dt in (torch.int8, torch.float8_e4m3fn)
+            ks, vs = KV_SCALES["int8" if c_dt == torch.int8 else "fp8"] if one_byte else (1.0, 1.0)
+            for group in PAGED_OPTION_GROUPS:
+                qh = group * PAGED_OPTION_KH
+                for d in RING_OPTION_HEADS:
+                    kc, vc = _option_pool(gen, num_pages, d, c_dt)
+                    kp, vp = (kc, vc) if c_dt == torch.int8 else (_poisoned(kc, hidden), _poisoned(vc, hidden))
+                    q = (6.0 * torch.randn((rows, qh, d), generator=gen, device="cuda")).to(q_dt)
+                    for causal in (True, False):
+                        plan = varlen_tile_plan(rows, len(lens), bt.shape[1], PS, qh, PAGED_OPTION_KH, d, causal,
+                                                window, sm_count(0), ring)
+                        splits_seen.add(plan.splits)
+                        for softcap in (0.0, 30.0):
+                            args = (q, kp, vp, cu_t, sl_t, bt_t, d**-0.5, causal, 2, softcap, window, 1.0, ks, vs,
+                                    ring)
+                            out, again = launch(*args), launch(*args)
+                            ref = plain(q, kc, vc, cu_t, sl_t, bt_t, d**-0.5, causal, 2, softcap, window, 1.0, ks,
+                                        vs, ring)
+                            names.append(f"K7 ring of {ring} pages q {str(q_dt)[6:]} cache {str(c_dt)[6:]} G {group}"
+                                         f" D {d} {'causal' if causal else 'non-causal'} ({plan.splits} splits) "
+                                         f"window {window} softcap {softcap:g}")
+                            diff = (out[:total].float() - ref[:total].float()).abs()
+                            errs.append(diff.max())
+                            tols.append((diff - 2e-2 - 2e-2 * ref[:total].float().abs()).max())
+                            same.append(torch.equal(out, again))
+                            pad.append(out[total:].float().abs().max())
+                    del kc, vc, kp, vp
+    _report_cases("K7 varlen_attention ring options", names, errs, tols, same, pad, splits_seen)
 
 
 def quantized_cache_phases(gen, rng, by_name: dict) -> None:
@@ -4114,6 +4307,366 @@ def tp8_collectives_path(card: str) -> tuple[dict, list[dict]]:
     return launches, timings
 
 
+# -- Rolling KV (Mistral-7B) and Qwen2-7B: K3/K7's ring, GQA group 7, K1 at
+# Qwen2's shapes; K8's e4m3 and K7's f32 loop kernels timed. -------------
+
+# Mistral-7B-v0.1's published config.json (mistralai/Mistral-7B-v0.1): a
+# 4096-token sliding window on every layer. The port's LlamaConfig carries
+# it; the JAX package has no constructor for it either.
+MISTRAL_WINDOW, MISTRAL_PREFILL = 4096, 512
+MISTRAL_RING = -(-(MISTRAL_WINDOW + MISTRAL_PREFILL) // PS) + 1  # 289 pages: the rolling engine's ring
+MISTRAL_TABLE = 448  # the unbounded twin's table: 7064 tokens in 442 pages
+# K3's and K7's ring lines: 8 sequences at 4100 to 7064 tokens, all past
+# the ring's 4624 but the first (which is past the window).
+MISTRAL_LENS = [4100, 4523, 4946, 5369, 5792, 6215, 6640, 7064]
+# Qwen2-7B (LlamaConfig.qwen2_7b()): 28 query heads over 4 KV heads of 128
+# (a GQA group of 7), 28 layers. Its served decode step: 32 rows (the
+# engine's max_batch_size), 8 live at 72 to 2032 tokens (prompts of 40 to
+# 2000 plus 32 generated), over a 160-page table; its 512-row prefill
+# step: a mixed-in decode row, a fresh 100-token prompt, the last 411
+# tokens of a 2000-token prompt, zero-length padding sequences.
+Q2_QH, Q2_KH, Q2_LAYERS, Q2_TABLE = 28, 4, 28, 160
+K3_SERVED_QWEN2 = dict(zip((0, 3, 4, 9, 15, 20, 26, 31), (72, 300, 600, 900, 1200, 1500, 1800, 2032)))
+# Qwen2-7B's int4 GEMMs in one layer, as the engine runs them: the fused
+# wqkv, wo, w_gate and w_up apart (each N 18944 padded at pack time to
+# 20480, the JAX packing's rule for a wide N whose largest 128-multiple
+# divisor up to 2048 is below 1024, so the two cannot fuse) and w_down.
+QWEN2_LAYER_SHAPES = {(3584, 4608): 1, (3584, 3584): 1, (3584, 20480): 2, (18944, 3584): 1}
+# The padded shape -> the function's own: bounds count the true N, and K1
+# is also timed there, so that the padded columns' time stands apart.
+QWEN2_TRUE_SHAPES = {(3584, 20480): (3584, 18944)}
+FP8_OPS_PER_S = 1979e12  # dense fp8 tensor-core peak
+
+
+def mistral_7b_config():
+    """Mistral-7B-v0.1 at its published config.json: vocab 32000, hidden
+    4096, intermediate 14336, 32 layers, 32 heads over 8 KV heads of 128,
+    rope_theta 10000, eps 1e-5, max_position 32768, sliding_window 4096."""
+    from conch_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig(
+        vocab_size=32000, hidden_size=4096, intermediate_size=14336, num_layers=32, num_heads=32, num_kv_heads=8,
+        head_dim=128, rope_theta=10000.0, rms_norm_eps=1e-5, max_position=32768, sliding_window=MISTRAL_WINDOW,
+    )
+
+
+def ring_twin_tables(rng, seq_lens: list[int], num_pages: int, width: int, ring: int) -> tuple[np.ndarray, np.ndarray]:
+    """A linear table (B, width) of distinct random pages and the ring table
+    (B, ring) a rolling engine holds at these lengths: entry j is the page of
+    the sequence's last true page i with i % ring == j, so that every page
+    of a window band no longer than the ring is the same physical page
+    through either table, and the two calls read the same bytes."""
+    linear = paged_layout(rng, seq_lens, num_pages, share=(0, 0), shared_pages=0, max_pages=width)
+    ring_bt = np.zeros((len(seq_lens), ring), np.int32)
+    for b, n in enumerate(seq_lens):
+        for i in range(-(-n // PS)):
+            ring_bt[b, i % ring] = linear[b, i]  # ascending: a later page takes its ring slot
+    return linear, ring_bt
+
+
+def _attention_row(name: str, kernel: str, replaces: str, err: float, entry: dict) -> dict:
+    """A kernel-table row of K3 or K7 (``kernel``) from one timed case."""
+    row = _kernel_row(name, f"conch_tpu_torch/csrc/{kernel}.cu", replaces, err, entry, entry["bound_ms"],
+                      entry["bound_by"])
+    row["detail"] = [entry]
+    return row
+
+
+def kernel_phase_ring(gen, rng) -> list[dict]:
+    """K3 and K7 over a rolling-KV ring at Mistral-7B's shapes (QH 32 / KH 8
+    / D 128, a 32-layer bf16 pool read at layer 17, window 4096, the
+    rolling engine's ring of 289 pages): K3's decode step of 8 sequences at
+    MISTRAL_LENS, K7's 512-row chunk (64 rows of each at the same lengths).
+    Each is held against its plain version over the ring (K3 at 1e-2 x
+    (|ref| + rms), K7 at 2e-2 + 2e-2 x |ref|) and against the same band
+    through a linear table (``ring_twin_tables``), bit for bit, and timed
+    beside it in turns (ring, linear, linear, ring). Returns the rows
+    ``paged_attention_ring`` and ``varlen_attention_ring``."""
+    from conch_tpu_torch.kernels.attention.paged_attention import (
+        paged_attention_launcher as k3,
+        paged_attention_plain as k3_plain,
+    )
+    from conch_tpu_torch.kernels.attention.varlen_attention import (
+        varlen_attention_launcher as k7,
+        varlen_attention_plain as k7_plain,
+    )
+
+    lens = MISTRAL_LENS
+    num_pages = sum(-(-n // PS) for n in lens) + 1
+    kc, vc = make_pool(gen, num_pages)
+    linear, ring_bt = ring_twin_tables(rng, lens, num_pages, MISTRAL_TABLE, MISTRAL_RING)
+    lin_t, ring_t = torch.from_numpy(linear).cuda(), torch.from_numpy(ring_bt).cuda()
+    sl_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    rows = []
+
+    def timed_pair(tag, ring_call, linear_call, plain_call, err, bound_ms, bound_by):
+        turns = [time_ms(ring_call), time_ms(linear_call), time_ms(linear_call), time_ms(ring_call)]
+        entry = {
+            "case": tag, "max_abs_err": err, "bound_ms": bound_ms, "bound_by": bound_by,
+            "ms": (turns[0] + turns[3]) / 2, "linear_ms": (turns[1] + turns[2]) / 2, "turns": turns,
+            "paced_ms": paced_ms(ring_call), "linear_paced_ms": paced_ms(linear_call),
+            "plain_ms": time_ms(plain_call, iters=3, warmup=1), "library_ms": None,
+        }
+        print(f"{tag}: ring {entry['ms']:.4f} ms, the same band through a linear table {entry['linear_ms']:.4f} "
+              f"(turns {', '.join(f'{t:.4f}' for t in turns)}; paced {entry['paced_ms']:.4f} / "
+              f"{entry['linear_paced_ms']:.4f}, plain {entry['plain_ms']:.4f}, bound {bound_ms:.5f} by {bound_by})",
+              flush=True)
+        return entry
+
+    # K3: Mistral-7B's decode step.
+    q = torch.randn((len(lens), QH, D), generator=gen, device="cuda").to(torch.bfloat16)
+    args = (q, kc, vc, ring_t, sl_t, D**-0.5, LAYER, 0.0, MISTRAL_WINDOW, 1.0, 1.0, MISTRAL_RING)
+    lin_args = (q, kc, vc, lin_t, sl_t, D**-0.5, LAYER, 0.0, MISTRAL_WINDOW)
+    got, twin, ref = k3(*args), k3(*lin_args), k3_plain(*args)
+    torch.cuda.synchronize()
+    tag = f"K3 paged_attention ring of {MISTRAL_RING} pages, Mistral-7B decode of 8 at 4100 to 7064, window 4096"
+    err = check_to_rms(tag, got, ref, 1e-2)
+    if not torch.equal(got, twin):
+        raise AssertionError(f"{tag}: differs from the same band through a linear table")
+    case = {"shape": (QH, KH, D), "seq_lens": lens, "args": args, "bt": linear}
+    b_ms, b_by = k3_bound(case, MISTRAL_WINDOW)
+    entry = timed_pair(tag, lambda: k3(*args), lambda: k3(*lin_args), lambda: k3_plain(*args), err, b_ms, b_by)
+    rows.append(_attention_row("paged_attention_ring", "paged_attention",
+                               "conch_tpu/kernels/attention/paged_attention.py:57", err, entry))
+
+    # K7: a 512-row chunk, 64 rows of each sequence.
+    q_lens = [64] * len(lens)
+    q = torch.randn((sum(q_lens), QH, D), generator=gen, device="cuda").to(torch.bfloat16)
+    cu = torch.tensor(np.concatenate([[0], np.cumsum(q_lens)]), dtype=torch.int32, device="cuda")
+    args = (q, kc, vc, cu, sl_t, ring_t, D**-0.5, True, LAYER, 0.0, MISTRAL_WINDOW, 1.0, 1.0, 1.0, MISTRAL_RING)
+    lin_args = (q, kc, vc, cu, sl_t, lin_t, D**-0.5, True, LAYER, 0.0, MISTRAL_WINDOW)
+    got, twin, ref = k7(*args), k7(*lin_args), k7_plain(*args)
+    torch.cuda.synchronize()
+    tag = f"K7 varlen_attention ring of {MISTRAL_RING} pages, Mistral-7B 512-row chunk at 4100 to 7064, window 4096"
+    err = check_close(tag, got, ref, 2e-2)
+    if not torch.equal(got, twin):
+        raise AssertionError(f"{tag}: differs from the same band through a linear table")
+    case = {"shape": (QH, KH, D), "q_lens": q_lens, "seq_lens": lens, "bt": linear, "args": args,
+            "total": sum(q_lens)}
+    b_ms, b_by = k7_bound(case, MISTRAL_WINDOW)
+    entry = timed_pair(tag, lambda: k7(*args), lambda: k7(*lin_args), lambda: k7_plain(*args), err, b_ms, b_by)
+    rows.append(_attention_row("varlen_attention_ring", "varlen_attention",
+                               "conch_tpu/kernels/attention/varlen_attention.py:247", err, entry))
+    del kc, vc
+    torch.cuda.empty_cache()
+    return rows
+
+
+def kernel_phase_group7(gen, rng) -> list[dict]:
+    """K3 and K7 at Qwen2-7B's GQA group of 7 (QH 28 / KH 4 / D 128, a
+    28-layer bf16 pool read at layer 17): K3 at the served decode step
+    (K3_SERVED_QWEN2, 1e-2 x (|ref| + rms), idle rows exactly zero), K7 at
+    the 512-row prefill step (2e-2 + 2e-2 x |ref|). Returns the rows
+    ``paged_attention_g7`` and ``varlen_attention_g7``."""
+    from conch_tpu_torch.kernels.attention.paged_attention import (
+        paged_attention_launcher as k3,
+        paged_attention_plain as k3_plain,
+    )
+    from conch_tpu_torch.kernels.attention.varlen_attention import (
+        varlen_attention_launcher as k7,
+        varlen_attention_plain as k7_plain,
+    )
+
+    rows = []
+    seq_lens = [K3_SERVED_QWEN2.get(i, 0) for i in range(32)]
+    num_pages = sum(-(-n // PS) for n in seq_lens) + 1
+    kc, vc = make_pool(gen, num_pages, Q2_LAYERS, Q2_KH, D)
+    bt = paged_layout(rng, seq_lens, num_pages, share=(0, 0), shared_pages=0, max_pages=Q2_TABLE)
+    q = torch.randn((len(seq_lens), Q2_QH, D), generator=gen, device="cuda").to(torch.bfloat16)
+    args = (q, kc, vc, torch.from_numpy(bt).cuda(), torch.tensor(seq_lens, dtype=torch.int32, device="cuda"),
+            D**-0.5, LAYER)
+    got, ref = k3(*args), k3_plain(*args)
+    torch.cuda.synchronize()
+    idle = [i for i, n in enumerate(seq_lens) if n == 0]
+    if not torch.isfinite(got).all() or got[idle].abs().max().item() != 0.0:
+        raise AssertionError("K3 at group 7: idle rows must come out as finite zeros")
+    tag = "K3 paged_attention group 7, Qwen2-7B's served decode step: 32 rows, 8 live at 72 to 2032"
+    err = check_to_rms(tag, got, ref, 1e-2)
+    b_ms, b_by = k3_bound({"shape": (Q2_QH, Q2_KH, D), "seq_lens": seq_lens, "args": args, "bt": bt}, 0)
+    entry = {"case": tag, "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by, "ms": time_ms(lambda: k3(*args)),
+             "paced_ms": paced_ms(lambda: k3(*args)), "plain_ms": time_ms(lambda: k3_plain(*args), iters=3, warmup=1),
+             "library_ms": None}
+    print(f"{tag}: {entry['ms']:.4f} ms (paced {entry['paced_ms']:.4f}, plain {entry['plain_ms']:.4f}, bound "
+          f"{b_ms:.5f} by {b_by})", flush=True)
+    rows.append(_attention_row("paged_attention_g7", "paged_attention",
+                               "conch_tpu/kernels/attention/paged_attention.py:57", err, entry))
+    del kc, vc
+
+    q_lens = [1, 100, 411] + [0] * 29
+    seq_lens = [1500, 100, 2000] + [0] * 29
+    num_pages = sum(-(-n // PS) for n in seq_lens) + 1
+    kc, vc = make_pool(gen, num_pages, Q2_LAYERS, Q2_KH, D)
+    bt = paged_layout(rng, seq_lens, num_pages, share=(0, 0), shared_pages=0, max_pages=Q2_TABLE)
+    q = torch.randn((512, Q2_QH, D), generator=gen, device="cuda").to(torch.bfloat16)
+    cu = torch.tensor(np.concatenate([[0], np.cumsum(q_lens)]), dtype=torch.int32, device="cuda")
+    args = (q, kc, vc, cu, torch.tensor(seq_lens, dtype=torch.int32, device="cuda"), torch.from_numpy(bt).cuda(),
+            D**-0.5, True, LAYER)
+    got, ref = k7(*args), k7_plain(*args)
+    torch.cuda.synchronize()
+    tag = "K7 varlen_attention group 7, Qwen2-7B's 512-row prefill step (a decode row, 100 and 411 new rows)"
+    err = check_close(tag, got, ref, 2e-2)
+    case = {"shape": (Q2_QH, Q2_KH, D), "q_lens": q_lens, "seq_lens": seq_lens, "bt": bt, "args": args,
+            "total": sum(q_lens)}
+    b_ms, b_by = k7_bound(case, 0)
+    entry = {"case": tag, "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by, "ms": time_ms(lambda: k7(*args)),
+             "paced_ms": paced_ms(lambda: k7(*args)), "plain_ms": time_ms(lambda: k7_plain(*args), iters=3, warmup=1),
+             "library_ms": None}
+    print(f"{tag}: {entry['ms']:.4f} ms (paced {entry['paced_ms']:.4f}, plain {entry['plain_ms']:.4f}, bound "
+          f"{b_ms:.5f} by {b_by})", flush=True)
+    rows.append(_attention_row("varlen_attention_g7", "varlen_attention",
+                               "conch_tpu/kernels/attention/varlen_attention.py:247", err, entry))
+    del kc, vc
+    torch.cuda.empty_cache()
+    return rows
+
+
+def kernel_phase_k1_qwen2(gen) -> dict:
+    """K1 at Qwen2-7B's int4 GEMMs (QWEN2_LAYER_SHAPES: fused wqkv N 4608,
+    wo 3584 x 3584, w_gate and w_up each N 20480 padded, w_down K 18944),
+    group 128, M in GEMM_MS, beside bf16 ``torch.matmul`` on the
+    dequantized weight; the row is one layer's five launches summed at M 8,
+    ``by_m`` at each M. The bounds of w_gate and w_up count the function's
+    own N 18944 (QWEN2_TRUE_SHAPES), where K1 is timed too: ``padded`` has,
+    at each M, the time of the two launches' padded columns (the padded
+    launches less the unpadded ones) and its share of the layer."""
+    detail = _k1_cases(gen, 128, (*QWEN2_LAYER_SHAPES, *QWEN2_TRUE_SHAPES.values()))
+    true_case = {(d["k"], d["n"], d["m"]): d for d in detail}
+    padded = {}
+    for (k, n), (tk, tn) in QWEN2_TRUE_SHAPES.items():
+        for d in (d for d in detail if (d["k"], d["n"]) == (k, n)):
+            own = true_case[(tk, tn, d["m"])]
+            d["padded_bound_ms"] = d["bound_ms"]
+            d["bound_ms"], d["bound_by"] = own["bound_ms"], own["bound_by"]
+            count = QWEN2_LAYER_SHAPES[(k, n)]
+            padded[d["m"]] = {"ms": count * (d["ms"] - own["ms"]), "unpadded_ms": count * own["ms"]}
+    timed = _layer_sums(detail, QWEN2_LAYER_SHAPES, 8)
+    row = _kernel_row("mixed_gemm_magic_qwen2", "conch_tpu_torch/csrc/mixed_gemm_magic.cu",
+                      "conch_tpu/kernels/quantization/gemm.py:658", max(d["max_abs_err"] for d in detail), timed,
+                      timed["bound_ms"], "bytes")
+    row["by_m"] = {m: _layer_sums(detail, QWEN2_LAYER_SHAPES, m) for m in GEMM_MS}
+    for m, sums in row["by_m"].items():
+        padded[m]["share"] = padded[m]["ms"] / sums["ms"]
+        print(f"mixed_gemm_magic Qwen2-7B one layer at M={m}: {sums['ms']:.4f} ms (paced {sums['paced_ms']:.4f}, "
+              f"bf16 matmul {sums['library_ms']:.4f}, bound {sums['bound_ms']:.5f} at N 18944); w_gate and w_up's "
+              f"padded columns {padded[m]['ms']:.4f} ms, {100 * padded[m]['share']:.1f}% of the layer (the two at "
+              f"N 18944: {padded[m]['unpadded_ms']:.4f} ms)", flush=True)
+    row["padded"] = padded
+    row["detail"] = detail
+    return row
+
+
+def _scaled_mm_library(a8: torch.Tensor, b8: torch.Tensor, sa: torch.Tensor, sb: torch.Tensor):
+    """``torch._scaled_mm`` on K8's e4m3 inputs with row and column scales
+    (the same function, bf16 out); b laid out column-major once, outside
+    the timed call. (callable, note), or (None, why) where this PyTorch
+    refuses it."""
+    b_cols = b8.t().contiguous().t()
+    scale_a, scale_b = sa.reshape(-1, 1).float(), sb.reshape(1, -1).float()
+
+    def call():
+        return torch._scaled_mm(a8, b_cols, scale_a=scale_a, scale_b=scale_b, out_dtype=torch.bfloat16)
+
+    try:
+        call()
+    except (RuntimeError, TypeError) as e:
+        return None, f"torch._scaled_mm refused row-wise scales: {str(e).splitlines()[0][:120]}"
+    return call, "torch._scaled_mm, row-wise scales, bf16 out"
+
+
+K8_FP8_MS = (16, 32, 512)  # torch._scaled_mm takes M in multiples of 16
+
+
+def kernel_phase_k8_e4m3(gen) -> dict:
+    """K8's float8_e4m3fn loop kernel (one thread an output, f32 sums) at
+    the w8a8 engine's fused shapes, M 16, 32 and 512, per-row and
+    per-column scales, bf16 out, held at 1e-2 x max |ref| against the plain
+    version and timed beside ``torch._scaled_mm`` on the same inputs. No
+    model runs it: its launches are the checked calls of this phase. The
+    row is one layer's sum at M 16, ``by_m`` at each M."""
+    from conch_tpu_torch.kernels.quantization.gemm import scaled_gemm_launcher as launch, scaled_gemm_plain as plain
+
+    detail, err, notes = [], 0.0, set()
+    checked = 0
+    for k, n in FUSED_LAYER_SHAPES:
+        b8 = torch.randn((k, n), generator=gen, device="cuda").to(torch.float8_e4m3fn)
+        sb = torch.rand((n,), generator=gen, device="cuda") * 1e-2 + 1e-3
+        for m in K8_FP8_MS:
+            a8 = torch.randn((m, k), generator=gen, device="cuda").to(torch.float8_e4m3fn)
+            sa = 1e-2 * torch.logspace(0, 1, m, device="cuda")
+            before = launch.launches
+            out_k = launch(a8, b8, sa, sb, torch.bfloat16)
+            checked += launch.launches - before
+            out_p = plain(a8, b8, sa, sb, torch.bfloat16)
+            torch.cuda.synchronize()
+            scale = out_p.float().abs().max().item()
+            e = (out_k.float() - out_p.float()).abs().max().item()
+            check(f"K8 scaled_gemm float8_e4m3fn M={m} K={k} N={n} (max|ref| {scale:.3f})", e, 1e-2 * scale)
+            err = max(err, e)
+            library, note = _scaled_mm_library(a8, b8, sa, sb)
+            notes.add(note)
+            if library is not None:
+                lib = library().float()
+                print(f"torch._scaled_mm M={m} K={k} N={n}: max |lib - plain| "
+                      f"{(lib - out_p.float()).abs().max().item():.3e}", flush=True)
+            b_ms, b_by = bound(m * k + k * n + m * 4 + n * 4 + m * n * 2, 2 * m * n * k, FP8_OPS_PER_S)
+            iters = 3 if m == 512 else 10
+            detail.append({
+                "m": m, "k": k, "n": n, "max_abs_err": e, "bound_ms": b_ms, "bound_by": b_by,
+                "ms": time_ms(lambda: launch(a8, b8, sa, sb, torch.bfloat16), iters=iters, warmup=1),
+                "paced_ms": paced_ms(lambda: launch(a8, b8, sa, sb, torch.bfloat16), iters=iters, warmup=1),
+                "plain_ms": time_ms(lambda: plain(a8, b8, sa, sb, torch.bfloat16), iters=3, warmup=1),
+                "library_ms": None if library is None else time_ms(library),
+            })
+        del b8
+        torch.cuda.empty_cache()
+    timed = _layer_sums(detail, FUSED_LAYER_SHAPES, K8_FP8_MS[0])
+    by = "operations" if any(d["bound_by"] == "operations" for d in detail if d["m"] == K8_FP8_MS[0]) else "bytes"
+    row = _kernel_row("scaled_gemm_e4m3", "conch_tpu_torch/csrc/scaled_gemm.cu",
+                      "conch_tpu/kernels/quantization/gemm.py:739", err, timed, timed["bound_ms"], by)
+    row["by_m"] = {m: _layer_sums(detail, FUSED_LAYER_SHAPES, m) for m in K8_FP8_MS}
+    row["detail"] = detail
+    for d in detail:
+        print(f"scaled_gemm float8_e4m3fn M={d['m']} K={d['k']} N={d['n']}: {d['ms']:.4f} ms (paced "
+              f"{d['paced_ms']:.4f}, plain {d['plain_ms']:.4f}, library {d['library_ms']}, bound "
+              f"{d['bound_ms']:.5f} by {d['bound_by']})", flush=True)
+    row["library_note"] = "; ".join(sorted(notes))
+    row["phase_launches"] = checked
+    for m, sums in row["by_m"].items():
+        print(f"scaled_gemm float8_e4m3fn one layer at M={m}: {sums['ms']:.4f} ms (library {sums['library_ms']}, "
+              f"bound {sums['bound_ms']:.5f})", flush=True)
+    return row
+
+
+def kernel_phase_k7_f32(gen, rng) -> dict:
+    """K7 under f32 queries (the per-row CUDA-core kernel) over an f32 pool
+    at Llama-3-8B's table line (K7_CASES), held at 2e-3 against the plain
+    version (the JAX package's f32 attention tolerance). No model runs it:
+    its launches are this phase's checked call."""
+    from conch_tpu_torch.kernels.attention.varlen_attention import (
+        varlen_attention_launcher as launch,
+        varlen_attention_plain as plain,
+    )
+
+    case = k7_inputs(gen, rng, "llama3_8b table line")
+    q, kc, vc = (t.float() for t in case["args"][:3])
+    args = (q, kc, vc, *case["args"][3:], 0)
+    before = launch.launches
+    got = launch(*args)
+    checked = launch.launches - before
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    err = check_close("K7 varlen_attention f32 queries over an f32 cache, Llama-3-8B's table line", got, ref, 2e-3)
+    b_ms, b_by = k7_bound({**case, "args": args}, 0, F32_OPS_PER_S)
+    row = _kernel_row("varlen_attention_f32", "conch_tpu_torch/csrc/varlen_attention.cu",
+                      "conch_tpu/kernels/attention/varlen_attention.py:247", err,
+                      {"ms": time_ms(lambda: launch(*args)), "paced_ms": paced_ms(lambda: launch(*args)),
+                       "plain_ms": time_ms(lambda: plain(*args), iters=5), "library_ms": None}, b_ms, b_by)
+    row["phase_launches"] = checked
+    del kc, vc
+    torch.cuda.empty_cache()
+    return row
+
+
 def kernel_phases() -> list[dict]:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rng = np.random.default_rng(SEED)
@@ -4122,7 +4675,9 @@ def kernel_phases() -> list[dict]:
         kernel_phase_k5(gen, rng), kernel_phase_k6(gen), kernel_phase_k7(gen, rng), kernel_phase_k10a(gen),
         kernel_phase_k10b(gen), kernel_phase_k1b(gen), kernel_phase_k1c(gen), kernel_phase_k8(gen),
         kernel_phase_k12q(gen), kernel_phase_k11(gen, rng), kernel_phase_k9(gen), *kernel_phases_vision(gen, rng),
-        kernel_phase_k4b(gen), kernel_phase_k12d(gen), kernel_phase_k14(gen),
+        kernel_phase_k4b(gen), kernel_phase_k12d(gen), kernel_phase_k14(gen), *kernel_phase_ring(gen, rng),
+        *kernel_phase_group7(gen, rng), kernel_phase_k1_qwen2(gen), kernel_phase_k8_e4m3(gen),
+        kernel_phase_k7_f32(gen, rng),
     ]
     # The Gemma-2-2B shapes of K2, K3, K5 and K7 go into their rows' detail
     # beside the Llama-3-8B numbers the rows keep.
@@ -4220,16 +4775,28 @@ def _launchers() -> dict:
     }
 
 
+# K3's and K7's launches over a rolling-KV ring (``ring_launches``), counted
+# beside their launches in all.
+RING_COUNTERS = {"paged_attention_ring": "paged_attention", "varlen_attention_ring": "varlen_attention"}
+
+
 def reset_launch_counts() -> None:
-    """Set every kernel's launch count to 0."""
-    for fns in _launchers().values():
+    """Set every kernel's launch count (and K3's and K7's ring counts) to 0."""
+    launchers = _launchers()
+    for fns in launchers.values():
         for fn in fns:
             fn.launches = 0
+    for kernel in RING_COUNTERS.values():
+        launchers[kernel][0].ring_launches = 0
 
 
 def read_launch_counts() -> dict:
-    """Each kernel row's launches since the last reset."""
-    return {name: sum(fn.launches for fn in fns) for name, fns in _launchers().items()}
+    """Each kernel row's launches since the last reset, and K3's and K7's
+    launches over a ring."""
+    launchers = _launchers()
+    counts = {name: sum(fn.launches for fn in fns) for name, fns in launchers.items()}
+    counts.update({name: launchers[kernel][0].ring_launches for name, kernel in RING_COUNTERS.items()})
+    return counts
 
 
 def to_device(tree, device: str):
@@ -4280,6 +4847,10 @@ LLAMA_PREFILL_CASES = (
     ("int4-g64", torch.bfloat16, None),
     ("int8", torch.bfloat16, None), ("nf4", torch.bfloat16, None), ("w8a8", torch.bfloat16, None),
     ("bf16", torch.bfloat16, torch.int8), ("bf16", torch.bfloat16, torch.float8_e4m3fn),
+    # Qwen2-7B (q/k/v biases, GQA group 7) and Mistral-7B (the window cut
+    # to 16, so that its mask bites in these prompts).
+    ("bf16", torch.float32, None, "qwen2_7b"), ("int4", torch.bfloat16, None, "qwen2_7b"),
+    ("bf16", torch.float32, None, "mistral_7b"), ("int4", torch.bfloat16, None, "mistral_7b"),
 )
 GEMMA_PREFILL_CASES = (
     (torch.float32, None), (torch.bfloat16, None), (torch.bfloat16, torch.int8),
@@ -4293,7 +4864,9 @@ def check_prefill_logits(llama_cases=LLAMA_PREFILL_CASES, gemma_cases=GEMMA_PREF
     Llama-3-8B (bf16 weights in f32 and in bf16, then int4 (K1), int8 (K1b),
     nf4 (K1c, init through K12q) and w8a8 (K8) weights in bf16, the only
     activation dtype those kernels take on the card; bf16 weights over an
-    int8 and an e4m3 KV cache, quantized on store at ``kv_cache_scale``)
+    int8 and an e4m3 KV cache, quantized on store at ``kv_cache_scale``),
+    Qwen2-7B and Mistral-7B (bf16 weights in f32, int4 in bf16; Mistral's
+    window cut to 16; token ids taken modulo each vocabulary)
     and Gemma-2-2B (bf16 weights in f32 and bf16, and over int8 and e4m3
     caches in bf16, random norm weights, the window cut to 16 so that layer
     0's mask bites in these 24- and 13-token prompts);
@@ -4324,10 +4897,16 @@ def check_prefill_logits(llama_cases=LLAMA_PREFILL_CASES, gemma_cases=GEMMA_PREF
     def cache_tag(cache):
         return "" if cache is None else f", {str(cache).removeprefix('torch.')} KV cache"
 
-    def llama(quant_mode, dtype, cache):
-        cfg = dataclasses.replace(LlamaConfig.llama3_8b(), num_layers=2, dtype=dtype)
+    models = {
+        "llama3_8b": ("Llama-3-8B", LlamaConfig.llama3_8b()), "qwen2_7b": ("Qwen2-7B", LlamaConfig.qwen2_7b()),
+        "mistral_7b": ("Mistral-7B, window 16", dataclasses.replace(mistral_7b_config(), sliding_window=16)),
+    }
+
+    def llama(quant_mode, dtype, cache, model="llama3_8b"):
+        name, base = models[model]
+        cfg = dataclasses.replace(base, num_layers=2, dtype=dtype)
         mode, _, group = quant_mode.partition("-g")
-        return f"Llama-3-8B, {quant_mode} weights{cache_tag(cache)}", cfg, cache, llama_prefill, lambda: (
+        return f"{name}, {quant_mode} weights{cache_tag(cache)}", cfg, cache, llama_prefill, lambda: (
             fuse_llama_params(init_llama_params(SEED, cfg, quant_mode=mode, group_size=int(group or 128),
                                                 device="cuda")))
 
@@ -4342,14 +4921,15 @@ def check_prefill_logits(llama_cases=LLAMA_PREFILL_CASES, gemma_cases=GEMMA_PREF
         tol = W8A8_PREFILL_TOLERANCE if "w8a8" in label else PREFILL_TOLERANCES[cfg.dtype]
         params = make_params()
         kc, vc = init_kv_caches(cfg, num_pages, PS, cache_dtype=cache, device="cuda")
-        t = [a.cuda() for a in host]
+        inputs = [host[0] % cfg.vocab_size, *host[1:]]
+        t = [a.cuda() for a in inputs]
         logits, _, _ = prefill(params, cfg, t[0], t[1], t[2], rows, t[3], t[4], t[5], kc, vc)
         logits = logits.cpu()
         cpu_params = to_device(params, "cpu")
         del params, kc, vc
         torch.cuda.empty_cache()
         kc, vc = init_kv_caches(cfg, num_pages, PS, cache_dtype=cache, device="cpu")
-        ref, _, _ = prefill(cpu_params, cfg, host[0], host[1], host[2], rows, host[3], host[4], host[5], kc, vc)
+        ref, _, _ = prefill(cpu_params, cfg, *inputs[:3], rows, *inputs[3:], kc, vc)
         del cpu_params
         if not torch.isfinite(logits).all() or logits.shape != (batch, cfg.vocab_size):
             raise AssertionError(f"prefill logits: shape {tuple(logits.shape)} or non-finite values")
@@ -4507,6 +5087,21 @@ def deepseek_prompts(rng: np.random.Generator, vocab: int) -> list[list[int]]:
     return [rng.integers(0, vocab, n).tolist() for n in (40, 900, 64, 300, 1800, 96, 450, 800)]
 
 
+# Mistral-7B with rolling KV: 8 prompts of 40 to 7000 tokens, five longer
+# than the ring's 4624 tokens (289 pages of 16), 64 new tokens each.
+MISTRAL_PROMPT_LENS = (40, 900, 2000, 4700, 5200, 6000, 6500, 7000)
+MISTRAL_MAX_TOKENS = 64
+
+
+def mistral_prompts(rng: np.random.Generator, vocab: int) -> list[list[int]]:
+    return [rng.integers(0, vocab, n).tolist() for n in MISTRAL_PROMPT_LENS]
+
+
+def qwen2_prompts(rng: np.random.Generator, vocab: int) -> list[list[int]]:
+    """8 prompts of 40 to 2000 tokens, for Qwen2-7B."""
+    return [rng.integers(0, vocab, n).tolist() for n in (40, 268, 568, 868, 1168, 1468, 1768, 2000)]
+
+
 def gemma_prompts(rng: np.random.Generator, vocab: int) -> list[list[int]]:
     """8 prompts of 40 to 4600 tokens; the longest crosses the 4096 window
     of the local layers, in prefill (K7) and in decode (K3)."""
@@ -4525,6 +5120,10 @@ ATTENTION = ("varlen_attention", "paged_attention")  # K7 once per layer of a pr
 # during nf4 init (once per projection and layer, plus lm_head) and never
 # while serving.
 LLAMA_PER_STEP = {"mixed_gemm_magic": 4 * 32, "rms_norm": 2 * 32 + 1, "silu_and_mul": 32, ATTENTION: 32}
+# Qwen2-7B, 28 layers: K1 5 a layer (w_gate and w_up do not fuse:
+# QWEN2_LAYER_SHAPES), K6 through its parts launcher; its q/k/v biases are
+# plain PyTorch adds, as in the JAX package.
+QWEN2_PER_STEP = {"mixed_gemm_magic": 5 * 28, "rms_norm": 2 * 28 + 1, "silu_and_mul": 28, ATTENTION: 28}
 GEMMA_PER_STEP = {"gemma_rms_norm": 4 * 26 + 1, "gelu_tanh_and_mul": 26, ATTENTION: 26}
 _LLAMA_REST = {"rms_norm": 2 * 32 + 1, "silu_and_mul": 32, ATTENTION: 32, "mixed_gemm_magic": 0, "quantize4": 0}
 INT8_PER_STEP = {"mixed_gemm_planar": 4 * 32 + 1, **_LLAMA_REST}
@@ -4547,13 +5146,17 @@ DEEPSEEK_KERNELS = ("mla_attention", "rms_norm", "silu_and_mul")
 def count_steps(engine) -> list[int]:
     """Wrap the engine's model step functions so that each call adds one to
     the returned counters: the model steps of a run (then its prefill and
-    its decode steps), counted apart from the kernels' launches."""
-    counter = [0, 0, 0]
+    its decode steps), counted apart from the kernels' launches; then the
+    most pages one sequence held and the most held in all at a model step."""
+    counter = [0, 0, 0, 0, 0]
 
     def counted(fn, kind):
         def step(*args, **kwargs):
             counter[0] += 1
             counter[kind] += 1
+            held = [len(r.pages) for r in engine.running]
+            counter[3] = max(counter[3], max(held, default=0))
+            counter[4] = max(counter[4], sum(held))
             return fn(*args, **kwargs)
 
         return step
@@ -4564,17 +5167,20 @@ def count_steps(engine) -> list[int]:
 
 def serve(
     card: str, label: str, cfg, make_params, model_fns: dict, engine_kwargs: dict, make_prompts,
-    expect: tuple[str, ...], per_step: dict, init_launches: dict | None = None,
+    expect: tuple[str, ...], per_step: dict, init_launches: dict | None = None, max_tokens: int = 32,
+    record: dict | None = None, profile: bool = True,
 ) -> dict:
     """LLMEngine at full width (random weights from the seed) serving greedy
-    requests of 32 tokens through ``model_fns`` (Llama's by default);
+    requests of ``max_tokens`` tokens through ``model_fns`` (Llama's by default);
     returns each kernel's launch count in that run. Fails unless every
     kernel in ``expect`` launched, and launched ``per_step`` times in each
     model step (attention: K3 and K7 together). ``init_launches``: kernels
     that the params' init must launch, with the count (counted from just
     before the init to the engine's start; returned as those kernels'
     counts). Fails at its start if more than 1 GiB is still allocated: an
-    earlier run's model was not freed."""
+    earlier run's model was not freed. ``record`` receives the outputs and
+    the pages and KV bytes the engine held; ``profile=False`` skips the
+    profiled repeat."""
     from conch_tpu_torch.serving import EngineConfig, LLMEngine, SamplingParams
 
     gc.collect()
@@ -4599,7 +5205,6 @@ def serve(
         if at_init[name] != want:
             raise AssertionError(f"{name}: {at_init[name]} launches during the {label} init, expected {want}")
     prompts = make_prompts(np.random.default_rng(SEED), cfg.vocab_size)
-    max_tokens = 32
     steps = count_steps(engine)
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -4616,6 +5221,13 @@ def serve(
           f"each) in {seconds:.3f} s: {len(prompts) * max_tokens / seconds:.2f} generated tok/s on {card}; "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB peak allocated; prefix-cache hits "
           f"{engine.prefix_cache_hits} tokens", flush=True)
+    page_bytes = (engine.k_caches.nbytes + engine.v_caches.nbytes) // engine.ecfg.num_pages
+    print(f"{label}: at most {steps[3]} pages a sequence, {steps[4]} pages in all ({steps[4] * page_bytes / 2**30:.2f} "
+          f"GiB of KV) at a model step; the pool {engine.ecfg.num_pages} pages "
+          f"({engine.ecfg.num_pages * page_bytes / 2**30:.2f} GiB)", flush=True)
+    if record is not None:
+        record.update(outputs=outputs, seq_pages=steps[3], pages=steps[4], kv_bytes=steps[4] * page_bytes,
+                      config=engine.config)
     n_steps = steps[0]
     print(f"{label}: launches in the served run ({n_steps} model steps: {steps[1]} prefill, {steps[2]} decode): "
           f"{launches}", flush=True)
@@ -4631,7 +5243,8 @@ def serve(
     engine_params, ecfg = engine.params, engine.ecfg
     del engine
     torch.cuda.empty_cache()
-    profile_served_run(engine_params, cfg, ecfg, model_fns, prompts, max_tokens, label)
+    if profile:
+        profile_served_run(engine_params, cfg, ecfg, model_fns, prompts, max_tokens, label)
     return {**launches, **{name: at_init[name] for name in init_launches or {}}}
 
 
@@ -4843,15 +5456,62 @@ PRIMARY_PATH = {
     "scaled_gemm": "llama3_8b_w8a8", "mla_attention": "deepseek_v2_lite_bf16",
     "bev_pool_fwd": "vision_bevfusion", "bev_pool_bwd": "vision_bevfusion", "nms": "vision_bevfusion",
     "dequantize4": "llama3_8b_qlora", "fused_add_rms_norm": "llama3_8b_residual_stream",
-    "ring_all_gather": "llama3_8b_tp8_collectives",
+    "ring_all_gather": "llama3_8b_tp8_collectives", "paged_attention_ring": "mistral_7b_int4_rolling",
+    "varlen_attention_ring": "mistral_7b_int4_rolling", "paged_attention_g7": "qwen2_7b_int4",
+    "varlen_attention_g7": "qwen2_7b_int4", "mixed_gemm_magic_qwen2": "qwen2_7b_int4",
+}
+# Rows of a kernel's branch or another model's shapes: the count their
+# launches come from (K3's and K7's ring rows: their launches over a ring).
+ROW_COUNTERS = {
+    "paged_attention_ring": "paged_attention_ring", "varlen_attention_ring": "varlen_attention_ring",
+    "paged_attention_g7": "paged_attention", "varlen_attention_g7": "varlen_attention",
+    "mixed_gemm_magic_qwen2": "mixed_gemm_magic",
 }
 # K9's callers are its public ops: its row's launches are those of its
-# kernel phase, and it launches on no served path.
-PHASE_PATH_KERNELS = ("static_scaled_quant",)
+# kernel phase, and it launches on no served path. Neither do K8's e4m3
+# loop kernel and K7's f32 one: no served model runs them.
+PHASE_PATH_KERNELS = ("static_scaled_quant", "scaled_gemm_e4m3", "varlen_attention_f32")
 GEMMA_KERNELS = (
     "reshape_and_cache_stacked", "paged_attention", "rotary_embedding", "varlen_attention", "gemma_rms_norm",
     "gelu_tanh_and_mul",
 )
+
+
+# Mistral-7B's engines: page 16, 512-row prefill steps (so a ring of
+# ceil((4096 + 512) / 16) + 1 = 289 pages), 8 requests at once, no prefix
+# caching (ring pages are rewritten in place; the twin turns it off too,
+# so that both engines run the same steps).
+MISTRAL_ENGINE = {"page_size": PS, "max_prefill_tokens": MISTRAL_PREFILL, "max_batch_size": 8,
+                  "enable_prefix_caching": False}
+MISTRAL_ROLLING = {**MISTRAL_ENGINE, "rolling_kv": True, "num_pages": 8 * MISTRAL_RING,
+                   "max_pages_per_seq": MISTRAL_RING}
+MISTRAL_UNBOUNDED = {**MISTRAL_ENGINE, "num_pages": 8 * MISTRAL_TABLE, "max_pages_per_seq": MISTRAL_TABLE}
+QWEN2_ENGINE = {"num_pages": 4096, "max_batch_size": 32, "max_pages_per_seq": Q2_TABLE}
+
+
+def check_rolling_twins(rolling: dict, unbounded: dict, launches: dict) -> None:
+    """The rolling engine's greedy tokens equal its unbounded twin's; it
+    held at most its ring (MISTRAL_RING pages) a sequence while the twin
+    held more; every K3 and K7 launch of the rolling run read the ring, and
+    none of the twin's."""
+    if rolling["config"].kv_ring_pages != MISTRAL_RING:
+        raise AssertionError(f"rolling engine: a ring of {rolling['config'].kv_ring_pages} pages, not {MISTRAL_RING}")
+    if rolling["outputs"] != unbounded["outputs"]:
+        bad = [i for i, (a, b) in enumerate(zip(rolling["outputs"], unbounded["outputs"])) if a != b]
+        raise AssertionError(f"rolling KV: requests {bad} differ from the unbounded twin's greedy tokens")
+    if rolling["seq_pages"] > MISTRAL_RING or unbounded["seq_pages"] <= MISTRAL_RING:
+        raise AssertionError(f"pages a sequence: rolling {rolling['seq_pages']} (ring {MISTRAL_RING}), unbounded "
+                             f"{unbounded['seq_pages']}: the prompts must outgrow the ring")
+    ring, twin = launches["mistral_7b_int4_rolling"], launches["mistral_7b_int4_unbounded"]
+    for ring_name, kernel in RING_COUNTERS.items():
+        if not 0 < ring[ring_name] == ring[kernel] or twin[ring_name] != 0:
+            raise AssertionError(f"{kernel}: {ring[ring_name]} of {ring[kernel]} launches over the ring in the "
+                                 f"rolling run, {twin[ring_name]} in the twin's")
+    print(f"mistral-7b rolling KV: greedy tokens of {len(rolling['outputs'])} requests equal to the unbounded twin's; "
+          f"at most {rolling['seq_pages']} pages a sequence ({rolling['pages']} in all, "
+          f"{rolling['kv_bytes'] / 2**30:.2f} GiB of KV) against {unbounded['seq_pages']} ({unbounded['pages']}, "
+          f"{unbounded['kv_bytes'] / 2**30:.2f} GiB); K3 {ring['paged_attention_ring']} and K7 "
+          f"{ring['varlen_attention_ring']} launches over the ring", flush=True)
 
 
 def main() -> int:
@@ -4948,6 +5608,26 @@ def main() -> int:
             DEEPSEEK_KERNELS, DEEPSEEK_PER_STEP,
         ),
     }
+    # Mistral-7B-v0.1 (its published config: window 4096 on every layer) in
+    # int4 with rolling KV, a ring of 289 pages a sequence and prompts past
+    # it; then its unbounded twin (the same window, every page kept), whose
+    # greedy tokens the rolling engine must give. Qwen2-7B in int4 (q/k/v
+    # biases, GQA group 7, K 3584 and 18944).
+    rolling, unbounded = {}, {}
+    launches["mistral_7b_int4_rolling"] = serve(
+        card, "mistral-7b-int4-rolling", mistral_7b_config(), llama("int4"), {}, MISTRAL_ROLLING, mistral_prompts,
+        LLAMA_KERNELS, LLAMA_PER_STEP, max_tokens=MISTRAL_MAX_TOKENS, record=rolling,
+    )
+    launches["mistral_7b_int4_unbounded"] = serve(
+        card, "mistral-7b-int4-unbounded", mistral_7b_config(), llama("int4"), {}, MISTRAL_UNBOUNDED,
+        mistral_prompts, LLAMA_KERNELS, LLAMA_PER_STEP, max_tokens=MISTRAL_MAX_TOKENS, record=unbounded,
+        profile=False,
+    )
+    check_rolling_twins(rolling, unbounded, launches)
+    launches["qwen2_7b_int4"] = serve(
+        card, "qwen2-7b-int4", LlamaConfig.qwen2_7b(), llama("int4"), {}, QWEN2_ENGINE, qwen2_prompts, LLAMA_KERNELS,
+        QWEN2_PER_STEP,
+    )
     launches["vision_bevfusion"] = vision_launches
     launches["llama3_8b_qlora"] = qlora_launches
     launches["llama3_8b_residual_stream"] = stream_launches
@@ -4958,7 +5638,8 @@ def main() -> int:
     # vision path for K13a, K13b and K13c; every path's count beside it (the quantized-cache runs' K2, K3, K7
     # and K11 among them).
     for row in rows:
-        by_path = {path: counts[row["name"]] for path, counts in launches.items()}
+        counter = ROW_COUNTERS.get(row["name"], row["name"])
+        by_path = {path: counts[counter] for path, counts in launches.items() if counter in counts}
         if row["name"] in PHASE_PATH_KERNELS:
             row["launches"] = row.pop("phase_launches")
         else:

@@ -10,7 +10,8 @@
 //
 //   1. the block resolves the tile's cache rows from the block table,
 //      reading only entries in [kv_start, kv_len) (never the table's
-//      padding, never a page wholly before a sliding window);
+//      padding, never a page wholly before a sliding window); under a
+//      rolling-KV ring (ring_pages > 0) true page i is entry i % ring_pages;
 //   2. one warp per token computes the G scores q_g . k (lanes split D),
 //      times the scale, then softcap * tanh(s / softcap) when SOFTCAP (a
 //      template flag, so the loop without softcap compiles as before it);
@@ -53,6 +54,7 @@ struct PagedKV {
   int num_kv_heads;
   int page_size;
   int head_size;
+  int ring_pages;  // > 0: rolling KV, true page i at block-table entry i % ring_pages
 };
 
 template <typename T, typename C, bool SOFTCAP>
@@ -92,7 +94,8 @@ __device__ void attend_group(const T* __restrict__ q_rows, int64_t q_head_stride
     const int n = min(kAttnTile, kv_len - start);
     for (int j = tid; j < n; j += kAttnThreads) {
       const int pos = start + j;
-      const int64_t page = kv.block_table_row[pos / kv.page_size];
+      const int entry = pos / kv.page_size;
+      const int64_t page = kv.block_table_row[kv.ring_pages > 0 ? entry % kv.ring_pages : entry];
       row_s[j] = ((page * kv.num_kv_heads + kv_head) * kv.page_size + pos % kv.page_size) *
                  static_cast<int64_t>(d_size);
     }

@@ -51,6 +51,15 @@
 // as bytes and converted exactly to f32 as they are read; `scale` carries
 // scale * k_scale and v_scale multiplies the output, as the TPU kernel
 // folds them (:114, :247); they halve the bytes of the K and V reads.
+// Rolling KV (ring_pages > 0, a run-time argument): each block-table row is
+// a ring of ring_pages entries, and true page i of a sequence is entry
+// i % ring_pages, as the TPU kernel's jax.lax.rem (:127-130, :309-311). The
+// walk already starts at the window (visible_start), so the split count
+// comes from the window and never from the ring or the table's width; a
+// tile takes one integer remainder, and its rows step from that entry and
+// wrap at the ring by a compare.
+
+#include <climits>
 
 #include "common.cuh"
 
@@ -80,6 +89,7 @@ struct PagedParams {
   int batch, max_pages, num_q_heads, num_kv_heads, page_size, head_size;
   float scale, softcap, v_scale;
   int window;
+  int ring_pages;  // > 0: rolling KV, true page i at block-table entry i % ring_pages
   int split_len, splits;
   int copy_bytes;  // 16 or 4: cp.async size of the row copies; 0: element by element
 };
@@ -111,10 +121,19 @@ __device__ void stage_tile(const PagedParams& p, C* k_dst, C* v_dst, const int32
   const C* k_layer = static_cast<const C*>(p.k_layer);
   const C* v_layer = static_cast<const C*>(p.v_layer);
   const int d_size = p.head_size;
+  // The tile's first table entry, one remainder a tile under a ring; row r
+  // steps from it and wraps at the ring by a compare.
+  const int first = pos0 / p.page_size;
+  const int entry0 = p.ring_pages > 0 ? first % p.ring_pages : first;
+  const int wrap = p.ring_pages > 0 ? p.ring_pages : INT_MAX;
+  const int in_page0 = pos0 - first * p.page_size;
   auto row_of = [&](int r) {
-    const int pos = pos0 + r;
-    const int64_t page = bt_row[pos / p.page_size];
-    return ((page * p.num_kv_heads + kvh) * p.page_size + pos % p.page_size) * static_cast<int64_t>(d_size);
+    const int t = in_page0 + r;
+    const int step = t / p.page_size;
+    int entry = entry0 + step;
+    if (entry >= wrap) entry -= wrap;  // once: the ring covers the window, so a tile spans at most the ring
+    const int64_t page = bt_row[entry];
+    return ((page * p.num_kv_heads + kvh) * p.page_size + (t - step * p.page_size)) * static_cast<int64_t>(d_size);
   };
   if (p.copy_bytes == 0) {
     for (int i = threadIdx.x; i < n * d_size; i += kThreads) {
@@ -397,7 +416,8 @@ cudaError_t launch_group(const PagedParams& p, cudaStream_t stream) {
 
 // query and out (B, QH, D) in `dtype` (f32 or bf16); the caches' layer
 // (P, KH, ps, D) in `cache_dtype` (the query's, or bf16, int8, e4m3);
-// block_table (B, max_pages) and seq_lens (B,) int32. split_len and splits
+// block_table (B, max_pages) and seq_lens (B,) int32; ring_pages > 0 reads
+// each row as a ring of its first ring_pages entries. split_len and splits
 // from the wrapper's plan (paged_split_plan): splits of split_len visible
 // tokens, 1 <= splits <= 256; with splits > 1, part_acc (splits, B, QH, D)
 // and part_ml (splits, B, QH, 2) f32. copy_bytes: 16 or 4 when D times the
@@ -405,7 +425,8 @@ cudaError_t launch_group(const PagedParams& p, cudaStream_t stream) {
 extern "C" int conch_paged_attention(const void* query, void* out, const void* k_layer, const void* v_layer,
                                      const void* block_table, const void* seq_lens, int batch, int max_pages,
                                      int num_q_heads, int num_kv_heads, int page_size, int head_size, float scale,
-                                     float softcap, int window, float v_scale, int dtype, int cache_dtype,
+                                     float softcap, int window, int ring_pages, float v_scale, int dtype,
+                                     int cache_dtype,
                                      int split_len, int splits, void* part_acc, void* part_ml, int copy_bytes,
                                      void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
@@ -413,7 +434,8 @@ extern "C" int conch_paged_attention(const void* query, void* out, const void* k
   if (num_q_heads % num_kv_heads != 0 || num_q_heads / num_kv_heads > conch::kMaxGroup ||
       head_size > conch::kMaxHeadSize || split_len < 1 || splits < 1 || splits > conch::kMaxSplits ||
       (splits > 1 && (part_acc == nullptr || part_ml == nullptr)) ||
-      (copy_bytes != 0 && copy_bytes != 4 && copy_bytes != 16)) {
+      (copy_bytes != 0 && copy_bytes != 4 && copy_bytes != 16) || ring_pages < 0 || ring_pages > max_pages ||
+      (ring_pages > 0 && (window <= 0 || ring_pages * page_size < window))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   conch::PagedParams p{};
@@ -435,6 +457,7 @@ extern "C" int conch_paged_attention(const void* query, void* out, const void* k
   p.softcap = softcap;
   p.v_scale = v_scale;
   p.window = window;
+  p.ring_pages = ring_pages;
   p.split_len = split_len;
   p.splits = splits;
   p.copy_bytes = copy_bytes;

@@ -51,7 +51,13 @@
 //    kernel, launched as a programmatic dependent (its launch overlaps this
 //    grid's end), merges the live splits by log-sum-exp in a fixed order.
 // Rows past cu_seqlens_q[batch] (padding) come out as zeros (the blocks of
-// split 0 write them); zero-length sequences own no tile. Quantized caches:
+// split 0 write them); zero-length sequences own no tile. Rolling KV
+// (ring_pages > 0, a run-time argument): each block-table row is a ring,
+// true page i at entry i % ring_pages, as the TPU kernel's jax.lax.rem
+// (:159-163, :356-358). The walk starts at the window's low bound (lo), as
+// the TPU kernel's band addressing does (:510-516), so a tile's true pages
+// may outnumber both the table and the ring; the plan takes the split
+// count from the window, never from the ring. Quantized caches:
 // `scale` carries scale * q_scale * k_scale and v_scale multiplies the
 // output, as the TPU kernel folds them (:750-753).
 //
@@ -87,6 +93,7 @@ struct Params {
   int block_rows;  // BM: query rows a tile
   int split_len, splits;
   int causal, window;
+  int ring_pages;  // > 0: rolling KV, true page i at block-table entry i % ring_pages
   float scale, softcap, v_scale;
   int q_copy, kv_copy;  // cp.async bytes of the query and cache rows: 16 or 4, or 0 (element by element)
 };
@@ -283,7 +290,9 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) varlen_tile_kernel(con
   // behind a tile's arithmetic.
   auto page_of = [&](int i) -> int {
     const int pos = s_lo + i * KT + my_token;
-    return i < tiles && pos < s_hi ? bt_row[pos / p.page_size] : -1;
+    if (i >= tiles || pos >= s_hi) return -1;
+    const int entry = pos / p.page_size;
+    return bt_row[p.ring_pages > 0 ? entry % p.ring_pages : entry];
   };
   auto issue = [&](int i, int page) {
     if (i < tiles) {
@@ -578,8 +587,8 @@ __global__ void varlen_rows_f32_kernel(const float* __restrict__ query, float* _
                                        const void* v_layer, const int32_t* __restrict__ cu_seqlens_q,
                                        const int32_t* __restrict__ seq_lens, const int32_t* __restrict__ block_table,
                                        int batch, int max_pages, int num_q_heads, int num_kv_heads, int page_size,
-                                       int head_size, float scale, float softcap, int window, int causal,
-                                       float v_scale) {
+                                       int head_size, float scale, float softcap, int window, int ring_pages,
+                                       int causal, float v_scale) {
   const int t = blockIdx.x;
   const int kv_head = blockIdx.y;
   const int group = num_q_heads / num_kv_heads;
@@ -605,7 +614,7 @@ __global__ void varlen_rows_f32_kernel(const float* __restrict__ query, float* _
     if (window > 0) kv_start = max(q_pos - window + 1, 0);
     bt_row = block_table + static_cast<int64_t>(b) * max_pages;
   }
-  const PagedKV kv{k_layer, v_layer, bt_row, num_kv_heads, page_size, head_size};
+  const PagedKV kv{k_layer, v_layer, bt_row, num_kv_heads, page_size, head_size, ring_pages};
   attend_group<float, C, SOFTCAP>(query + row, head_size, out + row, head_size, kv, kv_head, kv_start, kv_len,
                                   group, scale, softcap, v_scale);
 }
@@ -615,7 +624,8 @@ __global__ void varlen_rows_f32_kernel(const float* __restrict__ query, float* _
 // query and out (total_q, QH, D) in `dtype` (f32 or bf16); the caches'
 // layer (P, KH, ps, D) in `cache_dtype` (bf16, int8, e4m3, or f32 under
 // f32 queries); cu_seqlens_q (batch + 1,), seq_lens (batch,), block_table
-// (batch, max_pages) int32. The plan (varlen_tile_plan; bf16 queries
+// (batch, max_pages) int32; ring_pages > 0 reads each row as a ring of its
+// first ring_pages entries. The plan (varlen_tile_plan; bf16 queries
 // only): block_rows (BM = 128 / G query rows a tile), tile_slots (the
 // grid's tile slots, at least the step's (sequence, tile) pairs),
 // split_len and splits (1 <= splits <= 64); with splits > 1, part_acc
@@ -626,14 +636,15 @@ extern "C" int conch_varlen_attention(const void* query, void* out, const void* 
                                       const void* cu_seqlens_q, const void* seq_lens, const void* block_table,
                                       int total_q, int batch, int max_pages, int num_q_heads, int num_kv_heads,
                                       int page_size, int head_size, float scale, float softcap, int window,
-                                      int causal, float v_scale, int dtype, int cache_dtype, int block_rows,
-                                      int tile_slots, int split_len, int splits, void* part_acc, void* part_ml,
+                                      int ring_pages, int causal, float v_scale, int dtype, int cache_dtype,
+                                      int block_rows, int tile_slots, int split_len, int splits, void* part_acc, void* part_ml,
                                       int q_copy, int kv_copy, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (total_q == 0) return static_cast<int>(cudaSuccess);
   const int group = num_kv_heads > 0 ? num_q_heads / num_kv_heads : 0;
   if (group < 1 || num_q_heads % num_kv_heads != 0 || group > conch::kMaxGroup || head_size < 1 ||
-      head_size > conch::kMaxHeadSize) {
+      head_size > conch::kMaxHeadSize || ring_pages < 0 || ring_pages > max_pages ||
+      (ring_pages > 0 && (window <= 0 || ring_pages * page_size < window))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtype == conch::kFloat32) {
@@ -647,7 +658,7 @@ extern "C" int conch_varlen_attention(const void* query, void* out, const void* 
             static_cast<const float*>(query), static_cast<float*>(out), k_layer, v_layer,
             static_cast<const int32_t*>(cu_seqlens_q), static_cast<const int32_t*>(seq_lens),
             static_cast<const int32_t*>(block_table), batch, max_pages, num_q_heads, num_kv_heads, page_size,
-            head_size, scale, softcap, window, causal, v_scale);
+            head_size, scale, softcap, window, ring_pages, causal, v_scale);
       }
     });
     if (!known) return static_cast<int>(cudaErrorInvalidValue);
@@ -681,6 +692,7 @@ extern "C" int conch_varlen_attention(const void* query, void* out, const void* 
   p.splits = splits;
   p.causal = causal;
   p.window = window;
+  p.ring_pages = ring_pages;
   p.scale = scale;
   p.softcap = softcap;
   p.v_scale = v_scale;

@@ -12,6 +12,9 @@ one build serves Llama and Gemma-2's local and global layers. The caches
 may be int8 or float8_e4m3fn (quantized on store by K2): the kernel reads
 them in their own type, folds ``k_scale`` into the softmax scale and
 multiplies the f32 output by ``v_scale``, as the TPU kernel does.
+Rolling KV (``ring_pages > 0``, a run-time argument too) makes each
+block-table row a ring: the kernel reads true page ``i`` at table entry
+``i % ring_pages``, as the TPU kernel's ``jax.lax.rem`` does (:127-130).
 
 The kernel splits each sequence's visible tokens over blocks and merges
 the splits by log-sum-exp (a second kernel). ``paged_split_plan`` sets
@@ -81,7 +84,10 @@ def paged_split_plan(
     seq_lens: torch.Tensor, block_table: torch.Tensor, page_size: int, num_kv_heads: int, window: int, num_sms: int
 ) -> PagedSplitPlan:
     """K3's splits from shapes only: a row holds at most ``max_pages *
-    page_size`` tokens and sees at most ``window`` of them. Splits walk
+    page_size`` tokens and sees at most ``window`` of them. A rolling-KV
+    ring covers the window, so under a ring the window bounds the walk and
+    a rolling engine and an unbounded one with the same window run the same
+    plan. Splits walk
     SPLIT_TOKENS, fewer (down to MIN_SPLIT_TOKENS) when even full rows
     would give the (B, KH) grid under two waves of ``num_sms``, and more
     when MAX_SPLITS would not cover a row; a split is a whole number of
@@ -122,12 +128,14 @@ def paged_attention_plain(
     window_size: int = 0,
     k_scale: float = 1.0,
     v_scale: float = 1.0,
+    ring_pages: int = 0,
 ) -> torch.Tensor:
     """Plain PyTorch version of K3 on any device: gather each sequence's
-    pages and take an f32 softmax. Output in the query's dtype."""
+    pages (through the ring with ``ring_pages``) and take an f32 softmax.
+    Output in the query's dtype."""
     out = _paged_reference(
         query, key_caches[layer_idx], value_caches[layer_idx], block_table, seq_lens, scale, softcap, window_size,
-        k_scale, v_scale,
+        k_scale, v_scale, ring_pages,
     )
     return out.to(query.dtype)
 
@@ -154,6 +162,22 @@ def check_kernel_shapes(query: torch.Tensor, key_caches: torch.Tensor, value_cac
         raise ValueError(msg)
 
 
+def check_ring(ring_pages: int, window_size: int, table_width: int, page_size: int) -> None:
+    """Raise on a ring the attention kernels (K3, K7) cannot read: one
+    without a window (the JAX launchers' message), one wider than the
+    block table, or one whose tokens do not cover the window (K3 wraps a
+    tile's rows at the ring once)."""
+    if ring_pages > 0 and window_size <= 0:
+        msg = "ring_pages (rolling KV) requires window_size > 0"
+        raise ValueError(msg)
+    if not 0 <= ring_pages <= table_width:
+        msg = f"ring_pages {ring_pages} outside the block table's {table_width} entries"
+        raise ValueError(msg)
+    if 0 < ring_pages * page_size < window_size:
+        msg = f"a ring of {ring_pages} pages of {page_size} does not cover the window of {window_size} tokens"
+        raise ValueError(msg)
+
+
 def layer_pointers(key_caches: torch.Tensor, value_caches: torch.Tensor, layer_idx: int) -> tuple[int, int]:
     """Device addresses of layer ``layer_idx`` in the stacked pools."""
     if not 0 <= layer_idx < key_caches.shape[0]:
@@ -163,7 +187,8 @@ def layer_pointers(key_caches: torch.Tensor, value_caches: torch.Tensor, layer_i
 
 
 def _paged_cuda(
-    query, key_caches, value_caches, block_table, seq_lens, scale, layer_idx, softcap, window_size, k_scale, v_scale
+    query, key_caches, value_caches, block_table, seq_lens, scale, layer_idx, softcap, window_size, k_scale, v_scale,
+    ring_pages,
 ):
     require_cuda(query, key_caches, value_caches, block_table, seq_lens)
     check_kernel_shapes(query, key_caches, value_caches)
@@ -184,18 +209,20 @@ def _paged_cuda(
     fn = kernel_function("conch_paged_attention", (
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
     ))
     code = fn(
         query.data_ptr(), out.data_ptr(), k_layer, v_layer, block_table.data_ptr(), seq_lens.data_ptr(),
         batch, block_table.shape[1], num_q_heads, num_kv_heads, page_size, head_size, scale * k_scale, softcap,
-        window_size, v_scale, dtype_code(query), storage_code(key_caches), plan.split_len, plan.splits,
+        window_size, ring_pages, v_scale, dtype_code(query), storage_code(key_caches), plan.split_len, plan.splits,
         None if part_acc is None else part_acc.data_ptr(), None if part_ml is None else part_ml.data_ptr(),
         copy_bytes(head_size * key_caches.element_size(), k_layer, v_layer), stream_of(query),
     )
     check_launch("conch_paged_attention", code)
     paged_attention_launcher.launches += 1
+    if ring_pages > 0:
+        paged_attention_launcher.ring_launches += 1
     return out
 
 
@@ -211,16 +238,20 @@ def paged_attention_launcher(
     window_size: int = 0,  # > 0: only the last window_size cached tokens are seen
     k_scale: float = 1.0,  # dequantization scales of the caches
     v_scale: float = 1.0,
+    ring_pages: int = 0,  # > 0: rolling KV, true page i at table entry i % ring_pages (needs a window)
 ) -> torch.Tensor:
     """Decode attention of one query token per sequence over layer
     ``layer_idx``. Only the first ``seq_lens[b]`` cached tokens are read
     (with a window, only the last ``window_size`` of them); block-table
-    entries past them are never touched. The logits are
+    entries past them are never touched. Under a ring the table's first
+    ``ring_pages`` entries hold position ``p`` at slot ``p % (ring_pages *
+    page_size)``; the ring must cover the window. The logits are
     ``q . k * scale * k_scale`` and the output is multiplied by
-    ``v_scale``. ``launches`` counts kernel launches."""
+    ``v_scale``. ``launches`` counts kernel launches (``ring_launches`` those over a ring)."""
+    check_ring(ring_pages, window_size, block_table.shape[1], key_caches.shape[3])
     args = (
         query, key_caches, value_caches, block_table, seq_lens, scale, layer_idx, softcap, window_size, k_scale,
-        v_scale,
+        v_scale, ring_pages,
     )
     if query.device.type == "cpu":
         return paged_attention_plain(*args)
@@ -228,3 +259,4 @@ def paged_attention_launcher(
 
 
 paged_attention_launcher.launches = 0
+paged_attention_launcher.ring_launches = 0  # the launches over a rolling-KV ring

@@ -8,8 +8,12 @@ The kernel is ``csrc/varlen_attention.cu``; it replaces
 (and ``_varlen_dma_kernel`` / ``_varlen_attention_kernel``, same
 function). Quantized caches and the q/k/v scales go as in K3
 (``paged_attention.py``), with ``q_scale * k_scale`` folded into the
-softmax scale. ``varlen_attention_launcher`` takes the plain version for
-CPU tensors only; on CUDA it launches the kernel or raises.
+softmax scale. Rolling KV (``ring_pages > 0``) reads true page ``i`` at
+table entry ``i % ring_pages`` (the TPU kernel's ``jax.lax.rem``,
+:159-163); the walk starts at the window's low bound, as the TPU kernel's
+band addressing does (:510-516), so a row's true pages may outnumber both
+the table and the ring. ``varlen_attention_launcher`` takes the plain
+version for CPU tensors only; on CUDA it launches the kernel or raises.
 
 bf16 queries run a tiled tensor-core kernel: a block owns one (sequence,
 tile of query rows) pair, one KV head and one split of the tile's keys.
@@ -27,7 +31,12 @@ import dataclasses
 
 import torch
 
-from conch_tpu_torch.kernels.attention.paged_attention import check_kernel_shapes, copy_bytes, layer_pointers
+from conch_tpu_torch.kernels.attention.paged_attention import (
+    check_kernel_shapes,
+    check_ring,
+    copy_bytes,
+    layer_pointers,
+)
 from conch_tpu_torch.kernels.common import (
     cdiv,
     check_launch,
@@ -107,12 +116,16 @@ class VarlenTilePlan:
 
 def varlen_tile_plan(
     total_q: int, batch: int, max_pages: int, page_size: int, num_q_heads: int, num_kv_heads: int, head_size: int,
-    causal: bool, window: int, num_sms: int,
+    causal: bool, window: int, num_sms: int, ring_pages: int = 0,
 ) -> VarlenTilePlan:
     """K7's tiles and splits from shapes only. A step has at most
     ``cdiv(total_q, block_rows) + batch`` (sequence, tile) pairs. A tile's
     keys span at most the block table's ``max_pages * page_size`` tokens,
-    and under a causal window ``window + block_rows - 1``. The splits aim at
+    and under a causal window ``window + block_rows - 1``. Under a ring
+    (``ring_pages > 0``) the window alone bounds the span (a tile's true
+    pages may outnumber the table): ``window + block_rows - 1`` causal,
+    ``window + total_q - 1`` otherwise, so a rolling engine and an
+    unbounded one with the same window run the same plan. The splits aim at
     two waves of ``BLOCKS_PER_SM`` blocks on each of ``num_sms`` SMs when
     every row belongs to a full tile, walk at least ``MIN_SPLIT_TOKENS``
     keys (fewer splits when the span is short) and are at most
@@ -121,7 +134,9 @@ def varlen_tile_plan(
     block_rows = TILE_MMA_ROWS // group
     tile = kv_tile(head_size)
     span = max_pages * page_size
-    if causal and window > 0:
+    if ring_pages > 0:
+        span = window + (block_rows if causal else total_q) - 1
+    elif causal and window > 0:
         span = min(span, window + block_rows - 1)
     live = max(cdiv(total_q, block_rows) * num_kv_heads, 1)
     split_len = round_up(max(cdiv(span, cdiv(2 * BLOCKS_PER_SM * num_sms, live)), MIN_SPLIT_TOKENS), tile)
@@ -145,18 +160,20 @@ def varlen_attention_plain(
     q_scale: float = 1.0,
     k_scale: float = 1.0,
     v_scale: float = 1.0,
+    ring_pages: int = 0,
 ) -> torch.Tensor:
-    """Plain PyTorch version of K7 on any device. Padding rows are zeros."""
+    """Plain PyTorch version of K7 on any device (through the ring with
+    ``ring_pages``). Padding rows are zeros."""
     out = _varlen_reference(
         query, key_caches[layer_idx], value_caches[layer_idx], cu_seqlens_q, seq_lens, block_table, scale, causal,
-        softcap, window_size, q_scale, k_scale, v_scale,
+        softcap, window_size, q_scale, k_scale, v_scale, ring_pages,
     )
     return out.to(query.dtype)
 
 
 def _varlen_cuda(
     query, key_caches, value_caches, cu_seqlens_q, seq_lens, block_table, scale, causal, layer_idx, softcap,
-    window_size, q_scale, k_scale, v_scale,
+    window_size, q_scale, k_scale, v_scale, ring_pages,
 ):
     require_cuda(query, key_caches, value_caches, cu_seqlens_q, seq_lens, block_table)
     check_kernel_shapes(query, key_caches, value_caches)
@@ -175,7 +192,7 @@ def _varlen_cuda(
         raise ValueError(msg)
     k_layer, v_layer = layer_pointers(key_caches, value_caches, layer_idx)
     plan = varlen_tile_plan(total_q, batch, max_pages, page_size, num_q_heads, num_kv_heads, head_size, causal,
-                            window_size, sm_count(query.device.index))
+                            window_size, sm_count(query.device.index), ring_pages)
     shapes = plan.workspace_shapes(total_q, num_q_heads, head_size) if query.dtype == torch.bfloat16 else None
     part_acc, part_ml = (None, None) if shapes is None else (
         torch.empty(shape, dtype=torch.float32, device=query.device) for shape in shapes
@@ -185,13 +202,13 @@ def _varlen_cuda(
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ))
     code = fn(
         query.data_ptr(), out.data_ptr(), k_layer, v_layer, cu_seqlens_q.data_ptr(), seq_lens.data_ptr(),
         block_table.data_ptr(), total_q, batch, max_pages, num_q_heads, num_kv_heads,
-        page_size, head_size, scale * q_scale * k_scale, softcap, window_size, int(causal), v_scale,
+        page_size, head_size, scale * q_scale * k_scale, softcap, window_size, ring_pages, int(causal), v_scale,
         dtype_code(query), storage_code(key_caches), plan.block_rows, plan.tile_slots, plan.split_len, plan.splits,
         None if part_acc is None else part_acc.data_ptr(), None if part_ml is None else part_ml.data_ptr(),
         copy_bytes(head_size * query.element_size(), query.data_ptr()),
@@ -199,6 +216,8 @@ def _varlen_cuda(
     )
     check_launch("conch_varlen_attention", code)
     varlen_attention_launcher.launches += 1
+    if ring_pages > 0:
+        varlen_attention_launcher.ring_launches += 1
     return out
 
 
@@ -217,17 +236,22 @@ def varlen_attention_launcher(
     q_scale: float = 1.0,  # dequantization scales: q_scale * k_scale fold into the logits,
     k_scale: float = 1.0,  # v_scale multiplies the output
     v_scale: float = 1.0,
+    ring_pages: int = 0,  # > 0: rolling KV, true page i at table entry i % ring_pages (needs a window)
 ) -> torch.Tensor:
     """Attention of ragged queries over layer ``layer_idx`` of the pool.
 
     The queries of sequence b are rows ``cu_seqlens_q[b]:cu_seqlens_q[b+1]``
     and are its trailing tokens: row j sits at KV position
     ``seq_lens[b] - q_len[b] + j``. Rows past ``cu_seqlens_q[B]`` are
-    padding and come out zero. ``launches`` counts kernel launches.
+    padding and come out zero. Under a ring the table's first
+    ``ring_pages`` entries hold position ``p`` at slot ``p % (ring_pages *
+    page_size)``; the ring must cover the window and the step's writes.
+    ``launches`` counts kernel launches (``ring_launches`` those over a ring).
     """
+    check_ring(ring_pages, window_size, block_table.shape[1], key_caches.shape[3])
     args = (
         query, key_caches, value_caches, cu_seqlens_q, seq_lens, block_table, scale, causal, layer_idx, softcap,
-        window_size, q_scale, k_scale, v_scale,
+        window_size, q_scale, k_scale, v_scale, ring_pages,
     )
     if query.device.type == "cpu":
         return varlen_attention_plain(*args)
@@ -235,3 +259,4 @@ def varlen_attention_launcher(
 
 
 varlen_attention_launcher.launches = 0
+varlen_attention_launcher.ring_launches = 0  # the launches over a rolling-KV ring

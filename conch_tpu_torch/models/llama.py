@@ -10,8 +10,12 @@ projections through ``QuantizedLinear`` (bf16 dense: ``torch.matmul``;
 int4: K1; int8: K1b; nf4: K1c; w8a8: K8). int8 and float8_e4m3fn KV
 caches are quantized on store with the static ``kv_cache_scale`` and
 dequantized in the attention kernels (``_kv_cache_quant``, as in the JAX
-package). Where the JAX package scans the layers with ``lax.scan`` and
-donates the caches, the port loops over the layers in Python and updates
+package). Qwen2's q/k/v biases (``attention_bias``) are added in plain
+PyTorch before RoPE, as the JAX package leaves the add to XLA; a
+Mistral-style ``sliding_window`` reaches every layer's K3 and K7 calls,
+and so does the rolling-KV ring (``kv_ring_pages``, set by the engine).
+Where the JAX package scans the layers with ``lax.scan`` and donates the
+caches, the port loops over the layers in Python and updates
 the caches IN PLACE; ``llama_prefill`` and ``llama_decode_step`` still
 return them, so call sites read alike.
 
@@ -59,8 +63,13 @@ class LlamaConfig:
     # stored as x / scale, rounded and clipped, and dequantized by folding
     # the scale into the attention scalars (``_kv_cache_quant``).
     kv_cache_scale: float = 1.0 / 16
-    attention_bias: bool = False  # Qwen2-style q/k/v biases: not ported yet
+    # Qwen2-style additive q/k/v projection biases ("bq"/"bk"/"bv" layer params).
+    attention_bias: bool = False
+    # Mistral-style sliding window on every layer (0 disables).
     sliding_window: int = 0
+    # Rolling KV: each block-table row is a ring of this many pages, position
+    # p at slot p % (kv_ring_pages * page_size). Set by the serving engine
+    # (``EngineConfig.rolling_kv``); needs sliding_window > 0. 0 disables.
     kv_ring_pages: int = 0
     rope_scaling: tuple | None = None
 
@@ -139,7 +148,9 @@ def init_llama_params(
     ``group_size``), ``"nf4"`` (``blocksize``, K12q) or ``"w8a8"``.
     ``lm_head`` is stored in the same mode (nf4 at the default blocksize
     64, as in the JAX package), except for int4, where it stays bf16
-    dense. Norms and the embedding are in ``config.dtype``.
+    dense. Norms, the embedding and, with ``config.attention_bias``, the
+    q/k/v biases ``bq``, ``bk``, ``bv`` (normal, std 0.02, drawn after
+    the projections) are in ``config.dtype``.
     """
     _check_config(config)
     if quant_mode not in QUANT_MODES:
@@ -172,6 +183,9 @@ def init_llama_params(
         "input_norm": torch.ones((n_layers, h), dtype=config.dtype, device=device),
         "post_attn_norm": torch.ones((n_layers, h), dtype=config.dtype, device=device),
     }
+    if config.attention_bias:
+        for name, dim in (("bq", q_dim), ("bk", kv_dim), ("bv", kv_dim)):
+            layers[name] = normal(n_layers, dim, dtype=config.dtype)
     embedding = normal(config.vocab_size, h, dtype=config.dtype)
     head_mode = "bf16" if quant_mode == "int4" else quant_mode
     head_kwargs = {"group_size": group_size} if head_mode == "int8" else {}
@@ -269,11 +283,14 @@ def tree_from_jax(numpy_tree: dict, device: str | torch.device | None = None) ->
 def params_from_jax(numpy_tree: dict, config: LlamaConfig, device: str | torch.device | None = None) -> dict:
     """Carry a JAX param tree (``conch_tpu.models.llama.init_llama_params``
     output, arrays turned into numpy) over to the port's params, bit for
-    bit (``tree_from_jax``)."""
+    bit (``tree_from_jax``), Qwen2's biases among them."""
     _check_config(config)
     params = tree_from_jax(numpy_tree, device)
     if params["cos_sin_cache"].shape != (config.max_position, config.head_dim):
         msg = f"cos_sin_cache {tuple(params['cos_sin_cache'].shape)} does not match the config"
+        raise ValueError(msg)
+    if config.attention_bias != all(name in params["layers"] for name in ("bq", "bk", "bv")):
+        msg = f"attention_bias={config.attention_bias} but the layers hold {sorted(params['layers'])}"
         raise ValueError(msg)
     return params
 
@@ -297,7 +314,8 @@ def fuse_llama_params(params: dict) -> dict:
 
     Returns a new params dict whose layer stack holds ``wqkv`` =
     [wq|wk|wv] and ``w_gateup`` = [w_gate|w_up]; the layer step slices the
-    product instead. Pieces that cannot fuse are left as they are.
+    product instead. Pieces that cannot fuse are left as they are; Qwen2's
+    biases stay separate and are added to the slices.
     """
     layers = dict(params["layers"])
     for fused_name, parts in _FUSION_GROUPS:
@@ -314,9 +332,9 @@ def fuse_llama_params(params: dict) -> dict:
 
 
 def _check_config(config: LlamaConfig) -> None:
-    if config.sliding_window or config.kv_ring_pages or config.attention_bias:
-        msg = "sliding-window attention, rolling KV and attention biases are not ported yet"
-        raise NotImplementedError(msg)
+    if config.kv_ring_pages > 0 and config.sliding_window <= 0:
+        msg = "kv_ring_pages (rolling KV) requires sliding_window > 0"
+        raise ValueError(msg)
 
 
 def _check_unported(config: LlamaConfig, tp_axis, lora) -> None:
@@ -352,7 +370,8 @@ def attention_block(
     kv_quant: tuple[str, float | None],
 ) -> torch.Tensor:
     """One layer's attention on its normed input ``x`` (T, H), before the
-    residual add: q/k/v (fused ``wqkv`` or separate), NeoX RoPE (K5), the
+    residual add: q/k/v (fused ``wqkv`` or separate; Qwen2's ``bq``, ``bk``,
+    ``bv`` added in plain PyTorch in their dtype), NeoX RoPE (K5), the
     layer's K/V written into the caches in place (decode: the K2 kernel;
     prefill: an indexed write, as the JAX package's XLA scatter), quantized
     on store as ``kv_quant`` (``_kv_cache_quant``) says, then
@@ -367,6 +386,10 @@ def attention_block(
         q, k, v = qkv[:, :q_dim], qkv[:, q_dim : q_dim + kv_dim], qkv[:, q_dim + kv_dim :]
     else:
         q, k, v = (layers[n].apply_stacked(x, layer) for n in ("wq", "wk", "wv"))
+    if "bq" in layers:  # Qwen2-style attention bias
+        q = q + layers["bq"][layer].to(q.dtype)
+        k = k + layers["bk"][layer].to(k.dtype)
+        v = v + layers["bv"][layer].to(v.dtype)
     q, k = rotary_embedding(positions, q, k, head_dim, params["cos_sin_cache"])
     k = k.view(t, num_kv_heads, head_dim)
     v = v.view(t, num_kv_heads, head_dim)
@@ -456,7 +479,8 @@ def llama_prefill(
     def attn_fn(q, kc, vc, layer):
         return varlen_attention(
             q, kc, vc, cu_seqlens_q, max_seqlen_q, seq_lens, max_seqlen_q, block_tables,
-            causal=True, kv_cache_dtype=kv_dtype, k_scale=kv_scale, v_scale=kv_scale, layer_idx=layer,
+            causal=True, kv_cache_dtype=kv_dtype, k_scale=kv_scale, v_scale=kv_scale,
+            window_size=config.sliding_window, ring_pages=config.kv_ring_pages, layer_idx=layer,
         )
 
     hidden = _forward_layers(
@@ -493,7 +517,7 @@ def llama_decode_step(
     def attn_fn(q, kc, vc, layer):
         return paged_attention(
             q, kc, vc, block_tables, seq_lens, kv_cache_dtype=kv_dtype, k_scale=kv_scale, v_scale=kv_scale,
-            layer_idx=layer,
+            window_size=config.sliding_window, ring_pages=config.kv_ring_pages, layer_idx=layer,
         )
 
     hidden = _forward_layers(

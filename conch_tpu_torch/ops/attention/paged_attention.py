@@ -13,13 +13,6 @@ from conch_tpu_torch.kernels.attention.paged_attention import paged_attention_la
 from conch_tpu_torch.ops.kv_quant import check_kv_cache_dtype, scale_value
 
 
-def check_unported_options(ring_pages: int) -> None:
-    """Raise for attention options that later slices port."""
-    if ring_pages != 0:
-        msg = "ring pages (rolling KV) are not ported yet"
-        raise NotImplementedError(msg)
-
-
 def resolve_kv_caches(kv_cache_dtype: str, key_cache: torch.Tensor, value_cache: torch.Tensor) -> tuple:
     """The caches as the kernels read them, as the JAX ops resolve
     ``kv_cache_dtype``: ``"auto"`` reads any cache dtype; ``"int8"`` needs
@@ -77,12 +70,16 @@ def paged_attention(
             applied for every ``kv_cache_dtype``: ``k_scale`` multiplies the
             softmax scale, ``v_scale`` the f32 output.
         window_size: > 0 limits each sequence to its last ``window_size``
-            cached tokens (Gemma-2's local layers).
+            cached tokens (Gemma-2's local layers, Mistral's every layer).
+        ring_pages: > 0 (rolling KV): each block-table row's first
+            ``ring_pages`` entries form a ring holding position ``p`` at
+            slot ``p % (ring_pages * page_size)``; needs ``window_size > 0``
+            (ValueError otherwise) and a ring covering the window.
+        layer_idx: the layer of a stacked (L, ...) cache pool.
 
     Returns:
         (batch, num_q_heads, head_size) in the query's dtype.
     """
-    check_unported_options(ring_pages)
     key_cache, value_cache = resolve_kv_caches(kv_cache_dtype, key_cache, value_cache)
     key_caches, value_caches, layer = stacked_view(key_cache, value_cache, layer_idx)
     if query.dim() != 3 or key_caches.shape != value_caches.shape:
@@ -98,5 +95,5 @@ def paged_attention(
         scale = 1.0 / math.sqrt(query.shape[-1])
     return paged_attention_launcher(
         query, key_caches, value_caches, block_table, seq_lens, scale, layer, float(softcap), int(window_size),
-        scale_value(k_scale), scale_value(v_scale),
+        scale_value(k_scale), scale_value(v_scale), int(ring_pages),
     )

@@ -10,7 +10,7 @@ import math
 import torch
 
 from conch_tpu_torch.kernels.attention.varlen_attention import varlen_attention_launcher
-from conch_tpu_torch.ops.attention.paged_attention import check_unported_options, resolve_kv_caches, stacked_view
+from conch_tpu_torch.ops.attention.paged_attention import resolve_kv_caches, stacked_view
 from conch_tpu_torch.ops.kv_quant import scale_value
 
 
@@ -96,7 +96,11 @@ def varlen_attention(
             multiplies the softmax scale, ``v_scale`` the f32 output.
         window_size: > 0: the query at position p sees keys from
             ``p - window_size + 1`` on (Gemma-2's local layers).
-        ring_pages: > 0 (rolling KV) is not ported yet and raises.
+        ring_pages: > 0 (rolling KV): each block-table row's first
+            ``ring_pages`` entries form a ring holding position ``p`` at
+            slot ``p % (ring_pages * page_size)``; needs ``window_size > 0``
+            (ValueError otherwise) and a ring covering the window and the
+            step's writes.
         layer_idx: the layer of a stacked (L, ...) cache pool.
         strict: the JAX op's size checks first, with its messages (on one
             layer of a stacked pool).
@@ -110,7 +114,6 @@ def varlen_attention(
             query, key_cache[0] if stacked and key_cache.dim() == 5 else key_cache,
             value_cache[0] if stacked and value_cache.dim() == 5 else value_cache, cu_seqlens_q, seq_lens, block_table,
         )
-    check_unported_options(ring_pages)
     key_cache, value_cache = resolve_kv_caches(kv_cache_dtype, key_cache, value_cache)
     key_caches, value_caches, layer = stacked_view(key_cache, value_cache, layer_idx)
     batch = cu_seqlens_q.shape[0] - 1
@@ -124,5 +127,5 @@ def varlen_attention(
         scale = 1.0 / math.sqrt(query.shape[-1])
     return varlen_attention_launcher(
         query, key_caches, value_caches, cu_seqlens_q, seq_lens, block_table, scale, causal, layer, float(softcap),
-        int(window_size), scale_value(q_scale), scale_value(k_scale), scale_value(v_scale),
+        int(window_size), scale_value(q_scale), scale_value(k_scale), scale_value(v_scale), int(ring_pages),
     )

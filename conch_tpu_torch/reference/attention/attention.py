@@ -12,7 +12,11 @@ cached tokens, and a query row that belongs to no sequence, yield zeros.
 Options, as in the JAX reference: ``softcap > 0`` maps each scaled
 logit s to ``softcap * tanh(s / softcap)`` before the mask; a sliding
 ``window_size > 0`` lets query position p see keys ``k > p - window_size``
-(decode: the last ``window_size`` cached tokens). Caches may be int8 or
+(decode: the last ``window_size`` cached tokens). ``ring_pages > 0``
+(rolling KV) makes each block-table row a ring: a sequence's true page
+``i`` lives at table entry ``i % ring_pages``, so positions before the
+window may have been overwritten by later ones; the window masks them, as
+the TPU kernels' band walk skips them. Caches may be int8 or
 float8_e4m3fn, quantized on store: their values convert exactly to f32,
 and the dequantization scales fold as the TPU kernels fold them, ``q_scale
 * k_scale`` into the softmax scale and ``v_scale`` onto the f32 output.
@@ -23,11 +27,17 @@ from __future__ import annotations
 import torch
 
 
-def gather_cache_for_sequence(cache: torch.Tensor, block_table_row: torch.Tensor, seq_len: int) -> torch.Tensor:
-    """One sequence's (seq_len, num_kv_heads, head_size) rows."""
+def gather_cache_for_sequence(
+    cache: torch.Tensor, block_table_row: torch.Tensor, seq_len: int, ring_pages: int = 0
+) -> torch.Tensor:
+    """One sequence's (seq_len, num_kv_heads, head_size) rows; under a ring
+    true page ``i`` reads table entry ``i % ring_pages``."""
     _, num_kv_heads, page_size, head_size = cache.shape
     num_needed = -(-seq_len // page_size)
-    pages = cache[block_table_row[:num_needed].long()]  # (n, KH, ps, D)
+    entries = torch.arange(num_needed, device=block_table_row.device)
+    if ring_pages > 0:
+        entries = entries % ring_pages
+    pages = cache[block_table_row[entries].long()]  # (n, KH, ps, D)
     contiguous = pages.transpose(1, 2).reshape(num_needed * page_size, num_kv_heads, head_size)
     return contiguous[:seq_len]
 
@@ -78,12 +88,13 @@ def paged_attention(
     window_size: int = 0,
     k_scale: float = 1.0,
     v_scale: float = 1.0,
+    ring_pages: int = 0,
 ) -> torch.Tensor:
     """Golden decode attention: one query token per sequence. f32 output."""
     outs = []
     for b, seq_len in enumerate(seq_lens.tolist()):
-        k = gather_cache_for_sequence(key_cache, block_table[b], seq_len)
-        v = gather_cache_for_sequence(value_cache, block_table[b], seq_len)
+        k = gather_cache_for_sequence(key_cache, block_table[b], seq_len, ring_pages)
+        v = gather_cache_for_sequence(value_cache, block_table[b], seq_len, ring_pages)
         outs.append(masked_attention(query[b : b + 1], k, v, scale * k_scale, False, softcap, window_size)[0])
     return torch.stack(outs) * v_scale
 
@@ -102,6 +113,7 @@ def varlen_attention(
     q_scale: float = 1.0,
     k_scale: float = 1.0,
     v_scale: float = 1.0,
+    ring_pages: int = 0,
 ) -> torch.Tensor:
     """Golden varlen attention over ragged queries. f32 output."""
     out = torch.zeros(query.shape, dtype=torch.float32, device=query.device)
@@ -109,8 +121,8 @@ def varlen_attention(
     for b, seq_len in enumerate(seq_lens.tolist()):
         if cu[b + 1] == cu[b]:
             continue
-        k = gather_cache_for_sequence(key_cache, block_table[b], seq_len)
-        v = gather_cache_for_sequence(value_cache, block_table[b], seq_len)
+        k = gather_cache_for_sequence(key_cache, block_table[b], seq_len, ring_pages)
+        v = gather_cache_for_sequence(value_cache, block_table[b], seq_len, ring_pages)
         out[cu[b] : cu[b + 1]] = masked_attention(
             query[cu[b] : cu[b + 1]], k, v, scale * q_scale * k_scale, causal, softcap, window_size
         )

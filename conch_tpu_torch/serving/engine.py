@@ -17,7 +17,12 @@ counts, as in the JAX package:
   recompute, and admission gated on free pages;
 - multi-step greedy decode: K decode steps per dispatch with on-device
   argmax feedback, the host applying eos/stop/max_tokens afterwards and
-  discarding overshoot.
+  discarding overshoot;
+- rolling KV for models whose every layer is sliding-window (Mistral):
+  each sequence holds a ring of ``ceil((window + max_prefill_tokens) /
+  page_size) + 1`` pages, position p at ring slot p % (ring pages x
+  page_size), whatever its length; K3 and K7 read the ring
+  (``config.kv_ring_pages``).
 
 The KV pool is one stacked (L, P, KH, ps, D) tensor pair updated in place
 by the model (the JAX engine donates it through its jitted steps); a
@@ -29,14 +34,15 @@ Llama by default; ``prefill_fn``/``decode_fn`` swap the family
 ``models.deepseek.deepseek_prefill``/``deepseek_decode_step``), as in the
 JAX engine.
 
-Later slices port LoRA, tensor parallelism, speculative decoding, rolling
-KV, parallel sampling (n > 1), guided decoding, logprobs, repetition
+Later slices port LoRA, tensor parallelism, speculative decoding,
+parallel sampling (n > 1), guided decoding, logprobs, repetition
 penalty, logit bias, beam search and the HTTP server; asking for any of
 them raises.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import enum
 from dataclasses import dataclass, field
 
@@ -102,11 +108,17 @@ class EngineConfig:
     # overshoot is discarded (its KV sits past the rewound seq_len). 1
     # disables.
     multi_step_decode: int = 8
-    rolling_kv: bool = False  # not ported yet: must stay False
+    # Rolling KV buffer for sliding-window models (Mistral-style): cap each
+    # sequence's KV at a ring of ceil((sliding_window + max_prefill_tokens)
+    # / page_size) + 1 pages; position p lives at ring slot p % cap_tokens.
+    # Outputs equal the unbounded cache's: the window never reads an
+    # overwritten slot. Needs the model's sliding_window > 0 and prefix
+    # caching off (ring pages are rewritten in place); LLMEngine checks.
+    rolling_kv: bool = False
 
     def __post_init__(self) -> None:
-        if self.num_speculative_tokens or self.rolling_kv:
-            msg = "speculative decoding and rolling KV are not ported yet"
+        if self.num_speculative_tokens:
+            msg = "speculative decoding is not ported yet"
             raise NotImplementedError(msg)
 
 
@@ -153,14 +165,21 @@ class LLMEngine:
         if params["embedding"].device.type != self.device.type:
             msg = f"params lie on {params['embedding'].device}, the engine runs on {self.device}"
             raise ValueError(msg)
-        self.config = model_config
         self.ecfg = engine_config
+        # Rolling KV: _page_cap bounds each sequence's page list; _cap_tokens
+        # (_page_cap * page_size) is the ring's modulus, None without a ring.
+        self._page_cap = engine_config.max_pages_per_seq
+        self._cap_tokens: int | None = None
+        if engine_config.rolling_kv:
+            model_config = self._ring_config(model_config, engine_config)
+            self._page_cap = model_config.kv_ring_pages
+            self._cap_tokens = self._page_cap * engine_config.page_size
+        self.config = model_config
         fuse = fuse_deepseek_params if decode_fn is deepseek_decode_step else fuse_llama_params
         self.params = fuse(params)
         self._prefill_fn = prefill_fn or llama_prefill
         self._decode_fn = decode_fn or llama_decode_step
         self.allocator = BlockAllocator(engine_config.num_pages)
-        self._page_cap = engine_config.max_pages_per_seq
         dtype = cache_dtype or model_config.dtype
         if getattr(model_config, "kv_cache_layout", "kv") == "mla":
             cache_shape = (
@@ -187,6 +206,41 @@ class LLMEngine:
         self._cached_lru: dict[int, None] = {}
         self.prefix_cache_hits = 0  # tokens served from cache (stats)
 
+    @staticmethod
+    def _ring_config(model_config, engine_config: EngineConfig):
+        """``model_config`` with ``kv_ring_pages`` set to the ring's pages:
+        the window plus the largest write burst (a prefill chunk), plus one
+        page of alignment slop. Raises, as the JAX engine does, for a model
+        without a window, a config without ``kv_ring_pages`` (Gemma-2's
+        global layers need the whole history), prefix caching, or a pool or
+        table too small for the ring."""
+        window = getattr(model_config, "sliding_window", 0)
+        if window <= 0:
+            msg = "rolling_kv requires a model with sliding_window > 0"
+            raise ValueError(msg)
+        if not hasattr(model_config, "kv_ring_pages"):
+            msg = (
+                f"{type(model_config).__name__} does not support rolling KV "
+                "(no kv_ring_pages field: every layer must be sliding-window)"
+            )
+            raise ValueError(msg)
+        if engine_config.enable_prefix_caching:
+            msg = (
+                "rolling_kv is incompatible with prefix caching (ring pages "
+                "are rewritten in place); set enable_prefix_caching=False"
+            )
+            raise ValueError(msg)
+        ps = engine_config.page_size
+        slack = max(engine_config.max_prefill_tokens, engine_config.num_speculative_tokens + 1)
+        cap_pages = -(-(window + slack) // ps) + 1
+        if cap_pages > min(engine_config.max_pages_per_seq, engine_config.num_pages):
+            msg = (
+                f"rolling_kv needs max_pages_per_seq (and the pool) >= "
+                f"{cap_pages} pages (window {window} + write burst {slack})"
+            )
+            raise ValueError(msg)
+        return dataclasses.replace(model_config, kv_ring_pages=cap_pages)
+
     # -- public API --------------------------------------------------------
 
     def add_request(self, prompt: list[int], sampling: SamplingParams | None = None, lora_id: int | None = None) -> int:
@@ -195,12 +249,20 @@ class LLMEngine:
             raise NotImplementedError(msg)
         ps = self.ecfg.page_size
         cap_pages = min(self.ecfg.max_pages_per_seq, self.ecfg.num_pages)
-        if len(prompt) + 1 > cap_pages * ps:
-            msg = (
-                f"prompt of {len(prompt)} tokens can never fit: engine caps a "
-                f"sequence at {cap_pages} pages x {ps} slots"
-            )
-            raise ValueError(msg)
+        # Rolling KV: any prompt the rope cache covers fits (prefill wraps
+        # the ring); positions past max_position would reuse its last row.
+        if self._cap_tokens is None:
+            if len(prompt) + 1 > cap_pages * ps:
+                msg = (
+                    f"prompt of {len(prompt)} tokens can never fit: engine caps a "
+                    f"sequence at {cap_pages} pages x {ps} slots"
+                )
+                raise ValueError(msg)
+        else:
+            max_pos = getattr(self.config, "max_position", None)
+            if max_pos is not None and len(prompt) + 1 > max_pos:
+                msg = f"prompt of {len(prompt)} tokens exceeds the model's rope range (max_position {max_pos})"
+                raise ValueError(msg)
         rid = self._next_id
         self._next_id += 1
         self.waiting.append(Request(rid, list(prompt), sampling or SamplingParams()))
@@ -376,6 +438,8 @@ class LLMEngine:
         ]
 
     def _slot(self, req: Request, pos: int) -> int:
+        if self._cap_tokens is not None:
+            pos = pos % self._cap_tokens  # rolling KV: the ring slot
         return req.pages[pos // self.ecfg.page_size] * self.ecfg.page_size + pos % self.ecfg.page_size
 
     def _block_table(self, reqs: list[Request]) -> np.ndarray:
@@ -499,14 +563,17 @@ class LLMEngine:
         """K greedy decode steps with on-device argmax feedback; (k, batch)
         tokens. Same masking as the JAX package's ``make_multi_step_scan``:
         seq_lens clamp at each row's owned pages (``limit``), writes past
-        them get slot -1, and idle rows run with seq_len 0 and slot -1."""
+        them get slot -1, and idle rows run with seq_len 0 and slot -1;
+        under rolling KV the write slots wrap at the ring (the engine passes
+        an unbounded ``limit`` for a fully grown ring)."""
         ps = self.ecfg.page_size
         rows = torch.arange(bt.shape[0], device=bt.device)
         out = []
         for _ in range(k):
             seq_lens = torch.where(active, torch.minimum(positions + 1, limit), 0).to(torch.int32)
-            page_idx = (positions // ps).clamp(max=bt.shape[1] - 1).long()
-            slots = bt[rows, page_idx] * ps + positions % ps
+            wpos = positions % self._cap_tokens if self._cap_tokens is not None else positions
+            page_idx = (wpos // ps).clamp(max=bt.shape[1] - 1).long()
+            slots = bt[rows, page_idx] * ps + wpos % ps
             slots = torch.where(active & (positions < limit), slots, -1).to(torch.int32)
             logits, _, _ = self._decode_fn(
                 self.params, self.config, tokens, positions, seq_lens, bt, slots, self.k_caches, self.v_caches
@@ -532,7 +599,10 @@ class LLMEngine:
             tokens[i] = r.output_tokens[-1]
             positions[i] = r.total_len - 1
             active[i] = True
-            limit[i] = len(r.pages) * self.ecfg.page_size
+            if self._cap_tokens is not None and len(r.pages) >= self._page_cap:
+                limit[i] = 2**30  # a fully grown ring: writes wrap, never past the table
+            else:
+                limit[i] = len(r.pages) * self.ecfg.page_size
         toks = self._multi_step_greedy(
             self._tensor(tokens), self._tensor(positions), self._tensor(active), self._tensor(limit),
             self._tensor(self._block_table(reqs)), k,
@@ -574,6 +644,12 @@ class LLMEngine:
         if hit_stop and len(req.output_tokens) < req.sampling.min_tokens:
             hit_stop = False  # suppressed at sampling; belt and braces here
         out_of_len = len(req.output_tokens) >= req.sampling.max_tokens
-        at_cap = req.total_len >= self.ecfg.max_pages_per_seq * self.ecfg.page_size
+        # Rolling KV: the length is never page-bound (the ring wraps) but is
+        # rope-bound.
+        if self._cap_tokens is None:
+            at_cap = req.total_len >= self.ecfg.max_pages_per_seq * self.ecfg.page_size
+        else:
+            max_pos = getattr(self.config, "max_position", None)
+            at_cap = max_pos is not None and req.total_len >= max_pos
         if hit_stop or out_of_len or at_cap:
             req.state = RequestState.FINISHED

@@ -27,7 +27,12 @@ the merge; ``chip_smoke.check_mla_attention_options`` (K11's option sweep)
 for K11's faults: the first split dropped from the merge, the causal
 limit of each row one key late, the copies of the last sequence's tokens
 into the padding rows dropped (one split), ``kv_scale`` not folded into the
-output. The unchanged package must pass all the checks first, and
+output; and the rolling-KV ring of K3 and K7, caught by their option
+sweeps' ring cases (``check_paged_ring_options``, ``check_varlen_ring_options``):
+a true page read at its own table entry (the ring's modulo dropped), K3's
+rows past the end of the ring not wrapped to its start, and a walk that
+starts at page 0 under a ring (the window band's start dropped).
+The unchanged package must pass all the checks first, and
 every faulty copy must fail a check; the tool prints each run's check
 lines and exits non-zero otherwise.
 """
@@ -52,6 +57,14 @@ K3_SCALE_THEN_CAP = (
 )
 K3_WEIGHT = "w_s[z] = __expf(p.part_ml[(z * split_stride + head) * 2] - m);"
 K3_SUM = "for (int z = 0; z < live; ++z) a += p.part_acc[(z * split_stride + head) * p.head_size + d] * w_s[z];"
+K3_START = "const int kv_start = window > 0 ? max(seq_len - window, 0) : 0;"
+K7_LO = "t.lo = p.window > 0 ? max(t.first - p.window + 1, 0) : 0;"
+RING_ENTRY = "bt_row[p.ring_pages > 0 ? entry % p.ring_pages : entry]"
+K3_RING_ENTRY = (
+    "const int entry0 = p.ring_pages > 0 ? first % p.ring_pages : first;\n"
+    "  const int wrap = p.ring_pages > 0 ? p.ring_pages : INT_MAX;"
+)
+K3_RING_WRAP = "if (entry >= wrap) entry -= wrap;"
 GEMMA, OPTIONS, SERVED = "gemma_attention_phases", "check_paged_attention_options", "kernel_phase_k3_served"
 K7_OPTIONS = "check_varlen_attention_options"
 K11_OPTIONS = "check_mla_attention_options"
@@ -63,9 +76,19 @@ MUTANTS = {
         "x = p.softcap > 0.0f ? cap_log2 * tanhf(x / p.softcap) * p.scale : x * scale_log2;", GEMMA,
     ),
     "k3_softcap_dropped": ("paged_attention.cu", K3_SCALE_THEN_CAP, "float x = warp_sum(part[g]) * p.scale;", GEMMA),
-    "k3_window_ignored": (
-        "paged_attention.cu", "const int kv_start = window > 0 ? max(seq_len - window, 0) : 0;",
-        "const int kv_start = 0;", GEMMA,
+    "k3_window_ignored": ("paged_attention.cu", K3_START, "const int kv_start = 0;", GEMMA),
+    "k3_ring_modulo_dropped": (
+        "paged_attention.cu", K3_RING_ENTRY, "const int entry0 = first;\n  const int wrap = INT_MAX;", OPTIONS,
+    ),
+    "k3_ring_wrap_dropped": ("paged_attention.cu", K3_RING_WRAP, "(void)wrap;", OPTIONS),
+    "k3_ring_band_from_zero": (
+        "paged_attention.cu", K3_START, K3_START.replace("window > 0 ?", "window > 0 && p.ring_pages == 0 ?"),
+        OPTIONS,
+    ),
+    "k7_ring_modulo_dropped": ("varlen_attention.cu", RING_ENTRY, "bt_row[entry]", K7_OPTIONS),
+    "k7_ring_band_from_zero": (
+        "varlen_attention.cu", K7_LO, K7_LO.replace("p.window > 0 ?", "p.window > 0 && p.ring_pages == 0 ?"),
+        K7_OPTIONS,
     ),
     "k7_window_mask_dropped": (
         "varlen_attention.cu", "return p.window > 0 ? max(t.first + i - p.window + 1, 0) : 0;", "return 0;",

@@ -127,8 +127,10 @@ def test_sampling_is_seeded_and_unported_options_raise():
     for kwargs in ({"n": 2}, {"logprobs": True}, {"repetition_penalty": 1.2}, {"logit_bias": ((1, 1.0),)}):
         with pytest.raises(NotImplementedError):
             SamplingParams(**kwargs)
-    for kwargs in ({"num_speculative_tokens": 2}, {"rolling_kv": True}):
-        with pytest.raises(NotImplementedError):
-            EngineConfig(**kwargs)
+    with pytest.raises(NotImplementedError):
+        EngineConfig(num_speculative_tokens=2)
+    # Rolling KV is ported: the engine refuses it for a model without a window.
+    with pytest.raises(ValueError, match="sliding_window"):
+        LLMEngine(params, cfg, EngineConfig(**ENGINE, rolling_kv=True, enable_prefix_caching=False), device="cpu")
     with pytest.raises(NotImplementedError):
         LLMEngine(params, cfg, EngineConfig(**ENGINE), device="cpu", lora={})

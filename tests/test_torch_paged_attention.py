@@ -99,13 +99,14 @@ def test_paged_attention_reads_the_named_layer_only():
 
 
 def test_paged_attention_unported_options_raise():
-    """Ring pages still raise. fp8 caches, once refused, are read: an e4m3
+    """Ring pages without a window raise ValueError, with the JAX
+    launchers' words (rolling KV is ported). fp8 caches, once refused, are read: an e4m3
     cache (and its uint8 view) under kv_cache_dtype "fp8" equals the golden
     reference on the same values with the scales folded in. A string that
     does not name the caches' dtype raises."""
     rng = np.random.default_rng(23)
     q, kc, vc, bt, sl = map(torch.from_numpy, make_inputs(rng, [5, 20, 33], 4, 1, 128))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="window"):
         paged_attention(q, kc, vc, bt, sl, layer_idx=1, ring_pages=4)
     with pytest.raises(ValueError, match="fp8"):
         paged_attention(q, kc, vc, bt, sl, layer_idx=1, kv_cache_dtype="fp8")

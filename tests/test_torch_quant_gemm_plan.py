@@ -6,7 +6,8 @@
 ``conch_tpu_torch/kernels/quantization/gemm.py`` compute in Python and
 hand to the CUDA entry points. Held on the CPU, for the Llama-3-8B engine
 shapes (int4 fused at groups 64 and 128, nf4 unfused, int8 and w8a8 fused,
-and lm_head) at M 1, 8, 32, 40 and 512, and for the small shapes of the
+and lm_head), Qwen2-7B's int4 shapes (K 3584 and 18944) at M 1, 8, 32, 40
+and 512, and for the small shapes of the
 port's GEMM tests and K8's option sweep:
 
 - the splits cover K's slices exactly once, in order, and every split
@@ -42,6 +43,11 @@ H100_SMS = 132
 NF4_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256)]  # (K, N), group 64
 INT8_SHAPES = [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096), (4096, 128256)]  # (K, N), group 128
 INT4_SHAPES = INT8_SHAPES[:4]  # fused wqkv, wo, fused gate|up, w_down; groups 64 and 128
+# Qwen2-7B's int4 GEMMs at group 128, as its engine runs them: the fused
+# wqkv (3584 + 2 x 512), wo, w_gate and w_up apart (N 18944 padded at pack
+# time to 20480, so they do not fuse) and w_down. K 3584 is 28 groups and
+# 18944 is 148, both with few divisors.
+QWEN2_SHAPES = [(3584, 4608), (3584, 3584), (3584, 20480), (18944, 3584)]
 ENGINE_MS = [1, 8, 32, 40, 512]
 
 # (layout, bits, group, K, N): the engine's, then the small shapes of
@@ -50,6 +56,7 @@ ENGINE_MS = [1, 8, 32, 40, 512]
 ENGINE_CASES = (
     [("gptq", 4, 64, k, n) for k, n in NF4_SHAPES] + [("planar", 8, 128, k, n) for k, n in INT8_SHAPES]
     + [("magic", 4, g, k, n) for g in (128, 64) for k, n in INT4_SHAPES]
+    + [("magic", 4, 128, k, n) for k, n in QWEN2_SHAPES]
     + [("scaled", 8, 128, k, n) for k, n in INT8_SHAPES]
 )
 SMALL_CASES = [

@@ -38,11 +38,18 @@ H100_SMS = 132
 PAGE = 16
 # (total_q, batch, table pages, QH, KH, D): the int4 Llama engine's 512-row
 # step and the kernel checks' 128-row one, Gemma-2-2B's served step, a
-# decode-sized step, the option sweep's shapes (G 1 / 4 / 8, D 34).
+# decode-sized step, the option sweep's shapes (G 1 / 4 / 8, D 34), and
+# GQA group 7: Qwen2-7B's served 512-row step (28 query heads over 4, 9
+# rows a tile) and the sweep's group-7 shape.
 SHAPES = [
     (512, 32, 256, 32, 8, 128), (128, 8, 64, 32, 8, 128), (512, 16, 384, 8, 4, 256), (8, 8, 64, 32, 8, 128),
     (64, 7, 64, 2, 2, 64), (64, 7, 64, 8, 2, 34), (64, 7, 64, 16, 2, 256), (40, 3, 4, 6, 2, 128),
+    (512, 8, 128, 28, 4, 128), (64, 7, 64, 14, 2, 128),
 ]
+# Rolling KV (total_q, batch, QH, KH, D, window): Mistral-7B's 512-row step
+# under its 4096 window, small steps at window 48 and group 7. The ring is
+# the engine's: ceil((window + total_q) / page) + 1 pages.
+RING_SHAPES = [(512, 8, 32, 8, 128, 4096), (64, 3, 4, 2, 64, 48), (32, 4, 14, 2, 128, 48), (128, 8, 28, 4, 128, 500)]
 
 
 def _ragged(rng, total_q: int, batch: int, capacity: int) -> tuple[list[int], list[int]]:
@@ -116,6 +123,34 @@ def test_every_visible_key_in_one_split_of_its_tile(shape, window, causal):
             assert np.all(keys[:lo] == 0) and np.all(keys[hi:] == 0)
             assert np.all(seen[lo:hi] == 1), "the tile walks a key none of its rows sees"
         assert sorted(owner) == list(range(cu[-1])), "a real row in no tile (or a padding row in one)"
+
+
+@pytest.mark.parametrize("shape", RING_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_ring_tiles_walk_the_window_band(shape):
+    """Under a ring, sequences run to three times the ring's tokens; a
+    tile's key range [lo, hi) starts at its first row's window start, fits
+    the ring (no two of its keys share a ring slot) and holds every key its
+    rows see, each in one split; the plan equals a wide linear table's."""
+    total_q, batch, qh, kh, d, window = shape
+    ring = -(-(window + total_q) // PAGE) + 1
+    plan = varlen_tile_plan(total_q, batch, ring, PAGE, qh, kh, d, True, window, H100_SMS, ring)
+    assert plan == varlen_tile_plan(total_q, batch, 3 * ring, PAGE, qh, kh, d, True, window, H100_SMS)
+    assert plan.block_rows * (qh // kh) <= TILE_MMA_ROWS
+    rng = np.random.default_rng(total_q + window)
+    for _ in range(3):
+        q_lens, seq_lens = _ragged(rng, total_q, batch, 3 * ring * PAGE)
+        cu = _cu(q_lens)
+        for b, tile in plan.tiles(cu):
+            rows, lo, hi = plan.tile_range(q_lens[b], seq_lens[b], tile, True, window)
+            assert hi - lo <= ring * PAGE, "two keys of a tile share a ring slot"
+            keys = np.zeros(max(hi, 1), dtype=np.int64)
+            for split in range(plan.splits):
+                start, end = plan.split_range(lo, hi, split)
+                keys[start:end] += 1
+            for i in range(rows):
+                start, end = _row_keys(seq_lens[b], q_lens[b], tile * plan.block_rows + i, True, window)
+                assert lo == max(seq_lens[b] - q_lens[b] + tile * plan.block_rows - window + 1, 0)
+                assert lo <= start and end <= hi and np.all(keys[start:end] == 1)
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
