@@ -68,15 +68,17 @@
      turns; K3 and K7 at Qwen2-7B's GQA group of 7 (``kernel_phase_group7``:
      the served decode step and the 512-row prefill step); K1 at Qwen2-7B's
      int4 shapes (``kernel_phase_k1_qwen2``: K 3584 and 18944, M 8, 32 and
-     512, beside bf16 ``torch.matmul``); K8's e4m3 loop kernel at the w8a8
-     shapes, M 16, 32 and 512, beside ``torch._scaled_mm``
-     (``kernel_phase_k8_e4m3``), and K7 under f32 queries
-     (``kernel_phase_k7_f32``);
-   - K8's int8 path over every option it takes (``check_scaled_gemm_options``,
-     522 cases: M 1 to 600, K 96 / N 160 and the served shapes, f32 and bf16
-     outputs, scalar and vector scales, stacked and single weights, strided
-     a, values near 127 whose split sums pass 2^24), each equal to the
-     plain version bit for bit;
+     512, beside bf16 ``torch.matmul``); K8 over e4m3 (the mainloop's fp8
+     ``wgmma`` layout) at the w8a8 shapes, M 16, 32 and 512, read from a
+     32-layer stack, beside ``torch._scaled_mm`` (``kernel_phase_k8_e4m3``),
+     and K7 under f32 queries (``kernel_phase_k7_f32``);
+   - K8 over every option it takes (``check_scaled_gemm_options``, 522
+     int8 and 525 e4m3 cases: M 1 to 600, K 96 / N 160 and the served
+     shapes, f32 and bf16 outputs, scalar and vector scales, stacked and
+     single weights, strided a; int8 values near 127 whose split sums pass
+     2^24, each equal to the plain version bit for bit; e4m3 within 1e-2 x
+     max |ref|, all-positive values at K 14336 within 1e-3 x |ref| per
+     output, and one case of each shape that keeps the loop kernel);
    - K11 over every option it takes (``check_mla_attention_options``, 1440
      cases: bf16 queries over bf16, int8 and e4m3 latent caches, f32
      queries over f32, int8 and e4m3 ones, 1, 3, 16 and 128 heads, latent
@@ -271,7 +273,8 @@
    run: Gemma for the kernels it runs, int4 for K1, K4 and K6, int8, nf4
    and w8a8 for K1b, K1c and K8, the nf4 init for K12q, DeepSeek for K11,
    K9's own phase for K9 (no served path runs it; nor K8's e4m3 and K7's
-   f32 rows, whose launches are their phases'), Mistral-7B's rolling run
+   f32 rows, whose launches are their phases': K8's e4m3 launches on the
+   mainloop's fp8 layout), Mistral-7B's rolling run
    for K3's and K7's ring rows (their launches over the ring), Qwen2-7B
    for their group-7 rows and K1's Qwen2 row, the vision path for
    K13a, K13b and K13c, the QLoRA path for K12d, the residual stream for
@@ -1381,7 +1384,7 @@ def kernel_phase_k8(gen) -> dict:
             ))
         del w8, sb, dense
         torch.cuda.empty_cache()
-    # float8_e4m3fn inputs (converted exactly, summed in f32), scalar sa.
+    # float8_e4m3fn inputs (the fp8 mainloop, f32 sums), scalar sa.
     m, k, n = 16, 512, 256
     a8 = torch.randn((m, k), generator=gen, device="cuda").to(torch.float8_e4m3fn)
     b8 = torch.randn((k, n), generator=gen, device="cuda").to(torch.float8_e4m3fn)
@@ -1410,68 +1413,149 @@ def kernel_phase_k8(gen) -> dict:
 # partial row tiles of the 32-row template; 40: the 64-row one; 130, 600:
 # several 128-row tiles), a small shape (K 96: a K slice zero-filled past
 # K; N 160: a partial column block) with every option, and the served
-# shapes (FUSED_LAYER_SHAPES) with one option set each, in turn.
+# shapes (FUSED_LAYER_SHAPES) with one option set each, in turn; for int8
+# and for float8_e4m3fn.
 SCALED_OPTION_MS = (1, 8, 16, 17, 31, 32, 40, 130, 512, 600)
 SCALED_OPTION_SMALL = (96, 160)
 SCALED_OPTIONS = list(itertools.product(
     (torch.float32, torch.bfloat16), ("scalar", "row"), ("scalar", "column"), ("single", "stacked"),
     (0, 64, 40),  # a's row stride past K: contiguous, one TMA takes, one the wrapper realigns
 ))
+SCALED_DTYPES = (torch.int8, torch.float8_e4m3fn)
+# K8's e4m3 tolerances against the plain version: 1e-2 x max |ref| (the two
+# sum in other orders, and the tensor cores' slice sums keep about 14
+# bits); 1e-3 x |ref| per output where every value is positive (the sums
+# do not cancel, so a slice sum left unpromoted shows in every output).
+E4M3_TOLERANCE, E4M3_SAME_SIGN_TOLERANCE = 1e-2, 1e-3
+# (M, K, N, b's offset in bytes) of e4m3 shapes that keep the loop kernel
+# (``e4m3_takes_mainloop``): N not a multiple of 16, b's base off 16 bytes,
+# K 0.
+E4M3_LOOP_CASES = ((17, 96, 100, 0), (8, 96, 160, 8), (4, 0, 32, 0))
 
 
-def check_scaled_gemm_options(gen) -> None:
-    """K8's int8 path against ``scaled_gemm_plain``, every output equal bit
-    for bit (``torch.equal``: the sums are exact in int32 and both apply
-    ``(float(v) * sa[m]) * sb[n]`` in f32, then round once): M in
-    SCALED_OPTION_MS at K 96 / N 160 with every option of SCALED_OPTIONS
-    (output f32 or bf16; scale_a one value or per row, 10x apart; scale_b
-    one value or per column; a single weight or layer 1 of a 2-layer stack
-    with its scales; a's rows contiguous or with a row stride of K + 64 or K
-    + 40), and at the served shapes with one option set each (cycling).
-    Then w_down's shape (K 14336) at 8 and 32 rows with every value of a
-    and b in 125..127: each split's partial sum (K split 8 ways) exceeds
-    2^24, so a workspace that held them in f32 would lose bits. Mismatches
-    are counted on the card and read once; the case count is printed."""
+def _e4m3(shape: tuple, gen, low: float | None = None) -> torch.Tensor:
+    """float8_e4m3fn values: N(0, 1), or with ``low`` uniform in [low, low +
+    1.5) (every value positive)."""
+    v = (torch.randn(shape, generator=gen, device="cuda") if low is None
+         else torch.rand(shape, generator=gen, device="cuda") * 1.5 + low)
+    return v.to(torch.float8_e4m3fn)
+
+
+def check_scaled_gemm_options(gen, dtypes: tuple = SCALED_DTYPES) -> None:
+    """K8 against ``scaled_gemm_plain`` over every option it takes, for
+    each of ``dtypes``: M in SCALED_OPTION_MS at K 96 / N 160 with every
+    option of SCALED_OPTIONS (output f32 or bf16; scale_a one value or per
+    row, 10x apart; scale_b one value or per column; a single weight or
+    layer 1 of a stack with its scales; a's rows contiguous or with a row
+    stride of K + 64 or K + 40), and at the served shapes with one option
+    set each (cycling).
+
+    int8: every output equal bit for bit (``torch.equal``: the sums are
+    exact in int32 and both apply ``(float(v) * sa[m]) * sb[n]`` in f32,
+    then round once); then w_down's shape (K 14336) at 8 and 32 rows with
+    every value of a and b in 125..127: each split's partial sum (K split
+    8 ways) exceeds 2^24, so a workspace that held them in f32 would lose
+    bits.
+
+    float8_e4m3fn: within E4M3_TOLERANCE x max |ref|, every case on the
+    mainloop's fp8 layout (its launches counted); the stack has 3 layers,
+    so that a slice read past K without zero-fill reads real values. Then
+    w_down's shape at 8 and 32 rows with every value of a and b positive,
+    f32 out, each output within E4M3_SAME_SIGN_TOLERANCE x |ref| (its
+    largest relative error printed); then E4M3_LOOP_CASES, each on the loop
+    kernel.
+
+    Mismatches are counted on the card and read once; the case count is
+    printed."""
     from conch_tpu_torch.kernels.quantization.gemm import scaled_gemm_launcher as launch, scaled_gemm_plain as plain
 
     names, same = [], []
+    same_sign_err = []
 
-    def run(m: int, k: int, n: int, options: list, low: int = -127) -> None:
-        w = torch.randint(low, 128, (2, k, n), generator=gen, device="cuda", dtype=torch.int8)
-        sb_stack = torch.rand((2, n), generator=gen, device="cuda") * 1e-3 + 1e-4
-        a_wide = torch.randint(low, 128, (m, k + 64), generator=gen, device="cuda", dtype=torch.int8)
+    def run(dtype, m: int, k: int, n: int, options: list, low: float | None = None) -> None:
+        fp8 = dtype == torch.float8_e4m3fn
+        layers = 3 if fp8 else 2
+        if fp8:
+            w, a_wide = _e4m3((layers, k, n), gen, low), _e4m3((m, k + 64), gen, low)
+        else:
+            w = torch.randint(-127 if low is None else low, 128, (layers, k, n), generator=gen, device="cuda",
+                              dtype=torch.int8)
+        sb_stack = torch.rand((layers, n), generator=gen, device="cuda") * 1e-3 + 1e-4
+        if not fp8:
+            a_wide = torch.randint(-127 if low is None else low, 128, (m, k + 64), generator=gen, device="cuda",
+                                   dtype=torch.int8)
         sa_row = 1e-3 * torch.logspace(0, 1, m, device="cuda")
         scalar = torch.tensor([2.5e-3], device="cuda")
         for out_dtype, sa_kind, sb_kind, weight, pad in options:
-            a = a_wide[:, :k] if pad == 64 else torch.empty((m, k + pad), dtype=torch.int8, device="cuda")[:, :k]
+            a = a_wide[:, :k] if pad == 64 else torch.empty((m, k + pad), dtype=dtype, device="cuda")[:, :k]
             if pad != 64:
                 a.copy_(a_wide[:, :k])
             sa = scalar if sa_kind == "scalar" else sa_row
             b, sb, layer = (w[1], sb_stack[1], None) if weight == "single" else (w, sb_stack, 1)
             if sb_kind == "scalar":
                 sb = scalar
+            before = launch.e4m3_launches
             out = launch(a, b, sa, sb, out_dtype, layer)
-            names.append(f"K8 M {m} K {k} N {n} out {str(out_dtype)[6:]} sa {sa_kind} sb {sb_kind} {weight} "
-                         f"a stride {a.stride(0)}")
-            same.append(torch.equal(out, plain(a, b, sa, sb, out_dtype, layer)))
+            ref = plain(a, b, sa, sb, out_dtype, layer)
+            names.append(f"K8 {str(dtype)[6:]} M {m} K {k} N {n} out {str(out_dtype)[6:]} sa {sa_kind} sb {sb_kind} "
+                         f"{weight} a stride {a.stride(0)}")
+            if not fp8:
+                same.append(torch.equal(out, ref))
+                continue
+            if launch.e4m3_launches != before + 1:
+                raise AssertionError(f"{names[-1]}: not launched on the e4m3 mainloop")
+            diff, mag = (out.float() - ref.float()).abs(), ref.float().abs()
+            if low is None:
+                same.append(diff.max() <= E4M3_TOLERANCE * mag.max())
+            else:
+                same.append((diff <= E4M3_SAME_SIGN_TOLERANCE * mag).all())
+                same_sign_err.append((diff / mag).max())
 
-    for m in SCALED_OPTION_MS:
-        run(m, *SCALED_OPTION_SMALL, SCALED_OPTIONS)
-    turn = itertools.cycle(SCALED_OPTIONS)
-    for k, n in FUSED_LAYER_SHAPES:
+    for dtype in dtypes:
         for m in SCALED_OPTION_MS:
-            run(m, k, n, [next(turn)])
-        torch.cuda.empty_cache()
-    for m in (8, 32):
-        run(m, INTER, HIDDEN, [(torch.float32, "row", "column", "stacked", 0)], low=125)
-    same_list = torch.tensor(same).tolist()
-    print(f"K8 scaled_gemm options: {len(names)} cases, {sum(same_list)} equal to the plain version bit for bit",
+            run(dtype, m, *SCALED_OPTION_SMALL, SCALED_OPTIONS)
+        turn = itertools.cycle(SCALED_OPTIONS)
+        for k, n in FUSED_LAYER_SHAPES:
+            for m in SCALED_OPTION_MS:
+                run(dtype, m, k, n, [next(turn)])
+            torch.cuda.empty_cache()
+        for m in (8, 32):
+            run(dtype, m, INTER, HIDDEN, [(torch.float32, "row", "column", "stacked", 0)],
+                low=125 if dtype == torch.int8 else 0.25)
+        if dtype != torch.float8_e4m3fn:
+            continue
+        for m, k, n, offset in E4M3_LOOP_CASES:
+            a = _e4m3((m, k), gen)
+            b = torch.empty((k * n + offset,), dtype=dtype, device="cuda")[offset:].view(k, n)
+            b.copy_(_e4m3((k, n), gen))
+            sa, sb = 1e-3 * torch.logspace(0, 1, m, device="cuda"), torch.rand((n,), generator=gen, device="cuda")
+            before = launch.e4m3_loop_launches
+            out, ref = launch(a, b, sa, sb, torch.bfloat16), plain(a, b, sa, sb, torch.bfloat16)
+            names.append(f"K8 float8_e4m3fn loop kernel M {m} K {k} N {n} b offset {offset}")
+            if launch.e4m3_loop_launches != before + 1:
+                raise AssertionError(f"{names[-1]}: not launched on the loop kernel")
+            same.append((out.float() - ref.float()).abs().max() <= E4M3_TOLERANCE * ref.float().abs().max())
+    # int8's flags are host bools; e4m3's stay on the card until here.
+    on_card = [v for v in same if isinstance(v, torch.Tensor)]
+    read = iter(torch.stack(on_card).tolist() if on_card else [])
+    same_list = [v if isinstance(v, bool) else next(read) for v in same]
+    if same_sign_err:
+        worst = torch.stack(same_sign_err).tolist()
+        print(f"K8 scaled_gemm float8_e4m3fn all-positive K {INTER}: max |out - ref| / |ref| "
+              + ", ".join(f"{e:.3e}" for e in worst) + f" (tolerance {E4M3_SAME_SIGN_TOLERANCE:.0e})", flush=True)
+    print(f"K8 scaled_gemm options: {len(names)} cases ({', '.join(str(d)[6:] for d in dtypes)}), "
+          f"{sum(same_list)} equal to the plain version (int8 bit for bit, float8_e4m3fn within its tolerance)",
           flush=True)
     bad = [name for name, ok in zip(names, same_list) if not ok]
     for name in bad[:20]:
         print(f"{name}: differs from the plain version", flush=True)
     if bad:
         raise AssertionError(f"{len(bad)} of {len(names)} K8 option cases differ from the plain version")
+
+
+def check_scaled_e4m3_options(gen) -> None:
+    """K8's option sweep over float8_e4m3fn alone."""
+    check_scaled_gemm_options(gen, (torch.float8_e4m3fn,))
 
 
 GATE = (4096, 14336)  # Llama-3-8B's gate projection (K, N); its (N, K) weight is quantized
@@ -4308,7 +4392,7 @@ def tp8_collectives_path(card: str) -> tuple[dict, list[dict]]:
 
 
 # -- Rolling KV (Mistral-7B) and Qwen2-7B: K3/K7's ring, GQA group 7, K1 at
-# Qwen2's shapes; K8's e4m3 and K7's f32 loop kernels timed. -------------
+# Qwen2's shapes; K8 over e4m3 and K7's f32 loop kernel timed. ----------
 
 # Mistral-7B-v0.1's published config.json (mistralai/Mistral-7B-v0.1): a
 # 4096-token sliding window on every layer. The port's LlamaConfig carries
@@ -4555,69 +4639,83 @@ def kernel_phase_k1_qwen2(gen) -> dict:
     return row
 
 
-def _scaled_mm_library(a8: torch.Tensor, b8: torch.Tensor, sa: torch.Tensor, sb: torch.Tensor):
+def _scaled_mm_library(a8: torch.Tensor, b8s: list, sa: torch.Tensor, sb: torch.Tensor):
     """``torch._scaled_mm`` on K8's e4m3 inputs with row and column scales
-    (the same function, bf16 out); b laid out column-major once, outside
-    the timed call. (callable, note), or (None, why) where this PyTorch
-    refuses it."""
-    b_cols = b8.t().contiguous().t()
+    (the same function, bf16 out), over the weights ``b8s`` in turn (so not
+    from L2); each laid out column-major once, outside the timed call.
+    (callable, note), or (None, why) where this PyTorch refuses it."""
+    copies = itertools.cycle([b.t().contiguous().t() for b in b8s])
     scale_a, scale_b = sa.reshape(-1, 1).float(), sb.reshape(1, -1).float()
 
     def call():
-        return torch._scaled_mm(a8, b_cols, scale_a=scale_a, scale_b=scale_b, out_dtype=torch.bfloat16)
+        return torch._scaled_mm(a8, next(copies), scale_a=scale_a, scale_b=scale_b, out_dtype=torch.bfloat16)
 
     try:
         call()
     except (RuntimeError, TypeError) as e:
         return None, f"torch._scaled_mm refused row-wise scales: {str(e).splitlines()[0][:120]}"
-    return call, "torch._scaled_mm, row-wise scales, bf16 out"
+    return call, "torch._scaled_mm, row-wise scales, bf16 out, 3 weights in turn"
 
 
 K8_FP8_MS = (16, 32, 512)  # torch._scaled_mm takes M in multiples of 16
 
 
+def k8_e4m3_weights(gen, k: int, n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """A (NUM_LAYERS_POOL, K, N) float8_e4m3fn weight stack, N(0, 1) values,
+    and its (layers, N) column scales."""
+    w8 = torch.empty((NUM_LAYERS_POOL, k, n), dtype=torch.float8_e4m3fn, device="cuda")
+    for layer in w8:
+        layer.copy_(_e4m3((k, n), gen))
+    return w8, torch.rand((NUM_LAYERS_POOL, n), generator=gen, device="cuda") * 1e-2 + 1e-3
+
+
 def kernel_phase_k8_e4m3(gen) -> dict:
-    """K8's float8_e4m3fn loop kernel (one thread an output, f32 sums) at
-    the w8a8 engine's fused shapes, M 16, 32 and 512, per-row and
-    per-column scales, bf16 out, held at 1e-2 x max |ref| against the plain
-    version and timed beside ``torch._scaled_mm`` on the same inputs. No
-    model runs it: its launches are the checked calls of this phase. The
-    row is one layer's sum at M 16, ``by_m`` at each M."""
+    """K8 over float8_e4m3fn (the mainloop's fp8 ``wgmma`` layout) at the
+    w8a8 engine's fused shapes, M 16, 32 and 512, per-row and per-column
+    scales, bf16 out, read from layer 17 of a 32-layer stack (timed calls
+    walk the layers, so the weights come from HBM), held at E4M3_TOLERANCE
+    x max |ref| against the plain version and timed beside
+    ``torch._scaled_mm`` on the same inputs (three of the layers in turn).
+    No model runs it: its launches are the checked calls of this phase, each
+    on the mainloop. The row is one layer's sum at M 16, ``by_m`` at each
+    M."""
     from conch_tpu_torch.kernels.quantization.gemm import scaled_gemm_launcher as launch, scaled_gemm_plain as plain
 
     detail, err, notes = [], 0.0, set()
     checked = 0
     for k, n in FUSED_LAYER_SHAPES:
-        b8 = torch.randn((k, n), generator=gen, device="cuda").to(torch.float8_e4m3fn)
-        sb = torch.rand((n,), generator=gen, device="cuda") * 1e-2 + 1e-3
+        w8, sb_stack = k8_e4m3_weights(gen, k, n)
+        sb = sb_stack[LAYER]
         for m in K8_FP8_MS:
-            a8 = torch.randn((m, k), generator=gen, device="cuda").to(torch.float8_e4m3fn)
+            a8 = _e4m3((m, k), gen)
             sa = 1e-2 * torch.logspace(0, 1, m, device="cuda")
-            before = launch.launches
-            out_k = launch(a8, b8, sa, sb, torch.bfloat16)
-            checked += launch.launches - before
-            out_p = plain(a8, b8, sa, sb, torch.bfloat16)
+            before = launch.e4m3_launches
+            out_k = launch(a8, w8, sa, sb_stack, torch.bfloat16, LAYER)
+            checked += launch.e4m3_launches - before
+            out_p = plain(a8, w8, sa, sb_stack, torch.bfloat16, LAYER)
             torch.cuda.synchronize()
             scale = out_p.float().abs().max().item()
             e = (out_k.float() - out_p.float()).abs().max().item()
-            check(f"K8 scaled_gemm float8_e4m3fn M={m} K={k} N={n} (max|ref| {scale:.3f})", e, 1e-2 * scale)
+            check(f"K8 scaled_gemm float8_e4m3fn M={m} K={k} N={n} (max|ref| {scale:.3f})", e,
+                  E4M3_TOLERANCE * scale)
             err = max(err, e)
-            library, note = _scaled_mm_library(a8, b8, sa, sb)
+            library, note = _scaled_mm_library(a8, [w8[i] for i in (LAYER, 0, NUM_LAYERS_POOL - 1)], sa, sb)
             notes.add(note)
             if library is not None:
                 lib = library().float()
                 print(f"torch._scaled_mm M={m} K={k} N={n}: max |lib - plain| "
                       f"{(lib - out_p.float()).abs().max().item():.3e}", flush=True)
             b_ms, b_by = bound(m * k + k * n + m * 4 + n * 4 + m * n * 2, 2 * m * n * k, FP8_OPS_PER_S)
-            iters = 3 if m == 512 else 10
+            layers = _stack_cycle()
             detail.append({
                 "m": m, "k": k, "n": n, "max_abs_err": e, "bound_ms": b_ms, "bound_by": b_by,
-                "ms": time_ms(lambda: launch(a8, b8, sa, sb, torch.bfloat16), iters=iters, warmup=1),
-                "paced_ms": paced_ms(lambda: launch(a8, b8, sa, sb, torch.bfloat16), iters=iters, warmup=1),
-                "plain_ms": time_ms(lambda: plain(a8, b8, sa, sb, torch.bfloat16), iters=3, warmup=1),
+                "ms": time_ms(lambda: launch(a8, w8, sa, sb_stack, torch.bfloat16, next(layers))),
+                "paced_ms": paced_ms(lambda: launch(a8, w8, sa, sb_stack, torch.bfloat16, next(layers))),
+                "plain_ms": time_ms(lambda: plain(a8, w8, sa, sb_stack, torch.bfloat16, LAYER), iters=3, warmup=1),
                 "library_ms": None if library is None else time_ms(library),
             })
-        del b8
+            del library
+        del w8, sb_stack, sb
         torch.cuda.empty_cache()
     timed = _layer_sums(detail, FUSED_LAYER_SHAPES, K8_FP8_MS[0])
     by = "operations" if any(d["bound_by"] == "operations" for d in detail if d["m"] == K8_FP8_MS[0]) else "bytes"
@@ -4631,9 +4729,11 @@ def kernel_phase_k8_e4m3(gen) -> dict:
               f"{d['bound_ms']:.5f} by {d['bound_by']})", flush=True)
     row["library_note"] = "; ".join(sorted(notes))
     row["phase_launches"] = checked
+    if checked != len(detail):
+        raise AssertionError(f"K8 e4m3: {checked} of {len(detail)} checked calls launched the mainloop")
     for m, sums in row["by_m"].items():
         print(f"scaled_gemm float8_e4m3fn one layer at M={m}: {sums['ms']:.4f} ms (library {sums['library_ms']}, "
-              f"bound {sums['bound_ms']:.5f})", flush=True)
+              f"bound {sums['bound_ms']:.5f}; {checked} checked calls on the mainloop)", flush=True)
     return row
 
 
@@ -4778,24 +4878,32 @@ def _launchers() -> dict:
 # K3's and K7's launches over a rolling-KV ring (``ring_launches``), counted
 # beside their launches in all.
 RING_COUNTERS = {"paged_attention_ring": "paged_attention", "varlen_attention_ring": "varlen_attention"}
+# K8's float8_e4m3fn launches on the mainloop's fp8 layout and on the loop
+# kernel (counted beside its launches in all).
+E4M3_COUNTERS = {"scaled_gemm_e4m3": "e4m3_launches", "scaled_gemm_e4m3_loop": "e4m3_loop_launches"}
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel's launch count (and K3's and K7's ring counts) to 0."""
+    """Set every kernel's launch count (and K3's and K7's ring counts, K8's
+    e4m3 counts) to 0."""
     launchers = _launchers()
     for fns in launchers.values():
         for fn in fns:
             fn.launches = 0
     for kernel in RING_COUNTERS.values():
         launchers[kernel][0].ring_launches = 0
+    for attr in E4M3_COUNTERS.values():
+        setattr(launchers["scaled_gemm"][0], attr, 0)
 
 
 def read_launch_counts() -> dict:
-    """Each kernel row's launches since the last reset, and K3's and K7's
-    launches over a ring."""
+    """Each kernel row's launches since the last reset, K3's and K7's
+    launches over a ring, and K8's float8_e4m3fn launches on the mainloop
+    and on the loop kernel."""
     launchers = _launchers()
     counts = {name: sum(fn.launches for fn in fns) for name, fns in launchers.items()}
     counts.update({name: launchers[kernel][0].ring_launches for name, kernel in RING_COUNTERS.items()})
+    counts.update({name: getattr(launchers["scaled_gemm"][0], attr) for name, attr in E4M3_COUNTERS.items()})
     return counts
 
 
@@ -5415,15 +5523,17 @@ def check_top_p_filter(card: str) -> None:
             raise AssertionError(f"top-p filter {label}: " + "; ".join(failed[:10]))
 
 
-# K1's, K1b's and K1c's templates in a mangled kernel name: layout, bits (K1: group), flag, rows a block.
-QGEMM_TEMPLATE = re.compile(r"quant_gemm_kernel.*?(RowsLayout|PlanarLayout|MagicLayout)ILi(\d+)ELb(\d)EEELi(\d+)E")
+# The mainloop's templates in a mangled kernel name: layout, bits (K1: group) and flag (K1, K1b, K1c; K8's
+# layouts have none), rows a block.
+QGEMM_TEMPLATE = re.compile(
+    r"quant_gemm_kernel.*?(RowsLayout|PlanarLayout|MagicLayout|ScaledLayout|E4m3Layout)(?:ILi(\d+)ELb(\d)EE)?ELi(\d+)E")
 
 
 def build() -> None:
     """Build the kernels and print ptxas's report: every register and spill
-    line and every wgmma serialization warning, then one line per K1b / K1c
-    template (layout, bits, its flag, rows a block) with its registers and
-    spills."""
+    line and every wgmma serialization warning, then one line per template
+    of the GEMM mainloop (layout, K1/K1b/K1c's bits and flag, rows a block)
+    with its registers and spills."""
     from conch_tpu_torch.kernels.common import BUILD_DIR, kernel_library
 
     t0 = time.perf_counter()
@@ -5435,7 +5545,11 @@ def build() -> None:
             print("nvcc:", line.strip())
         if "Compiling entry function" in line:
             match = QGEMM_TEMPLATE.search(line)
-            template = None if match is None else "{}<{}, {}> BN {}".format(*match.groups())
+            if match is None:
+                template = None
+            else:
+                layout, bits, flag, bn = match.groups()
+                template = f"{layout}{'' if bits is None else f'<{bits}, {flag}>'} BN {bn}"
         elif template and "spill stores" in line:
             spills = line.strip()
         elif template and "Used" in line and "registers" in line:
@@ -5468,8 +5582,9 @@ ROW_COUNTERS = {
     "mixed_gemm_magic_qwen2": "mixed_gemm_magic",
 }
 # K9's callers are its public ops: its row's launches are those of its
-# kernel phase, and it launches on no served path. Neither do K8's e4m3
-# loop kernel and K7's f32 one: no served model runs them.
+# kernel phase, and it launches on no served path. Neither do K8 over e4m3
+# (its row counts the phase's launches on the fp8 mainloop) and K7's f32
+# loop kernel: no served model runs them.
 PHASE_PATH_KERNELS = ("static_scaled_quant", "scaled_gemm_e4m3", "varlen_attention_f32")
 GEMMA_KERNELS = (
     "reshape_and_cache_stacked", "paged_attention", "rotary_embedding", "varlen_attention", "gemma_rms_norm",

@@ -3,13 +3,16 @@
 //
 // The pipelined tensor-core mainloop shared by the weight-only GEMMs K1
 // (mixed_gemm_magic.cu), K1b (mixed_gemm_planar.cu) and K1c
-// (mixed_gemm_rows.cu), and by the int8 scaled GEMM K8 (scaled_gemm.cu).
+// (mixed_gemm_rows.cu), and by the scaled GEMM K8 (scaled_gemm.cu).
 // Each layout plugs in as a small policy: where a K slice's codes, scales
 // and x values lie, and how a thread turns its words into wgmma's A
 // fragment. The weight-only GEMMs take bf16 x and sum in f32
 // (wgmma.m64nBNk16.f32.bf16); K8 takes int8 x and sums in s32
-// (wgmma.m64nBNk32.s32.s8.s8, its int32 split workspace added exactly),
-// then scales each output by its row's and column's scales.
+// (wgmma.m64nBNk32.s32.s8.s8, its int32 split workspace added exactly), or
+// float8_e4m3fn x summed a slice at a time in f32
+// (wgmma.m64nBNk32.f32.e4m3.e4m3) and promoted into an f32 running sum on
+// the CUDA cores (its split workspace f32), then scales each output by its
+// row's and column's scales.
 //
 // out[M, N] = x[M, K] @ W[K, N] is computed transposed ("swap AB"):
 // outT = WT . xT, so that the weight's N fills the 64-row side of
@@ -44,7 +47,7 @@
 //    calls.
 // The launch plan (BN, the K slice, slices, unit, splits) comes from the
 // Python wrapper (kernels/quantization/gemm.py: quant_gemm_plan, layouts
-// "magic", "planar", "gptq" and "scaled"); the entry points refuse a
+// "magic", "planar", "gptq", "scaled" and "e4m3"); the entry points refuse a
 // plan their template cannot run (plan_ok) and run the rest as it is.
 // Tried on the card and dropped (PERF.md): pairs of column blocks sharing x
 // by TMA multicast in a cluster, split-K added up through distributed
@@ -305,6 +308,69 @@ __device__ __forceinline__ void wgmma_rs_s8<128>(int (&d)[64], const uint32_t (&
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
+// d[BN/2] += A[64 x 32] . B[32 x BN] in f32, float8_e4m3fn operands: A from
+// registers in wgmma_rs_s8's fragment layout (an e4m3 byte where an s8 byte
+// is), B from shared memory through `desc`; scale_d 0 overwrites d. The
+// tensor cores keep fewer bits of the sum than f32 (about 14, DeepSeek-V3's
+// report), so a caller sums a few k32 steps here and adds them up itself.
+template <int BN>
+__device__ __forceinline__ void wgmma_rs_e4m3(float (&d)[BN / 2], const uint32_t (&a)[4], uint64_t desc,
+                                              int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_rs_e4m3<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t desc,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.f32.e4m3.e4m3 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_e4m3<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t desc,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.f32.e4m3.e4m3 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_e4m3<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t desc,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.f32.e4m3.e4m3 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
 // A code c < 2^23 as f32, exactly, minus `offset` (exact for the biases and
 // code ranges of 2- to 8-bit codes): 2^23 + c is the float with bits
 // 0x4B000000 | c, so one FADD replaces I2F.
@@ -394,6 +460,13 @@ __device__ __forceinline__ void issue_slice(const Params& p, const L& lay, uint8
 
 // -- the kernel ----------------------------------------------------------------
 
+// Whether layout L's sums take K8's row and column scales (L::kScaledOut):
+// in the epilogue with one split, else in split_reduce_scaled_kernel.
+template <class L, class = void>
+struct ScaledOut : std::false_type {};
+template <class L>
+struct ScaledOut<L, std::void_t<decltype(L::kScaledOut)>> : std::bool_constant<L::kScaledOut> {};
+
 // Keeps A fragments in their registers until the wgmma that reads them is
 // known complete, so that the next slice is decoded into other registers.
 template <int STEPS>
@@ -405,6 +478,7 @@ __device__ __forceinline__ void hold_fragments(uint32_t (&a)[STEPS][4]) {
 }
 
 // A layout L provides: its accumulator type Acc (float, or int for s8),
+// whether its outputs take K8's scales (kScaledOut, false when absent),
 // its slice geometry (XB, EPP, KS, WR, SR, kGroupTable, STEPS), Frag<BN> (the A fragments of one slice, a[STEPS][4], and what
 // retiring the slice needs), State<BN> (carried across slices), word_row /
 // scale_row / load_x (what issue_slice copies), decode (stage ->
@@ -480,13 +554,15 @@ __global__ void __launch_bounds__(kThreads, Ring<L, BN>::kBlocksPerSm) quant_gem
   // c + (e >> 1): wgmma's accumulator layout, transposed back. Each row's
   // two columns go out as one 8-byte (f32) or 4-byte (bf16) store. An s32
   // sum becomes fmul_rn(fmul_rn(float(v), sa[row]), sb[col]) first, or goes
-  // to the int32 workspace.
+  // to the int32 workspace; a scaled f32 sum (e4m3) the same with one
+  // split, else it goes to the f32 workspace unscaled.
+  constexpr bool kScaled = ScaledOut<L>::value;
   const int lane = threadIdx.x & 31;
   const int t = lane & 3;
   const int col = n0 + pair_column();
-  if (col >= p.n) return;  // N % 32 == 0: both columns are in or out
+  if (col >= p.n) return;  // N even (16 | N for e4m3, 32 | N otherwise): both columns are in or out
   float sb0 = 0.0f, sb1 = 0.0f;
-  if constexpr (std::is_same_v<Acc, int>) {
+  if constexpr (kScaled) {
     sb0 = p.sb_scalar ? __ldg(p.sb) : __ldg(p.sb + col);
     sb1 = p.sb_scalar ? sb0 : __ldg(p.sb + col + 1);
   }
@@ -510,6 +586,13 @@ __global__ void __launch_bounds__(kThreads, Ring<L, BN>::kBlocksPerSm) quant_gem
       } else {
         lo = acc[4 * j + h];
         hi = acc[4 * j + 2 + h];
+        if constexpr (kScaled) {
+          if (p.splits == 1) {
+            const float ra = p.sa_scalar ? __ldg(p.sa) : __ldg(p.sa + row);
+            lo = __fmul_rn(__fmul_rn(lo, ra), sb0);
+            hi = __fmul_rn(__fmul_rn(hi, ra), sb1);
+          }
+        }
       }
       if (p.splits > 1) {
         *reinterpret_cast<float2*>(p.ws + static_cast<int64_t>(blockIdx.z) * p.m * p.n + at) = make_float2(lo, hi);
@@ -561,26 +644,27 @@ __global__ void __launch_bounds__(32 * kReduceWarps)
   o[0] = from_float<O>(v.x), o[1] = from_float<O>(v.y), o[2] = from_float<O>(v.z), o[3] = from_float<O>(v.w);
 }
 
-// K8's reduction: out = the splits' int32 sums of ws (exact, in any order),
-// times sa[row] then sb[col] in f32 (fmul_rn, in that order), rounded once.
-// A thread takes 4 neighbouring outputs of one row (N % 32 == 0).
-template <typename O>
-__global__ void __launch_bounds__(256) split_reduce_scaled_kernel(const int4* __restrict__ ws, O* __restrict__ out,
+// K8's reduction: out = the splits' sums of ws (W = int4: int32 sums, exact
+// in any order; float4: e4m3's f32 sums, added in split order), times
+// sa[row] then sb[col] in f32 (fmul_rn, in that order), rounded once. A
+// thread takes 4 neighbouring outputs of one row (N % 16 == 0).
+template <typename O, typename W>
+__global__ void __launch_bounds__(256) split_reduce_scaled_kernel(const W* __restrict__ ws, O* __restrict__ out,
                                                                   int64_t count4, int splits, int n,
                                                                   const float* __restrict__ sa, int sa_scalar,
                                                                   const float* __restrict__ sb, int sb_scalar) {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");  // the GEMM grid has finished and its stores are visible
   const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   if (i >= count4) return;
-  int4 v = make_int4(0, 0, 0, 0);
+  W v{};
   for (int s = 0; s < splits; ++s) {
-    const int4 w = ws[s * count4 + i];
+    const W w = ws[s * count4 + i];
     v.x += w.x, v.y += w.y, v.z += w.z, v.w += w.w;
   }
   const int64_t row = 4 * i / n;
   const int col = static_cast<int>(4 * i - row * n);
   const float ra = sa_scalar ? __ldg(sa) : __ldg(sa + row);
-  auto scaled = [&](int x, int c) {
+  auto scaled = [&](auto x, int c) {
     return from_float<O>(__fmul_rn(__fmul_rn(static_cast<float>(x), ra), sb_scalar ? __ldg(sb) : __ldg(sb + col + c)));
   };
   O* o = out + 4 * i;
@@ -608,14 +692,15 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
     attr[0].val.programmaticStreamSerializationAllowed = 1;
     config.attrs = attr;
     config.numAttrs = 1;
-    if constexpr (std::is_same_v<typename L::Acc, int>) {
+    if constexpr (ScaledOut<L>::value) {
+      using W = std::conditional_t<std::is_same_v<typename L::Acc, int>, int4, float4>;
       config.gridDim = dim3(static_cast<unsigned>((count4 + 255) / 256));
       config.blockDim = dim3(256);
-      const auto* ws = reinterpret_cast<const int4*>(p.ws);
-      status = p.out_f32 ? cudaLaunchKernelEx(&config, split_reduce_scaled_kernel<float>, ws,
+      const auto* ws = reinterpret_cast<const W*>(p.ws);
+      status = p.out_f32 ? cudaLaunchKernelEx(&config, split_reduce_scaled_kernel<float, W>, ws,
                                               static_cast<float*>(p.out), count4, p.splits, p.n, p.sa, p.sa_scalar,
                                               p.sb, p.sb_scalar)
-                         : cudaLaunchKernelEx(&config, split_reduce_scaled_kernel<__nv_bfloat16>, ws,
+                         : cudaLaunchKernelEx(&config, split_reduce_scaled_kernel<__nv_bfloat16, W>, ws,
                                               static_cast<__nv_bfloat16*>(p.out), count4, p.splits, p.n, p.sa,
                                               p.sa_scalar, p.sb, p.sb_scalar);
     } else {

@@ -26,9 +26,28 @@
 // above 2^24), and the reduction kernel, or the block itself with one
 // split, applies fmul_rn(fmul_rn(float(v), sa[m]), sb[n]) and rounds once.
 // The launch plan is quant_gemm_plan's, layout "scaled".
-// float8_e4m3fn: every value is converted to f32 (exact, as bf16 is) and
-// the products summed in f32 by a plain loop, one thread an output; only
-// small shapes take this path.
+//
+// float8_e4m3fn (E4m3Layout): the same geometry and fragments (an e4m3 byte
+// lands where an s8 byte does), on wgmma.m64nBNk32.f32.e4m3.e4m3. Hopper's
+// fp8 wgmma keeps only about 14 bits of its f32 sum (the DeepSeek-V3
+// report), so each slice's four k32 steps sum from zero into a slice sum,
+// and retire adds that into the f32 running sum on the CUDA cores
+// (promotion, one FADD an output a slice). On the H100 it costs 4.6% at 512
+// rows (tools/parent_compare.py --mutant k8_e4m3_not_promoted); without it
+// an all-positive sum over K 14336 is off by 3% of itself, so it stays.
+// Retiring slice s under slice s + 1's wgmmas (a slice sum in each
+// fragment set) was 10% slower: ptxas serializes wgmmas whose accumulators
+// are read inside the pipeline stage (C7514). A split writes its f32 sums to
+// an f32 workspace, and the reduction adds them in split order, then applies
+// fmul_rn(fmul_rn(sum, sa[m]), sb[n]) and rounds once, as the block does
+// itself with one split. The plan is quant_gemm_plan's, layout "e4m3":
+// TMA needs a's and b's row strides and bases 16-byte aligned (a is
+// realigned by the wrapper, so N % 16 == 0), and takes any K >= 1 (the last
+// slice zero-filled past K). Shapes it cannot take (N % 16 != 0, b's layer
+// off 16 bytes, K 0) run the loop kernel below: every value converted to
+// f32 (exact, as bf16 is), the products summed in f32 by a plain loop, one
+// thread an output; the wrapper chooses it by shape (bn 0), before the
+// launch.
 
 #include <cuda_fp8.h>
 
@@ -42,6 +61,7 @@ using qgemm::Stage;
 
 struct ScaledLayout {
   using Acc = int;                       // wgmma sums int8 in s32
+  static constexpr bool kScaledOut = true;  // outputs take sa[m] and sb[n]
   static constexpr int XB = 1;           // bytes of an x (a) value
   static constexpr int EPP = 4;
   static constexpr int KS = 128;         // k of a slice: one 128-byte swizzle atom of a's rows, and b's rows
@@ -79,8 +99,8 @@ struct ScaledLayout {
     return *reinterpret_cast<const uint16_t*>(w + k * 128 + ((((c >> 4) ^ (k & 7)) << 4) | (c & 15)));
   }
 
-  template <int BN>
-  __device__ void decode(Frag<BN>& fr, State<BN>&, const Stage& st, int, float*) const {
+  template <int BN, class S>
+  __device__ void decode(Frag<BN>& fr, S&, const Stage& st, int, float*) const {
     const int t = threadIdx.x & 3;
     const int c = qgemm::pair_column();
     const uint8_t* w = reinterpret_cast<const uint8_t*>(st.w);
@@ -111,6 +131,42 @@ struct ScaledLayout {
 
   template <int BN>
   __device__ void retire(Frag<BN>&, State<BN>&, int (&)[BN / 2], float*) const {}
+};
+
+// float8_e4m3fn on ScaledLayout's slices and fragments, summed in f32.
+struct E4m3Layout : ScaledLayout {
+  using Acc = float;
+  // Promotion: each slice's wgmmas sum from zero into State::part, added into
+  // acc by retire. False: every slice into acc, the tensor cores' own sum.
+  static constexpr bool kPromote = true;
+
+  template <int BN>
+  struct State {
+    float part[BN / 2];  // the slice's sum
+  };
+
+  __device__ E4m3Layout(const Params& params, float* extra) : ScaledLayout(params, extra) {}
+
+  template <int BN>
+  __device__ void mma(Frag<BN>& fr, State<BN>& st, float (&acc)[BN / 2], const Stage& stage) const {
+    float(&d)[BN / 2] = *(kPromote ? &st.part : &acc);
+    qgemm::fence_operands(d);
+    qgemm::wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < STEPS; ++j) {
+      qgemm::wgmma_rs_e4m3<BN>(d, fr.a[j], x_desc<BN>(stage.x, j), kPromote && j == 0 ? 0 : 1);
+    }
+    qgemm::wgmma_commit();
+  }
+
+  template <int BN>
+  __device__ void retire(Frag<BN>&, State<BN>& st, float (&acc)[BN / 2], float*) const {
+    if constexpr (kPromote) {
+      qgemm::fence_operands(st.part);
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] += st.part[i];
+    }
+  }
 };
 
 template <typename O>
@@ -146,16 +202,18 @@ cudaError_t launch_fp8(const void* a, const void* b, const void* sa, int sa_scal
   return cudaGetLastError();
 }
 
-// Checks the plan against ScaledLayout, encodes a's and b's tensor maps
-// and launches.
-cudaError_t run_s8(Params& p, const void* a, int64_t lda, const void* b, int bn, int ks, cudaStream_t stream) {
-  using L = ScaledLayout;
+// Checks the plan against layout L (ScaledLayout or E4m3Layout), encodes
+// a's and b's tensor maps and launches.
+template <class L>
+cudaError_t run(Params& p, const void* a, int64_t lda, const void* b, int bn, int ks, cudaStream_t stream) {
   if (!qgemm::plan_ok<L>(p, bn, ks)) return cudaErrorInvalidValue;
   // a: (M, K) bytes with row stride lda, in boxes of 128 k x bn rows; b: (K, N) bytes, boxes of 128 x 128.
-  const cuuint64_t adims[2] = {static_cast<cuuint64_t>(p.k), static_cast<cuuint64_t>(p.m)};
+  // Both maps end at K, so the last slice reads zeros past it.
+  const cuuint64_t k_end = static_cast<cuuint64_t>(p.k);
+  const cuuint64_t adims[2] = {k_end, static_cast<cuuint64_t>(p.m)};
   const cuuint64_t astride[1] = {static_cast<cuuint64_t>(lda)};
   const cuuint32_t abox[2] = {L::KS, static_cast<cuuint32_t>(bn)};
-  const cuuint64_t bdims[2] = {static_cast<cuuint64_t>(p.n), static_cast<cuuint64_t>(p.k)};
+  const cuuint64_t bdims[2] = {static_cast<cuuint64_t>(p.n), k_end};
   const cuuint64_t bstride[1] = {static_cast<cuuint64_t>(p.n)};
   const cuuint32_t bbox[2] = {qgemm::kCols, L::KS};
   if (!qgemm::encode(&p.tm_x, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, a, adims, astride, abox, CU_TENSOR_MAP_SWIZZLE_128B) ||
@@ -171,11 +229,13 @@ cudaError_t run_s8(Params& p, const void* a, int64_t lda, const void* b, int bn,
 // a (M, K) with row stride lda, b (K, N) contiguous, both int8 (fp8 0) or
 // both float8_e4m3fn (fp8 1); sa (M) or one value (sa_scalar 1), sb (N) or
 // one value, f32; out (M, N) contiguous, f32 (out_dtype 0) or bf16 (1).
-// int8 needs K a multiple of 32, N of 32, lda of 16 and a 16-byte aligned
-// (TMA), and takes the plan (quant_gemm_plan, layout "scaled"): bn (32, 64
-// or 128 rows a block), ks (128), slices (cdiv(K, 128)), unit (1) and
-// splits; ws, with splits > 1, (splits, M, N) int32. float8_e4m3fn ignores
-// the plan.
+// The plan (quant_gemm_plan, layout "scaled" for int8, "e4m3" for
+// float8_e4m3fn): bn (32, 64 or 128 rows a block), ks (128), slices
+// (cdiv(K, 128)), unit (1) and splits; ws, with splits > 1, (splits, M, N)
+// int32 (int8) or f32 (e4m3). int8 needs K a multiple of 32, N of 32; e4m3
+// K >= 1 and N a multiple of 16; both lda a multiple of 16 and a and b
+// 16-byte aligned (TMA). float8_e4m3fn with bn 0 runs the loop kernel,
+// which takes any shape and ignores the rest of the plan.
 extern "C" int conch_scaled_gemm(const void* a, const void* b, const void* sa, int sa_scalar, const void* sb,
                                  int sb_scalar, void* out, int out_dtype, int m, int n, int k, int64_t lda, int fp8,
                                  int bn, int ks, int slices, int unit, int splits, void* ws, void* stream) {
@@ -183,11 +243,12 @@ extern "C" int conch_scaled_gemm(const void* a, const void* b, const void* sa, i
   if (m == 0 || n == 0) return static_cast<int>(cudaSuccess);
   if (out_dtype != conch::kFloat32 && out_dtype != conch::kBFloat16) return static_cast<int>(cudaErrorInvalidValue);
   const bool bf16 = out_dtype == conch::kBFloat16;
-  if (fp8) {
+  if (fp8 && bn == 0) {
     return static_cast<int>(bf16 ? conch::launch_fp8<__nv_bfloat16>(a, b, sa, sa_scalar, sb, sb_scalar, out, m, n, k, lda, s)
                                  : conch::launch_fp8<float>(a, b, sa, sa_scalar, sb, sb_scalar, out, m, n, k, lda, s));
   }
-  if (k % 32 != 0 || n % 32 != 0 || lda % 16 != 0 || reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
+  const bool shape_ok = fp8 ? k >= 1 && n % 16 == 0 : k % 32 == 0 && n % 32 == 0;
+  if (!shape_ok || lda % 16 != 0 || reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(b) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -205,5 +266,6 @@ extern "C" int conch_scaled_gemm(const void* a, const void* b, const void* sa, i
   p.slices = slices;
   p.unit = unit;
   p.splits = splits;
-  return static_cast<int>(conch::run_s8(p, a, lda, b, bn, ks, s));
+  return static_cast<int>(fp8 ? conch::run<conch::E4m3Layout>(p, a, lda, b, bn, ks, s)
+                               : conch::run<conch::ScaledLayout>(p, a, lda, b, bn, ks, s));
 }

@@ -20,11 +20,13 @@ Each kernel replaces one kernel of ``conch_tpu/kernels/quantization/gemm.py``:
   ``_scaled_gemm_kernel``: int8 x int8 summed in int32 (float8_e4m3fn in
   f32), then ``* sa[m] * sb[n]``.
 
-K1, K1b, K1c and K8's int8 path share one pipelined tensor-core mainloop
+K1, K1b, K1c and K8 share one pipelined tensor-core mainloop
 (``csrc/quant_gemm_mainloop.cuh``); ``quant_gemm_plan`` picks its launch
 (rows a block, splits of K on group boundaries, the workspace: f32, int32
-for K8) from the shape and the SM count, here in Python where the CPU
-tests hold it.
+for K8's int8) from the shape and the SM count, here in Python where the
+CPU tests hold it. K8's float8_e4m3fn shapes that the mainloop's TMA
+copies cannot take (``e4m3_takes_mainloop``) run a loop kernel instead,
+chosen here before the launch.
 
 Each takes a ``layer_index`` into per-layer stacks of its weight arrays
 (``(L, ...)``): the wrapper offsets the pointers to the layer, so no
@@ -236,7 +238,7 @@ mixed_gemm_magic_launcher.launches = 0
 QGEMM_COLS = 128  # weight (output) columns a block: two warpgroups of 64 (quant_gemm_mainloop.cuh kCols)
 QGEMM_ROW_TILES = (32, 64, 128)  # x rows a block (wgmma's N): decode, up to 64, prefill
 ROWS_K_SLICE = 64  # K of a GPTQ-row slice (kKSlice)
-SCALED_K_SLICE = 128  # K of a K8 slice: one 128-byte swizzle atom of int8 (scaled_gemm.cu ScaledLayout::KS)
+SCALED_K_SLICE = 128  # K of a K8 slice: one 128-byte swizzle atom of int8 or e4m3 (scaled_gemm.cu ScaledLayout::KS)
 
 
 def planar_k_slice(bits: int, group_size: int) -> int:
@@ -263,7 +265,7 @@ class QuantGemmPlan:
     splits: int
     grid: tuple[int, int, int]
     row_sums: bool = False  # K1b: x's group row sums summed once by a pre-pass (128 rows a block)
-    int_sums: bool = False  # K8 sums in s32: its splits' partial sums are int32, not f32
+    int_sums: bool = False  # K8's int8 sums in s32: its splits' partial sums are int32, not f32 (e4m3: f32)
 
     @property
     def units(self) -> int:
@@ -284,11 +286,14 @@ class QuantGemmPlan:
 
 def quant_gemm_plan(layout: str, m: int, n: int, k: int, bits: int, group_size: int, num_sms: int) -> QuantGemmPlan:
     """The launch of K1 (``layout="magic"``), K1b (``"planar"``), K1c
-    (``"gptq"``) or K8 (``"scaled"``: int8 x int8, ``bits`` 8, no groups)
-    for an (M, K) x (K, N) product of ``bits``-bit codes in groups of
-    ``group_size`` on a card of ``num_sms`` SMs. Raises on what the kernel
-    refuses. A magic slice is one group (64 or 128); a scaled slice is 128
-    k (the last one zero-filled past K), a split unit one slice.
+    (``"gptq"``) or K8 (``"scaled"``: int8 x int8; ``"e4m3"``: float8_e4m3fn
+    x float8_e4m3fn; ``bits`` 8, no groups) for an (M, K) x (K, N) product
+    of ``bits``-bit codes in groups of ``group_size`` on a card of
+    ``num_sms`` SMs. Raises on what the kernel refuses. A magic slice is one
+    group (64 or 128); a scaled or e4m3 slice is 128 k (the last one
+    zero-filled past K), a split unit one slice. e4m3 takes any K >= 1 and
+    N a multiple of 16 (b's rows 16-byte aligned for its TMA copies; a's
+    are realigned by ``_tma_rows``); its split sums are f32.
 
     Rows: 32 a block up to 32 (the engine's decode step: one block covers
     every row, so each code is decoded once), 64 up to 64, else 128 (64
@@ -336,6 +341,16 @@ def quant_gemm_plan(layout: str, m: int, n: int, k: int, bits: int, group_size: 
             raise ValueError(msg)
         ks = SCALED_K_SLICE
         slices, unit = cdiv(k, ks), 1
+    elif layout == "e4m3":
+        name = "scaled_gemm"
+        if bits != 8 or k < 1 or n % 16:
+            msg = (
+                f"{name} kernel: the e4m3 mainloop needs 8-bit operands, K >= 1 and N a multiple of 16 "
+                f"(b's rows 16-byte aligned for TMA) (bits={bits}, K={k}, N={n})"
+            )
+            raise ValueError(msg)
+        ks = SCALED_K_SLICE
+        slices, unit = cdiv(k, ks), 1
     else:
         msg = f"no K1/K1b/K1c/K8 launch plan for layout {layout!r}"
         raise ValueError(msg)
@@ -361,6 +376,19 @@ def quant_gemm_plan(layout: str, m: int, n: int, k: int, bits: int, group_size: 
 # The plan's arguments of the entry points: bn, k_slice, slices, unit,
 # splits, then the workspace pointer.
 PLAN_ARGTYPES = (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
+
+
+# The plan arguments that send K8's float8_e4m3fn call to its loop kernel (bn 0).
+E4M3_LOOP_PLAN_ARGS = (0, 0, 0, 0, 1, 0)
+
+
+def e4m3_takes_mainloop(k: int, n: int, b_address: int) -> bool:
+    """Whether K8 runs an (M, K) x (K, N) float8_e4m3fn product on the
+    mainloop (``quant_gemm_plan``'s "e4m3"): K >= 1, N a multiple of 16 and
+    the layer's b at a 16-byte aligned address, so that b's rows suit its
+    TMA copies (a's rows are realigned by ``_tma_rows``). Else the loop
+    kernel, which takes any shape."""
+    return k >= 1 and n % 16 == 0 and b_address % 16 == 0
 
 
 def _plan_args(plan: QuantGemmPlan, m: int, n: int, device: torch.device) -> tuple[tuple, torch.Tensor | None]:
@@ -623,6 +651,7 @@ def _scaled_gemm_cuda(a, b, scale_a, scale_b, out_dtype: torch.dtype, layer_inde
         msg = f"scaled_gemm kernel: needs contiguous rows and, for int8, K and N multiples of 32 (K={k}, N={n})"
         raise ValueError(msg)
     _check_layer_shapes("scaled_gemm", layer_index, {"b": (b, (k, n))})
+    b_ptr = _layer_ptr(b, layer_index)
     sa_scalar = scale_a.numel() == 1
     sb_scalar = scale_b.numel() == 1
     if not sa_scalar and scale_a.numel() != m:
@@ -634,21 +663,27 @@ def _scaled_gemm_cuda(a, b, scale_a, scale_b, out_dtype: torch.dtype, layer_inde
             raise ValueError(f"scaled_gemm kernel: scale_b {tuple(scale_b.shape)} for {n} columns")
         sb_ptr = _layer_ptr(scale_b, layer_index)
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    if fp8:
-        plan_args, _ws = (0, 0, 0, 0, 1, 0), None
+    loop = fp8 and not e4m3_takes_mainloop(k, n, b_ptr)
+    if loop:
+        plan_args, _ws = E4M3_LOOP_PLAN_ARGS, None
     else:
         a = _tma_rows(a)
-        plan = quant_gemm_plan("scaled", m, n, k, 8, SCALED_K_SLICE, sm_count(a.device.index))
+        plan = quant_gemm_plan("e4m3" if fp8 else "scaled", m, n, k, 8, SCALED_K_SLICE, sm_count(a.device.index))
         plan_args, _ws = _plan_args(plan, m, n, a.device)
     fn = kernel_function("conch_scaled_gemm", (
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
         *PLAN_ARGTYPES, ctypes.c_void_p,
     ))
-    code = fn(a.data_ptr(), _layer_ptr(b, layer_index), scale_a.data_ptr(), int(sa_scalar), sb_ptr, int(sb_scalar),
+    code = fn(a.data_ptr(), b_ptr, scale_a.data_ptr(), int(sa_scalar), sb_ptr, int(sb_scalar),
               out.data_ptr(), dtype_code(out), m, n, k, a.stride(0), int(fp8), *plan_args, stream_of(a))
     check_launch("conch_scaled_gemm", code)
     scaled_gemm_launcher.launches += 1
+    if fp8:
+        if loop:
+            scaled_gemm_launcher.e4m3_loop_launches += 1
+        else:
+            scaled_gemm_launcher.e4m3_launches += 1
     return out
 
 
@@ -661,10 +696,17 @@ def scaled_gemm_launcher(
     layer_index: int | None = None,
 ) -> torch.Tensor:
     """K8: ``float(a @ b) * scale_a[:, None] * scale_b[None, :]`` as
-    ``out_dtype``: (M, N)."""
+    ``out_dtype``: (M, N).
+
+    ``launches`` counts kernel launches; of them, ``e4m3_launches`` those of
+    float8_e4m3fn on the mainloop's fp8 ``wgmma`` layout and
+    ``e4m3_loop_launches`` those on the loop kernel.
+    """
     if a.device.type == "cpu":
         return scaled_gemm_plain(a, b, scale_a, scale_b, out_dtype, layer_index)
     return _scaled_gemm_cuda(a, b, scale_a, scale_b, out_dtype, layer_index)
 
 
 scaled_gemm_launcher.launches = 0
+scaled_gemm_launcher.e4m3_launches = 0
+scaled_gemm_launcher.e4m3_loop_launches = 0

@@ -11,8 +11,11 @@ puts the fault into the copy's CUDA source, and runs the kernel's phase of
 ``chip_smoke.py`` (``check_magic_gemm_options``: K1's option sweep;
 ``kernel_phase_k1b``, ``_k1c``, ``_k8`` or ``_k12q``: the kernel at the
 served shapes and the small cases, held against its plain version;
-``check_scaled_gemm_options``: K8's option sweep, bit for bit) on the copy
-in a subprocess, which builds the copy's kernels. The unchanged package
+``check_scaled_gemm_options``: K8's option sweep, bit for bit;
+``check_scaled_e4m3_options``: its float8_e4m3fn half) on the copy in a
+subprocess, which builds the copy's kernels (a copy for the e4m3 sweep
+alone holds ``scaled_gemm.cu`` as its only source, so it builds in
+seconds). The unchanged package
 must pass the faults' phases first and every faulty copy must fail a check
 of its own; the tool prints each run's check lines and exits non-zero
 otherwise.
@@ -31,6 +34,17 @@ The faults:
 - ``k8_split_workspace_f32``: K8's split sums pass through f32 on their way
   to the workspace (as an f32 workspace would hold them): sums above 2^24
   lose their low bits, which the option sweep's near-127 case shows;
+- ``k8_e4m3_scales_swapped``: K8's split reduction (int8 and e4m3) scales
+  row m by sb (index clamped to its length);
+- ``k8_e4m3_split_dropped``: the split reduction adds the first split's
+  partial sums only;
+- ``k8_e4m3_tail_not_zero_filled``: a's and b's tensor maps end at K
+  rounded up to the 128-k slice (at most a's row stride), so the last
+  slice reads a's row past K and b's rows past its layer (the sweep's e4m3
+  stack has a layer after the one it reads) in place of zeros;
+- ``k8_e4m3_not_promoted``: every slice's wgmmas sum into the running
+  accumulator, with no f32 promotion (the all-positive case at K 14336
+  holds each output to 1e-3 of itself);
 - ``k12q_nibbles_swapped``: K12q puts the even element in the low nibble;
 - ``k12q_threshold_not_strict``: K12q's second bisection step compares
   with ``>=``, so a value equal to NF4's third or eleventh threshold takes
@@ -78,6 +92,31 @@ MUTANTS = {
         "                        static_cast<int>(static_cast<float>(acc[4 * j + 2 + h])));",
         "check_scaled_gemm_options",
     ),
+    "k8_e4m3_scales_swapped": (
+        "quant_gemm_mainloop.cuh",
+        "const float ra = sa_scalar ? __ldg(sa) : __ldg(sa + row);",
+        "const float ra = sb_scalar ? __ldg(sb) : __ldg(sb + (row < n ? row : n - 1));",
+        "check_scaled_e4m3_options",
+    ),
+    "k8_e4m3_split_dropped": (
+        "quant_gemm_mainloop.cuh",
+        "for (int s = 0; s < splits; ++s) {",
+        "for (int s = 0; s < 1; ++s) {",
+        "check_scaled_e4m3_options",
+    ),
+    "k8_e4m3_tail_not_zero_filled": (
+        "scaled_gemm.cu",
+        "const cuuint64_t k_end = static_cast<cuuint64_t>(p.k);",
+        "const int64_t k_up = (p.k + L::KS - 1) / L::KS * L::KS;\n"
+        "  const cuuint64_t k_end = static_cast<cuuint64_t>(k_up < lda ? k_up : lda);",
+        "check_scaled_e4m3_options",
+    ),
+    "k8_e4m3_not_promoted": (
+        "scaled_gemm.cu",
+        "static constexpr bool kPromote = true;",
+        "static constexpr bool kPromote = false;",
+        "check_scaled_e4m3_options",
+    ),
     "k12q_nibbles_swapped": (
         "quantize4.cu",
         "return NF4 ? (nf4_code(sa, t_s) << 4) | nf4_code(sb, t_s) : (fp4_code(sa) << 4) | fp4_code(sb);",
@@ -90,6 +129,10 @@ MUTANTS = {
         "check_quantize4_options",
     ),
 }
+
+# Phases whose kernels build from these sources alone: a copy that runs only
+# such phases keeps only their sources.
+PHASE_SOURCES = {"check_scaled_e4m3_options": ("scaled_gemm.cu",)}
 
 
 def phases_script(phases: tuple[str, ...]) -> str:
@@ -109,9 +152,14 @@ def main() -> int:
     for name, mutant in {"unchanged": None, **chosen}.items():
         phases = tuple(dict.fromkeys(m[3] for m in chosen.values())) if mutant is None else (mutant[3],)
         root = copy_package(name, None if mutant is None else mutant[:3])
+        if all(phase in PHASE_SOURCES for phase in phases):
+            keep = {source for phase in phases for source in PHASE_SOURCES[phase]}
+            for source in (root / "conch_tpu_torch" / "csrc").glob("*.cu"):
+                if source.name not in keep:
+                    source.unlink()
         code, out = run_phases(root, phases_script(phases))
         lines = [ln for ln in out.splitlines() if "package:" in ln or "max_abs_err" in ln or "differ" in ln
-                 or "Error" in ln]
+                 or "Error" in ln or "all-positive" in ln]
         # A faulty copy must fail a check, not its build or launch.
         failed_check = code != 0 and "AssertionError" in out and "nvcc failed" not in out
         expected = code == 0 if mutant is None else failed_check

@@ -4,6 +4,7 @@
 """Time K1 to K8, K10a, K10b, K11, K12q and K13a to K13c of two checkouts on one card, in turns.
 
     python3 -m conch_tpu_torch.tools.parent_compare --parent DIR [--kernels K6 K10b ...] [--serve]
+    python3 -m conch_tpu_torch.tools.parent_compare --mutant NAME [--kernels ...]
 
 Run from the checkout's root on one Hopper card, with ``DIR`` another
 checkout of the repository (for instance ``git archive`` of the parent
@@ -27,9 +28,16 @@ launchers only, which both packages share:
   ``k7_inputs``: Llama-3-8B's 128-row prefill step and Gemma-2-2B's
   512-row one (softcap 50, without and with the 4096 window), over bf16,
   int8 and e4m3 pools;
+- K1b (``mixed_gemm_planar_launcher``), one layer's four GEMMs of the int8
+  engine (8-bit planar codes, group 128, bf16 scales) and K1c
+  (``mixed_gemm_rows_launcher``), one layer's seven NF4 GEMMs of the nf4
+  engine, at M 8, 32 and 512 (layer 17 of a 32-layer stack; timed calls
+  walk the layers);
 - K8 (``scaled_gemm_launcher``), one layer's four GEMMs of the w8a8 engine
   at M 8, 32 and 512, built by ``k8_weights`` and ``k8_rows`` (layer 17
-  of a 32-layer stack; timed calls walk the layers);
+  of a 32-layer stack; timed calls walk the layers); then the same four
+  shapes over float8_e4m3fn (``k8_e4m3_weights``, per-row and per-column
+  scales, bf16 out) at M 16, 32 and 512 (``K8_FP8_MS``);
 - K11 (``mla_attention_launcher``) on ``k11_inputs``' decode and 512-row
   prefill steps at DeepSeek-V2-Lite's shapes, bf16 queries over bf16,
   int8 and e4m3 latent pools;
@@ -69,8 +77,12 @@ launchers only, which both packages share:
   is copied with only ``csrc/bev_pool.cu`` and ``csrc/nms.cu``, so a run
   builds in seconds.
 
-``--kernels`` times only the named ones (K1 K2 K3 K4 K5 K6 K7 K8 K10a K10b
-K11 K12q K13a K13b K13c).
+``--kernels`` times only the named ones (K1 K1b K1c K2 K3 K4 K5 K6 K7 K8
+K10a K10b K11 K12q K13a K13b K13c).
+``--mutant NAME`` times this checkout against a copy of itself with
+``gemm_mutants.py``'s fault NAME put in, in the parent's place (for
+instance ``k8_e4m3_not_promoted``: K8's e4m3 slices summed in the wgmma
+accumulator, to time the promotion).
 ``--serve`` also serves Gemma-2-2B and the int4 Llama-3-8B engine with each
 package, as ``chip_smoke.py``'s ``serve`` does (launches checked per model
 step, then a profiled repeat), and prints each run's served and profile
@@ -95,6 +107,8 @@ import sys
 from pathlib import Path
 
 from conch_tpu_torch.kernels.common import BUILD_DIR
+from conch_tpu_torch.tools.attention_mutants import copy_package
+from conch_tpu_torch.tools.gemm_mutants import MUTANTS
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 REPO_ROOT = PACKAGE_DIR.parent
@@ -160,6 +174,34 @@ if "K7" in want:
             del case
             torch.cuda.empty_cache()
 
+if "K1b" in want or "K1c" in want:
+    from conch_tpu_torch.kernels.quantization.bitsandbytes.blockwise import NF4_CODE
+    from conch_tpu_torch.kernels.quantization.gemm import mixed_gemm_planar_launcher as k1b
+    from conch_tpu_torch.kernels.quantization.gemm import mixed_gemm_rows_launcher as k1c
+
+    # (label, shapes with their count a layer, words a 32-bit row, metadata rows, the call)
+    cases = []
+    if "K1b" in want:
+        cases.append(("K1b", cs.FUSED_LAYER_SHAPES, 4, cs.GROUP, lambda x, w, s, li: k1b(x, w, s, None, 8, 128, cs.GROUP, li)))
+    if "K1c" in want:
+        cases.append(("K1c", cs.NF4_LAYER_SHAPES, 8, cs.NF4_BLOCK,
+                      lambda x, w, s, li: k1c(x, w, s, None, 4, 0, cs.NF4_BLOCK, NF4_CODE, li)))
+    for label, shapes, epw, group, call in cases:
+        sums = {m: 0.0 for m in cs.GEMM_MS}
+        for (k, n), count in shapes.items():
+            packed = torch.randint(-(2**31), 2**31 - 1, (cs.NUM_LAYERS_POOL, k // epw, n), generator=gen,
+                                   device="cuda", dtype=torch.int32)
+            meta = torch.rand((cs.NUM_LAYERS_POOL, k // group, n), generator=gen, device="cuda") * 4e-3 + 1e-4
+            meta = meta.to(torch.bfloat16) if label == "K1b" else meta
+            layers = itertools.cycle(range(cs.NUM_LAYERS_POOL))
+            for m in cs.GEMM_MS:
+                x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+                sums[m] += count * cs.time_ms(lambda: call(x, packed, meta, next(layers)))
+            del packed, meta
+            torch.cuda.empty_cache()
+        for m, t in sums.items():
+            times[f"{label} one layer M={m}"] = t
+
 if "K8" in want:
     sums = {m: 0.0 for m in cs.GEMM_MS}
     for k, n in cs.FUSED_LAYER_SHAPES:
@@ -172,6 +214,18 @@ if "K8" in want:
         torch.cuda.empty_cache()
     for m, t in sums.items():
         times[f"K8 one layer M={m}"] = t
+    sums = {m: 0.0 for m in cs.K8_FP8_MS}
+    for k, n in cs.FUSED_LAYER_SHAPES:
+        w8, sb = cs.k8_e4m3_weights(gen, k, n)
+        layers = itertools.cycle(range(cs.NUM_LAYERS_POOL))
+        for m in cs.K8_FP8_MS:
+            a = torch.randn((m, k), generator=gen, device="cuda").to(torch.float8_e4m3fn)
+            sa = 1e-2 * torch.logspace(0, 1, m, device="cuda")
+            sums[m] += cs.time_ms(lambda: k8(a, w8, sa, sb, torch.bfloat16, next(layers)))
+        del w8, sb
+        torch.cuda.empty_cache()
+    for m, t in sums.items():
+        times[f"K8 e4m3 one layer M={m}"] = t
 
 if "K11" in want:
     for cache in (None, "int8", "fp8"):
@@ -321,7 +375,8 @@ if "serve" in want:
              {"num_pages": 4096, "max_batch_size": 32}, cs.int4_prompts, cs.LLAMA_KERNELS, cs.LLAMA_PER_STEP)
 print("TIMES " + json.dumps({"package": conch_tpu_torch.__file__, "times": times, "digests": digests}), flush=True)
 '''
-KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K10a", "K10b", "K11", "K12q", "K13a", "K13b", "K13c")
+KERNELS = ("K1", "K1b", "K1c", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K10a", "K10b", "K11", "K12q", "K13a",
+           "K13b", "K13c")
 # A run of the vision kernels alone builds their sources alone (seconds, not minutes).
 VISION_KERNELS, VISION_SOURCES = {"K13a", "K13b", "K13c"}, ("bev_pool.cu", "nms.cu")
 # The lines of a run's output that the tool prints with --serve.
@@ -347,13 +402,17 @@ def run(package_root: Path, parts: list[str]) -> dict:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--parent", type=Path, required=True, help="another checkout of the repository")
+    which = parser.add_mutually_exclusive_group(required=True)
+    which.add_argument("--parent", type=Path, help="another checkout of the repository")
+    which.add_argument("--mutant", choices=sorted(MUTANTS), help="time against this checkout with a gemm_mutants fault")
     parser.add_argument("--kernels", nargs="+", choices=KERNELS, default=list(KERNELS), help="the kernels to time")
     parser.add_argument("--serve", action="store_true", help="also serve Gemma-2-2B and int4 Llama-3-8B, profiled")
     args = parser.parse_args()
     parts = [*args.kernels, *(["serve"] if args.serve else [])]
     parent, change = BUILD_DIR / "compare" / "parent", REPO_ROOT
-    copies = [(args.parent, parent)]
+    copies = [] if args.mutant else [(args.parent, parent)]
+    if args.mutant:
+        parent = copy_package(args.mutant, MUTANTS[args.mutant][:3])
     vision = set(args.kernels) <= VISION_KERNELS and not args.serve
     if vision:
         change = BUILD_DIR / "compare" / "change"
@@ -387,6 +446,7 @@ def main() -> int:
               f"{mean['change'] / mean['parent']:.3f}", flush=True)
     print(json.dumps({"runs": runs}), flush=True)
     shutil.rmtree(BUILD_DIR / "compare", ignore_errors=True)
+    shutil.rmtree(BUILD_DIR / "mutants", ignore_errors=True)
     differ = sorted(case for case in runs[0]["digests"] if len({r["digests"][case] for r in runs}) != 1)
     if runs[0]["digests"]:
         print(f"outputs of the two packages: {len(runs[0]['digests'])} cases, "

@@ -2,7 +2,7 @@
 # SPDX-License-Identifier: Apache-2.0
 
 """The launch plan of K1 (magic), K1b (planar), K1c (GPTQ rows) and K8
-(scaled int8), which the wrappers in
+(scaled int8, and float8_e4m3fn on the same mainloop), which the wrappers in
 ``conch_tpu_torch/kernels/quantization/gemm.py`` compute in Python and
 hand to the CUDA entry points. Held on the CPU, for the Llama-3-8B engine
 shapes (int4 fused at groups 64 and 128, nf4 unfused, int8 and w8a8 fused,
@@ -18,22 +18,28 @@ port's GEMM tests and K8's option sweep:
 - the plan refuses what the kernel refuses, with the wrappers' messages;
 - x rows that do not suit the kernels' TMA copies are realigned, values
   unchanged (bf16 x, and K8's int8 a);
-- K8's workspace holds int32 sums (exact; f32 would round above 2^24);
+- K8's workspace holds int32 sums (exact; f32 would round above 2^24),
+  its e4m3 plan f32 ones, with int8's rows a block and splits;
+- K8's e4m3 shapes that the mainloop's TMA copies cannot take (N not a
+  multiple of 16, b's layer off 16 bytes, K 0) go to the loop kernel;
 - K1's A fragments, read from the magic packing as
   ``csrc/mixed_gemm_magic.cu`` reads them, are x's k order within each
   group.
 """
 
+import dataclasses
 import math
 
 import pytest
 import torch
 
 from conch_tpu_torch.kernels.quantization.gemm import (
+    E4M3_LOOP_PLAN_ARGS,
     PLAN_ARGTYPES,
     QGEMM_COLS,
     _plan_args,
     _tma_rows,
+    e4m3_takes_mainloop,
     quant_gemm_plan,
 )
 from conch_tpu_torch.utils.quant_utils import pack_rows_magic
@@ -58,6 +64,7 @@ ENGINE_CASES = (
     + [("magic", 4, g, k, n) for g in (128, 64) for k, n in INT4_SHAPES]
     + [("magic", 4, 128, k, n) for k, n in QWEN2_SHAPES]
     + [("scaled", 8, 128, k, n) for k, n in INT8_SHAPES]
+    + [("e4m3", 8, 128, k, n) for k, n in INT8_SHAPES]
 )
 SMALL_CASES = [
     ("magic", 4, 128, 256, 384), ("magic", 4, 128, 512, 256), ("magic", 4, 64, 256, 384), ("magic", 4, 64, 128, 32),
@@ -67,6 +74,9 @@ SMALL_CASES = [
     *[("planar", bits, 128 if bits >= 4 else 256, 512, 256) for bits in (2, 4, 8)],
     ("planar", 8, 128, 256, 384), ("planar", 8, 64, 512, 128), ("planar", 4, 256, 1024, 512),
     ("scaled", 8, 128, 96, 160), ("scaled", 8, 128, 64, 32), ("scaled", 8, 128, 512, 256),
+    # e4m3 takes any K >= 1 and N a multiple of 16 (chip_smoke's K8 sweep and phase shapes among them).
+    ("e4m3", 8, 128, 96, 160), ("e4m3", 8, 128, 512, 256), ("e4m3", 8, 128, 1, 16), ("e4m3", 8, 128, 300, 48),
+    ("e4m3", 8, 128, 14336, 4096),
 ]
 
 
@@ -74,10 +84,10 @@ def _k_slice(layout: str, bits: int, group: int) -> int:
     """K of a slice in the entry points' templates: 64 for GPTQ rows
     (RowsLayout::KS); one group for magic codes (MagicLayout::KS); planar
     codes a whole group of 128 for 4 and 8 bits at group 128, else 16 word
-    rows (PlanarLayout::KS); 128 for K8's int8 (ScaledLayout::KS)."""
+    rows (PlanarLayout::KS); 128 for K8's int8 and e4m3 (ScaledLayout::KS)."""
     if layout == "gptq":
         return 64
-    if layout == "scaled":
+    if layout in ("scaled", "e4m3"):
         return 128
     if layout == "magic":
         return group
@@ -106,11 +116,13 @@ def test_splits_cover_k_once_on_group_boundaries(case, m):
 
 @pytest.mark.parametrize("m", [8, 512])
 @pytest.mark.parametrize(
-    "case", [ENGINE_CASES[1], ENGINE_CASES[6], SMALL_CASES[3], ENGINE_CASES[-4]], ids=lambda c: "-".join(map(str, c))
+    "case", [ENGINE_CASES[1], ENGINE_CASES[6], SMALL_CASES[3], ENGINE_CASES[-9], ENGINE_CASES[-4]],
+    ids=lambda c: "-".join(map(str, c)),
 )
 def test_entry_point_gets_the_plan(case, m):
     """The entry point's plan arguments are the plan's own numbers, and the
-    workspace is the splits' partial sums: f32, int32 for K8."""
+    workspace is the splits' partial sums: f32, int32 for K8's int8 (its
+    e4m3 sums are f32)."""
     layout, bits, group, k, n = case
     plan = quant_gemm_plan(layout, m, n, k, bits, group, H100_SMS)
     args, ws = _plan_args(plan, m, n, torch.device("cpu"))
@@ -136,7 +148,8 @@ def test_decode_grid_fills_the_card(case, m):
 @pytest.mark.parametrize("m,bn", [(1, 32), (8, 32), (32, 32), (33, 64), (40, 64), (64, 64), (65, 128), (512, 128)])
 @pytest.mark.parametrize(
     "layout,bits,group",
-    [("gptq", 4, 64), ("planar", 8, 128), ("planar", 4, 128), ("magic", 4, 128), ("magic", 4, 64), ("scaled", 8, 128)],
+    [("gptq", 4, 64), ("planar", 8, 128), ("planar", 4, 128), ("magic", 4, 128), ("magic", 4, 64), ("scaled", 8, 128),
+     ("e4m3", 8, 128)],
 )
 def test_rows_a_block(m, bn, layout, bits, group):
     """32 rows a block up to the engine's 32-row decode step, then 64, then
@@ -174,12 +187,61 @@ def test_prefill_takes_at_most_one_wave():
         ("scaled", 8, 128, 4112, 256, ValueError, r"scaled_gemm kernel: needs int8 operands and K and N multiples of 32"),
         ("scaled", 8, 128, 4096, 48, ValueError, "N=48"),
         ("scaled", 4, 128, 4096, 256, ValueError, "bits=4"),
+        ("e4m3", 8, 128, 4096, 40, ValueError,
+         r"scaled_gemm kernel: the e4m3 mainloop needs 8-bit operands, K >= 1 and N a multiple of 16"),
+        ("e4m3", 8, 128, 4096, 4104, ValueError, r"b's rows 16-byte aligned for TMA\) \(bits=8, K=4096, N=4104\)"),
+        ("e4m3", 8, 128, 0, 256, ValueError, "K=0"),
+        ("e4m3", 4, 128, 4096, 256, ValueError, "bits=4"),
         ("awq", 4, 64, 4096, 256, ValueError, "no K1/K1b/K1c/K8 launch plan"),
     ],
 )
 def test_plan_refuses_what_the_kernel_refuses(layout, bits, group, k, n, error, match):
     with pytest.raises(error, match=match):
         quant_gemm_plan(layout, 8, n, k, bits, group, H100_SMS)
+
+
+W8A8_SHAPES = INT8_SHAPES[:4]  # fused wqkv, wo, fused gate|up, w_down
+
+
+@pytest.mark.parametrize("m", [1, 16, 17, 32, 40, 130, 512, 600])
+@pytest.mark.parametrize("k,n", W8A8_SHAPES, ids=lambda v: str(v))
+def test_e4m3_plan_is_int8s_with_f32_sums(k, n, m):
+    """At the w8a8 shapes K8's e4m3 plan takes int8's rows a block, slices
+    and splits (the same bytes, the same tensor-core rate), and its split
+    sums are f32 where int8's are int32."""
+    e4m3 = quant_gemm_plan("e4m3", m, n, k, 8, 128, H100_SMS)
+    int8 = quant_gemm_plan("scaled", m, n, k, 8, 128, H100_SMS)
+    assert dataclasses.replace(e4m3, int_sums=True) == int8
+    assert not e4m3.int_sums and int8.int_sums
+    for plan, want in ((e4m3, torch.float32), (int8, torch.int32)):
+        _, ws = _plan_args(plan, m, n, torch.device("cpu"))
+        assert (ws is None) == (plan.splits == 1)
+        assert ws is None or ws.dtype == want
+
+
+@pytest.mark.parametrize(
+    "k,n,offset,mainloop",
+    [
+        (4096, 6144, 0, True), (14336, 4096, 0, True), (96, 160, 0, True), (97, 16, 0, True), (1, 16, 0, True),
+        (96, 100, 0, False),  # N not a multiple of 16: b's rows off 16 bytes
+        (96, 24, 0, False),
+        (96, 160, 8, False),  # b's base off 16 bytes
+        (96, 160, 16, True),
+        (0, 32, 0, False),  # K 0: nothing to copy
+    ],
+)
+def test_e4m3_loop_kernel_by_shape(k, n, offset, mainloop):
+    """K8's e4m3 calls go to the mainloop where its TMA copies take b
+    (``e4m3_takes_mainloop``), else to the loop kernel with the plan
+    arguments that name it (bn 0); the plan refuses every shape that
+    goes to the loop kernel for its N or K."""
+    assert e4m3_takes_mainloop(k, n, 4096 + offset) == mainloop
+    assert E4M3_LOOP_PLAN_ARGS[0] == 0 and len(E4M3_LOOP_PLAN_ARGS) == len(PLAN_ARGTYPES)
+    if mainloop:
+        quant_gemm_plan("e4m3", 8, n, k, 8, 128, H100_SMS)
+    elif offset == 0:
+        with pytest.raises(ValueError, match="the e4m3 mainloop needs"):
+            quant_gemm_plan("e4m3", 8, n, k, 8, 128, H100_SMS)
 
 
 @pytest.mark.parametrize("offset,stride,kept", [(0, 4100, False), (4, 4104, False), (8, 4096, True)])
@@ -207,6 +269,18 @@ def test_tma_rows_realigns_int8_a(offset, stride, kept):
     assert (y is x) == kept
     assert y.stride(0) % 16 == 0 and y.data_ptr() % 16 == 0 and y.stride(1) == 1
     assert torch.equal(y, x)
+
+
+@pytest.mark.parametrize("offset,stride,kept", [(0, 4100, False), (8, 4112, False), (16, 4096, True), (0, 96, True)])
+def test_tma_rows_realigns_e4m3_a(offset, stride, kept):
+    """K8's float8_e4m3fn a, as its int8 a: rows off 16 bytes become an
+    aligned copy of the same bytes; aligned rows are passed through."""
+    base = torch.randint(0, 126, (3 * stride + offset,), dtype=torch.uint8)
+    x = base.view(torch.float8_e4m3fn)[offset:offset + 3 * stride].view(3, stride)[:, :96]
+    y = _tma_rows(x)
+    assert (y is x) == kept and y.dtype == torch.float8_e4m3fn
+    assert y.stride(0) % 16 == 0 and y.data_ptr() % 16 == 0 and y.stride(1) == 1
+    assert torch.equal(y.view(torch.uint8), x.view(torch.uint8))
 
 
 @pytest.mark.parametrize("group", [64, 128])
