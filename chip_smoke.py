@@ -29,12 +29,15 @@
      keeps one layer's sums at each M (``by_m``: 4 GEMMs for K1, K1b and
      K8, 7 for K1c);
    - K1b and K1c over every option they take (``check_quant_gemm_options``,
-     2808 small cases: 2-, 4- and 8-bit codes and the NF4 codebook, groups
-     12 to 256, bf16 and f32 scales, zero-point modes 0, 1 and 2, M 8, 40
+     3240 small cases, 1080 of K1b and 2160 of K1c: 2-, 4- and 8-bit codes
+     and the NF4 codebook, K1c at groups 12, 64, 100, 128 and 256, K1b at
+     every planar slice (int8 at groups 32, 64, 96, 128 and 256, 4-bit at
+     64, 128 and 256, 2-bit at 128 and 256), bf16 and f32 scales,
+     zero-point modes 0, 1 and 2, M 8, 40
      and 130 with K split, x contiguous, with padded rows or realigned, f32
      and bf16 outputs), tolerance 1e-2 x max |ref|; K1 over every option it
-     takes (``check_magic_gemm_options``, 576 cases: groups 64 and 128,
-     biases 8, 0 and 15, stacked
+     takes (``check_magic_gemm_options``, 864 cases: groups 32, 64 and 128,
+     K 416 at group 32 (a last slice half past K), biases 8, 0 and 15, stacked
      and single weights, M 1 to 600, x three ways, f32 and bf16 outputs;
      1e-2 x max |ref|, every case bit for bit across two calls);
    - K3 over every option it takes (``check_paged_attention_options``, 1344
@@ -226,9 +229,10 @@
    the card against the plain path on the CPU (Llama-3-8B: bf16 weights in
    f32 and bf16, int4 at group 128 and 64, int8, nf4 and w8a8 weights in
    bf16; Qwen2-7B and Mistral-7B (window cut to 16): bf16 weights in f32,
-   int4 in bf16; Gemma-2-2B: f32 and bf16, random norm weights; DeepSeek-V2-Lite,
-   one dense and one MoE
-   layer: f32 and bf16, random norm weights, and the MoE routing compared
+   int4 in bf16; Gemma-2-2B: f32 and bf16, random norm weights, int4,
+   int8, nf4 and w8a8 in bf16; DeepSeek-V2-Lite, one dense and one MoE
+   layer: f32 and bf16, int4 and int8 at group 32, nf4 and w8a8 in bf16,
+   random norm weights, and the MoE routing compared
    token by token, a divergence accepted only at a near tie; each family
    also in bf16 over an int8 and an e4m3 KV cache); then
    ``LLMEngine`` at full width (random
@@ -1037,52 +1041,63 @@ def _stack_cycle(n_layers: int = NUM_LAYERS_POOL):
     return itertools.cycle(range(n_layers))
 
 
-def kernel_phase_k1b(gen) -> dict:
-    """K1b (int8 planar, uint8b128, group 128, bf16 scales) at the int8
-    engine's shapes, M in GEMM_MS, layer 17 of a 32-layer stack (lm_head
-    unstacked), random codes over the full range, bit for bit across two
-    calls; plus 4-bit with per-group and with scalar zero-points. Tolerance
-    1e-2 x max |ref|. Library: a bf16 matmul on the dequantized weight."""
+def _k1b_cases(gen, group: int, shapes: tuple) -> list[dict]:
+    """K1b over int8 planar codes (uint8b128, bf16 scales) at ``group`` and
+    the (K, N) ``shapes``, M in GEMM_MS, layer 17 of a 32-layer stack
+    (``LM_HEAD`` unstacked), random codes over the full range: checked
+    against the plain version (tolerance 1e-2 x max |ref|), bit for bit
+    across two calls, and timed beside it and a bf16 matmul on the
+    dequantized weight."""
     from conch_tpu_torch.kernels.quantization.gemm import (
         mixed_gemm_planar_launcher as launch,
         mixed_gemm_planar_plain as plain,
     )
     from conch_tpu_torch.utils.quant_utils import unpack_rows_planar
 
-    def dequant(packed, scales, k, bits, bias, zp=None):
-        codes = unpack_rows_planar(packed, bits, k, GROUP).float()
-        z = float(bias) if zp is None else (zp.reshape(()) if zp.numel() == 1 else zp.repeat_interleave(GROUP, 0))
-        return ((codes - z) * scales.float().repeat_interleave(GROUP, 0)).to(torch.bfloat16)
-
-    err, detail = 0.0, []
-    for (k, n) in (*FUSED_LAYER_SHAPES, LM_HEAD):
+    detail = []
+    for (k, n) in shapes:
         layers = NUM_LAYERS_POOL if (k, n) != LM_HEAD else None
         lead = () if layers is None else (layers,)
         packed = torch.randint(-(2**31), 2**31 - 1, (*lead, k // 4, n), generator=gen, device="cuda", dtype=torch.int32)
-        scales = (torch.rand((*lead, k // GROUP, n), generator=gen, device="cuda") * 4e-3 + 1e-4).to(torch.bfloat16)
+        scales = (torch.rand((*lead, k // group, n), generator=gen, device="cuda") * 4e-3 + 1e-4).to(torch.bfloat16)
         li = None if layers is None else LAYER
         cyc = _stack_cycle() if layers else itertools.repeat(None)
-        one = packed if layers is None else packed[LAYER]
-        dense = dequant(one, scales if layers is None else scales[LAYER], k, 8, 128)
+        one, one_scales = (packed, scales) if layers is None else (packed[LAYER], scales[LAYER])
+        codes = unpack_rows_planar(one, 8, k, group).float()
+        dense = ((codes - 128.0) * one_scales.float().repeat_interleave(group, 0)).to(torch.bfloat16)
+        del codes
         for m in GEMM_MS:
             x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
-            out_k = launch(x, packed, scales, None, 8, 128, GROUP, li)
-            out_p = plain(x, packed, scales, None, 8, 128, GROUP, li)
+            out_k = launch(x, packed, scales, None, 8, 128, group, li)
+            out_p = plain(x, packed, scales, None, 8, 128, group, li)
             torch.cuda.synchronize()
             scale = out_p.float().abs().max().item()
             e = (out_k.float() - out_p.float()).abs().max().item()
-            check(f"K1b mixed_gemm_planar int8 M={m} K={k} N={n} (max|ref| {scale:.3f})", e, 1e-2 * scale)
-            check_repeatable(f"K1b mixed_gemm_planar int8 M={m} K={k} N={n}",
-                             lambda: launch(x, packed, scales, None, 8, 128, GROUP, li))
-            err = max(err, e)
-            bytes_moved = m * k * 2 + k * n + (k // GROUP) * n * 2 + m * n * 2
+            label = f"K1b mixed_gemm_planar int8 group {group} M={m} K={k} N={n}"
+            check(f"{label} (max|ref| {scale:.3f})", e, 1e-2 * scale)
+            check_repeatable(label, lambda: launch(x, packed, scales, None, 8, 128, group, li))
+            bytes_moved = m * k * 2 + k * n + (k // group) * n * 2 + m * n * 2
             detail.append(_time_case(
-                lambda: launch(x, packed, scales, None, 8, 128, GROUP, next(cyc)),
-                lambda: plain(x, packed, scales, None, 8, 128, GROUP, li),
-                lambda: torch.matmul(x, dense), m, k, n, e, bytes_moved, 2 * m * n * k,
+                lambda: launch(x, packed, scales, None, 8, 128, group, next(cyc)),
+                lambda: plain(x, packed, scales, None, 8, 128, group, li),
+                lambda: torch.matmul(x, dense), m, k, n, e, bytes_moved, 2 * m * n * k, group=group,
             ))
         del packed, scales, dense
         torch.cuda.empty_cache()
+    return detail
+
+
+def kernel_phase_k1b(gen) -> dict:
+    """K1b (int8 planar, uint8b128, group 128, bf16 scales) at the int8
+    engine's shapes, as ``_k1b_cases`` runs them; plus 4-bit with per-group
+    and with scalar zero-points. Tolerance 1e-2 x max |ref|."""
+    from conch_tpu_torch.kernels.quantization.gemm import (
+        mixed_gemm_planar_launcher as launch,
+        mixed_gemm_planar_plain as plain,
+    )
+
+    detail = _k1b_cases(gen, GROUP, (*FUSED_LAYER_SHAPES, LM_HEAD))
+    err = max(d["max_abs_err"] for d in detail)
     # Options the served path does not use: 4-bit planar with per-group and
     # with scalar zero-points (which replace the bias, as in the TPU kernel).
     k, n = 1024, 512
@@ -1182,7 +1197,9 @@ def kernel_phase_k1c(gen) -> dict:
 # N: K spans four split units, so the plan splits K at every M.
 OPTION_MS = (8, 40, 130)
 ROWS_OPTION_GROUPS = (12, 64, 100, 128, 256)  # 12 and 100: the group-table template (up to 17 scale rows a slice)
-PLANAR_OPTION_GROUPS = {2: (256,), 4: (128, 256), 8: (64, 128, 256)}  # group % (16 * 32 / bits) == 0
+# group % (8 * 32 / bits) == 0: 16-word-row slices, whole groups of 128, and 8-word-row slices (int8 at 32,
+# 4-bit at 64, 2-bit at 128, int8 at 96: three slices a group).
+PLANAR_OPTION_GROUPS = {2: (128, 256), 4: (64, 128, 256), 8: (32, 64, 96, 128, 256)}
 OPTION_N = 160  # a partial 128-column tile
 
 
@@ -1199,8 +1216,8 @@ def check_quant_gemm_options(gen) -> None:
     """K1b and K1c at every option they take, against their plain versions
     at 1e-2 x max |ref|: 2-, 4- and 8-bit codes (K1c also the NF4 codebook)
     at groups ``ROWS_OPTION_GROUPS`` (K1c, K not a multiple of 64) and
-    ``PLANAR_OPTION_GROUPS`` (K1b: the 16-word-row slices with their 4-d x
-    box, 2-bit codes, and whole groups of 128), bf16 and f32 scales,
+    ``PLANAR_OPTION_GROUPS`` (K1b: the 16- and 8-word-row slices with their
+    4-d x box, 2-bit codes, and whole groups of 128), bf16 and f32 scales,
     zero-point modes 0, 1 and 2, M in ``OPTION_MS``, x contiguous, with
     padded rows, or realigned, f32 and bf16 outputs; layer 1 of a 2-layer
     stack. Errors are gathered on the card and read once."""
@@ -1263,27 +1280,28 @@ def check_quant_gemm_options(gen) -> None:
         raise AssertionError(f"{len(bad)} of {len(names)} K1b/K1c option cases exceed 1e-2 x max |ref|")
 
 
-# K1's option sweep: both groups, any bias, stacked and single weights, x three ways, bf16 and f32 outputs, M
-# from 1 past 512 (32, 64 and 128 rows a block, K split at small M).
+# K1's option sweep: the three groups, any bias, stacked and single weights, x three ways, bf16 and f32 outputs,
+# M from 1 past 512 (32, 64 and 128 rows a block, K split at small M). K by group: 4 groups, or at group 32 13
+# (six slices of two groups and a last slice half past K).
 MAGIC_OPTION_MS = (1, 8, 31, 40, 64, 130, 512, 600)
+MAGIC_OPTION_K = {128: 512, 64: 256, 32: 416}
 MAGIC_OPTION_BIASES = (8, 0, 15)
 
 
 def check_magic_gemm_options(gen) -> None:
     """K1 at every option it takes, against its plain version at 1e-2 x max
-    |ref|: groups 64 and 128, biases
+    |ref|: groups 128, 64 and 32, biases
     ``MAGIC_OPTION_BIASES``, layer 1 of a 2-layer stack and an unstacked
     weight, M in ``MAGIC_OPTION_MS``, x contiguous, with padded rows, or
-    realigned, bf16 and f32 outputs; K = 4 groups (split at small M), N =
-    ``OPTION_N``. Every case runs twice and must give the same bits. Errors
+    realigned, bf16 and f32 outputs; K ``MAGIC_OPTION_K`` (split at small
+    M), N = ``OPTION_N``. Every case runs twice and must give the same bits. Errors
     are gathered on the card and read once."""
     from conch_tpu_torch.kernels.common import sm_count
     from conch_tpu_torch.kernels.quantization.gemm import _magic_gemm_cuda, mixed_gemm_magic_plain, quant_gemm_plan
 
     n = OPTION_N
     names, errs, refs, same = [], [], [], []
-    for group in (128, 64):
-        k = 4 * group
+    for group, k in MAGIC_OPTION_K.items():
         packed = torch.randint(-(2**31), 2**31 - 1, (2, k // 8, n), generator=gen, device="cuda", dtype=torch.int32)
         scales = (torch.rand((2, k // group, n), generator=gen, device="cuda") * 4e-3 + 1e-4).to(torch.bfloat16)
         for m in MAGIC_OPTION_MS:
@@ -4639,6 +4657,52 @@ def kernel_phase_k1_qwen2(gen) -> dict:
     return row
 
 
+# DeepSeek-V2-Lite's GEMMs at group 32 (K, N), with their count in one MoE
+# layer (26 of its 27): int4 (K1) keeps wq and w_kv_a apart (w_kv_a's N 576
+# padded at pack time to 640) and fuses the shared experts' gate|up; int8
+# (K1b) fuses [wq|w_kv_a] and the shared gate|up. The dense layer's
+# gate|up (int4: each N 10944 padded to 12288, unfused) and w_down (K
+# 10944) are timed beside them, in ``detail``.
+DS_GROUP = 32
+DS_INT4_LAYER_SHAPES = {(2048, 3072): 1, (2048, 640): 1, (2048, 2048): 1, (2048, 5632): 1, (2816, 2048): 1}
+DS_INT4_DENSE_SHAPES = ((2048, 12288), (10944, 2048))
+DS_INT8_LAYER_SHAPES = {(2048, 3648): 1, (2048, 2048): 1, (2048, 5632): 1, (2816, 2048): 1}
+DS_INT8_DENSE_SHAPES = ((2048, 21888), (10944, 2048))
+# Gemma-2-2B's int4 GEMMs (group 128), one of each a layer: fused wqkv, wo, fused gate|up, w_down.
+GEMMA_K1_SHAPES = {(2304, 4096): 1, (2048, 2304): 1, (2304, 18432): 1, (9216, 2304): 1}
+
+
+def kernel_phase_k1_g32(gen) -> dict:
+    """K1 at group 32 (two groups a slice) at DeepSeek-V2-Lite's int4
+    shapes (``DS_INT4_LAYER_SHAPES``, the dense layer's beside them), as
+    ``_k1_cases`` runs them; the row is one MoE layer's five launches
+    summed at M 8, ``by_m`` at each M."""
+    detail = _k1_cases(gen, DS_GROUP, (*DS_INT4_LAYER_SHAPES, *DS_INT4_DENSE_SHAPES))
+    return _layer_row("mixed_gemm_magic_g32", "conch_tpu_torch/csrc/mixed_gemm_magic.cu",
+                      "conch_tpu/kernels/quantization/gemm.py:658", max(d["max_abs_err"] for d in detail), detail,
+                      DS_INT4_LAYER_SHAPES)
+
+
+def kernel_phase_k1_gemma(gen) -> dict:
+    """K1 at Gemma-2-2B's int4 shapes (``GEMMA_K1_SHAPES``, group 128), as
+    ``_k1_cases`` runs them; the row is one layer's four launches at M 8."""
+    detail = _k1_cases(gen, 128, tuple(GEMMA_K1_SHAPES))
+    return _layer_row("mixed_gemm_magic_gemma", "conch_tpu_torch/csrc/mixed_gemm_magic.cu",
+                      "conch_tpu/kernels/quantization/gemm.py:658", max(d["max_abs_err"] for d in detail), detail,
+                      GEMMA_K1_SHAPES)
+
+
+def kernel_phase_k1b_g32(gen) -> dict:
+    """K1b at 8 word rows a slice: int8 planar codes at DeepSeek-V2-Lite's
+    group 32 and its int8 engine's shapes (``DS_INT8_LAYER_SHAPES``, the
+    dense layer's beside them), as ``_k1b_cases`` runs them. The row is one
+    MoE layer's four launches at M 8, ``by_m`` at each M."""
+    detail = _k1b_cases(gen, DS_GROUP, (*DS_INT8_LAYER_SHAPES, *DS_INT8_DENSE_SHAPES))
+    return _layer_row("mixed_gemm_planar_g32", "conch_tpu_torch/csrc/mixed_gemm_planar.cu",
+                      "conch_tpu/kernels/quantization/gemm.py:582", max(d["max_abs_err"] for d in detail), detail,
+                      DS_INT8_LAYER_SHAPES)
+
+
 def _scaled_mm_library(a8: torch.Tensor, b8s: list, sa: torch.Tensor, sb: torch.Tensor):
     """``torch._scaled_mm`` on K8's e4m3 inputs with row and column scales
     (the same function, bf16 out), over the weights ``b8s`` in turn (so not
@@ -4777,7 +4841,7 @@ def kernel_phases() -> list[dict]:
         kernel_phase_k12q(gen), kernel_phase_k11(gen, rng), kernel_phase_k9(gen), *kernel_phases_vision(gen, rng),
         kernel_phase_k4b(gen), kernel_phase_k12d(gen), kernel_phase_k14(gen), *kernel_phase_ring(gen, rng),
         *kernel_phase_group7(gen, rng), kernel_phase_k1_qwen2(gen), kernel_phase_k8_e4m3(gen),
-        kernel_phase_k7_f32(gen, rng),
+        kernel_phase_k7_f32(gen, rng), kernel_phase_k1_g32(gen), kernel_phase_k1b_g32(gen), kernel_phase_k1_gemma(gen),
     ]
     # The Gemma-2-2B shapes of K2, K3, K5 and K7 go into their rows' detail
     # beside the Llama-3-8B numbers the rows keep.
@@ -4960,9 +5024,12 @@ LLAMA_PREFILL_CASES = (
     ("bf16", torch.float32, None, "qwen2_7b"), ("int4", torch.bfloat16, None, "qwen2_7b"),
     ("bf16", torch.float32, None, "mistral_7b"), ("int4", torch.bfloat16, None, "mistral_7b"),
 )
+# Gemma's cases: (activation dtype, KV cache dtype[, weights; bf16 by default]).
 GEMMA_PREFILL_CASES = (
     (torch.float32, None), (torch.bfloat16, None), (torch.bfloat16, torch.int8),
     (torch.bfloat16, torch.float8_e4m3fn),
+    (torch.bfloat16, None, "int4"), (torch.bfloat16, None, "int8"), (torch.bfloat16, None, "nf4"),
+    (torch.bfloat16, None, "w8a8"),
 )
 
 
@@ -4976,8 +5043,9 @@ def check_prefill_logits(llama_cases=LLAMA_PREFILL_CASES, gemma_cases=GEMMA_PREF
     Qwen2-7B and Mistral-7B (bf16 weights in f32, int4 in bf16; Mistral's
     window cut to 16; token ids taken modulo each vocabulary)
     and Gemma-2-2B (bf16 weights in f32 and bf16, and over int8 and e4m3
-    caches in bf16, random norm weights, the window cut to 16 so that layer
-    0's mask bites in these 24- and 13-token prompts);
+    caches in bf16; int4 (K1), int8 (K1b), nf4 (K1c) and w8a8 (K8) weights
+    in bf16 at group 128; random norm weights, the window cut to 16 so that
+    layer 0's mask bites in these 24- and 13-token prompts);
     PREFILL_TOLERANCES."""
     import dataclasses
 
@@ -5018,11 +5086,11 @@ def check_prefill_logits(llama_cases=LLAMA_PREFILL_CASES, gemma_cases=GEMMA_PREF
             fuse_llama_params(init_llama_params(SEED, cfg, quant_mode=mode, group_size=int(group or 128),
                                                 device="cuda")))
 
-    def gemma(dtype, cache):
+    def gemma(dtype, cache, quant_mode="bf16"):
         cfg = dataclasses.replace(GemmaConfig.gemma2_2b(), num_layers=2, sliding_window=16, dtype=dtype)
         gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-        return f"Gemma-2-2B, bf16 weights{cache_tag(cache)}", cfg, cache, gemma_prefill, lambda: fuse_llama_params(
-            random_norm_weights(init_gemma_params(SEED, cfg, device="cuda"), gen))
+        return f"Gemma-2-2B, {quant_mode} weights{cache_tag(cache)}", cfg, cache, gemma_prefill, lambda: (
+            fuse_llama_params(random_norm_weights(init_gemma_params(SEED, cfg, quant_mode, device="cuda"), gen)))
 
     cases = [llama(*case) for case in llama_cases] + [gemma(*case) for case in gemma_cases]
     for label, cfg, cache, prefill, make_params in cases:
@@ -5063,9 +5131,12 @@ def check_prefill_logits(llama_cases=LLAMA_PREFILL_CASES, gemma_cases=GEMMA_PREF
 ROUTING_NEAR_TIE = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
 
 
+# (activation dtype, latent cache dtype[, weights; bf16 by default]): int4 and int8 at group 32 (K1, K1b),
+# nf4 (K1c; w_down's K 10944 split) and w8a8 (K8; w_down ends half a 128-k slice past 85 whole ones).
 DEEPSEEK_PREFILL_CASES = (
     (torch.float32, None), (torch.bfloat16, None), (torch.bfloat16, torch.int8),
-    (torch.bfloat16, torch.float8_e4m3fn),
+    (torch.bfloat16, torch.float8_e4m3fn), (torch.bfloat16, None, "int4"), (torch.bfloat16, None, "int8"),
+    (torch.bfloat16, None, "nf4"), (torch.bfloat16, None, "w8a8"),
 )
 
 
@@ -5073,8 +5144,10 @@ def check_deepseek_logits(cases=DEEPSEEK_PREFILL_CASES) -> None:
     """First-token logits of a 2-layer, full-width DeepSeek-V2-Lite prefill
     (layer 0 dense, layer 1 MoE; bf16 weights, random norm weights) on the
     card (K4, K6, K11) against the same prefill on the CPU (plain
-    versions), in f32 and bf16, and in bf16 over int8 and e4m3 latent
-    caches, at PREFILL_TOLERANCES; and the MoE layer's routing of every
+    versions), in f32 and bf16, in bf16 over int8 and e4m3 latent caches,
+    and in bf16 with int4 (K1) and int8 (K1b) projections at group 32, nf4
+    (K1c) and w8a8 (K8) projections, at PREFILL_TOLERANCES (w8a8 at
+    W8A8_PREFILL_TOLERANCE); and the MoE layer's routing of every
     real token compared expert set by expert set, a divergence accepted
     only at a near tie (ROUTING_NEAR_TIE)."""
     import dataclasses
@@ -5107,10 +5180,11 @@ def check_deepseek_logits(cases=DEEPSEEK_PREFILL_CASES) -> None:
 
     ds.deepseek_route = recording_route
     try:
-        for dtype, cache in cases:
+        for dtype, cache, *weights in cases:
+            quant_mode = weights[0] if weights else "bf16"
             tag = f"{dtype}" + ("" if cache is None else f", {str(cache).removeprefix('torch.')} latent cache")
             cfg = dataclasses.replace(ds.DeepseekV2Config.v2_lite(), num_layers=2, dtype=dtype)
-            params = ds.fuse_deepseek_params(ds.init_deepseek_params(SEED, cfg, device="cuda"))
+            params = ds.fuse_deepseek_params(ds.init_deepseek_params(SEED, cfg, quant_mode, device="cuda"))
             gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
             norms = [params["final_norm"]] + [
                 w for stack in ("layers_dense", "layers_moe") for n, w in params[stack].items() if n.endswith("_norm")
@@ -5140,12 +5214,12 @@ def check_deepseek_logits(cases=DEEPSEEK_PREFILL_CASES) -> None:
             same = (card_experts.sort(dim=-1).values == cpu_experts.sort(dim=-1).values).all(dim=-1)
             ranked = cpu_probs.sort(dim=-1, descending=True).values
             gaps = (ranked[:, k - 1] - ranked[:, k])[~same].tolist()
-            print(f"2-layer DeepSeek-V2-Lite prefill, {tag}: MoE routing card vs CPU: {int(same.sum())} of "
+            print(f"2-layer DeepSeek-V2-Lite prefill, {quant_mode} weights, {tag}: MoE routing card vs CPU: {int(same.sum())} of "
                   f"{total} tokens route to the same {k} experts; k-th/(k+1)-th probability gaps at the "
                   f"divergences {gaps} (near tie <= {ROUTING_NEAR_TIE[dtype]:.0e})", flush=True)
             if any(g > ROUTING_NEAR_TIE[dtype] for g in gaps):
                 raise AssertionError(f"DeepSeek routing ({tag}) diverges from the CPU away from a near tie")
-            tol = PREFILL_TOLERANCES[dtype]
+            tol = W8A8_PREFILL_TOLERANCE if quant_mode == "w8a8" else PREFILL_TOLERANCES[dtype]
             err = (logits - ref).abs().max().item()
             scale = ref.abs().max().item()
             if dtype == torch.float32:
@@ -5154,10 +5228,10 @@ def check_deepseek_logits(cases=DEEPSEEK_PREFILL_CASES) -> None:
             else:
                 ok = err <= tol * scale
                 rule = f"{tol:.0e} * max|ref| = {tol * scale:.3e}"
-            print(f"2-layer prefill logits, DeepSeek-V2-Lite, bf16 weights, {tag}, card vs plain path on the CPU: "
+            print(f"2-layer prefill logits, DeepSeek-V2-Lite, {quant_mode} weights, {tag}, card vs plain path on the CPU: "
                   f"max_abs_err {err:.3e}, max|ref| {scale:.3f}, tolerance {rule}", flush=True)
             if not ok:
-                raise AssertionError(f"2-layer DeepSeek prefill logits ({tag}) disagree with the plain path")
+                raise AssertionError(f"2-layer DeepSeek prefill logits ({quant_mode}, {tag}) disagree with the plain path")
     finally:
         ds.deepseek_route = route
 
@@ -5249,6 +5323,30 @@ DEEPSEEK_PER_STEP = {
     "rotary_embedding": 0,
 }
 DEEPSEEK_KERNELS = ("mla_attention", "rms_norm", "silu_and_mul")
+# DeepSeek-V2-Lite's quantized engines (int4 and int8 at group 32): K11 and
+# K4 as in bf16; the GEMMs a step, lm_head included. int4 keeps wq and
+# w_kv_a apart (w_kv_a's N padded) and the dense layer's w_gate and w_up
+# apart (N 10944 padded to 12288), whose SwiGLU is then plain PyTorch (as
+# in the JAX package), and fuses the shared gate|up: K1 3 a layer plus 3
+# (dense) or 2 (MoE), plus 1, 137; K6 26. int8 and w8a8 fuse all: 4 a layer
+# plus 1, 109; K6 27. nf4 fuses nothing: 6 a layer plus 1, 163; no K6 (every
+# SwiGLU unfused); its init runs K12q once a projection and layer and for
+# lm_head, 163 times.
+_DEEPSEEK_REST = {k: v for k, v in DEEPSEEK_PER_STEP.items() if k != "silu_and_mul"}
+DEEPSEEK_QUANT_PER_STEP = {
+    "int4": {"mixed_gemm_magic": 137, "silu_and_mul": 26, **_DEEPSEEK_REST},
+    "int8": {"mixed_gemm_planar": 109, "silu_and_mul": 27, **_DEEPSEEK_REST},
+    "nf4": {"mixed_gemm_rows": 163, "silu_and_mul": 0, **_DEEPSEEK_REST},
+    "w8a8": {"scaled_gemm": 109, "silu_and_mul": 27, **_DEEPSEEK_REST},
+}
+# Gemma-2-2B's quantized engines (group 128), 26 layers; the logits stay the
+# tied bf16 embedding (cuBLAS). int4, int8 and w8a8 fuse wqkv and gate|up: 4
+# GEMMs a layer, 104; nf4 fuses nothing: 7 a layer, 182 (K10b through its
+# parts launcher), and its init runs K12q 182 times.
+QUANT_GEMM = {"int4": "mixed_gemm_magic", "int8": "mixed_gemm_planar", "nf4": "mixed_gemm_rows",
+              "w8a8": "scaled_gemm"}
+GEMMA_QUANT_PER_STEP = {mode: {gemm: 182 if mode == "nf4" else 104, **GEMMA_PER_STEP} for mode, gemm in QUANT_GEMM.items()}
+QUANT_MAX_TOKENS = 16  # the new quantized DeepSeek and Gemma runs: 16 tokens a request
 
 
 def count_steps(engine) -> list[int]:
@@ -5526,7 +5624,8 @@ def check_top_p_filter(card: str) -> None:
 # The mainloop's templates in a mangled kernel name: layout, bits (K1: group) and flag (K1, K1b, K1c; K8's
 # layouts have none), rows a block.
 QGEMM_TEMPLATE = re.compile(
-    r"quant_gemm_kernel.*?(RowsLayout|PlanarLayout|MagicLayout|ScaledLayout|E4m3Layout)(?:ILi(\d+)ELb(\d)EE)?ELi(\d+)E")
+    r"quant_gemm_kernel.*?(RowsLayout|PlanarLayout|MagicLayout|ScaledLayout|E4m3Layout)(?:ILi(\d+)EL[ib](\d+)EE)?"
+    r"(?:ILi(\d+)EE)?ELi(\d+)E")
 
 
 def build() -> None:
@@ -5548,8 +5647,9 @@ def build() -> None:
             if match is None:
                 template = None
             else:
-                layout, bits, flag, bn = match.groups()
-                template = f"{layout}{'' if bits is None else f'<{bits}, {flag}>'} BN {bn}"
+                layout, bits, flag, group, bn = match.groups()
+                args = f"<{bits}, {flag}>" if bits is not None else f"<{group}>" if group is not None else ""
+                template = f"{layout}{args} BN {bn}"
         elif template and "spill stores" in line:
             spills = line.strip()
         elif template and "Used" in line and "registers" in line:
@@ -5573,13 +5673,16 @@ PRIMARY_PATH = {
     "ring_all_gather": "llama3_8b_tp8_collectives", "paged_attention_ring": "mistral_7b_int4_rolling",
     "varlen_attention_ring": "mistral_7b_int4_rolling", "paged_attention_g7": "qwen2_7b_int4",
     "varlen_attention_g7": "qwen2_7b_int4", "mixed_gemm_magic_qwen2": "qwen2_7b_int4",
+    "mixed_gemm_magic_g32": "deepseek_v2_lite_int4", "mixed_gemm_planar_g32": "deepseek_v2_lite_int8",
+    "mixed_gemm_magic_gemma": "gemma2_2b_int4",
 }
 # Rows of a kernel's branch or another model's shapes: the count their
 # launches come from (K3's and K7's ring rows: their launches over a ring).
 ROW_COUNTERS = {
     "paged_attention_ring": "paged_attention_ring", "varlen_attention_ring": "varlen_attention_ring",
     "paged_attention_g7": "paged_attention", "varlen_attention_g7": "varlen_attention",
-    "mixed_gemm_magic_qwen2": "mixed_gemm_magic",
+    "mixed_gemm_magic_qwen2": "mixed_gemm_magic", "mixed_gemm_magic_g32": "mixed_gemm_magic",
+    "mixed_gemm_planar_g32": "mixed_gemm_planar", "mixed_gemm_magic_gemma": "mixed_gemm_magic",
 }
 # K9's callers are its public ops: its row's launches are those of its
 # kernel phase, and it launches on no served path. Neither do K8 over e4m3
@@ -5743,6 +5846,28 @@ def main() -> int:
         card, "qwen2-7b-int4", LlamaConfig.qwen2_7b(), llama("int4"), {}, QWEN2_ENGINE, qwen2_prompts, LLAMA_KERNELS,
         QWEN2_PER_STEP,
     )
+    # DeepSeek-V2-Lite (int4 and int8 at group 32: K1 two groups a slice, K1b
+    # 8 word rows a slice; nf4: K1c; w8a8: K8) and Gemma-2-2B (group 128) in
+    # each quantized mode, at full width, one model at a time, 8 requests of
+    # QUANT_MAX_TOKENS tokens; each engine is its bf16 twin's.
+    for mode, gemm in QUANT_GEMM.items():
+        nf4_init = {"quantize4": 163} if mode == "nf4" else None
+        launches[f"deepseek_v2_lite_{mode}"] = serve(
+            card, f"deepseek-v2-lite-{mode}", DeepseekV2Config.v2_lite(),
+            lambda cfg, mode=mode: init_deepseek_params(SEED, cfg, quant_mode=mode, device="cuda"), deepseek_fns,
+            deepseek_engine, deepseek_prompts,
+            ("mla_attention", "rms_norm", gemm, *(("silu_and_mul",) if mode != "nf4" else ())),
+            DEEPSEEK_QUANT_PER_STEP[mode], nf4_init, max_tokens=QUANT_MAX_TOKENS,
+        )
+    for mode, gemm in QUANT_GEMM.items():
+        nf4_init = {"quantize4": 182} if mode == "nf4" else None
+        launches[f"gemma2_2b_{mode}"] = serve(
+            card, f"gemma2-2b-{mode}", GemmaConfig.gemma2_2b(),
+            lambda cfg, mode=mode: init_gemma_params(SEED, cfg, quant_mode=mode, device="cuda"),
+            {"prefill_fn": gemma_prefill, "decode_fn": gemma_decode_step},
+            {"num_pages": 4096, "max_batch_size": 16, "max_pages_per_seq": 320}, gemma_prompts,
+            (*GEMMA_KERNELS, gemm), GEMMA_QUANT_PER_STEP[mode], nf4_init, max_tokens=QUANT_MAX_TOKENS,
+        )
     launches["vision_bevfusion"] = vision_launches
     launches["llama3_8b_qlora"] = qlora_launches
     launches["llama3_8b_residual_stream"] = stream_launches

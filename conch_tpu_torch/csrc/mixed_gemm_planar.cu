@@ -25,9 +25,14 @@
 // 16j .. 16j+15. Otherwise a slice is 16 word rows of one group (group %
 // (16 * epp) == 0), 16 * epp logical k, whose field f is the 16 x values at
 // f * (group / epp) + 16 * sub: k16 step f, staged by one 4-d TMA box as
-// wgmma's core matrices without swizzle. A thread loads its words once a
-// slice (word rows 2t, 2t+1, 2t+8, 2t+9 of each 16-row block, for its two
-// neighbouring columns: 8-byte loads) and takes the step's field of each;
+// wgmma's core matrices without swizzle; or, where a group's word rows are
+// an odd multiple of 8 (int8 at group 32, 4-bit at 64, 2-bit at 128: group
+// % (8 * epp) == 0), 8 word rows, 8 * epp k, whose fields 2j and 2j + 1
+// (8 x values each, at f * (group / epp) + 8 * sub) are k16 step j, by the
+// same 4-d box one 8-value block deep. A thread loads its words once a
+// slice (word rows 2t, 2t+1, 2t+8, 2t+9 of each 16-row block, or 2t and
+// 2t+1 of the 8 rows, for its two neighbouring columns: 8-byte loads) and
+// takes the step's field (fields) of each;
 // a code becomes bf16 through the float 2^23 + c (one PRMT or
 // shift-and-mask, one FADD) and one cvt.rn.bf16x2.f32 a pair, exact. Each
 // group's products go to their own accumulators (the group's first wgmma
@@ -49,19 +54,22 @@ using qgemm::kThreads;
 using qgemm::Params;
 using qgemm::Stage;
 
-// WHOLE: a slice is a whole group of 128 (4- and 8-bit codes; the served
-// int8 format), whose 128 x values are contiguous: two 128-byte swizzled
-// boxes, as for GPTQ rows. Otherwise a slice is 16 word rows of one group.
-template <int BITS, bool WHOLE>
+// SUB 0 (WHOLE): a slice is a whole group of 128 (4- and 8-bit codes; the
+// served int8 format), whose 128 x values are contiguous: two 128-byte
+// swizzled boxes, as for GPTQ rows. Otherwise a slice is SUB (16 or 8) word
+// rows of one group.
+template <int BITS, int SUB>
 struct PlanarLayout {
+  static_assert(SUB == 0 || SUB == 16 || SUB == 8, "a slice is a whole group of 128, or 16 or 8 word rows of one");
+  static constexpr bool WHOLE = SUB == 0;
   using Acc = float;  // wgmma sums bf16 x in f32
   static constexpr int XB = 2;  // bytes of an x value
   static constexpr int EPP = 32 / BITS;
-  static constexpr int WR = WHOLE ? 128 / EPP : 16;  // word rows of a slice
-  static constexpr int KS = WR * EPP;                // k of a slice
-  static constexpr int NB = WR / 16;                 // 16-word-row blocks of a slice
-  static constexpr int STEPS = KS / 16;              // k16 step j: bit field j / NB, block j % NB
-  static constexpr int SR = 1;                       // a slice lies in one group
+  static constexpr int WR = WHOLE ? 128 / EPP : SUB;  // word rows of a slice
+  static constexpr int KS = WR * EPP;                 // k of a slice
+  static constexpr int NB = WR / 16;                  // 16-word-row blocks of a slice (0 at SUB 8)
+  static constexpr int STEPS = KS / 16;               // k16 step j: bit field j / NB, block j % NB (SUB 8: 2j, 2j + 1)
+  static constexpr int SR = 1;                        // a slice lies in one group
   static constexpr bool kGroupTable = false;
   static constexpr uint32_t MASK = (1u << BITS) - 1u;
   static_assert(!WHOLE || BITS >= 4, "a whole group of 128 holds 16-word-row blocks only for 4- and 8-bit codes");
@@ -89,18 +97,19 @@ struct PlanarLayout {
   __device__ int word_row(int s) const { return WR * s; }
   __device__ int scale_row(int s) const { return s / spg; }
   // WHOLE: k16 step j is x values 16j .. 16j+15 of the group. Otherwise
-  // field f's 16 x values, f * (group / epp) + 16 * sub + 0..15 of the
-  // group, are k16 step f: one 4-d box of x seen as (8 values, rows,
-  // 8-value blocks, runs of group / epp values) lays the slice out as
-  // wgmma's K-major core matrices without swizzle, k-block 2f + h (BN x 8
-  // values) BN * 16 bytes after k-block 2f + h - 1.
+  // field f's SUB x values, f * (group / epp) + SUB * sub + 0..SUB-1 of the
+  // group, are k-blocks (SUB / 8) f .. (BN x 8 values each): one 4-d box of
+  // x seen as (8 values, rows, 8-value blocks, runs of group / epp values)
+  // lays the slice out as wgmma's K-major core matrices without swizzle,
+  // each k-block BN * 16 bytes after the one before; k16 step j takes
+  // k-blocks 2j and 2j + 1 (field j at SUB 16; fields 2j and 2j + 1 at SUB 8).
   template <int BN>
   __device__ void load_x(uint32_t dst, uint32_t bar, int s, int m0) const {
     if constexpr (WHOLE) {
       qgemm::tma_2d(dst, p.tm_x, bar, KS * s, m0);
       qgemm::tma_2d(dst + BN * 128, p.tm_x, bar, KS * s + 64, m0);
     } else {
-      qgemm::tma_4d(dst, p.tm_x, bar, 0, m0, 2 * (s % spg), (s / spg) * EPP);
+      qgemm::tma_4d(dst, p.tm_x, bar, 0, m0, (SUB / 8) * (s % spg), (s / spg) * EPP);
     }
   }
   // Byte offset of x row r's 16-byte chunk ch (values 8ch .. 8ch+7 of the slice).
@@ -135,12 +144,14 @@ struct PlanarLayout {
     } else {
       // This slice's share of each x row's sum over the group.
       constexpr int TPR = kThreads / BN;  // threads a row
+      constexpr int CHUNKS = KS / 8;      // 16-byte chunks of a row (fewer than TPR for int8 at SUB 8)
       const int r = threadIdx.x / TPR;
       float sum = 0.0f;
 #pragma unroll
-      for (int i = 0; i < KS / 8 / TPR; ++i) {
+      for (int i = 0; i < (CHUNKS + TPR - 1) / TPR; ++i) {
         if (r >= p.m - static_cast<int>(blockIdx.y) * BN) break;  // rows past M are zero
         const int ch = threadIdx.x % TPR + TPR * i;
+        if (CHUNKS % TPR != 0 && ch >= CHUNKS) break;
         const uint4 v = *reinterpret_cast<const uint4*>(stage.xp + x_chunk<BN>(r, ch));
         sum += ((bf16_lo(v.x) + bf16_hi(v.x)) + (bf16_lo(v.y) + bf16_hi(v.y))) +
                ((bf16_lo(v.z) + bf16_hi(v.z)) + (bf16_lo(v.w) + bf16_hi(v.w)));
@@ -153,29 +164,45 @@ struct PlanarLayout {
       if (fr.last && threadIdx.x % TPR == 0) row_sums(extra, (s / spg) & 1)[r] = st.xs_run;
     }
 
-    // Word rows 16b + 2t, +1, +8, +9 of the thread's columns c, c + 1.
     const int t = threadIdx.x & 3;
     const int c = qgemm::pair_column();
-    uint2 w[NB][4];
-#pragma unroll
-    for (int b = 0; b < NB; ++b)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        w[b][q] = *reinterpret_cast<const uint2*>(stage.w + (16 * b + 2 * t + (q & 1) + 8 * (q >> 1)) * kCols + c);
-      }
 #pragma unroll
     for (int ci = 0; ci < 2; ++ci) {
       fr.s[ci] = qgemm::scale_at(p, stage.s, 0, c + ci);
       fr.z[ci] = p.zp_mode == 2 ? stage.z[c + ci] : z1;
     }
+    if constexpr (SUB == 8) {
+      // Word rows 2t, 2t+1 of the thread's columns c, c + 1: k slots (2t,
+      // 2t+1) of step j in field 2j, slots (2t+8, 2t+9) in field 2j + 1.
+      uint2 v[2];
 #pragma unroll
-    for (int j = 0; j < STEPS; ++j) {
-      const int f = j / NB;
-      const uint2* v = w[j % NB];
-      fr.a[j][0] = pack_bf16x2(code(v[0].x, f), code(v[1].x, f));  // column c, k 2t, 2t+1
-      fr.a[j][1] = pack_bf16x2(code(v[0].y, f), code(v[1].y, f));  // column c + 1
-      fr.a[j][2] = pack_bf16x2(code(v[2].x, f), code(v[3].x, f));  // column c, k 2t+8, 2t+9
-      fr.a[j][3] = pack_bf16x2(code(v[2].y, f), code(v[3].y, f));
+      for (int q = 0; q < 2; ++q) v[q] = *reinterpret_cast<const uint2*>(stage.w + (2 * t + q) * kCols + c);
+#pragma unroll
+      for (int j = 0; j < STEPS; ++j) {
+        const int f = 2 * j;
+        fr.a[j][0] = pack_bf16x2(code(v[0].x, f), code(v[1].x, f));  // column c, k 2t, 2t+1
+        fr.a[j][1] = pack_bf16x2(code(v[0].y, f), code(v[1].y, f));  // column c + 1
+        fr.a[j][2] = pack_bf16x2(code(v[0].x, f + 1), code(v[1].x, f + 1));  // column c, k 2t+8, 2t+9
+        fr.a[j][3] = pack_bf16x2(code(v[0].y, f + 1), code(v[1].y, f + 1));
+      }
+    } else {
+      // Word rows 16b + 2t, +1, +8, +9 of the thread's columns c, c + 1.
+      uint2 w[NB][4];
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          w[b][q] = *reinterpret_cast<const uint2*>(stage.w + (16 * b + 2 * t + (q & 1) + 8 * (q >> 1)) * kCols + c);
+        }
+#pragma unroll
+      for (int j = 0; j < STEPS; ++j) {
+        const int f = j / NB;
+        const uint2* v = w[j % NB];
+        fr.a[j][0] = pack_bf16x2(code(v[0].x, f), code(v[1].x, f));  // column c, k 2t, 2t+1
+        fr.a[j][1] = pack_bf16x2(code(v[0].y, f), code(v[1].y, f));  // column c + 1
+        fr.a[j][2] = pack_bf16x2(code(v[2].x, f), code(v[3].x, f));  // column c, k 2t+8, 2t+9
+        fr.a[j][3] = pack_bf16x2(code(v[2].y, f), code(v[3].y, f));
+      }
     }
   }
 
@@ -231,12 +258,13 @@ __global__ void __launch_bounds__(256) group_row_sums_kernel(const __nv_bfloat16
   if (lane == 0) xs[static_cast<int64_t>(g) * ldm + row] = sum;
 }
 
-// Checks the plan against PlanarLayout<BITS, WHOLE>, encodes the tensor
+// Checks the plan against PlanarLayout<BITS, SUB>, encodes the tensor
 // maps, runs the row-sum pre-pass when xs is given, and launches.
-template <int BITS, bool WHOLE>
+template <int BITS, int SUB>
 cudaError_t run(Params& p, const void* x, int64_t ldx, const void* packed, const void* scales, void* xs, int bn,
                 int ks, cudaStream_t stream) {
-  using L = PlanarLayout<BITS, WHOLE>;
+  using L = PlanarLayout<BITS, SUB>;
+  constexpr bool WHOLE = L::WHOLE;
   constexpr int kMaxBn = BITS == 8 ? 128 : 64;  // 2- and 4-bit codes: at most 64 rows a block
   if (!qgemm::plan_ok<L, kMaxBn>(p, bn, ks)) return cudaErrorInvalidValue;
   bool maps;
@@ -246,12 +274,12 @@ cudaError_t run(Params& p, const void* x, int64_t ldx, const void* packed, const
     const cuuint32_t xbox[2] = {64, static_cast<cuuint32_t>(bn)};
     maps = qgemm::encode(&p.tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, xdims, xstride, xbox,
                          CU_TENSOR_MAP_SWIZZLE_128B);
-  } else {  // x as (8 values, M rows, run / 8 blocks, K / run runs): boxes of 8 x bn x 2 x epp
+  } else {  // x as (8 values, M rows, run / 8 blocks, K / run runs): boxes of 8 x bn x SUB / 8 x epp
     const int run = p.group / L::EPP;  // x values of one bit field in a group
     const cuuint64_t xdims[4] = {8, static_cast<cuuint64_t>(p.m), static_cast<cuuint64_t>(run / 8),
                                  static_cast<cuuint64_t>(p.k / run)};
     const cuuint64_t xstride[3] = {static_cast<cuuint64_t>(ldx) * 2, 16, static_cast<cuuint64_t>(run) * 2};
-    const cuuint32_t xbox[4] = {8, static_cast<cuuint32_t>(bn), 2, L::EPP};
+    const cuuint32_t xbox[4] = {8, static_cast<cuuint32_t>(bn), SUB / 8, L::EPP};
     maps = qgemm::encode(&p.tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, x, xdims, xstride, xbox,
                          CU_TENSOR_MAP_SWIZZLE_NONE);
   }
@@ -282,10 +310,11 @@ cudaError_t run(Params& p, const void* x, int64_t ldx, const void* packed, const
 // (zp_mode 2), one f32 zero-point (1) or none (0: the bias), of ONE layer
 // (the wrapper offsets the stack's pointers); out (M, N) bf16 (out_dtype 1)
 // or f32 (0), contiguous. N must be a multiple of 32, group a multiple of
-// 16 * (32 / bits), and K a multiple of group. The plan (quant_gemm_plan):
+// 8 * (32 / bits), and K a multiple of group. The plan (quant_gemm_plan):
 // bn (32, 64 or, for 8-bit codes, 128 rows a block), ks (k of a slice: a
 // whole group of 128 for 4- and 8-bit codes at group 128, else 16 * (32 /
-// bits)), slices (K / ks), unit (slices a split unit: whole groups) and
+// bits) where that divides the group, else 8 * (32 / bits)), slices (K /
+// ks), unit (slices a split unit: whole groups) and
 // splits (1 .. the units); ws, with splits > 1, (splits, M, N) f32; xs, or
 // null, (K / group, M rounded up to 4) f32 for the x rows' group sums (then
 // computed once by group_row_sums_kernel, not by every column block).
@@ -296,7 +325,7 @@ extern "C" int conch_mixed_gemm_planar(const void* x, const void* packed, const 
   if (m == 0) return static_cast<int>(cudaSuccess);
   if ((bits != 2 && bits != 4 && bits != 8) || n % 32 != 0 || ldx % 8 != 0 ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0 || group <= 0 ||
-      group % (16 * (32 / bits)) != 0 || k % group != 0 || (out_dtype != conch::kFloat32 &&
+      group % (8 * (32 / bits)) != 0 || k % group != 0 || (out_dtype != conch::kFloat32 &&
       out_dtype != conch::kBFloat16) || zp_mode < 0 || zp_mode > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -316,14 +345,21 @@ extern "C" int conch_mixed_gemm_planar(const void* x, const void* packed, const 
   p.splits = splits;
   auto s = static_cast<cudaStream_t>(stream);
   using conch::run;
-  // A slice is the whole group (PlanarLayout's WHOLE) for 4- and 8-bit codes at group 128.
+  // A slice is the whole group (PlanarLayout's SUB 0) for 4- and 8-bit
+  // codes at group 128, else 16 word rows of a group where the group's word
+  // rows are a multiple of 16, else 8.
+  const bool sub16 = group % (16 * (32 / bits)) == 0;
   switch (bits) {
-    case 2: return static_cast<int>(run<2, false>(p, x, ldx, packed, scales, xs, bn, ks, s));
+    case 2:
+      return static_cast<int>(sub16 ? run<2, 16>(p, x, ldx, packed, scales, xs, bn, ks, s)
+                                    : run<2, 8>(p, x, ldx, packed, scales, xs, bn, ks, s));
     case 4:
-      return static_cast<int>(group == 128 ? run<4, true>(p, x, ldx, packed, scales, xs, bn, ks, s)
-                                           : run<4, false>(p, x, ldx, packed, scales, xs, bn, ks, s));
+      return static_cast<int>(group == 128 ? run<4, 0>(p, x, ldx, packed, scales, xs, bn, ks, s)
+                              : sub16      ? run<4, 16>(p, x, ldx, packed, scales, xs, bn, ks, s)
+                                           : run<4, 8>(p, x, ldx, packed, scales, xs, bn, ks, s));
     default:
-      return static_cast<int>(group == 128 ? run<8, true>(p, x, ldx, packed, scales, xs, bn, ks, s)
-                                           : run<8, false>(p, x, ldx, packed, scales, xs, bn, ks, s));
+      return static_cast<int>(group == 128 ? run<8, 0>(p, x, ldx, packed, scales, xs, bn, ks, s)
+                              : sub16      ? run<8, 16>(p, x, ldx, packed, scales, xs, bn, ks, s)
+                                           : run<8, 8>(p, x, ldx, packed, scales, xs, bn, ks, s));
   }
 }

@@ -6,11 +6,12 @@
 Each kernel replaces one kernel of ``conch_tpu/kernels/quantization/gemm.py``:
 
 - K1 ``mixed_gemm_magic`` (``csrc/mixed_gemm_magic.cu``) replaces
-  ``_mixed_gemm_magic_kernel``: int4 codes in the magic packing, groups 64
-  and 128 (any other group raises on the card), the group's scale applied
-  to the decoded weight before the product;
+  ``_mixed_gemm_magic_kernel``: int4 codes in the magic packing, groups 32,
+  64 and 128 (any other group raises on the card), the group's scale
+  applied to the decoded weight before the product;
 - K1b ``mixed_gemm_planar`` (``csrc/mixed_gemm_planar.cu``) replaces
-  ``_mixed_gemm_planar_kernel``: 2/4/8-bit codes in the planar packing, the
+  ``_mixed_gemm_planar_kernel``: 2/4/8-bit codes in the planar packing, a
+  group a multiple of 8 word rows (any other raises on the card), the
   group's scale and zero-point applied after the product;
 - K1c ``mixed_gemm_rows`` (``csrc/mixed_gemm_rows.cu``) replaces
   ``_mixed_gemm_kernel``: 2/4/8-bit GPTQ rows or 4-bit codebook codes
@@ -58,7 +59,7 @@ from conch_tpu_torch.kernels.common import (
 )
 from conch_tpu_torch.utils.quant_utils import get_pack_factor, unpack_rows, unpack_rows_magic, unpack_rows_planar
 
-KERNEL_GROUP_SIZES = (64, 128)  # the group sizes K1's CUDA kernel is written for (a slice is one group)
+KERNEL_GROUP_SIZES = (32, 64, 128)  # the group sizes K1's CUDA kernel is written for (a slice: one group, or two of 32)
 KERNEL_OUT_DTYPES = (torch.float32, torch.bfloat16)  # the final stores K1, K1b and K1c are written for
 
 
@@ -244,8 +245,18 @@ SCALED_K_SLICE = 128  # K of a K8 slice: one 128-byte swizzle atom of int8 or e4
 def planar_k_slice(bits: int, group_size: int) -> int:
     """K of a planar slice: a whole group of 128 for 4- and 8-bit codes (its
     x values are contiguous), else 16 word rows of one group, 16 * (32 /
-    bits) k."""
-    return 128 if group_size == 128 and bits >= 4 else 16 * get_pack_factor(bits)
+    bits) k, where the group's word rows are a multiple of 16, else 8 word
+    rows, 8 * (32 / bits) k (int8 at group 32, 4-bit at 64, 2-bit at 128:
+    the slice is the group)."""
+    epp = get_pack_factor(bits)
+    if group_size == 128 and bits >= 4:
+        return 128
+    return 16 * epp if group_size % (16 * epp) == 0 else 8 * epp
+
+
+def magic_k_slice(group_size: int) -> int:
+    """K of a magic slice: one group of 64 or 128, two groups of 32."""
+    return 64 if group_size < 64 else group_size
 
 
 @dataclasses.dataclass(frozen=True)
@@ -290,7 +301,9 @@ def quant_gemm_plan(layout: str, m: int, n: int, k: int, bits: int, group_size: 
     x float8_e4m3fn; ``bits`` 8, no groups) for an (M, K) x (K, N) product
     of ``bits``-bit codes in groups of ``group_size`` on a card of
     ``num_sms`` SMs. Raises on what the kernel refuses. A magic slice is one
-    group (64 or 128); a scaled or e4m3 slice is 128 k (the last one
+    group (64 or 128) or two groups of 32 (the last slice zero-filled past
+    K); a planar group must be a multiple of 8 word rows (``planar_k_slice``);
+    a scaled or e4m3 slice is 128 k (the last one
     zero-filled past K), a split unit one slice. e4m3 takes any K >= 1 and
     N a multiple of 16 (b's rows 16-byte aligned for its TMA copies; a's
     are realigned by ``_tma_rows``); its split sums are f32.
@@ -299,17 +312,19 @@ def quant_gemm_plan(layout: str, m: int, n: int, k: int, bits: int, group_size: 
     every row, so each code is decoded once), 64 up to 64, else 128 (64
     for 2- and 4-bit planar codes). K is split so that a decode shape has
     about two blocks an SM, never less than one, and a prefill shape at
-    most one wave; a split takes at least two slices. K1b at 128 rows a
-    block takes x's row sums over each group from a pre-pass, so that the
-    N / 128 column blocks do not each sum them again.
+    most one wave; a split takes at least two slices, unless a decode shape
+    would then leave SMs without a block (DeepSeek-V2-Lite's w_kv_a, N 640
+    at K 2048), where a split may take one unit. K1b at 128 rows a block
+    takes x's row sums over each group from a pre-pass, so that the N / 128
+    column blocks do not each sum them again.
     """
     epp = get_pack_factor(bits)
     if layout == "planar":
         name = "mixed_gemm_planar"
-        if k % group_size or group_size % (16 * epp) or n % 32:
+        if k % group_size or group_size % (8 * epp) or n % 32:
             msg = (
-                f"{name} kernel: needs K % group == 0, group % {16 * epp} == 0 and N % 32 == 0 "
-                f"(K={k}, N={n}, group={group_size})"
+                f"{name} kernel: needs K % group == 0, group % {8 * epp} == 0 (8 word rows of {bits}-bit codes) "
+                f"and N % 32 == 0 (K={k}, N={n}, group={group_size})"
             )
             raise ValueError(msg)
         ks = planar_k_slice(bits, group_size)
@@ -328,12 +343,12 @@ def quant_gemm_plan(layout: str, m: int, n: int, k: int, bits: int, group_size: 
         name = "mixed_gemm_magic"
         if bits != 4 or group_size not in KERNEL_GROUP_SIZES or k % group_size or n % 32:
             msg = (
-                f"{name} kernel: needs 4-bit codes, group_size 64 or 128, K a multiple of it and N of 32 "
+                f"{name} kernel: needs 4-bit codes, group_size 32, 64 or 128, K a multiple of it and N of 32 "
                 f"(bits={bits}, K={k}, N={n}, group={group_size})"
             )
             raise ValueError(msg)
-        ks = group_size
-        slices, unit = k // ks, 1
+        ks = magic_k_slice(group_size)
+        slices, unit = cdiv(k, ks), 1
     elif layout == "scaled":
         name = "scaled_gemm"
         if bits != 8 or k % 32 or n % 32:
@@ -367,7 +382,10 @@ def quant_gemm_plan(layout: str, m: int, n: int, k: int, bits: int, group_size: 
         splits = max(cdiv(num_sms, blocks), 2 * num_sms // blocks)
     else:  # at most one wave
         splits = num_sms // blocks
-    splits = max(1, min(splits, slices // (2 * unit), units))
+    cap = slices // (2 * unit)
+    if bn <= 64 and blocks * min(cap, units) < num_sms:
+        cap = units
+    splits = max(1, min(splits, cap, units))
     return QuantGemmPlan(bn=bn, k_slice=ks, slices=slices, unit=unit, splits=splits,
                          grid=(col_tiles, row_tiles, splits), row_sums=layout == "planar" and bn == QGEMM_ROW_TILES[-1],
                          int_sums=layout == "scaled")

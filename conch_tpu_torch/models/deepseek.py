@@ -23,11 +23,16 @@ donates the cache, the port loops over the layers in Python and updates
 the one latent cache ``(L, P, ps, packed)`` in place, indexed by absolute
 layer; the steps still return it. Params keep the JAX layout
 (``layers_dense`` / ``layers_moe`` stacked on a leading layer axis), so
-``deepseek_params_from_jax`` carries a JAX tree across unchanged. Weights
-are bf16 only: the other quantization modes, speculative verification,
-tensor parallelism and training are later work (ROADMAP Queue 1). int8
-and float8_e4m3fn latent caches store round(x / kv_cache_scale),
-saturating, and K11 folds the scale back in, as in the JAX package.
+``deepseek_params_from_jax`` carries a JAX tree across unchanged. The
+projections (``wq`` or ``wq_a``/``wq_b``, ``w_kv_a``, ``wo``, the dense
+MLP, the shared experts and ``lm_head``) are bf16 or quantized in the
+modes of ``QuantizedLinear`` (int4 and int8 at group 32 by default: K1 at
+two groups a slice, K1b at 8 word rows a slice; nf4: K1c; w8a8: K8); the
+absorbed ``w_uk``/``w_uv`` and the expert stacks stay dense, as in the JAX
+package. Speculative verification, tensor parallelism and training are
+later work (ROADMAP Queue 1). int8 and float8_e4m3fn latent caches store
+round(x / kv_cache_scale), saturating, and K11 folds the scale back in, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ import torch.nn.functional as F
 
 from conch_tpu_torch.kernels.common import QUANTIZED_CACHE_DTYPES, round_up
 from conch_tpu_torch.models.linear import QuantizedLinear, quantize_linear
-from conch_tpu_torch.models.llama import stack_layers, tree_from_jax
+from conch_tpu_torch.models.llama import QUANT_MODES, stack_layers, tree_from_jax
 from conch_tpu_torch.models.moe import make_dispatch
 from conch_tpu_torch.ops.activation import silu_and_mul
 from conch_tpu_torch.ops.attention import mla_attention
@@ -335,7 +340,8 @@ def _dense_mlp(layers: dict, li: int, x: torch.Tensor, config: DeepseekV2Config)
 
 
 def init_deepseek_params(
-    seed: int, config: DeepseekV2Config, quant_mode: str = "bf16", device: str | torch.device | None = None
+    seed: int, config: DeepseekV2Config, quant_mode: str = "bf16", group_size: int = 32,
+    device: str | torch.device | None = None,
 ) -> dict:
     """Random-initialize DeepSeek-V2 params in the absorbed layout, on
     ``device`` (None: CUDA).
@@ -345,13 +351,17 @@ def init_deepseek_params(
     never passes through the host (the JAX package's numpy draw would need
     about 63 GB of host memory at V2-Lite's width). Stacks
     ``layers_dense`` (first_k_dense_replace layers) and ``layers_moe`` (the
-    rest) on a leading layer axis; projections bf16 dense
-    (``QuantizedLinear``), the absorbed ``w_uk``/``w_uv``, the router and
-    the expert stacks in ``config.dtype``; norms ones; the YaRN rope cache.
+    rest) on a leading layer axis. The projections, ``lm_head`` among them,
+    are bf16 dense (``quant_mode="bf16"``) or quantized on the device from
+    each float32 draw, as the JAX package's ``init_deepseek_params`` does:
+    ``"int4"`` and ``"int8"`` at ``group_size``, ``"nf4"`` at blocksize 64
+    (K12q), ``"w8a8"``. The absorbed ``w_uk``/``w_uv``, the router and the
+    expert stacks are in ``config.dtype``; norms ones; the YaRN rope cache.
     """
-    if quant_mode not in ("bf16", "dense", "none"):
-        msg = f"DeepSeek in quant_mode {quant_mode!r} is not ported yet (ROADMAP Queue 1); use 'bf16'"
-        raise NotImplementedError(msg)
+    if quant_mode not in QUANT_MODES:
+        msg = f"Unknown quantization mode: {quant_mode}"
+        raise ValueError(msg)
+    quant_kwargs = {"group_size": group_size} if quant_mode in ("int4", "int8") else {}
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     h = config.hidden_size
@@ -365,7 +375,7 @@ def init_deepseek_params(
         return torch.ones((n_layers, n), dtype=config.dtype, device=device)
 
     def stacked(n_layers: int, k_dim: int, n_dim: int) -> QuantizedLinear:
-        return stack_layers(lambda: quantize_linear(normal(k_dim, n_dim), "bf16"), n_layers)
+        return stack_layers(lambda _: quantize_linear(normal(k_dim, n_dim), quant_mode, **quant_kwargs), n_layers)
 
     def array(n_layers: int, *shape: int) -> torch.Tensor:
         out = torch.empty((n_layers, *shape), dtype=config.dtype, device=device)
@@ -418,9 +428,52 @@ def init_deepseek_params(
         "layers_dense": make_stack(n_dense, moe=False),
         "layers_moe": make_stack(config.num_layers - n_dense, moe=True),
         "final_norm": torch.ones((h,), dtype=config.dtype, device=device),
-        "lm_head": quantize_linear(normal(h, config.vocab_size), "bf16"),
+        "lm_head": quantize_linear(normal(h, config.vocab_size), quant_mode, **quant_kwargs),
         "rope_cache": deepseek_rope_cache(config, device),
     }
+
+
+_PROJECTIONS = (
+    "wq", "wq_a", "wq_b", "w_kv_a", "wo", "w_gate", "w_up", "w_down", "shared_gate", "shared_up", "shared_down",
+)
+
+
+def requantize_deepseek_params(params: dict, config: DeepseekV2Config, quant_mode: str, group_size: int = 32) -> dict:
+    """Rebuild every projection of a dense (bf16) DeepSeek param tree in
+    ``quant_mode``, as ``conch_tpu.models.deepseek.requantize_deepseek_params``
+    does: each stacked projection quantized layer by layer on its device from
+    the float32 values of its weights, ``group_size`` to int4 and int8 (the
+    defaults to the others). ``lm_head`` goes to the same mode, except int4,
+    where it stays bf16 dense (the native int4 init quantizes it; the JAX
+    package's requantization keeps it dense, and so does the port's). The
+    absorbed ``w_uk``/``w_uv`` and the expert stacks stay dense."""
+    if quant_mode not in QUANT_MODES:
+        msg = f"Unknown quantization mode: {quant_mode}"
+        raise ValueError(msg)
+    kwargs = {"group_size": group_size} if quant_mode in ("int4", "int8") else {}
+
+    def requant(w: torch.Tensor, mode: str, **kw) -> QuantizedLinear:
+        return quantize_linear(w.to(torch.float32), mode, **kw)
+
+    def dense_weight(ql: QuantizedLinear) -> torch.Tensor:
+        if ql.kind != "dense":
+            msg = f"requantize needs dense params, got {ql.kind}"
+            raise ValueError(msg)
+        return ql.arrays["w"]
+
+    out = dict(params)
+    for stack_name in ("layers_dense", "layers_moe"):
+        if params.get(stack_name) is None:
+            continue
+        layers = dict(params[stack_name])
+        for name in _PROJECTIONS:
+            if name in layers:
+                w = dense_weight(layers[name])
+                layers[name] = stack_layers(lambda i, w=w: requant(w[i], quant_mode, **kwargs), w.shape[0])
+        out[stack_name] = layers
+    head_mode = "bf16" if quant_mode == "int4" else quant_mode
+    out["lm_head"] = requant(dense_weight(params["lm_head"]), head_mode, **(kwargs if head_mode == "int8" else {}))
+    return out
 
 
 def deepseek_params_from_jax(

@@ -35,6 +35,7 @@ import torch
 
 from conch_tpu_torch.models.linear import QuantizedLinear, quantize_linear
 from conch_tpu_torch.models.llama import (
+    QUANT_MODES,
     _kv_cache_quant,
     attention_block,
     init_kv_caches,
@@ -103,19 +104,25 @@ def _norm_names(config: GemmaConfig) -> tuple[str, ...]:
 
 
 def init_gemma_params(
-    seed: int, config: GemmaConfig, quant_mode: str = "bf16", device: str | torch.device | None = None
+    seed: int, config: GemmaConfig, quant_mode: str = "bf16", group_size: int = 128,
+    device: str | torch.device | None = None,
 ) -> dict:
     """Random-initialize Gemma params on ``device`` (None: CUDA), in the JAX
     package's schema: the tied ``embedding`` (vocab, H), per-layer stacked
-    bf16 projections and norm weights, ``final_norm`` and ``cos_sin_cache``.
+    projections and norm weights, ``final_norm`` and ``cos_sin_cache``.
 
     Weights are drawn on the device from a ``torch.Generator`` seeded with
-    ``seed`` (normal, std 0.02), one layer at a time. Norm weights are zero,
-    so ``(1 + w)`` is 1, as in the JAX package.
+    ``seed`` (normal, std 0.02), one layer at a time. The projections are
+    bf16 dense (``quant_mode="bf16"``) or quantized on the device from each
+    float32 draw, as the JAX package's ``init_gemma_params`` does: ``"int4"``
+    and ``"int8"`` at ``group_size``, ``"nf4"`` at blocksize 64 (K12q),
+    ``"w8a8"``. The logits stay the tied bf16 embedding in every mode. Norm
+    weights are zero, so ``(1 + w)`` is 1, as in the JAX package.
     """
-    if quant_mode not in ("bf16", "dense", "none"):
-        msg = f"quant_mode {quant_mode!r} for Gemma is not ported yet (K1 at Gemma's shapes is later work)"
-        raise NotImplementedError(msg)
+    if quant_mode not in QUANT_MODES:
+        msg = f"Unknown quantization mode: {quant_mode}"
+        raise ValueError(msg)
+    quant_kwargs = {"group_size": group_size} if quant_mode in ("int4", "int8") else {}
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     h, inter, n_layers = config.hidden_size, config.intermediate_size, config.num_layers
@@ -126,7 +133,7 @@ def init_gemma_params(
         return (torch.randn(shape, generator=gen, device=device, dtype=torch.float32) * 0.02).to(dtype)
 
     def stacked(k_dim: int, n_dim: int) -> QuantizedLinear:
-        return stack_layers(lambda: quantize_linear(normal(k_dim, n_dim), quant_mode), n_layers)
+        return stack_layers(lambda _: quantize_linear(normal(k_dim, n_dim), quant_mode, **quant_kwargs), n_layers)
 
     layers: dict[str, Any] = {
         "wq": stacked(h, q_dim),

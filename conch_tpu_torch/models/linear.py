@@ -8,10 +8,11 @@ A projection's ``kind`` picks its product:
 - ``dense``: a plain matrix product, which the JAX package leaves to XLA
   (``jnp.dot``) and the port leaves to ``torch.matmul``;
 - ``int4``: GPTQ-style uint4b8 codes with bf16 group scales, in the
-  fastest packing the shape allows (``_pack_grouped``): magic (K1), else
-  planar (K1b), else GPTQ rows (K1c);
-- ``int8_grouped``: uint8b128 codes, group 128, bf16 scales, planar (K1b)
-  or GPTQ rows (K1c);
+  fastest packing the shape allows (``_pack_grouped``): magic (K1, groups
+  32, 64 and 128 on the card), else planar (K1b), else GPTQ rows (K1c);
+- ``int8_grouped``: uint8b128 codes, group 128 by default (DeepSeek's 32),
+  bf16 scales, planar (K1b; on the card a group of a multiple of 8 word
+  rows, so any multiple of 32) or GPTQ rows (K1c);
 - ``nf4``: NF4 codes (encoded by K12q) in GPTQ rows with f32 absmax per
   ``blocksize`` rows of K, multiplied through the 16-entry codebook (K1c);
 - ``w8a8``: per-column int8 weights with f32 scales, the activations

@@ -169,7 +169,7 @@ def init_llama_params(
 
     def stacked(k_dim: int, n_dim: int) -> QuantizedLinear:
         return stack_layers(
-            lambda: quantize_linear(normal(k_dim, n_dim, dtype=torch.float32), quant_mode, **quant_kwargs), n_layers
+            lambda _: quantize_linear(normal(k_dim, n_dim, dtype=torch.float32), quant_mode, **quant_kwargs), n_layers
         )
 
     layers = {
@@ -216,8 +216,7 @@ def requantize_llama_params(params: dict, config: LlamaConfig, quant_mode: str, 
             msg = f"requantize needs dense params, got {ql.kind}"
             raise ValueError(msg)
         w = ql.arrays["w"]
-        layers = iter(range(w.shape[0]))
-        return stack_layers(lambda: quantize_linear(w[next(layers)].to(torch.float32), quant_mode, **kwargs), w.shape[0])
+        return stack_layers(lambda i: quantize_linear(w[i].to(torch.float32), quant_mode, **kwargs), w.shape[0])
 
     layers = dict(params["layers"])
     for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
@@ -234,16 +233,16 @@ def requantize_llama_params(params: dict, config: LlamaConfig, quant_mode: str, 
     return out
 
 
-def stack_layers(make: Callable[[], QuantizedLinear], n_layers: int) -> QuantizedLinear:
-    """Stack ``n_layers`` projections drawn one at a time from ``make()`` on
-    a leading layer axis (so a full-width model holds one layer's draw at a
-    time beside the stack)."""
-    first = make()
+def stack_layers(make: Callable[[int], QuantizedLinear], n_layers: int) -> QuantizedLinear:
+    """Stack ``n_layers`` projections made one at a time by ``make(layer)``,
+    layer 0 first, on a leading layer axis (so a full-width model holds one
+    layer's draw at a time beside the stack)."""
+    first = make(0)
     arrays = {
         name: torch.empty((n_layers, *a.shape), dtype=a.dtype, device=a.device) for name, a in first.arrays.items()
     }
     for layer in range(n_layers):
-        piece = first if layer == 0 else make()
+        piece = first if layer == 0 else make(layer)
         for name, a in piece.arrays.items():
             arrays[name][layer] = a
     return QuantizedLinear(first.kind, arrays, first.meta)

@@ -12,10 +12,11 @@ puts the fault into the copy's CUDA source, and runs the kernel's phase of
 ``kernel_phase_k1b``, ``_k1c``, ``_k8`` or ``_k12q``: the kernel at the
 served shapes and the small cases, held against its plain version;
 ``check_scaled_gemm_options``: K8's option sweep, bit for bit;
-``check_scaled_e4m3_options``: its float8_e4m3fn half) on the copy in a
-subprocess, which builds the copy's kernels (a copy for the e4m3 sweep
-alone holds ``scaled_gemm.cu`` as its only source, so it builds in
-seconds). The unchanged package
+``check_scaled_e4m3_options``: its float8_e4m3fn half;
+``check_quant_gemm_options``: K1b's and K1c's option sweep) on the copy in
+a subprocess, which builds the copy's kernels (a copy for the sweeps alone
+holds only their sources, ``PHASE_SOURCES``, so it builds in seconds). The
+unchanged package
 must pass the faults' phases first and every faulty copy must fail a check
 of its own; the tool prints each run's check lines and exits non-zero
 otherwise.
@@ -24,8 +25,17 @@ The faults:
 - ``k1_field_shift``: K1 decodes a word's bit fields in the wrong order
   (field f ^ 1 for k16 step j, not the field that holds its x values);
 
+- ``k1_g32_scale_row_shifted``: K1 at group 32 scales each group of a
+  slice by the next group's scale row (the slice's two rows swapped);
+
 - ``k1b_gptq_rows``: K1b takes the planar words' bit fields in GPTQ order
   (field j % epp for k16 step j, not the field that holds its x values);
+- ``k1b_g32_fold_skipped``: K1b at 8 word rows a slice skips the fold of
+  every odd group (its sums are overwritten by the next group's first
+  wgmma);
+- ``k1b_g32_row_sum_wrong_group``: K1b at 8 word rows a slice, up to 64
+  rows a block, takes the zero-point term's x row sums of the group before
+  (the other buffer);
 - ``k1c_codebook_ignored``: K1c dequantizes codebook codes as linear
   integers (the NF4 table unused);
 - ``k8_scales_swapped``: K8 scales row m by sb (index clamped to its
@@ -66,6 +76,26 @@ MUTANTS = {
         "uint32_t magic = ((word >> (4 * f)) & 0x000F000Fu) | 0x43004300u;",
         "uint32_t magic = ((word >> (4 * (f ^ 1))) & 0x000F000Fu) | 0x43004300u;",
         "check_magic_gemm_options",
+    ),
+    "k1_g32_scale_row_shifted": (
+        "mixed_gemm_magic.cu",
+        "        s2[q][0] = __bfloat162bfloat162(s[q * kCols + c]);\n"
+        "        s2[q][1] = __bfloat162bfloat162(s[q * kCols + c + 1]);",
+        "        s2[q][0] = __bfloat162bfloat162(s[((q + 1) % SR) * kCols + c]);\n"
+        "        s2[q][1] = __bfloat162bfloat162(s[((q + 1) % SR) * kCols + c + 1]);",
+        "check_magic_gemm_options",
+    ),
+    "k1b_g32_fold_skipped": (
+        "mixed_gemm_planar.cu",
+        "    fr.last = sub == spg - 1;",
+        "    fr.last = sub == spg - 1 && !(SUB == 8 && ((s / spg) & 1));",
+        "check_quant_gemm_options",
+    ),
+    "k1b_g32_row_sum_wrong_group": (
+        "mixed_gemm_planar.cu",
+        "      fr.xs = row_sums(extra, (s / spg) & 1);",
+        "      fr.xs = row_sums(extra, (s / spg + (SUB == 8 ? 1 : 0)) & 1);",
+        "check_quant_gemm_options",
     ),
     "k1b_gptq_rows": (
         "mixed_gemm_planar.cu",
@@ -132,7 +162,11 @@ MUTANTS = {
 
 # Phases whose kernels build from these sources alone: a copy that runs only
 # such phases keeps only their sources.
-PHASE_SOURCES = {"check_scaled_e4m3_options": ("scaled_gemm.cu",)}
+PHASE_SOURCES = {
+    "check_scaled_e4m3_options": ("scaled_gemm.cu",),
+    "check_magic_gemm_options": ("mixed_gemm_magic.cu",),
+    "check_quant_gemm_options": ("mixed_gemm_planar.cu", "mixed_gemm_rows.cu"),
+}
 
 
 def phases_script(phases: tuple[str, ...]) -> str:

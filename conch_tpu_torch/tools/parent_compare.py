@@ -19,6 +19,12 @@ launchers only, which both packages share:
   Llama-3-8B engine (fused wqkv, wo, fused gate|up, w_down) at groups 128
   and 64 and M 8, 32 and 512, read from layer 17 of a 32-layer stack
   (timed calls walk the layers, so the weights come from HBM);
+- K1G32 and K1bG32 (the same launchers at group 32): one MoE layer's
+  GEMMs of DeepSeek-V2-Lite's int4 engine (``chip_smoke.DS_INT4_LAYER_SHAPES``:
+  two groups a K1 slice) and of its int8 engine (``DS_INT8_LAYER_SHAPES``:
+  8-bit planar codes, 8 word rows a K1b slice) at M 8, 32 and 512 (layer
+  17 of a 32-layer stack; timed calls walk the layers). Only a checkout
+  whose kernels take group 32 can run them (this one and later);
 - K3 (``paged_attention_launcher``) on ``chip_smoke.py``'s ``K3_CASES``,
   built by its ``k3_inputs`` as its K3 phases build them: the kernel
   table's lines (Llama-3-8B's decode batch of 8 at lengths to 540;
@@ -78,7 +84,8 @@ launchers only, which both packages share:
   builds in seconds.
 
 ``--kernels`` times only the named ones (K1 K1b K1c K2 K3 K4 K5 K6 K7 K8
-K10a K10b K11 K12q K13a K13b K13c).
+K10a K10b K11 K12q K13a K13b K13c K1G32 K1bG32; by default all but the
+last two, which a checkout older than group 32 refuses).
 ``--mutant NAME`` times this checkout against a copy of itself with
 ``gemm_mutants.py``'s fault NAME put in, in the parent's place (for
 instance ``k8_e4m3_not_promoted``: K8's e4m3 slices summed in the wgmma
@@ -141,21 +148,43 @@ kernel_library()
 gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
 rng = np.random.default_rng(cs.SEED)
 times, digests = {}, {}
-if "K1" in want:
-    for group in (128, 64):
-        sums = {m: 0.0 for m in cs.GEMM_MS}
-        for k, n in cs.K1_SHAPES:
-            packed = torch.randint(-(2**31), 2**31 - 1, (cs.NUM_LAYERS_POOL, k // 8, n), generator=gen,
-                                   device="cuda", dtype=torch.int32)
-            scales = (torch.rand((cs.NUM_LAYERS_POOL, k // group, n), generator=gen, device="cuda") * 4e-3
-                      + 1e-4).to(torch.bfloat16)
-            layers = itertools.cycle(range(cs.NUM_LAYERS_POOL))
-            for m in cs.GEMM_MS:
-                x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
-                sums[m] += cs.time_ms(lambda: k1(x, packed, scales, group, 8, next(layers)))
-            del packed, scales
-        for m, t in sums.items():
-            times[f"K1 group {group} one layer M={m}"] = t
+# The quantized GEMMs, each as (label, (K, N) shapes (a dict gives each its
+# count a layer), codes a 32-bit word, metadata rows a group, metadata dtype,
+# the call); timed one layer at a time, the calls walking a 32-layer stack.
+gemm_cases = []
+if want & {"K1b", "K1bG32", "K1c"}:
+    from conch_tpu_torch.kernels.quantization.bitsandbytes.blockwise import NF4_CODE
+    from conch_tpu_torch.kernels.quantization.gemm import mixed_gemm_planar_launcher as k1b
+    from conch_tpu_torch.kernels.quantization.gemm import mixed_gemm_rows_launcher as k1c
+for key, label, shapes, group in (("K1", "K1 group 128", cs.K1_SHAPES, 128), ("K1", "K1 group 64", cs.K1_SHAPES, 64),
+                                  ("K1G32", "K1 G32", cs.DS_INT4_LAYER_SHAPES, cs.DS_GROUP)):
+    if key in want:
+        gemm_cases.append((label, shapes, 8, group, torch.bfloat16,
+                           lambda x, w, s, li, g=group: k1(x, w, s, g, 8, li)))
+for key, label, shapes, group in (("K1b", "K1b", cs.FUSED_LAYER_SHAPES, cs.GROUP),
+                                  ("K1bG32", "K1b G32", cs.DS_INT8_LAYER_SHAPES, cs.DS_GROUP)):
+    if key in want:
+        gemm_cases.append((label, shapes, 4, group, torch.bfloat16,
+                           lambda x, w, s, li, g=group: k1b(x, w, s, None, 8, 128, g, li)))
+if "K1c" in want:
+    gemm_cases.append(("K1c", cs.NF4_LAYER_SHAPES, 8, cs.NF4_BLOCK, torch.float32,
+                       lambda x, w, s, li: k1c(x, w, s, None, 4, 0, cs.NF4_BLOCK, NF4_CODE, li)))
+for label, shapes, epw, group, meta_dtype, call in gemm_cases:
+    counts = shapes if isinstance(shapes, dict) else dict.fromkeys(shapes, 1)
+    sums = {m: 0.0 for m in cs.GEMM_MS}
+    for (k, n), count in counts.items():
+        packed = torch.randint(-(2**31), 2**31 - 1, (cs.NUM_LAYERS_POOL, k // epw, n), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        meta = (torch.rand((cs.NUM_LAYERS_POOL, k // group, n), generator=gen, device="cuda") * 4e-3
+                + 1e-4).to(meta_dtype)
+        layers = itertools.cycle(range(cs.NUM_LAYERS_POOL))
+        for m in cs.GEMM_MS:
+            x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+            sums[m] += count * cs.time_ms(lambda: call(x, packed, meta, next(layers)))
+        del packed, meta
+        torch.cuda.empty_cache()
+    for m, t in sums.items():
+        times[f"{label} one layer M={m}"] = t
 
 if "K3" in want:
     for name in cs.K3_CASES:
@@ -173,34 +202,6 @@ if "K7" in want:
                 times[f"K7 {name} {cache or 'bf16'} cache window {w}"] = cs.time_ms(lambda: launch(*case["args"], w))
             del case
             torch.cuda.empty_cache()
-
-if "K1b" in want or "K1c" in want:
-    from conch_tpu_torch.kernels.quantization.bitsandbytes.blockwise import NF4_CODE
-    from conch_tpu_torch.kernels.quantization.gemm import mixed_gemm_planar_launcher as k1b
-    from conch_tpu_torch.kernels.quantization.gemm import mixed_gemm_rows_launcher as k1c
-
-    # (label, shapes with their count a layer, words a 32-bit row, metadata rows, the call)
-    cases = []
-    if "K1b" in want:
-        cases.append(("K1b", cs.FUSED_LAYER_SHAPES, 4, cs.GROUP, lambda x, w, s, li: k1b(x, w, s, None, 8, 128, cs.GROUP, li)))
-    if "K1c" in want:
-        cases.append(("K1c", cs.NF4_LAYER_SHAPES, 8, cs.NF4_BLOCK,
-                      lambda x, w, s, li: k1c(x, w, s, None, 4, 0, cs.NF4_BLOCK, NF4_CODE, li)))
-    for label, shapes, epw, group, call in cases:
-        sums = {m: 0.0 for m in cs.GEMM_MS}
-        for (k, n), count in shapes.items():
-            packed = torch.randint(-(2**31), 2**31 - 1, (cs.NUM_LAYERS_POOL, k // epw, n), generator=gen,
-                                   device="cuda", dtype=torch.int32)
-            meta = torch.rand((cs.NUM_LAYERS_POOL, k // group, n), generator=gen, device="cuda") * 4e-3 + 1e-4
-            meta = meta.to(torch.bfloat16) if label == "K1b" else meta
-            layers = itertools.cycle(range(cs.NUM_LAYERS_POOL))
-            for m in cs.GEMM_MS:
-                x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
-                sums[m] += count * cs.time_ms(lambda: call(x, packed, meta, next(layers)))
-            del packed, meta
-            torch.cuda.empty_cache()
-        for m, t in sums.items():
-            times[f"{label} one layer M={m}"] = t
 
 if "K8" in want:
     sums = {m: 0.0 for m in cs.GEMM_MS}
@@ -377,6 +378,8 @@ print("TIMES " + json.dumps({"package": conch_tpu_torch.__file__, "times": times
 '''
 KERNELS = ("K1", "K1b", "K1c", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K10a", "K10b", "K11", "K12q", "K13a",
            "K13b", "K13c")
+# Group 32 of K1 and K1b: asked for by name (a checkout before it refuses the group).
+GROUP32_KERNELS = ("K1G32", "K1bG32")
 # A run of the vision kernels alone builds their sources alone (seconds, not minutes).
 VISION_KERNELS, VISION_SOURCES = {"K13a", "K13b", "K13c"}, ("bev_pool.cu", "nms.cu")
 # The lines of a run's output that the tool prints with --serve.
@@ -405,7 +408,8 @@ def main() -> int:
     which = parser.add_mutually_exclusive_group(required=True)
     which.add_argument("--parent", type=Path, help="another checkout of the repository")
     which.add_argument("--mutant", choices=sorted(MUTANTS), help="time against this checkout with a gemm_mutants fault")
-    parser.add_argument("--kernels", nargs="+", choices=KERNELS, default=list(KERNELS), help="the kernels to time")
+    parser.add_argument("--kernels", nargs="+", choices=KERNELS + GROUP32_KERNELS, default=list(KERNELS),
+                        help="the kernels to time")
     parser.add_argument("--serve", action="store_true", help="also serve Gemma-2-2B and int4 Llama-3-8B, profiled")
     args = parser.parse_args()
     parts = [*args.kernels, *(["serve"] if args.serve else [])]

@@ -305,8 +305,10 @@ def test_params_carry_across_and_init_schema_matches_jax():
 
 def test_unported_modes_raise():
     cfg = DeepseekV2Config(**DIMS, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="int4"):
-        init_deepseek_params(0, cfg, quant_mode="int4", device="cpu")
+    # The quantized modes, once refused, are served (tests/test_torch_deepseek_quant.py);
+    # a mode the port does not know still raises and names it.
+    with pytest.raises(ValueError, match="Unknown quantization mode: int3"):
+        init_deepseek_params(0, cfg, quant_mode="int3", device="cpu")
     with pytest.raises(NotImplementedError):
         deepseek_verify_forward()
     params = init_deepseek_params(0, cfg, device="cpu")

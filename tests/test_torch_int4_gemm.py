@@ -119,6 +119,33 @@ def test_group64_gemm_matches_jax(m, dtype):
         _assert_close(out, ref, k)
 
 
+@pytest.mark.parametrize("m", [1, 8, 33])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_group32_gemm_matches_jax(m, dtype):
+    """K1 at group 32 (DeepSeek's int4: 4 word rows a group, two groups a
+    slice on the card), K 416 (13 groups: the card's last slice is half
+    past K): a single weight and each layer of a stack, against JAX's
+    group-32 GEMM."""
+    k, n = 416, 256
+    rng = np.random.default_rng(32 + m)
+    layers = [_jax_int4(rng, k, n, 32) for _ in range(L)]
+    assert layers[0].meta["layout"] == "magic" and layers[0].meta["group_size"] == 32
+    packed = jnp.stack([q.arrays["packed"] for q in layers])
+    scales = jnp.stack([q.arrays["scales"] for q in layers])
+    assert scales.shape == (L, k // 32, n)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    xj, xt = jnp.asarray(x, JAX_DTYPES[dtype]), torch.from_numpy(x).to(TORCH_DTYPES[dtype])
+    ref = jax_gemm(xj, layers[0].arrays["packed"], layers[0].arrays["scales"], None, 4, 8, 32, layout="magic")
+    out = mixed_precision_gemm(xt, _to_torch(layers[0].arrays["packed"]), _to_torch(layers[0].arrays["scales"]),
+                               None, 4, 8, 32, layout="magic")
+    _assert_close(out, ref, k)
+    for layer in range(L):
+        ref = jax_gemm(xj, packed, scales, None, 4, 8, 32, layout="magic", layer_index=jnp.int32(layer))
+        out = mixed_precision_gemm(xt, _to_torch(packed), _to_torch(scales), None, 4, 8, 32, layout="magic",
+                                   layer_index=layer)
+        _assert_close(out, ref, k)
+
+
 def test_linear_int4_concat_and_out_features_match_jax():
     """concat_n of int4 projections equals packing the concatenation (bit
     for bit, as in JAX) and applies as the separate projections side by

@@ -85,6 +85,26 @@ def test_planar_gemm_matches_jax(bits, zp_mode, dtype):
     _assert_close(out, ref, k)
 
 
+@pytest.mark.parametrize("bits,group", [(8, 32), (4, 64), (2, 128)])
+@pytest.mark.parametrize("zp_mode", ["none", "per-group"])
+def test_planar_gemm_at_8_word_rows_matches_jax(bits, group, zp_mode):
+    """Groups of 8 word rows (K1b's 8-row slices on the card): int8 at
+    group 32 (DeepSeek's int8), 4-bit at 64 and 2-bit at 128 (the cases of
+    tests/gemm_test.py:246), each layer of a stack against JAX's planar
+    GEMM."""
+    m, k, n = 9, 4 * group, 256
+    rng = np.random.default_rng(bits * 100 + group + len(zp_mode))
+    packed, scales, zp = _operands(rng, bits, k, n, group, zp_mode, layers=2)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    for layer in range(2):
+        ref = jax_gemm(jnp.asarray(x), jnp.asarray(packed), scales, None if zp is None else jnp.asarray(zp), bits,
+                       BIAS[bits], group, layout="planar", layer_index=jnp.int32(layer))
+        out = mixed_precision_gemm(torch.from_numpy(x), _to_torch(packed), _to_torch(scales),
+                                   None if zp is None else _to_torch(zp), bits, BIAS[bits], group, layout="planar",
+                                   layer_index=layer)
+        _assert_close(out, ref, k)
+
+
 @pytest.mark.parametrize("m", [1, 33])
 @pytest.mark.parametrize("zp_mode", ["none", "per-group"])
 def test_stacked_planar_gemm_matches_jax(m, zp_mode):

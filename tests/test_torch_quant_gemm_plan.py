@@ -6,9 +6,10 @@
 ``conch_tpu_torch/kernels/quantization/gemm.py`` compute in Python and
 hand to the CUDA entry points. Held on the CPU, for the Llama-3-8B engine
 shapes (int4 fused at groups 64 and 128, nf4 unfused, int8 and w8a8 fused,
-and lm_head), Qwen2-7B's int4 shapes (K 3584 and 18944) at M 1, 8, 32, 40
-and 512, and for the small shapes of the
-port's GEMM tests and K8's option sweep:
+and lm_head), Qwen2-7B's int4 shapes (K 3584 and 18944), DeepSeek-V2-Lite's
+int4 and int8 shapes at group 32 (K 2048, 2816 and 10944; w_kv_a's N 640)
+and Gemma-2-2B's int4 shapes at M 1, 8, 32, 40 and 512, and for the small
+shapes of the port's GEMM tests and K8's option sweep:
 
 - the splits cover K's slices exactly once, in order, and every split
   starts on a group boundary; the K slice is the one the entry point's
@@ -23,8 +24,9 @@ port's GEMM tests and K8's option sweep:
 - K8's e4m3 shapes that the mainloop's TMA copies cannot take (N not a
   multiple of 16, b's layer off 16 bytes, K 0) go to the loop kernel;
 - K1's A fragments, read from the magic packing as
-  ``csrc/mixed_gemm_magic.cu`` reads them, are x's k order within each
-  group.
+  ``csrc/mixed_gemm_magic.cu`` reads them (at group 32 two groups a slice,
+  two k16 steps a word), are x's k order within each group, and so are
+  K1b's at 8 word rows a slice (``csrc/mixed_gemm_planar.cu``, SUB 8).
 """
 
 import dataclasses
@@ -42,7 +44,7 @@ from conch_tpu_torch.kernels.quantization.gemm import (
     e4m3_takes_mainloop,
     quant_gemm_plan,
 )
-from conch_tpu_torch.utils.quant_utils import pack_rows_magic
+from conch_tpu_torch.utils.quant_utils import pack_rows_magic, pack_rows_planar
 from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
 H100_SMS = 132
@@ -54,6 +56,18 @@ INT4_SHAPES = INT8_SHAPES[:4]  # fused wqkv, wo, fused gate|up, w_down; groups 6
 # time to 20480, so they do not fuse) and w_down. K 3584 is 28 groups and
 # 18944 is 148, both with few divisors.
 QWEN2_SHAPES = [(3584, 4608), (3584, 3584), (3584, 20480), (18944, 3584)]
+# DeepSeek-V2-Lite's GEMMs at group 32, as its engines run them. int4 (K1):
+# wq, w_kv_a (N 576 padded at pack time to 640), wo, w_gate and w_up (N
+# 10944 padded to 12288, so unfused), w_down (K 10944: 171 slices of two
+# groups), the fused shared gate|up, shared_down (K 2816) and lm_head.
+# int8 (K1b, nothing padded, all fused): [wq|w_kv_a], wo, gate|up, w_down,
+# shared gate|up, shared_down, lm_head.
+DEEPSEEK_INT4_SHAPES = [(2048, 3072), (2048, 640), (2048, 2048), (2048, 12288), (10944, 2048), (2048, 5632),
+                        (2816, 2048), (2048, 102400)]
+DEEPSEEK_INT8_SHAPES = [(2048, 3648), (2048, 2048), (2048, 21888), (10944, 2048), (2048, 5632), (2816, 2048),
+                        (2048, 102400)]
+# Gemma-2-2B's int4 GEMMs at group 128: fused wqkv, wo, fused gate|up, w_down.
+GEMMA_SHAPES = [(2304, 4096), (2048, 2304), (2304, 18432), (9216, 2304)]
 ENGINE_MS = [1, 8, 32, 40, 512]
 
 # (layout, bits, group, K, N): the engine's, then the small shapes of
@@ -63,6 +77,9 @@ ENGINE_CASES = (
     [("gptq", 4, 64, k, n) for k, n in NF4_SHAPES] + [("planar", 8, 128, k, n) for k, n in INT8_SHAPES]
     + [("magic", 4, g, k, n) for g in (128, 64) for k, n in INT4_SHAPES]
     + [("magic", 4, 128, k, n) for k, n in QWEN2_SHAPES]
+    + [("magic", 4, 32, k, n) for k, n in DEEPSEEK_INT4_SHAPES]
+    + [("planar", 8, 32, k, n) for k, n in DEEPSEEK_INT8_SHAPES]
+    + [("magic", 4, 128, k, n) for k, n in GEMMA_SHAPES]
     + [("scaled", 8, 128, k, n) for k, n in INT8_SHAPES]
     + [("e4m3", 8, 128, k, n) for k, n in INT8_SHAPES]
 )
@@ -73,6 +90,9 @@ SMALL_CASES = [
     ("gptq", 4, 4, 256, 64), ("gptq", 2, 12, 192, 32),
     *[("planar", bits, 128 if bits >= 4 else 256, 512, 256) for bits in (2, 4, 8)],
     ("planar", 8, 128, 256, 384), ("planar", 8, 64, 512, 128), ("planar", 4, 256, 1024, 512),
+    # 8 word rows a group (tests/gemm_test.py's cases of JAX's planar kernel), and magic at group 32.
+    ("planar", 8, 32, 256, 384), ("planar", 4, 64, 512, 256), ("planar", 2, 128, 1024, 256), ("planar", 8, 96, 384, 64),
+    ("magic", 4, 32, 416, 160), ("magic", 4, 32, 64, 32),
     ("scaled", 8, 128, 96, 160), ("scaled", 8, 128, 64, 32), ("scaled", 8, 128, 512, 256),
     # e4m3 takes any K >= 1 and N a multiple of 16 (chip_smoke's K8 sweep and phase shapes among them).
     ("e4m3", 8, 128, 96, 160), ("e4m3", 8, 128, 512, 256), ("e4m3", 8, 128, 1, 16), ("e4m3", 8, 128, 300, 48),
@@ -82,16 +102,20 @@ SMALL_CASES = [
 
 def _k_slice(layout: str, bits: int, group: int) -> int:
     """K of a slice in the entry points' templates: 64 for GPTQ rows
-    (RowsLayout::KS); one group for magic codes (MagicLayout::KS); planar
-    codes a whole group of 128 for 4 and 8 bits at group 128, else 16 word
-    rows (PlanarLayout::KS); 128 for K8's int8 and e4m3 (ScaledLayout::KS)."""
+    (RowsLayout::KS); one group for magic codes, two at group 32
+    (MagicLayout::KS); planar codes a whole group of 128 for 4 and 8 bits at
+    group 128, else 16 word rows where the group holds a multiple of 16,
+    else 8 (PlanarLayout::KS); 128 for K8's int8 and e4m3 (ScaledLayout::KS)."""
     if layout == "gptq":
         return 64
     if layout in ("scaled", "e4m3"):
         return 128
     if layout == "magic":
-        return group
-    return 128 if group == 128 and bits >= 4 else 16 * (32 // bits)
+        return 64 if group == 32 else group
+    epp = 32 // bits
+    if group == 128 and bits >= 4:
+        return 128
+    return 16 * epp if group % (16 * epp) == 0 else 8 * epp
 
 
 @pytest.mark.parametrize("m", ENGINE_MS + [9, 33])
@@ -173,13 +197,21 @@ def test_prefill_takes_at_most_one_wave():
     "layout,bits,group,k,n,error,match",
     [
         ("planar", 8, 128, 4000, 256, ValueError, "mixed_gemm_planar kernel: needs K % group == 0"),
-        ("planar", 8, 32, 4096, 256, ValueError, r"group % 64 == 0"),
-        ("planar", 4, 64, 4096, 256, ValueError, r"group % 128 == 0"),
+        # Once refused, int8 at group 32 and 4-bit at 64 now run (8 word rows a
+        # slice); what still refuses is a group of fewer (or not a multiple of
+        # 8) word rows: int8 at 16, 4-bit at 32. The IDs are the old cases'.
+        pytest.param("planar", 8, 16, 4096, 256, ValueError, r"group % 32 == 0 \(8 word rows of 8-bit codes\)",
+                     id="planar-8-32-4096-256-ValueError-group % 64 == 0"),
+        pytest.param("planar", 4, 32, 4096, 256, ValueError, r"group % 64 == 0 \(8 word rows of 4-bit codes\)",
+                     id="planar-4-64-4096-256-ValueError-group % 128 == 0"),
         ("planar", 8, 128, 4096, 100, ValueError, "N % 32 == 0"),
         ("gptq", 4, 64, 4100, 256, ValueError, r"mixed_gemm_rows kernel: needs K % 8 == 0"),
         ("gptq", 4, 2, 4096, 256, ValueError, r"group % 4 == 0"),
         ("gptq", 8, 64, 4096, 48, ValueError, "N % 32 == 0"),
-        ("magic", 4, 32, 4096, 256, ValueError, r"mixed_gemm_magic kernel: needs 4-bit codes, group_size 64 or 128"),
+        # Once refused, magic at group 32 now runs; group 16 still refuses.
+        pytest.param("magic", 4, 16, 4096, 256, ValueError,
+                     r"mixed_gemm_magic kernel: needs 4-bit codes, group_size 32, 64 or 128",
+                     id="magic-4-32-4096-256-ValueError-mixed_gemm_magic kernel: needs 4-bit codes, group_size 64 or 128"),
         ("magic", 4, 256, 4096, 256, ValueError, r"group=256"),
         ("magic", 4, 128, 4160, 256, ValueError, r"K a multiple of it"),
         ("magic", 4, 64, 4096, 48, ValueError, "N of 32"),
@@ -304,3 +336,59 @@ def test_magic_fragments_follow_x(group):
                     word = int(w[8 * b + t + 4 * q]) >> (4 * f)
                     for h in range(2):
                         assert (word >> (16 * h)) & 0xF == int(codes[g * group + 16 * j + base + h, 0])
+
+
+def _magic_slot(group: int, j: int, t: int, q: int) -> tuple[int, int]:
+    """(word row of the slice, bit field) that csrc/mixed_gemm_magic.cu
+    reads for k16 step j, thread t, k slots 2t + 8q and 2t + 8q + 1: at
+    groups 64 and 128 field j // NB of word row 8 (j % NB) + t + 4q (NB =
+    group / 64); at group 32 (two groups a slice) field 2 (j % 2) + q of
+    word row 4 (j // 2) + t."""
+    if group == 32:
+        return 4 * (j // 2) + t, 2 * (j % 2) + q
+    f, b = divmod(j, group // 64)
+    return 8 * b + t + 4 * q, f
+
+
+def test_magic_fragments_at_group_32_follow_x():
+    """K1's decode at group 32, a slice of two groups: slot 2t + 8q + h of
+    k16 step j must hold the code of x value 16j + 2t + 8q + h of the slice
+    (K 160: two whole slices and one half slice, as TMA fills the rest)."""
+    group, ks, k = 32, 64, 160
+    rows = torch.arange(k)
+    codes = ((rows % 16) ^ (rows // 16)).reshape(k, 1).repeat(1, 2) & 0xF
+    words = pack_rows_magic(codes, group).to(torch.int64) & 0xFFFFFFFF
+    for s0 in range(0, k, ks):
+        w = words[s0 // 8 : (s0 + ks) // 8, 0]
+        for j in range(min(ks, k - s0) // 16):
+            for t in range(4):
+                for q in range(2):
+                    row, field = _magic_slot(group, j, t, q)
+                    word = int(w[row]) >> (4 * field)
+                    for h in range(2):
+                        assert (word >> (16 * h)) & 0xF == int(codes[s0 + 16 * j + 2 * t + 8 * q + h, 0])
+
+
+@pytest.mark.parametrize("bits,group", [(8, 32), (4, 64), (2, 128), (8, 96)])
+def test_planar_fragments_at_8_word_rows_follow_x(bits, group):
+    """K1b's decode at 8 word rows a slice (SUB 8, group % (16 * epp) != 0):
+    slot 2t + 8q + h of k16 step j is field 2j + q of word row 2t + h of the
+    slice; x's 4-d box stages k-block 2j + q as the 8 values of field 2j + q
+    at (2j + q) * (group / epp) + 8 * sub. Each slot must hold the code of
+    that x value."""
+    epp = 32 // bits
+    rpg, k = group // epp, 2 * group
+    rows = torch.arange(k)
+    codes = (rows * 7 + rows // group) % (1 << bits)
+    words = pack_rows_planar(codes.reshape(k, 1).repeat(1, 2), bits, group).to(torch.int64) & 0xFFFFFFFF
+    mask = (1 << bits) - 1
+    for s in range(k // (8 * epp)):
+        g, sub = divmod(s, rpg // 8)
+        w = words[8 * s : 8 * s + 8, 0]
+        for j in range(epp // 2):
+            for t in range(4):
+                for q in range(2):
+                    field = 2 * j + q
+                    for h in range(2):
+                        x_at = g * group + field * rpg + 8 * sub + 2 * t + h
+                        assert (int(w[2 * t + h]) >> (bits * field)) & mask == int(codes[x_at])
