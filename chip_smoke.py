@@ -233,8 +233,14 @@
    int8, nf4 and w8a8 in bf16; DeepSeek-V2-Lite, one dense and one MoE
    layer: f32 and bf16, int4 and int8 at group 32, nf4 and w8a8 in bf16,
    random norm weights, and the MoE routing compared
-   token by token, a divergence accepted only at a near tie; each family
-   also in bf16 over an int8 and an e4m3 KV cache); then
+   token by token, a divergence accepted only at a near tie; Mixtral-8x7B
+   (``check_mixtral_logits``): f32 and bf16, int4 attention projections in
+   bf16, bf16 over an int8 KV cache, random norm weights, 11 padding rows
+   and capacity factor 0.5 (selections drop), the experts of every row
+   equal to the CPU's in f32 and but at a near tie in bf16; each family
+   also in bf16 over an int8 and an e4m3 KV cache); ``llama_params_from_hf``
+   and ``mixtral_params_from_hf`` with ``device="cuda"`` against the CPU's
+   params, bit for bit (``check_hf_converters``); then
    ``LLMEngine`` at full width (random
    weights from a seed) serving greedy requests of 32 tokens, with every
    kernel's launch count and the model steps read around the run, and the
@@ -273,6 +279,16 @@
      layers): 8 requests of 40 to 2000 tokens,
      ``EngineConfig(num_pages=4096, max_batch_size=32,
      max_pages_per_seq=160)``;
+   - Mixtral-8x7B in bf16 (``mixtral_8x7b_bf16``) at every published
+     width, its depth cut to 24 of 32 layers (``MIXTRAL_LAYERS``: 70.2 GB
+     of weights), through ``mixtral_prefill`` and ``mixtral_decode_step``:
+     8 requests of 40 to 2000 tokens, 16 new tokens each,
+     ``EngineConfig(num_pages=1024, max_batch_size=8,
+     max_pages_per_seq=128)``, TF32 off; no K1 and no K6 a step (the
+     experts' SwiGLU is plain PyTorch); timed three times, then profiled
+     with ``moe_ffn``, ``moe_experts`` and the engine's steps in
+     ``record_function`` ranges (``report_mixtral_profile``: their device
+     time, a decode step's beside the time to read its weights once);
 6. prints the ``kernels`` JSON line (each row's launches from its main
    run: Gemma for the kernels it runs, int4 for K1, K4 and K6, int8, nf4
    and w8a8 for K1b, K1c and K8, the nf4 init for K12q, DeepSeek for K11,
@@ -4329,8 +4345,7 @@ def tp8_collectives_path(card: str) -> tuple[dict, list[dict]]:
         ring_all_gather,
     )
 
-    if torch.get_float32_matmul_precision() != "highest" or torch.backends.cuda.matmul.allow_tf32:
-        raise AssertionError("f32 matmuls must run in full f32 (no TF32), as JAX's preferred_element_type=f32")
+    require_full_f32("llama3_8b_tp8_collectives (as JAX's preferred_element_type=f32)")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     ranks = create_mesh(model=TP, devices=[torch.device("cuda", 0)] * TP).axis_devices("model")
 
@@ -5012,6 +5027,41 @@ def random_norm_weights(params: dict, gen: torch.Generator) -> dict:
     return params
 
 
+# The 2-layer prefill checks' step: prompts of 24 and 13 tokens (pages [5,
+# 0] and [3]) in 48 rows, the other 11 padding rows, and two zero-length
+# padding sequences.
+PREFILL_Q_LENS, PREFILL_ROWS, PREFILL_BATCH, PREFILL_PAGES = [24, 13], 48, 4, 8
+
+
+def prefill_check_step(vocab: int) -> list[torch.Tensor]:
+    """The checks' step on the host: token ids (drawn from SEED below
+    ``vocab``), positions, cu_seqlens_q, seq_lens, block table, slots."""
+    rng = np.random.default_rng(SEED)
+    q_lens, rows, total = PREFILL_Q_LENS, PREFILL_ROWS, sum(PREFILL_Q_LENS)
+    tokens = np.zeros(rows, np.int32)
+    tokens[:total] = rng.integers(0, vocab, total)
+    positions = np.zeros(rows, np.int32)
+    positions[:total] = np.concatenate([np.arange(n) for n in q_lens])
+    bt = np.zeros((PREFILL_BATCH, MAX_PAGES_PER_SEQ), np.int32)
+    bt[0, :2], bt[1, :1] = [5, 0], [3]
+    slots = np.full(rows, -1, np.int32)
+    slots[:total] = [int(bt[b, p // PS]) * PS + p % PS for b, n in enumerate(q_lens) for p in range(n)]
+    cu = np.array([0, q_lens[0], total, total, total], np.int32)
+    seq_lens = np.array(q_lens + [0, 0], np.int32)
+    return [torch.from_numpy(a) for a in (tokens, positions, cu, seq_lens, bt, slots)]
+
+
+def logits_agree(out: torch.Tensor, ref: torch.Tensor, dtype: torch.dtype, tol: float) -> tuple[bool, float, float, str]:
+    """The prefill checks' rule, card against the CPU: in f32 ``tol + tol *
+    |ref|`` elementwise, else ``tol * max |ref|``; returns (ok, max abs
+    error, max |ref|, the rule in words)."""
+    err, scale = (out - ref).abs().max().item(), ref.abs().max().item()
+    if dtype == torch.float32:
+        return bool(((out - ref).abs() <= tol + tol * ref.abs()).all()), err, scale, \
+            f"{tol:.0e} + {tol:.0e} * |ref| elementwise"
+    return err <= tol * scale, err, scale, f"{tol:.0e} * max|ref| = {tol * scale:.3e}"
+
+
 # (weights, activation dtype, KV cache dtype; None: the activation dtype).
 # "int4-g64": int4 at group 64.
 LLAMA_PREFILL_CASES = (
@@ -5054,21 +5104,8 @@ def check_prefill_logits(llama_cases=LLAMA_PREFILL_CASES, gemma_cases=GEMMA_PREF
         LlamaConfig, fuse_llama_params, init_kv_caches, init_llama_params, llama_prefill,
     )
 
-    rng = np.random.default_rng(SEED)
-    q_lens, rows, batch, num_pages = [24, 13], 48, 4, 8
-    total = sum(q_lens)
-    vocab = min(LlamaConfig.llama3_8b().vocab_size, GemmaConfig.gemma2_2b().vocab_size)
-    tokens = np.zeros(rows, np.int32)
-    tokens[:total] = rng.integers(0, vocab, total)
-    positions = np.zeros(rows, np.int32)
-    positions[:total] = np.concatenate([np.arange(n) for n in q_lens])
-    bt = np.zeros((batch, MAX_PAGES_PER_SEQ), np.int32)
-    bt[0, :2], bt[1, :1] = [5, 0], [3]
-    slots = np.full(rows, -1, np.int32)
-    slots[:total] = [int(bt[b, p // PS]) * PS + p % PS for b, n in enumerate(q_lens) for p in range(n)]
-    cu = np.array([0, q_lens[0], total, total, total], np.int32)
-    seq_lens = np.array(q_lens + [0, 0], np.int32)
-    host = [torch.from_numpy(a) for a in (tokens, positions, cu, seq_lens, bt, slots)]
+    rows, batch, num_pages = PREFILL_ROWS, PREFILL_BATCH, PREFILL_PAGES
+    host = prefill_check_step(min(LlamaConfig.llama3_8b().vocab_size, GemmaConfig.gemma2_2b().vocab_size))
 
     def cache_tag(cache):
         return "" if cache is None else f", {str(cache).removeprefix('torch.')} KV cache"
@@ -5109,14 +5146,7 @@ def check_prefill_logits(llama_cases=LLAMA_PREFILL_CASES, gemma_cases=GEMMA_PREF
         del cpu_params
         if not torch.isfinite(logits).all() or logits.shape != (batch, cfg.vocab_size):
             raise AssertionError(f"prefill logits: shape {tuple(logits.shape)} or non-finite values")
-        err = (logits - ref).abs().max().item()
-        scale = ref.abs().max().item()
-        if cfg.dtype == torch.float32:
-            ok = bool(((logits - ref).abs() <= tol + tol * ref.abs()).all())
-            rule = f"{tol:.0e} + {tol:.0e} * |ref| elementwise"
-        else:
-            ok = err <= tol * scale
-            rule = f"{tol:.0e} * max|ref| = {tol * scale:.3e}"
+        ok, err, scale, rule = logits_agree(logits, ref, cfg.dtype, tol)
         print(f"2-layer prefill logits, {label}, {cfg.dtype}, card vs plain path on the CPU: "
               f"max_abs_err {err:.3e}, max|ref| {scale:.3f}, tolerance {rule}", flush=True)
         if not ok:
@@ -5154,20 +5184,8 @@ def check_deepseek_logits(cases=DEEPSEEK_PREFILL_CASES) -> None:
 
     import conch_tpu_torch.models.deepseek as ds
 
-    rng = np.random.default_rng(SEED)
-    q_lens, rows, batch, num_pages = [24, 13], 48, 4, 8
-    total = sum(q_lens)
-    tokens = np.zeros(rows, np.int32)
-    tokens[:total] = rng.integers(0, ds.DeepseekV2Config.v2_lite().vocab_size, total)
-    positions = np.zeros(rows, np.int32)
-    positions[:total] = np.concatenate([np.arange(n) for n in q_lens])
-    bt = np.zeros((batch, MAX_PAGES_PER_SEQ), np.int32)
-    bt[0, :2], bt[1, :1] = [5, 0], [3]
-    slots = np.full(rows, -1, np.int32)
-    slots[:total] = [int(bt[b, p // PS]) * PS + p % PS for b, n in enumerate(q_lens) for p in range(n)]
-    cu = np.array([0, q_lens[0], total, total, total], np.int32)
-    seq_lens = np.array(q_lens + [0, 0], np.int32)
-    host = [torch.from_numpy(a) for a in (tokens, positions, cu, seq_lens, bt, slots)]
+    rows, batch, num_pages, total = PREFILL_ROWS, PREFILL_BATCH, PREFILL_PAGES, sum(PREFILL_Q_LENS)
+    host = prefill_check_step(ds.DeepseekV2Config.v2_lite().vocab_size)
 
     routes: list = []
     route = ds.deepseek_route
@@ -5220,20 +5238,204 @@ def check_deepseek_logits(cases=DEEPSEEK_PREFILL_CASES) -> None:
             if any(g > ROUTING_NEAR_TIE[dtype] for g in gaps):
                 raise AssertionError(f"DeepSeek routing ({tag}) diverges from the CPU away from a near tie")
             tol = W8A8_PREFILL_TOLERANCE if quant_mode == "w8a8" else PREFILL_TOLERANCES[dtype]
-            err = (logits - ref).abs().max().item()
-            scale = ref.abs().max().item()
-            if dtype == torch.float32:
-                ok = bool(((logits - ref).abs() <= tol + tol * ref.abs()).all())
-                rule = f"{tol:.0e} + {tol:.0e} * |ref| elementwise"
-            else:
-                ok = err <= tol * scale
-                rule = f"{tol:.0e} * max|ref| = {tol * scale:.3e}"
+            ok, err, scale, rule = logits_agree(logits, ref, dtype, tol)
             print(f"2-layer prefill logits, DeepSeek-V2-Lite, {quant_mode} weights, {tag}, card vs plain path on the CPU: "
                   f"max_abs_err {err:.3e}, max|ref| {scale:.3f}, tolerance {rule}", flush=True)
             if not ok:
                 raise AssertionError(f"2-layer DeepSeek prefill logits ({quant_mode}, {tag}) disagree with the plain path")
     finally:
         ds.deepseek_route = route
+
+
+def require_full_f32(phase: str) -> None:
+    """f32 matmuls in full f32 (PyTorch's defaults): under TF32 a router's
+    near ties flip, and the f32 checks would hold TF32 sums."""
+    if torch.get_float32_matmul_precision() != "highest" or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError(f"{phase}: f32 matmuls must run in full f32 (no TF32)")
+
+
+def mixtral_config(num_layers: int, dtype: torch.dtype = torch.bfloat16, **over):
+    """Mixtral-8x7B at every published width, cut to ``num_layers`` layers."""
+    from conch_tpu_torch.models.moe import MoEConfig
+
+    base = MoEConfig.mixtral_8x7b()
+    return dataclasses.replace(base, llama=dataclasses.replace(base.llama, num_layers=num_layers, dtype=dtype), **over)
+
+
+# (weights, activation dtype, KV cache dtype; None: the activation dtype).
+MIXTRAL_PREFILL_CASES = (
+    ("bf16", torch.float32, None), ("bf16", torch.bfloat16, None), ("int4", torch.bfloat16, None),
+    ("bf16", torch.bfloat16, torch.int8),
+)
+# Capacity factor of the logits check: capacity 6 a expert for the 48-row
+# step's 96 selections (8 experts, 48 slots), so selections drop.
+MIXTRAL_CHECK_CAPACITY_FACTOR = 0.5
+
+
+def check_mixtral_logits(cases=MIXTRAL_PREFILL_CASES) -> None:
+    """First-token logits of a 2-layer, full-width Mixtral-8x7B prefill on
+    the card (K2's store aside, K4, K5, K7, K1 for int4 attention
+    projections; the router, dispatch and expert einsums through cuBLAS)
+    against the same prefill on the CPU (plain versions): bf16 weights in
+    f32 and bf16, int4 attention projections in bf16, bf16 over an int8
+    KV cache; random norm weights; 37 tokens and 11 padding rows in a
+    48-row step at capacity factor 0.5, so selections drop and the padding
+    rows take part. Which selections drop depends on every row's ordered
+    choice (slot 0 before slot 1), so one near tie that the two devices
+    break apart changes what another row keeps; the CPU run therefore
+    takes the card's ordered experts in each layer (its own weights: the
+    softmax of its logits at those experts). Each layer's router logits,
+    every row's, are held to the CPU's at PREFILL_TOLERANCES, as the
+    model's logits; the CPU's own choice must equal the card's on every
+    row, in order, in f32, and in bf16 a row that chooses otherwise is
+    printed with the CPU's logit gap at the first rank that differs (the
+    logits' agreement bounds it: at most twice their largest difference).
+    With 8 experts a rounding step of the router logits moves a
+    probability by about 1e-2, so DeepSeek's ROUTING_NEAR_TIE, set for 64
+    experts' probabilities, does not apply. Logits at
+    PREFILL_TOLERANCES."""
+    import conch_tpu_torch.models.moe as moe
+    from conch_tpu_torch.models.llama import fuse_llama_params
+
+    require_full_f32("check_mixtral_logits")
+    rows, batch, num_pages = PREFILL_ROWS, PREFILL_BATCH, PREFILL_PAGES
+    host = prefill_check_step(moe.MoEConfig.mixtral_8x7b().vocab_size)
+
+    routes: list = []  # (own ordered experts, router logits) per layer
+    replay: list = []  # the card's ordered experts per layer, taken by the CPU run
+    route = moe.route_topk
+
+    def recording_route(router_logits, top_k):
+        weights, experts = route(router_logits, top_k)
+        routes.append((experts.cpu(), router_logits.float().cpu()))
+        if replay:
+            experts = replay[len(routes) - 1].to(router_logits.device)
+            weights = torch.softmax(torch.gather(router_logits.float(), 1, experts.long()), dim=-1)
+        return weights, experts
+
+    moe.route_topk = recording_route
+    try:
+        for quant_mode, dtype, cache in cases:
+            tag = f"{quant_mode} weights, {dtype}" + ("" if cache is None else f", {str(cache).removeprefix('torch.')} KV cache")
+            cfg = mixtral_config(2, dtype, capacity_factor=MIXTRAL_CHECK_CAPACITY_FACTOR)
+            params = fuse_llama_params(moe.init_moe_params(SEED, cfg, quant_mode, device="cuda"))
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+            for w in [params["final_norm"], params["layers"]["input_norm"], params["layers"]["post_attn_norm"]]:
+                w.copy_(1.0 + 0.3 * torch.randn(w.shape, generator=gen, device="cuda"))
+            kc, vc = moe.init_moe_kv_caches(cfg, num_pages, PS, cache, device="cuda")
+            t = [a.cuda() for a in host]
+            routes.clear()
+            replay.clear()
+            logits, _, _ = moe.mixtral_prefill(params, cfg, t[0], t[1], t[2], rows, t[3], t[4], t[5], kc, vc)
+            logits = logits.cpu()
+            card_routes = list(routes)
+            cpu_params = to_device(params, "cpu")
+            del params, kc, vc
+            torch.cuda.empty_cache()
+            routes.clear()
+            replay.extend(e for e, _ in card_routes)
+            kc, vc = moe.init_moe_kv_caches(cfg, num_pages, PS, cache, device="cpu")
+            ref, _, _ = moe.mixtral_prefill(cpu_params, cfg, *host[:3], rows, *host[3:], kc, vc)
+            replay.clear()
+            cpu_routes = list(routes)
+            del cpu_params, kc, vc
+            if not torch.isfinite(logits).all() or logits.shape != (batch, cfg.vocab_size):
+                raise AssertionError(f"Mixtral prefill logits: shape {tuple(logits.shape)} or non-finite values")
+            k, cap, tol = cfg.top_k, cfg.capacity(rows), PREFILL_TOLERANCES[dtype]
+            for layer, ((card_e, card_l), (cpu_e, cpu_l)) in enumerate(zip(card_routes, cpu_routes, strict=True)):
+                differ = card_e != cpu_e  # (rows, k): the ordered choices
+                same = ~differ.any(dim=-1)
+                first = differ.to(torch.int8).argmax(dim=-1)  # the first rank that differs
+                ranked = cpu_l.sort(dim=-1, descending=True).values
+                gaps = (ranked.gather(1, first[:, None]) - ranked.gather(1, first[:, None] + 1))[~same, 0].tolist()
+                dropped = int((torch.bincount(card_e.reshape(-1).long(), minlength=cfg.num_experts) - cap).clamp(min=0).sum())
+                ok, err, scale, rule = logits_agree(card_l, cpu_l, dtype, tol)
+                print(f"2-layer Mixtral-8x7B prefill, {tag}, layer {layer}: router logits card vs CPU max_abs_err "
+                      f"{err:.3e}, max|ref| {scale:.3f}, tolerance {rule}; {int(same.sum())} of {rows} rows (37 live, "
+                      f"11 padding) choose the same {k} experts in the same order, the CPU's logit gaps at the first "
+                      f"rank that differs {gaps}; capacity {cap}: {dropped} of {rows * k} selections dropped (the "
+                      f"card's choice, which the CPU run takes)", flush=True)
+                if not ok:
+                    raise AssertionError(f"Mixtral router logits ({tag}, layer {layer}) disagree with the plain path")
+                if dtype == torch.float32 and gaps:
+                    raise AssertionError(f"Mixtral routing ({tag}, layer {layer}) differs from the CPU's in f32")
+                if dropped == 0:
+                    raise AssertionError(f"Mixtral check ({tag}, layer {layer}): no selection dropped")
+            ok, err, scale, rule = logits_agree(logits, ref, dtype, tol)
+            print(f"2-layer prefill logits, Mixtral-8x7B, {tag}, card vs plain path on the CPU: max_abs_err "
+                  f"{err:.3e}, max|ref| {scale:.3f}, tolerance {rule}", flush=True)
+            if not ok:
+                raise AssertionError(f"2-layer Mixtral prefill logits ({tag}) disagree with the plain path")
+    finally:
+        moe.route_topk = route
+
+
+def hf_state(gen: torch.Generator, experts: int = 0, layers: int = 2) -> dict[str, torch.Tensor]:
+    """A tiny random HF state dict in bf16 (hidden 128, 4 query heads and 2
+    KV heads of 32, intermediate 256, vocab 96): Llama's, or with
+    ``experts`` Mixtral's ``block_sparse_moe`` in place of the MLP."""
+    shapes = {"model.embed_tokens.weight": (96, 128), "model.norm.weight": (128,), "lm_head.weight": (96, 128)}
+    for i in range(layers):
+        p = f"model.layers.{i}."
+        shapes.update({p + "self_attn.q_proj.weight": (128, 128), p + "self_attn.k_proj.weight": (64, 128),
+                       p + "self_attn.v_proj.weight": (64, 128), p + "self_attn.o_proj.weight": (128, 128),
+                       p + "input_layernorm.weight": (128,), p + "post_attention_layernorm.weight": (128,)})
+        if experts:
+            shapes[p + "block_sparse_moe.gate.weight"] = (experts, 128)
+            for e in range(experts):
+                for w, shape in (("w1", (256, 128)), ("w2", (128, 256)), ("w3", (256, 128))):
+                    shapes[f"{p}block_sparse_moe.experts.{e}.{w}.weight"] = shape
+        else:
+            shapes.update({p + "mlp.gate_proj.weight": (256, 128), p + "mlp.up_proj.weight": (256, 128),
+                           p + "mlp.down_proj.weight": (128, 256)})
+    return {k: (0.05 * torch.randn(s, generator=gen)).to(torch.bfloat16) for k, s in shapes.items()}
+
+
+def same_tree(card, cpu, path: str = "params") -> int:
+    """Fails unless two param trees hold the same tensors bit for bit (the
+    first's on the card); returns the number of tensors compared."""
+    from conch_tpu_torch.models.linear import QuantizedLinear
+
+    if isinstance(cpu, dict):
+        if set(card) != set(cpu):
+            raise AssertionError(f"{path}: keys {sorted(card)} against {sorted(cpu)}")
+        return sum(same_tree(card[k], cpu[k], f"{path}.{k}") for k in cpu)
+    if isinstance(cpu, QuantizedLinear):
+        if (card.kind, card.meta) != (cpu.kind, cpu.meta):
+            raise AssertionError(f"{path}: {card.kind} {card.meta} against {cpu.kind} {cpu.meta}")
+        return same_tree(card.arrays, cpu.arrays, path)
+    if card.device.type != "cuda" or card.dtype != cpu.dtype or card.shape != cpu.shape:
+        raise AssertionError(f"{path}: {card.device} {card.dtype} {tuple(card.shape)} against {cpu.dtype} "
+                             f"{tuple(cpu.shape)}")
+    a, b = card.cpu().contiguous(), cpu.contiguous()
+    if not torch.equal(a.view(torch.uint8) if a.dtype.is_floating_point else a,
+                       b.view(torch.uint8) if b.dtype.is_floating_point else b):
+        raise AssertionError(f"{path}: the card's tensor differs from the CPU's")
+    return 1
+
+
+def check_hf_converters() -> None:
+    """``llama_params_from_hf`` and ``mixtral_params_from_hf`` on tiny random
+    bf16 state dicts with ``device="cuda"`` give the CPU's params bit for
+    bit, with bf16 and int4 (group 64) projections."""
+    from conch_tpu_torch.models import hf
+    from conch_tpu_torch.models.llama import LlamaConfig
+    from conch_tpu_torch.models.moe import MoEConfig
+
+    gen = torch.Generator().manual_seed(SEED)
+    dims = {"vocab_size": 96, "hidden_size": 128, "intermediate_size": 256, "num_layers": 2, "num_heads": 4,
+            "num_kv_heads": 2, "head_dim": 32, "max_position": 64}
+    cases = (
+        ("llama", hf.llama_params_from_hf, LlamaConfig(**dims), hf_state(gen)),
+        ("mixtral", hf.mixtral_params_from_hf, MoEConfig(llama=LlamaConfig(**dims), num_experts=4),
+         hf_state(gen, experts=4)),
+    )
+    for name, convert, cfg, state in cases:
+        for mode in ("bf16", "int4"):
+            card = convert(state, cfg, quant_mode=mode, group_size=64, device="cuda")
+            n = same_tree(card, convert(state, cfg, quant_mode=mode, group_size=64, device="cpu"))
+            print(f"hf.{convert.__name__} ({name}, {mode}) on the card: {n} tensors equal to the CPU's bit for bit",
+                  flush=True)
 
 
 def bf16_prompts(rng: np.random.Generator, vocab: int) -> list[list[int]]:
@@ -5288,6 +5490,15 @@ def gemma_prompts(rng: np.random.Generator, vocab: int) -> list[list[int]]:
     """8 prompts of 40 to 4600 tokens; the longest crosses the 4096 window
     of the local layers, in prefill (K7) and in decode (K3)."""
     return [rng.integers(0, vocab, n).tolist() for n in (40, 64, 128, 300, 600, 900, 2000, 4600)]
+
+
+# Mixtral-8x7B: 8 prompts of 40 to 2000 tokens, 16 new tokens each.
+MIXTRAL_PROMPT_LENS = (40, 300, 600, 900, 1200, 1500, 1800, 2000)
+MIXTRAL_MAX_TOKENS = 16
+
+
+def mixtral_prompts(rng: np.random.Generator, vocab: int) -> list[list[int]]:
+    return [rng.integers(0, vocab, n).tolist() for n in MIXTRAL_PROMPT_LENS]
 
 
 ATTENTION = ("varlen_attention", "paged_attention")  # K7 once per layer of a prefill step, K3 of a decode step
@@ -5347,6 +5558,20 @@ QUANT_GEMM = {"int4": "mixed_gemm_magic", "int8": "mixed_gemm_planar", "nf4": "m
               "w8a8": "scaled_gemm"}
 GEMMA_QUANT_PER_STEP = {mode: {gemm: 182 if mode == "nf4" else 104, **GEMMA_PER_STEP} for mode, gemm in QUANT_GEMM.items()}
 QUANT_MAX_TOKENS = 16  # the new quantized DeepSeek and Gemma runs: 16 tokens a request
+# Mixtral-8x7B served at every published width, its depth cut to 24 of 32
+# layers: a layer holds 2.90 GB in bf16 (its experts 3 x 8 x 4096 x 14336 x
+# 2 B = 2.82 GB), so 32 layers, the embedding and the head come to 93.4 GB,
+# more than the card's 80 GB, and 24 to 70.2 GB (65.4 GiB), which leaves the
+# KV pool, one expert's f32 draw and the workspace their room. A step
+# launches K4 2 a layer plus the final norm, attention (K7 in prefill, K3 in
+# decode) and K5 1 a layer, no K6 (the experts' SwiGLU is plain PyTorch, as
+# in the JAX package) and no K1 (bf16 attention projections).
+MIXTRAL_LAYERS = 24
+MIXTRAL_PER_STEP = {"rms_norm": 2 * MIXTRAL_LAYERS + 1, ATTENTION: MIXTRAL_LAYERS, "rotary_embedding": MIXTRAL_LAYERS,
+                    "silu_and_mul": 0, "mixed_gemm_magic": 0}
+MIXTRAL_KERNELS = ("reshape_and_cache_stacked", "paged_attention", "rms_norm", "rotary_embedding", "varlen_attention")
+MIXTRAL_ENGINE = {"num_pages": 1024, "max_batch_size": 8, "max_pages_per_seq": 128}
+MIXTRAL_RUNS = 3  # timed runs of the same requests, each on a fresh engine
 
 
 def count_steps(engine) -> list[int]:
@@ -5374,7 +5599,7 @@ def count_steps(engine) -> list[int]:
 def serve(
     card: str, label: str, cfg, make_params, model_fns: dict, engine_kwargs: dict, make_prompts,
     expect: tuple[str, ...], per_step: dict, init_launches: dict | None = None, max_tokens: int = 32,
-    record: dict | None = None, profile: bool = True,
+    record: dict | None = None, profile: bool = True, runs: int = 1, annotate: dict | None = None,
 ) -> dict:
     """LLMEngine at full width (random weights from the seed) serving greedy
     requests of ``max_tokens`` tokens through ``model_fns`` (Llama's by default);
@@ -5386,7 +5611,9 @@ def serve(
     counts). Fails at its start if more than 1 GiB is still allocated: an
     earlier run's model was not freed. ``record`` receives the outputs and
     the pages and KV bytes the engine held; ``profile=False`` skips the
-    profiled repeat."""
+    profiled repeat. ``runs`` > 1 times the same requests again on fresh
+    engines over the same params (each run's tok/s printed); ``annotate``
+    goes to ``profile_served_run``."""
     from conch_tpu_torch.serving import EngineConfig, LLMEngine, SamplingParams
 
     gc.collect()
@@ -5449,30 +5676,99 @@ def serve(
     engine_params, ecfg = engine.params, engine.ecfg
     del engine
     torch.cuda.empty_cache()
+    rates = [len(prompts) * max_tokens / seconds]
+    for _ in range(runs - 1):
+        engine = LLMEngine(engine_params, cfg, ecfg, **model_fns)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = engine.generate(prompts, SamplingParams(max_tokens=max_tokens))
+        torch.cuda.synchronize()
+        rates.append(len(prompts) * max_tokens / (time.perf_counter() - t0))
+        print(f"{label}: run {len(rates)} of {runs}: {rates[-1]:.2f} generated tok/s, greedy tokens "
+              f"{'equal to' if again == outputs else 'NOT equal to'} run 1's", flush=True)
+        del engine
+        torch.cuda.empty_cache()
+    if runs > 1:
+        print(f"{label}: generated tok/s in each of {runs} runs: {[round(r, 2) for r in rates]} on {card}", flush=True)
     if profile:
-        profile_served_run(engine_params, cfg, ecfg, model_fns, prompts, max_tokens, label)
+        prof = profile_served_run(engine_params, cfg, ecfg, model_fns, prompts, max_tokens, label, annotate)
+        if record is not None:
+            record["profile"] = prof
     return {**launches, **{name: at_init[name] for name in init_launches or {}}}
 
 
-def profile_served_run(params: dict, cfg, ecfg, model_fns: dict, prompts: list, max_tokens: int, label: str) -> None:
+def profile_served_run(
+    params: dict, cfg, ecfg, model_fns: dict, prompts: list, max_tokens: int, label: str, annotate: dict | None = None,
+) -> dict | None:
     """The same requests on a fresh engine under torch.profiler (not the
-    timed run): ``profile_run``'s breakdown."""
+    timed run): ``profile_run``'s breakdown. ``annotate`` ({range name:
+    (module, function name)}) wraps those functions, and the engine's
+    prefill and decode steps ("prefill_step", "decode_step"), in
+    ``record_function`` ranges for the run, and returns ``profile_run``'s
+    device time by range."""
+    import contextlib
+
     from conch_tpu_torch.serving import LLMEngine, SamplingParams
 
     engine = LLMEngine(params, cfg, ecfg, **model_fns)
-    profile_run(lambda: engine.generate(prompts, SamplingParams(max_tokens=max_tokens)), label)
+    if annotate is None:
+        profile_run(lambda: engine.generate(prompts, SamplingParams(max_tokens=max_tokens)), label)
+        return None
+
+    def ranged(name, fn):
+        def wrapped(*args, **kwargs):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+
+        return wrapped
+
+    targets = {**annotate, "prefill_step": (engine, "_prefill_fn"), "decode_step": (engine, "_decode_fn")}
+    saved = [(obj, attr, getattr(obj, attr)) for obj, attr in targets.values()]
+    with contextlib.ExitStack() as stack:
+        for name, (obj, attr) in targets.items():
+            setattr(obj, attr, ranged(name, getattr(obj, attr)))
+        stack.callback(lambda: [setattr(obj, attr, fn) for obj, attr, fn in saved])
+        return profile_run(lambda: engine.generate(prompts, SamplingParams(max_tokens=max_tokens)), label,
+                           ranges=tuple(targets))
 
 
 KERNEL_NAME_CHARS = 120
 
 
-def profile_run(fn, label: str) -> None:
+def range_device_ms(events: list, kernels: list, names: tuple[str, ...]) -> dict:
+    """Device time of the kernels launched inside each named
+    ``record_function`` range: {name: (ms, ranges, kernels)}. A launch (a
+    CUDA runtime or driver call) inside a range's host span names its
+    kernel by the trace's correlation id."""
+    import bisect
+
+    by_corr = {e["args"]["correlation"]: e for e in kernels if "correlation" in e.get("args", {})}
+    launches = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and e.get("args", {}).get("correlation") in by_corr]
+    out = {}
+    for name in names:
+        spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                       if e.get("cat") == "user_annotation" and e.get("name") == name)
+        starts = [a for a, _ in spans]
+        inside = []
+        for e in launches:
+            i = bisect.bisect_right(starts, e["ts"]) - 1
+            if i >= 0 and e["ts"] <= spans[i][1]:
+                inside.append(by_corr[e["args"]["correlation"]])
+        out[name] = (sum(k["dur"] for k in inside) / 1e3, len(spans), len(inside))
+    return out
+
+
+def profile_run(fn, label: str, ranges: tuple[str, ...] = ()) -> dict | None:
     """``fn()`` under torch.profiler: device time by kernel group, from the
     trace's kernel events, and the device's idle share of the wall time;
     for the kernels of K1 to K11 their events' sum and the part of it after
     the end of the kernel before (a programmatic dependent's event starts
     under its predecessor). Kernel names are cut to KERNEL_NAME_CHARS, which
-    keeps the norm policy of K4's and K10a's shared kernel."""
+    keeps the norm policy of K4's and K10a's shared kernel. With ``ranges``
+    (names of ``record_function`` ranges opened inside ``fn``), prints and
+    returns each range's device time (``range_device_ms``) with the busy
+    time under "busy"."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
@@ -5491,7 +5787,7 @@ def profile_run(fn, label: str) -> None:
     kernels = [e for e in events if e.get("cat") == "kernel"]
     if not kernels:
         print(f"{label} profile: the trace holds no kernel events; device time not measured", flush=True)
-        return
+        return None
     groups: dict[str, float] = {}
     by_name: dict[str, float] = {}
     for e in kernels:
@@ -5535,6 +5831,13 @@ def profile_run(fn, label: str) -> None:
             print(f"{label} profile {tag} kernels: " + "; ".join(
                 f"{n} {t:.1f} ms in {counts[n]} launches ({mine[n]:.1f} ms after the kernel before ended)"
                 for n, t in sorted(found.items(), key=lambda x: -x[1])), flush=True)
+    if not ranges:
+        return None
+    by_range = range_device_ms(events, kernels, ranges)
+    for name, (ms, spans, n) in by_range.items():
+        measured = f"{ms:.1f} ms of device time ({ms / busy:.3f} of busy) in {n} kernels" if n else "not measured"
+        print(f"{label} profile range {name}: {spans} ranges, {measured}", flush=True)
+    return {"busy": busy, "wall": wall_ms, **by_range}
 
 
 # The top-p filter on the card (check_top_p_filter): the int4 engine's
@@ -5732,14 +6035,51 @@ def check_rolling_twins(rolling: dict, unbounded: dict, launches: dict) -> None:
           f"{ring['varlen_attention_ring']} launches over the ring", flush=True)
 
 
+def report_mixtral_profile(card: str, cfg, record: dict) -> None:
+    """The served Mixtral run's profile beside its bounds: the share of
+    device time in ``moe_ffn`` and in its experts (``moe_experts``: the three
+    expert einsums and their SwiGLU), and a decode step's device time beside
+    the time the card needs to read the step's weights once (the experts
+    alone, and every layer's weights and the head) at HBM_BYTES_PER_S."""
+    prof = record.get("profile")
+    c, e = cfg.llama, cfg.num_experts
+    q, kv = c.num_heads * c.head_dim, c.num_kv_heads * c.head_dim
+    item = torch.empty((), dtype=c.dtype).element_size()
+    expert_bytes = c.num_layers * 3 * e * c.hidden_size * c.intermediate_size * item
+    attention_bytes = (c.hidden_size * (q + 2 * kv) + q * c.hidden_size) * 2  # wqkv and wo in bf16
+    weight_bytes = expert_bytes + c.num_layers * (attention_bytes + c.hidden_size * e * 4) + c.hidden_size * c.vocab_size * 2
+    expert_ms, weight_ms = expert_bytes / HBM_BYTES_PER_S * 1e3, weight_bytes / HBM_BYTES_PER_S * 1e3
+    if prof is None or prof["decode_step"][2] == 0:
+        print(f"mixtral-8x7b-bf16: device time by range not measured; a decode step reads {expert_bytes / 1e9:.1f} GB "
+              f"of experts ({expert_ms:.2f} ms at {HBM_BYTES_PER_S / 1e12} TB/s) on {card}", flush=True)
+        return
+    busy = prof["busy"]
+    step_ms, steps, _ = prof["decode_step"]
+    pre_ms, pre_steps, _ = prof["prefill_step"]
+    print(f"mixtral-8x7b-bf16 profile: busy {busy:.1f} ms of {prof['wall']:.1f} ms wall; moe_ffn "
+          f"{prof['moe_ffn'][0]:.1f} ms ({prof['moe_ffn'][0] / busy:.3f} of busy), its experts (moe_experts: three "
+          f"einsums and the SwiGLU) {prof['moe_experts'][0]:.1f} ms ({prof['moe_experts'][0] / busy:.3f}); "
+          f"{pre_steps} prefill steps {pre_ms:.1f} ms, {steps} decode steps {step_ms:.1f} ms on {card}", flush=True)
+    print(f"mixtral-8x7b-bf16 decode step: {step_ms / steps:.3f} ms of device time a step against a bound of "
+          f"{expert_ms:.3f} ms for its {expert_bytes / 1e9:.2f} GB of expert weights and {weight_ms:.3f} ms for all "
+          f"{weight_bytes / 1e9:.2f} GB of its weights, read once at {HBM_BYTES_PER_S / 1e12} TB/s "
+          f"({weight_ms / (step_ms / steps):.3f} of the bound) on {card}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     card = card_line()
     print(card, flush=True)
+    t_start = time.perf_counter()
+
+    def lap(phase: str) -> None:
+        print(f"chip_smoke: {phase} done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
     build()
     rows = kernel_phases()
+    lap("build and kernel phases")
     check_voxelization(np.random.default_rng(SEED))
     vision_launches = vision_path(card)
     qlora_launches = qlora_path(card)
@@ -5747,8 +6087,14 @@ def main() -> int:
     tp8_launches, tp8_timings = tp8_collectives_path(card)
     next(r for r in rows if r["name"] == "ring_all_gather")["collective_matmuls"] = tp8_timings
     check_top_p_filter(card)
+    lap("paths no engine serves")
     check_prefill_logits()
+    lap("Llama and Gemma prefill checks")
     check_deepseek_logits()
+    lap("DeepSeek prefill checks")
+    check_mixtral_logits()
+    check_hf_converters()
+    lap("Mixtral prefill checks and HF converters")
 
     from conch_tpu_torch.models.deepseek import (
         DeepseekV2Config, deepseek_decode_step, deepseek_prefill, init_deepseek_params,
@@ -5842,6 +6188,7 @@ def main() -> int:
         profile=False,
     )
     check_rolling_twins(rolling, unbounded, launches)
+    lap("served runs of Llama-3-8B, Gemma-2-2B, DeepSeek-V2-Lite and Mistral-7B")
     launches["qwen2_7b_int4"] = serve(
         card, "qwen2-7b-int4", LlamaConfig.qwen2_7b(), llama("int4"), {}, QWEN2_ENGINE, qwen2_prompts, LLAMA_KERNELS,
         QWEN2_PER_STEP,
@@ -5868,6 +6215,21 @@ def main() -> int:
             {"num_pages": 4096, "max_batch_size": 16, "max_pages_per_seq": 320}, gemma_prompts,
             (*GEMMA_KERNELS, gemm), GEMMA_QUANT_PER_STEP[mode], nf4_init, max_tokens=QUANT_MAX_TOKENS,
         )
+    # Mixtral-8x7B at every published width, 24 of 32 layers (MIXTRAL_LAYERS),
+    # bf16, 8 requests of 40 to 2000 tokens, 512-row prefill steps; the
+    # router in full f32.
+    import conch_tpu_torch.models.moe as moe
+
+    require_full_f32("mixtral_8x7b_bf16")
+    mixtral_cfg, mixtral = mixtral_config(MIXTRAL_LAYERS), {}
+    launches["mixtral_8x7b_bf16"] = serve(
+        card, "mixtral-8x7b-bf16", mixtral_cfg, lambda cfg: moe.init_moe_params(SEED, cfg, device="cuda"),
+        {"prefill_fn": moe.mixtral_prefill, "decode_fn": moe.mixtral_decode_step}, MIXTRAL_ENGINE, mixtral_prompts,
+        MIXTRAL_KERNELS, MIXTRAL_PER_STEP, max_tokens=MIXTRAL_MAX_TOKENS, record=mixtral, runs=MIXTRAL_RUNS,
+        annotate={"moe_ffn": (moe, "moe_ffn"), "moe_experts": (moe, "moe_experts")},
+    )
+    report_mixtral_profile(card, mixtral_cfg, mixtral)
+    lap("served runs of Qwen2-7B, the quantized DeepSeek and Gemma, and Mixtral")
     launches["vision_bevfusion"] = vision_launches
     launches["llama3_8b_qlora"] = qlora_launches
     launches["llama3_8b_residual_stream"] = stream_launches

@@ -48,7 +48,7 @@ import torch.nn.functional as F
 from conch_tpu_torch.kernels.common import QUANTIZED_CACHE_DTYPES, round_up
 from conch_tpu_torch.models.linear import QuantizedLinear, quantize_linear
 from conch_tpu_torch.models.llama import QUANT_MODES, stack_layers, tree_from_jax
-from conch_tpu_torch.models.moe import make_dispatch
+from conch_tpu_torch.models.moe import _top_k, moe_ffn
 from conch_tpu_torch.ops.activation import silu_and_mul
 from conch_tpu_torch.ops.attention import mla_attention
 from conch_tpu_torch.ops.cache import reshape_and_cache_mla
@@ -247,14 +247,6 @@ def _apply_rope_interleaved(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tenso
 # -- MoE gate --------------------------------------------------------------
 
 
-def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """``jax.lax.top_k`` over the last axis: descending, and among equal
-    values the lower index first (a stable sort promises that order;
-    ``torch.topk`` on CUDA does not)."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
-
-
 def deepseek_route(
     hidden: torch.Tensor,  # (T, H)
     router_w: torch.Tensor,  # (H, E)
@@ -307,14 +299,11 @@ def _moe_mlp(layers: dict, li: int, x: torch.Tensor, config: DeepseekV2Config) -
         ),
     )
     bias = layers["router_bias"][li] if "router_bias" in layers else None
-    weights, experts = deepseek_route(x, layers["router_w"][li], config, bias=bias)
-    dispatch, combine = make_dispatch(weights, experts, config.n_routed_experts, cap)
-    xe = torch.einsum("tec,th->ech", dispatch.to(x.dtype), x)
-    gate = torch.einsum("ech,ehf->ecf", xe, layers["e_gate"][li])
-    up = torch.einsum("ech,ehf->ecf", xe, layers["e_up"][li])
-    act = (F.silu(gate.float()) * up.float()).to(x.dtype)
-    y = torch.einsum("ecf,efh->ech", act, layers["e_down"][li])
-    out = torch.einsum("tec,ech->th", combine.to(x.dtype), y)
+    routing = deepseek_route(x, layers["router_w"][li], config, bias=bias)
+    out = moe_ffn(
+        x, layers["router_w"][li], layers["e_gate"][li], layers["e_up"][li], layers["e_down"][li],
+        config.num_experts_per_tok, cap, routing=routing,
+    )
     if config.n_shared_experts > 0:
         if "shared_gateup" in layers:
             act = silu_and_mul(layers["shared_gateup"].apply_stacked(x, li)).to(x.dtype)

@@ -151,7 +151,9 @@ class QuantizedLinear:
         """Per-column symmetric int8 quantization of a (K, N) weight (W8A8),
         on w's device; the activations are quantized per row in ``apply``."""
         w = w.to(torch.float32)
-        scales = torch.clamp_min(w.abs().amax(dim=0) / 127.0, 1e-8)  # (N,)
+        # A 0-dim divisor on w's device: CUDA turns a Python scalar divisor
+        # into a product with its reciprocal (see ``quantize_weights``).
+        scales = torch.clamp_min(w.abs().amax(dim=0) / w.new_full((), 127.0), 1e-8)  # (N,)
         w8 = torch.clamp(torch.round(w / scales), -127, 127).to(torch.int8)
         return QuantizedLinear("w8a8", {"w8": w8, "out_scales": scales}, {})
 
@@ -170,9 +172,10 @@ class QuantizedLinear:
             )
         if self.kind == "w8a8":
             # Dynamic per-row activation quantization, as the JAX package:
-            # a division (not a reciprocal), rounding half to even.
+            # a division (not a reciprocal: the divisor a 0-dim tensor, as
+            # in ``w8a8_from_dense``), rounding half to even.
             xf = x.to(torch.float32)
-            a_scale = torch.clamp_min(xf.abs().amax(dim=-1), 1e-8) / 127.0
+            a_scale = torch.clamp_min(xf.abs().amax(dim=-1), 1e-8) / xf.new_full((), 127.0)
             xq = torch.clamp(torch.round(xf / a_scale[:, None]), -127, 127).to(torch.int8)
             return scaled_gemm(
                 xq, self.arrays["w8"], a_scale, self.arrays["out_scales"], x.dtype, layer_index=layer_index

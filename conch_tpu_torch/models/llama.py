@@ -429,8 +429,13 @@ def _forward_layers(
     attn_fn,
     decode: bool,
     kv_quant: tuple[str, float | None],
+    mlp_fn: Callable[[dict, int, torch.Tensor], torch.Tensor] | None = None,
 ) -> torch.Tensor:
-    """Run every layer on ``hidden`` (T, H), the caches updated in place."""
+    """Run every layer on ``hidden`` (T, H), the caches updated in place.
+
+    ``mlp_fn(layers, layer, mlp_in) -> delta`` replaces the gated MLP
+    (``mlp_block``), as ``mlp_fn`` does in the JAX package's layer step
+    (Mixtral's MoE feed-forward, ``models/moe.py``)."""
     layers = params["layers"]
     eps = config.rms_norm_eps
     for layer in range(k_caches.shape[0]):
@@ -440,7 +445,10 @@ def _forward_layers(
             config.num_heads, config.head_dim, kv_quant,
         )
         mlp_in = rms_norm(hidden, layers["post_attn_norm"][layer], eps)
-        hidden = hidden + mlp_block(layers, layer, mlp_in, silu_and_mul, silu_and_mul_parts)
+        if mlp_fn is None:
+            hidden = hidden + mlp_block(layers, layer, mlp_in, silu_and_mul, silu_and_mul_parts)
+        else:
+            hidden = hidden + mlp_fn(layers, layer, mlp_in)
     return hidden
 
 
@@ -471,6 +479,20 @@ def llama_prefill(
     v_caches); the caches are the arguments, updated in place.
     """
     _check_unported(config, tp_axis, lora)
+    logits = prefill_forward(
+        params, config, token_ids, positions, cu_seqlens_q, max_seqlen_q, seq_lens, block_tables, slot_mapping,
+        k_caches, v_caches,
+    )
+    return logits, k_caches, v_caches
+
+
+def prefill_forward(
+    params: dict, config: LlamaConfig, token_ids: torch.Tensor, positions: torch.Tensor,
+    cu_seqlens_q: torch.Tensor, max_seqlen_q: int, seq_lens: torch.Tensor, block_tables: torch.Tensor,
+    slot_mapping: torch.Tensor, k_caches: torch.Tensor, v_caches: torch.Tensor, mlp_fn=None,
+) -> torch.Tensor:
+    """``llama_prefill``'s body: the last-token logits of each sequence,
+    the caches updated in place; ``mlp_fn`` as in ``_forward_layers``."""
     hidden = params["embedding"][token_ids.long()]
     kv_quant = _kv_cache_quant(config, k_caches.dtype)
     kv_dtype, kv_scale = kv_quant
@@ -483,10 +505,10 @@ def llama_prefill(
         )
 
     hidden = _forward_layers(
-        params, config, hidden, positions, slot_mapping, k_caches, v_caches, attn_fn, False, kv_quant
+        params, config, hidden, positions, slot_mapping, k_caches, v_caches, attn_fn, False, kv_quant, mlp_fn
     )
     last_rows = (cu_seqlens_q[1:] - 1).long()
-    return _logits(params, config, hidden[last_rows]), k_caches, v_caches
+    return _logits(params, config, hidden[last_rows])
 
 
 def llama_decode_step(
@@ -509,6 +531,19 @@ def llama_decode_step(
     are the arguments, updated in place.
     """
     _check_unported(config, tp_axis, lora)
+    logits = decode_forward(
+        params, config, token_ids, positions, seq_lens, block_tables, slot_mapping, k_caches, v_caches
+    )
+    return logits, k_caches, v_caches
+
+
+def decode_forward(
+    params: dict, config: LlamaConfig, token_ids: torch.Tensor, positions: torch.Tensor, seq_lens: torch.Tensor,
+    block_tables: torch.Tensor, slot_mapping: torch.Tensor, k_caches: torch.Tensor, v_caches: torch.Tensor,
+    mlp_fn=None,
+) -> torch.Tensor:
+    """``llama_decode_step``'s body: the logits of each row, the caches
+    updated in place; ``mlp_fn`` as in ``_forward_layers``."""
     hidden = params["embedding"][token_ids.long()]
     kv_quant = _kv_cache_quant(config, k_caches.dtype)
     kv_dtype, kv_scale = kv_quant
@@ -520,6 +555,6 @@ def llama_decode_step(
         )
 
     hidden = _forward_layers(
-        params, config, hidden, positions, slot_mapping, k_caches, v_caches, attn_fn, True, kv_quant
+        params, config, hidden, positions, slot_mapping, k_caches, v_caches, attn_fn, True, kv_quant, mlp_fn
     )
-    return _logits(params, config, hidden), k_caches, v_caches
+    return _logits(params, config, hidden)

@@ -31,8 +31,9 @@ latent cache (L, P, ps, kv_packed_dim) instead, and ``v_caches`` is an
 empty placeholder threaded through the steps untouched. The model is
 Llama by default; ``prefill_fn``/``decode_fn`` swap the family
 (``models.gemma.gemma_prefill``/``gemma_decode_step``,
-``models.deepseek.deepseek_prefill``/``deepseek_decode_step``), as in the
-JAX engine.
+``models.deepseek.deepseek_prefill``/``deepseek_decode_step``,
+``models.moe.mixtral_prefill``/``mixtral_decode_step`` with a
+``MoEConfig``), as in the JAX engine.
 
 Later slices port LoRA, tensor parallelism, speculative decoding,
 parallel sampling (n > 1), guided decoding, logprobs, repetition
@@ -134,15 +135,22 @@ class LLMEngine:
 
     ``params`` come from ``init_llama_params``/``params_from_jax`` (or the
     Gemma counterparts, with ``prefill_fn=gemma_prefill`` and
-    ``decode_fn=gemma_decode_step``, or the DeepSeek ones, with
-    ``prefill_fn=deepseek_prefill`` and ``decode_fn=deepseek_decode_step``)
-    and must lie on ``device`` (None: CUDA; without a CUDA device the engine
-    raises unless ``device="cpu"``). The model functions take
-    ``(params, config, ...)`` with the Llama steps' arguments. Projections
-    that share an input are fused once here, by model family as in the JAX
-    engine: ``fuse_deepseek_params`` for DeepSeek, ``fuse_llama_params``
-    (QKV and gate|up; Llama and Gemma share the layer schema) otherwise;
-    pieces that cannot fuse stay as they are.
+    ``decode_fn=gemma_decode_step``, the DeepSeek ones, with
+    ``prefill_fn=deepseek_prefill`` and ``decode_fn=deepseek_decode_step``,
+    or Mixtral's ``init_moe_params``/``moe_params_from_jax`` with a
+    ``MoEConfig``, ``prefill_fn=mixtral_prefill`` and
+    ``decode_fn=mixtral_decode_step``; the HF converters of
+    ``models.hf`` give each family's params) and must lie on ``device``
+    (None: CUDA; without a CUDA device the engine raises unless
+    ``device="cpu"``). The model functions take ``(params, config, ...)``
+    with the Llama steps' arguments. Projections that share an input are
+    fused once here, by model family as in the JAX engine:
+    ``fuse_deepseek_params`` for DeepSeek, ``fuse_llama_params`` (QKV and
+    gate|up; Llama and Gemma share the layer schema, and Mixtral's expert
+    stacks are raw tensors, so only its wq|wk|wv fuse) otherwise; pieces
+    that cannot fuse stay as they are. ``rolling_kv`` needs a model config
+    with a ``sliding_window``, which ``MoEConfig`` lacks, so Mixtral raises
+    as in the JAX engine.
     """
 
     def __init__(

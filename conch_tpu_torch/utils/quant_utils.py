@@ -40,7 +40,10 @@ def quantize_weights(
         raise ValueError(msg)
     w = w.to(torch.float64)
     wg = w.reshape(size_k // group_size, group_size, size_n)
-    max_q, min_q = float(quant_type.max()), float(quant_type.min())
+    # Divisors as 0-dim tensors on w's device: CUDA divides by a Python
+    # scalar as a product with its reciprocal, one rounding off numpy's
+    # division, which moves codes at rounding ties away from the CPU's.
+    max_q, min_q = (wg.new_full((), float(v)) for v in (quant_type.max(), quant_type.min()))
     w_s = (wg.amax(dim=1) / max_q).abs()
     if min_q != 0:
         w_s = torch.maximum(w_s, (wg.amin(dim=1) / min_q).abs())
