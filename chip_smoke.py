@@ -289,6 +289,27 @@
      with ``moe_ffn``, ``moe_experts`` and the engine's steps in
      ``record_function`` ranges (``report_mixtral_profile``: their device
      time, a decode step's beside the time to read its weights once);
+   then the speculative, parallel-sampling and multi-LoRA paths
+   (``slice_paths``): every row's logits of a 2-layer, full-width verify
+   step (8 x 5 rows after 200 to 1000 cached tokens, 24 padding rows) on
+   the card against the CPU for Llama-3-8B (bf16 in f32 and bf16, int4),
+   Gemma-2-2B, DeepSeek-V2-Lite and Mixtral-8x7B (f32 and bf16; the CPU
+   takes the card's expert choices), every row finite
+   (``check_verify_logits``); the greedy-exact contract at full width
+   (``check_spec_echo``: one verify step over the plain int4 engine's 16
+   tokens a request gives its next tokens, but at a near tie);
+   ``llama3_8b_int4_spec`` (8 motif prompts of about 1024 tokens, 128 new,
+   4 drafted a step, three runs beside the plain engine: tok/s, drafted,
+   accepted, profiled busy ms, idle share and K7 inside the verify
+   steps; the tokens equal up to a divergence at a near tie);
+   ``check_parallel_sampling`` (int4, n 4 with temperature, top-p,
+   logprobs, repetition penalty and logit bias: refcounts and tail pages
+   right after each spawn over bf16 and int8 pools, replay, greedy copies,
+   abort); ``check_lora`` (4 adapters of rank 16: a 2-layer multi-LoRA
+   prefill against each merged model and the CPU, then the int4 engine
+   with and without ``lora``, three runs, the id -1 requests giving the
+   base engine's tokens); DeepSeek-V2-Lite served with speculation
+   (``deepseek_v2_lite_spec``: K11 at the verify step on a served path);
 6. prints the ``kernels`` JSON line (each row's launches from its main
    run: Gemma for the kernels it runs, int4 for K1, K4 and K6, int8, nf4
    and w8a8 for K1b, K1c and K8, the nf4 init for K12q, DeepSeek for K11,
@@ -299,7 +320,10 @@
    for their group-7 rows and K1's Qwen2 row, the vision path for
    K13a, K13b and K13c, the QLoRA path for K12d, the residual stream for
    K4b, the TP-8 collectives path for K14; every path's counts
-   beside them), the card line, then ``{"ok": true, "device": ...}`` as the
+   beside them; K7 V and K11 V, their rows at the verify step
+   (``kernel_phases_verify``), the launches inside the verify steps of
+   ``llama3_8b_int4_spec`` and ``deepseek_v2_lite_spec``), the card
+   line, then ``{"ok": true, "device": ...}`` as the
    last line.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -308,6 +332,7 @@ result line. Without a CUDA device it exits non-zero at once.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -887,6 +912,71 @@ def kernel_phase_k7(gen, rng, cache: str | None = None) -> dict:
         "plain_ms": time_ms(lambda: plain(*args), iters=5),
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
     }
+
+
+def kernel_phases_verify(gen, rng) -> list[dict]:
+    """K7 and K11 at the speculative verify step (VERIFY_*): rows K7 V
+    (Llama-3-8B's heads over a 32-layer bf16 pool, K7_CASES "llama3_8b
+    verify") and K11 V (DeepSeek-V2-Lite's 16 heads over a 27-layer packed
+    latent pool, bf16 queries), each held against its plain version (K7 at
+    2e-2, K11 at K11_TOLERANCES; K7's padding rows exactly zero, K11's
+    finite), and timed; the bounds as ``k7_bound`` and ``kernel_phase_k11``
+    count them."""
+    from conch_tpu_torch.kernels.attention.mla_attention import mla_attention_launcher, mla_attention_plain
+    from conch_tpu_torch.kernels.attention.varlen_attention import varlen_attention_launcher, varlen_attention_plain
+
+    case = k7_inputs(gen, rng, "llama3_8b verify")
+    args = (*case["args"], 0)
+    got, ref = varlen_attention_launcher(*args), varlen_attention_plain(*args)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all() or got[case["total"]:].abs().max().item() != 0.0:
+        raise AssertionError("K7 V: padding rows must come out as finite zeros")
+    err = check_close("K7 varlen_attention at the verify step (8 x 5 rows at ~1000)", got, ref, 2e-2)
+    b_ms, b_by = k7_bound(case, 0)
+    k7 = _kernel_row("varlen_attention_verify", "conch_tpu_torch/csrc/varlen_attention.cu",
+                     "conch_tpu/kernels/attention/varlen_attention.py:247", err,
+                     {"ms": time_ms(lambda: varlen_attention_launcher(*args)),
+                      "paced_ms": paced_ms(lambda: varlen_attention_launcher(*args)),
+                      "plain_ms": time_ms(lambda: varlen_attention_plain(*args), iters=5), "library_ms": None},
+                     b_ms, b_by)
+    del case, args, got, ref
+    torch.cuda.empty_cache()
+
+    num_pages = sum(-(-n // PS) for n in VERIFY_SEQ_LENS) + 1
+    bt = paged_layout(rng, VERIFY_SEQ_LENS, num_pages, share=(0, 0), shared_pages=0, max_pages=MAX_PAGES_PER_SEQ)
+    pool = torch.randn((DS_LAYERS, num_pages, PS, DS_PACKED), generator=gen, device="cuda")
+    pool[..., DS_LATENT + DS_ROPE :] = 0.0
+    layer = pool[DS_LAYER].to(torch.bfloat16)
+    del pool
+    q = torch.randn((VERIFY_ROWS, DS_HEADS, DS_PACKED), generator=gen, device="cuda")
+    q[..., DS_LATENT + DS_ROPE :] = 0.0
+    q = q.to(torch.bfloat16)
+    cu = torch.tensor([VERIFY_Q * i for i in range(VERIFY_SEQS + 1)], dtype=torch.int32, device="cuda")
+    sl = torch.tensor(VERIFY_SEQ_LENS, dtype=torch.int32, device="cuda")
+    margs = (q, layer, cu, VERIFY_MAX_Q, sl, torch.from_numpy(bt).cuda())
+    kw = {"scale": DS_SCALE, "latent": DS_LATENT}
+    got, ref = mla_attention_launcher(*margs, **kw), mla_attention_plain(*margs, **kw)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():  # padding rows: copies of a row of the last sequence, as JAX's
+        raise AssertionError("K11 V: non-finite rows")
+    err = check_close("K11 mla_attention at the verify step (8 x 5 rows at ~1000)", got, ref,
+                      K11_TOLERANCES[torch.bfloat16])
+    visible = sum(s - VERIFY_Q + j + 1 for s in VERIFY_SEQ_LENS for j in range(VERIFY_Q))
+    bytes_moved = (unique_kv_rows(bt, VERIFY_SEQ_LENS) * DS_PACKED * 2 + q.numel() * 2
+                   + VERIFY_ROWS * DS_HEADS * DS_LATENT * 2 + bt.size * 4 + (VERIFY_SEQS * 2 + 1) * 4)
+    b_ms, b_by = bound(bytes_moved, 2 * DS_HEADS * (DS_PACKED + DS_LATENT) * visible)
+    k11 = _kernel_row("mla_attention_verify", "conch_tpu_torch/csrc/mla_attention.cu",
+                      "conch_tpu/kernels/attention/mla_attention.py:51", err,
+                      {"ms": time_ms(lambda: mla_attention_launcher(*margs, **kw)),
+                       "paced_ms": paced_ms(lambda: mla_attention_launcher(*margs, **kw)),
+                       "plain_ms": time_ms(lambda: mla_attention_plain(*margs, **kw), iters=5), "library_ms": None},
+                      b_ms, b_by)
+    for row in (k7, k11):
+        print(f"{row['name']}: {row['ms']:.4f} ms (paced {row['paced_ms']:.4f}, plain {row['plain_ms']:.4f}, "
+              f"bound {row['bound_ms']:.5f} by {row['bound_by']})", flush=True)
+    del margs, layer, q, got, ref
+    torch.cuda.empty_cache()
+    return [k7, k11]
 
 
 # Engine shapes of K1 (K, N): fused wqkv, wo, fused gate|up, w_down.
@@ -1917,6 +2007,12 @@ def k3_bound(case: dict, window: int) -> tuple[float, str]:
     return bound(bytes_moved, 4 * qh * d * sum(n - a for n, a in zip(seq_lens, starts)))
 
 
+# The verify step of the speculative engine (K7 V, K11 V, check_verify_logits):
+# 8 sequences, each its last token and 4 drafted ones, at about 1024 tokens
+# of context; the engine pads its rows to _bucket(40) = 64 and max_seqlen_q
+# to _bucket(5) = 16.
+VERIFY_SEQS, VERIFY_Q, VERIFY_ROWS, VERIFY_MAX_Q = 8, 5, 64, 16
+VERIFY_SEQ_LENS = [995 + 3 * i for i in range(VERIFY_SEQS)]
 # K7's timed prefill steps: name -> (model, rows, table pages, q_lens,
 # seq_lens, (source, reading sequence, shared pages), windows). Llama-3-8B:
 # a 128-row step as the engine packs it: a mixed-in decode row (context
@@ -1932,6 +2028,10 @@ K7_CASES = {
                              [300, 50, 340, 94, 0, 0, 0, 0], (2, 3, 4), (0,)),
     "gemma2 table line": ("gemma", 512, 384, [1, 7, 400] + [0] * 13, [4200, 7, 4600] + [0] * 13, (0, 0, 0),
                           (0, G_WINDOW)),
+    # The speculative verify step (K7 V): 8 sequences of 1 + 4 drafted rows
+    # at contexts of 990 to 1011 (seq_lens 995 to 1016), 40 rows padded to
+    # the engine's bucket of 64.
+    "llama3_8b verify": ("llama", 64, MAX_PAGES_PER_SEQ, [VERIFY_Q] * VERIFY_SEQS, VERIFY_SEQ_LENS, (0, 0, 0), (0,)),
 }
 
 
@@ -4857,6 +4957,7 @@ def kernel_phases() -> list[dict]:
         kernel_phase_k4b(gen), kernel_phase_k12d(gen), kernel_phase_k14(gen), *kernel_phase_ring(gen, rng),
         *kernel_phase_group7(gen, rng), kernel_phase_k1_qwen2(gen), kernel_phase_k8_e4m3(gen),
         kernel_phase_k7_f32(gen, rng), kernel_phase_k1_g32(gen), kernel_phase_k1b_g32(gen), kernel_phase_k1_gemma(gen),
+        *kernel_phases_verify(gen, rng),
     ]
     # The Gemma-2-2B shapes of K2, K3, K5 and K7 go into their rows' detail
     # beside the Llama-3-8B numbers the rows keep.
@@ -5574,12 +5675,15 @@ MIXTRAL_ENGINE = {"num_pages": 1024, "max_batch_size": 8, "max_pages_per_seq": 1
 MIXTRAL_RUNS = 3  # timed runs of the same requests, each on a fresh engine
 
 
-def count_steps(engine) -> list[int]:
+def count_steps(engine) -> tuple[list[int], dict]:
     """Wrap the engine's model step functions so that each call adds one to
     the returned counters: the model steps of a run (then its prefill and
     its decode steps), counted apart from the kernels' launches; then the
-    most pages one sequence held and the most held in all at a model step."""
-    counter = [0, 0, 0, 0, 0]
+    most pages one sequence held and the most held in all at a model step;
+    then its speculative verify steps. The dict returned with them sums the
+    kernels' launches inside the verify steps."""
+    counter = [0, 0, 0, 0, 0, 0]
+    in_verify: dict[str, int] = {}
 
     def counted(fn, kind):
         def step(*args, **kwargs):
@@ -5588,12 +5692,19 @@ def count_steps(engine) -> list[int]:
             held = [len(r.pages) for r in engine.running]
             counter[3] = max(counter[3], max(held, default=0))
             counter[4] = max(counter[4], sum(held))
-            return fn(*args, **kwargs)
+            if kind != 5:
+                return fn(*args, **kwargs)
+            before = read_launch_counts()
+            out = fn(*args, **kwargs)
+            for name, n in read_launch_counts().items():
+                in_verify[name] = in_verify.get(name, 0) + n - before[name]
+            return out
 
         return step
 
-    engine._prefill_fn, engine._decode_fn = counted(engine._prefill_fn, 1), counted(engine._decode_fn, 2)
-    return counter
+    engine._prefill_fn, engine._decode_fn, engine._verify_fn = (
+        counted(engine._prefill_fn, 1), counted(engine._decode_fn, 2), counted(engine._verify_fn, 5))
+    return counter, in_verify
 
 
 def serve(
@@ -5638,7 +5749,7 @@ def serve(
         if at_init[name] != want:
             raise AssertionError(f"{name}: {at_init[name]} launches during the {label} init, expected {want}")
     prompts = make_prompts(np.random.default_rng(SEED), cfg.vocab_size)
-    steps = count_steps(engine)
+    steps, in_verify = count_steps(engine)
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     torch.cuda.synchronize()
@@ -5662,8 +5773,12 @@ def serve(
         record.update(outputs=outputs, seq_pages=steps[3], pages=steps[4], kv_bytes=steps[4] * page_bytes,
                       config=engine.config)
     n_steps = steps[0]
-    print(f"{label}: launches in the served run ({n_steps} model steps: {steps[1]} prefill, {steps[2]} decode): "
-          f"{launches}", flush=True)
+    print(f"{label}: launches in the served run ({n_steps} model steps: {steps[1]} prefill, {steps[2]} decode, "
+          f"{steps[5]} verify): {launches}", flush=True)
+    if steps[5]:
+        print(f"{label}: speculative tokens drafted {engine.spec_tokens_drafted}, accepted "
+              f"{engine.spec_tokens_accepted}; launches inside the verify steps "
+              f"{ {n: v for n, v in in_verify.items() if v} }", flush=True)
     for name in expect:
         if launches[name] <= 0:
             raise AssertionError(f"{name} was never launched on the {label} path")
@@ -5673,6 +5788,7 @@ def serve(
             raise AssertionError(f"{names}: {got} launches on the {label} path, expected {per} x {n_steps} steps")
     print(f"{label}: launches per model step: "
           f"{ {n: launches[n] / n_steps for n in launches if launches[n]} }", flush=True)
+    launches.update({f"{name}_verify": n for name, n in in_verify.items()})
     engine_params, ecfg = engine.params, engine.ecfg
     del engine
     torch.cuda.empty_cache()
@@ -5977,7 +6093,8 @@ PRIMARY_PATH = {
     "varlen_attention_ring": "mistral_7b_int4_rolling", "paged_attention_g7": "qwen2_7b_int4",
     "varlen_attention_g7": "qwen2_7b_int4", "mixed_gemm_magic_qwen2": "qwen2_7b_int4",
     "mixed_gemm_magic_g32": "deepseek_v2_lite_int4", "mixed_gemm_planar_g32": "deepseek_v2_lite_int8",
-    "mixed_gemm_magic_gemma": "gemma2_2b_int4",
+    "mixed_gemm_magic_gemma": "gemma2_2b_int4", "varlen_attention_verify": "llama3_8b_int4_spec",
+    "mla_attention_verify": "deepseek_v2_lite_spec",
 }
 # Rows of a kernel's branch or another model's shapes: the count their
 # launches come from (K3's and K7's ring rows: their launches over a ring).
@@ -5986,6 +6103,8 @@ ROW_COUNTERS = {
     "paged_attention_g7": "paged_attention", "varlen_attention_g7": "varlen_attention",
     "mixed_gemm_magic_qwen2": "mixed_gemm_magic", "mixed_gemm_magic_g32": "mixed_gemm_magic",
     "mixed_gemm_planar_g32": "mixed_gemm_planar", "mixed_gemm_magic_gemma": "mixed_gemm_magic",
+    # K7 V and K11 V: their launches inside the speculative verify steps.
+    "varlen_attention_verify": "varlen_attention_verify", "mla_attention_verify": "mla_attention_verify",
 }
 # K9's callers are its public ops: its row's launches are those of its
 # kernel phase, and it launches on no served path. Neither do K8 over e4m3
@@ -6064,6 +6183,649 @@ def report_mixtral_profile(card: str, cfg, record: dict) -> None:
           f"{expert_ms:.3f} ms for its {expert_bytes / 1e9:.2f} GB of expert weights and {weight_ms:.3f} ms for all "
           f"{weight_bytes / 1e9:.2f} GB of its weights, read once at {HBM_BYTES_PER_S / 1e12} TB/s "
           f"({weight_ms / (step_ms / steps):.3f} of the bound) on {card}", flush=True)
+
+
+# -- the speculative, parallel-sampling and multi-LoRA paths ---------------
+
+# check_verify_logits: the verify step (VERIFY_*) over a cached context of
+# 200 to 1000 tokens a sequence, 2 layers at full width: (model, weights,
+# activation dtype). Gemma-2-2B's window is cut to 512, so that layer 0's
+# mask bites at these contexts.
+VERIFY_CHECK_CASES = (
+    ("llama3_8b", "bf16", torch.float32), ("llama3_8b", "bf16", torch.bfloat16), ("llama3_8b", "int4", torch.bfloat16),
+    ("gemma2_2b", "bf16", torch.float32), ("gemma2_2b", "bf16", torch.bfloat16),
+    ("deepseek_v2_lite", "bf16", torch.float32), ("deepseek_v2_lite", "bf16", torch.bfloat16),
+    ("mixtral_8x7b", "bf16", torch.float32), ("mixtral_8x7b", "bf16", torch.bfloat16),
+)
+VERIFY_CHECK_CONTEXTS = [200, 314, 428, 542, 657, 771, 885, 1000]
+
+
+def verify_check_step(vocab: int) -> list[torch.Tensor]:
+    """The check's verify step on the host: 8 sequences of VERIFY_Q rows
+    after VERIFY_CHECK_CONTEXTS cached tokens, in VERIFY_ROWS rows (the rest
+    padding rows: token 0, slot -1): token ids, positions, cu_seqlens_q,
+    seq_lens, block table (64 pages a row), slots; and the pool's pages."""
+    rng = np.random.default_rng(SEED + 3)
+    total = VERIFY_SEQS * VERIFY_Q
+    seq_lens = [c + VERIFY_Q for c in VERIFY_CHECK_CONTEXTS]
+    num_pages = sum(-(-n // PS) for n in seq_lens) + 1
+    bt = paged_layout(rng, seq_lens, num_pages, share=(0, 0), shared_pages=0, max_pages=MAX_PAGES_PER_SEQ)
+    tokens = np.zeros(VERIFY_ROWS, np.int32)
+    tokens[:total] = rng.integers(0, vocab, total)
+    positions = np.zeros(VERIFY_ROWS, np.int32)
+    positions[:total] = [c + j for c in VERIFY_CHECK_CONTEXTS for j in range(VERIFY_Q)]
+    slots = np.full(VERIFY_ROWS, -1, np.int32)
+    slots[:total] = [int(bt[b, p // PS]) * PS + p % PS for b, c in enumerate(VERIFY_CHECK_CONTEXTS)
+                     for p in range(c, c + VERIFY_Q)]
+    cu = np.arange(0, total + 1, VERIFY_Q, dtype=np.int32)
+    host = [torch.from_numpy(a) for a in (tokens, positions, cu, np.array(seq_lens, np.int32), bt, slots)]
+    return host, num_pages
+
+
+class RouteReplay:
+    """Wraps a model's router (``module.name`` returning (weights, experts))
+    for a card run and then a CPU run on the same step: the card run's
+    ordered experts are recorded call by call; during the CPU run each call
+    records its own choice, then takes the card's (weights recomputed by
+    ``weights_of(args, experts)`` from the CPU's own router logits). A near
+    tie that the two devices break apart then moves no other row's
+    capacity, and the logits compare row by row."""
+
+    def __init__(self, module, name: str, weights_of):
+        self.module, self.name, self.route, self.weights_of = module, name, getattr(module, name), weights_of
+        self.card, self.own, self.replaying = [], [], False
+
+    def __enter__(self):
+        def route(*args, **kwargs):
+            weights, experts = self.route(*args, **kwargs)
+            if not self.replaying:
+                self.card.append(experts.cpu())
+                return weights, experts
+            self.own.append(experts.cpu())
+            experts = self.card[len(self.own) - 1].to(experts.device)
+            return self.weights_of(args, kwargs, experts), experts
+
+        setattr(self.module, self.name, route)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.route)
+
+    def differing_rows(self) -> int:
+        """Rows whose ordered choice differs between the devices, over every call."""
+        return sum(int((a != b).any(dim=-1).sum()) for a, b in zip(self.card, self.own, strict=True))
+
+
+def _verify_case(family: str, quant_mode: str, dtype: torch.dtype):
+    """(label, config, params on the card, verify_fn, cache shape, RouteReplay or None)."""
+    import conch_tpu_torch.models.deepseek as ds
+    import conch_tpu_torch.models.moe as moe
+    from conch_tpu_torch.models.gemma import GemmaConfig, gemma_verify_forward, init_gemma_params
+    from conch_tpu_torch.models.llama import LlamaConfig, fuse_llama_params, init_llama_params, llama_verify_forward
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    label = f"{family}, {quant_mode} weights, {str(dtype).removeprefix('torch.')}"
+    replay = None
+    if family == "llama3_8b":
+        cfg = dataclasses.replace(LlamaConfig.llama3_8b(), num_layers=2, dtype=dtype)
+        params = fuse_llama_params(init_llama_params(SEED, cfg, quant_mode, device="cuda"))
+        fn, kv = llama_verify_forward, (cfg.num_kv_heads, PS, cfg.head_dim)
+    elif family == "gemma2_2b":
+        cfg = dataclasses.replace(GemmaConfig.gemma2_2b(), num_layers=2, sliding_window=512, dtype=dtype)
+        params = fuse_llama_params(random_norm_weights(init_gemma_params(SEED, cfg, device="cuda"), gen))
+        fn, kv = gemma_verify_forward, (cfg.num_kv_heads, PS, cfg.head_dim)
+    elif family == "deepseek_v2_lite":
+        cfg = dataclasses.replace(ds.DeepseekV2Config.v2_lite(), num_layers=2, dtype=dtype)
+        params = ds.fuse_deepseek_params(ds.init_deepseek_params(SEED, cfg, device="cuda"))
+        for stack in ("layers_dense", "layers_moe"):
+            for n, w in params[stack].items():
+                if n.endswith("_norm"):
+                    w.copy_(1.0 + 0.3 * torch.randn(w.shape, generator=gen, device="cuda"))
+        fn, kv = ds.deepseek_verify_forward, (PS, cfg.kv_packed_dim)
+
+        def ds_weights(args, kwargs, experts):  # V2-Lite's greedy gate: softmax over all, no renormalization
+            hidden, router_w, config = args[:3]
+            probs = torch.softmax(hidden.float() @ router_w.float(), dim=-1)
+            return probs.gather(1, experts.long()) * config.routed_scaling_factor
+
+        replay = RouteReplay(ds, "deepseek_route", ds_weights)
+    else:
+        cfg = mixtral_config(2, dtype)
+        params = fuse_llama_params(moe.init_moe_params(SEED, cfg, quant_mode, device="cuda"))
+        fn, kv = moe.mixtral_verify_forward, (cfg.llama.num_kv_heads, PS, cfg.llama.head_dim)
+
+        def moe_weights(args, kwargs, experts):  # Mixtral: the softmax of the chosen experts' logits
+            return torch.softmax(torch.gather(args[0].float(), 1, experts.long()), dim=-1)
+
+        replay = RouteReplay(moe, "route_topk", moe_weights)
+    if family != "deepseek_v2_lite":
+        norms = [params["final_norm"]] + [w for n, w in params["layers"].items() if n.endswith("_norm")]
+        if family != "gemma2_2b":
+            for w in norms:
+                w.copy_(1.0 + 0.3 * torch.randn(w.shape, generator=gen, device="cuda"))
+    return label, cfg, params, fn, kv, replay
+
+
+def check_verify_logits(cases=VERIFY_CHECK_CASES) -> None:
+    """Every row's logits of a 2-layer, full-width verify step (8 sequences
+    of 1 + 4 rows after 200 to 1000 cached tokens, 24 padding rows, 64 in
+    all) on the card (K7, or K11 for DeepSeek, at the verify shape; K1 for
+    int4) against the same step on the CPU (plain versions), over the same
+    random cache (N(0, 1) rows; DeepSeek's pad columns zero): Llama-3-8B
+    (bf16 weights in f32 and bf16, int4 in bf16), Gemma-2-2B (window cut to
+    512), DeepSeek-V2-Lite and Mixtral-8x7B in f32 and bf16, random norm
+    weights; MoE routing through ``RouteReplay`` (the CPU takes the card's
+    ordered experts; in f32 its own choice must equal the card's on every
+    row). Held by ``logits_agree`` at PREFILL_TOLERANCES; every row finite,
+    the padding rows' too (Mixtral's included, where the JAX package's are
+    NaN)."""
+    require_full_f32("check_verify_logits")
+    for family, quant_mode, dtype in cases:
+        label, cfg, params, fn, kv, replay = _verify_case(family, quant_mode, dtype)
+        vocab = cfg.llama.vocab_size if family == "mixtral_8x7b" else cfg.vocab_size
+        host, num_pages = verify_check_step(vocab)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+        kc = torch.randn((2, num_pages, *kv), generator=gen, device="cuda").to(dtype)
+        if family == "deepseek_v2_lite":
+            kc[..., cfg.kv_lora_rank + cfg.qk_rope_head_dim :] = 0
+            vc = torch.zeros(0, dtype=dtype, device="cuda")
+        else:
+            vc = torch.randn(kc.shape, generator=gen, device="cuda").to(dtype)
+        kc_cpu, vc_cpu = kc.cpu(), vc.cpu()
+        t = [a.cuda() for a in host]
+        with replay if replay is not None else contextlib.nullcontext():
+            logits, _, _ = fn(params, cfg, t[0], t[1], t[2], VERIFY_MAX_Q, t[3], t[4], t[5], kc, vc)
+            logits = logits.cpu()
+            cpu_params = to_device(params, "cpu")
+            del params, kc, vc
+            torch.cuda.empty_cache()
+            if replay is not None:
+                replay.replaying = True
+            ref, _, _ = fn(cpu_params, cfg, *host[:3], VERIFY_MAX_Q, *host[3:], kc_cpu, vc_cpu)
+        del cpu_params
+        gc.collect()
+        if logits.shape != (VERIFY_ROWS, vocab) or not torch.isfinite(logits).all():
+            raise AssertionError(f"verify logits ({label}): shape {tuple(logits.shape)} or non-finite values")
+        routing = ""
+        if replay is not None:
+            differ = replay.differing_rows()
+            routing = f"; MoE rows whose own routing differs from the card's (the CPU took the card's): {differ}"
+            if dtype == torch.float32 and differ:
+                raise AssertionError(f"verify check ({label}): MoE routing differs from the CPU's in f32")
+        ok, err, scale, rule = logits_agree(logits, ref, dtype, PREFILL_TOLERANCES[dtype])
+        print(f"2-layer verify logits, {label}, 8 x 5 rows after 200 to 1000 cached tokens and 24 padding rows, "
+              f"card vs plain path on the CPU: max_abs_err {err:.3e}, max|ref| {scale:.3f}, tolerance {rule}"
+              f"{routing}", flush=True)
+        if not ok:
+            raise AssertionError(f"2-layer verify logits ({label}) disagree with the plain path")
+
+
+# The served speculative path and its checks (Llama-3-8B int4, 32 layers;
+# DeepSeek-V2-Lite): 8 prompts, each a 16-token motif drawn from the seed
+# repeated to 1000 to 1049 tokens; 4 drafted tokens a step; 128 new tokens
+# a request (DeepSeek: 32).
+SPEC_ENGINE = {"num_pages": 2048, "max_batch_size": 8, "max_pages_per_seq": 80}
+SPEC_MOTIF, SPEC_TOKENS, SPEC_MAX_TOKENS, SPEC_RUNS = 16, 4, 128, 3
+SPEC_NEAR_TIE = PREFILL_TOLERANCES[torch.bfloat16]  # logits_agree's bf16 rule: a gap within 3e-2 x max |logit|
+
+
+def spec_prompts(rng: np.random.Generator, vocab: int) -> list[list[int]]:
+    """8 prompts of 1000 to 1049 tokens, each its own 16-token motif repeated."""
+    return [(rng.integers(0, vocab, SPEC_MOTIF).tolist() * 70)[: 1000 + 7 * i] for i in range(8)]
+
+
+def last_logits(params: dict, cfg, tokens: list[int]) -> torch.Tensor:
+    """The logits after ``tokens``: one prefill of one sequence on the card
+    over a cache of its own (Llama family)."""
+    from conch_tpu_torch.models.llama import init_kv_caches, llama_prefill
+
+    t = len(tokens)
+    pages = -(-t // PS)
+    kc, vc = init_kv_caches(cfg, pages, PS, device="cuda")
+    bt = torch.arange(pages, dtype=torch.int32, device="cuda")[None]
+    logits, _, _ = llama_prefill(
+        params, cfg, torch.tensor(tokens, dtype=torch.int32, device="cuda"),
+        torch.arange(t, dtype=torch.int32, device="cuda"), torch.tensor([0, t], dtype=torch.int32, device="cuda"),
+        t, torch.tensor([t], dtype=torch.int32, device="cuda"), bt, torch.arange(t, dtype=torch.int32, device="cuda"),
+        kc, vc,
+    )
+    return logits[0].float().cpu()
+
+
+def near_tie(logits: torch.Tensor, a: int, b: int, bound: float | None = None) -> tuple[bool, float]:
+    """Whether tokens ``a`` and ``b`` tie: their logits' gap within ``bound``
+    (logit units), or within SPEC_NEAR_TIE x max |logit| without one; the gap."""
+    gap = abs(logits[a].item() - logits[b].item())
+    return gap <= (SPEC_NEAR_TIE * logits.abs().max().item() if bound is None else bound), gap
+
+
+def check_diverged(label: str, params: dict, cfg, prompts: list, got: list, want: list, spread: float) -> int:
+    """``got`` equals ``want`` request by request up to a first divergence,
+    which must sit at a near tie: under a prefill of the history there, the
+    two tokens' logits within twice ``spread`` (``check_spec_echo``'s measured
+    difference between two 32-layer bf16 paths' logits, so that either
+    path's logits lie within it of the prefill's). Returns the requests
+    equal throughout."""
+    equal = 0
+    for i, (a, b) in enumerate(zip(got, want, strict=True)):
+        if a == b:
+            equal += 1
+            continue
+        p = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        tied, gap = near_tie(last_logits(params, cfg, prompts[i] + b[:p]), a[p], b[p], 2 * spread)
+        print(f"{label}: request {i} diverges at token {p} ({a[p]} against {b[p]}): logit gap {gap:.4f} "
+              f"(near tie within {2 * spread:.4f}), {'a near tie' if tied else 'NOT a near tie'}", flush=True)
+        if not tied:
+            raise AssertionError(f"{label}: request {i} diverges at token {p} away from a near tie")
+    return equal
+
+
+def check_spec_echo(card: str, params: dict, cfg, prompts: list) -> float:
+    """The greedy-exact contract at full width: the plain int4 engine's 16
+    greedy tokens on the 8 spec prompts, then one verify step over them on a
+    fresh engine (each sequence's first token and the next 14, 120 rows in
+    128): each row's argmax must equal the next plain token, but at a near
+    tie (SPEC_NEAR_TIE x max |logit|, logits_agree's bf16 rule). Returns the
+    spread of two 32-layer bf16 paths: the largest difference between a
+    sequence's last verify row and a prefill of the same history, over the
+    8 sequences (logit units)."""
+    from conch_tpu_torch.serving import EngineConfig, LLMEngine, SamplingParams
+    from conch_tpu_torch.serving.engine import RequestState
+
+    plain = LLMEngine(params, cfg, EngineConfig(**SPEC_ENGINE)).generate(prompts, SamplingParams(max_tokens=16))
+    engine = LLMEngine(params, cfg, EngineConfig(**SPEC_ENGINE, mixed_batching=False))  # no decode before the last prefill
+    for p in prompts:
+        engine.add_request(p, SamplingParams(max_tokens=16))
+    while engine.waiting or any(r.state == RequestState.PREFILLING for r in engine.running):
+        engine.step()
+    reqs = engine.running
+    if [r.output_tokens for r in reqs] != [out[:1] for out in plain]:
+        raise AssertionError("spec echo: the prefill's first tokens differ from the plain engine's")
+    reqs = engine._ensure_decode_pages(reqs, extra={r.request_id: 14 for r in reqs})
+    chunks = [(r, r.total_len - 1, [r.output_tokens[-1], *out[1:15]]) for r, out in zip(reqs, plain)]
+    logits, total, _ = engine._ragged_step(engine._verify_fn, chunks)
+    logits = logits[:total].float().cpu()
+    preds = logits.argmax(dim=-1).tolist()
+    agree, ties = 0, []
+    for i, out in enumerate(plain):
+        for j in range(15):
+            row, want = 15 * i + j, out[j + 1]
+            if preds[row] == want:
+                agree += 1
+                continue
+            tied, gap = near_tie(logits[row], preds[row], want)
+            ties.append((i, j, round(gap, 4)))
+            if not tied:
+                raise AssertionError(f"spec echo: request {i} row {j}: verify argmax {preds[row]} against plain "
+                                     f"{want}, logit gap {gap:.4f} away from a near tie")
+    spread = max((logits[15 * i + 14] - last_logits(params, cfg, p + out[:15])).abs().max().item()
+                 for i, (p, out) in enumerate(zip(prompts, plain)))
+    print(f"spec echo (llama3-8b int4, 32 layers): {agree} of {total} verify rows give the plain engine's next "
+          f"greedy token; near ties at (request, row, gap) {ties}; the last verify row against a prefill of the "
+          f"same history differs by up to {spread:.4f} (max |logit| {logits.abs().max().item():.3f}) on {card}",
+          flush=True)
+    return spread
+
+
+def profile_spec_run(fn, engine) -> dict:
+    """``fn()`` under torch.profiler with the engine's verify steps in
+    ``record_function`` ranges: busy ms, wall ms, the idle share of the
+    kernels' window, and the device ms and launches of K7's kernels inside
+    the verify steps (``range_device_ms``)."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    verify = engine._verify_fn
+
+    def ranged(*args, **kwargs):
+        with torch.profiler.record_function("verify_step"):
+            return verify(*args, **kwargs)
+
+    engine._verify_fn = ranged
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    engine._verify_fn = verify
+    with tempfile.TemporaryDirectory() as tmp:
+        prof.export_chrome_trace(f"{tmp}/trace.json")
+        with open(f"{tmp}/trace.json") as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not kernels:
+        return {"busy": None, "wall": wall, "idle": None, "k7_verify_ms": None, "k7_verify_kernels": None}
+    busy = sum(e["dur"] for e in kernels) / 1e3
+    window = (max(e["ts"] + e["dur"] for e in kernels) - min(e["ts"] for e in kernels)) / 1e3
+    k7 = [e for e in kernels if any(n in e["name"] for n in ("varlen_tile", "varlen_merge", "varlen_rows"))]
+    k7_ms, _, k7_n = range_device_ms(events, k7, ("verify_step",))["verify_step"]
+    return {"busy": busy, "wall": wall, "idle": 1 - busy / window, "k7_verify_ms": k7_ms, "k7_verify_kernels": k7_n}
+
+
+def serve_spec(card: str, params: dict, cfg, spread: float) -> dict:
+    """``llama3_8b_int4_spec``: the spec prompts served SPEC_RUNS times by a
+    fresh speculative engine (SPEC_TOKENS drafted a step) beside a fresh
+    plain one; each run's tok/s, the spec counters and the launches inside
+    the verify steps; in the first round a profiled repeat of each (busy
+    ms, idle share, K7's device ms and kernels inside the verify steps: a
+    profile of a run costs about 20 s, so the later rounds are timed only,
+    to keep the slice's phases within 150 s). The speculative tokens must
+    equal the plain ones up to a first divergence at a near tie, and every
+    round's tokens the first round's. Returns the first speculative run's
+    launches (K7's inside the verify steps as ``varlen_attention_verify``)."""
+    from conch_tpu_torch.serving import EngineConfig, LLMEngine, SamplingParams
+
+    prompts = spec_prompts(np.random.default_rng(SEED), cfg.vocab_size)
+    sampling = SamplingParams(max_tokens=SPEC_MAX_TOKENS)
+    n_tokens = len(prompts) * SPEC_MAX_TOKENS
+    launches, rates, first = None, {"plain": [], "spec": []}, None
+    for run in range(SPEC_RUNS):
+        outs = {}
+        for kind in ("plain", "spec"):
+            ecfg = EngineConfig(**SPEC_ENGINE, num_speculative_tokens=SPEC_TOKENS if kind == "spec" else 0)
+            engine = LLMEngine(params, cfg, ecfg)
+            steps, in_verify = count_steps(engine)
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[kind] = engine.generate(prompts, sampling)
+            torch.cuda.synchronize()
+            rate = n_tokens / (time.perf_counter() - t0)
+            rates[kind].append(rate)
+            counts = read_launch_counts()
+            if kind == "spec" and launches is None:
+                launches = {**counts, **{f"{n}_verify": v for n, v in in_verify.items()}}
+            profiled = "not profiled"
+            if run == 0:
+                again = LLMEngine(params, cfg, ecfg)
+                prof = profile_spec_run(lambda e=again: e.generate(prompts, sampling), again)
+                del again
+                busy = "not measured" if prof["busy"] is None else f"{prof['busy']:.1f} ms"
+                idle = "not measured" if prof["idle"] is None else f"{prof['idle']:.3f}"
+                k7 = ("not measured" if prof["k7_verify_ms"] is None else
+                      f"{prof['k7_verify_ms']:.2f} ms of device time in {prof['k7_verify_kernels']} kernels")
+                profiled = (f"profiled repeat: busy {busy} of {prof['wall']:.1f} ms wall, idle share {idle}, K7 "
+                            f"inside verify steps {k7}")
+            print(f"llama3-8b-int4-spec run {run + 1} of {SPEC_RUNS}, {kind}: {rate:.2f} generated tok/s "
+                  f"({n_tokens} tokens, prompts {[len(p) for p in prompts]}); {steps[0]} model steps ({steps[1]} "
+                  f"prefill, {steps[2]} decode, {steps[5]} verify); drafted {engine.spec_tokens_drafted}, accepted "
+                  f"{engine.spec_tokens_accepted}; K7 launches {counts['varlen_attention']}, inside verify steps "
+                  f"{in_verify.get('varlen_attention', 0)}; {profiled} on {card}", flush=True)
+            del engine
+            gc.collect()  # count_steps' wrappers hold the engine in a cycle
+            torch.cuda.empty_cache()
+        if any(len(o) != SPEC_MAX_TOKENS for o in outs["spec"] + outs["plain"]):
+            raise AssertionError("llama3-8b-int4-spec: a request finished short of its tokens")
+        if first is None:
+            first = outs
+            equal = check_diverged("llama3-8b-int4-spec", params, cfg, prompts, outs["spec"], outs["plain"], spread)
+            print(f"llama3-8b-int4-spec: {equal} of {len(prompts)} requests give the plain engine's 128 greedy tokens "
+                  f"throughout", flush=True)
+        elif outs != first:
+            raise AssertionError(f"llama3-8b-int4-spec: run {run + 1}'s tokens differ from run 1's")
+    print(f"llama3-8b-int4-spec: generated tok/s in each of {SPEC_RUNS} runs: speculative "
+          f"{[round(r, 2) for r in rates['spec']]}, plain {[round(r, 2) for r in rates['plain']]} on {card}", flush=True)
+    if launches["varlen_attention_verify"] <= 0:
+        raise AssertionError("llama3-8b-int4-spec: K7 never launched inside a verify step")
+    return launches
+
+
+def check_parallel_sampling(card: str, params: dict, cfg, spread: float) -> None:
+    """Parallel sampling on Llama-3-8B int4 at full width: 4 prompts of 100
+    to 515 tokens (partial tail pages), n 4, temperature 0.8, top_p 0.95,
+    logprobs, repetition penalty 1.1 and a logit bias; prefix caching off.
+    Right after each parent's spawn, each full prompt page has refcount 4
+    and each sibling's tail page equals the parent's byte for byte in every
+    layer, over a bf16 and an int8 KV pool. A replay from the same seed gives
+    the same tokens and logprobs; every logprob is finite and at most 0. At
+    greedy, n 4 gives four copies of the n 1 output. Aborting a parent
+    mid-run returns every page of its group to the pool."""
+    from conch_tpu_torch.serving import EngineConfig, LLMEngine, SamplingParams
+
+    rng = np.random.default_rng(SEED + 4)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (100, 237, 410, 515)]
+    ecfg = EngineConfig(num_pages=1024, max_batch_size=16, max_pages_per_seq=64, enable_prefix_caching=False,
+                        seed=SEED)
+    sampling = SamplingParams(max_tokens=16, n=4, temperature=0.8, top_p=0.95, logprobs=True, repetition_penalty=1.1,
+                              logit_bias=((13, 2.0), (42, -1.0)))
+    runs = []
+    for cache in (None, torch.int8, None):
+        engine = LLMEngine(params, cfg, ecfg, cache_dtype=cache)
+        ids = [engine.add_request(p, sampling) for p in prompts]
+        checked, finished = set(), {}
+        t0 = time.perf_counter()
+        while engine.waiting or engine.running:
+            for r in engine.step():
+                finished[r.request_id] = r
+            live = {r.request_id: r for r in engine.running}
+            for rid in ids:
+                if rid in checked or rid not in engine._group:
+                    continue
+                checked.add(rid)
+                parent, sibs = live[rid], [live[s] for s in engine._group[rid]]
+                full, partial = divmod(len(parent.prompt), ecfg.page_size)
+                if partial == 0 or len(sibs) != 3:
+                    raise AssertionError(f"parallel sampling: request {rid} spawned {len(sibs)} siblings")
+                refs = [engine.allocator._refcount[p] for p in parent.pages[:full]]
+                if refs != [4] * full:
+                    raise AssertionError(f"parallel sampling: shared prompt pages' refcounts {refs}, not 4")
+                tail = parent.pages[full]
+                for sib in sibs:
+                    for pool in (engine.k_caches, engine.v_caches):
+                        if not torch.equal(pool[:, sib.pages[full]].view(torch.uint8), pool[:, tail].view(torch.uint8)):
+                            raise AssertionError(f"parallel sampling: a sibling's tail page differs from the parent's "
+                                                 f"({engine.k_caches.dtype} pool)")
+        seconds = time.perf_counter() - t0
+        groups = [[finished[i], *(finished[s] for s in engine._group[i])] for i in ids]
+        lps = [lp for g in groups for r in g for lp in r.output_logprobs]
+        if len(checked) != len(prompts) or len(lps) != 16 * 16 or not all(math.isfinite(x) and x <= 0 for x in lps):
+            raise AssertionError("parallel sampling: a group unchecked, or a logprob missing, non-finite or above 0")
+        if engine.allocator.num_free != ecfg.num_pages:
+            raise AssertionError("parallel sampling: pages still held after the run")
+        runs.append([[(r.output_tokens, r.output_logprobs) for r in g] for g in groups])
+        distinct = sum(len({tuple(r.output_tokens) for r in g}) for g in groups)
+        print(f"parallel sampling (llama3-8b int4, {str(engine.k_caches.dtype).removeprefix('torch.')} KV): 4 groups "
+              f"of 4 spawned, shared prompt pages at refcount 4, every sibling's tail page equal to its parent's in "
+              f"all 32 layers; {distinct} distinct completions of 16; logprobs in [{min(lps):.3f}, {max(lps):.3f}]; "
+              f"{16 * 16 / seconds:.2f} generated tok/s on {card}", flush=True)
+        del engine
+        torch.cuda.empty_cache()
+    if runs[2] != runs[0]:
+        raise AssertionError("parallel sampling: a replay from the same seed gave other tokens or logprobs")
+    greedy = LLMEngine(params, cfg, ecfg).generate(prompts, SamplingParams(max_tokens=16, n=4))
+    single = LLMEngine(params, cfg, ecfg).generate(prompts, SamplingParams(max_tokens=16))
+    if any(g != [g[0]] * 4 for g in greedy):
+        raise AssertionError("parallel sampling: the members of a greedy n 4 group differ")
+    copies = check_diverged("parallel sampling, greedy n 4 against n 1", params, cfg, prompts,
+                            [g[0] for g in greedy], single, spread)
+    engine = LLMEngine(params, cfg, ecfg)
+    rid = engine.add_request(prompts[3], SamplingParams(max_tokens=64, n=4))
+    for _ in range(4):
+        engine.step()
+    held = ecfg.num_pages - engine.allocator.num_free
+    if len(engine.running) != 4 or not engine.abort_request(rid) or engine.running:
+        raise AssertionError("parallel sampling: aborting the parent did not end its group")
+    if engine.allocator.num_free != ecfg.num_pages:
+        raise AssertionError("parallel sampling: the aborted group's pages were not all returned")
+    print(f"parallel sampling: a replay from the same seed gave the same tokens and logprobs; greedy n 4 gave four "
+          f"equal members a group, {copies} of 4 groups the n 1 output throughout (the others up to a near tie: the "
+          f"n 1 run steps other row counts); aborting a parent after 4 steps returned its group's {held} pages",
+          flush=True)
+    del engine
+    torch.cuda.empty_cache()
+
+
+# check_lora: 4 adapters of rank 16 (alpha 32) over wq, wk, wv, wo, w_gate
+# and w_down, drawn from seeds SEED + 10 to SEED + 13.
+LORA_TARGETS = ("wq", "wk", "wv", "wo", "w_gate", "w_down")
+LORA_ADAPTERS, LORA_RANK = 4, 16
+LORA_SERVED_IDS = [0, 1, 2, 3, -1, 0, -1, 2]
+LORA_RUNS = 3
+
+
+def lora_adapters(cfg):
+    from conch_tpu_torch.models.lora import init_lora_adapter
+
+    return [init_lora_adapter(SEED + 10 + a, cfg, rank=LORA_RANK, alpha=2.0 * LORA_RANK, targets=LORA_TARGETS,
+                              device="cuda") for a in range(LORA_ADAPTERS)]
+
+
+def check_lora(card: str, int4_params: dict, int4_cfg, spread: float) -> dict:
+    """Multi-LoRA. (1) 2 layers of Llama-3-8B at full width in bf16: one
+    prefill of 5 prompts (21, 17, 25, 12 and 30 tokens) with per-token ids
+    0, 1, 2, 3 and -1 (padding rows -1) against each adapter merged into the
+    weights (``merge_lora_into_params``) on the card, and against the same
+    multi-LoRA prefill on the CPU, at PREFILL_TOLERANCES; the fused gate|up
+    is split for w_gate's adapter (K6's parts form). (2) Served: Llama-3-8B
+    int4 (32 layers) with the 4 adapters at every layer, 8 requests of 40 to
+    900 tokens with ids LORA_SERVED_IDS, LORA_RUNS timed runs beside the
+    same engine without ``lora``; the requests with id -1 must give the base
+    engine's greedy tokens, up to a near tie. Returns the first LoRA run's
+    launches."""
+    from conch_tpu_torch.kernels.activation.silu_and_mul import silu_and_mul_parts_launcher
+    from conch_tpu_torch.models.llama import LlamaConfig, fuse_llama_params, init_llama_params, llama_prefill
+    from conch_tpu_torch.models.lora import merge_lora_into_params, stack_lora_adapters
+    from conch_tpu_torch.serving import EngineConfig, LLMEngine, SamplingParams
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), num_layers=2, dtype=torch.bfloat16)
+    params = init_llama_params(SEED, cfg, device="cuda")
+    adapters = lora_adapters(cfg)
+    stacked = stack_lora_adapters(adapters)
+    rng = np.random.default_rng(SEED + 5)
+    lens, ids_by_seq = [21, 17, 25, 12, 30], [0, 1, 2, 3, -1]
+    total, rows, batch = sum(lens), 128, 8
+    tokens = np.zeros(rows, np.int32)
+    tokens[:total] = rng.integers(0, cfg.vocab_size, total)
+    positions = np.zeros(rows, np.int32)
+    positions[:total] = np.concatenate([np.arange(n) for n in lens])
+    bt = np.zeros((batch, 4), np.int32)
+    slots = np.full(rows, -1, np.int32)
+    page = 0
+    for b, n in enumerate(lens):
+        bt[b, : -(-n // PS)] = np.arange(page, page + -(-n // PS))
+        page += -(-n // PS)
+    slots[:total] = [int(bt[b, p // PS]) * PS + p % PS for b, n in enumerate(lens) for p in range(n)]
+    cu = np.full(batch + 1, total, np.int32)
+    cu[: len(lens) + 1] = np.concatenate([[0], np.cumsum(lens)])
+    seq_lens = np.zeros(batch, np.int32)
+    seq_lens[: len(lens)] = lens
+    ids = np.full(rows, -1, np.int32)
+    ids[:total] = np.repeat(ids_by_seq, lens)
+    host = [torch.from_numpy(a) for a in (tokens, positions, cu, seq_lens, bt, slots, ids)]
+
+    def prefill(p, device, **lora):
+        from conch_tpu_torch.models.llama import init_kv_caches
+
+        kc, vc = init_kv_caches(cfg, page, PS, device=device)
+        t = [a.to(device) for a in host]
+        logits, _, _ = llama_prefill(p, cfg, t[0], t[1], t[2], 32, t[3], t[4], t[5], kc, vc, **lora)
+        return logits.float().cpu()
+
+    reset_launch_counts()
+    multi = prefill(fuse_llama_params(params), "cuda", lora=stacked, lora_ids=host[6].cuda())
+    parts = silu_and_mul_parts_launcher.launches
+    tol = PREFILL_TOLERANCES[torch.bfloat16]
+    for b, aid in enumerate(ids_by_seq):
+        merged = params if aid < 0 else merge_lora_into_params(params, adapters[aid])
+        ref = prefill(fuse_llama_params(merged), "cuda")
+        ok, err, scale, rule = logits_agree(multi[b], ref[b], torch.bfloat16, tol)
+        print(f"2-layer multi-LoRA prefill (Llama-3-8B, bf16), sequence {b} (adapter {aid}) against "
+              f"{'the base weights' if aid < 0 else 'its adapter merged into the weights'} on the card: max_abs_err "
+              f"{err:.3e}, max|ref| {scale:.3f}, tolerance {rule}", flush=True)
+        if not ok:
+            raise AssertionError(f"multi-LoRA prefill: sequence {b} (adapter {aid}) disagrees with its merged model")
+    cpu = prefill(to_device(fuse_llama_params(params), "cpu"), "cpu", lora=to_device(stacked, "cpu"),
+                  lora_ids=host[6])
+    ok, err, scale, rule = logits_agree(multi, cpu, torch.bfloat16, tol)
+    print(f"2-layer multi-LoRA prefill (Llama-3-8B, bf16), card vs plain path on the CPU: max_abs_err {err:.3e}, "
+          f"max|ref| {scale:.3f}, tolerance {rule}; K6's parts form launched {parts} times (w_gate's adapter splits "
+          f"the fused gate|up)", flush=True)
+    if not ok or parts != cfg.num_layers:
+        raise AssertionError("multi-LoRA prefill disagrees with the plain path, or K6's parts form did not run")
+    del params, adapters, stacked
+    torch.cuda.empty_cache()
+
+    stacked = stack_lora_adapters(lora_adapters(int4_cfg))
+    prompts = quant_prompts(np.random.default_rng(SEED), int4_cfg.vocab_size)
+    sampling = SamplingParams(max_tokens=32)
+    ecfg = EngineConfig(num_pages=2048, max_batch_size=8, max_pages_per_seq=64)
+    n_tokens = len(prompts) * 32
+    rates, outs, launches = {"lora": [], "base": []}, {}, None
+    for run in range(LORA_RUNS):
+        for kind in ("base", "lora"):
+            engine = LLMEngine(int4_params, int4_cfg, ecfg, lora=stacked if kind == "lora" else None)
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = engine.generate(prompts, sampling, lora_ids=[None if i < 0 else i for i in LORA_SERVED_IDS]
+                                  if kind == "lora" else None)
+            torch.cuda.synchronize()
+            rates[kind].append(n_tokens / (time.perf_counter() - t0))
+            if run == 0:
+                outs[kind] = out
+                if kind == "lora":
+                    launches = read_launch_counts()
+                    parts = silu_and_mul_parts_launcher.launches
+            elif out != outs[kind]:
+                raise AssertionError(f"served multi-LoRA: run {run + 1}'s {kind} tokens differ from run 1's")
+            del engine
+            torch.cuda.empty_cache()
+    base_rows = [i for i, a in enumerate(LORA_SERVED_IDS) if a < 0]
+    equal = check_diverged("served multi-LoRA, id -1 rows", int4_params, int4_cfg, [prompts[i] for i in base_rows],
+                           [outs["lora"][i] for i in base_rows], [outs["base"][i] for i in base_rows], spread)
+    changed = sum(outs["lora"][i] != outs["base"][i] for i, a in enumerate(LORA_SERVED_IDS) if a >= 0)
+    print(f"llama3-8b-int4-lora: 8 requests (prompts {[len(p) for p in prompts]}, 32 tokens each, adapter ids "
+          f"{LORA_SERVED_IDS}): generated tok/s in each of {LORA_RUNS} runs {[round(r, 2) for r in rates['lora']]}, "
+          f"without lora {[round(r, 2) for r in rates['base']]} on {card}; {equal} of {len(base_rows)} id -1 requests "
+          f"give the base engine's tokens, {changed} of {8 - len(base_rows)} adapter requests differ from them; "
+          f"K6 launches {launches['silu_and_mul']}, of them its parts form {parts}", flush=True)
+    if changed == 0:
+        raise AssertionError("served multi-LoRA: no adapter changed a request's tokens")
+    return launches
+
+
+def slice_paths(card: str, lap) -> dict:
+    """The speculative, parallel-sampling and multi-LoRA paths: the verify
+    logits check, then Llama-3-8B int4 (32 layers, one set of fused params)
+    through the spec echo, the served spec runs, parallel sampling and
+    multi-LoRA, then DeepSeek-V2-Lite served with speculation; ``lap(phase)``
+    after each. Returns the served runs' launches by path."""
+    import conch_tpu_torch.models.deepseek as ds
+    from conch_tpu_torch.models.llama import LlamaConfig, fuse_llama_params, init_llama_params
+
+    gc.collect()  # the served runs' models before (serve() collects at its start; these phases must too)
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    if held > 2**30:
+        raise AssertionError(f"{held / 2**30:.1f} GiB still allocated before the slice's paths: a model was not freed")
+    check_verify_logits()
+    lap("check_verify_logits")
+    cfg = LlamaConfig.llama3_8b()
+    params = fuse_llama_params(init_llama_params(SEED, cfg, quant_mode="int4", device="cuda"))
+    spread = check_spec_echo(card, params, cfg, spec_prompts(np.random.default_rng(SEED), cfg.vocab_size))
+    lap("check_spec_echo")
+    launches = {"llama3_8b_int4_spec": serve_spec(card, params, cfg, spread)}
+    lap("llama3_8b_int4_spec")
+    check_parallel_sampling(card, params, cfg, spread)
+    lap("check_parallel_sampling")
+    launches["llama3_8b_int4_lora"] = check_lora(card, params, cfg, spread)
+    lap("check_lora")
+    del params
+    torch.cuda.empty_cache()
+    launches["deepseek_v2_lite_spec"] = serve(
+        card, "deepseek-v2-lite-spec", ds.DeepseekV2Config.v2_lite(),
+        lambda c: ds.init_deepseek_params(SEED, c, device="cuda"),
+        {"prefill_fn": ds.deepseek_prefill, "decode_fn": ds.deepseek_decode_step,
+         "verify_fn": ds.deepseek_verify_forward},
+        {"num_pages": 1024, "max_batch_size": 8, "max_pages_per_seq": 80, "num_speculative_tokens": SPEC_TOKENS},
+        spec_prompts, DEEPSEEK_KERNELS, DEEPSEEK_PER_STEP, profile=False,
+    )
+    if launches["deepseek_v2_lite_spec"]["mla_attention_verify"] <= 0:
+        raise AssertionError("deepseek-v2-lite-spec: K11 never launched inside a verify step")
+    lap("deepseek_v2_lite_spec")
+    return launches
 
 
 def main() -> int:
@@ -6230,6 +6992,7 @@ def main() -> int:
     )
     report_mixtral_profile(card, mixtral_cfg, mixtral)
     lap("served runs of Qwen2-7B, the quantized DeepSeek and Gemma, and Mixtral")
+    launches.update(slice_paths(card, lap))
     launches["vision_bevfusion"] = vision_launches
     launches["llama3_8b_qlora"] = qlora_launches
     launches["llama3_8b_residual_stream"] = stream_launches

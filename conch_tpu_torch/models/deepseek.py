@@ -29,8 +29,12 @@ MLP, the shared experts and ``lm_head``) are bf16 or quantized in the
 modes of ``QuantizedLinear`` (int4 and int8 at group 32 by default: K1 at
 two groups a slice, K1b at 8 word rows a slice; nf4: K1c; w8a8: K8); the
 absorbed ``w_uk``/``w_uv`` and the expert stacks stay dense, as in the JAX
-package. Speculative verification, tensor parallelism and training are
-later work (ROADMAP Queue 1). int8 and float8_e4m3fn latent caches store
+package. ``deepseek_verify_forward`` gives every row's logits for
+speculative decoding; its padding rows keep K11's copies of a row of the
+last sequence, as the JAX launcher's clamped gather gives them, and take
+MoE capacity as in prefill. The steps refuse LoRA adapters (the JAX
+package's DeepSeek steps take none); tensor parallelism and training are
+later work (ROADMAP Queue 1, item 8). int8 and float8_e4m3fn latent caches store
 round(x / kv_cache_scale), saturating, and K11 folds the scale back in, as
 in the JAX package.
 """
@@ -600,9 +604,13 @@ def _mla_layer_step(
     return hidden + mlp_fn(layers, li, mlp_in, config)
 
 
-def _check_unported(tp_axis) -> None:
+def _check_unported(tp_axis, lora) -> None:
     if tp_axis is not None:
-        msg = "tensor parallelism is not ported yet (ROADMAP Queue 1)"
+        msg = "tensor parallelism is not ported yet (ROADMAP Queue 1, item 8)"
+        raise NotImplementedError(msg)
+    if lora is not None:
+        msg = ("DeepSeek takes no LoRA adapters (the JAX package's DeepSeek steps have none); "
+               "LoRA serves the Llama family")
         raise NotImplementedError(msg)
 
 
@@ -647,10 +655,12 @@ def deepseek_prefill(
     k_caches: torch.Tensor,  # (L, P, ps, packed) latent cache, updated in place
     v_caches: torch.Tensor,  # unused placeholder (the engine's two-cache signature)
     tp_axis: str | None = None,
+    lora: dict | None = None,
+    lora_ids: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Prefill (chunked ok): (last-token logits per sequence (batch, vocab)
     f32, k_caches, v_caches untouched)."""
-    _check_unported(tp_axis)
+    _check_unported(tp_axis, lora)
     hidden = _deepseek_forward(
         params, config, token_ids, positions, cu_seqlens_q, max_seqlen_q, seq_lens, block_tables, slot_mapping,
         k_caches,
@@ -659,11 +669,30 @@ def deepseek_prefill(
     return _logits(params, config, hidden[last_rows]), k_caches, v_caches
 
 
-def deepseek_verify_forward(*args, **kwargs):
-    """Speculative verification (logits for every query token) is not
-    ported yet, as the engine's speculative decoding is not."""
-    msg = "deepseek_verify_forward (speculative decoding) is not ported yet (ROADMAP Queue 1)"
-    raise NotImplementedError(msg)
+def deepseek_verify_forward(
+    params: dict,
+    config: DeepseekV2Config,
+    token_ids: torch.Tensor,  # (total_tokens,)
+    positions: torch.Tensor,  # (total_tokens,) int32
+    cu_seqlens_q: torch.Tensor,  # (batch+1,) int32
+    max_seqlen_q: int,
+    seq_lens: torch.Tensor,  # (batch,) int32
+    block_tables: torch.Tensor,  # (batch, max_pages) int32
+    slot_mapping: torch.Tensor,  # (total_tokens,) int32, -1 = padding
+    k_caches: torch.Tensor,  # (L, P, ps, packed) latent cache, updated in place
+    v_caches: torch.Tensor,  # unused placeholder (the engine's two-cache signature)
+    tp_axis: str | None = None,
+    lora: dict | None = None,
+    lora_ids: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Speculative verification: logits for EVERY row ((total_tokens,
+    vocab) f32), k_caches, v_caches untouched."""
+    _check_unported(tp_axis, lora)
+    hidden = _deepseek_forward(
+        params, config, token_ids, positions, cu_seqlens_q, max_seqlen_q, seq_lens, block_tables, slot_mapping,
+        k_caches,
+    )
+    return _logits(params, config, hidden), k_caches, v_caches
 
 
 def deepseek_decode_step(
@@ -677,10 +706,12 @@ def deepseek_decode_step(
     k_caches: torch.Tensor,  # updated in place
     v_caches: torch.Tensor,
     tp_axis: str | None = None,
+    lora: dict | None = None,
+    lora_ids: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decode step: varlen MLA with one query per sequence. Returns
     (logits (batch, vocab) f32, k_caches, v_caches)."""
-    _check_unported(tp_axis)
+    _check_unported(tp_axis, lora)
     batch = token_ids.shape[0]
     cu = torch.arange(batch + 1, dtype=torch.int32, device=token_ids.device)
     hidden = _deepseek_forward(

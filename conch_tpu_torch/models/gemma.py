@@ -23,7 +23,9 @@ differences:
 Where the JAX package scans layer pairs, the port loops over the layers in
 Python; the window is ``sliding_window if layer % 2 == 0 else 0``. int8 and
 float8_e4m3fn KV caches go as in Llama (``_kv_cache_quant``, with
-``kv_cache_scale``).
+``kv_cache_scale``). ``gemma_verify_forward`` gives every row's logits for
+speculative decoding. The steps refuse LoRA adapters: the JAX package's
+Gemma steps take none.
 """
 
 from __future__ import annotations
@@ -178,9 +180,12 @@ def init_gemma_kv_caches(
     return init_kv_caches(config, num_pages, page_size, cache_dtype, device)
 
 
-def _check_unported(tp_axis) -> None:
+def _check_unported(tp_axis, lora) -> None:
     if tp_axis is not None:
-        msg = "tensor parallelism is not ported yet"
+        msg = "tensor parallelism is not ported yet (ROADMAP Queue 1, item 8)"
+        raise NotImplementedError(msg)
+    if lora is not None:
+        msg = "Gemma takes no LoRA adapters (the JAX package's Gemma steps have none); LoRA serves the Llama family"
         raise NotImplementedError(msg)
 
 
@@ -245,6 +250,27 @@ def _final_logits(params: dict, config: GemmaConfig, hidden: torch.Tensor) -> to
     return logits
 
 
+def _ragged_hidden(
+    params, config, token_ids, positions, cu_seqlens_q, max_seqlen_q, seq_lens, block_tables, slot_mapping,
+    k_caches, v_caches,
+) -> torch.Tensor:
+    """Prefill's and verify's trunk over a ragged step (K7 with the softcap
+    and each layer's window): every row's hidden state, the caches updated
+    in place."""
+    hidden = _embed(params, config, token_ids)
+    kv_quant = _kv_cache_quant(config, k_caches.dtype)
+    kv_dtype, kv_scale = kv_quant
+
+    def attn_fn(q, kc, vc, layer):
+        return varlen_attention(
+            q, kc, vc, cu_seqlens_q, max_seqlen_q, seq_lens, max_seqlen_q, block_tables, causal=True,
+            scale=config.attn_scale(), softcap=config.attn_logit_softcap, kv_cache_dtype=kv_dtype,
+            k_scale=kv_scale, v_scale=kv_scale, window_size=config.window(layer), layer_idx=layer,
+        )
+
+    return _gemma_layers(params, config, hidden, positions, slot_mapping, k_caches, v_caches, attn_fn, False, kv_quant)
+
+
 def gemma_prefill(
     params: dict,
     config: GemmaConfig,
@@ -258,36 +284,49 @@ def gemma_prefill(
     k_caches: torch.Tensor,  # (L, P, KH, ps, D), updated in place
     v_caches: torch.Tensor,
     tp_axis: str | None = None,
+    lora: dict | None = None,
+    lora_ids: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Prefill (or chunked-prefill) forward pass.
 
     Returns (last-token logits per sequence (batch, vocab) f32, k_caches,
     v_caches); the caches are the arguments, updated in place.
     """
-    _check_unported(tp_axis)
-    hidden = _embed(params, config, token_ids)
-    kv_quant = _kv_cache_quant(config, k_caches.dtype)
-    kv_dtype, kv_scale = kv_quant
-
-    def attn_fn(q, kc, vc, layer):
-        return varlen_attention(
-            q, kc, vc, cu_seqlens_q, max_seqlen_q, seq_lens, max_seqlen_q, block_tables, causal=True,
-            scale=config.attn_scale(), softcap=config.attn_logit_softcap, kv_cache_dtype=kv_dtype,
-            k_scale=kv_scale, v_scale=kv_scale, window_size=config.window(layer), layer_idx=layer,
-        )
-
-    hidden = _gemma_layers(
-        params, config, hidden, positions, slot_mapping, k_caches, v_caches, attn_fn, False, kv_quant
+    _check_unported(tp_axis, lora)
+    hidden = _ragged_hidden(
+        params, config, token_ids, positions, cu_seqlens_q, max_seqlen_q, seq_lens, block_tables, slot_mapping,
+        k_caches, v_caches,
     )
     last_rows = (cu_seqlens_q[1:] - 1).long()
     return _final_logits(params, config, hidden[last_rows]), k_caches, v_caches
 
 
-def gemma_verify_forward(*args, **kwargs):
-    """Speculative-decoding verification forward: not ported yet (the port's
-    engine has no speculative decoding)."""
-    msg = "gemma_verify_forward (speculative decoding) is not ported yet"
-    raise NotImplementedError(msg)
+def gemma_verify_forward(
+    params: dict,
+    config: GemmaConfig,
+    token_ids: torch.Tensor,  # (total_tokens,)
+    positions: torch.Tensor,  # (total_tokens,) int32
+    cu_seqlens_q: torch.Tensor,  # (batch+1,) int32
+    max_seqlen_q: int,
+    seq_lens: torch.Tensor,  # (batch,) int32
+    block_tables: torch.Tensor,  # (batch, max_pages) int32
+    slot_mapping: torch.Tensor,  # (total_tokens,) int32, -1 = padding
+    k_caches: torch.Tensor,  # (L, P, KH, ps, D), updated in place
+    v_caches: torch.Tensor,
+    tp_axis: str | None = None,
+    lora: dict | None = None,
+    lora_ids: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Speculative-decoding verification: ``gemma_prefill`` with logits for
+    EVERY row ((total_tokens, vocab) f32; the softcap, the alternating
+    window and the tied head as in prefill), so that the engine checks each
+    drafted token in one pass; rejected positions need no KV rollback."""
+    _check_unported(tp_axis, lora)
+    hidden = _ragged_hidden(
+        params, config, token_ids, positions, cu_seqlens_q, max_seqlen_q, seq_lens, block_tables, slot_mapping,
+        k_caches, v_caches,
+    )
+    return _final_logits(params, config, hidden), k_caches, v_caches
 
 
 def gemma_decode_step(
@@ -301,13 +340,15 @@ def gemma_decode_step(
     k_caches: torch.Tensor,  # updated in place
     v_caches: torch.Tensor,
     tp_axis: str | None = None,
+    lora: dict | None = None,
+    lora_ids: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decode step for a batch of sequences.
 
     Returns (logits (batch, vocab) f32, k_caches, v_caches); the caches are
     the arguments, updated in place.
     """
-    _check_unported(tp_axis)
+    _check_unported(tp_axis, lora)
     hidden = _embed(params, config, token_ids)
     kv_quant = _kv_cache_quant(config, k_caches.dtype)
     kv_dtype, kv_scale = kv_quant

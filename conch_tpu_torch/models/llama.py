@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from conch_tpu_torch.models.linear import QuantizedLinear, quantize_linear
+from conch_tpu_torch.models.lora import lora_delta, lora_selector
 from conch_tpu_torch.ops.activation import silu_and_mul, silu_and_mul_parts
 from conch_tpu_torch.ops.attention import paged_attention, varlen_attention
 from conch_tpu_torch.ops.cache import reshape_and_cache, reshape_and_cache_stacked
@@ -336,11 +337,43 @@ def _check_config(config: LlamaConfig) -> None:
         raise ValueError(msg)
 
 
-def _check_unported(config: LlamaConfig, tp_axis, lora) -> None:
+def _check_unported(config: LlamaConfig, tp_axis) -> None:
     _check_config(config)
-    if tp_axis is not None or lora is not None:
-        msg = "tensor parallelism and LoRA are not ported yet"
+    if tp_axis is not None:
+        msg = "tensor parallelism is not ported yet (ROADMAP Queue 1, item 8)"
         raise NotImplementedError(msg)
+
+
+@dataclass(frozen=True)
+class LoraStep:
+    """One step's multi-LoRA: the stacked adapter set's ``layers``
+    (``models/lora.py:stack_lora_adapters``) and the (T, A) scaled
+    one-hot selector of the step's per-token adapter ids."""
+
+    layers: dict
+    sel: torch.Tensor
+
+    @staticmethod
+    def make(lora: dict | None, lora_ids: torch.Tensor | None) -> LoraStep | None:
+        """None without adapters; raises if adapters come without ids."""
+        if lora is None:
+            return None
+        if lora_ids is None:
+            msg = "lora adapters were given but lora_ids is None"
+            raise ValueError(msg)
+        return LoraStep(lora["layers"], lora_selector(lora_ids, lora["scales"]))
+
+    def targets(self, *names: str) -> bool:
+        return any(n in self.layers for n in names)
+
+    def add(self, name: str, layer: int, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """``y`` plus adapter ``name``'s delta on input ``x`` at ``layer``,
+        added in f32 and cast back to y's dtype, as the JAX layer step does;
+        ``y`` unchanged where no adapter targets ``name``."""
+        ab = self.layers.get(name)
+        if ab is None:
+            return y
+        return (y.float() + lora_delta(x, ab["a"][layer], ab["b"][layer], self.sel)).to(y.dtype)
 
 
 def _kv_cache_quant(config, cache_dtype: torch.dtype) -> tuple[str, float | None]:
@@ -367,6 +400,7 @@ def attention_block(
     num_heads: int,
     head_dim: int,
     kv_quant: tuple[str, float | None],
+    lora: LoraStep | None = None,
 ) -> torch.Tensor:
     """One layer's attention on its normed input ``x`` (T, H), before the
     residual add: q/k/v (fused ``wqkv`` or separate; Qwen2's ``bq``, ``bk``,
@@ -374,7 +408,8 @@ def attention_block(
     layer's K/V written into the caches in place (decode: the K2 kernel;
     prefill: an indexed write, as the JAX package's XLA scatter), quantized
     on store as ``kv_quant`` (``_kv_cache_quant``) says, then
-    ``attn_fn(q, k_caches, v_caches, layer)`` and ``wo``."""
+    ``attn_fn(q, k_caches, v_caches, layer)`` and ``wo``. ``lora`` adds its
+    deltas to the q, k, v slices (before the biases) and to ``wo``."""
     layers = params["layers"]
     t = x.shape[0]
     num_kv_heads = k_caches.shape[2]
@@ -385,6 +420,8 @@ def attention_block(
         q, k, v = qkv[:, :q_dim], qkv[:, q_dim : q_dim + kv_dim], qkv[:, q_dim + kv_dim :]
     else:
         q, k, v = (layers[n].apply_stacked(x, layer) for n in ("wq", "wk", "wv"))
+    if lora is not None:
+        q, k, v = (lora.add(n, layer, x, y) for n, y in zip(("wq", "wk", "wv"), (q, k, v)))
     if "bq" in layers:  # Qwen2-style attention bias
         q = q + layers["bq"][layer].to(q.dtype)
         k = k + layers["bk"][layer].to(k.dtype)
@@ -403,19 +440,33 @@ def attention_block(
             k, v, k_caches[layer], v_caches[layer], slot_mapping, kv_cache_dtype=kv_dtype, k_scale=kv_scale,
             v_scale=kv_scale,
         )
-    attn_out = attn_fn(q.view(t, num_heads, head_dim), k_caches, v_caches, layer)
-    return layers["wo"].apply_stacked(attn_out.reshape(t, q_dim), layer)
+    attn_in = attn_fn(q.view(t, num_heads, head_dim), k_caches, v_caches, layer).reshape(t, q_dim)
+    out = layers["wo"].apply_stacked(attn_in, layer)
+    return out if lora is None else lora.add("wo", layer, attn_in, out)
 
 
-def mlp_block(layers: dict, layer: int, x: torch.Tensor, act_fused, act_parts) -> torch.Tensor:
+def mlp_block(
+    layers: dict, layer: int, x: torch.Tensor, act_fused, act_parts, lora: LoraStep | None = None
+) -> torch.Tensor:
     """One layer's gated MLP on ``x``: ``w_down(act(gate, up))``, gate|up
     fused (``w_gateup``, the activation reads the halves in place) or
-    separate."""
+    separate. ``lora`` adds its deltas to w_gate, w_up and w_down; where an
+    adapter targets w_gate or w_up, the fused output is split and the
+    activation takes the parts (K6's parts form), as in the JAX package."""
     if "w_gateup" in layers:
-        act = act_fused(layers["w_gateup"].apply_stacked(x, layer))
+        gu = layers["w_gateup"].apply_stacked(x, layer)
+        if lora is not None and lora.targets("w_gate", "w_up"):
+            inter = gu.shape[-1] // 2
+            act = act_parts(lora.add("w_gate", layer, x, gu[:, :inter]), lora.add("w_up", layer, x, gu[:, inter:]))
+        else:
+            act = act_fused(gu)
     else:
-        act = act_parts(*(layers[n].apply_stacked(x, layer) for n in ("w_gate", "w_up")))
-    return layers["w_down"].apply_stacked(act, layer)
+        gate, up = (layers[n].apply_stacked(x, layer) for n in ("w_gate", "w_up"))
+        if lora is not None:
+            gate, up = lora.add("w_gate", layer, x, gate), lora.add("w_up", layer, x, up)
+        act = act_parts(gate, up)
+    out = layers["w_down"].apply_stacked(act, layer)
+    return out if lora is None else lora.add("w_down", layer, act, out)
 
 
 def _forward_layers(
@@ -430,23 +481,25 @@ def _forward_layers(
     decode: bool,
     kv_quant: tuple[str, float | None],
     mlp_fn: Callable[[dict, int, torch.Tensor], torch.Tensor] | None = None,
+    lora: LoraStep | None = None,
 ) -> torch.Tensor:
     """Run every layer on ``hidden`` (T, H), the caches updated in place.
 
     ``mlp_fn(layers, layer, mlp_in) -> delta`` replaces the gated MLP
     (``mlp_block``), as ``mlp_fn`` does in the JAX package's layer step
-    (Mixtral's MoE feed-forward, ``models/moe.py``)."""
+    (Mixtral's MoE feed-forward, ``models/moe.py``); ``lora`` reaches the
+    attention projections and, without ``mlp_fn``, the MLP's."""
     layers = params["layers"]
     eps = config.rms_norm_eps
     for layer in range(k_caches.shape[0]):
         attn_in = rms_norm(hidden, layers["input_norm"][layer], eps)
         hidden = hidden + attention_block(
             params, layer, attn_in, positions, slot_mapping, k_caches, v_caches, attn_fn, decode,
-            config.num_heads, config.head_dim, kv_quant,
+            config.num_heads, config.head_dim, kv_quant, lora,
         )
         mlp_in = rms_norm(hidden, layers["post_attn_norm"][layer], eps)
         if mlp_fn is None:
-            hidden = hidden + mlp_block(layers, layer, mlp_in, silu_and_mul, silu_and_mul_parts)
+            hidden = hidden + mlp_block(layers, layer, mlp_in, silu_and_mul, silu_and_mul_parts, lora)
         else:
             hidden = hidden + mlp_fn(layers, layer, mlp_in)
     return hidden
@@ -476,12 +529,46 @@ def llama_prefill(
     """Prefill (or chunked-prefill) forward pass.
 
     Returns (last-token logits per sequence (batch, vocab) f32, k_caches,
-    v_caches); the caches are the arguments, updated in place.
+    v_caches); the caches are the arguments, updated in place. ``lora`` (a
+    stacked adapter set, ``models/lora.py``) with ``lora_ids`` (one adapter
+    id a token row, -1: none) adds each row's adapter deltas.
     """
-    _check_unported(config, tp_axis, lora)
+    _check_unported(config, tp_axis)
     logits = prefill_forward(
         params, config, token_ids, positions, cu_seqlens_q, max_seqlen_q, seq_lens, block_tables, slot_mapping,
-        k_caches, v_caches,
+        k_caches, v_caches, lora=LoraStep.make(lora, lora_ids),
+    )
+    return logits, k_caches, v_caches
+
+
+def llama_verify_forward(
+    params: dict,
+    config: LlamaConfig,
+    token_ids: torch.Tensor,  # (total_tokens,)
+    positions: torch.Tensor,  # (total_tokens,) int32
+    cu_seqlens_q: torch.Tensor,  # (batch+1,) int32
+    max_seqlen_q: int,
+    seq_lens: torch.Tensor,  # (batch,) int32
+    block_tables: torch.Tensor,  # (batch, max_pages) int32
+    slot_mapping: torch.Tensor,  # (total_tokens,) int32, -1 = padding
+    k_caches: torch.Tensor,  # (L, P, KH, ps, D), updated in place
+    v_caches: torch.Tensor,
+    tp_axis: str | None = None,
+    lora: dict | None = None,
+    lora_ids: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Speculative-decoding verification: ``llama_prefill`` with the final
+    norm and ``lm_head`` on EVERY row, so that the engine checks each
+    drafted token in one pass. Returns ((total_tokens, vocab) f32 logits,
+    k_caches, v_caches). Rows past ``cu_seqlens_q[batch]`` get zero
+    attention (K7), so their logits are finite. KV written for rejected
+    positions needs no rollback: attention masks entries past ``seq_len``
+    and later steps overwrite them.
+    """
+    _check_unported(config, tp_axis)
+    logits = prefill_forward(
+        params, config, token_ids, positions, cu_seqlens_q, max_seqlen_q, seq_lens, block_tables, slot_mapping,
+        k_caches, v_caches, lora=LoraStep.make(lora, lora_ids), every_row=True,
     )
     return logits, k_caches, v_caches
 
@@ -490,9 +577,11 @@ def prefill_forward(
     params: dict, config: LlamaConfig, token_ids: torch.Tensor, positions: torch.Tensor,
     cu_seqlens_q: torch.Tensor, max_seqlen_q: int, seq_lens: torch.Tensor, block_tables: torch.Tensor,
     slot_mapping: torch.Tensor, k_caches: torch.Tensor, v_caches: torch.Tensor, mlp_fn=None,
+    lora: LoraStep | None = None, every_row: bool = False,
 ) -> torch.Tensor:
-    """``llama_prefill``'s body: the last-token logits of each sequence,
-    the caches updated in place; ``mlp_fn`` as in ``_forward_layers``."""
+    """``llama_prefill``'s body: the last-token logits of each sequence (of
+    every row with ``every_row``: the verify step), the caches updated in
+    place; ``mlp_fn`` and ``lora`` as in ``_forward_layers``."""
     hidden = params["embedding"][token_ids.long()]
     kv_quant = _kv_cache_quant(config, k_caches.dtype)
     kv_dtype, kv_scale = kv_quant
@@ -505,8 +594,10 @@ def prefill_forward(
         )
 
     hidden = _forward_layers(
-        params, config, hidden, positions, slot_mapping, k_caches, v_caches, attn_fn, False, kv_quant, mlp_fn
+        params, config, hidden, positions, slot_mapping, k_caches, v_caches, attn_fn, False, kv_quant, mlp_fn, lora
     )
+    if every_row:
+        return _logits(params, config, hidden)
     last_rows = (cu_seqlens_q[1:] - 1).long()
     return _logits(params, config, hidden[last_rows])
 
@@ -528,11 +619,13 @@ def llama_decode_step(
     """One decode step for a batch of sequences.
 
     Returns (logits (batch, vocab) f32, k_caches, v_caches); the caches
-    are the arguments, updated in place.
+    are the arguments, updated in place. ``lora``/``lora_ids`` as in
+    ``llama_prefill``.
     """
-    _check_unported(config, tp_axis, lora)
+    _check_unported(config, tp_axis)
     logits = decode_forward(
-        params, config, token_ids, positions, seq_lens, block_tables, slot_mapping, k_caches, v_caches
+        params, config, token_ids, positions, seq_lens, block_tables, slot_mapping, k_caches, v_caches,
+        lora=LoraStep.make(lora, lora_ids),
     )
     return logits, k_caches, v_caches
 
@@ -540,10 +633,10 @@ def llama_decode_step(
 def decode_forward(
     params: dict, config: LlamaConfig, token_ids: torch.Tensor, positions: torch.Tensor, seq_lens: torch.Tensor,
     block_tables: torch.Tensor, slot_mapping: torch.Tensor, k_caches: torch.Tensor, v_caches: torch.Tensor,
-    mlp_fn=None,
+    mlp_fn=None, lora: LoraStep | None = None,
 ) -> torch.Tensor:
     """``llama_decode_step``'s body: the logits of each row, the caches
-    updated in place; ``mlp_fn`` as in ``_forward_layers``."""
+    updated in place; ``mlp_fn`` and ``lora`` as in ``_forward_layers``."""
     hidden = params["embedding"][token_ids.long()]
     kv_quant = _kv_cache_quant(config, k_caches.dtype)
     kv_dtype, kv_scale = kv_quant
@@ -555,6 +648,6 @@ def decode_forward(
         )
 
     hidden = _forward_layers(
-        params, config, hidden, positions, slot_mapping, k_caches, v_caches, attn_fn, True, kv_quant, mlp_fn
+        params, config, hidden, positions, slot_mapping, k_caches, v_caches, attn_fn, True, kv_quant, mlp_fn, lora
     )
     return _logits(params, config, hidden)

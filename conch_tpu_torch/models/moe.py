@@ -26,9 +26,14 @@ router (L, H, E) f32 and the expert stacks ``w_gate`` / ``w_up``
 capacity is counted over the step's padded rows, padding rows included,
 as in the JAX package: padding rows route and take capacity too.
 
-Speculative verification (``mixtral_verify_forward``), the training
+``mixtral_verify_forward`` gives every row's logits for speculative
+decoding. Its padding rows stay finite: K7 writes zeros past
+``cu_seqlens_q[batch]``, where the JAX package's varlen launcher leaves
+NaN that its dispatch einsum spreads to every row (ROADMAP Queue 3, PR
+22). Multi-LoRA reaches the attention projections through Llama's shared
+layers (``lora``/``lora_ids``); the experts take no adapter. The training
 forward and step (``moe_dense_forward``, ``make_moe_train_step``) and
-expert parallelism (``ep_axis``) are later work (ROADMAP Queue 1).
+expert parallelism (``ep_axis``) are later work (ROADMAP Queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from conch_tpu_torch.models.linear import quantize_linear
 from conch_tpu_torch.models.llama import (
     QUANT_MODES,
     LlamaConfig,
+    LoraStep,
     _check_unported,
     _cos_sin_cache,
     _quant_kwargs,
@@ -333,6 +339,15 @@ def _moe_mlp_fn(config: MoEConfig, capacity: int):
     return mlp_fn
 
 
+def _attention_lora(lora: dict | None, lora_ids: torch.Tensor | None) -> LoraStep | None:
+    """The step's LoRA for Mixtral's attention; raises for an adapter on an
+    MLP projection, which the MoE feed-forward has no place for."""
+    if lora is not None and any(n in lora["layers"] for n in ("w_gate", "w_up", "w_down")):
+        msg = "Mixtral's experts take no LoRA adapter: target wq, wk, wv or wo only"
+        raise ValueError(msg)
+    return LoraStep.make(lora, lora_ids)
+
+
 def mixtral_decode_step(
     params: dict,
     config: MoEConfig,
@@ -344,13 +359,15 @@ def mixtral_decode_step(
     k_caches: torch.Tensor,  # updated in place
     v_caches: torch.Tensor,
     tp_axis: str | None = None,
+    lora: dict | None = None,
+    lora_ids: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decode step; the contract of ``llama_decode_step``. The experts'
     capacity is ``config.capacity(batch)``, idle rows included."""
-    _check_unported(config.llama, tp_axis, None)
+    _check_unported(config.llama, tp_axis)
     logits = decode_forward(
         params, config.llama, token_ids, positions, seq_lens, block_tables, slot_mapping, k_caches, v_caches,
-        mlp_fn=_moe_mlp_fn(config, config.capacity(token_ids.shape[0])),
+        mlp_fn=_moe_mlp_fn(config, config.capacity(token_ids.shape[0])), lora=_attention_lora(lora, lora_ids),
     )
     return logits, k_caches, v_caches
 
@@ -368,15 +385,47 @@ def mixtral_prefill(
     k_caches: torch.Tensor,  # updated in place
     v_caches: torch.Tensor,
     tp_axis: str | None = None,
+    lora: dict | None = None,
+    lora_ids: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Prefill forward; the contract of ``llama_prefill``. The experts'
     capacity is ``config.capacity(total_tokens)``, padding rows included;
     a padding row's attention output is zero (K7 and its plain version
     write zeros past ``cu_seqlens_q[batch]``), so it routes its token's
     embedding through the layers."""
-    _check_unported(config.llama, tp_axis, None)
+    _check_unported(config.llama, tp_axis)
     logits = prefill_forward(
         params, config.llama, token_ids, positions, cu_seqlens_q, max_seqlen_q, seq_lens, block_tables,
         slot_mapping, k_caches, v_caches, mlp_fn=_moe_mlp_fn(config, config.capacity(token_ids.shape[0])),
+        lora=_attention_lora(lora, lora_ids),
+    )
+    return logits, k_caches, v_caches
+
+
+def mixtral_verify_forward(
+    params: dict,
+    config: MoEConfig,
+    token_ids: torch.Tensor,  # (total_tokens,)
+    positions: torch.Tensor,  # (total_tokens,) int32
+    cu_seqlens_q: torch.Tensor,  # (batch+1,) int32
+    max_seqlen_q: int,
+    seq_lens: torch.Tensor,  # (batch,) int32
+    block_tables: torch.Tensor,  # (batch, max_pages) int32
+    slot_mapping: torch.Tensor,  # (total_tokens,) int32, -1 = padding
+    k_caches: torch.Tensor,  # updated in place
+    v_caches: torch.Tensor,
+    tp_axis: str | None = None,
+    lora: dict | None = None,
+    lora_ids: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Speculative verification: ``mixtral_prefill`` with logits for EVERY
+    row (the contract of ``llama_verify_forward``). Padding rows route and
+    take capacity as in prefill; their attention output is zero, so every
+    row's logits are finite (the JAX package's are NaN on a padded step)."""
+    _check_unported(config.llama, tp_axis)
+    logits = prefill_forward(
+        params, config.llama, token_ids, positions, cu_seqlens_q, max_seqlen_q, seq_lens, block_tables,
+        slot_mapping, k_caches, v_caches, mlp_fn=_moe_mlp_fn(config, config.capacity(token_ids.shape[0])),
+        lora=_attention_lora(lora, lora_ids), every_row=True,
     )
     return logits, k_caches, v_caches

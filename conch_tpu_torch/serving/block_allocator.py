@@ -5,8 +5,9 @@
 ``conch_tpu/serving/block_allocator.py``).
 
 The host-side memory manager of the serving engine: free-list
-allocation and per-page refcounts for shared (prefix-cached) pages.
-Copy-on-write comes with parallel sampling, in a later slice.
+allocation and per-page refcounts for shared pages: prefix-cached pages
+and a parallel-sampling group's full prompt pages (``fork``); the engine
+copies a group's partial tail page for each sibling.
 """
 
 from __future__ import annotations

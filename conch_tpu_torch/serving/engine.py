@@ -22,7 +22,18 @@ counts, as in the JAX package:
   each sequence holds a ring of ``ceil((window + max_prefill_tokens) /
   page_size) + 1`` pages, position p at ring slot p % (ring pages x
   page_size), whatever its length; K3 and K7 read the ring
-  (``config.kv_ring_pages``).
+  (``config.kv_ring_pages``);
+- prompt-lookup speculative decoding (greedy-exact, no draft model): the
+  trailing n-gram's latest earlier match drafts up to N tokens, one
+  verify step (``verify_fn``: every row's logits) checks them, and the
+  longest correct prefix plus one token from the model is kept;
+- parallel sampling (``n > 1``): the prompt is prefilled once, its full
+  pages shared by refcount and its partial tail page copied a sibling;
+- the logit rules (``min_tokens``, the repetition penalty, the logit
+  bias) and logprobs under the rule-adjusted, unscaled logits;
+- multi-LoRA (``lora=``, ``add_request(lora_id=...)``): every step carries
+  one adapter id a token row, -1 on padding rows; the prefix cache is
+  keyed by adapter.
 
 The KV pool is one stacked (L, P, KH, ps, D) tensor pair updated in place
 by the model (the JAX engine donates it through its jitted steps); a
@@ -35,10 +46,9 @@ Llama by default; ``prefill_fn``/``decode_fn`` swap the family
 ``models.moe.mixtral_prefill``/``mixtral_decode_step`` with a
 ``MoEConfig``), as in the JAX engine.
 
-Later slices port LoRA, tensor parallelism, speculative decoding,
-parallel sampling (n > 1), guided decoding, logprobs, repetition
-penalty, logit bias, beam search and the HTTP server; asking for any of
-them raises.
+Guided decoding, beam search and the HTTP server come with the next
+slice (ROADMAP Queue 1, item 4), tensor parallelism (``mesh``) with item
+8; asking for them raises.
 """
 
 from __future__ import annotations
@@ -51,7 +61,7 @@ import numpy as np
 import torch
 
 from conch_tpu_torch.models.deepseek import deepseek_decode_step, fuse_deepseek_params
-from conch_tpu_torch.models.llama import fuse_llama_params, llama_decode_step, llama_prefill
+from conch_tpu_torch.models.llama import fuse_llama_params, llama_decode_step, llama_prefill, llama_verify_forward
 from conch_tpu_torch.platforms import resolve_device
 from conch_tpu_torch.serving.block_allocator import BlockAllocator
 from conch_tpu_torch.serving.sampling import SamplingParams, sample_tokens
@@ -73,7 +83,18 @@ class Request:
     pages: list[int] = field(default_factory=list)
     num_computed: int = 0  # tokens already prefilled (incl. recompute after preemption)
     output_tokens: list[int] = field(default_factory=list)
+    # log P(sampled token) under the rule-adjusted, unscaled logits, only
+    # with sampling.logprobs; index-aligned with output_tokens (tokens
+    # survive preemption, recompute only appends).
+    output_logprobs: list[float] = field(default_factory=list)
     num_preemptions: int = 0
+    # Parallel sampling: siblings carry the id of the request that
+    # prefilled the shared prompt; the parent remembers that it spawned its
+    # group (a preemption's recompute must not spawn it again).
+    parent_id: int | None = None
+    siblings_spawned: bool = False
+    # Multi-LoRA: index into the engine's stacked adapter set, -1: the base model.
+    lora_id: int = -1
 
     @property
     def total_len(self) -> int:
@@ -100,7 +121,12 @@ class EngineConfig:
     # (refcounted) across requests; finished requests' prefix pages stay in
     # an LRU pool and are evicted only under memory pressure.
     enable_prefix_caching: bool = True
-    num_speculative_tokens: int = 0  # not ported yet: must stay 0
+    # Prompt-lookup speculative decoding: draft up to N tokens by matching
+    # the trailing n-gram against the sequence's own history, verify them in
+    # one step, keep the longest correct prefix plus one token. 0 disables;
+    # applies only when every running request is plain greedy.
+    num_speculative_tokens: int = 0
+    speculative_ngram: int = 2
     # Running decodes join prefill steps (one token each, first from the
     # token budget), so they keep streaming while long prompts chunk.
     mixed_batching: bool = True
@@ -116,11 +142,6 @@ class EngineConfig:
     # overwritten slot. Needs the model's sliding_window > 0 and prefix
     # caching off (ring pages are rewritten in place); LLMEngine checks.
     rolling_kv: bool = False
-
-    def __post_init__(self) -> None:
-        if self.num_speculative_tokens:
-            msg = "speculative decoding is not ported yet"
-            raise NotImplementedError(msg)
 
 
 def _bucket(n: int, floor: int = 16) -> int:
@@ -151,6 +172,13 @@ class LLMEngine:
     that cannot fuse stay as they are. ``rolling_kv`` needs a model config
     with a ``sliding_window``, which ``MoEConfig`` lacks, so Mixtral raises
     as in the JAX engine.
+
+    ``verify_fn`` is the speculative verify step (``llama_verify_forward``
+    by default; ``gemma_verify_forward``, ``deepseek_verify_forward`` or
+    ``mixtral_verify_forward`` beside the other families' steps; a custom
+    ``decode_fn`` with ``num_speculative_tokens`` needs one). ``lora`` is a
+    stacked adapter set on ``device`` (``models.lora.stack_lora_adapters``
+    or ``lora_from_jax``); each request picks one by ``lora_id``.
     """
 
     def __init__(
@@ -166,9 +194,15 @@ class LLMEngine:
         lora=None,
         device: str | torch.device | None = None,
     ):
-        if any(x is not None for x in (verify_fn, mesh, lora)):
-            msg = "speculative decoding (verify_fn), tensor-parallel meshes and LoRA are not ported yet"
+        if mesh is not None:
+            msg = "tensor-parallel serving (mesh) is not ported yet (ROADMAP Queue 1, item 8)"
             raise NotImplementedError(msg)
+        if engine_config.num_speculative_tokens > 0 and decode_fn is not None and verify_fn is None:
+            msg = (
+                "speculative decoding with a custom decode_fn needs a matching "
+                "verify_fn (e.g. models.gemma.gemma_verify_forward)"
+            )
+            raise ValueError(msg)
         self.device = resolve_device(device)
         if params["embedding"].device.type != self.device.type:
             msg = f"params lie on {params['embedding'].device}, the engine runs on {self.device}"
@@ -187,6 +221,8 @@ class LLMEngine:
         self.params = fuse(params)
         self._prefill_fn = prefill_fn or llama_prefill
         self._decode_fn = decode_fn or llama_decode_step
+        self._verify_fn = verify_fn or llama_verify_forward
+        self.lora = lora
         self.allocator = BlockAllocator(engine_config.num_pages)
         dtype = cache_dtype or model_config.dtype
         if getattr(model_config, "kv_cache_layout", "kv") == "mla":
@@ -212,7 +248,11 @@ class LLMEngine:
         self._prefix_map: dict[tuple[int, ...], int] = {}
         self._page_key: dict[int, tuple[int, ...]] = {}
         self._cached_lru: dict[int, None] = {}
+        # Parallel sampling groups: parent request id -> sibling ids.
+        self._group: dict[int, list[int]] = {}
         self.prefix_cache_hits = 0  # tokens served from cache (stats)
+        self.spec_tokens_drafted = 0
+        self.spec_tokens_accepted = 0
 
     @staticmethod
     def _ring_config(model_config, engine_config: EngineConfig):
@@ -252,9 +292,6 @@ class LLMEngine:
     # -- public API --------------------------------------------------------
 
     def add_request(self, prompt: list[int], sampling: SamplingParams | None = None, lora_id: int | None = None) -> int:
-        if lora_id is not None:
-            msg = "LoRA adapters are not ported yet"
-            raise NotImplementedError(msg)
         ps = self.ecfg.page_size
         cap_pages = min(self.ecfg.max_pages_per_seq, self.ecfg.num_pages)
         # Rolling KV: any prompt the rope cache covers fits (prefill wraps
@@ -271,23 +308,74 @@ class LLMEngine:
             if max_pos is not None and len(prompt) + 1 > max_pos:
                 msg = f"prompt of {len(prompt)} tokens exceeds the model's rope range (max_position {max_pos})"
                 raise ValueError(msg)
+        sampling = sampling or SamplingParams()
+        if sampling.n < 1:
+            msg = f"sampling.n must be >= 1, got {sampling.n}"
+            raise ValueError(msg)
+        if lora_id is None:
+            lora_id = -1
+        else:
+            num_adapters = 0 if self.lora is None else int(self.lora["scales"].shape[0])
+            if not 0 <= lora_id < num_adapters:
+                msg = f"lora_id {lora_id} out of range: engine holds {num_adapters} adapters"
+                raise ValueError(msg)
         rid = self._next_id
         self._next_id += 1
-        self.waiting.append(Request(rid, list(prompt), sampling or SamplingParams()))
+        self.waiting.append(Request(rid, list(prompt), sampling, lora_id=lora_id))
         return rid
+
+    def stats(self) -> dict:
+        """Serving counters, the JAX engine's keys."""
+        return {
+            "running": len(self.running),
+            "waiting": len(self.waiting),
+            "free_pages": self.allocator.num_free,
+            "total_pages": self.ecfg.num_pages,
+            "cached_prefix_pages": len(self._cached_lru),
+            "prefix_cache_hit_tokens": self.prefix_cache_hits,
+            "spec_tokens_drafted": self.spec_tokens_drafted,
+            "spec_tokens_accepted": self.spec_tokens_accepted,
+        }
+
+    def abort_request(self, request_id: int) -> bool:
+        """Cancel a live request and free its pages at once; pages the
+        prefix cache holds stay (the cache owns its own reference, as on a
+        normal finish). Aborting a parallel-sampling parent aborts its whole
+        group. False if the id is unknown or already finished."""
+        for sib_id in self._group.get(request_id, []):
+            self.abort_request(sib_id)
+        for i, r in enumerate(self.waiting):
+            if r.request_id == request_id:
+                self.waiting.pop(i)
+                r.state = RequestState.FINISHED
+                return True
+        for r in self.running:
+            if r.request_id == request_id:
+                for page in r.pages:
+                    self.allocator.free(page)
+                r.pages = []
+                r.state = RequestState.FINISHED
+                self.running = [x for x in self.running if x.request_id != request_id]
+                return True
+        return False
 
     def generate(
         self, prompts: list[list[int]], sampling: SamplingParams | None = None, lora_ids: list | None = None
-    ) -> list[list[int]]:
-        """Offline batch generation: one output token list per prompt."""
-        if lora_ids is not None and any(x is not None for x in lora_ids):
-            msg = "LoRA adapters are not ported yet"
-            raise NotImplementedError(msg)
-        ids = [self.add_request(p, sampling) for p in prompts]
+    ) -> list:
+        """Offline batch generation: one output token list per prompt, or,
+        with ``sampling.n > 1``, a list of ``n`` output lists per prompt (the
+        parent's first). ``lora_ids`` picks an adapter per prompt (None: the
+        base model)."""
+        lora_ids = lora_ids or [None] * len(prompts)
+        ids = [self.add_request(p, sampling, lora_id=lid) for p, lid in zip(prompts, lora_ids)]
         results: dict[int, list[int]] = {}
         while self.waiting or self.running:
             for req in self.step():
                 results[req.request_id] = req.output_tokens
+        if sampling is not None and sampling.n > 1:
+            # .get: a parent cut before its prefill never spawned its group,
+            # and an aborted sibling has no output.
+            return [[results[i], *(results.get(s, []) for s in self._group.get(i, []))] for i in ids]
         return [results[i] for i in ids]
 
     def step(self) -> list[Request]:
@@ -305,11 +393,22 @@ class LLMEngine:
             self._run_prefill(batch)
         else:
             decodable = [r for r in self.running if r.state == RequestState.RUNNING]
+            # Speculation and the multi-step decode advance by the raw
+            # argmax: every request must be plain greedy with no logit rule
+            # pending and no logprobs to record.
             all_plain_greedy = all(
-                r.sampling.temperature <= 0.0 and len(r.output_tokens) >= r.sampling.min_tokens for r in decodable
+                r.sampling.temperature <= 0.0
+                and r.sampling.repetition_penalty == 1.0
+                and not r.sampling.logit_bias
+                and not r.sampling.logprobs
+                and r.sampling.guided is None
+                and len(r.output_tokens) >= r.sampling.min_tokens
+                for r in decodable
             )
             k = self.ecfg.multi_step_decode
-            if k > 1 and all_plain_greedy:
+            if self.ecfg.num_speculative_tokens > 0 and all_plain_greedy:
+                self._run_spec_decode(decodable)
+            elif k > 1 and all_plain_greedy:
                 self._run_multi_step_decode(decodable, k)
             else:
                 self._run_decode(self._ensure_decode_pages(decodable))
@@ -332,7 +431,8 @@ class LLMEngine:
         ps = self.ecfg.page_size
         shared: list[int] = []
         for k in range(1, min((req.total_len - 1) // ps, self.ecfg.max_pages_per_seq) + 1):
-            page = self._prefix_map.get(tuple(req.token_at(p) for p in range(k * ps)))
+            # Keys carry the adapter id: LoRA on wk / wv changes a page's KV.
+            page = self._prefix_map.get((req.lora_id, *(req.token_at(p) for p in range(k * ps))))
             if page is None:
                 break
             shared.append(page)
@@ -346,7 +446,7 @@ class LLMEngine:
         ps = self.ecfg.page_size
         for k in range(1, len(req.prompt) // ps + 1):
             page = req.pages[k - 1]
-            key = tuple(req.prompt[: k * ps])
+            key = (req.lora_id, *req.prompt[: k * ps])
             if key in self._prefix_map:
                 continue
             self._prefix_map[key] = page
@@ -461,6 +561,58 @@ class LLMEngine:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
+    def _lora_kwargs(self, per_row: list[int], n_pad: int) -> dict:
+        """The step's multi-LoRA arguments: the stacked adapters and one
+        adapter id a row (padding rows -1: no adapter); none without LoRA."""
+        if self.lora is None:
+            return {}
+        ids = np.full(n_pad, -1, dtype=np.int32)
+        ids[: len(per_row)] = per_row
+        return {"lora": self.lora, "lora_ids": self._tensor(ids)}
+
+    def _ragged_step(self, fn, chunks: list[tuple[Request, int, list[int]]]):
+        """One varlen step of ``fn`` (prefill or verify) over ``chunks``:
+        (request, first position, the tokens from there). Rows are padded
+        to ``_bucket(total)`` (slot -1), the batch to max_batch_size with
+        zero-length sequences, ``max_seqlen_q`` to ``_bucket(max q_len)``.
+        Returns (logits, total rows, q_lens)."""
+        tokens, positions, slots, q_lens, seq_lens, loras = [], [], [], [], [], []
+        for r, start, toks in chunks:
+            tokens.extend(toks)
+            positions.extend(range(start, start + len(toks)))
+            slots.extend(self._slot(r, p) for p in range(start, start + len(toks)))
+            q_lens.append(len(toks))
+            seq_lens.append(start + len(toks))
+            loras.extend([r.lora_id] * len(toks))
+        total = len(tokens)
+        total_pad = _bucket(total)
+        bpad = self.ecfg.max_batch_size
+        tokens_arr = np.zeros(total_pad, dtype=np.int32)
+        tokens_arr[:total] = tokens
+        positions_arr = np.zeros(total_pad, dtype=np.int32)
+        positions_arr[:total] = positions
+        slots_arr = np.full(total_pad, -1, dtype=np.int32)
+        slots_arr[:total] = slots
+        cu = np.zeros(bpad + 1, dtype=np.int32)
+        cu[1 : len(chunks) + 1] = np.cumsum(q_lens)
+        cu[len(chunks) + 1 :] = total  # zero-length padding sequences
+        sl = np.zeros(bpad, dtype=np.int32)
+        sl[: len(chunks)] = seq_lens
+        logits, _, _ = fn(
+            self.params, self.config,
+            token_ids=self._tensor(tokens_arr),
+            positions=self._tensor(positions_arr),
+            cu_seqlens_q=self._tensor(cu),
+            max_seqlen_q=_bucket(max(q_lens)),
+            seq_lens=self._tensor(sl),
+            block_tables=self._tensor(self._block_table([r for r, _, _ in chunks])),
+            slot_mapping=self._tensor(slots_arr),
+            k_caches=self.k_caches,
+            v_caches=self.v_caches,
+            **self._lora_kwargs(loras, total_pad),
+        )
+        return logits, total, q_lens
+
     # -- device steps ------------------------------------------------------
 
     def _run_prefill(self, reqs: list[Request]) -> None:
@@ -476,43 +628,11 @@ class LLMEngine:
                 break
         if not batch:
             return
-
-        tokens, positions, slots, q_lens, seq_lens = [], [], [], [], []
-        for r, take in batch:
-            start = r.num_computed
-            tokens.extend(r.token_at(p) for p in range(start, start + take))
-            positions.extend(range(start, start + take))
-            slots.extend(self._slot(r, p) for p in range(start, start + take))
-            q_lens.append(take)
-            seq_lens.append(start + take)
-
-        total = len(tokens)
-        total_pad = _bucket(total)
-        bpad = self.ecfg.max_batch_size
-        tokens_arr = np.zeros(total_pad, dtype=np.int32)
-        tokens_arr[:total] = tokens
-        positions_arr = np.zeros(total_pad, dtype=np.int32)
-        positions_arr[:total] = positions
-        slots_arr = np.full(total_pad, -1, dtype=np.int32)
-        slots_arr[:total] = slots
-        cu = np.zeros(bpad + 1, dtype=np.int32)
-        cu[1 : len(batch) + 1] = np.cumsum(q_lens)
-        cu[len(batch) + 1 :] = total  # zero-length padding sequences
-        sl = np.zeros(bpad, dtype=np.int32)
-        sl[: len(batch)] = seq_lens
-
-        logits, _, _ = self._prefill_fn(
-            self.params, self.config,
-            token_ids=self._tensor(tokens_arr),
-            positions=self._tensor(positions_arr),
-            cu_seqlens_q=self._tensor(cu),
-            max_seqlen_q=_bucket(max(q_lens)),
-            seq_lens=self._tensor(sl),
-            block_tables=self._tensor(self._block_table([r for r, _ in batch])),
-            slot_mapping=self._tensor(slots_arr),
-            k_caches=self.k_caches,
-            v_caches=self.v_caches,
-        )
+        chunks = [
+            (r, r.num_computed, [r.token_at(p) for p in range(r.num_computed, r.num_computed + take)])
+            for r, take in batch
+        ]
+        logits, _, _ = self._ragged_step(self._prefill_fn, chunks)
 
         # Advance chunk progress; sample for requests whose tokens are all
         # computed (a completed prompt, or a mixed-in decode row).
@@ -530,9 +650,64 @@ class LLMEngine:
                 r = batch[i][0]
                 if i in fresh_prompt_rows:  # not mixed-in decode rows
                     self._register_prefix_pages(r)
+                if r.sampling.n > 1 and r.parent_id is None and not r.siblings_spawned:
+                    self._spawn_siblings(r, logits[i])
                 r.output_tokens.append(int(tok))
                 r.state = RequestState.RUNNING
                 self._maybe_finish(r)
+
+    def _copy_page(self, src: int, dst: int) -> None:
+        """Copy KV page ``src`` to ``dst`` in every layer on the device: the
+        stacked K and V pools, or DeepSeek's one packed latent cache (the
+        JAX engine's jitted XLA scatter; indexed copies here)."""
+        for cache in (self.k_caches, self.v_caches):
+            if cache.numel():
+                cache[:, dst] = cache[:, src]
+
+    def _spawn_siblings(self, parent: Request, logits_row: torch.Tensor) -> None:
+        """Parallel sampling: fork ``n - 1`` siblings off the freshly
+        prefilled parent. Full prompt pages are shared by refcount (decode
+        never writes a full page); the partial tail page is copied for each
+        sibling, which writes its own continuation there. Each running
+        sibling draws its first token from the parent's last-row logits.
+        Siblings that cannot fork (batch full, pool dry, or rolling KV, whose
+        ring pages are rewritten in place) go to the waiting queue and
+        recompute the prompt as an ordinary prefill, as in the JAX engine."""
+        parent.siblings_spawned = True
+        ps = self.ecfg.page_size
+        compute_len = parent.total_len  # the prompt's length at spawn time
+        full, partial = divmod(compute_len, ps)
+        group = self._group.setdefault(parent.request_id, [])
+        ready: list[Request] = []
+        for _ in range(parent.sampling.n - 1):
+            rid = self._next_id
+            self._next_id += 1
+            sib = Request(rid, list(parent.prompt), parent.sampling, parent_id=parent.request_id, lora_id=parent.lora_id)
+            group.append(rid)
+            can_fork = len(self.running) < self.ecfg.max_batch_size and self._cap_tokens is None
+            if can_fork:
+                self._reclaim(1 if partial else 0)
+                can_fork = self.allocator.can_allocate(1 if partial else 0)
+            if can_fork:
+                for page in parent.pages[:full]:
+                    self.allocator.fork(page)
+                sib.pages = list(parent.pages[:full])
+                if partial:
+                    fresh = self.allocator.allocate()
+                    sib.pages.append(fresh)
+                    self._copy_page(parent.pages[full], fresh)
+                sib.num_computed = compute_len
+                sib.state = RequestState.RUNNING
+                self.running.append(sib)
+                ready.append(sib)
+            else:
+                self.waiting.append(sib)
+        if ready:
+            tiled = logits_row[None].expand(len(ready), -1)
+            toks = self._sample(tiled, ready, rows=list(range(len(ready))))
+            for sib, tok in zip(ready, toks):
+                sib.output_tokens.append(int(tok))
+                self._maybe_finish(sib)
 
     def _run_decode(self, reqs: list[Request]) -> None:
         if not reqs:
@@ -557,6 +732,7 @@ class LLMEngine:
             slot_mapping=self._tensor(slots),
             k_caches=self.k_caches,
             v_caches=self.v_caches,
+            **self._lora_kwargs([r.lora_id for r in reqs], bpad),
         )
         sampled = self._sample(logits, reqs, rows=list(range(len(reqs))))
         for r, tok in zip(reqs, sampled):
@@ -566,14 +742,15 @@ class LLMEngine:
 
     def _multi_step_greedy(
         self, tokens: torch.Tensor, positions: torch.Tensor, active: torch.Tensor, limit: torch.Tensor,
-        bt: torch.Tensor, k: int,
+        bt: torch.Tensor, k: int, lora_kwargs: dict | None = None,
     ) -> torch.Tensor:
         """K greedy decode steps with on-device argmax feedback; (k, batch)
         tokens. Same masking as the JAX package's ``make_multi_step_scan``:
         seq_lens clamp at each row's owned pages (``limit``), writes past
         them get slot -1, and idle rows run with seq_len 0 and slot -1;
         under rolling KV the write slots wrap at the ring (the engine passes
-        an unbounded ``limit`` for a fully grown ring)."""
+        an unbounded ``limit`` for a fully grown ring). ``lora_kwargs``
+        (``_lora_kwargs``) goes to every step."""
         ps = self.ecfg.page_size
         rows = torch.arange(bt.shape[0], device=bt.device)
         out = []
@@ -584,7 +761,8 @@ class LLMEngine:
             slots = bt[rows, page_idx] * ps + wpos % ps
             slots = torch.where(active & (positions < limit), slots, -1).to(torch.int32)
             logits, _, _ = self._decode_fn(
-                self.params, self.config, tokens, positions, seq_lens, bt, slots, self.k_caches, self.v_caches
+                self.params, self.config, tokens, positions, seq_lens, bt, slots, self.k_caches, self.v_caches,
+                **(lora_kwargs or {}),
             )
             tokens = logits.argmax(dim=-1).to(torch.int32)
             positions = positions + 1
@@ -613,7 +791,7 @@ class LLMEngine:
                 limit[i] = len(r.pages) * self.ecfg.page_size
         toks = self._multi_step_greedy(
             self._tensor(tokens), self._tensor(positions), self._tensor(active), self._tensor(limit),
-            self._tensor(self._block_table(reqs)), k,
+            self._tensor(self._block_table(reqs)), k, self._lora_kwargs([r.lora_id for r in reqs], bpad),
         ).cpu().numpy()
         for i, r in enumerate(reqs):
             for step in range(k):
@@ -623,27 +801,125 @@ class LLMEngine:
                     break
             r.num_computed = r.total_len - 1
 
+    def _draft(self, req: Request) -> list[int]:
+        """Prompt-lookup draft: the continuation of the latest earlier
+        occurrence of the trailing n-gram in the sequence's own history, at
+        most ``num_speculative_tokens`` tokens, the tokens still owed and
+        the room left under the page cap (rolling KV: the ring wraps, so
+        only the draft limit)."""
+        n, limit = self.ecfg.speculative_ngram, self.ecfg.num_speculative_tokens
+        hist = req.prompt + req.output_tokens
+        if len(hist) <= n:
+            return []
+        pattern = hist[-n:]
+        if self._cap_tokens is None:
+            room = self.ecfg.max_pages_per_seq * self.ecfg.page_size - req.total_len - 1
+        else:
+            room = limit
+        limit = min(limit, req.sampling.max_tokens - len(req.output_tokens), max(room, 0))
+        for start in range(len(hist) - n - 1, -1, -1):
+            if hist[start : start + n] == pattern:
+                return hist[start + n : start + n + limit]
+        return []
+
+    def _run_spec_decode(self, reqs: list[Request]) -> None:
+        """Greedy decode with prompt-lookup speculation: one verify step over
+        [last token] + draft a sequence; the longest correct draft prefix is
+        kept plus one token from the model. KV written for rejected
+        positions sits past the rewound seq_len: masked by attention,
+        overwritten by later steps."""
+        drafts = {r.request_id: self._draft(r) for r in reqs}
+        reqs = self._ensure_decode_pages(reqs, extra={r.request_id: len(drafts[r.request_id]) for r in reqs})
+        if not reqs:
+            return
+        chunks = [(r, r.total_len - 1, [r.output_tokens[-1], *drafts[r.request_id]]) for r in reqs]
+        logits, total, q_lens = self._ragged_step(self._verify_fn, chunks)
+        preds = logits[:total].argmax(dim=-1).cpu().numpy()
+        offset = 0
+        for r, qn in zip(reqs, q_lens):
+            d = drafts[r.request_id]
+            row_preds = preds[offset : offset + qn]
+            offset += qn
+            accepted = 0
+            while accepted < len(d) and row_preds[accepted] == d[accepted]:
+                accepted += 1
+            self.spec_tokens_accepted += accepted
+            self.spec_tokens_drafted += len(d)
+            for tok in [*d[:accepted], int(row_preds[accepted])]:
+                r.output_tokens.append(int(tok))
+                self._maybe_finish(r)
+                if r.state == RequestState.FINISHED:
+                    break
+            r.num_computed = r.total_len - 1
+
     def _sample(self, logits: torch.Tensor, reqs: list[Request], rows: list[int]) -> np.ndarray:
+        """Sample ``reqs``' next tokens from ``logits`` rows ``rows`` after
+        the logit rules; record each logprob the request asks for: the
+        sampled token's ``log_softmax`` in f32 under the rule-adjusted
+        logits, before the temperature, as the JAX engine does."""
         temps = np.zeros(logits.shape[0], dtype=np.float32)
         top_ks = np.zeros(logits.shape[0], dtype=np.int64)
         top_ps = np.ones(logits.shape[0], dtype=np.float32)
-        suppress_rows, suppress_cols = [], []
-        eos = self.ecfg.eos_token_id
         for row, r in zip(rows, reqs):
             temps[row] = r.sampling.temperature
             top_ks[row] = r.sampling.top_k
             top_ps[row] = r.sampling.top_p
-            if len(r.output_tokens) < r.sampling.min_tokens:
-                for tok in ({eos} if eos is not None else set()) | set(r.sampling.stop_token_ids):
-                    suppress_rows.append(row)
-                    suppress_cols.append(tok)
-        if suppress_rows:
-            logits = logits.clone()
-            logits[self._tensor(np.asarray(suppress_rows)), self._tensor(np.asarray(suppress_cols))] = float("-inf")
+        logits = self._apply_logit_rules(logits, reqs, rows)
         toks = sample_tokens(
             logits, self._generator, self._tensor(temps), top_k=self._tensor(top_ks), top_p=self._tensor(top_ps)
         )
+        lp_rows = [row for row, r in zip(rows, reqs) if r.sampling.logprobs]
+        if lp_rows:
+            index = self._tensor(np.asarray(lp_rows, dtype=np.int64))
+            lsm = torch.log_softmax(logits[index].float(), dim=-1)
+            vals = lsm.gather(-1, toks[index].long()[:, None])[:, 0].cpu().tolist()
+            for r, v in zip((r for r in reqs if r.sampling.logprobs), vals):
+                r.output_logprobs.append(float(v))
         return toks.cpu().numpy()[rows]
+
+    def _apply_logit_rules(self, logits: torch.Tensor, reqs: list[Request], rows: list[int]) -> torch.Tensor:
+        """The JAX engine's logit rules, in its order, each one indexed
+        write over host-built index lists (a copy of ``logits`` only when a
+        rule applies): ``min_tokens`` sets eos and the stop tokens to -inf;
+        the repetition penalty divides the positive logits of every prompt
+        and output token and multiplies the others; the logit bias is added
+        (repeated tokens add up)."""
+        sup_r, sup_c = [], []
+        pen_r, pen_c, pen_v = [], [], []
+        bias_r, bias_c, bias_v = [], [], []
+        eos = self.ecfg.eos_token_id
+        for row, r in zip(rows, reqs):
+            s = r.sampling
+            if len(r.output_tokens) < s.min_tokens:
+                for tok in ({eos} if eos is not None else set()) | set(s.stop_token_ids):
+                    sup_r.append(row)
+                    sup_c.append(tok)
+            if s.repetition_penalty != 1.0:
+                for tok in set(r.prompt) | set(r.output_tokens):
+                    pen_r.append(row)
+                    pen_c.append(tok)
+                    pen_v.append(s.repetition_penalty)
+            for tok, bias in s.logit_bias:
+                bias_r.append(row)
+                bias_c.append(tok)
+                bias_v.append(bias)
+        if not (sup_r or pen_r or bias_r):
+            return logits
+        logits = logits.clone()
+
+        def index(rr, cc):
+            return self._tensor(np.asarray(rr, dtype=np.int64)), self._tensor(np.asarray(cc, dtype=np.int64))
+
+        if sup_r:
+            logits[index(sup_r, sup_c)] = float("-inf")
+        if pen_r:
+            at = index(pen_r, pen_c)
+            seen = logits[at]
+            pv = self._tensor(np.asarray(pen_v, dtype=np.float32))
+            logits[at] = torch.where(seen > 0, seen / pv, seen * pv)
+        if bias_r:
+            logits.index_put_(index(bias_r, bias_c), self._tensor(np.asarray(bias_v, dtype=np.float32)), accumulate=True)
+        return logits
 
     def _maybe_finish(self, req: Request) -> None:
         eos = self.ecfg.eos_token_id

@@ -17,31 +17,33 @@ import torch
 
 @dataclass(frozen=True)
 class SamplingParams:
-    """Per-request sampling configuration.
+    """Per-request sampling configuration, the JAX package's fields.
 
-    ``n > 1``, ``repetition_penalty``, ``logit_bias``, ``logprobs`` and
-    ``guided`` are fields of the JAX package that later slices port; they
-    raise when set.
+    ``n > 1`` asks for parallel sampling: the engine prefills the prompt
+    once and forks ``n`` sequences that share its full KV pages (the
+    partial tail page is copied a sibling). ``repetition_penalty`` divides
+    the positive logits of every prompt and output token and multiplies
+    the others; ``logit_bias`` adds to the logits of its tokens;
+    ``logprobs`` records each sampled token's log-probability under the
+    rule-adjusted, unscaled logits. ``guided`` (a token FSM) comes with the
+    next slice (ROADMAP Queue 1, item 4) and raises when set.
     """
 
     temperature: float = 0.0  # 0 => greedy
     top_k: int = 0  # 0 => disabled
     top_p: float = 1.0
-    n: int = 1
+    n: int = 1  # completions per prompt (the engine checks n >= 1)
     max_tokens: int = 64
     min_tokens: int = 0  # eos/stop tokens are suppressed until this many
     stop_token_ids: tuple[int, ...] = ()
-    repetition_penalty: float = 1.0
-    logit_bias: tuple[tuple[int, float], ...] = ()
-    logprobs: bool = False
+    repetition_penalty: float = 1.0  # > 1 discourages tokens already seen
+    logit_bias: tuple[tuple[int, float], ...] = ()  # (token, additive bias)
+    logprobs: bool = False  # record each sampled token's log-probability
     guided: object | None = None
 
     def __post_init__(self) -> None:
-        if self.n != 1:
-            msg = "parallel sampling (n > 1) is not ported yet"
-            raise NotImplementedError(msg)
-        if self.repetition_penalty != 1.0 or self.logit_bias or self.logprobs or self.guided is not None:
-            msg = "repetition_penalty, logit_bias, logprobs and guided decoding are not ported yet"
+        if self.guided is not None:
+            msg = "guided decoding is not ported yet (ROADMAP Queue 1, item 4: serving/guided.py)"
             raise NotImplementedError(msg)
 
 

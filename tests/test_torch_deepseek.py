@@ -309,8 +309,10 @@ def test_unported_modes_raise():
     # a mode the port does not know still raises and names it.
     with pytest.raises(ValueError, match="Unknown quantization mode: int3"):
         init_deepseek_params(0, cfg, quant_mode="int3", device="cpu")
-    with pytest.raises(NotImplementedError):
-        deepseek_verify_forward()
+    # deepseek_verify_forward, once a stub, is ported (tests/test_torch_verify_forward.py);
+    # LoRA serves the Llama family only: the JAX DeepSeek steps take no adapters.
+    with pytest.raises(NotImplementedError, match="DeepSeek takes no LoRA"):
+        deepseek_verify_forward(None, cfg, *[None] * 9, lora={})
     params = init_deepseek_params(0, cfg, device="cpu")
     int8_cache = init_deepseek_kv_cache(cfg, 4, PS, dtype=torch.int8, device="cpu")
     one = torch.zeros(1, dtype=torch.int32)

@@ -111,6 +111,17 @@ def test_deepseek_engine_greedy_tokens_match_jax(jax_run):
 
 
 def test_deepseek_engine_refuses_speculative_decoding(jax_run):
+    """Speculative decoding, once refused, is served: the speculative engine
+    (``deepseek_verify_forward``) gives the plain engine's greedy tokens, at a
+    capacity factor where no selection drops (which selections drop depends
+    on a step's row count, which speculation changes)."""
+    import dataclasses
+
     numpy_params, _ = jax_run
-    with pytest.raises(NotImplementedError):
-        _port_engine(numpy_params, verify_fn=deepseek_verify_forward)
+    plain = _port_engine(numpy_params)
+    plain.config = dataclasses.replace(plain.config, moe_capacity_factor=2.0)
+    spec = _port_engine(numpy_params, verify_fn=deepseek_verify_forward)
+    spec.config, spec.ecfg = plain.config, dataclasses.replace(spec.ecfg, num_speculative_tokens=3)
+    want = plain.generate(_prompts(), SamplingParams(max_tokens=10))
+    assert spec.generate(_prompts(), SamplingParams(max_tokens=10)) == want
+    assert spec.spec_tokens_drafted > 0

@@ -218,7 +218,9 @@ def test_init_gemma_params_schema_matches_jax():
     # a mode the port does not know still raises and names it.
     with pytest.raises(ValueError, match="Unknown quantization mode: int3"):
         init_gemma_params(0, cfg, quant_mode="int3", device="cpu")
-    with pytest.raises(NotImplementedError):
-        gemma_verify_forward(ours, cfg)
+    # gemma_verify_forward, once a stub, is ported (tests/test_torch_verify_forward.py);
+    # LoRA serves the Llama family only: the JAX Gemma steps take no adapters.
+    with pytest.raises(NotImplementedError, match="Gemma takes no LoRA"):
+        gemma_verify_forward(ours, cfg, *[None] * 9, lora={})
     with pytest.raises(ValueError, match="even"):
         GemmaConfig(**{**DIMS, "num_layers": 3}, **VARIANTS["gemma2"])

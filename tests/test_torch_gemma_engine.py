@@ -90,11 +90,14 @@ def test_gemma_engine_greedy_tokens_match_jax(jax_run):
 
 
 def test_gemma_engine_refuses_speculative_decoding(jax_run):
-    numpy_params, _ = jax_run
+    """Speculative decoding, once refused, is served: the speculative
+    engine (``gemma_verify_forward``) gives the plain engines' greedy tokens."""
+    numpy_params, jax_tokens = jax_run
     cfg = GemmaConfig(**DIMS, dtype=torch.float32)
     params = gemma_params_from_jax(numpy_params, cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        LLMEngine(
-            params, cfg, EngineConfig(**ENGINE), prefill_fn=gemma_prefill, decode_fn=gemma_decode_step,
-            verify_fn=gemma_verify_forward, device="cpu",
-        )
+    engine = LLMEngine(
+        params, cfg, EngineConfig(**ENGINE, num_speculative_tokens=3), prefill_fn=gemma_prefill,
+        decode_fn=gemma_decode_step, verify_fn=gemma_verify_forward, device="cpu",
+    )
+    assert engine.generate(_prompts(), SamplingParams(max_tokens=10)) == jax_tokens
+    assert engine.spec_tokens_drafted > 0

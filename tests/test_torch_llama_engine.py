@@ -30,6 +30,7 @@ from conch_tpu.serving import EngineConfig as JaxEngineConfig
 from conch_tpu.serving import LLMEngine as JaxLLMEngine
 from conch_tpu.serving import SamplingParams as JaxSamplingParams
 from conch_tpu_torch.models.llama import LlamaConfig, init_llama_params, params_from_jax
+from conch_tpu_torch.models.lora import init_lora_adapter, stack_lora_adapters
 from conch_tpu_torch.serving import EngineConfig, LLMEngine, SamplingParams
 from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
@@ -124,13 +125,24 @@ def test_sampling_is_seeded_and_unported_options_raise():
     runs = [LLMEngine(params, cfg, EngineConfig(**ENGINE), device="cpu").generate(prompts, sampling) for _ in range(2)]
     assert runs[0] == runs[1]
     assert all(0 <= t < DIMS["vocab_size"] for out in runs[0] for t in out)
+    # Parallel sampling, logprobs, the logit rules, speculative decoding and
+    # LoRA, once refused, are served (tests/test_torch_{parallel_sampling,
+    # logit_rules,spec_decode,lora}.py hold them against the JAX engine).
     for kwargs in ({"n": 2}, {"logprobs": True}, {"repetition_penalty": 1.2}, {"logit_bias": ((1, 1.0),)}):
-        with pytest.raises(NotImplementedError):
-            SamplingParams(**kwargs)
-    with pytest.raises(NotImplementedError):
-        EngineConfig(num_speculative_tokens=2)
+        out = LLMEngine(params, cfg, EngineConfig(**ENGINE), device="cpu").generate(
+            prompts, SamplingParams(max_tokens=3, **kwargs))
+        assert len(out) == 2 and all(len(o) == (2 if "n" in kwargs else 3) for o in out)
+    spec = LLMEngine(params, cfg, EngineConfig(**ENGINE, num_speculative_tokens=2), device="cpu")
+    assert spec.generate(prompts, SamplingParams(max_tokens=6)) == LLMEngine(
+        params, cfg, EngineConfig(**ENGINE), device="cpu").generate(prompts, SamplingParams(max_tokens=6))
+    lora = stack_lora_adapters([init_lora_adapter(0, cfg, dtype=torch.float32, device="cpu")])
+    assert LLMEngine(params, cfg, EngineConfig(**ENGINE), device="cpu", lora=lora).generate(
+        prompts, SamplingParams(max_tokens=2), lora_ids=[0, None])
     # Rolling KV is ported: the engine refuses it for a model without a window.
     with pytest.raises(ValueError, match="sliding_window"):
         LLMEngine(params, cfg, EngineConfig(**ENGINE, rolling_kv=True, enable_prefix_caching=False), device="cpu")
-    with pytest.raises(NotImplementedError):
-        LLMEngine(params, cfg, EngineConfig(**ENGINE), device="cpu", lora={})
+    # Guided decoding (the next slice) and tensor-parallel meshes (item 8) still raise.
+    with pytest.raises(NotImplementedError, match="guided"):
+        SamplingParams(guided=object())
+    with pytest.raises(NotImplementedError, match="mesh"):
+        LLMEngine(params, cfg, EngineConfig(**ENGINE), device="cpu", mesh=object())
