@@ -308,7 +308,23 @@
    abort); ``check_lora`` (4 adapters of rank 16: a 2-layer multi-LoRA
    prefill against each merged model and the CPU, then the int4 engine
    with and without ``lora``, three runs, the id -1 requests giving the
-   base engine's tokens); DeepSeek-V2-Lite served with speculation
+   base engine's tokens); ``check_guided`` (``llama3_8b_int4_guided``: a
+   seeded 128256-string vocabulary, a 4-field JSON-schema FSM and a regex
+   FSM built on the host, 8 requests in one batch: JSON at temperature
+   0.8, the regex and unguided rows at greedy; every guided output fully
+   matches, the JSON parses to the schema, the unguided rows equal the
+   same prompts served alone up to a near tie; the masks' host ms a
+   step); ``check_beam`` (``llama3_8b_int4_beam``: prompts of 1000, 1023,
+   1024 and 1025 tokens, 4 beams, 32 tokens, penalties 1.0 and 0.0, under
+   the Python and the native allocator, identical; every page back after
+   each search; each hypothesis's cumulative logprob against a
+   teacher-forced verify forward; K3 inside the beam steps; beam tok/s);
+   ``check_server`` (``llama3_8b_int4_server``: ``make_server`` on
+   127.0.0.1 port 0, 16 greedy requests of 40 to 900 tokens, 2 streamed,
+   one n 4 at temperature 0.8, one by a LoRA adapter's name, all at once;
+   against direct ``generate`` up to a near tie; the worker alive and
+   every page free; requests/s, p50 and p99 latency, tok/s over HTTP
+   beside direct ``generate``); DeepSeek-V2-Lite served with speculation
    (``deepseek_v2_lite_spec``: K11 at the verify step on a served path);
 6. prints the ``kernels`` JSON line (each row's launches from its main
    run: Gemma for the kernels it runs, int4 for K1, K4 and K6, int8, nf4
@@ -322,7 +338,9 @@
    K4b, the TP-8 collectives path for K14; every path's counts
    beside them; K7 V and K11 V, their rows at the verify step
    (``kernel_phases_verify``), the launches inside the verify steps of
-   ``llama3_8b_int4_spec`` and ``deepseek_v2_lite_spec``), the card
+   ``llama3_8b_int4_spec`` and ``deepseek_v2_lite_spec``; K3 beam, its row
+   at a beam step (``kernel_phase_k3_beam``), K3's launches inside the
+   beam steps of ``llama3_8b_int4_beam``), the card
    line, then ``{"ok": true, "device": ...}`` as the
    last line.
 
@@ -4957,7 +4975,7 @@ def kernel_phases() -> list[dict]:
         kernel_phase_k4b(gen), kernel_phase_k12d(gen), kernel_phase_k14(gen), *kernel_phase_ring(gen, rng),
         *kernel_phase_group7(gen, rng), kernel_phase_k1_qwen2(gen), kernel_phase_k8_e4m3(gen),
         kernel_phase_k7_f32(gen, rng), kernel_phase_k1_g32(gen), kernel_phase_k1b_g32(gen), kernel_phase_k1_gemma(gen),
-        *kernel_phases_verify(gen, rng),
+        *kernel_phases_verify(gen, rng), kernel_phase_k3_beam(gen, rng),
     ]
     # The Gemma-2-2B shapes of K2, K3, K5 and K7 go into their rows' detail
     # beside the Llama-3-8B numbers the rows keep.
@@ -6094,7 +6112,7 @@ PRIMARY_PATH = {
     "varlen_attention_g7": "qwen2_7b_int4", "mixed_gemm_magic_qwen2": "qwen2_7b_int4",
     "mixed_gemm_magic_g32": "deepseek_v2_lite_int4", "mixed_gemm_planar_g32": "deepseek_v2_lite_int8",
     "mixed_gemm_magic_gemma": "gemma2_2b_int4", "varlen_attention_verify": "llama3_8b_int4_spec",
-    "mla_attention_verify": "deepseek_v2_lite_spec",
+    "mla_attention_verify": "deepseek_v2_lite_spec", "paged_attention_beam": "llama3_8b_int4_beam",
 }
 # Rows of a kernel's branch or another model's shapes: the count their
 # launches come from (K3's and K7's ring rows: their launches over a ring).
@@ -6105,6 +6123,8 @@ ROW_COUNTERS = {
     "mixed_gemm_planar_g32": "mixed_gemm_planar", "mixed_gemm_magic_gemma": "mixed_gemm_magic",
     # K7 V and K11 V: their launches inside the speculative verify steps.
     "varlen_attention_verify": "varlen_attention_verify", "mla_attention_verify": "mla_attention_verify",
+    # K3 beam: its launches inside the beam search's decode steps.
+    "paged_attention_beam": "paged_attention_beam",
 }
 # K9's callers are its public ops: its row's launches are those of its
 # kernel phase, and it launches on no served path. Neither do K8 over e4m3
@@ -6374,20 +6394,23 @@ def spec_prompts(rng: np.random.Generator, vocab: int) -> list[list[int]]:
     return [(rng.integers(0, vocab, SPEC_MOTIF).tolist() * 70)[: 1000 + 7 * i] for i in range(8)]
 
 
-def last_logits(params: dict, cfg, tokens: list[int]) -> torch.Tensor:
+def last_logits(params: dict, cfg, tokens: list[int], lora: tuple | None = None) -> torch.Tensor:
     """The logits after ``tokens``: one prefill of one sequence on the card
-    over a cache of its own (Llama family)."""
+    over a cache of its own (Llama family); ``lora``: (stacked adapters,
+    the adapter id of every token)."""
     from conch_tpu_torch.models.llama import init_kv_caches, llama_prefill
 
     t = len(tokens)
     pages = -(-t // PS)
     kc, vc = init_kv_caches(cfg, pages, PS, device="cuda")
     bt = torch.arange(pages, dtype=torch.int32, device="cuda")[None]
+    extra = {} if lora is None else {"lora": lora[0], "lora_ids": torch.full((t,), lora[1], dtype=torch.int32,
+                                                                              device="cuda")}
     logits, _, _ = llama_prefill(
         params, cfg, torch.tensor(tokens, dtype=torch.int32, device="cuda"),
         torch.arange(t, dtype=torch.int32, device="cuda"), torch.tensor([0, t], dtype=torch.int32, device="cuda"),
         t, torch.tensor([t], dtype=torch.int32, device="cuda"), bt, torch.arange(t, dtype=torch.int32, device="cuda"),
-        kc, vc,
+        kc, vc, **extra,
     )
     return logits[0].float().cpu()
 
@@ -6399,20 +6422,22 @@ def near_tie(logits: torch.Tensor, a: int, b: int, bound: float | None = None) -
     return gap <= (SPEC_NEAR_TIE * logits.abs().max().item() if bound is None else bound), gap
 
 
-def check_diverged(label: str, params: dict, cfg, prompts: list, got: list, want: list, spread: float) -> int:
+def check_diverged(
+    label: str, params: dict, cfg, prompts: list, got: list, want: list, spread: float, lora: tuple | None = None,
+) -> int:
     """``got`` equals ``want`` request by request up to a first divergence,
-    which must sit at a near tie: under a prefill of the history there, the
-    two tokens' logits within twice ``spread`` (``check_spec_echo``'s measured
-    difference between two 32-layer bf16 paths' logits, so that either
-    path's logits lie within it of the prefill's). Returns the requests
-    equal throughout."""
+    which must sit at a near tie: under a prefill of the history there (with
+    ``lora``'s adapter, as ``last_logits``), the two tokens' logits within
+    twice ``spread`` (``check_spec_echo``'s measured difference between two
+    32-layer bf16 paths' logits, so that either path's logits lie within it
+    of the prefill's). Returns the requests equal throughout."""
     equal = 0
     for i, (a, b) in enumerate(zip(got, want, strict=True)):
         if a == b:
             equal += 1
             continue
         p = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
-        tied, gap = near_tie(last_logits(params, cfg, prompts[i] + b[:p]), a[p], b[p], 2 * spread)
+        tied, gap = near_tie(last_logits(params, cfg, prompts[i] + b[:p], lora), a[p], b[p], 2 * spread)
         print(f"{label}: request {i} diverges at token {p} ({a[p]} against {b[p]}): logit gap {gap:.4f} "
               f"(near tie within {2 * spread:.4f}), {'a near tie' if tied else 'NOT a near tie'}", flush=True)
         if not tied:
@@ -6786,12 +6811,420 @@ def check_lora(card: str, int4_params: dict, int4_cfg, spread: float) -> dict:
     return launches
 
 
+# The guided path (``check_guided``): a synthetic Llama-3 vocabulary from the
+# seed (no tokenizer is downloaded): ids 32 to 126 decode to their ASCII
+# character, EOS to "", every other id to a string of 1 to 8 characters over
+# letters, digits, JSON punctuation and the space. A 4-field JSON schema and
+# a regex; 8 requests in one batch: 3 in JSON mode at temperature 0.8, 2 by
+# the regex at greedy, 3 unguided at greedy.
+GUIDED_EOS = 128001  # Llama-3's <|end_of_text|>
+GUIDED_ALPHABET = "abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789{}[]:,\" "
+GUIDED_SCHEMA = {"type": "object", "properties": {
+    "id": {"type": "integer"}, "ok": {"type": "boolean"}, "color": {"enum": ["red", "green", "blue"]},
+    "size": {"enum": ["S", "M", "L"]}}}
+GUIDED_REGEX = r"[A-Z][a-z]{2,8} [0-9]{4}-[0-9]{2}-[0-9]{2}"
+GUIDED_KINDS = ("json", "regex", "plain", "json", "regex", "plain", "json", "plain")
+GUIDED_MAX_TOKENS = {"json": 192, "regex": 32, "plain": 32}
+
+
+def guided_vocab(seed: int, size: int) -> list[str]:
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, 9, size)
+    picks = rng.integers(0, len(GUIDED_ALPHABET), int(lens.sum()))
+    ends = np.cumsum(lens)
+    vocab = ["".join(GUIDED_ALPHABET[c] for c in picks[e - n : e]) for n, e in zip(lens, ends)]
+    vocab[32:127] = [chr(i) for i in range(32, 127)]
+    vocab[GUIDED_EOS] = ""
+    return vocab
+
+
+def check_guided(card: str, params: dict, cfg, spread: float) -> dict:
+    """``llama3_8b_int4_guided``: the FSMs built on this machine's CPU (their
+    seconds printed), then GUIDED_KINDS served in one batch on a fresh
+    engine. Every guided output must end with EOS and fully match its
+    pattern, the JSON ones parse to the schema's keys and types; the
+    unguided rows must equal the same prompts served alone, up to a first
+    divergence at a near tie (``check_diverged``). Prints the host ms a
+    step that the masks add (``_apply_guided_masks``, timed on the host).
+    Returns the run's launches."""
+    from conch_tpu_torch.serving import EngineConfig, LLMEngine, SamplingParams
+    from conch_tpu_torch.serving.guided import TokenFSM, fsm_for_json_schema, json_schema_to_regex
+
+    t0 = time.perf_counter()
+    vocab = guided_vocab(SEED, cfg.vocab_size)
+    t1 = time.perf_counter()
+    json_fsm = fsm_for_json_schema(GUIDED_SCHEMA, vocab)
+    t2 = time.perf_counter()
+    regex_fsm = TokenFSM.from_regex(GUIDED_REGEX, vocab)
+    t3 = time.perf_counter()
+    print(f"guided FSMs over a {cfg.vocab_size}-string vocabulary (built in {t1 - t0:.2f} s): the 4-field JSON schema "
+          f"{json_fsm.num_states} states, {json_fsm.transitions.nbytes / 1e6:.1f} MB of transitions, "
+          f"{t2 - t1:.2f} s; the regex {regex_fsm.num_states} states, {t3 - t2:.2f} s (host CPU)", flush=True)
+    fsms = {"json": json_fsm, "regex": regex_fsm, "plain": None}
+    prompts = quant_prompts(np.random.default_rng(SEED + 20), cfg.vocab_size)
+    samplings = [SamplingParams(max_tokens=GUIDED_MAX_TOKENS[k], temperature=0.8 if k == "json" else 0.0,
+                                guided=fsms[k]) for k in GUIDED_KINDS]
+    ecfg = EngineConfig(num_pages=2048, max_batch_size=8, max_pages_per_seq=64, eos_token_id=GUIDED_EOS, seed=SEED)
+    engine = LLMEngine(params, cfg, ecfg)
+    masks = engine._apply_guided_masks
+    mask_s: list[float] = []
+
+    def timed_masks(logits, reqs, rows):
+        t = time.perf_counter()
+        out = masks(logits, reqs, rows)
+        if any(r.sampling.guided is not None for r in reqs):
+            mask_s.append(time.perf_counter() - t)
+        return out
+
+    engine._apply_guided_masks = timed_masks
+    steps, _ = count_steps(engine)
+    ids = [engine.add_request(p, s) for p, s in zip(prompts, samplings)]
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = {}
+    while engine.waiting or engine.running:
+        for r in engine.step():
+            done[r.request_id] = r.output_tokens
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launch_counts()
+    outs = [done[i] for i in ids]
+    texts = []
+    for kind, out in zip(GUIDED_KINDS, outs):
+        if kind == "plain":
+            continue
+        if out[-1] != GUIDED_EOS:
+            raise AssertionError(f"guided ({kind}): the output did not end with EOS: {out}")
+        text = "".join(vocab[t] for t in out[:-1])
+        texts.append(text)
+        if not re.fullmatch(json_schema_to_regex(GUIDED_SCHEMA) if kind == "json" else GUIDED_REGEX, text):
+            raise AssertionError(f"guided ({kind}): {text!r} does not fully match its pattern")
+        if kind == "json":
+            obj = json.loads(text)
+            props = GUIDED_SCHEMA["properties"]
+            if (list(obj) != list(props) or type(obj["id"]) is not int or type(obj["ok"]) is not bool
+                    or obj["color"] not in props["color"]["enum"] or obj["size"] not in props["size"]["enum"]):
+                raise AssertionError(f"guided (json): {text!r} does not conform to the schema")
+    plain = [i for i, k in enumerate(GUIDED_KINDS) if k == "plain"]
+    alone = LLMEngine(params, cfg, ecfg).generate([prompts[i] for i in plain], SamplingParams(max_tokens=32))
+    equal = check_diverged("guided batch, unguided rows against the same prompts served alone", params, cfg,
+                           [prompts[i] for i in plain], [outs[i] for i in plain], alone, spread)
+    n_tokens = sum(len(o) for o in outs)
+    print(f"llama3-8b-int4-guided: 8 requests (prompts {[len(p) for p in prompts]}; kinds {list(GUIDED_KINDS)}) in "
+          f"{seconds:.3f} s, {n_tokens} tokens, {n_tokens / seconds:.2f} generated tok/s, {steps[0]} model steps "
+          f"({steps[1]} prefill, {steps[2]} decode) on {card}; guided outputs {texts}; {equal} of {len(plain)} "
+          f"unguided rows equal to the same prompts served alone throughout; the masks add "
+          f"{1e3 * sum(mask_s) / len(mask_s):.3f} host ms a step ({len(mask_s)} steps with guided rows, "
+          f"max {1e3 * max(mask_s):.3f} ms)", flush=True)
+    del engine
+    gc.collect()  # count_steps' wrappers hold the engine in a cycle
+    torch.cuda.empty_cache()
+    return launches
+
+
+# The beam path (``check_beam``): prompts on each side of a page boundary,
+# 4 beams, 32 new tokens, length penalties 1.0 and 0.0, prefix caching off.
+BEAM_PROMPT_LENS = (1000, 1023, 1024, 1025)
+BEAM_WIDTH, BEAM_TOKENS, BEAM_PENALTIES = 4, 32, (1.0, 0.0)
+BEAM_ENGINE = {"num_pages": 1024, "max_batch_size": 8, "max_pages_per_seq": 80, "enable_prefix_caching": False}
+# K3's beam row (``kernel_phase_k3_beam``): the 4 beams of a 1024-token
+# prompt (64 full pages shared), 16 tokens generated each.
+BEAM_K3_PROMPT, BEAM_K3_GEN = 1024, 16
+
+
+def teacher_forced_logprob(params: dict, cfg, prompt: list[int], tokens: list[int], caches) -> float:
+    """The sum of ``tokens``' log-probabilities (f32 log-softmax, summed in
+    f64) after ``prompt``: one verify forward (every row's logits) of
+    prompt + tokens[:-1] over ``caches`` on the card."""
+    from conch_tpu_torch.models.llama import llama_verify_forward
+
+    seq = prompt + tokens[:-1]
+    t = len(seq)
+    pages = -(-t // PS)
+    kc, vc = caches
+    dev = {"dtype": torch.int32, "device": "cuda"}
+    logits, _, _ = llama_verify_forward(
+        params, cfg, torch.tensor(seq, **dev), torch.arange(t, **dev), torch.tensor([0, t], **dev), t,
+        torch.tensor([t], **dev), torch.arange(pages, **dev)[None], torch.arange(t, **dev), kc, vc,
+    )
+    rows = torch.log_softmax(logits[len(prompt) - 1 : t].float(), dim=-1)
+    picked = rows.gather(-1, torch.tensor(tokens, device="cuda", dtype=torch.int64)[:, None])[:, 0]
+    return picked.double().sum().item()
+
+
+def check_beam(card: str, params: dict, cfg, spread: float) -> dict:
+    """``llama3_8b_int4_beam``: ``beam_search`` on each BEAM_PROMPT_LENS prompt
+    at each penalty, with the Python allocator, then again with the native
+    one (``CONCH_ENABLE_CPP_EXT=1``), which must give identical hypotheses.
+    After each search every page is back in the pool. Each hypothesis's
+    cumulative logprob (score x len ** penalty) must equal one teacher-forced
+    verify forward's within 2 x spread a token (``check_spec_echo``'s
+    measured difference of two 32-layer bf16 paths bounds a logit's and the
+    log-sum-exp's). K3 must launch inside the beam steps; prints beam
+    tokens/s (BEAM_WIDTH x BEAM_TOKENS a search over its seconds). Returns
+    the Python-allocator run's launches, with K3's inside the beam decode
+    steps as ``paged_attention_beam``."""
+    import os
+
+    from conch_tpu_torch import native
+    from conch_tpu_torch.models.llama import init_kv_caches
+    from conch_tpu_torch.serving import EngineConfig, LLMEngine, beam_search
+
+    rng = np.random.default_rng(SEED + 30)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in BEAM_PROMPT_LENS]
+    ecfg = EngineConfig(**BEAM_ENGINE)
+    runs, launches, in_beam = {}, None, {}
+    saved = os.environ.get("CONCH_ENABLE_CPP_EXT")
+    try:
+        for allocator in ("python", "native"):
+            os.environ["CONCH_ENABLE_CPP_EXT"] = "1" if allocator == "native" else "0"
+            engine = LLMEngine(params, cfg, ecfg)
+            if isinstance(engine.allocator, native.NativeBlockAllocator) != (allocator == "native"):
+                raise AssertionError(f"beam ({allocator}): the engine took {type(engine.allocator).__name__}")
+            decode = engine._decode_fn
+
+            def counted(*args, _decode=decode, **kwargs):
+                before = read_launch_counts()
+                out = _decode(*args, **kwargs)
+                for name, n in read_launch_counts().items():
+                    in_beam[name] = in_beam.get(name, 0) + n - before[name]
+                return out
+
+            if allocator == "python":
+                engine._decode_fn = counted
+            reset_launch_counts()
+            rates, hyps = [], {}
+            for penalty in BEAM_PENALTIES:
+                for p in prompts:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    got = beam_search(engine, p, BEAM_WIDTH, BEAM_TOKENS, length_penalty=penalty)
+                    torch.cuda.synchronize()
+                    rates.append(BEAM_WIDTH * BEAM_TOKENS / (time.perf_counter() - t0))
+                    if engine.allocator.num_free != ecfg.num_pages:
+                        raise AssertionError(f"beam ({allocator}): {ecfg.num_pages - engine.allocator.num_free} pages "
+                                             f"not returned after the {len(p)}-token prompt")
+                    if len(got) != BEAM_WIDTH or any(len(h.tokens) != BEAM_TOKENS for h in got):
+                        raise AssertionError(f"beam ({allocator}): hypotheses of other lengths than {BEAM_TOKENS}")
+                    hyps[(penalty, len(p))] = [(h.tokens, h.score) for h in got]
+            if allocator == "python":
+                launches = read_launch_counts()
+            runs[allocator] = hyps
+            print(f"llama3-8b-int4-beam ({allocator} allocator): {len(rates)} searches (prompts "
+                  f"{list(BEAM_PROMPT_LENS)}, penalties {list(BEAM_PENALTIES)}, width {BEAM_WIDTH}, {BEAM_TOKENS} "
+                  f"tokens): beam tok/s {[round(r, 2) for r in rates]} on {card}; every page returned after each",
+                  flush=True)
+            del engine
+            torch.cuda.empty_cache()
+    finally:
+        if saved is None:
+            os.environ.pop("CONCH_ENABLE_CPP_EXT", None)
+        else:
+            os.environ["CONCH_ENABLE_CPP_EXT"] = saved
+    if runs["native"] != runs["python"]:
+        raise AssertionError("beam: the native allocator's hypotheses differ from the Python allocator's")
+    longest = max(BEAM_PROMPT_LENS) + BEAM_TOKENS
+    caches = init_kv_caches(cfg, -(-longest // PS), PS, device="cuda")
+    worst = 0.0
+    for (penalty, n), hyps in runs["python"].items():
+        prompt = prompts[BEAM_PROMPT_LENS.index(n)]
+        for tokens, score in hyps:
+            cum = score * len(tokens) ** penalty
+            diff = abs(cum - teacher_forced_logprob(params, cfg, prompt, tokens, caches))
+            worst = max(worst, diff / len(tokens))
+            if diff > 2 * spread * len(tokens):
+                raise AssertionError(f"beam: a hypothesis's cumulative logprob {cum:.4f} is {diff:.4f} off a "
+                                     f"teacher-forced prefill's (limit {2 * spread * len(tokens):.4f})")
+    del caches
+    torch.cuda.empty_cache()
+    if in_beam.get("paged_attention", 0) <= 0:
+        raise AssertionError("beam: K3 never launched inside a beam step")
+    print(f"llama3-8b-int4-beam: the native allocator gave identical hypotheses (tokens and scores); each of "
+          f"{sum(len(h) for h in runs['python'].values())} hypotheses' cumulative logprob within {worst:.4f} a token "
+          f"of a teacher-forced prefill's (limit 2 x spread = {2 * spread:.4f}); K3 launches inside the beam steps "
+          f"{in_beam['paged_attention']}; launches {launches}", flush=True)
+    return {**launches, **{f"{name}_beam": n for name, n in in_beam.items() if n}}
+
+
+# The HTTP path (``check_server``): the README's 16 int4 prompts (40 to 900
+# tokens, two sharing a 128-token prefix), 32 new tokens, greedy; 2
+# streamed; one n 4 at temperature 0.8; one through a LoRA adapter's name.
+SERVER_ENGINE = {"num_pages": 4096, "max_batch_size": 32}
+SERVER_TOKENS = 32
+
+
+def _http(base: str, body: dict) -> tuple[int, dict | list, float]:
+    """POST ``body`` to /v1/completions: (status, the JSON body or, streamed,
+    the SSE chunks, seconds)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(base + "/v1/completions", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"}, method="POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            if body.get("stream"):
+                chunks = [json.loads(line[6:]) for line in (raw.decode().strip() for raw in resp)
+                          if line.startswith("data: ") and line != "data: [DONE]"]
+                return resp.status, chunks, time.perf_counter() - t0
+            return resp.status, json.loads(resp.read()), time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), time.perf_counter() - t0
+
+
+def check_server(card: str, params: dict, cfg, spread: float) -> dict:
+    """``llama3_8b_int4_server``: ``make_server`` over an ``EngineWorker`` on
+    127.0.0.1 port 0 (an engine with the 4 LoRA adapters of ``check_lora``),
+    20 requests at once from client threads (SERVER_* above). The greedy
+    outputs must equal a direct ``engine.generate`` of the same prompts on a
+    fresh engine (the LoRA request: with its adapter's id), the streamed
+    ones the same prompts' non-streamed outputs, up to a first divergence at
+    a near tie (``check_diverged``); the n 4 request gives 4 choices of 32
+    tokens. At the end the worker is alive, no request holds a page and
+    every page is free or held by the prefix cache. Prints requests/s, p50
+    and p99 latency and tok/s over HTTP beside direct ``generate``. Returns
+    the HTTP run's launches."""
+    import threading
+
+    from conch_tpu_torch.models.lora import stack_lora_adapters
+    from conch_tpu_torch.serving import EngineConfig, EngineWorker, LLMEngine, SamplingParams, ServerConfig
+    from conch_tpu_torch.serving import make_server
+
+    adapters = stack_lora_adapters(lora_adapters(cfg))
+    ecfg = EngineConfig(**SERVER_ENGINE)
+    prompts = int4_prompts(np.random.default_rng(SEED), cfg.vocab_size)
+    lora_prompt, lora_id = prompts[3], 1
+    engine = LLMEngine(params, cfg, ecfg, lora=adapters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    direct = engine.generate(prompts + [lora_prompt], SamplingParams(max_tokens=SERVER_TOKENS),
+                             lora_ids=[None] * len(prompts) + [lora_id])
+    torch.cuda.synchronize()
+    direct_rate = len(direct) * SERVER_TOKENS / (time.perf_counter() - t0)
+    del engine
+    torch.cuda.empty_cache()
+
+    worker = EngineWorker(LLMEngine(params, cfg, ecfg, lora=adapters))
+    names = {f"adapter{i}": i for i in range(LORA_ADAPTERS)}
+    httpd = make_server(worker, ServerConfig(model_name="llama3-8b-int4", adapters=names), "127.0.0.1", 0)
+    server_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server_thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    bodies = [{"prompt": p, "max_tokens": SERVER_TOKENS} for p in prompts]
+    bodies += [{"prompt": p, "max_tokens": SERVER_TOKENS, "stream": True} for p in prompts[:2]]
+    bodies.append({"prompt": prompts[2], "max_tokens": SERVER_TOKENS, "n": 4, "temperature": 0.8})
+    bodies.append({"prompt": lora_prompt, "max_tokens": SERVER_TOKENS, "model": f"adapter{lora_id}"})
+    results: list = [None] * len(bodies)
+
+    def hit(i):
+        results[i] = _http(base, bodies[i])
+
+    try:
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=hit, args=(i,)) for i in range(len(bodies))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launch_counts()
+        if not worker.alive or worker.fault is not None:
+            raise AssertionError(f"server: the engine worker died: {worker.fault!r}")
+        if any(r is None or r[0] != 200 for r in results):
+            raise AssertionError(f"server: a request failed: {[r if r is None else r[:2] for r in results]}")
+        held = worker.engine.running + worker.engine.waiting
+        free = worker.engine.allocator.num_free + len(worker.engine._cached_lru)
+        if held or free != ecfg.num_pages:
+            raise AssertionError(f"server: {len(held)} requests still held, {ecfg.num_pages - free} pages not free")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        worker.shutdown()
+    greedy = [r[1]["choices"][0]["token_ids"] for r in results[: len(prompts)]]
+    finish = {c["finish_reason"] for r in results[: len(prompts)] for c in r[1]["choices"]}
+    equal = check_diverged("server, greedy over HTTP against direct generate", params, cfg, prompts, greedy,
+                           direct[: len(prompts)], spread)
+    streamed = [[t for c in r[1] for t in c["choices"][0]["token_ids"]] for r in results[len(prompts) : len(prompts) + 2]]
+    check_diverged("server, streamed against non-streamed", params, cfg, prompts[:2], streamed, greedy[:2], spread)
+    group = results[len(prompts) + 2][1]["choices"]
+    if len(group) != 4 or any(len(c["token_ids"]) != SERVER_TOKENS for c in group):
+        raise AssertionError("server: the n 4 request did not give 4 choices of 32 tokens")
+    lora_out = results[-1][1]["choices"][0]["token_ids"]
+    check_diverged("server, the LoRA adapter's name against direct generate with its id", params, cfg, [lora_prompt],
+                   [lora_out], [direct[-1]], spread, lora=(adapters, lora_id))
+    if lora_out == greedy[3]:
+        raise AssertionError("server: the adapter's name gave the base model's tokens")
+    latencies = sorted(r[2] for r in results)
+    tokens = sum(r[1]["usage"]["completion_tokens"] for r in results if isinstance(r[1], dict))
+    tokens += sum(len(s) for s in streamed)
+    print(f"llama3-8b-int4-server: {len(bodies)} requests over HTTP at once (16 greedy, 2 streamed, n 4 at "
+          f"temperature 0.8, one LoRA by name) in {wall:.3f} s: {len(bodies) / wall:.2f} requests/s, latency p50 "
+          f"{np.percentile(latencies, 50):.3f} s, p99 {np.percentile(latencies, 99):.3f} s, {tokens / wall:.2f} "
+          f"generated tok/s over HTTP against {direct_rate:.2f} by direct generate (17 requests) on {card}; {equal} of "
+          f"16 greedy outputs equal to direct generate throughout; finish reasons {sorted(finish)}; the worker alive, "
+          f"every page free or cached", flush=True)
+    return launches
+
+
+def kernel_phase_k3_beam(gen, rng) -> dict:
+    """K3 at a beam step: BEAM_WIDTH live rows of one BEAM_K3_PROMPT-token
+    prompt, BEAM_K3_GEN tokens generated each, in an 8-row step (the others
+    idle) over a 32-layer bf16 pool; the prompt's full pages shared by the 4
+    rows, each row's own tail pages. Held at 3e-2 against the plain version.
+    ``bound_ms`` counts the unique K and V rows once (``unique_kv_rows``);
+    ``bound_ms_per_row`` counts the rows each beam reads."""
+    from conch_tpu_torch.kernels.attention.paged_attention import paged_attention_launcher, paged_attention_plain
+
+    full, tails = BEAM_K3_PROMPT // PS, -(-(BEAM_K3_PROMPT % PS + BEAM_K3_GEN) // PS)
+    num_pages = full + BEAM_WIDTH * tails + 1
+    kc, vc = make_pool(gen, num_pages)
+    perm = rng.permutation(np.arange(1, num_pages))
+    bt = np.zeros((8, BEAM_ENGINE["max_pages_per_seq"]), np.int32)
+    seq_lens = [BEAM_K3_PROMPT + BEAM_K3_GEN] * BEAM_WIDTH + [0] * (8 - BEAM_WIDTH)
+    for b in range(BEAM_WIDTH):
+        bt[b, :full] = perm[:full]
+        bt[b, full : full + tails] = perm[full + b * tails : full + (b + 1) * tails]
+    q = torch.randn((8, QH, D), generator=gen, device="cuda").to(torch.bfloat16)
+    sl = torch.tensor(seq_lens, dtype=torch.int32, device="cuda")
+    args = (q, kc, vc, torch.from_numpy(bt).cuda(), sl, D**-0.5, LAYER, 0.0, 0)
+    got, ref = paged_attention_launcher(*args), paged_attention_plain(*args)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all() or got[BEAM_WIDTH:].abs().max().item() != 0.0:
+        raise AssertionError("K3 beam: the idle rows must come out as finite zeros")
+    err = (got.float() - ref.float()).abs().max().item()
+    check("K3 paged_attention at a beam step (4 beams sharing 64 pages)", err, 3e-2)
+    case = {"shape": (QH, KH, D), "seq_lens": seq_lens, "args": args, "bt": bt}
+    b_ms, b_by = k3_bound(case, 0)
+    pages = sum(-(-n // PS) for n in seq_lens)
+    per_row_bytes = (2 * q.numel() * q.element_size() + 2 * sum(seq_lens) * KH * D * kc.element_size() + pages * 4
+                     + len(seq_lens) * 4)
+    per_row_ms, _ = bound(per_row_bytes, 4 * QH * D * sum(seq_lens))
+    row = _kernel_row("paged_attention_beam", "conch_tpu_torch/csrc/paged_attention.cu",
+                      "conch_tpu/kernels/attention/paged_attention.py:57", err,
+                      {"ms": time_ms(lambda: paged_attention_launcher(*args)),
+                       "paced_ms": paced_ms(lambda: paged_attention_launcher(*args)),
+                       "plain_ms": time_ms(lambda: paged_attention_plain(*args), iters=5), "library_ms": None},
+                      b_ms, b_by)
+    row["bound_ms_per_row"] = per_row_ms
+    print(f"paged_attention_beam: {row['ms']:.4f} ms (paced {row['paced_ms']:.4f}, plain {row['plain_ms']:.4f}, bound "
+          f"{b_ms:.5f} by {b_by} over the unique rows, {per_row_ms:.5f} over the rows each beam reads)", flush=True)
+    del kc, vc
+    torch.cuda.empty_cache()
+    return row
+
+
 def slice_paths(card: str, lap) -> dict:
-    """The speculative, parallel-sampling and multi-LoRA paths: the verify
-    logits check, then Llama-3-8B int4 (32 layers, one set of fused params)
-    through the spec echo, the served spec runs, parallel sampling and
-    multi-LoRA, then DeepSeek-V2-Lite served with speculation; ``lap(phase)``
-    after each. Returns the served runs' launches by path."""
+    """The speculative, parallel-sampling, multi-LoRA, guided, beam and HTTP
+    paths: the verify logits check, then Llama-3-8B int4 (32 layers, one set
+    of fused params) through the spec echo, the served spec runs, parallel
+    sampling, multi-LoRA, guided decoding, beam search and the HTTP server,
+    then DeepSeek-V2-Lite served with speculation; ``lap(phase)`` after
+    each. Returns the served runs' launches by path."""
     import conch_tpu_torch.models.deepseek as ds
     from conch_tpu_torch.models.llama import LlamaConfig, fuse_llama_params, init_llama_params
 
@@ -6812,6 +7245,12 @@ def slice_paths(card: str, lap) -> dict:
     lap("check_parallel_sampling")
     launches["llama3_8b_int4_lora"] = check_lora(card, params, cfg, spread)
     lap("check_lora")
+    launches["llama3_8b_int4_guided"] = check_guided(card, params, cfg, spread)
+    lap("llama3_8b_int4_guided")
+    launches["llama3_8b_int4_beam"] = check_beam(card, params, cfg, spread)
+    lap("llama3_8b_int4_beam")
+    launches["llama3_8b_int4_server"] = check_server(card, params, cfg, spread)
+    lap("llama3_8b_int4_server")
     del params
     torch.cuda.empty_cache()
     launches["deepseek_v2_lite_spec"] = serve(

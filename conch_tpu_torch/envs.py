@@ -12,6 +12,11 @@ environment_variables: dict[str, Callable[[], Any]] = {
     "CONCH_NVCC": lambda: os.getenv(
         "CONCH_NVCC", os.path.join(os.getenv("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
     ),
+    # Serve with the native C++ block allocator (native.py; built at first
+    # use, and a failed build raises).
+    "CONCH_ENABLE_CPP_EXT": lambda: bool(int(os.getenv("CONCH_ENABLE_CPP_EXT", "0"))),
+    # The C++ compiler that builds ext/*.cc (native.py).
+    "CONCH_CXX": lambda: os.getenv("CONCH_CXX", "g++"),
 }
 
 

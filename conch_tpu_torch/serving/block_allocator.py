@@ -5,9 +5,10 @@
 ``conch_tpu/serving/block_allocator.py``).
 
 The host-side memory manager of the serving engine: free-list
-allocation and per-page refcounts for shared pages: prefix-cached pages
-and a parallel-sampling group's full prompt pages (``fork``); the engine
-copies a group's partial tail page for each sibling.
+allocation and per-page refcounts for shared pages: prefix-cached pages,
+a parallel-sampling group's full prompt pages and beam search's shared
+pages (``fork``); the engine copies a partial tail page for each sibling or
+beam. ``native.NativeBlockAllocator`` has the same interface in C++.
 """
 
 from __future__ import annotations
@@ -52,3 +53,18 @@ class BlockAllocator:
             msg = f"fork of free page {page}"
             raise RuntimeError(msg)
         self._refcount[page] += 1
+
+    def refcount(self, page: int) -> int:
+        return self._refcount[page]
+
+    def is_shared(self, page: int) -> bool:
+        return self._refcount[page] > 1
+
+    def cow(self, page: int) -> tuple[int, bool]:
+        """A writable page for ``page``: itself if not shared, else a fresh
+        page (the caller copies) while ``page`` drops one reference."""
+        if not self.is_shared(page):
+            return page, False
+        new_page = self.allocate()
+        self._refcount[page] -= 1
+        return new_page, True

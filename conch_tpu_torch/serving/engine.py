@@ -33,7 +33,11 @@ counts, as in the JAX package:
   bias) and logprobs under the rule-adjusted, unscaled logits;
 - multi-LoRA (``lora=``, ``add_request(lora_id=...)``): every step carries
   one adapter id a token row, -1 on padding rows; the prefix cache is
-  keyed by adapter.
+  keyed by adapter;
+- guided decoding (``SamplingParams(guided=TokenFSM)``, ``serving/guided.py``):
+  after the other logit rules, each guided row's disallowed tokens go to
+  -inf by one host-built (rows, vocab) bool mask a step and one
+  ``torch.where``; the FSM state is walked from ``output_tokens``.
 
 The KV pool is one stacked (L, P, KH, ps, D) tensor pair updated in place
 by the model (the JAX engine donates it through its jitted steps); a
@@ -46,9 +50,11 @@ Llama by default; ``prefill_fn``/``decode_fn`` swap the family
 ``models.moe.mixtral_prefill``/``mixtral_decode_step`` with a
 ``MoEConfig``), as in the JAX engine.
 
-Guided decoding, beam search and the HTTP server come with the next
-slice (ROADMAP Queue 1, item 4), tensor parallelism (``mesh``) with item
-8; asking for them raises.
+Beam search (``serving/beam_search.py``) and the OpenAI-compatible HTTP
+server (``serving/server.py``) drive this engine from outside. The page
+allocator is ``native.NativeBlockAllocator`` (C++, built at first use) when
+``CONCH_ENABLE_CPP_EXT=1``, else ``BlockAllocator``. Tensor parallelism
+(``mesh``) comes with ROADMAP Queue 1 item 8; asking for it raises.
 """
 
 from __future__ import annotations
@@ -62,6 +68,7 @@ import torch
 
 from conch_tpu_torch.models.deepseek import deepseek_decode_step, fuse_deepseek_params
 from conch_tpu_torch.models.llama import fuse_llama_params, llama_decode_step, llama_prefill, llama_verify_forward
+from conch_tpu_torch import envs
 from conch_tpu_torch.platforms import resolve_device
 from conch_tpu_torch.serving.block_allocator import BlockAllocator
 from conch_tpu_torch.serving.sampling import SamplingParams, sample_tokens
@@ -95,6 +102,8 @@ class Request:
     siblings_spawned: bool = False
     # Multi-LoRA: index into the engine's stacked adapter set, -1: the base model.
     lora_id: int = -1
+    # Guided decoding: (output tokens walked, FSM state after them).
+    guided_cache: tuple[int, int] = (0, 0)
 
     @property
     def total_len(self) -> int:
@@ -142,6 +151,16 @@ class EngineConfig:
     # overwritten slot. Needs the model's sliding_window > 0 and prefix
     # caching off (ring pages are rewritten in place); LLMEngine checks.
     rolling_kv: bool = False
+
+
+def _make_allocator(num_pages: int):
+    """The native C++ allocator under ``CONCH_ENABLE_CPP_EXT=1`` (built at
+    first use; a failed build raises), else the Python one."""
+    if envs.CONCH_ENABLE_CPP_EXT:
+        from conch_tpu_torch import native
+
+        return native.NativeBlockAllocator(num_pages)
+    return BlockAllocator(num_pages)
 
 
 def _bucket(n: int, floor: int = 16) -> int:
@@ -223,7 +242,7 @@ class LLMEngine:
         self._decode_fn = decode_fn or llama_decode_step
         self._verify_fn = verify_fn or llama_verify_forward
         self.lora = lora
-        self.allocator = BlockAllocator(engine_config.num_pages)
+        self.allocator = _make_allocator(engine_config.num_pages)
         dtype = cache_dtype or model_config.dtype
         if getattr(model_config, "kv_cache_layout", "kv") == "mla":
             cache_shape = (
@@ -312,6 +331,17 @@ class LLMEngine:
         if sampling.n < 1:
             msg = f"sampling.n must be >= 1, got {sampling.n}"
             raise ValueError(msg)
+        if sampling.guided is not None:
+            if self.ecfg.eos_token_id is None:
+                msg = "guided decoding requires eos_token_id (the FSM finishes by emitting EOS)"
+                raise ValueError(msg)
+            fsm_vocab = sampling.guided.transitions.shape[1]
+            if fsm_vocab != self.config.vocab_size:
+                msg = (
+                    f"guided FSM was built over a vocab of {fsm_vocab} tokens, "
+                    f"model vocab is {self.config.vocab_size}"
+                )
+                raise ValueError(msg)
         if lora_id is None:
             lora_id = -1
         else:
@@ -883,7 +913,8 @@ class LLMEngine:
         rule applies): ``min_tokens`` sets eos and the stop tokens to -inf;
         the repetition penalty divides the positive logits of every prompt
         and output token and multiplies the others; the logit bias is added
-        (repeated tokens add up)."""
+        (repeated tokens add up); last, the guided masks
+        (``_apply_guided_masks``)."""
         sup_r, sup_c = [], []
         pen_r, pen_c, pen_v = [], [], []
         bias_r, bias_c, bias_v = [], [], []
@@ -904,7 +935,7 @@ class LLMEngine:
                 bias_c.append(tok)
                 bias_v.append(bias)
         if not (sup_r or pen_r or bias_r):
-            return logits
+            return self._apply_guided_masks(logits, reqs, rows)
         logits = logits.clone()
 
         def index(rr, cc):
@@ -919,6 +950,59 @@ class LLMEngine:
             logits[at] = torch.where(seen > 0, seen / pv, seen * pv)
         if bias_r:
             logits.index_put_(index(bias_r, bias_c), self._tensor(np.asarray(bias_v, dtype=np.float32)), accumulate=True)
+        return self._apply_guided_masks(logits, reqs, rows)
+
+    def _guided_state(self, req: Request) -> int:
+        """The request's FSM state, walked from ``output_tokens`` with an
+        O(1) incremental cache (a recompute that shortened them walks again
+        from the start)."""
+        fsm = req.sampling.guided
+        n_cached, state = req.guided_cache
+        if n_cached > len(req.output_tokens):
+            n_cached, state = 0, fsm.start_state
+        state = fsm.walk(req.output_tokens[n_cached:], state)
+        req.guided_cache = (len(req.output_tokens), state)
+        return state
+
+    def _apply_guided_masks(self, logits: torch.Tensor, reqs: list[Request], rows: list[int]) -> torch.Tensor:
+        """Guided decoding, as the JAX engine: the tokens a guided row's FSM
+        disallows go to -inf, by one (rows, vocab) bool mask built on the
+        host, moved once, and one ``torch.where`` (a new tensor: the caller's
+        logits stay as they were). EOS is legal only in accepting states;
+        where a state cannot extend (a complete fixed-length match, or a
+        dead state) EOS is the only legal token and is set to 0.0, above the
+        -inf that ``min_tokens`` gave it, so no row is all -inf."""
+        pairs = [(row, r) for row, r in zip(rows, reqs) if r.sampling.guided is not None]
+        if not pairs:
+            return logits
+        eos = self.ecfg.eos_token_id
+        vocab = logits.shape[-1]
+        mask_rows = np.zeros((len(pairs), vocab), dtype=bool)
+        idx_rows = np.empty(len(pairs), dtype=np.int64)
+        forced: list[int] = []  # rows where EOS is the only legal token
+        for i, (row, r) in enumerate(pairs):
+            fsm = r.sampling.guided
+            state = self._guided_state(r)
+            idx_rows[i] = row
+            if state >= 0:
+                allowed = fsm.allowed[state].copy()
+                can_extend = bool(allowed.any())
+                if fsm.accepting[state]:
+                    allowed[eos] = True
+                if not can_extend:
+                    allowed[:] = False
+                    allowed[eos] = True
+                    forced.append(row)
+            else:  # a dead state (the masks never let a request reach one)
+                allowed = np.zeros(vocab, dtype=bool)
+                allowed[eos] = True
+                forced.append(row)
+            mask_rows[i] = allowed
+        rr = self._tensor(idx_rows)
+        masked = torch.where(self._tensor(mask_rows), logits[rr], float("-inf"))
+        logits = logits.index_put((rr,), masked)
+        if forced:
+            logits[self._tensor(np.asarray(forced, dtype=np.int64)), eos] = 0.0
         return logits
 
     def _maybe_finish(self, req: Request) -> None:
@@ -927,6 +1011,14 @@ class LLMEngine:
         hit_stop = last is not None and (last == eos or last in req.sampling.stop_token_ids)
         if hit_stop and len(req.output_tokens) < req.sampling.min_tokens:
             hit_stop = False  # suppressed at sampling; belt and braces here
+            if req.sampling.guided is not None and last == eos:
+                # A guided request finishes when its FSM cannot extend the
+                # match: min_tokens cannot force tokens the constraint
+                # forbids (the state walked without the final EOS).
+                fsm = req.sampling.guided
+                state = fsm.walk(req.output_tokens[:-1])
+                if state < 0 or not bool(fsm.allowed[state].any()):
+                    hit_stop = True
         out_of_len = len(req.output_tokens) >= req.sampling.max_tokens
         # Rolling KV: the length is never page-bound (the ring wraps) but is
         # rope-bound.

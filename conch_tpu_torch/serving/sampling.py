@@ -25,8 +25,10 @@ class SamplingParams:
     the positive logits of every prompt and output token and multiplies
     the others; ``logit_bias`` adds to the logits of its tokens;
     ``logprobs`` records each sampled token's log-probability under the
-    rule-adjusted, unscaled logits. ``guided`` (a token FSM) comes with the
-    next slice (ROADMAP Queue 1, item 4) and raises when set.
+    rule-adjusted, unscaled logits. ``guided`` is a ``serving.guided.TokenFSM``
+    (identity-hashed, so it can sit in this frozen dataclass): the engine
+    masks every token it disallows; the request finishes with EOS once the
+    match is complete and cannot extend.
     """
 
     temperature: float = 0.0  # 0 => greedy
@@ -39,12 +41,7 @@ class SamplingParams:
     repetition_penalty: float = 1.0  # > 1 discourages tokens already seen
     logit_bias: tuple[tuple[int, float], ...] = ()  # (token, additive bias)
     logprobs: bool = False  # record each sampled token's log-probability
-    guided: object | None = None
-
-    def __post_init__(self) -> None:
-        if self.guided is not None:
-            msg = "guided decoding is not ported yet (ROADMAP Queue 1, item 4: serving/guided.py)"
-            raise NotImplementedError(msg)
+    guided: object | None = None  # serving.guided.TokenFSM
 
 
 def top_k_top_p_filter(scaled: torch.Tensor, top_k: torch.Tensor, top_p: torch.Tensor) -> torch.Tensor:

@@ -32,6 +32,7 @@ from conch_tpu.serving import SamplingParams as JaxSamplingParams
 from conch_tpu_torch.models.llama import LlamaConfig, init_llama_params, params_from_jax
 from conch_tpu_torch.models.lora import init_lora_adapter, stack_lora_adapters
 from conch_tpu_torch.serving import EngineConfig, LLMEngine, SamplingParams
+from conch_tpu_torch.serving.guided import TokenFSM
 from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
 DIMS = {
@@ -141,8 +142,12 @@ def test_sampling_is_seeded_and_unported_options_raise():
     # Rolling KV is ported: the engine refuses it for a model without a window.
     with pytest.raises(ValueError, match="sliding_window"):
         LLMEngine(params, cfg, EngineConfig(**ENGINE, rolling_kv=True, enable_prefix_caching=False), device="cpu")
-    # Guided decoding (the next slice) and tensor-parallel meshes (item 8) still raise.
-    with pytest.raises(NotImplementedError, match="guided"):
-        SamplingParams(guided=object())
+    # Guided decoding is served (tests/test_torch_guided.py holds it against
+    # the JAX engine): a one-token FSM over the model's vocabulary, then EOS.
+    fsm = TokenFSM.from_regex("a", [chr(i) if 97 <= i <= 122 else "" for i in range(DIMS["vocab_size"])])
+    guided = LLMEngine(params, cfg, EngineConfig(**ENGINE, eos_token_id=0), device="cpu").generate(
+        prompts, SamplingParams(max_tokens=6, guided=fsm))
+    assert guided == [[97, 0], [97, 0]]
+    # Tensor-parallel meshes (item 8) still raise.
     with pytest.raises(NotImplementedError, match="mesh"):
         LLMEngine(params, cfg, EngineConfig(**ENGINE), device="cpu", mesh=object())
