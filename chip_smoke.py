@@ -36,31 +36,35 @@
      zero-point modes 0, 1 and 2, M 8, 40
      and 130 with K split, x contiguous, with padded rows or realigned, f32
      and bf16 outputs), tolerance 1e-2 x max |ref|; K1 over every option it
-     takes (``check_magic_gemm_options``, 864 cases: groups 32, 64 and 128,
+     takes (``check_magic_gemm_options``, 4320 cases: groups 32, 64 and 128,
      K 416 at group 32 (a last slice half past K), biases 8, 0 and 15, stacked
-     and single weights, M 1 to 600, x three ways, f32 and bf16 outputs;
-     1e-2 x max |ref|, every case bit for bit across two calls);
-   - K3 over every option it takes (``check_paged_attention_options``, 1344
-     cases: bf16 and f32 queries over bf16, f32, int8 and e4m3 caches, GQA
+     and single weights, M 1 to 600, x three ways; bf16 x over bf16 scales
+     into f32, bf16 and f16 outputs; f16 x over bf16, f16 and f32 scales
+     (``MAGIC_OPTION_F16``) with one group's scales near 1e-5, and over
+     scales all near 1e-5 into f16; 1e-2 x max |ref|, every case bit for
+     bit across two calls);
+   - K3 over every option it takes (``check_paged_attention_options``, 1920
+     cases: bf16 and f32 queries over bf16, f32, int8 and e4m3 caches, f16
+     queries over f16, int8 and e4m3 ones, GQA
      groups 1, 4, 7 and 8, heads 34 to 256, softcap, windows 0, 37 and 500, one
      split and several, idle rows exactly zero, shared prefix pages, pages no
      row may see set to NaN; 3e-2, or 3e-2 + 3e-2 x |ref| on 1-byte caches;
      every case bit for bit across two calls), then one K3 call captured in
      a CUDA graph and replayed (equal to the eager call, also after
-     seq_lens changed in place), then 288 rolling-KV cases
-     (``check_paged_ring_options``: bf16 queries over bf16, int8 and e4m3
-     caches and f32 over f32, groups 1, 4, 7 and 8, heads 64 to 256,
+     seq_lens changed in place), then 504 rolling-KV cases
+     (``check_paged_ring_options``: bf16 and f16 queries over their own
+     type, int8 and e4m3 caches and f32 over f32, groups 1, 4, 7 and 8, heads 64 to 256,
      windows 37, 500 and 2000 over rings of 5, 34 and 127 pages that the
      sequences wrap up to 62 times, softcap on and off, one split and
      several, the table's entries past the ring poisoned);
    - K7 over every option it takes (``check_varlen_attention_options``,
-     1344 cases: K3's (query, cache) dtypes, groups and heads, causal and
+     1920 cases: K3's (query, cache) dtypes, groups and heads, causal and
      not, softcap, windows 0, 37 and 500, a ragged step with a decode row,
      a zero-length sequence and padding rows, shared prefix pages, pages no
      row may see set to NaN, several splits and one; 2e-2 + 2e-2 x |ref|,
      padding rows exactly zero, every case bit for bit across two calls),
      then one K7 call replayed from a CUDA graph (also after cu_seqlens_q
-     and seq_lens changed in place), then 576 rolling-KV cases
+     and seq_lens changed in place), then 1008 rolling-KV cases
      (``check_varlen_ring_options``: K3's ring types, groups, heads and
      windows on the ragged step, causal and not, rings of the window plus
      the step's largest chunk);
@@ -71,7 +75,11 @@
      turns; K3 and K7 at Qwen2-7B's GQA group of 7 (``kernel_phase_group7``:
      the served decode step and the 512-row prefill step); K1 at Qwen2-7B's
      int4 shapes (``kernel_phase_k1_qwen2``: K 3584 and 18944, M 8, 32 and
-     512, beside bf16 ``torch.matmul``); K8 over e4m3 (the mainloop's fp8
+     512, beside bf16 ``torch.matmul``); the same four kernels under f16 at
+     Qwen2-7B's shapes (``kernel_phases_f16``: K1 with f16 x and f16 scales
+     beside ``torch.matmul`` on the f16 dense weight, K2 from f16 keys into
+     an f16 pool bit for bit, K3 and K7 with f16 queries over an f16 pool);
+     K8 over e4m3 (the mainloop's fp8
      ``wgmma`` layout) at the w8a8 shapes, M 16, 32 and 512, read from a
      32-layer stack, beside ``torch._scaled_mm`` (``kernel_phase_k8_e4m3``),
      and K7 under f32 queries (``kernel_phase_k7_f32``);
@@ -198,8 +206,11 @@
    - K1, K1b and K1c storing f32 from bf16 activations
      (``mixed_precision_gemm(..., output_dtype=torch.float32)``) at K = N
      = 4096, M 8 and 512, at 1e-2 x max |ref|, timed beside the bf16
-     store; a float16 output must raise, and a bfloat16 ``acc_dtype``
-     (recorded only, as in JAX) must equal the f32 call bit for bit;
+     store; K1's float16 store held to the plain version, K1b's and K1c's
+     float16 outputs and f16 x, K8's float16 output and K11's f16 queries
+     refused naming their rules (``check_f16_refused``), and a bfloat16
+     ``acc_dtype`` (recorded only, as in JAX) must equal the f32 call bit
+     for bit;
 4. vision: ``generate_voxels`` and ``voxelization_stable`` with
    ``collect_point_features`` at PointPillars' KITTI size (120,000 points,
    3% on voxel boundaries) on the card, every output equal to the CPU's;
@@ -229,7 +240,9 @@
    the card against the plain path on the CPU (Llama-3-8B: bf16 weights in
    f32 and bf16, int4 at group 128 and 64, int8, nf4 and w8a8 weights in
    bf16; Qwen2-7B and Mistral-7B (window cut to 16): bf16 weights in f32,
-   int4 in bf16; Gemma-2-2B: f32 and bf16, random norm weights, int4,
+   int4 in bf16, Qwen2-7B also int4 with f16 scales in f16 over an f16 and
+   an int8 KV cache (tolerances 5e-3 and 2e-2 x max |ref|, set by
+   ``tools/f16_sensitivity.py``); Gemma-2-2B: f32 and bf16, random norm weights, int4,
    int8, nf4 and w8a8 in bf16; DeepSeek-V2-Lite, one dense and one MoE
    layer: f32 and bf16, int4 and int8 at group 32, nf4 and w8a8 in bf16,
    random norm weights, and the MoE routing compared
@@ -278,7 +291,10 @@
    - Qwen2-7B in int4 (``qwen2_7b_int4``: q/k/v biases, GQA group 7, 28
      layers): 8 requests of 40 to 2000 tokens,
      ``EngineConfig(num_pages=4096, max_batch_size=32,
-     max_pages_per_seq=160)``;
+     max_pages_per_seq=160)``; then the same in float16, as its GPTQ
+     checkpoint ships (``qwen2_7b_int4_f16``: f16 activations and group-128
+     scales, an f16 KV cache, the bf16 dense head converted to f16 once at
+     load; 16 tokens a request), every K1, K2, K3 and K7 launch f16;
    - Mixtral-8x7B in bf16 (``mixtral_8x7b_bf16``) at every published
      width, its depth cut to 24 of 32 layers (``MIXTRAL_LAYERS``: 70.2 GB
      of weights), through ``mixtral_prefill`` and ``mixtral_decode_step``:
@@ -298,7 +314,7 @@
    (``check_verify_logits``); the greedy-exact contract at full width
    (``check_spec_echo``: one verify step over the plain int4 engine's 16
    tokens a request gives its next tokens, but at a near tie);
-   ``llama3_8b_int4_spec`` (8 motif prompts of about 1024 tokens, 128 new,
+   ``llama3_8b_int4_spec`` (8 motif prompts of about 1024 tokens, 64 new,
    4 drafted a step, three runs beside the plain engine: tok/s, drafted,
    accepted, profiled busy ms, idle share and K7 inside the verify
    steps; the tokens equal up to a divergence at a near tie);
@@ -333,7 +349,8 @@
    f32 rows, whose launches are their phases': K8's e4m3 launches on the
    mainloop's fp8 layout), Mistral-7B's rolling run
    for K3's and K7's ring rows (their launches over the ring), Qwen2-7B
-   for their group-7 rows and K1's Qwen2 row, the vision path for
+   for their group-7 rows and K1's Qwen2 row, Qwen2-7B in f16 for the f16
+   rows of K1, K2, K3 and K7 (their f16 launches), the vision path for
    K13a, K13b and K13c, the QLoRA path for K12d, the residual stream for
    K4b, the TP-8 collectives path for K14; every path's counts
    beside them; K7 V and K11 V, their rows at the verify step
@@ -455,11 +472,12 @@ def check_close(name: str, out: torch.Tensor, ref: torch.Tensor, tol: float) -> 
 
 
 def make_pool(
-    gen: torch.Generator, num_pages: int, layers: int = NUM_LAYERS_POOL, kh: int = KH, d: int = D
+    gen: torch.Generator, num_pages: int, layers: int = NUM_LAYERS_POOL, kh: int = KH, d: int = D,
+    dtype: torch.dtype = torch.bfloat16,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     shape = (layers, num_pages, kh, PS, d)
-    kc = torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(torch.bfloat16)
-    vc = torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(torch.bfloat16)
+    kc = torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
+    vc = torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
     return kc, vc
 
 
@@ -515,9 +533,11 @@ def cache_bytes(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
 
 
-def kv_pools(gen, num_pages: int, layers: int, kh: int, d: int, cache: str | None):
-    """bf16 K and V pools (``make_pool``), or int8 / e4m3 ones (``quant_pool``)."""
-    return make_pool(gen, num_pages, layers, kh, d) if cache is None else quant_pool(gen, num_pages, layers, kh, d, cache)
+def kv_pools(gen, num_pages: int, layers: int, kh: int, d: int, cache: str | None, dtype: torch.dtype = torch.bfloat16):
+    """K and V pools of ``dtype`` (``make_pool``), or int8 / e4m3 ones (``quant_pool``)."""
+    if cache is None:
+        return make_pool(gen, num_pages, layers, kh, d, dtype)
+    return quant_pool(gen, num_pages, layers, kh, d, cache)
 
 
 def with_kv_scales(fn, cache: str | None):
@@ -529,12 +549,13 @@ def with_kv_scales(fn, cache: str | None):
     return functools.partial(fn, k_scale=ks, v_scale=vs)
 
 
-def k2_step(gen, rng, qh: int, kh: int, d: int, tokens: int, idle: tuple[int, ...], num_pages: int):
-    """A decode step of ``tokens`` rows, k and v slices of a fused bf16 qkv
-    block; the ``idle`` rows have slot -1 (an idle row, or the rows the
-    engines pad a step with); rows 5 and 6 write one page. Returns k, v,
-    the slots (numpy) and their tensor."""
-    qkv = torch.randn((tokens, (qh + 2 * kh) * d), generator=gen, device="cuda").to(torch.bfloat16)
+def k2_step(gen, rng, qh: int, kh: int, d: int, tokens: int, idle: tuple[int, ...], num_pages: int,
+            dtype: torch.dtype = torch.bfloat16):
+    """A decode step of ``tokens`` rows, k and v slices of a fused qkv
+    block of ``dtype``; the ``idle`` rows have slot -1 (an idle row, or the
+    rows the engines pad a step with); rows 5 and 6 write one page. Returns
+    k, v, the slots (numpy) and their tensor."""
+    qkv = torch.randn((tokens, (qh + 2 * kh) * d), generator=gen, device="cuda").to(dtype)
     k = qkv[:, qh * d : (qh + kh) * d].view(tokens, kh, d)
     v = qkv[:, (qh + kh) * d :].view(tokens, kh, d)
     pages = rng.permutation(np.arange(num_pages))[:tokens]
@@ -553,23 +574,25 @@ K2_STEPS = ((8, (3,)), (32, tuple(range(8, 32))))
 
 
 def kernel_phase_k2(
-    gen, rng, qh: int = QH, kh: int = KH, d: int = D, layers: int = NUM_LAYERS_POOL, cache: str | None = None
+    gen, rng, qh: int = QH, kh: int = KH, d: int = D, layers: int = NUM_LAYERS_POOL, cache: str | None = None,
+    dtype: torch.dtype = torch.bfloat16,
 ) -> dict:
-    """K2 into a bf16 pool, or with ``cache`` ("int8", "fp8") its quantizing
-    store into such a pool at KV_SCALES[cache], held byte for byte, at each
-    of K2_STEPS (``detail``), each timed beside its bound, plain version and
-    (bf16 pool) the indexed assignment; the row has the 8-token numbers."""
+    """K2 from keys of ``dtype`` (bf16, or f16) into a pool of that dtype,
+    or with ``cache`` ("int8", "fp8") its quantizing store into such a pool
+    at KV_SCALES[cache], held byte for byte, at each of K2_STEPS
+    (``detail``), each timed beside its bound, plain version and (16-bit
+    pool) the indexed assignment; the row has the 8-token numbers."""
     from conch_tpu_torch.kernels.cache.reshape_and_cache import (
         reshape_and_cache_stacked_launcher as launch_kv,
         reshape_and_cache_stacked_plain as plain_kv,
     )
 
     num_pages = 256
-    kc, vc = kv_pools(gen, num_pages, layers, kh, d, cache)
+    kc, vc = kv_pools(gen, num_pages, layers, kh, d, cache, dtype)
     launch, plain = with_kv_scales(launch_kv, cache), with_kv_scales(plain_kv, cache)
     err, detail = 0.0, []
     for tokens, idle in K2_STEPS:
-        k, v, slots, slot_t = k2_step(gen, rng, qh, kh, d, tokens, idle, num_pages)
+        k, v, slots, slot_t = k2_step(gen, rng, qh, kh, d, tokens, idle, num_pages, dtype)
         kc_ref, vc_ref = kc.clone(), vc.clone()
         plain(k, v, kc_ref, vc_ref, slot_t, LAYER)
         launch(k, v, kc, vc, slot_t, LAYER)
@@ -604,8 +627,8 @@ def kernel_phase_k2(
             "library_ms": time_ms(library) if cache is None else None,
         })
     for x in detail[1:]:
-        print(f"K2 {cache or 'bf16'} KH={kh} D={d} tokens={x['tokens']} live={x['live']}: {x['ms']:.4f} ms (paced "
-              f"{x['paced_ms']:.4f}, plain {x['plain_ms']:.4f}, library {x['library_ms']}, bound "
+        print(f"K2 {cache or str(dtype)[6:]} KH={kh} D={d} tokens={x['tokens']} live={x['live']}: {x['ms']:.4f} ms "
+              f"(paced {x['paced_ms']:.4f}, plain {x['plain_ms']:.4f}, library {x['library_ms']}, bound "
               f"{x['bound_ms']:.7f} by {x['bound_by']})", flush=True)
     row = _kernel_row(
         "reshape_and_cache_stacked", "conch_tpu_torch/csrc/reshape_and_cache.cu",
@@ -1014,11 +1037,12 @@ def _kernel_row(name: str, source: str, replaces: str, err: float, timed: dict, 
     }
 
 
-def _k1_cases(gen, group: int, shapes: tuple = K1_SHAPES) -> list[dict]:
+def _k1_cases(gen, group: int, shapes: tuple = K1_SHAPES, dtype: torch.dtype = torch.bfloat16) -> list[dict]:
     """K1 at the engine's four (K, N) (or ``shapes``), M in GEMM_MS, layer 17 of a 32-layer
-    stack, at ``group``: checked against the plain version (tolerance 1e-2
-    x max |ref|), bit for bit across two calls, and timed beside it and a
-    bf16 matmul on the dequantized weight."""
+    stack, at ``group``, x and scales in ``dtype`` (bf16, or f16 as a GPTQ
+    checkpoint's): checked against the plain version (tolerance 1e-2 x max
+    |ref|), bit for bit across two calls, and timed beside it and a matmul
+    on the dequantized weight in ``dtype``."""
     from conch_tpu_torch.kernels.common import sm_count
     from conch_tpu_torch.kernels.quantization.gemm import (
         dequantize_magic,
@@ -1032,20 +1056,21 @@ def _k1_cases(gen, group: int, shapes: tuple = K1_SHAPES) -> list[dict]:
         packed = torch.randint(-(2**31), 2**31 - 1, (NUM_LAYERS_POOL, k // 8, n), generator=gen, device="cuda",
                                dtype=torch.int32)
         scales = (torch.rand((NUM_LAYERS_POOL, k // group, n), generator=gen, device="cuda") * 4e-3 + 1e-4).to(
-            torch.bfloat16)
+            dtype)
         # Timed calls walk the 32 layers (library: 3 dense copies), so the
         # weights come from HBM as in a model step, not from the 50 MB L2.
-        dense = [dequantize_magic(packed[i], scales[i], k, group, 8).to(torch.bfloat16) for i in (LAYER, 0, 31)]
+        dense = [dequantize_magic(packed[i], scales[i], k, group, 8).to(dtype) for i in (LAYER, 0, 31)]
         layers, copies = itertools.cycle(range(NUM_LAYERS_POOL)), itertools.cycle(dense)
+        label = f"group {group}" + (" f16" if dtype == torch.float16 else "")
         for m in GEMM_MS:
-            x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+            x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
             out_k = launch(x, packed, scales, group, 8, LAYER)
             out_p = plain(x, packed, scales, group, 8, LAYER)
             torch.cuda.synchronize()
             scale = out_p.float().abs().max().item()
             e = (out_k.float() - out_p.float()).abs().max().item()
-            check(f"K1 mixed_gemm_magic group {group} M={m} K={k} N={n} (max|ref| {scale:.3f})", e, 1e-2 * scale)
-            check_repeatable(f"K1 mixed_gemm_magic group {group} M={m} K={k} N={n}",
+            check(f"K1 mixed_gemm_magic {label} M={m} K={k} N={n} (max|ref| {scale:.3f})", e, 1e-2 * scale)
+            check_repeatable(f"K1 mixed_gemm_magic {label} M={m} K={k} N={n}",
                              lambda: launch(x, packed, scales, group, 8, LAYER))
             plan = quant_gemm_plan("magic", m, n, k, 4, group, sm_count(0))
             bytes_moved = m * k * 2 + k * n // 2 + (k // group) * n * 2 + m * n * 2
@@ -1061,7 +1086,7 @@ def _k1_cases(gen, group: int, shapes: tuple = K1_SHAPES) -> list[dict]:
         del packed, scales, dense
         torch.cuda.empty_cache()
     for d in detail:
-        print(f"K1 group {group} M={d['m']} K={d['k']} N={d['n']}: {d['ms']:.4f} ms (paced {d['paced_ms']:.4f}, plain {d['plain_ms']:.4f}, bf16 matmul {d['library_ms']:.4f}, bound "
+        print(f"K1 group {group} {str(dtype)[6:]} M={d['m']} K={d['k']} N={d['n']}: {d['ms']:.4f} ms (paced {d['paced_ms']:.4f}, plain {d['plain_ms']:.4f}, matmul {d['library_ms']:.4f}, bound "
               f"{d['bound_ms']:.5f} by {d['bound_by']}; splits {d['plan']['splits']})", flush=True)
     return detail
 
@@ -1327,12 +1352,12 @@ PLANAR_OPTION_GROUPS = {2: (128, 256), 4: (64, 128, 256), 8: (32, 64, 96, 128, 2
 OPTION_N = 160  # a partial 128-column tile
 
 
-def _option_xs(gen, m: int, k: int) -> dict:
+def _option_xs(gen, m: int, k: int, dtype: torch.dtype = torch.bfloat16) -> dict:
     """x three ways: contiguous; rows 16 bytes longer (TMA with ldx != K);
     8 bytes off and a stride of K + 4 (realigned by the wrapper's
     ``_tma_rows``)."""
-    wide = torch.randn((m, k + 8), generator=gen, device="cuda").to(torch.bfloat16)
-    off = torch.randn((m, k + 4), generator=gen, device="cuda").to(torch.bfloat16)
+    wide = torch.randn((m, k + 8), generator=gen, device="cuda").to(dtype)
+    off = torch.randn((m, k + 4), generator=gen, device="cuda").to(dtype)
     return {"contiguous": wide[:, :k].contiguous(), "padded": wide[:, :k], "offset": off[:, 4:]}
 
 
@@ -1404,12 +1429,24 @@ def check_quant_gemm_options(gen) -> None:
         raise AssertionError(f"{len(bad)} of {len(names)} K1b/K1c option cases exceed 1e-2 x max |ref|")
 
 
-# K1's option sweep: the three groups, any bias, stacked and single weights, x three ways, bf16 and f32 outputs,
+# K1's option sweep: the three groups, any bias, stacked and single weights, x three ways, bf16, f32 and f16 outputs,
 # M from 1 past 512 (32, 64 and 128 rows a block, K split at small M). K by group: 4 groups, or at group 32 13
-# (six slices of two groups and a last slice half past K).
+# (six slices of two groups and a last slice half past K). Under f16 x: the (scale, output) dtypes of
+# MAGIC_OPTION_F16, over the bf16 path's scales with group 1 moved near 1e-5 ("mixed": the scaled weight is
+# subnormal in f16 there) and over scales all near 1e-5 ("small", f16 out: outputs of subnormal products only).
 MAGIC_OPTION_MS = (1, 8, 31, 40, 64, 130, 512, 600)
 MAGIC_OPTION_K = {128: 512, 64: 256, 32: 416}
 MAGIC_OPTION_BIASES = (8, 0, 15)
+MAGIC_OPTION_F16 = (
+    (torch.bfloat16, torch.float16), (torch.bfloat16, torch.float32), (torch.float16, torch.float16),
+    (torch.float16, torch.float32), (torch.float32, torch.float16),
+)
+MAGIC_SMALL_SCALE = 1e-5
+
+
+def _small_scales(gen, shape: tuple) -> torch.Tensor:
+    """f32 scales uniform in [0.5, 1.5] x MAGIC_SMALL_SCALE."""
+    return (torch.rand(shape, generator=gen, device="cuda") + 0.5) * MAGIC_SMALL_SCALE
 
 
 def check_magic_gemm_options(gen) -> None:
@@ -1417,9 +1454,11 @@ def check_magic_gemm_options(gen) -> None:
     |ref|: groups 128, 64 and 32, biases
     ``MAGIC_OPTION_BIASES``, layer 1 of a 2-layer stack and an unstacked
     weight, M in ``MAGIC_OPTION_MS``, x contiguous, with padded rows, or
-    realigned, bf16 and f32 outputs; K ``MAGIC_OPTION_K`` (split at small
-    M), N = ``OPTION_N``. Every case runs twice and must give the same bits. Errors
-    are gathered on the card and read once."""
+    realigned; bf16 x over bf16 scales into bf16, f32 and f16 outputs, and f16 x
+    at ``MAGIC_OPTION_F16``'s scale and output dtypes over the "mixed" and
+    "small" scale sets (the small one into f16 only); K ``MAGIC_OPTION_K``
+    (split at small M), N = ``OPTION_N``. Every case runs twice and must
+    give the same bits. Errors are gathered on the card and read once."""
     from conch_tpu_torch.kernels.common import sm_count
     from conch_tpu_torch.kernels.quantization.gemm import _magic_gemm_cuda, mixed_gemm_magic_plain, quant_gemm_plan
 
@@ -1427,27 +1466,42 @@ def check_magic_gemm_options(gen) -> None:
     names, errs, refs, same = [], [], [], []
     for group, k in MAGIC_OPTION_K.items():
         packed = torch.randint(-(2**31), 2**31 - 1, (2, k // 8, n), generator=gen, device="cuda", dtype=torch.int32)
-        scales = (torch.rand((2, k // group, n), generator=gen, device="cuda") * 4e-3 + 1e-4).to(torch.bfloat16)
+        base = torch.rand((2, k // group, n), generator=gen, device="cuda") * 4e-3 + 1e-4
+        mixed = base.clone()
+        mixed[:, 1] = _small_scales(gen, (2, n))
+        # (x dtype, scale set, scale dtype, output dtypes)
+        variants = [(torch.bfloat16, "", base.to(torch.bfloat16), (torch.bfloat16, torch.float32, torch.float16))]
+        variants += [(torch.float16, "mixed ", mixed.to(sd), (od,)) for sd, od in MAGIC_OPTION_F16]
+        small = _small_scales(gen, base.shape)
+        variants += [(torch.float16, "small ", small.to(sd), (torch.float16,))
+                     for sd in (torch.bfloat16, torch.float16)]
         for m in MAGIC_OPTION_MS:
             plan = quant_gemm_plan("magic", m, n, k, 4, group, sm_count(0))
-            for xlabel, x in _option_xs(gen, m, k).items():
-                for bias in MAGIC_OPTION_BIASES:
-                    for stacked in (True, False):
-                        w, sc, li = (packed, scales, 1) if stacked else (packed[1], scales[1], None)
-                        for od in (torch.bfloat16, torch.float32):
-                            out = _magic_gemm_cuda(x, w, sc, group, bias, li, od)
-                            again = _magic_gemm_cuda(x, w, sc, group, bias, li, od)
-                            ref = mixed_gemm_magic_plain(x, w, sc, group, bias, li, od)
-                            names.append(f"K1 mixed_gemm_magic group {group} M={m} x {xlabel} bias {bias} "
-                                         f"{'stacked' if stacked else 'single'} {str(od)[6:]} out "
-                                         f"(splits {plan.splits})")
-                            errs.append((out.float() - ref.float()).abs().max())
-                            refs.append(ref.float().abs().max())
-                            same.append(torch.equal(out, again))
+            xs = {dt: _option_xs(gen, m, k, dt) for dt in (torch.bfloat16, torch.float16)}
+            for x_dt, set_name, scales, out_dtypes in variants:
+                for xlabel, x in xs[x_dt].items():
+                    for bias in MAGIC_OPTION_BIASES:
+                        for stacked in (True, False):
+                            w, sc, li = (packed, scales, 1) if stacked else (packed[1], scales[1], None)
+                            for od in out_dtypes:
+                                out = _magic_gemm_cuda(x, w, sc, group, bias, li, od)
+                                again = _magic_gemm_cuda(x, w, sc, group, bias, li, od)
+                                ref = mixed_gemm_magic_plain(x, w, sc, group, bias, li, od)
+                                names.append(f"K1 mixed_gemm_magic group {group} M={m} x {str(x_dt)[6:]} {xlabel} "
+                                             f"bias {bias} {'stacked' if stacked else 'single'} {set_name}"
+                                             f"{str(sc.dtype)[6:]} scales {str(od)[6:]} out (splits {plan.splits})")
+                                errs.append((out.float() - ref.float()).abs().max())
+                                refs.append(ref.float().abs().max())
+                                same.append(torch.equal(out, again))
     err_list, ref_list, same_list = torch.stack(errs).tolist(), torch.stack(refs).tolist(), torch.tensor(same).tolist()
     bad = [(name, e, r) for name, e, r in zip(names, err_list, ref_list) if not e <= 1e-2 * r]
-    print(f"K1 mixed_gemm_magic options: {len(names)} cases, worst max_abs_err / max|ref| "
-          f"{max(e / r for e, r in zip(err_list, ref_list)):.3e} (tolerance 1e-2); "
+    worst = {}
+    for name, e, r in zip(names, err_list, ref_list):
+        kind = ("f16 x, " + ("small scales" if " small " in name else "mixed scales")) if "x float16" in name \
+            else "bf16 x"
+        worst[kind] = max(worst.get(kind, 0.0), e / r)
+    print(f"K1 mixed_gemm_magic options: {len(names)} cases, worst max_abs_err / max|ref| by x and scale set "
+          f"{ {k: f'{v:.3e}' for k, v in worst.items()} } (tolerance 1e-2); "
           f"{sum(same_list)} of {len(names)} bit for bit across two calls", flush=True)
     for name, e, r in bad:
         print(f"{name}: max_abs_err {e:.3e} (tolerance {1e-2 * r:.1e})", flush=True)
@@ -2259,7 +2313,8 @@ CACHE_OPTION_PAGE_SIZES = (16, 64)
 CACHE_OPTION_LAYOUTS = ("contiguous", "fused", "misaligned rows", "misaligned base")
 CACHE_OPTION_TYPES = (
     (torch.bfloat16, None), (torch.bfloat16, "int8"), (torch.bfloat16, "fp8"), (torch.float32, None),
-    (torch.float32, "bf16"), (torch.float32, "int8"), (torch.float32, "fp8"),
+    (torch.float32, "bf16"), (torch.float32, "int8"), (torch.float32, "fp8"), (torch.float16, None),
+    (torch.float16, "int8"), (torch.float16, "fp8"),
 )
 CACHE_OPTION_LAYERS, CACHE_OPTION_LAYER = 3, 1
 
@@ -2941,7 +2996,8 @@ def check_attention_scales(gen) -> None:
 PAGED_OPTION_TYPES = (
     (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
     (torch.bfloat16, torch.int8), (torch.bfloat16, torch.float8_e4m3fn), (torch.float32, torch.int8),
-    (torch.float32, torch.float8_e4m3fn),
+    (torch.float32, torch.float8_e4m3fn), (torch.float16, torch.float16), (torch.float16, torch.int8),
+    (torch.float16, torch.float8_e4m3fn),
 )
 PAGED_OPTION_GROUPS = (1, 4, 7, 8)  # 7: Qwen2-7B's group, not a power of two
 PAGED_OPTION_HEADS = (64, 128, 256, 34)
@@ -3195,7 +3251,8 @@ def check_varlen_attention_options(gen, rng) -> None:
 # plus the step's largest chunk of 150) up to 24 times.
 RING_OPTION_TYPES = (
     (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.int8), (torch.bfloat16, torch.float8_e4m3fn),
-    (torch.float32, torch.float32),
+    (torch.float32, torch.float32), (torch.float16, torch.float16), (torch.float16, torch.int8),
+    (torch.float16, torch.float8_e4m3fn),
 )
 RING_OPTION_HEADS = (64, 128, 256)
 RING_OPTION_WINDOWS = (37, 500, 2000)
@@ -3232,8 +3289,8 @@ def _ring_hidden(bt: np.ndarray, ring: int, bands: list[tuple[int, int]]) -> lis
 
 
 def check_paged_ring_options(gen, rng) -> None:
-    """K3 over rolling-KV rings (RING_OPTION_*): bf16 queries over bf16,
-    int8 and e4m3 caches and f32 over f32, GQA groups PAGED_OPTION_GROUPS
+    """K3 over rolling-KV rings (RING_OPTION_*): bf16 and f16 queries over
+    their own type, int8 and e4m3 caches and f32 over f32, GQA groups PAGED_OPTION_GROUPS
     (7 among them), heads 64, 128 and 256, windows 37, 500 and 2000 (one
     split and several), softcap 0 and 30, sequences that wrap their rings
     many times and an idle row; against the plain version over the same
@@ -4219,9 +4276,11 @@ def gemm_output_types(gen, by_name: dict) -> None:
     K1c (NF4 rows) at Llama-3-8B's wo (K = N = 4096), M = 8 and 512, layer
     17 of a 32-layer stack: the f32 store against the plain version at the
     kernels' tolerance (1e-2 x max |ref|), timed beside the bf16 store
-    (``out_f32`` in each row). A float16 output must raise on the card; a
-    bfloat16 acc_dtype is recorded only (JAX's kernels never read it), so
-    its call must equal the float32 acc_dtype call bit for bit."""
+    (``out_f32`` in each row). K1's float16 store from bf16 x is held to
+    its plain version too; K1b and K1c must raise on a float16 output and
+    on f16 x, naming the rule. A bfloat16 acc_dtype is recorded only (JAX's
+    kernels never read it), so its call must equal the float32 acc_dtype
+    call bit for bit."""
     from conch_tpu_torch.kernels.quantization.bitsandbytes.blockwise import NF4_CODE
     from conch_tpu_torch.kernels.quantization.gemm import (
         mixed_gemm_magic_plain,
@@ -4252,7 +4311,7 @@ def gemm_output_types(gen, by_name: dict) -> None:
         for m in (8, 512):
             x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
 
-            def op(out_dtype, layer=LAYER):
+            def op(out_dtype, layer=LAYER, x=x):
                 return mixed_precision_gemm(x, packed, scales, None, bits, bias, group, output_dtype=out_dtype,
                                             layer_index=layer, **kw)
 
@@ -4270,14 +4329,28 @@ def gemm_output_types(gen, by_name: dict) -> None:
                     "bf16_store_ms": time_ms(lambda: op(torch.bfloat16, next(layers)))}
             by_name[name]["out_f32"].append(case)
             print(f"{name} M={m}: f32 store {case['ms']:.4f} ms, bf16 store {case['bf16_store_ms']:.4f} ms", flush=True)
-        try:
-            mixed_precision_gemm(x, packed, scales, None, bits, bias, group, layer_index=LAYER, output_dtype=torch.float16,
-                                 **kw)
-        except NotImplementedError as exc:
-            if "float16" not in str(exc):
-                raise AssertionError(f"{name} output_dtype float16: the error does not name float16: {exc}") from exc
+        if name == "mixed_gemm_magic":  # K1 stores f16 too
+            out, ref = op(torch.float16), plain(x, *plain_args(packed, scales), LAYER, torch.float16)
+            torch.cuda.synchronize()
+            scale = ref.float().abs().max().item()
+            check(f"{name} f16 store from bf16 x M={x.shape[0]}", (out.float() - ref.float()).abs().max().item(),
+                  1e-2 * scale)
         else:
-            raise AssertionError(f"{name} output_dtype float16: no error on the card")
+            try:
+                op(torch.float16)
+            except NotImplementedError as exc:
+                if "float16" not in str(exc):
+                    msg = f"{name} output_dtype float16: the error does not name float16: {exc}"
+                    raise AssertionError(msg) from exc
+            else:
+                raise AssertionError(f"{name} output_dtype float16: no error on the card")
+            try:
+                op(torch.float32, x=x.to(torch.float16))
+            except NotImplementedError as exc:
+                if "x must be bfloat16" not in str(exc):
+                    raise AssertionError(f"{name} under f16 x: the error does not name its rule: {exc}") from exc
+            else:
+                raise AssertionError(f"{name} under f16 x: no error on the card")
         acc = {dt: mixed_precision_gemm(x, packed, scales, None, bits, bias, group, layer_index=LAYER, acc_dtype=dt,
                                         **kw) for dt in (torch.bfloat16, torch.float32)}
         if not torch.equal(acc[torch.bfloat16], acc[torch.float32]):
@@ -4285,6 +4358,38 @@ def gemm_output_types(gen, by_name: dict) -> None:
         print(f"{name} M={x.shape[0]}: acc_dtype bfloat16 equal to acc_dtype float32 bit for bit", flush=True)
         del packed, scales
     torch.cuda.empty_cache()
+
+
+def expect_refusal(name: str, call, words: str) -> None:
+    """``call()`` must raise NotImplementedError on the card, naming ``words``."""
+    try:
+        call()
+    except NotImplementedError as exc:
+        if words not in str(exc):
+            raise AssertionError(f"{name}: the error does not name its rule ({words}): {exc}") from exc
+        print(f"{name}: refused on the card ({exc})", flush=True)
+    else:
+        raise AssertionError(f"{name}: no error on the card")
+
+
+def check_f16_refused(gen) -> None:
+    """What still refuses f16 on the card (ROADMAP Queue 2): K8's f16 output
+    and K11's f16 queries (K1b's and K1c's: ``gemm_output_types``)."""
+    from conch_tpu_torch.kernels.attention.mla_attention import mla_attention_launcher
+    from conch_tpu_torch.kernels.quantization.gemm import scaled_gemm_launcher
+
+    a = torch.randint(-127, 128, (8, 256), generator=gen, device="cuda", dtype=torch.int8)
+    b = torch.randint(-127, 128, (256, 128), generator=gen, device="cuda", dtype=torch.int8)
+    one = torch.ones(1, device="cuda")
+    expect_refusal("K8 scaled_gemm, f16 output", lambda: scaled_gemm_launcher(a, b, one, one, torch.float16),
+                   "float32/bfloat16 output")
+    q = torch.randn((4, DS_HEADS, DS_PACKED), generator=gen, device="cuda").to(torch.float16)
+    cache = torch.zeros((8, PS, DS_PACKED), device="cuda", dtype=torch.int8)
+    cu, sl = (torch.tensor(v, dtype=torch.int32, device="cuda") for v in ([0, 4], [4]))
+    bt = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
+    expect_refusal("K11 mla_attention, f16 queries over an int8 cache",
+                   lambda: mla_attention_launcher(q, cache, cu, 4, sl, bt, scale=DS_SCALE, latent=DS_LATENT),
+                   "takes float32, bfloat16, got torch.float16")
 
 
 TP = 8  # Llama-3-8B's tensor-parallel degree on an 8-card host
@@ -4687,12 +4792,13 @@ def kernel_phase_ring(gen, rng) -> list[dict]:
     return rows
 
 
-def kernel_phase_group7(gen, rng) -> list[dict]:
+def kernel_phase_group7(gen, rng, dtype: torch.dtype = torch.bfloat16) -> list[dict]:
     """K3 and K7 at Qwen2-7B's GQA group of 7 (QH 28 / KH 4 / D 128, a
-    28-layer bf16 pool read at layer 17): K3 at the served decode step
-    (K3_SERVED_QWEN2, 1e-2 x (|ref| + rms), idle rows exactly zero), K7 at
-    the 512-row prefill step (2e-2 + 2e-2 x |ref|). Returns the rows
-    ``paged_attention_g7`` and ``varlen_attention_g7``."""
+    28-layer pool read at layer 17), queries and pool in ``dtype`` (bf16,
+    or f16): K3 at the served decode step (K3_SERVED_QWEN2, 1e-2 x (|ref| +
+    rms), idle rows exactly zero), K7 at the 512-row prefill step (2e-2 +
+    2e-2 x |ref|). Returns the rows ``paged_attention_g7`` and
+    ``varlen_attention_g7`` (``_f16`` after each under f16)."""
     from conch_tpu_torch.kernels.attention.paged_attention import (
         paged_attention_launcher as k3,
         paged_attention_plain as k3_plain,
@@ -4702,12 +4808,12 @@ def kernel_phase_group7(gen, rng) -> list[dict]:
         varlen_attention_plain as k7_plain,
     )
 
-    rows = []
+    rows, suffix, label = [], "_f16" if dtype == torch.float16 else "", str(dtype)[6:]
     seq_lens = [K3_SERVED_QWEN2.get(i, 0) for i in range(32)]
     num_pages = sum(-(-n // PS) for n in seq_lens) + 1
-    kc, vc = make_pool(gen, num_pages, Q2_LAYERS, Q2_KH, D)
+    kc, vc = make_pool(gen, num_pages, Q2_LAYERS, Q2_KH, D, dtype)
     bt = paged_layout(rng, seq_lens, num_pages, share=(0, 0), shared_pages=0, max_pages=Q2_TABLE)
-    q = torch.randn((len(seq_lens), Q2_QH, D), generator=gen, device="cuda").to(torch.bfloat16)
+    q = torch.randn((len(seq_lens), Q2_QH, D), generator=gen, device="cuda").to(dtype)
     args = (q, kc, vc, torch.from_numpy(bt).cuda(), torch.tensor(seq_lens, dtype=torch.int32, device="cuda"),
             D**-0.5, LAYER)
     got, ref = k3(*args), k3_plain(*args)
@@ -4715,7 +4821,7 @@ def kernel_phase_group7(gen, rng) -> list[dict]:
     idle = [i for i, n in enumerate(seq_lens) if n == 0]
     if not torch.isfinite(got).all() or got[idle].abs().max().item() != 0.0:
         raise AssertionError("K3 at group 7: idle rows must come out as finite zeros")
-    tag = "K3 paged_attention group 7, Qwen2-7B's served decode step: 32 rows, 8 live at 72 to 2032"
+    tag = f"K3 paged_attention group 7 {label}, Qwen2-7B's served decode step: 32 rows, 8 live at 72 to 2032"
     err = check_to_rms(tag, got, ref, 1e-2)
     b_ms, b_by = k3_bound({"shape": (Q2_QH, Q2_KH, D), "seq_lens": seq_lens, "args": args, "bt": bt}, 0)
     entry = {"case": tag, "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by, "ms": time_ms(lambda: k3(*args)),
@@ -4723,22 +4829,22 @@ def kernel_phase_group7(gen, rng) -> list[dict]:
              "library_ms": None}
     print(f"{tag}: {entry['ms']:.4f} ms (paced {entry['paced_ms']:.4f}, plain {entry['plain_ms']:.4f}, bound "
           f"{b_ms:.5f} by {b_by})", flush=True)
-    rows.append(_attention_row("paged_attention_g7", "paged_attention",
+    rows.append(_attention_row(f"paged_attention_g7{suffix}", "paged_attention",
                                "conch_tpu/kernels/attention/paged_attention.py:57", err, entry))
     del kc, vc
 
     q_lens = [1, 100, 411] + [0] * 29
     seq_lens = [1500, 100, 2000] + [0] * 29
     num_pages = sum(-(-n // PS) for n in seq_lens) + 1
-    kc, vc = make_pool(gen, num_pages, Q2_LAYERS, Q2_KH, D)
+    kc, vc = make_pool(gen, num_pages, Q2_LAYERS, Q2_KH, D, dtype)
     bt = paged_layout(rng, seq_lens, num_pages, share=(0, 0), shared_pages=0, max_pages=Q2_TABLE)
-    q = torch.randn((512, Q2_QH, D), generator=gen, device="cuda").to(torch.bfloat16)
+    q = torch.randn((512, Q2_QH, D), generator=gen, device="cuda").to(dtype)
     cu = torch.tensor(np.concatenate([[0], np.cumsum(q_lens)]), dtype=torch.int32, device="cuda")
     args = (q, kc, vc, cu, torch.tensor(seq_lens, dtype=torch.int32, device="cuda"), torch.from_numpy(bt).cuda(),
             D**-0.5, True, LAYER)
     got, ref = k7(*args), k7_plain(*args)
     torch.cuda.synchronize()
-    tag = "K7 varlen_attention group 7, Qwen2-7B's 512-row prefill step (a decode row, 100 and 411 new rows)"
+    tag = f"K7 varlen_attention group 7 {label}, Qwen2-7B's 512-row prefill step (a decode row, 100 and 411 new rows)"
     err = check_close(tag, got, ref, 2e-2)
     case = {"shape": (Q2_QH, Q2_KH, D), "q_lens": q_lens, "seq_lens": seq_lens, "bt": bt, "args": args,
             "total": sum(q_lens)}
@@ -4748,23 +4854,37 @@ def kernel_phase_group7(gen, rng) -> list[dict]:
              "library_ms": None}
     print(f"{tag}: {entry['ms']:.4f} ms (paced {entry['paced_ms']:.4f}, plain {entry['plain_ms']:.4f}, bound "
           f"{b_ms:.5f} by {b_by})", flush=True)
-    rows.append(_attention_row("varlen_attention_g7", "varlen_attention",
+    rows.append(_attention_row(f"varlen_attention_g7{suffix}", "varlen_attention",
                                "conch_tpu/kernels/attention/varlen_attention.py:247", err, entry))
     del kc, vc
     torch.cuda.empty_cache()
     return rows
 
 
-def kernel_phase_k1_qwen2(gen) -> dict:
+def kernel_phases_f16(gen, rng) -> list[dict]:
+    """K1, K2, K3 and K7 under f16 at Qwen2-7B's shapes, as the served
+    ``qwen2_7b_int4_f16`` run launches them: rows
+    ``mixed_gemm_magic_qwen2_f16`` (f16 x over f16 scales into f16, beside
+    ``torch.matmul`` on the f16 dense weight), ``reshape_and_cache_stacked_f16``
+    (f16 keys into an f16 pool of 28 layers, KH 4, D 128, bit for bit),
+    ``paged_attention_g7_f16`` and ``varlen_attention_g7_f16`` (f16 queries
+    over an f16 pool)."""
+    k2 = kernel_phase_k2(gen, rng, Q2_QH, Q2_KH, D, Q2_LAYERS, dtype=torch.float16)
+    k2["name"] = "reshape_and_cache_stacked_f16"
+    return [kernel_phase_k1_qwen2(gen, torch.float16), k2, *kernel_phase_group7(gen, rng, torch.float16)]
+
+
+def kernel_phase_k1_qwen2(gen, dtype: torch.dtype = torch.bfloat16) -> dict:
     """K1 at Qwen2-7B's int4 GEMMs (QWEN2_LAYER_SHAPES: fused wqkv N 4608,
     wo 3584 x 3584, w_gate and w_up each N 20480 padded, w_down K 18944),
-    group 128, M in GEMM_MS, beside bf16 ``torch.matmul`` on the
-    dequantized weight; the row is one layer's five launches summed at M 8,
+    group 128, M in GEMM_MS, x and scales in ``dtype`` (bf16; f16: the row
+    ``mixed_gemm_magic_qwen2_f16``), beside ``torch.matmul`` on the
+    dequantized weight in ``dtype``; the row is one layer's five launches summed at M 8,
     ``by_m`` at each M. The bounds of w_gate and w_up count the function's
     own N 18944 (QWEN2_TRUE_SHAPES), where K1 is timed too: ``padded`` has,
     at each M, the time of the two launches' padded columns (the padded
     launches less the unpadded ones) and its share of the layer."""
-    detail = _k1_cases(gen, 128, (*QWEN2_LAYER_SHAPES, *QWEN2_TRUE_SHAPES.values()))
+    detail = _k1_cases(gen, 128, (*QWEN2_LAYER_SHAPES, *QWEN2_TRUE_SHAPES.values()), dtype)
     true_case = {(d["k"], d["n"], d["m"]): d for d in detail}
     padded = {}
     for (k, n), (tk, tn) in QWEN2_TRUE_SHAPES.items():
@@ -4775,14 +4895,15 @@ def kernel_phase_k1_qwen2(gen) -> dict:
             count = QWEN2_LAYER_SHAPES[(k, n)]
             padded[d["m"]] = {"ms": count * (d["ms"] - own["ms"]), "unpadded_ms": count * own["ms"]}
     timed = _layer_sums(detail, QWEN2_LAYER_SHAPES, 8)
-    row = _kernel_row("mixed_gemm_magic_qwen2", "conch_tpu_torch/csrc/mixed_gemm_magic.cu",
+    row = _kernel_row("mixed_gemm_magic_qwen2" + ("_f16" if dtype == torch.float16 else ""),
+                      "conch_tpu_torch/csrc/mixed_gemm_magic.cu",
                       "conch_tpu/kernels/quantization/gemm.py:658", max(d["max_abs_err"] for d in detail), timed,
                       timed["bound_ms"], "bytes")
     row["by_m"] = {m: _layer_sums(detail, QWEN2_LAYER_SHAPES, m) for m in GEMM_MS}
     for m, sums in row["by_m"].items():
         padded[m]["share"] = padded[m]["ms"] / sums["ms"]
-        print(f"mixed_gemm_magic Qwen2-7B one layer at M={m}: {sums['ms']:.4f} ms (paced {sums['paced_ms']:.4f}, "
-              f"bf16 matmul {sums['library_ms']:.4f}, bound {sums['bound_ms']:.5f} at N 18944); w_gate and w_up's "
+        print(f"mixed_gemm_magic Qwen2-7B {str(dtype)[6:]} one layer at M={m}: {sums['ms']:.4f} ms (paced "
+              f"{sums['paced_ms']:.4f}, matmul {sums['library_ms']:.4f}, bound {sums['bound_ms']:.5f} at N 18944); w_gate and w_up's "
               f"padded columns {padded[m]['ms']:.4f} ms, {100 * padded[m]['share']:.1f}% of the layer (the two at "
               f"N 18944: {padded[m]['unpadded_ms']:.4f} ms)", flush=True)
     row["padded"] = padded
@@ -4973,7 +5094,8 @@ def kernel_phases() -> list[dict]:
         kernel_phase_k10b(gen), kernel_phase_k1b(gen), kernel_phase_k1c(gen), kernel_phase_k8(gen),
         kernel_phase_k12q(gen), kernel_phase_k11(gen, rng), kernel_phase_k9(gen), *kernel_phases_vision(gen, rng),
         kernel_phase_k4b(gen), kernel_phase_k12d(gen), kernel_phase_k14(gen), *kernel_phase_ring(gen, rng),
-        *kernel_phase_group7(gen, rng), kernel_phase_k1_qwen2(gen), kernel_phase_k8_e4m3(gen),
+        *kernel_phase_group7(gen, rng), kernel_phase_k1_qwen2(gen), *kernel_phases_f16(gen, rng),
+        kernel_phase_k8_e4m3(gen),
         kernel_phase_k7_f32(gen, rng), kernel_phase_k1_g32(gen), kernel_phase_k1b_g32(gen), kernel_phase_k1_gemma(gen),
         *kernel_phases_verify(gen, rng), kernel_phase_k3_beam(gen, rng),
     ]
@@ -5001,6 +5123,7 @@ def kernel_phases() -> list[dict]:
     check_attention_scales(gen)
     quantized_cache_phases(gen, rng, by_name)
     gemm_output_types(gen, by_name)
+    check_f16_refused(gen)
     check_quant_gemm_options(gen)
     check_magic_gemm_options(gen)
     check_paged_attention_options(gen, rng)
@@ -5079,30 +5202,45 @@ RING_COUNTERS = {"paged_attention_ring": "paged_attention", "varlen_attention_ri
 # K8's float8_e4m3fn launches on the mainloop's fp8 layout and on the loop
 # kernel (counted beside its launches in all).
 E4M3_COUNTERS = {"scaled_gemm_e4m3": "e4m3_launches", "scaled_gemm_e4m3_loop": "e4m3_loop_launches"}
+# K1's launches under f16 x, and K2's, K3's and K7's of f16 keys or
+# queries (``f16_launches``), counted beside their launches in all.
+F16_COUNTERS = {f"{kernel}_f16": kernel for kernel in (
+    "mixed_gemm_magic", "reshape_and_cache_stacked", "paged_attention", "varlen_attention")}
 
 
 def reset_launch_counts() -> None:
     """Set every kernel's launch count (and K3's and K7's ring counts, K8's
-    e4m3 counts) to 0."""
+    e4m3 counts, the f16 counts) to 0."""
     launchers = _launchers()
     for fns in launchers.values():
         for fn in fns:
             fn.launches = 0
     for kernel in RING_COUNTERS.values():
         launchers[kernel][0].ring_launches = 0
+    for kernel in F16_COUNTERS.values():
+        launchers[kernel][0].f16_launches = 0
     for attr in E4M3_COUNTERS.values():
         setattr(launchers["scaled_gemm"][0], attr, 0)
 
 
 def read_launch_counts() -> dict:
     """Each kernel row's launches since the last reset, K3's and K7's
-    launches over a ring, and K8's float8_e4m3fn launches on the mainloop
-    and on the loop kernel."""
+    launches over a ring, K8's float8_e4m3fn launches on the mainloop
+    and on the loop kernel, and K1's, K2's, K3's and K7's f16 launches."""
     launchers = _launchers()
     counts = {name: sum(fn.launches for fn in fns) for name, fns in launchers.items()}
     counts.update({name: launchers[kernel][0].ring_launches for name, kernel in RING_COUNTERS.items()})
+    counts.update({name: launchers[kernel][0].f16_launches for name, kernel in F16_COUNTERS.items()})
     counts.update({name: getattr(launchers["scaled_gemm"][0], attr) for name, attr in E4M3_COUNTERS.items()})
     return counts
+
+
+def check_all_f16(path: str, launches: dict) -> None:
+    """Every launch of K1, K2, K3 and K7 on ``path`` was an f16 one."""
+    for name, kernel in F16_COUNTERS.items():
+        if launches[name] != launches[kernel] or launches[kernel] <= 0:
+            raise AssertionError(f"{path}: {launches[name]} of {launches[kernel]} {kernel} launches are f16")
+    print(f"{path}: every K1, K2, K3 and K7 launch f16 ({ {k: launches[k] for k in F16_COUNTERS} })", flush=True)
 
 
 def to_device(tree, device: str):
@@ -5126,6 +5264,16 @@ def to_device(tree, device: str):
 # error in the hidden state reaches every logit in proportion to the
 # logits' scale (about 6 here), not to each logit's own size.
 PREFILL_TOLERANCES = {torch.float32: 2e-3, torch.bfloat16: 3e-2}
+# f16: the bf16 tolerance scaled by how far f16 logits move from f32 logits
+# against how far bf16 ones do, on the CPU (python3 -m
+# conch_tpu_torch.tools.f16_sensitivity: a Qwen2-shaped 2-layer int4 model,
+# this check's step): 0.118 of bf16's shift over a 16-bit KV cache, 0.468
+# over an int8 one, where the cache's codes flip at half-way points as
+# rounding moves the values before them. 3e-2 x 0.118 = 3.5e-3, rounded up
+# to 5e-3; 3e-2 x 0.468 = 1.4e-2, rounded up to 2e-2 (keyed by the
+# activation and cache dtypes). Set before the first run on the card.
+PREFILL_TOLERANCES[torch.float16] = 5e-3
+PREFILL_TOLERANCES[(torch.float16, torch.int8)] = 2e-2
 # w8a8 rounds every projection's input to whole int8 steps per row, so the
 # bf16 rounding differences between card and CPU flip activation codes, and
 # the flips spread through the layers. On the CPU (2 layers, hidden 1024;
@@ -5189,8 +5337,10 @@ LLAMA_PREFILL_CASES = (
     ("int8", torch.bfloat16, None), ("nf4", torch.bfloat16, None), ("w8a8", torch.bfloat16, None),
     ("bf16", torch.bfloat16, torch.int8), ("bf16", torch.bfloat16, torch.float8_e4m3fn),
     # Qwen2-7B (q/k/v biases, GQA group 7) and Mistral-7B (the window cut
-    # to 16, so that its mask bites in these prompts).
+    # to 16, so that its mask bites in these prompts). "int4-f16": int4 with
+    # f16 scales (a GPTQ checkpoint's), in f16 over an f16 and an int8 cache.
     ("bf16", torch.float32, None, "qwen2_7b"), ("int4", torch.bfloat16, None, "qwen2_7b"),
+    ("int4-f16", torch.float16, None, "qwen2_7b"), ("int4-f16", torch.float16, torch.int8, "qwen2_7b"),
     ("bf16", torch.float32, None, "mistral_7b"), ("int4", torch.bfloat16, None, "mistral_7b"),
 )
 # Gemma's cases: (activation dtype, KV cache dtype[, weights; bf16 by default]).
@@ -5209,8 +5359,9 @@ def check_prefill_logits(llama_cases=LLAMA_PREFILL_CASES, gemma_cases=GEMMA_PREF
     nf4 (K1c, init through K12q) and w8a8 (K8) weights in bf16, the only
     activation dtype those kernels take on the card; bf16 weights over an
     int8 and an e4m3 KV cache, quantized on store at ``kv_cache_scale``),
-    Qwen2-7B and Mistral-7B (bf16 weights in f32, int4 in bf16; Mistral's
-    window cut to 16; token ids taken modulo each vocabulary)
+    Qwen2-7B and Mistral-7B (bf16 weights in f32, int4 in bf16; Qwen2-7B
+    also int4 with f16 scales in f16, over an f16 and an int8 KV cache;
+    Mistral's window cut to 16; token ids taken modulo each vocabulary)
     and Gemma-2-2B (bf16 weights in f32 and bf16, and over int8 and e4m3
     caches in bf16; int4 (K1), int8 (K1b), nf4 (K1c) and w8a8 (K8) weights
     in bf16 at group 128; random norm weights, the window cut to 16 so that
@@ -5237,10 +5388,12 @@ def check_prefill_logits(llama_cases=LLAMA_PREFILL_CASES, gemma_cases=GEMMA_PREF
     def llama(quant_mode, dtype, cache, model="llama3_8b"):
         name, base = models[model]
         cfg = dataclasses.replace(base, num_layers=2, dtype=dtype)
-        mode, _, group = quant_mode.partition("-g")
+        mode, _, option = quant_mode.partition("-")
+        group = int(option[1:]) if option.startswith("g") else 128
+        scale_dtype = torch.float16 if option == "f16" else torch.bfloat16
         return f"{name}, {quant_mode} weights{cache_tag(cache)}", cfg, cache, llama_prefill, lambda: (
-            fuse_llama_params(init_llama_params(SEED, cfg, quant_mode=mode, group_size=int(group or 128),
-                                                device="cuda")))
+            fuse_llama_params(init_llama_params(SEED, cfg, quant_mode=mode, group_size=group, device="cuda",
+                                                scale_dtype=scale_dtype)))
 
     def gemma(dtype, cache, quant_mode="bf16"):
         cfg = dataclasses.replace(GemmaConfig.gemma2_2b(), num_layers=2, sliding_window=16, dtype=dtype)
@@ -5250,7 +5403,8 @@ def check_prefill_logits(llama_cases=LLAMA_PREFILL_CASES, gemma_cases=GEMMA_PREF
 
     cases = [llama(*case) for case in llama_cases] + [gemma(*case) for case in gemma_cases]
     for label, cfg, cache, prefill, make_params in cases:
-        tol = W8A8_PREFILL_TOLERANCE if "w8a8" in label else PREFILL_TOLERANCES[cfg.dtype]
+        tol = W8A8_PREFILL_TOLERANCE if "w8a8" in label else PREFILL_TOLERANCES.get(
+            (cfg.dtype, cache), PREFILL_TOLERANCES[cfg.dtype])
         params = make_params()
         kc, vc = init_kv_caches(cfg, num_pages, PS, cache_dtype=cache, device="cuda")
         inputs = [host[0] % cfg.vocab_size, *host[1:]]
@@ -6062,7 +6216,7 @@ def check_top_p_filter(card: str) -> None:
 # layouts have none), rows a block.
 QGEMM_TEMPLATE = re.compile(
     r"quant_gemm_kernel.*?(RowsLayout|PlanarLayout|MagicLayout|ScaledLayout|E4m3Layout)(?:ILi(\d+)EL[ib](\d+)EE)?"
-    r"(?:ILi(\d+)EE)?ELi(\d+)E")
+    r"(?:ILi(\d+)E(?:13__nv_bfloat16|6(__half))?E)?ELi(\d+)E")
 
 
 def build() -> None:
@@ -6084,8 +6238,10 @@ def build() -> None:
             if match is None:
                 template = None
             else:
-                layout, bits, flag, group, bn = match.groups()
-                args = f"<{bits}, {flag}>" if bits is not None else f"<{group}>" if group is not None else ""
+                layout, bits, flag, group, half, bn = match.groups()
+                args = f"<{bits}, {flag}>" if bits is not None else ""
+                if group is not None:
+                    args = f"<{group}{', f16' if half else ''}>"
                 template = f"{layout}{args} BN {bn}"
         elif template and "spill stores" in line:
             spills = line.strip()
@@ -6113,6 +6269,8 @@ PRIMARY_PATH = {
     "mixed_gemm_magic_g32": "deepseek_v2_lite_int4", "mixed_gemm_planar_g32": "deepseek_v2_lite_int8",
     "mixed_gemm_magic_gemma": "gemma2_2b_int4", "varlen_attention_verify": "llama3_8b_int4_spec",
     "mla_attention_verify": "deepseek_v2_lite_spec", "paged_attention_beam": "llama3_8b_int4_beam",
+    "mixed_gemm_magic_qwen2_f16": "qwen2_7b_int4_f16", "reshape_and_cache_stacked_f16": "qwen2_7b_int4_f16",
+    "paged_attention_g7_f16": "qwen2_7b_int4_f16", "varlen_attention_g7_f16": "qwen2_7b_int4_f16",
 }
 # Rows of a kernel's branch or another model's shapes: the count their
 # launches come from (K3's and K7's ring rows: their launches over a ring).
@@ -6125,6 +6283,10 @@ ROW_COUNTERS = {
     "varlen_attention_verify": "varlen_attention_verify", "mla_attention_verify": "mla_attention_verify",
     # K3 beam: its launches inside the beam search's decode steps.
     "paged_attention_beam": "paged_attention_beam",
+    # The f16 rows: the f16 launches of their kernels.
+    "mixed_gemm_magic_qwen2_f16": "mixed_gemm_magic_f16",
+    "reshape_and_cache_stacked_f16": "reshape_and_cache_stacked_f16", "paged_attention_g7_f16": "paged_attention_f16",
+    "varlen_attention_g7_f16": "varlen_attention_f16",
 }
 # K9's callers are its public ops: its row's launches are those of its
 # kernel phase, and it launches on no served path. Neither do K8 over e4m3
@@ -6382,10 +6544,10 @@ def check_verify_logits(cases=VERIFY_CHECK_CASES) -> None:
 
 # The served speculative path and its checks (Llama-3-8B int4, 32 layers;
 # DeepSeek-V2-Lite): 8 prompts, each a 16-token motif drawn from the seed
-# repeated to 1000 to 1049 tokens; 4 drafted tokens a step; 128 new tokens
+# repeated to 1000 to 1049 tokens; 4 drafted tokens a step; 64 new tokens
 # a request (DeepSeek: 32).
 SPEC_ENGINE = {"num_pages": 2048, "max_batch_size": 8, "max_pages_per_seq": 80}
-SPEC_MOTIF, SPEC_TOKENS, SPEC_MAX_TOKENS, SPEC_RUNS = 16, 4, 128, 3
+SPEC_MOTIF, SPEC_TOKENS, SPEC_MAX_TOKENS, SPEC_RUNS = 16, 4, 64, 3
 SPEC_NEAR_TIE = PREFILL_TOLERANCES[torch.bfloat16]  # logits_agree's bf16 rule: a gap within 3e-2 x max |logit|
 
 
@@ -6586,8 +6748,8 @@ def serve_spec(card: str, params: dict, cfg, spread: float) -> dict:
         if first is None:
             first = outs
             equal = check_diverged("llama3-8b-int4-spec", params, cfg, prompts, outs["spec"], outs["plain"], spread)
-            print(f"llama3-8b-int4-spec: {equal} of {len(prompts)} requests give the plain engine's 128 greedy tokens "
-                  f"throughout", flush=True)
+            print(f"llama3-8b-int4-spec: {equal} of {len(prompts)} requests give the plain engine's "
+                  f"{SPEC_MAX_TOKENS} greedy tokens throughout", flush=True)
         elif outs != first:
             raise AssertionError(f"llama3-8b-int4-spec: run {run + 1}'s tokens differ from run 1's")
     print(f"llama3-8b-int4-spec: generated tok/s in each of {SPEC_RUNS} runs: speculative "
@@ -7394,6 +7556,15 @@ def main() -> int:
         card, "qwen2-7b-int4", LlamaConfig.qwen2_7b(), llama("int4"), {}, QWEN2_ENGINE, qwen2_prompts, LLAMA_KERNELS,
         QWEN2_PER_STEP,
     )
+    # Qwen2-7B in int4 at its GPTQ checkpoint's float16: f16 activations,
+    # f16 group-128 scales, an f16 KV cache; the bf16 dense head converted
+    # to f16 once at the engine's load. Every K1, K2, K3 and K7 launch is f16.
+    launches["qwen2_7b_int4_f16"] = serve(
+        card, "qwen2-7b-int4-f16", dataclasses.replace(LlamaConfig.qwen2_7b(), dtype=torch.float16),
+        lambda cfg: init_llama_params(SEED, cfg, quant_mode="int4", device="cuda", scale_dtype=torch.float16), {},
+        QWEN2_ENGINE, qwen2_prompts, LLAMA_KERNELS, QWEN2_PER_STEP, max_tokens=QUANT_MAX_TOKENS,
+    )
+    check_all_f16("qwen2_7b_int4_f16", launches["qwen2_7b_int4_f16"])
     # DeepSeek-V2-Lite (int4 and int8 at group 32: K1 two groups a slice, K1b
     # 8 word rows a slice; nf4: K1c; w8a8: K8) and Gemma-2-2B (group 128) in
     # each quantized mode, at full width, one model at a time, 8 requests of

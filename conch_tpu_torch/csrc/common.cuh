@@ -42,27 +42,33 @@ struct TypeTag {
 
 // Calls launch(TypeTag<T>{}, TypeTag<C>{}) for the (activation, cache)
 // dtype codes the KV kernels take: bf16 or f32 activations over bf16,
-// int8 or e4m3 caches, and f32 activations over f32 caches. Returns false
-// for any other pair.
+// int8 or e4m3 caches, f32 activations over f32 caches, and f16
+// activations over f16, int8 or e4m3 caches. Returns false for any other
+// pair (kernels/common.py: KV_DTYPE_PAIRS).
 template <typename Launch>
 bool dispatch_act_cache(int act_dtype, int cache_dtype, Launch&& launch) {
-  auto with_cache = [&](auto act_tag) {
+  // The 1-byte caches, or the 16-bit one of wide_tag's type (code `wide`).
+  auto with_cache = [&](auto act_tag, auto wide_tag, int wide) {
     switch (cache_dtype) {
-      case kBFloat16: launch(act_tag, TypeTag<__nv_bfloat16>{}); return true;
       case kInt8: launch(act_tag, TypeTag<int8_t>{}); return true;
       case kFloat8E4M3: launch(act_tag, TypeTag<__nv_fp8_e4m3>{}); return true;
-      default: return false;
+      default:
+        if (cache_dtype != wide) return false;
+        launch(act_tag, wide_tag);
+        return true;
     }
   };
-  if (act_dtype == kBFloat16) return with_cache(TypeTag<__nv_bfloat16>{});
-  if (act_dtype == kFloat32) {
-    if (cache_dtype == kFloat32) {
-      launch(TypeTag<float>{}, TypeTag<float>{});
-      return true;
-    }
-    return with_cache(TypeTag<float>{});
+  switch (act_dtype) {
+    case kBFloat16: return with_cache(TypeTag<__nv_bfloat16>{}, TypeTag<__nv_bfloat16>{}, kBFloat16);
+    case kFloat16: return with_cache(TypeTag<__half>{}, TypeTag<__half>{}, kFloat16);
+    case kFloat32:
+      if (cache_dtype == kFloat32) {
+        launch(TypeTag<float>{}, TypeTag<float>{});
+        return true;
+      }
+      return with_cache(TypeTag<float>{}, TypeTag<__nv_bfloat16>{}, kBFloat16);
+    default: return false;
   }
-  return false;
 }
 
 // Calls launch(TypeTag<O>{}) for the output dtype codes the GEMMs store

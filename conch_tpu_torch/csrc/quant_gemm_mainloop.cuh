@@ -6,8 +6,8 @@
 // (mixed_gemm_rows.cu), and by the scaled GEMM K8 (scaled_gemm.cu).
 // Each layout plugs in as a small policy: where a K slice's codes, scales
 // and x values lie, and how a thread turns its words into wgmma's A
-// fragment. The weight-only GEMMs take bf16 x and sum in f32
-// (wgmma.m64nBNk16.f32.bf16); K8 takes int8 x and sums in s32
+// fragment. The weight-only GEMMs take bf16 x (K1 also f16 x) and sum in
+// f32 (wgmma.m64nBNk16.f32.bf16, .f32.f16); K8 takes int8 x and sums in s32
 // (wgmma.m64nBNk32.s32.s8.s8, its int32 split workspace added exactly), or
 // float8_e4m3fn x summed a slice at a time in f32
 // (wgmma.m64nBNk32.f32.e4m3.e4m3) and promoted into an f32 running sum on
@@ -78,9 +78,9 @@ constexpr int kExtraBytes = 2048;         // value table (16 f32), x row sums (2
 constexpr int kKSlice = 64;               // K of a GPTQ-row slice (one 128-byte swizzle atom of x)
 
 struct Params {
-  CUtensorMap tm_x;  // x (bf16; K8: int8), in the layout's box and wgmma layout
+  CUtensorMap tm_x;  // x (bf16, or f16 for K1; K8: int8 or e4m3), in the layout's box and wgmma layout
   CUtensorMap tm_w;  // the layer's words: (K / epp, N) int32, box (128, WR); K8: (K, N) bytes, box (128, 128)
-  CUtensorMap tm_s;  // its scales: (groups, N) bf16 or f32, box (128, SR)
+  CUtensorMap tm_s;  // its scales: (groups, N) bf16, f16 or f32, box (128, SR)
   CUtensorMap tm_z;  // its per-group zero-points (zp_mode 2): f32, box (128, SR)
   CUtensorMap tm_xs; // x's row sums per group (xs_pre): (groups, M) f32, box (BN, 1)
   const float* zp;
@@ -93,8 +93,10 @@ struct Params {
   int group, num_groups;
   float bias;
   int zp_mode;     // 0 none, 1 one value, 2 per group
-  int f32_scales;  // 1 f32 scales, 0 bf16
-  int out_f32;     // 1 f32 output, 0 bf16
+  int f32_scales;  // 1 f32 scales, else 16-bit: bf16, or f16 with f16_scales (K1 only)
+  int f16_scales;
+  int out_f32;     // 1 f32 output, else 16-bit: bf16, or f16 with out_f16 (K1 only)
+  int out_f16;
   int slices;      // K slices in all
   int unit;        // slices per split unit
   int splits;
@@ -189,61 +191,84 @@ __device__ __forceinline__ uint64_t desc_plain(uint32_t addr, uint32_t lbo, uint
          (static_cast<uint64_t>(sbo >> 4) << 32);
 }
 
-// d[BN/2] += A[64 x 16] . B[16 x BN]: A from registers (the mma.m16n8k16
+// d[BN/2] += A[64 x 16] . B[16 x BN] with f32 sums over operands of T
+// (bf16, or f16 for K1 under f16 x): A from registers (the mma.m16n8k16
 // A layout, warp w of the warpgroup holding rows 16w .. 16w+15), B from
-// shared memory through `desc`; scale_d 0 overwrites d.
+// shared memory through `desc`; scale_d 0 overwrites d. wgmma_rs_bf16 and
+// wgmma_rs_f16 differ only in the instruction's type.
 template <int BN>
-__device__ __forceinline__ void wgmma_rs(float (&d)[BN / 2], const uint32_t (&a)[4], uint64_t desc, int scale_d);
+__device__ __forceinline__ void wgmma_rs_bf16(float (&d)[BN / 2], const uint32_t (&a)[4], uint64_t desc, int scale_d);
+template <int BN>
+__device__ __forceinline__ void wgmma_rs_f16(float (&d)[BN / 2], const uint32_t (&a)[4], uint64_t desc, int scale_d);
 
-template <>
-__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t desc, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
-}
+#define CONCH_WGMMA_RS_32(NAME, AB)                                                                                \
+  template <>                                                                                                      \
+  __device__ __forceinline__ void NAME<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t desc, int scale_d) {   \
+    asm volatile(                                                                                                  \
+        "{\n.reg .pred p;\n"                                                                                       \
+        "setp.ne.b32 p, %21, 0;\n"                                                                                 \
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32." AB "." AB " "                                                \
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "                                \
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"                                                              \
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),           \
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])      \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));                                   \
+  }
 
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t desc, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
-}
+#define CONCH_WGMMA_RS_64(NAME, AB)                                                                                \
+  template <>                                                                                                      \
+  __device__ __forceinline__ void NAME<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t desc, int scale_d) {   \
+    asm volatile(                                                                                                  \
+        "{\n.reg .pred p;\n"                                                                                       \
+        "setp.ne.b32 p, %37, 0;\n"                                                                                 \
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32." AB "." AB " "                                                \
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                                 \
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "                        \
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"                                                              \
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),           \
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),     \
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),   \
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])    \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));                                   \
+  }
 
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t desc, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+#define CONCH_WGMMA_RS_128(NAME, AB)                                                                               \
+  template <>                                                                                                      \
+  __device__ __forceinline__ void NAME<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t desc, int scale_d) {  \
+    asm volatile(                                                                                                  \
+        "{\n.reg .pred p;\n"                                                                                       \
+        "setp.ne.b32 p, %69, 0;\n"                                                                                 \
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32." AB "." AB " "                                               \
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                                 \
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "                         \
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "                         \
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "                        \
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"                                                              \
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),           \
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),     \
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),   \
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),   \
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),   \
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),   \
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),   \
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])    \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));                                   \
+  }
+
+CONCH_WGMMA_RS_32(wgmma_rs_bf16, "bf16")
+CONCH_WGMMA_RS_64(wgmma_rs_bf16, "bf16")
+CONCH_WGMMA_RS_128(wgmma_rs_bf16, "bf16")
+CONCH_WGMMA_RS_32(wgmma_rs_f16, "f16")
+CONCH_WGMMA_RS_64(wgmma_rs_f16, "f16")
+CONCH_WGMMA_RS_128(wgmma_rs_f16, "f16")
+#undef CONCH_WGMMA_RS_32
+#undef CONCH_WGMMA_RS_64
+#undef CONCH_WGMMA_RS_128
+
+template <int BN, typename T = __nv_bfloat16>
+__device__ __forceinline__ void wgmma_rs(float (&d)[BN / 2], const uint32_t (&a)[4], uint64_t desc, int scale_d) {
+  if constexpr (std::is_same_v<T, __half>) wgmma_rs_f16<BN>(d, a, desc, scale_d);
+  else wgmma_rs_bf16<BN>(d, a, desc, scale_d);
 }
 
 // d[BN/2] += A[64 x 32] . B[32 x BN] in s32, int8 operands: A from
@@ -428,7 +453,7 @@ __device__ __forceinline__ int pair_column() {
   return 64 * (threadIdx.x >> 7) + 16 * ((threadIdx.x >> 5) & 3) + 2 * ((threadIdx.x & 31) >> 2);
 }
 
-// Scale row r (of the stage) at tile column c, as f32.
+// Scale row r (of the stage) at tile column c, as f32 (K1b and K1c: f32 or bf16 scales).
 __device__ __forceinline__ float scale_at(const Params& p, const uint8_t* rows, int r, int c) {
   return p.f32_scales ? reinterpret_cast<const float*>(rows)[r * kCols + c]
                       : __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(rows)[r * kCols + c]);
@@ -552,7 +577,7 @@ __global__ void __launch_bounds__(kThreads, Ring<L, BN>::kBlocksPerSm) quant_gem
   // acc[4j + e] is output row m0 + 8j + 2t + (e & 1) and, with the
   // thread's column pair c, c + 1 (wgmma rows g and g + 8), column
   // c + (e >> 1): wgmma's accumulator layout, transposed back. Each row's
-  // two columns go out as one 8-byte (f32) or 4-byte (bf16) store. An s32
+  // two columns go out as one 8-byte (f32) or 4-byte (bf16, f16) store. An s32
   // sum becomes fmul_rn(fmul_rn(float(v), sa[row]), sb[col]) first, or goes
   // to the int32 workspace; a scaled f32 sum (e4m3) the same with one
   // split, else it goes to the f32 workspace unscaled.
@@ -598,6 +623,8 @@ __global__ void __launch_bounds__(kThreads, Ring<L, BN>::kBlocksPerSm) quant_gem
         *reinterpret_cast<float2*>(p.ws + static_cast<int64_t>(blockIdx.z) * p.m * p.n + at) = make_float2(lo, hi);
       } else if (p.out_f32) {
         *reinterpret_cast<float2*>(static_cast<float*>(p.out) + at) = make_float2(lo, hi);
+      } else if (p.out_f16) {
+        *reinterpret_cast<uint32_t*>(static_cast<__half*>(p.out) + at) = pack_f16x2(lo, hi);
       } else {
         *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(p.out) + at) = pack_bf16x2(lo, hi);
       }
@@ -705,10 +732,16 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
                                               p.sa_scalar, p.sb, p.sb_scalar);
     } else {
       const auto* ws = reinterpret_cast<const float4*>(p.ws);
-      status = p.out_f32 ? cudaLaunchKernelEx(&config, split_reduce_kernel<float>, ws, static_cast<float*>(p.out),
-                                              count4, p.splits)
-                         : cudaLaunchKernelEx(&config, split_reduce_kernel<__nv_bfloat16>, ws,
-                                              static_cast<__nv_bfloat16*>(p.out), count4, p.splits);
+      if (p.out_f32) {
+        status = cudaLaunchKernelEx(&config, split_reduce_kernel<float>, ws, static_cast<float*>(p.out), count4,
+                                    p.splits);
+      } else if (p.out_f16) {
+        status = cudaLaunchKernelEx(&config, split_reduce_kernel<__half>, ws, static_cast<__half*>(p.out), count4,
+                                    p.splits);
+      } else {
+        status = cudaLaunchKernelEx(&config, split_reduce_kernel<__nv_bfloat16>, ws,
+                                    static_cast<__nv_bfloat16*>(p.out), count4, p.splits);
+      }
     }
     if (status != cudaSuccess) return status;
   }
@@ -774,8 +807,11 @@ bool encode_weights(Params& p, const void* packed, const void* scales) {
   const cuuint64_t zstride[1] = {static_cast<cuuint64_t>(p.n) * 4};
   const cuuint32_t sbox[2] = {kCols, L::SR};
   return encode(&p.tm_w, CU_TENSOR_MAP_DATA_TYPE_INT32, 2, packed, wdims, wstride, wbox, CU_TENSOR_MAP_SWIZZLE_NONE) &&
-         encode(&p.tm_s, p.f32_scales ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, scales,
-                sdims, sstride, sbox, CU_TENSOR_MAP_SWIZZLE_NONE) &&
+         encode(&p.tm_s,
+                p.f32_scales   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                : p.f16_scales ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                               : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                2, scales, sdims, sstride, sbox, CU_TENSOR_MAP_SWIZZLE_NONE) &&
          (p.zp_mode != 2 || encode(&p.tm_z, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, p.zp, sdims, zstride, sbox,
                                    CU_TENSOR_MAP_SWIZZLE_NONE));
 }

@@ -32,10 +32,12 @@
 // tokens spreads over 64 blocks. A thread reads its row's slot once (the
 // lanes of a row read one address) and forms the row's source and
 // destination once: no divide per element. Vector path: a thread moves
-// chunks of V = 16 / sizeof(T) elements (8 bf16, 4 f32): one 16-byte load,
-// and one store of V cache elements (16 bytes into a cache of T's type, 8
-// into bf16 under f32 keys or into a 1-byte cache of bf16 keys, 4 into a
-// 1-byte cache of f32 keys); a cache of T's type gets the raw bytes. The
+// chunks of V = 16 / sizeof(T) elements (8 bf16 or f16, 4 f32): one
+// 16-byte load, and one store of V cache elements (16 bytes into a cache
+// of T's type, 8 into bf16 under f32 keys or into a 1-byte cache of bf16
+// or f16 keys, 4 into a 1-byte cache of f32 keys); a cache of T's type
+// gets the raw bytes, so f16 keys into an f16 cache are copied bit for
+// bit. The (key, cache) pairs are common.cuh's dispatch_act_cache's. The
 // plan takes it only when every row start of k, v and the caches is
 // 16-byte aligned and D is a multiple of V; else V = 1 (the scalar path).
 // The kernel is launched as a programmatic dependent when pdl is set (K5,

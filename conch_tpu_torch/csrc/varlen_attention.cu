@@ -16,7 +16,8 @@
 // 4600 tokens: 2 * 2 * G * D multiply-adds per query row and visible key),
 // bytes at a short one (each sequence's visible K and V rows read once).
 //
-// Design (bf16 queries; the TPU kernel's step at :383-434):
+// Design (bf16 or f16 queries, the element type T a template parameter;
+// the TPU kernel's step at :383-434):
 //  - a block of 4 warps owns one (sequence, tile of BM query rows) pair,
 //    one KV head and one split of the tile's KV range. Its 64 MMA rows are
 //    the tile's rows times the G query heads of the group (row r = query
@@ -36,17 +37,18 @@
 //    of 2 stages in shared memory by cp.async (16 bytes a thread, zero-
 //    filled past the split), their rows found through the block table (one
 //    lookup a thread and tile, loaded a tile ahead);
-//    int8 and e4m3 caches are staged as bytes and widened to bf16 in
-//    shared memory (exactly) before use. Heads below HD (64, 128, 256, the
+//    int8 and e4m3 caches are staged as bytes and widened to T in
+//    shared memory (exactly: both hold every int8 and e4m3 value) before
+//    use; a 16-bit cache is the queries' own type. Heads below HD (64, 128, 256, the
 //    template) are zero-padded there;
 //  - warp w takes MMA rows 16w .. 16w + 15 alone (no barrier between its
-//    steps): S = Q . K^T with mma.sync m16n8k16 bf16 (ldmatrix for both
+//    steps): S = Q . K^T with mma.sync m16n8k16 in T (ldmatrix for both
 //    operands, f32 sums), times scale * log2(e) (or softcap * log2(e) *
 //    tanh(s * scale / softcap)), an online softmax in base 2 in registers, P rounded to
-//    bf16 as the A operand of O += P . V (ldmatrix.trans for V). Only the
+//    T as the A operand of O += P . V (ldmatrix.trans for V). Only the
 //    tiles that cross a row's diagonal or window start are masked, and a
 //    warp skips a tile that none of its rows sees;
-//  - with one split the block writes (O / l) * v_scale in bf16; otherwise
+//  - with one split the block writes (O / l) * v_scale in T; otherwise
 //    its unnormalized O and (max, sum) go to an f32 workspace and a second
 //    kernel, launched as a programmatic dependent (its launch overlaps this
 //    grid's end), merges the live splits by log-sum-exp in a fixed order.
@@ -194,15 +196,15 @@ __device__ __forceinline__ void copy_row(uint8_t* dst, int dst_stride, int row_e
 }
 
 // Shared memory of the tile kernel (bytes): the Q tile (kRows rows of HD
-// bf16), the ring (kStages x a K tile and a V tile of KT rows in the
-// cache's type), and for one-byte caches the K and V tiles widened to
-// bf16. bf16 rows are padded by 8 values, so that the 8 rows an ldmatrix
+// T, bf16 or f16), the ring (kStages x a K tile and a V tile of KT rows in
+// the cache's type), and for one-byte caches the K and V tiles widened to
+// T. 16-bit rows are padded by 8 values, so that the 8 rows an ldmatrix
 // reads fall on distinct banks.
 template <typename C, int HD>
 struct Smem {
   static constexpr bool kWiden = kQuantizedCache<C>;
   static constexpr int KT = HD == 256 ? 32 : 64;         // tokens a K/V tile
-  static constexpr int QS = HD + 8;                      // bf16 row stride (values)
+  static constexpr int QS = HD + 8;                      // 16-bit row stride (values)
   static constexpr int RS = kWiden ? HD + 16 : QS * 2;   // ring row stride (bytes)
   static constexpr int kRingTile = KT * RS;
   static constexpr int kRingOff = kRows * QS * 2;
@@ -210,13 +212,13 @@ struct Smem {
   static constexpr int kBytes = kWideOff + (kWiden ? 2 * KT * QS * 2 : 0);
 };
 
-template <typename C, int HD>
+template <typename T, typename C, int HD>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm) varlen_tile_kernel(const __grid_constant__ Params p) {
   using S = Smem<C, HD>;
   constexpr int KT = S::KT;
   constexpr int QS = S::QS;
   extern __shared__ __align__(16) uint8_t smem[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);
+  T* q_s = reinterpret_cast<T*>(smem);
   uint8_t* ring = smem + S::kRingOff;
 
   const int tid = threadIdx.x;
@@ -228,13 +230,14 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) varlen_tile_kernel(con
   const int z = blockIdx.z;
   const int group = p.num_q_heads / p.num_kv_heads;
   const int d_size = p.head_size;
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
+  T* out = static_cast<T*>(p.out);
   auto out_row = [&](int64_t row) { return out + (row * p.num_q_heads + kvh * group) * d_size; };
+  const T zero = from_float<T>(0.0f);
 
   // Padding rows: zeros, shared out among the blocks of split 0.
   if (z == 0) {
     for (int row = p.cu_seqlens_q[p.batch] + blockIdx.x; row < p.total_q; row += gridDim.x) {
-      for (int idx = tid; idx < group * d_size; idx += kThreads) out_row(row)[idx] = __float2bfloat16(0.0f);
+      for (int idx = tid; idx < group * d_size; idx += kThreads) out_row(row)[idx] = zero;
     }
   }
   int b, tile;
@@ -248,7 +251,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) varlen_tile_kernel(con
     if (p.splits == 1) {
       for (int idx = tid; idx < t.rows * group * d_size; idx += kThreads) {
         const int i = idx / (group * d_size);
-        out_row(t.q0 + i)[idx - i * group * d_size] = __float2bfloat16(0.0f);
+        out_row(t.q0 + i)[idx - i * group * d_size] = zero;
       }
     }
     return;
@@ -256,27 +259,26 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) varlen_tile_kernel(con
 
   // The pad columns [D, HD) that the MMAs read: zeros (the copies below
   // write columns [0, D) only).
-  __nv_bfloat16* k_wide = reinterpret_cast<__nv_bfloat16*>(smem + S::kWideOff);
+  T* k_wide = reinterpret_cast<T*>(smem + S::kWideOff);
   if (d_size < HD) {
     const int pad = HD - d_size;
-    const __nv_bfloat16 zero = __float2bfloat16(0.0f);
     for (int idx = tid; idx < kRows * pad; idx += kThreads) q_s[(idx / pad) * QS + d_size + idx % pad] = zero;
     if constexpr (S::kWiden) {
       for (int idx = tid; idx < 2 * KT * pad; idx += kThreads) k_wide[(idx / pad) * QS + d_size + idx % pad] = zero;
     } else {
-      __nv_bfloat16* r = reinterpret_cast<__nv_bfloat16*>(ring);
+      T* r = reinterpret_cast<T*>(ring);
       for (int idx = tid; idx < kStages * 2 * KT * pad; idx += kThreads) r[(idx / pad) * QS + d_size + idx % pad] = zero;
     }
   }
   // The Q tile: row r is query r / G, head r % G; rows past the tile are zeros.
-  const __nv_bfloat16* query = static_cast<const __nv_bfloat16*>(p.query);
+  const T* query = static_cast<const T*>(p.query);
   {
     const int r = tid / (kThreads / kRows);
     const int i = r / group;
-    const __nv_bfloat16* src =
+    const T* src =
         i < t.rows ? query + ((static_cast<int64_t>(t.q0) + i) * p.num_q_heads + kvh * group + r % group) * d_size
                    : nullptr;
-    copy_row<__nv_bfloat16, kRows>(reinterpret_cast<uint8_t*>(q_s), QS * 2, d_size, p.q_copy, query, src);
+    copy_row<T, kRows>(reinterpret_cast<uint8_t*>(q_s), QS * 2, d_size, p.q_copy, query, src);
   }
   // K/V tiles: thread tid copies token tid / (kThreads / KT) of each tile,
   // its row found once through the block table.
@@ -339,10 +341,10 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) varlen_tile_kernel(con
     issue(i + kStages - 1, next_page);
     next_page = page_of(i + kStages);
     const uint8_t* k_stage = ring + (i % kStages) * 2 * S::kRingTile;
-    const __nv_bfloat16* kb;
-    const __nv_bfloat16* vb;
+    const T* kb;
+    const T* vb;
     if constexpr (S::kWiden) {
-      // Widen the tile's bytes to bf16 (rows past the split were zero-filled).
+      // Widen the tile's bytes to T (rows past the split were zero-filled).
       const C* raw = reinterpret_cast<const C*>(k_stage);
       if (d_size % 8 == 0) {
         const int per_row = d_size / 8;
@@ -350,21 +352,21 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) varlen_tile_kernel(con
           const int r = idx / per_row;
           const int c = idx - r * per_row;
           const uint2 v = *reinterpret_cast<const uint2*>(reinterpret_cast<const uint8_t*>(raw) + r * S::RS + 8 * c);
-          *reinterpret_cast<uint4*>(k_wide + r * QS + 8 * c) = widen8_bf16<C>(v);
+          *reinterpret_cast<uint4*>(k_wide + r * QS + 8 * c) = widen8<T, C>(v);
         }
       } else {
         for (int idx = tid; idx < 2 * KT * d_size; idx += kThreads) {
           const int r = idx / d_size;
           const int c = idx - r * d_size;
-          k_wide[r * QS + c] = __float2bfloat16(to_float(raw[r * S::RS + c]));
+          k_wide[r * QS + c] = from_float<T>(to_float(raw[r * S::RS + c]));
         }
       }
       __syncthreads();
       kb = k_wide;
       vb = k_wide + KT * QS;
     } else {
-      kb = reinterpret_cast<const __nv_bfloat16*>(k_stage);
-      vb = reinterpret_cast<const __nv_bfloat16*>(k_stage + S::kRingTile);
+      kb = reinterpret_cast<const T*>(k_stage);
+      vb = reinterpret_cast<const T*>(k_stage + S::kRingTile);
     }
     const int k0 = s_lo + i * KT;
     const int n = min(KT, s_hi - k0);
@@ -385,8 +387,8 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) varlen_tile_kernel(con
       for (int np = 0; np < KT / 16; ++np) {
         uint32_t bk[4];
         ldmatrix_x4(bk, kb + (16 * np + 8 * (lane >> 4) + (lane & 7)) * QS + 16 * ks + 8 * ((lane >> 3) & 1));
-        mma_bf16_16816(s[2 * np], a[0], a[1], a[2], a[3], bk[0], bk[1]);
-        mma_bf16_16816(s[2 * np + 1], a[0], a[1], a[2], a[3], bk[2], bk[3]);
+        mma_16816<T>(s[2 * np], a[0], a[1], a[2], a[3], bk[0], bk[1]);
+        mma_16816<T>(s[2 * np + 1], a[0], a[1], a[2], a[3], bk[2], bk[3]);
       }
     }
     // Logits in base 2; the mask only where a row's diagonal or window
@@ -432,19 +434,19 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) varlen_tile_kernel(con
         o[dt][2 * h + 1] *= alpha;
       }
     }
-    // O += P . V, P rounded to bf16 as the A operand.
+    // O += P . V, P rounded to T as the A operand.
 #pragma unroll
     for (int kk = 0; kk < KT / 16; ++kk) {
-      const uint32_t a0 = pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
-      const uint32_t a1 = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
-      const uint32_t a2 = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      const uint32_t a3 = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      const uint32_t a0 = pack_x2<T>(s[2 * kk][0], s[2 * kk][1]);
+      const uint32_t a1 = pack_x2<T>(s[2 * kk][2], s[2 * kk][3]);
+      const uint32_t a2 = pack_x2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      const uint32_t a3 = pack_x2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 #pragma unroll
       for (int dp = 0; dp < HD / 16; ++dp) {
         uint32_t bv[4];
         ldmatrix_x4_trans(bv, vb + (16 * kk + 8 * ((lane >> 3) & 1) + (lane & 7)) * QS + 16 * dp + 8 * (lane >> 4));
-        mma_bf16_16816(o[2 * dp], a0, a1, a2, a3, bv[0], bv[1]);
-        mma_bf16_16816(o[2 * dp + 1], a0, a1, a2, a3, bv[2], bv[3]);
+        mma_16816<T>(o[2 * dp], a0, a1, a2, a3, bv[0], bv[1]);
+        mma_16816<T>(o[2 * dp + 1], a0, a1, a2, a3, bv[2], bv[3]);
       }
     }
   }
@@ -462,12 +464,12 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) varlen_tile_kernel(con
     const int64_t row = t.q0 + i;
     const int64_t head = row * p.num_q_heads + kvh * group + r % group;
     if (p.splits == 1) {
-      __nv_bfloat16* dst = out + head * d_size;
+      T* dst = out + head * d_size;
 #pragma unroll
       for (int dt = 0; dt < HD / 8; ++dt) {
         const int d = 8 * dt + 2 * tig;
-        if (d < d_size) dst[d] = __float2bfloat16(l[h] > 0.0f ? o[dt][2 * h] / l[h] * p.v_scale : 0.0f);
-        if (d + 1 < d_size) dst[d + 1] = __float2bfloat16(l[h] > 0.0f ? o[dt][2 * h + 1] / l[h] * p.v_scale : 0.0f);
+        if (d < d_size) dst[d] = from_float<T>(l[h] > 0.0f ? o[dt][2 * h] / l[h] * p.v_scale : 0.0f);
+        if (d + 1 < d_size) dst[d + 1] = from_float<T>(l[h] > 0.0f ? o[dt][2 * h + 1] / l[h] * p.v_scale : 0.0f);
       }
     } else {
       const int64_t at = static_cast<int64_t>(z) * p.total_q * p.num_q_heads + head;
@@ -491,6 +493,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) varlen_tile_kernel(con
 // (sum_z w_z acc_z / sum_z w_z l_z) * v_scale, the splits taken in order.
 // A split in which the row saw no key has m_z = -inf and weight 0.
 // Padding rows were zeroed by the split kernel.
+template <typename T>
 __global__ void __launch_bounds__(kMergeThreads) varlen_merge_kernel(const __grid_constant__ Params p) {
   __shared__ float w_s[kMaxGroup][kMaxSplits];
   __shared__ float l_s[kMaxGroup];
@@ -533,21 +536,21 @@ __global__ void __launch_bounds__(kMergeThreads) varlen_merge_kernel(const __gri
     if (lane == 0) l_s[warp] = sum;
   }
   __syncthreads();
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
+  T* out = static_cast<T*>(p.out);
   for (int idx = threadIdx.x; idx < group * p.head_size; idx += kMergeThreads) {
     const int gh = idx / p.head_size;
     const int64_t at = (head0 + gh) * p.head_size + (idx - gh * p.head_size);
     float a = 0.0f;
     for (int z = 0; z < live; ++z) a += p.part_acc[z * split_stride * p.head_size + at] * w_s[gh][z];
     const float l = l_s[gh];
-    out[at] = __float2bfloat16(l > 0.0f ? a / l * p.v_scale : 0.0f);
+    out[at] = from_float<T>(l > 0.0f ? a / l * p.v_scale : 0.0f);
   }
 }
 
-template <typename C, int HD>
+template <typename T, typename C, int HD>
 cudaError_t launch(const Params& p, int tile_slots, cudaStream_t stream) {
   using S = Smem<C, HD>;
-  auto kernel = varlen_tile_kernel<C, HD>;
+  auto kernel = varlen_tile_kernel<T, C, HD>;
   cudaError_t status = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kBytes);
   if (status != cudaSuccess) return status;
   kernel<<<dim3(tile_slots, p.num_kv_heads, p.splits), kThreads, S::kBytes, stream>>>(p);
@@ -563,7 +566,7 @@ cudaError_t launch(const Params& p, int tile_slots, cudaStream_t stream) {
     attr[0].val.programmaticStreamSerializationAllowed = 1;
     config.attrs = attr;
     config.numAttrs = 1;
-    status = cudaLaunchKernelEx(&config, varlen_merge_kernel, p);
+    status = cudaLaunchKernelEx(&config, varlen_merge_kernel<T>, p);
     if (status != cudaSuccess) return status;
   }
   return cudaGetLastError();
@@ -571,11 +574,11 @@ cudaError_t launch(const Params& p, int tile_slots, cudaStream_t stream) {
 
 // The tile kernel's template for the head size: HD the smallest of 64,
 // 128, 256 that holds it.
-template <typename C>
+template <typename T, typename C>
 cudaError_t launch_head(const Params& p, int tile_slots, cudaStream_t stream) {
-  if (p.head_size <= 64) return launch<C, 64>(p, tile_slots, stream);
-  if (p.head_size <= 128) return launch<C, 128>(p, tile_slots, stream);
-  return launch<C, 256>(p, tile_slots, stream);
+  if (p.head_size <= 64) return launch<T, C, 64>(p, tile_slots, stream);
+  if (p.head_size <= 128) return launch<T, C, 128>(p, tile_slots, stream);
+  return launch<T, C, 256>(p, tile_slots, stream);
 }
 
 }  // namespace varlen
@@ -621,12 +624,12 @@ __global__ void varlen_rows_f32_kernel(const float* __restrict__ query, float* _
 
 }  // namespace conch
 
-// query and out (total_q, QH, D) in `dtype` (f32 or bf16); the caches'
-// layer (P, KH, ps, D) in `cache_dtype` (bf16, int8, e4m3, or f32 under
-// f32 queries); cu_seqlens_q (batch + 1,), seq_lens (batch,), block_table
-// (batch, max_pages) int32; ring_pages > 0 reads each row as a ring of its
-// first ring_pages entries. The plan (varlen_tile_plan; bf16 queries
-// only): block_rows (BM = 128 / G query rows a tile), tile_slots (the
+// query and out (total_q, QH, D) in `dtype` (f32, bf16 or f16); the
+// caches' layer (P, KH, ps, D) in `cache_dtype` (int8, e4m3, the queries'
+// own type, or bf16 under f32 queries); cu_seqlens_q (batch + 1,),
+// seq_lens (batch,), block_table (batch, max_pages) int32; ring_pages > 0
+// reads each row as a ring of its first ring_pages entries. The plan
+// (varlen_tile_plan; bf16 and f16 queries): block_rows (BM = 128 / G query rows a tile), tile_slots (the
 // grid's tile slots, at least the step's (sequence, tile) pairs),
 // split_len and splits (1 <= splits <= 64); with splits > 1, part_acc
 // (splits, total_q, QH, D) and part_ml (splits, total_q, QH, 2) f32.
@@ -664,7 +667,7 @@ extern "C" int conch_varlen_attention(const void* query, void* out, const void* 
     if (!known) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(cudaGetLastError());
   }
-  if (dtype != conch::kBFloat16 || block_rows < 1 || block_rows * group > conch::varlen::kRows || tile_slots < 1 ||
+  if (block_rows < 1 || block_rows * group > conch::varlen::kRows || tile_slots < 1 ||
       split_len < 1 || splits < 1 || splits > conch::varlen::kMaxSplits ||
       (splits > 1 && (part_acc == nullptr || part_ml == nullptr)) || (q_copy != 0 && q_copy != 4 && q_copy != 16) ||
       (kv_copy != 0 && kv_copy != 4 && kv_copy != 16)) {
@@ -698,10 +701,11 @@ extern "C" int conch_varlen_attention(const void* query, void* out, const void* 
   p.v_scale = v_scale;
   p.q_copy = q_copy;
   p.kv_copy = kv_copy;
-  switch (cache_dtype) {
-    case conch::kBFloat16: return static_cast<int>(conch::varlen::launch_head<__nv_bfloat16>(p, tile_slots, s));
-    case conch::kInt8: return static_cast<int>(conch::varlen::launch_head<int8_t>(p, tile_slots, s));
-    case conch::kFloat8E4M3: return static_cast<int>(conch::varlen::launch_head<__nv_fp8_e4m3>(p, tile_slots, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  cudaError_t status = cudaErrorInvalidValue;
+  conch::dispatch_act_cache(dtype, cache_dtype, [&](auto q_tag, auto c_tag) {
+    using T = typename decltype(q_tag)::type;
+    using C = typename decltype(c_tag)::type;
+    if constexpr (!std::is_same_v<T, float>) status = conch::varlen::launch_head<T, C>(p, tile_slots, s);
+  });
+  return static_cast<int>(status);
 }

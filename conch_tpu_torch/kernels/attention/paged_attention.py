@@ -3,12 +3,14 @@
 
 """Paged decode attention: the CUDA kernel (K3) and its plain version.
 
-The kernel is ``csrc/paged_attention.cu``; it replaces
+The kernel is ``csrc/paged_attention.cuh`` (entry point ``csrc/paged_attention.cu``); it replaces
 ``conch_tpu/kernels/attention/paged_attention.py:_paged_allheads_kernel``
 (and the per-head ``_paged_attention_kernel``, same function). It reads
 one layer of the stacked (L, P, KH, ps, D) pool through a pointer offset.
 Softcap and a sliding window are run-time arguments (0 disables each), so
-one build serves Llama and Gemma-2's local and global layers. The caches
+one build serves Llama and Gemma-2's local and global layers. Queries are
+f32, bf16 or f16 (a template parameter), over a cache of their own type
+(or bf16 under f32 queries) or a 1-byte one (``KV_DTYPE_PAIRS``). The caches
 may be int8 or float8_e4m3fn (quantized on store by K2): the kernel reads
 them in their own type, folds ``k_scale`` into the softmax scale and
 multiplies the f32 output by ``v_scale``, as the TPU kernel does.
@@ -33,8 +35,9 @@ import dataclasses
 import torch
 
 from conch_tpu_torch.kernels.common import (
-    QUANTIZED_CACHE_DTYPES,
+    FLOAT_DTYPES,
     cdiv,
+    check_kv_dtypes,
     check_launch,
     dtype_code,
     kernel_function,
@@ -46,10 +49,10 @@ from conch_tpu_torch.kernels.common import (
 )
 from conch_tpu_torch.reference.attention.attention import paged_attention as _paged_reference
 
-# Limits of csrc/attention_common.cuh and csrc/paged_attention.cu (kMaxGroup, kMaxHeadSize).
+# Limits of csrc/attention_common.cuh and csrc/paged_attention.cuh (kMaxGroup, kMaxHeadSize).
 MAX_GROUP = 8
 MAX_HEAD_SIZE = 256
-# K3's splits of the KV walk (csrc/paged_attention.cu: kTile, kMaxSplits).
+# K3's splits of the KV walk (csrc/paged_attention.cuh: kTile, kMaxSplits).
 SPLIT_TILE = 32  # tokens a stage of the kernel's ring; a split is a whole number of them
 SPLIT_TOKENS = 256  # tokens a split walks at most (128 KiB of bf16 K and V at head 128)
 MIN_SPLIT_TOKENS = 64
@@ -144,13 +147,7 @@ def check_kernel_shapes(query: torch.Tensor, key_caches: torch.Tensor, value_cac
     """Raise on inputs the attention kernels (K3, K7) do not take."""
     num_q_heads, head_size = query.shape[1], query.shape[2]
     num_kv_heads = key_caches.shape[2]
-    cache_ok = key_caches.dtype in (torch.bfloat16, *QUANTIZED_CACHE_DTYPES) or key_caches.dtype == query.dtype
-    if query.dtype not in (torch.float32, torch.bfloat16) or not cache_ok or value_caches.dtype != key_caches.dtype:
-        msg = (
-            f"attention kernels take f32 or bf16 queries over bf16, int8 or float8_e4m3fn caches (or f32 "
-            f"caches under f32 queries), got q {query.dtype}, caches {key_caches.dtype}/{value_caches.dtype}"
-        )
-        raise NotImplementedError(msg)
+    check_kv_dtypes("attention", query, key_caches, value_caches)
     if num_q_heads % num_kv_heads or num_q_heads // num_kv_heads > MAX_GROUP or head_size > MAX_HEAD_SIZE:
         msg = (
             f"attention kernels take GQA groups up to {MAX_GROUP} and head sizes up to {MAX_HEAD_SIZE}, "
@@ -215,7 +212,8 @@ def _paged_cuda(
     code = fn(
         query.data_ptr(), out.data_ptr(), k_layer, v_layer, block_table.data_ptr(), seq_lens.data_ptr(),
         batch, block_table.shape[1], num_q_heads, num_kv_heads, page_size, head_size, scale * k_scale, softcap,
-        window_size, ring_pages, v_scale, dtype_code(query), storage_code(key_caches), plan.split_len, plan.splits,
+        window_size, ring_pages, v_scale, dtype_code(query, FLOAT_DTYPES), storage_code(key_caches), plan.split_len,
+        plan.splits,
         None if part_acc is None else part_acc.data_ptr(), None if part_ml is None else part_ml.data_ptr(),
         copy_bytes(head_size * key_caches.element_size(), k_layer, v_layer), stream_of(query),
     )
@@ -223,6 +221,8 @@ def _paged_cuda(
     paged_attention_launcher.launches += 1
     if ring_pages > 0:
         paged_attention_launcher.ring_launches += 1
+    if query.dtype == torch.float16:
+        paged_attention_launcher.f16_launches += 1
     return out
 
 
@@ -247,7 +247,8 @@ def paged_attention_launcher(
     ``ring_pages`` entries hold position ``p`` at slot ``p % (ring_pages *
     page_size)``; the ring must cover the window. The logits are
     ``q . k * scale * k_scale`` and the output is multiplied by
-    ``v_scale``. ``launches`` counts kernel launches (``ring_launches`` those over a ring)."""
+    ``v_scale``. ``launches`` counts kernel launches (``ring_launches`` those over a ring,
+    ``f16_launches`` those of f16 queries)."""
     check_ring(ring_pages, window_size, block_table.shape[1], key_caches.shape[3])
     args = (
         query, key_caches, value_caches, block_table, seq_lens, scale, layer_idx, softcap, window_size, k_scale,
@@ -260,3 +261,4 @@ def paged_attention_launcher(
 
 paged_attention_launcher.launches = 0
 paged_attention_launcher.ring_launches = 0  # the launches over a rolling-KV ring
+paged_attention_launcher.f16_launches = 0  # the launches of f16 queries

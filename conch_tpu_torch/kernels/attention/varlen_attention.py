@@ -15,7 +15,8 @@ band addressing does (:510-516), so a row's true pages may outnumber both
 the table and the ring. ``varlen_attention_launcher`` takes the plain
 version for CPU tensors only; on CUDA it launches the kernel or raises.
 
-bf16 queries run a tiled tensor-core kernel: a block owns one (sequence,
+bf16 and f16 queries run a tiled tensor-core kernel (the 16-bit type a
+template parameter; 1-byte caches widened to it): a block owns one (sequence,
 tile of query rows) pair, one KV head and one split of the tile's keys.
 ``varlen_tile_plan`` sets the tile, the grid's tile slots and the splits
 from shapes alone, never from the values of ``cu_seqlens_q`` or
@@ -38,6 +39,7 @@ from conch_tpu_torch.kernels.attention.paged_attention import (
     layer_pointers,
 )
 from conch_tpu_torch.kernels.common import (
+    FLOAT_DTYPES,
     cdiv,
     check_launch,
     dtype_code,
@@ -193,7 +195,7 @@ def _varlen_cuda(
     k_layer, v_layer = layer_pointers(key_caches, value_caches, layer_idx)
     plan = varlen_tile_plan(total_q, batch, max_pages, page_size, num_q_heads, num_kv_heads, head_size, causal,
                             window_size, sm_count(query.device.index), ring_pages)
-    shapes = plan.workspace_shapes(total_q, num_q_heads, head_size) if query.dtype == torch.bfloat16 else None
+    shapes = plan.workspace_shapes(total_q, num_q_heads, head_size) if query.dtype != torch.float32 else None
     part_acc, part_ml = (None, None) if shapes is None else (
         torch.empty(shape, dtype=torch.float32, device=query.device) for shape in shapes
     )
@@ -209,7 +211,8 @@ def _varlen_cuda(
         query.data_ptr(), out.data_ptr(), k_layer, v_layer, cu_seqlens_q.data_ptr(), seq_lens.data_ptr(),
         block_table.data_ptr(), total_q, batch, max_pages, num_q_heads, num_kv_heads,
         page_size, head_size, scale * q_scale * k_scale, softcap, window_size, ring_pages, int(causal), v_scale,
-        dtype_code(query), storage_code(key_caches), plan.block_rows, plan.tile_slots, plan.split_len, plan.splits,
+        dtype_code(query, FLOAT_DTYPES), storage_code(key_caches), plan.block_rows, plan.tile_slots, plan.split_len,
+        plan.splits,
         None if part_acc is None else part_acc.data_ptr(), None if part_ml is None else part_ml.data_ptr(),
         copy_bytes(head_size * query.element_size(), query.data_ptr()),
         copy_bytes(head_size * key_caches.element_size(), k_layer, v_layer), stream_of(query),
@@ -218,6 +221,8 @@ def _varlen_cuda(
     varlen_attention_launcher.launches += 1
     if ring_pages > 0:
         varlen_attention_launcher.ring_launches += 1
+    if query.dtype == torch.float16:
+        varlen_attention_launcher.f16_launches += 1
     return out
 
 
@@ -246,7 +251,8 @@ def varlen_attention_launcher(
     padding and come out zero. Under a ring the table's first
     ``ring_pages`` entries hold position ``p`` at slot ``p % (ring_pages *
     page_size)``; the ring must cover the window and the step's writes.
-    ``launches`` counts kernel launches (``ring_launches`` those over a ring).
+    ``launches`` counts kernel launches (``ring_launches`` those over a ring,
+    ``f16_launches`` those of f16 queries).
     """
     check_ring(ring_pages, window_size, block_table.shape[1], key_caches.shape[3])
     args = (
@@ -260,3 +266,4 @@ def varlen_attention_launcher(
 
 varlen_attention_launcher.launches = 0
 varlen_attention_launcher.ring_launches = 0  # the launches over a rolling-KV ring
+varlen_attention_launcher.f16_launches = 0  # the launches of f16 queries

@@ -37,9 +37,11 @@ import numpy as np
 import torch
 
 from conch_tpu_torch.kernels.common import (
+    FLOAT_DTYPES,
     QUANTIZED_CACHE_DTYPES,
     aligned16,
     cdiv,
+    check_kv_dtypes,
     check_launch,
     dtype_code,
     kernel_function,
@@ -150,16 +152,10 @@ def reshape_and_cache_stacked_plain(
 def _stacked_write_cuda(key, value, key_caches, value_caches, slot_mapping, layer_idx: int, k_scale, v_scale) -> None:
     require_cuda(key, value, key_caches, value_caches, slot_mapping)
     num_layers, num_pages, num_kv_heads, page_size, head_size = key_caches.shape
-    cache_ok = key_caches.dtype in (torch.bfloat16, *QUANTIZED_CACHE_DTYPES) or key_caches.dtype == key.dtype
-    if key.dtype not in (torch.float32, torch.bfloat16) or value.dtype != key.dtype or not cache_ok or (
-        value_caches.dtype != key_caches.dtype
-    ):
-        msg = (
-            f"reshape_and_cache_stacked kernel: f32 or bf16 keys into bf16, int8 or float8_e4m3fn caches (or f32 "
-            f"caches for f32 keys), got k {key.dtype}, v {value.dtype}, caches {key_caches.dtype}/"
-            f"{value_caches.dtype}"
-        )
+    if value.dtype != key.dtype:
+        msg = f"reshape_and_cache_stacked kernel: keys and values of one dtype, got {key.dtype}, {value.dtype}"
         raise NotImplementedError(msg)
+    check_kv_dtypes("reshape_and_cache_stacked", key, key_caches, value_caches)
     if not (key_caches.is_contiguous() and value_caches.is_contiguous() and slot_mapping.is_contiguous()):
         msg = "reshape_and_cache_stacked kernel: caches and slot_mapping must be contiguous"
         raise ValueError(msg)
@@ -182,13 +178,15 @@ def _stacked_write_cuda(key, value, key_caches, value_caches, slot_mapping, laye
     code = fn(
         key.data_ptr(), value.data_ptr(), key_caches.data_ptr(), value_caches.data_ptr(),
         slot_mapping.data_ptr(), num_tokens, key.stride(0), value.stride(0), layer_offset,
-        num_kv_heads, page_size, head_size, k_scale, v_scale, dtype_code(key), storage_code(key_caches),
+        num_kv_heads, page_size, head_size, k_scale, v_scale, dtype_code(key, FLOAT_DTYPES), storage_code(key_caches),
         plan.path, plan.threads_per_row, plan.rows_per_block, plan.grid,
         int(reshape_and_cache_stacked_launcher.pdl), stream_of(key),
     )
     check_launch("conch_reshape_and_cache_stacked", code)
     if num_tokens:
         reshape_and_cache_stacked_launcher.launches += 1
+        if key.dtype == torch.float16:
+            reshape_and_cache_stacked_launcher.f16_launches += 1
 
 
 def reshape_and_cache_stacked_launcher(
@@ -204,8 +202,8 @@ def reshape_and_cache_stacked_launcher(
     """In-place write of each token into layer ``layer_idx`` of the pool,
     quantized on store into int8 / float8_e4m3fn caches.
 
-    ``launches`` counts kernel launches; ``pdl`` launches the kernel as a
-    programmatic dependent.
+    ``launches`` counts kernel launches (``f16_launches`` those of f16
+    keys); ``pdl`` launches the kernel as a programmatic dependent.
     """
     if not 0 <= layer_idx < key_caches.shape[0]:
         msg = f"layer_idx {layer_idx} outside the {key_caches.shape[0]}-layer pool"
@@ -218,4 +216,5 @@ def reshape_and_cache_stacked_launcher(
 
 
 reshape_and_cache_stacked_launcher.launches = 0
+reshape_and_cache_stacked_launcher.f16_launches = 0  # the launches of f16 keys
 reshape_and_cache_stacked_launcher.pdl = True

@@ -35,14 +35,25 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas"
 
 # dtype codes understood by the C entry points (csrc/common.cuh: DType).
 # DTYPE_CODES: the float types; most kernels take COMPUTE_DTYPES (f32 and
-# bf16), K4, K4b, K5, K10a, K6, K10b, K12q and K12d FLOAT_DTYPES (f16
-# too). STORAGE_CODES adds the int8 / e4m3 elements of quantized KV caches.
+# bf16); K4, K4b, K5, K10a, K6, K10b, K12q and K12d take FLOAT_DTYPES (f16
+# too), and so do K1 (f16 x: kernels/quantization/gemm.py's
+# MAGIC_SCALE_DTYPES), K2, K3 and K7 (KV_DTYPE_PAIRS). STORAGE_CODES adds
+# the int8 / e4m3 elements of quantized KV caches.
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 FLOAT_DTYPES = (*COMPUTE_DTYPES, torch.float16)
 STORAGE_CODES = {**DTYPE_CODES, torch.int8: 3, torch.float8_e4m3fn: 4}
 # Element types of KV caches quantized on store (K2), read by K3, K7, K11.
 QUANTIZED_CACHE_DTYPES = (torch.int8, torch.float8_e4m3fn)
+# The (activation, cache) dtypes K2 stores and K3 and K7 read on the card
+# (csrc/common.cuh: dispatch_act_cache): f32 keys or queries over f32,
+# bf16 or 1-byte caches; bf16 and f16 ones over their own type or 1-byte
+# caches.
+KV_DTYPE_PAIRS = {
+    torch.float32: (torch.float32, torch.bfloat16, *QUANTIZED_CACHE_DTYPES),
+    torch.bfloat16: (torch.bfloat16, *QUANTIZED_CACHE_DTYPES),
+    torch.float16: (torch.float16, *QUANTIZED_CACHE_DTYPES),
+}
 
 
 def cdiv(a: int, b: int) -> int:
@@ -165,6 +176,23 @@ def storage_code(tensor: torch.Tensor) -> int:
         msg = f"no CUDA kernel stores {tensor.dtype}"
         raise NotImplementedError(msg)
     return code
+
+
+def check_kv_dtypes(name: str, act: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor) -> None:
+    """Raise unless the kernel ``name`` (K2, K3 or K7) takes the keys' or
+    queries' dtype over the caches' (``KV_DTYPE_PAIRS``; both caches of one
+    dtype), naming the rule."""
+    caches = KV_DTYPE_PAIRS.get(act.dtype, ())
+    if k_cache.dtype not in caches or v_cache.dtype != k_cache.dtype:
+        rule = "; ".join(
+            f"{str(a).removeprefix('torch.')} over {', '.join(str(c).removeprefix('torch.') for c in cs)}"
+            for a, cs in KV_DTYPE_PAIRS.items()
+        )
+        msg = (
+            f"{name} kernel: takes {rule} (activations over caches of one dtype), got {act.dtype} over "
+            f"{k_cache.dtype}/{v_cache.dtype}"
+        )
+        raise NotImplementedError(msg)
 
 
 def aligned16(*tensors: torch.Tensor) -> bool:

@@ -8,7 +8,8 @@ Each kernel replaces one kernel of ``conch_tpu/kernels/quantization/gemm.py``:
 - K1 ``mixed_gemm_magic`` (``csrc/mixed_gemm_magic.cu``) replaces
   ``_mixed_gemm_magic_kernel``: int4 codes in the magic packing, groups 32,
   64 and 128 (any other group raises on the card), the group's scale
-  applied to the decoded weight before the product;
+  applied to the decoded weight before the product; bf16 x over bf16
+  scales, or f16 x over bf16, f16 or f32 scales (``MAGIC_SCALE_DTYPES``);
 - K1b ``mixed_gemm_planar`` (``csrc/mixed_gemm_planar.cu``) replaces
   ``_mixed_gemm_planar_kernel``: 2/4/8-bit codes in the planar packing, a
   group a multiple of 8 word rows (any other raises on the card), the
@@ -32,8 +33,8 @@ chosen here before the launch.
 Each takes a ``layer_index`` into per-layer stacks of its weight arrays
 (``(L, ...)``): the wrapper offsets the pointers to the layer, so no
 slice of a stack is ever copied. K1, K1b and K1c round their f32 sums
-once, into ``out_dtype`` (x's dtype by default; float32 or bfloat16 on the
-card, an output-type template parameter). The plain versions follow the
+once, into ``out_dtype`` (x's dtype by default; on the card float32 or
+bfloat16, and K1 float16 too). The plain versions follow the
 TPU kernels' order of rounding in f32. A launcher takes its plain version for
 CPU tensors only; on CUDA it launches its kernel or raises, and counts
 each launch in ``launches``.
@@ -49,6 +50,7 @@ import math
 import torch
 
 from conch_tpu_torch.kernels.common import (
+    FLOAT_DTYPES,
     cdiv,
     check_launch,
     dtype_code,
@@ -60,7 +62,14 @@ from conch_tpu_torch.kernels.common import (
 from conch_tpu_torch.utils.quant_utils import get_pack_factor, unpack_rows, unpack_rows_magic, unpack_rows_planar
 
 KERNEL_GROUP_SIZES = (32, 64, 128)  # the group sizes K1's CUDA kernel is written for (a slice: one group, or two of 32)
-KERNEL_OUT_DTYPES = (torch.float32, torch.bfloat16)  # the final stores K1, K1b and K1c are written for
+KERNEL_OUT_DTYPES = (torch.float32, torch.bfloat16)  # the final stores K1b and K1c are written for
+MAGIC_OUT_DTYPES = (*KERNEL_OUT_DTYPES, torch.float16)  # K1's
+# K1's scale dtypes under each x dtype: bf16 x takes bf16 scales (the
+# JAX package's int4 init), f16 x also f16 (a GPTQ checkpoint's) and f32.
+MAGIC_SCALE_DTYPES = {
+    torch.bfloat16: (torch.bfloat16,),
+    torch.float16: (torch.bfloat16, torch.float16, torch.float32),
+}
 
 
 def _layer(a: torch.Tensor, layer_index: int | None) -> torch.Tensor:
@@ -102,18 +111,24 @@ def _check_layer_shapes(name: str, layer_index: int | None, shapes: dict) -> Non
             raise ValueError(msg)
 
 
-def _out_dtype(name: str, x: torch.Tensor, out_dtype: torch.dtype | None) -> torch.dtype:
+def _names(dtypes: tuple[torch.dtype, ...]) -> str:
+    return " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+
+
+def _out_dtype(
+    name: str, x: torch.Tensor, out_dtype: torch.dtype | None, dtypes: tuple[torch.dtype, ...] = KERNEL_OUT_DTYPES
+) -> torch.dtype:
     """The kernel's output dtype (x's by default); raises on one it does not store."""
     out_dtype = out_dtype or x.dtype
-    if out_dtype not in KERNEL_OUT_DTYPES:
-        msg = f"{name} kernel: stores float32 or bfloat16 outputs, not {out_dtype}"
+    if out_dtype not in dtypes:
+        msg = f"{name} kernel: stores {_names(dtypes)} outputs, not {out_dtype}"
         raise NotImplementedError(msg)
     return out_dtype
 
 
-def _check_x(name: str, x: torch.Tensor) -> None:
-    if x.dtype != torch.bfloat16:
-        msg = f"{name} kernel: x must be bfloat16 on the card, got {x.dtype}"
+def _check_x(name: str, x: torch.Tensor, dtypes: tuple[torch.dtype, ...] = (torch.bfloat16,)) -> None:
+    if x.dtype not in dtypes:
+        msg = f"{name} kernel: x must be {_names(dtypes)} on the card, got {x.dtype}"
         raise NotImplementedError(msg)
     if x.dim() != 2 or x.stride(1) != 1 or x.stride(0) % 4 or x.data_ptr() % 8:
         msg = f"{name} kernel: x rows must be contiguous, 8-byte aligned, with a row stride that is a multiple of 4"
@@ -180,18 +195,28 @@ def mixed_gemm_magic_plain(
     return torch.matmul(x.float(), w).to(out_dtype or x.dtype)
 
 
+def check_magic_dtypes(x: torch.Tensor, scales: torch.Tensor, packed: torch.Tensor) -> None:
+    """Raise unless K1 takes x's, the scales' and the words' dtypes
+    (``MAGIC_SCALE_DTYPES``: bf16 x over bf16 scales, f16 x over bf16, f16
+    or f32 scales; int32 words), naming the rule."""
+    _check_x("mixed_gemm_magic", x, tuple(MAGIC_SCALE_DTYPES))
+    if scales.dtype not in MAGIC_SCALE_DTYPES[x.dtype] or packed.dtype != torch.int32:
+        msg = (
+            f"mixed_gemm_magic kernel: {x.dtype} x takes {_names(MAGIC_SCALE_DTYPES[x.dtype])} scales and int32 "
+            f"words, got {scales.dtype}, {packed.dtype}"
+        )
+        raise NotImplementedError(msg)
+
+
 def _magic_gemm_cuda(
     x, packed, scales, group_size: int, bias: int, layer_index: int | None, out_dtype: torch.dtype | None
 ) -> torch.Tensor:
     require_cuda(x, packed, scales)
-    _check_x("mixed_gemm_magic", x)
+    check_magic_dtypes(x, scales, packed)
     x = _tma_rows(x)
-    out_dtype = _out_dtype("mixed_gemm_magic", x, out_dtype)
+    out_dtype = _out_dtype("mixed_gemm_magic", x, out_dtype, MAGIC_OUT_DTYPES)
     m, k = x.shape
     n = packed.shape[-1]
-    if scales.dtype != torch.bfloat16 or packed.dtype != torch.int32:
-        msg = f"mixed_gemm_magic kernel: scales must be bfloat16 and packed int32, got {scales.dtype}, {packed.dtype}"
-        raise NotImplementedError(msg)
     if not (packed.is_contiguous() and scales.is_contiguous()):
         raise ValueError("mixed_gemm_magic kernel: packed weights and scales must be contiguous")
     plan = quant_gemm_plan("magic", m, n, k, 4, group_size, sm_count(x.device.index))
@@ -201,14 +226,17 @@ def _magic_gemm_cuda(
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     plan_args, _ws = _plan_args(plan, m, n, x.device)
     fn = kernel_function("conch_mixed_gemm_magic", (
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int, *PLAN_ARGTYPES, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int, *PLAN_ARGTYPES,
+        ctypes.c_void_p,
     ))
-    code = fn(x.data_ptr(), _layer_ptr(packed, layer_index), _layer_ptr(scales, layer_index), out.data_ptr(),
-              dtype_code(out), m, n, k, group_size, x.stride(0), bias, *plan_args,
-              stream_of(x))
+    code = fn(x.data_ptr(), dtype_code(x, FLOAT_DTYPES), _layer_ptr(packed, layer_index),
+              _layer_ptr(scales, layer_index), dtype_code(scales, FLOAT_DTYPES), out.data_ptr(),
+              dtype_code(out, FLOAT_DTYPES), m, n, k, group_size, x.stride(0), bias, *plan_args, stream_of(x))
     check_launch("conch_mixed_gemm_magic", code)
     mixed_gemm_magic_launcher.launches += 1
+    if x.dtype == torch.float16:
+        mixed_gemm_magic_launcher.f16_launches += 1
     return out
 
 
@@ -222,9 +250,12 @@ def mixed_gemm_magic_launcher(
     out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """``x @ ((code - bias) * scale)`` in f32, rounded to ``out_dtype`` (x's
-    dtype by default; float32 or bfloat16 on the card): (M, N).
+    dtype by default; float32, bfloat16 or float16 on the card): (M, N).
+    On the card x is bf16 over bf16 scales, or f16 over bf16, f16 or f32
+    scales (``check_magic_dtypes``).
 
-    ``launches`` counts kernel launches.
+    ``launches`` counts kernel launches; of them, ``f16_launches`` those
+    under f16 x.
     """
     if x.device.type == "cpu":
         return mixed_gemm_magic_plain(x, packed, scales, group_size, bias, layer_index, out_dtype)
@@ -232,6 +263,7 @@ def mixed_gemm_magic_launcher(
 
 
 mixed_gemm_magic_launcher.launches = 0
+mixed_gemm_magic_launcher.f16_launches = 0
 
 
 # -- the launch plan of K1, K1b, K1c and K8 --------------------------------

@@ -222,6 +222,25 @@ class QuantizedLinear:
         return QuantizedLinear(first.kind, arrays, dict(first.meta))
 
 
+def cast_dense_head(params: dict, dtype: torch.dtype) -> dict:
+    """``params`` with a dense ``lm_head`` held in ``dtype`` (the
+    activations') where that keeps its size, as for an int4 model's bf16
+    head under f16 activations; else ``params`` as they are.
+
+    ``apply`` casts a dense weight to x's dtype at every call, as the JAX
+    package does (``w.astype(x.dtype)``), so converting once at load gives
+    the same values, and a step no longer converts the whole head
+    (Qwen2-7B's 3584 x 152064: 1.1 GB read and 1.1 GB written a step).
+    """
+    head = params.get("lm_head")
+    if not isinstance(head, QuantizedLinear) or head.kind != "dense":
+        return params
+    w = head.arrays["w"]
+    if w.dtype == dtype or w.dtype.itemsize != dtype.itemsize:
+        return params
+    return {**params, "lm_head": QuantizedLinear.dense(w.to(dtype))}
+
+
 def quantize_linear(w: torch.Tensor, mode: str, **kwargs) -> QuantizedLinear:
     """Build a QuantizedLinear from a dense (K, N) weight by mode name."""
     if mode in ("bf16", "dense", "none"):

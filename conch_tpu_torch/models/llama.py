@@ -125,9 +125,12 @@ def _cos_sin_cache(config: LlamaConfig, device: torch.device) -> torch.Tensor:
 QUANT_MODES = ("bf16", "dense", "none", "int4", "int8", "nf4", "w8a8")
 
 
-def _quant_kwargs(quant_mode: str, group_size: int, blocksize: int) -> dict:
-    """The quantizer's arguments for a projection, as the JAX package passes them."""
-    if quant_mode in ("int4", "int8"):
+def _quant_kwargs(quant_mode: str, group_size: int, blocksize: int, scale_dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The quantizer's arguments for a projection, as the JAX package passes
+    them (int4: the scales' dtype too)."""
+    if quant_mode == "int4":
+        return {"group_size": group_size, "dtype": scale_dtype}
+    if quant_mode == "int8":
         return {"group_size": group_size}
     if quant_mode == "nf4":
         return {"blocksize": blocksize}
@@ -136,7 +139,7 @@ def _quant_kwargs(quant_mode: str, group_size: int, blocksize: int) -> dict:
 
 def init_llama_params(
     seed: int, config: LlamaConfig, quant_mode: str = "bf16", group_size: int = 128,
-    device: str | torch.device | None = None, blocksize: int = 64,
+    device: str | torch.device | None = None, blocksize: int = 64, scale_dtype: torch.dtype = torch.bfloat16,
 ) -> dict:
     """Random-initialize Llama params on ``device`` (None: CUDA).
 
@@ -145,7 +148,9 @@ def init_llama_params(
     never passes through the host. Projections are stacked on a leading
     layer axis: bf16 dense for ``quant_mode="bf16"``, or quantized on the
     device from each float32 draw, as ``quantize_linear`` does it:
-    ``"int4"`` (uint4b8, ``group_size``), ``"int8"`` (uint8b128,
+    ``"int4"`` (uint4b8, ``group_size``, scales in ``scale_dtype``: bf16
+    as the JAX package's init, or f16 as a GPTQ checkpoint ships them
+    beside an f16 ``config.dtype``), ``"int8"`` (uint8b128,
     ``group_size``), ``"nf4"`` (``blocksize``, K12q) or ``"w8a8"``.
     ``lm_head`` is stored in the same mode (nf4 at the default blocksize
     64, as in the JAX package), except for int4, where it stays bf16
@@ -166,7 +171,7 @@ def init_llama_params(
     def normal(*shape: int, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
         return (torch.randn(shape, generator=gen, device=device, dtype=torch.float32) * 0.02).to(dtype)
 
-    quant_kwargs = _quant_kwargs(quant_mode, group_size, blocksize)
+    quant_kwargs = _quant_kwargs(quant_mode, group_size, blocksize, scale_dtype)
 
     def stacked(k_dim: int, n_dim: int) -> QuantizedLinear:
         return stack_layers(

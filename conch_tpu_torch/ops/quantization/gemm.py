@@ -196,7 +196,10 @@ def mixed_precision_gemm(
             128 for uint8b128); ignored with a codebook.
         group_size: quantization group size along K.
         output_dtype: the dtype of the one final rounding of the f32 sums;
-            float32 or bfloat16 on the card, any float dtype on the CPU.
+            on the card float32 or bfloat16 (the magic layout, K1, float16
+            too), any float dtype on the CPU. On the card x is bfloat16
+            (K1 also float16, over bf16, f16 or f32 scales: a GPTQ
+            checkpoint's float16 as it ships).
         acc_dtype: recorded in the metadata as given, as in JAX, whose
             kernels never read it: every path sums in float32 whatever it
             says.

@@ -67,6 +67,7 @@ import numpy as np
 import torch
 
 from conch_tpu_torch.models.deepseek import deepseek_decode_step, fuse_deepseek_params
+from conch_tpu_torch.models.linear import cast_dense_head
 from conch_tpu_torch.models.llama import fuse_llama_params, llama_decode_step, llama_prefill, llama_verify_forward
 from conch_tpu_torch import envs
 from conch_tpu_torch.platforms import resolve_device
@@ -188,7 +189,10 @@ class LLMEngine:
     ``fuse_deepseek_params`` for DeepSeek, ``fuse_llama_params`` (QKV and
     gate|up; Llama and Gemma share the layer schema, and Mixtral's expert
     stacks are raw tensors, so only its wq|wk|wv fuse) otherwise; pieces
-    that cannot fuse stay as they are. ``rolling_kv`` needs a model config
+    that cannot fuse stay as they are. A dense ``lm_head`` is converted
+    once to the model's dtype where that keeps its size
+    (``models.linear.cast_dense_head``: an int4 model's bf16 head under
+    f16 activations). ``rolling_kv`` needs a model config
     with a ``sliding_window``, which ``MoEConfig`` lacks, so Mixtral raises
     as in the JAX engine.
 
@@ -237,7 +241,7 @@ class LLMEngine:
             self._cap_tokens = self._page_cap * engine_config.page_size
         self.config = model_config
         fuse = fuse_deepseek_params if decode_fn is deepseek_decode_step else fuse_llama_params
-        self.params = fuse(params)
+        self.params = cast_dense_head(fuse(params), model_config.dtype)
         self._prefill_fn = prefill_fn or llama_prefill
         self._decode_fn = decode_fn or llama_decode_step
         self._verify_fn = verify_fn or llama_verify_forward

@@ -31,7 +31,10 @@ output; and the rolling-KV ring of K3 and K7, caught by their option
 sweeps' ring cases (``check_paged_ring_options``, ``check_varlen_ring_options``):
 a true page read at its own table entry (the ring's modulo dropped), K3's
 rows past the end of the ring not wrapped to its start, and a walk that
-starts at page 0 under a ring (the window band's start dropped).
+starts at page 0 under a ring (the window band's start dropped); and
+the f16 branches, caught by the option sweeps' f16 cases: K7's f16 MMA
+fed 1-byte cache rows widened to bf16 bits, and K3's merge storing an f16
+output as bf16 bits.
 The unchanged package must pass all the checks first, and
 every faulty copy must fail a check; the tool prints each run's check
 lines and exits non-zero otherwise.
@@ -65,6 +68,13 @@ K3_RING_ENTRY = (
     "  const int wrap = p.ring_pages > 0 ? p.ring_pages : INT_MAX;"
 )
 K3_RING_WRAP = "if (entry >= wrap) entry -= wrap;"
+K3_MERGE_STORE = "out[head * p.head_size + d] = from_float<T>(live > 0 ? a / l * p.v_scale : 0.0f);"
+K3_MERGE_STORE_BF16_BITS = (
+    "const float o = live > 0 ? a / l * p.v_scale : 0.0f;\n"
+    "    if constexpr (std::is_same_v<T, __half>) out[head * p.head_size + d] = "
+    "__ushort_as_half(__bfloat16_as_ushort(__float2bfloat16(o)));\n"
+    "    else out[head * p.head_size + d] = from_float<T>(o);"
+)
 GEMMA, OPTIONS, SERVED = "gemma_attention_phases", "check_paged_attention_options", "kernel_phase_k3_served"
 K7_OPTIONS = "check_varlen_attention_options"
 K11_OPTIONS = "check_mla_attention_options"
@@ -75,14 +85,14 @@ MUTANTS = {
         "varlen_attention.cu", K7_LOGIT,
         "x = p.softcap > 0.0f ? cap_log2 * tanhf(x / p.softcap) * p.scale : x * scale_log2;", GEMMA,
     ),
-    "k3_softcap_dropped": ("paged_attention.cu", K3_SCALE_THEN_CAP, "float x = warp_sum(part[g]) * p.scale;", GEMMA),
-    "k3_window_ignored": ("paged_attention.cu", K3_START, "const int kv_start = 0;", GEMMA),
+    "k3_softcap_dropped": ("paged_attention.cuh", K3_SCALE_THEN_CAP, "float x = warp_sum(part[g]) * p.scale;", GEMMA),
+    "k3_window_ignored": ("paged_attention.cuh", K3_START, "const int kv_start = 0;", GEMMA),
     "k3_ring_modulo_dropped": (
-        "paged_attention.cu", K3_RING_ENTRY, "const int entry0 = first;\n  const int wrap = INT_MAX;", OPTIONS,
+        "paged_attention.cuh", K3_RING_ENTRY, "const int entry0 = first;\n  const int wrap = INT_MAX;", OPTIONS,
     ),
-    "k3_ring_wrap_dropped": ("paged_attention.cu", K3_RING_WRAP, "(void)wrap;", OPTIONS),
+    "k3_ring_wrap_dropped": ("paged_attention.cuh", K3_RING_WRAP, "(void)wrap;", OPTIONS),
     "k3_ring_band_from_zero": (
-        "paged_attention.cu", K3_START, K3_START.replace("window > 0 ?", "window > 0 && p.ring_pages == 0 ?"),
+        "paged_attention.cuh", K3_START, K3_START.replace("window > 0 ?", "window > 0 && p.ring_pages == 0 ?"),
         OPTIONS,
     ),
     "k7_ring_modulo_dropped": ("varlen_attention.cu", RING_ENTRY, "bt_row[entry]", K7_OPTIONS),
@@ -103,9 +113,9 @@ MUTANTS = {
         "k0 + n - 1 < w_min_start || (p.window > 0 && k0 == t.lo)) continue;", K7_OPTIONS,
     ),
     "k7_merge_split_dropped": ("varlen_attention.cu", K7_SUM, K7_SUM.replace("z = 0", "z = 1"), K7_OPTIONS),
-    "k3_merge_split_dropped": ("paged_attention.cu", K3_SUM, K3_SUM.replace("z = 0", "z = 1"), OPTIONS),
-    "k3_merge_split_dropped_served": ("paged_attention.cu", K3_SUM, K3_SUM.replace("z = 0", "z = 1"), SERVED),
-    "k3_merge_rescale_skipped": ("paged_attention.cu", K3_WEIGHT, "w_s[z] = 1.0f;", OPTIONS),
+    "k3_merge_split_dropped": ("paged_attention.cuh", K3_SUM, K3_SUM.replace("z = 0", "z = 1"), OPTIONS),
+    "k3_merge_split_dropped_served": ("paged_attention.cuh", K3_SUM, K3_SUM.replace("z = 0", "z = 1"), SERVED),
+    "k3_merge_rescale_skipped": ("paged_attention.cuh", K3_WEIGHT, "w_s[z] = 1.0f;", OPTIONS),
     "k11_merge_split_dropped": (
         "mla_attention.cu", "for (int z0 = 0; z0 < live; z0 += 8) {", "for (int z0 = 1; z0 < live; z0 += 8) {",
         K11_OPTIONS,
@@ -118,6 +128,11 @@ MUTANTS = {
         "mla_attention.cu", "for (int row = total + i; row < end; ++row) put(row);", "(void)end;", K11_OPTIONS,
     ),
     "k11_kv_scale_not_in_output": ("mla_attention.cu", "p.v_scale = v_scale;", "p.v_scale = 1.0f;", K11_OPTIONS),
+    "k7_f16_fed_bf16_rows": (
+        "gemm_common.cuh", "if constexpr (std::is_same_v<T, __half>) return widen8_f16<C>(raw);",
+        "if constexpr (std::is_same_v<T, __half>) return widen8_bf16<C>(raw);", K7_OPTIONS,
+    ),
+    "k3_f16_out_as_bf16": ("paged_attention.cuh", K3_MERGE_STORE, K3_MERGE_STORE_BF16_BITS, OPTIONS),
 }
 
 

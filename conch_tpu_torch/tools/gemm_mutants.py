@@ -27,6 +27,10 @@ The faults:
 
 - ``k1_g32_scale_row_shifted``: K1 at group 32 scales each group of a
   slice by the next group's scale row (the slice's two rows swapped);
+- ``k1_f16_bf16_magic``: K1 under f16 x decodes the codes with bf16's
+  magic bits (0x4300), so the pairs read as f16 values far from 1024 + c;
+- ``k1_f16_scales_read_as_bf16``: K1 under f16 x reads f16 scales as bf16
+  bits;
 
 - ``k1b_gptq_rows``: K1b takes the planar words' bit fields in GPTQ order
   (field j % epp for k16 step j, not the field that holds its x values);
@@ -73,16 +77,29 @@ from conch_tpu_torch.tools.attention_mutants import BUILD_DIR, copy_package, run
 MUTANTS = {
     "k1_field_shift": (
         "mixed_gemm_magic.cu",
-        "uint32_t magic = ((word >> (4 * f)) & 0x000F000Fu) | 0x43004300u;",
-        "uint32_t magic = ((word >> (4 * (f ^ 1))) & 0x000F000Fu) | 0x43004300u;",
+        "uint32_t magic = ((word >> (4 * f)) & 0x000F000Fu) | Magic<T>::kBits;",
+        "uint32_t magic = ((word >> (4 * (f ^ 1))) & 0x000F000Fu) | Magic<T>::kBits;",
         "check_magic_gemm_options",
     ),
     "k1_g32_scale_row_shifted": (
         "mixed_gemm_magic.cu",
-        "        s2[q][0] = __bfloat162bfloat162(s[q * kCols + c]);\n"
-        "        s2[q][1] = __bfloat162bfloat162(s[q * kCols + c + 1]);",
-        "        s2[q][0] = __bfloat162bfloat162(s[((q + 1) % SR) * kCols + c]);\n"
-        "        s2[q][1] = __bfloat162bfloat162(s[((q + 1) % SR) * kCols + c + 1]);",
+        "        s2[q][0] = scale2(st.s, q, c);\n"
+        "        s2[q][1] = scale2(st.s, q, c + 1);",
+        "        s2[q][0] = scale2(st.s, (q + 1) % SR, c);\n"
+        "        s2[q][1] = scale2(st.s, (q + 1) % SR, c + 1);",
+        "check_magic_gemm_options",
+    ),
+    "k1_f16_bf16_magic": (
+        "mixed_gemm_magic.cu",
+        "  static constexpr uint32_t kBits = 0x64006400u;",
+        "  static constexpr uint32_t kBits = 0x43004300u;",
+        "check_magic_gemm_options",
+    ),
+    "k1_f16_scales_read_as_bf16": (
+        "mixed_gemm_magic.cu",
+        "      if (p.f16_scales) return __half2half2(reinterpret_cast<const __half*>(rows)[i]);",
+        "      if (p.f16_scales) return __float2half2_rn(\n"
+        "          __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(rows)[i]));",
         "check_magic_gemm_options",
     ),
     "k1b_g32_fold_skipped": (

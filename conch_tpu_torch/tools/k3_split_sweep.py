@@ -1,7 +1,7 @@
 # Copyright 2026 Conch-TPU authors.
 # SPDX-License-Identifier: Apache-2.0
 
-"""Time K3 (``csrc/paged_attention.cu``) at other split lengths and block
+"""Time K3 (``csrc/paged_attention.cuh``) at other split lengths and block
 shapes on the card.
 
     python3 -m conch_tpu_torch.tools.k3_split_sweep
@@ -28,7 +28,7 @@ import sys
 
 from conch_tpu_torch.tools.attention_mutants import BUILD_DIR, PACKAGE_DIR, REPO_ROOT
 
-# name -> edits (text, replacement) of csrc/paged_attention.cu
+# name -> edits (text, replacement) of csrc/paged_attention.cuh
 VARIANTS = {
     "as built": (),
     "4 stages": (("constexpr int kStages = 3;", "constexpr int kStages = 4;"),),
@@ -99,11 +99,11 @@ def main() -> int:
         root = BUILD_DIR / "k3_variants" / name.replace(" ", "_").replace(",", "")
         shutil.rmtree(root, ignore_errors=True)
         shutil.copytree(PACKAGE_DIR, root / PACKAGE_DIR.name, ignore=shutil.ignore_patterns("_build", "__pycache__"))
-        source = root / PACKAGE_DIR.name / "csrc" / "paged_attention.cu"
+        source = root / PACKAGE_DIR.name / "csrc" / "paged_attention.cuh"
         code = source.read_text()
         for text, new in edits:
             if code.count(text) != 1:
-                raise RuntimeError(f"{name}: {text!r} is not in paged_attention.cu exactly once")
+                raise RuntimeError(f"{name}: {text!r} is not in paged_attention.cuh exactly once")
             code = code.replace(text, new)
         source.write_text(code)
         env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(root), str(REPO_ROOT)])}

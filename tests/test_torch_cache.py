@@ -8,7 +8,8 @@ The stacked write (K2) and the per-layer prefill write go through both
 scatter) and ``conch_tpu_torch.ops.cache`` on ``device="cpu"``, from the
 same numpy inputs; the caches must agree exactly (a write is a copy).
 The pool has 3 layers and the write lands in a non-zero layer, so a
-wrong layer stride cannot go unnoticed.
+wrong layer stride cannot go unnoticed. K2's stacked write is held in
+f32, bf16 and f16 (an f16 store into an f16 cache is a copy, bit for bit).
 """
 
 import jax.numpy as jnp
@@ -22,8 +23,8 @@ from conch_tpu_torch.kernels.cache.reshape_and_cache import reshape_and_cache_st
 from conch_tpu_torch.ops.cache import reshape_and_cache, reshape_and_cache_stacked
 from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
-JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
-TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16, "float16": jnp.float16}
+TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 L, P, KH, PS, D = 3, 12, 2, 16, 128
 
 
@@ -40,7 +41,7 @@ def _to_np(x) -> np.ndarray:
 
 
 @pytest.mark.parametrize("layer", [1, 2])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_stacked_write_matches_jax(layer, dtype):
     """Decode-shaped write: one token per sequence, an idle row (slot -1),
     page 0 in use, entries off the 8-entry windows' starts. The JAX kernel

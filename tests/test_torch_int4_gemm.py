@@ -28,8 +28,8 @@ from conch_tpu_torch.models.linear import QuantizedLinear, quantize_linear
 from conch_tpu_torch.ops.quantization import mixed_precision_gemm
 from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
-JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
-TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16, "float16": jnp.float16}
+TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 L = 3
 
 
@@ -69,6 +69,35 @@ def test_gemm_matches_jax(m, k, n, dtype):
                                _to_torch(q.arrays["scales"]), None, 4, 8, 128, layout="magic")
     assert out.dtype == TORCH_DTYPES[dtype]
     _assert_close(out, ref, k)
+
+
+@pytest.mark.parametrize("m", [1, 8, 33])
+@pytest.mark.parametrize("scale_dtype", ["bfloat16", "float16"])
+def test_f16_gemm_matches_jax(m, scale_dtype):
+    """f16 x over bf16 scales (the JAX package's int4 init at an f16
+    model dtype) and over f16 scales (a GPTQ checkpoint's), with group 1
+    of the weight scaled down so that its scales lie near 1e-5, where a
+    scaled f16 weight is subnormal: a single weight and layer 1 of a
+    stack, f16 out."""
+    k, n = 512, 256
+    rng = np.random.default_rng(16 + m)
+    dense = [rng.normal(size=(k, n)).astype(np.float32) * 0.05 for _ in range(2)]
+    for w in dense:
+        w[128:256] *= 5e-4
+    layers = [JaxQuantizedLinear.int4_from_dense(w, 128) for w in dense]
+    packed = jnp.stack([q.arrays["packed"] for q in layers])
+    scales = jnp.stack([q.arrays["scales"] for q in layers]).astype(JAX_DTYPES[scale_dtype])
+    assert 1e-6 < float(jnp.abs(scales[:, 1].astype(jnp.float32)).max()) < 3e-5
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    xj, xt = jnp.asarray(x, jnp.float16), torch.from_numpy(x).to(torch.float16)
+    for layer in (None, 1):
+        pj, sj = (packed[1], scales[1]) if layer is None else (packed, scales)
+        li = {} if layer is None else {"layer_index": jnp.int32(layer)}
+        ref = jax_gemm(xj, pj, sj, None, 4, 8, 128, layout="magic", **li)
+        out = mixed_precision_gemm(xt, _to_torch(pj), _to_torch(sj), None, 4, 8, 128, layout="magic",
+                                   layer_index=layer)
+        assert out.dtype == torch.float16 and _to_torch(sj).dtype == TORCH_DTYPES[scale_dtype]
+        _assert_close(out, ref, k)
 
 
 @pytest.mark.parametrize("m", [1, 8, 33])

@@ -19,7 +19,10 @@ interpret mode) and the port's ops on ``device="cpu"``:
   of tests/paged_attention_test.py:95-99 and
   tests/varlen_attention_test.py:148-150; for int8 divided by 32, so the
   codes use the int8 range), bf16 queries at 3e-2 (also
-  tests/int8_kv_cache_test.py:58) and f32 queries over int8 at 2e-3, and a
+  tests/int8_kv_cache_test.py:58), f32 queries over int8 at 2e-3, f16
+  queries over int8 at the attention tests' f16 tolerances (K3 5e-3, K7
+  2e-3) and over e4m3 at 3e-2 (the JAX kernels compute there in bf16);
+  the stores from f16 keys byte for byte too; and a
   softcap-plus-window case at Gemma-2's head size 256 (against the JAX
   golden reference, to keep the file's interpret-mode compiles few);
 - K11 over int8 and e4m3 latent caches at tests/mla_attention_test.py:83's
@@ -61,8 +64,19 @@ PS = 16
 CACHE_DTYPES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
 KV_STRINGS = {"int8": "int8", "fp8": "fp8_e4m3"}
 TOLERANCES = {"float32": 2e-3, "bfloat16": 3e-2}
-TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+# f16 queries over int8: the JAX attention tests' f16 tolerances, K3's
+# (paged, 5e-3) and K7's (varlen, 2e-3). Over e4m3 the JAX kernels compute
+# in bf16 whatever the queries' dtype (``kv_mxu_dtype``: q and p rounded to
+# bf16), so there the bf16 tolerance holds.
+F16_TOLERANCES = {"paged": 5e-3, "varlen": 2e-3}
+
+
+def tolerance(op: str, cache: str, dtype: str) -> float:
+    if dtype == "float16" and cache == "int8":
+        return F16_TOLERANCES[op]
+    return TOLERANCES["bfloat16" if dtype == "float16" else dtype]
+TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16, "float16": jnp.float16}
 # (k_scale, v_scale) of the JAX tests' fp8 cases; int8 divides them by 32.
 PAGED_SCALES, VARLEN_SCALES = (1.5, 0.75), (1.25, 0.5)
 
@@ -152,7 +166,7 @@ def _store_inputs(rng, t, kh, d):
 
 
 @pytest.mark.parametrize("kind", ["stacked", "per_layer"])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("cache", ["int8", "fp8"])
 def test_quantized_store_matches_jax(cache, dtype, kind):
     """Decode-shaped write (one token per 8-entry window, as the JAX stacked
@@ -203,7 +217,8 @@ def _paged_case(rng, cache, dtype, seq_lens, qh, kh, d, gain=1.0, layers=2):
 # e4m3 (the JAX kernel rounds q and p to bf16 there) at 3e-2. Each case
 # costs a JAX interpret-mode compile of about 12 s; bf16 over int8 is held
 # in the softcap case below and in tests/test_torch_kv_quant_models.py.
-CASES = [("int8", "float32"), ("fp8", "bfloat16")]
+# f16 queries over both (``F16_TOLERANCES``).
+CASES = [("int8", "float32"), ("fp8", "bfloat16"), ("int8", "float16"), ("fp8", "float16")]
 
 
 @pytest.mark.parametrize("cache,dtype", CASES)
@@ -215,7 +230,7 @@ def test_paged_attention_quantized_matches_jax(cache, dtype):
                     v_scale=jnp.asarray([vs], jnp.float32), **{**kw, "layer_idx": jnp.asarray(1, jnp.int32)})
     out = paged_attention(q, kc, vc, bt, sl, k_scale=torch.tensor([ks]), v_scale=torch.tensor([vs]), **kw)
     assert out.dtype == q.dtype and torch.isfinite(out).all() and not out[-1].any()
-    tol = TOLERANCES[dtype]
+    tol = tolerance("paged", cache, dtype)
     np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32), atol=tol, rtol=tol)
     swapped = paged_attention(q, kc, vc, bt, sl, k_scale=torch.tensor([vs]), v_scale=torch.tensor([ks]), **kw)
     assert (swapped.float() - out.float()).abs().max() > 10 * tol  # a k/v scale swap shows
@@ -246,7 +261,7 @@ def test_varlen_attention_quantized_matches_jax(cache, dtype):
                            **{n: torch.tensor([s]) for n, s in scales.items()})
     total = int(cu[-1])
     assert out.dtype == q.dtype and torch.isfinite(out).all() and not out[total:].any()
-    tol = TOLERANCES[dtype]
+    tol = tolerance("varlen", cache, dtype)
     np.testing.assert_allclose(out[:total].float().numpy(), np.asarray(ref, np.float32)[:total], atol=tol, rtol=tol)
 
 

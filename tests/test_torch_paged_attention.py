@@ -5,7 +5,9 @@
 
 The same numpy inputs go through ``conch_tpu.ops.attention.paged_attention``
 (the Pallas kernel in interpret mode) and the port's op on
-``device="cpu"``. Tolerances are those of tests/paged_attention_test.py:21.
+``device="cpu"``, in f32, bf16 and f16 (the JAX launcher keeps f16 in
+interpret mode). Tolerances are those of tests/paged_attention_test.py:21
+and :52 (f16).
 Cases: an idle row (seq_len 0), lengths off page multiples, pages shared
 by two sequences (a prefix-cache hit), block-table entries past a
 sequence's pages left 0 (page 0 is a real page), and a 3-layer pool read
@@ -29,9 +31,9 @@ from conch_tpu_torch.ops.attention import paged_attention
 from conch_tpu_torch.reference.attention.attention import paged_attention as paged_reference
 from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
-TOLERANCES = {"float32": 2e-3, "bfloat16": 3e-2}
-JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
-TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+TOLERANCES = {"float32": 2e-3, "bfloat16": 3e-2, "float16": 5e-3}
+JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16, "float16": jnp.float16}
+TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 L, PS, MAX_PAGES = 3, 16, 8
 
 
@@ -53,7 +55,7 @@ def make_inputs(rng, seq_lens, num_q_heads, num_kv_heads, head_size, shared=(1, 
 
 
 @pytest.mark.parametrize("num_q_heads,num_kv_heads,head_size", [(4, 1, 128), (8, 2, 64)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_paged_attention_matches_jax(num_q_heads, num_kv_heads, head_size, dtype):
     rng = np.random.default_rng(21)
     q, kc, vc, bt, sl = make_inputs(rng, [37, 64, 1, 100, 0], num_q_heads, num_kv_heads, head_size, shared=(0, 1, 2))

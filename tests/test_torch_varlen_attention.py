@@ -5,7 +5,9 @@
 
 The same numpy inputs go through ``conch_tpu.ops.attention.varlen_attention``
 (the Pallas kernel in interpret mode) and the port's op on
-``device="cpu"``. Tolerances are those of tests/varlen_attention_test.py:25.
+``device="cpu"``, in f32, bf16 and f16 (the JAX launcher keeps f16 in
+interpret mode). Tolerances are those of tests/varlen_attention_test.py:25
+and :69 (f16).
 Cases, as the engine builds them: a mixed-in decode row, a fresh prompt,
 the trailing chunk of a longer prompt (q_len < seq_len), a chunk whose
 first pages are shared with another sequence, zero-length padding
@@ -23,9 +25,9 @@ from conch_tpu_torch.ops.attention import varlen_attention
 from conch_tpu_torch.reference.attention.attention import varlen_attention as varlen_reference
 from torch_cpu_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread a worker)
 
-TOLERANCES = {"float32": 2e-3, "bfloat16": 2e-2}
-JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
-TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+TOLERANCES = {"float32": 2e-3, "bfloat16": 2e-2, "float16": 2e-3}
+JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16, "float16": jnp.float16}
+TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 L, PS, MAX_PAGES = 3, 16, 8
 Q_LENS = [1, 23, 17, 9, 0, 0]
 SEQ_LENS = [70, 23, 50, 41, 0, 0]
@@ -48,7 +50,7 @@ def make_inputs(rng, num_q_heads, num_kv_heads, head_size):
 
 
 @pytest.mark.parametrize("num_q_heads,num_kv_heads,head_size", [(4, 1, 128), (8, 2, 64)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_varlen_attention_matches_jax(num_q_heads, num_kv_heads, head_size, dtype):
     rng = np.random.default_rng(31)
     q, kc, vc, cu, sl, bt = make_inputs(rng, num_q_heads, num_kv_heads, head_size)
